@@ -1,0 +1,18 @@
+# Copyright 2026 The TPU Accelerator Stack Authors.
+# SPDX-License-Identifier: Apache-2.0
+"""PyTorch/CUDA port of the compute half of the stack, for NVIDIA Hopper.
+
+Sits beside ``container_engine_accelerators_tpu`` (the JAX reference) and
+mirrors its module and function names, so each port function has an
+obvious counterpart. The port imports ``torch`` and nothing of JAX or of
+the JAX package; what it needs from there is copied.
+
+  ops/attention.py       flash-attention forward (hand-written CUDA kernel
+                         in ops/csrc/flash_fwd.cu) + its plain versions
+  models/transformer.py  Llama-style decoder, dense KV cache, generate()
+  models/weights.py      bridge from the JAX parameter pytree (tests)
+  models/serve_cli.py    HTTP serving daemon (/generate, /healthz)
+
+Entry points run on the CUDA device unless the caller passes
+``device="cpu"``; with no GPU and no such request they raise.
+"""

@@ -1,0 +1,87 @@
+# Copyright 2026 The TPU Accelerator Stack Authors.
+# SPDX-License-Identifier: Apache-2.0
+"""Where the serving time goes on the card: a torch.profiler breakdown.
+
+    python -m container_engine_accelerators_tpu_torch.models.serve_profile
+
+Builds full-width Llama-3-8B (random weights, seed 0) on the GPU, warms
+up, then profiles one bucketed prefill (a 1500-token prompt in the 2048
+bucket) and, separately, 16 decode steps after it. For each region it
+prints one JSON line: host wall time, summed device (kernel) time, the
+device's idle share of the wall time, and the ops with the most device
+time. The profiler's own host overhead inflates wall time, so the idle
+share is an upper bound; chip_smoke.py times the same path unprofiled.
+"""
+
+import json
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from container_engine_accelerators_tpu_torch.models import transformer as tf
+
+
+def _device_us(event):
+    return getattr(event, "self_device_time_total", None) or \
+        getattr(event, "self_cuda_time_total", 0)
+
+
+def _profiled(name, fn, top):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # Device-side kernel events only: a host op's own device time, and the
+    # device-side range the profiler annotates for it ("aten::mm" on the
+    # CUDA timeline), repeat the time of the kernels it launched.
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and _device_us(e) > 0
+              and not getattr(e, "is_user_annotation", False)]
+    busy_ms = sum(_device_us(e) for e in events) / 1e3
+    events.sort(key=_device_us, reverse=True)
+    print(json.dumps({
+        "phase": name, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": 1 - busy_ms / wall_ms if wall_ms else None,
+        "top": [{"op": e.key[:80], "device_ms": _device_us(e) / 1e3,
+                 "calls": e.count} for e in events[:top]],
+    }), flush=True)
+
+
+def main(top=12, decode_steps=16, prompt_len=1500):
+    device = tf.resolve_device("cuda")
+    cfg = tf.TransformerConfig.llama3_8b()
+    model = tf.init_params(cfg, device=device, seed=0)
+    rng = np.random.default_rng(0)
+    prompt = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (1, prompt_len)), device=device)
+    bucket = tf._length_bucket(prompt_len, cfg.max_seq_len)
+    padded = torch.nn.functional.pad(prompt, (0, bucket - prompt_len))
+    tf.generate(model, prompt, max_new_tokens=4)  # warm (kernel build)
+
+    state = {}
+
+    def run_prefill():
+        state["tok"], state["cache"] = tf.prefill(model, padded,
+                                                  true_len=prompt_len)
+
+    def run_decode():
+        tok = state["tok"]
+        for step in range(decode_steps):
+            logits = tf.decode_logits(model, state["cache"], tok,
+                                      prompt_len + step)
+            tok = logits.argmax(dim=-1)
+
+    _profiled("prefill_p1500", run_prefill, top)
+    _profiled(f"decode_{decode_steps}_steps", run_decode, top)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,416 @@
+# Copyright 2026 The TPU Accelerator Stack Authors.
+# SPDX-License-Identifier: Apache-2.0
+"""Llama-style decoder-only transformer, PyTorch port of the serving path.
+
+Port of ``container_engine_accelerators_tpu/models/transformer.py``:
+RMSNorm, rotary embeddings, grouped-query attention, SwiGLU MLP, tied
+output head, a dense KV cache and batched prefill + decode. Weights keep
+the JAX layout ((in, out) matrices, so every projection is ``x @ w``);
+the stacked layer dim becomes a ``ModuleList``. Prefill attention goes
+through ``ops.attention.flash_attention`` (the hand-written CUDA kernel
+on CUDA tensors, its plain version on CPU tensors); decode attention is
+plain PyTorch, as it is plain XLA in the JAX package.
+
+Not in this port yet: MoE FFNs, training, tensor/sequence parallelism
+and the paged cache (see ROADMAP.md).
+"""
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from container_engine_accelerators_tpu_torch.ops.attention import (
+    decode_attention,
+    flash_attention,
+    flash_fwd_reference,
+)
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    vocab_size: int = 32000
+    d_model: int = 512
+    n_layers: int = 4
+    n_heads: int = 8
+    n_kv_heads: int = 4
+    d_ff: int = 1408
+    max_seq_len: int = 2048
+    rope_theta: float = 10000.0
+    dtype: str = "bfloat16"
+    # Mixture-of-experts FFNs are not ported yet; n_experts > 0 raises.
+    n_experts: int = 0
+
+    @property
+    def head_dim(self):
+        return self.d_model // self.n_heads
+
+    @property
+    def torch_dtype(self):
+        return _DTYPES[self.dtype]
+
+    @classmethod
+    def llama3_8b(cls):
+        return cls(
+            vocab_size=128256, d_model=4096, n_layers=32, n_heads=32,
+            n_kv_heads=8, d_ff=14336, max_seq_len=8192, rope_theta=500000.0,
+        )
+
+
+def resolve_device(device="cuda"):
+    """The device an entry point runs on: ``cuda`` unless the caller asks
+    for the CPU. Raises when CUDA is asked for and absent; never drops to
+    the CPU on its own."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device available; pass device='cpu' to run on the CPU"
+        )
+    return device
+
+
+def _rms_norm(x, scale, eps=1e-5):
+    """f32 statistics, cast back to the activation dtype, then scale (the
+    JAX cast order, which matters in bf16)."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale
+
+
+def _rope(x, positions, theta):
+    """x: (B, H, S, hd), positions: (B, S). Rotates split halves (not
+    interleaved pairs) in f32."""
+    hd = x.shape[-1]
+    freqs = theta ** (
+        -torch.arange(0, hd // 2, dtype=torch.float32, device=x.device)
+        / (hd // 2)
+    )
+    angles = positions[:, None, :, None].float() * freqs
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, d, dtype, device):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(d, dtype=dtype, device=device),
+                                   requires_grad=False)
+
+    def forward(self, x):
+        return _rms_norm(x, self.weight)
+
+
+def _weight(d_in, d_out, dtype, device):
+    return nn.Parameter(
+        torch.empty(d_in, d_out, dtype=dtype, device=device),
+        requires_grad=False,
+    )
+
+
+class Attention(nn.Module):
+    """q/k/v/o projections + rope; the attention itself is chosen by the
+    caller (prefill: flash; decode: the dense cache)."""
+
+    def __init__(self, cfg, device):
+        super().__init__()
+        d, hd, dt = cfg.d_model, cfg.head_dim, cfg.torch_dtype
+        self.cfg = cfg
+        self.wq = _weight(d, cfg.n_heads * hd, dt, device)
+        self.wk = _weight(d, cfg.n_kv_heads * hd, dt, device)
+        self.wv = _weight(d, cfg.n_kv_heads * hd, dt, device)
+        self.wo = _weight(cfg.n_heads * hd, d, dt, device)
+
+    def qkv(self, h, positions):
+        """(B, S, D) → rope'd q (B, Hq, S, hd), rope'd k and v
+        (B, Hkv, S, hd), contiguous (the kernel's layout)."""
+        cfg = self.cfg
+        batch, seq, _ = h.shape
+        hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        q = (h @ self.wq).view(batch, seq, hq, hd).transpose(1, 2)
+        k = (h @ self.wk).view(batch, seq, hkv, hd).transpose(1, 2)
+        v = (h @ self.wv).view(batch, seq, hkv, hd).transpose(1, 2)
+        q = _rope(q, positions, cfg.rope_theta)
+        k = _rope(k, positions, cfg.rope_theta)
+        return q.contiguous(), k.contiguous(), v.contiguous()
+
+    def out(self, attn):
+        """(B, Hq, S, hd) → (B, S, D) residual update."""
+        batch, _, seq, _ = attn.shape
+        return attn.transpose(1, 2).reshape(batch, seq, -1) @ self.wo
+
+
+class FeedForward(nn.Module):
+    """Dense SwiGLU; SiLU runs in f32 and casts back before gate * up."""
+
+    def __init__(self, cfg, device):
+        super().__init__()
+        d, f, dt = cfg.d_model, cfg.d_ff, cfg.torch_dtype
+        self.w1 = _weight(d, f, dt, device)
+        self.w3 = _weight(d, f, dt, device)
+        self.w2 = _weight(f, d, dt, device)
+
+    def forward(self, h):
+        gate = torch.nn.functional.silu((h @ self.w1).float()).to(h.dtype)
+        return (gate * (h @ self.w3)) @ self.w2
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, cfg, device):
+        super().__init__()
+        dt = cfg.torch_dtype
+        self.ln1 = RMSNorm(cfg.d_model, dt, device)
+        self.attn = Attention(cfg, device)
+        self.ln2 = RMSNorm(cfg.d_model, dt, device)
+        self.ffn = FeedForward(cfg, device)
+
+    def forward(self, x, positions, attend):
+        """One block on (B, S, D). ``attend(q, k, v)`` maps the rope'd
+        q/k/v to (B, Hq, S, hd); returns (x, (k, v))."""
+        q, k, v = self.attn.qkv(self.ln1(x), positions)
+        x = x + self.attn.out(attend(q, k, v))
+        return x + self.ffn(self.ln2(x)), (k, v)
+
+
+class Transformer(nn.Module):
+    """The whole model. Parameters are created uninitialized on
+    ``device``; use ``init_params`` or ``models.weights.params_from_jax``
+    to fill them."""
+
+    def __init__(self, cfg, device):
+        super().__init__()
+        if cfg.n_experts:
+            raise NotImplementedError(
+                "MoE FFNs (n_experts > 0) are not ported yet; they belong "
+                "to the training slice of the port (ROADMAP.md)"
+            )
+        dt = cfg.torch_dtype
+        self.cfg = cfg
+        self.embed = nn.Parameter(
+            torch.empty(cfg.vocab_size, cfg.d_model, dtype=dt, device=device),
+            requires_grad=False,
+        )
+        self.layers = nn.ModuleList(
+            DecoderLayer(cfg, device) for _ in range(cfg.n_layers)
+        )
+        self.ln_f = RMSNorm(cfg.d_model, dt, device)
+
+    @property
+    def device(self):
+        return self.embed.device
+
+
+def init_params(cfg, device="cuda", seed=0):
+    """A Transformer with random weights drawn on ``device`` from a
+    ``torch.Generator`` seeded with ``seed``: the JAX ``init_params``
+    distributions and scales (normal * fan_in ** -0.5, embed * 0.02,
+    norms ones), drawn in f32 and cast, one tensor at a time — an 8B
+    model is never built on the host. The numbers differ from
+    ``jax.random``'s; tests bridge JAX's own weights instead."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = Transformer(cfg, device)
+
+    def fill(p, scale):
+        p.copy_(
+            torch.randn(p.shape, generator=gen, device=device) * scale
+        )
+
+    with torch.no_grad():
+        fill(model.embed, 0.02)
+        for layer in model.layers:
+            for w in (layer.attn.wq, layer.attn.wk, layer.attn.wv,
+                      layer.attn.wo, layer.ffn.w1, layer.ffn.w3,
+                      layer.ffn.w2):
+                fill(w, w.shape[0] ** -0.5)
+    return model
+
+
+def _flash_attend(q, k, v):
+    return flash_attention(q, k, v, causal=True)
+
+
+def _plain_attend(q, k, v):
+    out, _ = flash_fwd_reference(
+        q, k, v, causal=True, sm_scale=1.0 / (q.shape[-1] ** 0.5)
+    )
+    return out
+
+
+ATTN_IMPLS = {"flash": _flash_attend, "plain": _plain_attend}
+
+
+@torch.no_grad()
+def forward(model, tokens, positions=None, return_kv=False, logits_at=None,
+            attn_impl="flash"):
+    """tokens: (B, S) int → logits (B, S, vocab) float32.
+
+    ``return_kv=True`` also returns the rope'd K/V stacks
+    (L, B, Hkv, S, hd). ``logits_at`` restricts the head to one position:
+    "last" for S - 1 or an int index; logits become (B, 1, vocab).
+    ``attn_impl``: "flash" (the kernel on CUDA, its plain version on the
+    CPU) or "plain" (the plain version on any device: the comparison the
+    chip smoke makes)."""
+    batch, seq = tokens.shape
+    if positions is None:
+        positions = torch.arange(seq, device=tokens.device).expand(batch, seq)
+    attend = ATTN_IMPLS[attn_impl]
+    x = model.embed[tokens]
+    ks, vs = [], []
+    for layer in model.layers:
+        x, (k, v) = layer(x, positions, attend)
+        if return_kv:
+            ks.append(k)
+            vs.append(v)
+    if logits_at is not None:
+        # The norm is per position, so slicing before it is equivalent.
+        idx = seq - 1 if isinstance(logits_at, str) else int(logits_at)
+        x = x[:, idx:idx + 1]
+    logits = lm_head(x, model.ln_f.weight, model.embed)
+    if return_kv:
+        return logits, (torch.stack(ks), torch.stack(vs))
+    return logits
+
+
+def lm_head(x, ln_f, embed):
+    """Final norm + tied output head: (B, S, D) → f32 logits."""
+    return (_rms_norm(x, ln_f) @ embed.T).float()
+
+
+# -- serving (KV-cache decode) ------------------------------------------------
+
+def init_kv_cache(cfg, batch, device):
+    hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    shape = (cfg.n_layers, batch, hkv, cfg.max_seq_len, hd)
+    return {
+        "k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+        "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+    }
+
+
+def _length_bucket(n, cap):
+    """Smallest power of two ≥ n (min 16), capped at the context length."""
+    bucket = max(16, 1 << (n - 1).bit_length())
+    return min(bucket, cap)
+
+
+def _window_for(position_bound, cap):
+    """Attended-window size for a decode step: the power-of-two bucket of
+    the largest position it reaches, capped at the context length."""
+    return _length_bucket(max(int(position_bound), 1), cap)
+
+
+@torch.no_grad()
+def decode_logits(model, cache, tokens, position):
+    """One decode step at the shared scalar ``position`` → (B, V) logits.
+
+    JAX is functional and returns a new cache; here the step writes its
+    K/V into ``cache`` IN PLACE at slot ``position`` (a slice
+    assignment), then attends to the window [0, _window_for(position+1))
+    of the cache with length position + 1."""
+    cfg = model.cfg
+    batch = tokens.shape[0]
+    positions = torch.full((batch, 1), position, device=tokens.device)
+    window = _window_for(position + 1, cfg.max_seq_len)
+    x = model.embed[tokens][:, None, :]  # (B, 1, D)
+    for i, layer in enumerate(model.layers):
+        k_cache, v_cache = cache["k"][i], cache["v"][i]
+
+        def attend(q, k, v, k_cache=k_cache, v_cache=v_cache):
+            k_cache[:, :, position:position + 1] = k
+            v_cache[:, :, position:position + 1] = v
+            return decode_attention(
+                q, k_cache[:, :, :window], v_cache[:, :, :window],
+                position + 1,
+            )
+
+        x, _ = layer(x, positions, attend)
+    return lm_head(x, model.ln_f.weight, model.embed)[:, 0, :]
+
+
+@torch.no_grad()
+def prefill(model, prompt, true_len=None, return_logits=False):
+    """Single-pass batched prefill: one forward over the whole (B, P)
+    prompt; each layer's K/V land in a fresh cache at [0, P). With a
+    right-padded (bucketed) prompt, ``true_len`` is the real length and
+    the next token reads from position true_len - 1; decode overwrites
+    slot p before any query attends it. Returns (next_tokens, cache), or
+    ((B, V) logits, cache) with ``return_logits``."""
+    batch, prompt_len = prompt.shape
+    logits, (ks, vs) = forward(
+        model, prompt, return_kv=True,
+        logits_at="last" if true_len is None else true_len - 1,
+    )
+    cache = init_kv_cache(model.cfg, batch, prompt.device)
+    cache["k"][:, :, :, :prompt_len] = ks
+    cache["v"][:, :, :, :prompt_len] = vs
+    if return_logits:
+        return logits[:, -1, :], cache
+    return logits[:, -1, :].argmax(dim=-1), cache
+
+
+def sample_token(logits, generator, temperature=0.0, top_k=0, top_p=1.0):
+    """One sampling step on (B, V) logits → (B,) token ids.
+
+    ``temperature == 0`` is greedy argmax (first maximum, as in JAX).
+    ``top_k > 0`` keeps the k highest logits; ``top_p < 1`` keeps the
+    smallest set whose cumulative probability reaches top_p. Sampling is
+    the Gumbel-max form of JAX's ``random.categorical`` with noise from
+    ``generator``; the numbers differ from ``jax.random``'s for the same
+    seed, so sampled tokens differ between the two packages (greedy ones
+    do not)."""
+    if temperature == 0.0:
+        return logits.argmax(dim=-1)
+    logits = logits.float() / temperature
+    if top_k > 0:
+        kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+        logits = torch.where(logits < kth, torch.full_like(logits, -1e30),
+                             logits)
+    if top_p < 1.0:
+        sorted_desc = torch.sort(logits, dim=-1, descending=True).values
+        cum = torch.cumsum(torch.softmax(sorted_desc, dim=-1), dim=-1)
+        # First index where the cumulative mass reaches top_p: its logit
+        # is the inclusive threshold (the top-1 always stays).
+        cutoff = (cum < top_p).sum(dim=-1, keepdim=True)
+        kth = torch.gather(sorted_desc, -1, cutoff)
+        logits = torch.where(logits < kth, torch.full_like(logits, -1e30),
+                             logits)
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
+    return (logits + gumbel).argmax(dim=-1)
+
+
+@torch.no_grad()
+def generate(model, prompt, max_new_tokens=16, temperature=0.0, top_k=0,
+             top_p=1.0, generator=None):
+    """Generation: greedy by default; ``temperature > 0`` samples (see
+    sample_token) with noise from ``generator``. prompt: (B, P) int64 on
+    the model's device → (B, P + max_new_tokens).
+
+    The prompt is right-padded to its length bucket and prefilled once;
+    decode is a Python loop of ``decode_logits`` steps (PyTorch runs
+    eagerly, so the JAX package's fused scan segments have no
+    counterpart here)."""
+    cfg = model.cfg
+    batch, prompt_len = prompt.shape
+    if prompt_len + max_new_tokens > cfg.max_seq_len:
+        raise ValueError(
+            f"prompt ({prompt_len}) + max_new_tokens ({max_new_tokens}) "
+            f"exceeds max_seq_len ({cfg.max_seq_len})"
+        )
+    if temperature != 0.0 and generator is None:
+        raise ValueError("sampling (temperature > 0) needs a generator")
+    bucket = _length_bucket(prompt_len, cfg.max_seq_len)
+    padded = torch.nn.functional.pad(prompt, (0, bucket - prompt_len))
+    logits, cache = prefill(model, padded, true_len=prompt_len,
+                            return_logits=True)
+    pieces = [prompt]
+    for step in range(max_new_tokens):
+        if step:
+            logits = decode_logits(model, cache, tok, prompt_len + step - 1)
+        tok = sample_token(logits, generator, temperature, top_k, top_p)
+        pieces.append(tok[:, None])
+    return torch.cat(pieces, dim=1)

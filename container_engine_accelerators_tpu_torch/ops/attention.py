@@ -1,0 +1,195 @@
+# Copyright 2026 The TPU Accelerator Stack Authors.
+# SPDX-License-Identifier: Apache-2.0
+"""Flash attention for Hopper: the CUDA kernel's wrappers and plain versions.
+
+Port of ``container_engine_accelerators_tpu/ops/attention.py``. Public
+functions keep the JAX layout: q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D),
+grouped-query attention with ``Hq % Hkv == 0``.
+
+  flash_fwd           counterpart of ``_flash_fwd``: CPU tensors go to
+                      ``flash_fwd_reference``, CUDA tensors to the kernel
+                      in csrc/flash_fwd.cu (there is no fallback)
+  flash_attention     counterpart of ``flash_attention``
+  flash_fwd_reference plain version of the kernel (same masks, constants
+                      and bf16 rounding of p)
+  decode_attention    single-token attention over a dense KV cache
+  mha_reference       the plain oracle (GQA by repeating kv heads)
+
+``flash_fwd_launches`` counts kernel launches; it moves only where the
+wrapper launches the kernel.
+"""
+
+import torch
+
+# Finite, as in the JAX kernels: exp(NEG_INF - NEG_INF) = 1, never NaN.
+NEG_INF = -1e30
+
+# Kernel launches made by flash_fwd (CUDA tensors only).
+flash_fwd_launches = 0
+
+
+def mha_reference(q, k, v, causal=True, sm_scale=None):
+    """Plain multi-head attention (the oracle); GQA by repeating kv
+    heads. Scores and softmax in f32; the normalized probabilities are
+    cast to v's dtype before the PV product, as the JAX oracle does."""
+    if sm_scale is None:
+        sm_scale = 1.0 / (q.shape[-1] ** 0.5)
+    group = q.shape[1] // k.shape[1]
+    if group > 1:
+        k = k.repeat_interleave(group, dim=1)
+        v = v.repeat_interleave(group, dim=1)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    if causal:
+        seq_q, seq_k = s.shape[-2], s.shape[-1]
+        q_ids = torch.arange(seq_q, device=q.device)[:, None]
+        k_ids = torch.arange(seq_k, device=q.device)[None, :]
+        s = s.masked_fill(q_ids < k_ids, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.matmul(p.to(v.dtype).float(), v.float()).to(v.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, length):
+    """q: (B, Hq, 1, hd); caches (B, Hkv, S, hd); attend to [0, length).
+
+    ``length`` is a scalar or a (B,) vector. GQA without repeating the
+    caches: the query heads fold into a group dim against the shared K/V
+    heads. f32 scores, finite -1e30 mask."""
+    b, hq, _, hd = q.shape
+    hkv, seq = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(b, hkv, hq // hkv, hd).float()
+    s = torch.einsum("bhgd,bhkd->bhgk", qg, k_cache.float()) / (hd ** 0.5)
+    lengths = torch.as_tensor(length, device=q.device).expand(b)
+    mask = (
+        torch.arange(seq, device=q.device)[None, None, None, :]
+        < lengths[:, None, None, None]
+    )
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float())
+    return out.reshape(b, hq, 1, hd).to(q.dtype)
+
+
+def _visible(seq_q, seq_k, causal, q_base, k_base, kv_len, device):
+    """(Sq, Sk) bool: key column j is visible to query row i. The causal
+    compare is at GLOBAL positions (q_base + i >= k_base + j); columns at
+    or past ``kv_len`` are the masked tail."""
+    cols = torch.arange(seq_k, device=device)[None, :]
+    vis = cols < (seq_k if kv_len is None else kv_len)
+    if causal:
+        rows = torch.arange(seq_q, device=device)[:, None]
+        vis = vis & (q_base + rows >= k_base + cols)
+    return vis
+
+
+def flash_fwd_reference(q, k, v, *, causal, sm_scale, q_base=0, k_base=0,
+                        kv_len=None):
+    """Plain version of the flash forward → (out, lse).
+
+    out: (B, Hq, Sq, D) in q's dtype; lse: (B, Hq, Sq) f32. The same
+    arithmetic as the kernel: f32 scores scaled after the product,
+    finite NEG_INF masks, p = exp(s - m) cast to v's dtype before the
+    PV product with f32 accumulation, out = acc / max(l, 1e-30) and
+    lse = m + log(max(l, 1e-30)).
+
+    Masked keys contribute p = 0. A row that sees no key at all (every
+    key in its future, or all past ``kv_len``) gives out = 0 and
+    lse = -1e30. The JAX kernel agrees wherever its loop for the row is
+    empty; where a row is fully masked inside a tile it still visits,
+    the JAX kernel's exp(-1e30 - -1e30) = 1 averages v over that tile
+    instead (a value that depends on its block size and that ring
+    attention weights by exp(lse) ≈ 0). Rows that see at least one key
+    match the JAX kernel exactly up to summation order.
+
+    The score matrix is formed one kv head (its whole query group) at a
+    time, so an 8k × 8k causal call stays within a few GB."""
+    batch, num_q_heads, seq_q, d = q.shape
+    _, num_kv_heads, seq_k, _ = k.shape
+    group = num_q_heads // num_kv_heads
+    vis = _visible(seq_q, seq_k, causal, q_base, k_base, kv_len, q.device)
+    out = torch.empty_like(q)
+    lse = torch.empty(batch, num_q_heads, seq_q, dtype=torch.float32,
+                      device=q.device)
+    for h in range(num_kv_heads):
+        heads = slice(h * group, (h + 1) * group)
+        qh = q[:, heads].reshape(batch, group * seq_q, d).float()
+        kh = k[:, h].float()
+        s = torch.matmul(qh, kh.transpose(-1, -2)) * sm_scale
+        s = s.view(batch, group, seq_q, seq_k).masked_fill_(~vis, NEG_INF)
+        m = s.amax(dim=-1, keepdim=True)
+        p = s.sub_(m).exp_().masked_fill_(~vis, 0.0)
+        l_safe = p.sum(dim=-1, keepdim=True).clamp_min_(1e-30)
+        acc = torch.matmul(
+            p.to(v.dtype).float().view(batch, group * seq_q, seq_k),
+            v[:, h].float(),
+        ).view(batch, group, seq_q, d)
+        out[:, heads] = (acc / l_safe).to(q.dtype)
+        lse[:, heads] = (m + torch.log(l_safe)).squeeze(-1)
+    return out, lse
+
+
+def _check_attention_shapes(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(
+            f"expected q (B, Hq, Sq, D) and k/v (B, Hkv, Sk, D), got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    if q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3]:
+        raise ValueError(
+            f"q {tuple(q.shape)} and k {tuple(k.shape)} differ in batch "
+            f"or head dim"
+        )
+    if q.shape[1] % k.shape[1]:
+        raise ValueError(
+            f"num_q_heads {q.shape[1]} must be a multiple of num_kv_heads "
+            f"{k.shape[1]}"
+        )
+
+
+def flash_fwd(q, k, v, *, causal, sm_scale, q_base=0, k_base=0,
+              kv_len=None):
+    """Flash forward → (out, lse), the counterpart of JAX ``_flash_fwd``.
+
+    ``q_base``/``k_base`` (ints) place the given rows/columns at global
+    positions for the causal compare and the loop bound; ``kv_len``
+    masks key columns at or past it. CPU tensors take the plain version;
+    CUDA tensors launch the hand-written kernel (ops/csrc/flash_fwd.cu),
+    which raises on what it does not take: there is no fallback."""
+    global flash_fwd_launches
+    _check_attention_shapes(q, k, v)
+    devices = {q.device.type, k.device.type, v.device.type}
+    if devices == {"cpu"}:
+        return flash_fwd_reference(
+            q, k, v, causal=causal, sm_scale=sm_scale, q_base=q_base,
+            k_base=k_base, kv_len=kv_len,
+        )
+    if devices != {"cuda"}:
+        raise ValueError(f"q/k/v must all be on cpu or all on cuda, got "
+                         f"{q.device}, {k.device}, {v.device}")
+    from container_engine_accelerators_tpu_torch.ops import _ext
+
+    seq_k = k.shape[2]
+    kv_len = seq_k if kv_len is None else max(0, min(int(kv_len), seq_k))
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    if q.numel() == 0:
+        return out, lse
+    _ext.flash_fwd(
+        q, k, v, out, lse, causal=causal, sm_scale=sm_scale,
+        q_base=int(q_base), k_base=int(k_base), kv_len=kv_len,
+    )
+    flash_fwd_launches += 1
+    return out, lse
+
+
+def flash_attention(q, k, v, causal=True, sm_scale=None):
+    """Flash attention. q: (B, Hq, Sq, D), k/v: (B, Hkv, Sk, D).
+
+    Same results as the JAX wrapper for every shape. The JAX wrapper
+    end-pads unaligned sequences to a block multiple and masks the
+    padded keys (by position when causal with seq_q <= seq_k, else by
+    the kv_len tail mask); the CUDA kernel masks its ragged edges itself,
+    so here nothing is padded and keys past seq_k simply do not exist."""
+    if sm_scale is None:
+        sm_scale = 1.0 / (q.shape[-1] ** 0.5)
+    out, _ = flash_fwd(q, k, v, causal=causal, sm_scale=float(sm_scale))
+    return out
