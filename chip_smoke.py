@@ -6,20 +6,29 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
-each against its plain PyTorch version on the card, then serves
-full-width Llama-3-8B (all 32 layers, random weights from seed 0)
-through the port's HTTP server and checks that every prefill went
-through the kernel. Each phase prints one JSON line; a failed phase
-raises and the script exits non-zero before its last line, which is
-``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+each against its plain PyTorch version on the card, serves full-width
+Llama-3-8B (all 32 layers, random weights from seed 0) through the
+port's HTTP server, and trains it at full width (depth cut to 8 layers)
+through ``make_train_step``, checking that every prefill and every
+training step went through the kernels. Each phase prints one JSON line;
+a failed phase raises and the script exits non-zero before its last
+line, which is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 
-Phases: env, build, kernel (one line per case), small_parity (a tiny f32
-model on the card against the same weights on the CPU), serve, serve_logits
-(prefill logits through the kernel vs plain attention), kernels (the
-summary line), then the card's name and power limit, then the result.
+Phases: env, build, kernel (forward, one line per case), bwd_kernel
+(backward, one line per case), small_parity (a tiny f32 model on the card
+against the same weights on the CPU), serve, serve_logits (prefill logits
+through the kernel vs plain attention), train_grads (loss and every
+gradient through the kernels vs plain attention), train (5 timed steps),
+train_cli, kernels (the summary line), then the card's name and power
+limit, then the result.
 """
 
+import contextlib
+import dataclasses
+import gc
+import io
 import json
+import math
 import subprocess
 import sys
 import time
@@ -43,6 +52,33 @@ TOL = {
 # attention (both bf16): the per-layer one-step differences above feed
 # 32 bf16 residual blocks. Logits here have a spread of about 1.
 SERVE_LOGITS_ATOL = 0.25
+# Backward kernels against flash_bwd_reference on the same inputs, per
+# gradient (see grad_errors): the relative L2 error ||got - ref|| /
+# ||ref||, and the worst row (a query's dq, a key's dk or dv) against its
+# own norm plus the typical row norm, so a wrong tile of small late rows
+# or keys fails even where the first rows' gradients are large. bf16:
+# both round p and ds to bf16 at the same values, up to f32
+# summation-order noise in s and dp, and each writes one bf16 output (a
+# row differs by about 2^-9 of its norm, more where a few ds flip a bf16
+# step over 16384 keys); a 30 % wrong row reads 0.15 or more. f32:
+# summation order only. Each bwd_kernel line prints both readings.
+BWD_TOL = {
+    "bfloat16": {"rel_l2": 5e-3, "row": 1e-2},
+    "float32": {"rel_l2": 1e-5, "row": 1e-4},
+}
+# train_grads: the same bf16 model through the kernels and through plain
+# attention (mha_reference under autograd). The two round attention at
+# other places (normalized vs unnormalized p; autograd rounds dP to bf16
+# through the reference's casts), about one bf16 step per element, and
+# that passes through two layers' backward. Per parameter: relative L2
+# error and largest error over the largest |gradient|.
+TRAIN_GRAD_TOL = {"rel_l2": 3e-2, "max_rel": 1e-1, "loss_abs": 1e-2}
+# The result keys of the JAX package's train_cli for the transformer
+# (container_engine_accelerators_tpu/models/train_cli.py: _train_steps,
+# run_transformer and main).
+TRAIN_CLI_KEYS = {"loss", "start_step", "steps_run", "units_per_s",
+                  "mean_step_s", "est_mfu", "batch_size", "model", "steps",
+                  "n_devices", "wall_s"}
 
 
 def emit(obj):
@@ -73,19 +109,34 @@ def attended_pairs(seq_q, seq_k, causal, q_base=0, k_base=0, kv_len=None):
     )
 
 
+# Per visible (q, k) pair: FLOPs in units of D, and the tensors moved
+# once each, as (q-shaped, k-shaped, f32 rows of Sq) counts. Forward: QK^T
+# and PV; reads q, k, v, writes out and lse. dq: s, dp and ds.k; reads q,
+# dO, k, v, lse, delta, writes dq. dk/dv: s, dp, p^T.dO and ds^T.q; reads
+# q, dO, k, v, lse, delta, writes dk, dv. The whole backward (flash_bwd):
+# the five products a backward cannot avoid; reads q, dO, out (for delta),
+# k, v, lse, writes dq, dk, dv.
+WORK = {
+    "fwd": (4, 2, 2, 1),
+    "dq": (6, 3, 2, 2),
+    "dkv": (8, 2, 4, 2),
+    "bwd": (10, 4, 4, 1),
+}
+
+
 def flash_bound(batch, num_q_heads, num_kv_heads, seq_q, seq_k, d, dtype,
-                causal, q_base=0, k_base=0, kv_len=None):
-    """(bound_ms, bound_by) of one flash forward: the larger of
-    FLOPs / peak (4 * D per visible pair: QK^T and PV) and bytes / HBM
-    rate (q, k, v read once, out and the f32 lse written once)."""
+                causal, q_base=0, k_base=0, kv_len=None, kind="fwd"):
+    """(bound_ms, bound_by) of one flash call of ``kind`` (see WORK): the
+    larger of FLOPs / peak and bytes / HBM rate."""
+    flops_per_d, q_like, k_like, rows = WORK[kind]
     elt = 2 if dtype == "bfloat16" else 4
     pairs = batch * num_q_heads * attended_pairs(
         seq_q, seq_k, causal, q_base, k_base, kv_len
     )
-    flops = 4 * d * pairs
-    nbytes = elt * d * (2 * batch * num_q_heads * seq_q
-                        + 2 * batch * num_kv_heads * seq_k)
-    nbytes += 4 * batch * num_q_heads * seq_q
+    flops = flops_per_d * d * pairs
+    nbytes = elt * d * (q_like * batch * num_q_heads * seq_q
+                        + k_like * batch * num_kv_heads * seq_k)
+    nbytes += 4 * rows * batch * num_q_heads * seq_q
     peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_F32_FLOPS
     t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
     if t_ops >= t_bytes:
@@ -122,12 +173,17 @@ KERNEL_CASES = [
     ("causal_512_b2", 2, 512, 512, True, 0, 0, None, 32, 8, 128, "bfloat16"),
     ("causal_2048", 1, 2048, 2048, True, 0, 0, None, 32, 8, 128, "bfloat16"),
     ("causal_8192", 1, 8192, 8192, True, 0, 0, None, 32, 8, 128, "bfloat16"),
+    # Past 8192 keys the JAX package switches to its streaming forward.
+    ("causal_16384", 1, 16384, 16384, True, 0, 0, None, 32, 8, 128,
+     "bfloat16"),
     ("q_base_1536", 1, 512, 2048, True, 1536, 0, None, 32, 8, 128,
      "bfloat16"),
     ("noncausal_kv_len", 1, 300, 1000, False, 0, 0, 777, 32, 8, 128,
      "bfloat16"),
     ("future_keys", 1, 200, 200, True, 0, 150, None, 32, 8, 128, "bfloat16"),
     ("d64_unaligned", 2, 1000, 1000, True, 0, 0, None, 8, 2, 64, "bfloat16"),
+    # train_cli's default tiny model: head dim 32.
+    ("d32_train_cli", 2, 128, 128, True, 0, 0, None, 8, 4, 32, "bfloat16"),
     ("f32_q_base", 1, 100, 300, True, 250, 0, None, 8, 2, 128, "float32"),
     ("f32_d64_kv_len", 2, 77, 300, False, 0, 0, 250, 4, 1, 64, "float32"),
 ]
@@ -183,26 +239,165 @@ def run_kernel_case(case, torch, attention, gen):
     return row
 
 
-def library_ms(q, k, v, torch, attention, *, causal, sm_scale, q_base,
-               k_base, kv_len):
-    """Time of PyTorch's scaled_dot_product_attention on the same inputs
-    and mask, as a yardstick only (the port never calls it). None where
-    some row sees no key: there it computes another function (NaN)."""
-    sdpa = torch.nn.functional.scaled_dot_product_attention
+def _sdpa_mask(q, k, attention, causal, q_base, k_base, kv_len):
+    """scaled_dot_product_attention's mask arguments for the flash masks,
+    or None where some row sees no key: there it computes another
+    function (NaN)."""
     seq_q, seq_k = q.shape[2], k.shape[2]
     vis = attention._visible(seq_q, seq_k, causal, q_base, k_base, kv_len,
                              q.device)
     if not vis.any(dim=1).all():
         return None
     if causal and q_base == k_base and seq_q == seq_k and kv_len is None:
-        kw = {"is_causal": True}
-    elif not causal and kv_len is None:
-        kw = {}
-    else:
-        kw = {"attn_mask": vis}
+        return {"is_causal": True}
+    if not causal and kv_len is None:
+        return {}
+    return {"attn_mask": vis}
+
+
+def library_ms(q, k, v, torch, attention, *, causal, sm_scale, q_base,
+               k_base, kv_len):
+    """Time of PyTorch's scaled_dot_product_attention on the same inputs
+    and mask, as a yardstick only (the port never calls it)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kw = _sdpa_mask(q, k, attention, causal, q_base, k_base, kv_len)
+    if kw is None:
+        return None
     return time_ms(
         lambda: sdpa(q, k, v, scale=sm_scale, enable_gqa=True, **kw), torch
     )
+
+
+def library_bwd_ms(q, k, v, g, torch, attention, *, causal, sm_scale,
+                   q_base, k_base, kv_len):
+    """Time of the backward of scaled_dot_product_attention (autograd on
+    the same inputs and mask: dq, dk and dv together), a yardstick only."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kw = _sdpa_mask(q, k, attention, causal, q_base, k_base, kv_len)
+    if kw is None:
+        return None
+    qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = sdpa(*qkv, scale=sm_scale, enable_gqa=True, **kw)
+    return time_ms(
+        lambda: torch.autograd.grad(out, qkv, g, retain_graph=True), torch
+    )
+
+
+# Backward cases, the same tuple as KERNEL_CASES. S 16384 takes the JAX
+# package's streaming dq and dk/dv branches (and streaming forward);
+# "causal_8192" is the train phase's shape, reported on the kernels line.
+BWD_CASES = [
+    ("causal_2048", 1, 2048, 2048, True, 0, 0, None, 32, 8, 128, "bfloat16"),
+    ("causal_8192", 1, 8192, 8192, True, 0, 0, None, 32, 8, 128, "bfloat16"),
+    ("causal_16384", 1, 16384, 16384, True, 0, 0, None, 32, 8, 128,
+     "bfloat16"),
+    ("q_base_1536", 1, 512, 2048, True, 1536, 0, None, 32, 8, 128,
+     "bfloat16"),
+    ("noncausal_kv_len", 1, 300, 1000, False, 0, 0, 777, 32, 8, 128,
+     "bfloat16"),
+    ("future_keys", 1, 200, 200, True, 0, 150, None, 32, 8, 128, "bfloat16"),
+    ("d64_unaligned", 2, 1000, 1000, True, 0, 0, None, 8, 2, 64, "bfloat16"),
+    ("d32_train_cli", 2, 128, 128, True, 0, 0, None, 8, 4, 32, "bfloat16"),
+    ("f32_d128", 1, 512, 512, True, 0, 0, None, 8, 2, 128, "float32"),
+]
+BWD_MAIN_CASE = "causal_8192"
+
+
+def _rel_err(got, ref):
+    """Largest |got - ref| over the largest |ref| (1 where ref is 0)."""
+    err = (got.float() - ref.float()).abs().max().item()
+    return err, err / max(ref.float().abs().max().item(), 1e-30)
+
+
+def grad_errors(got, ref):
+    """(largest |got - ref|, ||got - ref|| / ||ref||, worst row) of one
+    gradient. Rows lie along the last axis; the worst row is the largest
+    ||got_r - ref_r|| / (||ref_r|| + m), m the median norm of the nonzero
+    rows of ref: each row is held to its own scale, and a row whose
+    gradient cancels to about 0 (a causal first query) to the typical
+    one."""
+    got, ref = got.float(), ref.float()
+    diff = got - ref
+    rel_l2 = (diff.norm() / ref.norm().clamp_min(1e-30)).item()
+    rows = ref.norm(dim=-1)
+    nonzero = rows[rows > 0]
+    typical = nonzero.median() if nonzero.numel() else rows.new_zeros(())
+    worst = (diff.norm(dim=-1) / (rows + typical).clamp_min(1e-30)).max()
+    return diff.abs().max().item(), rel_l2, worst.item()
+
+
+def run_bwd_case(case, torch, attention, _ext, gen):
+    (name, batch, seq_q, seq_k, causal, q_base, k_base, kv_len, hq, hkv, d,
+     dtype) = case
+    dt = getattr(torch, dtype)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dt)
+
+    q, k, v = rand(batch, hq, seq_q, d), rand(batch, hkv, seq_k, d), \
+        rand(batch, hkv, seq_k, d)
+    g = rand(batch, hq, seq_q, d)
+    kw = dict(causal=causal, sm_scale=d ** -0.5, q_base=q_base,
+              k_base=k_base, kv_len=kv_len)
+    out, lse = attention.flash_fwd(q, k, v, **kw)
+    grads = attention.flash_bwd(q, k, v, out, lse, g, **kw)
+    torch.cuda.synchronize()
+    ref = attention.flash_bwd_reference(q, k, v, out, lse, g, **kw)
+    row = {
+        "phase": "bwd_kernel", "case": name,
+        "shape": {"B": batch, "Hq": hq, "Hkv": hkv, "Sq": seq_q,
+                  "Sk": seq_k, "D": d},
+        "dtype": dtype, "causal": causal, "q_base": q_base,
+        "k_base": k_base, "kv_len": kv_len, "tol": BWD_TOL[dtype],
+    }
+    bad = []
+    for grad_name, got, want in zip(("dq", "dk", "dv"), grads, ref):
+        err, rel_l2, worst = grad_errors(got, want)
+        row[f"max_abs_err_{grad_name}"] = err
+        row[f"rel_l2_{grad_name}"] = rel_l2
+        row[f"worst_row_{grad_name}"] = worst
+        if not torch.isfinite(got.float()).all() or \
+                rel_l2 > BWD_TOL[dtype]["rel_l2"] or \
+                worst > BWD_TOL[dtype]["row"]:
+            bad.append(grad_name)
+    kv = seq_k if kv_len is None else kv_len
+    if grads[1][:, :, kv:].any() or grads[2][:, :, kv:].any():
+        bad.append("dk/dv past kv_len not 0")
+    blind = ~attention._visible(seq_q, seq_k, causal, q_base, k_base, kv_len,
+                                q.device).expand(seq_q, seq_k).any(dim=1)
+    row["rows_without_keys"] = int(blind.sum())
+    if grads[0][:, :, blind].any():
+        bad.append("dq of rows without keys not 0")
+    if bad:
+        emit(row)
+        fail(f"bwd case {name} disagrees with flash_bwd_reference: {bad}")
+    del ref, grads
+
+    delta = (out.float() * g.float()).sum(dim=-1)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    ext_kw = dict(kw, kv_len=kv)
+    row["dq_ms"] = time_ms(
+        lambda: _ext.flash_bwd_dq(q, k, v, g, lse, delta, dq, **ext_kw), torch)
+    row["dkv_ms"] = time_ms(
+        lambda: _ext.flash_bwd_dkv(q, k, v, g, lse, delta, dk, dv, **ext_kw),
+        torch)
+    row["bwd_ms"] = time_ms(
+        lambda: attention.flash_bwd(q, k, v, out, lse, g, **kw), torch)
+    # Plain versions: each kernel's own outputs, and the whole backward.
+    for kind, only in (("dq", "dq"), ("dkv", "dkv"), ("bwd", None)):
+        row[f"{kind}_plain_ms"] = time_ms(
+            lambda only=only: attention.flash_bwd_reference(
+                q, k, v, out, lse, g, only=only, **kw),
+            torch, budget_ms=100.0,
+        )
+    for kind in ("dq", "dkv", "bwd"):
+        row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = flash_bound(
+            batch, hq, hkv, seq_q, seq_k, d, dtype, causal, q_base, k_base,
+            kv_len, kind=kind,
+        )
+    row["library_ms"] = library_bwd_ms(q, k, v, g, torch, attention, **kw)
+    emit(row)
+    return row
 
 
 def small_parity(torch, tf, attention):
@@ -216,8 +411,9 @@ def small_parity(torch, tf, attention):
     cpu.load_state_dict({k: t.cpu() for k, t in gpu.state_dict().items()})
     prompt = torch.arange(3, 40)[None, :] % cfg.vocab_size
     before = attention.flash_fwd_launches
-    lg = tf.forward(gpu, prompt.cuda()).cpu()
-    lc = tf.forward(cpu, prompt)
+    with torch.inference_mode():
+        lg = tf.forward(gpu, prompt.cuda()).cpu()
+        lc = tf.forward(cpu, prompt)
     tg = tf.generate(gpu, prompt.cuda(), max_new_tokens=8).cpu()
     tc = tf.generate(cpu, prompt, max_new_tokens=8)
     err = (lg - lc).abs().max().item()
@@ -294,9 +490,10 @@ def serve(torch, np, tf, serve_cli, attention, card):
     })
 
     toks = torch.as_tensor(p1500, device="cuda")
-    flash = tf.forward(model.model, toks, logits_at="last")
-    plain = tf.forward(model.model, toks, logits_at="last",
-                       attn_impl="plain")
+    with torch.inference_mode():
+        flash = tf.forward(model.model, toks, logits_at="last")
+        plain = tf.forward(model.model, toks, logits_at="last",
+                           attn_impl="plain")
     err = (flash - plain).abs().max().item()
     emit({
         "phase": "serve_logits", "prompt_len": 1500,
@@ -311,6 +508,150 @@ def serve(torch, np, tf, serve_cli, attention, card):
     return launches
 
 
+def _free(torch):
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_grads(torch, np, tf, attention):
+    """Loss and every parameter's gradient of full-width Llama-3-8B (2
+    layers, bf16, B 1, S 2048) through the kernels vs the same model with
+    plain attention (mha_reference under autograd)."""
+    cfg = dataclasses.replace(tf.TransformerConfig.llama3_8b(), n_layers=2)
+    model = tf.init_params(cfg, device="cuda", seed=0)
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (1, 2049))
+    batch = {"tokens": torch.as_tensor(tokens, device="cuda")}
+
+    def loss_and_grads(attn_impl):
+        model.zero_grad(set_to_none=True)
+        loss = tf.loss_fn(model, batch, attn_impl=attn_impl)
+        loss.backward()
+        return loss.item(), {n: p.grad for n, p in model.named_parameters()}
+
+    before = [attention.flash_fwd_launches, attention.flash_dq_launches,
+              attention.flash_dkv_launches]
+    loss_k, grads_k = loss_and_grads("flash")
+    launches = [attention.flash_fwd_launches - before[0],
+                attention.flash_dq_launches - before[1],
+                attention.flash_dkv_launches - before[2]]
+    grads_k = {n: g.clone() for n, g in grads_k.items()}
+    loss_r, grads_r = loss_and_grads("reference")
+    worst_l2, worst_max, worst_name, bad = 0.0, 0.0, None, []
+    for name, ref in grads_r.items():
+        got = grads_k[name].float()
+        ref = ref.float()
+        rel_l2 = ((got - ref).norm() / ref.norm().clamp_min(1e-30)).item()
+        _, max_rel = _rel_err(got, ref)
+        if not torch.isfinite(got).all() or \
+                rel_l2 > TRAIN_GRAD_TOL["rel_l2"] or \
+                max_rel > TRAIN_GRAD_TOL["max_rel"]:
+            bad.append(name)
+        if rel_l2 > worst_l2:
+            worst_l2, worst_name = rel_l2, name
+        worst_max = max(worst_max, max_rel)
+    row = {
+        "phase": "train_grads", "model": "llama3-8b", "n_layers": 2,
+        "batch": 1, "seq_len": 2048, "dtype": "bfloat16",
+        "loss_kernels": loss_k, "loss_plain": loss_r,
+        "n_params_compared": len(grads_r), "worst_rel_l2": worst_l2,
+        "worst_rel_l2_param": worst_name, "worst_max_rel": worst_max,
+        "tol": TRAIN_GRAD_TOL, "launches_fwd_dq_dkv": launches,
+    }
+    emit(row)
+    if bad or abs(loss_k - loss_r) > TRAIN_GRAD_TOL["loss_abs"] or \
+            not math.isfinite(loss_k):
+        fail(f"gradients through the kernels disagree with plain attention "
+             f"for {bad or 'the loss'}")
+    if launches != [cfg.n_layers] * 3:
+        fail(f"train_grads launched fwd/dq/dkv {launches} times, want "
+             f"{cfg.n_layers} each")
+
+
+def train(torch, np, tf, attention, card, n_layers=8, steps=5):
+    """The training slice's main path: full-width Llama-3-8B cut to
+    ``n_layers``, bf16, B 1 at the model's full context (8192), through
+    make_train_step (AdamW, per-layer remat). One warm-up step, then
+    ``steps`` timed steps with the kernel counts at zero before them.
+    Returns the counts (fwd, dq, dkv)."""
+    cfg = dataclasses.replace(tf.TransformerConfig.llama3_8b(),
+                              n_layers=n_layers)
+    seq = cfg.max_seq_len
+    init_state, train_step = tf.make_train_step(cfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(seed=0)
+    n_params = sum(p.numel() for p in state[0].parameters())
+
+    def batch(step):
+        rng = np.random.default_rng(1 + step)
+        return {"tokens": torch.as_tensor(
+            rng.integers(0, cfg.vocab_size, (1, seq + 1)), device="cuda")}
+
+    t0 = time.perf_counter()
+    state, loss = train_step(state, batch(0))
+    warm = [loss.item()]
+    warm_s = time.perf_counter() - t0
+    # Random tied weights: the logits are about N(0, d_model * 0.02^2)
+    # (unit-RMS normed states against N(0, 0.02^2) embeddings), so the
+    # first loss is about ln(V) + d_model * 0.02^2 / 2.
+    expected = math.log(cfg.vocab_size) + cfg.d_model * 0.02 ** 2 / 2
+
+    attention.flash_fwd_launches = 0
+    attention.flash_dq_launches = 0
+    attention.flash_dkv_launches = 0
+    losses, step_s = [], []
+    for step in range(1, steps + 1):
+        b = batch(step)
+        t0 = time.perf_counter()
+        state, loss = train_step(state, b)
+        losses.append(loss.item())
+        step_s.append(time.perf_counter() - t0)
+    launches = (attention.flash_fwd_launches, attention.flash_dq_launches,
+                attention.flash_dkv_launches)
+    mean_s = sum(step_s) / len(step_s)
+    row = {
+        "phase": "train", **card, "model": "llama3-8b",
+        "n_layers": n_layers, "n_layers_full": 32,
+        "depth_cut": f"{n_layers} of 32 layers: bf16 params, grads and two "
+                     f"AdamW moments of all 32 would need ~64 GB before "
+                     f"activations",
+        "batch": 1, "seq_len": seq, "dtype": "bfloat16", "remat": True,
+        "n_params": n_params, "warmup_loss": warm[0],
+        "warmup_s": warm_s, "expected_first_loss": expected,
+        "ln_vocab": math.log(cfg.vocab_size),
+        "losses": losses, "step_ms": [t * 1e3 for t in step_s],
+        "mean_step_ms": mean_s * 1e3, "tokens_per_s": seq / mean_s,
+        "est_mfu": 6.0 * n_params * seq / mean_s / PEAK_BF16_FLOPS,
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                             launches)),
+        "launches_per_step_want": [2 * n_layers, n_layers, n_layers],
+    }
+    emit(row)
+    if not all(math.isfinite(x) for x in warm + losses):
+        fail("non-finite training loss")
+    if abs(warm[0] - expected) > 0.5:
+        fail(f"first loss {warm[0]} is not within 0.5 of {expected}")
+    want = (2 * n_layers * steps, n_layers * steps, n_layers * steps)
+    if launches != want:
+        fail(f"{steps} steps launched fwd/dq/dkv {launches} times, want "
+             f"{want} (remat: the forward twice per layer and step)")
+    return launches
+
+
+def train_cli_phase(train_cli):
+    """The port's train_cli at its default tiny flags on the card."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = train_cli.main(["--model", "transformer", "--steps", "3"])
+    result = json.loads(out.getvalue().strip().splitlines()[-1])
+    emit({"phase": "train_cli", "rc": rc, "result": result})
+    if rc != 0 or set(result) != TRAIN_CLI_KEYS:
+        fail(f"train_cli: rc {rc}, keys {sorted(result)}, want "
+             f"{sorted(TRAIN_CLI_KEYS)}")
+    if not math.isfinite(result["loss"]) or result["steps_run"] != 3:
+        fail("train_cli: no finite loss after 3 steps")
+
+
 def main():
     import torch
 
@@ -321,15 +662,17 @@ def main():
     import numpy as np
 
     from container_engine_accelerators_tpu_torch.models import serve_cli
+    from container_engine_accelerators_tpu_torch.models import train_cli
     from container_engine_accelerators_tpu_torch.models import transformer as tf
     from container_engine_accelerators_tpu_torch.ops import _ext, attention
 
-    # Plain versions compute in full f32 (no TF32), as the kernel does.
+    # Plain versions compute in full f32 (no TF32), as the kernels do.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi_line()
     name, power = [s.strip() for s in smi.split(",", 1)]
-    emit({"phase": "env", "gpu": name, "power_limit": power,
+    card = {"gpu": name, "power_limit": power}
+    emit({"phase": "env", **card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0]})
 
@@ -344,26 +687,75 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {c[0]: run_kernel_case(c, torch, attention, gen)
             for c in KERNEL_CASES}
+    bwd_rows = {c[0]: run_bwd_case(c, torch, attention, _ext, gen)
+                for c in BWD_CASES}
+    _free(torch)
     small_parity(torch, tf, attention)
-    launches = serve(torch, np, tf, serve_cli, attention,
-                     {"gpu": name, "power_limit": power})
+    serve_launches = serve(torch, np, tf, serve_cli, attention, card)
+    _free(torch)
+    train_grads(torch, np, tf, attention)
+    _free(torch)
+    fwd_train, dq_train, dkv_train = train(torch, np, tf, attention, card)
+    _free(torch)
+    train_cli_phase(train_cli)
 
-    main_row = rows[MAIN_CASE]
-    emit({"kernels": [{
-        "name": "flash_fwd",
-        "route": "cuda",
-        "source": "container_engine_accelerators_tpu_torch/ops/csrc/"
-                  "flash_fwd.cu",
-        "replaces": "container_engine_accelerators_tpu/ops/attention.py:136",
-        "launches": launches,
-        "max_abs_err": main_row["max_abs_err_out"],
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-        "shape": main_row["shape"],
-    }]})
+    src = "container_engine_accelerators_tpu_torch/ops/csrc/"
+    replaces = "container_engine_accelerators_tpu/ops/attention.py:"
+    main_row, bwd_row = rows[MAIN_CASE], bwd_rows[BWD_MAIN_CASE]
+    # No one PyTorch call computes dq alone or dk/dv alone (the library's
+    # attention backward gives all three), so the two backward kernels
+    # have no library_ms; "flash_bwd" beside the list holds the whole
+    # backward (both kernels and delta) against the library's.
+    emit({"kernels": [
+        {
+            "name": "flash_fwd", "route": "cuda",
+            "source": src + "flash_fwd.cu",
+            "replaces": replaces + "136",
+            "launches": serve_launches + fwd_train,
+            "launches_by_path": {"serve": serve_launches,
+                                 "train": fwd_train},
+            "max_abs_err": main_row["max_abs_err_out"],
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"],
+            "library_ms": main_row["library_ms"],
+            "shape": main_row["shape"],
+        },
+        {
+            "name": "flash_bwd_dq", "route": "cuda",
+            "source": src + "flash_bwd.cu",
+            "replaces": replaces + "203",
+            "launches": dq_train,
+            "max_abs_err": bwd_row["max_abs_err_dq"],
+            "ms": bwd_row["dq_ms"], "plain_ms": bwd_row["dq_plain_ms"],
+            "bound_ms": bwd_row["dq_bound_ms"],
+            "bound_by": bwd_row["dq_bound_by"],
+            "library_ms": None,
+            "shape": bwd_row["shape"],
+        },
+        {
+            "name": "flash_bwd_dkv", "route": "cuda",
+            "source": src + "flash_bwd.cu",
+            "replaces": replaces + "255",
+            "launches": dkv_train,
+            "max_abs_err": max(bwd_row["max_abs_err_dk"],
+                               bwd_row["max_abs_err_dv"]),
+            "ms": bwd_row["dkv_ms"], "plain_ms": bwd_row["dkv_plain_ms"],
+            "bound_ms": bwd_row["dkv_bound_ms"],
+            "bound_by": bwd_row["dkv_bound_by"],
+            "library_ms": None,
+            "shape": bwd_row["shape"],
+        },
+    ], "flash_bwd": {
+        "source": src + "flash_bwd.cu",
+        "replaces": replaces + "771",
+        "calls": dq_train,
+        "ms": bwd_row["bwd_ms"], "plain_ms": bwd_row["bwd_plain_ms"],
+        "bound_ms": bwd_row["bwd_bound_ms"],
+        "bound_by": bwd_row["bwd_bound_by"],
+        "library_ms": bwd_row["library_ms"],
+        "shape": bwd_row["shape"],
+    }})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

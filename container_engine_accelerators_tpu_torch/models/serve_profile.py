@@ -8,8 +8,9 @@ Builds full-width Llama-3-8B (random weights, seed 0) on the GPU, warms
 up, then profiles one bucketed prefill (a 1500-token prompt in the 2048
 bucket) and, separately, 16 decode steps after it. For each region it
 prints one JSON line: host wall time, summed device (kernel) time, the
-device's idle share of the wall time, and the ops with the most device
-time. The profiler's own host overhead inflates wall time, so the idle
+device's idle share of the wall time, the ops with the most device time
+and the device time by kind (the port's flash kernels, matrix products,
+the rest). The profiler's own host overhead inflates wall time, so the idle
 share is an upper bound; chip_smoke.py times the same path unprofiled.
 """
 
@@ -30,6 +31,22 @@ def _device_us(event):
         getattr(event, "self_cuda_time_total", 0)
 
 
+# Kernel-name fragments by kind, for the grouped split: the port's flash
+# kernels, cuBLAS/CUTLASS products, and everything else (elementwise,
+# reductions, copies, the optimizer's foreach kernels).
+_KINDS = (
+    ("flash_fwd", ("flash_fwd",)),
+    ("flash_bwd_dq", ("flash_bwd_dq",)),
+    ("flash_bwd_dkv", ("flash_bwd_dkv",)),
+    ("matmul", ("nvjet", "gemm", "cutlass", "xmma", "sm90_")),
+)
+
+
+def _kind(key):
+    return next((kind for kind, frags in _KINDS
+                 if any(f in key for f in frags)), "other")
+
+
 def _profiled(name, fn, top):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -46,12 +63,19 @@ def _profiled(name, fn, top):
               and not getattr(e, "is_user_annotation", False)]
     busy_ms = sum(_device_us(e) for e in events) / 1e3
     events.sort(key=_device_us, reverse=True)
-    print(json.dumps({
+    row = {
         "phase": name, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1 - busy_ms / wall_ms if wall_ms else None,
         "top": [{"op": e.key[:80], "device_ms": _device_us(e) / 1e3,
                  "calls": e.count} for e in events[:top]],
-    }), flush=True)
+    }
+    by_kind = row["by_kind"] = {}
+    for e in events:
+        kind = by_kind.setdefault(_kind(e.key), {"device_ms": 0.0,
+                                                 "calls": 0})
+        kind["device_ms"] += _device_us(e) / 1e3
+        kind["calls"] += e.count
+    print(json.dumps(row), flush=True)
 
 
 def main(top=12, decode_steps=16, prompt_len=1500):

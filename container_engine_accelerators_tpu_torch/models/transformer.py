@@ -1,29 +1,35 @@
 # Copyright 2026 The TPU Accelerator Stack Authors.
 # SPDX-License-Identifier: Apache-2.0
-"""Llama-style decoder-only transformer, PyTorch port of the serving path.
+"""Llama-style decoder-only transformer, PyTorch port of the serving and
+single-device training paths.
 
 Port of ``container_engine_accelerators_tpu/models/transformer.py``:
 RMSNorm, rotary embeddings, grouped-query attention, SwiGLU MLP, tied
-output head, a dense KV cache and batched prefill + decode. Weights keep
-the JAX layout ((in, out) matrices, so every projection is ``x @ w``);
-the stacked layer dim becomes a ``ModuleList``. Prefill attention goes
-through ``ops.attention.flash_attention`` (the hand-written CUDA kernel
-on CUDA tensors, its plain version on CPU tensors); decode attention is
-plain PyTorch, as it is plain XLA in the JAX package.
+output head, a dense KV cache and batched prefill + decode, and the
+training step (``loss_fn``, ``make_train_step``). Weights keep the JAX
+layout ((in, out) matrices, so every projection is ``x @ w``); the
+stacked layer dim becomes a ``ModuleList``. Prefill and training
+attention go through ``ops.attention.flash_attention`` (the hand-written
+CUDA kernels, forward and backward, on CUDA tensors; their plain
+versions on CPU tensors); decode attention is plain PyTorch, as it is
+plain XLA in the JAX package. Parameters are trainable; the serving
+entry points run under ``torch.inference_mode()``.
 
-Not in this port yet: MoE FFNs, training, tensor/sequence parallelism
-and the paged cache (see ROADMAP.md).
+Not in this port yet: MoE FFNs, tensor/sequence/pipeline parallelism,
+ring attention and the paged cache (see ROADMAP.md).
 """
 
 import dataclasses
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from container_engine_accelerators_tpu_torch.ops.attention import (
     decode_attention,
     flash_attention,
     flash_fwd_reference,
+    mha_reference,
 )
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -97,18 +103,14 @@ def _rope(x, positions, theta):
 class RMSNorm(nn.Module):
     def __init__(self, d, dtype, device):
         super().__init__()
-        self.weight = nn.Parameter(torch.ones(d, dtype=dtype, device=device),
-                                   requires_grad=False)
+        self.weight = nn.Parameter(torch.ones(d, dtype=dtype, device=device))
 
     def forward(self, x):
         return _rms_norm(x, self.weight)
 
 
 def _weight(d_in, d_out, dtype, device):
-    return nn.Parameter(
-        torch.empty(d_in, d_out, dtype=dtype, device=device),
-        requires_grad=False,
-    )
+    return nn.Parameter(torch.empty(d_in, d_out, dtype=dtype, device=device))
 
 
 class Attention(nn.Module):
@@ -185,13 +187,12 @@ class Transformer(nn.Module):
         if cfg.n_experts:
             raise NotImplementedError(
                 "MoE FFNs (n_experts > 0) are not ported yet; they belong "
-                "to the training slice of the port (ROADMAP.md)"
+                "to a later slice of the port (ROADMAP.md)"
             )
         dt = cfg.torch_dtype
         self.cfg = cfg
         self.embed = nn.Parameter(
-            torch.empty(cfg.vocab_size, cfg.d_model, dtype=dt, device=device),
-            requires_grad=False,
+            torch.empty(cfg.vocab_size, cfg.d_model, dtype=dt, device=device)
         )
         self.layers = nn.ModuleList(
             DecoderLayer(cfg, device) for _ in range(cfg.n_layers)
@@ -240,20 +241,27 @@ def _plain_attend(q, k, v):
     return out
 
 
-ATTN_IMPLS = {"flash": _flash_attend, "plain": _plain_attend}
+def _reference_attend(q, k, v):
+    return mha_reference(q, k, v, causal=True)
 
 
-@torch.no_grad()
+ATTN_IMPLS = {"flash": _flash_attend, "plain": _plain_attend,
+              "reference": _reference_attend}
+
+
 def forward(model, tokens, positions=None, return_kv=False, logits_at=None,
-            attn_impl="flash"):
-    """tokens: (B, S) int → logits (B, S, vocab) float32.
+            attn_impl="flash", remat=False):
+    """tokens: (B, S) int → logits (B, S, vocab) float32; differentiable.
 
     ``return_kv=True`` also returns the rope'd K/V stacks
     (L, B, Hkv, S, hd). ``logits_at`` restricts the head to one position:
     "last" for S - 1 or an int index; logits become (B, 1, vocab).
-    ``attn_impl``: "flash" (the kernel on CUDA, its plain version on the
-    CPU) or "plain" (the plain version on any device: the comparison the
-    chip smoke makes)."""
+    ``attn_impl``: "flash" (the kernels on CUDA, their plain versions on
+    the CPU), "plain" (the forward kernel's plain version on any device:
+    the comparison the chip smoke makes for serving; not differentiable)
+    or "reference" (``mha_reference``, the plain oracle, differentiable by
+    autograd: the comparison for gradients). ``remat=True`` checkpoints
+    each layer (its activations are recomputed in the backward pass)."""
     batch, seq = tokens.shape
     if positions is None:
         positions = torch.arange(seq, device=tokens.device).expand(batch, seq)
@@ -261,7 +269,11 @@ def forward(model, tokens, positions=None, return_kv=False, logits_at=None,
     x = model.embed[tokens]
     ks, vs = [], []
     for layer in model.layers:
-        x, (k, v) = layer(x, positions, attend)
+        if remat:
+            x, (k, v) = checkpoint(layer, x, positions, attend,
+                                   use_reentrant=False)
+        else:
+            x, (k, v) = layer(x, positions, attend)
         if return_kv:
             ks.append(k)
             vs.append(v)
@@ -278,6 +290,64 @@ def forward(model, tokens, positions=None, return_kv=False, logits_at=None,
 def lm_head(x, ln_f, embed):
     """Final norm + tied output head: (B, S, D) → f32 logits."""
     return (_rms_norm(x, ln_f) @ embed.T).float()
+
+
+# -- training ------------------------------------------------------------------
+
+def softmax_xent(logits, targets):
+    """Mean cross entropy as logsumexp − target logit (one reduction over
+    the (B, S, V) logits, no materialized log-softmax)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
+    return (lse - tgt).mean()
+
+
+def loss_fn(model, batch, attn_impl="flash", remat=False):
+    """Next-token cross entropy; batch = {"tokens": (B, S+1)} (a tensor or
+    an integer array, moved to the model's device)."""
+    tokens = torch.as_tensor(batch["tokens"], device=model.device)
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    logits = forward(model, inputs, attn_impl=attn_impl, remat=remat)
+    return softmax_xent(logits, targets)
+
+
+def adamw(params):
+    """optax ``adamw(3e-4, weight_decay=0.01)``: decoupled decay on every
+    parameter, moments in the parameter dtype."""
+    return torch.optim.AdamW(params, lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=0.01)
+
+
+def make_train_step(cfg, optimizer=None, remat=True, device="cuda"):
+    """Returns (init_state, train_step). State = (model, optimizer).
+
+    ``optimizer`` maps the parameters to a ``torch.optim.Optimizer``
+    (default ``adamw``). ``remat=True`` checkpoints every layer, the
+    counterpart of ``jax.checkpoint`` around the JAX loss: the numbers are
+    the same, and the forward attention kernel launches twice per layer
+    and step. ``init_state(seed)`` draws random weights on ``device``;
+    ``init_state(model=m)`` starts from given ones (e.g. bridged from
+    JAX)."""
+    device = resolve_device(device)
+    make_optimizer = optimizer or adamw
+
+    def init_state(seed=0, model=None):
+        if model is None:
+            model = init_params(cfg, device=device, seed=seed)
+        return model, make_optimizer(model.parameters())
+
+    def train_step(state, batch):
+        """One step; returns (state, loss). The update is in place on the
+        parameters and the optimizer's moments, the counterpart of the JAX
+        step's donated state (no copy of either per step)."""
+        model, opt = state
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(model, batch, remat=remat)
+        loss.backward()
+        opt.step()
+        return state, loss.detach()
+
+    return init_state, train_step
 
 
 # -- serving (KV-cache decode) ------------------------------------------------
@@ -303,7 +373,7 @@ def _window_for(position_bound, cap):
     return _length_bucket(max(int(position_bound), 1), cap)
 
 
-@torch.no_grad()
+@torch.inference_mode()
 def decode_logits(model, cache, tokens, position):
     """One decode step at the shared scalar ``position`` → (B, V) logits.
 
@@ -331,7 +401,7 @@ def decode_logits(model, cache, tokens, position):
     return lm_head(x, model.ln_f.weight, model.embed)[:, 0, :]
 
 
-@torch.no_grad()
+@torch.inference_mode()
 def prefill(model, prompt, true_len=None, return_logits=False):
     """Single-pass batched prefill: one forward over the whole (B, P)
     prompt; each layer's K/V land in a fresh cache at [0, P). With a
@@ -383,7 +453,7 @@ def sample_token(logits, generator, temperature=0.0, top_k=0, top_p=1.0):
     return (logits + gumbel).argmax(dim=-1)
 
 
-@torch.no_grad()
+@torch.inference_mode()
 def generate(model, prompt, max_new_tokens=16, temperature=0.0, top_k=0,
              top_p=1.0, generator=None):
     """Generation: greedy by default; ``temperature > 0`` samples (see

@@ -68,11 +68,9 @@ def params_from_jax(tree, cfg, device="cuda", dtype=None):
     return model
 
 
-def params_to_jax(model):
-    """The inverse: the model's weights as a JAX-layout pytree of float32
-    numpy arrays (cast to the config dtype on the JAX side)."""
-    def arr(t):
-        return t.detach().float().cpu().numpy()
+def _to_jax(model, tensor_of):
+    def arr(p):
+        return tensor_of(p).detach().float().cpu().numpy()
 
     layers = {
         name: np.stack([
@@ -85,3 +83,18 @@ def params_to_jax(model):
         "layers": layers,
         "ln_f": arr(model.ln_f.weight),
     }
+
+
+def params_to_jax(model):
+    """The inverse: the model's weights as a JAX-layout pytree of float32
+    numpy arrays (cast to the config dtype on the JAX side)."""
+    return _to_jax(model, lambda p: p)
+
+
+def grads_to_jax(model):
+    """The parameters' ``.grad`` as a JAX-layout pytree of float32 numpy
+    arrays, leaf for leaf the tree ``jax.grad`` gives over the JAX params
+    (a parameter without a gradient gives zeros)."""
+    return _to_jax(
+        model, lambda p: p.grad if p.grad is not None else torch.zeros_like(p)
+    )

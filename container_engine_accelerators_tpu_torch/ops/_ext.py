@@ -27,7 +27,7 @@ NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("flash_fwd",)
+SOURCES = ("flash_fwd", "flash_bwd")
 
 # name -> {"seconds": build wall time (0.0 when reused), "ptxas": the
 # assembler's register/shared-memory report, "path": the library}.
@@ -116,7 +116,63 @@ def _flash_lib():
 
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
-FLASH_HEAD_DIMS = (64, 128)
+FLASH_HEAD_DIMS = (32, 64, 128)
+
+
+def _flash_bwd_lib():
+    lib = load("flash_bwd")
+    if lib.flash_bwd_dkv_launch.argtypes is None:
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        common = [
+            i32,                                # dtype: 0 bf16, 1 f32
+            i32, i32, i32, i32, i32, i32,       # B, Hq, Hkv, Sq, Sk, D
+            i32, ctypes.c_float,                # causal, sm_scale
+            i32, i32, i32,                      # q_base, k_base, kv_len
+            ptr,                                # cudaStream_t
+        ]
+        lib.flash_bwd_error_string.argtypes = [i32]
+        lib.flash_bwd_error_string.restype = ctypes.c_char_p
+        lib.flash_bwd_dq_launch.restype = i32
+        lib.flash_bwd_dkv_launch.restype = i32
+        # q, k, v, dO, lse, delta, then the outputs.
+        lib.flash_bwd_dq_launch.argtypes = [ptr] * 7 + common
+        # Set last: other threads take a non-None argtypes as "typed".
+        lib.flash_bwd_dkv_launch.argtypes = [ptr] * 8 + common
+    return lib
+
+
+def _check(same_dtype, f32, device):
+    """Every tensor on ``device`` (cuda), contiguous and 16-byte aligned;
+    ``same_dtype`` share one dtype the kernels take, ``f32`` are float32.
+    Raises ValueError before anything is built or launched."""
+    for name, t in {**same_dtype, **f32}.items():
+        if t.device.type != "cuda" or t.device != device:
+            raise ValueError(f"{name} must be on {device} (cuda), "
+                             f"got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    dtypes = {t.dtype for t in same_dtype.values()}
+    if len(dtypes) != 1 or not dtypes <= set(_DTYPE_CODE):
+        raise ValueError(
+            f"{'/'.join(same_dtype)} must share one dtype of "
+            f"{list(_DTYPE_CODE)}, got "
+            f"{', '.join(str(t.dtype) for t in same_dtype.values())}"
+        )
+    for name, t in f32.items():
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {t.dtype}")
+
+
+def _check_shapes(q, k):
+    batch, num_q_heads, seq_q, d = q.shape
+    if d not in FLASH_HEAD_DIMS:
+        raise ValueError(f"head dim {d} not supported by the kernel "
+                         f"(takes {FLASH_HEAD_DIMS})")
+    if batch * num_q_heads > 65535:
+        raise ValueError(f"B*Hq = {batch * num_q_heads} exceeds the "
+                         f"kernel's grid limit of 65535")
 
 
 def flash_fwd(q, k, v, out, lse, *, causal, sm_scale, q_base, k_base,
@@ -124,34 +180,12 @@ def flash_fwd(q, k, v, out, lse, *, causal, sm_scale, q_base, k_base,
     """Launch the flash forward on PyTorch's current stream. Checks
     device, dtype, shape, contiguity and alignment, and raises on
     anything the kernel does not take or on a refused launch."""
-    tensors = {"q": q, "k": k, "v": v, "out": out, "lse": lse}
-    for name, t in tensors.items():
-        if t.device.type != "cuda" or t.device != q.device:
-            raise ValueError(f"{name} must be on {q.device} (cuda), "
-                             f"got {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
-    if q.dtype not in _DTYPE_CODE or {k.dtype, v.dtype, out.dtype} != {
-        q.dtype
-    }:
-        raise ValueError(
-            f"q/k/v/out must share one dtype of {list(_DTYPE_CODE)}, got "
-            f"{q.dtype}, {k.dtype}, {v.dtype}, {out.dtype}"
-        )
-    if lse.dtype != torch.float32:
-        raise ValueError(f"lse must be float32, got {lse.dtype}")
+    _check({"q": q, "k": k, "v": v, "out": out}, {"lse": lse}, q.device)
     batch, num_q_heads, seq_q, d = q.shape
     _, num_kv_heads, seq_k, _ = k.shape
-    if d not in FLASH_HEAD_DIMS:
-        raise ValueError(f"head dim {d} not supported by the kernel "
-                         f"(takes {FLASH_HEAD_DIMS})")
+    _check_shapes(q, k)
     if out.shape != q.shape or lse.shape != q.shape[:3]:
         raise ValueError("out must be shaped like q and lse like q[:3]")
-    if batch * num_q_heads > 65535:
-        raise ValueError(f"B*Hq = {batch * num_q_heads} exceeds the "
-                         f"kernel's grid limit of 65535")
     lib = _flash_lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
@@ -167,3 +201,51 @@ def flash_fwd(q, k, v, out, lse, *, causal, sm_scale, q_base, k_base,
             f"flash_fwd launch failed: "
             f"{lib.flash_fwd_error_string(err).decode()} ({err})"
         )
+
+
+def _bwd_launch(fn_name, q, k, v, dout, lse, delta, outs, *, causal,
+                sm_scale, q_base, k_base, kv_len):
+    _check({"q": q, "k": k, "v": v, "dout": dout, **outs},
+           {"lse": lse, "delta": delta}, q.device)
+    batch, num_q_heads, seq_q, d = q.shape
+    _, num_kv_heads, seq_k, _ = k.shape
+    _check_shapes(q, k)
+    if dout.shape != q.shape or lse.shape != q.shape[:3] or \
+            delta.shape != q.shape[:3]:
+        raise ValueError("dout must be shaped like q, lse and delta like "
+                         "q[:3]")
+    for name, t in outs.items():
+        want = q.shape if name == "dq" else k.shape
+        if t.shape != want:
+            raise ValueError(f"{name} must be shaped {tuple(want)}")
+    lib = _flash_bwd_lib()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = getattr(lib, fn_name)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(),
+            *(t.data_ptr() for t in outs.values()), _DTYPE_CODE[q.dtype],
+            batch, num_q_heads, num_kv_heads, seq_q, seq_k, d,
+            int(bool(causal)), float(sm_scale),
+            q_base, k_base, kv_len, stream,
+        )
+    if err:
+        raise RuntimeError(
+            f"{fn_name} failed: "
+            f"{lib.flash_bwd_error_string(err).decode()} ({err})"
+        )
+
+
+def flash_bwd_dq(q, k, v, dout, lse, delta, dq, **kw):
+    """Launch the dq kernel of csrc/flash_bwd.cu on PyTorch's current
+    stream; checks as ``flash_fwd`` does. Keywords: causal, sm_scale,
+    q_base, k_base, kv_len."""
+    _bwd_launch("flash_bwd_dq_launch", q, k, v, dout, lse, delta,
+                {"dq": dq}, **kw)
+
+
+def flash_bwd_dkv(q, k, v, dout, lse, delta, dk, dv, **kw):
+    """Launch the dk/dv kernel of csrc/flash_bwd.cu (dk, dv per KV head,
+    the GQA group summed inside); as ``flash_bwd_dq``."""
+    _bwd_launch("flash_bwd_dkv_launch", q, k, v, dout, lse, delta,
+                {"dk": dk, "dv": dv}, **kw)

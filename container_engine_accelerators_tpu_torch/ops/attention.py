@@ -9,14 +9,22 @@ grouped-query attention with ``Hq % Hkv == 0``.
   flash_fwd           counterpart of ``_flash_fwd``: CPU tensors go to
                       ``flash_fwd_reference``, CUDA tensors to the kernel
                       in csrc/flash_fwd.cu (there is no fallback)
-  flash_attention     counterpart of ``flash_attention``
-  flash_fwd_reference plain version of the kernel (same masks, constants
-                      and bf16 rounding of p)
+  flash_bwd           counterpart of ``_flash_bwd``: CPU tensors go to
+                      ``flash_bwd_reference``, CUDA tensors to the dq and
+                      dk/dv kernels in csrc/flash_bwd.cu
+  FlashAttention      autograd Function, counterpart of the ``_flash``
+                      custom_vjp: flash_fwd forward, flash_bwd backward
+  flash_attention     counterpart of ``flash_attention`` (differentiable)
+  flash_fwd_reference plain version of the forward kernel (same masks,
+                      constants and bf16 rounding of p)
+  flash_bwd_reference plain version of the backward kernels (same masks,
+                      constants and bf16 rounding of p and ds)
   decode_attention    single-token attention over a dense KV cache
   mha_reference       the plain oracle (GQA by repeating kv heads)
 
-``flash_fwd_launches`` counts kernel launches; it moves only where the
-wrapper launches the kernel.
+``flash_fwd_launches``, ``flash_dq_launches`` and ``flash_dkv_launches``
+count kernel launches; each moves only where its wrapper launches its
+kernel.
 """
 
 import torch
@@ -24,8 +32,10 @@ import torch
 # Finite, as in the JAX kernels: exp(NEG_INF - NEG_INF) = 1, never NaN.
 NEG_INF = -1e30
 
-# Kernel launches made by flash_fwd (CUDA tensors only).
+# Kernel launches made by flash_fwd and flash_bwd (CUDA tensors only).
 flash_fwd_launches = 0
+flash_dq_launches = 0
+flash_dkv_launches = 0
 
 
 def mha_reference(q, k, v, causal=True, sm_scale=None):
@@ -181,15 +191,132 @@ def flash_fwd(q, k, v, *, causal, sm_scale, q_base=0, k_base=0,
     return out, lse
 
 
+def flash_bwd_reference(q, k, v, out, lse, g, *, causal, sm_scale,
+                        q_base=0, k_base=0, delta=None, kv_len=None,
+                        only=None):
+    """Plain version of the flash backward → (dq, dk, dv).
+
+    The kernels' arithmetic: s = (q · kᵀ) * scale in f32, p = exp(s - lse)
+    with masked keys contributing p = 0 (so a row that sees no key gets a
+    zero gradient), dp = dO · vᵀ, ds = p * (dp - δ) * scale cast to q's
+    dtype before ds · k and dsᵀ · q, p cast to dO's dtype before pᵀ · dO,
+    f32 accumulation. dk and dv sum the GQA group in f32 and are rounded
+    once; key columns at or past ``kv_len`` get dk = dv = 0. ``delta``
+    (B, Hq, Sq) f32 defaults to rowsum(dO ∘ O). Formed one kv head (its
+    whole query group) at a time, as ``flash_fwd_reference`` is.
+    ``only="dq"`` or ``only="dkv"`` forms just one kernel's outputs (the
+    others come back None), the plain counterpart of that one kernel."""
+    batch, num_q_heads, seq_q, d = q.shape
+    _, num_kv_heads, seq_k, _ = k.shape
+    group = num_q_heads // num_kv_heads
+    g = g.to(q.dtype)
+    if delta is None:
+        delta = (out.float() * g.float()).sum(dim=-1)
+    hidden = ~_visible(seq_q, seq_k, causal, q_base, k_base, kv_len,
+                       q.device)
+    dq = None if only == "dkv" else torch.empty_like(q)
+    dk = dv = None
+    if only != "dq":
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+    for h in range(num_kv_heads):
+        heads = slice(h * group, (h + 1) * group)
+        qh = q[:, heads].float()
+        gh = g[:, heads].float()
+        kh = k[:, h, None].float()
+        vh = v[:, h, None].float()
+        s = torch.matmul(qh, kh.transpose(-1, -2)).mul_(sm_scale)
+        p = s.sub_(lse[:, heads, :, None]).exp_().masked_fill_(hidden, 0.0)
+        ds = torch.matmul(gh, vh.transpose(-1, -2))
+        ds = ds.sub_(delta[:, heads, :, None]).mul_(p).mul_(sm_scale)
+        ds = ds.to(q.dtype).float()
+        if dq is not None:
+            dq[:, heads] = torch.matmul(ds, kh).to(q.dtype)
+        if dk is None:
+            continue
+        # (B, G·Sq, Sk)ᵀ · (B, G·Sq, D): the group sum rides the product.
+        rows = (batch, group * seq_q)
+        dk[:, h] = torch.matmul(ds.view(*rows, seq_k).transpose(1, 2),
+                                qh.reshape(*rows, d)).to(k.dtype)
+        del ds
+        p = p.to(g.dtype).float()
+        dv[:, h] = torch.matmul(p.view(*rows, seq_k).transpose(1, 2),
+                                gh.reshape(*rows, d)).to(v.dtype)
+    return dq, dk, dv
+
+
+def flash_bwd(q, k, v, out, lse, g, *, causal, sm_scale, q_base=0,
+              k_base=0, delta=None, kv_len=None):
+    """Flash backward → (dq, dk, dv), the counterpart of JAX ``_flash_bwd``.
+
+    ``out``/``lse`` are the forward's; ``g`` is dL/dout (cast to q's
+    dtype). δ = rowsum(dO ∘ O) is formed here in f32, as the JAX package
+    forms it outside its kernels, unless ``delta`` is given. CPU tensors
+    take the plain version; CUDA tensors launch the dq and the dk/dv
+    kernels of ops/csrc/flash_bwd.cu, which raise on what they do not
+    take: there is no fallback."""
+    global flash_dq_launches, flash_dkv_launches
+    _check_attention_shapes(q, k, v)
+    if delta is None:
+        delta = (out.float() * g.float()).sum(dim=-1)
+    tensors = (q, k, v, out, lse, g, delta)
+    devices = {t.device.type for t in tensors}
+    if devices == {"cpu"}:
+        return flash_bwd_reference(
+            q, k, v, out, lse, g, causal=causal, sm_scale=sm_scale,
+            q_base=q_base, k_base=k_base, delta=delta, kv_len=kv_len,
+        )
+    if devices != {"cuda"}:
+        raise ValueError(f"flash_bwd's tensors must all be on cpu or all on "
+                         f"cuda, got {[str(t.device) for t in tensors]}")
+    from container_engine_accelerators_tpu_torch.ops import _ext
+
+    seq_k = k.shape[2]
+    kv_len = seq_k if kv_len is None else max(0, min(int(kv_len), seq_k))
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    args = (q, k, v, g.to(q.dtype).contiguous(), lse.contiguous(),
+            delta.contiguous())
+    kw = dict(causal=causal, sm_scale=sm_scale, q_base=int(q_base),
+              k_base=int(k_base), kv_len=kv_len)
+    _ext.flash_bwd_dq(*args, dq, **kw)
+    flash_dq_launches += 1
+    _ext.flash_bwd_dkv(*args, dk, dv, **kw)
+    flash_dkv_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Counterpart of the JAX ``_flash`` custom_vjp: the forward saves
+    (q, k, v, out, lse) and the backward recomputes the probabilities
+    blockwise from lse, so no S × S matrix is ever kept."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale):
+        out, lse = flash_fwd(q, k, v, causal=causal, sm_scale=sm_scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, out, lse, g, causal=ctx.causal,
+                               sm_scale=ctx.sm_scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, causal=True, sm_scale=None):
     """Flash attention. q: (B, Hq, Sq, D), k/v: (B, Hkv, Sk, D).
 
-    Same results as the JAX wrapper for every shape. The JAX wrapper
-    end-pads unaligned sequences to a block multiple and masks the
-    padded keys (by position when causal with seq_q <= seq_k, else by
-    the kv_len tail mask); the CUDA kernel masks its ragged edges itself,
-    so here nothing is padded and keys past seq_k simply do not exist."""
+    Same results as the JAX wrapper for every shape, and differentiable
+    (``FlashAttention``). The JAX wrapper end-pads unaligned sequences to
+    a block multiple and masks the padded keys (by position when causal
+    with seq_q <= seq_k, else by the kv_len tail mask); the CUDA kernels
+    mask their ragged edges themselves, so here nothing is padded and
+    keys past seq_k simply do not exist."""
     if sm_scale is None:
         sm_scale = 1.0 / (q.shape[-1] ** 0.5)
-    out, _ = flash_fwd(q, k, v, causal=causal, sm_scale=float(sm_scale))
-    return out
+    return FlashAttention.apply(q, k, v, causal, float(sm_scale))

@@ -342,7 +342,10 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d == 64) {
+  if (d == 32) {
+    launch<32>(q, k, v, out, lse, dtype, batch, hq, hkv, sq, sk, causal,
+               sm_scale, q_base, k_base, kv_len, st);
+  } else if (d == 64) {
     launch<64>(q, k, v, out, lse, dtype, batch, hq, hkv, sq, sk, causal,
                sm_scale, q_base, k_base, kv_len, st);
   } else if (d == 128) {

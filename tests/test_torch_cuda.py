@@ -12,6 +12,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import chip_smoke  # noqa: E402
 from container_engine_accelerators_tpu_torch.models import (  # noqa: E402
     transformer as tf,
 )
@@ -42,6 +43,7 @@ CASES = {
                               {"kv_len": 100}),
     "noncausal_kv_len": ((2, 4, 2, 70, 333, 64), False, {"kv_len": 250}),
     "future_keys": ((1, 4, 2, 128, 128, 128), True, {"k_base": 64}),
+    "d32_unaligned": ((2, 8, 4, 77, 77, 32), True, {}),
 }
 
 
@@ -90,3 +92,93 @@ def test_small_model_on_card_matches_cpu(gen):
     out = tf.generate(gpu, prompt.cuda(), max_new_tokens=6).cpu()
     assert attention.flash_fwd_launches == before + cfg.n_layers
     assert torch.equal(out, tf.generate(cpu, prompt, max_new_tokens=6))
+
+
+# Backward kernels vs flash_bwd_reference, per gradient: the relative L2
+# error and the worst row against its own norm plus the typical row norm
+# (chip_smoke.grad_errors). bf16: both round p and ds at the same values
+# up to f32 summation-order noise, and each writes one bf16 output (about
+# 2^-9 of a row's norm); f32: summation order only.
+BWD_TOL = {torch.bfloat16: {"rel_l2": 5e-3, "row": 1e-2},
+           torch.float32: {"rel_l2": 1e-5, "row": 1e-4}}
+BWD_CASES = {
+    **CASES,
+    "mqa_unaligned": ((2, 4, 1, 100, 100, 64), True, {}),
+    "noncausal_gqa": ((1, 8, 2, 130, 70, 128), False, {}),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", sorted(BWD_CASES))
+def test_bwd_kernels_match_plain_version(gen, name, dtype):
+    (b, hq, hkv, sq, sk, d), causal, kw = BWD_CASES[name]
+    q = torch.randn(b, hq, sq, d, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(b, hkv, sk, d, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(b, hkv, sk, d, generator=gen, device="cuda").to(dtype)
+    g = torch.randn(b, hq, sq, d, generator=gen, device="cuda").to(dtype)
+    kw = dict(kw, causal=causal, sm_scale=d ** -0.5)
+    out, lse = attention.flash_fwd(q, k, v, **kw)
+    before = (attention.flash_dq_launches, attention.flash_dkv_launches)
+    grads = attention.flash_bwd(q, k, v, out, lse, g, **kw)
+    torch.cuda.synchronize()
+    assert (attention.flash_dq_launches, attention.flash_dkv_launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = attention.flash_bwd_reference(q, k, v, out, lse, g, **kw)
+    tol = BWD_TOL[dtype]
+    for got, want in zip(grads, ref):
+        assert got.dtype == dtype and got.shape == want.shape
+        _, rel_l2, worst_row = chip_smoke.grad_errors(got, want)
+        assert rel_l2 <= tol["rel_l2"] and worst_row <= tol["row"], name
+    kv_len = kw.get("kv_len", sk)
+    assert not grads[1][:, :, kv_len:].any()
+    assert not grads[2][:, :, kv_len:].any()
+
+
+# f32 card (the f32 kernels, cuBLAS without TF32) vs CPU: summation order
+# only. Each gradient to 1e-4 relative L2; each step's loss to 1e-4.
+TRAIN_GRAD_REL_L2 = 1e-4
+TRAIN_LOSS_ATOL = 1e-4
+TRAIN_STEPS = 3
+
+
+def test_training_step_on_card_matches_cpu(gen):
+    """Every gradient of a tiny f32 model (head dim 128: the f32 kernels)
+    on the card vs the same weights on the CPU, then three make_train_step
+    steps on each, whose losses after the first see the updates."""
+    cfg = tf.TransformerConfig(vocab_size=512, d_model=256, n_layers=2,
+                               n_heads=2, n_kv_heads=1, d_ff=768,
+                               max_seq_len=128, dtype="float32")
+    batches = [torch.randint(0, 512, (2, 65), generator=gen, device="cuda")
+               for _ in range(TRAIN_STEPS)]
+    gpu = tf.init_params(cfg, device="cuda", seed=3)
+    cpu = tf.Transformer(cfg, "cpu")
+    cpu.load_state_dict({k: t.cpu() for k, t in gpu.state_dict().items()})
+    for model in (gpu, cpu):
+        model.zero_grad(set_to_none=True)
+        tf.loss_fn(model, {"tokens": batches[0]}, remat=True).backward()
+    for (name, a), b in zip(gpu.named_parameters(), cpu.parameters()):
+        ref = b.grad.float()
+        err = (a.grad.cpu().float() - ref).norm() / ref.norm()
+        assert err < TRAIN_GRAD_REL_L2, name
+    runs = []
+    for model, device in ((gpu, "cuda"), (cpu, "cpu")):
+        init_state, train_step = tf.make_train_step(cfg, device=device)
+        runs.append((init_state(model=model), train_step, device))
+    counts = (attention.flash_fwd_launches, attention.flash_dq_launches,
+              attention.flash_dkv_launches)
+    for step, batch in enumerate(batches):
+        a, b = [train_step(state, {"tokens": batch.to(device)})[1].item()
+                  for state, train_step, device in runs]
+        assert abs(a - b) < TRAIN_LOSS_ATOL, step
+        if step == 0:
+            # Adam's first step moves each weight by about lr = 3e-4;
+            # see test_torch_train.py.
+            for (name, p), r in zip(gpu.state_dict().items(),
+                                    cpu.state_dict().values()):
+                torch.testing.assert_close(p.cpu(), r, atol=6e-4, rtol=0,
+                                           msg=name)
+    assert (attention.flash_fwd_launches, attention.flash_dq_launches,
+            attention.flash_dkv_launches) == (
+        counts[0] + 2 * cfg.n_layers * TRAIN_STEPS,
+        counts[1] + cfg.n_layers * TRAIN_STEPS,
+        counts[2] + cfg.n_layers * TRAIN_STEPS)

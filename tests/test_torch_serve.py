@@ -167,3 +167,24 @@ def test_chip_smoke_bound_picks_the_larger_time():
     # One query row against 16 keys moves more than it computes.
     assert chip_smoke.flash_bound(1, 1, 1, 1, 16, 64, "bfloat16",
                                   False)[1] == "bytes"
+
+
+def test_chip_smoke_grad_check_sees_a_wrong_tile_of_small_rows():
+    """A backward that is 30 % wrong on a 64-row tile of small late rows
+    passes a check against the largest |gradient| but fails the
+    bwd_kernel row measure; bf16 rounding of the output passes both
+    measures, and so do rows that are zero on both sides."""
+    gen = torch.Generator().manual_seed(0)
+    ref = torch.randn(1, 4, 1024, 64, generator=gen) * 0.05
+    ref[:, :, :16] *= 400.0  # the first rows' large gradients
+    ref[:, :, 1000:] = 0.0  # keys past kv_len
+    tol = chip_smoke.BWD_TOL["bfloat16"]
+    wrong = ref.clone()
+    wrong[:, :, 512:576] *= 1.3
+    _, max_rel = chip_smoke._rel_err(wrong, ref)
+    assert max_rel < 1e-2
+    _, rel_l2, worst_row = chip_smoke.grad_errors(wrong, ref)
+    assert worst_row > 10 * tol["row"]
+    rounded = ref.to(torch.bfloat16)
+    _, rel_l2, worst_row = chip_smoke.grad_errors(rounded, ref)
+    assert rel_l2 <= tol["rel_l2"] and worst_row <= tol["row"]

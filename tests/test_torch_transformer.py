@@ -3,7 +3,8 @@
 """Port transformer (PyTorch, CPU) vs the JAX package on the same weights.
 
 Both run the JAX ``init_params(PRNGKey(0))`` weights, bridged into the
-port with ``params_from_jax``: 2 layers, d_model 64, 4 q heads, 2 kv
+port with ``params_from_jax`` (trainable, so ``forward``'s outputs are
+detached before they are compared): 2 layers, d_model 64, 4 q heads, 2 kv
 heads, vocab 256. f32 logits agree to 1e-4 and greedy tokens exactly.
 """
 
@@ -68,7 +69,8 @@ def test_forward_logits_match_jax(pair):
     out = ttf.forward(model, torch.as_tensor(toks))
     assert out.dtype == torch.float32 and out.shape == ref.shape
     atol = LOGITS_ATOL if cfg_t.dtype == "float32" else BF16_LOGITS_ATOL
-    np.testing.assert_allclose(out.numpy(), ref, atol=atol, rtol=0)
+    np.testing.assert_allclose(out.detach().numpy(), ref, atol=atol,
+                               rtol=0)
 
 
 @pytest.mark.parametrize("logits_at", ["last", 5])
@@ -80,10 +82,12 @@ def test_forward_kv_and_logits_at_match_jax(f32_pair, logits_at):
     out, (k, v) = ttf.forward(model, torch.as_tensor(toks), return_kv=True,
                               logits_at=logits_at)
     assert out.shape == (2, 1, SHAPE["vocab_size"])
-    np.testing.assert_allclose(out.numpy(), np.asarray(ref),
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref),
                                atol=LOGITS_ATOL, rtol=0)
-    np.testing.assert_allclose(k.numpy(), np.asarray(rk), atol=1e-5, rtol=0)
-    np.testing.assert_allclose(v.numpy(), np.asarray(rv), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(k.detach().numpy(), np.asarray(rk), atol=1e-5,
+                               rtol=0)
+    np.testing.assert_allclose(v.detach().numpy(), np.asarray(rv), atol=1e-5,
+                               rtol=0)
 
 
 def test_prefill_and_decode_step_match_jax(f32_pair):
