@@ -164,6 +164,22 @@ def time_ms(fn, torch, min_iters=3, budget_ms=300.0):
     return start.elapsed_time(end) / iters
 
 
+def host_us(fn, torch, calls=20):
+    """Host wall time of fn() in microseconds: ``calls`` calls back to back
+    with no synchronize between them, so it reads the wrapper's own work
+    (checks, tensor-map encoding, ctypes, the launch) while the device
+    runs behind. Where it exceeds the device time, back-to-back device
+    timing (time_ms) measures the host."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e6
+
+
 # (name, batch, seq_q, seq_k, causal, q_base, k_base, kv_len, hq, hkv, d,
 #  dtype). The first four are the Llama-3-8B prefill shapes (Hq 32, Hkv 8,
 # D 128): the serve phase's prompts of 300 (batch 2) and 1500 tokens land
@@ -184,6 +200,18 @@ KERNEL_CASES = [
     ("d64_unaligned", 2, 1000, 1000, True, 0, 0, None, 8, 2, 64, "bfloat16"),
     # train_cli's default tiny model: head dim 32.
     ("d32_train_cli", 2, 128, 128, True, 0, 0, None, 8, 4, 32, "bfloat16"),
+    # The edges of the kernel's 128-row q and 128-key K/V tiles: one row or
+    # key past a tile, the causal diagonal mid-tile, kv_len inside the
+    # first key tile, ragged D 64 and D 32, and several waves of blocks.
+    ("s129", 1, 129, 129, True, 0, 0, None, 32, 8, 128, "bfloat16"),
+    ("s255", 1, 255, 255, True, 0, 0, None, 32, 8, 128, "bfloat16"),
+    ("diagonal_mid_tile", 1, 300, 700, True, 400, 0, None, 32, 8, 128,
+     "bfloat16"),
+    ("kv_len_in_first_tile", 1, 200, 300, True, 0, 0, 50, 32, 8, 128,
+     "bfloat16"),
+    ("d64_ragged", 2, 333, 517, False, 0, 0, 400, 8, 2, 64, "bfloat16"),
+    ("d32_ragged", 2, 250, 250, True, 0, 0, None, 8, 4, 32, "bfloat16"),
+    ("waves_b4", 4, 1024, 1024, True, 0, 0, None, 32, 8, 128, "bfloat16"),
     ("f32_q_base", 1, 100, 300, True, 250, 0, None, 8, 2, 128, "float32"),
     ("f32_d64_kv_len", 2, 77, 300, False, 0, 0, 250, 4, 1, 64, "float32"),
 ]
@@ -226,6 +254,7 @@ def run_kernel_case(case, torch, attention, gen):
         fail(f"kernel case {name} disagrees with flash_fwd_reference")
     del ref_out, ref_lse, err_out
     row["ms"] = time_ms(lambda: attention.flash_fwd(q, k, v, **kw), torch)
+    row["host_us"] = host_us(lambda: attention.flash_fwd(q, k, v, **kw), torch)
     row["plain_ms"] = time_ms(
         lambda: attention.flash_fwd_reference(q, k, v, **kw), torch,
         budget_ms=100.0,
@@ -235,6 +264,8 @@ def run_kernel_case(case, torch, attention, gen):
         kv_len,
     )
     row["library_ms"] = library_ms(q, k, v, torch, attention, **kw)
+    row["ms_over_library"] = (row["ms"] / row["library_ms"]
+                              if row["library_ms"] else None)
     emit(row)
     return row
 
@@ -383,6 +414,11 @@ def run_bwd_case(case, torch, attention, _ext, gen):
         torch)
     row["bwd_ms"] = time_ms(
         lambda: attention.flash_bwd(q, k, v, out, lse, g, **kw), torch)
+    row["dq_host_us"] = host_us(
+        lambda: _ext.flash_bwd_dq(q, k, v, g, lse, delta, dq, **ext_kw), torch)
+    row["dkv_host_us"] = host_us(
+        lambda: _ext.flash_bwd_dkv(q, k, v, g, lse, delta, dk, dv, **ext_kw),
+        torch)
     # Plain versions: each kernel's own outputs, and the whole backward.
     for kind, only in (("dq", "dq"), ("dkv", "dkv"), ("bwd", None)):
         row[f"{kind}_plain_ms"] = time_ms(
@@ -719,6 +755,8 @@ def main():
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
+            "ms_over_library": main_row["ms_over_library"],
+            "host_us": main_row["host_us"],
             "shape": main_row["shape"],
         },
         {
@@ -731,6 +769,7 @@ def main():
             "bound_ms": bwd_row["dq_bound_ms"],
             "bound_by": bwd_row["dq_bound_by"],
             "library_ms": None,
+            "host_us": bwd_row["dq_host_us"],
             "shape": bwd_row["shape"],
         },
         {
@@ -744,6 +783,7 @@ def main():
             "bound_ms": bwd_row["dkv_bound_ms"],
             "bound_by": bwd_row["dkv_bound_by"],
             "library_ms": None,
+            "host_us": bwd_row["dkv_host_us"],
             "shape": bwd_row["shape"],
         },
     ], "flash_bwd": {

@@ -5,9 +5,11 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into a shared library, loaded with ``ctypes``
 (no PyTorch headers, so a build takes seconds). Libraries land in
-``.torch_ext/`` at the checkout root, named by a hash of the source and
-flags, so an edited source rebuilds and an unchanged one is reused.
-Nothing here runs at import time: the first kernel call builds.
+``.torch_ext/`` at the checkout root, named by a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+header rebuilds and an unchanged one is reused. A build with extra
+preprocessor ``defines`` (an instrumented variant) is a library of its
+own. Nothing here runs at import time: the first kernel call builds.
 """
 
 import ctypes
@@ -47,38 +49,45 @@ def _nvcc():
     return path
 
 
-def _library_path(name):
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+def _flags(defines):
+    return (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
 
 
-def build(names=SOURCES):
-    """Compile every source in ``names`` that has no library yet, one
-    ``nvcc`` per source, all started together. Raises with the compiler's
-    output if any fails."""
+def _library_path(name, defines=()):
+    digest = hashlib.sha256(" ".join(_flags(defines)).encode())
+    for path in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        digest.update(f"\0{path.name}\0".encode() + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(names=SOURCES, defines=()):
+    """Compile every source in ``names`` that has no library yet (with
+    ``-D`` of each of ``defines``), one ``nvcc`` per source, all started
+    together. Raises with the compiler's output if any fails."""
     pending = {}
     for name in names:
-        path = _library_path(name)
+        path = _library_path(name, defines)
+        key = name if not defines else f"{name}{list(defines)}"
         if path.exists():
             build_info.setdefault(
-                name, {"seconds": 0.0, "ptxas": "", "path": str(path)}
+                key, {"seconds": 0.0, "ptxas": "", "path": str(path)}
             )
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *_flags(defines), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
-        pending[name] = (proc, tmp, path, time.perf_counter())
+        pending[key] = (proc, tmp, path, time.perf_counter())
     failed = []
-    for name, (proc, tmp, path, t0) in pending.items():
+    for key, (proc, tmp, path, t0) in pending.items():
         output, _ = proc.communicate()
         if proc.returncode:
-            failed.append(f"nvcc failed for {name}.cu:\n{output}")
+            failed.append(f"nvcc failed for {key}:\n{output}")
             continue
         os.replace(tmp, path)
-        build_info[name] = {
+        build_info[key] = {
             "seconds": time.perf_counter() - t0,
             "ptxas": output,
             "path": str(path),
@@ -87,17 +96,19 @@ def build(names=SOURCES):
         raise RuntimeError("\n".join(failed))
 
 
-def load(name):
-    """The ctypes handle of ``csrc/<name>.cu``, built on first use."""
+def load(name, defines=()):
+    """The ctypes handle of ``csrc/<name>.cu`` (built with ``defines``),
+    built on first use."""
     with _lock:
-        if name not in _libs:
-            build((name,))
-            _libs[name] = ctypes.CDLL(str(_library_path(name)))
-        return _libs[name]
+        if (name, defines) not in _libs:
+            build((name,), defines)
+            _libs[name, defines] = ctypes.CDLL(
+                str(_library_path(name, defines)))
+        return _libs[name, defines]
 
 
-def _flash_lib():
-    lib = load("flash_fwd")
+def _flash_lib(defines=()):
+    lib = load("flash_fwd", defines)
     if lib.flash_fwd_launch.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.flash_fwd_error_string.argtypes = [i32]
@@ -176,17 +187,18 @@ def _check_shapes(q, k):
 
 
 def flash_fwd(q, k, v, out, lse, *, causal, sm_scale, q_base, k_base,
-              kv_len):
+              kv_len, defines=()):
     """Launch the flash forward on PyTorch's current stream. Checks
     device, dtype, shape, contiguity and alignment, and raises on
-    anything the kernel does not take or on a refused launch."""
+    anything the kernel does not take or on a refused launch.
+    ``defines`` picks an instrumented build (see flash_phases.py)."""
     _check({"q": q, "k": k, "v": v, "out": out}, {"lse": lse}, q.device)
     batch, num_q_heads, seq_q, d = q.shape
     _, num_kv_heads, seq_k, _ = k.shape
     _check_shapes(q, k)
     if out.shape != q.shape or lse.shape != q.shape[:3]:
         raise ValueError("out must be shaped like q and lse like q[:3]")
-    lib = _flash_lib()
+    lib = _flash_lib(defines)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = lib.flash_fwd_launch(

@@ -4,13 +4,14 @@
 // Flash-attention forward for NVIDIA Hopper (sm_90a), written by hand.
 //
 // Replaces container_engine_accelerators_tpu/ops/attention.py:_attn_kernel
-// (the Pallas kernel launched by _flash_fwd). Same contract: q (B, Hq, Sq, D),
-// k/v (B, Hkv, Sk, D), GQA with kv_head = q_head / (Hq / Hkv); causal compare
-// at GLOBAL positions q_base + i >= k_base + j; key columns >= kv_len masked;
-// finite NEG_INF = -1e30; p cast to the input dtype before the PV product;
-// out = acc / max(l, 1e-30), lse = m + log(max(l, 1e-30)) in f32. A masked
-// key contributes p = 0, so a row that sees no key gives out = 0 and
-// lse = -1e30 whatever the tiling.
+// (the Pallas kernel launched by _flash_fwd) and _attn_stream_kernel (its
+// streaming sibling past 8192 keys): one kernel covers both. Same contract:
+// q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D), GQA with kv_head = q_head /
+// (Hq / Hkv); causal compare at GLOBAL positions q_base + i >= k_base + j;
+// key columns >= kv_len masked; finite NEG_INF = -1e30; p cast to the input
+// dtype before the PV product; out = acc / max(l, 1e-30), lse = m +
+// log(max(l, 1e-30)) in f32. A masked key contributes p = 0, so a row that
+// sees no key gives out = 0 and lse = -1e30 whatever the tiling.
 //
 // What bounds it on H100. Work = 4 * D FLOPs per attended (q, k) pair (QK^T
 // and PV, 2 * D each): B * Hq * Sq * Sk pairs non-causal, about half of that
@@ -21,234 +22,339 @@
 // of 512 is bound by HBM, and from about S = 740 on (the 1024..8192 buckets)
 // the kernel is bound by the tensor cores' bf16 rate.
 //
-// What the design does about it. Both products run on the tensor cores
-// (mma.sync m16n8k16, bf16 in, f32 accumulate); the S x S scores never leave
-// registers; each K/V tile is staged once in shared memory and reused by the
-// block's 64 query rows; q tiles with the most causal work launch first; the
-// loop stops at the last tile the causal diagonal reaches, and the mask runs
-// only on tiles that cross the diagonal or the kv_len tail. Not yet done
-// (later work): wgmma, TMA and warp-specialised pipelining of the K/V loads.
+// What the design does about it (bf16, head dims 32, 64 and 128):
+// - Only wgmma reaches Hopper's tensor-core rate, so both products are
+//   wgmma: S = Q K^T as m64n128k16 with Q and K read from shared memory
+//   through descriptors, O += P V as m64nDk16 with P in registers (the f32
+//   accumulator layout of S is the register layout of the A operand, so P
+//   needs no shuffle) and V read MN-major (the descriptor's transpose bit;
+//   V stays D-contiguous as it lies in memory).
+// - Loads overlap the math: a producer warpgroup, one thread of which
+//   issues TMA tile loads, keeps a 2-stage ring of 128-key K and V tiles
+//   full, signalled through mbarriers (full: expect-tx bytes; empty: the
+//   consumers' arrivals after their PV product of that stage). TMA writes
+//   the swizzled layout wgmma reads and zero-fills rows past Sq or Sk, so
+//   nothing is padded. The producer hands its registers to the consumers
+//   (setmaxnreg).
+// - K/V reuse: a block holds 128 query rows, two consumer warpgroups of 64
+//   rows, so each K/V byte brought from L2 serves 128 rows.
+// - Softmax in the exp2 domain: sm_scale * log2(e) is folded into one
+//   multiply and lse = (m2 + log2 l) * ln 2.
+// - Causal work only: q tiles with the most causal work launch first; the
+//   loop stops at the last tile the causal diagonal of the block's last real
+//   row reaches, and the mask runs only on tiles that cross the diagonal or
+//   the kv_len tail.
+// Left for later, each to be tried only with a measurement: a persistent
+// grid; ping-pong scheduling of the two consumer warpgroups; overlap of the
+// softmax with the next Q K^T; a TMA store of O; packing a GQA group's q
+// heads into one block.
 //
-// bf16 runs that kernel. f32 (for checking) runs a plain SIMT kernel with
-// one warp per query row that walks the visible keys one at a time.
+// f32 (for checking) runs a plain SIMT kernel with one warp per query row
+// that walks the visible keys one at a time.
 
+#include <cuda.h>  // CUtensorMap and its enums: types only, no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
+#include "sm90.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kBlockQ = 64;   // query rows per block: 4 warps x 16 rows
-constexpr int kBlockK = 64;   // keys per shared-memory K/V tile
-constexpr int kWarps = kBlockQ / 16;
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;       // row padding (bf16): conflict-free fragments
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-__device__ __forceinline__ void mma_16816(float (&c)[4],
-                                          const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+constexpr int kBlockQ = 128;  // query rows per block: two consumers x 64
+constexpr int kBlockK = 128;  // keys per K/V tile
+constexpr int kStages = 2;    // K/V ring depth
+constexpr int kThreads = 384;  // producer warpgroup + two consumers
+constexpr int kConsumerWarps = 8;
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
 
-__device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_u16(uint16_t lo, uint16_t hi) {
-  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
-}
+// Shared-memory layout of one block for head dim D. Every tile (the q
+// tile, and each stage's K and V tile) is 128 rows of D bf16 values in
+// TMA's swizzled layout: D / kAtomCols atoms side by side, each 128 rows of
+// kRowBytes (128-byte swizzle; 64-byte at D 32, whose rows are 64 bytes).
+template <int D>
+struct Layout {
+  static constexpr int kRowBytes = D * 2 < 128 ? D * 2 : 128;
+  static constexpr int kAtomCols = kRowBytes / 2;
+  static constexpr int kAtoms = D / kAtomCols;
+  static constexpr int kAtomBytes = 128 * kRowBytes;
+  static constexpr int kTileBytes = 128 * D * 2;
+  static constexpr int kSwizzle =
+      kRowBytes == 128 ? sm90::kSwizzle128B : sm90::kSwizzle64B;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kTileBytes;                   // + stage * tile
+  static constexpr int kV = kK + kStages * kTileBytes;    // + stage * tile
+  static constexpr int kBars = kV + kStages * kTileBytes;
+  static constexpr int kNumBars = 1 + 3 * kStages;        // q, full k/v, empty
+  // Barriers, and slack to align the dynamic base to 1024 bytes.
+  static constexpr int kBytes = kBars + 8 * kNumBars + 1024;
+};
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Copy rows [row0, row0 + 64) of a (rows, D) bf16 matrix into shared memory
-// (row stride D + kPad), 16 bytes per thread per step; rows past n_rows are
-// zero-filled, so ragged edges never read out of bounds.
-template <int D>
-__device__ __forceinline__ void load_tile(uint16_t* dst, const uint16_t* src,
-                                          int row0, int n_rows) {
-  constexpr int kVecs = D / 8;
-  for (int i = threadIdx.x; i < kBlockK * kVecs; i += kThreads) {
-    const int r = i / kVecs, c = (i % kVecs) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < n_rows) {
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + c) = val;
+// Phases of a consumer warp, for the instrumented build: with
+// -DFLASH_FWD_PHASE_CLOCKS (ops/flash_phases.py) each consumer warp adds
+// the clock64 cycles it spends in each phase to a grid-wide total; without
+// it PhaseClock is empty and compiles away.
+enum Phase { kWaitQ, kWaitK, kQK, kSoftmax, kWaitV, kPV, kEpilogue, kPhases };
+
+#ifdef FLASH_FWD_PHASE_CLOCKS
+__device__ unsigned long long g_phase_cycles[kPhases];
+
+struct PhaseClock {
+  long long last;
+  unsigned long long sum[kPhases] = {};
+  __device__ PhaseClock() { last = clock64(); }
+  __device__ void mark(Phase phase) {
+    const long long now = clock64();
+    sum[phase] += now - last;
+    last = now;
   }
+  __device__ void flush(int lane) {
+    if (lane != 0) return;
+    for (int i = 0; i < kPhases; ++i) atomicAdd(&g_phase_cycles[i], sum[i]);
+  }
+};
+#else
+struct PhaseClock {
+  __device__ void mark(Phase) {}
+  __device__ void flush(int) {}
+};
+#endif
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// One block = one (batch * q head, 64-row q tile). Warp w owns rows
-// [16w, 16w + 16); in the mma layout thread (g = lane / 4, t = lane % 4)
-// holds rows g and g + 8, columns 2t and 2t + 1 of every 8-wide tile.
+// One block = one (batch * q head, 128-row q tile). Warpgroup 0 loads;
+// warpgroups 1 and 2 each own 64 query rows. In a consumer, warp w and
+// lane (g = lane / 4, t = lane % 4) hold rows 16w + g and 16w + g + 8 of
+// their 64, and columns 8j + 2t, 8j + 2t + 1 of every 8-column chunk j.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_bf16_kernel(const uint16_t* __restrict__ q,
-                      const uint16_t* __restrict__ k,
-                      const uint16_t* __restrict__ v,
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
                       uint16_t* __restrict__ out, float* __restrict__ lse,
-                      int hq, int hkv, int sq, int sk, int causal,
-                      float sm_scale, int q_base, int k_base, int kv_len) {
-  constexpr int kStride = D + kPad;
-  constexpr int kDSteps = D / 16;        // k-steps of QK^T over the head dim
-  constexpr int kDTiles = D / 8;         // n-tiles of PV over the head dim
-  constexpr int kKTiles = kBlockK / 8;   // n-tiles of QK^T over the keys
-  __shared__ __align__(16) uint16_t ks[kBlockK * kStride];
-  __shared__ __align__(16) uint16_t vs[kBlockK * kStride];
+                      int hq, int hkv, int sq, int causal, float scale_log2,
+                      int q_base, int k_base, int kv_len) {
+  using L = Layout<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) &
+                              1023);
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full_k = bar_q + 1;
+  uint64_t* full_v = full_k + kStages;
+  uint64_t* empty = full_v + kStages;
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;  // heavy tiles first
   const int bh = blockIdx.y;
-  const int b = bh / hq, kvh = (bh % hq) / (hq / hkv);
-  const uint16_t* qg = q + (size_t)bh * sq * D;
-  const uint16_t* kg = k + ((size_t)b * hkv + kvh) * sk * D;
-  const uint16_t* vg = v + ((size_t)b * hkv + kvh) * sk * D;
-
-  // Stage the q tile through the K buffer; keep it as A fragments.
-  load_tile<D>(ks, qg, q0, sq);
-  __syncthreads();
-  uint32_t qa[kDSteps][4];
-  {
-    const uint16_t* r0 = ks + (warp * 16 + g) * kStride + 2 * t;
-    const uint16_t* r8 = r0 + 8 * kStride;
-#pragma unroll
-    for (int kk = 0; kk < kDSteps; ++kk) {
-      qa[kk][0] = ld32(r0 + kk * 16);
-      qa[kk][1] = ld32(r8 + kk * 16);
-      qa[kk][2] = ld32(r0 + kk * 16 + 8);
-      qa[kk][3] = ld32(r8 + kk * 16 + 8);
-    }
-  }
-  __syncthreads();
+  const int kv_head = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
 
   // Key columns [0, n_cols) hold every key this tile can see: up to the
   // causal diagonal of its last real row, in global positions.
-  const int q_first = q_base + q0;
   const int q_last = q_base + min(q0 + kBlockQ, sq) - 1;
   int n_cols = kv_len;
   if (causal) n_cols = max(0, min(kv_len, q_last - k_base + 1));
   const int n_tiles = (n_cols + kBlockK - 1) / kBlockK;
-  const int qpos = q_first + warp * 16 + g;  // row g; row g + 8 is qpos + 8
 
-  float acc[kDTiles][4];
-#pragma unroll
-  for (int dn = 0; dn < kDTiles; ++dn) {
-    acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(full_k + s, 1);
+      sm90::mbar_init(full_v + s, 1);
+      sm90::mbar_init(empty + s, kConsumerWarps);
+    }
+    sm90::mbar_init_fence();
   }
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};  // this thread's partial row sums
+  __syncthreads();
 
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBlockK;
-    load_tile<D>(ks, kg, k0, sk);
-    load_tile<D>(vs, vg, k0, sk);
-    __syncthreads();
-
-    float s[kKTiles][4];
-#pragma unroll
-    for (int nt = 0; nt < kKTiles; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const uint16_t* kr = ks + (nt * 8 + g) * kStride + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < kDSteps; ++kk) {
-        mma_16816(s[nt], qa[kk], ld32(kr + kk * 16), ld32(kr + kk * 16 + 8));
+  if (threadIdx.x < 128) {
+    // Producer. Round r of a stage waits for the consumers to release
+    // round r - 1 (the first round's wait passes at once).
+    sm90::regs_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0 && n_tiles > 0) {
+      sm90::mbar_arrive_expect_tx(bar_q, L::kTileBytes);
+      for (int a = 0; a < L::kAtoms; ++a) {
+        sm90::tma_load_3d(smem + L::kQ + a * L::kAtomBytes, &tm_q, bar_q,
+                          a * L::kAtomCols, q0, bh);
       }
-    }
-
-    const bool mask = (causal && k_base + k0 + kBlockK - 1 > q_first) ||
-                      k0 + kBlockK > kv_len;
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int nt = 0; nt < kKTiles; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float x = s[nt][i] * sm_scale;
-        if (mask) {
-          const int col = k0 + nt * 8 + 2 * t + (i & 1);
-          const int row_pos = qpos + (i >> 1) * 8;
-          if ((causal && row_pos < k_base + col) || col >= kv_len) {
-            x = kNegInf;
-          }
+      for (int kt = 0; kt < n_tiles; ++kt) {
+        const int st = kt % kStages;
+        sm90::mbar_wait(empty + st, ((kt / kStages) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(full_k + st, L::kTileBytes);
+        for (int a = 0; a < L::kAtoms; ++a) {
+          sm90::tma_load_3d(
+              smem + L::kK + st * L::kTileBytes + a * L::kAtomBytes, &tm_k,
+              full_k + st, a * L::kAtomCols, kt * kBlockK, kv_head);
         }
-        s[nt][i] = x;
-        mx[i >> 1] = fmaxf(mx[i >> 1], x);
+        sm90::mbar_arrive_expect_tx(full_v + st, L::kTileBytes);
+        for (int a = 0; a < L::kAtoms; ++a) {
+          sm90::tma_load_3d(
+              smem + L::kV + st * L::kTileBytes + a * L::kAtomBytes, &tm_v,
+              full_v + st, a * L::kAtomCols, kt * kBlockK, kv_head);
+        }
       }
     }
-    float alpha[2];
+  } else {
+    sm90::regs_alloc<kConsumerRegs>();
+    const int c = threadIdx.x / 128 - 1;  // rows [64c, 64c + 64) of the tile
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int row0 = q0 + 64 * c + 16 * warp + g;  // and row0 + 8
+    const int qpos0 = q_base + row0;
+    const int first_qpos = q_base + q0 + 64 * c;
+    const uint8_t* q_s = smem + L::kQ + 64 * c * L::kRowBytes;
+    constexpr uint32_t kSbo = 8 * L::kRowBytes;
+
+    float s[64];
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) s[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf};  // running max, log2 domain
+    float l[2] = {0.f, 0.f};          // this thread's partial row sums
+
+    PhaseClock phases;
+    if (n_tiles > 0) sm90::mbar_wait(bar_q, 0);
+    phases.mark(kWaitQ);
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      const int st = kt % kStages;
+      const uint32_t phase = (kt / kStages) & 1;
+      const int k0 = kt * kBlockK;
+      const uint8_t* k_s = smem + L::kK + st * L::kTileBytes;
+      const uint8_t* v_s = smem + L::kV + st * L::kTileBytes;
+
+      // S = Q K^T: D / 16 k-steps; a step is 32 bytes into an atom's row.
+      sm90::mbar_wait(full_k + st, phase);
+      phases.mark(kWaitK);
+      sm90::fence_regs(s);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int off = (kk * 32 / L::kRowBytes) * L::kAtomBytes +
+                        (kk * 32) % L::kRowBytes;
+        sm90::WgmmaSS<128, 0>::mma(
+            s, sm90::make_desc(q_s + off, 16, kSbo, L::kSwizzle),
+            sm90::make_desc(k_s + off, 16, kSbo, L::kSwizzle), kk > 0);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(s);
+      phases.mark(kQK);
+
+      const bool mask = (causal && k_base + k0 + kBlockK - 1 > first_qpos) ||
+                        k0 + kBlockK > kv_len;
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float x = s[4 * j + i] * scale_log2;
+          if (mask) {
+            const int col = k0 + 8 * j + 2 * t + (i & 1);
+            const int row_pos = qpos0 + 8 * (i >> 1);
+            if ((causal && row_pos < k_base + col) || col >= kv_len) {
+              x = kNegInf;
+            }
+          }
+          s[4 * j + i] = x;
+          mx[i >> 1] = fmaxf(mx[i >> 1], x);
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        alpha[r] = exp2_approx(m[r] - m_new);  // finite - finite: no NaN
+        m[r] = m_new;
+        l[r] *= alpha[r];
+      }
+      // p = exp2(x - m); m == NEG_INF: every key so far is masked, and
+      // masked keys contribute nothing (elsewhere exp2(-1e30 - m) is 0).
+      uint32_t p[32];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        float pj[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = i >> 1;
+          pj[i] = m[r] == kNegInf ? 0.f : exp2_approx(s[4 * j + i] - m[r]);
+          l[r] += pj[i];
+        }
+        // Chunks 2k and 2k + 1 form the A registers of the k-th k16 step.
+        p[4 * (j / 2) + 2 * (j % 2)] = pack_bf16(pj[0], pj[1]);
+        p[4 * (j / 2) + 2 * (j % 2) + 1] = pack_bf16(pj[2], pj[3]);
+      }
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j] *= alpha[0];
+        o[4 * j + 1] *= alpha[0];
+        o[4 * j + 2] *= alpha[1];
+        o[4 * j + 3] *= alpha[1];
+      }
+
+      phases.mark(kSoftmax);
+
+      // O += P V: 8 k-steps of 16 keys; V MN-major, atoms along D.
+      sm90::mbar_wait(full_v + st, phase);
+      phases.mark(kWaitV);
+      sm90::fence_regs(o);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBlockK / 16; ++kk) {
+        const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                               p[4 * kk + 3]};
+        sm90::WgmmaRS<D, 1>::mma(
+            o, a,
+            sm90::make_desc(v_s + kk * 16 * L::kRowBytes, L::kAtomBytes, kSbo,
+                            L::kSwizzle),
+            1);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(o);
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(empty + st);
+      phases.mark(kPV);
+    }
+
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      alpha[r] = expf(m[r] - m_new);
-      m[r] = m_new;
-      l[r] *= alpha[r];
-    }
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      const float inv = 1.f / fmaxf(l[r], 1e-30f);
+      const int row = row0 + 8 * r;
+      if (row >= sq) continue;
+      uint16_t* orow = out + ((size_t)bh * sq + row) * D + 2 * t;
 #pragma unroll
-    for (int nt = 0; nt < kKTiles; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = i >> 1;
-        // m == NEG_INF: every key so far is masked, and masked keys
-        // contribute nothing (elsewhere exp(-1e30 - m) is already 0).
-        const float p = m[r] == kNegInf ? 0.f : expf(s[nt][i] - m[r]);
-        s[nt][i] = p;
-        l[r] += p;
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+            pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+      }
+      // A row that saw a key has l >= 1 (its max contributes exp2(0)).
+      if (t == 0) {
+        lse[(size_t)bh * sq + row] =
+            m[r] == kNegInf ? kNegInf : (m[r] + log2f(l[r])) * kLn2;
       }
     }
-#pragma unroll
-    for (int dn = 0; dn < kDTiles; ++dn) {
-      acc[dn][0] *= alpha[0];
-      acc[dn][1] *= alpha[0];
-      acc[dn][2] *= alpha[1];
-      acc[dn][3] *= alpha[1];
-    }
-
-    // acc += P V. The scores' accumulator layout is the A-fragment layout
-    // of P; B fragments of V pair two keys of one head-dim column.
-#pragma unroll
-    for (int j = 0; j < kBlockK / 16; ++j) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * j][0], s[2 * j][1]),
-          pack_bf16(s[2 * j][2], s[2 * j][3]),
-          pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-          pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]),
-      };
-      const uint16_t* v0 = vs + (16 * j + 2 * t) * kStride + g;
-#pragma unroll
-      for (int dn = 0; dn < kDTiles; ++dn) {
-        const uint16_t* vc = v0 + dn * 8;
-        const uint32_t b0 = pack_u16(vc[0], vc[kStride]);
-        const uint32_t b1 = pack_u16(vc[8 * kStride], vc[9 * kStride]);
-        mma_16816(acc[dn], pa, b0, b1);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    const float l_safe = fmaxf(l[r], 1e-30f);
-    const int row = q0 + warp * 16 + g + 8 * r;
-    if (row >= sq) continue;
-    uint16_t* orow = out + ((size_t)bh * sq + row) * D + 2 * t;
-#pragma unroll
-    for (int dn = 0; dn < kDTiles; ++dn) {
-      *reinterpret_cast<uint32_t*>(orow + dn * 8) = pack_bf16(
-          acc[dn][2 * r] / l_safe, acc[dn][2 * r + 1] / l_safe);
-    }
-    if (t == 0) lse[(size_t)bh * sq + row] = m[r] + logf(l_safe);
+    phases.mark(kEpilogue);
+    phases.flush(lane);
   }
 }
 
@@ -307,32 +413,114 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (lane == 0) lse[(size_t)bh * sq + row] = m + logf(l_safe);
 }
 
+// cuTensorMapEncodeTiled, found through the runtime so the build needs no
+// -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 13000
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A rank-3 map (D, rows, heads) of a contiguous (heads, rows, D) bf16
+// tensor whose box is one atom (kAtomCols, 128 rows, 1 head).
 template <int D>
-void launch(const void* q, const void* k, const void* v, void* out,
-            float* lse, int dtype, int batch, int hq, int hkv, int sq,
-            int sk, int causal, float sm_scale, int q_base, int k_base,
-            int kv_len, cudaStream_t stream) {
-  if (dtype == 0) {
-    const dim3 grid((sq + kBlockQ - 1) / kBlockQ, batch * hq);
-    flash_fwd_bf16_kernel<D><<<grid, kThreads, 0, stream>>>(
-        static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-        static_cast<const uint16_t*>(v), static_cast<uint16_t*>(out), lse,
-        hq, hkv, sq, sk, causal, sm_scale, q_base, k_base, kv_len);
-  } else {
-    const dim3 grid((sq + kRowsPerBlock - 1) / kRowsPerBlock, batch * hq);
-    flash_fwd_f32_kernel<D><<<grid, kRowsPerBlock * 32, 0, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), lse, hq,
-        hkv, sq, sk, causal, sm_scale, q_base, k_base, kv_len);
+bool encode_map(CUtensorMap* map, const void* base, int rows, int heads) {
+  using L = Layout<D>;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
+                              (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
+                                 (cuuint64_t)rows * D * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)L::kAtomCols, 128, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(base), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                L::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                    : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v,
+                        void* out, float* lse, int batch, int hq, int hkv,
+                        int sq, int sk, int causal, float sm_scale,
+                        int q_base, int k_base, int kv_len,
+                        cudaStream_t stream) {
+  using L = Layout<D>;
+  // Dynamic shared memory above 48 KB, allowed once per device.
+  static std::atomic<uint64_t> configured{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (!(configured.load() & bit)) {
+    err = cudaFuncSetAttribute(flash_fwd_sm90_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               L::kBytes);
+    if (err != cudaSuccess) return err;
+    configured.fetch_or(bit);
   }
+  // With no keys (Sk 0) no K/V tile is ever loaded; q stands in for the
+  // K/V maps so that they still describe real memory.
+  if (sk == 0) k = v = q;
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!encode_map<D>(&tm_q, q, sq, batch * hq) ||
+      !encode_map<D>(&tm_k, k, sk > 0 ? sk : 1, batch * hkv) ||
+      !encode_map<D>(&tm_v, v, sk > 0 ? sk : 1, batch * hkv)) {
+    return cudaErrorInvalidValue;
+  }
+  const dim3 grid((sq + kBlockQ - 1) / kBlockQ, batch * hq);
+  flash_fwd_sm90_kernel<D><<<grid, kThreads, L::kBytes, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<uint16_t*>(out), lse, hq, hkv, sq,
+      causal, sm_scale * kLog2e, q_base, k_base, kv_len);
+  return cudaSuccess;
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   float* lse, int dtype, int batch, int hq, int hkv, int sq,
+                   int sk, int causal, float sm_scale, int q_base, int k_base,
+                   int kv_len, cudaStream_t stream) {
+  if (dtype == 0) {
+    return launch_bf16<D>(q, k, v, out, lse, batch, hq, hkv, sq, sk, causal,
+                          sm_scale, q_base, k_base, kv_len, stream);
+  }
+  const dim3 grid((sq + kRowsPerBlock - 1) / kRowsPerBlock, batch * hq);
+  flash_fwd_f32_kernel<D><<<grid, kRowsPerBlock * 32, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), lse, hq, hkv,
+      sq, sk, causal, sm_scale, q_base, k_base, kv_len);
+  return cudaSuccess;
 }
 
 }  // namespace
 
-// dtype: 0 = bf16 (tensor-core kernel), 1 = f32 (check kernel). Tensors are
+// dtype: 0 = bf16 (the Hopper kernel), 1 = f32 (check kernel). Tensors are
 // contiguous and 16-byte aligned (the Python wrapper checks). Launches on
-// `stream`, allocates nothing, and returns cudaGetLastError() after the
-// launch (0 on success).
+// `stream`, allocates nothing, and returns the first error of the set-up
+// or cudaGetLastError() after the launch (0 on success).
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* out, float* lse, int dtype, int batch,
                                 int hq, int hkv, int sq, int sk, int d,
@@ -342,21 +530,37 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
   if (d == 32) {
-    launch<32>(q, k, v, out, lse, dtype, batch, hq, hkv, sq, sk, causal,
-               sm_scale, q_base, k_base, kv_len, st);
+    err = launch<32>(q, k, v, out, lse, dtype, batch, hq, hkv, sq, sk, causal,
+                     sm_scale, q_base, k_base, kv_len, st);
   } else if (d == 64) {
-    launch<64>(q, k, v, out, lse, dtype, batch, hq, hkv, sq, sk, causal,
-               sm_scale, q_base, k_base, kv_len, st);
+    err = launch<64>(q, k, v, out, lse, dtype, batch, hq, hkv, sq, sk, causal,
+                     sm_scale, q_base, k_base, kv_len, st);
   } else if (d == 128) {
-    launch<128>(q, k, v, out, lse, dtype, batch, hq, hkv, sq, sk, causal,
-                sm_scale, q_base, k_base, kv_len, st);
+    err = launch<128>(q, k, v, out, lse, dtype, batch, hq, hkv, sq, sk,
+                      causal, sm_scale, q_base, k_base, kv_len, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* flash_fwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+#ifdef FLASH_FWD_PHASE_CLOCKS
+// Copies the per-phase cycle totals (kPhases values) to `host` and zeroes
+// them; synchronous. Returns a cudaError_t (0 on success).
+extern "C" int flash_fwd_phase_cycles(unsigned long long* host) {
+  cudaError_t err =
+      cudaMemcpyFromSymbol(host, g_phase_cycles, sizeof(g_phase_cycles));
+  if (err == cudaSuccess) {
+    const unsigned long long zero[kPhases] = {};
+    err = cudaMemcpyToSymbol(g_phase_cycles, zero, sizeof(zero));
+  }
+  return static_cast<int>(err);
+}
+#endif

@@ -44,6 +44,16 @@ CASES = {
     "noncausal_kv_len": ((2, 4, 2, 70, 333, 64), False, {"kv_len": 250}),
     "future_keys": ((1, 4, 2, 128, 128, 128), True, {"k_base": 64}),
     "d32_unaligned": ((2, 8, 4, 77, 77, 32), True, {}),
+    # The edges of the forward's 128-row q and 128-key K/V tiles: one row
+    # or key past a tile, the causal diagonal mid-tile, kv_len inside the
+    # first key tile, ragged D 64 and D 32, several waves of blocks.
+    "s129": ((1, 8, 2, 129, 129, 128), True, {}),
+    "s255": ((1, 8, 2, 255, 255, 128), True, {}),
+    "diagonal_mid_tile": ((1, 8, 2, 300, 700, 128), True, {"q_base": 400}),
+    "kv_len_in_first_tile": ((1, 8, 2, 200, 300, 128), True, {"kv_len": 50}),
+    "d64_ragged": ((2, 8, 2, 333, 517, 64), False, {"kv_len": 400}),
+    "d32_ragged": ((2, 8, 4, 250, 250, 32), True, {}),
+    "waves_b4": ((4, 32, 8, 1024, 1024, 128), True, {}),
 }
 
 
