@@ -38,16 +38,23 @@
 //   (setmaxnreg).
 // - K/V reuse: a block holds 128 query rows, two consumer warpgroups of 64
 //   rows, so each K/V byte brought from L2 serves 128 rows.
-// - Softmax in the exp2 domain: sm_scale * log2(e) is folded into one
-//   multiply and lse = (m2 + log2 l) * ln 2.
+// - The softmax, not the loads, is what the consumers wait on (phase
+//   clocks of ops/flash_phases.py: waits for K and V take about 6 % of
+//   their cycles). With two consumer warps a scheduler little latency is
+//   hidden, so it keeps few instructions and short chains: the exp2 domain
+//   (sm_scale * log2(e) folded in, lse = (m2 + log2 l) * ln 2), the row
+//   max over raw scores in 4 partial maxima, p = exp2 of one FFMA, 4
+//   partial sums, and masked scores set to -inf only on masked tiles.
 // - Causal work only: q tiles with the most causal work launch first; the
 //   loop stops at the last tile the causal diagonal of the block's last real
 //   row reaches, and the mask runs only on tiles that cross the diagonal or
 //   the kv_len tail.
-// Left for later, each to be tried only with a measurement: a persistent
-// grid; ping-pong scheduling of the two consumer warpgroups; overlap of the
-// softmax with the next Q K^T; a TMA store of O; packing a GQA group's q
-// heads into one block.
+// Tried on the card with the first, longer softmax and slower there, so
+// left out: ping-pong turns of the two consumer warpgroups at the tensor
+// cores, and issuing Q K^T of tile kt with P V of tile kt - 1 to overlap
+// the softmax inside a warpgroup. Left for later, each to be tried only
+// with a measurement: those two again with this softmax; a persistent
+// grid; a TMA store of O; packing a GQA group's q heads into one block.
 //
 // f32 (for checking) runs a plain SIMT kernel with one warp per query row
 // that walks the visible keys one at a time.
@@ -55,6 +62,7 @@
 #include <cuda.h>  // CUtensorMap and its enums: types only, no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include <atomic>
@@ -256,50 +264,73 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       sm90::fence_regs(s);
       phases.mark(kQK);
 
+      // Online softmax in the exp2 domain, with short dependency chains
+      // (two consumer warps a scheduler hide little latency): the row max
+      // over the raw scores (scale > 0 commutes with max) in 4 partial
+      // maxima a row, p = exp2(s * scale - m) as one FFMA and ex2, the sum
+      // in 4 partial sums a row. On a tile that needs the mask, a masked
+      // score becomes -inf: it never raises the max and gives p = 0, and a
+      // row that has seen no key keeps m = NEG_INF (exp2(-inf + 1e30) = 0).
       const bool mask = (causal && k_base + k0 + kBlockK - 1 > first_qpos) ||
                         k0 + kBlockK > kv_len;
-      float mx[2] = {kNegInf, kNegInf};
+      if (mask) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int col = k0 + 8 * j + 2 * t + (i & 1);
+            const int row_pos = qpos0 + 8 * (i >> 1);
+            if ((causal && row_pos < k_base + col) || col >= kv_len) {
+              s[4 * j + i] = -INFINITY;
+            }
+          }
+        }
+      }
+      float part[2][4];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+#pragma unroll
+        for (int a = 0; a < 4; ++a) part[r][a] = -INFINITY;
+      }
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          float x = s[4 * j + i] * scale_log2;
-          if (mask) {
-            const int col = k0 + 8 * j + 2 * t + (i & 1);
-            const int row_pos = qpos0 + 8 * (i >> 1);
-            if ((causal && row_pos < k_base + col) || col >= kv_len) {
-              x = kNegInf;
-            }
-          }
-          s[4 * j + i] = x;
-          mx[i >> 1] = fmaxf(mx[i >> 1], x);
+          float& mx = part[i >> 1][j % 4];
+          mx = fmaxf(mx, s[4 * j + i]);
         }
       }
-      float alpha[2];
+      float alpha[2], neg_m[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        const float m_new = fmaxf(m[r], mx[r]);
+        float mx = fmaxf(fmaxf(part[r][0], part[r][1]),
+                         fmaxf(part[r][2], part[r][3]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[r], mx * scale_log2);
         alpha[r] = exp2_approx(m[r] - m_new);  // finite - finite: no NaN
         m[r] = m_new;
-        l[r] *= alpha[r];
+        neg_m[r] = -m_new;
+#pragma unroll
+        for (int a = 0; a < 4; ++a) part[r][a] = 0.f;
       }
-      // p = exp2(x - m); m == NEG_INF: every key so far is masked, and
-      // masked keys contribute nothing (elsewhere exp2(-1e30 - m) is 0).
       uint32_t p[32];
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
         float pj[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const int r = i >> 1;
-          pj[i] = m[r] == kNegInf ? 0.f : exp2_approx(s[4 * j + i] - m[r]);
-          l[r] += pj[i];
+          pj[i] = exp2_approx(fmaf(s[4 * j + i], scale_log2, neg_m[i >> 1]));
+          part[i >> 1][j % 4] += pj[i];
         }
         // Chunks 2k and 2k + 1 form the A registers of the k-th k16 step.
         p[4 * (j / 2) + 2 * (j % 2)] = pack_bf16(pj[0], pj[1]);
         p[4 * (j / 2) + 2 * (j % 2) + 1] = pack_bf16(pj[2], pj[3]);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] = l[r] * alpha[r] +
+               ((part[r][0] + part[r][1]) + (part[r][2] + part[r][3]));
       }
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
@@ -426,13 +457,8 @@ EncodeTiled encode_tiled() {
   static const EncodeTiled fn = [] {
     void* p = nullptr;
     cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 13000
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
     const cudaError_t err = cudaGetDriverEntryPoint(
         "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
     return err == cudaSuccess && found == cudaDriverEntryPointSuccess
                ? reinterpret_cast<EncodeTiled>(p)
                : nullptr;

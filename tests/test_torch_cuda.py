@@ -77,6 +77,18 @@ def test_kernel_matches_plain_version(gen, name, dtype):
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_without_keys_gives_zero_rows(gen, dtype):
+    """Sk = 0: every row sees no key, so out = 0 and lse = -1e30, as for
+    any row without a visible key (the bf16 kernel loads no K/V tile)."""
+    q = torch.randn(1, 4, 64, 128, generator=gen, device="cuda").to(dtype)
+    k = torch.empty(1, 2, 0, 128, device="cuda", dtype=dtype)
+    out, lse = attention.flash_fwd(q, k, k, causal=False, sm_scale=0.1)
+    torch.cuda.synchronize()
+    assert not out.any()
+    assert (lse == attention.NEG_INF).all()
+
+
 def test_kernel_rejects_what_it_does_not_take(gen):
     q = torch.randn(1, 2, 16, 96, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):

@@ -27,3 +27,13 @@ def test_library_name_follows_the_source_and_every_shared_header(
 def test_port_sources_include_the_hashed_hopper_header():
     assert (_ext.CSRC / "sm90.cuh").exists()
     assert '#include "sm90.cuh"' in (_ext.CSRC / "flash_fwd.cu").read_text()
+
+
+def test_a_build_with_extra_defines_is_a_library_of_its_own(tmp_path,
+                                                            monkeypatch):
+    monkeypatch.setattr(_ext, "CSRC", tmp_path)
+    (tmp_path / "kern.cu").write_text("// kernel\n")
+    plain = _ext._library_path("kern")
+    instrumented = _ext._library_path("kern", ("KERN_PHASE_CLOCKS",))
+    assert instrumented != plain
+    assert instrumented == _ext._library_path("kern", ("KERN_PHASE_CLOCKS",))
