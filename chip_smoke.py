@@ -29,6 +29,7 @@ import gc
 import io
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -95,6 +96,22 @@ def nvidia_smi_line():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(report):
+    """The lines of nvcc's ``-Xptxas -v`` report that say what a kernel
+    costs, each after its kernel's name (``flash_bwd_dq_sm90_kernel<128>``):
+    registers, spills, and any note that ptxas serialised the kernel's
+    wgmma instructions, which costs most of their rate."""
+    kernel, lines = "?", []
+    for line in report.splitlines():
+        found = re.search(r"Compiling entry function '.*?(flash_(?:fwd|bwd)_"
+                          r"(?:dq_|dkv_)?(?:sm90|f32)_kernel)ILi(\d+)E", line)
+        if found:
+            kernel = f"{found.group(1)}<{found.group(2)}>"
+        elif any(w in line for w in ("Used", "spill", "wgmma", "serialized")):
+            lines.append(f"{kernel}: {line.strip()}")
+    return lines
 
 
 def attended_pairs(seq_q, seq_k, causal, q_base=0, k_base=0, kv_len=None):
@@ -329,6 +346,20 @@ BWD_CASES = [
     ("future_keys", 1, 200, 200, True, 0, 150, None, 32, 8, 128, "bfloat16"),
     ("d64_unaligned", 2, 1000, 1000, True, 0, 0, None, 8, 2, 64, "bfloat16"),
     ("d32_train_cli", 2, 128, 128, True, 0, 0, None, 8, 4, 32, "bfloat16"),
+    # The forward's tile-edge cases, then the edges of the backward's tiles
+    # (dk/dv: 128-key blocks of two 64-key halves, 64-row q tiles; dq:
+    # 128-row blocks, 64-key tiles): one row past a 64-row q tile, a ragged
+    # key half (keys 128..190 of the second block, none in its second
+    # half), and a GQA group of 8 q heads summed into each dk/dv.
+    ("s129", 1, 129, 129, True, 0, 0, None, 32, 8, 128, "bfloat16"),
+    ("s255", 1, 255, 255, True, 0, 0, None, 32, 8, 128, "bfloat16"),
+    ("diagonal_mid_tile", 1, 300, 700, True, 400, 0, None, 32, 8, 128,
+     "bfloat16"),
+    ("kv_len_in_first_tile", 1, 200, 300, True, 0, 0, 50, 32, 8, 128,
+     "bfloat16"),
+    ("sq65", 1, 65, 65, True, 0, 0, None, 32, 8, 128, "bfloat16"),
+    ("sk191", 1, 256, 191, False, 0, 0, None, 32, 8, 128, "bfloat16"),
+    ("gqa8", 1, 1024, 1024, True, 0, 0, None, 32, 4, 128, "bfloat16"),
     ("f32_d128", 1, 512, 512, True, 0, 0, None, 8, 2, 128, "float32"),
 ]
 BWD_MAIN_CASE = "causal_8192"
@@ -716,8 +747,7 @@ def main():
     _ext.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {n: {"seconds": i["seconds"],
-                          "ptxas": [ln.strip() for ln in i["ptxas"].splitlines()
-                                    if "Used" in ln or "spill" in ln]}
+                          "ptxas": ptxas_summary(i["ptxas"])}
                       for n, i in _ext.build_info.items()}})
 
     gen = torch.Generator(device="cuda").manual_seed(0)

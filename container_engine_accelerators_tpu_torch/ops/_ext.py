@@ -130,8 +130,8 @@ _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 FLASH_HEAD_DIMS = (32, 64, 128)
 
 
-def _flash_bwd_lib():
-    lib = load("flash_bwd")
+def _flash_bwd_lib(defines=()):
+    lib = load("flash_bwd", defines)
     if lib.flash_bwd_dkv_launch.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         common = [
@@ -216,7 +216,7 @@ def flash_fwd(q, k, v, out, lse, *, causal, sm_scale, q_base, k_base,
 
 
 def _bwd_launch(fn_name, q, k, v, dout, lse, delta, outs, *, causal,
-                sm_scale, q_base, k_base, kv_len):
+                sm_scale, q_base, k_base, kv_len, defines=()):
     _check({"q": q, "k": k, "v": v, "dout": dout, **outs},
            {"lse": lse, "delta": delta}, q.device)
     batch, num_q_heads, seq_q, d = q.shape
@@ -230,7 +230,7 @@ def _bwd_launch(fn_name, q, k, v, dout, lse, delta, outs, *, causal,
         want = q.shape if name == "dq" else k.shape
         if t.shape != want:
             raise ValueError(f"{name} must be shaped {tuple(want)}")
-    lib = _flash_bwd_lib()
+    lib = _flash_bwd_lib(defines)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = getattr(lib, fn_name)(
@@ -251,7 +251,8 @@ def _bwd_launch(fn_name, q, k, v, dout, lse, delta, outs, *, causal,
 def flash_bwd_dq(q, k, v, dout, lse, delta, dq, **kw):
     """Launch the dq kernel of csrc/flash_bwd.cu on PyTorch's current
     stream; checks as ``flash_fwd`` does. Keywords: causal, sm_scale,
-    q_base, k_base, kv_len."""
+    q_base, k_base, kv_len, and ``defines`` for an instrumented build (see
+    flash_phases.py)."""
     _bwd_launch("flash_bwd_dq_launch", q, k, v, dout, lse, delta,
                 {"dq": dq}, **kw)
 

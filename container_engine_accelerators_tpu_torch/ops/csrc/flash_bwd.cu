@@ -11,8 +11,8 @@
 //   _bwd_dkv_kernel (staged q/dO, seq_q <= 8192) and _bwd_dkv_stream_kernel
 //     (q/dO tiles streamed, seq_q > 8192) -> flash_bwd_dkv_*_kernel.
 // The TPU needed two kernels per gradient because its staged variants hold a
-// whole sequence in VMEM. Here every block walks its long operand in 64-row
-// tiles through shared memory whatever the length, so one kernel covers both
+// whole sequence in VMEM. Here every block streams its long operand in tiles
+// through shared memory whatever the length, so one kernel covers both
 // branches.
 //
 // Contract (as the JAX kernels): q/dO (B, Hq, Sq, D), k/v (B, Hkv, Sk, D),
@@ -39,368 +39,684 @@
 // byte, far above the card's ridge of about 295 (989 TFLOP/s bf16 dense over
 // 3.35 TB/s): both kernels are bound by the tensor cores' bf16 rate.
 //
-// What the design does about it. Every product runs on the tensor cores
-// (mma.sync m16n8k16, bf16 in, f32 accumulate); scores and probabilities
-// never leave registers; each staged tile is reused by the block's 64 rows;
-// loops start (dk/dv) or stop (dq) at the causal diagonal and the mask runs
-// only on tiles that cross it, the kv_len tail or a ragged edge. The dk/dv
-// kernel keeps its two f32 accumulators (dk, dv: 2 x 16 x D per warp) in
-// registers and reads the K/V A-fragments from shared memory, which with q
-// and dO tiles needs 68 KB of dynamic shared memory at D 128. At D 128 it
-// uses 255 registers and spills 8 bytes; rolling up its 16-row loop removes
-// the spill but ran slower on H100 in a one-off trial. Not yet done (later
-// work): wgmma, TMA and pipelined loads.
+// What the design does about it (bf16, head dims 32, 64 and 128). Both
+// kernels have the forward's shape: 384 threads, a producer warpgroup whose
+// one thread issues TMA loads into an mbarrier ring (full: expect-tx bytes;
+// empty: the 8 consumer warps' arrivals) and hands its registers to two
+// consumer warpgroups (setmaxnreg 24 / 240), each of which owns 64 rows of
+// the block's resident operand and runs every product as wgmma.
+// - dk/dv: a block is one (batch * KV head, 128-key tile); K and V stay
+//   resident, consumer c owns keys [64c, 64c + 64). The producer streams
+//   (q head of the GQA group, 64-row q tile) pairs from the causal first
+//   tile on: q, dO and their 64 lse and delta values. Per pair, each
+//   consumer computes S^T = K Q^T and dP^T = V dO^T (m64n64k16, both
+//   operands K-major from shared memory), then dV += P^T dO and dK += dS^T Q
+//   (m64nDk16 with P^T and dS^T from registers, the S^T accumulator's layout
+//   being the A operand's, and dO and Q read MN-major with the transpose
+//   bit). Nothing is transposed through shared memory. lse and delta belong
+//   to columns of S^T: the producer warp copies each q tile's 64 of each
+//   into the stage (plain loads; see the producer), and a thread reads
+//   those of its columns from there. dV is issued as soon as P^T is packed,
+//   so it runs while dS^T is formed. dK, dV (64 + 64 f32 registers at
+//   D 128), S^T and dP^T (32 + 32) fit the consumer's 240, which is why q
+//   tiles are 64 rows.
+// - dq: a block is one (batch * q head, 128-row q tile); q and dO stay
+//   resident, each thread keeps lse and delta of its two rows in registers,
+//   and 64-key K/V tiles stream through a 2-stage ring. Per tile: S = Q K^T,
+//   dP = dO V^T (SS, K and V K-major), then dQ += dS K (RS, K MN-major).
+//   The loop stops at the last tile the causal diagonal of the block's last
+//   real row reaches.
+// - Heavy blocks launch first (key tile 0 sees every query; the last q tile
+//   sees every key), and the mask runs only on tiles that cross the causal
+//   diagonal, the kv_len tail or the ragged Sq edge. TMA zero-fills q and dO
+//   rows past Sq and K/V rows past Sk, so nothing is padded.
+// Measured on H100 (PERF.md): 128-key K/V tiles for dq ran slower than 64,
+// and a 3-stage ring gained little; both stay build-time knobs that
+// ops/flash_phases.py times. The consumers spend most of their cycles in
+// the p/ds step. Left for later, each to be tried only with a measurement:
+// fusing dq into the dk/dv kernel with f32 reduce-adds (5 products per
+// pair, not 7), splitting a heavy dk/dv block's GQA group across blocks,
+// a TMA store of the gradients.
 //
-// bf16 runs those kernels. f32 (for checking) runs plain SIMT kernels: one
-// warp per query row (dq) or per key row (dk/dv) that walks the visible
-// partners one at a time.
+// f32 (for checking) runs plain SIMT kernels: one warp per query row (dq) or
+// per key row (dk/dv) that walks the visible partners one at a time.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include <atomic>
+
+#include "launch.cuh"
+#include "sm90.cuh"
 
 namespace {
 
-constexpr int kTile = 64;      // rows per block and per staged tile
-constexpr int kWarps = kTile / 16;
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;        // row padding (bf16): conflict-free fragments
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ void mma_16816(float (&c)[4],
-                                          const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+constexpr int kThreads = 384;  // producer warpgroup + two consumers
+constexpr int kConsumerWarps = 8;
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+// Build-time knobs, each timed against the default by ops/flash_phases.py:
+// the depth of the streamed operand's ring, and the dq kernel's K/V tile
+// width (64 or 128 keys).
+#ifndef FLASH_BWD_STAGES
+#define FLASH_BWD_STAGES 2
+#endif
+#ifndef FLASH_BWD_DQ_KEYS
+#define FLASH_BWD_DQ_KEYS 64
+#endif
+constexpr int kStages = FLASH_BWD_STAGES;
+constexpr int kDqKeys = FLASH_BWD_DQ_KEYS;
+static_assert(kDqKeys == 64 || kDqKeys == 128, "dq K/V tiles: 64 or 128");
+constexpr int kResident = 128; // rows of the resident operand per block
+constexpr int kStream = 64;    // rows of a streamed q/dO tile (dk/dv)
 
-__device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+// Shared-memory geometry of bf16 tiles of head dim D in TMA's swizzled
+// layout: D / kAtomCols atoms side by side, each `rows` rows of kRowBytes
+// (128-byte swizzle; 64-byte at D 32, whose rows are 64 bytes).
+template <int D>
+struct Tiles {
+  static constexpr int kRowBytes = D * 2 < 128 ? D * 2 : 128;
+  static constexpr int kAtomCols = kRowBytes / 2;
+  static constexpr int kAtoms = D / kAtomCols;
+  static constexpr int kSwizzle =
+      kRowBytes == 128 ? sm90::kSwizzle128B : sm90::kSwizzle64B;
+  static constexpr uint32_t kSbo = 8 * kRowBytes;  // between 8-row groups
+  // A resident tile (128 rows), a streamed q/dO tile (64 rows) and a
+  // streamed K/V tile of the dq kernel (kDqKeys rows).
+  static constexpr int kResAtomBytes = kResident * kRowBytes;
+  static constexpr int kResBytes = kResident * D * 2;
+  static constexpr int kStrAtomBytes = kStream * kRowBytes;
+  static constexpr int kStrBytes = kStream * D * 2;
+  static constexpr int kKeyAtomBytes = kDqKeys * kRowBytes;
+  static constexpr int kKeyBytes = kDqKeys * D * 2;
 
-__device__ __forceinline__ uint32_t pack_u16(uint16_t lo, uint16_t hi) {
-  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
-}
+  // Byte offset of k-step kk (16 values of D) in a K-major tile whose
+  // atoms are `atom_bytes` apart: 32 bytes into an atom's rows.
+  static __device__ __forceinline__ int kstep(int kk, int atom_bytes) {
+    return (kk * 32 / kRowBytes) * atom_bytes + (kk * 32) % kRowBytes;
+  }
+  // Descriptor of a K-major operand at `p`; k-step kk is kstep bytes on.
+  static __device__ __forceinline__ uint64_t kmajor(const uint8_t* p) {
+    return sm90::make_desc(p, 16, kSbo, kSwizzle);
+  }
+  // Descriptor of an MN-major operand (its rows are the product's k
+  // dimension, D its n) whose atoms are `atom_bytes` apart; rows
+  // [16kk, 16kk + 16) are 16kk rows on.
+  static __device__ __forceinline__ uint64_t mnmajor(const uint8_t* tile,
+                                                     int atom_bytes) {
+    return sm90::make_desc(tile, atom_bytes, kSbo, kSwizzle);
+  }
+};
+
+// dk/dv block: K and V resident (128 rows each), then a ring of q and dO
+// tiles (64 rows each) with their 64 lse and 64 delta values.
+template <int D>
+struct DkvLayout {
+  using T = Tiles<D>;
+  static constexpr int kK = 0;
+  static constexpr int kV = T::kResBytes;
+  static constexpr int kQ = 2 * T::kResBytes;              // + stage * tile
+  static constexpr int kDO = kQ + kStages * T::kStrBytes;  // + stage * tile
+  static constexpr int kLse = kDO + kStages * T::kStrBytes;      // + 256 st
+  // (kLse holds -lse * log2 e, the exponent's offset, not lse itself.)
+  static constexpr int kDelta = kLse + kStages * kStream * 4;    // + 256 st
+  static constexpr int kBars = kDelta + kStages * kStream * 4;
+  static constexpr int kNumBars = 1 + 2 * kStages;  // k/v, full, empty
+  static constexpr int kStageTx = 2 * T::kStrBytes;
+  // Barriers, and slack to align the dynamic base to 1024 bytes.
+  static constexpr int kBytes = kBars + 8 * kNumBars + 1024;
+};
+
+// dq block: q and dO resident (128 rows each), then a ring of K and V
+// tiles (kDqKeys keys each).
+template <int D>
+struct DqLayout {
+  using T = Tiles<D>;
+  static constexpr int kQ = 0;
+  static constexpr int kDO = T::kResBytes;
+  static constexpr int kK = 2 * T::kResBytes;              // + stage * tile
+  static constexpr int kV = kK + kStages * T::kKeyBytes;   // + stage * tile
+  static constexpr int kBars = kV + kStages * T::kKeyBytes;
+  static constexpr int kNumBars = 1 + 2 * kStages;  // q/dO, full, empty
+  static constexpr int kBytes = kBars + 8 * kNumBars + 1024;
+};
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Copy rows [row0, row0 + 64) of a (rows, D) bf16 matrix into shared memory
-// (row stride D + kPad), 16 bytes per thread per step; rows past n_rows are
-// zero-filled, so ragged edges never read out of bounds.
-template <int D>
-__device__ __forceinline__ void load_tile(uint16_t* dst, const uint16_t* src,
-                                          int row0, int n_rows) {
-  constexpr int kVecs = D / 8;
-  for (int i = threadIdx.x; i < kTile * kVecs; i += kThreads) {
-    const int r = i / kVecs, c = (i % kVecs) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < n_rows) {
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + c) = val;
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
+  return raw + ((1024 - (sm90::smem_addr(raw) & 1023)) & 1023);
+}
+
+// Packs a 64 x N f32 accumulator (N / 2 registers) into the A registers
+// of N / 16 k16 steps: chunks 2k and 2k + 1 form step k.
+template <int R>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[R / 2],
+                                       const float (&x)[R]) {
+#pragma unroll
+  for (int j = 0; j < R / 4; ++j) {
+    a[4 * (j / 2) + 2 * (j % 2)] = pack_bf16(x[4 * j], x[4 * j + 1]);
+    a[4 * (j / 2) + 2 * (j % 2) + 1] = pack_bf16(x[4 * j + 2], x[4 * j + 3]);
   }
 }
 
-// A fragments (m16 x k16 per head-dim step) of the 16 rows of a shared tile
-// that start at `row`, for head-dim step kk.
-__device__ __forceinline__ void a_frag(uint32_t (&a)[4], const uint16_t* tile,
-                                       int stride, int row, int kk) {
-  const int lane = threadIdx.x % 32;
-  const uint16_t* r0 = tile + (row + lane / 4) * stride + 2 * (lane % 4) +
-                       kk * 16;
-  const uint16_t* r8 = r0 + 8 * stride;
-  a[0] = ld32(r0);
-  a[1] = ld32(r8);
-  a[2] = ld32(r0 + 8);
-  a[3] = ld32(r8 + 8);
-}
-
-// dq: one block = one (batch * q head, 64-row q tile). Warp w owns q rows
-// [16w, 16w + 16); in the mma layout thread (g = lane / 4, t = lane % 4)
-// holds rows g and g + 8, columns 2t and 2t + 1 of every 8-wide tile. The q
-// and dO rows stay in registers as A fragments; K/V tiles of 64 keys are
-// staged in shared memory, 16 keys per inner step.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_bf16_kernel(const uint16_t* __restrict__ q,
-                         const uint16_t* __restrict__ k,
-                         const uint16_t* __restrict__ v,
-                         const uint16_t* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         uint16_t* __restrict__ dq, int hq, int hkv, int sq,
-                         int sk, int causal, float sm_scale, int q_base,
-                         int k_base, int kv_len) {
-  constexpr int kStride = D + kPad;
-  constexpr int kDSteps = D / 16;   // k-steps of QK^T and dO V^T over D
-  constexpr int kDTiles = D / 8;    // n-tiles of dS K over D
-  __shared__ __align__(16) uint16_t ks[kTile * kStride];
-  __shared__ __align__(16) uint16_t vs[kTile * kStride];
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;  // heavy tiles first
-  const int bh = blockIdx.y;
-  const int b = bh / hq, kvh = (bh % hq) / (hq / hkv);
-  const uint16_t* kg = k + ((size_t)b * hkv + kvh) * sk * D;
-  const uint16_t* vg = v + ((size_t)b * hkv + kvh) * sk * D;
-
-  // Stage q through ks and dO through vs; keep both as A fragments.
-  load_tile<D>(ks, q + (size_t)bh * sq * D, q0, sq);
-  load_tile<D>(vs, dout + (size_t)bh * sq * D, q0, sq);
-  __syncthreads();
-  uint32_t qa[kDSteps][4], da[kDSteps][4];
+// acc (64 x D) += A (64 x K, the registers pack_a makes) * B (K x D, read
+// MN-major through descriptor `b`, see Tiles::mnmajor): K / 16 RS wgmma
+// steps, issued but not committed.
+template <int D, int K>
+__device__ __forceinline__ void mma_rs(float (&acc)[D / 2],
+                                       const uint32_t (&a)[K / 4],
+                                       uint64_t b) {
 #pragma unroll
-  for (int kk = 0; kk < kDSteps; ++kk) {
-    a_frag(qa[kk], ks, kStride, warp * 16, kk);
-    a_frag(da[kk], vs, kStride, warp * 16, kk);
-  }
-  __syncthreads();
-
-  float row_lse[2], row_delta[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + 8 * r;
-    row_lse[r] = row < sq ? lse[(size_t)bh * sq + row] : 0.f;
-    row_delta[r] = row < sq ? delta[(size_t)bh * sq + row] : 0.f;
-  }
-
-  // Key columns [0, n_cols) hold every key this tile can see: up to the
-  // causal diagonal of its last real row, in global positions.
-  const int q_first = q_base + q0;
-  const int q_last = q_base + min(q0 + kTile, sq) - 1;
-  int n_cols = kv_len;
-  if (causal) n_cols = max(0, min(kv_len, q_last - k_base + 1));
-  const int n_tiles = (n_cols + kTile - 1) / kTile;
-  const int row_g = q0 + warp * 16 + g;  // local row g; row g + 8 is +8
-
-  float acc[kDTiles][4];
-#pragma unroll
-  for (int dn = 0; dn < kDTiles; ++dn) {
-    acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-  }
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kTile;
-    load_tile<D>(ks, kg, k0, sk);
-    load_tile<D>(vs, vg, k0, sk);
-    __syncthreads();
-    const bool mask = (causal && k_base + k0 + kTile - 1 > q_first) ||
-                      k0 + kTile > kv_len || q0 + kTile > sq;
-
-#pragma unroll
-    for (int j = 0; j < kTile / 16; ++j) {
-      // Scores and dO V^T for keys [16j, 16j + 16) of the tile.
-      float s[2][4], dp[2][4];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        s[h][0] = s[h][1] = s[h][2] = s[h][3] = 0.f;
-        dp[h][0] = dp[h][1] = dp[h][2] = dp[h][3] = 0.f;
-        const uint16_t* kr = ks + ((2 * j + h) * 8 + g) * kStride + 2 * t;
-        const uint16_t* vr = vs + ((2 * j + h) * 8 + g) * kStride + 2 * t;
-#pragma unroll
-        for (int kk = 0; kk < kDSteps; ++kk) {
-          mma_16816(s[h], qa[kk], ld32(kr + kk * 16), ld32(kr + kk * 16 + 8));
-          mma_16816(dp[h], da[kk], ld32(vr + kk * 16),
-                    ld32(vr + kk * 16 + 8));
-        }
-      }
-      // ds = p * (dp - delta) * scale, with p = 0 on masked keys.
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = i >> 1;
-          bool vis = true;
-          if (mask) {
-            const int col = k0 + (2 * j + h) * 8 + 2 * t + (i & 1);
-            const int row = row_g + 8 * r;
-            vis = !((causal && q_base + row < k_base + col) ||
-                    col >= kv_len || row >= sq);
-          }
-          const float p = vis ? expf(s[h][i] * sm_scale - row_lse[r]) : 0.f;
-          s[h][i] = p * (dp[h][i] - row_delta[r]) * sm_scale;
-        }
-      }
-      // acc += dS K: the accumulator layout of dS is its A-fragment layout;
-      // B fragments of K pair two keys of one head-dim column.
-      const uint32_t dsa[4] = {
-          pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
-          pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3]),
-      };
-      const uint16_t* kc0 = ks + (16 * j + 2 * t) * kStride + g;
-#pragma unroll
-      for (int dn = 0; dn < kDTiles; ++dn) {
-        const uint16_t* kc = kc0 + dn * 8;
-        mma_16816(acc[dn], dsa, pack_u16(kc[0], kc[kStride]),
-                  pack_u16(kc[8 * kStride], kc[9 * kStride]));
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row_g + 8 * r;
-    if (row >= sq) continue;
-    uint16_t* orow = dq + ((size_t)bh * sq + row) * D + 2 * t;
-#pragma unroll
-    for (int dn = 0; dn < kDTiles; ++dn) {
-      *reinterpret_cast<uint32_t*>(orow + dn * 8) =
-          pack_bf16(acc[dn][2 * r], acc[dn][2 * r + 1]);
-    }
+  for (int kk = 0; kk < K / 16; ++kk) {
+    const uint32_t ak[4] = {a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
+                            a[4 * kk + 3]};
+    sm90::WgmmaRS<D, 1>::mma(
+        acc, ak, sm90::desc_advance(b, kk * 16 * Tiles<D>::kRowBytes), 1);
   }
 }
 
-// dk/dv: one block = one (batch * KV head, 64-key tile). Warp w owns key rows
-// [16w, 16w + 16). The block loops over the group's q heads and, for each,
-// over the 64-row q tiles from the causal diagonal on, in K-major
-// orientation (scores s^T: keys x queries). dk and dv accumulate in f32
-// registers across the whole group.
+// Phases of a consumer warp, for the instrumented build: with
+// -DFLASH_BWD_PHASE_CLOCKS (ops/flash_phases.py) each consumer warp adds
+// the clock64 cycles it spends in each phase to a grid-wide total per
+// kernel (0 dq, 1 dk/dv); without it PhaseClock is empty and compiles away.
+// kWait: waiting for the resident operand and each streamed tile; kScores:
+// the S and dP products issued and waited; kPds: the p and ds step (masks,
+// exp2, packing); kGrads: the dV and dK (or dQ) products issued and
+// waited, with the stage's release; kEpilogue: the gradient stores.
+enum Phase { kWait, kScores, kPds, kGrads, kEpilogue, kPhases };
+
+#ifdef FLASH_BWD_PHASE_CLOCKS
+__device__ unsigned long long g_phase_cycles[2][kPhases];
+
+struct PhaseClock {
+  long long last;
+  unsigned long long sum[kPhases] = {};
+  __device__ PhaseClock() { last = clock64(); }
+  __device__ void mark(Phase phase) {
+    const long long now = clock64();
+    sum[phase] += now - last;
+    last = now;
+  }
+  __device__ void flush(int kernel, int lane) {
+    if (lane != 0) return;
+    for (int i = 0; i < kPhases; ++i) {
+      atomicAdd(&g_phase_cycles[kernel][i], sum[i]);
+    }
+  }
+};
+#else
+struct PhaseClock {
+  __device__ void mark(Phase) {}
+  __device__ void flush(int, int) {}
+};
+#endif
+
+// dk/dv: one block = one (batch * KV head, 128-key tile), blockIdx.x the
+// KV head and blockIdx.y the key tile, so key tile 0 (which, causal, sees
+// every query) launches first. Warpgroup 0 loads; consumer c = 0, 1 owns
+// keys [64c, 64c + 64). In a consumer, warp w and lane (g = lane / 4,
+// t = lane % 4) hold keys 16w + g and 16w + g + 8 of its 64 (rows of S^T,
+// dK, dV), and columns 8j + 2t, 8j + 2t + 1 of every 8-column chunk j
+// (query rows of the q tile for S^T; head-dim columns for dK, dV).
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_bf16_kernel(const uint16_t* __restrict__ q,
-                          const uint16_t* __restrict__ k,
-                          const uint16_t* __restrict__ v,
-                          const uint16_t* __restrict__ dout,
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
                           uint16_t* __restrict__ dk, uint16_t* __restrict__ dv,
                           int hq, int hkv, int sq, int sk, int causal,
-                          float sm_scale, int q_base, int k_base,
-                          int kv_len) {
-  constexpr int kStride = D + kPad;
-  constexpr int kDSteps = D / 16;
-  constexpr int kDTiles = D / 8;
-  extern __shared__ __align__(16) uint16_t smem[];
-  uint16_t* ks = smem;
-  uint16_t* vs = ks + kTile * kStride;
-  uint16_t* qs = vs + kTile * kStride;
-  uint16_t* dos = qs + kTile * kStride;
-  float* lse_s = reinterpret_cast<float*>(dos + kTile * kStride);
-  float* delta_s = lse_s + kTile;
+                          float sm_scale, float scale_log2, int q_base,
+                          int k_base, int kv_len) {
+  using T = Tiles<D>;
+  using L = DkvLayout<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full = bar_kv + 1;
+  uint64_t* empty = full + kStages;
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int k0 = blockIdx.x * kTile;
-  const int bkv = blockIdx.y;
+  const int bkv = blockIdx.x;
+  const int k0 = blockIdx.y * kResident;
   const int b = bkv / hkv, kvh = bkv % hkv, group = hq / hkv;
-  load_tile<D>(ks, k + (size_t)bkv * sk * D, k0, sk);
-  load_tile<D>(vs, v + (size_t)bkv * sk * D, k0, sk);
 
-  // The first q tile with a row that sees the tile's first key (global
-  // positions, clamped at 0); a tile wholly past kv_len has no work.
-  const int n_qt = (sq + kTile - 1) / kTile;
-  int first_qt = causal ? max(0, k_base + k0 - q_base) / kTile : 0;
-  if (k0 >= kv_len) first_qt = n_qt;
-  const int key_g = k0 + warp * 16 + g;  // local key g; key g + 8 is +8
+  // The (q head, q tile) pairs of the block: for each head of the group,
+  // the q tiles from the first with a row that sees the block's first key
+  // (global positions, clamped at 0) on. A block wholly past kv_len has
+  // none.
+  const int n_qt = (sq + kStream - 1) / kStream;
+  const int first_qt = causal ? max(0, k_base + k0 - q_base) / kStream : 0;
+  const int per_head = k0 < kv_len ? max(0, n_qt - first_qt) : 0;
+  const int n_items = group * per_head;
 
-  float acc_dk[kDTiles][4], acc_dv[kDTiles][4];
-#pragma unroll
-  for (int dn = 0; dn < kDTiles; ++dn) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc_dk[dn][i] = acc_dv[dn][i] = 0.f;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(bar_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      // The TMA issue (with its expected bytes) and the 32 lanes that
+      // store the stage's lse and delta.
+      sm90::mbar_init(full + s, 1 + 32);
+      sm90::mbar_init(empty + s, kConsumerWarps);
+    }
+    sm90::mbar_init_fence();
   }
+  __syncthreads();
 
-  for (int hg = 0; hg < group; ++hg) {
-    const size_t bh = (size_t)b * hq + (size_t)kvh * group + hg;
-    const uint16_t* qg = q + bh * sq * D;
-    const uint16_t* dog = dout + bh * sq * D;
-    for (int qt = first_qt; qt < n_qt; ++qt) {
-      const int q0 = qt * kTile;
-      __syncthreads();  // the previous tile's readers are done
-      load_tile<D>(qs, qg, q0, sq);
-      load_tile<D>(dos, dog, q0, sq);
-      for (int i = threadIdx.x; i < kTile; i += kThreads) {
-        const bool in = q0 + i < sq;
-        lse_s[i] = in ? lse[bh * sq + q0 + i] : 0.f;
-        delta_s[i] = in ? delta[bh * sq + q0 + i] : 0.f;
-      }
-      __syncthreads();
-      const bool mask = (causal && q_base + q0 < k_base + k0 + kTile - 1) ||
-                        k0 + kTile > kv_len || q0 + kTile > sq;
-
-#pragma unroll
-      for (int j = 0; j < kTile / 16; ++j) {
-        // s^T and V dO^T for query rows [16j, 16j + 16) of the q tile.
-        float s[2][4], dp[2][4];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) s[h][i] = dp[h][i] = 0.f;
+  if (threadIdx.x < 128) {
+    // Producer: warp 0. Round r of a stage waits for the consumers to
+    // release round r - 1 (the first round's wait passes at once). Lane 0
+    // issues the TMA loads; every lane stores two of the tile's 64
+    // -lse * log2 e and delta values (0 for rows past Sq, which are masked)
+    // from plain loads, then arrives. (A TMA box of an f32 vector at a row
+    // offset that is not 16-byte aligned, any head past the first when
+    // Sq % 4 != 0, stopped the kernel.)
+    sm90::regs_dealloc<kProducerRegs>();
+    const int lane = threadIdx.x;
+    if (lane < 32 && n_items > 0) {
+      if (lane == 0) {
+        sm90::mbar_arrive_expect_tx(bar_kv, 2 * T::kResBytes);
+        for (int a = 0; a < T::kAtoms; ++a) {
+          sm90::tma_load_3d(smem + L::kK + a * T::kResAtomBytes, &tm_k,
+                            bar_kv, a * T::kAtomCols, k0, bkv);
+          sm90::tma_load_3d(smem + L::kV + a * T::kResAtomBytes, &tm_v,
+                            bar_kv, a * T::kAtomCols, k0, bkv);
         }
-#pragma unroll
-        for (int kk = 0; kk < kDSteps; ++kk) {
-          uint32_t ka[4], va[4];
-          a_frag(ka, ks, kStride, warp * 16, kk);
-          a_frag(va, vs, kStride, warp * 16, kk);
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int row = ((2 * j + h) * 8 + g) * kStride + 2 * t + kk * 16;
-            mma_16816(s[h], ka, ld32(qs + row), ld32(qs + row + 8));
-            mma_16816(dp[h], va, ld32(dos + row), ld32(dos + row + 8));
+      }
+      for (int it = 0; it < n_items; ++it) {
+        const int st = it % kStages;
+        const int bh = b * hq + kvh * group + it / per_head;
+        const int q0 = (first_qt + it % per_head) * kStream;
+        sm90::mbar_wait(empty + st, ((it / kStages) & 1) ^ 1);
+        if (lane == 0) {
+          sm90::mbar_arrive_expect_tx(full + st, L::kStageTx);
+          for (int a = 0; a < T::kAtoms; ++a) {
+            const int off = st * T::kStrBytes + a * T::kStrAtomBytes;
+            sm90::tma_load_3d(smem + L::kQ + off, &tm_q, full + st,
+                              a * T::kAtomCols, q0, bh);
+            sm90::tma_load_3d(smem + L::kDO + off, &tm_do, full + st,
+                              a * T::kAtomCols, q0, bh);
           }
         }
-        float p[2][4];
+        float* neg_lse_s =
+            reinterpret_cast<float*>(smem + L::kLse) + st * kStream;
+        float* delta_s =
+            reinterpret_cast<float*>(smem + L::kDelta) + st * kStream;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
+        for (int i = lane; i < kStream; i += 32) {
+          const bool in = q0 + i < sq;
+          neg_lse_s[i] = in ? -lse[(size_t)bh * sq + q0 + i] * kLog2e : 0.f;
+          delta_s[i] = in ? delta[(size_t)bh * sq + q0 + i] : 0.f;
+        }
+        sm90::mbar_arrive(full + st);
+      }
+    }
+  } else {
+    sm90::regs_alloc<kConsumerRegs>();
+    const int c = threadIdx.x / 128 - 1;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int kc0 = k0 + 64 * c;               // the consumer's first key
+    const int key0 = kc0 + 16 * warp + g;      // and key0 + 8
+    // Descriptors of the consumer's K and V rows and of stage 0's q and dO
+    // tiles, made once: a k-step or a stage moves them by a byte offset.
+    const uint64_t k_desc = T::kmajor(smem + L::kK + 64 * c * T::kRowBytes);
+    const uint64_t v_desc = T::kmajor(smem + L::kV + 64 * c * T::kRowBytes);
+    const uint64_t q_desc = T::kmajor(smem + L::kQ);
+    const uint64_t do_desc = T::kmajor(smem + L::kDO);
+    const uint64_t q_mn = T::mnmajor(smem + L::kQ, T::kStrAtomBytes);
+    const uint64_t do_mn = T::mnmajor(smem + L::kDO, T::kStrAtomBytes);
+
+    float acc_dk[D / 2], acc_dv[D / 2], s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+
+    PhaseClock phases;
+    if (n_items > 0) sm90::mbar_wait(bar_kv, 0);
+    phases.mark(kWait);
+    for (int it = 0; it < n_items; ++it) {
+      const int st = it % kStages;
+      const int q0 = (first_qt + it % per_head) * kStream;
+      const uint32_t st_off = st * T::kStrBytes;
+      const float* neg_lse_s =
+          reinterpret_cast<const float*>(smem + L::kLse + st * kStream * 4);
+      const float* delta_s =
+          reinterpret_cast<const float*>(smem + L::kDelta + st * kStream * 4);
+      sm90::mbar_wait(full + st, (it / kStages) & 1);
+      phases.mark(kWait);
+
+      // S^T = K Q^T and dP^T = V dO^T, committed as two groups.
+      sm90::fence_regs(s);
+      sm90::fence_regs(dp);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        sm90::WgmmaSS<64, 0>::mma(
+            s, sm90::desc_advance(k_desc, T::kstep(kk, T::kResAtomBytes)),
+            sm90::desc_advance(q_desc,
+                               st_off + T::kstep(kk, T::kStrAtomBytes)),
+            kk > 0);
+      }
+      sm90::wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        sm90::WgmmaSS<64, 0>::mma(
+            dp, sm90::desc_advance(v_desc, T::kstep(kk, T::kResAtomBytes)),
+            sm90::desc_advance(do_desc,
+                               st_off + T::kstep(kk, T::kStrAtomBytes)),
+            kk > 0);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<1>();
+      sm90::fence_regs(s);
+      phases.mark(kScores);
+
+      // p^T = exp2(s * scale * log2 e - lse * log2 e). On a tile that needs
+      // the mask, a hidden score becomes -inf and gives p = 0 exactly; rows
+      // past Sq are masked too, so their p is 0 whatever lse stands there.
+      const bool mask = (causal && q_base + q0 < k_base + kc0 + 63) ||
+                        kc0 + 64 > kv_len || q0 + kStream > sq;
+      if (mask) {
+        // Kept a branch: without the asm the compiler turns the masking
+        // into selects that run on every tile.
+        asm volatile("");
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
-            const int qc = (2 * j + h) * 8 + 2 * t + (i & 1);  // in the tile
-            bool vis = true;
-            if (mask) {
-              const int key = key_g + 8 * (i >> 1);
-              const int row = q0 + qc;
-              vis = !((causal && q_base + row < k_base + key) ||
-                      key >= kv_len || row >= sq);
+            const int row = q0 + 8 * j + 2 * t + (i & 1);
+            const int key = key0 + 8 * (i >> 1);
+            if ((causal && q_base + row < k_base + key) || key >= kv_len ||
+                row >= sq) {
+              s[4 * j + i] = -INFINITY;
             }
-            p[h][i] = vis ? expf(s[h][i] * sm_scale - lse_s[qc]) : 0.f;
-            s[h][i] = p[h][i] * (dp[h][i] - delta_s[qc]) * sm_scale;
           }
         }
-        const uint32_t pa[4] = {
-            pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
-            pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3]),
-        };
-        const uint32_t dsa[4] = {
-            pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
-            pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3]),
-        };
-        // dv += P^T dO and dk += dS^T Q: B fragments pair two query rows of
-        // one head-dim column.
-        const uint16_t* dc0 = dos + (16 * j + 2 * t) * kStride + g;
-        const uint16_t* qc0 = qs + (16 * j + 2 * t) * kStride + g;
+      }
 #pragma unroll
-        for (int dn = 0; dn < kDTiles; ++dn) {
-          const uint16_t* dc = dc0 + dn * 8;
-          const uint16_t* qc = qc0 + dn * 8;
-          mma_16816(acc_dv[dn], pa, pack_u16(dc[0], dc[kStride]),
-                    pack_u16(dc[8 * kStride], dc[9 * kStride]));
-          mma_16816(acc_dk[dn], dsa, pack_u16(qc[0], qc[kStride]),
-                    pack_u16(qc[8 * kStride], qc[9 * kStride]));
+      for (int j = 0; j < 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(neg_lse_s +
+                                                           8 * j + 2 * t);
+        const float neg[2] = {l2.x, l2.y};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          s[4 * j + i] = exp2_approx(fmaf(s[4 * j + i], scale_log2,
+                                          neg[i & 1]));
+        }
+      }
+      uint32_t pa[16];
+      pack_a(pa, s);
+      phases.mark(kPds);
+
+      // dV += P^T dO, issued here to run while dS^T is formed.
+      sm90::fence_regs(acc_dv);
+      sm90::wgmma_fence();
+      mma_rs<D, kStream>(acc_dv, pa, sm90::desc_advance(do_mn, st_off));
+      sm90::wgmma_commit();
+      phases.mark(kGrads);
+      sm90::wgmma_wait<1>();
+      sm90::fence_regs(dp);
+      phases.mark(kScores);
+
+      // dS^T = P^T (dP^T - delta) * scale, rounded to bf16.
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 d2 = *reinterpret_cast<const float2*>(delta_s + 8 * j +
+                                                           2 * t);
+        const float del[2] = {d2.x, d2.y};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          s[4 * j + i] = s[4 * j + i] * (dp[4 * j + i] - del[i & 1]) *
+                         sm_scale;
+        }
+      }
+      uint32_t dsa[16];
+      pack_a(dsa, s);
+      phases.mark(kPds);
+
+      // dK += dS^T Q; then the stage goes back to the producer.
+      sm90::fence_regs(acc_dk);
+      sm90::wgmma_fence();
+      mma_rs<D, kStream>(acc_dk, dsa, sm90::desc_advance(q_mn, st_off));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc_dk);
+      sm90::fence_regs(acc_dv);
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(empty + st);
+      phases.mark(kGrads);
+    }
+
+    // Keys at or past kv_len get zeros; no row past Sk is written.
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = key0 + 8 * r;
+      if (key >= sk) continue;
+      const float keep = key < kv_len ? 1.f : 0.f;
+      const size_t off = ((size_t)bkv * sk + key) * D + 2 * t;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(dk + off + 8 * j) =
+            pack_bf16(acc_dk[4 * j + 2 * r] * keep,
+                      acc_dk[4 * j + 2 * r + 1] * keep);
+        *reinterpret_cast<uint32_t*>(dv + off + 8 * j) =
+            pack_bf16(acc_dv[4 * j + 2 * r] * keep,
+                      acc_dv[4 * j + 2 * r + 1] * keep);
+      }
+    }
+    phases.mark(kEpilogue);
+    phases.flush(1, lane);
+  }
+}
+
+// dq: one block = one (batch * q head, 128-row q tile), blockIdx.x the q
+// head and blockIdx.y counting q tiles from the last, so the tiles with
+// the most causal work launch first. Consumer c owns rows [64c, 64c + 64);
+// warp w and lane (g, t) hold rows 16w + g and 16w + g + 8 of its 64, and
+// columns 8j + 2t, 8j + 2t + 1 of every chunk j (keys of the K/V tile for
+// S and dP; head-dim columns for dQ).
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_do,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         uint16_t* __restrict__ dq, int hq, int hkv, int sq,
+                         int causal, float sm_scale, float scale_log2,
+                         int q_base, int k_base, int kv_len) {
+  using T = Tiles<D>;
+  using L = DqLayout<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full = bar_q + 1;
+  uint64_t* empty = full + kStages;
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kResident;
+  const int kv_head = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
+
+  // Key columns [0, n_cols) hold every key this tile can see: up to the
+  // causal diagonal of its last real row, in global positions.
+  const int q_last = q_base + min(q0 + kResident, sq) - 1;
+  int n_cols = kv_len;
+  if (causal) n_cols = max(0, min(kv_len, q_last - k_base + 1));
+  const int n_tiles = (n_cols + kDqKeys - 1) / kDqKeys;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(full + s, 1);
+      sm90::mbar_init(empty + s, kConsumerWarps);
+    }
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    sm90::regs_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0 && n_tiles > 0) {
+      sm90::mbar_arrive_expect_tx(bar_q, 2 * T::kResBytes);
+      for (int a = 0; a < T::kAtoms; ++a) {
+        sm90::tma_load_3d(smem + L::kQ + a * T::kResAtomBytes, &tm_q, bar_q,
+                          a * T::kAtomCols, q0, bh);
+        sm90::tma_load_3d(smem + L::kDO + a * T::kResAtomBytes, &tm_do,
+                          bar_q, a * T::kAtomCols, q0, bh);
+      }
+      for (int kt = 0; kt < n_tiles; ++kt) {
+        const int st = kt % kStages;
+        sm90::mbar_wait(empty + st, ((kt / kStages) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(full + st, 2 * T::kKeyBytes);
+        for (int a = 0; a < T::kAtoms; ++a) {
+          const int off = st * T::kKeyBytes + a * T::kKeyAtomBytes;
+          sm90::tma_load_3d(smem + L::kK + off, &tm_k, full + st,
+                            a * T::kAtomCols, kt * kDqKeys, kv_head);
+          sm90::tma_load_3d(smem + L::kV + off, &tm_v, full + st,
+                            a * T::kAtomCols, kt * kDqKeys, kv_head);
         }
       }
     }
-  }
+  } else {
+    sm90::regs_alloc<kConsumerRegs>();
+    const int c = threadIdx.x / 128 - 1;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int row0 = q0 + 64 * c + 16 * warp + g;  // and row0 + 8
+    const int first_qpos = q_base + q0 + 64 * c;
+    // Descriptors of the consumer's q and dO rows and of stage 0's K and V
+    // tiles, made once: a k-step or a stage moves them by a byte offset.
+    const uint64_t q_desc = T::kmajor(smem + L::kQ + 64 * c * T::kRowBytes);
+    const uint64_t do_desc = T::kmajor(smem + L::kDO + 64 * c * T::kRowBytes);
+    const uint64_t k_desc = T::kmajor(smem + L::kK);
+    const uint64_t v_desc = T::kmajor(smem + L::kV);
+    const uint64_t k_mn = T::mnmajor(smem + L::kK, T::kKeyAtomBytes);
+
+    // Rows past Sq see zero q and dO: their ds is 0 and they are not
+    // written, so their lse and delta only need to be finite.
+    float neg_lse[2], row_delta[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      neg_lse[r] = row < sq ? -lse[(size_t)bh * sq + row] * kLog2e : 0.f;
+      row_delta[r] = row < sq ? delta[(size_t)bh * sq + row] : 0.f;
+    }
+
+    float acc[D / 2], s[kDqKeys / 2], dp[kDqKeys / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kDqKeys / 2; ++i) s[i] = dp[i] = 0.f;
+
+    PhaseClock phases;
+    if (n_tiles > 0) sm90::mbar_wait(bar_q, 0);
+    phases.mark(kWait);
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      const int st = kt % kStages;
+      const int k0 = kt * kDqKeys;
+      const uint32_t st_off = st * T::kKeyBytes;
+      sm90::mbar_wait(full + st, (kt / kStages) & 1);
+      phases.mark(kWait);
+
+      // S = Q K^T and dP = dO V^T, committed as two groups.
+      sm90::fence_regs(s);
+      sm90::fence_regs(dp);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        sm90::WgmmaSS<kDqKeys, 0>::mma(
+            s, sm90::desc_advance(q_desc, T::kstep(kk, T::kResAtomBytes)),
+            sm90::desc_advance(k_desc,
+                               st_off + T::kstep(kk, T::kKeyAtomBytes)),
+            kk > 0);
+      }
+      sm90::wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        sm90::WgmmaSS<kDqKeys, 0>::mma(
+            dp, sm90::desc_advance(do_desc, T::kstep(kk, T::kResAtomBytes)),
+            sm90::desc_advance(v_desc,
+                               st_off + T::kstep(kk, T::kKeyAtomBytes)),
+            kk > 0);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<1>();
+      sm90::fence_regs(s);
+      phases.mark(kScores);
+
+      const bool mask = (causal && k_base + k0 + kDqKeys - 1 > first_qpos) ||
+                        k0 + kDqKeys > kv_len;
+      if (mask) {
+        asm volatile("");  // kept a branch, as in the dk/dv kernel
+#pragma unroll
+        for (int j = 0; j < kDqKeys / 8; ++j) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int col = k0 + 8 * j + 2 * t + (i & 1);
+            const int row_pos = q_base + row0 + 8 * (i >> 1);
+            if ((causal && row_pos < k_base + col) || col >= kv_len) {
+              s[4 * j + i] = -INFINITY;
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kDqKeys / 2; ++i) {
+        s[i] = exp2_approx(fmaf(s[i], scale_log2, neg_lse[(i >> 1) & 1]));
+      }
+      phases.mark(kPds);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(dp);
+      phases.mark(kScores);
+#pragma unroll
+      for (int i = 0; i < kDqKeys / 2; ++i) {
+        s[i] = s[i] * (dp[i] - row_delta[(i >> 1) & 1]) * sm_scale;
+      }
+      uint32_t dsa[kDqKeys / 4];
+      pack_a(dsa, s);
+      phases.mark(kPds);
+
+      // dQ += dS K, K read MN-major; then the stage goes back.
+      sm90::fence_regs(acc);
+      sm90::wgmma_fence();
+      mma_rs<D, kDqKeys>(acc, dsa, sm90::desc_advance(k_mn, st_off));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(empty + st);
+      phases.mark(kGrads);
+    }
 
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = key_g + 8 * r;
-    if (key >= sk) continue;
-    const size_t off = ((size_t)bkv * sk + key) * D + 2 * t;
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= sq) continue;
+      uint16_t* orow = dq + ((size_t)bh * sq + row) * D + 2 * t;
 #pragma unroll
-    for (int dn = 0; dn < kDTiles; ++dn) {
-      *reinterpret_cast<uint32_t*>(dk + off + dn * 8) =
-          pack_bf16(acc_dk[dn][2 * r], acc_dk[dn][2 * r + 1]);
-      *reinterpret_cast<uint32_t*>(dv + off + dn * 8) =
-          pack_bf16(acc_dv[dn][2 * r], acc_dv[dn][2 * r + 1]);
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+            pack_bf16(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+      }
     }
+    phases.mark(kEpilogue);
+    phases.flush(0, lane);
   }
 }
 
@@ -521,8 +837,68 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
 }
 
 template <int D>
-constexpr int dkv_smem_bytes() {
-  return 4 * kTile * (D + kPad) * 2 + 2 * kTile * 4;
+cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v,
+                           const void* dout, const float* lse,
+                           const float* delta, void* dq, int batch, int hq,
+                           int hkv, int sq, int sk, int causal,
+                           float sm_scale, int q_base, int k_base,
+                           int kv_len, cudaStream_t stream) {
+  using L = DqLayout<D>;
+  static std::atomic<uint64_t> configured{0};
+  const cudaError_t err = host::allow_dynamic_smem(
+      flash_bwd_dq_sm90_kernel<D>, L::kBytes, &configured);
+  if (err != cudaSuccess) return err;
+  if (sq == 0) return cudaSuccess;
+  // With no keys (Sk 0) no K/V tile is ever loaded; q stands in for the
+  // K/V maps so that they still describe real memory.
+  if (sk == 0) k = v = q;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  if (!host::encode_bf16_rows(&tm_q, q, D, sq, batch * hq, kResident) ||
+      !host::encode_bf16_rows(&tm_do, dout, D, sq, batch * hq, kResident) ||
+      !host::encode_bf16_rows(&tm_k, k, D, sk > 0 ? sk : 1, batch * hkv,
+                              kDqKeys) ||
+      !host::encode_bf16_rows(&tm_v, v, D, sk > 0 ? sk : 1, batch * hkv,
+                              kDqKeys)) {
+    return cudaErrorInvalidValue;
+  }
+  const dim3 grid(batch * hq, (sq + kResident - 1) / kResident);
+  flash_bwd_dq_sm90_kernel<D><<<grid, kThreads, L::kBytes, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, lse, delta, static_cast<uint16_t*>(dq), hq,
+      hkv, sq, causal, sm_scale, sm_scale * kLog2e, q_base, k_base, kv_len);
+  return cudaSuccess;
+}
+
+template <int D>
+cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v,
+                            const void* dout, const float* lse,
+                            const float* delta, void* dk, void* dv,
+                            int batch, int hq, int hkv, int sq, int sk,
+                            int causal, float sm_scale, int q_base,
+                            int k_base, int kv_len, cudaStream_t stream) {
+  using L = DkvLayout<D>;
+  static std::atomic<uint64_t> configured{0};
+  const cudaError_t err = host::allow_dynamic_smem(
+      flash_bwd_dkv_sm90_kernel<D>, L::kBytes, &configured);
+  if (err != cudaSuccess) return err;
+  if (sk == 0) return cudaSuccess;
+  // With no queries (Sq 0) no q tile is ever loaded; k stands in for the
+  // q-side maps so that they still describe real memory.
+  if (sq == 0) q = dout = k;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  if (!host::encode_bf16_rows(&tm_q, q, D, sq > 0 ? sq : 1, batch * hq,
+                              kStream) ||
+      !host::encode_bf16_rows(&tm_do, dout, D, sq > 0 ? sq : 1, batch * hq,
+                              kStream) ||
+      !host::encode_bf16_rows(&tm_k, k, D, sk, batch * hkv, kResident) ||
+      !host::encode_bf16_rows(&tm_v, v, D, sk, batch * hkv, kResident)) {
+    return cudaErrorInvalidValue;
+  }
+  const dim3 grid(batch * hkv, (sk + kResident - 1) / kResident);
+  flash_bwd_dkv_sm90_kernel<D><<<grid, kThreads, L::kBytes, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, lse, delta, static_cast<uint16_t*>(dk),
+      static_cast<uint16_t*>(dv), hq, hkv, sq, sk, causal, sm_scale,
+      sm_scale * kLog2e, q_base, k_base, kv_len);
+  return cudaSuccess;
 }
 
 template <int D>
@@ -532,12 +908,10 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               float sm_scale, int q_base, int k_base, int kv_len,
               cudaStream_t stream) {
   if (dtype == 0) {
-    const dim3 grid((sq + kTile - 1) / kTile, batch * hq);
-    flash_bwd_dq_bf16_kernel<D><<<grid, kThreads, 0, stream>>>(
-        static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-        static_cast<const uint16_t*>(v), static_cast<const uint16_t*>(dout),
-        lse, delta, static_cast<uint16_t*>(dq), hq, hkv, sq, sk, causal,
-        sm_scale, q_base, k_base, kv_len);
+    const cudaError_t err = launch_dq_bf16<D>(
+        q, k, v, dout, lse, delta, dq, batch, hq, hkv, sq, sk, causal,
+        sm_scale, q_base, k_base, kv_len, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
   } else {
     const dim3 grid((sq + kRowsPerBlock - 1) / kRowsPerBlock, batch * hq);
     flash_bwd_dq_f32_kernel<D><<<grid, kRowsPerBlock * 32, 0, stream>>>(
@@ -556,17 +930,10 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                int causal, float sm_scale, int q_base, int k_base,
                int kv_len, cudaStream_t stream) {
   if (dtype == 0) {
-    constexpr int kSmem = dkv_smem_bytes<D>();
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dkv_bf16_kernel<D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    const cudaError_t err = launch_dkv_bf16<D>(
+        q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv, sq, sk, causal,
+        sm_scale, q_base, k_base, kv_len, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((sk + kTile - 1) / kTile, batch * hkv);
-    flash_bwd_dkv_bf16_kernel<D><<<grid, kThreads, kSmem, stream>>>(
-        static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-        static_cast<const uint16_t*>(v), static_cast<const uint16_t*>(dout),
-        lse, delta, static_cast<uint16_t*>(dk), static_cast<uint16_t*>(dv),
-        hq, hkv, sq, sk, causal, sm_scale, q_base, k_base, kv_len);
   } else {
     const dim3 grid((sk + kRowsPerBlock - 1) / kRowsPerBlock, batch * hkv);
     flash_bwd_dkv_f32_kernel<D><<<grid, kRowsPerBlock * 32, 0, stream>>>(
@@ -584,10 +951,11 @@ bool bad_args(int dtype, int hq, int hkv) {
 
 }  // namespace
 
-// dtype: 0 = bf16 (tensor-core kernels), 1 = f32 (check kernels). Tensors
+// dtype: 0 = bf16 (the Hopper kernels), 1 = f32 (check kernels). Tensors
 // are contiguous and 16-byte aligned (the Python wrapper checks); lse and
 // delta are f32. Each call launches one kernel on `stream`, allocates
-// nothing, and returns cudaGetLastError() after the launch (0 on success).
+// nothing, and returns the first error of the set-up or cudaGetLastError()
+// after the launch (0 on success).
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const float* lse, const float* delta,
@@ -643,3 +1011,18 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
 extern "C" const char* flash_bwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+#ifdef FLASH_BWD_PHASE_CLOCKS
+// Copies the per-phase cycle totals (2 x kPhases values: the dq kernel's,
+// then the dk/dv kernel's) to `host_cycles` and zeroes them; synchronous.
+// Returns a cudaError_t (0 on success).
+extern "C" int flash_bwd_phase_cycles(unsigned long long* host_cycles) {
+  cudaError_t err = cudaMemcpyFromSymbol(host_cycles, g_phase_cycles,
+                                         sizeof(g_phase_cycles));
+  if (err == cudaSuccess) {
+    const unsigned long long zero[2][kPhases] = {};
+    err = cudaMemcpyToSymbol(g_phase_cycles, zero, sizeof(zero));
+  }
+  return static_cast<int>(err);
+}
+#endif

@@ -59,7 +59,6 @@
 // f32 (for checking) runs a plain SIMT kernel with one warp per query row
 // that walks the visible keys one at a time.
 
-#include <cuda.h>  // CUtensorMap and its enums: types only, no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -67,6 +66,7 @@
 
 #include <atomic>
 
+#include "launch.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -444,50 +444,6 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (lane == 0) lse[(size_t)bh * sq + row] = m + logf(l_safe);
 }
 
-// cuTensorMapEncodeTiled, found through the runtime so the build needs no
-// -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A rank-3 map (D, rows, heads) of a contiguous (heads, rows, D) bf16
-// tensor whose box is one atom (kAtomCols, 128 rows, 1 head).
-template <int D>
-bool encode_map(CUtensorMap* map, const void* base, int rows, int heads) {
-  using L = Layout<D>;
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
-                              (cuuint64_t)heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
-                                 (cuuint64_t)rows * D * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)L::kAtomCols, 128, 1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(base), dims, strides, box, elem_strides,
-                CU_TENSOR_MAP_INTERLEAVE_NONE,
-                L::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                    : CU_TENSOR_MAP_SWIZZLE_64B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* out, float* lse, int batch, int hq, int hkv,
@@ -495,26 +451,19 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         int q_base, int k_base, int kv_len,
                         cudaStream_t stream) {
   using L = Layout<D>;
-  // Dynamic shared memory above 48 KB, allowed once per device.
   static std::atomic<uint64_t> configured{0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err = host::allow_dynamic_smem(
+      flash_fwd_sm90_kernel<D>, L::kBytes, &configured);
   if (err != cudaSuccess) return err;
-  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
-  if (!(configured.load() & bit)) {
-    err = cudaFuncSetAttribute(flash_fwd_sm90_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               L::kBytes);
-    if (err != cudaSuccess) return err;
-    configured.fetch_or(bit);
-  }
   // With no keys (Sk 0) no K/V tile is ever loaded; q stands in for the
   // K/V maps so that they still describe real memory.
   if (sk == 0) k = v = q;
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!encode_map<D>(&tm_q, q, sq, batch * hq) ||
-      !encode_map<D>(&tm_k, k, sk > 0 ? sk : 1, batch * hkv) ||
-      !encode_map<D>(&tm_v, v, sk > 0 ? sk : 1, batch * hkv)) {
+  if (!host::encode_bf16_rows(&tm_q, q, D, sq, batch * hq, kBlockQ) ||
+      !host::encode_bf16_rows(&tm_k, k, D, sk > 0 ? sk : 1, batch * hkv,
+                              kBlockK) ||
+      !host::encode_bf16_rows(&tm_v, v, D, sk > 0 ? sk : 1, batch * hkv,
+                              kBlockK)) {
     return cudaErrorInvalidValue;
   }
   const dim3 grid((sq + kBlockQ - 1) / kBlockQ, batch * hq);

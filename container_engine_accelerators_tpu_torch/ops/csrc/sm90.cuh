@@ -102,6 +102,14 @@ __device__ __forceinline__ uint64_t make_desc(const void* p, uint32_t lbo,
          static_cast<uint64_t>(swizzle) << 62;
 }
 
+// The descriptor of the matrix `bytes` (a multiple of 16) further on in
+// shared memory. The start address is the low field, so this is one add
+// as long as the address stays below 256 KB, as all of shared memory does.
+__device__ __forceinline__ uint64_t desc_advance(uint64_t desc,
+                                                 uint32_t bytes) {
+  return desc + (bytes >> 4);
+}
+
 // Orders this thread's earlier register and shared-memory writes before
 // the wgmma instructions that follow (needed whenever the accumulator or
 // A registers were touched by ordinary instructions).
@@ -166,6 +174,28 @@ struct WgmmaSS<128, TransB> {
           "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
           "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TransB));
+  }
+};
+
+template <int TransB>
+struct WgmmaSS<64, TransB> {
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+        "%29, %30, %31},"
+        "%32, %33, p, 1, 1, 0, %35;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
         : "l"(da), "l"(db), "r"(scale_d), "n"(TransB));
   }
 };

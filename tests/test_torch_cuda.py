@@ -127,6 +127,13 @@ BWD_CASES = {
     **CASES,
     "mqa_unaligned": ((2, 4, 1, 100, 100, 64), True, {}),
     "noncausal_gqa": ((1, 8, 2, 130, 70, 128), False, {}),
+    # The edges of the backward's tiles (dk/dv: 128-key blocks of two
+    # 64-key halves and 64-row q tiles; dq: 128-row blocks and 64-key
+    # tiles): one row past a 64-row q tile, a ragged key half, and a GQA
+    # group of 8 q heads summed into each dk/dv.
+    "sq65": ((1, 8, 2, 65, 65, 128), True, {}),
+    "sk191": ((1, 8, 2, 256, 191, 128), False, {}),
+    "gqa8": ((1, 32, 4, 256, 256, 128), True, {}),
 }
 
 

@@ -37,3 +37,63 @@ def test_a_build_with_extra_defines_is_a_library_of_its_own(tmp_path,
     instrumented = _ext._library_path("kern", ("KERN_PHASE_CLOCKS",))
     assert instrumented != plain
     assert instrumented == _ext._library_path("kern", ("KERN_PHASE_CLOCKS",))
+
+
+def test_flash_bwd_builds_a_phase_clock_library_of_its_own(monkeypatch):
+    """``flash_bwd_dq``/``flash_bwd_dkv`` take ``defines`` as
+    ``flash_fwd`` does, and the instrumented backward is its own library
+    (the source has a FLASH_BWD_PHASE_CLOCKS build)."""
+    from container_engine_accelerators_tpu_torch.ops import flash_phases
+
+    defines = flash_phases.BWD_DEFINES
+    assert "#ifdef FLASH_BWD_PHASE_CLOCKS" in (
+        _ext.CSRC / "flash_bwd.cu").read_text()
+    assert _ext._library_path("flash_bwd", defines) != \
+        _ext._library_path("flash_bwd")
+    loaded = []
+
+    def load(name, defines=()):
+        loaded.append((name, defines))
+        raise LookupError("no nvcc here")
+
+    monkeypatch.setattr(_ext, "load", load)
+    monkeypatch.setattr(_ext, "_check", lambda *a: None)
+    q = torch.zeros(1, 2, 8, 32, dtype=torch.bfloat16)
+    k = torch.zeros(1, 1, 8, 32, dtype=torch.bfloat16)
+    rows = torch.zeros(1, 2, 8)
+    kw = dict(causal=True, sm_scale=0.1, q_base=0, k_base=0, kv_len=8,
+              defines=defines)
+    with pytest.raises(LookupError):
+        _ext.flash_bwd_dq(q, k, k, q, rows, rows, q, **kw)
+    with pytest.raises(LookupError):
+        _ext.flash_bwd_dkv(q, k, k, q, rows, rows, k, k, **kw)
+    assert loaded == [("flash_bwd", defines)] * 2
+
+
+@pytest.mark.parametrize("shape", [
+    # (Sq, Sk, group, causal, q_base, k_base, kv_len)
+    (2048, 2048, 4, True, 0, 0, None),
+    (300, 700, 4, True, 400, 0, None),
+    (129, 255, 8, True, 0, 0, None),
+    (200, 300, 4, True, 0, 0, 50),
+    (200, 200, 2, True, 0, 150, None),
+    (65, 191, 1, False, 0, 0, 150),
+    (512, 2048, 4, True, 1536, 0, None),
+])
+def test_dkv_tiles_visited_are_the_tiles_with_a_visible_pair(shape):
+    """The dk/dv kernel's walk (key blocks x GQA heads x q tiles from the
+    causal first tile) visits exactly the (128-key block, 64-row q tile)
+    pairs that hold a visible (query, key) pair, for each q head."""
+    from container_engine_accelerators_tpu_torch.ops import attention
+    from container_engine_accelerators_tpu_torch.ops import flash_phases as fp
+
+    seq_q, seq_k, group, causal, q_base, k_base, kv_len = shape
+    vis = attention._visible(seq_q, seq_k, causal, q_base, k_base, kv_len,
+                             "cpu").expand(seq_q, seq_k)
+    brute = sum(
+        bool(vis[q0:q0 + fp.DKV_Q_TILE, k0:k0 + fp.DKV_KEYS].any())
+        for k0 in range(0, seq_k, fp.DKV_KEYS)
+        for q0 in range(0, seq_q, fp.DKV_Q_TILE)
+    ) * group
+    assert fp.dkv_tiles_visited(seq_q, seq_k, group, causal, q_base, k_base,
+                                kv_len) == brute
