@@ -71,9 +71,8 @@
 //   diagonal, the kv_len tail or the ragged Sq edge. TMA zero-fills q and dO
 //   rows past Sq and K/V rows past Sk, so nothing is padded.
 // Measured on H100 (PERF.md): 128-key K/V tiles for dq ran slower than 64,
-// and a 3-stage ring gained little; both stay build-time knobs that
-// ops/flash_phases.py times. The consumers spend most of their cycles in
-// the p/ds step. Left for later, each to be tried only with a measurement:
+// and a 3-stage ring gained little, so the ring has 2 stages and dq's K/V
+// tiles 64 keys. The consumers spend most of their cycles in the p/ds step. Left for later, each to be tried only with a measurement:
 // fusing dq into the dk/dv kernel with f32 reduce-adds (5 products per
 // pair, not 7), splitting a heavy dk/dv block's GQA group across blocks,
 // a TMA store of the gradients.
@@ -99,18 +98,8 @@ constexpr int kThreads = 384;  // producer warpgroup + two consumers
 constexpr int kConsumerWarps = 8;
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
-// Build-time knobs, each timed against the default by ops/flash_phases.py:
-// the depth of the streamed operand's ring, and the dq kernel's K/V tile
-// width (64 or 128 keys).
-#ifndef FLASH_BWD_STAGES
-#define FLASH_BWD_STAGES 2
-#endif
-#ifndef FLASH_BWD_DQ_KEYS
-#define FLASH_BWD_DQ_KEYS 64
-#endif
-constexpr int kStages = FLASH_BWD_STAGES;
-constexpr int kDqKeys = FLASH_BWD_DQ_KEYS;
-static_assert(kDqKeys == 64 || kDqKeys == 128, "dq K/V tiles: 64 or 128");
+constexpr int kStages = 2;     // depth of the streamed operand's ring
+constexpr int kDqKeys = 64;    // keys of a streamed K/V tile (dq)
 constexpr int kResident = 128; // rows of the resident operand per block
 constexpr int kStream = 64;    // rows of a streamed q/dO tile (dk/dv)
 
@@ -235,24 +224,27 @@ __device__ __forceinline__ void mma_rs(float (&acc)[D / 2],
 // kWait: waiting for the resident operand and each streamed tile; kScores:
 // the S and dP products issued and waited; kPds: the p and ds step (masks,
 // exp2, packing); kGrads: the dV and dK (or dQ) products issued and
-// waited, with the stage's release; kEpilogue: the gradient stores.
+// waited, with the stage's release; kEpilogue: the gradient stores. The
+// slot after the phases counts the streamed tiles the warps walked, which
+// ops/flash_phases.py holds against its model of each kernel's walk.
 enum Phase { kWait, kScores, kPds, kGrads, kEpilogue, kPhases };
 
 #ifdef FLASH_BWD_PHASE_CLOCKS
-__device__ unsigned long long g_phase_cycles[2][kPhases];
+__device__ unsigned long long g_phase_cycles[2][kPhases + 1];
 
 struct PhaseClock {
   long long last;
-  unsigned long long sum[kPhases] = {};
+  unsigned long long sum[kPhases + 1] = {};
   __device__ PhaseClock() { last = clock64(); }
   __device__ void mark(Phase phase) {
     const long long now = clock64();
     sum[phase] += now - last;
     last = now;
   }
+  __device__ void tile() { ++sum[kPhases]; }
   __device__ void flush(int kernel, int lane) {
     if (lane != 0) return;
-    for (int i = 0; i < kPhases; ++i) {
+    for (int i = 0; i <= kPhases; ++i) {
       atomicAdd(&g_phase_cycles[kernel][i], sum[i]);
     }
   }
@@ -260,6 +252,7 @@ struct PhaseClock {
 #else
 struct PhaseClock {
   __device__ void mark(Phase) {}
+  __device__ void tile() {}
   __device__ void flush(int, int) {}
 };
 #endif
@@ -399,6 +392,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
           reinterpret_cast<const float*>(smem + L::kDelta + st * kStream * 4);
       sm90::mbar_wait(full + st, (it / kStages) & 1);
       phases.mark(kWait);
+      phases.tile();
 
       // S^T = K Q^T and dP^T = V dO^T, committed as two groups.
       sm90::fence_regs(s);
@@ -633,6 +627,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       const uint32_t st_off = st * T::kKeyBytes;
       sm90::mbar_wait(full + st, (kt / kStages) & 1);
       phases.mark(kWait);
+      phases.tile();
 
       // S = Q K^T and dP = dO V^T, committed as two groups.
       sm90::fence_regs(s);
@@ -881,8 +876,8 @@ cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v,
       flash_bwd_dkv_sm90_kernel<D>, L::kBytes, &configured);
   if (err != cudaSuccess) return err;
   if (sk == 0) return cudaSuccess;
-  // With no queries (Sq 0) no q tile is ever loaded; k stands in for the
-  // q-side maps so that they still describe real memory.
+  // With no queries (Sq 0) every block has no q tile to walk, so the q-side
+  // maps are never read; k only gives them a valid address.
   if (sq == 0) q = dout = k;
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
   if (!host::encode_bf16_rows(&tm_q, q, D, sq > 0 ? sq : 1, batch * hq,
@@ -1013,14 +1008,14 @@ extern "C" const char* flash_bwd_error_string(int err) {
 }
 
 #ifdef FLASH_BWD_PHASE_CLOCKS
-// Copies the per-phase cycle totals (2 x kPhases values: the dq kernel's,
-// then the dk/dv kernel's) to `host_cycles` and zeroes them; synchronous.
-// Returns a cudaError_t (0 on success).
+// Copies the totals (2 x (kPhases + 1) values: the dq kernel's phase
+// cycles and streamed tiles, then the dk/dv kernel's) to `host_cycles` and
+// zeroes them; synchronous. Returns a cudaError_t (0 on success).
 extern "C" int flash_bwd_phase_cycles(unsigned long long* host_cycles) {
   cudaError_t err = cudaMemcpyFromSymbol(host_cycles, g_phase_cycles,
                                          sizeof(g_phase_cycles));
   if (err == cudaSuccess) {
-    const unsigned long long zero[2][kPhases] = {};
+    const unsigned long long zero[2][kPhases + 1] = {};
     err = cudaMemcpyToSymbol(g_phase_cycles, zero, sizeof(zero));
   }
   return static_cast<int>(err);

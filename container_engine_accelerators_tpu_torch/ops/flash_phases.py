@@ -27,12 +27,10 @@ products issued and waited (`scores`), the p and ds step (`p_ds`), the
 dQ or dV and dK products issued and waited with the stage's release
 (`grads`), and the epilogue. A consumer's products of a tile are 64 × 64
 × D × 2 FLOP each (dq: three, dk/dv: four), 256 cycles each at D 128 at
-the SM's dense rate, shared by two consumers.
-
-Last, it times the backward built with each of BWD_VARIANTS (a 3-stage
-ring; 128-key K/V tiles for dq) against the default build in turns
-(default, variant, variant, default) at the same shapes, with the
-variant's gradients held against the default's and its ptxas lines.
+the SM's dense rate, shared by two consumers. The instrumented build also
+counts the streamed tiles the consumer warps walk, and the script fails
+unless that count is what ``dq_tiles_visited`` and ``dkv_tiles_visited``
+say each kernel walks.
 Needs a GPU; imports nothing of JAX.
 """
 
@@ -62,7 +60,6 @@ CONSUMER_WARPS = 8
 BWD_DEFINES = ("FLASH_BWD_PHASE_CLOCKS",)
 BWD_PHASES = ("wait", "scores", "p_ds", "grads", "epilogue")
 BWD_SHAPES = (("causal_2048", 1, 2048), ("causal_8192", 1, 8192))
-BWD_VARIANTS = (("FLASH_BWD_STAGES=3",), ("FLASH_BWD_DQ_KEYS=128",))
 DKV_KEYS, DKV_Q_TILE = 128, 64
 DQ_ROWS, DQ_KEY_TILE = 128, 64
 
@@ -124,14 +121,16 @@ def bwd_phases(card, gen):
     lib = _ext._flash_bwd_lib(BWD_DEFINES)
     lib.flash_bwd_phase_cycles.argtypes = [ctypes.c_void_p]
     lib.flash_bwd_phase_cycles.restype = ctypes.c_int
-    cycles = (ctypes.c_ulonglong * (2 * len(BWD_PHASES)))()
+    # Per kernel: the phases' cycles, then the streamed tiles walked.
+    per_kernel = len(BWD_PHASES) + 1
+    cycles = (ctypes.c_ulonglong * (2 * per_kernel))()
 
     def read_cycles():
         err = lib.flash_bwd_phase_cycles(cycles)
         if err:
             raise RuntimeError(f"flash_bwd_phase_cycles failed ({err})")
-        return {"dq": list(cycles[:len(BWD_PHASES)]),
-                "dkv": list(cycles[len(BWD_PHASES):])}
+        return {"dq": list(cycles[:per_kernel]),
+                "dkv": list(cycles[per_kernel:])}
 
     for name, batch, seq in BWD_SHAPES:
         args, kw = _bwd_inputs(gen, batch, seq)
@@ -151,9 +150,13 @@ def bwd_phases(card, gen):
             read_cycles()  # zero the totals
             call(BWD_DEFINES)
             torch.cuda.synchronize()
-            per_phase = read_cycles()[kernel]
-            total = sum(per_phase)
+            *per_phase, walked = read_cycles()[kernel]
             warp_tiles = tiles[kernel] * CONSUMER_WARPS
+            if walked != warp_tiles:
+                raise RuntimeError(
+                    f"flash_bwd_{kernel} at {name}: the consumer warps walked "
+                    f"{walked} streamed tiles, the model says {warp_tiles}")
+            total = sum(per_phase)
             print(json.dumps({
                 "kernel": f"flash_bwd_{kernel}",
                 "shape": {"name": name, "B": batch, "Hq": HQ, "Hkv": HKV,
@@ -182,43 +185,6 @@ def _bwd_inputs(gen, batch, seq):
     _ext.flash_fwd(q, k, v, out, lse, **kw)
     delta = (out.float() * g.float()).sum(dim=-1)
     return (q, k, v, g, lse, delta), kw
-
-
-def bwd_variants(card, gen):
-    """One JSON line per variant and shape: both kernels' device times,
-    default and variant in turns, and the variant's largest relative L2
-    difference from the default build's gradients."""
-    for variant in BWD_VARIANTS:
-        _ext.build(("flash_bwd",), variant)
-        report = _ext.build_info[f"flash_bwd{list(variant)}"]["ptxas"]
-        ptxas = [ln.strip() for ln in report.splitlines()
-                 if "Used" in ln or "spill" in ln or "serialized" in ln]
-        for name, batch, seq in BWD_SHAPES:
-            args, kw = _bwd_inputs(gen, batch, seq)
-            q, k, v = args[:3]
-            grads = {d: (torch.empty_like(q), torch.empty_like(k),
-                         torch.empty_like(v)) for d in ((), variant)}
-
-            def run(defines, kernel):
-                dq, dk, dv = grads[defines]
-                if kernel == "dq":
-                    _ext.flash_bwd_dq(*args, dq, defines=defines, **kw)
-                else:
-                    _ext.flash_bwd_dkv(*args, dk, dv, defines=defines, **kw)
-
-            row = {"variant": list(variant), "shape": name, "card": card}
-            for kernel in ("dq", "dkv"):
-                turns = [device_ms(lambda d=d: run(d, kernel))
-                         for d in ((), variant, variant, ())]
-                row[f"{kernel}_ms_default"] = (turns[0] + turns[3]) / 2
-                row[f"{kernel}_ms_variant"] = (turns[1] + turns[2]) / 2
-            torch.cuda.synchronize()
-            row["max_rel_l2_vs_default"] = max(
-                ((a.float() - b.float()).norm()
-                 / b.float().norm().clamp_min(1e-30)).item()
-                for a, b in zip(grads[variant], grads[()]))
-            row["ptxas"] = ptxas
-            print(json.dumps(row), flush=True)
 
 
 def main():
@@ -274,7 +240,6 @@ def main():
             "ms": device_ms(lambda: call(())),
         }), flush=True)
     bwd_phases(card, gen)
-    bwd_variants(card, gen)
     return 0
 
 

@@ -70,7 +70,7 @@ def test_flash_bwd_builds_a_phase_clock_library_of_its_own(monkeypatch):
     assert loaded == [("flash_bwd", defines)] * 2
 
 
-@pytest.mark.parametrize("shape", [
+TILE_WALK_SHAPES = [
     # (Sq, Sk, group, causal, q_base, k_base, kv_len)
     (2048, 2048, 4, True, 0, 0, None),
     (300, 700, 4, True, 400, 0, None),
@@ -79,21 +79,45 @@ def test_flash_bwd_builds_a_phase_clock_library_of_its_own(monkeypatch):
     (200, 200, 2, True, 0, 150, None),
     (65, 191, 1, False, 0, 0, 150),
     (512, 2048, 4, True, 1536, 0, None),
-])
+]
+
+
+def _tiles_with_a_visible_pair(shape, rows, keys):
+    """(rows-row q tile, keys-key tile) pairs of one head that hold a
+    visible (query, key) pair, counted over ``attention._visible``."""
+    from container_engine_accelerators_tpu_torch.ops import attention
+
+    seq_q, seq_k, _, causal, q_base, k_base, kv_len = shape
+    vis = attention._visible(seq_q, seq_k, causal, q_base, k_base, kv_len,
+                             "cpu").expand(seq_q, seq_k)
+    return sum(
+        bool(vis[q0:q0 + rows, k0:k0 + keys].any())
+        for k0 in range(0, seq_k, keys)
+        for q0 in range(0, seq_q, rows)
+    )
+
+
+@pytest.mark.parametrize("shape", TILE_WALK_SHAPES)
 def test_dkv_tiles_visited_are_the_tiles_with_a_visible_pair(shape):
     """The dk/dv kernel's walk (key blocks x GQA heads x q tiles from the
     causal first tile) visits exactly the (128-key block, 64-row q tile)
     pairs that hold a visible (query, key) pair, for each q head."""
-    from container_engine_accelerators_tpu_torch.ops import attention
     from container_engine_accelerators_tpu_torch.ops import flash_phases as fp
 
     seq_q, seq_k, group, causal, q_base, k_base, kv_len = shape
-    vis = attention._visible(seq_q, seq_k, causal, q_base, k_base, kv_len,
-                             "cpu").expand(seq_q, seq_k)
-    brute = sum(
-        bool(vis[q0:q0 + fp.DKV_Q_TILE, k0:k0 + fp.DKV_KEYS].any())
-        for k0 in range(0, seq_k, fp.DKV_KEYS)
-        for q0 in range(0, seq_q, fp.DKV_Q_TILE)
-    ) * group
+    brute = _tiles_with_a_visible_pair(shape, fp.DKV_Q_TILE, fp.DKV_KEYS)
     assert fp.dkv_tiles_visited(seq_q, seq_k, group, causal, q_base, k_base,
-                                kv_len) == brute
+                                kv_len) == brute * group
+
+
+@pytest.mark.parametrize("shape", TILE_WALK_SHAPES)
+def test_dq_tiles_visited_are_the_tiles_with_a_visible_pair(shape):
+    """The dq kernel's walk (K/V tiles from the first up to the causal
+    diagonal of each 128-row block's last real row) visits exactly the
+    (128-row block, 64-key tile) pairs that hold a visible pair."""
+    from container_engine_accelerators_tpu_torch.ops import flash_phases as fp
+
+    seq_q, seq_k, _, causal, q_base, k_base, kv_len = shape
+    brute = _tiles_with_a_visible_pair(shape, fp.DQ_ROWS, fp.DQ_KEY_TILE)
+    assert fp.dq_tiles_visited(seq_q, seq_k, causal, q_base, k_base,
+                               kv_len) == brute
