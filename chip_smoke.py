@@ -8,21 +8,27 @@
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card, serves full-width
 Llama-3-8B (all 32 layers, random weights from seed 0) through the
-port's HTTP server, and trains it at full width (depth cut to 8 layers)
-through ``make_train_step``, checking that every prefill and every
-training step went through the kernels. Each phase prints one JSON line;
-a failed phase raises and the script exits non-zero before its last
-line, which is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+port's HTTP server, one request at a time and through the paged
+continuous-batching engine, and trains it at full width (depth cut to 8
+layers) through ``make_train_step``, checking that every prefill, every
+prefill segment and every training step went through the kernels. Each
+phase prints one JSON line; a failed phase raises and the script exits
+non-zero before its last line, which is ``{"ok": true, "device":
+{...}}``. Imports nothing of JAX.
 
 Phases: env, build, kernel (forward, one line per case), bwd_kernel
 (backward, one line per case), small_parity (a tiny f32 model on the card
-against the same weights on the CPU), serve, serve_logits (prefill logits
-through the kernel vs plain attention), train_grads (loss and every
-gradient through the kernels vs plain attention), train (5 timed steps),
+against the same weights on the CPU), paged_small_parity (a tiny f32
+paged engine on the card against dense generate), serve, serve_logits
+(prefill logits through the kernel vs plain attention), serve_paged (the
+paged engine behind the server: shared prefixes and a long prompt
+prefilled between decode chunks), train_grads (loss and every gradient
+through the kernels vs plain attention), train (5 timed steps),
 train_cli, kernels (the summary line), then the card's name and power
 limit, then the result.
 """
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
@@ -231,6 +237,17 @@ KERNEL_CASES = [
     ("waves_b4", 4, 1024, 1024, True, 0, 0, None, 32, 8, 128, "bfloat16"),
     ("f32_q_base", 1, 100, 300, True, 250, 0, None, 8, 2, 128, "float32"),
     ("f32_d64_kv_len", 2, 77, 300, False, 0, 0, 250, 4, 1, 64, "float32"),
+    # The paged engine's prefill segments: Sq a segment bucket (often below
+    # the 128-row q tile), q_base the radix-reused offset (a multiple of the
+    # 16-token block, not of 128), Sk the power-of-two window gathered from
+    # the block pool, which reaches past q_base + Sq: the causal bound must
+    # stop the K/V walk at the diagonal.
+    ("paged_sq16_qb1040", 1, 16, 2048, True, 1040, 0, None, 32, 8, 128,
+     "bfloat16"),
+    ("paged_sq64_qb2000", 1, 64, 4096, True, 2000, 0, None, 32, 8, 128,
+     "bfloat16"),
+    ("paged_sq512_qb7680", 1, 512, 8192, True, 7680, 0, None, 32, 8, 128,
+     "bfloat16"),
 ]
 MAIN_CASE = "causal_2048"
 
@@ -572,7 +589,222 @@ def serve(torch, np, tf, serve_cli, attention, card):
     if not torch.isfinite(flash).all() or err > SERVE_LOGITS_ATOL:
         fail("prefill logits through the kernel disagree with plain "
              "attention")
+    return launches, model
+
+
+def _check_response(name, resp, prompt, max_new, vocab_size):
+    out = resp["tokens"]
+    if len(out) != 1 or len(out[0]) != len(prompt) + max_new or \
+            out[0][:len(prompt)] != prompt:
+        fail(f"{name}: response of {len(out[0])} tokens, want the "
+             f"{len(prompt)}-token prompt as prefix of {len(prompt) + max_new}")
+    if min(out[0]) < 0 or max(out[0]) >= vocab_size:
+        fail(f"{name}: token ids outside the vocabulary")
+
+
+def serve_paged(torch, np, tf, serve_cli, attention, card, model):
+    """The paged continuous-batching engine (max_slots 8, decode chunk 32,
+    prefill chunk 512, block 16, the default pool) on the serve phase's
+    full-width model, behind the HTTP server. Traffic: a request with a
+    1024-token prompt runs to completion (its retire puts the prefix into
+    the radix index); then 6 concurrent requests share that prefix, each
+    with its own 64-token suffix; while they decode, a 3000-token prompt
+    arrives and prefills in 512-token segments between their decode
+    chunks. Every prefill segment runs the flash kernel once per layer.
+    Each final segment's logits are kept (on the card) and held, after the
+    traffic, against the dense ``tf.forward`` on the same context.
+    Returns the kernel's launches."""
+    cfg = model.cfg
+    vocab = cfg.vocab_size
+    torch.cuda.reset_peak_memory_stats()
+    engine = serve_cli.ContinuousEngine(
+        model, max_slots=8, chunk=32, prefill_chunk=512, kv_block_size=16,
+    )
+    # Each prefill call: (offset, segment length, true_pos, chunks
+    # dispatched before it); each final segment's (tokens, logits).
+    segments, finals = [], []
+    paged_prefill = engine._paged_prefill
+
+    def prefill_keeping_logits(*args, want_logits=False, **kw):
+        seg, off, true_pos = args[2], args[3], args[6]
+        segments.append((off, seg.shape[1], true_pos, engine.n_chunks))
+        if not want_logits:
+            return paged_prefill(*args, want_logits=False, **kw)
+        tok, logits = paged_prefill(*args, want_logits=True,
+                                    return_logits=True, **kw)
+        finals.append((seg, off, true_pos, logits))
+        return tok
+
+    engine._paged_prefill = prefill_keeping_logits
+    rng = np.random.default_rng(5)
+    prefix = rng.integers(0, vocab, 1024).tolist()
+    prompts = {"prefix_1024": prefix}
+    for i in range(6):
+        prompts[f"shared_{i}"] = prefix + rng.integers(0, vocab, 64).tolist()
+    prompts["long_3000"] = rng.integers(0, vocab, 3000).tolist()
+    max_new = {name: 32 for name in prompts}
+    max_new["prefix_1024"] = 8
+    results, latency = {}, {}
+
+    # The main path: counts at zero, then server start (its warmup request
+    # runs through the engine) and the traffic.
+    attention.flash_fwd_launches = 0
+    attention.flash_dq_launches = attention.flash_dkv_launches = 0
+    server, state = serve_cli.start_server(engine, port=0, host="127.0.0.1")
+    try:
+        serve_cli.wait_ready(state, timeout=600)
+        port = server.server_address[1]
+
+        def post(name):
+            t0 = time.perf_counter()
+            results[name] = serve_cli.post_generate(
+                port, [prompts[name]], max_new[name])
+            latency[name] = time.perf_counter() - t0
+
+        post("prefix_1024")
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(7) as pool:
+            futures = [pool.submit(post, f"shared_{i}") for i in range(6)]
+            # The long prompt arrives once the shared requests decode.
+            chunks = engine.n_chunks
+            deadline = time.monotonic() + 600
+            while engine.n_chunks == chunks:
+                if time.monotonic() > deadline:
+                    fail("serve_paged: no decode chunk after the shared "
+                         "requests were posted")
+                time.sleep(0.002)
+            futures.append(pool.submit(post, "long_3000"))
+            for f in futures:
+                f.result(timeout=600)
+        burst_s = time.perf_counter() - t0
+    finally:
+        server.shutdown()
+    launches = attention.flash_fwd_launches
+    other = attention.flash_dq_launches + attention.flash_dkv_launches
+    stats, kvs = engine.stats(), engine.kv_stats()
+    engine.shutdown()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    for name, prompt in prompts.items():
+        _check_response(name, results[name], prompt, max_new[name], vocab)
+    if launches != cfg.n_layers * stats["n_prefills"] or other:
+        fail(f"serve_paged: {launches} flash launches for "
+             f"{stats['n_prefills']} prefill segments (want "
+             f"{cfg.n_layers} each), {other} backward launches")
+    if kvs["prefix_hit_tokens"] <= 0:
+        fail("serve_paged: no prefix hit on the radix cache")
+    long_segs = [s for s in segments if s[2] == len(prompts["long_3000"]) - 1]
+    chunks_during_long = long_segs[-1][3] - long_segs[0][3]
+    if len(long_segs) != 6 or chunks_during_long <= 0:
+        fail(f"serve_paged: the long prompt took {len(long_segs)} segments "
+             f"with {chunks_during_long} decode chunks between them, want 6 "
+             f"segments interleaved with decode")
+
+    # Each request's first token and paged-prefill logits vs the dense
+    # forward (the kernel at q_base 0 over the whole context) on the same
+    # context. bf16: the two place their q and K/V tiles differently.
+    logit_rows = {}
+    for name, prompt in prompts.items():
+        paged = _final_logits(finals, prompt)
+        with torch.inference_mode():
+            dense = tf.forward(model.model,
+                               torch.as_tensor([prompt], device="cuda"),
+                               logits_at="last")[0, 0]
+        first = results[name]["tokens"][0][len(prompt)]
+        err = (paged - dense).abs().max().item()
+        gap = (dense.max() - dense[first]).item()
+        logit_rows[name] = {"max_abs_err": err, "dense_gap_of_first": gap,
+                            "first_is_paged_argmax":
+                                first == int(paged.argmax())}
+        if not torch.isfinite(paged).all() or err > SERVE_LOGITS_ATOL or \
+                gap > SERVE_LOGITS_ATOL or \
+                not logit_rows[name]["first_is_paged_argmax"]:
+            emit({"phase": "serve_paged_logits", name: logit_rows[name]})
+            fail(f"serve_paged: {name}'s paged-prefill logits or first "
+                 f"token disagree with the dense forward")
+    n_chunks = max(stats["n_chunks"], 1)
+    ttft = [{"prompt_len": n, "ttft_s": t} for n, t in engine.ttft_s]
+    emit({
+        "phase": "serve_paged", **card, "model": "llama3-8b",
+        "n_layers": cfg.n_layers, "max_slots": engine.max_slots,
+        "decode_chunk": engine.chunk, "prefill_chunk": engine.prefill_chunk,
+        "kv_block_size": engine.kv.block_size,
+        "kv_blocks": engine.kv.num_blocks,
+        "requests": len(prompts) + 1, "burst_s": burst_s,
+        "latency_s": latency, "ttft": ttft,
+        "flash_fwd_launches": launches, "n_prefills": stats["n_prefills"],
+        "n_chunks": stats["n_chunks"], "steps_done": stats["steps_done"],
+        "occupied_steps": stats["occupied_steps"],
+        "decode_tokens_per_s": stats["occupied_steps"]
+        / max(stats["t_chunk_s"], 1e-9),
+        "t_chunk_s": stats["t_chunk_s"], "t_prefill_s": stats["t_prefill_s"],
+        "chunk_host_dispatch_ms": engine.t_chunk_dispatch_s / n_chunks * 1e3,
+        "chunk_sync_wait_ms": engine.t_chunk_wait_s / n_chunks * 1e3,
+        "chunk_device_ms": engine.t_chunk_device_s / n_chunks * 1e3,
+        "prefill_host_dispatch_ms":
+            engine.t_prefill_dispatch_s / stats["n_prefills"] * 1e3,
+        "prefill_sync_wait_ms":
+            engine.t_prefill_wait_s / stats["n_prefills"] * 1e3,
+        "long_prompt_segments": len(long_segs),
+        "chunks_during_long_prefill": chunks_during_long,
+        "kv": kvs, "logits": logit_rows, "tol": SERVE_LOGITS_ATOL,
+        "max_memory_allocated_gb": peak_gb,
+    })
     return launches
+
+
+def _final_logits(finals, prompt):
+    """The kept logits of the final prefill segment of ``prompt``."""
+    for seg, off, true_pos, logits in finals:
+        if true_pos + 1 == len(prompt) and \
+                seg[0, :true_pos + 1 - off].tolist() == prompt[off:]:
+            return logits
+    fail(f"no final prefill segment kept for a {len(prompt)}-token prompt")
+
+
+def paged_small_parity(torch, np, tf, serve_cli, attention):
+    """A small f32 model (head dim 128, so the f32 kernel runs) on the
+    card: the paged engine's greedy tokens equal the dense
+    ``tf.generate``'s exactly, for shared prefixes, a prompt prefilled in
+    three segments and a one-token request, submitted concurrently."""
+    cfg = tf.TransformerConfig(vocab_size=512, d_model=256, n_layers=2,
+                               n_heads=2, n_kv_heads=1, d_ff=768,
+                               max_seq_len=128, dtype="float32")
+    model = serve_cli.Model(cfg, seed=1, device="cuda")
+    engine = serve_cli.ContinuousEngine(model, max_slots=2, chunk=4,
+                                        prefill_chunk=32, kv_block_size=16)
+    rng = np.random.default_rng(2)
+    prefix = rng.integers(0, cfg.vocab_size, 40).tolist()
+    cases = [(prefix + rng.integers(0, cfg.vocab_size, 3 + i).tolist(), 8)
+             for i in range(3)]
+    cases += [(rng.integers(0, cfg.vocab_size, 70).tolist(), 10),
+              (prefix[:5], 1)]
+    before = attention.flash_fwd_launches
+    try:
+        (first,) = engine.generate([cases[0][0]], cases[0][1])
+        with concurrent.futures.ThreadPoolExecutor(len(cases)) as pool:
+            futures = [pool.submit(engine.generate, [p], n)
+                       for p, n in cases[1:]]
+            outs = [first] + [f.result(timeout=300)[0] for f in futures]
+    finally:
+        engine.shutdown()
+    kvs = engine.kv_stats()
+    launches = attention.flash_fwd_launches - before
+    equal = []
+    for (prompt, max_new), got in zip(cases, outs):
+        want = tf.generate(model.model,
+                           torch.as_tensor([prompt], device="cuda"),
+                           max_new_tokens=max_new)[0].tolist()
+        equal.append(got == want)
+    row = {"phase": "paged_small_parity", "requests": len(cases),
+           "tokens_equal": equal, "kernel_launches": launches,
+           "n_prefills": engine.stats()["n_prefills"],
+           "prefix_hit_tokens": kvs["prefix_hit_tokens"]}
+    emit(row)
+    if not all(equal) or launches != cfg.n_layers * row["n_prefills"] or \
+            kvs["prefix_hit_tokens"] <= 0:
+        fail("the f32 paged engine on the card disagrees with dense "
+             "generate, or skipped the kernel or the radix cache")
 
 
 def _free(torch):
@@ -757,7 +989,11 @@ def main():
                 for c in BWD_CASES}
     _free(torch)
     small_parity(torch, tf, attention)
-    serve_launches = serve(torch, np, tf, serve_cli, attention, card)
+    paged_small_parity(torch, np, tf, serve_cli, attention)
+    serve_launches, model = serve(torch, np, tf, serve_cli, attention, card)
+    paged_launches = serve_paged(torch, np, tf, serve_cli, attention, card,
+                                 model)
+    del model
     _free(torch)
     train_grads(torch, np, tf, attention)
     _free(torch)
@@ -777,8 +1013,9 @@ def main():
             "name": "flash_fwd", "route": "cuda",
             "source": src + "flash_fwd.cu",
             "replaces": replaces + "136",
-            "launches": serve_launches + fwd_train,
+            "launches": serve_launches + paged_launches + fwd_train,
             "launches_by_path": {"serve": serve_launches,
+                                 "serve_paged": paged_launches,
                                  "train": fwd_train},
             "max_abs_err": main_row["max_abs_err_out"],
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],

@@ -1,0 +1,32 @@
+# Copyright 2026 The TPU Accelerator Stack Authors.
+# SPDX-License-Identifier: Apache-2.0
+"""Paged KV-cache subsystem: block pool, radix prefix index, manager.
+
+Copies of the JAX package's pure-Python ``kvcache`` modules (whose
+package pulls in jax through ``ops.paged_attention``), with the null
+block taken from the port's ``ops.paged_attention``:
+
+  * :mod:`.blockpool` — fixed-size token blocks, ref-counted with a
+    reserved null block and copy-on-write forking;
+  * :mod:`.radix` — block-granular radix tree over cached prefixes
+    with LRU eviction of unreferenced blocks;
+  * :mod:`.manager` — per-slot page tables gluing the two to the
+    engine: admission prefix matching, block allocation/coverage,
+    retirement insertion, drain release.
+
+The device half (gathers, scatters, copy-on-write copies) lives in
+``ops/paged_attention.py`` and ``models/transformer.py``
+(``paged_decode_chunk`` / ``paged_prefill_segment``). ``handoff.py`` and
+``hostbench.py`` are not ported yet (ROADMAP.md).
+"""
+
+from container_engine_accelerators_tpu_torch.kvcache.blockpool import (  # noqa: F401
+    BlockPool,
+    PoolExhausted,
+)
+from container_engine_accelerators_tpu_torch.kvcache.manager import (  # noqa: F401
+    PagedKVManager,
+)
+from container_engine_accelerators_tpu_torch.kvcache.radix import (  # noqa: F401
+    RadixIndex,
+)

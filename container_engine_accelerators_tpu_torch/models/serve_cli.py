@@ -1,14 +1,25 @@
 # Copyright 2026 The TPU Accelerator Stack Authors.
 # SPDX-License-Identifier: Apache-2.0
-"""Transformer serving daemon, PyTorch port (dense KV cache).
+"""Transformer serving daemon, PyTorch port.
 
-Port of the dense path of ``container_engine_accelerators_tpu/models/
-serve_cli.py``: one request at a time through ``transformer.generate``
-(bucketed batched prefill through the flash kernel, then decode steps).
+Port of ``container_engine_accelerators_tpu/models/serve_cli.py``. Two
+ways to serve:
+
+  * ``Model``: one request at a time through ``transformer.generate``
+    (bucketed batched prefill through the flash kernel, then decode
+    steps on the dense cache);
+  * ``ContinuousEngine`` (``--continuous-batching``): slot-based
+    continuous batching on the paged KV cache with radix prefix reuse
+    and the asynchronous double-buffered host loop (``_loop_paged``).
+    Admissions prefill in segments (``transformer.paged_prefill_segment``,
+    the flash kernel at the segment's global offset) interleaved with
+    fused decode chunks (``transformer.paged_decode_chunk``).
 
 Endpoints (the same JSON as the JAX server):
   GET  /healthz    200 once the warmup decode succeeded, 503 before,
-                   500 if it failed
+                   500 if it failed; an engine adds queue_depth,
+                   occupied_slots, max_slots, prefix_hit_ratio and
+                   free_blocks
   POST /generate   {"tokens": [[...]], "max_new_tokens": N,
                     "temperature": 0.0, "top_k": 0, "top_p": 1.0,
                     "seed": 0}   (temperature 0 = greedy)
@@ -20,17 +31,24 @@ Sampler params snap to the JAX server's whitelist grids
 seeded with the request's ``seed``: reproducible here, but not the
 tokens the JAX server samples for the same seed.
 
-Not ported yet (ROADMAP.md): continuous batching, the paged KV cache,
-speculation, tensor parallelism, int8 weights, tenant classes, fault
-plans and the obs surfaces (/metrics, traces, event logs).
+Not ported yet (ROADMAP.md): the dense continuous-batching cache,
+speculation, drains and KV handoff, the multi-host link, tensor
+parallelism, int8 weights, tenant classes, admission sheds and deadlines,
+step retries and fault plans, and the obs surfaces (/metrics, traces,
+event logs, chip accounting).
 
   python -m container_engine_accelerators_tpu_torch.models.serve_cli \\
       --preset llama3-8b --port 8000
+  python -m container_engine_accelerators_tpu_torch.models.serve_cli \\
+      --preset llama3-8b --continuous-batching --kv-cache paged
 """
 
 import argparse
+import collections
+import functools
 import json
 import logging
+import queue
 import sys
 import threading
 import time
@@ -40,9 +58,20 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
+from container_engine_accelerators_tpu_torch.kvcache.blockpool import (
+    PoolExhausted,
+)
+from container_engine_accelerators_tpu_torch.kvcache.manager import (
+    PagedKVManager,
+)
 from container_engine_accelerators_tpu_torch.models import transformer as tf
+from container_engine_accelerators_tpu_torch.ops import paged_attention as pa
 
 log = logging.getLogger("serve_cli")
+
+# Continuous batching: default KV slots (concurrent requests), as in the
+# JAX server.
+MAX_BATCH = 8
 
 
 # Sampler whitelists, copied from the JAX server so both snap client
@@ -104,6 +133,691 @@ class Model:
         return out.tolist()
 
 
+def normalize_chunks(max_seq_len, prefill_chunk, chunk, quiet=False):
+    """The engine's chunk normalization (the JAX ``normalize_chunks``):
+    returns the ``(prefill_chunk, chunk)`` a :class:`ContinuousEngine`
+    built with these arguments uses. Both round down to a power of two;
+    the prefill chunk must divide ``max_seq_len`` (else the tail
+    segment's padded write would run past the context end), so it
+    shrinks to a dividing power of two of at least 64, or becomes
+    ``max_seq_len`` (single-shot). ``quiet`` demotes the warnings to
+    debug."""
+    warn = log.debug if quiet else log.warning
+    if prefill_chunk < 1 or chunk < 1:
+        raise ValueError(
+            f"chunk ({chunk}) and prefill_chunk ({prefill_chunk}) "
+            f"must be >= 1"
+        )
+    if chunk & (chunk - 1):
+        chunk = 1 << (chunk.bit_length() - 1)
+        warn("decode chunk rounded down to power of two: %d", chunk)
+    if prefill_chunk & (prefill_chunk - 1):
+        prefill_chunk = 1 << (prefill_chunk.bit_length() - 1)
+        warn("prefill chunk rounded down to power of two: %d",
+             prefill_chunk)
+    if max_seq_len % prefill_chunk:
+        adjusted = prefill_chunk
+        while adjusted >= 64 and max_seq_len % adjusted:
+            adjusted //= 2
+        if adjusted >= 64 and max_seq_len % adjusted == 0:
+            warn("prefill chunk %d does not divide max_seq_len %d; "
+                 "using %d", prefill_chunk, max_seq_len, adjusted)
+            prefill_chunk = adjusted
+        else:
+            warn("max_seq_len %d has no usable power-of-two prefill "
+                 "chunk; chunked prefill disabled (single-shot only)",
+                 max_seq_len)
+            prefill_chunk = max_seq_len
+    return prefill_chunk, chunk
+
+
+class ContinuousEngine:
+    """Slot-based continuous batching on the paged KV cache, the port of
+    the JAX ``ContinuousEngine`` with ``kv_cache="paged"``.
+
+    One block pool per layer lives on the device (``self.cache``) and
+    requests multiplex onto ``max_slots`` page-table rows:
+
+      * admission maps the longest cached prefix of the prompt (radix
+        index, full blocks, at most len - 1 tokens) into a free slot's
+        table; the suffix prefills in segments of at most
+        ``prefill_chunk`` tokens (``transformer.paged_prefill_segment``),
+        one segment per loop iteration, interleaved with decode chunks;
+      * decode: every decoding slot advances in one fused chunk of
+        ``steps`` greedy steps (``transformer.paged_decode_chunk``),
+        ``steps`` the power-of-two floor of min(remaining, ``chunk``), so
+        a finishing row retires on time;
+      * retirement frees the slot at dispatch and, once its tokens have
+        landed, caches the written extent in the radix index.
+
+    The host loop (``_loop_paged``) is asynchronous and double-buffered:
+    iteration n dispatches its prefill segments and its chunk, then syncs
+    iteration n - 1's results, which the device finished before anything
+    of iteration n. Host state (positions, remaining, retirement) advances
+    at dispatch; token values land at the sync. On CUDA, operands go to
+    the device from pinned memory with ``non_blocking=True`` and results
+    come back into pinned tensors behind a recorded event, so neither
+    direction waits for the stream to drain.
+
+    Greedy only: sampled requests go to the wrapped ``Model.generate``.
+    ``kv_cache="dense"`` (the JAX default) is not ported yet.
+    """
+
+    def __init__(self, model, max_slots=MAX_BATCH, chunk=32,
+                 prefill_chunk=512, start_loop=True, kv_cache="paged",
+                 kv_block_size=16, kv_blocks=0):
+        if max_slots < 1 or chunk < 1 or prefill_chunk < 1:
+            raise ValueError(
+                f"max_slots ({max_slots}), chunk ({chunk}) and "
+                f"prefill_chunk ({prefill_chunk}) must be >= 1"
+            )
+        if kv_cache == "dense":
+            raise NotImplementedError(
+                "kv_cache='dense' (the dense continuous-batching cache) is "
+                "not ported yet; it belongs to a later slice of the port "
+                "(ROADMAP.md)"
+            )
+        if kv_cache != "paged":
+            raise ValueError(
+                f"kv_cache must be 'dense' or 'paged', got {kv_cache!r}"
+            )
+        self.model = model
+        self.cfg = model.cfg
+        self.device = model.device
+        prefill_chunk, chunk = normalize_chunks(
+            self.cfg.max_seq_len, prefill_chunk, chunk
+        )
+        self.max_slots = max_slots
+        self.chunk = chunk
+        self.prefill_chunk = prefill_chunk
+        self.kv_cache = kv_cache
+        self.kv = PagedKVManager(
+            self.cfg.max_seq_len, max_slots, block_size=kv_block_size,
+            num_blocks=kv_blocks,
+        )
+        self.cache = pa.init_paged_kv_cache(
+            self.cfg.n_layers, self.kv.num_blocks, self.cfg.n_kv_heads,
+            self.kv.block_size, self.cfg.head_dim, self.cfg.torch_dtype,
+            self.device,
+        )
+        # Device-resident last tokens: a final prefill segment writes its
+        # first token into its slot on the device, and decode chunks read
+        # the tensor without a host sync.
+        self.last_dev = torch.zeros(max_slots, dtype=torch.long,
+                                    device=self.device)
+        # The device seams (the calls the JAX package's fake engine swaps).
+        self._paged_prefill = functools.partial(
+            tf.paged_prefill_segment, block_size=self.kv.block_size
+        )
+        self._paged_chunk = functools.partial(
+            tf.paged_decode_chunk, block_size=self.kv.block_size
+        )
+        self._copy_blocks = pa.copy_blocks
+        # Bumped by _reset_paged: sync records dispatched before a pool
+        # rebuild must not touch the fresh pool.
+        self._kv_epoch = 0
+        # Prior-iteration sync records (engine-loop thread only); an
+        # attribute so allocation-pressure paths can drain them early
+        # (their retire snapshots pin blocks until synced).
+        self._pending_syncs = []
+        # Host-side slot state (device state is the pools + last_dev).
+        self.positions = np.zeros(max_slots, np.int32)
+        self.last_tok = np.zeros(max_slots, np.int32)
+        self.occupied = [None] * max_slots  # slot -> in-flight row dict
+        self._q = queue.Queue()
+        # Plain counters in place of the JAX engine's metrics registry
+        # (engine-loop writer; readers take GIL-atomic snapshots).
+        # t_*_dispatch_s: host wall inside the device calls (enqueueing
+        # the work); t_*_wait_s: the deferred syncs' waits;
+        # t_chunk_device_s (CUDA only): event-timed device span of each
+        # chunk, read at its sync.
+        self.steps_done = 0
+        self.n_prefills = 0
+        self.n_chunks = 0
+        self.occupied_steps = 0
+        self.t_prefill_dispatch_s = 0.0
+        self.t_prefill_wait_s = 0.0
+        self.t_chunk_dispatch_s = 0.0
+        self.t_chunk_wait_s = 0.0
+        self.t_chunk_device_s = 0.0
+        self.t_idle_s = 0.0
+        # (prompt length, seconds from enqueue to the first token landing
+        # on the host) per request: the stand-in for the JAX engine's
+        # TTFT histogram.
+        self.ttft_s = collections.deque(maxlen=4096)
+        self._stop = threading.Event()
+        self._thread = None
+        if start_loop:
+            self._thread = threading.Thread(target=self._loop_paged,
+                                            daemon=True)
+            self._thread.start()
+
+    # -- public surface -------------------------------------------------------
+
+    def generate(self, tokens, max_new_tokens, temperature=0.0, top_k=0,
+                 top_p=1.0, seed=0):
+        """Greedy rows join the engine and block until they retire; a
+        sampled request goes to the wrapped model on its own. Returns
+        ``[prompt + generated]`` per row."""
+        temperature, top_k, top_p = sanitize_sampler(
+            temperature, top_k, top_p, self.cfg.vocab_size
+        )
+        if temperature != 0.0:
+            return self.model.generate(
+                tokens, max_new_tokens, temperature=temperature,
+                top_k=top_k, top_p=top_p, seed=seed,
+            )
+        if not tokens or any(
+            not r or len(r) + int(max_new_tokens) > self.cfg.max_seq_len
+            for r in tokens
+        ):
+            raise ValueError(
+                "each row needs 1 <= len(prompt) and len(prompt) + "
+                f"max_new_tokens <= {self.cfg.max_seq_len}"
+            )
+        if self._stop.is_set():
+            raise RuntimeError("engine is shut down")
+        t_enq = time.perf_counter()
+        rows = [
+            {
+                "prompt": [int(t) for t in r],
+                "max_new": int(max_new_tokens),
+                "out": None,
+                "finish_step": None,
+                "event": threading.Event(),
+                "err": None,
+                "t_enq": t_enq,
+            }
+            for r in tokens
+        ]
+        for row in rows:
+            self._q.put(row)
+        for row in rows:
+            row["event"].wait()
+        for row in rows:
+            if row["err"] is not None:
+                raise row["err"]
+        return [row["prompt"] + row["out"] for row in rows]
+
+    def stats(self):
+        """Engine telemetry under the JAX engine's key set."""
+        return {
+            "steps_done": self.steps_done,
+            "n_prefills": self.n_prefills,
+            "n_chunks": self.n_chunks,
+            "occupied_slots": sum(r is not None for r in self.occupied),
+            "queue_depth": self._q.qsize(),
+            "t_prefill_s": self.t_prefill_dispatch_s + self.t_prefill_wait_s,
+            "t_chunk_s": self.t_chunk_dispatch_s + self.t_chunk_wait_s,
+            "t_idle_s": self.t_idle_s,
+            "occupied_steps": self.occupied_steps,
+            "tenant_queues": {},
+        }
+
+    def kv_stats(self):
+        """The paged cache's snapshot (the manager's ``stats()``)."""
+        return self.kv.stats()
+
+    def shutdown(self):
+        """Stop the engine loop and fail whatever is still queued or in
+        flight, so a caller can drop the engine and free its pools."""
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(60.0)
+            if self._thread.is_alive():
+                raise RuntimeError("engine loop did not stop")
+        cause = RuntimeError("engine shut down")
+        for i, row in enumerate(self.occupied):
+            if row is not None:
+                self._fail_paged_row(row, i, cause, "serving")
+        while True:
+            try:
+                row = self._q.get_nowait()
+            except queue.Empty:
+                break
+            row["err"] = cause
+            row["event"].set()
+
+    # -- host <-> device ------------------------------------------------------
+
+    def _to_device(self, array):
+        """A host array on the engine's device (int32 tables and positions
+        as int64, the index dtype). On CUDA it is staged in pinned memory
+        and copied with ``non_blocking=True``: a pageable copy would wait
+        for the stream to drain. PyTorch's caching host allocator keeps
+        the pinned block until its copy has run."""
+        host = torch.from_numpy(np.asarray(array))
+        if host.dtype == torch.int32:
+            host = host.long()
+        if self.device.type != "cuda":
+            return host
+        return host.pin_memory().to(self.device, non_blocking=True)
+
+    def _to_host(self, tensor):
+        """(host tensor, event): ``tensor`` copied into pinned memory
+        behind the work queued so far, and a (timing) event recorded after
+        the copy; the sync waits on that event alone. On the CPU the work
+        has already run: the tensor itself, no event."""
+        if self.device.type != "cuda":
+            return tensor, None
+        host = torch.empty(tensor.shape, dtype=tensor.dtype,
+                           pin_memory=True)
+        host.copy_(tensor, non_blocking=True)
+        return host, self._timing_event()
+
+    def _timing_event(self):
+        """A recorded timing event on CUDA (the syncs wait on it, and a
+        chunk's device span is read between two), else None."""
+        if self.device.type != "cuda":
+            return None
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event
+
+    # -- engine internals -----------------------------------------------------
+
+    def _free_slots(self):
+        return [i for i, r in enumerate(self.occupied) if r is None]
+
+    def _admit_paged(self, slot, row):
+        """Paged admission: radix prefix match + page-table mapping. The
+        matched full blocks skip prefill; the suffix prefills in segments
+        from the reused offset (_advance_prefill_paged)."""
+        row.setdefault("t_admit", time.perf_counter())
+        ctx = row["prompt"] + row.get("generated", [])
+        reused, hit, _ = self.kv.admit(slot, ctx)
+        row["prefix_hit_tokens"] = row.get("prefix_hit_tokens", 0) + hit
+        # Remembered so a pool-pressure back-out can un-count this
+        # admission's reuse (the re-admission counts what it reuses).
+        row["_admit_hit"] = hit
+        row["ctx"] = np.asarray(ctx, np.int64)
+        row["prefill_offset"] = reused
+        row["n_generated"] = len(row.get("generated", []))
+        row["remaining"] = None  # prefilling
+        self.positions[slot] = 0
+        self.occupied[slot] = row
+
+    def _fail_paged_row(self, row, slot, cause, phase):
+        """Fail one in-flight paged row and free its slot and blocks."""
+        row["err"] = RuntimeError(f"{phase} failed: {cause}")
+        row["err"].__cause__ = cause
+        if self.occupied[slot] is row:
+            self.occupied[slot] = None
+            self.positions[slot] = 0
+            self.kv.drop(self.kv.release(slot))
+        row["event"].set()
+
+    def _reset_paged(self, cause):
+        """The pools are in an unknown state after a device fault: fail
+        every occupant, rebuild pools, page tables and radix index, and
+        bump the KV epoch so stale sync records leave the fresh pool
+        alone."""
+        for i, row in enumerate(self.occupied):
+            if row is None:
+                continue
+            row["err"] = RuntimeError(
+                f"engine cache lost to a failed device call: {cause}"
+            )
+            row["err"].__cause__ = cause
+            self.occupied[i] = None
+            row["event"].set()
+        self.kv.reset()
+        self.cache = None  # free the old pools before the new ones
+        self.cache = pa.init_paged_kv_cache(
+            self.cfg.n_layers, self.kv.num_blocks, self.cfg.n_kv_heads,
+            self.kv.block_size, self.cfg.head_dim, self.cfg.torch_dtype,
+            self.device,
+        )
+        self.positions[:] = 0
+        self.last_tok[:] = 0
+        self.last_dev = torch.zeros(self.max_slots, dtype=torch.long,
+                                    device=self.device)
+        self._kv_epoch += 1
+
+    def _drain_pending_syncs(self):
+        """Sync (and clear) every prior-iteration record now: at the loop
+        boundary, and early under allocation pressure (the records'
+        retire snapshots hold block refs until synced)."""
+        recs, self._pending_syncs = self._pending_syncs, []
+        for rec in recs:
+            self._sync_record(rec)
+
+    def _ensure_blocks_or_drain(self, slot, upto_pos):
+        """kv.ensure_blocks; on exhaustion drain the pending syncs (their
+        retire snapshots then insert into the radix index and become
+        evictable) and retry once. Re-raises PoolExhausted only when the
+        pool is genuinely over-committed."""
+        try:
+            return self.kv.ensure_blocks(slot, upto_pos)
+        except PoolExhausted:
+            self._drain_pending_syncs()
+            return self.kv.ensure_blocks(slot, upto_pos)
+
+    def _cow_fork(self, slot, first_block, last_block):
+        """ensure_writable + the device copy of every forked block.
+        Returns the number of forked blocks (0 in the steady state:
+        reused blocks precede every write offset)."""
+        src, dst = self.kv.ensure_writable(slot, first_block, last_block)
+        if src:
+            self._copy_blocks(self.cache, self._to_device(src),
+                              self._to_device(dst))
+        return len(src)
+
+    def _back_out(self, slot, row):
+        """Pool pressure: un-admit a prefilling row and re-queue it; it
+        restarts from its reuse offset on a later iteration, when retires
+        have freed blocks. The bumped _sync_gen voids its in-flight
+        records."""
+        self.kv.drop(self.kv.release(slot))
+        self.occupied[slot] = None
+        self.positions[slot] = 0
+        row["remaining"] = None
+        row.pop("ctx", None)
+        row.pop("n_generated", None)
+        row["prefix_hit_tokens"] = (
+            row.get("prefix_hit_tokens", 0) - row.pop("_admit_hit", 0)
+        )
+        row["_sync_gen"] = row.get("_sync_gen", 0) + 1
+        self._q.put(row)
+
+    def _advance_prefill_paged(self, slot):
+        """Dispatch ONE suffix-prefill segment for ``slot`` (async: its
+        result syncs one loop iteration later). Returns the sync record,
+        or None when the dispatch failed or the admission was backed out
+        under pool pressure."""
+        row = self.occupied[slot]
+        ctx = row["ctx"]
+        total = int(ctx.shape[0])
+        off = row["prefill_offset"]
+        S = self.cfg.max_seq_len
+        rem = total - off
+        cap = min(self.prefill_chunk, S)
+        last = rem <= cap
+        seg_len = tf._length_bucket(rem, cap) if last else cap
+        end = min(off + seg_len, S)
+        window = tf._window_for(end, S)
+        try:
+            self._ensure_blocks_or_drain(slot, end)
+        except PoolExhausted:
+            self._back_out(slot, row)
+            return None
+        bs = self.kv.block_size
+        self._cow_fork(slot, off // bs, (end - 1) // bs)
+        seg = np.zeros((1, seg_len), np.int64)
+        real = min(seg_len, rem)
+        seg[0, :real] = ctx[off:off + real]
+        seg_ids = self.kv.segment_ids(slot, off, seg_len)
+        t0 = time.perf_counter()
+        try:
+            tok = self._paged_prefill(
+                self.model.model, self.cache, self._to_device(seg), off,
+                self._to_device(seg_ids), self._to_device(self.kv.tables[slot]),
+                total - 1, self.last_dev, slot, window=window,
+                want_logits=last,
+            )
+            if last:
+                tok_h, event = self._to_host(tok)
+            else:
+                tok_h, event = None, self._timing_event()
+        except Exception as e:  # noqa: BLE001 - fail the row, keep serving
+            log.exception("paged prefill failed")
+            self._fail_paged_row(row, slot, e, "paged prefill")
+            return None
+        self.n_prefills += 1
+        self.t_prefill_dispatch_s += time.perf_counter() - t0
+        row["prefill_offset"] = off + seg_len
+        rec = {"kind": "seg", "row": row, "slot": slot, "tok": tok_h,
+               "event": event, "epoch": self._kv_epoch,
+               "gen": row.get("_sync_gen", 0)}
+        if last:
+            self.positions[slot] = total
+            row["n_generated"] += 1
+            row["remaining"] = row["max_new"] - row["n_generated"]
+            rec["kind"] = "first"
+            if row["remaining"] <= 0:
+                # Finished at prefill: free the slot now (stream order
+                # protects the blocks: a new occupant's writes queue
+                # behind this dispatch), retire at the sync.
+                rec["blocks"] = self.kv.release(slot)
+                self.occupied[slot] = None
+                self.positions[slot] = 0
+        return rec
+
+    def _dispatch_chunk_paged(self):
+        """Dispatch one fused paged decode chunk over the decoding slots
+        (async). Host state (positions, remaining, retirement) advances
+        at dispatch, fully determined by ``steps``; token values land at
+        the next iteration's sync."""
+        occupied = [
+            i for i, r in enumerate(self.occupied)
+            if r is not None and r.get("remaining") is not None
+        ]
+        if not occupied:
+            return None
+        S = self.cfg.max_seq_len
+        bs = self.kv.block_size
+        steps = min(min(self.occupied[i]["remaining"] for i in occupied),
+                    self.chunk)
+        steps = 1 << (steps.bit_length() - 1)
+        active = np.zeros(self.max_slots, bool)
+        active[occupied] = True
+        max_pos = int(self.positions[occupied].max())
+        window = tf._window_for(min(max_pos + steps + 1, S), S)
+        try:
+            for i in occupied:
+                pos = int(self.positions[i])
+                self._ensure_blocks_or_drain(i, min(pos + steps, S))
+                self._cow_fork(i, pos // bs, (min(pos + steps, S) - 1) // bs)
+        except Exception as e:  # noqa: BLE001 - never kill the loop
+            # The capacity floor covers occupied slots once the pending
+            # snapshots drain; reaching here is genuine over-commit.
+            for i in occupied:
+                if self.occupied[i] is not None:
+                    self._fail_paged_row(self.occupied[i], i, e,
+                                         "page allocation")
+            return None
+        t0 = time.perf_counter()
+        try:
+            start = self._timing_event()
+            toks, last, _ = self._paged_chunk(
+                self.model.model, self.cache,
+                self._to_device(self.kv.tables), self.last_dev,
+                self._to_device(self.positions), self._to_device(active),
+                steps=steps, window=window,
+            )
+            self.last_dev = last
+            toks_h, event = self._to_host(toks)
+        except Exception as e:  # noqa: BLE001 - fail the rows, keep serving
+            log.exception("paged decode chunk failed")
+            for i in occupied:
+                if self.occupied[i] is not None:
+                    self._fail_paged_row(self.occupied[i], i, e,
+                                         "decode chunk")
+            return None
+        self.t_chunk_dispatch_s += time.perf_counter() - t0
+        self.steps_done += steps
+        self.n_chunks += 1
+        self.occupied_steps += steps * len(occupied)
+        rows, gens = {}, {}
+        for i in occupied:
+            row = self.occupied[i]
+            rows[i] = row
+            gens[i] = row.get("_sync_gen", 0)
+            self.positions[i] += steps
+            row["n_generated"] += steps
+            row["remaining"] -= steps
+            if row["remaining"] <= 0:
+                row["_blocks"] = self.kv.release(i)
+                # Generation-stamped: a voided stale record of this row
+                # must not pop a marker its re-admitted incarnation
+                # stamped.
+                row["_blocks_gen"] = row.get("_sync_gen", 0)
+                self.occupied[i] = None
+                self.positions[i] = 0
+        return {"kind": "chunk", "toks": toks_h, "event": event,
+                "start": start, "rows": rows, "gens": gens,
+                "steps": steps, "epoch": self._kv_epoch}
+
+    def _sync_record(self, rec):
+        """Sync one prior-iteration dispatch: wait for its event, append
+        its tokens to the owning rows, stamp TTFT, and retire rows whose
+        budget the dispatch exhausted. The device finished this work
+        before anything dispatched in the current iteration, so the wait
+        is (nearly) free: the point of the deferred sync."""
+        t0 = time.perf_counter()
+        try:
+            if rec["event"] is not None:
+                rec["event"].synchronize()
+            if rec["kind"] == "chunk":
+                toks = rec["toks"].numpy()
+            elif rec["kind"] == "first":
+                tok = int(rec["tok"])
+        except Exception as e:  # noqa: BLE001 - an async device error
+            log.exception("paged sync failed")
+            self._fail_sync(rec, e)
+            return
+        wait = time.perf_counter() - t0
+        fresh = rec["epoch"] == self._kv_epoch
+        if rec["kind"] != "chunk":
+            self.t_prefill_wait_s += wait
+        else:
+            self.t_chunk_wait_s += wait
+            if rec["start"] is not None:
+                self.t_chunk_device_s += \
+                    rec["start"].elapsed_time(rec["event"]) / 1e3
+        if rec["kind"] == "seg":
+            return
+        now = time.perf_counter()
+        if rec["kind"] == "first":
+            row, slot = rec["row"], rec["slot"]
+            if rec["gen"] != row.get("_sync_gen", 0) or \
+                    row["err"] is not None:
+                if fresh and "blocks" in rec:
+                    self.kv.drop(rec["blocks"])
+                return
+            row.setdefault("generated", []).append(tok)
+            if "t_first" not in row:
+                row["t_first"] = now
+                self.ttft_s.append((len(row["prompt"]), now - row["t_enq"]))
+            if "blocks" in rec:
+                self._finish_retire_paged(row, slot, rec["blocks"], fresh)
+            return
+        for slot, row in rec["rows"].items():
+            if rec["gens"][slot] != row.get("_sync_gen", 0) or \
+                    row["err"] is not None:
+                # A void record may only drop a retire marker its own
+                # generation stamped.
+                if fresh and "_blocks" in row and \
+                        row.get("_blocks_gen") == rec["gens"][slot]:
+                    self.kv.drop(row.pop("_blocks"))
+                continue
+            row["generated"].extend(
+                int(t) for t in toks[:rec["steps"], slot]
+            )
+            # Retire only once every dispatched token has landed: an
+            # earlier chunk's record of the same row may sync first.
+            if "_blocks" in row and len(row["generated"]) >= row["max_new"]:
+                row.pop("_blocks_gen", None)
+                self._finish_retire_paged(row, slot, row.pop("_blocks"),
+                                          fresh)
+
+    def _finish_retire_paged(self, row, slot, blocks, fresh):
+        """Retirement's sync half: cache the request's prefix in the radix
+        index (unless the pool was rebuilt since dispatch), then the
+        shared retire tail. Only the WRITTEN extent is cached: the last
+        generated token was emitted but never fed back, so its K/V slot
+        holds garbage; tokens[:-1] is exactly what prefill and decode
+        wrote."""
+        if fresh:
+            self.kv.finish_release(
+                blocks, (row["prompt"] + row["generated"])[:-1]
+            )
+        self._retire_row(row, slot)
+
+    def _retire_row(self, row, slot):
+        """The retire tail (its slot is already free): publish the output
+        and wake the handler thread."""
+        del slot
+        row["out"] = row["generated"]
+        row["finish_step"] = self.steps_done
+        row["event"].set()
+
+    def _fail_sync(self, rec, cause):
+        """A device error surfaced at the deferred sync: fail the
+        record's rows, then reset, since the pools may hold anything."""
+        rows = (
+            list(rec["rows"].items()) if rec["kind"] == "chunk"
+            else [(rec["slot"], rec["row"])]
+        )
+        fresh = rec["epoch"] == self._kv_epoch
+        for slot, row in rows:
+            if row["err"] is not None or row["event"].is_set():
+                continue
+            gen = rec["gens"][slot] if rec["kind"] == "chunk" else rec["gen"]
+            blocks = None
+            if row.get("_blocks_gen") == gen:
+                row.pop("_blocks_gen", None)
+                blocks = row.pop("_blocks", None)
+            blocks = blocks or rec.get("blocks")
+            if fresh and blocks:
+                self.kv.drop(blocks)
+            if self.occupied[slot] is row:
+                self._fail_paged_row(row, slot, cause, "paged sync")
+            else:
+                row["err"] = RuntimeError(f"paged sync failed: {cause}")
+                row["err"].__cause__ = cause
+                row["event"].set()
+        self._reset_paged(cause)
+
+    def _next_row(self, block):
+        """The next queued row, or None. ``block``: wait for one (the
+        engine is idle), accruing idle time, until shutdown."""
+        if not block:
+            try:
+                return self._q.get_nowait()
+            except queue.Empty:
+                return None
+        t0 = time.perf_counter()
+        while not self._stop.is_set():
+            try:
+                row = self._q.get(block=True, timeout=0.05)
+            except queue.Empty:
+                now = time.perf_counter()
+                self.t_idle_s += now - t0
+                t0 = now
+                continue
+            self.t_idle_s += time.perf_counter() - t0
+            return row
+        return None
+
+    def _loop_paged(self):
+        """The asynchronous host loop: admit, dispatch one prefill segment
+        per prefilling slot and one decode chunk, then sync the previous
+        iteration's dispatches."""
+        with torch.inference_mode():
+            while not self._stop.is_set():
+                batch = []
+                free = self._free_slots()
+                while free:
+                    idle = len(free) == self.max_slots and \
+                        not self._pending_syncs
+                    row = self._next_row(block=idle)
+                    if row is None:
+                        break
+                    self._admit_paged(free.pop(0), row)
+                for i, r in enumerate(self.occupied):
+                    if r is not None and r.get("remaining") is None:
+                        rec = self._advance_prefill_paged(i)
+                        if rec is not None:
+                            batch.append(rec)
+                rec = self._dispatch_chunk_paged()
+                if rec is not None:
+                    batch.append(rec)
+                self._drain_pending_syncs()
+                self._pending_syncs = batch
+            self._drain_pending_syncs()
+
+
 def make_handler(model, state):
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, fmt, *args):
@@ -121,7 +835,17 @@ def make_handler(model, state):
             if self.path != "/healthz":
                 self._send({"error": "not found"}, 404)
             elif state["ready"]:
-                self._send({"status": "ok"})
+                info = {"status": "ok"}
+                if isinstance(model, ContinuousEngine):
+                    # The cheap load snapshot a router probes: host-side
+                    # integers only.
+                    stats, kvs = model.stats(), model.kv_stats()
+                    info["queue_depth"] = stats["queue_depth"]
+                    info["occupied_slots"] = stats["occupied_slots"]
+                    info["max_slots"] = model.max_slots
+                    info["prefix_hit_ratio"] = kvs["prefix_hit_ratio"]
+                    info["free_blocks"] = kvs["free_blocks"]
+                self._send(info)
             elif state.get("error"):
                 self._send({"status": "failed", "error": state["error"]},
                            500)
@@ -166,8 +890,8 @@ def make_handler(model, state):
 
 
 def warmup(model, state):
-    """One short decode end to end (builds the CUDA kernel on first use),
-    then flip ready."""
+    """One short request end to end (through the engine when ``model``
+    is one; builds the CUDA kernels on first use), then flip ready."""
     try:
         t0 = time.perf_counter()
         model.generate([[1, 2, 3, 4]], 4)
@@ -250,8 +974,42 @@ def main(argv=None):
                         "(tests). Without a GPU the default fails.")
     p.add_argument("--once", action="store_true",
                    help="warm up, serve one request to self, exit (tests)")
+    p.add_argument("--continuous-batching", action="store_true",
+                   help="slot-based continuous batching on the paged KV "
+                        "cache: requests join and leave the shared decode "
+                        "at chunk granularity regardless of shape")
+    p.add_argument("--kv-cache", choices=["paged"], default="paged",
+                   help="continuous batching: the block-pool KV cache "
+                        "with radix prefix reuse ('dense' is not ported "
+                        "yet)")
+    p.add_argument("--kv-block-size", type=int, default=16,
+                   help="paged KV cache: tokens per block (power of two "
+                        "<= 16, must divide --seq-len)")
+    p.add_argument("--kv-blocks", type=int, default=0,
+                   help="paged KV cache: total pool blocks (0 = auto: "
+                        "full per-slot coverage + room for ~2 cached "
+                        "contexts). Must be >= max_slots x "
+                        "seq_len/block_size + 1 so decode can always "
+                        "allocate")
+    p.add_argument("--max-slots", type=int, default=MAX_BATCH,
+                   help="continuous batching: KV slots / concurrent "
+                        "requests")
+    p.add_argument("--decode-chunk", type=int, default=32,
+                   help="continuous batching: max fused decode steps "
+                        "between admission points; rounded down to a "
+                        "power of two")
+    p.add_argument("--prefill-chunk", type=int, default=512,
+                   help="continuous batching: prompts longer than this "
+                        "prefill in segments of this size, interleaved "
+                        "with decode chunks; power of two")
     args = p.parse_args(argv)
     model = Model(config_from_args(args), device=args.device)
+    if args.continuous_batching:
+        model = ContinuousEngine(
+            model, max_slots=args.max_slots, chunk=args.decode_chunk,
+            prefill_chunk=args.prefill_chunk, kv_cache=args.kv_cache,
+            kv_block_size=args.kv_block_size, kv_blocks=args.kv_blocks,
+        )
     server, state = start_server(model, port=args.port)
     log.info("listening on :%d", server.server_address[1])
     try:
@@ -271,6 +1029,8 @@ def main(argv=None):
         return 0
     finally:
         server.shutdown()
+        if isinstance(model, ContinuousEngine):
+            model.shutdown()
 
 
 if __name__ == "__main__":

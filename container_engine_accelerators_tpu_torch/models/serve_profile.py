@@ -6,8 +6,11 @@
 
 Builds full-width Llama-3-8B (random weights, seed 0) on the GPU, warms
 up, then profiles one bucketed prefill (a 1500-token prompt in the 2048
-bucket) and, separately, 16 decode steps after it. For each region it
-prints one JSON line: host wall time, summed device (kernel) time, the
+bucket) and, separately, 16 decode steps after it; then the paged
+engine's two programs on block pools sized for 8 slots (block 16): one
+512-token prefill segment at offset 2560 (window 4096), and a 16-step
+decode chunk over 8 rows (7 at position 1088, one at 3000). For each
+region it prints one JSON line: host wall time, summed device (kernel) time, the
 device's idle share of the wall time, the ops with the most device time
 and the device time by kind (the port's flash kernels, matrix products,
 the rest). The profiler's own host overhead inflates wall time, so the idle
@@ -24,6 +27,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from container_engine_accelerators_tpu_torch.models import transformer as tf
+from container_engine_accelerators_tpu_torch.ops import paged_attention as pa
 
 
 def _device_us(event):
@@ -104,7 +108,46 @@ def main(top=12, decode_steps=16, prompt_len=1500):
 
     _profiled("prefill_p1500", run_prefill, top)
     _profiled(f"decode_{decode_steps}_steps", run_decode, top)
+    del state
+    _profile_paged(model, rng, top, decode_steps)
     return 0
+
+
+def _profile_paged(model, rng, top, decode_steps, slots=8, block_size=16):
+    """The paged engine's programs at serve_paged's shapes: slot b owns
+    blocks [1 + b * T, 1 + (b + 1) * T), T blocks a context."""
+    cfg, device = model.cfg, model.device
+    per_seq = cfg.max_seq_len // block_size
+    pools = pa.init_paged_kv_cache(
+        cfg.n_layers, 1 + slots * per_seq, cfg.n_kv_heads, block_size,
+        cfg.head_dim, cfg.torch_dtype, device)
+    tables = 1 + torch.arange(slots * per_seq, device=device).view(slots, -1)
+    last = torch.zeros(slots, dtype=torch.long, device=device)
+    offset, seg_len, window = 2560, 512, 4096
+    seg = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, seg_len)),
+                          device=device)
+    first = offset // block_size
+    seg_ids = tables[slots - 1, first:first + seg_len // block_size]
+    positions = torch.full((slots,), 1088, device=device)
+    positions[-1] = 3000
+    active = torch.ones(slots, dtype=torch.bool, device=device)
+
+    def run_segment():
+        tf.paged_prefill_segment(
+            model, pools, seg, offset, seg_ids, tables[slots - 1],
+            offset + seg_len - 1, last, slots - 1, window=window,
+            block_size=block_size, want_logits=True)
+
+    def run_chunk():
+        tf.paged_decode_chunk(model, pools, tables, last, positions, active,
+                              steps=decode_steps, window=window,
+                              block_size=block_size)
+
+    for fn in (run_segment, run_chunk):  # warm the allocator
+        fn()
+    _profiled(f"paged_prefill_seg{seg_len}_at{offset}", run_segment, top)
+    _profiled(f"paged_decode_{decode_steps}_steps_{slots}_rows", run_chunk,
+              top)
 
 
 if __name__ == "__main__":

@@ -5,18 +5,22 @@ single-device training paths.
 
 Port of ``container_engine_accelerators_tpu/models/transformer.py``:
 RMSNorm, rotary embeddings, grouped-query attention, SwiGLU MLP, tied
-output head, a dense KV cache and batched prefill + decode, and the
-training step (``loss_fn``, ``make_train_step``). Weights keep the JAX
-layout ((in, out) matrices, so every projection is ``x @ w``); the
+output head, a dense KV cache and batched prefill + decode, the paged
+serving programs (``paged_prefill_segment``, ``paged_decode_chunk``) and
+the training step (``loss_fn``, ``make_train_step``). Weights keep the
+JAX layout ((in, out) matrices, so every projection is ``x @ w``); the
 stacked layer dim becomes a ``ModuleList``. Prefill and training
 attention go through ``ops.attention.flash_attention`` (the hand-written
 CUDA kernels, forward and backward, on CUDA tensors; their plain
-versions on CPU tensors); decode attention is plain PyTorch, as it is
-plain XLA in the JAX package. Parameters are trainable; the serving
-entry points run under ``torch.inference_mode()``.
+versions on CPU tensors), paged prefill segments through
+``ops.attention.flash_fwd`` at the segment's global ``q_base``; decode
+attention is plain PyTorch, as it is plain XLA in the JAX package.
+Parameters are trainable; the serving entry points run under
+``torch.inference_mode()``.
 
 Not in this port yet: MoE FFNs, tensor/sequence/pipeline parallelism,
-ring attention and the paged cache (see ROADMAP.md).
+ring attention, the dense continuous-batching programs and speculation's
+verify programs (see ROADMAP.md).
 """
 
 import dataclasses
@@ -25,9 +29,11 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from container_engine_accelerators_tpu_torch.ops import paged_attention as pa
 from container_engine_accelerators_tpu_torch.ops.attention import (
     decode_attention,
     flash_attention,
+    flash_fwd,
     flash_fwd_reference,
     mha_reference,
 )
@@ -373,6 +379,17 @@ def _window_for(position_bound, cap):
     return _length_bucket(max(int(position_bound), 1), cap)
 
 
+def _decode_step(model, tokens, positions, attend_for):
+    """One-token step through every layer, shared by the dense and the
+    paged decode (the JAX ``_decode_step_impl``): tokens (B,) at
+    positions (B, 1); ``attend_for(i)`` is layer i's ``attend``, which
+    writes the step's K/V and reads the cache. → (B, V) f32 logits."""
+    x = model.embed[tokens][:, None, :]  # (B, 1, D)
+    for i, layer in enumerate(model.layers):
+        x, _ = layer(x, positions, attend_for(i))
+    return lm_head(x, model.ln_f.weight, model.embed)[:, 0, :]
+
+
 @torch.inference_mode()
 def decode_logits(model, cache, tokens, position):
     """One decode step at the shared scalar ``position`` → (B, V) logits.
@@ -381,15 +398,14 @@ def decode_logits(model, cache, tokens, position):
     K/V into ``cache`` IN PLACE at slot ``position`` (a slice
     assignment), then attends to the window [0, _window_for(position+1))
     of the cache with length position + 1."""
-    cfg = model.cfg
     batch = tokens.shape[0]
     positions = torch.full((batch, 1), position, device=tokens.device)
-    window = _window_for(position + 1, cfg.max_seq_len)
-    x = model.embed[tokens][:, None, :]  # (B, 1, D)
-    for i, layer in enumerate(model.layers):
+    window = _window_for(position + 1, model.cfg.max_seq_len)
+
+    def attend_for(i):
         k_cache, v_cache = cache["k"][i], cache["v"][i]
 
-        def attend(q, k, v, k_cache=k_cache, v_cache=v_cache):
+        def attend(q, k, v):
             k_cache[:, :, position:position + 1] = k
             v_cache[:, :, position:position + 1] = v
             return decode_attention(
@@ -397,8 +413,9 @@ def decode_logits(model, cache, tokens, position):
                 position + 1,
             )
 
-        x, _ = layer(x, positions, attend)
-    return lm_head(x, model.ln_f.weight, model.embed)[:, 0, :]
+        return attend
+
+    return _decode_step(model, tokens, positions, attend_for)
 
 
 @torch.inference_mode()
@@ -484,3 +501,126 @@ def generate(model, prompt, max_new_tokens=16, temperature=0.0, top_k=0,
         tok = sample_token(logits, generator, temperature, top_k, top_p)
         pieces.append(tok[:, None])
     return torch.cat(pieces, dim=1)
+
+
+# -- paged (block-pool) serving programs --------------------------------------
+#
+# The device half of the kvcache subpackage: the same layers and the same
+# attention functions as the dense paths, with the cache reads and writes
+# swapped for block gathers and scatters (ops/paged_attention.py). Page
+# tables, the radix prefix index, eviction and copy-on-write live on the
+# host (kvcache/manager.py); these functions only consume its tables.
+# Both update the pools they are given in place and read nothing of the
+# device back to the host, so the engine can queue them behind each other.
+
+
+@torch.inference_mode()
+def paged_decode_chunk(model, pools, tables, tokens, positions, active,
+                       steps, window, block_size):
+    """``steps`` greedy decode steps over a paged cache, the counterpart
+    of the JAX ``paged_decode_chunk``.
+
+    pools {"k", "v"}: (L, num_blocks, Hkv, bs, hd), written IN PLACE;
+    tables (B, T) int64 page tables; tokens and positions (B,) int64,
+    active (B,) bool, all on the model's device; ``window`` (a multiple
+    of ``block_size``) bounds every step's gathered read. Each step
+    clamps the positions to ``window - 1``; row b writes its K/V at block
+    ``tables[b, pos // bs]`` (the null block for inactive rows), offset
+    ``pos % bs``, and attends its own pages [0, window) with length
+    pos + 1 through ``paged_decode_attention`` (the dense
+    ``decode_attention`` on the gathered window). Inactive rows keep
+    their token and position. JAX fuses the steps in one ``scan``; here
+    they are an eager Python loop. Returns (tokens (steps, B), last_tok
+    (B,), positions (B,))."""
+    clamp = window - 1
+    tok, pos, out = tokens, positions, []
+    for _ in range(steps):
+        safe = pos.clamp(max=clamp)
+        bids = torch.gather(tables, 1, (safe // block_size)[:, None])[:, 0]
+        bids = torch.where(active, bids, pa.NULL_BLOCK)
+        offs = safe % block_size
+
+        def attend_for(i, bids=bids, offs=offs, safe=safe):
+            k_pool, v_pool = pools["k"][i], pools["v"][i]
+
+            def attend(q, k, v):
+                pa.paged_write(k_pool, k, bids, offs)
+                pa.paged_write(v_pool, v, bids, offs)
+                return pa.paged_decode_attention(
+                    q, k_pool, v_pool, tables, safe + 1, window, block_size,
+                )
+
+            return attend
+
+        logits = _decode_step(model, tok, safe[:, None], attend_for)
+        tok = torch.where(active, logits.argmax(dim=-1), tok)
+        pos = torch.where(active, pos + 1, pos)
+        out.append(tok)
+    return torch.stack(out), tok, pos
+
+
+@torch.inference_mode()
+def paged_prefill_segment(model, pools, seg, offset, seg_ids, table_row,
+                          true_pos, last_tok, slot, window, block_size,
+                          want_logits=False, return_logits=False):
+    """One prefill segment into a slot's paged blocks, the counterpart of
+    the JAX ``paged_prefill_segment`` and the only prefill of the paged
+    engine: every admission prefills in segments, the first at the
+    radix-reused prefix length (a block multiple).
+
+    seg: (1, C) int64 tokens at global positions [offset, offset + C), the
+    last segment right-padded to its bucket C. ``seg_ids`` (C // bs,) are
+    the blocks the segment writes (the null block for padding past the
+    context end); ``table_row`` (T,) is the slot's page table. Each layer
+    writes the segment's K/V with ``paged_write_segment``, gathers the
+    slot's pages [0, window) into one contiguous (1, Hkv, window, hd)
+    window and runs ``ops.attention.flash_fwd`` on it, causal at global
+    positions (``q_base=offset``, ``k_base=0``): the CUDA kernel on CUDA
+    tensors, its plain version on CPU ones. ``window`` is a power of two
+    or a multiple of 128, at least C and a multiple of ``block_size``.
+
+    ``want_logits`` (the final segment): the greedy token read at
+    ``true_pos`` is written into ``last_tok[slot]`` on the device and
+    returned as a 0-d tensor (with ``return_logits``, as (token, (V,) f32
+    logits)); earlier segments return None. The pools are written in
+    place."""
+    batch, seg_len = seg.shape
+    if batch != 1:
+        raise ValueError(f"one request per slot, got batch {batch}")
+    if window < seg_len or (window % 128 and window & (window - 1)):
+        raise ValueError(
+            f"window ({window}) must be a power of two or 128-multiple "
+            f">= segment ({seg_len})"
+        )
+    if seg_len % block_size or window % block_size:
+        raise ValueError(
+            f"segment ({seg_len}) and window ({window}) must be multiples "
+            f"of block_size ({block_size})"
+        )
+    hd = model.cfg.head_dim
+    n_win = window // block_size
+    tables = table_row[None, :]
+    positions = offset + torch.arange(seg_len, device=seg.device)[None, :]
+    x = model.embed[seg]
+    for i, layer in enumerate(model.layers):
+        k_pool, v_pool = pools["k"][i], pools["v"][i]
+
+        def attend(q, k, v, k_pool=k_pool, v_pool=v_pool):
+            pa.paged_write_segment(k_pool, k, seg_ids)
+            pa.paged_write_segment(v_pool, v, seg_ids)
+            k_win = pa.gather_block_kv(k_pool, tables, n_win)
+            v_win = pa.gather_block_kv(v_pool, tables, n_win)
+            out, _ = flash_fwd(
+                q, k_win.to(q.dtype), v_win.to(q.dtype), causal=True,
+                sm_scale=1.0 / (hd ** 0.5), q_base=offset, k_base=0,
+            )
+            return out
+
+        x, _ = layer(x, positions, attend)
+    if not want_logits:
+        return None
+    idx = true_pos - offset
+    logits = lm_head(x[:, idx:idx + 1], model.ln_f.weight, model.embed)[0, 0]
+    tok = logits.argmax()
+    last_tok[slot] = tok
+    return (tok, logits) if return_logits else tok

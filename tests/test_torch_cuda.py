@@ -55,12 +55,20 @@ CASES = {
     "d32_ragged": ((2, 8, 4, 250, 250, 32), True, {}),
     "waves_b4": ((4, 32, 8, 1024, 1024, 128), True, {}),
 }
+# The paged engine's prefill segments: a segment bucket below the 128-row
+# q tile at a block-aligned (not tile-aligned) q_base, against a window
+# that reaches past the diagonal.
+FWD_CASES = {
+    **CASES,
+    "paged_sq16": ((1, 8, 2, 16, 2048, 128), True, {"q_base": 1040}),
+    "paged_sq64": ((1, 8, 2, 64, 4096, 64), True, {"q_base": 2000}),
+}
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("name", sorted(FWD_CASES))
 def test_kernel_matches_plain_version(gen, name, dtype):
-    (b, hq, hkv, sq, sk, d), causal, kw = CASES[name]
+    (b, hq, hkv, sq, sk, d), causal, kw = FWD_CASES[name]
     q = torch.randn(b, hq, sq, d, generator=gen, device="cuda").to(dtype)
     k = torch.randn(b, hkv, sk, d, generator=gen, device="cuda").to(dtype)
     v = torch.randn(b, hkv, sk, d, generator=gen, device="cuda").to(dtype)
@@ -114,6 +122,36 @@ def test_small_model_on_card_matches_cpu(gen):
     out = tf.generate(gpu, prompt.cuda(), max_new_tokens=6).cpu()
     assert attention.flash_fwd_launches == before + cfg.n_layers
     assert torch.equal(out, tf.generate(cpu, prompt, max_new_tokens=6))
+
+
+def test_paged_engine_on_card_matches_dense_generate(gen):
+    """The paged engine on a small f32 model (head dim 128: the f32 kernel
+    under every prefill segment) returns dense generate's tokens exactly,
+    through a radix hit and a prompt prefilled in three segments."""
+    from container_engine_accelerators_tpu_torch.models import serve_cli
+
+    cfg = tf.TransformerConfig(vocab_size=512, d_model=256, n_layers=2,
+                               n_heads=2, n_kv_heads=1, d_ff=768,
+                               max_seq_len=128, dtype="float32")
+    model = serve_cli.Model(cfg, seed=4, device="cuda")
+    engine = serve_cli.ContinuousEngine(model, max_slots=2, chunk=4,
+                                        prefill_chunk=32, kv_block_size=16)
+    prefix = list(range(7, 47))
+    cases = [(prefix + [3, 4], 6), (prefix + [5], 6),
+             (list(range(100, 170)), 7)]
+    before = attention.flash_fwd_launches
+    try:
+        outs = [engine.generate([p], n)[0] for p, n in cases]
+    finally:
+        engine.shutdown()
+    assert attention.flash_fwd_launches - before == \
+        cfg.n_layers * engine.stats()["n_prefills"]
+    assert engine.kv_stats()["prefix_hit_tokens"] > 0
+    for (prompt, max_new), got in zip(cases, outs):
+        want = tf.generate(model.model,
+                           torch.as_tensor([prompt], device="cuda"),
+                           max_new_tokens=max_new)
+        assert got == want[0].tolist()
 
 
 # Backward kernels vs flash_bwd_reference, per gradient: the relative L2
