@@ -133,7 +133,9 @@ def attended_pairs(seq_q, seq_k, causal, q_base=0, k_base=0, kv_len=None):
 
 
 # Per visible (q, k) pair: FLOPs in units of D, and the tensors moved
-# once each, as (q-shaped, k-shaped, f32 rows of Sq) counts. Forward: QK^T
+# once each, as (q-shaped, k-shaped, f32 rows of Sq) counts; the first two
+# k-shaped tensors (k, v) are read over the keys the masks leave, the rest
+# (dk, dv) written over all Sk keys. Forward: QK^T
 # and PV; reads q, k, v, writes out and lse. dq: s, dp and ds.k; reads q,
 # dO, k, v, lse, delta, writes dq. dk/dv: s, dp, p^T.dO and ds^T.q; reads
 # q, dO, k, v, lse, delta, writes dk, dv. The whole backward (flash_bwd):
@@ -150,15 +152,19 @@ WORK = {
 def flash_bound(batch, num_q_heads, num_kv_heads, seq_q, seq_k, d, dtype,
                 causal, q_base=0, k_base=0, kv_len=None, kind="fwd"):
     """(bound_ms, bound_by) of one flash call of ``kind`` (see WORK): the
-    larger of FLOPs / peak and bytes / HBM rate."""
+    larger of FLOPs / peak and bytes / HBM rate. K and V are read only
+    below kv_len and, when causal, up to the last query's diagonal."""
     flops_per_d, q_like, k_like, rows = WORK[kind]
     elt = 2 if dtype == "bfloat16" else 4
     pairs = batch * num_q_heads * attended_pairs(
         seq_q, seq_k, causal, q_base, k_base, kv_len
     )
     flops = flops_per_d * d * pairs
+    kv = seq_k if kv_len is None else max(0, min(kv_len, seq_k))
+    keys_read = max(0, min(kv, q_base - k_base + seq_q)) if causal else kv
     nbytes = elt * d * (q_like * batch * num_q_heads * seq_q
-                        + k_like * batch * num_kv_heads * seq_k)
+                        + batch * num_kv_heads
+                        * (2 * keys_read + (k_like - 2) * seq_k))
     nbytes += 4 * rows * batch * num_q_heads * seq_q
     peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_F32_FLOPS
     t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
@@ -722,6 +728,9 @@ def serve_paged(torch, np, tf, serve_cli, attention, card, model):
             emit({"phase": "serve_paged_logits", name: logit_rows[name]})
             fail(f"serve_paged: {name}'s paged-prefill logits or first "
                  f"token disagree with the dense forward")
+    witness = segment_witness(torch, tf, attention, model, engine,
+                              prompts["shared_0"], len(prefix),
+                              _final_logits(finals, prompts["shared_0"]))
     n_chunks = max(stats["n_chunks"], 1)
     ttft = [{"prompt_len": n, "ttft_s": t} for n, t in engine.ttft_s]
     emit({
@@ -748,9 +757,76 @@ def serve_paged(torch, np, tf, serve_cli, attention, card, model):
         "long_prompt_segments": len(long_segs),
         "chunks_during_long_prefill": chunks_during_long,
         "kv": kvs, "logits": logit_rows, "tol": SERVE_LOGITS_ATOL,
+        "segment_witness": witness,
         "max_memory_allocated_gb": peak_gb,
     })
     return launches
+
+
+def segment_witness(torch, tf, attention, model, engine, prompt, offset,
+                    paged):
+    """Where the logits of a segment at a reused offset part from the
+    dense forward's on the same context (``paged``: the segment's kept
+    logits). Reads, after the traffic:
+
+      * the pool's pages of ``prompt`` (the radix index's blocks) against
+        the dense forward's rope'd K/V: over the reused prefix [0,
+        offset) in every layer, and over the segment's own rows in layer
+        0, where only the norm and the projections at the segment's row
+        count stand between the two;
+      * a dense replay of the segment: the same rows through every layer
+        at the segment's row count, ``flash_fwd`` at q_base ``offset``
+        over the dense forward's prefix K/V, no pool involved; held
+        against the paged logits and the dense ones.
+
+    Equal pages and a replay equal to the paged logits put the gap in
+    computing the segment's rows apart, not in the reused pages."""
+    m, cfg = model.model, model.cfg
+    ctx = torch.as_tensor([prompt], device="cuda")
+    ids = engine.kv.radix.match(prompt)
+    cached = len(ids) * engine.kv.block_size
+    if cached < offset:
+        fail(f"segment witness: {cached} tokens of the {offset}-token "
+             f"reused prefix left in the radix index")
+    with torch.inference_mode():
+        dense, (ks, vs) = tf.forward(m, ctx, logits_at="last",
+                                     return_kv=True)
+        dense = dense[0, 0]
+        ids = torch.as_tensor(ids, device="cuda")
+        prefix_err, seg_err = 0.0, None
+        for i in range(cfg.n_layers):
+            for pool, ref in ((engine.cache["k"][i], ks[i]),
+                              (engine.cache["v"][i], vs[i])):
+                win = pool[ids].transpose(0, 1).reshape(
+                    1, cfg.n_kv_heads, cached, cfg.head_dim)
+                diff = (win.float() - ref[:, :, :cached].float()).abs()
+                prefix_err = max(prefix_err,
+                                 diff[:, :, :offset].max().item())
+                if i == 0 and cached > offset:
+                    seg_err = max(seg_err or 0.0,
+                                  diff[:, :, offset:].max().item())
+        positions = torch.arange(offset, len(prompt), device="cuda")[None]
+        x = m.embed[ctx[:, offset:]]
+        for i, layer in enumerate(m.layers):
+            def attend(q, k, v, i=i):
+                out, _ = attention.flash_fwd(
+                    q, torch.cat([ks[i][:, :, :offset], k], dim=2),
+                    torch.cat([vs[i][:, :, :offset], v], dim=2),
+                    causal=True, sm_scale=1.0 / (cfg.head_dim ** 0.5),
+                    q_base=offset, k_base=0,
+                )
+                return out
+            x, _ = layer(x, positions, attend)
+        replay = tf.lm_head(x[:, -1:], m.ln_f.weight, m.embed)[0, 0]
+    return {
+        "prompt_len": len(prompt), "offset": offset,
+        "segment_rows": len(prompt) - offset, "cached_tokens": cached,
+        "prefix_pages_vs_dense_max_abs": prefix_err,
+        "segment_layer0_kv_vs_dense_max_abs": seg_err,
+        "replay_vs_paged_max_abs": (replay - paged).abs().max().item(),
+        "replay_vs_dense_max_abs": (replay - dense).abs().max().item(),
+        "paged_vs_dense_max_abs": (paged - dense).abs().max().item(),
+    }
 
 
 def _final_logits(finals, prompt):

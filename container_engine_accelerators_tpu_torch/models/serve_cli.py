@@ -133,16 +133,14 @@ class Model:
         return out.tolist()
 
 
-def normalize_chunks(max_seq_len, prefill_chunk, chunk, quiet=False):
+def normalize_chunks(max_seq_len, prefill_chunk, chunk):
     """The engine's chunk normalization (the JAX ``normalize_chunks``):
     returns the ``(prefill_chunk, chunk)`` a :class:`ContinuousEngine`
     built with these arguments uses. Both round down to a power of two;
     the prefill chunk must divide ``max_seq_len`` (else the tail
     segment's padded write would run past the context end), so it
     shrinks to a dividing power of two of at least 64, or becomes
-    ``max_seq_len`` (single-shot). ``quiet`` demotes the warnings to
-    debug."""
-    warn = log.debug if quiet else log.warning
+    ``max_seq_len`` (single-shot)."""
     if prefill_chunk < 1 or chunk < 1:
         raise ValueError(
             f"chunk ({chunk}) and prefill_chunk ({prefill_chunk}) "
@@ -150,23 +148,23 @@ def normalize_chunks(max_seq_len, prefill_chunk, chunk, quiet=False):
         )
     if chunk & (chunk - 1):
         chunk = 1 << (chunk.bit_length() - 1)
-        warn("decode chunk rounded down to power of two: %d", chunk)
+        log.warning("decode chunk rounded down to power of two: %d", chunk)
     if prefill_chunk & (prefill_chunk - 1):
         prefill_chunk = 1 << (prefill_chunk.bit_length() - 1)
-        warn("prefill chunk rounded down to power of two: %d",
-             prefill_chunk)
+        log.warning("prefill chunk rounded down to power of two: %d",
+                    prefill_chunk)
     if max_seq_len % prefill_chunk:
         adjusted = prefill_chunk
         while adjusted >= 64 and max_seq_len % adjusted:
             adjusted //= 2
         if adjusted >= 64 and max_seq_len % adjusted == 0:
-            warn("prefill chunk %d does not divide max_seq_len %d; "
-                 "using %d", prefill_chunk, max_seq_len, adjusted)
+            log.warning("prefill chunk %d does not divide max_seq_len %d; "
+                        "using %d", prefill_chunk, max_seq_len, adjusted)
             prefill_chunk = adjusted
         else:
-            warn("max_seq_len %d has no usable power-of-two prefill "
-                 "chunk; chunked prefill disabled (single-shot only)",
-                 max_seq_len)
+            log.warning("max_seq_len %d has no usable power-of-two prefill "
+                        "chunk; chunked prefill disabled (single-shot only)",
+                        max_seq_len)
             prefill_chunk = max_seq_len
     return prefill_chunk, chunk
 

@@ -471,8 +471,7 @@ def test_engine_kv_cache_modes(models):
 @pytest.mark.parametrize("args", [(64, 16, 4), (64, 24, 6), (96, 64, 32),
                                   (100, 64, 32), (8192, 512, 32)])
 def test_normalize_chunks_matches_jax(args):
-    assert tserve.normalize_chunks(*args, quiet=True) == \
-        jserve.normalize_chunks(*args, quiet=True)
+    assert tserve.normalize_chunks(*args) == jserve.normalize_chunks(*args)
 
 
 def test_engine_behind_the_http_server(models, engine):

@@ -2,6 +2,7 @@
 # SPDX-License-Identifier: Apache-2.0
 """Port serve_cli (CPU) vs the JAX server, import hygiene, device rules."""
 
+import functools
 import json
 import os
 import subprocess
@@ -167,6 +168,28 @@ def test_chip_smoke_bound_picks_the_larger_time():
     # One query row against 16 keys moves more than it computes.
     assert chip_smoke.flash_bound(1, 1, 1, 1, 16, 64, "bfloat16",
                                   False)[1] == "bytes"
+
+
+@pytest.mark.parametrize("kind,seq_k,causal,q_base,kv_len,keys", [
+    # A paged prefill segment: 16 rows at q_base 1040 over a 2048-key
+    # window read keys [0, 1056) only.
+    ("fwd", 2048, True, 1040, None, 1056),
+    ("dq", 4096, True, 2000, None, 2016),
+    ("fwd", 1000, False, 0, 777, 777),
+    # dk and dv are written over every key, seen or not.
+    ("dkv", 2048, True, 1040, None, 1056),
+])
+def test_chip_smoke_bound_reads_only_the_keys_the_masks_leave(
+        kind, seq_k, causal, q_base, kv_len, keys):
+    bound = functools.partial(chip_smoke.flash_bound, 1, 32, 8, 16,
+                              d=128, dtype="bfloat16", causal=causal,
+                              q_base=q_base, kind=kind)
+    whole, cut = bound(seq_k=seq_k, kv_len=kv_len), bound(seq_k=keys)
+    assert whole[1] == cut[1] == "bytes"
+    if kind == "dkv":
+        assert whole[0] > cut[0]
+    else:
+        assert whole[0] == pytest.approx(cut[0])
 
 
 def test_chip_smoke_grad_check_sees_a_wrong_tile_of_small_rows():
