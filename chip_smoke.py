@@ -9,20 +9,24 @@ Builds the port's CUDA kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card, serves full-width
 Llama-3-8B (all 32 layers, random weights from seed 0) through the
 port's HTTP server, one request at a time and through the paged
-continuous-batching engine, and trains it at full width (depth cut to 8
-layers) through ``make_train_step``, checking that every prefill, every
-prefill segment and every training step went through the kernels. Each
+continuous-batching engine (warmed with ``--warmup=all``: every decode
+window's CUDA graph captured before ready), and trains it at full width
+(depth cut to 8 layers) through ``make_train_step``, checking that every
+prefill, every prefill segment and every training step went through the
+kernels, and that every decode chunk replayed its captured graph. Each
 phase prints one JSON line; a failed phase raises and the script exits
 non-zero before its last line, which is ``{"ok": true, "device":
 {...}}``. Imports nothing of JAX.
 
-Phases: env, build, kernel (forward, one line per case), bwd_kernel
-(backward, one line per case), small_parity (a tiny f32 model on the card
-against the same weights on the CPU), paged_small_parity (a tiny f32
-paged engine on the card against dense generate), serve, serve_logits
-(prefill logits through the kernel vs plain attention), serve_paged (the
-paged engine behind the server: shared prefixes and a long prompt
-prefilled between decode chunks), train_grads (loss and every gradient
+Phases: env, build, kernel (forward, one line per case; the host-bound
+shapes also timed as a CUDA graph of 20 launches), bwd_kernel (backward,
+one line per case), small_parity (a tiny f32 model on the card against
+the same weights on the CPU), paged_small_parity (a tiny f32 paged engine
+on the card against dense generate), serve, serve_logits (prefill logits
+through the kernel vs plain attention), serve_paged (the paged engine
+behind the server: shared prefixes and a long prompt prefilled between
+decode chunks), paged_graph_parity (the graphed decode chunk against the
+eager one on the full-width model), train_grads (loss and every gradient
 through the kernels vs plain attention), train (5 timed steps),
 train_cli, kernels (the summary line), then the card's name and power
 limit, then the result.
@@ -193,6 +197,27 @@ def time_ms(fn, torch, min_iters=3, budget_ms=300.0):
     return start.elapsed_time(end) / iters
 
 
+# Forward cases whose back-to-back event time reads the wrapper's host
+# time (PERF.md): each is also timed as a CUDA graph of GRAPH_LAUNCHES
+# launches, which has no host work between the kernels.
+GRAPH_MS_CASES = ("causal_512_b2", "q_base_1536", "paged_sq16_qb1040",
+                  "paged_sq64_qb2000")
+GRAPH_LAUNCHES = 20
+
+
+def graph_ms(fn, torch, serving_graphs, launches=GRAPH_LAUNCHES):
+    """Device time of one fn() in ms: a CUDA graph of ``launches`` calls,
+    replayed back to back (time_ms), over ``launches``."""
+    graphs = serving_graphs.GraphSet("cuda")
+
+    def calls():
+        for _ in range(launches):
+            fn()
+
+    graphs.capture("calls", calls)
+    return time_ms(lambda: graphs.replay("calls"), torch) / launches
+
+
 def host_us(fn, torch, calls=20):
     """Host wall time of fn() in microseconds: ``calls`` calls back to back
     with no synchronize between them, so it reads the wrapper's own work
@@ -258,7 +283,7 @@ KERNEL_CASES = [
 MAIN_CASE = "causal_2048"
 
 
-def run_kernel_case(case, torch, attention, gen):
+def run_kernel_case(case, torch, attention, gen, serving_graphs):
     (name, batch, seq_q, seq_k, causal, q_base, k_base, kv_len, hq, hkv, d,
      dtype) = case
     dt = getattr(torch, dtype)
@@ -295,6 +320,9 @@ def run_kernel_case(case, torch, attention, gen):
     del ref_out, ref_lse, err_out
     row["ms"] = time_ms(lambda: attention.flash_fwd(q, k, v, **kw), torch)
     row["host_us"] = host_us(lambda: attention.flash_fwd(q, k, v, **kw), torch)
+    if name in GRAPH_MS_CASES:
+        row["graph_ms"] = graph_ms(lambda: attention.flash_fwd(q, k, v, **kw),
+                                   torch, serving_graphs)
     row["plain_ms"] = time_ms(
         lambda: attention.flash_fwd_reference(q, k, v, **kw), torch,
         budget_ms=100.0,
@@ -529,9 +557,11 @@ def serve(torch, np, tf, serve_cli, attention, card):
         return rng.integers(0, cfg.vocab_size, (rows, n)).tolist()
 
     p17, p300, p1500 = prompt(17), prompt(300, rows=2), prompt(1500)
+    # p1500 captures the decode graph of its window (batch 1, 2048);
+    # p1500_again replays it: its decode time is the served one.
     requests = [("p17", p17, 32), ("p300_b2", p300, 32),
                 ("p1500", p1500, 32), ("p1500_ttft", p1500, 1),
-                ("p17_again", p17, 32)]
+                ("p1500_again", p1500, 32), ("p17_again", p17, 32)]
 
     # The main path: counts at zero, then server start (its warmup
     # decode) and the requests, through the entry points a user calls.
@@ -564,10 +594,23 @@ def serve(torch, np, tf, serve_cli, attention, card):
     finally:
         server.shutdown()
     launches = attention.flash_fwd_launches
-    if results["p17"]["tokens"] != results["p17_again"]["tokens"]:
-        fail("the same greedy request gave different tokens")
+    for name in ("p17", "p1500"):
+        if results[name]["tokens"] != results[f"{name}_again"]["tokens"]:
+            fail(f"the same greedy request ({name}) gave different tokens")
     ttft = results["p1500_ttft"]["latency_s"]
-    decode_ms = (results["p1500"]["latency_s"] - ttft) / 31 * 1e3
+    decode_ms = (results["p1500_again"]["latency_s"] - ttft) / 31 * 1e3
+    # Every decode step replays the graph of its (batch, window), captured
+    # at the first step that needs it; step s of a request decodes at
+    # position prompt + s - 1 (the warmup request: 4 new tokens after 4).
+    graphs = model.decode_graphs.graphs
+    shapes = [(1, 4, 4)] + [(len(t), len(t[0]), n) for _, t, n in requests]
+    windows = {(b, tf._window_for(p + s, cfg.max_seq_len))
+               for b, p, n in shapes for s in range(1, n)}
+    steps = sum(n - 1 for _, _, n in shapes)
+    if (graphs.captures, graphs.replays) != (len(windows), steps):
+        fail(f"dense decode: {graphs.captures} graph captures and "
+             f"{graphs.replays} replays, want {len(windows)} (one per "
+             f"batch and window) and {steps} (every decode step)")
     emit({
         "phase": "serve", **card, "model": "llama3-8b",
         "n_layers": cfg.n_layers,
@@ -576,6 +619,11 @@ def serve(torch, np, tf, serve_cli, attention, card):
         "launches_per_prefill": cfg.n_layers,
         "latency_s": {n: r["latency_s"] for n, r in results.items()},
         "ttft_s_p1500": ttft, "decode_ms_per_token_p1500": decode_ms,
+        "decode_ms_per_token_p1500_with_capture":
+            (results["p1500"]["latency_s"] - ttft) / 31 * 1e3,
+        "graph_captures": graphs.captures, "graph_replays": graphs.replays,
+        "graph_capture_s": graphs.capture_s,
+        "graph_pool_gb": graphs.pool_bytes() / 1e9,
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
     })
 
@@ -611,7 +659,10 @@ def _check_response(name, resp, prompt, max_new, vocab_size):
 def serve_paged(torch, np, tf, serve_cli, attention, card, model):
     """The paged continuous-batching engine (max_slots 8, decode chunk 32,
     prefill chunk 512, block 16, the default pool) on the serve phase's
-    full-width model, behind the HTTP server. Traffic: a request with a
+    full-width model, behind the HTTP server started with
+    ``--warmup=all``: every paged prefill shape runs and every decode
+    window's graph is captured before ready, so the traffic only replays
+    (no capture, no chunk run eagerly). Traffic: a request with a
     1024-token prompt runs to completion (its retire puts the prefix into
     the radix index); then 6 concurrent requests share that prefix, each
     with its own 64-token suffix; while they decode, a 3000-token prompt
@@ -652,14 +703,22 @@ def serve_paged(torch, np, tf, serve_cli, attention, card, model):
     max_new["prefix_1024"] = 8
     results, latency = {}, {}
 
-    # The main path: counts at zero, then server start (its warmup request
-    # runs through the engine) and the traffic.
+    # The main path: counts at zero, then server start (the warm grid and
+    # the warmup request run through the engine) and the traffic.
     attention.flash_fwd_launches = 0
     attention.flash_dq_launches = attention.flash_dkv_launches = 0
-    server, state = serve_cli.start_server(engine, port=0, host="127.0.0.1")
+    t0 = time.perf_counter()
+    server, state = serve_cli.start_server(engine, port=0, host="127.0.0.1",
+                                           warmup_mode="all")
     try:
         serve_cli.wait_ready(state, timeout=600)
+        ready_s = time.perf_counter() - t0
         port = server.server_address[1]
+        warm = state["warmup"]
+        at_ready = {"launches": attention.flash_fwd_launches,
+                    "n_prefills": engine.stats()["n_prefills"],
+                    "steps_done": engine.stats()["steps_done"],
+                    **engine.graph_stats()}
 
         def post(name):
             t0 = time.perf_counter()
@@ -688,15 +747,37 @@ def serve_paged(torch, np, tf, serve_cli, attention, card, model):
     launches = attention.flash_fwd_launches
     other = attention.flash_dq_launches + attention.flash_dkv_launches
     stats, kvs = engine.stats(), engine.kv_stats()
+    graph_stats = engine.graph_stats()
     engine.shutdown()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     for name, prompt in prompts.items():
         _check_response(name, results[name], prompt, max_new[name], vocab)
-    if launches != cfg.n_layers * stats["n_prefills"] or other:
-        fail(f"serve_paged: {launches} flash launches for "
-             f"{stats['n_prefills']} prefill segments (want "
+    windows = warm["cache_hits"] + warm["cache_misses"]
+    warm_segments = warm["tasks"] - windows
+    n_windows = len(tf.serving_shape_buckets(cfg, engine.prefill_chunk,
+                                             engine.chunk)["windows"])
+    if warm["cache_misses"] != n_windows or \
+            at_ready["graph_captures"] != n_windows:
+        fail(f"serve_paged: the warmup captured {at_ready['graph_captures']} "
+             f"decode graphs, want one per window ({n_windows})")
+    if at_ready["launches"] != cfg.n_layers * (warm_segments
+                                               + at_ready["n_prefills"]):
+        fail(f"serve_paged: {at_ready['launches']} flash launches before "
+             f"ready for {warm_segments} warm segments and "
+             f"{at_ready['n_prefills']} of the warmup request")
+    served = stats["n_prefills"] - at_ready["n_prefills"]
+    if launches - at_ready["launches"] != cfg.n_layers * served or other:
+        fail(f"serve_paged: {launches - at_ready['launches']} flash launches "
+             f"after ready for {served} prefill segments (want "
              f"{cfg.n_layers} each), {other} backward launches")
+    if graph_stats["eager_chunks_on_cuda"] or \
+            graph_stats["graph_captures"] != at_ready["graph_captures"] or \
+            graph_stats["graph_replays"] - at_ready["graph_replays"] != \
+            stats["steps_done"] - at_ready["steps_done"]:
+        fail(f"serve_paged: decode graphs {graph_stats} after the traffic, "
+             f"{at_ready} at ready: a chunk ran eagerly, a window was "
+             f"captured during the traffic, or a step was not a replay")
     if kvs["prefix_hit_tokens"] <= 0:
         fail("serve_paged: no prefix hit on the radix cache")
     long_segs = [s for s in segments if s[2] == len(prompts["long_3000"]) - 1]
@@ -758,6 +839,12 @@ def serve_paged(torch, np, tf, serve_cli, attention, card, model):
         "chunks_during_long_prefill": chunks_during_long,
         "kv": kvs, "logits": logit_rows, "tol": SERVE_LOGITS_ATOL,
         "segment_witness": witness,
+        "ready_s": ready_s, "warmup": warm, "warm_segments": warm_segments,
+        "graph_captures": graph_stats["graph_captures"],
+        "graph_replays": graph_stats["graph_replays"],
+        "graph_capture_s": graph_stats["graph_capture_s"],
+        "graph_pool_gb": graph_stats["graph_pool_bytes"] / 1e9,
+        "eager_chunks_on_cuda": graph_stats["eager_chunks_on_cuda"],
         "max_memory_allocated_gb": peak_gb,
     })
     return launches
@@ -881,6 +968,94 @@ def paged_small_parity(torch, np, tf, serve_cli, attention):
             kvs["prefix_hit_tokens"] <= 0:
         fail("the f32 paged engine on the card disagrees with dense "
              "generate, or skipped the kernel or the radix cache")
+
+
+def paged_graph_parity(torch, np, tf, serving_graphs, model, card):
+    """The graphed paged decode chunk against the eager
+    ``tf.paged_decode_chunk`` on the serve phase's full-width model: 8
+    rows (one inactive, one clamping at the window's end) over pools of
+    random K/V, windows 2048 and 4096, 16 steps from one pool state. The
+    tokens must be equal. Reports the largest logit gap of one step (a
+    graph of ``tf.paged_decode_step`` against the eager call; expect 0),
+    whether the pools came out equal but for the null block, and the wall
+    time of a 16-step chunk replayed and run eagerly (each ending in a
+    synchronize)."""
+    cfg, m = model.cfg, model.model
+    slots, steps, bs = 8, 16, 16
+    for window in (2048, 4096):
+        per_row = window // bs
+        shape = (cfg.n_layers, 1 + slots * per_row, cfg.n_kv_heads, bs,
+                 cfg.head_dim)
+        gen = torch.Generator(device="cuda").manual_seed(window)
+        pools = {n: torch.randn(shape, generator=gen, device="cuda",
+                                dtype=cfg.torch_dtype) for n in ("k", "v")}
+        eager_pools = {n: p.clone() for n, p in pools.items()}
+        rng = np.random.default_rng(window)
+        tables = 1 + np.arange(slots * per_row).reshape(slots, per_row)
+        positions = rng.integers(window // 2, window - steps, slots)
+        positions[0] = window - 3
+        active = np.ones(slots, bool)
+        active[5] = False
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, slots),
+                                 device="cuda")
+        t_tables, t_pos, t_act = (torch.as_tensor(a, device="cuda")
+                                  for a in (tables, positions, active))
+        with torch.inference_mode():
+            one = serving_graphs.GraphSet("cuda")
+            logits = {}
+
+            def step():
+                logits["graph"] = tf.paged_decode_step(
+                    m, pools, t_tables, tokens, t_pos, t_act, window, bs)[0]
+
+            one.capture("step", step)
+            one.replay("step")
+            eager_logits = tf.paged_decode_step(
+                m, eager_pools, t_tables, tokens, t_pos, t_act, window, bs)[0]
+            gap = (logits["graph"] - eager_logits).abs().max().item()
+            del one, logits, eager_logits
+            last_dev = tokens.clone()
+            runner = serving_graphs.PagedDecodeGraphs(
+                m, pools, last_dev, tables.shape, steps, bs)
+            got = runner(tables, positions, active, steps, window).clone()
+            want, want_last, _ = tf.paged_decode_chunk(
+                m, eager_pools, t_tables, tokens.clone(), t_pos, t_act,
+                steps=steps, window=window, block_size=bs)
+            torch.cuda.synchronize()
+            equal = bool(torch.equal(got, want)
+                         and torch.equal(last_dev, want_last))
+            # Block 0 holds garbage by definition (inactive rows write
+            # there, and so do the capture's warm-up iterations).
+            pools_equal = all(torch.equal(pools[n][:, 1:],
+                                          eager_pools[n][:, 1:])
+                              for n in pools)
+
+            def wall_ms(fn):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t0) * 1e3
+
+            graph_chunk_ms = wall_ms(lambda: runner(
+                tables, positions, active, steps, window))
+            eager_chunk_ms = wall_ms(lambda: tf.paged_decode_chunk(
+                m, eager_pools, t_tables, tokens.clone(), t_pos, t_act,
+                steps=steps, window=window, block_size=bs))
+        row = {"phase": "paged_graph_parity", **card, "model": "llama3-8b",
+               "window": window, "rows": slots,
+               "active_rows": int(active.sum()), "steps": steps,
+               "tokens_equal": equal, "pools_equal": pools_equal,
+               "step_logits_max_abs_gap": gap,
+               "graph_capture_s": runner.graphs.capture_s,
+               "graph_chunk_ms": graph_chunk_ms,
+               "eager_chunk_ms": eager_chunk_ms}
+        emit(row)
+        del pools, eager_pools, runner
+        _free(torch)
+        if not equal:
+            fail(f"paged_graph_parity: the graphed chunk's tokens differ "
+                 f"from the eager chunk's at window {window}")
 
 
 def _free(torch):
@@ -1037,6 +1212,7 @@ def main():
     import numpy as np
 
     from container_engine_accelerators_tpu_torch.models import serve_cli
+    from container_engine_accelerators_tpu_torch.models import serving_graphs
     from container_engine_accelerators_tpu_torch.models import train_cli
     from container_engine_accelerators_tpu_torch.models import transformer as tf
     from container_engine_accelerators_tpu_torch.ops import _ext, attention
@@ -1059,7 +1235,7 @@ def main():
                       for n, i in _ext.build_info.items()}})
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = {c[0]: run_kernel_case(c, torch, attention, gen)
+    rows = {c[0]: run_kernel_case(c, torch, attention, gen, serving_graphs)
             for c in KERNEL_CASES}
     bwd_rows = {c[0]: run_bwd_case(c, torch, attention, _ext, gen)
                 for c in BWD_CASES}
@@ -1069,6 +1245,8 @@ def main():
     serve_launches, model = serve(torch, np, tf, serve_cli, attention, card)
     paged_launches = serve_paged(torch, np, tf, serve_cli, attention, card,
                                  model)
+    _free(torch)
+    paged_graph_parity(torch, np, tf, serving_graphs, model, card)
     del model
     _free(torch)
     train_grads(torch, np, tf, attention)

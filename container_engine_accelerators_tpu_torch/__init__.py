@@ -10,8 +10,10 @@ the JAX package; what it needs from there is copied.
   ops/attention.py       flash-attention forward (hand-written CUDA kernel
                          in ops/csrc/flash_fwd.cu) + its plain versions
   models/transformer.py  Llama-style decoder, dense KV cache, generate()
+  models/serving_graphs.py  the serving decode as CUDA graphs per bucket
   models/weights.py      bridge from the JAX parameter pytree (tests)
   models/serve_cli.py    HTTP serving daemon (/generate, /healthz)
+  warmstart/warmup.py    the shape grid run before ready (--warmup=all)
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; with no GPU and no such request they raise.

@@ -7,13 +7,20 @@ ways to serve:
 
   * ``Model``: one request at a time through ``transformer.generate``
     (bucketed batched prefill through the flash kernel, then decode
-    steps on the dense cache);
+    steps on a persistent dense cache per batch size, each the replay of
+    a CUDA graph captured per (batch, window) on the card);
   * ``ContinuousEngine`` (``--continuous-batching``): slot-based
     continuous batching on the paged KV cache with radix prefix reuse
     and the asynchronous double-buffered host loop (``_loop_paged``).
     Admissions prefill in segments (``transformer.paged_prefill_segment``,
     the flash kernel at the segment's global offset) interleaved with
-    fused decode chunks (``transformer.paged_decode_chunk``).
+    decode chunks, each on the card the replays of one CUDA graph of the
+    decode step per window (``serving_graphs.PagedDecodeGraphs``, the
+    counterpart of the jitted ``transformer.paged_decode_chunk``).
+
+``--warmup=all`` captures every window's graph and runs every paged
+prefill shape before ``/healthz`` flips ready (``warmstart/warmup.py``);
+``--warmup=lazy`` (the default) captures a window at its first chunk.
 
 Endpoints (the same JSON as the JAX server):
   GET  /healthz    200 once the warmup decode succeeded, 503 before,
@@ -64,8 +71,12 @@ from container_engine_accelerators_tpu_torch.kvcache.blockpool import (
 from container_engine_accelerators_tpu_torch.kvcache.manager import (
     PagedKVManager,
 )
+from container_engine_accelerators_tpu_torch.models import serving_graphs
 from container_engine_accelerators_tpu_torch.models import transformer as tf
 from container_engine_accelerators_tpu_torch.ops import paged_attention as pa
+from container_engine_accelerators_tpu_torch.warmstart import (
+    warmup as ws_warmup,
+)
 
 log = logging.getLogger("serve_cli")
 
@@ -104,7 +115,10 @@ def sanitize_sampler(temperature, top_k, top_p, vocab_size):
 class Model:
     """The served model. Random weights from ``seed`` on ``device``
     (CUDA unless the caller asks for the CPU), or the given ``weights``
-    (a ``transformer.Transformer``, e.g. bridged from JAX)."""
+    (a ``transformer.Transformer``, e.g. bridged from JAX). Its decoder
+    (``decode_graphs``) keeps a dense cache per batch size served and, on
+    CUDA, the decode step's graph per (batch, window); ``lock`` serialises
+    the requests that use them."""
 
     def __init__(self, cfg, seed=0, device="cuda", weights=None):
         self.cfg = cfg
@@ -112,6 +126,7 @@ class Model:
             weights = tf.init_params(cfg, device=device, seed=seed)
         self.model = weights
         self.device = weights.device
+        self.decode_graphs = serving_graphs.DenseDecodeGraphs(weights)
         self.lock = threading.Lock()
 
     def generate(self, tokens, max_new_tokens, temperature=0.0, top_k=0,
@@ -128,7 +143,7 @@ class Model:
             out = tf.generate(
                 self.model, prompt, max_new_tokens=max_new_tokens,
                 temperature=temperature, top_k=top_k, top_p=top_p,
-                generator=generator,
+                generator=generator, decoder=self.decode_graphs,
             )
         return out.tolist()
 
@@ -181,10 +196,14 @@ class ContinuousEngine:
         table; the suffix prefills in segments of at most
         ``prefill_chunk`` tokens (``transformer.paged_prefill_segment``),
         one segment per loop iteration, interleaved with decode chunks;
-      * decode: every decoding slot advances in one fused chunk of
-        ``steps`` greedy steps (``transformer.paged_decode_chunk``),
-        ``steps`` the power-of-two floor of min(remaining, ``chunk``), so
-        a finishing row retires on time;
+      * decode: every decoding slot advances in one chunk of ``steps``
+        greedy steps, ``steps`` the power-of-two floor of min(remaining,
+        ``chunk``), so a finishing row retires on time. A chunk is
+        ``steps`` replays of the captured decode step of its window
+        (``self.decode_graphs``, a ``serving_graphs.PagedDecodeGraphs``
+        over the pools and ``last_dev``; the same step runs eagerly on the
+        CPU), the counterpart of the jitted
+        ``transformer.paged_decode_chunk``;
       * retirement frees the slot at dispatch and, once its tokens have
         landed, caches the written extent in the radix index.
 
@@ -196,6 +215,10 @@ class ContinuousEngine:
     the device from pinned memory with ``non_blocking=True`` and results
     come back into pinned tensors behind a recorded event, so neither
     direction waits for the stream to drain.
+
+    The pools, ``last_dev`` and the graphs' static buffers keep their
+    addresses for the engine's life (the captured graphs hold them): a
+    reset after a device fault zeroes them in place.
 
     Greedy only: sampled requests go to the wrapped ``Model.generate``.
     ``kv_cache="dense"`` (the JAX default) is not ported yet.
@@ -240,16 +263,18 @@ class ContinuousEngine:
         )
         # Device-resident last tokens: a final prefill segment writes its
         # first token into its slot on the device, and decode chunks read
-        # the tensor without a host sync.
+        # and advance the tensor in place without a host sync.
         self.last_dev = torch.zeros(max_slots, dtype=torch.long,
                                     device=self.device)
+        self.decode_graphs = serving_graphs.PagedDecodeGraphs(
+            model.model, self.cache, self.last_dev, self.kv.tables.shape,
+            self.chunk, self.kv.block_size,
+        )
         # The device seams (the calls the JAX package's fake engine swaps).
         self._paged_prefill = functools.partial(
             tf.paged_prefill_segment, block_size=self.kv.block_size
         )
-        self._paged_chunk = functools.partial(
-            tf.paged_decode_chunk, block_size=self.kv.block_size
-        )
+        self._paged_chunk = self.decode_graphs
         self._copy_blocks = pa.copy_blocks
         # Bumped by _reset_paged: sync records dispatched before a pool
         # rebuild must not touch the fresh pool.
@@ -279,6 +304,9 @@ class ContinuousEngine:
         self.t_chunk_wait_s = 0.0
         self.t_chunk_device_s = 0.0
         self.t_idle_s = 0.0
+        # Chunks on a CUDA engine that did not replay their window's graph
+        # once per step (a seam swapped for an eager call): 0 on the path.
+        self.eager_chunks_on_cuda = 0
         # (prompt length, seconds from enqueue to the first token landing
         # on the host) per request: the stand-in for the JAX engine's
         # TTFT histogram.
@@ -356,6 +384,37 @@ class ContinuousEngine:
         """The paged cache's snapshot (the manager's ``stats()``)."""
         return self.kv.stats()
 
+    def graph_stats(self):
+        """The decode graphs' counters: captures, replays, capture
+        seconds, the bytes of their memory pool, and the chunks that ran
+        eagerly on CUDA."""
+        graphs = self.decode_graphs.graphs
+        return {
+            "graph_captures": graphs.captures,
+            "graph_replays": graphs.replays,
+            "graph_capture_s": graphs.capture_s,
+            "graph_pool_bytes": graphs.pool_bytes(),
+            "eager_chunks_on_cuda": self.eager_chunks_on_cuda,
+        }
+
+    def run_on_loop(self, fn):
+        """Run ``fn()`` on the engine-loop thread between iterations
+        (after the pending syncs) and return its result; captures and warm
+        tasks go there, never beside the loop's own device calls. Runs it
+        here when the engine has no loop thread, or this is it. Like a
+        request, it waits for a free slot."""
+        if self._thread is None or self._thread is threading.current_thread():
+            return fn()
+        if self._stop.is_set():
+            raise RuntimeError("engine is shut down")
+        call = {"call": fn, "out": None, "err": None,
+                "event": threading.Event()}
+        self._q.put(call)
+        call["event"].wait()
+        if call["err"] is not None:
+            raise call["err"]
+        return call["out"]
+
     def shutdown(self):
         """Stop the engine loop and fail whatever is still queued or in
         flight, so a caller can drop the engine and free its pools."""
@@ -395,9 +454,10 @@ class ContinuousEngine:
         """(host tensor, event): ``tensor`` copied into pinned memory
         behind the work queued so far, and a (timing) event recorded after
         the copy; the sync waits on that event alone. On the CPU the work
-        has already run: the tensor itself, no event."""
+        has already run: a copy (the decode graphs' output buffer is
+        rewritten by the next chunk before this one syncs), no event."""
         if self.device.type != "cuda":
-            return tensor, None
+            return tensor.clone(), None
         host = torch.empty(tensor.shape, dtype=tensor.dtype,
                            pin_memory=True)
         host.copy_(tensor, non_blocking=True)
@@ -447,9 +507,10 @@ class ContinuousEngine:
 
     def _reset_paged(self, cause):
         """The pools are in an unknown state after a device fault: fail
-        every occupant, rebuild pools, page tables and radix index, and
-        bump the KV epoch so stale sync records leave the fresh pool
-        alone."""
+        every occupant, reset page tables and radix index, zero the pools
+        and ``last_dev`` in place (the decode graphs hold their addresses
+        and stay valid), and bump the KV epoch so stale sync records leave
+        the fresh pool alone."""
         for i, row in enumerate(self.occupied):
             if row is None:
                 continue
@@ -460,16 +521,11 @@ class ContinuousEngine:
             self.occupied[i] = None
             row["event"].set()
         self.kv.reset()
-        self.cache = None  # free the old pools before the new ones
-        self.cache = pa.init_paged_kv_cache(
-            self.cfg.n_layers, self.kv.num_blocks, self.cfg.n_kv_heads,
-            self.kv.block_size, self.cfg.head_dim, self.cfg.torch_dtype,
-            self.device,
-        )
+        for pool in self.cache.values():
+            pool.zero_()
         self.positions[:] = 0
         self.last_tok[:] = 0
-        self.last_dev = torch.zeros(self.max_slots, dtype=torch.long,
-                                    device=self.device)
+        self.last_dev.zero_()
         self._kv_epoch += 1
 
     def _drain_pending_syncs(self):
@@ -617,13 +673,13 @@ class ContinuousEngine:
         t0 = time.perf_counter()
         try:
             start = self._timing_event()
-            toks, last, _ = self._paged_chunk(
-                self.model.model, self.cache,
-                self._to_device(self.kv.tables), self.last_dev,
-                self._to_device(self.positions), self._to_device(active),
-                steps=steps, window=window,
-            )
-            self.last_dev = last
+            replays = self.decode_graphs.graphs.replays
+            # Advances last_dev in place; toks is the graphs' output buffer.
+            toks = self._paged_chunk(self.kv.tables, self.positions, active,
+                                     steps=steps, window=window)
+            if self.device.type == "cuda" and \
+                    self.decode_graphs.graphs.replays - replays != steps:
+                self.eager_chunks_on_cuda += 1
             toks_h, event = self._to_host(toks)
         except Exception as e:  # noqa: BLE001 - fail the rows, keep serving
             log.exception("paged decode chunk failed")
@@ -788,6 +844,15 @@ class ContinuousEngine:
             return row
         return None
 
+    @staticmethod
+    def _run_call(call):
+        try:
+            call["out"] = call["call"]()
+        except Exception as e:  # noqa: BLE001 - raised in run_on_loop
+            call["err"] = e
+        finally:
+            call["event"].set()
+
     def _loop_paged(self):
         """The asynchronous host loop: admit, dispatch one prefill segment
         per prefilling slot and one decode chunk, then sync the previous
@@ -802,6 +867,10 @@ class ContinuousEngine:
                     row = self._next_row(block=idle)
                     if row is None:
                         break
+                    if "call" in row:  # run_on_loop
+                        self._drain_pending_syncs()
+                        self._run_call(row)
+                        continue
                     self._admit_paged(free.pop(0), row)
                 for i, r in enumerate(self.occupied):
                     if r is not None and r.get("remaining") is None:
@@ -887,11 +956,25 @@ def make_handler(model, state):
     return Handler
 
 
-def warmup(model, state):
-    """One short request end to end (through the engine when ``model``
-    is one; builds the CUDA kernels on first use), then flip ready."""
+def warmup(model, state, mode="lazy"):
+    """Warm the model, then flip ready. ``mode="all"`` first runs a
+    continuous engine's whole shape grid (``warmstart.warmup.warm_engine``:
+    every paged prefill shape, every window's decode graph captured) and
+    keeps its summary in ``state["warmup"]``; ``"lazy"`` leaves each
+    window's capture to its first chunk. Either way one short request
+    then runs end to end (through the engine when ``model`` is one; it
+    builds the CUDA kernels on first use)."""
     try:
         t0 = time.perf_counter()
+        if mode == "all":
+            if isinstance(model, ContinuousEngine):
+                state["warmup"] = ws_warmup.warm_engine(model, mode=mode)
+            else:
+                log.warning(
+                    "--warmup=all needs --continuous-batching (only the "
+                    "continuous engine has a shape grid to warm); falling "
+                    "back to the single warmup request"
+                )
         model.generate([[1, 2, 3, 4]], 4)
         dt = time.perf_counter() - t0
         state["ready"] = True
@@ -901,15 +984,16 @@ def warmup(model, state):
         state["error"] = str(e)
 
 
-def start_server(model, port=8000, host="0.0.0.0"):
+def start_server(model, port=8000, host="0.0.0.0", warmup_mode="lazy"):
     """Serve ``model`` on (host, port) from a daemon thread and warm it up
-    in another. Returns (server, state); ``state["ready"]`` flips once the
-    warmup decode succeeded. ``port=0`` picks a free port
-    (``server.server_address[1]``)."""
+    in another (``warmup`` with ``warmup_mode``). Returns (server, state);
+    ``state["ready"]`` flips once the warmup decode succeeded. ``port=0``
+    picks a free port (``server.server_address[1]``)."""
     state = {"ready": False}
     server = ThreadingHTTPServer((host, port), make_handler(model, state))
     threading.Thread(target=server.serve_forever, daemon=True).start()
-    threading.Thread(target=warmup, args=(model, state), daemon=True).start()
+    threading.Thread(target=warmup, args=(model, state, warmup_mode),
+                     daemon=True).start()
     return server, state
 
 
@@ -1000,6 +1084,13 @@ def main(argv=None):
                    help="continuous batching: prompts longer than this "
                         "prefill in segments of this size, interleaved "
                         "with decode chunks; power of two")
+    p.add_argument("--warmup", choices=ws_warmup.WARMUP_MODES,
+                   default="lazy",
+                   help="'all' runs the continuous engine's whole shape "
+                        "grid (every paged prefill shape, every decode "
+                        "window's CUDA graph captured) BEFORE /healthz "
+                        "flips ready; 'lazy' captures each window at its "
+                        "first chunk (default)")
     args = p.parse_args(argv)
     model = Model(config_from_args(args), device=args.device)
     if args.continuous_batching:
@@ -1008,7 +1099,8 @@ def main(argv=None):
             prefill_chunk=args.prefill_chunk, kv_cache=args.kv_cache,
             kv_block_size=args.kv_block_size, kv_blocks=args.kv_blocks,
         )
-    server, state = start_server(model, port=args.port)
+    server, state = start_server(model, port=args.port,
+                                 warmup_mode=args.warmup)
     log.info("listening on :%d", server.server_address[1])
     try:
         if args.once:

@@ -6,15 +6,20 @@
 
 Builds full-width Llama-3-8B (random weights, seed 0) on the GPU, warms
 up, then profiles one bucketed prefill (a 1500-token prompt in the 2048
-bucket) and, separately, 16 decode steps after it; then the paged
-engine's two programs on block pools sized for 8 slots (block 16): one
-512-token prefill segment at offset 2560 (window 4096), and a 16-step
-decode chunk over 8 rows (7 at position 1088, one at 3000). For each
-region it prints one JSON line: host wall time, summed device (kernel) time, the
-device's idle share of the wall time, the ops with the most device time
-and the device time by kind (the port's flash kernels, matrix products,
-the rest). The profiler's own host overhead inflates wall time, so the idle
-share is an upper bound; chip_smoke.py times the same path unprofiled.
+bucket) and, separately, 16 decode steps after it, run eagerly and then
+as replays of the step's CUDA graph (``serving_graphs.DenseDecodeGraphs``,
+the server's decode); then the paged engine's programs on block pools
+sized for 8 slots (block 16): one 512-token prefill segment at offset
+2560 (window 4096), and a 16-step decode chunk over 8 rows (7 at
+position 1088, one at 3000), run eagerly and as 16 replays of the
+window's graph (``serving_graphs.PagedDecodeGraphs``, the engine's
+decode). For each region it prints one JSON line: host wall time, the
+span on the card between CUDA events around it, summed device (kernel)
+time, the device's idle share of the wall time, the ops with the most
+device time and the device time by kind (the port's flash kernels,
+matrix products, the rest). The profiler's own host overhead inflates
+wall time, so the idle share is an upper bound; chip_smoke.py times the
+same path unprofiled. Graphs are captured before their region.
 """
 
 import json
@@ -26,6 +31,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from container_engine_accelerators_tpu_torch.models import serving_graphs
 from container_engine_accelerators_tpu_torch.models import transformer as tf
 from container_engine_accelerators_tpu_torch.ops import paged_attention as pa
 
@@ -55,8 +61,12 @@ def _profiled(name, fn, top):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
+        start.record()
         fn()
+        end.record()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # Device-side kernel events only: a host op's own device time, and the
@@ -68,7 +78,8 @@ def _profiled(name, fn, top):
     busy_ms = sum(_device_us(e) for e in events) / 1e3
     events.sort(key=_device_us, reverse=True)
     row = {
-        "phase": name, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "phase": name, "wall_ms": wall_ms,
+        "event_span_ms": start.elapsed_time(end), "device_busy_ms": busy_ms,
         "device_idle_share": 1 - busy_ms / wall_ms if wall_ms else None,
         "top": [{"op": e.key[:80], "device_ms": _device_us(e) / 1e3,
                  "calls": e.count} for e in events[:top]],
@@ -106,9 +117,19 @@ def main(top=12, decode_steps=16, prompt_len=1500):
                                       prompt_len + step)
             tok = logits.argmax(dim=-1)
 
+    decoder = serving_graphs.DenseDecodeGraphs(model)
+
+    def run_graph_decode():
+        tok = state["tok"]
+        for step in range(decode_steps):
+            tok = decoder.step(tok, prompt_len + step).argmax(dim=-1)
+
     _profiled("prefill_p1500", run_prefill, top)
     _profiled(f"decode_{decode_steps}_steps", run_decode, top)
-    del state
+    tf.prefill(model, padded, true_len=prompt_len, cache=decoder.cache(1))
+    run_graph_decode()  # captures the window's graph
+    _profiled(f"decode_{decode_steps}_steps_graphed", run_graph_decode, top)
+    del state, decoder
     _profile_paged(model, rng, top, decode_steps)
     return 0
 
@@ -143,11 +164,21 @@ def _profile_paged(model, rng, top, decode_steps, slots=8, block_size=16):
                               steps=decode_steps, window=window,
                               block_size=block_size)
 
-    for fn in (run_segment, run_chunk):  # warm the allocator
+    runner = serving_graphs.PagedDecodeGraphs(
+        model, pools, last.clone(), tuple(tables.shape), decode_steps,
+        block_size)
+    host = [t.cpu().numpy() for t in (tables, positions, active)]
+
+    def run_graph_chunk():
+        runner(*host, decode_steps, window)
+
+    for fn in (run_segment, run_chunk, run_graph_chunk):  # warm, capture
         fn()
     _profiled(f"paged_prefill_seg{seg_len}_at{offset}", run_segment, top)
     _profiled(f"paged_decode_{decode_steps}_steps_{slots}_rows", run_chunk,
               top)
+    _profiled(f"paged_decode_{decode_steps}_steps_{slots}_rows_graphed",
+              run_graph_chunk, top)
 
 
 if __name__ == "__main__":

@@ -6,17 +6,21 @@ single-device training paths.
 Port of ``container_engine_accelerators_tpu/models/transformer.py``:
 RMSNorm, rotary embeddings, grouped-query attention, SwiGLU MLP, tied
 output head, a dense KV cache and batched prefill + decode, the paged
-serving programs (``paged_prefill_segment``, ``paged_decode_chunk``) and
-the training step (``loss_fn``, ``make_train_step``). Weights keep the
+serving programs (``paged_prefill_segment``, ``paged_decode_chunk`` and
+its one step ``paged_decode_step``), the static shape grid a server can
+dispatch (``serving_shape_buckets``) and the training step (``loss_fn``,
+``make_train_step``). Weights keep the
 JAX layout ((in, out) matrices, so every projection is ``x @ w``); the
 stacked layer dim becomes a ``ModuleList``. Prefill and training
 attention go through ``ops.attention.flash_attention`` (the hand-written
 CUDA kernels, forward and backward, on CUDA tensors; their plain
 versions on CPU tensors), paged prefill segments through
 ``ops.attention.flash_fwd`` at the segment's global ``q_base``; decode
-attention is plain PyTorch, as it is plain XLA in the JAX package.
-Parameters are trainable; the serving entry points run under
-``torch.inference_mode()``.
+attention is plain PyTorch, as it is plain XLA in the JAX package. On
+CUDA the decode steps run as captured CUDA graphs, one per shape bucket
+(``models/serving_graphs.py``), the counterpart of the JAX package's
+jitted serving programs. Parameters are trainable; the serving entry
+points run under ``torch.inference_mode()``.
 
 Not in this port yet: MoE FFNs, tensor/sequence/pipeline parallelism,
 ring attention, the dense continuous-batching programs and speculation's
@@ -379,6 +383,65 @@ def _window_for(position_bound, cap):
     return _length_bucket(max(int(position_bound), 1), cap)
 
 
+def serving_shape_buckets(cfg, prefill_chunk, decode_chunk,
+                          block_size=None, speculate_widths=None):
+    """The static shape grid a serving engine can dispatch, the port of
+    the JAX ``serving_shape_buckets``: what warmup enumerates
+    (``warmstart/warmup.py``).
+
+    Returns ``{"prefill": [length buckets], "segment_windows":
+    [chunked-prefill windows], "windows": [decode windows],
+    "decode_steps": [chunk step counts]}``, each a sorted list of the
+    power-of-two buckets ``_length_bucket``/``_window_for`` produce, so
+    warmup and dispatch cannot drift apart.
+
+    ``block_size`` (a paged engine's block size) adds ``"paged_prefill"``:
+    the sorted ``[segment, window]`` pairs the paged segment prefill can
+    dispatch. A segment may start at any block-aligned reused-prefix
+    offset, so every window >= the segment is reachable.
+
+    ``speculate_widths`` (a speculating engine's verify widths) adds
+    ``"verify"``: the sorted ``[width, window]`` pairs of the verify step,
+    every window >= the width (a verify starts at any decode position)."""
+    S = cfg.max_seq_len
+    # Single-shot buckets: the 16-token floor and the context cap belong
+    # to dispatch; prompts longer than prefill_chunk go chunked.
+    prefill_max = _length_bucket(min(prefill_chunk, S), S)
+    prefill = sorted({_length_bucket(1, S)} | {
+        b for b in (16 << i for i in range(S.bit_length()))
+        if b <= prefill_max
+    })
+    windows = sorted({
+        _window_for(p, S)
+        for p in [1, S] + [16 << i for i in range(S.bit_length())
+                           if (16 << i) <= S]
+    })
+    segment_windows = sorted({
+        _window_for(min(off + prefill_chunk, S), S)
+        for off in range(0, S, max(prefill_chunk, 1))
+    }) if prefill_chunk < S else []
+    steps = [1 << i for i in range(max(decode_chunk, 1).bit_length())
+             if (1 << i) <= decode_chunk]
+    out = {
+        "prefill": prefill,
+        "segment_windows": segment_windows,
+        "windows": windows,
+        "decode_steps": steps,
+    }
+    if block_size:
+        out["paged_prefill"] = sorted(
+            [c, w] for c in prefill for w in windows if w >= c
+        )
+    if speculate_widths:
+        out["verify"] = sorted(
+            [c, w]
+            for c in sorted({_length_bucket(int(c), S)
+                             for c in speculate_widths})
+            for w in windows if w >= c
+        )
+    return out
+
+
 def _decode_step(model, tokens, positions, attend_for):
     """One-token step through every layer, shared by the dense and the
     paged decode (the JAX ``_decode_step_impl``): tokens (B,) at
@@ -391,23 +454,35 @@ def _decode_step(model, tokens, positions, attend_for):
 
 
 @torch.inference_mode()
-def decode_logits(model, cache, tokens, position):
-    """One decode step at the shared scalar ``position`` → (B, V) logits.
+def decode_logits(model, cache, tokens, position, window=None):
+    """One decode step at the shared ``position`` → (B, V) logits.
 
-    JAX is functional and returns a new cache; here the step writes its
-    K/V into ``cache`` IN PLACE at slot ``position`` (a slice
-    assignment), then attends to the window [0, _window_for(position+1))
-    of the cache with length position + 1."""
+    ``position`` is a Python int, or a device scalar (a one-element int64
+    tensor, read only on the device: the form a captured graph replays);
+    with a tensor, the attended ``window`` must be given, else it is
+    ``_window_for(position + 1)``. JAX is functional and returns a new
+    cache; here the step writes its K/V into ``cache`` IN PLACE at slot
+    ``position`` (``index_copy_`` along the sequence axis), then attends
+    to [0, window) of the cache with length position + 1."""
     batch = tokens.shape[0]
-    positions = torch.full((batch, 1), position, device=tokens.device)
-    window = _window_for(position + 1, model.cfg.max_seq_len)
+    if window is None:
+        if torch.is_tensor(position):
+            raise ValueError("a device position needs its window")
+        window = _window_for(position + 1, model.cfg.max_seq_len)
+    if torch.is_tensor(position):
+        position = position.reshape(1)
+    else:
+        # A fill, not a host-to-device copy: nothing waits for the stream.
+        position = torch.full((1,), position, dtype=torch.long,
+                              device=tokens.device)
+    positions = position.view(1, 1).expand(batch, 1)
 
     def attend_for(i):
         k_cache, v_cache = cache["k"][i], cache["v"][i]
 
         def attend(q, k, v):
-            k_cache[:, :, position:position + 1] = k
-            v_cache[:, :, position:position + 1] = v
+            k_cache.index_copy_(2, position, k)
+            v_cache.index_copy_(2, position, v)
             return decode_attention(
                 q, k_cache[:, :, :window], v_cache[:, :, :window],
                 position + 1,
@@ -419,19 +494,22 @@ def decode_logits(model, cache, tokens, position):
 
 
 @torch.inference_mode()
-def prefill(model, prompt, true_len=None, return_logits=False):
+def prefill(model, prompt, true_len=None, return_logits=False, cache=None):
     """Single-pass batched prefill: one forward over the whole (B, P)
-    prompt; each layer's K/V land in a fresh cache at [0, P). With a
-    right-padded (bucketed) prompt, ``true_len`` is the real length and
-    the next token reads from position true_len - 1; decode overwrites
-    slot p before any query attends it. Returns (next_tokens, cache), or
+    prompt; each layer's K/V land in ``cache`` (a fresh one by default)
+    at [0, P). With a right-padded (bucketed) prompt, ``true_len`` is the
+    real length and the next token reads from position true_len - 1;
+    decode overwrites slot p before any query attends it. Entries of a
+    reused cache past P keep an earlier request's (finite) K/V, which
+    the decode's length mask removes. Returns (next_tokens, cache), or
     ((B, V) logits, cache) with ``return_logits``."""
     batch, prompt_len = prompt.shape
     logits, (ks, vs) = forward(
         model, prompt, return_kv=True,
         logits_at="last" if true_len is None else true_len - 1,
     )
-    cache = init_kv_cache(model.cfg, batch, prompt.device)
+    if cache is None:
+        cache = init_kv_cache(model.cfg, batch, prompt.device)
     cache["k"][:, :, :, :prompt_len] = ks
     cache["v"][:, :, :, :prompt_len] = vs
     if return_logits:
@@ -472,15 +550,24 @@ def sample_token(logits, generator, temperature=0.0, top_k=0, top_p=1.0):
 
 @torch.inference_mode()
 def generate(model, prompt, max_new_tokens=16, temperature=0.0, top_k=0,
-             top_p=1.0, generator=None):
+             top_p=1.0, generator=None, decoder=None):
     """Generation: greedy by default; ``temperature > 0`` samples (see
     sample_token) with noise from ``generator``. prompt: (B, P) int64 on
     the model's device → (B, P + max_new_tokens).
 
-    The prompt is right-padded to its length bucket and prefilled once;
-    decode is a Python loop of ``decode_logits`` steps (PyTorch runs
-    eagerly, so the JAX package's fused scan segments have no
-    counterpart here)."""
+    The prompt is right-padded to its length bucket and prefilled once
+    into ``decoder``'s dense cache for B rows; each decode step is
+    ``decoder.step`` (a ``serving_graphs.DenseDecodeGraphs``: on CUDA the
+    replay of the step's graph for its (B, window), on the CPU the same
+    step run eagerly), and sampling runs after it. A caller that serves
+    many requests keeps one decoder (``serve_cli.Model`` does); by
+    default the call makes its own."""
+    if decoder is None:
+        from container_engine_accelerators_tpu_torch.models import (
+            serving_graphs,
+        )
+
+        decoder = serving_graphs.DenseDecodeGraphs(model)
     cfg = model.cfg
     batch, prompt_len = prompt.shape
     if prompt_len + max_new_tokens > cfg.max_seq_len:
@@ -492,12 +579,12 @@ def generate(model, prompt, max_new_tokens=16, temperature=0.0, top_k=0,
         raise ValueError("sampling (temperature > 0) needs a generator")
     bucket = _length_bucket(prompt_len, cfg.max_seq_len)
     padded = torch.nn.functional.pad(prompt, (0, bucket - prompt_len))
-    logits, cache = prefill(model, padded, true_len=prompt_len,
-                            return_logits=True)
+    logits, _ = prefill(model, padded, true_len=prompt_len,
+                        return_logits=True, cache=decoder.cache(batch))
     pieces = [prompt]
     for step in range(max_new_tokens):
         if step:
-            logits = decode_logits(model, cache, tok, prompt_len + step - 1)
+            logits = decoder.step(tok, prompt_len + step - 1)
         tok = sample_token(logits, generator, temperature, top_k, top_p)
         pieces.append(tok[:, None])
     return torch.cat(pieces, dim=1)
@@ -512,6 +599,35 @@ def generate(model, prompt, max_new_tokens=16, temperature=0.0, top_k=0,
 # host (kvcache/manager.py); these functions only consume its tables.
 # Both update the pools they are given in place and read nothing of the
 # device back to the host, so the engine can queue them behind each other.
+
+
+def paged_decode_step(model, pools, tables, tokens, positions, active,
+                      window, block_size):
+    """One greedy step of ``paged_decode_chunk`` (one iteration of the
+    JAX chunk's ``scan`` body) → ((B, V) f32 logits, next tokens, next
+    positions). Writes its K/V into ``pools`` in place and reads nothing
+    of the device back to the host, so it can be captured in a CUDA graph
+    (``serving_graphs.PagedDecodeGraphs``)."""
+    safe = positions.clamp(max=window - 1)
+    bids = torch.gather(tables, 1, (safe // block_size)[:, None])[:, 0]
+    bids = torch.where(active, bids, pa.NULL_BLOCK)
+    offs = safe % block_size
+
+    def attend_for(i):
+        k_pool, v_pool = pools["k"][i], pools["v"][i]
+
+        def attend(q, k, v):
+            pa.paged_write(k_pool, k, bids, offs)
+            pa.paged_write(v_pool, v, bids, offs)
+            return pa.paged_decode_attention(
+                q, k_pool, v_pool, tables, safe + 1, window, block_size,
+            )
+
+        return attend
+
+    logits = _decode_step(model, tokens, safe[:, None], attend_for)
+    nxt = torch.where(active, logits.argmax(dim=-1), tokens)
+    return logits, nxt, torch.where(active, positions + 1, positions)
 
 
 @torch.inference_mode()
@@ -529,32 +645,15 @@ def paged_decode_chunk(model, pools, tables, tokens, positions, active,
     ``pos % bs``, and attends its own pages [0, window) with length
     pos + 1 through ``paged_decode_attention`` (the dense
     ``decode_attention`` on the gathered window). Inactive rows keep
-    their token and position. JAX fuses the steps in one ``scan``; here
-    they are an eager Python loop. Returns (tokens (steps, B), last_tok
-    (B,), positions (B,))."""
-    clamp = window - 1
+    their token and position. JAX fuses the steps in one ``scan``; this
+    is the eager loop of ``paged_decode_step``, which the serving engine
+    replays as one captured graph per window instead
+    (``serving_graphs.PagedDecodeGraphs``). Returns (tokens (steps, B),
+    last_tok (B,), positions (B,))."""
     tok, pos, out = tokens, positions, []
     for _ in range(steps):
-        safe = pos.clamp(max=clamp)
-        bids = torch.gather(tables, 1, (safe // block_size)[:, None])[:, 0]
-        bids = torch.where(active, bids, pa.NULL_BLOCK)
-        offs = safe % block_size
-
-        def attend_for(i, bids=bids, offs=offs, safe=safe):
-            k_pool, v_pool = pools["k"][i], pools["v"][i]
-
-            def attend(q, k, v):
-                pa.paged_write(k_pool, k, bids, offs)
-                pa.paged_write(v_pool, v, bids, offs)
-                return pa.paged_decode_attention(
-                    q, k_pool, v_pool, tables, safe + 1, window, block_size,
-                )
-
-            return attend
-
-        logits = _decode_step(model, tok, safe[:, None], attend_for)
-        tok = torch.where(active, logits.argmax(dim=-1), tok)
-        pos = torch.where(active, pos + 1, pos)
+        _, tok, pos = paged_decode_step(model, pools, tables, tok, pos,
+                                        active, window, block_size)
         out.append(tok)
     return torch.stack(out), tok, pos
 

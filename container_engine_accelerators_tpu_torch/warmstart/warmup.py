@@ -1,0 +1,160 @@
+# Copyright 2026 The TPU Accelerator Stack Authors.
+# SPDX-License-Identifier: Apache-2.0
+"""Warmup: run the serving engine's shape grid before ready.
+
+Port of ``container_engine_accelerators_tpu/warmstart/warmup.py``. A
+``ContinuousEngine`` on CUDA captures the decode graph of a window the
+first time a chunk needs that window (``serve_cli --warmup=lazy``): the
+capture (eager warm-up iterations, a device synchronisation, the capture
+itself) lands inside that request. :func:`warm_plan` enumerates the
+engine's grid from ``transformer.serving_shape_buckets`` and
+:func:`warm_engine` runs every entry before ``/healthz`` flips ready
+(``--warmup=all``):
+
+  pprefill/c{C}/w{window}/{logits|mid}  one paged prefill segment per
+                                        (segment, window) pair, run
+                                        eagerly (the segment is not
+                                        captured); mid segments only at the
+                                        full prefill chunk, as in JAX
+  pdecode/w{window}                     the decode graph of each window
+                                        (``PagedDecodeGraphs.warm``)
+
+Deliberate differences from JAX:
+
+  * one decode task per window, not per (steps, window): the port
+    captures one step per window and replays it ``steps`` times;
+  * no scratch pools: JAX runs the tasks on zeroed copies of the cache,
+    and a copy of a full-width pool would double it on the card. Every
+    task here writes only the null block: segments whose block ids and
+    page table are all ``NULL_BLOCK``, decode graphs captured with every
+    row inactive; first tokens land in a scratch vector, not the
+    engine's ``last_dev``, and the manager's tables and radix index are
+    not touched;
+  * ``cache_hits``/``cache_misses`` count the engine's graph cache: a
+    window captured already is a hit, a capture a miss (both 0 on the
+    CPU, which has no graphs).
+
+The tasks run on the engine-loop thread (``ContinuousEngine.run_on_loop``),
+where every capture of the engine's graphs happens. Not ported:
+speculation's verify grid and the draft model's tasks (speculation is not
+ported yet), the ``warmup_done`` event (the event stream is not ported),
+the AOT-only path of a multi-host engine and the ``max_tasks`` cap.
+"""
+
+import collections
+import logging
+import time
+
+import torch
+
+from container_engine_accelerators_tpu_torch.models import transformer as tf
+from container_engine_accelerators_tpu_torch.ops import paged_attention as pa
+
+log = logging.getLogger("warmstart.warmup")
+
+WARMUP_MODES = ("all", "lazy")
+
+# A task runs as fn(*args, **kwargs).
+WarmTask = collections.namedtuple("WarmTask", "label fn args kwargs")
+
+
+def warm_plan(engine):
+    """Every warm task of ``engine``'s shape grid: the paged engine's
+    (:func:`_warm_plan_paged`), the only continuous engine the port has;
+    the dense engine's grid comes with the dense engine."""
+    return _warm_plan_paged(engine)
+
+
+def _warm_plan_paged(engine):
+    """The paged engine's grid: suffix-prefill segments per ``(segment,
+    window, want_logits)`` (a segment may start at any block-aligned
+    reused offset, so every window >= the segment is dispatchable; mid
+    segments only ever run at the full ``prefill_chunk``), then one
+    decode graph per window. No dense program is enumerated: a paged
+    engine never dispatches one. Allocates the tasks' operands (zeros,
+    a few per segment length) on the engine's device."""
+    cfg = engine.cfg
+    bs = engine.kv.block_size
+    buckets = tf.serving_shape_buckets(cfg, engine.prefill_chunk,
+                                       engine.chunk, block_size=bs)
+    device = engine.device
+
+    def null_ids(n):
+        return torch.full((n,), pa.NULL_BLOCK, dtype=torch.long,
+                          device=device)
+
+    table_row = null_ids(engine.kv.blocks_per_seq)
+    first_tokens = torch.zeros(engine.max_slots, dtype=torch.long,
+                               device=device)
+    chunked = engine.prefill_chunk < cfg.max_seq_len
+    tasks = []
+    for C, window in buckets["paged_prefill"]:
+        wants = (
+            (False, True) if (chunked and C == engine.prefill_chunk)
+            else (True,)
+        )
+        seg = torch.zeros((1, C), dtype=torch.long, device=device)
+        for want in wants:
+            tasks.append(WarmTask(
+                f"pprefill/c{C}/w{window}/{'logits' if want else 'mid'}",
+                engine._paged_prefill,
+                (engine.model.model, engine.cache, seg, 0, null_ids(C // bs),
+                 table_row, C - 1, first_tokens, 0),
+                {"window": window, "want_logits": want},
+            ))
+    for window in buckets["windows"]:
+        tasks.append(WarmTask(f"pdecode/w{window}", engine.decode_graphs.warm,
+                              (window,), {}))
+    return tasks
+
+
+def build_summary(mode, tasks, compiled, skipped, dropped, dur_s,
+                  snap0, snap1):
+    """The warmup summary dict, the JAX ``build_summary``'s shape:
+    ``compiled`` counts the tasks run, the cache counts are ``snap1``
+    less ``snap0`` (``{"hits", "misses"}``)."""
+    return {
+        "mode": mode, "tasks": tasks, "compiled": compiled,
+        "skipped": skipped, "dropped": dropped,
+        "dur_s": round(dur_s, 6),
+        "cache_hits": snap1["hits"] - snap0["hits"],
+        "cache_misses": snap1["misses"] - snap0["misses"],
+    }
+
+
+def warm_engine(engine, mode="all"):
+    """Run the warmup pass on the engine-loop thread; returns the summary
+    ``{mode, tasks, compiled, skipped, dropped, dur_s, cache_hits,
+    cache_misses}``. ``mode="lazy"`` is the documented no-op. A task that
+    raises fails the pass (the server then never reports ready)."""
+    if mode not in WARMUP_MODES:
+        raise ValueError(
+            f"unknown warmup mode {mode!r}; known: {WARMUP_MODES}"
+        )
+    t0 = time.perf_counter()
+    zero = {"hits": 0, "misses": 0}
+    if mode != "all":
+        return build_summary(mode, 0, 0, 0, 0, 0.0, zero, zero)
+    tasks = warm_plan(engine)
+
+    def run():
+        cache = {"hits": 0, "misses": 0}
+        with torch.inference_mode():
+            for task in tasks:
+                out = task.fn(*task.args, **task.kwargs)
+                if isinstance(out, bool):  # a decode graph on CUDA
+                    cache["hits" if out else "misses"] += 1
+        if engine.device.type == "cuda":
+            # dur_s covers the device work the tasks enqueued.
+            torch.cuda.synchronize(engine.device)
+        return cache
+
+    cache = engine.run_on_loop(run)
+    summary = build_summary(mode, len(tasks), len(tasks), 0, 0,
+                            time.perf_counter() - t0, zero, cache)
+    log.info(
+        "warmup (%s): %d task(s) run in %.2fs (graph cache hits %d / "
+        "misses %d)", mode, summary["compiled"], summary["dur_s"],
+        summary["cache_hits"], summary["cache_misses"],
+    )
+    return summary

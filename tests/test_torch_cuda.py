@@ -14,6 +14,10 @@ torch = pytest.importorskip("torch")
 
 import chip_smoke  # noqa: E402
 from container_engine_accelerators_tpu_torch.models import (  # noqa: E402
+    serve_cli,
+    serving_graphs,
+)
+from container_engine_accelerators_tpu_torch.models import (  # noqa: E402
     transformer as tf,
 )
 from container_engine_accelerators_tpu_torch.ops import (  # noqa: E402
@@ -119,17 +123,20 @@ def test_small_model_on_card_matches_cpu(gen):
     cpu.load_state_dict({k: t.cpu() for k, t in gpu.state_dict().items()})
     prompt = torch.arange(5, 30)[None, :]
     before = attention.flash_fwd_launches
-    out = tf.generate(gpu, prompt.cuda(), max_new_tokens=6).cpu()
+    decoder = serving_graphs.DenseDecodeGraphs(gpu)
+    out = tf.generate(gpu, prompt.cuda(), max_new_tokens=6,
+                      decoder=decoder).cpu()
     assert attention.flash_fwd_launches == before + cfg.n_layers
+    # Every decode step was a replay: positions 25-29, one window (32).
+    assert (decoder.graphs.captures, decoder.graphs.replays) == (1, 5)
     assert torch.equal(out, tf.generate(cpu, prompt, max_new_tokens=6))
 
 
 def test_paged_engine_on_card_matches_dense_generate(gen):
     """The paged engine on a small f32 model (head dim 128: the f32 kernel
     under every prefill segment) returns dense generate's tokens exactly,
-    through a radix hit and a prompt prefilled in three segments."""
-    from container_engine_accelerators_tpu_torch.models import serve_cli
-
+    through a radix hit and a prompt prefilled in three segments; every
+    decode chunk replays its window's graph."""
     cfg = tf.TransformerConfig(vocab_size=512, d_model=256, n_layers=2,
                                n_heads=2, n_kv_heads=1, d_ff=768,
                                max_seq_len=128, dtype="float32")
@@ -147,11 +154,183 @@ def test_paged_engine_on_card_matches_dense_generate(gen):
     assert attention.flash_fwd_launches - before == \
         cfg.n_layers * engine.stats()["n_prefills"]
     assert engine.kv_stats()["prefix_hit_tokens"] > 0
+    graphs = engine.graph_stats()
+    assert graphs["graph_captures"] > 0 and graphs["graph_replays"] > 0
+    assert graphs["eager_chunks_on_cuda"] == 0
     for (prompt, max_new), got in zip(cases, outs):
         want = tf.generate(model.model,
                            torch.as_tensor([prompt], device="cuda"),
                            max_new_tokens=max_new)
         assert got == want[0].tolist()
+
+
+SMALL = dict(vocab_size=512, d_model=256, n_layers=2, n_heads=2,
+             n_kv_heads=1, d_ff=768, max_seq_len=128, dtype="float32")
+
+
+@pytest.mark.parametrize("window,steps", [(64, 4), (128, 3)])
+def test_graphed_chunk_matches_the_eager_chunk(gen, window, steps):
+    """The captured step replayed ``steps`` times gives the eager
+    ``paged_decode_chunk``'s tokens, last tokens and positions, and
+    writes the pools bit for bit alike but for the null block, whose
+    garbage the capture's warm-up iterations rewrite (small f32 model, 4
+    rows, one inactive, one clamping at the window's end)."""
+    cfg = tf.TransformerConfig(**SMALL)
+    model = tf.init_params(cfg, device="cuda", seed=5)
+    slots, bs = 4, 16
+    per_row = cfg.max_seq_len // bs
+    shape = (cfg.n_layers, 1 + slots * per_row, cfg.n_kv_heads, bs,
+             cfg.head_dim)
+    pools = {n: torch.randn(shape, generator=gen, device="cuda")
+             for n in ("k", "v")}
+    eager_pools = {n: p.clone() for n, p in pools.items()}
+    tables = (1 + torch.arange(slots * per_row)).view(slots, per_row)
+    tokens = torch.randint(0, cfg.vocab_size, (slots,), generator=gen,
+                           device="cuda")
+    positions = torch.tensor([3, window - 2, 40, window // 2])
+    active = torch.tensor([True, True, False, True])
+    want, last, pos = tf.paged_decode_chunk(
+        model, eager_pools, tables.cuda(), tokens.clone(), positions.cuda(),
+        active.cuda(), steps=steps, window=window, block_size=bs)
+    last_dev = tokens.clone()
+    runner = serving_graphs.PagedDecodeGraphs(model, pools, last_dev,
+                                              tuple(tables.shape), 4, bs)
+    got = runner(tables.numpy(), positions.numpy(), active.numpy(), steps,
+                 window)
+    torch.cuda.synchronize()
+    assert (runner.graphs.captures, runner.graphs.replays) == (1, steps)
+    assert torch.equal(got, want) and torch.equal(last_dev, last)
+    assert torch.equal(runner.positions, pos)
+    for name in ("k", "v"):
+        assert torch.equal(pools[name][:, 1:], eager_pools[name][:, 1:])
+
+
+def test_dense_decode_graph_matches_the_eager_step(gen):
+    """A replayed dense step gives the eager ``decode_logits``' logits
+    bit for bit, at a Python position and at a device position."""
+    cfg = tf.TransformerConfig(**SMALL)
+    model = tf.init_params(cfg, device="cuda", seed=6)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 20), generator=gen,
+                           device="cuda")
+    decoder = serving_graphs.DenseDecodeGraphs(model)
+    _, cache = tf.prefill(model, prompt)
+    decoder_cache = decoder.cache(2)
+    for name in ("k", "v"):
+        decoder_cache[name].copy_(cache[name])
+    tok = prompt[:, -1].clone()
+    eager = tf.decode_logits(model, cache, tok, 20)
+    at_dev = tf.decode_logits(model, {n: c.clone() for n, c in cache.items()},
+                              tok, torch.tensor([20], device="cuda"),
+                              window=32)
+    replayed = decoder.step(tok, 20).clone()
+    torch.cuda.synchronize()
+    assert decoder.graphs.replays == 1
+    assert torch.equal(at_dev, eager) and torch.equal(replayed, eager)
+    for name in ("k", "v"):
+        assert torch.equal(decoder_cache[name], cache[name])
+
+
+def _small_engine(seed):
+    model = serve_cli.Model(tf.TransformerConfig(**SMALL), seed=seed,
+                            device="cuda")
+    return model, serve_cli.ContinuousEngine(
+        model, max_slots=2, chunk=4, prefill_chunk=32, kv_block_size=16)
+
+
+def test_failed_capture_raises_and_nothing_runs_eagerly(gen):
+    """A step that syncs the host inside its capture fails the capture:
+    the chunk's rows fail, no chunk runs eagerly, no graph is kept; with
+    the step repaired the next request captures and serves."""
+    model, engine = _small_engine(7)
+    runner = engine.decode_graphs
+    step = runner._step
+
+    def syncing_step(window):
+        if torch.cuda.is_current_stream_capturing():
+            torch.cuda.synchronize()
+        step(window)
+
+    runner._step = syncing_step
+    try:
+        with pytest.raises(RuntimeError, match="decode chunk failed"):
+            engine.generate([[1, 2, 3]], 6)
+        stats = engine.graph_stats()
+        assert stats["graph_captures"] == stats["graph_replays"] == 0
+        assert stats["eager_chunks_on_cuda"] == 0
+        del runner._step
+        (got,) = engine.generate([[4, 5, 6]], 6)
+    finally:
+        engine.shutdown()
+    want = tf.generate(model.model, torch.tensor([[4, 5, 6]], device="cuda"),
+                       max_new_tokens=6)[0].tolist()
+    assert got == want
+    assert engine.graph_stats()["graph_captures"] == 1
+
+
+def test_captures_from_many_threads_take_turns(gen):
+    """Sampled requests on handler threads capture dense graphs while the
+    engine loop captures its paged ones (lazy windows): 8 threads at
+    once, more than the captures the card could run side by side. Every
+    request succeeds and matches the same request run alone."""
+    import concurrent.futures
+
+    model, engine = _small_engine(9)
+    prompts = [list(range(3 + i, 11 + 9 * i)) for i in range(8)]
+
+    def run(i):
+        if i % 2:
+            return engine.generate([prompts[i]], 9)[0]
+        return engine.generate([prompts[i]], 9, temperature=1.0,
+                               seed=i)[0]
+
+    try:
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            outs = [f.result(timeout=300)
+                    for f in [pool.submit(run, i) for i in range(8)]]
+        alone = [run(i) for i in range(8)]
+    finally:
+        engine.shutdown()
+    assert outs == alone
+    assert engine.graph_stats()["graph_captures"] > 0
+    assert model.decode_graphs.graphs.captures > 0
+
+
+def test_graphs_stay_valid_across_a_pool_reset(gen):
+    """Serve, fail a sync (the pools, page tables and radix index are
+    reset in place), serve again: the same tokens, from the graphs
+    captured before the reset."""
+    _, engine = _small_engine(8)
+    prompt = list(range(30, 45))
+    try:
+        (first,) = engine.generate([prompt], 8)
+        to_host, faults = engine._to_host, []
+
+        class Faulted:
+            def numpy(self):
+                raise RuntimeError("injected sync fault")
+
+            __int__ = numpy
+
+        def to_host_failing_once(tensor):
+            if not faults:
+                faults.append(1)
+                return Faulted(), None
+            return to_host(tensor)
+
+        engine._to_host = to_host_failing_once
+        with pytest.raises(RuntimeError, match="paged sync failed"):
+            engine.generate([[1, 2, 3]], 6)
+        # The faulted request's chunk captured its own window; the same
+        # prompt again needs none.
+        captures = engine.graph_stats()["graph_captures"]
+        (again,) = engine.generate([prompt], 8)
+    finally:
+        engine.shutdown()
+    assert engine._kv_epoch == 1
+    assert again == first
+    stats = engine.graph_stats()
+    assert stats["graph_captures"] == captures
+    assert stats["eager_chunks_on_cuda"] == 0
 
 
 # Backward kernels vs flash_bwd_reference, per gradient: the relative L2
