@@ -205,16 +205,23 @@ GRAPH_MS_CASES = ("causal_512_b2", "q_base_1536", "paged_sq16_qb1040",
 GRAPH_LAUNCHES = 20
 
 
-def graph_ms(fn, torch, serving_graphs, launches=GRAPH_LAUNCHES):
+def graph_ms(fn, torch, attention, serving_graphs, launches=GRAPH_LAUNCHES):
     """Device time of one fn() in ms: a CUDA graph of ``launches`` calls,
-    replayed back to back (time_ms), over ``launches``."""
+    replayed back to back (time_ms), over ``launches``. The wrapper's
+    launch count is left as it was: the capture's calls (and its warm-up
+    iterations) record or run the kernel for this timing only, and a
+    replay does not pass through the wrapper."""
     graphs = serving_graphs.GraphSet("cuda")
 
     def calls():
         for _ in range(launches):
             fn()
 
-    graphs.capture("calls", calls)
+    counted = attention.flash_fwd_launches
+    try:
+        graphs.capture("calls", calls)
+    finally:
+        attention.flash_fwd_launches = counted
     return time_ms(lambda: graphs.replay("calls"), torch) / launches
 
 
@@ -322,7 +329,7 @@ def run_kernel_case(case, torch, attention, gen, serving_graphs):
     row["host_us"] = host_us(lambda: attention.flash_fwd(q, k, v, **kw), torch)
     if name in GRAPH_MS_CASES:
         row["graph_ms"] = graph_ms(lambda: attention.flash_fwd(q, k, v, **kw),
-                                   torch, serving_graphs)
+                                   torch, attention, serving_graphs)
     row["plain_ms"] = time_ms(
         lambda: attention.flash_fwd_reference(q, k, v, **kw), torch,
         budget_ms=100.0,
@@ -518,7 +525,7 @@ def run_bwd_case(case, torch, attention, _ext, gen):
     return row
 
 
-def small_parity(torch, tf, attention):
+def small_parity(torch, tf, serving_graphs, attention):
     """A tiny f32 model (head dim 128, so the f32 kernel runs) on the
     card against the same weights on the CPU (plain attention)."""
     cfg = tf.TransformerConfig(vocab_size=512, d_model=256, n_layers=2,
@@ -532,8 +539,10 @@ def small_parity(torch, tf, attention):
     with torch.inference_mode():
         lg = tf.forward(gpu, prompt.cuda()).cpu()
         lc = tf.forward(cpu, prompt)
-    tg = tf.generate(gpu, prompt.cuda(), max_new_tokens=8).cpu()
-    tc = tf.generate(cpu, prompt, max_new_tokens=8)
+    tg = tf.generate(gpu, prompt.cuda(), max_new_tokens=8,
+                     decoder=serving_graphs.DenseDecodeGraphs(gpu)).cpu()
+    tc = tf.generate(cpu, prompt, max_new_tokens=8,
+                     decoder=serving_graphs.DenseDecodeGraphs(cpu))
     err = (lg - lc).abs().max().item()
     row = {"phase": "small_parity", "max_abs_err_logits": err,
            "tol": 1e-3, "tokens_equal": bool(torch.equal(tg, tc)),
@@ -957,7 +966,8 @@ def paged_small_parity(torch, np, tf, serve_cli, attention):
     for (prompt, max_new), got in zip(cases, outs):
         want = tf.generate(model.model,
                            torch.as_tensor([prompt], device="cuda"),
-                           max_new_tokens=max_new)[0].tolist()
+                           max_new_tokens=max_new,
+                           decoder=model.decode_graphs)[0].tolist()
         equal.append(got == want)
     row = {"phase": "paged_small_parity", "requests": len(cases),
            "tokens_equal": equal, "kernel_launches": launches,
@@ -1240,7 +1250,7 @@ def main():
     bwd_rows = {c[0]: run_bwd_case(c, torch, attention, _ext, gen)
                 for c in BWD_CASES}
     _free(torch)
-    small_parity(torch, tf, attention)
+    small_parity(torch, tf, serving_graphs, attention)
     paged_small_parity(torch, np, tf, serve_cli, attention)
     serve_launches, model = serve(torch, np, tf, serve_cli, attention, card)
     paged_launches = serve_paged(torch, np, tf, serve_cli, attention, card,

@@ -7,8 +7,9 @@ ways to serve:
 
   * ``Model``: one request at a time through ``transformer.generate``
     (bucketed batched prefill through the flash kernel, then decode
-    steps on a persistent dense cache per batch size, each the replay of
-    a CUDA graph captured per (batch, window) on the card);
+    steps on a dense cache kept per batch size (at most
+    ``serving_graphs.MAX_CACHED_ROWS`` rows in all), each the replay of a
+    CUDA graph captured per (batch, window) on the card);
   * ``ContinuousEngine`` (``--continuous-batching``): slot-based
     continuous batching on the paged KV cache with radix prefix reuse
     and the asynchronous double-buffered host loop (``_loop_paged``).
@@ -116,8 +117,9 @@ class Model:
     """The served model. Random weights from ``seed`` on ``device``
     (CUDA unless the caller asks for the CPU), or the given ``weights``
     (a ``transformer.Transformer``, e.g. bridged from JAX). Its decoder
-    (``decode_graphs``) keeps a dense cache per batch size served and, on
-    CUDA, the decode step's graph per (batch, window); ``lock`` serialises
+    (``decode_graphs``) keeps a dense cache per recent batch size (at
+    most ``serving_graphs.MAX_CACHED_ROWS`` rows in all) and, on CUDA,
+    their decode steps' graphs per (batch, window); ``lock`` serialises
     the requests that use them."""
 
     def __init__(self, cfg, seed=0, device="cuda", weights=None):

@@ -24,15 +24,18 @@ replayed:
                       microseconds against milliseconds of device work a
                       step). ``serve_cli.ContinuousEngine``'s decode.
   DenseDecodeGraphs   one ``transformer.decode_logits`` step per (batch,
-                      window) over a persistent dense cache per batch
-                      size; ``transformer.generate``'s decoder (the
-                      sampler runs eagerly after each replay).
+                      window) over a dense cache kept per batch size (at
+                      most ``MAX_CACHED_ROWS`` rows of them, least
+                      recently used evicted); ``transformer.generate``'s
+                      decoder (the sampler runs eagerly after each
+                      replay).
 
 On the CPU the same step functions run eagerly over the same buffers:
 the caller asked for the CPU, which has no graphs. On CUDA there is no
 eager path: a capture or a replay that fails raises.
 """
 
+import collections
 import threading
 import time
 
@@ -46,6 +49,11 @@ from container_engine_accelerators_tpu_torch.models import transformer as tf
 # attributes) must not happen inside a capture.
 WARMUP_ITERS = 2
 
+# Rows of dense cache ``DenseDecodeGraphs`` keeps across requests by
+# default: 8.6 GB for Llama-3-8B, the rows of one full batch of the
+# server's slots (``serve_cli.MAX_BATCH``).
+MAX_CACHED_ROWS = 8
+
 # One capture at a time in the process. ``torch.cuda.graph`` empties the
 # caching allocator's cache when a capture starts, which the allocator
 # refuses while another capture is underway, and the allocator is shared
@@ -57,9 +65,9 @@ _capture_lock = threading.Lock()
 class GraphSet:
     """CUDA graphs keyed by shape bucket, captured into one private
     memory pool (a fresh one after a failed capture, which leaves its pool
-    unable to take another). ``capture_seconds`` (key -> wall seconds of
-    the warm-up iterations and the capture), ``captures``, ``replays`` and
-    ``capture_s`` count its work."""
+    unable to take another). ``captures``, ``replays`` and ``capture_s``
+    (wall seconds of the warm-up iterations and the captures) count its
+    work since it was made, dropped graphs included."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -68,19 +76,21 @@ class GraphSet:
         self.pool = None
         if self.device.type == "cuda":
             self._new_pool()
-        self.capture_seconds = {}
+        self.captures = 0
+        self.capture_s = 0.0
         self.replays = 0
-
-    @property
-    def captures(self):
-        return len(self.capture_seconds)
-
-    @property
-    def capture_s(self):
-        return sum(self.capture_seconds.values())
 
     def __contains__(self, key):
         return key in self._graphs
+
+    def __len__(self):
+        return len(self._graphs)
+
+    def drop(self, key):
+        """Forget graph ``key`` (if captured), before the buffers it
+        reads are freed: its blocks in the pool go back to the pool's
+        later captures."""
+        self._graphs.pop(key, None)
 
     def capture(self, key, step):
         """Run ``step()`` eagerly ``WARMUP_ITERS`` times on a side stream,
@@ -107,7 +117,8 @@ class GraphSet:
                 self._abandon_capture(current)
                 raise
         self._graphs[key] = graph
-        self.capture_seconds[key] = time.perf_counter() - t0
+        self.captures += 1
+        self.capture_s += time.perf_counter() - t0
 
     def _new_pool(self):
         self.pool = torch.cuda.graph_pool_handle()
@@ -257,33 +268,66 @@ class DenseDecodeGraphs:
     """The dense decode step as replays of one captured step per (batch,
     window), for ``transformer.generate``.
 
-    Holds one persistent dense cache per batch size it has served
-    (``cache(batch)``; 1.07 GB a row for Llama-3-8B at 8192), which the
-    prefill writes into and the captured steps read and write in place,
-    and per batch size the static inputs of a step: the tokens and the
-    position (a device scalar). A graph captures ``decode_logits`` only;
-    sampling runs eagerly on its output, so a sampled request keeps its
-    ``torch.Generator``. One caller at a time (``serve_cli.Model`` holds
-    its lock around ``generate``)."""
+    Keeps a dense cache per batch size (``cache(batch)``; 1.07 GB a row
+    for Llama-3-8B at 8192), which the prefill writes into and the
+    captured steps read and write in place, and per batch size the static
+    inputs of a step: the tokens and the position (a device scalar). The
+    caches kept hold at most ``max_rows`` rows between them: a batch size
+    not kept evicts the least recently used ones (their caches, inputs
+    and graphs) until it fits; a batch of more rows than that evicts
+    every other and is itself evicted by the next other size. A graph
+    captures ``decode_logits`` only; sampling runs eagerly on its output,
+    so a sampled request keeps its ``torch.Generator``. One caller at a
+    time (``serve_cli.Model`` holds its lock around ``generate``)."""
 
-    def __init__(self, model):
+    def __init__(self, model, max_rows=MAX_CACHED_ROWS):
+        if max_rows < 1:
+            raise ValueError(f"max_rows ({max_rows}) must be >= 1")
         self.model = model
+        self.max_rows = max_rows
         self.graphs = GraphSet(model.device)
-        self._caches = {}
-        self._inputs = {}
+        # batch -> (cache, tokens, position), least recently used first.
+        self._batches = collections.OrderedDict()
         self._logits = {}
+        self.evictions = 0
+
+    @property
+    def cached_batches(self):
+        """The batch sizes whose caches are kept, least recently used
+        first."""
+        return tuple(self._batches)
+
+    @property
+    def cached_rows(self):
+        return sum(self._batches)
+
+    def cached_bytes(self):
+        """Bytes of the dense caches kept now."""
+        return sum(t.nbytes for cache, _, _ in self._batches.values()
+                   for t in cache.values())
 
     def cache(self, batch):
         """The dense cache of ``batch`` rows (zeroed when first made)."""
-        if batch not in self._caches:
+        if batch in self._batches:
+            self._batches.move_to_end(batch)
+        else:
+            while self._batches and self.cached_rows + batch > self.max_rows:
+                self._evict(next(iter(self._batches)))
             device = self.model.device
-            self._caches[batch] = tf.init_kv_cache(self.model.cfg, batch,
-                                                   device)
-            self._inputs[batch] = (
+            self._batches[batch] = (
+                tf.init_kv_cache(self.model.cfg, batch, device),
                 torch.zeros(batch, dtype=torch.long, device=device),
                 torch.zeros(1, dtype=torch.long, device=device),
             )
-        return self._caches[batch]
+        return self._batches[batch][0]
+
+    def _evict(self, batch):
+        # The graphs first: they hold the addresses of the buffers freed.
+        for key in [k for k in self._logits if k[0] == batch]:
+            self.graphs.drop(key)
+            del self._logits[key]
+        del self._batches[batch]
+        self.evictions += 1
 
     @torch.inference_mode()
     def step(self, tokens, position):
@@ -292,7 +336,7 @@ class DenseDecodeGraphs:
         buffer, valid until the next step at the same (B, window)."""
         batch = tokens.shape[0]
         cache = self.cache(batch)
-        tok, pos = self._inputs[batch]
+        _, tok, pos = self._batches[batch]
         window = tf._window_for(position + 1, self.model.cfg.max_seq_len)
         tok.copy_(tokens)
         pos.fill_(position)

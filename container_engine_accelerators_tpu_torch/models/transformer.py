@@ -550,24 +550,19 @@ def sample_token(logits, generator, temperature=0.0, top_k=0, top_p=1.0):
 
 @torch.inference_mode()
 def generate(model, prompt, max_new_tokens=16, temperature=0.0, top_k=0,
-             top_p=1.0, generator=None, decoder=None):
+             top_p=1.0, generator=None, *, decoder):
     """Generation: greedy by default; ``temperature > 0`` samples (see
     sample_token) with noise from ``generator``. prompt: (B, P) int64 on
     the model's device → (B, P + max_new_tokens).
 
     The prompt is right-padded to its length bucket and prefilled once
-    into ``decoder``'s dense cache for B rows; each decode step is
-    ``decoder.step`` (a ``serving_graphs.DenseDecodeGraphs``: on CUDA the
-    replay of the step's graph for its (B, window), on the CPU the same
-    step run eagerly), and sampling runs after it. A caller that serves
-    many requests keeps one decoder (``serve_cli.Model`` does); by
-    default the call makes its own."""
-    if decoder is None:
-        from container_engine_accelerators_tpu_torch.models import (
-            serving_graphs,
-        )
-
-        decoder = serving_graphs.DenseDecodeGraphs(model)
+    into ``decoder.cache(B)``, a dense cache for B rows; each decode step
+    is ``decoder.step(tokens, position)`` → (B, V) logits, and sampling
+    runs after it. The serving decoder is
+    ``serving_graphs.DenseDecodeGraphs(model)`` (on CUDA the replay of
+    the step's graph for its (B, window), captured at its first use; on
+    the CPU the same step run eagerly); a caller that serves many
+    requests keeps one (``serve_cli.Model`` does)."""
     cfg = model.cfg
     batch, prompt_len = prompt.shape
     if prompt_len + max_new_tokens > cfg.max_seq_len:

@@ -129,7 +129,9 @@ def test_small_model_on_card_matches_cpu(gen):
     assert attention.flash_fwd_launches == before + cfg.n_layers
     # Every decode step was a replay: positions 25-29, one window (32).
     assert (decoder.graphs.captures, decoder.graphs.replays) == (1, 5)
-    assert torch.equal(out, tf.generate(cpu, prompt, max_new_tokens=6))
+    assert torch.equal(out, tf.generate(
+        cpu, prompt, max_new_tokens=6,
+        decoder=serving_graphs.DenseDecodeGraphs(cpu)))
 
 
 def test_paged_engine_on_card_matches_dense_generate(gen):
@@ -160,7 +162,8 @@ def test_paged_engine_on_card_matches_dense_generate(gen):
     for (prompt, max_new), got in zip(cases, outs):
         want = tf.generate(model.model,
                            torch.as_tensor([prompt], device="cuda"),
-                           max_new_tokens=max_new)
+                           max_new_tokens=max_new,
+                           decoder=model.decode_graphs)
         assert got == want[0].tolist()
 
 
@@ -230,6 +233,31 @@ def test_dense_decode_graph_matches_the_eager_step(gen):
         assert torch.equal(decoder_cache[name], cache[name])
 
 
+def test_dense_decoder_eviction_drops_its_graphs(gen):
+    """An evicted batch size takes its graphs with it (they hold the
+    freed cache's addresses); served again, it captures anew over a fresh
+    cache and gives the CPU's tokens."""
+    cfg = tf.TransformerConfig(**SMALL)
+    gpu = tf.init_params(cfg, device="cuda", seed=7)
+    cpu = tf.Transformer(cfg, "cpu")
+    cpu.load_state_dict({k: t.cpu() for k, t in gpu.state_dict().items()})
+    decoder = serving_graphs.DenseDecodeGraphs(gpu, max_rows=2)
+    prompts = {b: torch.randint(0, cfg.vocab_size, (b, 20), generator=gen,
+                                device="cuda") for b in (1, 2)}
+    outs = {}
+    for batch in (1, 2, 1):
+        outs[batch] = tf.generate(gpu, prompts[batch], max_new_tokens=6,
+                                  decoder=decoder).cpu()
+        assert decoder.cached_batches == (batch,)
+        assert len(decoder.graphs) == 1
+    assert (decoder.evictions, decoder.graphs.captures) == (2, 3)
+    cpu_decoder = serving_graphs.DenseDecodeGraphs(cpu)
+    for batch, out in outs.items():
+        assert torch.equal(out, tf.generate(cpu, prompts[batch].cpu(),
+                                            max_new_tokens=6,
+                                            decoder=cpu_decoder))
+
+
 def _small_engine(seed):
     model = serve_cli.Model(tf.TransformerConfig(**SMALL), seed=seed,
                             device="cuda")
@@ -262,7 +290,8 @@ def test_failed_capture_raises_and_nothing_runs_eagerly(gen):
     finally:
         engine.shutdown()
     want = tf.generate(model.model, torch.tensor([[4, 5, 6]], device="cuda"),
-                       max_new_tokens=6)[0].tolist()
+                       max_new_tokens=6,
+                       decoder=model.decode_graphs)[0].tolist()
     assert got == want
     assert engine.graph_stats()["graph_captures"] == 1
 

@@ -258,6 +258,48 @@ def test_generate_reuses_one_dense_cache_per_batch_size(models):
     assert decoder.graphs.captures == decoder.graphs.replays == 0
 
 
+@pytest.mark.parametrize("max_rows,batches,kept", [
+    # 3 evicts 2, the least recently used; 4 then evicts 1 and 3.
+    (4, [1, 2, 1, 3, 4, 2], [(1,), (1, 2), (2, 1), (1, 3), (4,), (2,)]),
+    # A batch above the limit is kept alone, until the next other size.
+    (1, [1, 2, 2, 1, 3], [(1,), (2,), (2,), (1,), (3,)]),
+    (8, [1, 2, 3, 2, 1, 4, 5], [(1,), (1, 2), (1, 2, 3), (1, 3, 2),
+                                (3, 2, 1), (2, 1, 4), (5,)]),
+])
+def test_dense_decoder_keeps_at_most_max_rows_of_cache(models, max_rows,
+                                                       batches, kept):
+    """However many batch sizes the decoder serves, the dense caches it
+    keeps hold at most ``max_rows`` rows (or the one batch just served,
+    if larger): the least recently used go first. A batch served again
+    after its eviction starts from a fresh cache and still matches JAX."""
+    jmodel, tmodel = models
+    cfg = tmodel.model.cfg
+    row_bytes = sum(t.nbytes
+                    for t in ttf.init_kv_cache(cfg, 1, "cpu").values())
+    decoder = serving_graphs.DenseDecodeGraphs(tmodel.model,
+                                               max_rows=max_rows)
+    rng = np.random.default_rng(max_rows)
+    for batch, want in zip(batches, kept):
+        prompts = [_prompt(rng, 5) for _ in range(batch)]
+        ttf.generate(tmodel.model, torch.as_tensor(prompts),
+                     max_new_tokens=2, decoder=decoder)
+        assert decoder.cached_batches == want
+        assert decoder.cached_bytes() == sum(want) * row_bytes
+        assert sum(want) <= max(max_rows, batch)
+    assert batches[0] not in decoder.cached_batches and decoder.evictions
+    again = [_prompt(rng, 7) for _ in range(batches[0])]
+    out = ttf.generate(tmodel.model, torch.as_tensor(again),
+                       max_new_tokens=4, decoder=decoder)
+    assert out.tolist() == jmodel.generate(again, 4)
+
+
+def test_model_decoder_keeps_the_default_row_limit(models):
+    assert models[1].decode_graphs.max_rows == \
+        serving_graphs.MAX_CACHED_ROWS == tserve.MAX_BATCH
+    with pytest.raises(ValueError, match="max_rows"):
+        serving_graphs.DenseDecodeGraphs(models[1].model, max_rows=0)
+
+
 # -- warmup ---------------------------------------------------------------------
 
 class _StubModel:

@@ -22,6 +22,7 @@ import jax.numpy as jnp  # noqa: E402
 from container_engine_accelerators_tpu.models import train_cli as jtrain_cli  # noqa: E402
 from container_engine_accelerators_tpu.models import transformer as jtf  # noqa: E402
 from container_engine_accelerators_tpu_torch.models import (  # noqa: E402
+    serving_graphs,
     train_cli,
     weights,
 )
@@ -132,7 +133,8 @@ def test_serving_after_a_training_step_matches_jax(jax_params):
                           {"tokens": _batch(2)})
     model = state[0]
     prompt = _batch(3)[:, :9]
-    out = ttf.generate(model, torch.as_tensor(prompt), max_new_tokens=6)
+    out = ttf.generate(model, torch.as_tensor(prompt), max_new_tokens=6,
+                       decoder=serving_graphs.DenseDecodeGraphs(model))
     assert not out.requires_grad
     params = jax.tree.map(jnp.asarray, weights.params_to_jax(model))
     ref = jtf.generate(params, jnp.asarray(prompt, jnp.int32),

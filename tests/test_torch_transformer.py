@@ -20,9 +20,12 @@ import jax.numpy as jnp  # noqa: E402
 
 from container_engine_accelerators_tpu.models import transformer as jtf  # noqa: E402
 from container_engine_accelerators_tpu_torch.models import (  # noqa: E402
+    serving_graphs,
+    weights,
+)
+from container_engine_accelerators_tpu_torch.models import (  # noqa: E402
     transformer as ttf,
 )
-from container_engine_accelerators_tpu_torch.models import weights  # noqa: E402
 
 SHAPE = dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4,
              n_kv_heads=2, d_ff=192, max_seq_len=64)
@@ -125,7 +128,8 @@ def test_greedy_generate_matches_jax(f32_pair, batch, prompt_len):
     toks = _tokens(batch, prompt_len, seed=prompt_len)
     ref = np.asarray(jtf.generate(params, jnp.asarray(toks, jnp.int32),
                                   cfg_j, max_new_tokens=8))
-    out = ttf.generate(model, torch.as_tensor(toks), max_new_tokens=8)
+    out = ttf.generate(model, torch.as_tensor(toks), max_new_tokens=8,
+                       decoder=serving_graphs.DenseDecodeGraphs(model))
     assert out.shape == (batch, prompt_len + 8)
     np.testing.assert_array_equal(out.numpy(), ref)
 
@@ -134,7 +138,8 @@ def test_generate_rejects_overlong_request(f32_pair):
     model = f32_pair[3]
     with pytest.raises(ValueError, match="max_seq_len"):
         ttf.generate(model, torch.zeros(1, 60, dtype=torch.long),
-                     max_new_tokens=8)
+                     max_new_tokens=8,
+                     decoder=serving_graphs.DenseDecodeGraphs(model))
 
 
 def test_sampling_keeps_to_top_k_and_top_p_and_is_seeded():
@@ -155,10 +160,12 @@ def test_sampling_keeps_to_top_k_and_top_p_and_is_seeded():
 def test_sampled_generate_is_reproducible_per_seed(f32_pair):
     model = f32_pair[3]
     toks = torch.as_tensor(_tokens(1, 6))
+    decoder = serving_graphs.DenseDecodeGraphs(model)
 
     def run(seed):
         return ttf.generate(model, toks, max_new_tokens=6, temperature=1.0,
-                            generator=torch.Generator().manual_seed(seed))
+                            generator=torch.Generator().manual_seed(seed),
+                            decoder=decoder)
 
     assert torch.equal(run(4), run(4))
     assert run(4)[0, :6].tolist() == toks[0].tolist()
