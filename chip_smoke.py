@@ -10,7 +10,10 @@ each against its plain PyTorch version on the card, serves full-width
 Llama-3-8B (all 32 layers, random weights from seed 0) through the
 port's HTTP server, one request at a time and through the paged
 continuous-batching engine (warmed with ``--warmup=all``: every decode
-window's CUDA graph captured before ready), and trains it at full width
+window's CUDA graph captured before ready), with speculative decoding
+(``--speculate ngram|draft``: every batched verify the replay of its
+graph, the flash kernel at per-row bases read from device memory), and
+trains it at full width
 (depth cut to 8 layers) through ``make_train_step``, checking that every
 prefill, every prefill segment and every training step went through the
 kernels, and that every decode chunk replayed its captured graph. Each
@@ -25,11 +28,14 @@ the same weights on the CPU), paged_small_parity (a tiny f32 paged engine
 on the card against dense generate), serve, serve_logits (prefill logits
 through the kernel vs plain attention), serve_paged (the paged engine
 behind the server: shared prefixes and a long prompt prefilled between
-decode chunks), paged_graph_parity (the graphed decode chunk against the
-eager one on the full-width model), train_grads (loss and every gradient
-through the kernels vs plain attention), train (5 timed steps),
-train_cli, kernels (the summary line), then the card's name and power
-limit, then the result.
+decode chunks), spec_small_parity (a tiny f32 engine's tokens with
+speculate ngram and draft equal to off), paged_graph_parity (the graphed
+decode chunk against the eager one on the full-width model), serve_spec
+(speculative decoding, ngram, off and draft, on the full-width paged
+engine: every verify a replay, streams held to off's), train_grads
+(loss and every gradient through the kernels vs plain attention), train
+(5 timed steps), train_cli, kernels (the summary line), then the card's
+name and power limit, then the result.
 """
 
 import concurrent.futures
@@ -157,19 +163,23 @@ def flash_bound(batch, num_q_heads, num_kv_heads, seq_q, seq_k, d, dtype,
                 causal, q_base=0, k_base=0, kv_len=None, kind="fwd"):
     """(bound_ms, bound_by) of one flash call of ``kind`` (see WORK): the
     larger of FLOPs / peak and bytes / HBM rate. K and V are read only
-    below kv_len and, when causal, up to the last query's diagonal."""
+    below kv_len and, when causal, up to the last query's diagonal.
+    ``q_base`` may be a list of one per batch row (the device base): the
+    rows' work and bytes are summed."""
     flops_per_d, q_like, k_like, rows = WORK[kind]
     elt = 2 if dtype == "bfloat16" else 4
-    pairs = batch * num_q_heads * attended_pairs(
-        seq_q, seq_k, causal, q_base, k_base, kv_len
-    )
-    flops = flops_per_d * d * pairs
+    q_bases = q_base if isinstance(q_base, (list, tuple)) else \
+        [q_base] * batch
+    flops = nbytes = 0
     kv = seq_k if kv_len is None else max(0, min(kv_len, seq_k))
-    keys_read = max(0, min(kv, q_base - k_base + seq_q)) if causal else kv
-    nbytes = elt * d * (q_like * batch * num_q_heads * seq_q
-                        + batch * num_kv_heads
-                        * (2 * keys_read + (k_like - 2) * seq_k))
-    nbytes += 4 * rows * batch * num_q_heads * seq_q
+    for qb in q_bases:
+        pairs = num_q_heads * attended_pairs(seq_q, seq_k, causal, qb,
+                                             k_base, kv_len)
+        flops += flops_per_d * d * pairs
+        keys_read = max(0, min(kv, qb - k_base + seq_q)) if causal else kv
+        nbytes += elt * d * (q_like * num_q_heads * seq_q + num_kv_heads
+                             * (2 * keys_read + (k_like - 2) * seq_k))
+        nbytes += 4 * rows * num_q_heads * seq_q
     peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_F32_FLOPS
     t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
     if t_ops >= t_bytes:
@@ -201,7 +211,7 @@ def time_ms(fn, torch, min_iters=3, budget_ms=300.0):
 # time (PERF.md): each is also timed as a CUDA graph of GRAPH_LAUNCHES
 # launches, which has no host work between the kernels.
 GRAPH_MS_CASES = ("causal_512_b2", "q_base_1536", "paged_sq16_qb1040",
-                  "paged_sq64_qb2000")
+                  "paged_sq64_qb2000", "verify_b8_sq16", "draft_d32_sq512")
 GRAPH_LAUNCHES = 20
 
 
@@ -245,7 +255,8 @@ def host_us(fn, torch, calls=20):
 #  dtype). The first four are the Llama-3-8B prefill shapes (Hq 32, Hkv 8,
 # D 128): the serve phase's prompts of 300 (batch 2) and 1500 tokens land
 # in the 512 and 2048 buckets. "main" marks the shape the kernels line
-# reports.
+# reports. A list of q_base (one per batch row) is passed as the device
+# ``base`` tensor of [q_base, k_base, kv_len] rows, as the verify does.
 KERNEL_CASES = [
     ("causal_512_b2", 2, 512, 512, True, 0, 0, None, 32, 8, 128, "bfloat16"),
     ("causal_2048", 1, 2048, 2048, True, 0, 0, None, 32, 8, 128, "bfloat16"),
@@ -286,6 +297,15 @@ KERNEL_CASES = [
      "bfloat16"),
     ("paged_sq512_qb7680", 1, 512, 8192, True, 7680, 0, None, 32, 8, 128,
      "bfloat16"),
+    # Speculation's verify at batch 8: 16 rows a batch row at its own
+    # decode position (1040-2000, read from device memory) over the
+    # 2048-token window gathered from the pool.
+    ("verify_b8_sq16", 8, 16, 2048, True,
+     [1040 + 137 * i for i in range(8)], 0, None, 32, 8, 128, "bfloat16"),
+    # The draft proposer's prefill segment (Llama-3-8B's heads at the
+    # draft's head dim 32, its 512-token segment).
+    ("draft_d32_sq512", 1, 512, 512, True, 0, 0, None, 32, 8, 32,
+     "bfloat16"),
 ]
 MAIN_CASE = "causal_2048"
 
@@ -300,8 +320,16 @@ def run_kernel_case(case, torch, attention, gen, serving_graphs):
 
     q, k, v = rand(batch, hq, seq_q, d), rand(batch, hkv, seq_k, d), \
         rand(batch, hkv, seq_k, d)
-    kw = dict(causal=causal, sm_scale=d ** -0.5, q_base=q_base,
-              k_base=k_base, kv_len=kv_len)
+    if isinstance(q_base, list):
+        base = torch.tensor(
+            [[qb, k_base, seq_k if kv_len is None else kv_len]
+             for qb in q_base], dtype=torch.int32, device="cuda")
+        kw = dict(causal=causal, sm_scale=d ** -0.5, base=base)
+        mask_base = torch.tensor(q_base, device="cuda")
+    else:
+        kw = dict(causal=causal, sm_scale=d ** -0.5, q_base=q_base,
+                  k_base=k_base, kv_len=kv_len)
+        mask_base = q_base
     out, lse = attention.flash_fwd(q, k, v, **kw)
     torch.cuda.synchronize()
     ref_out, ref_lse = attention.flash_fwd_reference(q, k, v, **kw)
@@ -338,7 +366,9 @@ def run_kernel_case(case, torch, attention, gen, serving_graphs):
         batch, hq, hkv, seq_q, seq_k, d, dtype, causal, q_base, k_base,
         kv_len,
     )
-    row["library_ms"] = library_ms(q, k, v, torch, attention, **kw)
+    row["library_ms"] = library_ms(
+        q, k, v, torch, attention, causal=causal, sm_scale=d ** -0.5,
+        q_base=mask_base, k_base=k_base, kv_len=kv_len)
     row["ms_over_library"] = (row["ms"] / row["library_ms"]
                               if row["library_ms"] else None)
     emit(row)
@@ -348,13 +378,15 @@ def run_kernel_case(case, torch, attention, gen, serving_graphs):
 def _sdpa_mask(q, k, attention, causal, q_base, k_base, kv_len):
     """scaled_dot_product_attention's mask arguments for the flash masks,
     or None where some row sees no key: there it computes another
-    function (NaN)."""
+    function (NaN). ``q_base`` may be a (B,) tensor (per-row bases): the
+    mask is then (B, 1, Sq, Sk)."""
     seq_q, seq_k = q.shape[2], k.shape[2]
     vis = attention._visible(seq_q, seq_k, causal, q_base, k_base, kv_len,
                              q.device)
-    if not vis.any(dim=1).all():
+    if not vis.any(dim=-1).all():
         return None
-    if causal and q_base == k_base and seq_q == seq_k and kv_len is None:
+    if causal and isinstance(q_base, int) and q_base == k_base and \
+            seq_q == seq_k and kv_len is None:
         return {"is_causal": True}
     if not causal and kv_len is None:
         return {}
@@ -1068,6 +1100,258 @@ def paged_graph_parity(torch, np, tf, serving_graphs, model, card):
                  f"from the eager chunk's at window {window}")
 
 
+def spec_small_parity(torch, np, tf, serve_cli, attention):
+    """A small f32 model (head dim 128, so the f32 kernel runs; its draft
+    has head dim 32) on the card: the paged engine with ``speculate``
+    ngram and draft returns exactly the tokens of ``speculate="off"``, for
+    repetitive, shared-prefix and structureless prompts, more of them
+    than slots; every verify replays its graph."""
+    cfg = tf.TransformerConfig(vocab_size=512, d_model=256, n_layers=2,
+                               n_heads=2, n_kv_heads=1, d_ff=768,
+                               max_seq_len=128, dtype="float32")
+    model = serve_cli.Model(cfg, seed=1, device="cuda")
+    rng = np.random.default_rng(3)
+    pattern = rng.integers(0, cfg.vocab_size, 8).tolist()
+    prefix = rng.integers(0, cfg.vocab_size, 20).tolist()
+    cases = [(pattern * 5, 60), (pattern * 3 + pattern[:3], 48),
+             (prefix + pattern * 2, 40), (prefix + [7, 7], 24),
+             (rng.integers(0, cfg.vocab_size, 30).tolist(), 40)]
+    outs, row = {}, {"phase": "spec_small_parity", "requests": len(cases)}
+    for mode in ("off", "ngram", "draft"):
+        engine = serve_cli.ContinuousEngine(
+            model, max_slots=2, chunk=4, prefill_chunk=32, kv_block_size=16,
+            speculate=mode)
+        try:
+            with concurrent.futures.ThreadPoolExecutor(len(cases)) as pool:
+                futures = [pool.submit(engine.generate, [p], n)
+                           for p, n in cases]
+                outs[mode] = [f.result(timeout=300)[0] for f in futures]
+        finally:
+            engine.shutdown()
+        if mode != "off":
+            stats, graphs = engine.stats(), engine.graph_stats()
+            row[mode] = {
+                "tokens_equal_off": outs[mode] == outs["off"],
+                "verifies": stats["spec_verifies"],
+                "proposed": stats["spec_proposed"],
+                "accepted": stats["spec_accepted"],
+                "verify_graph_replays": graphs["verify_graph_replays"],
+                "eager_verifies_on_cuda": graphs["eager_verifies_on_cuda"],
+            }
+    emit(row)
+    for mode in ("ngram", "draft"):
+        got = row[mode]
+        if not got["tokens_equal_off"] or got["eager_verifies_on_cuda"] or \
+                got["verify_graph_replays"] != got["verifies"]:
+            fail(f"spec_small_parity: speculate={mode} disagrees with off, "
+                 f"or ran a verify eagerly")
+    # A draft always proposes; the n-gram proposer only where the stream
+    # repeats itself.
+    if not row["draft"]["verifies"]:
+        fail("spec_small_parity: the draft engine ran no verify")
+
+
+# serve_spec traffic: 4 requests, each prompt a 32-token pattern of its own
+# repeated to 512 tokens, 64 new tokens each (the draft mode: the first 2).
+SPEC_PATTERN, SPEC_PROMPT, SPEC_NEW = 32, 512, 64
+
+
+def _graph_captures(graph_stats):
+    return sum(v for k, v in graph_stats.items()
+               if k.endswith("graph_captures"))
+
+
+def _verify_replay_ms(torch, runner):
+    """Device ms of one replay of ``runner``'s verify graph at batch 1
+    and 8 (window 2048), rows at decode positions 1040-2000 that write
+    and read only the null block: the engine's own graphs, after its
+    traffic."""
+    out = {}
+    with torch.inference_mode():
+        for rows in (1, 8):
+            runner._neutral(rows)
+            runner.buffers(rows)["poss"].copy_(torch.as_tensor(
+                [1040 + 137 * i for i in range(rows)]))
+            out[f"b{rows}_w2048"] = time_ms(
+                lambda rows=rows: runner.graphs.replay((rows, 2048)), torch)
+    return out
+
+
+def _serve_spec_mode(torch, np, serve_cli, attention, model, mode, prompts,
+                     card):
+    """One engine (the serve_paged configuration, ``speculate=mode``)
+    behind the server with ``--warmup=all``, the requests posted at once.
+    Returns (row, outputs, flash launches of the mode's run)."""
+    cfg = model.cfg
+    engine = serve_cli.ContinuousEngine(
+        model, max_slots=8, chunk=32, prefill_chunk=512, kv_block_size=16,
+        speculate=mode)
+    results, latency = {}, {}
+    attention.flash_fwd_launches = 0
+    t0 = time.perf_counter()
+    server, state = serve_cli.start_server(engine, port=0, host="127.0.0.1",
+                                           warmup_mode="all")
+    try:
+        serve_cli.wait_ready(state, timeout=900)
+        ready_s = time.perf_counter() - t0
+        port = server.server_address[1]
+        at_ready = {"launches": attention.flash_fwd_launches,
+                    **engine.stats(), **engine.graph_stats()}
+        ttft_before = len(engine.ttft_s)
+
+        def post(i):
+            t1 = time.perf_counter()
+            results[i] = serve_cli.post_generate(port, [prompts[i]],
+                                                 SPEC_NEW)
+            latency[i] = time.perf_counter() - t1
+
+        t1 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(len(prompts)) as pool:
+            for f in [pool.submit(post, i) for i in range(len(prompts))]:
+                f.result(timeout=900)
+        burst_s = time.perf_counter() - t1
+        stats, graphs = engine.stats(), engine.graph_stats()
+        launches = attention.flash_fwd_launches
+        verify_ms = (_verify_replay_ms(torch, engine.verify_graphs)
+                     if engine.verify_graphs is not None else {})
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.shutdown()
+    for i, prompt in enumerate(prompts):
+        _check_response(f"serve_spec {mode} {i}", results[i], prompt,
+                        SPEC_NEW, cfg.vocab_size)
+    served = {k: stats[k] - at_ready[k]
+              for k in ("steps_done", "n_prefills", "n_chunks",
+                        "occupied_steps")}
+    decode_tokens = len(prompts) * (SPEC_NEW - 1)
+    device_s = engine.t_chunk_device_s + engine.t_verify_device_s
+    n_layers = cfg.n_layers
+    verify_replays = graphs.get("verify_graph_replays", 0)
+    draft_launches = 0
+    if mode == "draft":
+        drafter = engine.spec_proposer
+        draft_launches = drafter._ingest.graphs.replays * \
+            drafter.cfg.n_layers
+    total_launches = launches + n_layers * verify_replays + draft_launches
+    row = {
+        "phase": "serve_spec", **card, "model": "llama3-8b",
+        "speculate": mode, "requests": len(prompts),
+        "prompt_len": SPEC_PROMPT, "pattern": SPEC_PATTERN,
+        "max_new": SPEC_NEW, "ready_s": ready_s, "burst_s": burst_s,
+        "warmup": state["warmup"], "latency_s": latency,
+        "ttft_s": [t for _, t in list(engine.ttft_s)[ttft_before:]],
+        **served,
+        "device_steps_per_token": served["steps_done"] / decode_tokens,
+        "decode_tokens_per_s_on_card": stats["occupied_steps"]
+        / max(device_s, 1e-9),
+        "chunk_device_s": engine.t_chunk_device_s,
+        "verify_device_s": engine.t_verify_device_s,
+        "flash_launches_counted": launches,
+        "flash_launches": total_launches,
+        "captures_after_ready":
+            _graph_captures(graphs) - _graph_captures(at_ready),
+        **{k: v for k, v in graphs.items() if "pool_bytes" not in k},
+        "graph_pool_gb": sum(v for k, v in graphs.items()
+                             if k.endswith("pool_bytes")) / 1e9,
+        "verify_replay_ms": verify_ms,
+        "distinct_generated": [
+            len(set(results[i]["tokens"][0][len(p):]))
+            for i, p in enumerate(prompts)],
+    }
+    if mode != "off":
+        verifies = max(stats["spec_verifies"], 1)
+        row.update({
+            "verifies": stats["spec_verifies"],
+            "proposed": stats["spec_proposed"],
+            "accepted": stats["spec_accepted"],
+            "acceptance": stats["spec_acceptance"],
+            "accepted_by_row": list(engine.retired_spec_accepted),
+            "verify_dispatch_ms": engine.t_verify_dispatch_s / verifies * 1e3,
+            "verify_sync_wait_ms": engine.t_verify_wait_s / verifies * 1e3,
+            "verify_device_ms": engine.t_verify_device_s / verifies * 1e3,
+        })
+    chunks = max(served["n_chunks"], 1)
+    row["chunk_dispatch_ms"] = engine.t_chunk_dispatch_s / chunks * 1e3
+    row["chunk_sync_wait_ms"] = engine.t_chunk_wait_s / chunks * 1e3
+    emit(row)
+    outs = [results[i]["tokens"][0] for i in range(len(prompts))]
+    if row["captures_after_ready"] or graphs["eager_chunks_on_cuda"] or \
+            graphs.get("eager_verifies_on_cuda", 0):
+        fail(f"serve_spec {mode}: a graph was captured after ready, or a "
+             f"chunk or a verify ran eagerly on the card")
+    if mode != "off" and verify_replays != row["verifies"]:
+        fail(f"serve_spec {mode}: {row['verifies']} verifies, "
+             f"{verify_replays} verify replays")
+    if mode != "draft" and launches - at_ready["launches"] != \
+            n_layers * served["n_prefills"]:
+        fail(f"serve_spec {mode}: {launches - at_ready['launches']} flash "
+             f"launches outside graphs after ready for "
+             f"{served['n_prefills']} prefill segments")
+    return row, outs, total_launches
+
+
+def _divergences(torch, tf, model, prompts, got, want):
+    """Where each stream of ``got`` first parts from ``want`` (the
+    ``--speculate off`` streams): the generated index and the top-2 logit
+    margin there under off, read from the dense forward over off's
+    context."""
+    rows = []
+    for i, (prompt, a, b) in enumerate(zip(prompts, got, want)):
+        if a == b:
+            continue
+        pos = next(j for j in range(len(b)) if a[j] != b[j])
+        with torch.inference_mode():
+            logits = tf.forward(model.model,
+                                torch.as_tensor([b[:pos]], device="cuda"),
+                                logits_at="last")[0, 0]
+        top2 = logits.topk(2).values
+        rows.append({"request": i, "generated_index": pos - len(prompt),
+                     "off_token": b[pos], "spec_token": a[pos],
+                     "off_margin": (top2[0] - top2[1]).item()})
+    return rows
+
+
+def serve_spec(torch, np, tf, serve_cli, attention, card, model):
+    """Speculation on the full-width model, the serve_paged configuration
+    (8 slots, chunk 32, prefill chunk 512, block 16, ``--warmup=all``):
+    ``--speculate ngram`` on 4 concurrent requests, each a 32-token
+    pattern of its own repeated to 512 tokens, 64 new tokens; the same
+    requests with ``--speculate off``; the first 2 with ``--speculate
+    draft``. In bf16 at full width a 16-row verify and a one-row decode
+    step may round differently, so a stream may part from off's only at
+    a position whose top-2 margin under off is below SERVE_LOGITS_ATOL;
+    every divergence is printed with its margin. Returns the flash
+    kernel's launches (the verify replays × 32 and the draft's included).
+    """
+    rng = np.random.default_rng(7)
+    prompts = []
+    for _ in range(4):
+        pattern = rng.integers(0, model.cfg.vocab_size, SPEC_PATTERN)
+        prompts.append(np.tile(pattern, SPEC_PROMPT // SPEC_PATTERN).tolist())
+    launches, outs, rows = 0, {}, {}
+    for mode, reqs in (("ngram", prompts), ("off", prompts),
+                       ("draft", prompts[:2])):
+        rows[mode], outs[mode], n = _serve_spec_mode(
+            torch, np, serve_cli, attention, model, mode, reqs, card)
+        launches += n
+        _free(torch)  # the mode's engine: its pools and graphs
+    if not rows["ngram"]["verifies"] or not rows["draft"]["verifies"]:
+        fail("serve_spec: a speculating engine ran no verify")
+    bad = []
+    for mode, reqs in (("ngram", prompts), ("draft", prompts[:2])):
+        div = _divergences(torch, tf, model, reqs, outs[mode],
+                           outs["off"][:len(reqs)])
+        emit({"phase": "serve_spec_divergences", "speculate": mode,
+              "streams": len(reqs), "equal": len(reqs) - len(div),
+              "divergences": div, "tol": SERVE_LOGITS_ATOL})
+        bad += [d for d in div if d["off_margin"] >= SERVE_LOGITS_ATOL]
+    if bad:
+        fail(f"serve_spec: streams part from off at margins >= "
+             f"{SERVE_LOGITS_ATOL}: {bad}")
+    return launches
+
+
 def _free(torch):
     gc.collect()
     torch.cuda.empty_cache()
@@ -1252,11 +1536,14 @@ def main():
     _free(torch)
     small_parity(torch, tf, serving_graphs, attention)
     paged_small_parity(torch, np, tf, serve_cli, attention)
+    spec_small_parity(torch, np, tf, serve_cli, attention)
     serve_launches, model = serve(torch, np, tf, serve_cli, attention, card)
     paged_launches = serve_paged(torch, np, tf, serve_cli, attention, card,
                                  model)
     _free(torch)
     paged_graph_parity(torch, np, tf, serving_graphs, model, card)
+    spec_launches = serve_spec(torch, np, tf, serve_cli, attention, card,
+                               model)
     del model
     _free(torch)
     train_grads(torch, np, tf, attention)
@@ -1277,9 +1564,11 @@ def main():
             "name": "flash_fwd", "route": "cuda",
             "source": src + "flash_fwd.cu",
             "replaces": replaces + "136",
-            "launches": serve_launches + paged_launches + fwd_train,
+            "launches": serve_launches + paged_launches + spec_launches
+            + fwd_train,
             "launches_by_path": {"serve": serve_launches,
                                  "serve_paged": paged_launches,
+                                 "serve_spec": spec_launches,
                                  "train": fwd_train},
             "max_abs_err": main_row["max_abs_err_out"],
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],

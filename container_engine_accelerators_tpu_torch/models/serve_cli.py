@@ -17,7 +17,13 @@ ways to serve:
     the flash kernel at the segment's global offset) interleaved with
     decode chunks, each on the card the replays of one CUDA graph of the
     decode step per window (``serving_graphs.PagedDecodeGraphs``, the
-    counterpart of the jitted ``transformer.paged_decode_chunk``).
+    counterpart of the jitted ``transformer.paged_decode_chunk``). With
+    ``--speculate ngram|draft`` a proposer guesses up to k tokens per
+    row and one batched verify (``transformer.paged_verify_batch``, on
+    the card the replay of one CUDA graph per (batch bucket, window),
+    ``serving_graphs.PagedVerifyGraphs``) scores every speculating row's
+    guesses; the longest greedily-matching prefix is accepted, so the
+    tokens are those of ``--speculate off``.
 
 ``--warmup=all`` captures every window's graph and runs every paged
 prefill shape before ``/healthz`` flips ready (``warmstart/warmup.py``);
@@ -40,7 +46,7 @@ seeded with the request's ``seed``: reproducible here, but not the
 tokens the JAX server samples for the same seed.
 
 Not ported yet (ROADMAP.md): the dense continuous-batching cache,
-speculation, drains and KV handoff, the multi-host link, tensor
+drains and KV handoff, the multi-host link, tensor
 parallelism, int8 weights, tenant classes, admission sheds and deadlines,
 step retries and fault plans, and the obs surfaces (/metrics, traces,
 event logs, chip accounting).
@@ -49,6 +55,8 @@ event logs, chip accounting).
       --preset llama3-8b --port 8000
   python -m container_engine_accelerators_tpu_torch.models.serve_cli \\
       --preset llama3-8b --continuous-batching --kv-cache paged
+  python -m container_engine_accelerators_tpu_torch.models.serve_cli \\
+      --preset llama3-8b --continuous-batching --speculate ngram
 """
 
 import argparse
@@ -66,6 +74,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
+from container_engine_accelerators_tpu_torch import spec as spec_pkg
 from container_engine_accelerators_tpu_torch.kvcache.blockpool import (
     PoolExhausted,
 )
@@ -186,6 +195,34 @@ def normalize_chunks(max_seq_len, prefill_chunk, chunk):
     return prefill_chunk, chunk
 
 
+def verify_batch_sizes(max_slots):
+    """The power-of-two (capped at ``max_slots``) batch sizes a batched
+    speculative verify can dispatch: one derivation shared by the
+    engine's dispatch bucketing and the warm plan (the JAX
+    ``verify_batch_sizes``). Sizing the batch to the speculating-row
+    count keeps a sparse round from paying for padding rows; the price is
+    one graph per (batch bucket, window)."""
+    out = set()
+    b = 1
+    while b < max_slots:
+        out.add(b)
+        b <<= 1
+    out.add(max_slots)
+    return sorted(out)
+
+
+def speculate_grid(speculate_k, max_seq_len):
+    """A speculating engine's (k_max, verify width) from
+    ``--speculate-k`` (the JAX ``speculate_grid``): k_max is the
+    power-of-two floor; the width is the bucket of k_max + 1 (the fed
+    token plus the proposals)."""
+    k_max = 1 << (max(int(speculate_k), 1).bit_length() - 1)
+    return k_max, tf._length_bucket(k_max + 1, max_seq_len)
+
+
+SPECULATE_MODES = ("off", "ngram", "draft")
+
+
 class ContinuousEngine:
     """Slot-based continuous batching on the paged KV cache, the port of
     the JAX ``ContinuousEngine`` with ``kv_cache="paged"``.
@@ -218,6 +255,16 @@ class ContinuousEngine:
     come back into pinned tensors behind a recorded event, so neither
     direction waits for the stream to drain.
 
+    Speculation (``speculate="ngram"`` or ``"draft"``, the JAX
+    engine's): a speculating row leaves the fused chunk and advances in
+    verify rounds (``_spec_tick``): the proposer guesses up to k tokens,
+    one batched verify per window group scores every speculating row
+    (``self.verify_graphs``, a ``serving_graphs.PagedVerifyGraphs``), and
+    the next iteration's sync accepts the longest greedily-matching
+    prefix plus the correction token, 1..k+1 tokens a device step, the
+    tokens of ``speculate="off"``. ``AdaptiveK`` backs a row off to the
+    chunk on poor acceptance.
+
     The pools, ``last_dev`` and the graphs' static buffers keep their
     addresses for the engine's life (the captured graphs hold them): a
     reset after a device fault zeroes them in place.
@@ -228,11 +275,28 @@ class ContinuousEngine:
 
     def __init__(self, model, max_slots=MAX_BATCH, chunk=32,
                  prefill_chunk=512, start_loop=True, kv_cache="paged",
-                 kv_block_size=16, kv_blocks=0):
+                 kv_block_size=16, kv_blocks=0, speculate="off",
+                 speculate_k=8, spec_proposer=None):
         if max_slots < 1 or chunk < 1 or prefill_chunk < 1:
             raise ValueError(
                 f"max_slots ({max_slots}), chunk ({chunk}) and "
                 f"prefill_chunk ({prefill_chunk}) must be >= 1"
+            )
+        if speculate not in SPECULATE_MODES:
+            raise ValueError(
+                f"speculate must be 'off', 'ngram' or 'draft', got "
+                f"{speculate!r}"
+            )
+        if speculate != "off" and kv_cache != "paged":
+            raise ValueError(
+                "speculative decoding requires kv_cache='paged' (the "
+                "verify step is a paged program)"
+            )
+        if speculate == "draft" and spec_proposer is None and \
+                getattr(model, "model", None) is None:
+            raise ValueError(
+                "speculate='draft' needs model params to derive a draft "
+                "config (a caller without them must inject spec_proposer)"
             )
         if kv_cache == "dense":
             raise NotImplementedError(
@@ -272,12 +336,43 @@ class ContinuousEngine:
             model.model, self.cache, self.last_dev, self.kv.tables.shape,
             self.chunk, self.kv.block_size,
         )
-        # The device seams (the calls the JAX package's fake engine swaps).
+        # The device seams (the calls the JAX package's fake engine swaps;
+        # a speculating engine adds ``_paged_verify``).
         self._paged_prefill = functools.partial(
             tf.paged_prefill_segment, block_size=self.kv.block_size
         )
         self._paged_chunk = self.decode_graphs
         self._copy_blocks = pa.copy_blocks
+        self.speculate = speculate
+        self.spec_proposer = None
+        self.verify_graphs = None
+        if speculate != "off":
+            # k moves on the power-of-two grid (one graph per width).
+            self._spec_k_max, self._spec_width = speculate_grid(
+                speculate_k, self.cfg.max_seq_len
+            )
+            # slot -> the row whose proposer state owns it (a deferred
+            # retire sync must not release a successor's).
+            self._spec_owner = {}
+            # Batched verify records dispatched last iteration, synced by
+            # the next _spec_tick: one per window group.
+            self._spec_pending = []
+            self.verify_graphs = serving_graphs.PagedVerifyGraphs(
+                model.model, self.cache, self._spec_width,
+                self.kv.blocks_per_seq, self.kv.block_size,
+            )
+            self._paged_verify = self.verify_graphs
+            if spec_proposer is not None:
+                self.spec_proposer = spec_proposer
+            elif speculate == "ngram":
+                self.spec_proposer = spec_pkg.NgramProposer()
+            else:
+                self.spec_proposer = spec_pkg.DraftProposer(
+                    spec_pkg.draft_config(self.cfg), max_slots,
+                    block_size=self.kv.block_size,
+                    prefill_chunk=self.prefill_chunk,
+                    width=self._spec_width, device=self.device,
+                )
         # Bumped by _reset_paged: sync records dispatched before a pool
         # rebuild must not touch the fresh pool.
         self._kv_epoch = 0
@@ -309,6 +404,23 @@ class ContinuousEngine:
         # Chunks on a CUDA engine that did not replay their window's graph
         # once per step (a seam swapped for an eager call): 0 on the path.
         self.eager_chunks_on_cuda = 0
+        # Speculation, in place of the JAX engine's spec metrics:
+        # proposed tokens, accepted ones (emitted beyond the correction),
+        # verify dispatches (one per window group), their host dispatch
+        # and sync-wait seconds and their event-timed span on the card
+        # (CUDA only), the trailing rounds' (proposed, accepted) for the
+        # acceptance ratio, each retired row's accepted count, and
+        # verifies on CUDA that did not replay their graph (0 on the
+        # path).
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_verifies = 0
+        self.t_verify_dispatch_s = 0.0
+        self.t_verify_wait_s = 0.0
+        self.t_verify_device_s = 0.0
+        self._spec_rounds = collections.deque(maxlen=256)
+        self.retired_spec_accepted = collections.deque(maxlen=4096)
+        self.eager_verifies_on_cuda = 0
         # (prompt length, seconds from enqueue to the first token landing
         # on the host) per request: the stand-in for the JAX engine's
         # TTFT histogram.
@@ -368,8 +480,12 @@ class ContinuousEngine:
         return [row["prompt"] + row["out"] for row in rows]
 
     def stats(self):
-        """Engine telemetry under the JAX engine's key set."""
-        return {
+        """Engine telemetry under the JAX engine's key set; a speculating
+        engine adds ``spec_proposed``, ``spec_accepted``,
+        ``spec_verifies`` and ``spec_acceptance`` (accepted over proposed
+        in the trailing 256 rounds), the counters the JAX engine keeps as
+        metrics only when it speculates."""
+        out = {
             "steps_done": self.steps_done,
             "n_prefills": self.n_prefills,
             "n_chunks": self.n_chunks,
@@ -381,6 +497,12 @@ class ContinuousEngine:
             "occupied_steps": self.occupied_steps,
             "tenant_queues": {},
         }
+        if self.spec_proposer is not None:
+            out.update(spec_proposed=self.spec_proposed,
+                       spec_accepted=self.spec_accepted,
+                       spec_verifies=self.spec_verifies,
+                       spec_acceptance=self._spec_acceptance())
+        return out
 
     def kv_stats(self):
         """The paged cache's snapshot (the manager's ``stats()``)."""
@@ -389,14 +511,28 @@ class ContinuousEngine:
     def graph_stats(self):
         """The decode graphs' counters: captures, replays, capture
         seconds, the bytes of their memory pool, and the chunks that ran
-        eagerly on CUDA."""
-        graphs = self.decode_graphs.graphs
+        eagerly on CUDA; a speculating engine adds its verify graphs'
+        (``verify_graph_*``, ``eager_verifies_on_cuda``) and a draft
+        proposer's ingest and propose-chunk graphs' (``draft_graph_*``)."""
+        out = self._graph_counts("", [self.decode_graphs.graphs])
+        out["eager_chunks_on_cuda"] = self.eager_chunks_on_cuda
+        if self.verify_graphs is not None:
+            out.update(self._graph_counts("verify_",
+                                          [self.verify_graphs.graphs]))
+            out["eager_verifies_on_cuda"] = self.eager_verifies_on_cuda
+        drafter = self.spec_proposer
+        if isinstance(drafter, spec_pkg.DraftProposer):
+            out.update(self._graph_counts(
+                "draft_", [drafter._ingest.graphs, drafter._chunk.graphs]))
+        return out
+
+    @staticmethod
+    def _graph_counts(prefix, sets):
         return {
-            "graph_captures": graphs.captures,
-            "graph_replays": graphs.replays,
-            "graph_capture_s": graphs.capture_s,
-            "graph_pool_bytes": graphs.pool_bytes(),
-            "eager_chunks_on_cuda": self.eager_chunks_on_cuda,
+            f"{prefix}graph_captures": sum(g.captures for g in sets),
+            f"{prefix}graph_replays": sum(g.replays for g in sets),
+            f"{prefix}graph_capture_s": sum(g.capture_s for g in sets),
+            f"{prefix}graph_pool_bytes": sum(g.pool_bytes() for g in sets),
         }
 
     def run_on_loop(self, fn):
@@ -505,6 +641,7 @@ class ContinuousEngine:
             self.occupied[slot] = None
             self.positions[slot] = 0
             self.kv.drop(self.kv.release(slot))
+        self._drop_spec(slot, row)
         row["event"].set()
 
     def _reset_paged(self, cause):
@@ -521,6 +658,7 @@ class ContinuousEngine:
             )
             row["err"].__cause__ = cause
             self.occupied[i] = None
+            self._drop_spec(i, row)
             row["event"].set()
         self.kv.reset()
         for pool in self.cache.values():
@@ -644,12 +782,20 @@ class ContinuousEngine:
         (async). Host state (positions, remaining, retirement) advances
         at dispatch, fully determined by ``steps``; token values land at
         the next iteration's sync."""
+        # Speculating rows advance in verify rounds instead (_spec_tick
+        # stamps "hold" on rows with a verify in flight or a chunk
+        # pipeline to drain); everyone else shares the fused chunk.
         occupied = [
             i for i, r in enumerate(self.occupied)
             if r is not None and r.get("remaining") is not None
+            and not (r.get("_spec") or {}).get("hold")
         ]
         if not occupied:
             return None
+        for i in occupied:
+            st = self.occupied[i].get("_spec")
+            if st is not None:
+                st["inflight"] += 1
         S = self.cfg.max_seq_len
         bs = self.kv.block_size
         steps = min(min(self.occupied[i]["remaining"] for i in occupied),
@@ -759,6 +905,9 @@ class ContinuousEngine:
                 self._finish_retire_paged(row, slot, rec["blocks"], fresh)
             return
         for slot, row in rec["rows"].items():
+            st = row.get("_spec")
+            if st is not None and st["inflight"] > 0:
+                st["inflight"] -= 1
             if rec["gens"][slot] != row.get("_sync_gen", 0) or \
                     row["err"] is not None:
                 # A void record may only drop a retire marker its own
@@ -767,9 +916,16 @@ class ContinuousEngine:
                         row.get("_blocks_gen") == rec["gens"][slot]:
                     self.kv.drop(row.pop("_blocks"))
                 continue
-            row["generated"].extend(
-                int(t) for t in toks[:rec["steps"], slot]
-            )
+            chunk_toks = [int(t) for t in toks[:rec["steps"], slot]]
+            row["generated"].extend(chunk_toks)
+            if st is not None and self._spec_owner.get(slot) is row:
+                # Chunk output is confirmed context the proposer must
+                # see, and each chunk round ticks a backed-off row's
+                # cooldown toward its k=1 re-probe. Ownership-guarded: a
+                # retire-at-dispatch row's deferred sync must not feed a
+                # successor's proposer state.
+                self.spec_proposer.observe(slot, chunk_toks)
+                st["ak"].tick()
             # Retire only once every dispatched token has landed: an
             # earlier chunk's record of the same row may sync first.
             if "_blocks" in row and len(row["generated"]) >= row["max_new"]:
@@ -784,6 +940,7 @@ class ContinuousEngine:
         generated token was emitted but never fed back, so its K/V slot
         holds garbage; tokens[:-1] is exactly what prefill and decode
         wrote."""
+        self._drop_spec(slot, row)
         if fresh:
             self.kv.finish_release(
                 blocks, (row["prompt"] + row["generated"])[:-1]
@@ -796,6 +953,8 @@ class ContinuousEngine:
         del slot
         row["out"] = row["generated"]
         row["finish_step"] = self.steps_done
+        if self.spec_proposer is not None:
+            self.retired_spec_accepted.append(row.get("spec_accepted", 0))
         row["event"].set()
 
     def _fail_sync(self, rec, cause):
@@ -824,6 +983,240 @@ class ContinuousEngine:
                 row["err"].__cause__ = cause
                 row["event"].set()
         self._reset_paged(cause)
+
+    # -- speculative decoding: the per-row (propose, verify) machine ---------
+    #
+    # A speculating row leaves the fused decode chunk and advances in
+    # verify rounds: the proposer guesses up to k tokens, one batched
+    # verify scores every speculating row of a window group (a width-W
+    # segment per row through the same layers at the rows' own global
+    # positions), and the next iteration's sync accepts the longest
+    # greedily-matching prefix plus the correction token from the same
+    # logits: 1..k+1 tokens a device step, the tokens of the plain decode.
+    # AdaptiveK backs a row off to the chunk (k = 0) on poor acceptance,
+    # so adversarial traffic pays at most the probing rounds, each of
+    # which still emits one token.
+
+    def _spec_acceptance(self):
+        rounds = list(self._spec_rounds)
+        proposed = sum(p for p, _ in rounds)
+        return sum(a for _, a in rounds) / proposed if proposed else 0.0
+
+    def _drop_spec(self, slot, row):
+        """Release a row's speculation state (retire, failure, reset): the
+        proposer's slot structures go, and an in-flight verify record of
+        the row is voided by its popped state (its tokens are never read).
+        The proposer's slot is released only while ``row`` still owns it:
+        a retire-at-dispatch row's deferred sync can land after a new
+        occupant took the slot."""
+        if self.spec_proposer is None:
+            return
+        if row.pop("_spec", None) is not None and \
+                self._spec_owner.get(slot) is row:
+            self.spec_proposer.release(slot)
+            del self._spec_owner[slot]
+
+    def _spec_tick(self):
+        """One speculation round: sync last iteration's batched verifies,
+        then collect every eligible row's proposal into per-window
+        groups and dispatch one ``paged_verify_batch`` per group. Stamps
+        ``st["hold"]``: holding rows stay out of this iteration's fused
+        chunk (a verify in flight, or a chunk or first-token result still
+        to land, so the host's tokens catch up with the device before the
+        first verify)."""
+        if self.spec_proposer is None:
+            return
+        pending, self._spec_pending = self._spec_pending, []
+        for rec in pending:
+            self._sync_verify_batch(rec)
+        groups = {}
+        for slot, row in enumerate(self.occupied):
+            if row is None or row.get("remaining") is None:
+                continue
+            st = row.get("_spec")
+            if st is None:
+                st = row["_spec"] = {
+                    "ak": spec_pkg.AdaptiveK(self._spec_k_max),
+                    "inflight": 0, "hold": False,
+                }
+            st["hold"] = False
+            pos = int(self.positions[slot])
+            if st["ak"].k == 0 or \
+                    pos + self._spec_width > self.cfg.max_seq_len:
+                # Backed off (its cooldown ticks at chunk syncs) or too
+                # close to the context end for a verify window: the row
+                # rides the fused chunk.
+                continue
+            if st["inflight"] or len(row["prompt"]) + \
+                    len(row.get("generated", ())) - 1 != pos:
+                # Chunk results or the first token still in flight.
+                st["hold"] = True
+                continue
+            if self._spec_owner.get(slot) is not row:
+                # First tick with the whole context on the host: hand the
+                # proposer all of it.
+                self._spec_owner[slot] = row
+                self.spec_proposer.admit(
+                    slot, row["prompt"] + row["generated"]
+                )
+            entry = self._prepare_verify(slot, row, st)
+            if entry is not None:
+                st["hold"] = True
+                groups.setdefault(entry["window"], []).append(entry)
+        for window in sorted(groups):
+            rec = self._dispatch_verify_batch(groups[window], window)
+            if rec is not None:
+                self._spec_pending.append(rec)
+
+    def _prepare_verify(self, slot, row, st):
+        """The host half of one row's verify round: propose, allocate
+        blocks, copy-on-write fork shared pages, and build the row's
+        segment and per-position write targets. Returns the batch entry,
+        or None when the row rides the fused chunk this round."""
+        S = self.cfg.max_seq_len
+        pos = int(self.positions[slot])
+        W = self._spec_width
+        k_eff = min(st["ak"].k, W - 1, row["remaining"], S - pos - 1)
+        if k_eff < 1:
+            return None
+        props = self.spec_proposer.propose(slot, k_eff)[:k_eff]
+        if not props:
+            # Nothing to offer: a failed round, so the controller backs
+            # the row off to the chunk instead of stalling it here.
+            st["ak"].update(0, 0)
+            return None
+        try:
+            self._ensure_blocks_or_drain(slot, min(pos + W, S))
+        except PoolExhausted as e:
+            self._fail_paged_row(row, slot, e, "verify allocation")
+            return None
+        bs = self.kv.block_size
+        self._cow_fork(slot, pos // bs, (min(pos + W, S) - 1) // bs)
+        bids, offs = self.kv.position_targets(slot, pos, W)
+        seg = np.zeros(W, np.int64)
+        seg[0] = row["generated"][-1]
+        seg[1:1 + len(props)] = props
+        return {
+            "row": row, "slot": slot, "props": props, "pos0": pos,
+            "seg": seg, "bids": bids, "offs": offs,
+            "window": tf._window_for(min(pos + W, S), S),
+            "gen": row.get("_sync_gen", 0),
+        }
+
+    def _dispatch_verify_batch(self, entries, window):
+        """Assemble and dispatch one batched verify for a window group
+        (async; synced by the next _spec_tick). Rows pack into the
+        smallest power-of-two batch bucket that holds the group, padding
+        rows write only the null block. On CUDA the call is the replay of
+        the (bucket, window) graph. The port has no step retries: a
+        verify that raises here fails its rows and keeps the pools (only
+        those rows' blocks were written). Returns the sync record, or
+        None."""
+        W = self._spec_width
+        B = min(1 << (len(entries) - 1).bit_length(), self.max_slots)
+        T = self.kv.blocks_per_seq
+        segs = np.zeros((B, W), np.int64)
+        poss = np.zeros(B, np.int64)
+        bids = np.full((B, W), pa.NULL_BLOCK, np.int64)
+        offs = np.zeros((B, W), np.int64)
+        tables = np.full((B, T), pa.NULL_BLOCK, np.int64)
+        for idx, e in enumerate(entries):
+            segs[idx] = e["seg"]
+            poss[idx] = e["pos0"]
+            bids[idx] = e["bids"]
+            offs[idx] = e["offs"]
+            tables[idx] = self.kv.tables[e["slot"]]
+        t0 = time.perf_counter()
+        try:
+            start = self._timing_event()
+            replays = self.verify_graphs.graphs.replays
+            greedy = self._paged_verify(segs, poss, bids, offs, tables,
+                                        window=window)
+            if self.device.type == "cuda" and \
+                    self.verify_graphs.graphs.replays - replays != 1:
+                self.eager_verifies_on_cuda += 1
+            greedy_h, event = self._to_host(greedy)
+        except Exception as e:  # noqa: BLE001 - fail the rows, keep serving
+            log.exception("speculative verify failed")
+            for entry in entries:
+                if self.occupied[entry["slot"]] is entry["row"]:
+                    self._fail_paged_row(entry["row"], entry["slot"], e,
+                                         "speculative verify")
+            return None
+        self.t_verify_dispatch_s += time.perf_counter() - t0
+        self.spec_verifies += 1
+        self.spec_proposed += sum(len(e["props"]) for e in entries)
+        return {"greedy": greedy_h, "event": event, "start": start,
+                "entries": entries, "epoch": self._kv_epoch}
+
+    def _sync_verify_batch(self, rec):
+        """Sync one batched verify round: wait for its event, read the
+        (B, W) greedy tokens once, then apply every row's accept/correct
+        step. A device error here resets the pools, as a failed chunk
+        sync does."""
+        t0 = time.perf_counter()
+        try:
+            if rec["event"] is not None:
+                rec["event"].synchronize()
+            g = rec["greedy"].numpy()
+        except Exception as e:  # noqa: BLE001 - an async device error
+            log.exception("verify sync failed")
+            for entry in rec["entries"]:
+                if self.occupied[entry["slot"]] is entry["row"]:
+                    self._fail_paged_row(entry["row"], entry["slot"], e,
+                                         "verify sync")
+            self._reset_paged(e)
+            return
+        self.t_verify_wait_s += time.perf_counter() - t0
+        if rec["start"] is not None:
+            self.t_verify_device_s += \
+                rec["start"].elapsed_time(rec["event"]) / 1e3
+        # One sequential device step advanced every row of the batch.
+        self.steps_done += 1
+        for idx, entry in enumerate(rec["entries"]):
+            # Entries sit at their compact batch index, not their slot.
+            self._sync_verify_row(entry, g[idx], rec["epoch"])
+
+    def _sync_verify_row(self, entry, g, epoch):
+        """Apply one row's verify outcome: accept the longest greedily
+        matching proposal prefix and the correction token, advance the
+        row, feed the controller and the proposer, retire on an exhausted
+        budget."""
+        row, slot = entry["row"], entry["slot"]
+        if entry["gen"] != row.get("_sync_gen", 0) or \
+                epoch != self._kv_epoch or row["err"] is not None or \
+                row.get("_spec") is None:
+            return  # failed, reset or retired since dispatch: void
+        props = entry["props"]
+        a = 0
+        while a < len(props) and props[a] == int(g[a]):
+            a += 1
+        # Accepted proposals are the plain decode's tokens; the correction
+        # comes from the same logits. Truncated to the budget: the
+        # overshoot's K/V lie past the final position.
+        emitted = (props[:a] + [int(g[a])])[: row["remaining"]]
+        st = row["_spec"]
+        st["ak"].update(len(props), a)
+        self._spec_rounds.append((len(props), a))
+        saved = len(emitted) - 1
+        self.spec_accepted += saved
+        row["spec_accepted"] = row.get("spec_accepted", 0) + saved
+        row["generated"].extend(emitted)
+        row["n_generated"] += len(emitted)
+        row["remaining"] -= len(emitted)
+        self.positions[slot] += len(emitted)
+        self.occupied_steps += len(emitted)
+        self.spec_proposer.observe(slot, emitted)
+        # The chunk reads a row's token from last_dev: if this row falls
+        # back to the chunk, it must find the last emitted token there. In
+        # place: last_dev is a captured graph's buffer.
+        self.last_dev[slot] = emitted[-1]
+        if row["remaining"] <= 0:
+            blocks = self.kv.release(slot)
+            self.occupied[slot] = None
+            self.positions[slot] = 0
+            # The sync is immediate here, so the pool is fresh.
+            self._finish_retire_paged(row, slot, blocks, True)
 
     def _next_row(self, block):
         """The next queued row, or None. ``block``: wait for one (the
@@ -857,8 +1250,8 @@ class ContinuousEngine:
 
     def _loop_paged(self):
         """The asynchronous host loop: admit, dispatch one prefill segment
-        per prefilling slot and one decode chunk, then sync the previous
-        iteration's dispatches."""
+        per prefilling slot, the speculation round and one decode chunk,
+        then sync the previous iteration's dispatches."""
         with torch.inference_mode():
             while not self._stop.is_set():
                 batch = []
@@ -879,6 +1272,10 @@ class ContinuousEngine:
                         rec = self._advance_prefill_paged(i)
                         if rec is not None:
                             batch.append(rec)
+                # Speculation: sync last iteration's verifies, dispatch
+                # this iteration's (their rows then stay out of the
+                # chunk).
+                self._spec_tick()
                 rec = self._dispatch_chunk_paged()
                 if rec is not None:
                     batch.append(rec)
@@ -1086,6 +1483,20 @@ def main(argv=None):
                    help="continuous batching: prompts longer than this "
                         "prefill in segments of this size, interleaved "
                         "with decode chunks; power of two")
+    p.add_argument("--speculate", choices=SPECULATE_MODES, default="off",
+                   help="speculative decoding (paged continuous batching "
+                        "only): propose k tokens per row and verify them "
+                        "in one device call, accepting the longest "
+                        "greedily-matching prefix: the tokens of 'off', "
+                        "in fewer sequential device steps. 'ngram' "
+                        "proposes the continuation that followed the "
+                        "current suffix earlier in the request (host "
+                        "side); 'draft' runs a small derived draft model "
+                        "on its own paged slots. Per-row adaptive k backs "
+                        "off to the fused chunk on low acceptance")
+    p.add_argument("--speculate-k", type=int, default=8,
+                   help="speculative decoding: max proposed tokens per "
+                        "verify step (rounded down to a power of two)")
     p.add_argument("--warmup", choices=ws_warmup.WARMUP_MODES,
                    default="lazy",
                    help="'all' runs the continuous engine's whole shape "
@@ -1094,12 +1505,19 @@ def main(argv=None):
                         "flips ready; 'lazy' captures each window at its "
                         "first chunk (default)")
     args = p.parse_args(argv)
+    if args.speculate != "off" and not args.continuous_batching:
+        # Speculation rides the paged engine's verify and its host loop:
+        # degrade loudly, keep serving.
+        log.warning("--speculate=%s needs --continuous-batching with "
+                    "--kv-cache=paged; falling back to off", args.speculate)
+        args.speculate = "off"
     model = Model(config_from_args(args), device=args.device)
     if args.continuous_batching:
         model = ContinuousEngine(
             model, max_slots=args.max_slots, chunk=args.decode_chunk,
             prefill_chunk=args.prefill_chunk, kv_cache=args.kv_cache,
             kv_block_size=args.kv_block_size, kv_blocks=args.kv_blocks,
+            speculate=args.speculate, speculate_k=args.speculate_k,
         )
     server, state = start_server(model, port=args.port,
                                  warmup_mode=args.warmup)

@@ -13,7 +13,10 @@ sized for 8 slots (block 16): one 512-token prefill segment at offset
 2560 (window 4096), and a 16-step decode chunk over 8 rows (7 at
 position 1088, one at 3000), run eagerly and as 16 replays of the
 window's graph (``serving_graphs.PagedDecodeGraphs``, the engine's
-decode). For each region it prints one JSON line: host wall time, the
+decode), and speculation's verify as replays of its graph
+(``serving_graphs.PagedVerifyGraphs``, width 16, window 2048): 4 verifies
+of one row at position 1088 and 4 of 8 rows at positions 1040-2000. For
+each region it prints one JSON line: host wall time, the
 span on the card between CUDA events around it, summed device (kernel)
 time, the device's idle share of the wall time, the ops with the most
 device time and the device time by kind (the port's flash kernels,
@@ -179,6 +182,33 @@ def _profile_paged(model, rng, top, decode_steps, slots=8, block_size=16):
               top)
     _profiled(f"paged_decode_{decode_steps}_steps_{slots}_rows_graphed",
               run_graph_chunk, top)
+    del runner
+    _profile_verify(model, pools, tables.cpu().numpy(), rng, top,
+                    block_size)
+
+
+def _profile_verify(model, pools, tables, rng, top, block_size, width=16,
+                    window=2048, verifies=4):
+    """Speculation's verify at its serving shape: the replays of one
+    captured ``paged_verify_batch`` per batch size, over rows at decode
+    positions (one row at 1088; 8 rows spread over 1040-2000)."""
+    runner = serving_graphs.PagedVerifyGraphs(
+        model, pools, width, tables.shape[1], block_size)
+    for rows, poss in ((1, [1088]),
+                       (8, np.linspace(1040, 2000, 8).astype(int))):
+        poss = np.asarray(poss)
+        segs = rng.integers(0, model.cfg.vocab_size, (rows, width))
+        pos = poss[:, None] + np.arange(width)
+        bids = np.take_along_axis(tables[:rows], pos // block_size, 1)
+        args = (segs, poss, bids, pos % block_size, tables[:rows], window)
+        runner(*args)  # capture, and one replay
+
+        def run_verify():
+            for _ in range(verifies):
+                runner(*args)
+
+        _profiled(f"verify_{verifies}x_b{rows}_w{window}_graphed",
+                  run_verify, top)
 
 
 if __name__ == "__main__":

@@ -23,6 +23,13 @@ replayed:
                       window) as JAX compiles: a replay costs the host
                       microseconds against milliseconds of device work a
                       step). ``serve_cli.ContinuousEngine``'s decode.
+  PagedVerifyGraphs   speculation's batched verify
+                      (``transformer.paged_verify_batch``) per (batch
+                      bucket, window) over static buffers per batch
+                      bucket; the flash forward reads its per-row bases
+                      from device memory, so one graph serves every
+                      decode position. The engine's verify and the draft
+                      proposer's ingest.
   DenseDecodeGraphs   one ``transformer.decode_logits`` step per (batch,
                       window) over a dense cache kept per batch size (at
                       most ``MAX_CACHED_ROWS`` rows of them, least
@@ -262,6 +269,106 @@ class PagedDecodeGraphs:
             else:
                 self._step(window)
         return self.out[:steps]
+
+
+class PagedVerifyGraphs:
+    """Speculation's batched verify as replays of one captured call per
+    (batch, window).
+
+    ``model`` and ``pools`` are the engine's (or a draft proposer's).
+    Per batch bucket B, static buffers are allocated once, at its first
+    use, and never reassigned (its graphs hold their addresses): ``segs``
+    (B, ``width``), ``poss`` (B,), ``bids`` and ``offs`` (B, width),
+    ``tables`` (B, ``table_blocks``) and the ``greedy`` output (B,
+    width). A graph per (B, window) captures one
+    ``transformer.paged_verify_batch`` over them and copies its tokens
+    into ``greedy``. A (B, window) without a graph is captured first,
+    with every row pointed at the null block (zero positions, null write
+    targets and tables), so the capture's warm-up iterations write only
+    the null block. On the CPU the same call runs eagerly over the same
+    buffers."""
+
+    def __init__(self, model, pools, width, table_blocks, block_size):
+        self.model = model
+        self.pools = pools
+        self.width = width
+        self.table_blocks = table_blocks
+        self.block_size = block_size
+        self.device = model.device
+        self._buffers = {}
+        self.graphs = GraphSet(self.device)
+
+    @property
+    def on_cuda(self):
+        return self.device.type == "cuda"
+
+    def buffers(self, batch):
+        """The static buffers of batch bucket ``batch`` (made at first
+        use): a dict of ``segs``, ``poss``, ``bids``, ``offs``, ``tables``
+        and ``greedy``."""
+        if batch not in self._buffers:
+            def zeros(*shape):
+                return torch.zeros(shape, dtype=torch.long,
+                                   device=self.device)
+
+            w = self.width
+            self._buffers[batch] = {
+                "segs": zeros(batch, w), "poss": zeros(batch),
+                "bids": zeros(batch, w), "offs": zeros(batch, w),
+                "tables": zeros(batch, self.table_blocks),
+                "greedy": zeros(batch, w),
+            }
+        return self._buffers[batch]
+
+    def _run(self, batch, window):
+        buf = self.buffers(batch)
+        greedy = tf.paged_verify_batch(
+            self.model, self.pools, buf["segs"], buf["poss"], buf["bids"],
+            buf["offs"], buf["tables"], window, self.block_size,
+        )
+        buf["greedy"].copy_(greedy)
+
+    def _neutral(self, batch):
+        """Every row at position 0 with null write targets and tables."""
+        for buf in self.buffers(batch).values():
+            buf.zero_()
+
+    @torch.inference_mode()
+    def warm(self, batch, window):
+        """Make the graph of (``batch``, ``window``) ready: True if it was
+        captured already, False if this call captured it. On the CPU one
+        neutral call runs eagerly; returns None."""
+        if not self.on_cuda:
+            self._neutral(batch)
+            self._run(batch, window)
+            return None
+        if (batch, window) in self.graphs:
+            return True
+        self._neutral(batch)
+        self.graphs.capture((batch, window),
+                            lambda: self._run(batch, window))
+        return False
+
+    @torch.inference_mode()
+    def __call__(self, segs, poss, bids, offs, tables, window):
+        """The verify of the host arrays ``segs``, ``bids`` and ``offs``
+        (B × width), ``poss`` (B) and ``tables`` (B × table_blocks), B a
+        batch bucket, at ``window`` → the (B, width) greedy tokens: the
+        bucket's ``greedy`` buffer, valid until the next verify of the
+        same B (read it, or copy it behind the stream, first). The pools
+        are written in place."""
+        batch = len(segs)
+        if self.on_cuda and (batch, window) not in self.graphs:
+            self.warm(batch, window)
+        buf = self.buffers(batch)
+        for name, array in (("segs", segs), ("poss", poss), ("bids", bids),
+                            ("offs", offs), ("tables", tables)):
+            _stage(buf[name], array)
+        if self.on_cuda:
+            self.graphs.replay((batch, window))
+        else:
+            self._run(batch, window)
+        return buf["greedy"]
 
 
 class DenseDecodeGraphs:

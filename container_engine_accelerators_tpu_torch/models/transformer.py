@@ -7,7 +7,9 @@ Port of ``container_engine_accelerators_tpu/models/transformer.py``:
 RMSNorm, rotary embeddings, grouped-query attention, SwiGLU MLP, tied
 output head, a dense KV cache and batched prefill + decode, the paged
 serving programs (``paged_prefill_segment``, ``paged_decode_chunk`` and
-its one step ``paged_decode_step``), the static shape grid a server can
+its one step ``paged_decode_step``, speculation's ``paged_verify_batch``
+and its one-row form ``paged_verify_chunk``), the static shape grid a
+server can
 dispatch (``serving_shape_buckets``) and the training step (``loss_fn``,
 ``make_train_step``). Weights keep the
 JAX layout ((in, out) matrices, so every projection is ``x @ w``); the
@@ -15,7 +17,8 @@ stacked layer dim becomes a ``ModuleList``. Prefill and training
 attention go through ``ops.attention.flash_attention`` (the hand-written
 CUDA kernels, forward and backward, on CUDA tensors; their plain
 versions on CPU tensors), paged prefill segments through
-``ops.attention.flash_fwd`` at the segment's global ``q_base``; decode
+``ops.attention.flash_fwd`` at the segment's global ``q_base``, and the
+verify through it at per-row bases read from device memory; decode
 attention is plain PyTorch, as it is plain XLA in the JAX package. On
 CUDA the decode steps run as captured CUDA graphs, one per shape bucket
 (``models/serving_graphs.py``), the counterpart of the JAX package's
@@ -23,8 +26,8 @@ jitted serving programs. Parameters are trainable; the serving entry
 points run under ``torch.inference_mode()``.
 
 Not in this port yet: MoE FFNs, tensor/sequence/pipeline parallelism,
-ring attention, the dense continuous-batching programs and speculation's
-verify programs (see ROADMAP.md).
+ring attention and the dense continuous-batching programs (see
+ROADMAP.md).
 """
 
 import dataclasses
@@ -718,3 +721,87 @@ def paged_prefill_segment(model, pools, seg, offset, seg_ids, table_row,
     tok = logits.argmax()
     last_tok[slot] = tok
     return (tok, logits) if return_logits else tok
+
+
+@torch.inference_mode()
+def paged_verify_batch(model, pools, segs, poss, block_ids, offsets, tables,
+                       window, block_size, return_logits=False):
+    """Score many rows' speculative proposal windows in one call, the
+    counterpart of the JAX ``paged_verify_batch``.
+
+    segs: (B, W) int64, row b's [current token, proposals, padding] at
+    global positions [poss[b], poss[b] + W); poss (B,), block_ids and
+    offsets (B, W) (per-position write targets, ``NULL_BLOCK`` for
+    padding), tables (B, T) page tables, all on the model's device.
+    Padding rows carry null targets and all-null tables: they write only
+    the null block and their outputs are never read. Each layer writes
+    the rows' K/V with ``paged_write_positions``, gathers each row's own
+    pages [0, window) and runs ``flash_fwd`` causal at the per-row
+    bases ``[poss[b], 0, window]``, a (B, 3) device tensor: nothing is
+    read back to the host, so the call can be captured in a CUDA graph
+    (``serving_graphs.PagedVerifyGraphs``) that replays at new positions.
+    ``window`` must cover every row's [0, poss[b] + W).
+
+    JAX runs the rows as a ``lax.scan`` of the one-row program; here they
+    run as one batch. Rows write disjoint blocks (and the null block,
+    whose garbage every reader masks), so per row the arithmetic is the
+    same up to summation order. Returns the greedy (B, W) int64 tokens,
+    ``greedy[b, i]`` the argmax after ``segs[b, i]`` (with
+    ``return_logits``, also the (B, W, V) f32 logits). The pools are
+    written in place."""
+    batch, width = segs.shape
+    if window < width or (window % 128 and window & (window - 1)):
+        raise ValueError(
+            f"window ({window}) must be a power of two or 128-multiple "
+            f">= verify width ({width})"
+        )
+    if window % block_size:
+        raise ValueError(
+            f"window ({window}) must be a multiple of block_size "
+            f"({block_size})"
+        )
+    if width & (width - 1):
+        raise ValueError(f"verify width ({width}) must be a power of two")
+    hd = model.cfg.head_dim
+    n_win = window // block_size
+    device = segs.device
+    positions = poss[:, None] + torch.arange(width, device=device)[None, :]
+    base = torch.stack([
+        poss, torch.zeros_like(poss), torch.full_like(poss, window),
+    ], dim=1).to(torch.int32)
+    x = model.embed[segs]
+    for i, layer in enumerate(model.layers):
+        k_pool, v_pool = pools["k"][i], pools["v"][i]
+
+        def attend(q, k, v, k_pool=k_pool, v_pool=v_pool):
+            pa.paged_write_positions(k_pool, k, block_ids, offsets)
+            pa.paged_write_positions(v_pool, v, block_ids, offsets)
+            k_win = pa.gather_block_kv(k_pool, tables, n_win)
+            v_win = pa.gather_block_kv(v_pool, tables, n_win)
+            out, _ = flash_fwd(
+                q, k_win.to(q.dtype), v_win.to(q.dtype), causal=True,
+                sm_scale=1.0 / (hd ** 0.5), base=base,
+            )
+            return out
+
+        x, _ = layer(x, positions, attend)
+    logits = lm_head(x, model.ln_f.weight, model.embed)
+    greedy = logits.argmax(dim=-1)
+    return (greedy, logits) if return_logits else greedy
+
+
+def paged_verify_chunk(model, pools, seg, pos, block_ids, offsets,
+                       table_row, window, block_size):
+    """One row's verify, the counterpart of the JAX ``paged_verify_chunk``:
+    seg (1, W) at global positions [pos, pos + W), block_ids and offsets
+    (W,), table_row (T,); ``pos`` an int or a 0-d device tensor. The
+    one-row ``paged_verify_batch``. Returns the greedy (W,) tokens; the
+    pools are written in place."""
+    batch = seg.shape[0]
+    if batch != 1:
+        raise ValueError(f"one row per verify call, got batch {batch}")
+    poss = torch.as_tensor(pos, dtype=torch.long, device=seg.device)
+    return paged_verify_batch(
+        model, pools, seg, poss.reshape(1), block_ids[None], offsets[None],
+        table_row[None], window, block_size,
+    )[0]

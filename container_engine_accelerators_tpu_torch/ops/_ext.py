@@ -121,6 +121,7 @@ def _flash_lib(defines=()):
             i32, i32, i32, i32, i32, i32,       # B, Hq, Hkv, Sq, Sk, D
             i32, ctypes.c_float,                # causal, sm_scale
             i32, i32, i32,                      # q_base, k_base, kv_len
+            ptr,                                # base (B, 3) int32 or NULL
             ptr,                                # cudaStream_t
         ]
     return lib
@@ -187,10 +188,13 @@ def _check_shapes(q, k):
 
 
 def flash_fwd(q, k, v, out, lse, *, causal, sm_scale, q_base, k_base,
-              kv_len, defines=()):
+              kv_len, base=None, defines=()):
     """Launch the flash forward on PyTorch's current stream. Checks
     device, dtype, shape, contiguity and alignment, and raises on
     anything the kernel does not take or on a refused launch.
+    ``base`` (a contiguous int32 (B, 3) tensor on q's device, or None):
+    per batch row [q_base, k_base, kv_len], read by the kernel from
+    device memory in place of the three ints, which it then ignores.
     ``defines`` picks an instrumented build (see flash_phases.py)."""
     _check({"q": q, "k": k, "v": v, "out": out}, {"lse": lse}, q.device)
     batch, num_q_heads, seq_q, d = q.shape
@@ -198,6 +202,13 @@ def flash_fwd(q, k, v, out, lse, *, causal, sm_scale, q_base, k_base,
     _check_shapes(q, k)
     if out.shape != q.shape or lse.shape != q.shape[:3]:
         raise ValueError("out must be shaped like q and lse like q[:3]")
+    if base is not None and (
+            base.device != q.device or base.dtype != torch.int32
+            or tuple(base.shape) != (batch, 3) or not base.is_contiguous()):
+        raise ValueError(
+            f"base must be a contiguous int32 ({batch}, 3) tensor on "
+            f"{q.device}, got {base.dtype} {tuple(base.shape)} on "
+            f"{base.device}")
     lib = _flash_lib(defines)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
@@ -206,7 +217,8 @@ def flash_fwd(q, k, v, out, lse, *, causal, sm_scale, q_base, k_base,
             lse.data_ptr(), _DTYPE_CODE[q.dtype],
             batch, num_q_heads, num_kv_heads, seq_q, seq_k, d,
             int(bool(causal)), float(sm_scale),
-            q_base, k_base, kv_len, stream,
+            q_base, k_base, kv_len,
+            None if base is None else base.data_ptr(), stream,
         )
     if err:
         raise RuntimeError(

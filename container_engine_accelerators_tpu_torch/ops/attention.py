@@ -79,10 +79,19 @@ def decode_attention(q, k_cache, v_cache, length):
     return out.reshape(b, hq, 1, hd).to(q.dtype)
 
 
+def _per_row(x):
+    """An int as it is; a (B,) tensor as (B, 1, 1, 1), to broadcast one
+    value per batch row over (B, H, Sq, Sk)."""
+    return x.reshape(-1, 1, 1, 1) if torch.is_tensor(x) else x
+
+
 def _visible(seq_q, seq_k, causal, q_base, k_base, kv_len, device):
     """(Sq, Sk) bool: key column j is visible to query row i. The causal
     compare is at GLOBAL positions (q_base + i >= k_base + j); columns at
-    or past ``kv_len`` are the masked tail."""
+    or past ``kv_len`` are the masked tail. ``q_base``, ``k_base`` and
+    ``kv_len`` are ints, or (B,) tensors of one value per batch row, and
+    then the mask is (B, 1, Sq, Sk)."""
+    q_base, k_base, kv_len = (_per_row(x) for x in (q_base, k_base, kv_len))
     cols = torch.arange(seq_k, device=device)[None, :]
     vis = cols < (seq_k if kv_len is None else kv_len)
     if causal:
@@ -91,9 +100,21 @@ def _visible(seq_q, seq_k, causal, q_base, k_base, kv_len, device):
     return vis
 
 
+def _row_bases(base, seq_k, device):
+    """(q_base, k_base, kv_len), each a (B,) int64 tensor on ``device``,
+    from a (B, 3) ``base``; kv_len clamped to [0, seq_k] as the kernel
+    clamps it."""
+    q_base, k_base, kv_len = base.to(device=device, dtype=torch.long).unbind(1)
+    return q_base, k_base, kv_len.clamp(0, seq_k)
+
+
 def flash_fwd_reference(q, k, v, *, causal, sm_scale, q_base=0, k_base=0,
-                        kv_len=None):
+                        kv_len=None, base=None):
     """Plain version of the flash forward → (out, lse).
+
+    ``base`` (B, 3) integers, when given, are per batch row [q_base,
+    k_base, kv_len] in place of the three arguments (kv_len clamped to
+    [0, Sk]), as the kernel reads them from device memory.
 
     out: (B, Hq, Sq, D) in q's dtype; lse: (B, Hq, Sq) f32. The same
     arithmetic as the kernel: f32 scores scaled after the product,
@@ -115,6 +136,8 @@ def flash_fwd_reference(q, k, v, *, causal, sm_scale, q_base=0, k_base=0,
     batch, num_q_heads, seq_q, d = q.shape
     _, num_kv_heads, seq_k, _ = k.shape
     group = num_q_heads // num_kv_heads
+    if base is not None:
+        q_base, k_base, kv_len = _row_bases(base, seq_k, q.device)
     vis = _visible(seq_q, seq_k, causal, q_base, k_base, kv_len, q.device)
     out = torch.empty_like(q)
     lse = torch.empty(batch, num_q_heads, seq_q, dtype=torch.float32,
@@ -156,21 +179,29 @@ def _check_attention_shapes(q, k, v):
 
 
 def flash_fwd(q, k, v, *, causal, sm_scale, q_base=0, k_base=0,
-              kv_len=None):
+              kv_len=None, base=None):
     """Flash forward → (out, lse), the counterpart of JAX ``_flash_fwd``.
 
     ``q_base``/``k_base`` (ints) place the given rows/columns at global
     positions for the causal compare and the loop bound; ``kv_len``
-    masks key columns at or past it. CPU tensors take the plain version;
-    CUDA tensors launch the hand-written kernel (ops/csrc/flash_fwd.cu),
-    which raises on what it does not take: there is no fallback."""
+    masks key columns at or past it. ``base``, the counterpart of the
+    Pallas kernel's ``base_ref``, is a (B, 3) int32 tensor on q's device
+    of one [q_base, k_base, kv_len] per batch row, used in place of the
+    three arguments: the kernel reads it from device memory and nothing
+    here reads it on the host, so a CUDA graph that captured this call
+    follows the values the tensor holds at each replay. CPU tensors take
+    the plain version; CUDA tensors launch the hand-written kernel
+    (ops/csrc/flash_fwd.cu), which raises on what it does not take: there
+    is no fallback. ``flash_fwd_launches`` counts the calls that launch
+    the kernel here: not a call that a CUDA graph captures, nor its
+    replays."""
     global flash_fwd_launches
     _check_attention_shapes(q, k, v)
     devices = {q.device.type, k.device.type, v.device.type}
     if devices == {"cpu"}:
         return flash_fwd_reference(
             q, k, v, causal=causal, sm_scale=sm_scale, q_base=q_base,
-            k_base=k_base, kv_len=kv_len,
+            k_base=k_base, kv_len=kv_len, base=base,
         )
     if devices != {"cuda"}:
         raise ValueError(f"q/k/v must all be on cpu or all on cuda, got "
@@ -178,16 +209,23 @@ def flash_fwd(q, k, v, *, causal, sm_scale, q_base=0, k_base=0,
     from container_engine_accelerators_tpu_torch.ops import _ext
 
     seq_k = k.shape[2]
-    kv_len = seq_k if kv_len is None else max(0, min(int(kv_len), seq_k))
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     if q.numel() == 0:
         return out, lse
+    if base is None:
+        kv_len = seq_k if kv_len is None else max(0, min(int(kv_len), seq_k))
+        q_base, k_base = int(q_base), int(k_base)
+    else:
+        q_base = k_base = kv_len = 0  # read from ``base`` by the kernel
     _ext.flash_fwd(
         q, k, v, out, lse, causal=causal, sm_scale=sm_scale,
-        q_base=int(q_base), k_base=int(k_base), kv_len=kv_len,
+        q_base=q_base, k_base=k_base, kv_len=kv_len, base=base,
     )
-    flash_fwd_launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        # A call under capture records the launch into a graph; its
+        # replays launch it, and their callers count them.
+        flash_fwd_launches += 1
     return out, lse
 
 

@@ -13,6 +13,17 @@
 // log(max(l, 1e-30)) in f32. A masked key contributes p = 0, so a row that
 // sees no key gives out = 0 and lse = -1e30 whatever the tiling.
 //
+// The base. The Pallas kernel reads [q_base, k_base, kv_len] at run time
+// from `base_ref`, scalar prefetch in device memory, so the speculative
+// verify can run it at a traced decode position. Here the launch takes
+// either the three as by-value arguments (every training and prefill
+// caller) or `base`, a device int32 (B, 3) array of one [q_base, k_base,
+// kv_len] per batch row. With `base`, a block reads its row's three values
+// at entry and clamps kv_len to [0, Sk] itself; nothing on the host reads
+// them, so a CUDA graph that captured the launch attends at whatever
+// position the array holds when it replays. The TMA maps and the grid do
+// not depend on the base.
+//
 // What bounds it on H100. Work = 4 * D FLOPs per attended (q, k) pair (QK^T
 // and PV, 2 * D each): B * Hq * Sq * Sk pairs non-causal, about half of that
 // causal at Sq = Sk with q_base = 0. Bytes = q + k + v + out + lse, each once.
@@ -156,8 +167,9 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v,
                       uint16_t* __restrict__ out, float* __restrict__ lse,
-                      int hq, int hkv, int sq, int causal, float scale_log2,
-                      int q_base, int k_base, int kv_len) {
+                      int hq, int hkv, int sq, int sk, int causal,
+                      float scale_log2, int q_base_arg, int k_base_arg,
+                      int kv_len_arg, const int* __restrict__ base) {
   using L = Layout<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) &
@@ -171,14 +183,20 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int bh = blockIdx.y;
   const int kv_head = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
 
-  // Key columns [0, n_cols) hold every key this tile can see: up to the
-  // causal diagonal of its last real row, in global positions.
-  const int q_last = q_base + min(q0 + kBlockQ, sq) - 1;
-  int n_cols = kv_len;
-  if (causal) n_cols = max(0, min(kv_len, q_last - k_base + 1));
-  const int n_tiles = (n_cols + kBlockK - 1) / kBlockK;
-
+  // The row's base, read once by one thread before the barrier below: the
+  // producer and the consumers then walk the same number of tiles.
+  __shared__ int base_s[3];
   if (threadIdx.x == 0) {
+    if (base != nullptr) {
+      const int* row = base + 3 * (bh / hq);
+      base_s[0] = row[0];
+      base_s[1] = row[1];
+      base_s[2] = min(max(row[2], 0), sk);
+    } else {
+      base_s[0] = q_base_arg;
+      base_s[1] = k_base_arg;
+      base_s[2] = kv_len_arg;
+    }
     sm90::mbar_init(bar_q, 1);
     for (int s = 0; s < kStages; ++s) {
       sm90::mbar_init(full_k + s, 1);
@@ -188,6 +206,14 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     sm90::mbar_init_fence();
   }
   __syncthreads();
+  const int q_base = base_s[0], k_base = base_s[1], kv_len = base_s[2];
+
+  // Key columns [0, n_cols) hold every key this tile can see: up to the
+  // causal diagonal of its last real row, in global positions.
+  const int q_last = q_base + min(q0 + kBlockQ, sq) - 1;
+  int n_cols = kv_len;
+  if (causal) n_cols = max(0, min(kv_len, q_last - k_base + 1));
+  const int n_tiles = (n_cols + kBlockK - 1) / kBlockK;
 
   if (threadIdx.x < 128) {
     // Producer. Round r of a stage waits for the consumers to release
@@ -399,13 +425,18 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
                      float* __restrict__ lse, int hq, int hkv, int sq, int sk,
                      int causal, float sm_scale, int q_base, int k_base,
-                     int kv_len) {
+                     int kv_len, const int* __restrict__ base) {
   constexpr int kPer = D / 32;
   const int lane = threadIdx.x % 32;
   const int row = blockIdx.x * kRowsPerBlock + threadIdx.x / 32;
   if (row >= sq) return;
   const int bh = blockIdx.y;
   const int b = bh / hq, kvh = (bh % hq) / (hq / hkv);
+  if (base != nullptr) {
+    q_base = base[3 * b];
+    k_base = base[3 * b + 1];
+    kv_len = min(max(base[3 * b + 2], 0), sk);
+  }
   const float* kg = k + ((size_t)b * hkv + kvh) * sk * D;
   const float* vg = v + ((size_t)b * hkv + kvh) * sk * D;
   const size_t q_off = ((size_t)bh * sq + row) * D;
@@ -448,7 +479,7 @@ template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* out, float* lse, int batch, int hq, int hkv,
                         int sq, int sk, int causal, float sm_scale,
-                        int q_base, int k_base, int kv_len,
+                        int q_base, int k_base, int kv_len, const int* base,
                         cudaStream_t stream) {
   using L = Layout<D>;
   static std::atomic<uint64_t> configured{0};
@@ -468,8 +499,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   }
   const dim3 grid((sq + kBlockQ - 1) / kBlockQ, batch * hq);
   flash_fwd_sm90_kernel<D><<<grid, kThreads, L::kBytes, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<uint16_t*>(out), lse, hq, hkv, sq,
-      causal, sm_scale * kLog2e, q_base, k_base, kv_len);
+      tm_q, tm_k, tm_v, static_cast<uint16_t*>(out), lse, hq, hkv, sq, sk,
+      causal, sm_scale * kLog2e, q_base, k_base, kv_len, base);
   return cudaSuccess;
 }
 
@@ -477,30 +508,33 @@ template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* lse, int dtype, int batch, int hq, int hkv, int sq,
                    int sk, int causal, float sm_scale, int q_base, int k_base,
-                   int kv_len, cudaStream_t stream) {
+                   int kv_len, const int* base, cudaStream_t stream) {
   if (dtype == 0) {
     return launch_bf16<D>(q, k, v, out, lse, batch, hq, hkv, sq, sk, causal,
-                          sm_scale, q_base, k_base, kv_len, stream);
+                          sm_scale, q_base, k_base, kv_len, base, stream);
   }
   const dim3 grid((sq + kRowsPerBlock - 1) / kRowsPerBlock, batch * hq);
   flash_fwd_f32_kernel<D><<<grid, kRowsPerBlock * 32, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), lse, hq, hkv,
-      sq, sk, causal, sm_scale, q_base, k_base, kv_len);
+      sq, sk, causal, sm_scale, q_base, k_base, kv_len, base);
   return cudaSuccess;
 }
 
 }  // namespace
 
 // dtype: 0 = bf16 (the Hopper kernel), 1 = f32 (check kernel). Tensors are
-// contiguous and 16-byte aligned (the Python wrapper checks). Launches on
+// contiguous and 16-byte aligned (the Python wrapper checks). `base`, when
+// not null, is a device int32 (batch, 3) array of [q_base, k_base, kv_len]
+// per batch row, read by the kernel in place of the three ints. Launches on
 // `stream`, allocates nothing, and returns the first error of the set-up
 // or cudaGetLastError() after the launch (0 on success).
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* out, float* lse, int dtype, int batch,
                                 int hq, int hkv, int sq, int sk, int d,
                                 int causal, float sm_scale, int q_base,
-                                int k_base, int kv_len, void* stream) {
+                                int k_base, int kv_len, const int* base,
+                                void* stream) {
   if ((dtype != 0 && dtype != 1) || hkv <= 0 || hq % hkv) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -508,13 +542,13 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
   cudaError_t err;
   if (d == 32) {
     err = launch<32>(q, k, v, out, lse, dtype, batch, hq, hkv, sq, sk, causal,
-                     sm_scale, q_base, k_base, kv_len, st);
+                     sm_scale, q_base, k_base, kv_len, base, st);
   } else if (d == 64) {
     err = launch<64>(q, k, v, out, lse, dtype, batch, hq, hkv, sq, sk, causal,
-                     sm_scale, q_base, k_base, kv_len, st);
+                     sm_scale, q_base, k_base, kv_len, base, st);
   } else if (d == 128) {
     err = launch<128>(q, k, v, out, lse, dtype, batch, hq, hkv, sq, sk,
-                      causal, sm_scale, q_base, k_base, kv_len, st);
+                      causal, sm_scale, q_base, k_base, kv_len, base, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -17,9 +17,6 @@ pool tensor it is given IN PLACE, as ``transformer.decode_logits`` does
 with the dense cache. Reads gather a window of a row's pages into the
 dense window layout, so paged decode is the dense ``decode_attention`` on
 bit-identical values.
-
-``paged_write_positions`` (speculation's scatter) is not ported yet
-(ROADMAP.md).
 """
 
 import torch
@@ -80,6 +77,22 @@ def paged_write(pool, new, block_ids, offsets):
     hd) ← new (B, H, 1, hd) at block ``block_ids[b]``, in-block offset
     ``offsets[b]``. Callers redirect inactive rows to ``NULL_BLOCK``."""
     pool[block_ids, :, offsets, :] = new[:, :, 0, :].to(pool.dtype)
+
+
+def paged_write_positions(pool, new, block_ids, offsets):
+    """Write a width-W segment per row at per-position targets, in place:
+    the scatter of speculation's verify step.
+
+    pool (num_blocks, H, bs, hd) ← new (B, H, W, hd): position i of row
+    b lands at block ``block_ids[b, i]``, in-block offset ``offsets[b,
+    i]`` (both (B, W) integer tensors). Unlike ``paged_write_segment``
+    the segment need not be block-aligned (a verify starts at any decode
+    position). Padding positions, padding rows and positions past the
+    context end carry ``NULL_BLOCK``: garbage into the garbage block. JAX
+    (``paged_write_positions``) writes one row; the batched verify here
+    writes all its rows in one ``index_put_``, which reads nothing back
+    to the host and so can be captured in a CUDA graph."""
+    pool[block_ids, :, offsets, :] = new.transpose(1, 2).to(pool.dtype)
 
 
 def paged_write_segment(pool, new, block_ids):

@@ -18,16 +18,24 @@ engine's grid from ``transformer.serving_shape_buckets`` and
                                         full prefill chunk, as in JAX
   pdecode/w{window}                     the decode graph of each window
                                         (``PagedDecodeGraphs.warm``)
+  verify/b{B}/c{C}/w{window}            a speculating engine's verify
+                                        graph per (batch bucket, width,
+                                        window) (``PagedVerifyGraphs.warm``)
+  draft_prefill/..., draft_ingest/...,  a draft proposer's own grid
+  draft_chunk/w{window}                 (group "draft",
+                                        ``DraftProposer.warm_tasks``)
 
 Deliberate differences from JAX:
 
   * one decode task per window, not per (steps, window): the port
-    captures one step per window and replays it ``steps`` times;
+    captures one step per window and replays it ``steps`` times (the
+    draft's propose chunk likewise: ``draft_chunk/w{window}``);
   * no scratch pools: JAX runs the tasks on zeroed copies of the cache,
     and a copy of a full-width pool would double it on the card. Every
     task here writes only the null block: segments whose block ids and
     page table are all ``NULL_BLOCK``, decode graphs captured with every
-    row inactive; first tokens land in a scratch vector, not the
+    row inactive, verify graphs with every row's write targets and table
+    null; first tokens land in a scratch vector, not the
     engine's ``last_dev``, and the manager's tables and radix index are
     not touched;
   * ``cache_hits``/``cache_misses`` count the engine's graph cache: a
@@ -35,10 +43,9 @@ Deliberate differences from JAX:
     CPU, which has no graphs).
 
 The tasks run on the engine-loop thread (``ContinuousEngine.run_on_loop``),
-where every capture of the engine's graphs happens. Not ported:
-speculation's verify grid and the draft model's tasks (speculation is not
-ported yet), the ``warmup_done`` event (the event stream is not ported),
-the AOT-only path of a multi-host engine and the ``max_tasks`` cap.
+where every capture of the engine's graphs happens. Not ported: the
+``warmup_done`` event (the event stream is not ported), the AOT-only path
+of a multi-host engine and the ``max_tasks`` cap.
 """
 
 import collections
@@ -54,8 +61,11 @@ log = logging.getLogger("warmstart.warmup")
 
 WARMUP_MODES = ("all", "lazy")
 
-# A task runs as fn(*args, **kwargs).
-WarmTask = collections.namedtuple("WarmTask", "label fn args kwargs")
+# A task runs as fn(*args, **kwargs); ``group`` is the scratch group of
+# the JAX plan: "engine" (the engine's own pools and graphs) or "draft" (a
+# draft proposer's).
+WarmTask = collections.namedtuple("WarmTask", "label fn args kwargs group",
+                                  defaults=("engine",))
 
 
 def warm_plan(engine):
@@ -70,13 +80,18 @@ def _warm_plan_paged(engine):
     window, want_logits)`` (a segment may start at any block-aligned
     reused offset, so every window >= the segment is dispatchable; mid
     segments only ever run at the full ``prefill_chunk``), then one
-    decode graph per window. No dense program is enumerated: a paged
-    engine never dispatches one. Allocates the tasks' operands (zeros,
-    a few per segment length) on the engine's device."""
+    decode graph per window; a speculating engine adds its verify graph
+    per (batch bucket, width, window), JAX's labels, and a draft
+    proposer's own tasks. No dense program is enumerated: a paged engine
+    never dispatches one. Allocates the tasks' operands (zeros, a few per
+    segment length) on the engine's device."""
     cfg = engine.cfg
     bs = engine.kv.block_size
-    buckets = tf.serving_shape_buckets(cfg, engine.prefill_chunk,
-                                       engine.chunk, block_size=bs)
+    speculating = engine.spec_proposer is not None
+    buckets = tf.serving_shape_buckets(
+        cfg, engine.prefill_chunk, engine.chunk, block_size=bs,
+        speculate_widths=[engine._spec_width] if speculating else None,
+    )
     device = engine.device
 
     def null_ids(n):
@@ -105,6 +120,21 @@ def _warm_plan_paged(engine):
     for window in buckets["windows"]:
         tasks.append(WarmTask(f"pdecode/w{window}", engine.decode_graphs.warm,
                               (window,), {}))
+    if speculating:
+        # Every (width, window) pair a verify can reach (it starts at any
+        # decode position), per power-of-two batch bucket of the rows
+        # speculating in one round.
+        from container_engine_accelerators_tpu_torch.models import serve_cli
+
+        for B in serve_cli.verify_batch_sizes(engine.max_slots):
+            for C, window in buckets["verify"]:
+                tasks.append(WarmTask(
+                    f"verify/b{B}/c{C}/w{window}", engine.verify_graphs.warm,
+                    (B, window), {},
+                ))
+        warm = getattr(engine.spec_proposer, "warm_tasks", None)
+        if warm is not None:
+            tasks.extend(warm())
     return tasks
 
 
@@ -142,7 +172,7 @@ def warm_engine(engine, mode="all"):
         with torch.inference_mode():
             for task in tasks:
                 out = task.fn(*task.args, **task.kwargs)
-                if isinstance(out, bool):  # a decode graph on CUDA
+                if isinstance(out, bool):  # a graph on CUDA
                     cache["hits" if out else "misses"] += 1
         if engine.device.type == "cuda":
             # dur_s covers the device work the tasks enqueued.

@@ -362,6 +362,150 @@ def test_graphs_stay_valid_across_a_pool_reset(gen):
     assert stats["eager_chunks_on_cuda"] == 0
 
 
+# -- the base from device memory (speculation's verify) -----------------------
+
+BASE_CASES = ("q_base_window", "kv_len_rows_past_keys", "noncausal_kv_len",
+              "future_keys", "diagonal_mid_tile", "kv_len_in_first_tile",
+              "d32_ragged", "paged_sq16", "paged_sq64")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", BASE_CASES)
+def test_device_base_is_bit_equal_to_the_int_arguments(gen, name, dtype):
+    """The kernel reading [q_base, k_base, kv_len] from a device (B, 3)
+    tensor gives the bits of the by-value form, at the tile edges, and
+    counts one launch."""
+    (b, hq, hkv, sq, sk, d), causal, kw = FWD_CASES[name]
+    q = torch.randn(b, hq, sq, d, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(b, hkv, sk, d, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(b, hkv, sk, d, generator=gen, device="cuda").to(dtype)
+    row = [kw.get("q_base", 0), kw.get("k_base", 0), kw.get("kv_len", sk)]
+    base = torch.tensor([row] * b, dtype=torch.int32, device="cuda")
+    want = attention.flash_fwd(q, k, v, causal=causal, sm_scale=d ** -0.5,
+                               **kw)
+    before = attention.flash_fwd_launches
+    got = attention.flash_fwd(q, k, v, causal=causal, sm_scale=d ** -0.5,
+                              base=base)
+    torch.cuda.synchronize()
+    assert attention.flash_fwd_launches == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_per_row_bases_in_one_launch_equal_per_row_launches(gen, dtype):
+    """One launch over B rows at their own bases (a verify's decode
+    positions, a k_base, a kv_len inside the window, one past Sk and one
+    below 0, both clamped by the kernel) equals B launches at int bases,
+    bit for bit."""
+    rows = [[1040, 0, 2048], [2000, 0, 2048], [3, 0, 2048],
+            [1500, 64, 700], [1800, 0, 5000], [900, 0, -7]]
+    b, d = len(rows), 128
+    q = torch.randn(b, 8, 16, d, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(b, 2, 2048, d, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(b, 2, 2048, d, generator=gen, device="cuda").to(dtype)
+    base = torch.tensor(rows, dtype=torch.int32, device="cuda")
+    out, lse = attention.flash_fwd(q, k, v, causal=True, sm_scale=d ** -0.5,
+                                   base=base)
+    for i, (qb, kb, kv) in enumerate(rows):
+        one, one_lse = attention.flash_fwd(
+            q[i:i + 1], k[i:i + 1], v[i:i + 1], causal=True,
+            sm_scale=d ** -0.5, q_base=qb, k_base=kb, kv_len=kv)
+        assert torch.equal(out[i:i + 1], one), rows[i]
+        assert torch.equal(lse[i:i + 1], one_lse), rows[i]
+    assert not out[5].any() and (lse[5] == attention.NEG_INF).all()
+
+
+def _verify_setup(gen, seed, poss, width=16):
+    """A small f32 model, random pools and the verify operands of rows at
+    ``poss`` over disjoint page tables (block 16)."""
+    cfg = tf.TransformerConfig(**SMALL)
+    model = tf.init_params(cfg, device="cuda", seed=seed)
+    bs, per_row = 16, cfg.max_seq_len // 16
+    rows = len(poss)
+    shape = (cfg.n_layers, 1 + rows * per_row, cfg.n_kv_heads, bs,
+             cfg.head_dim)
+    pools = {n: torch.randn(shape, generator=gen, device="cuda")
+             for n in ("k", "v")}
+    tables = (1 + torch.arange(rows * per_row)).view(rows, per_row)
+    segs = torch.randint(0, cfg.vocab_size, (rows, width), generator=gen,
+                         device="cuda").cpu()
+
+    def targets(poss):
+        pos = torch.tensor(poss)[:, None] + torch.arange(width)
+        return torch.gather(tables, 1, pos // bs), pos % bs
+
+    return model, pools, tables, segs, targets
+
+
+def test_verify_graph_follows_poss_changed_after_capture(gen):
+    """A verify captured once and replayed at two sets of positions: each
+    replay's logits equal the eager batch's at those positions, 0 apart,
+    and the two differ: the kernel reads its base at replay, not at
+    capture."""
+    poss_a, poss_b, window = [20, 70], [45, 100], 128
+    model, pools, tables, segs, targets = _verify_setup(gen, 11, poss_a)
+    eager_pools = {n: p.clone() for n, p in pools.items()}
+    buf = {"segs": segs.cuda(), "poss": torch.zeros(2, dtype=torch.long,
+                                                    device="cuda"),
+           "bids": torch.zeros(2, 16, dtype=torch.long, device="cuda"),
+           "offs": torch.zeros(2, 16, dtype=torch.long, device="cuda"),
+           "tables": torch.zeros_like(tables).cuda()}
+    kept = {}
+
+    def run():
+        kept["out"] = tf.paged_verify_batch(
+            model, pools, buf["segs"], buf["poss"], buf["bids"], buf["offs"],
+            buf["tables"], window, 16, return_logits=True)
+
+    graphs = serving_graphs.GraphSet("cuda")
+    graphs.capture("verify", run)  # at positions 0, null targets
+    logits = []
+    for poss in (poss_a, poss_b):
+        bids, offs = targets(poss)
+        for name, value in (("poss", torch.tensor(poss)), ("bids", bids),
+                            ("offs", offs), ("tables", tables)):
+            buf[name].copy_(value)
+        graphs.replay("verify")
+        greedy, got = (t.clone() for t in kept["out"])
+        want_greedy, want = tf.paged_verify_batch(
+            model, eager_pools, segs.cuda(), torch.tensor(poss).cuda(),
+            bids.cuda(), offs.cuda(), tables.cuda(), window, 16,
+            return_logits=True)
+        torch.cuda.synchronize()
+        assert (got - want).abs().max().item() == 0.0, poss
+        assert torch.equal(greedy, want_greedy)
+        logits.append(got)
+    assert not torch.equal(logits[0], logits[1])
+    assert graphs.captures == 1 and graphs.replays == 2
+
+
+def test_verify_replay_equals_the_eager_batch(gen):
+    """PagedVerifyGraphs at batch buckets 2 and 4 (two padding rows):
+    the replay's tokens equal the eager ``paged_verify_batch``'s, and the
+    pools come out bit for bit alike but for the null block; every call
+    after the first of a (batch, window) is a replay."""
+    poss = [3, 50, 90]
+    model, pools, tables, segs, targets = _verify_setup(gen, 12, poss)
+    eager_pools = {n: p.clone() for n, p in pools.items()}
+    runner = serving_graphs.PagedVerifyGraphs(model, pools, 16,
+                                              tables.shape[1], 16)
+    bids, offs = targets(poss)
+    for rows, window in ((2, 128), (3, 128), (2, 128)):
+        batch = 1 << (rows - 1).bit_length()
+        pad = batch - rows
+        host = [torch.cat([t[:rows], torch.zeros((pad,) + t.shape[1:],
+                                                 dtype=t.dtype)])
+                for t in (segs, torch.tensor(poss), bids, offs, tables)]
+        got = runner(*(t.numpy() for t in host), window).clone()
+        want = tf.paged_verify_batch(model, eager_pools,
+                                     *(t.cuda() for t in host), window, 16)
+        torch.cuda.synchronize()
+        assert torch.equal(got[:rows], want[:rows])
+    assert (runner.graphs.captures, runner.graphs.replays) == (2, 3)
+    for name in ("k", "v"):
+        assert torch.equal(pools[name][:, 1:], eager_pools[name][:, 1:])
+
+
 # Backward kernels vs flash_bwd_reference, per gradient: the relative L2
 # error and the worst row against its own norm plus the typical row norm
 # (chip_smoke.grad_errors). bf16: both round p and ds at the same values
