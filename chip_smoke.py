@@ -8,11 +8,13 @@
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card, serves full-width
 Llama-3-8B (all 32 layers, random weights from seed 0) through the
-port's HTTP server, one request at a time and through the paged
+port's HTTP server, one request at a time, through the paged
 continuous-batching engine (warmed with ``--warmup=all``: every decode
 window's CUDA graph captured before ready), with speculative decoding
 (``--speculate ngram|draft``: every batched verify the replay of its
-graph, the flash kernel at per-row bases read from device memory), and
+graph, the flash kernel at per-row bases read from device memory),
+through the dense continuous-batching engine (the default
+``--kv-cache``) and the ``--batch-window-ms`` micro-batcher, and
 trains it at full width
 (depth cut to 8 layers) through ``make_train_step``, checking that every
 prefill, every prefill segment and every training step went through the
@@ -25,14 +27,18 @@ Phases: env, build, kernel (forward, one line per case; the host-bound
 shapes also timed as a CUDA graph of 20 launches), bwd_kernel (backward,
 one line per case), small_parity (a tiny f32 model on the card against
 the same weights on the CPU), paged_small_parity (a tiny f32 paged engine
-on the card against dense generate), serve, serve_logits (prefill logits
+on the card against dense generate), dense_small_parity (the dense engine
+on that model against dense generate and the paged engine), serve,
+serve_logits (prefill logits
 through the kernel vs plain attention), serve_paged (the paged engine
 behind the server: shared prefixes and a long prompt prefilled between
 decode chunks), spec_small_parity (a tiny f32 engine's tokens with
 speculate ngram and draft equal to off), paged_graph_parity (the graphed
 decode chunk against the eager one on the full-width model), serve_spec
 (speculative decoding, ngram, off and draft, on the full-width paged
-engine: every verify a replay, streams held to off's), train_grads
+engine: every verify a replay, streams held to off's), serve_dense (the
+dense engine behind the server on serve_paged's traffic, then the
+micro-batcher; streams held to ``Model.generate``'s), train_grads
 (loss and every gradient through the kernels vs plain attention), train
 (5 timed steps), train_cli, kernels (the summary line), then the card's
 name and power limit, then the result.
@@ -211,7 +217,8 @@ def time_ms(fn, torch, min_iters=3, budget_ms=300.0):
 # time (PERF.md): each is also timed as a CUDA graph of GRAPH_LAUNCHES
 # launches, which has no host work between the kernels.
 GRAPH_MS_CASES = ("causal_512_b2", "q_base_1536", "paged_sq16_qb1040",
-                  "paged_sq64_qb2000", "verify_b8_sq16", "draft_d32_sq512")
+                  "paged_sq64_qb2000", "verify_b8_sq16", "draft_d32_sq512",
+                  "dense_seg_sq512_qb2560")
 GRAPH_LAUNCHES = 20
 
 
@@ -306,6 +313,12 @@ KERNEL_CASES = [
     # draft's head dim 32, its 512-token segment).
     ("draft_d32_sq512", 1, 512, 512, True, 0, 0, None, 32, 8, 32,
      "bfloat16"),
+    # The dense engine's prefill segment as it calls the kernel: the 512
+    # rows at q_base 2560 over the slot's whole cache row (Sk 8192, the
+    # context), kv_len the segment's window (4096); the causal bound stops
+    # the K/V walk at 3072.
+    ("dense_seg_sq512_qb2560", 1, 512, 8192, True, 2560, 0, 4096, 32, 8,
+     128, "bfloat16"),
 ]
 MAIN_CASE = "causal_2048"
 
@@ -717,6 +730,7 @@ def serve_paged(torch, np, tf, serve_cli, attention, card, model):
     torch.cuda.reset_peak_memory_stats()
     engine = serve_cli.ContinuousEngine(
         model, max_slots=8, chunk=32, prefill_chunk=512, kv_block_size=16,
+        kv_cache="paged",
     )
     # Each prefill call: (offset, segment length, true_pos, chunks
     # dispatched before it); each final segment's (tokens, logits).
@@ -828,28 +842,8 @@ def serve_paged(torch, np, tf, serve_cli, attention, card, model):
              f"with {chunks_during_long} decode chunks between them, want 6 "
              f"segments interleaved with decode")
 
-    # Each request's first token and paged-prefill logits vs the dense
-    # forward (the kernel at q_base 0 over the whole context) on the same
-    # context. bf16: the two place their q and K/V tiles differently.
-    logit_rows = {}
-    for name, prompt in prompts.items():
-        paged = _final_logits(finals, prompt)
-        with torch.inference_mode():
-            dense = tf.forward(model.model,
-                               torch.as_tensor([prompt], device="cuda"),
-                               logits_at="last")[0, 0]
-        first = results[name]["tokens"][0][len(prompt)]
-        err = (paged - dense).abs().max().item()
-        gap = (dense.max() - dense[first]).item()
-        logit_rows[name] = {"max_abs_err": err, "dense_gap_of_first": gap,
-                            "first_is_paged_argmax":
-                                first == int(paged.argmax())}
-        if not torch.isfinite(paged).all() or err > SERVE_LOGITS_ATOL or \
-                gap > SERVE_LOGITS_ATOL or \
-                not logit_rows[name]["first_is_paged_argmax"]:
-            emit({"phase": "serve_paged_logits", name: logit_rows[name]})
-            fail(f"serve_paged: {name}'s paged-prefill logits or first "
-                 f"token disagree with the dense forward")
+    logit_rows = _hold_final_logits(torch, tf, model, "serve_paged",
+                                    prompts, results, finals)
     witness = segment_witness(torch, tf, attention, model, engine,
                               prompts["shared_0"], len(prefix),
                               _final_logits(finals, prompts["shared_0"]))
@@ -957,6 +951,34 @@ def segment_witness(torch, tf, attention, model, engine, prompt, offset,
     }
 
 
+def _hold_final_logits(torch, tf, model, phase, prompts, results, finals):
+    """Each request's first token and kept final-segment logits vs the
+    dense forward (the kernel at q_base 0 over the whole context) on the
+    same context, within SERVE_LOGITS_ATOL: bf16, and the two place their
+    q and K/V tiles differently (a segment's rows are computed apart from
+    the rows before them). Returns the readings by request."""
+    logit_rows = {}
+    for name, prompt in prompts.items():
+        kept = _final_logits(finals, prompt)
+        with torch.inference_mode():
+            dense = tf.forward(model.model,
+                               torch.as_tensor([prompt], device="cuda"),
+                               logits_at="last")[0, 0]
+        first = results[name]["tokens"][0][len(prompt)]
+        err = (kept - dense).abs().max().item()
+        gap = (dense.max() - dense[first]).item()
+        logit_rows[name] = {"max_abs_err": err, "dense_gap_of_first": gap,
+                            "first_is_kept_argmax":
+                                first == int(kept.argmax())}
+        if not torch.isfinite(kept).all() or err > SERVE_LOGITS_ATOL or \
+                gap > SERVE_LOGITS_ATOL or \
+                not logit_rows[name]["first_is_kept_argmax"]:
+            emit({"phase": f"{phase}_logits", name: logit_rows[name]})
+            fail(f"{phase}: {name}'s final prefill-segment logits or first "
+                 f"token disagree with the dense forward")
+    return logit_rows
+
+
 def _final_logits(finals, prompt):
     """The kept logits of the final prefill segment of ``prompt``."""
     for seg, off, true_pos, logits in finals:
@@ -976,7 +998,8 @@ def paged_small_parity(torch, np, tf, serve_cli, attention):
                                max_seq_len=128, dtype="float32")
     model = serve_cli.Model(cfg, seed=1, device="cuda")
     engine = serve_cli.ContinuousEngine(model, max_slots=2, chunk=4,
-                                        prefill_chunk=32, kv_block_size=16)
+                                        prefill_chunk=32, kv_block_size=16,
+                                        kv_cache="paged")
     rng = np.random.default_rng(2)
     prefix = rng.integers(0, cfg.vocab_size, 40).tolist()
     cases = [(prefix + rng.integers(0, cfg.vocab_size, 3 + i).tolist(), 8)
@@ -1010,6 +1033,65 @@ def paged_small_parity(torch, np, tf, serve_cli, attention):
             kvs["prefix_hit_tokens"] <= 0:
         fail("the f32 paged engine on the card disagrees with dense "
              "generate, or skipped the kernel or the radix cache")
+
+
+def dense_small_parity(torch, np, tf, serve_cli, attention):
+    """The small f32 model of ``paged_small_parity`` on the card: the
+    dense engine (the default ``kv_cache``) returns exactly dense
+    ``tf.generate``'s greedy tokens and the paged engine's, for requests
+    submitted concurrently, more of them than slots: a prompt prefilled
+    in three segments (its chunks under masked writes), shorter ones in
+    one call, and a one-token request. Every prefill runs the kernel once
+    per layer; every chunk replays its graph."""
+    cfg = tf.TransformerConfig(vocab_size=512, d_model=256, n_layers=2,
+                               n_heads=2, n_kv_heads=1, d_ff=768,
+                               max_seq_len=128, dtype="float32")
+    model = serve_cli.Model(cfg, seed=1, device="cuda")
+    rng = np.random.default_rng(4)
+    cases = [(rng.integers(0, cfg.vocab_size, 70).tolist(), 10)]
+    cases += [(rng.integers(0, cfg.vocab_size, 3 + 9 * i).tolist(), 8 + i)
+              for i in range(3)]
+    cases.append((rng.integers(0, cfg.vocab_size, 5).tolist(), 1))
+    outs, row = {}, {"phase": "dense_small_parity", "requests": len(cases)}
+    for kv_cache in ("dense", "paged"):
+        engine = serve_cli.ContinuousEngine(
+            model, max_slots=2, chunk=4, prefill_chunk=32, kv_block_size=16,
+            kv_cache=kv_cache)
+        before = attention.flash_fwd_launches
+        try:
+            with concurrent.futures.ThreadPoolExecutor(len(cases)) as pool:
+                futures = [pool.submit(engine.generate, [p], n)
+                           for p, n in cases]
+                outs[kv_cache] = [f.result(timeout=300)[0] for f in futures]
+        finally:
+            engine.shutdown()
+        stats, graphs = engine.stats(), engine.graph_stats()
+        row[kv_cache] = {
+            "kernel_launches": attention.flash_fwd_launches - before,
+            "n_prefills": stats["n_prefills"], "n_chunks": stats["n_chunks"],
+            "steps_done": stats["steps_done"],
+            "graph_captures": graphs["graph_captures"],
+            "graph_replays": graphs["graph_replays"],
+            "eager_chunks_on_cuda": graphs["eager_chunks_on_cuda"],
+        }
+    want = [tf.generate(model.model, torch.as_tensor([p], device="cuda"),
+                        max_new_tokens=n,
+                        decoder=model.decode_graphs)[0].tolist()
+            for p, n in cases]
+    row["tokens_equal_generate"] = [a == b for a, b in
+                                    zip(outs["dense"], want)]
+    row["tokens_equal_paged"] = outs["dense"] == outs["paged"]
+    emit(row)
+    dense = row["dense"]
+    if not all(row["tokens_equal_generate"]) or \
+            not row["tokens_equal_paged"]:
+        fail("dense_small_parity: the dense engine's tokens differ from "
+             "dense generate's or the paged engine's")
+    if dense["kernel_launches"] != cfg.n_layers * dense["n_prefills"] or \
+            dense["eager_chunks_on_cuda"] or \
+            dense["graph_replays"] != dense["steps_done"]:
+        fail("dense_small_parity: a prefill skipped the kernel or a chunk "
+             "did not replay its graph")
 
 
 def paged_graph_parity(torch, np, tf, serving_graphs, model, card):
@@ -1120,7 +1202,7 @@ def spec_small_parity(torch, np, tf, serve_cli, attention):
     for mode in ("off", "ngram", "draft"):
         engine = serve_cli.ContinuousEngine(
             model, max_slots=2, chunk=4, prefill_chunk=32, kv_block_size=16,
-            speculate=mode)
+            kv_cache="paged", speculate=mode)
         try:
             with concurrent.futures.ThreadPoolExecutor(len(cases)) as pool:
                 futures = [pool.submit(engine.generate, [p], n)
@@ -1185,7 +1267,7 @@ def _serve_spec_mode(torch, np, serve_cli, attention, model, mode, prompts,
     cfg = model.cfg
     engine = serve_cli.ContinuousEngine(
         model, max_slots=8, chunk=32, prefill_chunk=512, kv_block_size=16,
-        speculate=mode)
+        kv_cache="paged", speculate=mode)
     results, latency = {}, {}
     attention.flash_fwd_launches = 0
     t0 = time.perf_counter()
@@ -1293,9 +1375,9 @@ def _serve_spec_mode(torch, np, serve_cli, attention, model, mode, prompts,
 
 def _divergences(torch, tf, model, prompts, got, want):
     """Where each stream of ``got`` first parts from ``want`` (the
-    ``--speculate off`` streams): the generated index and the top-2 logit
-    margin there under off, read from the dense forward over off's
-    context."""
+    reference streams: ``--speculate off``'s, or ``Model.generate``'s):
+    the generated index and the top-2 logit margin there under the
+    reference, read from the dense forward over its context."""
     rows = []
     for i, (prompt, a, b) in enumerate(zip(prompts, got, want)):
         if a == b:
@@ -1307,9 +1389,41 @@ def _divergences(torch, tf, model, prompts, got, want):
                                 logits_at="last")[0, 0]
         top2 = logits.topk(2).values
         rows.append({"request": i, "generated_index": pos - len(prompt),
-                     "off_token": b[pos], "spec_token": a[pos],
-                     "off_margin": (top2[0] - top2[1]).item()})
+                     "want_token": b[pos], "got_token": a[pos],
+                     "want_margin": (top2[0] - top2[1]).item()})
     return rows
+
+
+def _served_gaps(torch, tf, model, prompts, got):
+    """Every served token of the streams ``got`` (prompt + generated)
+    against the dense forward over that stream's own context (teacher
+    forced, so a stream is read past where it parts from the
+    reference's): ``gap`` is the reference's top logit less its logit of
+    the token served there, 0 where the engine chose the reference's
+    argmax; ``margin`` the reference's top-2 margin there, how close the
+    choice was. Returns their summary: the count of gaps of
+    SERVE_LOGITS_ATOL or more, the largest gap, and the margins'
+    quantiles, so the limit can be judged against them."""
+    gaps, margins = [], []
+    for prompt, stream in zip(prompts, got):
+        with torch.inference_mode():
+            logits = tf.forward(model.model,
+                                torch.as_tensor([stream[:-1]], device="cuda"))
+        logits = logits[0, len(prompt) - 1:]
+        served = torch.as_tensor(stream[len(prompt):], device="cuda")
+        top2 = logits.topk(2, dim=-1).values
+        gaps.append(top2[:, 0] - logits.gather(1, served[:, None])[:, 0])
+        margins.append(top2[:, 0] - top2[:, 1])
+        del logits
+    gaps, margins = torch.cat(gaps).float(), torch.cat(margins).float()
+    q = torch.quantile(margins, torch.tensor([0.1, 0.5, 0.9],
+                                             device=margins.device))
+    return {"tokens": gaps.numel(), "max_gap": gaps.max().item(),
+            "gaps_over_tol": int((gaps >= SERVE_LOGITS_ATOL).sum()),
+            "argmax_tokens": int((gaps == 0).sum()),
+            "margin_min": margins.min().item(),
+            "margin_p10_p50_p90": q.tolist(),
+            "margins_below_tol": int((margins < SERVE_LOGITS_ATOL).sum())}
 
 
 def serve_spec(torch, np, tf, serve_cli, attention, card, model):
@@ -1345,11 +1459,296 @@ def serve_spec(torch, np, tf, serve_cli, attention, card, model):
         emit({"phase": "serve_spec_divergences", "speculate": mode,
               "streams": len(reqs), "equal": len(reqs) - len(div),
               "divergences": div, "tol": SERVE_LOGITS_ATOL})
-        bad += [d for d in div if d["off_margin"] >= SERVE_LOGITS_ATOL]
+        bad += [d for d in div if d["want_margin"] >= SERVE_LOGITS_ATOL]
     if bad:
         fail(f"serve_spec: streams part from off at margins >= "
              f"{SERVE_LOGITS_ATOL}: {bad}")
     return launches
+
+
+# serve_dense's micro-batcher traffic: requests of one shape posted at once
+# through ``--batch-window-ms``.
+BATCH_REQUESTS, BATCH_PROMPT, BATCH_NEW, BATCH_WINDOW_MS = 4, 256, 32, 50.0
+
+
+def serve_dense(torch, np, tf, serve_cli, attention, card, model):
+    """The dense continuous-batching engine (the default ``kv_cache``) on
+    the serve phase's full-width model, with the JAX server's defaults (8
+    slots, chunk 32, prefill chunk 512), behind the HTTP server started
+    with ``--warmup=all``: every prefill shape runs and every (window,
+    mask_writes) decode graph is captured before ready. serve_paged's
+    traffic, the same prompts: a 1024-token prompt, then 6 concurrent
+    requests sharing it (64-token suffixes, 32 new) and, once they decode,
+    a 3000-token prompt, which prefills in 6 segments of 512 between
+    decode chunks run under masked writes. Then the micro-batcher
+    (``--batch-window-ms``) in front of the same model: BATCH_REQUESTS
+    equal-shape greedy requests posted at once must coalesce into fewer
+    calls. Each request's final prefill segment keeps its logits (on the
+    card), held after the traffic against the dense ``tf.forward`` on the
+    same context, as serve_paged's are. Every stream is held to
+    ``Model.generate``'s, but where it parts at a top-2 margin under
+    SERVE_LOGITS_ATOL (the engine's 8-row chunk and the batcher's 4-row
+    decode against one-row steps, in bf16); each divergence is printed,
+    and every served token is held, on its stream's own context, to
+    within SERVE_LOGITS_ATOL of the dense forward's top logit. Returns the
+    kernel's launches (the engine's run and the batcher's)."""
+    cfg = model.cfg
+    vocab = cfg.vocab_size
+    torch.cuda.reset_peak_memory_stats()
+    engine = serve_cli.ContinuousEngine(model, max_slots=8, chunk=32,
+                                        prefill_chunk=512)
+    # Each segment call: (offset, true_pos, chunks run before it); each
+    # final segment's (tokens, offset, true_pos, logits); each chunk:
+    # (steps, window, mask_writes).
+    segments, finals, chunks = [], [], []
+    prefill_seg, run_chunk = engine._prefill_seg, engine._chunk
+
+    def seg_recording(m, cache, seg, offset, slot, true_pos,
+                      want_logits=False, **kw):
+        segments.append((offset, true_pos, len(chunks)))
+        if not want_logits:
+            return prefill_seg(m, cache, seg, offset, slot, true_pos, **kw)
+        tok, logits = prefill_seg(m, cache, seg, offset, slot, true_pos,
+                                  want_logits=True, return_logits=True, **kw)
+        finals.append((seg, offset, true_pos, logits))
+        return tok
+
+    def chunk_recording(*args, **kw):
+        chunks.append((kw["steps"], kw["window"], kw["mask_writes"]))
+        return run_chunk(*args, **kw)
+
+    engine._prefill_seg, engine._chunk = seg_recording, chunk_recording
+    rng = np.random.default_rng(5)  # serve_paged's prompts
+    prefix = rng.integers(0, vocab, 1024).tolist()
+    prompts = {"prefix_1024": prefix}
+    for i in range(6):
+        prompts[f"shared_{i}"] = prefix + rng.integers(0, vocab, 64).tolist()
+    prompts["long_3000"] = rng.integers(0, vocab, 3000).tolist()
+    max_new = {name: 32 for name in prompts}
+    max_new["prefix_1024"] = 8
+    results, latency = {}, {}
+
+    def snapshot():
+        return {"launches": attention.flash_fwd_launches,
+                "t_chunk_device_s": engine.t_chunk_device_s,
+                "t_chunk_dispatch_s": engine.t_chunk_dispatch_s,
+                "t_chunk_wait_s": engine.t_chunk_wait_s,
+                "t_prefill_dispatch_s": engine.t_prefill_dispatch_s,
+                "t_prefill_wait_s": engine.t_prefill_wait_s,
+                "ttft": len(engine.ttft_s),
+                **engine.stats(), **engine.graph_stats()}
+
+    # The main path: counts at zero, then server start (the warm grid and
+    # the warmup request run through the engine) and the traffic.
+    attention.flash_fwd_launches = 0
+    attention.flash_dq_launches = attention.flash_dkv_launches = 0
+    t0 = time.perf_counter()
+    server, state = serve_cli.start_server(engine, port=0, host="127.0.0.1",
+                                           warmup_mode="all")
+    try:
+        serve_cli.wait_ready(state, timeout=900)
+        ready_s = time.perf_counter() - t0
+        port = server.server_address[1]
+        warm = state["warmup"]
+        at_ready = snapshot()
+
+        def post(name):
+            t1 = time.perf_counter()
+            results[name] = serve_cli.post_generate(
+                port, [prompts[name]], max_new[name])
+            latency[name] = time.perf_counter() - t1
+
+        post("prefix_1024")
+        t1 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(7) as pool:
+            futures = [pool.submit(post, f"shared_{i}") for i in range(6)]
+            n = engine.n_chunks
+            deadline = time.monotonic() + 600
+            while engine.n_chunks == n:
+                if time.monotonic() > deadline:
+                    fail("serve_dense: no decode chunk after the shared "
+                         "requests were posted")
+                time.sleep(0.002)
+            futures.append(pool.submit(post, "long_3000"))
+            for f in futures:
+                f.result(timeout=600)
+        burst_s = time.perf_counter() - t1
+        done = snapshot()
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.shutdown()
+    launches = attention.flash_fwd_launches
+    other = attention.flash_dq_launches + attention.flash_dkv_launches
+    cache_gb = sum(c.nbytes for c in engine.cache.values()) / 1e9
+    served = {k: done[k] - at_ready[k] for k in (
+        "launches", "steps_done", "n_prefills", "n_chunks", "occupied_steps",
+        "t_chunk_device_s", "t_chunk_dispatch_s", "t_chunk_wait_s",
+        "t_prefill_dispatch_s", "t_prefill_wait_s", "graph_captures",
+        "graph_replays", "eager_chunks_on_cuda")}
+    ttft = [{"prompt_len": n, "ttft_s": t}
+            for n, t in list(engine.ttft_s)[at_ready["ttft"]:]]
+    del engine
+    _free(torch)
+
+    for name, prompt in prompts.items():
+        _check_response(f"serve_dense {name}", results[name], prompt,
+                        max_new[name], vocab)
+    n_graphs = 2 * len(tf.serving_shape_buckets(cfg, 512, 32)["windows"])
+    warm_prefills = warm["tasks"] - n_graphs
+    long_segs = [s for s in segments
+                 if s[1] == len(prompts["long_3000"]) - 1]
+    masked = [c[2] for c in chunks[long_segs[0][2]:long_segs[-1][2]]] \
+        if long_segs else []
+    chunks_n = max(served["n_chunks"], 1)
+    row = {
+        "phase": "serve_dense", **card, "model": "llama3-8b",
+        "n_layers": cfg.n_layers, "max_slots": 8, "decode_chunk": 32,
+        "prefill_chunk": 512, "cache_gb": cache_gb,
+        "requests": len(prompts) + 1, "burst_s": burst_s,
+        "latency_s": latency, "ttft": ttft,
+        "flash_fwd_launches": launches, **{f"served_{k}": v
+                                           for k, v in served.items()},
+        "decode_tokens_per_s_on_card": served["occupied_steps"]
+        / max(served["t_chunk_device_s"], 1e-9),
+        "decode_tokens_per_s_host": served["occupied_steps"]
+        / max(served["t_chunk_dispatch_s"] + served["t_chunk_wait_s"], 1e-9),
+        "chunk_step_device_ms": served["t_chunk_device_s"]
+        / max(served["steps_done"], 1) * 1e3,
+        "chunk_host_dispatch_ms": served["t_chunk_dispatch_s"] / chunks_n
+        * 1e3,
+        "chunk_sync_wait_ms": served["t_chunk_wait_s"] / chunks_n * 1e3,
+        "chunk_device_ms": served["t_chunk_device_s"] / chunks_n * 1e3,
+        "prefill_host_dispatch_ms": served["t_prefill_dispatch_s"]
+        / max(served["n_prefills"], 1) * 1e3,
+        "prefill_sync_wait_ms": served["t_prefill_wait_s"]
+        / max(served["n_prefills"], 1) * 1e3,
+        "long_prompt_segments": len(long_segs),
+        "chunks_during_long_prefill": len(masked),
+        "masked_chunks_during_long_prefill": sum(masked),
+        "ready_s": ready_s, "warmup": warm, "warm_prefill_tasks":
+            warm_prefills,
+        "graph_captures": done["graph_captures"],
+        "captures_after_ready": served["graph_captures"],
+        "graph_replays": done["graph_replays"],
+        "graph_capture_s": done["graph_capture_s"],
+        "graph_pool_gb": done["graph_pool_bytes"] / 1e9,
+        "eager_chunks_on_cuda": done["eager_chunks_on_cuda"],
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    emit(row)
+    if warm["cache_misses"] != n_graphs or \
+            at_ready["graph_captures"] != n_graphs:
+        fail(f"serve_dense: the warmup captured {at_ready['graph_captures']} "
+             f"decode graphs, want one per (window, mask) ({n_graphs})")
+    if at_ready["launches"] != cfg.n_layers * (warm_prefills
+                                               + at_ready["n_prefills"]):
+        fail(f"serve_dense: {at_ready['launches']} flash launches before "
+             f"ready for {warm_prefills} warm prefills and "
+             f"{at_ready['n_prefills']} of the warmup request")
+    if served["launches"] != cfg.n_layers * served["n_prefills"] or other:
+        fail(f"serve_dense: {served['launches']} flash launches after "
+             f"ready for {served['n_prefills']} prefills (want "
+             f"{cfg.n_layers} each), {other} backward launches")
+    if done["eager_chunks_on_cuda"] or served["graph_captures"] or \
+            served["graph_replays"] != served["steps_done"]:
+        fail("serve_dense: a chunk ran eagerly, a graph was captured after "
+             "ready, or a step was not a replay")
+    if len(long_segs) != 6 or not masked or not all(masked):
+        fail(f"serve_dense: the long prompt took {len(long_segs)} segments "
+             f"with {len(masked)} chunks between them ({sum(masked)} "
+             f"masked), want 6 segments interleaved with masked chunks")
+
+    # Every prompt here is longer than the prefill chunk, so each one's
+    # first token comes from a final segment at its offset over the
+    # slot's whole cache row (kv_len = window), written between masked
+    # chunks for the long prompt.
+    logit_rows = _hold_final_logits(torch, tf, model, "serve_dense",
+                                    prompts, results, finals)
+    emit({"phase": "serve_dense_logits", "logits": logit_rows,
+          "tol": SERVE_LOGITS_ATOL})
+    b_launches, b_row = _serve_batcher(torch, np, serve_cli, attention,
+                                       model, card)
+    names = list(prompts)
+    want = [model.generate([prompts[n]], max_new[n])[0] for n in names]
+    got = [results[n]["tokens"][0] for n in names]
+    div = _divergences(torch, tf, model, [prompts[n] for n in names], got,
+                       want)
+    div_b = _divergences(torch, tf, model, b_row["prompts"], b_row["outs"],
+                         b_row.pop("want"))
+    held = _served_gaps(torch, tf, model,
+                        [prompts[n] for n in names] + b_row.pop("prompts"),
+                        got + b_row.pop("outs"))
+    emit({"phase": "serve_dense_divergences",
+          "engine": {"streams": len(names), "equal": len(names) - len(div),
+                     "divergences": div},
+          "batcher": {"streams": BATCH_REQUESTS,
+                      "equal": BATCH_REQUESTS - len(div_b),
+                      "divergences": div_b},
+          "served_tokens": held, "tol": SERVE_LOGITS_ATOL})
+    bad = [d for d in div + div_b if d["want_margin"] >= SERVE_LOGITS_ATOL]
+    if bad:
+        fail(f"serve_dense: streams part from Model.generate's at margins "
+             f">= {SERVE_LOGITS_ATOL}: {bad}")
+    if held["gaps_over_tol"]:
+        fail(f"serve_dense: {held['gaps_over_tol']} served tokens lie "
+             f"{SERVE_LOGITS_ATOL} or more below the dense forward's top "
+             f"logit on their own context: {held}")
+    return launches + b_launches
+
+
+def _serve_batcher(torch, np, serve_cli, attention, model, card):
+    """``--batch-window-ms`` in front of ``model``, behind the server:
+    BATCH_REQUESTS greedy requests of one shape posted at once must
+    coalesce into fewer calls than requests, each call one prefill (the
+    kernel once per layer). Returns (launches, row); the row keeps the
+    prompts, outputs and ``Model.generate``'s solo streams for the
+    caller's divergence check."""
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, model.cfg.vocab_size, BATCH_PROMPT).tolist()
+               for _ in range(BATCH_REQUESTS)]
+    batcher = serve_cli.BatchingModel(model, window_ms=BATCH_WINDOW_MS)
+    results = {}
+    attention.flash_fwd_launches = 0
+    server, state = serve_cli.start_server(batcher, port=0, host="127.0.0.1")
+    try:
+        serve_cli.wait_ready(state, timeout=600)
+        port = server.server_address[1]
+        at_ready = (attention.flash_fwd_launches, batcher.n_batches)
+        t0 = time.perf_counter()
+
+        def post(i):
+            results[i] = serve_cli.post_generate(port, [prompts[i]],
+                                                 BATCH_NEW)
+
+        with concurrent.futures.ThreadPoolExecutor(BATCH_REQUESTS) as pool:
+            for f in [pool.submit(post, i) for i in range(BATCH_REQUESTS)]:
+                f.result(timeout=600)
+        burst_s = time.perf_counter() - t0
+        launches = attention.flash_fwd_launches
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.shutdown()
+    calls = batcher.n_batches - at_ready[1]
+    outs = [results[i]["tokens"][0] for i in range(BATCH_REQUESTS)]
+    for i, prompt in enumerate(prompts):
+        _check_response(f"serve_dense batcher {i}", results[i], prompt,
+                        BATCH_NEW, model.cfg.vocab_size)
+    emit({"phase": "serve_dense_batcher", **card, "model": "llama3-8b",
+          "window_ms": BATCH_WINDOW_MS, "requests": BATCH_REQUESTS,
+          "prompt_len": BATCH_PROMPT, "max_new": BATCH_NEW,
+          "coalesced_calls": calls, "last_batch_rows": batcher.batch_rows,
+          "queue_wait_s": list(batcher.queue_wait_s)[-BATCH_REQUESTS:],
+          "burst_s": burst_s, "flash_fwd_launches": launches,
+          "launches_after_ready": launches - at_ready[0]})
+    if calls >= BATCH_REQUESTS or \
+            launches - at_ready[0] != model.cfg.n_layers * calls:
+        fail(f"serve_dense: the batcher made {calls} calls for "
+             f"{BATCH_REQUESTS} requests with {launches - at_ready[0]} "
+             f"kernel launches (want fewer calls, one prefill each)")
+    want = [model.generate([p], BATCH_NEW)[0] for p in prompts]
+    return launches, {"prompts": prompts, "outs": outs, "want": want}
 
 
 def _free(torch):
@@ -1536,6 +1935,7 @@ def main():
     _free(torch)
     small_parity(torch, tf, serving_graphs, attention)
     paged_small_parity(torch, np, tf, serve_cli, attention)
+    dense_small_parity(torch, np, tf, serve_cli, attention)
     spec_small_parity(torch, np, tf, serve_cli, attention)
     serve_launches, model = serve(torch, np, tf, serve_cli, attention, card)
     paged_launches = serve_paged(torch, np, tf, serve_cli, attention, card,
@@ -1544,6 +1944,8 @@ def main():
     paged_graph_parity(torch, np, tf, serving_graphs, model, card)
     spec_launches = serve_spec(torch, np, tf, serve_cli, attention, card,
                                model)
+    dense_launches = serve_dense(torch, np, tf, serve_cli, attention, card,
+                                 model)
     del model
     _free(torch)
     train_grads(torch, np, tf, attention)
@@ -1565,10 +1967,11 @@ def main():
             "source": src + "flash_fwd.cu",
             "replaces": replaces + "136",
             "launches": serve_launches + paged_launches + spec_launches
-            + fwd_train,
+            + dense_launches + fwd_train,
             "launches_by_path": {"serve": serve_launches,
                                  "serve_paged": paged_launches,
                                  "serve_spec": spec_launches,
+                                 "serve_dense": dense_launches,
                                  "train": fwd_train},
             "max_abs_err": main_row["max_abs_err_out"],
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],

@@ -2,7 +2,7 @@
 # SPDX-License-Identifier: Apache-2.0
 """Transformer serving daemon, PyTorch port.
 
-Port of ``container_engine_accelerators_tpu/models/serve_cli.py``. Two
+Port of ``container_engine_accelerators_tpu/models/serve_cli.py``. Three
 ways to serve:
 
   * ``Model``: one request at a time through ``transformer.generate``
@@ -10,30 +10,40 @@ ways to serve:
     steps on a dense cache kept per batch size (at most
     ``serving_graphs.MAX_CACHED_ROWS`` rows in all), each the replay of a
     CUDA graph captured per (batch, window) on the card);
+  * ``BatchingModel`` (``--batch-window-ms``): a micro-batcher in front
+    of ``Model`` that coalesces concurrent greedy requests of one shape
+    into one ``generate`` call;
   * ``ContinuousEngine`` (``--continuous-batching``): slot-based
-    continuous batching on the paged KV cache with radix prefix reuse
-    and the asynchronous double-buffered host loop (``_loop_paged``).
-    Admissions prefill in segments (``transformer.paged_prefill_segment``,
-    the flash kernel at the segment's global offset) interleaved with
-    decode chunks, each on the card the replays of one CUDA graph of the
-    decode step per window (``serving_graphs.PagedDecodeGraphs``, the
-    counterpart of the jitted ``transformer.paged_decode_chunk``). With
-    ``--speculate ngram|draft`` a proposer guesses up to k tokens per
-    row and one batched verify (``transformer.paged_verify_batch``, on
-    the card the replay of one CUDA graph per (batch bucket, window),
+    continuous batching. ``--kv-cache dense`` (the default, as in JAX)
+    keeps one dense cache row per slot and runs the synchronous host loop
+    (``_loop``): a short prompt prefills in one call
+    (``transformer.prefill_into_slot``), a long one in segments
+    (``transformer.prefill_chunk_into_slot``, the flash kernel at the
+    segment's global offset) between decode chunks, and each chunk is on
+    the card the replays of one CUDA graph of the decode step per
+    (window, mask_writes) (``serving_graphs.DenseChunkGraphs``, the
+    counterpart of the jitted ``transformer.decode_chunk``).
+    ``--kv-cache paged`` runs the paged KV cache with radix prefix reuse
+    and the asynchronous double-buffered host loop (``_loop_paged``):
+    admissions prefill in segments (``transformer.paged_prefill_segment``)
+    and each decode chunk replays one graph per window
+    (``serving_graphs.PagedDecodeGraphs``). With ``--speculate
+    ngram|draft`` (paged only) a proposer guesses up to k tokens per row
+    and one batched verify (``transformer.paged_verify_batch``, on the
+    card the replay of one CUDA graph per (batch bucket, window),
     ``serving_graphs.PagedVerifyGraphs``) scores every speculating row's
     guesses; the longest greedily-matching prefix is accepted, so the
     tokens are those of ``--speculate off``.
 
-``--warmup=all`` captures every window's graph and runs every paged
-prefill shape before ``/healthz`` flips ready (``warmstart/warmup.py``);
-``--warmup=lazy`` (the default) captures a window at its first chunk.
+``--warmup=all`` runs every prefill shape and captures every decode
+graph before ``/healthz`` flips ready (``warmstart/warmup.py``);
+``--warmup=lazy`` (the default) captures a graph at its first chunk.
 
 Endpoints (the same JSON as the JAX server):
   GET  /healthz    200 once the warmup decode succeeded, 503 before,
                    500 if it failed; an engine adds queue_depth,
-                   occupied_slots, max_slots, prefix_hit_ratio and
-                   free_blocks
+                   occupied_slots and max_slots, a paged one also
+                   prefix_hit_ratio and free_blocks
   POST /generate   {"tokens": [[...]], "max_new_tokens": N,
                     "temperature": 0.0, "top_k": 0, "top_p": 1.0,
                     "seed": 0}   (temperature 0 = greedy)
@@ -45,18 +55,22 @@ Sampler params snap to the JAX server's whitelist grids
 seeded with the request's ``seed``: reproducible here, but not the
 tokens the JAX server samples for the same seed.
 
-Not ported yet (ROADMAP.md): the dense continuous-batching cache,
-drains and KV handoff, the multi-host link, tensor
-parallelism, int8 weights, tenant classes, admission sheds and deadlines,
-step retries and fault plans, and the obs surfaces (/metrics, traces,
-event logs, chip accounting).
+Not ported yet (ROADMAP.md): drains and KV handoff, the multi-host
+link, tensor parallelism, int8 weights, tenant classes, admission sheds
+and deadlines, step retries and fault plans, and the obs surfaces
+(/metrics, traces, event logs, chip accounting).
 
   python -m container_engine_accelerators_tpu_torch.models.serve_cli \\
       --preset llama3-8b --port 8000
   python -m container_engine_accelerators_tpu_torch.models.serve_cli \\
+      --preset llama3-8b --batch-window-ms 5
+  python -m container_engine_accelerators_tpu_torch.models.serve_cli \\
+      --preset llama3-8b --continuous-batching
+  python -m container_engine_accelerators_tpu_torch.models.serve_cli \\
       --preset llama3-8b --continuous-batching --kv-cache paged
   python -m container_engine_accelerators_tpu_torch.models.serve_cli \\
-      --preset llama3-8b --continuous-batching --speculate ngram
+      --preset llama3-8b --continuous-batching --kv-cache paged \\
+      --speculate ngram
 """
 
 import argparse
@@ -159,6 +173,156 @@ class Model:
         return out.tolist()
 
 
+class BatchingModel:
+    """Dynamic micro-batching (``--batch-window-ms``), the port of the
+    JAX ``BatchingModel``: concurrent compatible requests coalesce into
+    one ``generate`` call of the wrapped model.
+
+    A dispatcher thread drains a queue through a FIFO reorder buffer: a
+    round starts from the oldest waiting request, scoops the buffered
+    requests compatible with it (the same prompt length and
+    ``max_new_tokens``, greedy), then waits up to ``window_ms`` for more,
+    up to ``max_batch`` rows in all. An incompatible request is deferred
+    to the buffer, where it seeds a later round, instead of closing the
+    window. The output rows fan back to the waiting handler threads.
+    Sampled requests carry their own seeds, so they run alone on the
+    wrapped model; ragged rows are rejected before they are queued, so a
+    malformed request fails alone. When a coalesced call fails, each
+    waiter raises its own exception, chained from the call's.
+
+    Plain counters stand in for the JAX batcher's metrics: ``batch_rows``
+    (the rows of the last coalesced call), ``queue_wait_s`` (enqueue to
+    dispatch, per request, the latest 4096) and ``n_batches`` (coalesced
+    calls made)."""
+
+    def __init__(self, model, window_ms=5.0, max_batch=MAX_BATCH):
+        self.model = model
+        self.cfg = model.cfg
+        self.window_s = window_ms / 1e3
+        self.max_batch = max_batch
+        self.batch_rows = 0
+        self.queue_wait_s = collections.deque(maxlen=4096)
+        self.n_batches = 0
+        self._q = queue.Queue()
+        self._lock = threading.Lock()
+        self._stopped = False
+        self._thread = threading.Thread(target=self._dispatch, daemon=True)
+        self._thread.start()
+
+    def generate(self, tokens, max_new_tokens, temperature=0.0, top_k=0,
+                 top_p=1.0, seed=0):
+        # Route on the snapped sampler: small temperatures snap to greedy.
+        temperature, top_k, top_p = sanitize_sampler(
+            temperature, top_k, top_p, self.cfg.vocab_size
+        )
+        if temperature != 0.0:
+            return self.model.generate(
+                tokens, max_new_tokens, temperature=temperature,
+                top_k=top_k, top_p=top_p, seed=seed,
+            )
+        if not tokens or any(len(r) != len(tokens[0]) for r in tokens):
+            raise ValueError(
+                "tokens must be a non-empty rectangular list of rows"
+            )
+        item = {
+            "tokens": [list(r) for r in tokens],
+            "max_new": int(max_new_tokens),
+            "event": threading.Event(),
+            "out": None,
+            "err": None,
+            "t_enq": time.perf_counter(),
+        }
+        with self._lock:
+            if self._stopped:
+                raise RuntimeError("batcher is shut down")
+            self._q.put(item)
+        item["event"].wait()
+        if item["err"] is not None:
+            raise item["err"]
+        return item["out"]
+
+    def shutdown(self):
+        """Stop the dispatcher once it has run what is queued, then the
+        wrapped model's own shutdown, where it has one."""
+        with self._lock:
+            self._stopped = True
+            self._q.put(None)
+        self._thread.join(60.0)
+        inner = getattr(self.model, "shutdown", None)
+        if inner is not None:
+            inner()
+
+    @staticmethod
+    def _compatible(a, b):
+        return (a["max_new"] == b["max_new"]
+                and len(a["tokens"][0]) == len(b["tokens"][0]))
+
+    def _dispatch(self):
+        buf = collections.deque()
+        stopping = False
+        while buf or not stopping:
+            if buf:
+                batch = [buf.popleft()]
+            else:
+                first = self._q.get()
+                if first is None:
+                    stopping = True
+                    continue
+                batch = [first]
+            rows = len(batch[0]["tokens"])
+            # Buffered compatible requests first, in arrival order.
+            kept = collections.deque()
+            while buf:
+                item = buf.popleft()
+                if self._compatible(batch[0], item) and \
+                        rows + len(item["tokens"]) <= self.max_batch:
+                    batch.append(item)
+                    rows += len(item["tokens"])
+                else:
+                    kept.append(item)
+            buf = kept
+            deadline = time.perf_counter() + self.window_s
+            while rows < self.max_batch and not stopping:
+                remaining = deadline - time.perf_counter()
+                if remaining <= 0:
+                    break
+                try:
+                    nxt = self._q.get(timeout=remaining)
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    stopping = True
+                elif self._compatible(batch[0], nxt) and \
+                        rows + len(nxt["tokens"]) <= self.max_batch:
+                    batch.append(nxt)
+                    rows += len(nxt["tokens"])
+                else:
+                    buf.append(nxt)  # deferred: it seeds a later round
+            self._run(batch)
+
+    def _run(self, batch):
+        all_rows = [r for item in batch for r in item["tokens"]]
+        self.batch_rows = len(all_rows)
+        now = time.perf_counter()
+        self.queue_wait_s.extend(now - item["t_enq"] for item in batch)
+        self.n_batches += 1
+        try:
+            out = self.model.generate(all_rows, batch[0]["max_new"])
+        except Exception as e:  # noqa: BLE001 - fan the error out
+            for item in batch:
+                # Each waiter raises its own exception object.
+                item["err"] = RuntimeError(f"co-batched generate failed: {e}")
+                item["err"].__cause__ = e
+                item["event"].set()
+            return
+        i = 0
+        for item in batch:
+            n = len(item["tokens"])
+            item["out"] = out[i:i + n]
+            i += n
+            item["event"].set()
+
+
 def normalize_chunks(max_seq_len, prefill_chunk, chunk):
     """The engine's chunk normalization (the JAX ``normalize_chunks``):
     returns the ``(prefill_chunk, chunk)`` a :class:`ContinuousEngine`
@@ -224,38 +388,58 @@ SPECULATE_MODES = ("off", "ngram", "draft")
 
 
 class ContinuousEngine:
-    """Slot-based continuous batching on the paged KV cache, the port of
-    the JAX ``ContinuousEngine`` with ``kv_cache="paged"``.
+    """Slot-based continuous batching, the port of the JAX
+    ``ContinuousEngine``: requests multiplex onto ``max_slots`` slots of
+    one KV cache on the device (``self.cache``). ``kv_cache`` picks the
+    cache and its host loop, as in JAX.
 
-    One block pool per layer lives on the device (``self.cache``) and
-    requests multiplex onto ``max_slots`` page-table rows:
+    ``kv_cache="dense"`` (the default): one dense cache row per slot
+    (``transformer.init_kv_cache``, 8.6 GB for 8 slots of Llama-3-8B) and
+    the synchronous host loop (``_loop``), one host sync per device call:
+
+      * admission prefills a prompt of at most ``prefill_chunk`` tokens
+        in one call at its length bucket (``self._prefill``,
+        ``transformer.prefill_into_slot``); a longer one enters the slot
+        prefilling and advances one segment of ``prefill_chunk`` tokens a
+        loop iteration (``self._prefill_seg``,
+        ``transformer.prefill_chunk_into_slot``, the flash kernel at the
+        segment's global offset), between decode chunks;
+      * decode: every decoding slot advances in one chunk of ``steps``
+        greedy steps, ``steps`` the power-of-two floor of min(remaining,
+        ``chunk``), so a finishing row retires on time. A chunk is
+        ``steps`` replays of the captured decode step of its (window,
+        mask_writes) (``self._chunk``, ``self.chunk_graphs``, a
+        ``serving_graphs.DenseChunkGraphs``; the same step runs eagerly
+        on the CPU), the counterpart of the jitted
+        ``transformer.decode_chunk``; writes are masked while a slot is
+        mid-prefill.
+
+    ``kv_cache="paged"``: one block pool per layer, page-table rows per
+    slot and the asynchronous double-buffered host loop (``_loop_paged``):
 
       * admission maps the longest cached prefix of the prompt (radix
         index, full blocks, at most len - 1 tokens) into a free slot's
         table; the suffix prefills in segments of at most
         ``prefill_chunk`` tokens (``transformer.paged_prefill_segment``),
         one segment per loop iteration, interleaved with decode chunks;
-      * decode: every decoding slot advances in one chunk of ``steps``
-        greedy steps, ``steps`` the power-of-two floor of min(remaining,
-        ``chunk``), so a finishing row retires on time. A chunk is
-        ``steps`` replays of the captured decode step of its window
-        (``self.decode_graphs``, a ``serving_graphs.PagedDecodeGraphs``
-        over the pools and ``last_dev``; the same step runs eagerly on the
-        CPU), the counterpart of the jitted
+      * decode chunks as above, each ``steps`` replays of the captured
+        step of its window (``self.decode_graphs``, a
+        ``serving_graphs.PagedDecodeGraphs`` over the pools and
+        ``last_dev``), the counterpart of the jitted
         ``transformer.paged_decode_chunk``;
       * retirement frees the slot at dispatch and, once its tokens have
         landed, caches the written extent in the radix index.
 
-    The host loop (``_loop_paged``) is asynchronous and double-buffered:
-    iteration n dispatches its prefill segments and its chunk, then syncs
-    iteration n - 1's results, which the device finished before anything
-    of iteration n. Host state (positions, remaining, retirement) advances
-    at dispatch; token values land at the sync. On CUDA, operands go to
-    the device from pinned memory with ``non_blocking=True`` and results
-    come back into pinned tensors behind a recorded event, so neither
-    direction waits for the stream to drain.
+    The paged loop's iteration n dispatches its prefill segments and its
+    chunk, then syncs iteration n - 1's results, which the device
+    finished before anything of iteration n. Host state (positions,
+    remaining, retirement) advances at dispatch; token values land at the
+    sync. On CUDA, operands go to the device from pinned memory with
+    ``non_blocking=True`` and results come back into pinned tensors
+    behind a recorded event, so neither direction waits for the stream to
+    drain.
 
-    Speculation (``speculate="ngram"`` or ``"draft"``, the JAX
+    Speculation (``speculate="ngram"`` or ``"draft"``, paged only, the JAX
     engine's): a speculating row leaves the fused chunk and advances in
     verify rounds (``_spec_tick``): the proposer guesses up to k tokens,
     one batched verify per window group scores every speculating row
@@ -265,22 +449,27 @@ class ContinuousEngine:
     tokens of ``speculate="off"``. ``AdaptiveK`` backs a row off to the
     chunk on poor acceptance.
 
-    The pools, ``last_dev`` and the graphs' static buffers keep their
-    addresses for the engine's life (the captured graphs hold them): a
-    reset after a device fault zeroes them in place.
+    The cache, ``last_dev`` and the graphs' static buffers keep their
+    addresses for the engine's life (the captured graphs hold them). A
+    call that raises at dispatch fails its rows and keeps the cache; a
+    device error that surfaces at a sync fails the rows in flight and
+    zeroes the cache in place. The port has no step retries.
 
     Greedy only: sampled requests go to the wrapped ``Model.generate``.
-    ``kv_cache="dense"`` (the JAX default) is not ported yet.
     """
 
     def __init__(self, model, max_slots=MAX_BATCH, chunk=32,
-                 prefill_chunk=512, start_loop=True, kv_cache="paged",
+                 prefill_chunk=512, start_loop=True, kv_cache="dense",
                  kv_block_size=16, kv_blocks=0, speculate="off",
                  speculate_k=8, spec_proposer=None):
         if max_slots < 1 or chunk < 1 or prefill_chunk < 1:
             raise ValueError(
                 f"max_slots ({max_slots}), chunk ({chunk}) and "
                 f"prefill_chunk ({prefill_chunk}) must be >= 1"
+            )
+        if kv_cache not in ("dense", "paged"):
+            raise ValueError(
+                f"kv_cache must be 'dense' or 'paged', got {kv_cache!r}"
             )
         if speculate not in SPECULATE_MODES:
             raise ValueError(
@@ -298,16 +487,6 @@ class ContinuousEngine:
                 "speculate='draft' needs model params to derive a draft "
                 "config (a caller without them must inject spec_proposer)"
             )
-        if kv_cache == "dense":
-            raise NotImplementedError(
-                "kv_cache='dense' (the dense continuous-batching cache) is "
-                "not ported yet; it belongs to a later slice of the port "
-                "(ROADMAP.md)"
-            )
-        if kv_cache != "paged":
-            raise ValueError(
-                f"kv_cache must be 'dense' or 'paged', got {kv_cache!r}"
-            )
         self.model = model
         self.cfg = model.cfg
         self.device = model.device
@@ -318,31 +497,19 @@ class ContinuousEngine:
         self.chunk = chunk
         self.prefill_chunk = prefill_chunk
         self.kv_cache = kv_cache
-        self.kv = PagedKVManager(
-            self.cfg.max_seq_len, max_slots, block_size=kv_block_size,
-            num_blocks=kv_blocks,
-        )
-        self.cache = pa.init_paged_kv_cache(
-            self.cfg.n_layers, self.kv.num_blocks, self.cfg.n_kv_heads,
-            self.kv.block_size, self.cfg.head_dim, self.cfg.torch_dtype,
-            self.device,
-        )
-        # Device-resident last tokens: a final prefill segment writes its
-        # first token into its slot on the device, and decode chunks read
-        # and advance the tensor in place without a host sync.
-        self.last_dev = torch.zeros(max_slots, dtype=torch.long,
-                                    device=self.device)
-        self.decode_graphs = serving_graphs.PagedDecodeGraphs(
-            model.model, self.cache, self.last_dev, self.kv.tables.shape,
-            self.chunk, self.kv.block_size,
-        )
-        # The device seams (the calls the JAX package's fake engine swaps;
-        # a speculating engine adds ``_paged_verify``).
-        self._paged_prefill = functools.partial(
-            tf.paged_prefill_segment, block_size=self.kv.block_size
-        )
-        self._paged_chunk = self.decode_graphs
-        self._copy_blocks = pa.copy_blocks
+        self.kv = None
+        self.decode_graphs = self.chunk_graphs = None
+        if kv_cache == "dense":
+            self.cache = tf.init_kv_cache(self.cfg, max_slots, self.device)
+            self.chunk_graphs = serving_graphs.DenseChunkGraphs(
+                model.model, self.cache, max_slots, self.chunk,
+            )
+            # The device seams (the calls the JAX package jits).
+            self._prefill = tf.prefill_into_slot
+            self._prefill_seg = tf.prefill_chunk_into_slot
+            self._chunk = self.chunk_graphs
+        else:
+            self._init_paged(kv_block_size, kv_blocks)
         self.speculate = speculate
         self.spec_proposer = None
         self.verify_graphs = None
@@ -373,14 +540,8 @@ class ContinuousEngine:
                     prefill_chunk=self.prefill_chunk,
                     width=self._spec_width, device=self.device,
                 )
-        # Bumped by _reset_paged: sync records dispatched before a pool
-        # rebuild must not touch the fresh pool.
-        self._kv_epoch = 0
-        # Prior-iteration sync records (engine-loop thread only); an
-        # attribute so allocation-pressure paths can drain them early
-        # (their retire snapshots pin blocks until synced).
-        self._pending_syncs = []
-        # Host-side slot state (device state is the pools + last_dev).
+        # Host-side slot state (device state is the cache, and on a paged
+        # engine last_dev).
         self.positions = np.zeros(max_slots, np.int32)
         self.last_tok = np.zeros(max_slots, np.int32)
         self.occupied = [None] * max_slots  # slot -> in-flight row dict
@@ -388,9 +549,9 @@ class ContinuousEngine:
         # Plain counters in place of the JAX engine's metrics registry
         # (engine-loop writer; readers take GIL-atomic snapshots).
         # t_*_dispatch_s: host wall inside the device calls (enqueueing
-        # the work); t_*_wait_s: the deferred syncs' waits;
-        # t_chunk_device_s (CUDA only): event-timed device span of each
-        # chunk, read at its sync.
+        # the work); t_*_wait_s: the syncs' waits (deferred on a paged
+        # engine); t_chunk_device_s (CUDA only): event-timed device span
+        # of each chunk, read at its sync.
         self.steps_done = 0
         self.n_prefills = 0
         self.n_chunks = 0
@@ -428,9 +589,47 @@ class ContinuousEngine:
         self._stop = threading.Event()
         self._thread = None
         if start_loop:
-            self._thread = threading.Thread(target=self._loop_paged,
-                                            daemon=True)
+            self._thread = threading.Thread(
+                target=self._loop if self.kv is None else self._loop_paged,
+                daemon=True,
+            )
             self._thread.start()
+
+    def _init_paged(self, kv_block_size, kv_blocks):
+        """The paged engine's device state: the block-pool manager, the
+        pools, ``last_dev``, the decode graphs and the device seams."""
+        self.kv = PagedKVManager(
+            self.cfg.max_seq_len, self.max_slots, block_size=kv_block_size,
+            num_blocks=kv_blocks,
+        )
+        self.cache = pa.init_paged_kv_cache(
+            self.cfg.n_layers, self.kv.num_blocks, self.cfg.n_kv_heads,
+            self.kv.block_size, self.cfg.head_dim, self.cfg.torch_dtype,
+            self.device,
+        )
+        # Device-resident last tokens: a final prefill segment writes its
+        # first token into its slot on the device, and decode chunks read
+        # and advance the tensor in place without a host sync.
+        self.last_dev = torch.zeros(self.max_slots, dtype=torch.long,
+                                    device=self.device)
+        self.decode_graphs = serving_graphs.PagedDecodeGraphs(
+            self.model.model, self.cache, self.last_dev,
+            self.kv.tables.shape, self.chunk, self.kv.block_size,
+        )
+        # The device seams (the calls the JAX package's fake engine swaps;
+        # a speculating engine adds ``_paged_verify``).
+        self._paged_prefill = functools.partial(
+            tf.paged_prefill_segment, block_size=self.kv.block_size
+        )
+        self._paged_chunk = self.decode_graphs
+        self._copy_blocks = pa.copy_blocks
+        # Bumped by _reset_paged: sync records dispatched before a pool
+        # rebuild must not touch the fresh pool.
+        self._kv_epoch = 0
+        # Prior-iteration sync records (engine-loop thread only); an
+        # attribute so allocation-pressure paths can drain them early
+        # (their retire snapshots pin blocks until synced).
+        self._pending_syncs = []
 
     # -- public surface -------------------------------------------------------
 
@@ -505,16 +704,21 @@ class ContinuousEngine:
         return out
 
     def kv_stats(self):
-        """The paged cache's snapshot (the manager's ``stats()``)."""
+        """The paged cache's snapshot (the manager's ``stats()``); None on
+        a dense engine, as in JAX."""
+        if self.kv is None:
+            return None
         return self.kv.stats()
 
     def graph_stats(self):
-        """The decode graphs' counters: captures, replays, capture
+        """The decode graphs' counters (a dense engine's chunk graphs, a
+        paged one's decode graphs): captures, replays, capture
         seconds, the bytes of their memory pool, and the chunks that ran
         eagerly on CUDA; a speculating engine adds its verify graphs'
         (``verify_graph_*``, ``eager_verifies_on_cuda``) and a draft
         proposer's ingest and propose-chunk graphs' (``draft_graph_*``)."""
-        out = self._graph_counts("", [self.decode_graphs.graphs])
+        out = self._graph_counts(
+            "", [(self.decode_graphs or self.chunk_graphs).graphs])
         out["eager_chunks_on_cuda"] = self.eager_chunks_on_cuda
         if self.verify_graphs is not None:
             out.update(self._graph_counts("verify_",
@@ -562,9 +766,11 @@ class ContinuousEngine:
             if self._thread.is_alive():
                 raise RuntimeError("engine loop did not stop")
         cause = RuntimeError("engine shut down")
+        fail_row = self._fail_row if self.kv is None else \
+            self._fail_paged_row
         for i, row in enumerate(self.occupied):
             if row is not None:
-                self._fail_paged_row(row, i, cause, "serving")
+                fail_row(row, i, cause, "serving")
         while True:
             try:
                 row = self._q.get_nowait()
@@ -614,6 +820,236 @@ class ContinuousEngine:
 
     def _free_slots(self):
         return [i for i, r in enumerate(self.occupied) if r is None]
+
+    # -- dense engine: the synchronous host loop ------------------------------
+    #
+    # The JAX dense loop: every device call is followed by its host sync
+    # before the next is scheduled (the paged loop's double buffering is a
+    # paged-engine feature). Host state (positions, last tokens) advances
+    # from what each sync reads back.
+
+    def _dense_call(self, rows, phase, dispatch, chunk=False):
+        """One device call of the dense loop and its sync. ``dispatch()``
+        enqueues the call and returns the device tensor to read back, or
+        None; ``chunk`` charges its time to the chunk timers, else to the
+        prefill ones. Returns (ok, the tensor's host values as a numpy
+        array, or None). A call that raises at dispatch fails ``rows`` ((slot, row)
+        pairs) and keeps the cache: the rows' own cache entries are all it
+        may have written. An error that surfaces at the sync fails them
+        and resets the engine (``_reset_dense``): the device may have
+        written anything."""
+        t0 = time.perf_counter()
+        try:
+            start = self._timing_event() if chunk else None
+            out = dispatch()
+            if out is None:
+                host, event = None, self._timing_event()
+            else:
+                host, event = self._to_host(out)
+        except Exception as e:  # noqa: BLE001 - fail the rows, keep serving
+            log.exception("%s failed", phase)
+            for slot, row in rows:
+                self._fail_row(row, slot, e, phase)
+            return False, None
+        t1 = time.perf_counter()
+        try:
+            if event is not None:
+                event.synchronize()
+            value = None if host is None else host.numpy()
+        except Exception as e:  # noqa: BLE001 - an async device error
+            log.exception("%s sync failed", phase)
+            for slot, row in rows:
+                self._fail_row(row, slot, e, f"{phase} sync")
+            self._reset_dense(e)
+            return False, None
+        t2 = time.perf_counter()
+        if chunk:
+            self.t_chunk_dispatch_s += t1 - t0
+            self.t_chunk_wait_s += t2 - t1
+            if start is not None:
+                self.t_chunk_device_s += start.elapsed_time(event) / 1e3
+        else:
+            self.t_prefill_dispatch_s += t1 - t0
+            self.t_prefill_wait_s += t2 - t1
+        return True, value
+
+    def _fail_row(self, row, slot, cause, phase):
+        """Fail one in-flight dense row and free its slot."""
+        row["err"] = RuntimeError(f"{phase} failed: {cause}")
+        row["err"].__cause__ = cause
+        if self.occupied[slot] is row:
+            self._free_slot(slot)
+        row["event"].set()
+
+    def _free_slot(self, slot):
+        # A free slot sits at position 0, so it cannot widen the attended
+        # window of later chunks, and unmasked writes land where the next
+        # occupant's prefill writes first.
+        self.occupied[slot] = None
+        self.positions[slot] = 0
+        self.last_tok[slot] = 0
+
+    def _reset_dense(self, cause):
+        """The cache is in an unknown state after a device fault: fail
+        every occupant and zero the cache in place (the chunk graphs hold
+        its address and stay valid)."""
+        for i, row in enumerate(self.occupied):
+            if row is None:
+                continue
+            row["err"] = RuntimeError(
+                f"engine cache lost to a failed device call: {cause}"
+            )
+            row["err"].__cause__ = cause
+            self._free_slot(i)
+            row["event"].set()
+        for buf in self.cache.values():
+            buf.zero_()
+
+    def _admit(self, slot, row):
+        """Dense admission: a context of at most ``prefill_chunk`` tokens
+        prefills now, in one call at its length bucket; a longer one
+        enters the slot prefilling (``remaining`` None), and the loop
+        advances it one segment an iteration (``_advance_prefill``)."""
+        row.setdefault("t_admit", time.perf_counter())
+        ctx = row["prompt"] + row.get("generated", [])
+        if len(ctx) > self.prefill_chunk:
+            row["pending"] = np.asarray(ctx, np.int64)
+            row["prefill_offset"] = 0
+            row["remaining"] = None
+            self.positions[slot] = 0
+            self.occupied[slot] = row
+            return
+        bucket = tf._length_bucket(len(ctx), self.cfg.max_seq_len)
+        padded = np.zeros((1, bucket), np.int64)
+        padded[0, :len(ctx)] = ctx
+        self.occupied[slot] = row
+        ok, first = self._dense_call(
+            [(slot, row)], "prefill",
+            lambda: self._prefill(self.model.model, self.cache,
+                                  self._to_device(padded), len(ctx), slot),
+        )
+        if ok:
+            self.n_prefills += 1
+            self._first_token(slot, row, len(ctx), int(first))
+
+    def _advance_prefill(self, slot):
+        """Dispatch and sync ONE segment of a chunked prefill: the
+        ``prefill_chunk`` tokens from the row's offset, the last one
+        right-padded, attending the slot's cache [0, window)."""
+        row = self.occupied[slot]
+        ctx = row["pending"]
+        total = int(ctx.shape[0])
+        off = row["prefill_offset"]
+        C = self.prefill_chunk
+        S = self.cfg.max_seq_len
+        seg = np.zeros((1, C), np.int64)
+        real = min(C, total - off)
+        seg[0, :real] = ctx[off:off + real]
+        last = off + C >= total
+        window = tf._window_for(min(off + C, S), S)
+        ok, tok = self._dense_call(
+            [(slot, row)], "chunked prefill",
+            lambda: self._prefill_seg(
+                self.model.model, self.cache, self._to_device(seg), off,
+                slot, total - 1, window=window, want_logits=last,
+            ),
+        )
+        if not ok:
+            return
+        self.n_prefills += 1
+        row["prefill_offset"] = off + C
+        if last:
+            del row["pending"]
+            self._first_token(slot, row, total, int(tok))
+
+    def _first_token(self, slot, row, ctx_len, tok):
+        """A prefill's first token has landed: the slot decodes from
+        ``ctx_len``, or retires when that token was the budget."""
+        self.positions[slot] = ctx_len
+        self.last_tok[slot] = tok
+        row.setdefault("generated", []).append(tok)
+        row["remaining"] = row["max_new"] - len(row["generated"])
+        if "t_first" not in row:
+            row["t_first"] = time.perf_counter()
+            self.ttft_s.append((len(row["prompt"]),
+                                row["t_first"] - row["t_enq"]))
+        if row["remaining"] <= 0:
+            self._retire(slot)
+
+    def _run_chunk(self):
+        """One decode chunk over the decoding slots, and its sync. Writes
+        are masked while any slot is mid-prefill."""
+        occupied = [
+            i for i, r in enumerate(self.occupied)
+            if r is not None and r.get("remaining") is not None
+        ]
+        if not occupied:
+            return
+        S = self.cfg.max_seq_len
+        steps = min(min(self.occupied[i]["remaining"] for i in occupied),
+                    self.chunk)
+        steps = 1 << (steps.bit_length() - 1)
+        active = np.zeros(self.max_slots, bool)
+        active[occupied] = True
+        max_pos = int(self.positions[occupied].max())
+        window = tf._window_for(min(max_pos + steps + 1, S), S)
+        prefilling = any(r is not None and r.get("remaining") is None
+                         for r in self.occupied)
+        graphs = self.chunk_graphs.graphs
+
+        def dispatch():
+            replays = graphs.replays
+            toks = self._chunk(self.last_tok, self.positions, active,
+                               steps=steps, window=window,
+                               mask_writes=prefilling)
+            if self.device.type == "cuda" and \
+                    graphs.replays - replays != steps:
+                self.eager_chunks_on_cuda += 1
+            return toks
+
+        ok, toks = self._dense_call(
+            [(i, self.occupied[i]) for i in occupied], "decode chunk",
+            dispatch, chunk=True,
+        )
+        if not ok:
+            return
+        self.steps_done += steps
+        self.n_chunks += 1
+        self.occupied_steps += steps * len(occupied)
+        for i in occupied:
+            row = self.occupied[i]
+            row["generated"].extend(int(t) for t in toks[:, i])
+            self.last_tok[i] = toks[-1, i]
+            self.positions[i] += steps
+            row["remaining"] -= steps
+            if row["remaining"] <= 0:
+                self._retire(i)
+
+    def _retire(self, slot):
+        row = self.occupied[slot]
+        self._free_slot(slot)
+        self._retire_row(row, slot)
+
+    def _loop(self):
+        """The dense host loop: admit into free slots (blocking only when
+        the engine is idle), advance every prefilling slot by one
+        segment, then run one decode chunk."""
+        with torch.inference_mode():
+            while not self._stop.is_set():
+                free = self._free_slots()
+                while free:
+                    row = self._next_row(
+                        block=len(self._free_slots()) == self.max_slots)
+                    if row is None:
+                        break
+                    if "call" in row:  # run_on_loop
+                        self._run_call(row)
+                        continue
+                    self._admit(free.pop(0), row)
+                for i, r in enumerate(self.occupied):
+                    if r is not None and r.get("remaining") is None:
+                        self._advance_prefill(i)
+                self._run_chunk()
 
     def _admit_paged(self, slot, row):
         """Paged admission: radix prefix match + page-table mapping. The
@@ -1309,8 +1745,9 @@ def make_handler(model, state):
                     info["queue_depth"] = stats["queue_depth"]
                     info["occupied_slots"] = stats["occupied_slots"]
                     info["max_slots"] = model.max_slots
-                    info["prefix_hit_ratio"] = kvs["prefix_hit_ratio"]
-                    info["free_blocks"] = kvs["free_blocks"]
+                    if kvs is not None:  # a paged engine
+                        info["prefix_hit_ratio"] = kvs["prefix_hit_ratio"]
+                        info["free_blocks"] = kvs["free_blocks"]
                 self._send(info)
             elif state.get("error"):
                 self._send({"status": "failed", "error": state["error"]},
@@ -1358,9 +1795,9 @@ def make_handler(model, state):
 def warmup(model, state, mode="lazy"):
     """Warm the model, then flip ready. ``mode="all"`` first runs a
     continuous engine's whole shape grid (``warmstart.warmup.warm_engine``:
-    every paged prefill shape, every window's decode graph captured) and
-    keeps its summary in ``state["warmup"]``; ``"lazy"`` leaves each
-    window's capture to its first chunk. Either way one short request
+    every prefill shape, every decode graph captured) and keeps its
+    summary in ``state["warmup"]``; ``"lazy"`` leaves each decode graph's
+    capture to its first chunk. Either way one short request
     then runs end to end (through the engine when ``model`` is one; it
     builds the CUDA kernels on first use)."""
     try:
@@ -1455,14 +1892,22 @@ def main(argv=None):
                         "(tests). Without a GPU the default fails.")
     p.add_argument("--once", action="store_true",
                    help="warm up, serve one request to self, exit (tests)")
+    p.add_argument("--batch-window-ms", type=float, default=0.0,
+                   help="> 0 enables dynamic micro-batching: concurrent "
+                        "compatible greedy requests coalesce into one "
+                        "device call within this window")
     p.add_argument("--continuous-batching", action="store_true",
-                   help="slot-based continuous batching on the paged KV "
-                        "cache: requests join and leave the shared decode "
-                        "at chunk granularity regardless of shape")
-    p.add_argument("--kv-cache", choices=["paged"], default="paged",
-                   help="continuous batching: the block-pool KV cache "
-                        "with radix prefix reuse ('dense' is not ported "
-                        "yet)")
+                   help="slot-based continuous batching: requests join "
+                        "and leave the shared decode at chunk granularity "
+                        "regardless of shape; supersedes "
+                        "--batch-window-ms")
+    p.add_argument("--kv-cache", choices=["dense", "paged"],
+                   default="dense",
+                   help="continuous batching: 'dense' keeps one cache row "
+                        "per slot and a synchronous host loop; 'paged' "
+                        "runs the block-pool KV cache with radix prefix "
+                        "reuse (shared prompts skip prefill) and the "
+                        "asynchronous double-buffered host loop")
     p.add_argument("--kv-block-size", type=int, default=16,
                    help="paged KV cache: tokens per block (power of two "
                         "<= 16, must divide --seq-len)")
@@ -1500,12 +1945,14 @@ def main(argv=None):
     p.add_argument("--warmup", choices=ws_warmup.WARMUP_MODES,
                    default="lazy",
                    help="'all' runs the continuous engine's whole shape "
-                        "grid (every paged prefill shape, every decode "
-                        "window's CUDA graph captured) BEFORE /healthz "
-                        "flips ready; 'lazy' captures each window at its "
-                        "first chunk (default)")
+                        "grid (every prefill shape, every decode graph "
+                        "captured) BEFORE /healthz flips ready; 'lazy' "
+                        "captures each decode graph at its first chunk "
+                        "(default)")
     args = p.parse_args(argv)
-    if args.speculate != "off" and not args.continuous_batching:
+    if args.speculate != "off" and (
+        not args.continuous_batching or args.kv_cache != "paged"
+    ):
         # Speculation rides the paged engine's verify and its host loop:
         # degrade loudly, keep serving.
         log.warning("--speculate=%s needs --continuous-batching with "
@@ -1519,6 +1966,8 @@ def main(argv=None):
             kv_block_size=args.kv_block_size, kv_blocks=args.kv_blocks,
             speculate=args.speculate, speculate_k=args.speculate_k,
         )
+    elif args.batch_window_ms > 0:
+        model = BatchingModel(model, window_ms=args.batch_window_ms)
     server, state = start_server(model, port=args.port,
                                  warmup_mode=args.warmup)
     log.info("listening on :%d", server.server_address[1])
@@ -1539,7 +1988,7 @@ def main(argv=None):
         return 0
     finally:
         server.shutdown()
-        if isinstance(model, ContinuousEngine):
+        if isinstance(model, (ContinuousEngine, BatchingModel)):
             model.shutdown()
 
 

@@ -15,7 +15,13 @@ position 1088, one at 3000), run eagerly and as 16 replays of the
 window's graph (``serving_graphs.PagedDecodeGraphs``, the engine's
 decode), and speculation's verify as replays of its graph
 (``serving_graphs.PagedVerifyGraphs``, width 16, window 2048): 4 verifies
-of one row at position 1088 and 4 of 8 rows at positions 1040-2000. For
+of one row at position 1088 and 4 of 8 rows at positions 1040-2000; then
+the dense engine's decode chunk at the paged chunk's shape (16 steps, 8
+rows, 7 at 1088 and one at 3000, window 4096) over a dense cache of 8
+slots, run eagerly and as 16 replays of its graph
+(``serving_graphs.DenseChunkGraphs``): the same step without the page
+gather; the replayed chunk also with ``mask_writes``, and timed against
+the unmasked one with CUDA events. For
 each region it prints one JSON line: host wall time, the
 span on the card between CUDA events around it, summed device (kernel)
 time, the device's idle share of the wall time, the ops with the most
@@ -134,6 +140,8 @@ def main(top=12, decode_steps=16, prompt_len=1500):
     _profiled(f"decode_{decode_steps}_steps_graphed", run_graph_decode, top)
     del state, decoder
     _profile_paged(model, rng, top, decode_steps)
+    torch.cuda.empty_cache()
+    _profile_dense_chunk(model, top, decode_steps)
     return 0
 
 
@@ -209,6 +217,61 @@ def _profile_verify(model, pools, tables, rng, top, block_size, width=16,
 
         _profiled(f"verify_{verifies}x_b{rows}_w{window}_graphed",
                   run_verify, top)
+
+
+def _profile_dense_chunk(model, top, decode_steps, slots=8, window=4096,
+                         reps=5):
+    """The dense engine's decode chunk at the paged chunk's shape: its
+    cache of ``slots`` rows holds random K/V, row b at its position. The
+    replayed chunk is profiled unmasked and with ``mask_writes``, and the
+    two are timed against each other unprofiled."""
+    cfg, device = model.cfg, model.device
+    gen = torch.Generator(device=device).manual_seed(1)
+    cache = tf.init_kv_cache(cfg, slots, device)
+    for buf in cache.values():
+        buf.normal_(generator=gen)
+    tokens = torch.zeros(slots, dtype=torch.long, device=device)
+    positions = torch.full((slots,), 1088, device=device)
+    positions[-1] = 3000
+    active = torch.ones(slots, dtype=torch.bool, device=device)
+
+    def run_chunk():
+        tf.decode_chunk(model, cache, tokens, positions, active,
+                        steps=decode_steps, window=window)
+
+    runner = serving_graphs.DenseChunkGraphs(model, cache, slots,
+                                             decode_steps)
+    host = [t.cpu().numpy() for t in (tokens, positions, active)]
+
+    def run_graph_chunk(mask_writes=False):
+        runner(*host, decode_steps, window, mask_writes)
+
+    for fn in (run_chunk, run_graph_chunk):  # warm, capture
+        fn()
+    run_graph_chunk(True)
+    _profiled(f"dense_decode_{decode_steps}_steps_{slots}_rows", run_chunk,
+              top)
+    _profiled(f"dense_decode_{decode_steps}_steps_{slots}_rows_graphed",
+              run_graph_chunk, top)
+    _profiled(f"dense_decode_{decode_steps}_steps_{slots}_rows_graphed_"
+              f"masked", lambda: run_graph_chunk(True), top)
+    # The masked step against the unmasked one, unprofiled: replayed
+    # chunks timed with CUDA events, in the order unmasked, masked,
+    # masked, unmasked, ``reps`` chunks each.
+    ms = {False: [], True: []}
+    for mask in (False, True, True, False):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            run_graph_chunk(mask)
+        end.record()
+        torch.cuda.synchronize()
+        ms[mask].append(start.elapsed_time(end) / (reps * decode_steps))
+    print(json.dumps({"phase": f"dense_chunk_step_mask_ab_{slots}_rows_w"
+                      f"{window}", "reps": reps, "steps": decode_steps,
+                      "unmasked_step_ms": ms[False],
+                      "masked_step_ms": ms[True]}), flush=True)
 
 
 if __name__ == "__main__":

@@ -23,6 +23,11 @@ replayed:
                       window) as JAX compiles: a replay costs the host
                       microseconds against milliseconds of device work a
                       step). ``serve_cli.ContinuousEngine``'s decode.
+  DenseChunkGraphs    one step of ``transformer.decode_chunk`` per (window,
+                      mask_writes) over static buffers and the engine's
+                      dense cache, replayed ``steps`` times a chunk; a
+                      capture leaves every slot's cache as it found it.
+                      The dense ``ContinuousEngine``'s decode.
   PagedVerifyGraphs   speculation's batched verify
                       (``transformer.paged_verify_batch``) per (batch
                       bucket, window) over static buffers per batch
@@ -99,11 +104,14 @@ class GraphSet:
         later captures."""
         self._graphs.pop(key, None)
 
-    def capture(self, key, step):
+    def capture(self, key, step, reset=None):
         """Run ``step()`` eagerly ``WARMUP_ITERS`` times on a side stream,
         then capture one call of it as graph ``key``. The warm-up
         iterations execute, so ``step`` must leave the state as it found
-        it or rewrite what it wrote. One capture runs at a time in the
+        it or rewrite what it wrote; ``reset()``, when given, runs before
+        each of them (a step that bumps a row counter into an output of
+        ``chunk`` rows would otherwise run past its end when ``chunk`` is
+        below ``WARMUP_ITERS``). One capture runs at a time in the
         process; other threads go on launching work meanwhile
         (``thread_local``)."""
         t0 = time.perf_counter()
@@ -113,6 +121,8 @@ class GraphSet:
             side.wait_stream(current)
             with torch.cuda.stream(side):
                 for _ in range(WARMUP_ITERS):
+                    if reset is not None:
+                        reset()
                     step()
             current.wait_stream(side)
             graph = torch.cuda.CUDAGraph()
@@ -243,7 +253,8 @@ class PagedDecodeGraphs:
         if window in self.graphs:
             return True
         self._neutral()
-        self.graphs.capture(window, lambda: self._step(window))
+        self.graphs.capture(window, lambda: self._step(window),
+                            reset=self.counter.zero_)
         return False
 
     @torch.inference_mode()
@@ -268,6 +279,111 @@ class PagedDecodeGraphs:
                 self.graphs.replay(window)
             else:
                 self._step(window)
+        return self.out[:steps]
+
+
+class DenseChunkGraphs:
+    """The dense decode chunk as replays of one captured step per
+    (window, mask_writes).
+
+    ``model`` and ``cache`` ({"k", "v"}: (L, slots, Hkv, S, hd)) are the
+    engine's. The static buffers are allocated once and never reassigned,
+    since captured graphs hold their addresses: ``tokens``,
+    ``positions`` and ``active`` (slots), ``out`` (``chunk`` × slots
+    tokens, one row a step) and ``counter`` (the next row of ``out``).
+    The captured step computes one iteration of
+    ``transformer.decode_chunk`` (``dense_decode_step``), writes the next
+    tokens and positions back into their buffers, the tokens into
+    ``out[counter]``, and bumps the counter.
+
+    Calling it runs a chunk: it stages the host arrays into the buffers,
+    zeroes the counter, and replays (on the CPU: runs) the step of
+    (window, mask_writes) ``steps`` times. A step without a graph is
+    captured first, with every row inactive at position 0. The dense
+    cache has no null block, and the capture's warm-up iterations
+    execute: a masked step writes each row's own values back, but an
+    unmasked one writes K/V at position 0 of every slot, live or not. So
+    every capture saves the cache's position-0 column (L × slots × Hkv ×
+    hd per tensor, 0.5 MB for Llama-3-8B at 8 slots) and restores it
+    after: a capture leaves every slot's cache as it found it, also when
+    it comes mid-traffic (``--warmup=lazy``)."""
+
+    def __init__(self, model, cache, slots, chunk):
+        device = cache["k"].device
+        self.model = model
+        self.cache = cache
+        self.tokens = torch.zeros(slots, dtype=torch.long, device=device)
+        self.positions = torch.zeros(slots, dtype=torch.long, device=device)
+        self.active = torch.zeros(slots, dtype=torch.bool, device=device)
+        self.out = torch.zeros(chunk, slots, dtype=torch.long, device=device)
+        self.counter = torch.zeros(1, dtype=torch.long, device=device)
+        self.graphs = GraphSet(device)
+
+    @property
+    def on_cuda(self):
+        return self.tokens.device.type == "cuda"
+
+    def _step(self, window, mask_writes):
+        _, nxt, pos = tf.dense_decode_step(
+            self.model, self.cache, self.tokens, self.positions, self.active,
+            window, mask_writes,
+        )
+        self.tokens.copy_(nxt)
+        self.positions.copy_(pos)
+        self.out.index_copy_(0, self.counter, nxt[None])
+        self.counter.add_(1)
+
+    def _neutral_step(self, run):
+        """Every row inactive at position 0, then ``run()``, with the
+        cache's position-0 column restored after it."""
+        for buf in (self.tokens, self.positions, self.active, self.counter):
+            buf.zero_()
+        saved = {n: c[:, :, :, :1].clone() for n, c in self.cache.items()}
+        try:
+            run()
+        finally:
+            for name, col in saved.items():
+                self.cache[name][:, :, :, :1].copy_(col)
+
+    @torch.inference_mode()
+    def warm(self, window, mask_writes):
+        """Make the graph of (``window``, ``mask_writes``) ready before
+        traffic needs it: True if it was captured already, False if this
+        call captured it. On the CPU one neutral step runs eagerly (the
+        cache left as it was); returns None."""
+        key = (window, bool(mask_writes))
+        if not self.on_cuda:
+            self._neutral_step(lambda: self._step(*key))
+            return None
+        if key in self.graphs:
+            return True
+        self._neutral_step(lambda: self.graphs.capture(
+            key, lambda: self._step(*key), reset=self.counter.zero_))
+        return False
+
+    @torch.inference_mode()
+    def __call__(self, tokens, positions, active, steps, window,
+                 mask_writes=False):
+        """``steps`` greedy steps at ``window`` from the host arrays
+        ``tokens``, ``positions`` and ``active`` (slots) → the (steps,
+        slots) tokens, a view of ``out`` valid until the next call. The
+        last tokens stay in ``tokens``, the last positions in
+        ``positions``; the cache is written in place."""
+        if not 1 <= steps <= self.out.shape[0]:
+            raise ValueError(f"steps ({steps}) must be in [1, "
+                             f"{self.out.shape[0]}]")
+        key = (window, bool(mask_writes))
+        if self.on_cuda and key not in self.graphs:
+            self.warm(*key)
+        _stage(self.tokens, tokens)
+        _stage(self.positions, positions)
+        _stage(self.active, active)
+        self.counter.zero_()
+        for _ in range(steps):
+            if self.on_cuda:
+                self.graphs.replay(key)
+            else:
+                self._step(*key)
         return self.out[:steps]
 
 

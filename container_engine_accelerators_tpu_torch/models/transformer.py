@@ -5,18 +5,20 @@ single-device training paths.
 
 Port of ``container_engine_accelerators_tpu/models/transformer.py``:
 RMSNorm, rotary embeddings, grouped-query attention, SwiGLU MLP, tied
-output head, a dense KV cache and batched prefill + decode, the paged
-serving programs (``paged_prefill_segment``, ``paged_decode_chunk`` and
-its one step ``paged_decode_step``, speculation's ``paged_verify_batch``
-and its one-row form ``paged_verify_chunk``), the static shape grid a
-server can
+output head, a dense KV cache and batched prefill + decode, the dense
+continuous-batching programs (``prefill_into_slot``,
+``prefill_chunk_into_slot``, ``decode_logits_multi`` and ``decode_chunk``
+with its one step ``dense_decode_step``), the paged serving programs
+(``paged_prefill_segment``, ``paged_decode_chunk`` and its one step
+``paged_decode_step``, speculation's ``paged_verify_batch`` and its
+one-row form ``paged_verify_chunk``), the static shape grid a server can
 dispatch (``serving_shape_buckets``) and the training step (``loss_fn``,
 ``make_train_step``). Weights keep the
 JAX layout ((in, out) matrices, so every projection is ``x @ w``); the
 stacked layer dim becomes a ``ModuleList``. Prefill and training
 attention go through ``ops.attention.flash_attention`` (the hand-written
 CUDA kernels, forward and backward, on CUDA tensors; their plain
-versions on CPU tensors), paged prefill segments through
+versions on CPU tensors), dense and paged prefill segments through
 ``ops.attention.flash_fwd`` at the segment's global ``q_base``, and the
 verify through it at per-row bases read from device memory; decode
 attention is plain PyTorch, as it is plain XLA in the JAX package. On
@@ -25,9 +27,8 @@ CUDA the decode steps run as captured CUDA graphs, one per shape bucket
 jitted serving programs. Parameters are trainable; the serving entry
 points run under ``torch.inference_mode()``.
 
-Not in this port yet: MoE FFNs, tensor/sequence/pipeline parallelism,
-ring attention and the dense continuous-batching programs (see
-ROADMAP.md).
+Not in this port yet: MoE FFNs, tensor/sequence/pipeline parallelism
+and ring attention (see ROADMAP.md).
 """
 
 import dataclasses
@@ -586,6 +587,181 @@ def generate(model, prompt, max_new_tokens=16, temperature=0.0, top_k=0,
         tok = sample_token(logits, generator, temperature, top_k, top_p)
         pieces.append(tok[:, None])
     return torch.cat(pieces, dim=1)
+
+
+# -- dense continuous-batching programs ---------------------------------------
+#
+# The slot-based engine on a dense cache (L, slots, Hkv, S, hd): every slot
+# owns one cache row, requests prefill into a free row and decode together
+# at per-row positions. Every function writes the cache IN PLACE and reads
+# nothing of the device back to the host, so the decode step can be
+# captured in a CUDA graph (``serving_graphs.DenseChunkGraphs``).
+
+
+def _row_update(cache, new, positions, active=None):
+    """Per-row cache write, the JAX ``_row_update``: cache (B, H, S, hd) ←
+    new (B, H, 1, hd) at slot ``positions[b]`` of row b, in place.
+
+    ``active`` (B,) bool masks the write per row: an inactive row writes
+    the value already at its slot back (a gather, then ``where``), so a
+    row mid-chunked-prefill can sit inactive in a decode chunk and keep
+    its cache bit for bit."""
+    batch, heads, _, hd = cache.shape
+    idx = positions.view(batch, 1, 1, 1).expand(batch, heads, 1, hd)
+    new = new.to(cache.dtype)
+    if active is not None:
+        old = torch.gather(cache, 2, idx)
+        new = torch.where(active.view(batch, 1, 1, 1), new, old)
+    cache.scatter_(2, idx, new)
+
+
+@torch.inference_mode()
+def decode_logits_multi(model, cache, tokens, positions, active=None,
+                        window=None):
+    """One decode step with PER-ROW positions, the continuous-batching
+    step (the JAX ``decode_logits_multi``): tokens and positions (B,)
+    int64 on the device. Row b writes its K/V at ``positions[b]`` of its
+    own cache row (``_row_update``, masked by ``active``) and attends
+    [0, positions[b] + 1) of it, reading the view ``cache[..., :window,
+    :]`` (default: the whole context). JAX hands in a window copy of the
+    cache and writes it back after the chunk; here the writes land in
+    place, so neither copy exists. → (B, V) f32 logits."""
+    if window is None:
+        window = cache["k"].shape[3]
+
+    def attend_for(i):
+        k_cache, v_cache = cache["k"][i], cache["v"][i]
+
+        def attend(q, k, v):
+            _row_update(k_cache, k, positions, active)
+            _row_update(v_cache, v, positions, active)
+            return decode_attention(
+                q, k_cache[:, :, :window], v_cache[:, :, :window],
+                positions + 1,
+            )
+
+        return attend
+
+    return _decode_step(model, tokens, positions[:, None], attend_for)
+
+
+def dense_decode_step(model, cache, tokens, positions, active, window,
+                      mask_writes=False):
+    """One greedy step of ``decode_chunk`` (one iteration of the JAX
+    chunk's ``scan`` body) → ((B, V) f32 logits, next tokens, next
+    positions). Positions clamp to ``window - 1``; inactive rows keep
+    their token and position, and with ``mask_writes`` their cache too.
+    Reads nothing back to the host."""
+    safe = positions.clamp(max=window - 1)
+    logits = decode_logits_multi(
+        model, cache, tokens, safe, active=active if mask_writes else None,
+        window=window,
+    )
+    nxt = torch.where(active, logits.argmax(dim=-1), tokens)
+    return logits, nxt, torch.where(active, positions + 1, positions)
+
+
+@torch.inference_mode()
+def decode_chunk(model, cache, tokens, positions, active, steps, window=None,
+                 mask_writes=False):
+    """``steps`` greedy continuous-batching steps over a dense cache, the
+    counterpart of the JAX ``decode_chunk``.
+
+    cache {"k", "v"}: (L, B, Hkv, S, hd), written IN PLACE; tokens and
+    positions (B,) int64, active (B,) bool, on the model's device.
+    ``window`` (default: the context) bounds every step's attended read;
+    callers keep window > position + steps for every active row.
+    ``mask_writes`` masks inactive rows' cache writes: required while a
+    row is mid-chunked-prefill (an unmasked write would land inside its
+    prefilled span), skipped otherwise (a free slot's position is 0, and
+    its next occupant's prefill overwrites it before anything attends).
+    JAX fuses the steps in one ``scan``; this is the eager loop of
+    ``dense_decode_step``, which the engine replays as one captured graph
+    per (window, mask_writes) instead (``serving_graphs.DenseChunkGraphs``).
+    Returns (tokens (steps, B), last_tok (B,), positions (B,))."""
+    if window is None:
+        window = model.cfg.max_seq_len
+    tok, pos, out = tokens, positions, []
+    for _ in range(steps):
+        _, tok, pos = dense_decode_step(model, cache, tok, pos, active,
+                                        window, mask_writes)
+        out.append(tok)
+    return torch.stack(out), tok, pos
+
+
+@torch.inference_mode()
+def prefill_into_slot(model, cache, prompt, true_len, slot):
+    """Prefill ONE request into cache row ``slot``, the counterpart of the
+    JAX ``prefill_into_slot``: prompt (1, P) right-padded to a length
+    bucket, the real tokens ending at ``true_len``. One forward through
+    the flash kernel (``forward``); the K/V land at cache[:, slot, :, :P]
+    and every other row is left as it was, bit for bit. Returns the
+    greedy first token as a 0-d tensor on the device."""
+    batch, prompt_len = prompt.shape
+    if batch != 1:
+        raise ValueError(f"one request per slot, got batch {batch}")
+    logits, (ks, vs) = forward(model, prompt, return_kv=True,
+                               logits_at=true_len - 1)
+    cache["k"][:, slot, :, :prompt_len] = ks[:, 0]
+    cache["v"][:, slot, :, :prompt_len] = vs[:, 0]
+    return logits[0, 0].argmax()
+
+
+@torch.inference_mode()
+def prefill_chunk_into_slot(model, cache, seg, offset, slot, true_pos, window,
+                            want_logits=False, return_logits=False):
+    """One segment of an incremental prefill into cache row ``slot``, the
+    counterpart of the JAX ``prefill_chunk_into_slot``.
+
+    seg: (1, C) tokens at global positions [offset, offset + C), the last
+    segment right-padded. Each layer writes the segment's K/V at
+    cache[i][slot, :, offset:offset + C], then runs
+    ``ops.attention.flash_fwd`` causal at global positions (``q_base=
+    offset``, ``k_base=0``) over the slot's cache [0, ``window``): the
+    CUDA kernel on CUDA tensors, its plain version on CPU ones. The
+    kernel takes contiguous tensors, and a window slice of a row is not
+    one; the whole row (1, Hkv, S, hd) is, so it goes in with ``kv_len=
+    window``. Keys past offset + C are masked causally either way, and
+    the kernel's causal walk stops at the last row's diagonal, so it
+    reads what the window holds and copies nothing. ``window`` is a
+    power of two or a multiple of 128, at least C (JAX's rule; the
+    kernel tiles for itself, so JAX's choice of block size has no
+    counterpart).
+
+    ``want_logits`` (the final segment): returns the greedy token read at
+    global position ``true_pos`` as a 0-d tensor (with ``return_logits``,
+    as (token, (V,) f32 logits)); earlier segments return None."""
+    batch, seg_len = seg.shape
+    if batch != 1:
+        raise ValueError(f"one request per slot, got batch {batch}")
+    if window < seg_len or (window % 128 and window & (window - 1)):
+        raise ValueError(
+            f"window ({window}) must be a power of two or 128-multiple "
+            f">= segment ({seg_len})"
+        )
+    hd = model.cfg.head_dim
+    positions = offset + torch.arange(seg_len, device=seg.device)[None, :]
+    x = model.embed[seg]
+    for i, layer in enumerate(model.layers):
+        k_row = cache["k"][i][slot:slot + 1]
+        v_row = cache["v"][i][slot:slot + 1]
+
+        def attend(q, k, v, k_row=k_row, v_row=v_row):
+            k_row[:, :, offset:offset + seg_len] = k
+            v_row[:, :, offset:offset + seg_len] = v
+            out, _ = flash_fwd(
+                q, k_row, v_row, causal=True, sm_scale=1.0 / (hd ** 0.5),
+                q_base=offset, k_base=0, kv_len=window,
+            )
+            return out
+
+        x, _ = layer(x, positions, attend)
+    if not want_logits:
+        return None
+    idx = true_pos - offset
+    logits = lm_head(x[:, idx:idx + 1], model.ln_f.weight, model.embed)[0, 0]
+    tok = logits.argmax()
+    return (tok, logits) if return_logits else tok
 
 
 # -- paged (block-pool) serving programs --------------------------------------

@@ -3,13 +3,25 @@
 """Warmup: run the serving engine's shape grid before ready.
 
 Port of ``container_engine_accelerators_tpu/warmstart/warmup.py``. A
-``ContinuousEngine`` on CUDA captures the decode graph of a window the
-first time a chunk needs that window (``serve_cli --warmup=lazy``): the
-capture (eager warm-up iterations, a device synchronisation, the capture
-itself) lands inside that request. :func:`warm_plan` enumerates the
-engine's grid from ``transformer.serving_shape_buckets`` and
-:func:`warm_engine` runs every entry before ``/healthz`` flips ready
-(``--warmup=all``):
+``ContinuousEngine`` on CUDA captures a decode graph the first time a
+chunk needs it (``serve_cli --warmup=lazy``): the capture (eager warm-up
+iterations, a device synchronisation, the capture itself) lands inside
+that request. :func:`warm_plan` enumerates the engine's grid from
+``transformer.serving_shape_buckets`` and :func:`warm_engine` runs every
+entry before ``/healthz`` flips ready (``--warmup=all``). A dense engine
+(``kv_cache="dense"``):
+
+  prefill/b{bucket}                     one single-shot prefill per
+                                        length bucket, run eagerly into a
+                                        free slot
+  prefill_seg/w{window}/{mid|logits}    one chunked-prefill segment per
+                                        segment window, run eagerly into a
+                                        free slot
+  decode/w{window}/m{mask}              the decode graph of each (window,
+                                        mask_writes)
+                                        (``DenseChunkGraphs.warm``)
+
+A paged engine:
 
   pprefill/c{C}/w{window}/{logits|mid}  one paged prefill segment per
                                         (segment, window) pair, run
@@ -27,19 +39,21 @@ engine's grid from ``transformer.serving_shape_buckets`` and
 
 Deliberate differences from JAX:
 
-  * one decode task per window, not per (steps, window): the port
-    captures one step per window and replays it ``steps`` times (the
-    draft's propose chunk likewise: ``draft_chunk/w{window}``);
-  * no scratch pools: JAX runs the tasks on zeroed copies of the cache,
-    and a copy of a full-width pool would double it on the card. Every
-    task here writes only the null block: segments whose block ids and
-    page table are all ``NULL_BLOCK``, decode graphs captured with every
-    row inactive, verify graphs with every row's write targets and table
-    null; first tokens land in a scratch vector, not the
-    engine's ``last_dev``, and the manager's tables and radix index are
-    not touched;
+  * one decode task per window (dense: per (window, mask)), not per
+    (steps, window): the port captures one step and replays it ``steps``
+    times (the draft's propose chunk likewise: ``draft_chunk/w{window}``);
+  * no scratch caches: JAX runs the tasks on zeroed copies of the cache,
+    and a copy of a full-width cache would double it on the card. A paged
+    task writes only the null block: segments whose block ids and page
+    table are all ``NULL_BLOCK``, decode graphs captured with every row
+    inactive, verify graphs with every row's write targets and table
+    null; first tokens land in a scratch vector, not the engine's
+    ``last_dev``, and the manager's tables and radix index are not
+    touched. A dense prefill task writes a free slot's rows, which its
+    next occupant's prefill overwrites before anything reads them, and a
+    dense decode capture restores what its warm-up iterations wrote;
   * ``cache_hits``/``cache_misses`` count the engine's graph cache: a
-    window captured already is a hit, a capture a miss (both 0 on the
+    graph captured already is a hit, a capture a miss (both 0 on the
     CPU, which has no graphs).
 
 The tasks run on the engine-loop thread (``ContinuousEngine.run_on_loop``),
@@ -69,10 +83,74 @@ WarmTask = collections.namedtuple("WarmTask", "label fn args kwargs group",
 
 
 def warm_plan(engine):
-    """Every warm task of ``engine``'s shape grid: the paged engine's
-    (:func:`_warm_plan_paged`), the only continuous engine the port has;
-    the dense engine's grid comes with the dense engine."""
+    """Every warm task of ``engine``'s shape grid: a dense engine's
+    (:func:`_warm_plan_dense`) or a paged one's
+    (:func:`_warm_plan_paged`), by ``engine.kv``, as JAX dispatches."""
+    if engine.kv is None:
+        return _warm_plan_dense(engine)
     return _warm_plan_paged(engine)
+
+
+def _in_free_slot(engine, fn, *args, **kwargs):
+    """``fn(model, cache, ..., slot)`` on the engine's first free slot:
+    a dense prefill task writes a slot's cache rows, which a slot in use
+    must keep. Raises when every slot is in use."""
+    free = engine._free_slots()
+    if not free:
+        raise RuntimeError("a dense prefill warm task needs a free slot")
+    return fn(*args, free[0], **kwargs)
+
+
+def _warm_plan_dense(engine):
+    """The dense engine's grid, JAX's labels: a single-shot prefill per
+    length bucket (``prefill/b{bucket}``), a chunked-prefill segment per
+    (window, want_logits) (``prefill_seg/w{window}/{mid|logits}``, at the
+    offset that fills the window), then the decode graph of every (window,
+    mask_writes) (``decode/w{window}/m{mask}``; masked variants only where
+    prefill is chunked, since writes are masked only while a slot is
+    mid-prefill). JAX has one decode task per (steps, window, mask); the
+    port captures one step and replays it ``steps`` times. The prefill
+    tasks run eagerly into a free slot's cache rows, which its next
+    occupant's prefill overwrites before anything reads them; the decode
+    captures leave the cache as they found it
+    (``DenseChunkGraphs.warm``). No task touches the host's positions or
+    last tokens. Allocates the tasks' operands (zeros) on the engine's
+    device."""
+    cfg = engine.cfg
+    buckets = tf.serving_shape_buckets(cfg, engine.prefill_chunk,
+                                       engine.chunk)
+    device = engine.device
+    model = engine.model.model
+    tasks = []
+    for bucket in buckets["prefill"]:
+        prompt = torch.zeros((1, bucket), dtype=torch.long, device=device)
+        tasks.append(WarmTask(
+            f"prefill/b{bucket}", _in_free_slot,
+            (engine, engine._prefill, model, engine.cache, prompt, bucket),
+            {},
+        ))
+    chunked = engine.prefill_chunk < cfg.max_seq_len
+    if chunked:
+        C = engine.prefill_chunk
+        seg = torch.zeros((1, C), dtype=torch.long, device=device)
+        for window in buckets["segment_windows"]:
+            offset = window - C
+            for want in (False, True):
+                tasks.append(WarmTask(
+                    f"prefill_seg/w{window}/{'logits' if want else 'mid'}",
+                    _in_free_slot,
+                    (engine, engine._prefill_seg, model, engine.cache, seg,
+                     offset),
+                    {"true_pos": window - 1, "window": window,
+                     "want_logits": want},
+                ))
+    for window in buckets["windows"]:
+        for mask in ((False, True) if chunked else (False,)):
+            tasks.append(WarmTask(
+                f"decode/w{window}/m{int(mask)}", engine.chunk_graphs.warm,
+                (window, mask), {},
+            ))
+    return tasks
 
 
 def _warm_plan_paged(engine):

@@ -144,7 +144,8 @@ def test_paged_engine_on_card_matches_dense_generate(gen):
                                max_seq_len=128, dtype="float32")
     model = serve_cli.Model(cfg, seed=4, device="cuda")
     engine = serve_cli.ContinuousEngine(model, max_slots=2, chunk=4,
-                                        prefill_chunk=32, kv_block_size=16)
+                                        prefill_chunk=32, kv_block_size=16,
+                                        kv_cache="paged")
     prefix = list(range(7, 47))
     cases = [(prefix + [3, 4], 6), (prefix + [5], 6),
              (list(range(100, 170)), 7)]
@@ -262,7 +263,8 @@ def _small_engine(seed):
     model = serve_cli.Model(tf.TransformerConfig(**SMALL), seed=seed,
                             device="cuda")
     return model, serve_cli.ContinuousEngine(
-        model, max_slots=2, chunk=4, prefill_chunk=32, kv_block_size=16)
+        model, max_slots=2, chunk=4, prefill_chunk=32, kv_block_size=16,
+        kv_cache="paged")
 
 
 def test_failed_capture_raises_and_nothing_runs_eagerly(gen):
@@ -601,3 +603,157 @@ def test_training_step_on_card_matches_cpu(gen):
         counts[0] + 2 * cfg.n_layers * TRAIN_STEPS,
         counts[1] + cfg.n_layers * TRAIN_STEPS,
         counts[2] + cfg.n_layers * TRAIN_STEPS)
+
+
+# -- the dense continuous-batching engine -------------------------------------
+
+def _dense_state(gen, cfg, slots):
+    cache = {n: torch.randn((cfg.n_layers, slots, cfg.n_kv_heads,
+                             cfg.max_seq_len, cfg.head_dim), generator=gen,
+                            device="cuda") for n in ("k", "v")}
+    tokens = torch.randint(0, cfg.vocab_size, (slots,), generator=gen,
+                           device="cuda")
+    return cache, tokens
+
+
+@pytest.mark.parametrize("mask_writes", [False, True])
+def test_dense_chunk_graphs_match_the_eager_chunk(gen, mask_writes):
+    """The captured dense step replayed ``steps`` times gives the eager
+    ``decode_chunk``'s tokens, last tokens and positions, and the same
+    cache, 0 apart (small f32 model, 4 rows, one inactive, one clamping
+    at the window's end)."""
+    cfg = tf.TransformerConfig(**SMALL)
+    model = tf.init_params(cfg, device="cuda", seed=8)
+    cache, tokens = _dense_state(gen, cfg, 4)
+    eager = {n: c.clone() for n, c in cache.items()}
+    positions = torch.tensor([3, 62, 40, 32])
+    active = torch.tensor([True, True, False, True])
+    want, last, pos = tf.decode_chunk(
+        model, eager, tokens.clone(), positions.cuda(), active.cuda(),
+        steps=3, window=64, mask_writes=mask_writes)
+    runner = serving_graphs.DenseChunkGraphs(model, cache, 4, 4)
+    got = runner(tokens.cpu().numpy(), positions.numpy(), active.numpy(), 3,
+                 64, mask_writes)
+    torch.cuda.synchronize()
+    assert (runner.graphs.captures, runner.graphs.replays) == (1, 3)
+    assert torch.equal(got, want) and torch.equal(runner.tokens, last)
+    assert torch.equal(runner.positions, pos)
+    for name in ("k", "v"):
+        assert (cache[name] - eager[name]).abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("mask_writes", [False, True])
+def test_dense_chunk_graphs_of_one_step_match_the_eager_chunk(
+        gen, mask_writes):
+    """``--decode-chunk 1``: ``out`` has one row, below the capture's
+    WARMUP_ITERS warm-up iterations, which restart its row counter each
+    (``GraphSet.capture``'s ``reset``) and so never write past it. Two
+    one-step chunks give the eager ``decode_chunk``'s tokens, positions
+    and cache, 0 apart."""
+    cfg = tf.TransformerConfig(**SMALL)
+    model = tf.init_params(cfg, device="cuda", seed=11)
+    cache, tokens = _dense_state(gen, cfg, 4)
+    eager = {n: c.clone() for n, c in cache.items()}
+    positions = torch.tensor([3, 62, 40, 32])
+    active = torch.tensor([True, True, False, True])
+    runner = serving_graphs.DenseChunkGraphs(model, cache, 4, 1)
+    tok, pos, tok_dev, pos_dev = tokens.clone(), positions.cuda(), \
+        tokens.cpu().numpy(), positions.numpy()
+    for _ in range(2):
+        want, tok, pos = tf.decode_chunk(
+            model, eager, tok, pos, active.cuda(), steps=1, window=64,
+            mask_writes=mask_writes)
+        got = runner(tok_dev, pos_dev, active.numpy(), 1, 64, mask_writes)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(runner.positions, pos)
+        tok_dev, pos_dev = got[-1].cpu().numpy(), \
+            runner.positions.cpu().numpy()
+    assert (runner.graphs.captures, runner.graphs.replays) == (1, 2)
+    for name in ("k", "v"):
+        assert (cache[name] - eager[name]).abs().max().item() == 0.0
+
+
+def test_paged_chunk_graphs_of_one_step_match_the_eager_chunk(gen):
+    """The paged runner at ``--decode-chunk 1``: its capture's warm-up
+    iterations stay inside the one-row ``out`` too, and a one-step chunk
+    gives the eager ``paged_decode_chunk``'s tokens and pools (but the
+    null block)."""
+    cfg = tf.TransformerConfig(**SMALL)
+    model = tf.init_params(cfg, device="cuda", seed=12)
+    slots, bs = 4, 16
+    per_row = cfg.max_seq_len // bs
+    shape = (cfg.n_layers, 1 + slots * per_row, cfg.n_kv_heads, bs,
+             cfg.head_dim)
+    pools = {n: torch.randn(shape, generator=gen, device="cuda")
+             for n in ("k", "v")}
+    eager_pools = {n: p.clone() for n, p in pools.items()}
+    tables = (1 + torch.arange(slots * per_row)).view(slots, per_row)
+    tokens = torch.randint(0, cfg.vocab_size, (slots,), generator=gen,
+                           device="cuda")
+    positions = torch.tensor([3, 62, 40, 32])
+    active = torch.tensor([True, True, False, True])
+    want, last, _ = tf.paged_decode_chunk(
+        model, eager_pools, tables.cuda(), tokens.clone(), positions.cuda(),
+        active.cuda(), steps=1, window=64, block_size=bs)
+    last_dev = tokens.clone()
+    runner = serving_graphs.PagedDecodeGraphs(model, pools, last_dev,
+                                              tuple(tables.shape), 1, bs)
+    got = runner(tables.numpy(), positions.numpy(), active.numpy(), 1, 64)
+    torch.cuda.synchronize()
+    assert (runner.graphs.captures, runner.graphs.replays) == (1, 1)
+    assert torch.equal(got, want) and torch.equal(last_dev, last)
+    for name in ("k", "v"):
+        assert torch.equal(pools[name][:, 1:], eager_pools[name][:, 1:])
+
+
+def test_dense_capture_leaves_live_slots_bit_identical(gen):
+    """A capture made while every slot holds live K/V (``--warmup=lazy``
+    mid-traffic): its warm-up iterations execute, and the unmasked step
+    writes position 0 of every slot; the capture restores it, so each
+    (window, mask_writes) capture leaves the whole cache bit-identical."""
+    cfg = tf.TransformerConfig(**SMALL)
+    model = tf.init_params(cfg, device="cuda", seed=9)
+    cache, _ = _dense_state(gen, cfg, 4)
+    before = {n: c.clone() for n, c in cache.items()}
+    runner = serving_graphs.DenseChunkGraphs(model, cache, 4, 4)
+    for window in (16, 128):
+        for mask in (False, True):
+            assert runner.warm(window, mask) is False
+            assert runner.warm(window, mask) is True
+            torch.cuda.synchronize()
+            for name in ("k", "v"):
+                assert torch.equal(cache[name], before[name]), (window, mask)
+    assert runner.graphs.captures == 4
+
+
+def test_dense_engine_on_card_matches_dense_generate(gen):
+    """The dense engine (the default ``kv_cache``) on a small f32 model
+    returns dense generate's tokens exactly, for concurrent requests with
+    a prompt prefilled in three segments; every prefill runs the flash
+    kernel once per layer and every decode chunk replays its graph."""
+    cfg = tf.TransformerConfig(**SMALL)
+    model = serve_cli.Model(cfg, seed=10, device="cuda")
+    engine = serve_cli.ContinuousEngine(model, max_slots=2, chunk=4,
+                                        prefill_chunk=32)
+    cases = [(list(range(7, 47)), 6), (list(range(100, 170)), 7),
+             ([5, 6, 7], 9)]
+    before = attention.flash_fwd_launches
+    try:
+        with chip_smoke.concurrent.futures.ThreadPoolExecutor(3) as pool:
+            futures = [pool.submit(engine.generate, [p], n)
+                       for p, n in cases]
+            outs = [f.result(timeout=300)[0] for f in futures]
+    finally:
+        engine.shutdown()
+    assert engine.kv is None
+    assert attention.flash_fwd_launches - before == \
+        cfg.n_layers * engine.stats()["n_prefills"]
+    graphs = engine.graph_stats()
+    assert graphs["graph_captures"] > 0 and graphs["eager_chunks_on_cuda"] == 0
+    assert graphs["graph_replays"] == engine.stats()["steps_done"]
+    for (prompt, max_new), got in zip(cases, outs):
+        want = tf.generate(model.model,
+                           torch.as_tensor([prompt], device="cuda"),
+                           max_new_tokens=max_new,
+                           decoder=model.decode_graphs)
+        assert got == want[0].tolist()

@@ -60,7 +60,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPE = dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4,
              n_kv_heads=2, d_ff=192, max_seq_len=64, dtype="float32")
 BS = 4
-ENGINE = dict(max_slots=2, chunk=4, prefill_chunk=16, kv_block_size=BS)
+ENGINE = dict(max_slots=2, chunk=4, prefill_chunk=16, kv_block_size=BS,
+              kv_cache="paged")
 BLOCKS_PER_SEQ = SHAPE["max_seq_len"] // BS
 # f32 pools: the same projections in two frameworks, summed in other
 # orders (one f32 ulp at these magnitudes is ~1e-7).
@@ -321,7 +322,7 @@ def test_warm_plan_covers_the_jax_grid_per_window(models, prefill_chunk,
     eng = tserve.ContinuousEngine(tmodel, start_loop=False, **kw)
     jeng = jserve.ContinuousEngine(
         _StubModel(jtf.TransformerConfig(**SHAPE)), start_loop=False,
-        kv_cache="paged", **kw)
+        **kw)
     labels = [t.label for t in twarmup.warm_plan(eng)]
     jlabels = [t.label for t in jwarmup.warm_plan(jeng)]
     assert len(labels) == len(set(labels))
@@ -426,7 +427,7 @@ def test_serve_cli_warmup_all_runs_the_grid_before_ready():
          "--once", "--device", "cpu", "--port", "0", "--n-layers", "1",
          "--d-model", "64", "--n-heads", "2", "--seq-len", "64",
          "--vocab-size", "256", "--continuous-batching",
-         "--kv-block-size", "4", "--max-slots", "2", "--decode-chunk", "4",
+         "--kv-cache", "paged", "--kv-block-size", "4", "--max-slots", "2", "--decode-chunk", "4",
          "--prefill-chunk", "16", "--warmup", "all"],
         cwd=REPO, capture_output=True, text=True, timeout=300,
     )

@@ -56,7 +56,8 @@ TINY_FLAGS = ["--n-layers", "1", "--d-model", "64", "--n-heads", "2",
 SHAPE = dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4,
              n_kv_heads=2, d_ff=192, max_seq_len=64, dtype="float32")
 BS = 4
-ENGINE = dict(max_slots=2, chunk=4, prefill_chunk=16, kv_block_size=BS)
+ENGINE = dict(max_slots=2, chunk=4, prefill_chunk=16, kv_block_size=BS,
+              kv_cache="paged")
 # f32 pools: the same projections in two frameworks, summed in other
 # orders (one f32 ulp at these magnitudes is ~1e-7).
 POOL_ATOL = 1e-5
@@ -446,8 +447,7 @@ def test_engine_sampled_requests_go_to_the_model(models, engine):
 
 def test_engine_stats_keys_match_jax(models, engine):
     jmodel, _ = models
-    jeng = jserve.ContinuousEngine(jmodel, start_loop=False, kv_cache="paged",
-                                   **ENGINE)
+    jeng = jserve.ContinuousEngine(jmodel, start_loop=False, **ENGINE)
     eng = engine()
     eng.generate([[1, 2, 3]], 2)
     assert set(eng.stats()) == set(jeng.stats())
@@ -456,12 +456,19 @@ def test_engine_stats_keys_match_jax(models, engine):
 
 def test_engine_kv_cache_modes(models):
     tmodel = models[1]
-    with pytest.raises(NotImplementedError, match="dense"):
-        tserve.ContinuousEngine(tmodel, start_loop=False, kv_cache="dense")
+    # kv_cache defaults to "dense", as in JAX: one cache row per slot, no
+    # block manager.
+    dense = tserve.ContinuousEngine(tmodel, start_loop=False)
+    assert dense.kv_cache == "dense" and dense.kv is None
+    assert dense.kv_stats() is None and dense.chunk_graphs is not None
+    assert tuple(dense.cache["k"].shape) == (
+        SHAPE["n_layers"], tserve.MAX_BATCH, SHAPE["n_kv_heads"],
+        SHAPE["max_seq_len"], SHAPE["d_model"] // SHAPE["n_heads"])
     with pytest.raises(ValueError, match="dense.*paged"):
         tserve.ContinuousEngine(tmodel, start_loop=False, kv_cache="ring")
     with pytest.raises(ValueError, match="coverage floor"):
-        tserve.ContinuousEngine(tmodel, start_loop=False, kv_block_size=BS,
+        tserve.ContinuousEngine(tmodel, start_loop=False, kv_cache="paged",
+                                kv_block_size=BS,
                                 kv_blocks=2 * BLOCKS_PER_SEQ)
     eng = tserve.ContinuousEngine(tmodel, start_loop=False, **ENGINE)
     with pytest.raises(ValueError, match="max_new_tokens"):

@@ -77,7 +77,8 @@ TINY_FLAGS = ["--n-layers", "1", "--d-model", "64", "--n-heads", "2",
 SHAPE = dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4,
              n_kv_heads=2, d_ff=192, max_seq_len=64, dtype="float32")
 BS = 4
-ENGINE = dict(max_slots=2, chunk=4, prefill_chunk=16, kv_block_size=BS)
+ENGINE = dict(max_slots=2, chunk=4, prefill_chunk=16, kv_block_size=BS,
+              kv_cache="paged")
 BLOCKS_PER_SEQ = SHAPE["max_seq_len"] // BS
 HD = SHAPE["d_model"] // SHAPE["n_heads"]
 # f32 attention and pools: the same arithmetic in two frameworks, summed
@@ -569,7 +570,8 @@ def test_engine_validates_speculate_config(models):
                                 speculate="turbo")
     with pytest.raises(ValueError, match="draft"):
         tserve.ContinuousEngine(_NoParams(), start_loop=False,
-                                kv_block_size=BS, speculate="draft")
+                                kv_cache="paged", kv_block_size=BS,
+                                speculate="draft")
     eng = tserve.ContinuousEngine(tmodel, start_loop=False, **ENGINE)
     assert eng.spec_proposer is None and eng.verify_graphs is None
     assert "spec_proposed" not in eng.stats()
@@ -591,7 +593,7 @@ def test_warm_plan_lists_the_jax_verify_labels(models):
     eng = tserve.ContinuousEngine(tmodel, start_loop=False, **kw)
     jeng = jserve.ContinuousEngine(
         _StubModel(jtf.TransformerConfig(**SHAPE)), start_loop=False,
-        kv_cache="paged", **kw)
+        **kw)
     plan = twarmup.warm_plan(eng)
     verify = [t.label for t in plan if t.label.startswith("verify/")]
     jverify = [t.label for t in jwarmup.warm_plan(jeng)
@@ -602,7 +604,7 @@ def test_warm_plan_lists_the_jax_verify_labels(models):
                                     **dict(kw, speculate="draft"))
     jdraft_eng = jserve.ContinuousEngine(
         _StubModel(jtf.TransformerConfig(**SHAPE)), start_loop=False,
-        kv_cache="paged", **dict(kw, speculate="draft"))
+        **dict(kw, speculate="draft"))
     group = [t.label for t in twarmup.warm_plan(draft) if t.group == "draft"]
     jgroup = [t.label for t in jwarmup.warm_plan(jdraft_eng)
               if t.group == "draft"]
@@ -726,9 +728,9 @@ def test_speculating_engine_behind_the_cli_on_cpu_exits_zero():
         [sys.executable, "-m",
          "container_engine_accelerators_tpu_torch.models.serve_cli",
          "--once", "--device", "cpu", "--port", "0", *TINY_FLAGS,
-         "--continuous-batching", "--kv-block-size", "4", "--max-slots",
-         "2", "--decode-chunk", "4", "--prefill-chunk", "16",
-         "--speculate", "ngram"],
+         "--continuous-batching", "--kv-cache", "paged", "--kv-block-size",
+         "4", "--max-slots", "2", "--decode-chunk", "4", "--prefill-chunk",
+         "16", "--speculate", "ngram"],
         cwd=REPO, capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
