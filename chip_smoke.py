@@ -14,7 +14,9 @@ window's CUDA graph captured before ready), with speculative decoding
 (``--speculate ngram|draft``: every batched verify the replay of its
 graph, the flash kernel at per-row bases read from device memory),
 through the dense continuous-batching engine (the default
-``--kv-cache``) and the ``--batch-window-ms`` micro-batcher, and
+``--kv-cache``) and the ``--batch-window-ms`` micro-batcher, serves it
+again with int8 weights (``--quantize int8``: every projection the
+hand-written W8A16 kernel, eagerly and inside the captured graphs), and
 trains it at full width
 (depth cut to 8 layers) through ``make_train_step``, checking that every
 prefill, every prefill segment and every training step went through the
@@ -24,9 +26,13 @@ non-zero before its last line, which is ``{"ok": true, "device":
 {...}}``. Imports nothing of JAX.
 
 Phases: env, build, kernel (forward, one line per case; the host-bound
-shapes also timed as a CUDA graph of 20 launches), bwd_kernel (backward,
+shapes also timed as a CUDA graph of 20 launches; then the int8 product's
+rows, ``int8_mm_*``, at Llama-3-8B's projections), bwd_kernel (backward,
 one line per case), small_parity (a tiny f32 model on the card against
-the same weights on the CPU), paged_small_parity (a tiny f32 paged engine
+the same weights on the CPU), int8_small_parity (a tiny f32 int8 model's
+tokens through generate, the dense and the paged engine, with and
+without speculation, equal to the CPU's on the same int8 weights),
+paged_small_parity (a tiny f32 paged engine
 on the card against dense generate), dense_small_parity (the dense engine
 on that model against dense generate and the paged engine), serve,
 serve_logits (prefill logits
@@ -38,7 +44,9 @@ decode chunk against the eager one on the full-width model), serve_spec
 (speculative decoding, ngram, off and draft, on the full-width paged
 engine: every verify a replay, streams held to off's), serve_dense (the
 dense engine behind the server on serve_paged's traffic, then the
-micro-batcher; streams held to ``Model.generate``'s), train_grads
+micro-batcher; streams held to ``Model.generate``'s), serve_int8
+(``--quantize int8`` on generate, the dense engine and the speculating
+paged engine; every served token held to the int8 reference), train_grads
 (loss and every gradient through the kernels vs plain attention), train
 (5 timed steps), train_cli, kernels (the summary line), then the card's
 name and power limit, then the result.
@@ -104,6 +112,16 @@ TRAIN_CLI_KEYS = {"loss", "start_step", "steps_run", "units_per_s",
                   "n_devices", "wall_s"}
 
 
+# The int8 kernel against int8_mm_reference on the same operands. bf16:
+# both sum exact int8 x bf16 products in f32 and round the scaled sum to
+# bf16 once, so only the order of the f32 sums differs: an output may sit
+# one bf16 step (2^-7 of its magnitude) apart, plus the f32
+# summation-order noise (far under 1e-3 at K 14336 for outputs of about
+# unit size). f32: summation order only.
+INT8_TOL = {"bfloat16": {"rtol": 2.0 ** -7, "atol": 1e-3},
+            "float32": {"rtol": 1e-5, "atol": 1e-5}}
+
+
 def emit(obj):
     print(json.dumps(obj), flush=True)
 
@@ -122,15 +140,18 @@ def nvidia_smi_line():
 
 def ptxas_summary(report):
     """The lines of nvcc's ``-Xptxas -v`` report that say what a kernel
-    costs, each after its kernel's name (``flash_bwd_dq_sm90_kernel<128>``):
+    costs, each after its kernel's name and integer template arguments
+    (``flash_bwd_dq_sm90_kernel<128>``, ``int8_mm_bf16_kernel<16,128,...>``):
     registers, spills, and any note that ptxas serialised the kernel's
     wgmma instructions, which costs most of their rate."""
     kernel, lines = "?", []
     for line in report.splitlines():
-        found = re.search(r"Compiling entry function '.*?(flash_(?:fwd|bwd)_"
-                          r"(?:dq_|dkv_)?(?:sm90|f32)_kernel)ILi(\d+)E", line)
+        found = re.search(r"Compiling entry function '.*?((?:flash_(?:fwd|"
+                          r"bwd)_(?:dq_|dkv_)?(?:sm90|f32)|int8_mm_(?:bf16|"
+                          r"f32|reduce))_kernel)(\w*)'", line)
         if found:
-            kernel = f"{found.group(1)}<{found.group(2)}>"
+            args = ",".join(re.findall(r"L[ib](\d+)E", found.group(2)))
+            kernel = f"{found.group(1)}<{args}>"
         elif any(w in line for w in ("Used", "spill", "wgmma", "serialized")):
             lines.append(f"{kernel}: {line.strip()}")
     return lines
@@ -570,6 +591,212 @@ def run_bwd_case(case, torch, attention, _ext, gen):
     return row
 
 
+# (name, M, K, N): Llama-3-8B's layer matrices (wq/wo (4096, 4096), wk/wv
+# (4096, 1024), w1/w3 (4096, 14336), w2 (14336, 4096)) at the decode's 8
+# rows, the B 8 verify's 128 (8 rows × 16) and prefill buckets of 512 and
+# 2048 rows. "main" of the kernels line: the decode's largest product.
+INT8_CASES = [
+    ("m8_wq", 8, 4096, 4096), ("m8_wk", 8, 4096, 1024),
+    ("m8_w1", 8, 4096, 14336), ("m8_w2", 8, 14336, 4096),
+    ("m128_w1", 128, 4096, 14336),
+    ("m512_w1", 512, 4096, 14336), ("m512_w2", 512, 14336, 4096),
+    ("m2048_w1", 2048, 4096, 14336), ("m2048_w2", 2048, 14336, 4096),
+]
+INT8_MAIN_CASE = "m8_w1"
+# Rows whose back-to-back time may read the wrapper's host time: also
+# timed as a CUDA graph of GRAPH_LAUNCHES launches, and held bit-equal to
+# the eager launch when replayed.
+INT8_GRAPH_CASES = ("m8_wq", "m8_wk", "m8_w1", "m8_w2", "m128_w1")
+# Weight bytes one timed pass cycles through, so that a launch finds its
+# weight in HBM (the 50 MB L2 cannot hold them), as the decode does: it
+# streams 218 MB of layer matrices a layer.
+COLD_BYTES = 120e6
+
+
+def int8_bound(m, k, n):
+    """(bound_ms, bound_by) of one W8A16 product: the larger of 2MKN over
+    the bf16 peak and K·N (int8) + 4N (scale) + 2MK (x) + 2MN (y) bytes
+    over the HBM rate."""
+    t_ops = 2.0 * m * k * n / PEAK_BF16_FLOPS
+    t_bytes = (k * n + 4 * n + 2 * m * k + 2 * m * n) / HBM_BYTES_PER_S
+    if t_ops >= t_bytes:
+        return t_ops * 1e3, "operations"
+    return t_bytes * 1e3, "bytes"
+
+
+def _cycling(fn, count):
+    """A no-argument call of fn(i) for i = 0, 1, ..., count - 1, 0, ..."""
+    state = {"i": -1}
+
+    def call():
+        state["i"] = (state["i"] + 1) % count
+        return fn(state["i"])
+
+    return call
+
+
+def run_int8_case(case, torch, int8_matmul, q8, gen, serving_graphs,
+                  attention):
+    """One int8_mm row: the kernel against the plain version (bf16, within
+    INT8_TOL), then its time on weights cycled through more than the L2
+    holds, beside the plain version, the unfused PyTorch composition
+    (``library_ms``), cuBLAS on a bf16 weight of the same shape
+    (``bf16_ms``) and ``torch._weight_int8pack_mm`` where this torch runs
+    it on CUDA."""
+    name, m, k, n = case
+    dt = torch.bfloat16
+    x = torch.randn(m, k, generator=gen, device="cuda").to(dt)
+    copies = max(1, min(GRAPH_LAUNCHES, math.ceil(COLD_BYTES / (k * n))))
+    qts, scales = [], []
+    for _ in range(copies):
+        qw = q8.quantize_weight(
+            torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5)
+        qts.append(qw["q"].T.contiguous())
+        scales.append(qw["scale"])
+        del qw
+    got = int8_matmul.int8_mm(x, qts[0], scales[0])
+    torch.cuda.synchronize()
+    ref = int8_matmul.int8_mm_reference(x, qts[0], scales[0])
+    tol = INT8_TOL["bfloat16"]
+    err = (got.float() - ref.float()).abs()
+    excess = (err - tol["atol"] - tol["rtol"] * ref.float().abs()).max()
+    row = {"phase": "kernel", "case": f"int8_mm_{name}", "kernel": "int8_mm",
+           "shape": {"M": m, "K": k, "N": n}, "dtype": "bfloat16",
+           "weight_copies": copies, "max_abs_err": err.max().item(),
+           "tol": tol}
+    if not torch.isfinite(got.float()).all() or excess.item() > 0:
+        emit(row)
+        fail(f"int8 case {name} disagrees with int8_mm_reference")
+    kernel = _cycling(lambda i: int8_matmul.int8_mm(x, qts[i], scales[i]),
+                      copies)
+    row["ms"] = time_ms(kernel, torch)
+    row["host_us"] = host_us(kernel, torch)
+    if name in INT8_GRAPH_CASES:
+        graphs, out = serving_graphs.GraphSet("cuda"), {}
+        graphs.capture("one", lambda: out.update(
+            y=int8_matmul.int8_mm(x, qts[0], scales[0])))
+        out["y"].zero_()
+        graphs.replay("one")
+        torch.cuda.synchronize()
+        row["replay_bit_equal"] = bool(torch.equal(out["y"], got))
+        if not row["replay_bit_equal"]:
+            emit(row)
+            fail(f"int8 case {name}: a graph replay differs from the eager "
+                 f"launch")
+        row["graph_ms"] = graph_ms(kernel, torch, attention, serving_graphs)
+    row["plain_ms"] = time_ms(
+        lambda: int8_matmul.int8_mm_reference(x, qts[0], scales[0]), torch,
+        budget_ms=100.0)
+    row["bound_ms"], row["bound_by"] = int8_bound(m, k, n)
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    row["library_ms"] = time_ms(_cycling(
+        lambda i: ((x @ qts[i].to(dt).T) * scales[i]).to(dt), copies), torch)
+    try:
+        scales_bf16 = [sc.reshape(-1).to(dt) for sc in scales]
+        row["int8pack_ms"] = time_ms(_cycling(
+            lambda i: torch._weight_int8pack_mm(x, qts[i], scales_bf16[i]),
+            copies), torch)
+    except (RuntimeError, AttributeError, NotImplementedError) as e:
+        row["int8pack_ms"] = None
+        row["int8pack_note"] = f"not run on CUDA here: {e}"[:200]
+    del qts, scales
+    bf16_copies = max(1, min(GRAPH_LAUNCHES,
+                             math.ceil(COLD_BYTES / (2 * k * n))))
+    ws = [(torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5)
+          .to(dt) for _ in range(bf16_copies)]
+    row["bf16_ms"] = time_ms(_cycling(lambda i: x @ ws[i], bf16_copies),
+                             torch)
+    row["ms_over_bf16"] = row["ms"] / row["bf16_ms"]
+    del ws
+    emit(row)
+    return row
+
+
+def small_int8_cpu_twin(torch, tf, serve_cli, q8, model):
+    """``model`` (a serve_cli.Model quantized on the card) as a Model on
+    the CPU with the same int8 weights."""
+    cpu = q8.quantize_params(tf.Transformer(model.cfg, "cpu"))
+    cpu.load_state_dict({k: t.cpu()
+                         for k, t in model.model.state_dict().items()})
+    return serve_cli.Model(model.cfg, weights=cpu)
+
+
+def weight_bytes(model):
+    """Bytes of a model's weights on the card: parameters and buffers."""
+    return sum(t.nbytes for t in (*model.parameters(), *model.buffers()))
+
+
+def _int8_counts(int8_matmul):
+    return int8_matmul.int8_mm_launches, int8_matmul.int8_mm_captured
+
+
+def int8_small_parity(torch, np, tf, serve_cli, int8_matmul, q8):
+    """A small f32 int8 model (every projection through the kernel's f32
+    path) on the card against the same int8 weights on the CPU: greedy
+    tokens identical through ``Model.generate``, the dense engine and the
+    paged engine; ``--speculate ngram`` on the paged engine equal to off.
+    On each path the kernel launches 7 × layers times per eager forward
+    call, and every captured step records 7 × layers products."""
+    cfg = tf.TransformerConfig(vocab_size=512, d_model=256, n_layers=2,
+                               n_heads=2, n_kv_heads=1, d_ff=768,
+                               max_seq_len=128, dtype="float32")
+    per = 7 * cfg.n_layers
+    model = serve_cli.Model(cfg, seed=1, device="cuda", quantize="int8")
+    cpu = small_int8_cpu_twin(torch, tf, serve_cli, q8, model)
+    rng = np.random.default_rng(6)
+    cases = [(rng.integers(0, cfg.vocab_size, 70).tolist(), 10)]
+    cases += [(rng.integers(0, cfg.vocab_size, 3 + 9 * i).tolist(), 8 + i)
+              for i in range(3)]
+    cases.append((rng.integers(0, cfg.vocab_size, 5).tolist(), 1))
+    want = [cpu.generate([p], n)[0] for p, n in cases]
+    row = {"phase": "int8_small_parity", "requests": len(cases)}
+    bad = []
+
+    graphs = model.decode_graphs.graphs
+    (l0, c0), g0 = _int8_counts(int8_matmul), graphs.captures
+    outs = [model.generate([p], n)[0] for p, n in cases]
+    launches, captured = (a - b for a, b in
+                          zip(_int8_counts(int8_matmul), (l0, c0)))
+    row["generate"] = {"tokens_equal_cpu": outs == want,
+                       "int8_mm_launches": launches,
+                       "int8_mm_captured": captured,
+                       "graph_captures": graphs.captures - g0}
+    if outs != want or launches != per * len(cases) or \
+            captured != per * (graphs.captures - g0):
+        bad.append("generate")
+    for kv_cache, mode in (("dense", "off"), ("paged", "off"),
+                           ("paged", "ngram")):
+        engine = serve_cli.ContinuousEngine(
+            model, max_slots=2, chunk=4, prefill_chunk=32, kv_block_size=16,
+            kv_cache=kv_cache, speculate=mode)
+        l0, c0 = _int8_counts(int8_matmul)
+        try:
+            with concurrent.futures.ThreadPoolExecutor(len(cases)) as pool:
+                futures = [pool.submit(engine.generate, [p], n)
+                           for p, n in cases]
+                outs = [f.result(timeout=300)[0] for f in futures]
+        finally:
+            engine.shutdown()
+        launches, captured = (a - b for a, b in
+                              zip(_int8_counts(int8_matmul), (l0, c0)))
+        stats, gs = engine.stats(), engine.graph_stats()
+        captures = gs["graph_captures"] + gs.get("verify_graph_captures", 0)
+        key = f"{kv_cache}_{mode}"
+        row[key] = {"tokens_equal_cpu": outs == want,
+                    "n_prefills": stats["n_prefills"],
+                    "int8_mm_launches": launches,
+                    "int8_mm_captured": captured, "graph_captures": captures,
+                    "eager_chunks_on_cuda": gs["eager_chunks_on_cuda"],
+                    "verifies": stats.get("spec_verifies")}
+        if outs != want or launches != per * stats["n_prefills"] or \
+                captured != per * captures or gs["eager_chunks_on_cuda"]:
+            bad.append(key)
+    emit(row)
+    if bad:
+        fail(f"int8_small_parity: {bad} disagree with the CPU on the same "
+             f"int8 weights, or a projection went around the kernel")
+
+
 def small_parity(torch, tf, serving_graphs, attention):
     """A tiny f32 model (head dim 128, so the f32 kernel runs) on the
     card against the same weights on the CPU (plain attention)."""
@@ -697,7 +924,9 @@ def serve(torch, np, tf, serve_cli, attention, card):
     if not torch.isfinite(flash).all() or err > SERVE_LOGITS_ATOL:
         fail("prefill logits through the kernel disagree with plain "
              "attention")
-    return launches, model
+    bf16 = {"ttft_s_p1500": ttft, "decode_ms_per_token_p1500": decode_ms,
+            "p1500_tokens": results["p1500_again"]["tokens"][0]}
+    return launches, model, bf16
 
 
 def _check_response(name, resp, prompt, max_new, vocab_size):
@@ -1260,16 +1489,21 @@ def _verify_replay_ms(torch, runner):
 
 
 def _serve_spec_mode(torch, np, serve_cli, attention, model, mode, prompts,
-                     card):
+                     card, int8_matmul, phase="serve_spec"):
     """One engine (the serve_paged configuration, ``speculate=mode``)
     behind the server with ``--warmup=all``, the requests posted at once.
-    Returns (row, outputs, flash launches of the mode's run)."""
+    An int8 model's products are counted too: 7 × layers per eager
+    forward (prefill segment) after ready, and per captured graph.
+    Returns (row, outputs, flash launches of the mode's run); the row
+    carries the int8 product's launches (eager ones counted, graph ones
+    7 × layers a replay)."""
     cfg = model.cfg
     engine = serve_cli.ContinuousEngine(
         model, max_slots=8, chunk=32, prefill_chunk=512, kv_block_size=16,
         kv_cache="paged", speculate=mode)
     results, latency = {}, {}
     attention.flash_fwd_launches = 0
+    int8_matmul.int8_mm_launches = int8_matmul.int8_mm_captured = 0
     t0 = time.perf_counter()
     server, state = serve_cli.start_server(engine, port=0, host="127.0.0.1",
                                            warmup_mode="all")
@@ -1278,6 +1512,7 @@ def _serve_spec_mode(torch, np, serve_cli, attention, model, mode, prompts,
         ready_s = time.perf_counter() - t0
         port = server.server_address[1]
         at_ready = {"launches": attention.flash_fwd_launches,
+                    "int8_launches": int8_matmul.int8_mm_launches,
                     **engine.stats(), **engine.graph_stats()}
         ttft_before = len(engine.ttft_s)
 
@@ -1294,6 +1529,7 @@ def _serve_spec_mode(torch, np, serve_cli, attention, model, mode, prompts,
         burst_s = time.perf_counter() - t1
         stats, graphs = engine.stats(), engine.graph_stats()
         launches = attention.flash_fwd_launches
+        int8_counted = int8_matmul.int8_mm_launches
         verify_ms = (_verify_replay_ms(torch, engine.verify_graphs)
                      if engine.verify_graphs is not None else {})
     finally:
@@ -1317,7 +1553,7 @@ def _serve_spec_mode(torch, np, serve_cli, attention, model, mode, prompts,
             drafter.cfg.n_layers
     total_launches = launches + n_layers * verify_replays + draft_launches
     row = {
-        "phase": "serve_spec", **card, "model": "llama3-8b",
+        "phase": phase, **card, "model": "llama3-8b",
         "speculate": mode, "requests": len(prompts),
         "prompt_len": SPEC_PROMPT, "pattern": SPEC_PATTERN,
         "max_new": SPEC_NEW, "ready_s": ready_s, "burst_s": burst_s,
@@ -1356,6 +1592,17 @@ def _serve_spec_mode(torch, np, serve_cli, attention, model, mode, prompts,
     chunks = max(served["n_chunks"], 1)
     row["chunk_dispatch_ms"] = engine.t_chunk_dispatch_s / chunks * 1e3
     row["chunk_sync_wait_ms"] = engine.t_chunk_wait_s / chunks * 1e3
+    quantized = int8_matmul.int8_mm_captured > 0
+    if quantized:
+        per = 7 * n_layers
+        replays = graphs["graph_replays"] + verify_replays
+        row.update({
+            "int8_mm_launches_counted": int8_counted,
+            "int8_mm_launches": int8_counted + per * replays,
+            "int8_mm_captured": int8_matmul.int8_mm_captured,
+            "int8_mm_launches_after_ready":
+                int8_counted - at_ready["int8_launches"],
+        })
     emit(row)
     outs = [results[i]["tokens"][0] for i in range(len(prompts))]
     if row["captures_after_ready"] or graphs["eager_chunks_on_cuda"] or \
@@ -1370,6 +1617,11 @@ def _serve_spec_mode(torch, np, serve_cli, attention, model, mode, prompts,
         fail(f"serve_spec {mode}: {launches - at_ready['launches']} flash "
              f"launches outside graphs after ready for "
              f"{served['n_prefills']} prefill segments")
+    if quantized and (
+            row["int8_mm_launches_after_ready"] != per * served["n_prefills"]
+            or row["int8_mm_captured"] != per * _graph_captures(graphs)):
+        fail(f"{phase} {mode}: int8 products {row} do not match 7 × "
+             f"{n_layers} per eager forward and per captured graph")
     return row, outs, total_launches
 
 
@@ -1426,7 +1678,8 @@ def _served_gaps(torch, tf, model, prompts, got):
             "margins_below_tol": int((margins < SERVE_LOGITS_ATOL).sum())}
 
 
-def serve_spec(torch, np, tf, serve_cli, attention, card, model):
+def serve_spec(torch, np, tf, serve_cli, attention, card, model,
+               int8_matmul):
     """Speculation on the full-width model, the serve_paged configuration
     (8 slots, chunk 32, prefill chunk 512, block 16, ``--warmup=all``):
     ``--speculate ngram`` on 4 concurrent requests, each a 32-token
@@ -1447,7 +1700,8 @@ def serve_spec(torch, np, tf, serve_cli, attention, card, model):
     for mode, reqs in (("ngram", prompts), ("off", prompts),
                        ("draft", prompts[:2])):
         rows[mode], outs[mode], n = _serve_spec_mode(
-            torch, np, serve_cli, attention, model, mode, reqs, card)
+            torch, np, serve_cli, attention, model, mode, reqs, card,
+            int8_matmul)
         launches += n
         _free(torch)  # the mode's engine: its pools and graphs
     if not rows["ngram"]["verifies"] or not rows["draft"]["verifies"]:
@@ -1694,7 +1948,11 @@ def serve_dense(torch, np, tf, serve_cli, attention, card, model):
         fail(f"serve_dense: {held['gaps_over_tol']} served tokens lie "
              f"{SERVE_LOGITS_ATOL} or more below the dense forward's top "
              f"logit on their own context: {held}")
-    return launches + b_launches
+    bf16 = {k: row[k] for k in (
+        "decode_tokens_per_s_on_card", "chunk_step_device_ms", "ready_s",
+        "max_memory_allocated_gb")}
+    bf16["streams"] = got
+    return launches + b_launches, bf16
 
 
 def _serve_batcher(torch, np, serve_cli, attention, model, card):
@@ -1749,6 +2007,280 @@ def _serve_batcher(torch, np, serve_cli, attention, model, card):
              f"kernel launches (want fewer calls, one prefill each)")
     want = [model.generate([p], BATCH_NEW)[0] for p in prompts]
     return launches, {"prompts": prompts, "outs": outs, "want": want}
+
+
+@contextlib.contextmanager
+def plain_int8(int8_matmul):
+    """Inside the block, every int8 projection of the model (which
+    ``transformer._mm`` sends to ``int8_matmul.int8_mm``) runs the plain
+    version on the card: the reference the served int8 streams are held
+    to. The port itself never does this."""
+    kernel = int8_matmul.int8_mm
+    int8_matmul.int8_mm = int8_matmul.int8_mm_reference
+    try:
+        yield
+    finally:
+        int8_matmul.int8_mm = kernel
+
+
+def _equal_prefix(a, b, start):
+    """How many tokens from ``start`` on the streams a and b share."""
+    n = 0
+    for x, y in zip(a[start:], b[start:]):
+        if x != y:
+            break
+        n += 1
+    return n
+
+
+def _serve_int8_generate(torch, np, serve_cli, attention, int8_matmul,
+                         model, bf16):
+    """``Model.generate`` on the int8 model behind the HTTP server, the
+    serve phase's p1500 requests (its prompt, from the same seed): TTFT
+    and decode ms/token beside serve's bf16 figures of this run. Every
+    request's prefill launches the kernel 7 × layers times, every decode
+    step replays a graph that records as many."""
+    cfg = model.cfg
+    per = 7 * cfg.n_layers
+    rng = np.random.default_rng(0)  # serve's prompts, in serve's order
+    rng.integers(0, cfg.vocab_size, (1, 17))
+    rng.integers(0, cfg.vocab_size, (2, 300))
+    p1500 = rng.integers(0, cfg.vocab_size, (1, 1500)).tolist()
+    requests = [("p1500", 32), ("p1500_ttft", 1), ("p1500_again", 32)]
+    graphs = model.decode_graphs.graphs
+    attention.flash_fwd_launches = 0
+    int8_matmul.int8_mm_launches = int8_matmul.int8_mm_captured = 0
+    server, state = serve_cli.start_server(model, port=0, host="127.0.0.1")
+    results, bad = {}, []
+    try:
+        serve_cli.wait_ready(state, timeout=600)
+        port = server.server_address[1]
+        if int8_matmul.int8_mm_launches != per:
+            bad.append(f"warmup prefill: {int8_matmul.int8_mm_launches}")
+        for name, max_new in requests:
+            before = int8_matmul.int8_mm_launches
+            results[name] = serve_cli.post_generate(port, p1500, max_new)
+            if int8_matmul.int8_mm_launches - before != per:
+                bad.append(f"{name}: {int8_matmul.int8_mm_launches - before}")
+            _check_response(f"serve_int8 {name}", results[name], p1500[0],
+                            max_new, cfg.vocab_size)
+    finally:
+        server.shutdown()
+        server.server_close()
+    counted = int8_matmul.int8_mm_launches
+    if int8_matmul.int8_mm_captured != per * graphs.captures:
+        bad.append(f"captured {int8_matmul.int8_mm_captured} in "
+                   f"{graphs.captures} graphs")
+    if bad:
+        fail(f"serve_int8 generate: int8 products not 7 × {cfg.n_layers} "
+             f"per prefill or per captured step: {bad}")
+    if results["p1500"]["tokens"] != results["p1500_again"]["tokens"]:
+        fail("serve_int8: the same greedy request gave different tokens")
+    ttft = results["p1500_ttft"]["latency_s"]
+    stream = results["p1500_again"]["tokens"][0]
+    row = {
+        "ttft_s_p1500": ttft,
+        "decode_ms_per_token_p1500":
+            (results["p1500_again"]["latency_s"] - ttft) / 31 * 1e3,
+        "bf16_ttft_s_p1500": bf16["ttft_s_p1500"],
+        "bf16_decode_ms_per_token_p1500": bf16["decode_ms_per_token_p1500"],
+        "greedy_equal_to_bf16": _equal_prefix(stream, bf16["p1500_tokens"],
+                                              1500),
+        "graph_captures": graphs.captures, "graph_replays": graphs.replays,
+        "int8_mm_launches_counted": counted,
+        "int8_mm_launches": counted + per * graphs.replays,
+        "flash_fwd_launches": attention.flash_fwd_launches,
+    }
+    return row, p1500[0], stream
+
+
+def _serve_int8_dense(torch, np, tf, serve_cli, attention, int8_matmul,
+                      model, card):
+    """The dense engine (8 slots, chunk 32, prefill chunk 512) on the
+    int8 model behind the server with ``--warmup=all``, on serve_dense's
+    traffic: a 1024-token prompt, then 6 requests sharing it and, once
+    they decode, a 3000-token prompt. Checks: every (window, mask) graph
+    captured before ready and none after, no eager chunk, every step a
+    replay, the kernel 7 × layers per eager forward (warm prefills, the
+    warmup request, the served prefills and segments) and per captured
+    step. Returns (row, prompts, streams)."""
+    cfg = model.cfg
+    per = 7 * cfg.n_layers
+    vocab = cfg.vocab_size
+    engine = serve_cli.ContinuousEngine(model, max_slots=8, chunk=32,
+                                        prefill_chunk=512)
+    rng = np.random.default_rng(5)  # serve_dense's prompts
+    prefix = rng.integers(0, vocab, 1024).tolist()
+    prompts = {"prefix_1024": prefix}
+    for i in range(6):
+        prompts[f"shared_{i}"] = prefix + rng.integers(0, vocab, 64).tolist()
+    prompts["long_3000"] = rng.integers(0, vocab, 3000).tolist()
+    max_new = {name: 32 for name in prompts}
+    max_new["prefix_1024"] = 8
+    results = {}
+
+    def snapshot():
+        return {"launches": attention.flash_fwd_launches,
+                "int8": int8_matmul.int8_mm_launches,
+                "t_chunk_device_s": engine.t_chunk_device_s,
+                "ttft": len(engine.ttft_s),
+                **engine.stats(), **engine.graph_stats()}
+
+    attention.flash_fwd_launches = 0
+    int8_matmul.int8_mm_launches = int8_matmul.int8_mm_captured = 0
+    t0 = time.perf_counter()
+    server, state = serve_cli.start_server(engine, port=0, host="127.0.0.1",
+                                           warmup_mode="all")
+    try:
+        serve_cli.wait_ready(state, timeout=900)
+        ready_s = time.perf_counter() - t0
+        port = server.server_address[1]
+        warm = state["warmup"]
+        at_ready = snapshot()
+
+        def post(name):
+            results[name] = serve_cli.post_generate(
+                port, [prompts[name]], max_new[name])
+
+        post("prefix_1024")
+        t1 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(7) as pool:
+            futures = [pool.submit(post, f"shared_{i}") for i in range(6)]
+            n = engine.n_chunks
+            deadline = time.monotonic() + 600
+            while engine.n_chunks == n:
+                if time.monotonic() > deadline:
+                    fail("serve_int8: no decode chunk after the shared "
+                         "requests were posted")
+                time.sleep(0.002)
+            futures.append(pool.submit(post, "long_3000"))
+            for f in futures:
+                f.result(timeout=600)
+        burst_s = time.perf_counter() - t1
+        done = snapshot()
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.shutdown()
+    served = {k: done[k] - at_ready[k] for k in (
+        "launches", "int8", "steps_done", "n_prefills", "occupied_steps",
+        "t_chunk_device_s", "graph_captures", "graph_replays")}
+    ttft = [{"prompt_len": n, "ttft_s": t}
+            for n, t in list(engine.ttft_s)[at_ready["ttft"]:]]
+    n_graphs = 2 * len(tf.serving_shape_buckets(cfg, 512, 32)["windows"])
+    warm_prefills = warm["tasks"] - n_graphs
+    replays = done["graph_replays"]
+    row = {
+        "ready_s": ready_s, "warmup": warm, "burst_s": burst_s,
+        "ttft": ttft, **{f"served_{k}": v for k, v in served.items()},
+        "decode_tokens_per_s_on_card": served["occupied_steps"]
+        / max(served["t_chunk_device_s"], 1e-9),
+        "chunk_step_device_ms": served["t_chunk_device_s"]
+        / max(served["steps_done"], 1) * 1e3,
+        "graph_captures": done["graph_captures"],
+        "captures_after_ready": served["graph_captures"],
+        "graph_replays": replays,
+        "graph_pool_gb": done["graph_pool_bytes"] / 1e9,
+        "eager_chunks_on_cuda": done["eager_chunks_on_cuda"],
+        "cache_gb": sum(c.nbytes for c in engine.cache.values()) / 1e9,
+        "int8_mm_launches_counted": done["int8"],
+        "int8_mm_launches": done["int8"] + per * replays,
+        "int8_mm_captured": int8_matmul.int8_mm_captured,
+        "flash_fwd_launches": done["launches"],
+    }
+    del engine
+    for name, prompt in prompts.items():
+        _check_response(f"serve_int8 dense {name}", results[name], prompt,
+                        max_new[name], vocab)
+    if at_ready["graph_captures"] != n_graphs or served["graph_captures"] \
+            or done["eager_chunks_on_cuda"] or \
+            served["graph_replays"] != served["steps_done"]:
+        emit({"phase": "serve_int8_dense", **card, **row})
+        fail("serve_int8: the dense engine captured a graph after ready, "
+             "ran a chunk eagerly, or a step was not a replay")
+    if at_ready["int8"] != per * (warm_prefills + at_ready["n_prefills"]) \
+            or served["int8"] != per * served["n_prefills"] or \
+            row["int8_mm_captured"] != per * done["graph_captures"] or \
+            served["launches"] != cfg.n_layers * served["n_prefills"]:
+        emit({"phase": "serve_int8_dense", **card, **row})
+        fail("serve_int8: the dense engine's int8 products or flash "
+             "launches do not match 7 × (or 1 ×) layers per eager forward "
+             "and per captured step")
+    names = list(prompts)
+    return row, [prompts[n] for n in names], \
+        [results[n]["tokens"][0] for n in names]
+
+
+def serve_int8(torch, np, tf, serve_cli, attention, int8_matmul, q8, card,
+               bf16):
+    """``--quantize int8`` on full-width Llama-3-8B from seed 0, quantized
+    on the card (``serve_cli.Model(quantize="int8")``, the bf16 source
+    the serve phases ran): ``Model.generate`` behind the server, the
+    dense engine on serve_dense's traffic with ``--warmup=all``, and the
+    paged engine with ``--speculate ngram`` on serve_spec's requests,
+    every verify a replay. Every served stream is held, teacher-forced on
+    its own context, to the same int8 weights through
+    ``int8_mm_reference`` on the card: each served token within
+    SERVE_LOGITS_ATOL of the reference's top logit. The greedy agreement
+    with the bf16 model is printed, not held (random weights have
+    near-ties). ``bf16``: the serve phases' figures of this run. Returns
+    the kernel's launches by path."""
+    cfg = tf.TransformerConfig.llama3_8b()
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = serve_cli.Model(cfg, seed=0, device="cuda", quantize="int8")
+    torch.cuda.synchronize()
+    row = {"phase": "serve_int8", **card, "model": "llama3-8b",
+           "n_layers": cfg.n_layers, "init_and_quantize_s":
+               time.perf_counter() - t0,
+           "weight_gb": weight_bytes(model.model) / 1e9,
+           "bf16_weight_gb": bf16["weight_bytes"] / 1e9,
+           "quantize_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if not q8.model_is_quantized(model.model):
+        fail("serve_int8: Model(quantize='int8') left the model dense")
+    gen_row, p1500, gen_stream = _serve_int8_generate(
+        torch, np, serve_cli, attention, int8_matmul, model, bf16)
+    row["generate"] = gen_row
+    torch.cuda.reset_peak_memory_stats()
+    dense_row, dense_prompts, dense_streams = _serve_int8_dense(
+        torch, np, tf, serve_cli, attention, int8_matmul, model, card)
+    dense_row["max_memory_allocated_gb"] = \
+        torch.cuda.max_memory_allocated() / 1e9
+    for key in ("decode_tokens_per_s_on_card", "chunk_step_device_ms",
+                "ready_s", "max_memory_allocated_gb"):
+        dense_row[f"bf16_{key}"] = bf16["dense"][key]
+    dense_row["greedy_equal_to_bf16"] = [
+        _equal_prefix(a, b, len(p)) for p, a, b in
+        zip(dense_prompts, dense_streams, bf16["dense"]["streams"])]
+    row["dense"] = dense_row
+    _free(torch)
+    rng = np.random.default_rng(7)  # serve_spec's requests
+    spec_prompts = []
+    for _ in range(4):
+        pattern = rng.integers(0, cfg.vocab_size, SPEC_PATTERN)
+        spec_prompts.append(
+            np.tile(pattern, SPEC_PROMPT // SPEC_PATTERN).tolist())
+    spec_row, spec_streams, _ = _serve_spec_mode(
+        torch, np, serve_cli, attention, model, "ngram", spec_prompts, card,
+        int8_matmul, phase="serve_int8_spec")
+    if not spec_row["verifies"]:
+        fail("serve_int8: the speculating engine ran no verify")
+    _free(torch)
+    with plain_int8(int8_matmul):
+        held = _served_gaps(
+            torch, tf, model, [p1500] + dense_prompts + spec_prompts,
+            [gen_stream] + dense_streams + spec_streams)
+    row["served_tokens_vs_int8_reference"] = held
+    row["tol"] = SERVE_LOGITS_ATOL
+    emit(row)
+    if held["gaps_over_tol"]:
+        fail(f"serve_int8: {held['gaps_over_tol']} served tokens lie "
+             f"{SERVE_LOGITS_ATOL} or more below the int8 reference's top "
+             f"logit on their own context: {held}")
+    return {"serve_int8_generate": gen_row["int8_mm_launches"],
+            "serve_int8_dense": dense_row["int8_mm_launches"],
+            "serve_int8_spec": spec_row["int8_mm_launches"]}
 
 
 def _free(torch):
@@ -1904,11 +2436,13 @@ def main():
         return 1
     import numpy as np
 
+    from container_engine_accelerators_tpu_torch.models import quantization as q8
     from container_engine_accelerators_tpu_torch.models import serve_cli
     from container_engine_accelerators_tpu_torch.models import serving_graphs
     from container_engine_accelerators_tpu_torch.models import train_cli
     from container_engine_accelerators_tpu_torch.models import transformer as tf
     from container_engine_accelerators_tpu_torch.ops import _ext, attention
+    from container_engine_accelerators_tpu_torch.ops import int8_matmul
 
     # Plain versions compute in full f32 (no TF32), as the kernels do.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1933,20 +2467,29 @@ def main():
     bwd_rows = {c[0]: run_bwd_case(c, torch, attention, _ext, gen)
                 for c in BWD_CASES}
     _free(torch)
+    int8_rows = {c[0]: run_int8_case(c, torch, int8_matmul, q8, gen,
+                                     serving_graphs, attention)
+                 for c in INT8_CASES}
+    _free(torch)
     small_parity(torch, tf, serving_graphs, attention)
+    int8_small_parity(torch, np, tf, serve_cli, int8_matmul, q8)
     paged_small_parity(torch, np, tf, serve_cli, attention)
     dense_small_parity(torch, np, tf, serve_cli, attention)
     spec_small_parity(torch, np, tf, serve_cli, attention)
-    serve_launches, model = serve(torch, np, tf, serve_cli, attention, card)
+    serve_launches, model, bf16 = serve(torch, np, tf, serve_cli, attention,
+                                        card)
+    bf16["weight_bytes"] = weight_bytes(model.model)
     paged_launches = serve_paged(torch, np, tf, serve_cli, attention, card,
                                  model)
     _free(torch)
     paged_graph_parity(torch, np, tf, serving_graphs, model, card)
     spec_launches = serve_spec(torch, np, tf, serve_cli, attention, card,
-                               model)
-    dense_launches = serve_dense(torch, np, tf, serve_cli, attention, card,
-                                 model)
+                               model, int8_matmul)
+    dense_launches, bf16["dense"] = serve_dense(
+        torch, np, tf, serve_cli, attention, card, model)
     del model
+    int8_launches = serve_int8(torch, np, tf, serve_cli, attention,
+                               int8_matmul, q8, card, bf16)
     _free(torch)
     train_grads(torch, np, tf, attention)
     _free(torch)
@@ -1957,6 +2500,7 @@ def main():
     src = "container_engine_accelerators_tpu_torch/ops/csrc/"
     replaces = "container_engine_accelerators_tpu/ops/attention.py:"
     main_row, bwd_row = rows[MAIN_CASE], bwd_rows[BWD_MAIN_CASE]
+    int8_row = int8_rows[INT8_MAIN_CASE]
     # No one PyTorch call computes dq alone or dk/dv alone (the library's
     # attention backward gives all three), so the two backward kernels
     # have no library_ms; "flash_bwd" beside the list holds the whole
@@ -2008,6 +2552,24 @@ def main():
             "library_ms": None,
             "host_us": bwd_row["dkv_host_us"],
             "shape": bwd_row["shape"],
+        },
+        {
+            "name": "int8_mm", "route": "cuda",
+            "source": src + "int8_mm.cu",
+            "replaces": "container_engine_accelerators_tpu/parallel/"
+                        "overlap.py:100",
+            "launches": sum(int8_launches.values()),
+            "launches_by_path": int8_launches,
+            "max_abs_err": int8_row["max_abs_err"],
+            "ms": int8_row["ms"], "plain_ms": int8_row["plain_ms"],
+            "bound_ms": int8_row["bound_ms"],
+            "bound_by": int8_row["bound_by"],
+            "library_ms": int8_row["library_ms"],
+            "bf16_ms": int8_row["bf16_ms"],
+            "int8pack_ms": int8_row["int8pack_ms"],
+            "graph_ms": int8_row["graph_ms"],
+            "host_us": int8_row["host_us"],
+            "shape": int8_row["shape"],
         },
     ], "flash_bwd": {
         "source": src + "flash_bwd.cu",

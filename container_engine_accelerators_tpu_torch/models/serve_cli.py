@@ -35,6 +35,11 @@ ways to serve:
     guesses; the longest greedily-matching prefix is accepted, so the
     tokens are those of ``--speculate off``.
 
+``--quantize int8`` serves int8 layer matrices (W8A16,
+``models/quantization.py``) on every one of these paths: each projection
+is the hand-written dequantising kernel on the card, in the eager
+prefills and inside the captured decode and verify graphs alike.
+
 ``--warmup=all`` runs every prefill shape and captures every decode
 graph before ``/healthz`` flips ready (``warmstart/warmup.py``);
 ``--warmup=lazy`` (the default) captures a graph at its first chunk.
@@ -56,7 +61,7 @@ seeded with the request's ``seed``: reproducible here, but not the
 tokens the JAX server samples for the same seed.
 
 Not ported yet (ROADMAP.md): drains and KV handoff, the multi-host
-link, tensor parallelism, int8 weights, tenant classes, admission sheds
+link, tensor parallelism, tenant classes, admission sheds
 and deadlines, step retries and fault plans, and the obs surfaces
 (/metrics, traces, event logs, chip accounting).
 
@@ -71,6 +76,8 @@ and deadlines, step retries and fault plans, and the obs surfaces
   python -m container_engine_accelerators_tpu_torch.models.serve_cli \\
       --preset llama3-8b --continuous-batching --kv-cache paged \\
       --speculate ngram
+  python -m container_engine_accelerators_tpu_torch.models.serve_cli \\
+      --preset llama3-8b --quantize int8 --continuous-batching
 """
 
 import argparse
@@ -95,6 +102,7 @@ from container_engine_accelerators_tpu_torch.kvcache.blockpool import (
 from container_engine_accelerators_tpu_torch.kvcache.manager import (
     PagedKVManager,
 )
+from container_engine_accelerators_tpu_torch.models import quantization as q8
 from container_engine_accelerators_tpu_torch.models import serving_graphs
 from container_engine_accelerators_tpu_torch.models import transformer as tf
 from container_engine_accelerators_tpu_torch.ops import paged_attention as pa
@@ -107,6 +115,8 @@ log = logging.getLogger("serve_cli")
 # Continuous batching: default KV slots (concurrent requests), as in the
 # JAX server.
 MAX_BATCH = 8
+# --quantize's choices, the JAX server's.
+QUANTIZE_MODES = ("none", "int8")
 
 
 # Sampler whitelists, copied from the JAX server so both snap client
@@ -139,16 +149,25 @@ def sanitize_sampler(temperature, top_k, top_p, vocab_size):
 class Model:
     """The served model. Random weights from ``seed`` on ``device``
     (CUDA unless the caller asks for the CPU), or the given ``weights``
-    (a ``transformer.Transformer``, e.g. bridged from JAX). Its decoder
-    (``decode_graphs``) keeps a dense cache per recent batch size (at
-    most ``serving_graphs.MAX_CACHED_ROWS`` rows in all) and, on CUDA,
-    their decode steps' graphs per (batch, window); ``lock`` serialises
-    the requests that use them."""
+    (a ``transformer.Transformer``, e.g. bridged from JAX).
+    ``quantize="int8"`` quantizes the layer matrices in place
+    (``quantization.quantize_params``, W8A16) before anything is built
+    on them, as the JAX ``Model`` does. Its decoder (``decode_graphs``)
+    keeps a dense cache per recent batch size (at most
+    ``serving_graphs.MAX_CACHED_ROWS`` rows in all) and, on CUDA, their
+    decode steps' graphs per (batch, window); ``lock`` serialises the
+    requests that use them."""
 
-    def __init__(self, cfg, seed=0, device="cuda", weights=None):
+    def __init__(self, cfg, seed=0, device="cuda", weights=None,
+                 quantize="none"):
+        if quantize not in QUANTIZE_MODES:
+            raise ValueError(f"quantize must be one of {QUANTIZE_MODES}, "
+                             f"got {quantize!r}")
         self.cfg = cfg
         if weights is None:
             weights = tf.init_params(cfg, device=device, seed=seed)
+        if quantize == "int8":
+            q8.quantize_params(weights)
         self.model = weights
         self.device = weights.device
         self.decode_graphs = serving_graphs.DenseDecodeGraphs(weights)
@@ -835,8 +854,8 @@ class ContinuousEngine:
         prefill ones. Returns (ok, the tensor's host values as a numpy
         array, or None). A call that raises at dispatch fails ``rows`` ((slot, row)
         pairs) and keeps the cache: the rows' own cache entries are all it
-        may have written. An error that surfaces at the sync fails them
-        and resets the engine (``_reset_dense``): the device may have
+        may have written. An error that surfaces at the sync resets the
+        engine (``_reset_dense``), which fails them: the device may have
         written anything."""
         t0 = time.perf_counter()
         try:
@@ -858,9 +877,7 @@ class ContinuousEngine:
             value = None if host is None else host.numpy()
         except Exception as e:  # noqa: BLE001 - an async device error
             log.exception("%s sync failed", phase)
-            for slot, row in rows:
-                self._fail_row(row, slot, e, f"{phase} sync")
-            self._reset_dense(e)
+            self._reset_dense(e, rows, f"{phase} sync")
             return False, None
         t2 = time.perf_counter()
         if chunk:
@@ -889,10 +906,16 @@ class ContinuousEngine:
         self.positions[slot] = 0
         self.last_tok[slot] = 0
 
-    def _reset_dense(self, cause):
-        """The cache is in an unknown state after a device fault: fail
-        every occupant and zero the cache in place (the chunk graphs hold
-        its address and stay valid)."""
+    def _reset_dense(self, cause, failed=(), phase=None):
+        """The cache is in an unknown state after a device fault: zero it
+        in place (the chunk graphs hold its address and stay valid), then
+        fail ``failed`` ((slot, row) pairs, with ``phase``'s error) and
+        every other occupant. The zeroing comes first: a failed row's
+        waiter wakes to a cache the loop no longer writes."""
+        for buf in self.cache.values():
+            buf.zero_()
+        for slot, row in failed:
+            self._fail_row(row, slot, cause, phase)
         for i, row in enumerate(self.occupied):
             if row is None:
                 continue
@@ -902,8 +925,6 @@ class ContinuousEngine:
             row["err"].__cause__ = cause
             self._free_slot(i)
             row["event"].set()
-        for buf in self.cache.values():
-            buf.zero_()
 
     def _admit(self, slot, row):
         """Dense admission: a context of at most ``prefill_chunk`` tokens
@@ -1080,12 +1101,24 @@ class ContinuousEngine:
         self._drop_spec(slot, row)
         row["event"].set()
 
-    def _reset_paged(self, cause):
-        """The pools are in an unknown state after a device fault: fail
-        every occupant, reset page tables and radix index, zero the pools
-        and ``last_dev`` in place (the decode graphs hold their addresses
-        and stay valid), and bump the KV epoch so stale sync records leave
-        the fresh pool alone."""
+    def _reset_paged(self, cause, failed=(), phase=None):
+        """The pools are in an unknown state after a device fault: zero
+        the pools and ``last_dev`` in place (the decode graphs hold their
+        addresses and stay valid), fail ``failed`` ((slot, row) pairs,
+        with ``phase``'s error) and every other occupant, reset page
+        tables and radix index, and bump the KV epoch so stale sync
+        records leave the fresh pool alone. The zeroing comes first: a
+        failed row's waiter wakes to pools the loop no longer writes."""
+        for pool in self.cache.values():
+            pool.zero_()
+        self.last_dev.zero_()
+        for slot, row in failed:
+            if self.occupied[slot] is row:
+                self._fail_paged_row(row, slot, cause, phase)
+            else:
+                row["err"] = RuntimeError(f"{phase} failed: {cause}")
+                row["err"].__cause__ = cause
+                row["event"].set()
         for i, row in enumerate(self.occupied):
             if row is None:
                 continue
@@ -1097,11 +1130,8 @@ class ContinuousEngine:
             self._drop_spec(i, row)
             row["event"].set()
         self.kv.reset()
-        for pool in self.cache.values():
-            pool.zero_()
         self.positions[:] = 0
         self.last_tok[:] = 0
-        self.last_dev.zero_()
         self._kv_epoch += 1
 
     def _drain_pending_syncs(self):
@@ -1394,13 +1424,15 @@ class ContinuousEngine:
         row["event"].set()
 
     def _fail_sync(self, rec, cause):
-        """A device error surfaced at the deferred sync: fail the
-        record's rows, then reset, since the pools may hold anything."""
+        """A device error surfaced at the deferred sync: drop the
+        record's blocks, then reset, which fails its rows, since the
+        pools may hold anything."""
         rows = (
             list(rec["rows"].items()) if rec["kind"] == "chunk"
             else [(rec["slot"], rec["row"])]
         )
         fresh = rec["epoch"] == self._kv_epoch
+        failed = []
         for slot, row in rows:
             if row["err"] is not None or row["event"].is_set():
                 continue
@@ -1412,13 +1444,8 @@ class ContinuousEngine:
             blocks = blocks or rec.get("blocks")
             if fresh and blocks:
                 self.kv.drop(blocks)
-            if self.occupied[slot] is row:
-                self._fail_paged_row(row, slot, cause, "paged sync")
-            else:
-                row["err"] = RuntimeError(f"paged sync failed: {cause}")
-                row["err"].__cause__ = cause
-                row["event"].set()
-        self._reset_paged(cause)
+            failed.append((slot, row))
+        self._reset_paged(cause, failed, "paged sync")
 
     # -- speculative decoding: the per-row (propose, verify) machine ---------
     #
@@ -1597,11 +1624,10 @@ class ContinuousEngine:
             g = rec["greedy"].numpy()
         except Exception as e:  # noqa: BLE001 - an async device error
             log.exception("verify sync failed")
-            for entry in rec["entries"]:
-                if self.occupied[entry["slot"]] is entry["row"]:
-                    self._fail_paged_row(entry["row"], entry["slot"], e,
-                                         "verify sync")
-            self._reset_paged(e)
+            self._reset_paged(
+                e, [(entry["slot"], entry["row"]) for entry in rec["entries"]
+                    if self.occupied[entry["slot"]] is entry["row"]],
+                "verify sync")
             return
         self.t_verify_wait_s += time.perf_counter() - t0
         if rec["start"] is not None:
@@ -1942,6 +1968,10 @@ def main(argv=None):
     p.add_argument("--speculate-k", type=int, default=8,
                    help="speculative decoding: max proposed tokens per "
                         "verify step (rounded down to a power of two)")
+    p.add_argument("--quantize", choices=QUANTIZE_MODES, default="none",
+                   help="weight-only int8 decode (W8A16): the seven layer "
+                        "matrices per-channel int8, each product the "
+                        "hand-written dequantising kernel on the card")
     p.add_argument("--warmup", choices=ws_warmup.WARMUP_MODES,
                    default="lazy",
                    help="'all' runs the continuous engine's whole shape "
@@ -1958,7 +1988,8 @@ def main(argv=None):
         log.warning("--speculate=%s needs --continuous-batching with "
                     "--kv-cache=paged; falling back to off", args.speculate)
         args.speculate = "off"
-    model = Model(config_from_args(args), device=args.device)
+    model = Model(config_from_args(args), device=args.device,
+                  quantize=args.quantize)
     if args.continuous_batching:
         model = ContinuousEngine(
             model, max_slots=args.max_slots, chunk=args.decode_chunk,

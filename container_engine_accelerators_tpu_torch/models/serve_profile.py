@@ -21,12 +21,15 @@ rows, 7 at 1088 and one at 3000, window 4096) over a dense cache of 8
 slots, run eagerly and as 16 replays of its graph
 (``serving_graphs.DenseChunkGraphs``): the same step without the page
 gather; the replayed chunk also with ``mask_writes``, and timed against
-the unmasked one with CUDA events. For
+the unmasked one with CUDA events; then the same model from the same seed
+quantized to int8 (``--quantize int8``): the prefill, the replayed
+one-row decode and the replayed dense chunk again, each product the
+W8A16 kernel (``int8_mm``). For
 each region it prints one JSON line: host wall time, the
 span on the card between CUDA events around it, summed device (kernel)
 time, the device's idle share of the wall time, the ops with the most
-device time and the device time by kind (the port's flash kernels,
-matrix products, the rest). The profiler's own host overhead inflates
+device time and the device time by kind (the port's flash kernels, its
+int8 product, matrix products, the rest). The profiler's own host overhead inflates
 wall time, so the idle share is an upper bound; chip_smoke.py times the
 same path unprofiled. Graphs are captured before their region.
 """
@@ -40,6 +43,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from container_engine_accelerators_tpu_torch.models import quantization
 from container_engine_accelerators_tpu_torch.models import serving_graphs
 from container_engine_accelerators_tpu_torch.models import transformer as tf
 from container_engine_accelerators_tpu_torch.ops import paged_attention as pa
@@ -57,6 +61,7 @@ _KINDS = (
     ("flash_fwd", ("flash_fwd",)),
     ("flash_bwd_dq", ("flash_bwd_dq",)),
     ("flash_bwd_dkv", ("flash_bwd_dkv",)),
+    ("int8_mm", ("int8_mm",)),
     ("matmul", ("nvjet", "gemm", "cutlass", "xmma", "sm90_")),
 )
 
@@ -106,6 +111,26 @@ def main(top=12, decode_steps=16, prompt_len=1500):
     device = tf.resolve_device("cuda")
     cfg = tf.TransformerConfig.llama3_8b()
     model = tf.init_params(cfg, device=device, seed=0)
+    rng = _profile_serving(model, top, decode_steps, prompt_len)
+    _profile_paged(model, rng, top, decode_steps)
+    torch.cuda.empty_cache()
+    _profile_dense_chunk(model, top, decode_steps)
+    del model
+    torch.cuda.empty_cache()
+    model = quantization.quantize_params(
+        tf.init_params(cfg, device=device, seed=0))
+    _profile_serving(model, top, decode_steps, prompt_len, prefix="int8_")
+    torch.cuda.empty_cache()
+    _profile_dense_chunk(model, top, decode_steps, prefix="int8_",
+                         eager=False)
+    return 0
+
+
+def _profile_serving(model, top, decode_steps, prompt_len, prefix=""):
+    """The 1500-token prefill, then ``decode_steps`` decode steps after it
+    (eagerly for the unprefixed model, then as replays of the step's
+    graph). Returns the random generator the prompt was drawn from."""
+    cfg, device = model.cfg, model.device
     rng = np.random.default_rng(0)
     prompt = torch.as_tensor(
         rng.integers(0, cfg.vocab_size, (1, prompt_len)), device=device)
@@ -133,16 +158,14 @@ def main(top=12, decode_steps=16, prompt_len=1500):
         for step in range(decode_steps):
             tok = decoder.step(tok, prompt_len + step).argmax(dim=-1)
 
-    _profiled("prefill_p1500", run_prefill, top)
-    _profiled(f"decode_{decode_steps}_steps", run_decode, top)
+    _profiled(f"{prefix}prefill_p1500", run_prefill, top)
+    if not prefix:
+        _profiled(f"decode_{decode_steps}_steps", run_decode, top)
     tf.prefill(model, padded, true_len=prompt_len, cache=decoder.cache(1))
     run_graph_decode()  # unprofiled once (the warm generate captured it)
-    _profiled(f"decode_{decode_steps}_steps_graphed", run_graph_decode, top)
-    del state, decoder
-    _profile_paged(model, rng, top, decode_steps)
-    torch.cuda.empty_cache()
-    _profile_dense_chunk(model, top, decode_steps)
-    return 0
+    _profiled(f"{prefix}decode_{decode_steps}_steps_graphed",
+              run_graph_decode, top)
+    return rng
 
 
 def _profile_paged(model, rng, top, decode_steps, slots=8, block_size=16):
@@ -220,11 +243,12 @@ def _profile_verify(model, pools, tables, rng, top, block_size, width=16,
 
 
 def _profile_dense_chunk(model, top, decode_steps, slots=8, window=4096,
-                         reps=5):
+                         reps=5, prefix="", eager=True):
     """The dense engine's decode chunk at the paged chunk's shape: its
     cache of ``slots`` rows holds random K/V, row b at its position. The
-    replayed chunk is profiled unmasked and with ``mask_writes``, and the
-    two are timed against each other unprofiled."""
+    replayed chunk is profiled unmasked and, with ``eager``, also eagerly
+    and with ``mask_writes``, the two replayed variants timed against
+    each other unprofiled. ``prefix`` starts each region's name."""
     cfg, device = model.cfg, model.device
     gen = torch.Generator(device=device).manual_seed(1)
     cache = tf.init_kv_cache(cfg, slots, device)
@@ -246,15 +270,16 @@ def _profile_dense_chunk(model, top, decode_steps, slots=8, window=4096,
     def run_graph_chunk(mask_writes=False):
         runner(*host, decode_steps, window, mask_writes)
 
+    name = f"{prefix}dense_decode_{decode_steps}_steps_{slots}_rows"
     for fn in (run_chunk, run_graph_chunk):  # warm, capture
         fn()
+    if not eager:
+        _profiled(f"{name}_graphed", run_graph_chunk, top)
+        return
     run_graph_chunk(True)
-    _profiled(f"dense_decode_{decode_steps}_steps_{slots}_rows", run_chunk,
-              top)
-    _profiled(f"dense_decode_{decode_steps}_steps_{slots}_rows_graphed",
-              run_graph_chunk, top)
-    _profiled(f"dense_decode_{decode_steps}_steps_{slots}_rows_graphed_"
-              f"masked", lambda: run_graph_chunk(True), top)
+    _profiled(name, run_chunk, top)
+    _profiled(f"{name}_graphed", run_graph_chunk, top)
+    _profiled(f"{name}_graphed_masked", lambda: run_graph_chunk(True), top)
     # The masked step against the unmasked one, unprofiled: replayed
     # chunks timed with CUDA events, in the order unmasked, masked,
     # masked, unmasked, ``reps`` chunks each.

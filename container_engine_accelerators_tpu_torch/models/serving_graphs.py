@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from container_engine_accelerators_tpu_torch.models import transformer as tf
+from container_engine_accelerators_tpu_torch.ops import int8_matmul
 
 # Eager iterations of a step on a side stream before it is captured, as
 # PyTorch asks: lazy set-up (cuBLAS handles and workspaces, kernel
@@ -111,15 +112,16 @@ class GraphSet:
         it or rewrite what it wrote; ``reset()``, when given, runs before
         each of them (a step that bumps a row counter into an output of
         ``chunk`` rows would otherwise run past its end when ``chunk`` is
-        below ``WARMUP_ITERS``). One capture runs at a time in the
-        process; other threads go on launching work meanwhile
-        (``thread_local``)."""
+        below ``WARMUP_ITERS``). The warm-up iterations' int8 products
+        are not counted in ``int8_mm_launches``. One capture runs at a
+        time in the process; other threads go on launching work
+        meanwhile (``thread_local``)."""
         t0 = time.perf_counter()
         with _capture_lock, torch.cuda.device(self.device):
             current = torch.cuda.current_stream()
             side = torch.cuda.Stream()
             side.wait_stream(current)
-            with torch.cuda.stream(side):
+            with torch.cuda.stream(side), int8_matmul.uncounted():
                 for _ in range(WARMUP_ITERS):
                     if reset is not None:
                         reset()

@@ -24,8 +24,12 @@ verify through it at per-row bases read from device memory; decode
 attention is plain PyTorch, as it is plain XLA in the JAX package. On
 CUDA the decode steps run as captured CUDA graphs, one per shape bucket
 (``models/serving_graphs.py``), the counterpart of the JAX package's
-jitted serving programs. Parameters are trainable; the serving entry
-points run under ``torch.inference_mode()``.
+jitted serving programs. Every projection goes through ``_mm``, which
+sends a layer matrix quantized by ``models/quantization.py``
+(``Int8Weight``, ``--quantize int8``) to the W8A16 product of
+``ops/int8_matmul.py`` (the hand-written kernel on CUDA tensors).
+Parameters are trainable, dense ones only; the serving entry points run
+under ``torch.inference_mode()``.
 
 Not in this port yet: MoE FFNs, tensor/sequence/pipeline parallelism
 and ring attention (see ROADMAP.md).
@@ -37,6 +41,11 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from container_engine_accelerators_tpu_torch.models.quantization import (
+    Int8Weight,
+    model_is_quantized,
+)
+from container_engine_accelerators_tpu_torch.ops import int8_matmul
 from container_engine_accelerators_tpu_torch.ops import paged_attention as pa
 from container_engine_accelerators_tpu_torch.ops.attention import (
     decode_attention,
@@ -127,6 +136,18 @@ def _weight(d_in, d_out, dtype, device):
     return nn.Parameter(torch.empty(d_in, d_out, dtype=dtype, device=device))
 
 
+def _mm(x, w):
+    """x @ w, the JAX ``_mm``: a dense weight is a plain product; an
+    ``Int8Weight`` (``models/quantization.py``) goes to the W8A16 product
+    ``ops.int8_matmul.int8_mm`` (the hand-written kernel on CUDA tensors,
+    its plain version on CPU ones), which applies the per-output-channel
+    f32 scale to the f32-accumulated product before the one cast to x's
+    dtype."""
+    if isinstance(w, Int8Weight):
+        return int8_matmul.int8_mm(x, w.q, w.scale)
+    return x @ w
+
+
 class Attention(nn.Module):
     """q/k/v/o projections + rope; the attention itself is chosen by the
     caller (prefill: flash; decode: the dense cache)."""
@@ -146,9 +167,9 @@ class Attention(nn.Module):
         cfg = self.cfg
         batch, seq, _ = h.shape
         hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        q = (h @ self.wq).view(batch, seq, hq, hd).transpose(1, 2)
-        k = (h @ self.wk).view(batch, seq, hkv, hd).transpose(1, 2)
-        v = (h @ self.wv).view(batch, seq, hkv, hd).transpose(1, 2)
+        q = _mm(h, self.wq).view(batch, seq, hq, hd).transpose(1, 2)
+        k = _mm(h, self.wk).view(batch, seq, hkv, hd).transpose(1, 2)
+        v = _mm(h, self.wv).view(batch, seq, hkv, hd).transpose(1, 2)
         q = _rope(q, positions, cfg.rope_theta)
         k = _rope(k, positions, cfg.rope_theta)
         return q.contiguous(), k.contiguous(), v.contiguous()
@@ -156,7 +177,7 @@ class Attention(nn.Module):
     def out(self, attn):
         """(B, Hq, S, hd) → (B, S, D) residual update."""
         batch, _, seq, _ = attn.shape
-        return attn.transpose(1, 2).reshape(batch, seq, -1) @ self.wo
+        return _mm(attn.transpose(1, 2).reshape(batch, seq, -1), self.wo)
 
 
 class FeedForward(nn.Module):
@@ -170,8 +191,8 @@ class FeedForward(nn.Module):
         self.w2 = _weight(f, d, dt, device)
 
     def forward(self, h):
-        gate = torch.nn.functional.silu((h @ self.w1).float()).to(h.dtype)
-        return (gate * (h @ self.w3)) @ self.w2
+        gate = torch.nn.functional.silu(_mm(h, self.w1).float()).to(h.dtype)
+        return _mm(gate * _mm(h, self.w3), self.w2)
 
 
 class DecoderLayer(nn.Module):
@@ -332,6 +353,15 @@ def adamw(params):
                              weight_decay=0.01)
 
 
+def _require_dense(model):
+    """Training keeps bf16 (as in JAX): an int8 model's layer matrices are
+    buffers no optimizer would update, so training one is refused."""
+    if model_is_quantized(model):
+        raise ValueError(
+            "training needs dense weights: this model's layer matrices are "
+            "int8 (quantize_params), which serve only")
+
+
 def make_train_step(cfg, optimizer=None, remat=True, device="cuda"):
     """Returns (init_state, train_step). State = (model, optimizer).
 
@@ -348,6 +378,7 @@ def make_train_step(cfg, optimizer=None, remat=True, device="cuda"):
     def init_state(seed=0, model=None):
         if model is None:
             model = init_params(cfg, device=device, seed=seed)
+        _require_dense(model)
         return model, make_optimizer(model.parameters())
 
     def train_step(state, batch):
@@ -355,6 +386,7 @@ def make_train_step(cfg, optimizer=None, remat=True, device="cuda"):
         parameters and the optimizer's moments, the counterpart of the JAX
         step's donated state (no copy of either per step)."""
         model, opt = state
+        _require_dense(model)
         opt.zero_grad(set_to_none=True)
         loss = loss_fn(model, batch, remat=remat)
         loss.backward()

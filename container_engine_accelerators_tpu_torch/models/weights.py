@@ -8,11 +8,17 @@ The JAX ``init_params`` pytree is ``{"embed": (V, D), "layers": {name:
 matrices and the embedding tied to the output head. The port keeps the
 (in, out) layout, so each stacked slice maps onto one module parameter
 unchanged. This is how the tests run both packages on identical weights.
+A tree from JAX ``quantization.quantize_params`` carries ``{"q": (L, din,
+dout) int8, "scale": (L, 1, dout) f32}`` leaves for the quantized layer
+matrices; each slice becomes an ``Int8Weight`` with the same q and scale.
 """
 
 import numpy as np
 import torch
 
+from container_engine_accelerators_tpu_torch.models.quantization import (
+    Int8Weight,
+)
 from container_engine_accelerators_tpu_torch.models.transformer import (
     Transformer,
     resolve_device,
@@ -42,7 +48,8 @@ def _tensor(a, device, dtype):
 
 def params_from_jax(tree, cfg, device="cuda", dtype=None):
     """A Transformer holding the weights of a JAX ``init_params`` pytree
-    whose leaves are numpy arrays (``jax.tree.map(np.asarray, params)``).
+    whose leaves are numpy arrays (``jax.tree.map(np.asarray, params)``),
+    quantized layer matrices (``{"q", "scale"}`` leaves) included.
     ``dtype`` defaults to the config's."""
     device = resolve_device(device)
     dtype = dtype or cfg.torch_dtype
@@ -58,13 +65,23 @@ def params_from_jax(tree, cfg, device="cuda", dtype=None):
         model.ln_f.weight.copy_(_tensor(tree["ln_f"], device, dtype))
         for name, (sub, attr) in _LAYER_PARAMS.items():
             stacked = tree["layers"][name]
-            if stacked.shape[0] != cfg.n_layers:
-                raise ValueError(f"{name}: {stacked.shape[0]} layers, "
+            quantized = isinstance(stacked, dict)
+            layers = (stacked["q"] if quantized else stacked).shape[0]
+            if layers != cfg.n_layers:
+                raise ValueError(f"{name}: {layers} layers, "
                                  f"config has {cfg.n_layers}")
             for i, layer in enumerate(model.layers):
-                getattr(getattr(layer, sub), attr).copy_(
-                    _tensor(stacked[i], device, dtype)
-                )
+                owner = getattr(layer, sub)
+                if quantized:
+                    delattr(owner, attr)
+                    setattr(owner, attr, Int8Weight.from_jax_layout(
+                        torch.from_numpy(np.array(stacked["q"][i])).to(
+                            device),
+                        _tensor(stacked["scale"][i], device, torch.float32),
+                    ))
+                else:
+                    getattr(owner, attr).copy_(
+                        _tensor(stacked[i], device, dtype))
     return model
 
 

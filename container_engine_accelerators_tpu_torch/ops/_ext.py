@@ -13,6 +13,7 @@ own. Nothing here runs at import time: the first kernel call builds.
 """
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -29,7 +30,7 @@ NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("flash_fwd", "flash_bwd")
+SOURCES = ("flash_fwd", "flash_bwd", "int8_mm")
 
 # name -> {"seconds": build wall time (0.0 when reused), "ptxas": the
 # assembler's register/shared-memory report, "path": the library}.
@@ -274,3 +275,68 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, dk, dv, **kw):
     the GQA group summed inside); as ``flash_bwd_dq``."""
     _bwd_launch("flash_bwd_dkv_launch", q, k, v, dout, lse, delta,
                 {"dk": dk, "dv": dv}, **kw)
+
+
+def _int8_mm_lib():
+    lib = load("int8_mm")
+    if lib.int8_mm_launch.argtypes is None:
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.int8_mm_error_string.argtypes = [i32]
+        lib.int8_mm_error_string.restype = ctypes.c_char_p
+        lib.int8_mm_workspace_floats.argtypes = [i32] * 4
+        lib.int8_mm_workspace_floats.restype = ctypes.c_longlong
+        lib.int8_mm_launch.restype = i32
+        # Set last: other threads take a non-None argtypes as "typed".
+        lib.int8_mm_launch.argtypes = [
+            ptr, ptr, ptr, ptr, ptr,            # x, qt, scale, y, workspace
+            i32, i32, i32, i32,                 # dtype, M, N, K
+            ptr,                                # cudaStream_t
+        ]
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def int8_mm_workspace_floats(dtype, m, n, k):
+    """Floats of f32 workspace the launch for (M, N, K) in ``dtype`` needs
+    (its split-K partials), 0 where it does not split K."""
+    return _int8_mm_lib().int8_mm_workspace_floats(_DTYPE_CODE[dtype], m, n,
+                                                   k)
+
+
+def int8_mm(x, qt, scale, y, workspace=None):
+    """Launch csrc/int8_mm.cu on PyTorch's current stream: y (M, N) =
+    ((x (M, K) @ qt (N, K)^T) in f32 * scale (N,)) in x's dtype. Checks
+    device, dtype, shape and contiguity, and raises on anything the kernel
+    does not take or on a refused launch. ``workspace``: a float32 tensor
+    of at least ``int8_mm_workspace_floats`` elements on x's device, or
+    None where that is 0."""
+    m, k = x.shape
+    n = qt.shape[0]
+    _check({"x": x, "y": y}, {"scale": scale}, x.device)
+    for name, t in {"qt": qt, "workspace": workspace}.items():
+        if t is None:
+            continue
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {x.device}")
+    if qt.dtype != torch.int8 or qt.shape != (n, k):
+        raise ValueError(f"qt must be int8 ({n}, {k}), got {qt.dtype} "
+                         f"{tuple(qt.shape)}")
+    if tuple(y.shape) != (m, n) or scale.numel() != n:
+        raise ValueError(f"y must be ({m}, {n}) and scale hold {n} values")
+    lib = _int8_mm_lib()
+    need = int8_mm_workspace_floats(x.dtype, m, n, k)
+    if need and (workspace is None or workspace.dtype != torch.float32
+                 or workspace.numel() < need):
+        raise ValueError(f"the launch needs {need} float32 of workspace")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = lib.int8_mm_launch(
+            x.data_ptr(), qt.data_ptr(), scale.data_ptr(), y.data_ptr(),
+            None if workspace is None else workspace.data_ptr(),
+            _DTYPE_CODE[x.dtype], m, n, k, stream,
+        )
+    if err:
+        raise RuntimeError(
+            f"int8_mm launch failed: "
+            f"{lib.int8_mm_error_string(err).decode()} ({err})"
+        )

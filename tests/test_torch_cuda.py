@@ -20,8 +20,12 @@ from container_engine_accelerators_tpu_torch.models import (  # noqa: E402
 from container_engine_accelerators_tpu_torch.models import (  # noqa: E402
     transformer as tf,
 )
+from container_engine_accelerators_tpu_torch.models import (  # noqa: E402
+    quantization,
+)
 from container_engine_accelerators_tpu_torch.ops import (  # noqa: E402
     attention,
+    int8_matmul,
 )
 
 pytestmark = pytest.mark.cuda
@@ -757,3 +761,125 @@ def test_dense_engine_on_card_matches_dense_generate(gen):
                            max_new_tokens=max_new,
                            decoder=model.decode_graphs)
         assert got == want[0].tolist()
+
+
+# -- weight-only int8 (W8A16) ---------------------------------------------------
+
+# (M, K, N): decode rows (split K, the 16-row tile), odd M, K not a multiple
+# of 16 (the element-wise loads) and N not a multiple of the 128-wide tile,
+# the verify's 64-row tile, the prefill's 128-row tile.
+INT8_SHAPES = [(1, 64, 40), (3, 200, 130), (17, 256, 300), (8, 4096, 1024),
+               (1, 77, 9), (128, 512, 200), (300, 256, 136), (513, 96, 260)]
+
+
+def _int8_operands(gen, m, k, n, dtype):
+    x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+    w = torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5
+    qw = quantization.quantize_weight(w)
+    return x, qw["q"].T.contiguous(), qw["scale"]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", INT8_SHAPES, ids=str)
+def test_int8_mm_matches_plain_version(gen, shape, dtype):
+    """The kernel against ``int8_mm_reference`` on the same operands. bf16:
+    both sum exact int8 x bf16 products in f32 and round once, so they
+    agree to one bf16 step (2^-7 of |ref|) plus the f32 summation-order
+    noise; f32: summation order only. One launch counted per call."""
+    m, k, n = shape
+    x, qt, scale = _int8_operands(gen, m, k, n, dtype)
+    before = int8_matmul.int8_mm_launches
+    got = int8_matmul.int8_mm(x, qt, scale)
+    torch.cuda.synchronize()
+    assert int8_matmul.int8_mm_launches == before + 1
+    want = int8_matmul.int8_mm_reference(x, qt, scale)
+    assert got.dtype == dtype and got.shape == (m, n)
+    rtol, atol = (2.0 ** -7, 1e-3) if dtype == torch.bfloat16 else \
+        (1e-5, 1e-5)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("shape", [(8, 4096, 1024), (128, 512, 200)],
+                         ids=str)
+def test_int8_mm_replay_is_bit_equal_to_the_eager_launch(gen, shape):
+    """Captured in a CUDA graph (with and without split K), a replay gives
+    the eager launch's output bit for bit: the split-K partials are summed
+    in a fixed order, never by atomics; the capture counts no launch."""
+    m, k, n = shape
+    x, qt, scale = _int8_operands(gen, m, k, n, torch.bfloat16)
+    eager = int8_matmul.int8_mm(x, qt, scale)
+    out = {}
+    graphs = serving_graphs.GraphSet("cuda")
+    counted = int8_matmul.int8_mm_launches
+    graphs.capture("mm", lambda: out.update(y=int8_matmul.int8_mm(
+        x, qt, scale)))
+    assert int8_matmul.int8_mm_launches == counted
+    out["y"].zero_()
+    graphs.replay("mm")
+    torch.cuda.synchronize()
+    assert torch.equal(out["y"], eager)
+
+
+def test_int8_mm_rejects_what_it_does_not_take(gen):
+    x, qt, scale = _int8_operands(gen, 4, 64, 32, torch.bfloat16)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        int8_matmul.int8_mm(x.half(), qt, scale)
+    with pytest.raises(ValueError, match="int8"):
+        int8_matmul.int8_mm(x, qt.float(), scale)
+    with pytest.raises(ValueError, match="last dim"):
+        int8_matmul.int8_mm(x[:, :32], qt, scale)
+    with pytest.raises(ValueError, match="cpu or all on cuda"):
+        int8_matmul.int8_mm(x, qt.cpu(), scale)
+
+
+def _int8_model(seed):
+    cfg = tf.TransformerConfig(**SMALL)
+    return cfg, quantization.quantize_params(
+        tf.init_params(cfg, device="cuda", seed=seed))
+
+
+def test_int8_small_model_on_card_matches_cpu(gen):
+    """A small f32 int8 model (the kernel's f32 path in every projection)
+    generates the CPU's tokens on the same int8 weights; the prefill
+    launches 7 products a layer."""
+    cfg, gpu = _int8_model(12)
+    cpu = quantization.quantize_params(tf.Transformer(cfg, "cpu"))
+    cpu.load_state_dict({k: t.cpu() for k, t in gpu.state_dict().items()})
+    prompt = torch.arange(5, 30)[None, :]
+    before = int8_matmul.int8_mm_launches
+    with torch.inference_mode():
+        tf.forward(gpu, prompt.cuda())
+    assert int8_matmul.int8_mm_launches == before + 7 * cfg.n_layers
+    out = tf.generate(gpu, prompt.cuda(), max_new_tokens=6,
+                      decoder=serving_graphs.DenseDecodeGraphs(gpu)).cpu()
+    assert torch.equal(out, tf.generate(
+        cpu, prompt, max_new_tokens=6,
+        decoder=serving_graphs.DenseDecodeGraphs(cpu)))
+
+
+def test_int8_dense_chunk_replay_matches_the_eager_chunk(gen):
+    """The int8 model's dense decode step captured and replayed gives the
+    eager ``decode_chunk``'s tokens, positions and cache, 0 apart; the
+    eager chunk counts 7 × layers launches a step, the capture none."""
+    cfg, model = _int8_model(13)
+    cache, tokens = _dense_state(gen, cfg, 4)
+    eager = {n: c.clone() for n, c in cache.items()}
+    positions = torch.tensor([3, 62, 40, 32])
+    active = torch.tensor([True, True, False, True])
+    before = int8_matmul.int8_mm_launches
+    want, last, pos = tf.decode_chunk(
+        model, eager, tokens.clone(), positions.cuda(), active.cuda(),
+        steps=3, window=64)
+    assert int8_matmul.int8_mm_launches == before + 3 * 7 * cfg.n_layers
+    runner = serving_graphs.DenseChunkGraphs(model, cache, 4, 4)
+    before = int8_matmul.int8_mm_launches
+    got = runner(tokens.cpu().numpy(), positions.numpy(), active.numpy(), 3,
+                 64, False)
+    torch.cuda.synchronize()
+    assert int8_matmul.int8_mm_launches == before
+    assert (runner.graphs.captures, runner.graphs.replays) == (1, 3)
+    assert torch.equal(got, want) and torch.equal(runner.tokens, last)
+    assert torch.equal(runner.positions, pos)
+    for name in ("k", "v"):
+        assert (cache[name] - eager[name]).abs().max().item() == 0.0

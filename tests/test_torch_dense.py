@@ -507,6 +507,35 @@ def test_engine_failed_sync_zeroes_the_cache_in_place(models, expect,
     assert got == expect([4, 5, 6], 6)
 
 
+def test_engine_failed_sync_zeroes_the_cache_before_it_wakes_the_row(
+        models, engine):
+    """A failed sync resets the cache before it wakes the failed row's
+    waiter: with a reset that sleeps before it zeroes, the cache is
+    already zero when ``generate`` raises, not only some time later."""
+    eng = engine()
+    eng.generate([[9, 8, 7, 6, 5]], 2)
+    to_host, reset, faults = eng._to_host, eng._reset_dense, []
+
+    class Faulted:
+        def numpy(self):
+            raise RuntimeError("injected sync fault")
+
+    def to_host_failing_at_the_chunk(tensor):
+        if not faults and tensor.dim() == 2:  # a chunk's tokens
+            faults.append(1)
+            return Faulted(), None
+        return to_host(tensor)
+
+    def slow_reset(*args, **kwargs):
+        time.sleep(0.5)
+        return reset(*args, **kwargs)
+
+    eng._to_host, eng._reset_dense = to_host_failing_at_the_chunk, slow_reset
+    with pytest.raises(RuntimeError, match="decode chunk sync failed"):
+        eng.generate([[1, 2, 3]], 6)
+    assert not any(c.any() for c in eng.cache.values())
+
+
 def test_engine_stats_keys_match_jax_and_kv_stats_is_none(models, engine):
     jmodel, _ = models
     jeng = jserve.ContinuousEngine(jmodel, start_loop=False, **ENGINE)

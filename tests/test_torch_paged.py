@@ -24,6 +24,7 @@ import os
 import subprocess
 import sys
 import threading
+import time
 import urllib.request
 
 import numpy as np
@@ -419,6 +420,38 @@ def test_engine_failed_sync_resets_the_pools(models, engine):
     (got,) = eng.generate([[4, 5, 6]], 6)
     assert got == _expect(jmodel, [4, 5, 6], 6)
     assert eng._kv_epoch == 1 and not eng.kv.radix.match(cached)
+
+
+def test_engine_failed_sync_zeroes_the_pools_before_it_wakes_the_row(
+        models, engine):
+    """A failed deferred sync resets the pools before it wakes the failed
+    row's waiter: with a reset that sleeps before it zeroes, the pools
+    and ``last_dev`` are already zero when ``generate`` raises."""
+    eng = engine()
+    eng.generate([[9, 8, 7, 6, 5]], 2)
+    to_host, reset, faults = eng._to_host, eng._reset_paged, []
+
+    class Faulted:
+        def numpy(self):
+            raise RuntimeError("injected sync fault")
+
+        __int__ = numpy
+
+    def to_host_failing_once(tensor):
+        if not faults:
+            faults.append(1)
+            return Faulted(), None
+        return to_host(tensor)
+
+    def slow_reset(*args, **kwargs):
+        time.sleep(0.5)
+        return reset(*args, **kwargs)
+
+    eng._to_host, eng._reset_paged = to_host_failing_once, slow_reset
+    with pytest.raises(RuntimeError, match="paged sync failed"):
+        eng.generate([[1, 2, 3]], 6)
+    assert not any(p.any() for p in eng.cache.values())
+    assert not eng.last_dev.any()
 
 
 def test_engine_shutdown_fails_what_is_queued(models):

@@ -30,6 +30,7 @@ import os
 import subprocess
 import sys
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -695,6 +696,37 @@ def test_failed_verify_sync_resets_the_pools(models, engine):
     (got,) = eng.generate([prompt], 8)
     assert got == truth[tuple(prompt)]
     assert eng._kv_epoch == 1
+
+
+def test_failed_verify_sync_zeroes_the_pools_before_it_wakes_the_row(
+        models, engine):
+    """A failed verify sync resets the pools before it wakes the
+    verified row's waiter: with a reset that sleeps before it zeroes,
+    the pools are already zero when ``generate`` raises."""
+    prompt = list(range(70, 80))
+    eng, _, _ = _oracle_engine(models, engine, prompt, 8)
+    dispatch, reset, faults = eng._dispatch_verify_batch, eng._reset_paged, []
+
+    class Faulted:
+        def numpy(self):
+            raise RuntimeError("injected verify sync fault")
+
+    def dispatch_faulting_once(entries, window):
+        rec = dispatch(entries, window)
+        if rec is not None and not faults:
+            faults.append(1)
+            rec["greedy"] = Faulted()
+        return rec
+
+    def slow_reset(*args, **kwargs):
+        time.sleep(0.5)
+        return reset(*args, **kwargs)
+
+    eng._dispatch_verify_batch = dispatch_faulting_once
+    eng._reset_paged = slow_reset
+    with pytest.raises(RuntimeError, match="verify sync failed"):
+        eng.generate([prompt], 8)
+    assert not any(p.any() for p in eng.cache.values())
 
 
 def test_reset_and_shutdown_release_the_proposer_slots(models):
