@@ -141,14 +141,14 @@ def nvidia_smi_line():
 def ptxas_summary(report):
     """The lines of nvcc's ``-Xptxas -v`` report that say what a kernel
     costs, each after its kernel's name and integer template arguments
-    (``flash_bwd_dq_sm90_kernel<128>``, ``int8_mm_bf16_kernel<16,128,...>``):
+    (``flash_bwd_dq_sm90_kernel<128>``, ``int8_mm_sm90_kernel<8,1,8,2>``):
     registers, spills, and any note that ptxas serialised the kernel's
     wgmma instructions, which costs most of their rate."""
     kernel, lines = "?", []
     for line in report.splitlines():
         found = re.search(r"Compiling entry function '.*?((?:flash_(?:fwd|"
-                          r"bwd)_(?:dq_|dkv_)?(?:sm90|f32)|int8_mm_(?:bf16|"
-                          r"f32|reduce))_kernel)(\w*)'", line)
+                          r"bwd)_(?:dq_|dkv_)?(?:sm90|f32)|int8_mm_(?:sm90|"
+                          r"bf16|f32))_kernel)(\w*)'", line)
         if found:
             args = ",".join(re.findall(r"L[ib](\d+)E", found.group(2)))
             kernel = f"{found.group(1)}<{args}>"
@@ -592,13 +592,15 @@ def run_bwd_case(case, torch, attention, _ext, gen):
 
 
 # (name, M, K, N): Llama-3-8B's layer matrices (wq/wo (4096, 4096), wk/wv
-# (4096, 1024), w1/w3 (4096, 14336), w2 (14336, 4096)) at the decode's 8
-# rows, the B 8 verify's 128 (8 rows × 16) and prefill buckets of 512 and
-# 2048 rows. "main" of the kernels line: the decode's largest product.
+# (4096, 1024), w1/w3 (4096, 14336), w2 (14336, 4096)) at generate's one
+# decode row, the engines' 8, the B 8 verify's 128 (8 rows × 16) and
+# prefill buckets of 512 and 2048 rows. "main" of the kernels line: the
+# engines' decode's largest product.
 INT8_CASES = [
+    ("m1_w1", 1, 4096, 14336),
     ("m8_wq", 8, 4096, 4096), ("m8_wk", 8, 4096, 1024),
     ("m8_w1", 8, 4096, 14336), ("m8_w2", 8, 14336, 4096),
-    ("m128_w1", 128, 4096, 14336),
+    ("m128_w1", 128, 4096, 14336), ("m128_w2", 128, 14336, 4096),
     ("m512_w1", 512, 4096, 14336), ("m512_w2", 512, 14336, 4096),
     ("m2048_w1", 2048, 4096, 14336), ("m2048_w2", 2048, 14336, 4096),
 ]
@@ -606,7 +608,8 @@ INT8_MAIN_CASE = "m8_w1"
 # Rows whose back-to-back time may read the wrapper's host time: also
 # timed as a CUDA graph of GRAPH_LAUNCHES launches, and held bit-equal to
 # the eager launch when replayed.
-INT8_GRAPH_CASES = ("m8_wq", "m8_wk", "m8_w1", "m8_w2", "m128_w1")
+INT8_GRAPH_CASES = ("m1_w1", "m8_wq", "m8_wk", "m8_w1", "m8_w2",
+                    "m128_w1", "m128_w2")
 # Weight bytes one timed pass cycles through, so that a launch finds its
 # weight in HBM (the 50 MB L2 cannot hold them), as the decode does: it
 # streams 218 MB of layer matrices a layer.

@@ -297,8 +297,9 @@ def _int8_mm_lib():
 
 @functools.lru_cache(maxsize=None)
 def int8_mm_workspace_floats(dtype, m, n, k):
-    """Floats of f32 workspace the launch for (M, N, K) in ``dtype`` needs
-    (its split-K partials), 0 where it does not split K."""
+    """Floats of f32 workspace the launch for (M, N, K) in ``dtype`` needs:
+    0 for every shape of csrc/int8_mm.cu, which sums its K splits inside
+    one launch (a thread-block cluster)."""
     return _int8_mm_lib().int8_mm_workspace_floats(_DTYPE_CODE[dtype], m, n,
                                                    k)
 

@@ -13,59 +13,80 @@
 //              cast once to x's dtype,
 //
 // the per-output-channel f32 scale applied to the f32 accumulator, never to
-// a rounded product. Here q comes transposed, qt (N, K) with K contiguous:
-// the B operand of mma.sync's row.col form is K-major per output column, so
-// one column's two neighbouring k values are one 16-bit load. Each int8 value
-// converts to bf16 exactly (|q| <= 127 needs 7 significant bits of bf16's 8),
-// and int8 x bf16 products are exact in f32, so the kernel and the plain
-// version differ only in the order of their f32 sums.
+// a rounded product. Here q comes transposed, qt (N, K) with K contiguous
+// (quantization.Int8Weight's layout). Each int8 value converts to bf16
+// exactly (|q| <= 127 needs 7 significant bits of bf16's 8), and int8 x
+// bf16 products are exact in f32, so the kernels and the plain version
+// differ only in the order of their f32 sums.
 //
 // What bounds it on H100. Bytes = K*N (int8) + 4N (scale) + 2MK (x) + 2MN
 // (y); work = 2MKN. Decode (M 1-8) and the verify (M 128) read each weight
 // byte for a handful of rows: the product is bound by HBM, and the int8
 // weight halves the bytes the bf16 product streams. Prefill (M 512-8192) is
-// bound by the tensor cores' bf16 rate.
+// bound by the tensor cores' bf16 rate, which only wgmma reaches.
 //
-// What the design does about it (bf16 activations):
-// - Tiles follow M: 16 x 64 output tiles with 256-deep K steps and eight
-//   warps for M <= 16 (decode: rows past M are zero-filled in shared memory
-//   and cost no HBM bytes), 64 x 128 with four warps up to M 256 (the
-//   verify), 128 x 128 with eight warps and 64-deep steps beyond (prefill).
-// - Loads overlap the math: a ring of 3-4 stages of x and qt tiles in
-//   shared memory filled with 16-byte cp.async (zero-fill past M, N and
-//   K), so several tiles of weight bytes are in flight per block.
-// - When the output tiles alone do not give a block per SM (decode and
-//   the smaller projections), K is split across blocks: each writes its f32
-//   partial sums to a workspace and a second kernel sums the splits in index
-//   order, scales and casts. No atomics, so a result is the same bit for
-//   bit on every run, as the replayed serving graphs need.
-// - Products are mma.sync m16n8k16 bf16 with f32 accumulation, A
-//   fragments by ldmatrix; the int8 tile is converted to bf16 in
-//   registers as its B fragments are read, with byte permutes and FP32
-//   adds (the int -> float converts run at a quarter rate).
-// Left for later, each to be tried with a measurement: wgmma with the
-//   weight tile converted into a shared-memory bf16 tile, TMA loads, a
-//   persistent grid, and a permuted qt layout for one 32-bit B load.
+// What the design does about it (bf16 activations, the Hopper kernel
+// int8_mm_sm90_kernel):
+// - The operands are swapped: a block computes a tile of y^T, 64 output
+//   channels per consumer warpgroup against BN tokens, so the weight is
+//   wgmma's A operand and the tokens its N (8 or 16 at decode, 128 for the
+//   verify, 256 at prefill). One kernel covers every M, and a decode row
+//   costs no padding to wgmma's 64 rows.
+// - The weight goes from shared memory to registers once: each consumer
+//   thread reads its A fragment's byte pairs from the TMA-swizzled int8
+//   tile and converts them with byte permutes and FP32 adds (the int ->
+//   float converts run at a quarter rate) straight into wgmma's register
+//   operand (m64nNk16, A from registers, x from shared memory as a K-major
+//   B with 128-byte swizzle), one k16 step at a time, so a step's converts
+//   run while the previous step's wgmma does. No bf16 copy of the weight
+//   is written.
+// - Loads overlap the math: one producer thread keeps a ring of stages (a
+//   64- or 128-deep K slice of the int8 tile and of the x tile) in flight
+//   with TMA, signalled through mbarriers; consumers release a stage after
+//   their wgmma on it completes. No block-wide barrier in the K loop. TMA
+//   zero-fills rows past M and N and columns past K. The weight's tensor
+//   maps are cached; x's is encoded at each launch (and baked into a
+//   captured graph's launch, whose static buffers keep it valid).
+// - Where the output tiles give fewer blocks than SMs (decode, the verify,
+//   the smaller projections), K is split across a thread-block cluster of
+//   up to 8 blocks along K: the blocks' f32 partials are summed in rank
+//   order through distributed shared memory by rank 0, which scales,
+//   casts and writes y. One launch, no workspace, no atomics, so a result
+//   is the same bit for bit on every run, as the replayed serving graphs
+//   need.
+// - The epilogue stages the bf16 tile in shared memory and writes y's rows
+//   with 16-byte stores.
+// Tried on the card and slower, so left out: converting stage i + 1's
+//   fragments while stage i's wgmma run (two register sets of A), 64-deep
+//   stages below M 257, K splits past one block an SM, 64-token tiles at
+//   the verify. Not tried: the weight tile converted once into a shared
+//   bf16 tile with both wgmma operands from shared memory, which still
+//   pays every convert (the tile bench's -DINT8_MM_NO_CONVERT build bounds
+//   what the converts cost); a persistent grid; a permuted qt layout for
+//   wider fragment loads.
 //
-// f32 activations (for checking) run a plain SIMT kernel with f32 FMAs, the
-// same contract; K is not split there.
+// The general path takes what a TMA map cannot describe (K % 16 != 0, K
+// under one 128-deep stage, bases not 16-byte aligned): the earlier
+// design's cp.async ring with ldmatrix and mma.sync m16n8k16, the same
+// int8 -> bf16 convert, tiles by M, 16-byte cp.async where K % 16 == 0 and
+// the bases are aligned and element-wise loads otherwise. f32 activations
+// (for checking) run a plain SIMT kernel with f32 FMAs, the same contract.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <atomic>
+#include <map>
+#include <mutex>
+#include <tuple>
 
 #include "launch.cuh"
+#include "sm90.cuh"
 
 namespace {
 
-// K is split when the output tiles give fewer blocks than the H100's 132
-// SMs, into enough splits for about four blocks an SM (the sweep of
-// bench/int8_mm_tiles.cu: at M 8, wq and w2 take 9 splits of 64 tiles).
-constexpr int kSMs = 132;
-constexpr int kTargetBlocks = 4 * kSMs;
-constexpr int kMaxSplits = 64;
+// ---- the general path (mma.sync) -----------------------------------------
 
 // Tile configurations by M. BM x BN outputs per block, BK-deep K steps in
 // a ring of STAGES, WARPS_M x WARPS_N warps, each owning a (BM / WARPS_M) x
@@ -85,34 +106,15 @@ struct Tile {
   static constexpr int kBytes = STAGES_ * (kXBytes + kQBytes);
 };
 
-// Chosen on the card among other shapes, depths and warp counts
-// (bench/int8_mm_tiles.cu; PERF.md):
-// at M 8 the decode tile's eight warps and 256-byte rows of qt keep the
-// most weight bytes in flight, and the prefill tile's 64-deep steps halve
-// the barriers of 32-deep ones.
+// The earlier design's tiles, chosen on the card among other shapes,
+// depths and warp counts (bench/int8_mm_tiles.cu, which still times them
+// with split K as that design launched them; the general path launches one
+// split).
 using Decode = Tile<16, 64, 256, 1, 8, 4>;
 using Verify = Tile<64, 128, 32, 2, 2, 4>;
 using Prefill = Tile<128, 128, 64, 2, 4, 3>;
 
 int config_for(int m) { return m <= 16 ? 0 : (m <= 256 ? 1 : 2); }
-
-template <typename T>
-int splits_for(int m, int n, int k) {
-  const int blocks = ((n + T::BN - 1) / T::BN) * ((m + T::BM - 1) / T::BM);
-  const int k_tiles = (k + T::BK - 1) / T::BK;
-  if (blocks >= kSMs || k_tiles < 2) return 1;
-  int splits = (kTargetBlocks + blocks - 1) / blocks;
-  if (splits > k_tiles) splits = k_tiles;
-  return splits < kMaxSplits ? splits : kMaxSplits;
-}
-
-int plan_splits(int m, int n, int k) {
-  switch (config_for(m)) {
-    case 0: return splits_for<Decode>(m, n, k);
-    case 1: return splits_for<Verify>(m, n, k);
-    default: return splits_for<Prefill>(m, n, k);
-  }
-}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -313,20 +315,6 @@ __global__ void __launch_bounds__(T::kThreads)
   }
 }
 
-// The split-K epilogue: y = (sum of the splits' partials, in split order)
-// * scale, cast once to bf16.
-__global__ void int8_mm_reduce_kernel(const float* __restrict__ ws,
-                                      const float* __restrict__ scale,
-                                      __nv_bfloat16* __restrict__ y, int m,
-                                      int n, int splits) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t total = (size_t)m * n;
-  if (idx >= total) return;
-  float sum = 0.f;
-  for (int s = 0; s < splits; ++s) sum += ws[(size_t)s * total + idx];
-  y[idx] = __float2bfloat16(sum * scale[idx % n]);
-}
-
 // f32 activations: one thread per output, 16 x 16 outputs per block, K in
 // steps of 16 through shared memory.
 __global__ void int8_mm_f32_kernel(const float* __restrict__ x,
@@ -368,40 +356,379 @@ cudaError_t launch_tile(const void* x, const int8_t* qt, const float* scale,
   return cudaSuccess;
 }
 
+
+// ---- the Hopper path (TMA, wgmma with the weight in registers) -----------
+
+constexpr int kSMs = 132;
+constexpr int kTmaMinK = 128;     // the least K the Hopper path takes
+
+// BN tokens (wgmma's N) x 64 * C channels per block: C consumer
+// warpgroups of 64 channels after one producer warpgroup, a ring of STAGES
+// BK-deep K slices, MIN_BLOCKS blocks an SM. Shared memory: the ring (each
+// stage the int8 tile, BC rows of BK bytes in TMA's BK-byte swizzle, then
+// the x tile as BK / 64 atoms of 64 columns of BN rows, 128-byte swizzle),
+// reused by the epilogue for the split-K partials and the staged y tile,
+// then the full and empty barriers.
+template <int BN_, int C_, int STAGES_, int MIN_BLOCKS_, int BK_ = 128>
+struct Sm90Tile {
+  static constexpr int BN = BN_, C = C_, kStages = STAGES_, BK = BK_;
+  static_assert(BK_ == 64 || BK_ == 128, "one int8 swizzle atom a row");
+  static constexpr int kMinBlocks = MIN_BLOCKS_;
+  static constexpr int BC = 64 * C_;
+  static constexpr int kThreads = 128 * (C_ + 1);
+  static_assert(C_ == 1 || C_ == 2, "one or two consumer warpgroups");
+  // With two consumers, the producer hands its registers to them.
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kConsumerRegs = 240;
+  // The largest cluster of K splits: rank 0 reads every other rank's
+  // partial tile, which is small for one consumer's 64 x BN and large
+  // for two consumers' 128 x 128 or 256.
+  static constexpr int kMaxSplits = C_ == 1 ? 8 : 3;
+  static constexpr int kQBytes = BC * BK;
+  static constexpr int kXAtom = BN * 128;
+  static constexpr int kStageBytes = kQBytes + BK / 64 * kXAtom;
+  static constexpr int kAcc = BN / 2;         // f32 accumulators a thread
+  static constexpr int kYStride = BC + 8;     // bf16 a staged y row
+  static constexpr int kYBytes = BN * kYStride * 2;
+  static constexpr int kPartBytes = C * 128 * kAcc * 4;
+  static constexpr int kRing = kStages * kStageBytes;
+  static constexpr int kBars = kRing;
+  static constexpr int kBytes = kBars + 16 * kStages + 1024;
+  static_assert(kYBytes <= kRing && kPartBytes <= kRing, "epilogue");
+  static_assert(kBytes <= 232448, "shared memory");
+};
+
+// Chosen on the card among other tokens, consumers, depths and splits
+// (bench/int8_mm_tiles.cu; PERF.md). Decode: one consumer warpgroup, and
+// three blocks an SM with 4-deep rings; beyond, two consumers share each x
+// tile; from M 257 on, 256 tokens a block halve the x bytes a weight byte
+// costs, in a 5-deep ring of 64-deep stages (two 128-deep ones fit).
+using D8 = Sm90Tile<8, 1, 4, 3>;
+using D16 = Sm90Tile<16, 1, 4, 3>;
+using V128 = Sm90Tile<128, 2, 4, 1>;
+using P256 = Sm90Tile<256, 2, 5, 1, 64>;
+
+int sm90_config(int m) {
+  return m <= 8 ? 0 : m <= 16 ? 1 : m <= 256 ? 2 : 3;
+}
+
+// Cluster size along K: as many splits as keep the grid within one block
+// an SM (a cluster that waits for a second wave costs more than the
+// split gains), at most T::kMaxSplits and the K slices.
 template <typename T>
-cudaError_t launch_bf16(const void* x, const int8_t* qt, const float* scale,
-                        void* y, float* ws, int m, int n, int k, int splits,
+int sm90_splits(int m, int n, int k) {
+  const int blocks = ((n + T::BC - 1) / T::BC) * ((m + T::BN - 1) / T::BN);
+  const int k_tiles = (k + T::BK - 1) / T::BK;
+  int splits = kSMs / blocks;
+  if (splits > T::kMaxSplits) splits = T::kMaxSplits;
+  if (splits > k_tiles) splits = k_tiles;
+  return splits > 1 ? splits : 1;
+}
+
+__device__ __forceinline__ void consumer_sync(int threads) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
+}
+
+// acc += the stage's int8 tile (A) x its x tile at `xs` (B: BK / 64 atoms
+// of 64 columns, K-major with 128-byte swizzle), for the thread at `q` (row
+// row, byte 2t of the int8 tile; row + 8 is 8 * BK further). k16 step kk
+// reads rows row and row + 8 at k pairs 16 kk + 2t and 16 kk + 2t + 8,
+// each pair one 16-bit read converted to a bf16x2 register of the A
+// fragment. TMA's swizzle moves 16-byte chunk kk of a row to chunk kk ^
+// `swz`, the same for both rows (bits 7 and up of row * BK: row % 8 for
+// 128-byte rows, row / 2 % 4 for 64-byte ones). The reads come first, then
+// each step's converts and its wgmma, so the converts of step kk + 1 run
+// while step kk's wgmma does; one commit group. With -DINT8_MM_NO_CONVERT
+// (the tile bench's diagnostic build) the raw pairs go to wgmma instead:
+// wrong products, timed to show what the converts cost.
+template <typename T>
+__device__ __forceinline__ void stage_wgmma(float (&acc)[T::kAcc],
+                                            const uint8_t* q, int swz,
+                                            const uint8_t* xs) {
+  uint16_t v[T::BK / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < T::BK / 16; ++kk) {
+    const int off = (kk ^ swz) * 16;
+    v[kk][0] = *reinterpret_cast<const uint16_t*>(q + off);
+    v[kk][1] = *reinterpret_cast<const uint16_t*>(q + 8 * T::BK + off);
+    v[kk][2] = *reinterpret_cast<const uint16_t*>(q + off + 8);
+    v[kk][3] = *reinterpret_cast<const uint16_t*>(q + 8 * T::BK + off + 8);
+  }
+  sm90::fence_regs(acc);
+#pragma unroll
+  for (int kk = 0; kk < T::BK / 16; ++kk) {
+    uint32_t a[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+#ifdef INT8_MM_NO_CONVERT
+      a[r] = v[kk][r];
+#else
+      a[r] = int8x2_to_bf16x2(v[kk][r]);
+#endif
+    }
+    sm90::wgmma_fence();
+    sm90::WgmmaRS<T::BN, 0>::mma(
+        acc, a,
+        sm90::make_desc(xs + (kk / 4) * T::kXAtom + (kk % 4) * 32, 16,
+                        8 * 128, sm90::kSwizzle128B),
+        1);
+  }
+  sm90::wgmma_commit();
+}
+
+// One block: channels [bn, bn + BC) x tokens [bm, bm + BN) of y, over the
+// K slices of cluster rank blockIdx.z of gridDim.z (one slice range a
+// rank; the cluster spans z). Warpgroup 0 loads; warpgroup 1 + w owns
+// channels [64w, 64w + 64) of the tile. In a consumer warp (w4 of its
+// warpgroup) lane (g = lane / 4, t = lane % 4) holds channels 16 w4 + g and
+// 16 w4 + g + 8, and tokens 8j + 2t, 8j + 2t + 1 of every 8 tokens j.
+template <typename T>
+__global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
+    int8_mm_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_x,
+                        const float* __restrict__ scale,
+                        __nv_bfloat16* __restrict__ y, int m, int n, int k) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) &
+                              1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::kBars);
+  uint64_t* empty = full + T::kStages;
+  const int bn = blockIdx.x * T::BC, bm = blockIdx.y * T::BN;
+  const int splits = gridDim.z;
+  const int k_tiles = (k + T::BK - 1) / T::BK;
+  const int kt0 = (int)((long long)blockIdx.z * k_tiles / splits);
+  const int kt1 = (int)((long long)(blockIdx.z + 1) * k_tiles / splits);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < T::kStages; ++s) {
+      sm90::mbar_init(full + s, 1);
+      sm90::mbar_init(empty + s, 4 * T::C);
+    }
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // Producer. Round r of a stage waits for the consumers to release
+    // round r - 1 (the first round's wait passes at once).
+    if constexpr (T::C > 1) sm90::regs_dealloc<T::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      for (int kt = kt0; kt < kt1; ++kt) {
+        const int i = kt - kt0, st = i % T::kStages;
+        sm90::mbar_wait(empty + st, ((i / T::kStages) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(full + st, T::kStageBytes);
+        uint8_t* s = smem + st * T::kStageBytes;
+        sm90::tma_load_3d(s, &tm_q, full + st, kt * T::BK, bn, 0);
+        for (int a = 0; a < T::BK / 64; ++a) {
+          sm90::tma_load_3d(s + T::kQBytes + a * T::kXAtom, &tm_x, full + st,
+                            kt * T::BK + 64 * a, bm, 0);
+        }
+      }
+    }
+    // The split's two cluster barriers (see below), which every thread of
+    // every block of the cluster passes.
+    __syncwarp();
+    if (splits > 1) {
+      sm90::cluster_sync();
+      sm90::cluster_sync();
+    }
+  } else {
+    if constexpr (T::C > 1) sm90::regs_alloc<T::kConsumerRegs>();
+    const int ctid = threadIdx.x - 128;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int row = (ctid / 128) * 64 + 16 * warp + g;  // and row + 8
+
+    float acc[T::kAcc];
+#pragma unroll
+    for (int i = 0; i < T::kAcc; ++i) acc[i] = 0.f;
+
+    const uint8_t* q = smem + row * T::BK + 2 * t;  // in stage 0
+    const int swz = ((row * T::BK) >> 7) & (T::BK / 16 - 1);
+    for (int i = 0; i < kt1 - kt0; ++i) {
+      const int st = i % T::kStages;
+      sm90::mbar_wait(full + st, (i / T::kStages) & 1);
+      stage_wgmma<T>(acc, q + st * T::kStageBytes, swz,
+                     smem + st * T::kStageBytes + T::kQBytes);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(empty + st);
+    }
+    // Every consumer is past its last wgmma: the ring is free.
+    __syncwarp();
+    consumer_sync(128 * T::C);
+
+    if (splits > 1) {
+      // Ranks 1.. leave their partials in their own ring; rank 0 adds them
+      // in rank order after the first cluster barrier, and the second
+      // keeps every rank's shared memory alive until rank 0 has read it.
+      float4* part = reinterpret_cast<float4*>(smem);
+      const uint32_t rank = sm90::cluster_rank();
+      if (rank != 0) {
+#pragma unroll
+        for (int j = 0; j < T::kAcc / 4; ++j) {
+          part[j * 128 * T::C + ctid] = make_float4(
+              acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]);
+        }
+      }
+      sm90::cluster_sync();
+      if (rank == 0) {
+        for (int r = 1; r < splits; ++r) {
+#pragma unroll
+          for (int j = 0; j < T::kAcc / 4; ++j) {
+            const float4 v =
+                sm90::ld_cluster_f32x4(part + j * 128 * T::C + ctid, r);
+            acc[4 * j] += v.x;
+            acc[4 * j + 1] += v.y;
+            acc[4 * j + 2] += v.z;
+            acc[4 * j + 3] += v.w;
+          }
+        }
+      }
+      sm90::cluster_sync();
+      if (rank != 0) return;
+    }
+
+    // Scale (per channel: per accumulator row), cast once, stage the tile
+    // as y's rows (token-major) and write them with 16-byte stores.
+    __nv_bfloat16* ys = reinterpret_cast<__nv_bfloat16*>(smem);
+    const int c0 = bn + row;
+    const float s0 = c0 < n ? scale[c0] : 0.f;
+    const float s1 = c0 + 8 < n ? scale[c0 + 8] : 0.f;
+#pragma unroll
+    for (int j = 0; j < T::BN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int tok = 8 * j + 2 * t + (e & 1);
+        const int ch = row + 8 * (e >> 1);
+        ys[tok * T::kYStride + ch] =
+            __float2bfloat16(acc[4 * j + e] * (e >> 1 ? s1 : s0));
+      }
+    }
+    consumer_sync(128 * T::C);
+    const bool vec = n % 8 == 0;
+    for (int e = ctid; e < T::BN * (T::BC / 8); e += 128 * T::C) {
+      const int tok = e / (T::BC / 8), c = (e % (T::BC / 8)) * 8;
+      const int r = bm + tok, col = bn + c;
+      if (r >= m || col >= n) continue;
+      const __nv_bfloat16* src = ys + tok * T::kYStride + c;
+      __nv_bfloat16* dst = y + (size_t)r * n + col;
+      if (vec) {
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+      } else {
+        for (int u = 0; u < 8 && col + u < n; ++u) dst[u] = src[u];
+      }
+    }
+  }
+}
+
+// TMA maps of the weights, which do not move: encoded once per (base, N,
+// K, box), so a launch encodes only x's map.
+bool weight_map(CUtensorMap* map, const int8_t* qt, int n, int k,
+                int box_cols, int box_rows) {
+  static std::mutex mu;
+  static std::map<std::tuple<const void*, int, int, int, int>, CUtensorMap>
+      maps;
+  const auto key = std::make_tuple(static_cast<const void*>(qt), n, k,
+                                   box_cols, box_rows);
+  std::lock_guard<std::mutex> lock(mu);
+  const auto found = maps.find(key);
+  if (found != maps.end()) {
+    *map = found->second;
+    return true;
+  }
+  if (!host::encode_int8_rows(map, qt, k, n, box_cols, box_rows)) {
+    return false;
+  }
+  if (maps.size() >= 4096) maps.clear();
+  maps.emplace(key, *map);
+  return true;
+}
+
+template <typename T>
+cudaError_t launch_sm90(const void* x, const int8_t* qt, const float* scale,
+                        void* y, int m, int n, int k, int splits,
                         cudaStream_t stream) {
+  static std::atomic<uint64_t> configured{0};
+  cudaError_t err = host::allow_dynamic_smem(int8_mm_sm90_kernel<T>,
+                                             T::kBytes, &configured);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tm_q, tm_x;
+  if (!weight_map(&tm_q, qt, n, k, T::BK, T::BC) ||
+      !host::encode_bf16_rows(&tm_x, x, k, m, 1, T::BN)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((n + T::BC - 1) / T::BC, (m + T::BN - 1) / T::BN,
+                     splits);
+  cfg.blockDim = dim3(T::kThreads);
+  cfg.dynamicSmemBytes = T::kBytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = splits;
+  cfg.attrs = cluster;
+  cfg.numAttrs = splits > 1 ? 1 : 0;
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(y);
+  void* args[] = {&tm_q, &tm_x, &scale, &out, &m, &n, &k};
+  return cudaLaunchKernelExC(&cfg,
+                             reinterpret_cast<const void*>(
+                                 int8_mm_sm90_kernel<T>),
+                             args);
+}
+
+template <typename T>
+cudaError_t launch_sm90(const void* x, const int8_t* qt, const float* scale,
+                        void* y, int m, int n, int k, cudaStream_t stream) {
+  return launch_sm90<T>(x, qt, scale, y, m, n, k, sm90_splits<T>(m, n, k),
+                        stream);
+}
+
+// What a TMA map describes: K a multiple of 16 (the row stride rule) and
+// at least one 128-deep stage, 16-byte aligned bases.
+bool tma_ok(const void* x, const int8_t* qt, int k) {
+  return k % 16 == 0 && k >= kTmaMinK &&
+         reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(qt) % 16 == 0;
+}
+
+// The general path: one split, 16-byte cp.async where aligned.
+template <typename T>
+cudaError_t launch_general(const void* x, const int8_t* qt,
+                           const float* scale, void* y, int m, int n, int k,
+                           cudaStream_t stream) {
   const bool aligned = k % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(qt) % 16 == 0;
-  return aligned
-             ? launch_tile<T, true>(x, qt, scale, y, ws, m, n, k, splits,
-                                    stream)
-             : launch_tile<T, false>(x, qt, scale, y, ws, m, n, k, splits,
-                                     stream);
+  return aligned ? launch_tile<T, true>(x, qt, scale, y, nullptr, m, n, k,
+                                        1, stream)
+                 : launch_tile<T, false>(x, qt, scale, y, nullptr, m, n, k,
+                                         1, stream);
 }
 
 }  // namespace
 
-// Floats of f32 workspace the bf16 launch for (m, n, k) needs: splits * m *
-// n when it splits K, else 0 (f32 launches: always 0). The wrapper allocates
-// it; the launch recomputes the same plan.
+// Floats of f32 workspace the launch for (m, n, k) in `dtype` needs: 0 for
+// every shape, since K splits are summed inside one launch. The callers'
+// contract keeps the query and the workspace argument.
 extern "C" long long int8_mm_workspace_floats(int dtype, int m, int n,
                                               int k) {
-  if (dtype != 0 || m <= 0 || n <= 0 || k <= 0) return 0;
-  const int splits = plan_splits(m, n, k);
-  return splits > 1 ? (long long)splits * m * n : 0;
+  (void)dtype, (void)m, (void)n, (void)k;
+  return 0;
 }
 
-// dtype: 0 = bf16 x and y (the tensor-core kernel), 1 = f32 (the check
+// dtype: 0 = bf16 x and y (the tensor-core kernels), 1 = f32 (the check
 // kernel). x (m, k), qt (n, k) int8 and y (m, n) are contiguous; scale is
-// (n,) f32; ws holds int8_mm_workspace_floats(dtype, m, n, k) floats, or is
-// null when that is 0. Launches on `stream`, allocates nothing, and returns
-// the first error of the set-up or the launch (0 on success).
+// (n,) f32; ws may be null (int8_mm_workspace_floats is 0). Launches on
+// `stream`, allocates nothing, and returns the first error of the set-up
+// or the launch (0 on success).
 extern "C" int int8_mm_launch(const void* x, const int8_t* qt,
                               const float* scale, void* y, float* ws,
                               int dtype, int m, int n, int k, void* stream) {
+  (void)ws;
   if ((dtype != 0 && dtype != 1) || m <= 0 || n <= 0 || k <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -413,29 +740,22 @@ extern "C" int int8_mm_launch(const void* x, const int8_t* qt,
         k);
     return static_cast<int>(cudaGetLastError());
   }
-  const int splits = plan_splits(m, n, k);
-  if (splits > 1 && ws == nullptr) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   cudaError_t err;
-  switch (config_for(m)) {
-    case 0:
-      err = launch_bf16<Decode>(x, qt, scale, y, ws, m, n, k, splits, st);
-      break;
-    case 1:
-      err = launch_bf16<Verify>(x, qt, scale, y, ws, m, n, k, splits, st);
-      break;
-    default:
-      err = launch_bf16<Prefill>(x, qt, scale, y, ws, m, n, k, splits, st);
+  if (tma_ok(x, qt, k)) {
+    switch (sm90_config(m)) {
+      case 0: err = launch_sm90<D8>(x, qt, scale, y, m, n, k, st); break;
+      case 1: err = launch_sm90<D16>(x, qt, scale, y, m, n, k, st); break;
+      case 2: err = launch_sm90<V128>(x, qt, scale, y, m, n, k, st); break;
+      default: err = launch_sm90<P256>(x, qt, scale, y, m, n, k, st);
+    }
+  } else {
+    switch (config_for(m)) {
+      case 0: err = launch_general<Decode>(x, qt, scale, y, m, n, k, st); break;
+      case 1: err = launch_general<Verify>(x, qt, scale, y, m, n, k, st); break;
+      default: err = launch_general<Prefill>(x, qt, scale, y, m, n, k, st);
+    }
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (splits > 1) {
-    const long long total = (long long)m * n;
-    const int threads = 256;
-    int8_mm_reduce_kernel<<<(unsigned)((total + threads - 1) / threads),
-                            threads, 0, st>>>(
-            ws, scale, static_cast<__nv_bfloat16*>(y), m, n, splits);
-  }
   return static_cast<int>(cudaGetLastError());
 }
 

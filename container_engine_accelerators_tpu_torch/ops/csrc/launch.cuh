@@ -61,6 +61,29 @@ inline bool encode_bf16_rows(CUtensorMap* map, const void* base, int d,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// A rank-3 map (cols, rows, 1) of a contiguous (rows, cols) int8 matrix
+// whose box is one swizzle atom: `box_cols` (64 or 128) columns of
+// `box_rows` rows, with 64- or 128-byte swizzle to match. Needs cols % 16
+// == 0 and a 16-byte aligned base (TMA's stride and address rules);
+// columns past `cols` and rows past `rows` read as zeros.
+inline bool encode_int8_rows(CUtensorMap* map, const void* base, int cols,
+                             int rows, int box_cols, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols,
+                                 (cuuint64_t)rows * cols};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3,
+                const_cast<void*>(base), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                box_cols == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // Lets `kernel` take `bytes` of dynamic shared memory on the current
 // device. `configured` (one per kernel) remembers the devices already set,
 // so the attribute call is made once per device.

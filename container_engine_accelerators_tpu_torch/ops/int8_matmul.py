@@ -86,9 +86,10 @@ def int8_mm(x, qt, scale):
     int8 ``qt`` (N, K) with a float32 ``scale`` of N values. CPU tensors
     take the plain version; CUDA tensors launch the hand-written kernel
     (ops/csrc/int8_mm.cu), which raises on what it does not take: there
-    is no fallback. The launch allocates its output (and, where it splits
-    K, an f32 workspace) from PyTorch's allocator, reads nothing back to
-    the host, and runs on the current stream, so it can be captured."""
+    is no fallback. The launch allocates its output (and any f32
+    workspace the library asks for; none today) from PyTorch's allocator,
+    reads nothing back to the host, and runs on the current stream, so it
+    can be captured."""
     global int8_mm_launches, int8_mm_captured
     _check(x, qt, scale)
     devices = {x.device.type, qt.device.type, scale.device.type}

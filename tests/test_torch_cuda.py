@@ -765,11 +765,20 @@ def test_dense_engine_on_card_matches_dense_generate(gen):
 
 # -- weight-only int8 (W8A16) ---------------------------------------------------
 
-# (M, K, N): decode rows (split K, the 16-row tile), odd M, K not a multiple
-# of 16 (the element-wise loads) and N not a multiple of the 128-wide tile,
-# the verify's 64-row tile, the prefill's 128-row tile.
+# (M, K, N): decode rows, odd M, K not a multiple of 16 (the element-wise
+# loads) and N not a multiple of the 128-wide tile, the verify's and the
+# prefill's tiles. The Hopper kernel's edges: each token tile's last row
+# and the next's first (M 1, 8, 16, 17, 64, 128, 129, 256, 257, 2048), N
+# not a multiple of its 64- or 128-channel tile, K 14336 (a cluster of K
+# splits at M <= 16, and past the verify), K past a 128-deep stage by 16
+# (a stage's second x atom wholly past K), K under one stage (the general
+# path's cp.async loads).
 INT8_SHAPES = [(1, 64, 40), (3, 200, 130), (17, 256, 300), (8, 4096, 1024),
-               (1, 77, 9), (128, 512, 200), (300, 256, 136), (513, 96, 260)]
+               (1, 77, 9), (128, 512, 200), (300, 256, 136), (513, 96, 260),
+               (1, 14336, 4096), (8, 14336, 300), (16, 14336, 1000),
+               (16, 4096, 14336), (17, 144, 300), (64, 1024, 200),
+               (129, 512, 200), (128, 14336, 520), (256, 384, 136),
+               (257, 1024, 520), (2048, 4096, 1000), (9, 112, 72)]
 
 
 def _int8_operands(gen, m, k, n, dtype):
@@ -800,12 +809,15 @@ def test_int8_mm_matches_plain_version(gen, shape, dtype):
                                atol=atol)
 
 
-@pytest.mark.parametrize("shape", [(8, 4096, 1024), (128, 512, 200)],
+@pytest.mark.parametrize("shape", [(8, 4096, 1024), (128, 512, 200),
+                                   (1, 4096, 1024), (1, 14336, 4096),
+                                   (8, 4096, 14336), (128, 4096, 14336)],
                          ids=str)
 def test_int8_mm_replay_is_bit_equal_to_the_eager_launch(gen, shape):
-    """Captured in a CUDA graph (with and without split K), a replay gives
-    the eager launch's output bit for bit: the split-K partials are summed
-    in a fixed order, never by atomics; the capture counts no launch."""
+    """Captured in a CUDA graph (with and without a cluster split of K), a
+    replay gives the eager launch's output bit for bit: the partials are
+    summed in rank order, never by atomics; the capture counts no
+    launch."""
     m, k, n = shape
     x, qt, scale = _int8_operands(gen, m, k, n, torch.bfloat16)
     eager = int8_matmul.int8_mm(x, qt, scale)
@@ -819,6 +831,48 @@ def test_int8_mm_replay_is_bit_equal_to_the_eager_launch(gen, shape):
     graphs.replay("mm")
     torch.cuda.synchronize()
     assert torch.equal(out["y"], eager)
+
+
+@pytest.mark.parametrize("m", [1, 8, 16])
+def test_int8_mm_is_one_kernel_without_workspace_at_decode_rows(gen, m):
+    """At M <= 16 a product splits K inside one launch (a cluster summed in
+    rank order): no workspace, and the profiler sees one kernel, the
+    Hopper one, with no reduce kernel after it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from container_engine_accelerators_tpu_torch.ops import _ext
+
+    k, n = 14336, 4096
+    x, qt, scale = _int8_operands(gen, m, k, n, torch.bfloat16)
+    assert _ext.int8_mm_workspace_floats(torch.bfloat16, m, n, k) == 0
+    int8_matmul.int8_mm(x, qt, scale)  # built and set up outside the window
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        int8_matmul.int8_mm(x, qt, scale)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1, kernels
+    assert "int8_mm_sm90_kernel" in kernels[0], kernels
+    assert not any("reduce" in name for name in kernels), kernels
+
+
+@pytest.mark.parametrize("m", [1, 8, 128, 300])
+def test_int8_mm_unaligned_weight_takes_the_elementwise_path(gen, m):
+    """A qt view one byte past a 16-byte boundary (no TMA map describes
+    it) takes the general path's element-wise loads, within the plain
+    version's tolerance."""
+    k, n = 512, 136
+    x, qt, scale = _int8_operands(gen, m, k, n, torch.bfloat16)
+    buf = torch.empty(n * k + 1, dtype=torch.int8, device="cuda")
+    view = buf[1:].view(n, k)
+    view.copy_(qt)
+    assert view.data_ptr() % 16 and view.is_contiguous()
+    got = int8_matmul.int8_mm(x, view, scale)
+    torch.cuda.synchronize()
+    want = int8_matmul.int8_mm_reference(x, qt, scale)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
+                               atol=1e-3)
 
 
 def test_int8_mm_rejects_what_it_does_not_take(gen):
