@@ -14,7 +14,10 @@ window's CUDA graph captured before ready), with speculative decoding
 (``--speculate ngram|draft``: every batched verify the replay of its
 graph, the flash kernel at per-row bases read from device memory),
 through the dense continuous-batching engine (the default
-``--kv-cache``) and the ``--batch-window-ms`` micro-batcher, serves it
+``--kv-cache``) and the ``--batch-window-ms`` micro-batcher, under
+overload and injected faults (bounded admission with typed 429s,
+deadlines, tenant classes, step retries, drains, a client that hangs
+up), serves it
 again with int8 weights (``--quantize int8``: every projection the
 hand-written W8A16 kernel, eagerly and inside the captured graphs), and
 trains it at full width
@@ -44,7 +47,12 @@ decode chunk against the eager one on the full-width model), serve_spec
 (speculative decoding, ngram, off and draft, on the full-width paged
 engine: every verify a replay, streams held to off's), serve_dense (the
 dense engine behind the server on serve_paged's traffic, then the
-micro-batcher; streams held to ``Model.generate``'s), serve_int8
+micro-batcher; streams held to ``Model.generate``'s), serve_robust
+(overload, a deadline, armed prefill, chunk and verify faults, drains
+of 4 rows, tenant classes and a hang-up on the dense engine and the
+paged ``--speculate ngram`` engine: sheds by reason, retries equal to
+the faults fired, migrations equal to the occupied slots, every served
+token within SERVE_LOGITS_ATOL of its teacher-forced argmax), serve_int8
 (``--quantize int8`` on generate, the dense engine and the speculating
 paged engine; every served token held to the int8 reference), train_grads
 (loss and every gradient through the kernels vs plain attention), train
@@ -58,11 +66,17 @@ import dataclasses
 import gc
 import io
 import json
+import logging
 import math
 import re
+import socket
+import struct
 import subprocess
 import sys
+import threading
 import time
+import urllib.error
+import urllib.request
 
 # NVIDIA H100 SXM data sheet, dense: the bounds below are against these.
 PEAK_BF16_FLOPS = 989e12
@@ -593,13 +607,14 @@ def run_bwd_case(case, torch, attention, _ext, gen):
 
 # (name, M, K, N): Llama-3-8B's layer matrices (wq/wo (4096, 4096), wk/wv
 # (4096, 1024), w1/w3 (4096, 14336), w2 (14336, 4096)) at generate's one
-# decode row, the engines' 8, the B 8 verify's 128 (8 rows × 16) and
-# prefill buckets of 512 and 2048 rows. "main" of the kernels line: the
-# engines' decode's largest product.
+# decode row, the engines' 8, the 16 of the D16 tile, the B 8 verify's
+# 128 (8 rows × 16) and prefill buckets of 512 and 2048 rows. "main" of
+# the kernels line: the engines' decode's largest product.
 INT8_CASES = [
     ("m1_w1", 1, 4096, 14336),
     ("m8_wq", 8, 4096, 4096), ("m8_wk", 8, 4096, 1024),
     ("m8_w1", 8, 4096, 14336), ("m8_w2", 8, 14336, 4096),
+    ("m16_w1", 16, 4096, 14336),
     ("m128_w1", 128, 4096, 14336), ("m128_w2", 128, 14336, 4096),
     ("m512_w1", 512, 4096, 14336), ("m512_w2", 512, 14336, 4096),
     ("m2048_w1", 2048, 4096, 14336), ("m2048_w2", 2048, 14336, 4096),
@@ -609,7 +624,7 @@ INT8_MAIN_CASE = "m8_w1"
 # timed as a CUDA graph of GRAPH_LAUNCHES launches, and held bit-equal to
 # the eager launch when replayed.
 INT8_GRAPH_CASES = ("m1_w1", "m8_wq", "m8_wk", "m8_w1", "m8_w2",
-                    "m128_w1", "m128_w2")
+                    "m16_w1", "m128_w1", "m128_w2")
 # Weight bytes one timed pass cycles through, so that a launch finds its
 # weight in HBM (the 50 MB L2 cannot hold them), as the decode does: it
 # streams 218 MB of layer matrices a layer.
@@ -2012,6 +2027,481 @@ def _serve_batcher(torch, np, serve_cli, attention, model, card):
     return launches, {"prompts": prompts, "outs": outs, "want": want}
 
 
+# serve_robust: the overload burst (distinct 512-token prompts from seed 0,
+# 32 new each, against max_queue 4), and the tenant classes' burst.
+ROBUST_REQUESTS, ROBUST_PROMPT, ROBUST_NEW, ROBUST_QUEUE = 12, 512, 32, 4
+ROBUST_TENANTS = {"a": {"priority": 0, "queue_share": 0.75},
+                  "b": {"priority": 1, "queue_share": 0.25}}
+
+
+def _post_status(port, body, headers=None, timeout=600):
+    """POST /generate: (HTTP status, decoded body), a 429 or 500
+    included."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/generate", data=json.dumps(body).encode(),
+        method="POST", headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _post_all(port, bodies, headers=None):
+    """Every body of ``bodies`` posted at once (a thread each, released
+    together); their (status, body) in order."""
+    start = threading.Barrier(len(bodies))
+
+    def post(i):
+        start.wait()
+        return _post_status(port, bodies[i],
+                            headers=headers[i] if headers else None)
+
+    with concurrent.futures.ThreadPoolExecutor(len(bodies)) as pool:
+        futures = [pool.submit(post, i) for i in range(len(bodies))]
+        return [f.result(timeout=900) for f in futures]
+
+
+@contextlib.contextmanager
+def _robust_server(serve_cli, engine, warmup_mode="lazy"):
+    """``engine`` behind the HTTP server, ready; shut down after."""
+    server, state = serve_cli.start_server(engine, port=0, host="127.0.0.1",
+                                           warmup_mode=warmup_mode)
+    try:
+        serve_cli.wait_ready(state, timeout=900)
+        yield server.server_address[1], state
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.shutdown()
+
+
+@contextlib.contextmanager
+def _held_loop(engine):
+    """The engine loop held by a control call (which no admission bound
+    counts) until the block ends."""
+    release, running = threading.Event(), threading.Event()
+
+    def hold():
+        running.set()
+        release.wait(600)
+
+    holder = threading.Thread(target=lambda: engine.run_on_loop(hold),
+                              daemon=True)
+    holder.start()
+    running.wait(600)
+    try:
+        yield
+    finally:
+        release.set()
+        holder.join(600)
+
+
+def _drain_when_full(engine, rows, seams, out):
+    """Wrap ``engine``'s device ``seams``: at their first call (on the
+    loop thread) with ``rows`` rows decoding after a chunk or verify has
+    run since the wrap, ``engine.drain()``; the targeted count lands in
+    ``out``."""
+    def decoding():
+        return sum(r is not None and r.get("remaining") is not None
+                   for r in engine.occupied)
+
+    ran = engine.n_chunks + engine.spec_verifies
+    for seam in seams:
+        real = getattr(engine, seam)
+
+        def wrapped(*args, _real=real, **kwargs):
+            if "targeted" not in out and \
+                    engine.n_chunks + engine.spec_verifies > ran and \
+                    decoding() == rows:
+                out["targeted"] = engine.drain(reason="serve_robust")
+            return _real(*args, **kwargs)
+
+        setattr(engine, seam, wrapped)
+
+
+def _robust_gaps(torch, tf, model, case, prompts, streams, refs):
+    """Every served token of ``streams`` within SERVE_LOGITS_ATOL of the
+    dense forward's top logit on its own context (``_served_gaps``), and
+    the count of streams equal to their reference."""
+    held = _served_gaps(torch, tf, model, prompts, streams)
+    equal = sum(a == b for a, b in zip(streams, refs))
+    if held["gaps_over_tol"]:
+        fail(f"serve_robust {case}: {held['gaps_over_tol']} served tokens "
+             f"lie {SERVE_LOGITS_ATOL} or more below the dense forward's "
+             f"top logit: {held}")
+    return {"served_tokens": held, "equal_streams": equal,
+            "streams": len(streams), "tol": SERVE_LOGITS_ATOL}
+
+
+def _quantiles(values):
+    if not values:
+        return None
+    v = sorted(values)
+    return {"p50": v[(len(v) - 1) // 2],
+            "p99": v[min(len(v) - 1, math.ceil(0.99 * len(v)) - 1)],
+            "n": len(v)}
+
+
+def serve_robust(torch, np, tf, serve_cli, attention, card, model):
+    """Overload and failure handling on the full-width model, through
+    the HTTP server. The dense engine (8 slots, chunk 32, prefill chunk
+    512, ``max_queue`` 4, ``step_retries`` 1, ``--warmup=all``):
+    ROBUST_REQUESTS distinct 512-token prompts served one by one (their
+    TTFT), then posted at once (429s with ``queue_full``, the served
+    rows' TTFT); a 1 ms deadline posted while a 3000-token prompt
+    prefills in segments (429 ``deadline``); armed prefill and chunk
+    faults on 4 requests (each retried once); a drain with 4 rows
+    decoding; a client that hangs up. Then tenant classes on a second
+    dense engine, and on the paged engine with ``--speculate ngram`` on
+    serve_spec's traffic an armed verify fault and a drain. Every served
+    token is held to the dense forward's top logit within
+    SERVE_LOGITS_ATOL on its own context, and the equal streams are
+    counted against ``Model.generate``'s. Returns the flash kernel's
+    launches."""
+    from container_engine_accelerators_tpu_torch import faults
+    from container_engine_accelerators_tpu_torch.fleet import tenants
+    from container_engine_accelerators_tpu_torch.obs import events
+
+    def lost_s(stream):
+        """Drain to re-prefill first token, per migrated row."""
+        return [e["lost_s"] for e in stream.events("migration_replayed")]
+
+    cfg = model.cfg
+    vocab, n_layers = cfg.vocab_size, cfg.n_layers
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, vocab, ROBUST_PROMPT).tolist()
+               for _ in range(ROBUST_REQUESTS)]
+    long_prompt = rng.integers(0, vocab, 3000).tolist()
+    records = []
+
+    class Capture(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    capture = Capture(level=logging.INFO)
+    serve_log = logging.getLogger("serve_cli")
+    serve_log.addHandler(capture)
+    saved_level = serve_log.level
+    serve_log.setLevel(logging.INFO)
+    rows, streams = {}, {}
+    launches = {}
+
+    def counted(name, engine):
+        """Flash launches outside graphs since ready must be one per
+        layer a prefill call (re-prefills and segments included)."""
+        snap = engine.stats()["n_prefills"]
+        before = attention.flash_fwd_launches
+        return lambda: launches.__setitem__(name, (
+            attention.flash_fwd_launches - before,
+            n_layers * (engine.stats()["n_prefills"] - snap)))
+
+    # The main path: counts at zero, then the three engines' traffic.
+    attention.flash_fwd_launches = 0
+    dense_events = events.EventStream("serve")
+    dense = serve_cli.ContinuousEngine(
+        model, max_slots=8, chunk=32, prefill_chunk=512,
+        max_queue=ROBUST_QUEUE, step_retries=1, events=dense_events)
+    try:
+        with _robust_server(serve_cli, dense, "all") as (port, _):
+            done = counted("dense", dense)
+            # Overload: one by one, then at once.
+            t0 = len(dense.ttft_s)
+            for p in prompts:
+                code, body = _post_status(port, {
+                    "tokens": [p], "max_new_tokens": 1})
+                if code != 200:
+                    fail(f"serve_robust overload: solo request got {code}")
+            solo = {i: t for i, (_, t) in
+                    enumerate(list(dense.ttft_s)[t0:])}
+            t0 = len(dense.ttft_s)
+            t1 = time.perf_counter()
+            results = _post_all(port, [
+                {"tokens": [p], "max_new_tokens": ROBUST_NEW}
+                for p in prompts])
+            burst_s = time.perf_counter() - t1
+            burst_ttft = [t for _, t in list(dense.ttft_s)[t0:]]
+            served = [i for i, (c, _) in enumerate(results) if c == 200]
+            shed = [b.get("shed") for c, b in results if c == 429]
+            for i in served:
+                _check_response(f"serve_robust overload {i}",
+                                results[i][1], prompts[i], ROBUST_NEW, vocab)
+            rows["overload"] = {
+                "max_queue": ROBUST_QUEUE, "requests": ROBUST_REQUESTS,
+                "served": len(served), "shed_queue_full":
+                    shed.count("queue_full"),
+                "other": [c for c, _ in results if c not in (200, 429)],
+                "burst_s": burst_s,
+                "ttft_s": _quantiles(burst_ttft),
+                "solo_ttft_s": _quantiles([solo[i] for i in served]),
+            }
+            if not shed or set(shed) != {"queue_full"} or \
+                    len(served) + len(shed) != ROBUST_REQUESTS:
+                fail(f"serve_robust overload: {rows['overload']}")
+            streams["overload"] = ([prompts[i] for i in served],
+                                   [results[i][1]["tokens"][0]
+                                    for i in served])
+
+            # A 1 ms deadline while a long prompt prefills in segments.
+            segs = []
+            segmenting = threading.Event()
+            prefill_seg = dense._prefill_seg
+
+            def seg_watch(*args, **kwargs):
+                # At the second segment the deadline request is posted,
+                # and this segment starts once it is queued: it waits at
+                # least the segment's time, far more than 1 ms.
+                segs.append(1)
+                if len(segs) == 2:
+                    segmenting.set()
+                    deadline = time.monotonic() + 600
+                    while dense._q.qsize() < 1 and \
+                            time.monotonic() < deadline:
+                        time.sleep(0.001)
+                return prefill_seg(*args, **kwargs)
+
+            dense._prefill_seg = seg_watch
+            with concurrent.futures.ThreadPoolExecutor(1) as pool:
+                long_req = pool.submit(_post_status, port, {
+                    "tokens": [long_prompt], "max_new_tokens": 8})
+                if not segmenting.wait(600):
+                    fail("serve_robust deadline: the long prompt did not "
+                         "prefill in segments")
+                code, body = _post_status(port, {
+                    "tokens": [prompts[0]], "max_new_tokens": 4,
+                    "deadline_s": 0.001})
+                long_code, long_body = long_req.result(600)
+            dense._prefill_seg = prefill_seg
+            rows["deadline"] = {"status": code, "shed": body.get("shed"),
+                                "long_prompt_segments": len(segs),
+                                "long_status": long_code}
+            if (code, body.get("shed"), long_code) != (429, "deadline", 200):
+                fail(f"serve_robust deadline: {rows['deadline']} {body}")
+            _check_response("serve_robust long", long_body, long_prompt, 8,
+                            vocab)
+
+            # Armed faults: the second prefill and the fourth chunk.
+            plan = faults.arm(faults.FaultPlan([
+                {"kind": "collective_timeout", "site": "serving.prefill",
+                 "at": 1, "count": 1},
+                {"kind": "collective_timeout", "site": "serving.chunk",
+                 "at": 3, "count": 1},
+            ]))
+            r0 = int(dense._m_retries.value)
+            try:
+                results = _post_all(port, [
+                    {"tokens": [p], "max_new_tokens": ROBUST_NEW}
+                    for p in prompts[:4]])
+            finally:
+                faults.disarm()
+            fired = len(plan.events.events("fault_injected"))
+            retries = int(dense._m_retries.value) - r0
+            rows["faults_dense"] = {
+                "statuses": [c for c, _ in results], "faults_fired": fired,
+                "step_retries": retries}
+            if any(c != 200 for c, _ in results) or fired != 2 or \
+                    retries != fired:
+                fail(f"serve_robust faults dense: {rows['faults_dense']}")
+            for p, (_, b) in zip(prompts[:4], results):
+                _check_response("serve_robust faults", b, p, ROBUST_NEW,
+                                vocab)
+            streams["faults_dense"] = (prompts[:4], [b["tokens"][0]
+                                                     for _, b in results])
+
+            # Drain with 4 rows decoding.
+            drained = {}
+            _drain_when_full(dense, 4, ["_chunk"], drained)
+            m0 = int(dense._m_migrated.value)
+            results = _post_all(port, [
+                {"tokens": [p], "max_new_tokens": ROBUST_NEW}
+                for p in prompts[4:8]])
+            migrated = int(dense._m_migrated.value) - m0
+            rows["drain_dense"] = {
+                "statuses": [c for c, _ in results],
+                "targeted": drained.get("targeted"), "migrated": migrated,
+                "lost_s": lost_s(dense_events)}
+            if any(c != 200 for c, _ in results) or \
+                    drained.get("targeted") != 4 or migrated != 4:
+                fail(f"serve_robust drain dense: {rows['drain_dense']}")
+            for p, (_, b) in zip(prompts[4:8], results):
+                _check_response("serve_robust drain", b, p, ROBUST_NEW,
+                                vocab)
+            streams["drain_dense"] = (prompts[4:8], [b["tokens"][0]
+                                                     for _, b in results])
+
+            # A client that hangs up before its response.
+            body = json.dumps({"tokens": [prompts[8]],
+                               "max_new_tokens": 8}).encode()
+            with _held_loop(dense):
+                sock = socket.create_connection(("127.0.0.1", port),
+                                                timeout=600)
+                sock.sendall(b"POST /generate HTTP/1.1\r\nHost: x\r\n"
+                             b"Content-Type: application/json\r\n"
+                             b"Content-Length: "
+                             + str(len(body)).encode() + b"\r\n\r\n" + body)
+                deadline = time.monotonic() + 600
+                while dense._q.qsize() < 1:
+                    if time.monotonic() > deadline:
+                        fail("serve_robust hang-up: request not queued")
+                    time.sleep(0.002)
+                sock.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
+                                struct.pack("ii", 1, 0))
+                sock.close()
+            deadline = time.monotonic() + 600
+            while not any("client disconnected" in r for r in records):
+                if time.monotonic() > deadline:
+                    fail("serve_robust hang-up: no disconnect logged")
+                time.sleep(0.01)
+            code, body = _post_status(port, {
+                "tokens": [prompts[9]], "max_new_tokens": 8})
+            rows["hang_up"] = {
+                "next_status": code,
+                "failures_logged": sum("generate failed" in r
+                                       for r in records)}
+            if code != 200 or rows["hang_up"]["failures_logged"]:
+                fail(f"serve_robust hang-up: {rows['hang_up']}")
+            done()
+            graphs = dense.graph_stats()
+        rows["dense_graphs"] = {k: graphs[k] for k in (
+            "graph_captures", "graph_replays", "eager_chunks_on_cuda")}
+        del dense
+        _free(torch)
+
+        # Tenant classes: class b's burst sheds its own share.
+        dense = serve_cli.ContinuousEngine(
+            model, max_slots=8, chunk=32, prefill_chunk=512, max_queue=8,
+            step_retries=1,
+            tenants=tenants.TenantClasses.from_dict(ROBUST_TENANTS))
+        with _robust_server(serve_cli, dense) as (port, _):
+            done = counted("tenants", dense)
+            bodies = [{"tokens": [p], "max_new_tokens": 8}
+                      for p in prompts[:12]]
+            heads = [{"X-Tenant-Class": "a"}] * 4 + \
+                [{"X-Tenant-Class": "b"}] * 8
+            with concurrent.futures.ThreadPoolExecutor(1) as pool:
+                with _held_loop(dense):
+                    burst = pool.submit(_post_all, port, bodies,
+                                        heads)
+                    # Held until every request queued or was shed.
+                    deadline = time.monotonic() + 600
+                    while dense._q.qsize() + int(
+                            dense._m_shed.labels("class_share").value) < 12:
+                        if time.monotonic() > deadline:
+                            fail("serve_robust tenants: the burst did not "
+                                 "land")
+                        time.sleep(0.002)
+                    depths = dense.stats()["tenant_queues"]
+                results = burst.result(600)
+            done()
+        a = [c for c, _ in results[:4]]
+        b_shed = [body for c, body in results[4:] if c == 429]
+        rows["tenants"] = {
+            "max_queue": 8, "classes": ROBUST_TENANTS,
+            "queued_while_held": depths, "a_statuses": a,
+            "b_served": sum(c == 200 for c, _ in results[4:]),
+            "b_shed": [(x.get("shed"), x.get("tenant")) for x in b_shed]}
+        if a != [200] * 4 or not b_shed or any(
+                (x.get("shed"), x.get("tenant")) != ("class_share", "b")
+                for x in b_shed):
+            fail(f"serve_robust tenants: {rows['tenants']}")
+        del dense
+        _free(torch)
+
+        # The paged engine with --speculate ngram: a verify fault, a drain.
+        srng = np.random.default_rng(7)  # serve_spec's prompts
+        spec_prompts = []
+        for _ in range(4):
+            pattern = srng.integers(0, vocab, SPEC_PATTERN)
+            spec_prompts.append(
+                np.tile(pattern, SPEC_PROMPT // SPEC_PATTERN).tolist())
+        paged = serve_cli.ContinuousEngine(
+            model, max_slots=8, chunk=32, prefill_chunk=512,
+            kv_block_size=16, kv_cache="paged", speculate="ngram",
+            max_queue=ROBUST_QUEUE, step_retries=1,
+            events=events.EventStream("serve"))
+        # Warmed before ready: a verify graph's capture runs the flash
+        # kernel eagerly, outside the counted prefills.
+        with _robust_server(serve_cli, paged, "all") as (port, _):
+            done = counted("paged", paged)
+            spec_bodies = [{"tokens": [p], "max_new_tokens": SPEC_NEW}
+                           for p in spec_prompts]
+            plan = faults.arm(faults.FaultPlan([
+                {"kind": "collective_timeout", "site": "serving.verify",
+                 "at": 1, "count": 1}]))
+            r0 = int(paged._m_retries.value)
+            try:
+                results = _post_all(port, spec_bodies)
+            finally:
+                faults.disarm()
+            fired = len(plan.events.events("fault_injected"))
+            retries = int(paged._m_retries.value) - r0
+            rows["faults_paged_ngram"] = {
+                "statuses": [c for c, _ in results], "faults_fired": fired,
+                "step_retries": retries,
+                "verifies": paged.stats()["spec_verifies"]}
+            if any(c != 200 for c, _ in results) or fired != 1 or \
+                    retries != fired:
+                fail(f"serve_robust faults paged: "
+                     f"{rows['faults_paged_ngram']}")
+            for p, (_, b) in zip(spec_prompts, results):
+                _check_response("serve_robust faults paged", b, p, SPEC_NEW,
+                                vocab)
+            streams["faults_paged_ngram"] = (
+                spec_prompts, [b["tokens"][0] for _, b in results])
+            drained = {}
+            _drain_when_full(paged, 4, ["_paged_chunk", "_paged_verify"],
+                             drained)
+            m0 = int(paged._m_migrated.value)
+            results = _post_all(port, spec_bodies)
+            migrated = int(paged._m_migrated.value) - m0
+            rows["drain_paged_ngram"] = {
+                "statuses": [c for c, _ in results],
+                "targeted": drained.get("targeted"), "migrated": migrated,
+                "lost_s": lost_s(paged.events)}
+            if any(c != 200 for c, _ in results) or \
+                    drained.get("targeted") != 4 or migrated != 4:
+                fail(f"serve_robust drain paged: "
+                     f"{rows['drain_paged_ngram']}")
+            for p, (_, b) in zip(spec_prompts, results):
+                _check_response("serve_robust drain paged", b, p, SPEC_NEW,
+                                vocab)
+            streams["drain_paged_ngram"] = (
+                spec_prompts, [b["tokens"][0] for _, b in results])
+            done()
+            graphs = paged.graph_stats()
+        rows["paged_graphs"] = {k: graphs[k] for k in (
+            "graph_captures", "graph_replays", "eager_chunks_on_cuda",
+            "verify_graph_replays", "eager_verifies_on_cuda")}
+        del paged
+        _free(torch)
+    finally:
+        serve_log.removeHandler(capture)
+        serve_log.setLevel(saved_level)
+    total = attention.flash_fwd_launches
+    rows["flash_launches"] = {"total": total, "by_engine": launches}
+    if any(got != want for got, want in launches.values()) or \
+            rows["dense_graphs"]["eager_chunks_on_cuda"] or \
+            rows["paged_graphs"]["eager_chunks_on_cuda"] or \
+            rows["paged_graphs"]["eager_verifies_on_cuda"]:
+        fail(f"serve_robust: a prefill missed the kernel or a chunk or "
+             f"verify ran eagerly on the card: {rows}")
+
+    # The streams, held after the traffic (these forwards run the kernel
+    # too, outside the counted path).
+    refs = {}
+    for ps, outs in streams.values():
+        for p, out in zip(ps, outs):
+            if tuple(p) not in refs:
+                refs[tuple(p)] = model.generate([p], len(out) - len(p))[0]
+    for case, (ps, outs) in streams.items():
+        rows[case]["held"] = _robust_gaps(
+            torch, tf, model, case, ps, outs, [refs[tuple(p)] for p in ps])
+    for name, row in rows.items():
+        emit({"phase": "serve_robust", "case": name, **card, **(
+            row if isinstance(row, dict) else {"value": row})})
+    return total
+
+
 @contextlib.contextmanager
 def plain_int8(int8_matmul):
     """Inside the block, every int8 projection of the model (which
@@ -2490,6 +2980,9 @@ def main():
                                model, int8_matmul)
     dense_launches, bf16["dense"] = serve_dense(
         torch, np, tf, serve_cli, attention, card, model)
+    _free(torch)
+    robust_launches = serve_robust(torch, np, tf, serve_cli, attention,
+                                   card, model)
     del model
     int8_launches = serve_int8(torch, np, tf, serve_cli, attention,
                                int8_matmul, q8, card, bf16)
@@ -2514,11 +3007,12 @@ def main():
             "source": src + "flash_fwd.cu",
             "replaces": replaces + "136",
             "launches": serve_launches + paged_launches + spec_launches
-            + dense_launches + fwd_train,
+            + dense_launches + robust_launches + fwd_train,
             "launches_by_path": {"serve": serve_launches,
                                  "serve_paged": paged_launches,
                                  "serve_spec": spec_launches,
                                  "serve_dense": dense_launches,
+                                 "serve_robust": robust_launches,
                                  "train": fwd_train},
             "max_abs_err": main_row["max_abs_err_out"],
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],

@@ -48,22 +48,40 @@ Endpoints (the same JSON as the JAX server):
   GET  /healthz    200 once the warmup decode succeeded, 503 before,
                    500 if it failed; an engine adds queue_depth,
                    occupied_slots and max_slots, a paged one also
-                   prefix_hit_ratio and free_blocks
+                   prefix_hit_ratio and free_blocks, one with
+                   --tenant-classes also tenant_queues (queued rows
+                   per class)
   POST /generate   {"tokens": [[...]], "max_new_tokens": N,
                     "temperature": 0.0, "top_k": 0, "top_p": 1.0,
-                    "seed": 0}   (temperature 0 = greedy)
+                    "seed": 0, "deadline_s": D, "tenant": "..."}
+                   (temperature 0 = greedy; deadline_s and tenant,
+                   else the X-Tenant-Class header, reach an engine
+                   only)
                    → {"tokens": [[...]], "latency_s": ...,
                       "sampler": {"temperature", "top_k", "top_p"}}
+                   → 429 {"error", "shed": reason[, "tenant"]} when an
+                      engine sheds the request (queue_full, deadline,
+                      quota, class_share); 500 on any other error
 
 Sampler params snap to the JAX server's whitelist grids
 (sanitize_sampler). Sampled requests draw from a ``torch.Generator``
 seeded with the request's ``seed``: reproducible here, but not the
 tokens the JAX server samples for the same seed.
 
-Not ported yet (ROADMAP.md): drains and KV handoff, the multi-host
-link, tensor parallelism, tenant classes, admission sheds
-and deadlines, step retries and fault plans, and the obs surfaces
-(/metrics, traces, event logs, chip accounting).
+The engine's overload and failure handling is the JAX engine's: a
+bounded admission queue (``--max-queue``), per-request deadlines,
+tenant classes (``--tenant-classes``: queue shares and token-rate
+quotas), step retries with jittered backoff (``--step-retries``),
+drains that migrate in-flight rows to fresh slots (``drain``,
+``faults.reactor.ServingDrainer``), and an armed fault plan
+(``--fault-plan``) whose faults fire before the prefill, chunk and
+verify dispatches.
+
+Not ported yet (ROADMAP.md): KV handoff, the multi-host link, tensor
+parallelism, the fleet reactor, and the obs surfaces (/metrics with
+the serving SLO, traces, chip accounting). ``--event-log`` writes the
+engine's structured events (sheds, retries, migrations) and the fault
+plan's.
 
   python -m container_engine_accelerators_tpu_torch.models.serve_cli \\
       --preset llama3-8b --port 8000
@@ -83,9 +101,11 @@ and deadlines, step retries and fault plans, and the obs surfaces
 import argparse
 import collections
 import functools
+import itertools
 import json
 import logging
 import queue
+import random
 import sys
 import threading
 import time
@@ -95,7 +115,11 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
+from container_engine_accelerators_tpu_torch import faults
 from container_engine_accelerators_tpu_torch import spec as spec_pkg
+from container_engine_accelerators_tpu_torch.fleet import (
+    tenants as fleet_tenants,
+)
 from container_engine_accelerators_tpu_torch.kvcache.blockpool import (
     PoolExhausted,
 )
@@ -105,6 +129,8 @@ from container_engine_accelerators_tpu_torch.kvcache.manager import (
 from container_engine_accelerators_tpu_torch.models import quantization as q8
 from container_engine_accelerators_tpu_torch.models import serving_graphs
 from container_engine_accelerators_tpu_torch.models import transformer as tf
+from container_engine_accelerators_tpu_torch.obs import events as obs_events
+from container_engine_accelerators_tpu_torch.obs import metrics as obs_metrics
 from container_engine_accelerators_tpu_torch.ops import paged_attention as pa
 from container_engine_accelerators_tpu_torch.warmstart import (
     warmup as ws_warmup,
@@ -117,6 +143,58 @@ log = logging.getLogger("serve_cli")
 MAX_BATCH = 8
 # --quantize's choices, the JAX server's.
 QUANTIZE_MODES = ("none", "int8")
+# The JAX server's bucket bounds of tpu_serving_queue_wait_seconds.
+QUEUE_WAIT_BUCKETS = (0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 10.0,
+                      30.0)
+
+
+# Typed sheds, the JAX server's: the HTTP layer maps each to a 429
+# carrying its ``reason``.
+class ShedError(RuntimeError):
+    """Typed load-shedding rejection: the server chose not to take the
+    request (overload or expired deadline) — retriable by the client,
+    categorically different from a failed decode. The HTTP layer maps it
+    to 429; ``reason`` is the ``tpu_serving_requests_shed_total`` label."""
+
+    reason = "shed"
+
+
+class QueueFull(ShedError):
+    """The bounded admission queue is at capacity (``max_queue``)."""
+
+    reason = "queue_full"
+
+
+class DeadlineExceeded(ShedError):
+    """The request's deadline expired before it won a slot."""
+
+    reason = "deadline"
+
+
+class QuotaExceeded(ShedError):
+    """The request's tenant class outran its token-rate quota
+    (``--tenant-classes`` ``rate_tokens_per_s``): an admission-policy
+    shed, not an overload signal. ``tenant`` names the shedding
+    class."""
+
+    reason = "quota"
+
+    def __init__(self, message, tenant="default"):
+        super().__init__(message)
+        self.tenant = tenant
+
+
+class ClassShareExceeded(ShedError):
+    """The request's tenant class filled its weighted share of the
+    bounded admission queue (``queue_share`` x ``--max-queue``): the
+    burst sheds itself while other classes' headroom survives. Policy,
+    not overload (see :class:`QuotaExceeded`)."""
+
+    reason = "class_share"
+
+    def __init__(self, message, tenant="default"):
+        super().__init__(message)
+        self.tenant = tenant
 
 
 # Sampler whitelists, copied from the JAX server so both snap client
@@ -470,17 +548,46 @@ class ContinuousEngine:
 
     The cache, ``last_dev`` and the graphs' static buffers keep their
     addresses for the engine's life (the captured graphs hold them). A
-    call that raises at dispatch fails its rows and keeps the cache; a
-    device error that surfaces at a sync fails the rows in flight and
-    zeroes the cache in place. The port has no step retries.
+    device call that raises at dispatch is retried up to
+    ``step_retries`` times with jittered backoff (the sleep on the loop
+    thread, as in JAX), from the state it started from: page allocation
+    and copy-on-write run once before the retries, host state advances
+    only after a call succeeds, and a decode chunk is not retried once
+    one of its steps was launched (each advances the step state in
+    place). A call that still raises fails its rows and keeps the cache;
+    a device error that surfaces at a sync fails the rows in flight and
+    zeroes the cache in place, and is never retried.
+
+    Overload and failure handling, the JAX engine's: ``max_queue``
+    bounds the admission queue (0 = unbounded; beyond it ``generate``
+    sheds with :class:`QueueFull`), ``deadline_s`` is the default
+    per-request admission deadline (0 = none; a row still queued past it
+    is shed with :class:`DeadlineExceeded` at admission, never once it
+    has decode state), ``tenants`` (a ``fleet.tenants.TenantClasses``)
+    makes the queue a stride-scheduled ``TenantQueue`` with per-class
+    queue shares and token-rate quotas, and :meth:`drain` migrates
+    in-flight rows off their slots to re-prefill their context on fresh
+    ones. The sheds, retries, migrations and queue waits are instruments
+    on ``registry`` (a fresh ``obs.metrics.Registry`` when None) under
+    the JAX engine's names; ``events`` (an ``obs.events.EventStream``)
+    receives ``request_shed``, ``tenant_shed``, ``step_retry``,
+    ``request_migrated`` and ``migration_replayed`` records. Control
+    calls (:meth:`run_on_loop`) have a queue of their own, outside the
+    bound and the tenant classes.
 
     Greedy only: sampled requests go to the wrapped ``Model.generate``.
     """
 
+    # Process-wide engine ordinal: each engine numbers its requests from
+    # a block of its own, as in JAX.
+    _engine_seq = itertools.count(0)
+
     def __init__(self, model, max_slots=MAX_BATCH, chunk=32,
                  prefill_chunk=512, start_loop=True, kv_cache="dense",
                  kv_block_size=16, kv_blocks=0, speculate="off",
-                 speculate_k=8, spec_proposer=None):
+                 speculate_k=8, spec_proposer=None, max_queue=0,
+                 deadline_s=0.0, step_retries=0, retry_backoff_s=0.05,
+                 registry=None, events=None, tenants=None):
         if max_slots < 1 or chunk < 1 or prefill_chunk < 1:
             raise ValueError(
                 f"max_slots ({max_slots}), chunk ({chunk}) and "
@@ -564,9 +671,57 @@ class ContinuousEngine:
         self.positions = np.zeros(max_slots, np.int32)
         self.last_tok = np.zeros(max_slots, np.int32)
         self.occupied = [None] * max_slots  # slot -> in-flight row dict
-        self._q = queue.Queue()
-        # Plain counters in place of the JAX engine's metrics registry
-        # (engine-loop writer; readers take GIL-atomic snapshots).
+        self.tenants = tenants
+        self._q = (fleet_tenants.TenantQueue(tenants) if tenants is not None
+                   else queue.Queue())
+        # run_on_loop's calls: run by the loop before admission, never
+        # counted against max_queue or a tenant class.
+        self._calls = queue.Queue()
+        self.max_queue = max_queue
+        self.deadline_s = deadline_s
+        self.step_retries = step_retries
+        self.retry_backoff_s = retry_backoff_s
+        # Private seeded RNG: backoff jitter must not consume the global
+        # random stream.
+        self._rng = random.Random(0)
+        # drain() requests land here from any thread; the loop applies
+        # them between iterations (slot state has one writer).
+        self._drain_lock = threading.Lock()
+        self._drain_requests = []
+        self._rid = itertools.count(
+            1 + 1_000_000 * next(ContinuousEngine._engine_seq))
+        self.events = events
+        reg = registry if registry is not None else obs_metrics.Registry()
+        self.registry = reg
+        self._m_queue_wait = obs_metrics.Histogram(
+            "tpu_serving_queue_wait_seconds",
+            "Enqueue -> slot-admission wait", buckets=QUEUE_WAIT_BUCKETS,
+            registry=reg)
+        self._m_shed = obs_metrics.Counter(
+            "tpu_serving_requests_shed_total",
+            "Requests shed instead of served, by reason "
+            "(queue_full: bounded admission queue at capacity; "
+            "deadline: expired before winning a slot)",
+            ["reason"], registry=reg)
+        self._m_migrated = obs_metrics.Counter(
+            "tpu_serving_requests_migrated_total",
+            "In-flight requests drained off their slot and re-prefilled "
+            "on a fresh one (chip went Unhealthy mid-serve)",
+            registry=reg)
+        self._m_retries = obs_metrics.Counter(
+            "tpu_serving_step_retries_total",
+            "Transient prefill/decode device failures retried with "
+            "jittered backoff", registry=reg)
+        if tenants is not None:
+            self._m_tenant_shed = obs_metrics.Counter(
+                "tpu_serving_tenant_shed_total",
+                "Requests shed by per-tenant admission policy, by "
+                "tenant class and reason (class_share: weighted queue "
+                "slice exhausted; quota: token-rate bucket outrun)",
+                ["tenant_class", "reason"], registry=reg)
+        # Plain counters in place of the rest of the JAX engine's
+        # instruments (engine-loop writer; readers take GIL-atomic
+        # snapshots).
         # t_*_dispatch_s: host wall inside the device calls (enqueueing
         # the work); t_*_wait_s: the syncs' waits (deferred on a paged
         # engine); t_chunk_device_s (CUDA only): event-timed device span
@@ -652,11 +807,32 @@ class ContinuousEngine:
 
     # -- public surface -------------------------------------------------------
 
+    def _shed_tenant(self, exc, tenant_class, rows):
+        """Account one tenant-policy shed (quota / class share) and raise
+        it: the per-class counters move and a ``tenant_shed`` event lands
+        on the stream, but no ``request_shed`` record (that one reports
+        engine-wide overload only)."""
+        self._m_shed.labels(exc.reason).inc(rows)
+        self._m_tenant_shed.labels(tenant_class, exc.reason).inc(rows)
+        if self.events is not None:
+            self.events.emit(
+                "tenant_shed", severity="warning",
+                tenant_class=tenant_class, reason=exc.reason, rows=rows,
+            )
+        raise exc
+
     def generate(self, tokens, max_new_tokens, temperature=0.0, top_k=0,
-                 top_p=1.0, seed=0):
+                 top_p=1.0, seed=0, deadline_s=None, tenant=None):
         """Greedy rows join the engine and block until they retire; a
         sampled request goes to the wrapped model on its own. Returns
-        ``[prompt + generated]`` per row."""
+        ``[prompt + generated]`` per row.
+
+        Admission, in the JAX engine's order: the tenant class's queue
+        share (:class:`ClassShareExceeded`), the ``max_queue`` watermark
+        (:class:`QueueFull`), the class's token-rate quota
+        (:class:`QuotaExceeded`); each sheds the whole request before
+        any row is queued. ``deadline_s`` (else the engine's) sets the
+        rows' admission deadline; ``tenant`` names their class."""
         temperature, top_k, top_p = sanitize_sampler(
             temperature, top_k, top_p, self.cfg.vocab_size
         )
@@ -675,6 +851,44 @@ class ContinuousEngine:
             )
         if self._stop.is_set():
             raise RuntimeError("engine is shut down")
+        tcls = None
+        if self.tenants is not None:
+            tcls = self.tenants.resolve(tenant)
+            # The class's share of the bounded queue first; the quota
+            # last, so only work that passes every other gate consumes
+            # bucket tokens.
+            if self.max_queue:
+                bound = max(1, int(tcls.queue_share * self.max_queue))
+                if self._q.depth(tcls.name) + len(tokens) > bound:
+                    self._shed_tenant(ClassShareExceeded(
+                        f"tenant class {tcls.name} queue share full "
+                        f"({self._q.depth(tcls.name)} waiting, share "
+                        f"bound {bound}); retry with backoff",
+                        tenant=tcls.name,
+                    ), tcls.name, len(tokens))
+        # A watermark, not an exact cap: qsize is approximate across
+        # racing handlers.
+        if self.max_queue and self._q.qsize() + len(tokens) > self.max_queue:
+            self._m_shed.labels("queue_full").inc(len(tokens))
+            if self.events is not None:
+                self.events.emit(
+                    "request_shed", severity="warning",
+                    reason="queue_full", rows=len(tokens),
+                    queue_depth=self._q.qsize(),
+                )
+            raise QueueFull(
+                f"admission queue full ({self._q.qsize()} waiting, "
+                f"bound {self.max_queue}); retry with backoff"
+            )
+        if tcls is not None and not self.tenants.try_consume(
+            tcls.name, len(tokens) * int(max_new_tokens)
+        ):
+            self._shed_tenant(QuotaExceeded(
+                f"tenant class {tcls.name} outran its token-rate "
+                f"quota; retry with backoff", tenant=tcls.name,
+            ), tcls.name, len(tokens))
+        if deadline_s is None:
+            deadline_s = self.deadline_s
         t_enq = time.perf_counter()
         rows = [
             {
@@ -684,7 +898,10 @@ class ContinuousEngine:
                 "finish_step": None,
                 "event": threading.Event(),
                 "err": None,
+                "rid": next(self._rid),
                 "t_enq": t_enq,
+                "deadline": (t_enq + deadline_s) if deadline_s else None,
+                "tenant": tcls.name if tcls is not None else None,
             }
             for r in tokens
         ]
@@ -713,7 +930,10 @@ class ContinuousEngine:
             "t_chunk_s": self.t_chunk_dispatch_s + self.t_chunk_wait_s,
             "t_idle_s": self.t_idle_s,
             "occupied_steps": self.occupied_steps,
-            "tenant_queues": {},
+            # Queued rows per tenant class ({} without tenant classes).
+            "tenant_queues": (
+                self._q.depths() if self.tenants is not None else {}
+            ),
         }
         if self.spec_proposer is not None:
             out.update(spec_proposed=self.spec_proposed,
@@ -762,19 +982,40 @@ class ContinuousEngine:
         """Run ``fn()`` on the engine-loop thread between iterations
         (after the pending syncs) and return its result; captures and warm
         tasks go there, never beside the loop's own device calls. Runs it
-        here when the engine has no loop thread, or this is it. Like a
-        request, it waits for a free slot."""
+        here when the engine has no loop thread, or this is it. The call
+        waits in a queue of its own, which the loop serves before it
+        admits requests: it never counts against ``max_queue`` or a
+        tenant class."""
         if self._thread is None or self._thread is threading.current_thread():
             return fn()
         if self._stop.is_set():
             raise RuntimeError("engine is shut down")
         call = {"call": fn, "out": None, "err": None,
                 "event": threading.Event()}
-        self._q.put(call)
+        self._calls.put(call)
         call["event"].wait()
         if call["err"] is not None:
             raise call["err"]
         return call["out"]
+
+    def drain(self, slots=None, reason="unhealthy"):
+        """Migrate in-flight requests off their slots (every occupied
+        slot, or those in ``slots``), the JAX engine's ``drain``: each
+        occupant's decode state is abandoned, the row re-enters the
+        admission queue, and its prompt + generated tokens re-prefill
+        into a fresh slot where decoding continues. Thread-safe: the loop
+        applies the drain at its next iteration (``_apply_drains``).
+        Returns the occupied slots targeted now (advisory: a row may
+        retire before the drain lands)."""
+        targeted = sum(
+            1 for i, r in enumerate(self.occupied)
+            if r is not None and (slots is None or i in slots)
+        )
+        with self._drain_lock:
+            self._drain_requests.append(
+                (None if slots is None else set(slots), reason)
+            )
+        return targeted
 
     def shutdown(self):
         """Stop the engine loop and fail whatever is still queued or in
@@ -790,13 +1031,14 @@ class ContinuousEngine:
         for i, row in enumerate(self.occupied):
             if row is not None:
                 fail_row(row, i, cause, "serving")
-        while True:
-            try:
-                row = self._q.get_nowait()
-            except queue.Empty:
-                break
-            row["err"] = cause
-            row["event"].set()
+        for q in (self._calls, self._q):
+            while True:
+                try:
+                    row = q.get_nowait()
+                except queue.Empty:
+                    break
+                row["err"] = cause
+                row["event"].set()
 
     # -- host <-> device ------------------------------------------------------
 
@@ -840,6 +1082,127 @@ class ContinuousEngine:
     def _free_slots(self):
         return [i for i, r in enumerate(self.occupied) if r is None]
 
+    def _shed(self, row, exc):
+        """Reject ``row`` with a typed shed (admission-time policy)."""
+        self._m_shed.labels(exc.reason).inc()
+        if self.events is not None:
+            self.events.emit(
+                "request_shed", severity="warning", reason=exc.reason,
+                rid=row["rid"],
+            )
+        row["err"] = exc
+        row["event"].set()
+
+    def _admission_open(self, row):
+        """Admission's common head (the JAX ``_admit``'s): shed a row
+        that waited out its deadline in the queue, unless it has decode
+        state already (a migrated row: its work is paid for), and
+        observe a first admission's queue wait. False when shed."""
+        now = time.perf_counter()
+        if row.get("deadline") is not None and "generated" not in row \
+                and now > row["deadline"]:
+            self._shed(row, DeadlineExceeded(
+                f"deadline expired after {now - row['t_enq']:.3f}s in "
+                f"queue"
+            ))
+            return False
+        if "t_admit" not in row:
+            self._m_queue_wait.observe(now - row["t_enq"])
+            row["t_admit"] = now
+        return True
+
+    def _backoff_delay(self, attempt):
+        """Jittered exponential backoff between step retries (full
+        jitter), the JAX engine's; returned so the ``step_retry`` event
+        can carry it."""
+        delay = self.retry_backoff_s * (2 ** attempt)
+        return delay * (0.5 + self._rng.random() / 2)
+
+    def _retrying(self, phase, call, launched=None, **attrs):
+        """``call()`` with up to ``step_retries`` retries: each failed
+        attempt bumps ``tpu_serving_step_retries_total``, emits
+        ``step_retry`` (``phase``, ``attempt``, ``backoff_s`` and
+        ``attrs``) and sleeps the backoff on the loop thread, as in JAX.
+        ``launched()`` (optional) counts the call's launches: an attempt
+        that raised after it moved left state advanced in place and is
+        not retried. Raises the last attempt's error."""
+        attempt = 0
+        while True:
+            mark = launched() if launched is not None else None
+            try:
+                return call()
+            except Exception as e:  # noqa: BLE001 - retried or re-raised
+                if attempt >= self.step_retries or (
+                        launched is not None and launched() != mark):
+                    raise
+                self._m_retries.inc()
+                delay = self._backoff_delay(attempt)
+                if self.events is not None:
+                    self.events.emit(
+                        "step_retry", severity="warning", phase=phase,
+                        attempt=attempt + 1, error=str(e),
+                        backoff_s=round(delay, 6), **attrs,
+                    )
+                time.sleep(delay)
+                attempt += 1
+
+    def _run_calls(self):
+        """Run every queued ``run_on_loop`` call (loop thread)."""
+        while True:
+            try:
+                call = self._calls.get_nowait()
+            except queue.Empty:
+                return
+            self._run_call(call)
+
+    def _apply_drains(self):
+        """The loop's half of :meth:`drain`: free the targeted slots and
+        re-queue their occupants for re-prefill of prompt + generated. A
+        paged slot's blocks go back to the pool (no radix insert) and the
+        row's bumped sync generation voids its records still in flight
+        (a verify's, a retire marker's); its speculation state goes with
+        the slot."""
+        with self._drain_lock:
+            requests, self._drain_requests = self._drain_requests, []
+        for slots, reason in requests:
+            for i, row in enumerate(self.occupied):
+                if row is None or (slots is not None and i not in slots):
+                    continue
+                self.occupied[i] = None
+                self.positions[i] = 0
+                self.last_tok[i] = 0
+                # A mid-flight chunked prefill restarts from offset 0 on
+                # the new slot.
+                row.pop("pending", None)
+                row.pop("prefill_offset", None)
+                row.pop("remaining", None)
+                if self.kv is not None:
+                    self.kv.drop(self.kv.release(i))
+                    row["_sync_gen"] = row.get("_sync_gen", 0) + 1
+                    row.pop("ctx", None)
+                    row.pop("n_generated", None)
+                    self._drop_spec(i, row)
+                row["migrated_at"] = time.perf_counter()
+                self._m_migrated.inc()
+                if self.events is not None:
+                    self.events.emit(
+                        "request_migrated", severity="warning",
+                        rid=row["rid"], slot=i, reason=reason,
+                        generated=len(row.get("generated", [])),
+                    )
+                self._q.put(row)
+
+    def _note_migration_replayed(self, row, slot):
+        """A migrated row's re-prefill landed its first token: emit
+        ``migration_replayed`` with the seconds since the drain
+        (``lost_s``)."""
+        if "migrated_at" not in row:
+            return
+        lost = time.perf_counter() - row.pop("migrated_at")
+        if self.events is not None:
+            self.events.emit("migration_replayed", rid=row["rid"],
+                             slot=slot, lost_s=round(lost, 6))
+
     # -- dense engine: the synchronous host loop ------------------------------
     #
     # The JAX dense loop: every device call is followed by its host sync
@@ -847,27 +1210,33 @@ class ContinuousEngine:
     # paged-engine feature). Host state (positions, last tokens) advances
     # from what each sync reads back.
 
-    def _dense_call(self, rows, phase, dispatch, chunk=False):
+    def _dense_call(self, targets, phase, dispatch, step, chunk=False,
+                    launched=None, **attrs):
         """One device call of the dense loop and its sync. ``dispatch()``
         enqueues the call and returns the device tensor to read back, or
         None; ``chunk`` charges its time to the chunk timers, else to the
-        prefill ones. Returns (ok, the tensor's host values as a numpy
-        array, or None). A call that raises at dispatch fails ``rows`` ((slot, row)
-        pairs) and keeps the cache: the rows' own cache entries are all it
-        may have written. An error that surfaces at the sync resets the
+        prefill ones. The dispatch and its read-back are retried as
+        ``step`` (``_retrying``, with ``launched`` and ``attrs``).
+        Returns (ok, the tensor's host values as a numpy array, or None).
+        A call that still raises at dispatch fails ``targets`` ((slot,
+        row) pairs) and keeps the cache: the rows' own cache entries are
+        all it may have written. An error that surfaces at the sync resets the
         engine (``_reset_dense``), which fails them: the device may have
         written anything."""
+
+        def call():
+            out = dispatch()
+            if out is None:
+                return None, self._timing_event()
+            return self._to_host(out)
+
         t0 = time.perf_counter()
         try:
             start = self._timing_event() if chunk else None
-            out = dispatch()
-            if out is None:
-                host, event = None, self._timing_event()
-            else:
-                host, event = self._to_host(out)
+            host, event = self._retrying(step, call, launched, **attrs)
         except Exception as e:  # noqa: BLE001 - fail the rows, keep serving
             log.exception("%s failed", phase)
-            for slot, row in rows:
+            for slot, row in targets:
                 self._fail_row(row, slot, e, phase)
             return False, None
         t1 = time.perf_counter()
@@ -877,7 +1246,7 @@ class ContinuousEngine:
             value = None if host is None else host.numpy()
         except Exception as e:  # noqa: BLE001 - an async device error
             log.exception("%s sync failed", phase)
-            self._reset_dense(e, rows, f"{phase} sync")
+            self._reset_dense(e, targets, f"{phase} sync")
             return False, None
         t2 = time.perf_counter()
         if chunk:
@@ -930,8 +1299,10 @@ class ContinuousEngine:
         """Dense admission: a context of at most ``prefill_chunk`` tokens
         prefills now, in one call at its length bucket; a longer one
         enters the slot prefilling (``remaining`` None), and the loop
-        advances it one segment an iteration (``_advance_prefill``)."""
-        row.setdefault("t_admit", time.perf_counter())
+        advances it one segment an iteration (``_advance_prefill``). The
+        context is prompt + generated: a migrated row's re-prefill."""
+        if not self._admission_open(row):
+            return
         ctx = row["prompt"] + row.get("generated", [])
         if len(ctx) > self.prefill_chunk:
             row["pending"] = np.asarray(ctx, np.int64)
@@ -944,11 +1315,16 @@ class ContinuousEngine:
         padded = np.zeros((1, bucket), np.int64)
         padded[0, :len(ctx)] = ctx
         self.occupied[slot] = row
-        ok, first = self._dense_call(
-            [(slot, row)], "prefill",
-            lambda: self._prefill(self.model.model, self.cache,
-                                  self._to_device(padded), len(ctx), slot),
-        )
+
+        def dispatch():
+            # The armed plan's fault fires before the dispatch, so it is
+            # always retriable (a free None check when disarmed).
+            faults.fire("serving.prefill", slot=slot)
+            return self._prefill(self.model.model, self.cache,
+                                 self._to_device(padded), len(ctx), slot)
+
+        ok, first = self._dense_call([(slot, row)], "prefill", dispatch,
+                                     "prefill", rid=row["rid"])
         if ok:
             self.n_prefills += 1
             self._first_token(slot, row, len(ctx), int(first))
@@ -973,7 +1349,7 @@ class ContinuousEngine:
             lambda: self._prefill_seg(
                 self.model.model, self.cache, self._to_device(seg), off,
                 slot, total - 1, window=window, want_logits=last,
-            ),
+            ), "prefill", rid=row["rid"],
         )
         if not ok:
             return
@@ -988,6 +1364,7 @@ class ContinuousEngine:
         ``ctx_len``, or retires when that token was the budget."""
         self.positions[slot] = ctx_len
         self.last_tok[slot] = tok
+        self._note_migration_replayed(row, slot)
         row.setdefault("generated", []).append(tok)
         row["remaining"] = row["max_new"] - len(row["generated"])
         if "t_first" not in row:
@@ -1019,6 +1396,7 @@ class ContinuousEngine:
         graphs = self.chunk_graphs.graphs
 
         def dispatch():
+            faults.fire("serving.chunk", rows=len(occupied))
             replays = graphs.replays
             toks = self._chunk(self.last_tok, self.positions, active,
                                steps=steps, window=window,
@@ -1030,7 +1408,8 @@ class ContinuousEngine:
 
         ok, toks = self._dense_call(
             [(i, self.occupied[i]) for i in occupied], "decode chunk",
-            dispatch, chunk=True,
+            dispatch, "decode_chunk", chunk=True,
+            launched=lambda: self.chunk_graphs.launched, rows=len(occupied),
         )
         if not ok:
             return
@@ -1052,20 +1431,22 @@ class ContinuousEngine:
         self._retire_row(row, slot)
 
     def _loop(self):
-        """The dense host loop: admit into free slots (blocking only when
-        the engine is idle), advance every prefilling slot by one
-        segment, then run one decode chunk."""
+        """The dense host loop: run the queued control calls and apply
+        the drains, admit into free slots (blocking only when the engine
+        is idle), advance every prefilling slot by one segment, then run
+        one decode chunk."""
         with torch.inference_mode():
             while not self._stop.is_set():
+                self._run_calls()
+                # Drains first: the freed slots admit below, so a
+                # migrated row re-prefills in the same iteration.
+                self._apply_drains()
                 free = self._free_slots()
                 while free:
                     row = self._next_row(
                         block=len(self._free_slots()) == self.max_slots)
                     if row is None:
                         break
-                    if "call" in row:  # run_on_loop
-                        self._run_call(row)
-                        continue
                     self._admit(free.pop(0), row)
                 for i, r in enumerate(self.occupied):
                     if r is not None and r.get("remaining") is None:
@@ -1075,8 +1456,10 @@ class ContinuousEngine:
     def _admit_paged(self, slot, row):
         """Paged admission: radix prefix match + page-table mapping. The
         matched full blocks skip prefill; the suffix prefills in segments
-        from the reused offset (_advance_prefill_paged)."""
-        row.setdefault("t_admit", time.perf_counter())
+        from the reused offset (_advance_prefill_paged). The context is
+        prompt + generated: a migrated row's re-prefill."""
+        if not self._admission_open(row):
+            return
         ctx = row["prompt"] + row.get("generated", [])
         reused, hit, _ = self.kv.admit(slot, ctx)
         row["prefix_hit_tokens"] = row.get("prefix_hit_tokens", 0) + hit
@@ -1207,8 +1590,11 @@ class ContinuousEngine:
         real = min(seg_len, rem)
         seg[0, :real] = ctx[off:off + real]
         seg_ids = self.kv.segment_ids(slot, off, seg_len)
-        t0 = time.perf_counter()
-        try:
+
+        def call():
+            # The segment rewrites its own blocks (and, the last one,
+            # its slot of last_dev): a retry starts from the same state.
+            faults.fire("serving.prefill", slot=slot)
             tok = self._paged_prefill(
                 self.model.model, self.cache, self._to_device(seg), off,
                 self._to_device(seg_ids), self._to_device(self.kv.tables[slot]),
@@ -1216,9 +1602,12 @@ class ContinuousEngine:
                 want_logits=last,
             )
             if last:
-                tok_h, event = self._to_host(tok)
-            else:
-                tok_h, event = None, self._timing_event()
+                return self._to_host(tok)
+            return None, self._timing_event()
+
+        t0 = time.perf_counter()
+        try:
+            tok_h, event = self._retrying("prefill", call, rid=row["rid"])
         except Exception as e:  # noqa: BLE001 - fail the row, keep serving
             log.exception("paged prefill failed")
             self._fail_paged_row(row, slot, e, "paged prefill")
@@ -1284,9 +1673,8 @@ class ContinuousEngine:
                     self._fail_paged_row(self.occupied[i], i, e,
                                          "page allocation")
             return None
-        t0 = time.perf_counter()
-        try:
-            start = self._timing_event()
+        def call():
+            faults.fire("serving.chunk", rows=len(occupied))
             replays = self.decode_graphs.graphs.replays
             # Advances last_dev in place; toks is the graphs' output buffer.
             toks = self._paged_chunk(self.kv.tables, self.positions, active,
@@ -1294,7 +1682,17 @@ class ContinuousEngine:
             if self.device.type == "cuda" and \
                     self.decode_graphs.graphs.replays - replays != steps:
                 self.eager_chunks_on_cuda += 1
-            toks_h, event = self._to_host(toks)
+            return self._to_host(toks)
+
+        t0 = time.perf_counter()
+        try:
+            start = self._timing_event()
+            # Allocation and copy-on-write above ran once; a retry holds
+            # the same blocks. Once a step has advanced last_dev in place
+            # the chunk is not retried.
+            toks_h, event = self._retrying(
+                "decode_chunk", call, lambda: self.decode_graphs.launched,
+                rows=len(occupied))
         except Exception as e:  # noqa: BLE001 - fail the rows, keep serving
             log.exception("paged decode chunk failed")
             for i in occupied:
@@ -1363,6 +1761,7 @@ class ContinuousEngine:
                 if fresh and "blocks" in rec:
                     self.kv.drop(rec["blocks"])
                 return
+            self._note_migration_replayed(row, slot)
             row.setdefault("generated", []).append(tok)
             if "t_first" not in row:
                 row["t_first"] = now
@@ -1571,10 +1970,10 @@ class ContinuousEngine:
         (async; synced by the next _spec_tick). Rows pack into the
         smallest power-of-two batch bucket that holds the group, padding
         rows write only the null block. On CUDA the call is the replay of
-        the (bucket, window) graph. The port has no step retries: a
-        verify that raises here fails its rows and keeps the pools (only
-        those rows' blocks were written). Returns the sync record, or
-        None."""
+        the (bucket, window) graph. The verify rewrites only its rows'
+        positions, so a retry starts from the same state; a verify that
+        still raises fails its rows and keeps the pools (only those rows'
+        blocks were written). Returns the sync record, or None."""
         W = self._spec_width
         B = min(1 << (len(entries) - 1).bit_length(), self.max_slots)
         T = self.kv.blocks_per_seq
@@ -1589,16 +1988,21 @@ class ContinuousEngine:
             bids[idx] = e["bids"]
             offs[idx] = e["offs"]
             tables[idx] = self.kv.tables[e["slot"]]
-        t0 = time.perf_counter()
-        try:
-            start = self._timing_event()
+        def call():
+            faults.fire("serving.verify", rows=len(entries))
             replays = self.verify_graphs.graphs.replays
             greedy = self._paged_verify(segs, poss, bids, offs, tables,
                                         window=window)
             if self.device.type == "cuda" and \
                     self.verify_graphs.graphs.replays - replays != 1:
                 self.eager_verifies_on_cuda += 1
-            greedy_h, event = self._to_host(greedy)
+            return self._to_host(greedy)
+
+        t0 = time.perf_counter()
+        try:
+            start = self._timing_event()
+            greedy_h, event = self._retrying("verify", call,
+                                             rows=len(entries))
         except Exception as e:  # noqa: BLE001 - fail the rows, keep serving
             log.exception("speculative verify failed")
             for entry in entries:
@@ -1682,14 +2086,15 @@ class ContinuousEngine:
 
     def _next_row(self, block):
         """The next queued row, or None. ``block``: wait for one (the
-        engine is idle), accruing idle time, until shutdown."""
+        engine is idle), accruing idle time, until shutdown or a control
+        call waits (the loop runs it at its next iteration)."""
         if not block:
             try:
                 return self._q.get_nowait()
             except queue.Empty:
                 return None
         t0 = time.perf_counter()
-        while not self._stop.is_set():
+        while not self._stop.is_set() and self._calls.empty():
             try:
                 row = self._q.get(block=True, timeout=0.05)
             except queue.Empty:
@@ -1699,6 +2104,7 @@ class ContinuousEngine:
                 continue
             self.t_idle_s += time.perf_counter() - t0
             return row
+        self.t_idle_s += time.perf_counter() - t0
         return None
 
     @staticmethod
@@ -1711,11 +2117,19 @@ class ContinuousEngine:
             call["event"].set()
 
     def _loop_paged(self):
-        """The asynchronous host loop: admit, dispatch one prefill segment
-        per prefilling slot, the speculation round and one decode chunk,
-        then sync the previous iteration's dispatches."""
+        """The asynchronous host loop: run the queued control calls and
+        apply the drains (both after syncing the pending records), admit,
+        dispatch one prefill segment per prefilling slot, the speculation
+        round and one decode chunk, then sync the previous iteration's
+        dispatches."""
         with torch.inference_mode():
             while not self._stop.is_set():
+                if not self._calls.empty() or self._drain_requests:
+                    # Every migrated row's dispatched tokens land in it
+                    # first, so its re-prefill regenerates none of them.
+                    self._drain_pending_syncs()
+                    self._run_calls()
+                    self._apply_drains()
                 batch = []
                 free = self._free_slots()
                 while free:
@@ -1724,10 +2138,6 @@ class ContinuousEngine:
                     row = self._next_row(block=idle)
                     if row is None:
                         break
-                    if "call" in row:  # run_on_loop
-                        self._drain_pending_syncs()
-                        self._run_call(row)
-                        continue
                     self._admit_paged(free.pop(0), row)
                 for i, r in enumerate(self.occupied):
                     if r is not None and r.get("remaining") is None:
@@ -1771,6 +2181,8 @@ def make_handler(model, state):
                     info["queue_depth"] = stats["queue_depth"]
                     info["occupied_slots"] = stats["occupied_slots"]
                     info["max_slots"] = model.max_slots
+                    if model.tenants is not None:
+                        info["tenant_queues"] = stats["tenant_queues"]
                     if kvs is not None:  # a paged engine
                         info["prefix_hit_ratio"] = kvs["prefix_hit_ratio"]
                         info["free_blocks"] = kvs["free_blocks"]
@@ -1796,21 +2208,45 @@ def make_handler(model, state):
                     float(req.get("top_p", 1.0)),
                     model.cfg.vocab_size,
                 )
+                extra = {}
+                if isinstance(model, ContinuousEngine):
+                    # An engine's admission deadline and tenant class
+                    # (body field, else the header); the other paths
+                    # have no queue.
+                    if req.get("deadline_s") is not None:
+                        extra["deadline_s"] = float(req["deadline_s"])
+                    tenant = req.get("tenant") or \
+                        self.headers.get("X-Tenant-Class")
+                    if tenant is not None:
+                        extra["tenant"] = str(tenant)
                 t0 = time.perf_counter()
                 out = model.generate(
                     tokens, max_new, temperature=eff_t, top_k=eff_k,
-                    top_p=eff_p, seed=int(req.get("seed", 0)),
+                    top_p=eff_p, seed=int(req.get("seed", 0)), **extra,
                 )
                 dt = time.perf_counter() - t0
-                self._send({
-                    "tokens": out,
-                    "latency_s": round(dt, 4),
-                    "sampler": {
-                        "temperature": round(eff_t, 6),
-                        "top_k": eff_k,
-                        "top_p": round(eff_p, 6),
-                    },
-                })
+                try:
+                    self._send({
+                        "tokens": out,
+                        "latency_s": round(dt, 4),
+                        "sampler": {
+                            "temperature": round(eff_t, 6),
+                            "top_k": eff_k,
+                            "top_p": round(eff_p, 6),
+                        },
+                    })
+                except OSError:
+                    # The client hung up before the write: the generate
+                    # succeeded, so this is no failure.
+                    log.info("client disconnected before response write")
+            except ShedError as e:
+                # A typed shed: 429 with its reason (and the shedding
+                # tenant class), so the client backs off.
+                log.warning("request shed (%s): %s", e.reason, e)
+                body = {"error": str(e), "shed": e.reason}
+                if getattr(e, "tenant", None):
+                    body["tenant"] = e.tenant
+                self._send(body, 429)
             except Exception as e:  # noqa: BLE001 - serve errors as JSON
                 log.exception("generate failed")
                 self._send({"error": str(e)}, 500)
@@ -1972,6 +2408,43 @@ def main(argv=None):
                    help="weight-only int8 decode (W8A16): the seven layer "
                         "matrices per-channel int8, each product the "
                         "hand-written dequantising kernel on the card")
+    p.add_argument("--max-queue", type=int, default=256,
+                   help="continuous batching: bound on the admission "
+                        "queue; beyond it requests are shed with a typed "
+                        "429 (queue_full) instead of building an "
+                        "unbounded backlog (0 = unbounded)")
+    p.add_argument("--request-deadline-s", type=float, default=0.0,
+                   help="continuous batching: default per-request "
+                        "admission deadline; a request still queued past "
+                        "it is shed (429, deadline). A request may set "
+                        "its own with \"deadline_s\" in the POST body "
+                        "(0 = none)")
+    p.add_argument("--tenant-classes", default="",
+                   help="continuous batching: per-tenant admission "
+                        "config (a JSON object, inline or a file path; "
+                        "fleet/tenants.py): each class names a priority, "
+                        "a queue_share (its slice of --max-queue, and "
+                        "its weight in the stride-scheduled dequeue) and "
+                        "an optional rate_tokens_per_s quota. Requests "
+                        "name their class in the POST body (\"tenant\") "
+                        "or the X-Tenant-Class header; a class over its "
+                        "share or quota is shed (429, class_share or "
+                        "quota, the tenant named). Empty = off")
+    p.add_argument("--step-retries", type=int, default=1,
+                   help="continuous batching: retry a prefill, decode "
+                        "chunk or verify that fails at dispatch this "
+                        "many times with jittered backoff before failing "
+                        "its requests")
+    p.add_argument("--fault-plan", default="",
+                   help="arm a fault-injection plan (faults/plan.py "
+                        "JSON): faults fire at the scripted hits of the "
+                        "serving.prefill, serving.chunk and "
+                        "serving.verify sites")
+    p.add_argument("--event-log", default="",
+                   help="continuous batching: append the engine's "
+                        "structured events (sheds, step retries, "
+                        "migrations) and the fault plan's to this JSONL "
+                        "file (obs/events.py schema)")
     p.add_argument("--warmup", choices=ws_warmup.WARMUP_MODES,
                    default="lazy",
                    help="'all' runs the continuous engine's whole shape "
@@ -1988,14 +2461,27 @@ def main(argv=None):
         log.warning("--speculate=%s needs --continuous-batching with "
                     "--kv-cache=paged; falling back to off", args.speculate)
         args.speculate = "off"
+    if args.fault_plan:
+        plan = faults.arm_from_flag(args.fault_plan,
+                                    sink_path=args.event_log)
+        log.warning("fault plan armed from %s (seed %d, %d faults)",
+                    args.fault_plan, plan.seed, len(plan.faults))
+    tenants = fleet_tenants.TenantClasses.from_flag(args.tenant_classes)
     model = Model(config_from_args(args), device=args.device,
                   quantize=args.quantize)
     if args.continuous_batching:
+        registry = obs_metrics.Registry()
         model = ContinuousEngine(
             model, max_slots=args.max_slots, chunk=args.decode_chunk,
             prefill_chunk=args.prefill_chunk, kv_cache=args.kv_cache,
             kv_block_size=args.kv_block_size, kv_blocks=args.kv_blocks,
             speculate=args.speculate, speculate_k=args.speculate_k,
+            max_queue=args.max_queue, deadline_s=args.request_deadline_s,
+            step_retries=args.step_retries, tenants=tenants,
+            registry=registry,
+            events=obs_events.EventStream(
+                "serve", sink_path=args.event_log, registry=registry,
+            ) if args.event_log else None,
         )
     elif args.batch_window_ms > 0:
         model = BatchingModel(model, window_ms=args.batch_window_ms)

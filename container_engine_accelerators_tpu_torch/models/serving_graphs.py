@@ -221,6 +221,11 @@ class PagedDecodeGraphs:
         self.out = torch.zeros(chunk, slots, dtype=torch.long, device=device)
         self.counter = torch.zeros(1, dtype=torch.long, device=device)
         self.graphs = GraphSet(device)
+        # Steps launched by calls (replayed on CUDA, run on the CPU),
+        # counted before each launch: the engine retries a failed chunk
+        # only while this has not moved, since every step advances the
+        # step state in place.
+        self.launched = 0
 
     @property
     def on_cuda(self):
@@ -277,6 +282,7 @@ class PagedDecodeGraphs:
         _stage(self.active, active)
         self.counter.zero_()
         for _ in range(steps):
+            self.launched += 1
             if self.on_cuda:
                 self.graphs.replay(window)
             else:
@@ -320,6 +326,11 @@ class DenseChunkGraphs:
         self.out = torch.zeros(chunk, slots, dtype=torch.long, device=device)
         self.counter = torch.zeros(1, dtype=torch.long, device=device)
         self.graphs = GraphSet(device)
+        # Steps launched by calls (replayed on CUDA, run on the CPU),
+        # counted before each launch: the engine retries a failed chunk
+        # only while this has not moved, since every step advances the
+        # step state in place.
+        self.launched = 0
 
     @property
     def on_cuda(self):
@@ -382,6 +393,7 @@ class DenseChunkGraphs:
         _stage(self.active, active)
         self.counter.zero_()
         for _ in range(steps):
+            self.launched += 1
             if self.on_cuda:
                 self.graphs.replay(key)
             else:
