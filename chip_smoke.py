@@ -17,7 +17,9 @@ through the dense continuous-batching engine (the default
 ``--kv-cache``) and the ``--batch-window-ms`` micro-batcher, under
 overload and injected faults (bounded admission with typed 429s,
 deadlines, tenant classes, step retries, drains, a client that hangs
-up), serves it
+up), with every observability flag on (``/metrics`` with the JAX
+server's families, the SLO, chip accounting, span traces, the flight
+recorder, ``--profile-dir``), serves it
 again with int8 weights (``--quantize int8``: every projection the
 hand-written W8A16 kernel, eagerly and inside the captured graphs), and
 trains it at full width
@@ -52,9 +54,18 @@ micro-batcher; streams held to ``Model.generate``'s), serve_robust
 of 4 rows, tenant classes and a hang-up on the dense engine and the
 paged ``--speculate ngram`` engine: sheds by reason, retries equal to
 the faults fired, migrations equal to the occupied slots, every served
-token within SERVE_LOGITS_ATOL of its teacher-forced argmax), serve_int8
+token within SERVE_LOGITS_ATOL of its teacher-forced argmax), serve_obs
+(the dense engine and the paged ``--speculate ngram`` engine built by
+the CLI's code with ``--chip-accounting``, the SLO, ``--trace-out``,
+``--flight-recorder`` and ``--metrics-port`` on serve_dense's traffic:
+the JAX server's families and counts on ``/metrics`` and the metrics
+port, the device-time ledger against its envelopes, the HBM model
+against the card's allocations, the flight bundle, each request's spans,
+one request under ``--profile-dir``; then the dense engine's tokens/s
+and TTFT with every obs flag on against all off), serve_int8
 (``--quantize int8`` on generate, the dense engine and the speculating
-paged engine; every served token held to the int8 reference), train_grads
+paged engine; every served token held to the int8 reference; then
+serve_obs's dense checks on the int8 model, serve_obs_int8), train_grads
 (loss and every gradient through the kernels vs plain attention), train
 (5 timed steps), train_cli, kernels (the summary line), then the card's
 name and power limit, then the result.
@@ -68,6 +79,7 @@ import io
 import json
 import logging
 import math
+import os
 import re
 import socket
 import struct
@@ -846,10 +858,13 @@ def serve(torch, np, tf, serve_cli, attention, card):
     """Full-width Llama-3-8B behind the port's HTTP server. ``card``: the
     GPU's name and power limit, printed beside the times."""
     cfg = tf.TransformerConfig.llama3_8b()
+    _free(torch)
     t0 = time.perf_counter()
+    alloc0 = torch.cuda.memory_allocated()
     model = serve_cli.Model(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    load_bytes = torch.cuda.memory_allocated() - alloc0
     rng = np.random.default_rng(0)
 
     def prompt(n, rows=1):
@@ -943,7 +958,8 @@ def serve(torch, np, tf, serve_cli, attention, card):
         fail("prefill logits through the kernel disagree with plain "
              "attention")
     bf16 = {"ttft_s_p1500": ttft, "decode_ms_per_token_p1500": decode_ms,
-            "p1500_tokens": results["p1500_again"]["tokens"][0]}
+            "p1500_tokens": results["p1500_again"]["tokens"][0],
+            "load_allocated_bytes": load_bytes}
     return launches, model, bf16
 
 
@@ -986,7 +1002,8 @@ def serve_paged(torch, np, tf, serve_cli, attention, card, model):
 
     def prefill_keeping_logits(*args, want_logits=False, **kw):
         seg, off, true_pos = args[2], args[3], args[6]
-        segments.append((off, seg.shape[1], true_pos, engine.n_chunks))
+        segments.append((off, seg.shape[1], true_pos,
+                         engine.stats()["n_chunks"]))
         if not want_logits:
             return paged_prefill(*args, want_logits=False, **kw)
         tok, logits = paged_prefill(*args, want_logits=True,
@@ -1033,9 +1050,9 @@ def serve_paged(torch, np, tf, serve_cli, attention, card, model):
         with concurrent.futures.ThreadPoolExecutor(7) as pool:
             futures = [pool.submit(post, f"shared_{i}") for i in range(6)]
             # The long prompt arrives once the shared requests decode.
-            chunks = engine.n_chunks
+            chunks = engine.stats()["n_chunks"]
             deadline = time.monotonic() + 600
-            while engine.n_chunks == chunks:
+            while engine.stats()["n_chunks"] == chunks:
                 if time.monotonic() > deadline:
                     fail("serve_paged: no decode chunk after the shared "
                          "requests were posted")
@@ -1790,15 +1807,7 @@ def serve_dense(torch, np, tf, serve_cli, attention, card, model):
         return run_chunk(*args, **kw)
 
     engine._prefill_seg, engine._chunk = seg_recording, chunk_recording
-    rng = np.random.default_rng(5)  # serve_paged's prompts
-    prefix = rng.integers(0, vocab, 1024).tolist()
-    prompts = {"prefix_1024": prefix}
-    for i in range(6):
-        prompts[f"shared_{i}"] = prefix + rng.integers(0, vocab, 64).tolist()
-    prompts["long_3000"] = rng.integers(0, vocab, 3000).tolist()
-    max_new = {name: 32 for name in prompts}
-    max_new["prefix_1024"] = 8
-    results, latency = {}, {}
+    prompts, max_new = _shared_prefix_prompts(np, vocab)
 
     def snapshot():
         return {"launches": attention.flash_fwd_launches,
@@ -1823,28 +1832,8 @@ def serve_dense(torch, np, tf, serve_cli, attention, card, model):
         port = server.server_address[1]
         warm = state["warmup"]
         at_ready = snapshot()
-
-        def post(name):
-            t1 = time.perf_counter()
-            results[name] = serve_cli.post_generate(
-                port, [prompts[name]], max_new[name])
-            latency[name] = time.perf_counter() - t1
-
-        post("prefix_1024")
-        t1 = time.perf_counter()
-        with concurrent.futures.ThreadPoolExecutor(7) as pool:
-            futures = [pool.submit(post, f"shared_{i}") for i in range(6)]
-            n = engine.n_chunks
-            deadline = time.monotonic() + 600
-            while engine.n_chunks == n:
-                if time.monotonic() > deadline:
-                    fail("serve_dense: no decode chunk after the shared "
-                         "requests were posted")
-                time.sleep(0.002)
-            futures.append(pool.submit(post, "long_3000"))
-            for f in futures:
-                f.result(timeout=600)
-        burst_s = time.perf_counter() - t1
+        results, latency, burst_s = _post_shared_prefix(
+            engine, port, prompts, max_new, "serve_dense")
         done = snapshot()
     finally:
         server.shutdown()
@@ -1990,7 +1979,8 @@ def _serve_batcher(torch, np, serve_cli, attention, model, card):
     try:
         serve_cli.wait_ready(state, timeout=600)
         port = server.server_address[1]
-        at_ready = (attention.flash_fwd_launches, batcher.n_batches)
+        at_ready = (attention.flash_fwd_launches, batcher.n_batches,
+                    batcher._m_queue_wait.count, batcher._m_queue_wait.sum)
         t0 = time.perf_counter()
 
         def post(i):
@@ -2014,8 +2004,10 @@ def _serve_batcher(torch, np, serve_cli, attention, model, card):
     emit({"phase": "serve_dense_batcher", **card, "model": "llama3-8b",
           "window_ms": BATCH_WINDOW_MS, "requests": BATCH_REQUESTS,
           "prompt_len": BATCH_PROMPT, "max_new": BATCH_NEW,
-          "coalesced_calls": calls, "last_batch_rows": batcher.batch_rows,
-          "queue_wait_s": list(batcher.queue_wait_s)[-BATCH_REQUESTS:],
+          "coalesced_calls": calls,
+          "last_batch_rows": batcher._m_batch_rows.value,
+          "queue_wait_mean_s": (batcher._m_queue_wait.sum - at_ready[3])
+          / max(batcher._m_queue_wait.count - at_ready[2], 1),
           "burst_s": burst_s, "flash_fwd_launches": launches,
           "launches_after_ready": launches - at_ready[0]})
     if calls >= BATCH_REQUESTS or \
@@ -2106,13 +2098,16 @@ def _drain_when_full(engine, rows, seams, out):
         return sum(r is not None and r.get("remaining") is not None
                    for r in engine.occupied)
 
-    ran = engine.n_chunks + engine.spec_verifies
+    def device_calls():
+        stats = engine.stats()
+        return stats["n_chunks"] + stats.get("spec_verifies", 0)
+
+    ran = device_calls()
     for seam in seams:
         real = getattr(engine, seam)
 
         def wrapped(*args, _real=real, **kwargs):
-            if "targeted" not in out and \
-                    engine.n_chunks + engine.spec_verifies > ran and \
+            if "targeted" not in out and device_calls() > ran and \
                     decoding() == rows:
                 out["targeted"] = engine.drain(reason="serve_robust")
             return _real(*args, **kwargs)
@@ -2502,6 +2497,613 @@ def serve_robust(torch, np, tf, serve_cli, attention, card, model):
     return total
 
 
+# -- serve_obs: the observability surfaces on the full-width engines ----------
+
+# serve_dense's engine (the JAX server's defaults, --warmup=all), and the
+# two engine modes serve_obs arms the obs flags on.
+OBS_ENGINE_FLAGS = ["--continuous-batching", "--max-slots", "8",
+                    "--decode-chunk", "32", "--prefill-chunk", "512",
+                    "--warmup", "all"]
+OBS_MODES = {"dense": [],
+             "paged_ngram": ["--kv-cache", "paged", "--speculate", "ngram"]}
+# Repeats of the traffic with every obs flag on and with all off, in
+# turns, for the overhead finding (no threshold).
+OBS_REPEATS = 3
+# The HBM model's weights figure against the allocation loading the bf16
+# model caused (the caching allocator rounds each tensor up to 512 B).
+HBM_WEIGHTS_RTOL = 0.01
+# The ledger's device seconds over every label against the sum of the
+# envelopes it booked (the phase counters' seconds): float sums only.
+LEDGER_ATOL_S = 1e-9
+
+
+def obs_flags(workdir, tag, metrics_port):
+    """Every obs flag on (``--chip-accounting``, the SLO, ``--trace-out``,
+    ``--flight-recorder``, ``--metrics-port``, ``--event-log``), its files
+    in ``workdir``."""
+    def path(name):
+        return os.path.join(workdir, f"{tag}.{name}")
+
+    return ["--chip-accounting", "--slo-ttft-ms", "200", "--slo-tpot-ms",
+            "50", "--trace-out", path("trace.json"), "--flight-recorder",
+            "--flight-dir", path("flight"), "--flight-window-s", "120",
+            "--metrics-port", str(metrics_port), "--event-log",
+            path("events.jsonl")]
+
+
+def serving_families():
+    """The tpu_serving_* families the JAX server renders per engine mode
+    (``SERVING_FAMILIES`` of tests/test_torch_obs_serving.py, which pins
+    them to the JAX server). Read from that file's literal lists: the test
+    imports JAX, this script imports nothing of it."""
+    import ast
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "test_torch_obs_serving.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    lists = {node.targets[0].id: ast.literal_eval(node.value)
+             for node in tree.body if isinstance(node, ast.Assign)
+             and len(node.targets) == 1
+             and getattr(node.targets[0], "id", None)
+             in ("_COMMON", "_PAGED", "_SPEC")}
+    common, paged, spec = lists["_COMMON"], lists["_PAGED"], lists["_SPEC"]
+    return {"dense": sorted(common), "paged": sorted(common + paged),
+            "paged_ngram": sorted(common + paged + spec)}
+
+
+def exposition(text):
+    """{family: {series: value}} of a Prometheus text exposition (an
+    exemplar after a sample left out)."""
+    kinds = dict(re.findall(r"^# TYPE (\S+) (\S+)$", text, re.M))
+    out = {name: {} for name in kinds}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        series, value = line.split(" # ", 1)[0].rsplit(" ", 1)
+        name = series.split("{", 1)[0]
+        if name not in kinds:
+            name = re.sub(r"_(bucket|sum|count)$", "", name)
+        out.setdefault(name, {})[series] = float(value)
+    return out
+
+
+def _get_text(port, path="/metrics"):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=600) as resp:
+        return resp.read().decode()
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _shared_prefix_prompts(np, vocab):
+    """serve_paged's traffic: a 1024-token prompt (8 new), then 6
+    requests sharing it with 64-token suffixes and a 3000-token prompt
+    (32 new each)."""
+    rng = np.random.default_rng(5)
+    prefix = rng.integers(0, vocab, 1024).tolist()
+    prompts = {"prefix_1024": prefix}
+    for i in range(6):
+        prompts[f"shared_{i}"] = prefix + rng.integers(0, vocab, 64).tolist()
+    prompts["long_3000"] = rng.integers(0, vocab, 3000).tolist()
+    max_new = {name: 32 for name in prompts}
+    max_new["prefix_1024"] = 8
+    return prompts, max_new
+
+
+def _post_shared_prefix(engine, port, prompts, max_new, phase,
+                        headers=None):
+    """The first prompt alone, then the 6 sharing it at once and, once
+    they decode, the long one. Returns (responses, latency by name, the
+    burst's seconds)."""
+    results, latency = {}, {}
+
+    def post(name):
+        t1 = time.perf_counter()
+        status, body = _post_status(
+            port, {"tokens": [prompts[name]],
+                   "max_new_tokens": max_new[name]},
+            headers=None if headers is None else headers[name])
+        if status != 200:
+            fail(f"{phase} {name}: HTTP {status}: {body}")
+        results[name] = body
+        latency[name] = time.perf_counter() - t1
+
+    post("prefix_1024")
+    t1 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(7) as pool:
+        futures = [pool.submit(post, f"shared_{i}") for i in range(6)]
+        n = engine.stats()["n_chunks"]
+        deadline = time.monotonic() + 600
+        while engine.stats()["n_chunks"] == n:
+            if time.monotonic() > deadline:
+                fail(f"{phase}: no decode chunk after the shared requests "
+                     f"were posted")
+            time.sleep(0.002)
+        futures.append(pool.submit(post, "long_3000"))
+        for f in futures:
+            f.result(timeout=600)
+    return results, latency, time.perf_counter() - t1
+
+
+@contextlib.contextmanager
+def _obs_server(torch, serve_cli, model, argv):
+    """What ``serve_cli`` builds for ``argv`` over ``model``
+    (``build_parser``, ``build_serving``: the engine, its obs surfaces,
+    the request metrics, the flight recorder) behind its HTTP server
+    (``start_server``, ready) and, under ``--metrics-port``, the metrics
+    listener, as ``serve_cli.main`` wires them. Yields (args, engine,
+    metrics, port, flight, the bytes building the engine allocated)."""
+    from container_engine_accelerators_tpu_torch.obs import (
+        flight as obs_flight,
+    )
+    from container_engine_accelerators_tpu_torch.obs import (
+        metrics as obs_metrics,
+    )
+
+    import signal
+
+    args = serve_cli.build_parser().parse_args(argv)
+    # The flight recorder's crash hooks hold it, and through its state
+    # providers the engine: restored after, so the engine is freed.
+    hooks = sys.excepthook, signal.getsignal(signal.SIGUSR2)
+    torch.cuda.synchronize()
+    alloc0 = torch.cuda.memory_allocated()
+    engine, metrics, _, flight = serve_cli.build_serving(args, model)
+    torch.cuda.synchronize()
+    built = torch.cuda.memory_allocated() - alloc0
+    server, state = serve_cli.start_server(
+        engine, port=0, host="127.0.0.1", warmup_mode=args.warmup,
+        metrics=metrics)
+    own = None
+    try:
+        if args.metrics_port:
+            own = obs_metrics.serve(args.metrics_port, registry=metrics,
+                                    host="127.0.0.1")
+        serve_cli.wait_ready(state, timeout=900)
+        yield args, engine, metrics, server.server_address[1], flight, built
+    finally:
+        server.shutdown()
+        server.server_close()
+        if own is not None:
+            own.close()
+        if flight is not None:
+            flight.close()
+            obs_flight.deactivate()
+            # The thread serving the recorder's health port kept the
+            # excepthook of its creation (threading does, for the thread's
+            # end), and with it the recorder: drop its hold on the engine.
+            flight._providers.clear()
+            flight._streams.clear()
+            flight._registries.clear()
+        sys.excepthook = hooks[0]
+        signal.signal(signal.SIGUSR2, hooks[1])
+        engine.shutdown()
+
+
+def _traffic_run(torch, engine, port, prompts, max_new, phase,
+                 headers=None):
+    """serve_dense's traffic through ``port`` and what it cost: decode
+    tokens/s over the chunks' span on the card and over their host
+    wall, the TTFT quantiles, the generated tokens."""
+    def snap():
+        return {"t_chunk_device_s": engine.t_chunk_device_s,
+                "t_chunk_host_s": engine.t_chunk_dispatch_s
+                + engine.t_chunk_wait_s,
+                "ttft": len(engine.ttft_s), **engine.stats()}
+
+    before = snap()
+    results, latency, burst_s = _post_shared_prefix(
+        engine, port, prompts, max_new, phase, headers)
+    torch.cuda.synchronize()
+    after = snap()
+    d = {k: after[k] - before[k] for k in (
+        "t_chunk_device_s", "t_chunk_host_s", "occupied_steps",
+        "steps_done")}
+    ttft = [t for _, t in list(engine.ttft_s)[before["ttft"]:]]
+    return results, {
+        "burst_s": burst_s, "latency_s": latency,
+        "decode_tokens_per_s_on_card": d["occupied_steps"]
+        / max(d["t_chunk_device_s"], 1e-9),
+        "decode_tokens_per_s_host": d["occupied_steps"]
+        / max(d["t_chunk_host_s"], 1e-9),
+        "ttft": _quantiles(ttft),
+        "chunk_device_s": d["t_chunk_device_s"],
+        "steps": d["steps_done"],
+    }
+
+
+def _held_obs(phase, mode, families, text, own_text, results, prompts,
+              before, after):
+    """The /metrics checks: both listeners serve the same families, every
+    family the JAX server renders for ``mode`` is there, and the request,
+    token, TTFT and TPOT counts match what was served (``before`` and
+    ``after``: the expositions around the traffic). Returns the row."""
+    got, own = exposition(text), exposition(own_text)
+    missing = [f for f in families[mode] if f not in got]
+    if sorted(got) != sorted(own) or missing:
+        fail(f"{phase}: /metrics and --metrics-port differ, or JAX's "
+             f"families are missing: {missing}")
+
+    def delta(family, series):
+        return after[family].get(series, 0.0) - \
+            before[family].get(series, 0.0)
+
+    served = {name: len(r["tokens"][0]) - len(prompts[name])
+              for name, r in results.items()}
+    counts = {
+        "requests_ok": delta("tpu_serving_requests_total",
+                             'tpu_serving_requests_total{outcome="ok"}'),
+        "generated_tokens": delta("tpu_serving_generated_tokens_total",
+                                  "tpu_serving_generated_tokens_total"),
+        "ttft_count": delta("tpu_serving_ttft_seconds",
+                            "tpu_serving_ttft_seconds_count"),
+        "tpot_count": delta("tpu_serving_tpot_seconds",
+                            "tpu_serving_tpot_seconds_count"),
+    }
+    # The JAX rule: TPOT for a row with more than one token.
+    want = {"requests_ok": len(results),
+            "generated_tokens": sum(served.values()),
+            "ttft_count": len(results),
+            "tpot_count": sum(n > 1 for n in served.values())}
+    if counts != want:
+        fail(f"{phase}: /metrics counts {counts}, served {want}")
+    return {"families": len(got), "jax_families": len(families[mode]),
+            **counts}
+
+
+def _held_ledger(phase, engine, at_ready):
+    """The chip-accounting invariant and what sits beside it: the ledger's
+    device seconds over every label against the envelopes it booked (the
+    phase counters' seconds), to LEDGER_ATOL_S; during the traffic, its
+    decode and verify seconds beside the CUDA-event span of the same
+    chunks and verifies, and the bubbles."""
+    led = engine.devicetime
+    series = engine.registry.get("tpu_serving_device_seconds_total")
+    device_s = sum(c.value for _, c in series._series())
+    envelopes = engine._m_t_prefill.value + engine._m_t_chunk.value
+    if engine.spec_proposer is not None:
+        envelopes += engine._m_t_verify.value
+    snap = led.snapshot()
+    chunk_phases = ("decode", "verify")
+    row = {
+        "ledger_device_s": device_s, "envelopes_s": envelopes,
+        "ledger_minus_envelopes_s": device_s - envelopes,
+        "by_phase_class": snap["per_phase_class"],
+        "traffic_ledger_decode_verify_s": sum(
+            led.per_phase[p] - at_ready["per_phase"].get(p, 0.0)
+            for p in chunk_phases),
+        "traffic_cuda_event_span_s":
+            engine.t_chunk_device_s + engine.t_verify_device_s
+            - at_ready["device_span_s"],
+        "traffic_bubble_s": led.total_bubble_s - at_ready["bubble_s"],
+        "bubble_ratio": led.bubble_ratio(),
+    }
+    if abs(device_s - envelopes) > LEDGER_ATOL_S:
+        fail(f"{phase}: the ledger holds {device_s!r} s, its envelopes "
+             f"{envelopes!r} s")
+    for key in ("traffic_ledger_decode_verify_s",
+                "traffic_cuda_event_span_s", "traffic_bubble_s",
+                "bubble_ratio"):
+        if not (math.isfinite(row[key]) and row[key] > 0):
+            fail(f"{phase}: {key} = {row[key]!r}, want finite and > 0")
+    return row
+
+
+def _held_hbm(phase, torch, engine, text, load_bytes, built_bytes):
+    """The HBM model against the card: ``weights`` within
+    HBM_WEIGHTS_RTOL of the allocation loading the model caused (None: a
+    quantized model, printed only), ``kv_pool`` the cache tensors' bytes
+    exactly; ``total`` beside the peak allocation and the graph pools
+    the model does not count."""
+    gauges = exposition(text)["tpu_hbm_bytes"]
+
+    def gauge(component):
+        return gauges[f'tpu_hbm_bytes{{component="{component}"}}']
+
+    cache_bytes = sum(t.nbytes for t in engine.cache.values())
+    graphs = engine.graph_stats()
+    row = {
+        "weights_model_bytes": gauge("weights"),
+        "weights_loaded_bytes": load_bytes,
+        "weights_model_over_loaded": gauge("weights") / load_bytes,
+        "kv_pool_model_bytes": gauge("kv_pool"),
+        "cache_tensor_bytes": cache_bytes,
+        "engine_built_bytes": built_bytes,
+        "scratch_model_bytes": gauge("scratch"),
+        "total_model_bytes": gauge("total"),
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "graph_pool_bytes": sum(v for k, v in graphs.items()
+                                if k.endswith("graph_pool_bytes")),
+        "kv_used_bytes": gauge("kv_used"),
+        "kv_watermark_bytes": gauge("kv_watermark"),
+    }
+    if gauge("kv_pool") != cache_bytes:
+        fail(f"{phase}: kv_pool {gauge('kv_pool')} B, the cache tensors "
+             f"{cache_bytes} B")
+    if phase.endswith("int8"):
+        return row
+    if abs(gauge("weights") - load_bytes) > HBM_WEIGHTS_RTOL * load_bytes:
+        fail(f"{phase}: the HBM model's weights {gauge('weights')} B, "
+             f"loading the model allocated {load_bytes} B")
+    return row
+
+
+def _held_flight(phase, port):
+    """POST /debug/flight: a bundle holding both registries' deltas, the
+    event tail and the recent spans."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/debug/flight",
+                                 data=b"{}", method="POST")
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        path = json.loads(resp.read())["bundle"]
+    with open(path) as f:
+        records = [json.loads(line) for line in f]
+    snaps = [r for r in records if r["record"] == "snapshot"]
+    counters = {k.split("{", 1)[0] for s in snaps for k in s["counters"]}
+    kinds = {e["kind"] for s in snaps for e in s.get("events", ())}
+    spans = {sp["name"] for s in snaps for sp in s.get("spans", ())}
+    row = {"registries": records[0]["registries"],
+           "snapshots": len(snaps), "event_kinds": sorted(kinds),
+           "span_names": sorted(spans),
+           "serving_counters": "tpu_serving_requests_total" in counters,
+           "engine_counters": "tpu_serving_engine_steps_total" in counters}
+    if row["registries"] != ["serving", "engine"] or not (
+            row["serving_counters"] and row["engine_counters"]) or \
+            "request_retired" not in kinds or "request" not in spans:
+        fail(f"{phase}: the flight bundle lacks a registry, the event "
+             f"tail or the spans: {row}")
+    return row
+
+
+def _held_spans(phase, trace_path, trace_ids):
+    """The --trace-out Chrome trace: each request's ``request`` span,
+    under its traceparent's trace id, nests ``queue``, ``admit``,
+    ``prefill`` and ``decode`` on its track."""
+    with open(trace_path) as f:
+        spans = [e for e in json.load(f)["traceEvents"] if e["ph"] == "X"]
+    per_request = {}
+    for name, tid in trace_ids.items():
+        mine = [e for e in spans if e["args"].get("trace_id") == tid]
+        req = [e for e in mine if e["name"] == "request"]
+        if len(req) != 1:
+            fail(f"{phase} {name}: {len(req)} request spans under its "
+                 f"trace id")
+        req = req[0]
+        nested = {e["name"] for e in mine if e["tid"] == req["tid"]
+                  and req["ts"] - 1 <= e["ts"]
+                  and e["ts"] + e["dur"] <= req["ts"] + req["dur"] + 1}
+        if not {"queue", "admit", "prefill", "decode"} <= nested:
+            fail(f"{phase} {name}: the request span nests {nested}")
+        per_request[name] = sum(e["name"] == "prefill" for e in mine)
+    return {"requests": len(per_request),
+            "prefill_spans_by_request": per_request}
+
+
+def _profiled_request(phase, serve_cli, attention, int8_matmul, port,
+                      prompt, max_new, prof_dir, graphs_hold_flash):
+    """One request under ``--profile-dir``'s bracket
+    (``utils.profiling.trace_or_null``): the trace's kernel events by
+    hand-written kernel, against the launches counted meanwhile (which
+    leave out the replays of captured graphs: a verify graph holds the
+    flash kernel, ``graphs_hold_flash``, and a decode graph the int8
+    one)."""
+    from container_engine_accelerators_tpu_torch.utils import profiling
+
+    before = (attention.flash_fwd_launches,
+              None if int8_matmul is None else int8_matmul.int8_mm_launches)
+    with profiling.trace_or_null(prof_dir):
+        serve_cli.post_generate(port, [prompt], max_new)
+    (name,) = os.listdir(prof_dir)
+    with open(os.path.join(prof_dir, name)) as f:
+        kernels = [e["name"] for e in json.load(f)["traceEvents"]
+                   if e.get("cat") == "kernel"]
+    row = {"flash_fwd_launches": attention.flash_fwd_launches - before[0],
+           "flash_fwd_sm90_kernel_events":
+               sum("flash_fwd_sm90_kernel" in k for k in kernels),
+           "kernel_events": len(kernels)}
+    events, launched = row["flash_fwd_sm90_kernel_events"], \
+        row["flash_fwd_launches"]
+    if launched <= 0 or events < launched or (
+            events != launched and not graphs_hold_flash):
+        fail(f"{phase}: the profiler trace holds "
+             f"{row['flash_fwd_sm90_kernel_events']} flash_fwd_sm90_kernel "
+             f"events for {row['flash_fwd_launches']} launches")
+    if int8_matmul is not None:
+        row["int8_mm_launches_eager"] = \
+            int8_matmul.int8_mm_launches - before[1]
+        row["int8_mm_sm90_kernel_events"] = sum(
+            "int8_mm_sm90_kernel" in k for k in kernels)
+        if row["int8_mm_sm90_kernel_events"] < \
+                row["int8_mm_launches_eager"] or \
+                not row["int8_mm_sm90_kernel_events"]:
+            fail(f"{phase}: the profiler trace holds "
+                 f"{row['int8_mm_sm90_kernel_events']} int8_mm_sm90_kernel "
+                 f"events for {row['int8_mm_launches_eager']} eager launches")
+    return row
+
+
+def _serve_obs_mode(torch, np, serve_cli, attention, model, mode, workdir,
+                    card, load_bytes, int8_matmul=None, overhead=False):
+    """One engine mode with every obs flag on, behind the server, on
+    serve_dense's traffic (each request under a traceparent of its own):
+    the /metrics, ledger, HBM, flight and span checks, one profiled
+    request and, with ``overhead``, OBS_REPEATS runs each with the flags
+    on and all off (a second engine), in turns. Returns (row, flash
+    launches, int8 launches)."""
+    from container_engine_accelerators_tpu_torch.obs import (
+        flight as obs_flight,
+    )
+    from container_engine_accelerators_tpu_torch.obs import trace as obs_trace
+
+    phase = "serve_obs_int8" if int8_matmul is not None else \
+        f"serve_obs_{mode}"
+    families = serving_families()
+    prompts, max_new = _shared_prefix_prompts(np, model.cfg.vocab_size)
+    trace_ids = {name: obs_trace.new_trace_id() for name in prompts}
+    headers = {name: {"traceparent": obs_trace.format_traceparent(
+        tid, obs_trace.new_span_id())} for name, tid in trace_ids.items()}
+    argv = OBS_ENGINE_FLAGS + OBS_MODES[mode] + obs_flags(
+        workdir, phase, _free_port())
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    tracer = obs_trace.configure()
+    row = {"phase": phase, **card, "model": "llama3-8b", "mode": mode,
+           "argv": argv[len(OBS_ENGINE_FLAGS):]}
+    # The main path: counts at zero, then the engine built by the CLI's
+    # code, its warm grid, the traffic and the profiled request.
+    attention.flash_fwd_launches = 0
+    if int8_matmul is not None:
+        int8_matmul.int8_mm_launches = int8_matmul.int8_mm_captured = 0
+    try:
+        with _obs_server(torch, serve_cli, model, argv) as (
+                args, engine, metrics, port, flight, built):
+            led = engine.devicetime
+            at_ready = {"per_phase": dict(led.per_phase),
+                        "bubble_s": led.total_bubble_s,
+                        "device_span_s": engine.t_chunk_device_s
+                        + engine.t_verify_device_s}
+            before = exposition(_get_text(port))
+            results, run = _traffic_run(torch, engine, port, prompts,
+                                        max_new, phase, headers)
+            text = _get_text(port)
+            row["metrics"] = _held_obs(
+                phase, mode, families, text, _get_text(args.metrics_port),
+                results, prompts, before, exposition(text))
+            row["traffic"] = run
+            row["ledger"] = _held_ledger(phase, engine, at_ready)
+            row["hbm"] = _held_hbm(phase, torch, engine, text, load_bytes,
+                                   built)
+            row["flight"] = _held_flight(phase, port)
+            tracer.write_chrome(args.trace_out)
+            row["spans"] = _held_spans(phase, args.trace_out, trace_ids)
+            for name, prompt in prompts.items():
+                _check_response(f"{phase} {name}", results[name], prompt,
+                                max_new[name], model.cfg.vocab_size)
+            row["profile"] = _profiled_request(
+                phase, serve_cli, attention, int8_matmul, port,
+                prompts["prefix_1024"], max_new["prefix_1024"],
+                os.path.join(workdir, f"{phase}.profile"),
+                graphs_hold_flash=engine.spec_proposer is not None)
+            row["graph_stats"] = engine.graph_stats()
+            if engine.graph_stats()["eager_chunks_on_cuda"] or \
+                    engine.graph_stats().get("eager_verifies_on_cuda"):
+                fail(f"{phase}: a chunk or verify ran eagerly on the card")
+            if overhead:
+                row["overhead"] = _obs_overhead(
+                    torch, serve_cli, model, engine, port, flight, prompts,
+                    max_new, phase)
+    finally:
+        obs_trace.configure(False)
+        obs_flight.deactivate()
+    launches = attention.flash_fwd_launches
+    int8 = None
+    if int8_matmul is not None:
+        int8 = int8_matmul.int8_mm_launches + 7 * model.cfg.n_layers * \
+            row["graph_stats"]["graph_replays"]
+    emit(row)
+    return row, launches, int8
+
+
+def _obs_overhead(torch, serve_cli, model, engine, port, flight, prompts,
+                  max_new, phase):
+    """The traffic OBS_REPEATS times on ``engine`` (every obs flag on:
+    the tracer, the flight recorder's snapshots, the ledger, the SLO,
+    the event log) and on a second engine with all of them off, in
+    turns: decode tokens/s and TTFT p50 of each run, and their spread."""
+    from container_engine_accelerators_tpu_torch.obs import (
+        flight as obs_flight,
+    )
+    from container_engine_accelerators_tpu_torch.obs import trace as obs_trace
+
+    runs = {"on": [], "off": []}
+    with _obs_server(torch, serve_cli, model, OBS_ENGINE_FLAGS) as (
+            _, off_engine, _, off_port, _, _):
+        for rep in range(OBS_REPEATS):
+            for which in (("on", "off") if rep % 2 == 0 else ("off", "on")):
+                if which == "on":
+                    obs_trace.configure()
+                    obs_flight.install(flight)
+                    flight.start()
+                    _, run = _traffic_run(torch, engine, port, prompts,
+                                          max_new, phase)
+                else:
+                    obs_trace.configure(False)
+                    flight.close()
+                    obs_flight.deactivate()
+                    _, run = _traffic_run(torch, off_engine, off_port,
+                                          prompts, max_new, phase)
+                runs[which].append(run)
+    out = {}
+    for which, rs in runs.items():
+        tps = [r["decode_tokens_per_s_on_card"] for r in rs]
+        host = [r["decode_tokens_per_s_host"] for r in rs]
+        ttft = [r["ttft"]["p50"] for r in rs]
+        out[which] = {"decode_tokens_per_s_on_card": tps,
+                      "decode_tokens_per_s_host": host,
+                      "ttft_p50_s": ttft, "burst_s": [r["burst_s"]
+                                                      for r in rs]}
+        for key, vals in (("tokens_per_s", tps), ("host_tokens_per_s", host),
+                          ("ttft_p50_s", ttft)):
+            out[which][f"{key}_mean"] = sum(vals) / len(vals)
+            out[which][f"{key}_spread"] = max(vals) - min(vals)
+    out["on_over_off_tokens_per_s"] = \
+        out["on"]["tokens_per_s_mean"] / out["off"]["tokens_per_s_mean"]
+    out["on_over_off_ttft_p50"] = \
+        out["on"]["ttft_p50_s_mean"] / out["off"]["ttft_p50_s_mean"]
+    return out
+
+
+def serve_obs(torch, np, serve_cli, attention, card, model, bf16):
+    """The serving observability surfaces on full-width Llama-3-8B (the
+    serve phases' bf16 model from seed 0): the dense engine and the paged
+    engine with ``--speculate ngram``, each built by the CLI's own code
+    with ``--chip-accounting --slo-ttft-ms 200 --slo-tpot-ms 50
+    --trace-out --flight-recorder --metrics-port`` (and ``--event-log``)
+    behind the HTTP server, on serve_dense's traffic. Checks: ``/metrics``
+    and the ``--metrics-port`` listener serve the same families, every
+    tpu_serving_* family the JAX server renders for the mode among them,
+    and their request, token, TTFT and TPOT counts are what was served;
+    the device-time ledger sums to the envelopes it booked, beside the
+    chunks' CUDA-event span and the bubbles; the HBM model's weights
+    within HBM_WEIGHTS_RTOL of the allocation loading the model caused,
+    its ``kv_pool`` the cache tensors' bytes; ``POST /debug/flight``'s
+    bundle; each request's spans under its traceparent; one request under
+    ``--profile-dir`` naming ``flash_fwd_sm90_kernel`` once per launch.
+    On the dense engine, the overhead: the traffic OBS_REPEATS times with
+    every flag on and all off. Returns the flash kernel's launches."""
+    import tempfile
+
+    launches = 0
+    with tempfile.TemporaryDirectory(prefix="serve_obs-") as workdir:
+        for mode in OBS_MODES:
+            _, n, _ = _serve_obs_mode(
+                torch, np, serve_cli, attention, model, mode, workdir, card,
+                bf16["load_allocated_bytes"], overhead=mode == "dense")
+            launches += n
+    return launches
+
+
+def serve_obs_int8(torch, np, serve_cli, attention, int8_matmul, card,
+                   model, load_bytes):
+    """serve_obs's dense checks on the int8 model (``--quantize int8``):
+    every obs flag on, the same traffic, one profiled request naming
+    ``int8_mm_sm90_kernel`` beside the flash kernel, and the HBM model's
+    weights figure (JAX's: every matrix at bf16) printed beside the
+    allocation loading the int8 model caused. Returns (flash launches,
+    int8_mm launches)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="serve_obs_int8-") as workdir:
+        _, flash, int8 = _serve_obs_mode(
+            torch, np, serve_cli, attention, model, "dense", workdir, card,
+            load_bytes, int8_matmul=int8_matmul)
+    return flash, int8
+
+
 @contextlib.contextmanager
 def plain_int8(int8_matmul):
     """Inside the block, every int8 projection of the model (which
@@ -2602,15 +3204,7 @@ def _serve_int8_dense(torch, np, tf, serve_cli, attention, int8_matmul,
     vocab = cfg.vocab_size
     engine = serve_cli.ContinuousEngine(model, max_slots=8, chunk=32,
                                         prefill_chunk=512)
-    rng = np.random.default_rng(5)  # serve_dense's prompts
-    prefix = rng.integers(0, vocab, 1024).tolist()
-    prompts = {"prefix_1024": prefix}
-    for i in range(6):
-        prompts[f"shared_{i}"] = prefix + rng.integers(0, vocab, 64).tolist()
-    prompts["long_3000"] = rng.integers(0, vocab, 3000).tolist()
-    max_new = {name: 32 for name in prompts}
-    max_new["prefix_1024"] = 8
-    results = {}
+    prompts, max_new = _shared_prefix_prompts(np, vocab)
 
     def snapshot():
         return {"launches": attention.flash_fwd_launches,
@@ -2630,26 +3224,8 @@ def _serve_int8_dense(torch, np, tf, serve_cli, attention, int8_matmul,
         port = server.server_address[1]
         warm = state["warmup"]
         at_ready = snapshot()
-
-        def post(name):
-            results[name] = serve_cli.post_generate(
-                port, [prompts[name]], max_new[name])
-
-        post("prefix_1024")
-        t1 = time.perf_counter()
-        with concurrent.futures.ThreadPoolExecutor(7) as pool:
-            futures = [pool.submit(post, f"shared_{i}") for i in range(6)]
-            n = engine.n_chunks
-            deadline = time.monotonic() + 600
-            while engine.n_chunks == n:
-                if time.monotonic() > deadline:
-                    fail("serve_int8: no decode chunk after the shared "
-                         "requests were posted")
-                time.sleep(0.002)
-            futures.append(pool.submit(post, "long_3000"))
-            for f in futures:
-                f.result(timeout=600)
-        burst_s = time.perf_counter() - t1
+        results, _, burst_s = _post_shared_prefix(
+            engine, port, prompts, max_new, "serve_int8")
         done = snapshot()
     finally:
         server.shutdown()
@@ -2722,8 +3298,10 @@ def serve_int8(torch, np, tf, serve_cli, attention, int8_matmul, q8, card,
     _free(torch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    alloc0 = torch.cuda.memory_allocated()
     model = serve_cli.Model(cfg, seed=0, device="cuda", quantize="int8")
     torch.cuda.synchronize()
+    load_bytes = torch.cuda.memory_allocated() - alloc0
     row = {"phase": "serve_int8", **card, "model": "llama3-8b",
            "n_layers": cfg.n_layers, "init_and_quantize_s":
                time.perf_counter() - t0,
@@ -2759,6 +3337,9 @@ def serve_int8(torch, np, tf, serve_cli, attention, int8_matmul, q8, card,
         int8_matmul, phase="serve_int8_spec")
     if not spec_row["verifies"]:
         fail("serve_int8: the speculating engine ran no verify")
+    obs_flash, obs_int8 = serve_obs_int8(
+        torch, np, serve_cli, attention, int8_matmul, card, model,
+        load_bytes)
     _free(torch)
     with plain_int8(int8_matmul):
         held = _served_gaps(
@@ -2773,7 +3354,8 @@ def serve_int8(torch, np, tf, serve_cli, attention, int8_matmul, q8, card,
              f"logit on their own context: {held}")
     return {"serve_int8_generate": gen_row["int8_mm_launches"],
             "serve_int8_dense": dense_row["int8_mm_launches"],
-            "serve_int8_spec": spec_row["int8_mm_launches"]}
+            "serve_int8_spec": spec_row["int8_mm_launches"],
+            "serve_obs_int8": obs_int8}, obs_flash
 
 
 def _free(torch):
@@ -2983,9 +3565,12 @@ def main():
     _free(torch)
     robust_launches = serve_robust(torch, np, tf, serve_cli, attention,
                                    card, model)
+    _free(torch)
+    obs_launches = serve_obs(torch, np, serve_cli, attention, card, model,
+                             bf16)
     del model
-    int8_launches = serve_int8(torch, np, tf, serve_cli, attention,
-                               int8_matmul, q8, card, bf16)
+    int8_launches, obs_int8_launches = serve_int8(
+        torch, np, tf, serve_cli, attention, int8_matmul, q8, card, bf16)
     _free(torch)
     train_grads(torch, np, tf, attention)
     _free(torch)
@@ -3007,12 +3592,15 @@ def main():
             "source": src + "flash_fwd.cu",
             "replaces": replaces + "136",
             "launches": serve_launches + paged_launches + spec_launches
-            + dense_launches + robust_launches + fwd_train,
+            + dense_launches + robust_launches + obs_launches
+            + obs_int8_launches + fwd_train,
             "launches_by_path": {"serve": serve_launches,
                                  "serve_paged": paged_launches,
                                  "serve_spec": spec_launches,
                                  "serve_dense": dense_launches,
                                  "serve_robust": robust_launches,
+                                 "serve_obs": obs_launches,
+                                 "serve_obs_int8": obs_int8_launches,
                                  "train": fwd_train},
             "max_abs_err": main_row["max_abs_err_out"],
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],

@@ -12,7 +12,11 @@ the JAX package; what it needs from there is copied.
   models/transformer.py  Llama-style decoder, dense KV cache, generate()
   models/serving_graphs.py  the serving decode as CUDA graphs per bucket
   models/weights.py      bridge from the JAX parameter pytree (tests)
-  models/serve_cli.py    HTTP serving daemon (/generate, /healthz)
+  models/serve_cli.py    HTTP serving daemon (/generate, /healthz,
+                         /metrics, /debug/flight)
+  obs/                   metrics, events, spans, the device-time ledger,
+                         the HBM model, the flight recorder, alert rules
+  utils/profiling.py     --profile-dir's torch.profiler bracket
   warmstart/warmup.py    the shape grid run before ready (--warmup=all)
 
 Entry points run on the CUDA device unless the caller passes

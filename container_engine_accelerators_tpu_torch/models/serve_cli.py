@@ -51,17 +51,26 @@ Endpoints (the same JSON as the JAX server):
                    prefix_hit_ratio and free_blocks, one with
                    --tenant-classes also tenant_queues (queued rows
                    per class)
+  GET  /metrics    Prometheus text: the request counters
+                   (``ServingMetrics``) and the engine's or batcher's
+                   registry, under the JAX server's families
+                   (``tpu_serving_*``; ``--metrics-port`` serves it on a
+                   port of its own too)
   POST /generate   {"tokens": [[...]], "max_new_tokens": N,
                     "temperature": 0.0, "top_k": 0, "top_p": 1.0,
-                    "seed": 0, "deadline_s": D, "tenant": "..."}
-                   (temperature 0 = greedy; deadline_s and tenant,
-                   else the X-Tenant-Class header, reach an engine
-                   only)
+                    "seed": 0, "deadline_s": D, "tenant": "...",
+                    "traceparent": "00-..."}
+                   (temperature 0 = greedy; deadline_s, tenant (else
+                   the X-Tenant-Class header) and traceparent (else the
+                   W3C traceparent header) reach an engine only)
                    → {"tokens": [[...]], "latency_s": ...,
                       "sampler": {"temperature", "top_k", "top_p"}}
                    → 429 {"error", "shed": reason[, "tenant"]} when an
                       engine sheds the request (queue_full, deadline,
                       quota, class_share); 500 on any other error
+  POST /debug/flight  dump the flight recorder's bundle now
+                   (``--flight-recorder``) → {"bundle": path}; 503
+                   when it is off, 429 when its rate limit held it
 
 Sampler params snap to the JAX server's whitelist grids
 (sanitize_sampler). Sampled requests draw from a ``torch.Generator``
@@ -77,11 +86,24 @@ drains that migrate in-flight rows to fresh slots (``drain``,
 (``--fault-plan``) whose faults fire before the prefill, chunk and
 verify dispatches.
 
+Observability, the JAX server's: the engine keeps its instruments
+(steps, prefills, chunks, phase seconds, TTFT and TPOT histograms,
+occupancy, KV blocks, prefix hits, speculation) on its registry and
+``stats()`` reads them back; ``--event-log`` writes its structured
+events (retired requests, sheds, retries, migrations) and the fault
+plan's; ``--slo-ttft-ms``/``--slo-tpot-ms`` classify every retired or
+shed request (``ServingSLO``); ``--chip-accounting`` attributes each
+dispatch's host wall to the rows it served
+(``obs.devicetime.DeviceTimeLedger``) and models the card's memory by
+component (``obs.hbm.HbmModel``); ``--trace-out`` writes the request
+and engine spans as a Chrome trace; ``--profile-dir`` brackets the
+same run with ``torch.profiler`` (``utils.profiling``);
+``--flight-recorder`` keeps a black box of recent snapshots and
+``--alert-rules`` evaluates burn-rate rules over the registries. Each
+costs one ``is None`` check per hook when its flag is off.
+
 Not ported yet (ROADMAP.md): KV handoff, the multi-host link, tensor
-parallelism, the fleet reactor, and the obs surfaces (/metrics with
-the serving SLO, traces, chip accounting). ``--event-log`` writes the
-engine's structured events (sheds, retries, migrations) and the fault
-plan's.
+parallelism, and the fleet reactor (``faults/reactor.FleetReactor``).
 
   python -m container_engine_accelerators_tpu_torch.models.serve_cli \\
       --preset llama3-8b --port 8000
@@ -129,9 +151,18 @@ from container_engine_accelerators_tpu_torch.kvcache.manager import (
 from container_engine_accelerators_tpu_torch.models import quantization as q8
 from container_engine_accelerators_tpu_torch.models import serving_graphs
 from container_engine_accelerators_tpu_torch.models import transformer as tf
+from container_engine_accelerators_tpu_torch.obs import alerts as obs_alerts
+from container_engine_accelerators_tpu_torch.obs import (
+    devicetime as obs_devicetime,
+)
 from container_engine_accelerators_tpu_torch.obs import events as obs_events
+from container_engine_accelerators_tpu_torch.obs import flight as obs_flight
+from container_engine_accelerators_tpu_torch.obs import hbm as obs_hbm
 from container_engine_accelerators_tpu_torch.obs import metrics as obs_metrics
+from container_engine_accelerators_tpu_torch.obs import ports as obs_ports
+from container_engine_accelerators_tpu_torch.obs import trace as obs_trace
 from container_engine_accelerators_tpu_torch.ops import paged_attention as pa
+from container_engine_accelerators_tpu_torch.utils import profiling
 from container_engine_accelerators_tpu_torch.warmstart import (
     warmup as ws_warmup,
 )
@@ -143,9 +174,14 @@ log = logging.getLogger("serve_cli")
 MAX_BATCH = 8
 # --quantize's choices, the JAX server's.
 QUANTIZE_MODES = ("none", "int8")
-# The JAX server's bucket bounds of tpu_serving_queue_wait_seconds.
+# The JAX server's histogram bucket bounds.
+TTFT_BUCKETS = (0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
+                30.0)
+TPOT_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+                1.0)
 QUEUE_WAIT_BUCKETS = (0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 10.0,
                       30.0)
+LATENCY_BUCKETS = (0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0)
 
 
 # Typed sheds, the JAX server's: the HTTP layer maps each to a 429
@@ -195,6 +231,70 @@ class ClassShareExceeded(ShedError):
     def __init__(self, message, tenant="default"):
         super().__init__(message)
         self.tenant = tenant
+
+
+class ServingSLO:
+    """Per-request SLO classification, the JAX server's: every retired
+    request is judged against the TTFT and TPOT objectives, and every
+    shed (queue full, expired deadline, tenant policy) counts against
+    the error budget. Exposes
+    ``tpu_serving_slo_requests_total{outcome,tenant_class}`` (outcomes
+    ``good``, ``slow_ttft``, ``slow_tpot``, ``shed``; tenant_class a
+    configured ``--tenant-classes`` name, else ``default``) and the
+    ``tpu_serving_slo_goodput_ratio`` gauge over the trailing
+    ``window`` requests, which the burn-rate alert rules read. An engine
+    holds one only when ``--slo-ttft-ms`` or ``--slo-tpot-ms`` is set
+    (``_make_slo``); ``slo=None`` costs the retire path one check."""
+
+    def __init__(self, ttft_s=0.0, tpot_s=0.0, registry=None,
+                 window=512):
+        self.ttft_s = float(ttft_s)
+        self.tpot_s = float(tpot_s)
+        self.registry = registry if registry is not None \
+            else obs_metrics.Registry()
+        self.requests = obs_metrics.Counter(
+            "tpu_serving_slo_requests_total",
+            "Requests classified against the serving SLO (sheds and "
+            "expired deadlines count against the budget), per tenant "
+            "class (\"default\" when tenant admission is off)",
+            ["outcome", "tenant_class"], registry=self.registry)
+        self._ring = collections.deque(maxlen=window)
+        self._lock = threading.Lock()
+        obs_metrics.Gauge(
+            "tpu_serving_slo_goodput_ratio",
+            "Fraction of the trailing requests meeting the SLO "
+            "(1.0 until the first request)", registry=self.registry,
+        ).set_function(self.goodput_ratio)
+
+    def goodput_ratio(self):
+        with self._lock:
+            if not self._ring:
+                return 1.0
+            return sum(self._ring) / len(self._ring)
+
+    def _record(self, outcome, tenant_class):
+        self.requests.labels(outcome, tenant_class or "default").inc()
+        with self._lock:
+            self._ring.append(1.0 if outcome == "good" else 0.0)
+        return outcome
+
+    def classify_retired(self, ttft_s, tpot_s, tenant_class="default"):
+        """Outcome for one retired request (``tpot_s`` None when fewer
+        than two tokens were generated: TPOT undefined, not violated)."""
+        if self.ttft_s and ttft_s is not None and ttft_s > self.ttft_s:
+            return self._record("slow_ttft", tenant_class)
+        if self.tpot_s and tpot_s is not None and tpot_s > self.tpot_s:
+            return self._record("slow_tpot", tenant_class)
+        return self._record("good", tenant_class)
+
+    def record_shed(self, reason, tenant_class="default"):
+        del reason  # the shed counter carries it; the SLO label stays bounded
+        return self._record("shed", tenant_class)
+
+
+def _total(counter):
+    """A labeled counter's sum over its series (0.0 before the first)."""
+    return sum(child.value for _, child in counter._series())
 
 
 # Sampler whitelists, copied from the JAX server so both snap client
@@ -287,18 +387,31 @@ class BatchingModel:
     malformed request fails alone. When a coalesced call fails, each
     waiter raises its own exception, chained from the call's.
 
-    Plain counters stand in for the JAX batcher's metrics: ``batch_rows``
-    (the rows of the last coalesced call), ``queue_wait_s`` (enqueue to
-    dispatch, per request, the latest 4096) and ``n_batches`` (coalesced
-    calls made)."""
+    Its instruments are the JAX batcher's, on ``registry`` (a fresh
+    ``obs.metrics.Registry`` when None): ``tpu_serving_batch_rows`` (the
+    rows of the last coalesced call) and
+    ``tpu_serving_batcher_queue_wait_seconds`` (enqueue to dispatch, per
+    request); ``n_batches`` counts the coalesced calls made. Each call
+    is a ``coalesced_batch`` span when tracing."""
 
-    def __init__(self, model, window_ms=5.0, max_batch=MAX_BATCH):
+    def __init__(self, model, window_ms=5.0, max_batch=MAX_BATCH,
+                 registry=None):
         self.model = model
         self.cfg = model.cfg
         self.window_s = window_ms / 1e3
         self.max_batch = max_batch
-        self.batch_rows = 0
-        self.queue_wait_s = collections.deque(maxlen=4096)
+        self.registry = registry if registry is not None \
+            else obs_metrics.Registry()
+        self._m_batch_rows = obs_metrics.Gauge(
+            "tpu_serving_batch_rows",
+            "Rows coalesced into the last shared device call",
+            registry=self.registry)
+        # Not the engine's tpu_serving_queue_wait_seconds: another wait,
+        # and one scrape may render both registries.
+        self._m_queue_wait = obs_metrics.Histogram(
+            "tpu_serving_batcher_queue_wait_seconds",
+            "Enqueue -> dispatch wait inside the micro-batcher",
+            buckets=QUEUE_WAIT_BUCKETS, registry=self.registry)
         self.n_batches = 0
         self._q = queue.Queue()
         self._lock = threading.Lock()
@@ -327,7 +440,7 @@ class BatchingModel:
             "event": threading.Event(),
             "out": None,
             "err": None,
-            "t_enq": time.perf_counter(),
+            "t_enq": obs_trace.now(),
         }
         with self._lock:
             if self._stopped:
@@ -399,12 +512,15 @@ class BatchingModel:
 
     def _run(self, batch):
         all_rows = [r for item in batch for r in item["tokens"]]
-        self.batch_rows = len(all_rows)
-        now = time.perf_counter()
-        self.queue_wait_s.extend(now - item["t_enq"] for item in batch)
+        self._m_batch_rows.set(len(all_rows))
+        now = obs_trace.now()
+        for item in batch:
+            self._m_queue_wait.observe(now - item["t_enq"])
         self.n_batches += 1
         try:
-            out = self.model.generate(all_rows, batch[0]["max_new"])
+            with obs_trace.span("coalesced_batch", rows=len(all_rows),
+                                requests=len(batch)):
+                out = self.model.generate(all_rows, batch[0]["max_new"])
         except Exception as e:  # noqa: BLE001 - fan the error out
             for item in batch:
                 # Each waiter raises its own exception object.
@@ -567,13 +683,31 @@ class ContinuousEngine:
     makes the queue a stride-scheduled ``TenantQueue`` with per-class
     queue shares and token-rate quotas, and :meth:`drain` migrates
     in-flight rows off their slots to re-prefill their context on fresh
-    ones. The sheds, retries, migrations and queue waits are instruments
-    on ``registry`` (a fresh ``obs.metrics.Registry`` when None) under
-    the JAX engine's names; ``events`` (an ``obs.events.EventStream``)
-    receives ``request_shed``, ``tenant_shed``, ``step_retry``,
-    ``request_migrated`` and ``migration_replayed`` records. Control
-    calls (:meth:`run_on_loop`) have a queue of their own, outside the
-    bound and the tenant classes.
+    ones. Control calls (:meth:`run_on_loop`) have a queue of their own,
+    outside the bound and the tenant classes.
+
+    Observability, the JAX engine's: every instrument lives on
+    ``registry`` (a fresh ``obs.metrics.Registry`` when None) under the
+    JAX engine's names, and :meth:`stats` is a view over it. ``events``
+    (an ``obs.events.EventStream``) receives ``request_retired``,
+    ``request_shed``, ``tenant_shed``, ``step_retry``,
+    ``request_migrated`` and ``migration_replayed`` records. ``slo`` (a
+    :class:`ServingSLO`) classifies every retired and shed row;
+    ``devicetime`` (an ``obs.devicetime.DeviceTimeLedger``) attributes
+    each dispatch's host wall, and on the paged loop the deferred sync's
+    wait apart, to the rows it served, as JAX does; ``hbm`` (an
+    ``obs.hbm.HbmModel``, attached by ``_attach_hbm``) models the card's
+    memory. With the tracer on (``obs.trace.configure``) each request
+    leaves ``queue``, ``admit``, ``prefill`` (one a segment),
+    ``decode``, ``retire`` and ``request`` spans on its own track and
+    the loop a ``decode_chunk`` span a chunk. Each of these costs one
+    ``is None`` check a hook when off. TTFT and TPOT are observed when
+    the first and last tokens land on the host (at the deferred sync on
+    a paged engine). Beside the registry the engine keeps the port's
+    split of the phase seconds (``t_*_dispatch_s``, ``t_*_wait_s``, and
+    ``t_*_device_s`` timed by CUDA events between a chunk's or a
+    verify's launch and its sync) and ``ttft_s``, the (prompt length,
+    TTFT) of the latest 4096 requests.
 
     Greedy only: sampled requests go to the wrapped ``Model.generate``.
     """
@@ -587,7 +721,8 @@ class ContinuousEngine:
                  kv_block_size=16, kv_blocks=0, speculate="off",
                  speculate_k=8, spec_proposer=None, max_queue=0,
                  deadline_s=0.0, step_retries=0, retry_backoff_s=0.05,
-                 registry=None, events=None, tenants=None):
+                 registry=None, events=None, tenants=None, slo=None,
+                 devicetime=None):
         if max_slots < 1 or chunk < 1 or prefill_chunk < 1:
             raise ValueError(
                 f"max_slots ({max_slots}), chunk ({chunk}) and "
@@ -691,8 +826,61 @@ class ContinuousEngine:
         self._rid = itertools.count(
             1 + 1_000_000 * next(ContinuousEngine._engine_seq))
         self.events = events
+        self.slo = slo
+        self.devicetime = devicetime
+        # Attached after construction by _attach_hbm (the model reads the
+        # built engine's pools).
+        self.hbm = None
         reg = registry if registry is not None else obs_metrics.Registry()
         self.registry = reg
+        # The JAX engine's instruments (engine-loop writer; scrapes read
+        # them from other threads). *_seconds_total: host wall around
+        # each device call, its sync included (deferred on a paged
+        # engine), and idle blocks; occupied_steps: token positions
+        # advanced on the device.
+        self._m_steps = obs_metrics.Counter(
+            "tpu_serving_engine_steps_total",
+            "Continuous engine decode-step clock", registry=reg)
+        self._m_prefills = obs_metrics.Counter(
+            "tpu_serving_engine_prefills_total",
+            "Prefill device calls (single-shot or per segment)",
+            registry=reg)
+        self._m_chunks = obs_metrics.Counter(
+            "tpu_serving_engine_chunks_total",
+            "Fused decode-chunk device calls", registry=reg)
+        self._m_t_prefill = obs_metrics.Counter(
+            "tpu_serving_engine_prefill_seconds_total",
+            "Wall seconds inside prefill device calls", registry=reg)
+        self._m_t_chunk = obs_metrics.Counter(
+            "tpu_serving_engine_chunk_seconds_total",
+            "Wall seconds inside decode-chunk device calls", registry=reg)
+        self._m_t_idle = obs_metrics.Counter(
+            "tpu_serving_engine_idle_seconds_total",
+            "Wall seconds blocked on an empty queue", registry=reg)
+        self._m_occupied_steps = obs_metrics.Counter(
+            "tpu_serving_engine_occupied_steps_total",
+            "Token-positions advanced on device (steps x occupied rows)",
+            registry=reg)
+        obs_metrics.Gauge(
+            "tpu_serving_engine_occupied_slots",
+            "Continuous engine occupied KV slots", registry=reg,
+        ).set_function(
+            lambda: sum(r is not None for r in self.occupied))
+        obs_metrics.Gauge(
+            "tpu_serving_engine_queue_depth",
+            "Requests waiting for a slot", registry=reg,
+        ).set_function(self._q.qsize)
+        self._m_batch = obs_metrics.Gauge(
+            "tpu_serving_engine_batch_size",
+            "Rows advanced by the last fused decode chunk", registry=reg)
+        self._m_ttft = obs_metrics.Histogram(
+            "tpu_serving_ttft_seconds",
+            "Time to first token (enqueue -> prefill's first token)",
+            buckets=TTFT_BUCKETS, registry=reg)
+        self._m_tpot = obs_metrics.Histogram(
+            "tpu_serving_tpot_seconds",
+            "Per-output-token decode time (first token -> retire)",
+            buckets=TPOT_BUCKETS, registry=reg)
         self._m_queue_wait = obs_metrics.Histogram(
             "tpu_serving_queue_wait_seconds",
             "Enqueue -> slot-admission wait", buckets=QUEUE_WAIT_BUCKETS,
@@ -719,46 +907,83 @@ class ContinuousEngine:
                 "tenant class and reason (class_share: weighted queue "
                 "slice exhausted; quota: token-rate bucket outrun)",
                 ["tenant_class", "reason"], registry=reg)
-        # Plain counters in place of the rest of the JAX engine's
-        # instruments (engine-loop writer; readers take GIL-atomic
-        # snapshots).
-        # t_*_dispatch_s: host wall inside the device calls (enqueueing
-        # the work); t_*_wait_s: the syncs' waits (deferred on a paged
-        # engine); t_chunk_device_s (CUDA only): event-timed device span
-        # of each chunk, read at its sync.
-        self.steps_done = 0
-        self.n_prefills = 0
-        self.n_chunks = 0
-        self.occupied_steps = 0
+        if self.kv is not None:
+            # Paged only, as in JAX.
+            self._m_prefix_hit = obs_metrics.Counter(
+                "tpu_serving_prefix_cache_hit_tokens_total",
+                "Prompt tokens served from the radix prefix cache "
+                "(prefill skipped)", registry=reg)
+            self._m_prefix_miss = obs_metrics.Counter(
+                "tpu_serving_prefix_cache_miss_tokens_total",
+                "Prompt tokens that had to prefill (no cached prefix)",
+                registry=reg)
+            self._m_cow = obs_metrics.Counter(
+                "tpu_serving_kv_cow_copies_total",
+                "Shared KV blocks forked copy-on-write before a write",
+                registry=reg)
+            obs_metrics.Gauge(
+                "tpu_serving_kv_blocks_free",
+                "Unallocated KV blocks in the paged pool",
+                registry=reg,
+            ).set_function(self.kv.free_blocks)
+            obs_metrics.Gauge(
+                "tpu_serving_kv_blocks_cached",
+                "KV blocks held by the radix prefix index (reusable, "
+                "evictable)", registry=reg,
+            ).set_function(self.kv.cached_blocks)
+            # Prefilled tokens, for reused_prefill_s's per-token cost.
+            self._prefill_tokens = 0
+        if self.spec_proposer is not None:
+            # Speculating only, as in JAX.
+            self._m_spec_proposed = obs_metrics.Counter(
+                "tpu_serving_spec_proposed_tokens_total",
+                "Speculative tokens proposed for verification, by "
+                "proposal source", ["source"], registry=reg)
+            self._m_spec_accepted = obs_metrics.Counter(
+                "tpu_serving_spec_accepted_tokens_total",
+                "Extra tokens emitted per verify step beyond the "
+                "1-token baseline (each one a sequential device step "
+                "saved), by proposal source", ["source"], registry=reg)
+            self._m_spec_verifies = obs_metrics.Counter(
+                "tpu_serving_spec_verify_steps_total",
+                "Speculative verify device dispatches (one BATCH of "
+                "scored width-k segments each — every speculating row "
+                "of a window group advances per dispatch)",
+                registry=reg)
+            self._m_t_verify = obs_metrics.Counter(
+                "tpu_serving_engine_verify_seconds_total",
+                "Wall seconds inside speculative verify device calls",
+                registry=reg)
+            # The trailing rounds' (proposed, accepted): the loop
+            # appends, scrapes read (the lock, as in JAX).
+            self._spec_rounds = collections.deque(maxlen=256)
+            self._spec_lock = threading.Lock()
+            obs_metrics.Gauge(
+                "tpu_serving_spec_acceptance_ratio",
+                "Accepted/proposed over the trailing verify rounds "
+                "(0 until the first round)", registry=reg,
+            ).set_function(self._spec_acceptance)
+        # The port's split of the phase seconds (engine-loop writer):
+        # t_*_dispatch_s, host wall enqueueing the calls; t_*_wait_s, the
+        # syncs' waits (deferred on a paged engine); t_*_device_s (CUDA
+        # only), the event-timed span of each chunk or verify on the
+        # card, read at its sync.
         self.t_prefill_dispatch_s = 0.0
         self.t_prefill_wait_s = 0.0
         self.t_chunk_dispatch_s = 0.0
         self.t_chunk_wait_s = 0.0
         self.t_chunk_device_s = 0.0
-        self.t_idle_s = 0.0
-        # Chunks on a CUDA engine that did not replay their window's graph
-        # once per step (a seam swapped for an eager call): 0 on the path.
-        self.eager_chunks_on_cuda = 0
-        # Speculation, in place of the JAX engine's spec metrics:
-        # proposed tokens, accepted ones (emitted beyond the correction),
-        # verify dispatches (one per window group), their host dispatch
-        # and sync-wait seconds and their event-timed span on the card
-        # (CUDA only), the trailing rounds' (proposed, accepted) for the
-        # acceptance ratio, each retired row's accepted count, and
-        # verifies on CUDA that did not replay their graph (0 on the
-        # path).
-        self.spec_proposed = 0
-        self.spec_accepted = 0
-        self.spec_verifies = 0
         self.t_verify_dispatch_s = 0.0
         self.t_verify_wait_s = 0.0
         self.t_verify_device_s = 0.0
-        self._spec_rounds = collections.deque(maxlen=256)
-        self.retired_spec_accepted = collections.deque(maxlen=4096)
+        # Chunks and verifies on a CUDA engine that did not replay their
+        # graph (a seam swapped for an eager call): 0 on the path.
+        self.eager_chunks_on_cuda = 0
         self.eager_verifies_on_cuda = 0
+        # Each retired row's accepted speculative tokens.
+        self.retired_spec_accepted = collections.deque(maxlen=4096)
         # (prompt length, seconds from enqueue to the first token landing
-        # on the host) per request: the stand-in for the JAX engine's
-        # TTFT histogram.
+        # on the host) per request, the latest 4096.
         self.ttft_s = collections.deque(maxlen=4096)
         self._stop = threading.Event()
         self._thread = None
@@ -807,22 +1032,28 @@ class ContinuousEngine:
 
     # -- public surface -------------------------------------------------------
 
-    def _shed_tenant(self, exc, tenant_class, rows):
+    def _shed_tenant(self, exc, tenant_class, rows, trace_id=""):
         """Account one tenant-policy shed (quota / class share) and raise
-        it: the per-class counters move and a ``tenant_shed`` event lands
-        on the stream, but no ``request_shed`` record (that one reports
-        engine-wide overload only)."""
+        it: the per-class counters and the SLO budget move and a
+        ``tenant_shed`` event lands on the stream, but no
+        ``request_shed`` record (that one reports engine-wide overload
+        only)."""
         self._m_shed.labels(exc.reason).inc(rows)
         self._m_tenant_shed.labels(tenant_class, exc.reason).inc(rows)
+        if self.slo is not None:
+            for _ in range(rows):
+                self.slo.record_shed(exc.reason, tenant_class)
         if self.events is not None:
             self.events.emit(
                 "tenant_shed", severity="warning",
                 tenant_class=tenant_class, reason=exc.reason, rows=rows,
+                trace_id=trace_id,
             )
         raise exc
 
     def generate(self, tokens, max_new_tokens, temperature=0.0, top_k=0,
-                 top_p=1.0, seed=0, deadline_s=None, tenant=None):
+                 top_p=1.0, seed=0, deadline_s=None, tenant=None,
+                 traceparent=None):
         """Greedy rows join the engine and block until they retire; a
         sampled request goes to the wrapped model on its own. Returns
         ``[prompt + generated]`` per row.
@@ -832,10 +1063,18 @@ class ContinuousEngine:
         (:class:`QueueFull`), the class's token-rate quota
         (:class:`QuotaExceeded`); each sheds the whole request before
         any row is queued. ``deadline_s`` (else the engine's) sets the
-        rows' admission deadline; ``tenant`` names their class."""
+        rows' admission deadline; ``tenant`` names their class;
+        ``traceparent`` (W3C) names the trace their spans and events
+        carry."""
         temperature, top_k, top_p = sanitize_sampler(
             temperature, top_k, top_p, self.cfg.vocab_size
         )
+        trace_id = ""
+        trace_sampled = False
+        if traceparent is not None:
+            tctx = obs_trace.parse_traceparent(traceparent)
+            if tctx is not None:
+                trace_id, trace_sampled = tctx[0], tctx[2]
         if temperature != 0.0:
             return self.model.generate(
                 tokens, max_new_tokens, temperature=temperature,
@@ -865,11 +1104,16 @@ class ContinuousEngine:
                         f"({self._q.depth(tcls.name)} waiting, share "
                         f"bound {bound}); retry with backoff",
                         tenant=tcls.name,
-                    ), tcls.name, len(tokens))
+                    ), tcls.name, len(tokens), trace_id=trace_id)
         # A watermark, not an exact cap: qsize is approximate across
         # racing handlers.
         if self.max_queue and self._q.qsize() + len(tokens) > self.max_queue:
             self._m_shed.labels("queue_full").inc(len(tokens))
+            if self.slo is not None:
+                for _ in tokens:
+                    self.slo.record_shed(
+                        "queue_full",
+                        tcls.name if tcls is not None else "default")
             if self.events is not None:
                 self.events.emit(
                     "request_shed", severity="warning",
@@ -886,10 +1130,10 @@ class ContinuousEngine:
             self._shed_tenant(QuotaExceeded(
                 f"tenant class {tcls.name} outran its token-rate "
                 f"quota; retry with backoff", tenant=tcls.name,
-            ), tcls.name, len(tokens))
+            ), tcls.name, len(tokens), trace_id=trace_id)
         if deadline_s is None:
             deadline_s = self.deadline_s
-        t_enq = time.perf_counter()
+        t_enq = obs_trace.now()
         rows = [
             {
                 "prompt": [int(t) for t in r],
@@ -902,6 +1146,8 @@ class ContinuousEngine:
                 "t_enq": t_enq,
                 "deadline": (t_enq + deadline_s) if deadline_s else None,
                 "tenant": tcls.name if tcls is not None else None,
+                "trace_id": trace_id,
+                "trace_sampled": trace_sampled,
             }
             for r in tokens
         ]
@@ -915,30 +1161,31 @@ class ContinuousEngine:
         return [row["prompt"] + row["out"] for row in rows]
 
     def stats(self):
-        """Engine telemetry under the JAX engine's key set; a speculating
+        """Engine telemetry under the JAX engine's key set, a view over
+        ``registry`` (the numbers ``/metrics`` exposes); a speculating
         engine adds ``spec_proposed``, ``spec_accepted``,
         ``spec_verifies`` and ``spec_acceptance`` (accepted over proposed
-        in the trailing 256 rounds), the counters the JAX engine keeps as
-        metrics only when it speculates."""
+        in the trailing 256 rounds), read from the instruments the JAX
+        engine keeps only when it speculates."""
         out = {
-            "steps_done": self.steps_done,
-            "n_prefills": self.n_prefills,
-            "n_chunks": self.n_chunks,
+            "steps_done": int(self._m_steps.value),
+            "n_prefills": int(self._m_prefills.value),
+            "n_chunks": int(self._m_chunks.value),
             "occupied_slots": sum(r is not None for r in self.occupied),
             "queue_depth": self._q.qsize(),
-            "t_prefill_s": self.t_prefill_dispatch_s + self.t_prefill_wait_s,
-            "t_chunk_s": self.t_chunk_dispatch_s + self.t_chunk_wait_s,
-            "t_idle_s": self.t_idle_s,
-            "occupied_steps": self.occupied_steps,
+            "t_prefill_s": self._m_t_prefill.value,
+            "t_chunk_s": self._m_t_chunk.value,
+            "t_idle_s": self._m_t_idle.value,
+            "occupied_steps": int(self._m_occupied_steps.value),
             # Queued rows per tenant class ({} without tenant classes).
             "tenant_queues": (
                 self._q.depths() if self.tenants is not None else {}
             ),
         }
         if self.spec_proposer is not None:
-            out.update(spec_proposed=self.spec_proposed,
-                       spec_accepted=self.spec_accepted,
-                       spec_verifies=self.spec_verifies,
+            out.update(spec_proposed=int(_total(self._m_spec_proposed)),
+                       spec_accepted=int(_total(self._m_spec_accepted)),
+                       spec_verifies=int(self._m_spec_verifies.value),
                        spec_acceptance=self._spec_acceptance())
         return out
 
@@ -948,6 +1195,14 @@ class ContinuousEngine:
         if self.kv is None:
             return None
         return self.kv.stats()
+
+    def chip_stats(self):
+        """The device-time ledger's lifetime totals (seconds by phase and
+        tenant class, bubbles); None without ``devicetime``, as in
+        JAX."""
+        if self.devicetime is None:
+            return None
+        return self.devicetime.snapshot()
 
     def graph_stats(self):
         """The decode graphs' counters (a dense engine's chunk graphs, a
@@ -1019,7 +1274,15 @@ class ContinuousEngine:
 
     def shutdown(self):
         """Stop the engine loop and fail whatever is still queued or in
-        flight, so a caller can drop the engine and free its pools."""
+        flight, so a caller can drop the engine and free its pools. With
+        an event stream, the ledger's and the HBM model's lifetime
+        records (``chip_accounting``, ``hbm_snapshot``) land on it
+        first, as in JAX."""
+        if self.events is not None:
+            if self.devicetime is not None:
+                self.devicetime.emit_snapshot(self.events)
+            if self.hbm is not None:
+                self.hbm.emit_snapshot(self.events)
         self._stop.set()
         if self._thread is not None:
             self._thread.join(60.0)
@@ -1085,31 +1348,43 @@ class ContinuousEngine:
     def _shed(self, row, exc):
         """Reject ``row`` with a typed shed (admission-time policy)."""
         self._m_shed.labels(exc.reason).inc()
+        if self.slo is not None:
+            self.slo.record_shed(exc.reason, row.get("tenant") or "default")
         if self.events is not None:
             self.events.emit(
                 "request_shed", severity="warning", reason=exc.reason,
                 rid=row["rid"],
             )
+        if obs_trace.enabled():
+            obs_trace.event("shed", obs_trace.now(), 0.0,
+                            track=f"req-{row['rid']}", reason=exc.reason,
+                            trace_id=row.get("trace_id", ""))
         row["err"] = exc
         row["event"].set()
 
     def _admission_open(self, row):
         """Admission's common head (the JAX ``_admit``'s): shed a row
         that waited out its deadline in the queue, unless it has decode
-        state already (a migrated row: its work is paid for), and
-        observe a first admission's queue wait. False when shed."""
-        now = time.perf_counter()
+        state already (a migrated row: its work is paid for), observe a
+        first admission's queue wait and, tracing, close the ``queue``
+        span. Returns the admission's start (tracer time), or None when
+        shed."""
+        now = obs_trace.now()
         if row.get("deadline") is not None and "generated" not in row \
                 and now > row["deadline"]:
             self._shed(row, DeadlineExceeded(
                 f"deadline expired after {now - row['t_enq']:.3f}s in "
                 f"queue"
             ))
-            return False
+            return None
         if "t_admit" not in row:
             self._m_queue_wait.observe(now - row["t_enq"])
             row["t_admit"] = now
-        return True
+        if obs_trace.enabled():
+            obs_trace.event("queue", row["t_enq"], now - row["t_enq"],
+                            track=f"req-{row['rid']}",
+                            trace_id=row.get("trace_id", ""))
+        return now
 
     def _backoff_delay(self, attempt):
         """Jittered exponential backoff between step retries (full
@@ -1125,12 +1400,15 @@ class ContinuousEngine:
         ``attrs``) and sleeps the backoff on the loop thread, as in JAX.
         ``launched()`` (optional) counts the call's launches: an attempt
         that raised after it moved left state advanced in place and is
-        not retried. Raises the last attempt's error."""
+        not retried. Returns (the result, the host time the successful
+        attempt started: the dispatch envelope opens there, as in JAX);
+        raises the last attempt's error."""
         attempt = 0
         while True:
             mark = launched() if launched is not None else None
+            t0 = time.perf_counter()
             try:
-                return call()
+                return call(), t0
             except Exception as e:  # noqa: BLE001 - retried or re-raised
                 if attempt >= self.step_retries or (
                         launched is not None and launched() != mark):
@@ -1182,14 +1460,20 @@ class ContinuousEngine:
                     row.pop("ctx", None)
                     row.pop("n_generated", None)
                     self._drop_spec(i, row)
-                row["migrated_at"] = time.perf_counter()
+                row["migrated_at"] = obs_trace.now()
                 self._m_migrated.inc()
                 if self.events is not None:
                     self.events.emit(
                         "request_migrated", severity="warning",
                         rid=row["rid"], slot=i, reason=reason,
                         generated=len(row.get("generated", [])),
+                        trace_id=row.get("trace_id", ""),
                     )
+                if obs_trace.enabled():
+                    obs_trace.event(
+                        "migrate", obs_trace.now(), 0.0,
+                        track=f"req-{row['rid']}", slot=i, reason=reason,
+                        trace_id=row.get("trace_id", ""))
                 self._q.put(row)
 
     def _note_migration_replayed(self, row, slot):
@@ -1198,7 +1482,7 @@ class ContinuousEngine:
         (``lost_s``)."""
         if "migrated_at" not in row:
             return
-        lost = time.perf_counter() - row.pop("migrated_at")
+        lost = obs_trace.now() - row.pop("migrated_at")
         if self.events is not None:
             self.events.emit("migration_replayed", rid=row["rid"],
                              slot=slot, lost_s=round(lost, 6))
@@ -1211,18 +1495,21 @@ class ContinuousEngine:
     # from what each sync reads back.
 
     def _dense_call(self, targets, phase, dispatch, step, chunk=False,
-                    launched=None, **attrs):
+                    launched=None, devt=None, **attrs):
         """One device call of the dense loop and its sync. ``dispatch()``
         enqueues the call and returns the device tensor to read back, or
         None; ``chunk`` charges its time to the chunk timers, else to the
         prefill ones. The dispatch and its read-back are retried as
         ``step`` (``_retrying``, with ``launched`` and ``attrs``).
-        Returns (ok, the tensor's host values as a numpy array, or None).
-        A call that still raises at dispatch fails ``targets`` ((slot,
-        row) pairs) and keeps the cache: the rows' own cache entries are
-        all it may have written. An error that surfaces at the sync resets the
-        engine (``_reset_dense``), which fails them: the device may have
-        written anything."""
+        ``devt`` ((ledger phase, [(row, weight), ...])) is what the
+        device-time ledger books the envelope to: the successful
+        attempt's dispatch and its sync, as in JAX. Returns (ok, the
+        tensor's host values as a numpy array, or None, the envelope's
+        seconds). A call that still raises at dispatch fails ``targets``
+        ((slot, row) pairs) and keeps the cache: the rows' own cache
+        entries are all it may have written. An error that surfaces at
+        the sync resets the engine (``_reset_dense``), which fails them:
+        the device may have written anything."""
 
         def call():
             out = dispatch()
@@ -1230,15 +1517,14 @@ class ContinuousEngine:
                 return None, self._timing_event()
             return self._to_host(out)
 
-        t0 = time.perf_counter()
         try:
             start = self._timing_event() if chunk else None
-            host, event = self._retrying(step, call, launched, **attrs)
+            (host, event), t0 = self._retrying(step, call, launched, **attrs)
         except Exception as e:  # noqa: BLE001 - fail the rows, keep serving
             log.exception("%s failed", phase)
             for slot, row in targets:
                 self._fail_row(row, slot, e, phase)
-            return False, None
+            return False, None, 0.0
         t1 = time.perf_counter()
         try:
             if event is not None:
@@ -1247,17 +1533,23 @@ class ContinuousEngine:
         except Exception as e:  # noqa: BLE001 - an async device error
             log.exception("%s sync failed", phase)
             self._reset_dense(e, targets, f"{phase} sync")
-            return False, None
+            return False, None, 0.0
         t2 = time.perf_counter()
         if chunk:
             self.t_chunk_dispatch_s += t1 - t0
             self.t_chunk_wait_s += t2 - t1
+            self._m_t_chunk.inc(t2 - t0)
             if start is not None:
                 self.t_chunk_device_s += start.elapsed_time(event) / 1e3
         else:
             self.t_prefill_dispatch_s += t1 - t0
             self.t_prefill_wait_s += t2 - t1
-        return True, value
+            self._m_t_prefill.inc(t2 - t0)
+        if self.devicetime is not None:
+            self.devicetime.note_dispatch(t0)
+            self.devicetime.attribute(devt[0], t2 - t0, devt[1])
+            self.devicetime.note_dispatch_end(t2)
+        return True, value, t2 - t0
 
     def _fail_row(self, row, slot, cause, phase):
         """Fail one in-flight dense row and free its slot."""
@@ -1301,8 +1593,10 @@ class ContinuousEngine:
         enters the slot prefilling (``remaining`` None), and the loop
         advances it one segment an iteration (``_advance_prefill``). The
         context is prompt + generated: a migrated row's re-prefill."""
-        if not self._admission_open(row):
+        t_admit = self._admission_open(row)
+        if t_admit is None:
             return
+        tracing = obs_trace.enabled()
         ctx = row["prompt"] + row.get("generated", [])
         if len(ctx) > self.prefill_chunk:
             row["pending"] = np.asarray(ctx, np.int64)
@@ -1310,6 +1604,11 @@ class ContinuousEngine:
             row["remaining"] = None
             self.positions[slot] = 0
             self.occupied[slot] = row
+            if tracing:
+                obs_trace.event("admit", t_admit, obs_trace.now() - t_admit,
+                                track=f"req-{row['rid']}", slot=slot,
+                                chunked=True,
+                                trace_id=row.get("trace_id", ""))
             return
         bucket = tf._length_bucket(len(ctx), self.cfg.max_seq_len)
         padded = np.zeros((1, bucket), np.int64)
@@ -1323,11 +1622,26 @@ class ContinuousEngine:
             return self._prefill(self.model.model, self.cache,
                                  self._to_device(padded), len(ctx), slot)
 
-        ok, first = self._dense_call([(slot, row)], "prefill", dispatch,
-                                     "prefill", rid=row["rid"])
-        if ok:
-            self.n_prefills += 1
-            self._first_token(slot, row, len(ctx), int(first))
+        t0_trace = obs_trace.now()
+        if tracing:
+            obs_trace.event("admit", t_admit, t0_trace - t_admit,
+                            track=f"req-{row['rid']}", slot=slot,
+                            trace_id=row.get("trace_id", ""))
+        ok, first, wall = self._dense_call(
+            [(slot, row)], "prefill", dispatch, "prefill",
+            devt=None if self.devicetime is None
+            else ("prefill", [(row, len(ctx))]), rid=row["rid"])
+        if not ok:
+            return
+        self._m_prefills.inc()
+        t_first = obs_trace.now()
+        if tracing:
+            obs_trace.event("prefill", t0_trace, t_first - t0_trace,
+                            track=f"req-{row['rid']}", slot=slot,
+                            tokens=len(ctx),
+                            trace_id=row.get("trace_id", ""),
+                            device_s=round(wall, 6))
+        self._first_token(slot, row, len(ctx), int(first), t_first)
 
     def _advance_prefill(self, slot):
         """Dispatch and sync ONE segment of a chunked prefill: the
@@ -1344,35 +1658,77 @@ class ContinuousEngine:
         seg[0, :real] = ctx[off:off + real]
         last = off + C >= total
         window = tf._window_for(min(off + C, S), S)
-        ok, tok = self._dense_call(
+        t0_trace = obs_trace.now()
+        ok, tok, wall = self._dense_call(
             [(slot, row)], "chunked prefill",
             lambda: self._prefill_seg(
                 self.model.model, self.cache, self._to_device(seg), off,
                 slot, total - 1, window=window, want_logits=last,
             ), "prefill", rid=row["rid"],
+            devt=None if self.devicetime is None
+            else ("chunk", [(row, real)]),
         )
         if not ok:
             return
-        self.n_prefills += 1
+        self._m_prefills.inc()
+        t_seg_end = obs_trace.now()
+        if obs_trace.enabled():
+            obs_trace.event("prefill", t0_trace, t_seg_end - t0_trace,
+                            track=f"req-{row['rid']}", slot=slot,
+                            chunk=off // C, offset=off, tokens=C,
+                            trace_id=row.get("trace_id", ""),
+                            device_s=round(wall, 6))
         row["prefill_offset"] = off + C
         if last:
             del row["pending"]
-            self._first_token(slot, row, total, int(tok))
+            self._first_token(slot, row, total, int(tok), t_seg_end)
 
-    def _first_token(self, slot, row, ctx_len, tok):
-        """A prefill's first token has landed: the slot decodes from
-        ``ctx_len``, or retires when that token was the budget."""
+    def _first_token(self, slot, row, ctx_len, tok, t_first):
+        """A prefill's first token has landed (at ``t_first``, tracer
+        time): the slot decodes from ``ctx_len``, or retires when that
+        token was the budget."""
         self.positions[slot] = ctx_len
         self.last_tok[slot] = tok
         self._note_migration_replayed(row, slot)
         row.setdefault("generated", []).append(tok)
         row["remaining"] = row["max_new"] - len(row["generated"])
-        if "t_first" not in row:
-            row["t_first"] = time.perf_counter()
-            self.ttft_s.append((len(row["prompt"]),
-                                row["t_first"] - row["t_enq"]))
+        self._note_first_token(row, t_first)
         if row["remaining"] <= 0:
             self._retire(slot)
+
+    def _note_first_token(self, row, t_first):
+        """The row's first token EVER landed on the host at ``t_first``
+        (a migrated row keeps its first TTFT): observe it."""
+        if "t_first" in row:
+            return
+        row["t_first"] = t_first
+        ttft = t_first - row["t_enq"]
+        self._observe_ttft(row, ttft)
+        self.ttft_s.append((len(row["prompt"]), ttft))
+
+    def _observe_ttft(self, row, ttft):
+        """The TTFT observation, the JAX engine's: it carries the row's
+        trace id as an exemplar when the trace is sampled, or when the
+        TTFT breaks the SLO (which marks the trace sampled)."""
+        tid = row.get("trace_id")
+        if tid and (row.get("trace_sampled")
+                    or (self.slo is not None and self.slo.ttft_s
+                        and ttft > self.slo.ttft_s)):
+            row["trace_sampled"] = True
+            self._m_ttft.observe(ttft, exemplar=tid)
+        else:
+            self._m_ttft.observe(ttft)
+
+    def _observe_tpot(self, row, tpot):
+        """The TPOT twin of :meth:`_observe_ttft`."""
+        tid = row.get("trace_id")
+        if tid and (row.get("trace_sampled")
+                    or (self.slo is not None and self.slo.tpot_s
+                        and tpot > self.slo.tpot_s)):
+            row["trace_sampled"] = True
+            self._m_tpot.observe(tpot, exemplar=tid)
+        else:
+            self._m_tpot.observe(tpot)
 
     def _run_chunk(self):
         """One decode chunk over the decoding slots, and its sync. Writes
@@ -1406,16 +1762,23 @@ class ContinuousEngine:
                 self.eager_chunks_on_cuda += 1
             return toks
 
-        ok, toks = self._dense_call(
-            [(i, self.occupied[i]) for i in occupied], "decode chunk",
-            dispatch, "decode_chunk", chunk=True,
-            launched=lambda: self.chunk_graphs.launched, rows=len(occupied),
-        )
+        self._m_batch.set(len(occupied))
+        with obs_trace.span("decode_chunk", steps=steps, rows=len(occupied),
+                            window=window):
+            ok, toks, _ = self._dense_call(
+                [(i, self.occupied[i]) for i in occupied], "decode chunk",
+                dispatch, "decode_chunk", chunk=True,
+                launched=lambda: self.chunk_graphs.launched,
+                devt=None if self.devicetime is None
+                else ("decode", [(self.occupied[i], steps)
+                                 for i in occupied]),
+                rows=len(occupied),
+            )
         if not ok:
             return
-        self.steps_done += steps
-        self.n_chunks += 1
-        self.occupied_steps += steps * len(occupied)
+        self._m_steps.inc(steps)
+        self._m_chunks.inc()
+        self._m_occupied_steps.inc(steps * len(occupied))
         for i in occupied:
             row = self.occupied[i]
             row["generated"].extend(int(t) for t in toks[:, i])
@@ -1458,10 +1821,13 @@ class ContinuousEngine:
         matched full blocks skip prefill; the suffix prefills in segments
         from the reused offset (_advance_prefill_paged). The context is
         prompt + generated: a migrated row's re-prefill."""
-        if not self._admission_open(row):
+        t_admit = self._admission_open(row)
+        if t_admit is None:
             return
         ctx = row["prompt"] + row.get("generated", [])
-        reused, hit, _ = self.kv.admit(slot, ctx)
+        reused, hit, miss = self.kv.admit(slot, ctx)
+        self._m_prefix_hit.inc(hit)
+        self._m_prefix_miss.inc(miss)
         row["prefix_hit_tokens"] = row.get("prefix_hit_tokens", 0) + hit
         # Remembered so a pool-pressure back-out can un-count this
         # admission's reuse (the re-admission counts what it reuses).
@@ -1472,6 +1838,11 @@ class ContinuousEngine:
         row["remaining"] = None  # prefilling
         self.positions[slot] = 0
         self.occupied[slot] = row
+        if obs_trace.enabled():
+            obs_trace.event("admit", t_admit, obs_trace.now() - t_admit,
+                            track=f"req-{row['rid']}", slot=slot,
+                            reused_tokens=reused,
+                            trace_id=row.get("trace_id", ""))
 
     def _fail_paged_row(self, row, slot, cause, phase):
         """Fail one in-flight paged row and free its slot and blocks."""
@@ -1542,6 +1913,7 @@ class ContinuousEngine:
         reused blocks precede every write offset)."""
         src, dst = self.kv.ensure_writable(slot, first_block, last_block)
         if src:
+            self._m_cow.inc(len(src))
             self._copy_blocks(self.cache, self._to_device(src),
                               self._to_device(dst))
         return len(src)
@@ -1605,19 +1977,37 @@ class ContinuousEngine:
                 return self._to_host(tok)
             return None, self._timing_event()
 
-        t0 = time.perf_counter()
+        t0_trace = obs_trace.now()
         try:
-            tok_h, event = self._retrying("prefill", call, rid=row["rid"])
+            (tok_h, event), t0 = self._retrying("prefill", call,
+                                                rid=row["rid"])
         except Exception as e:  # noqa: BLE001 - fail the row, keep serving
             log.exception("paged prefill failed")
             self._fail_paged_row(row, slot, e, "paged prefill")
             return None
-        self.n_prefills += 1
-        self.t_prefill_dispatch_s += time.perf_counter() - t0
+        wall = time.perf_counter() - t0
+        self._m_prefills.inc()
+        self._m_t_prefill.inc(wall)
+        self.t_prefill_dispatch_s += wall
+        self._prefill_tokens += real
+        if self.devicetime is not None:
+            # One segment, one row; its deferred sync's wait goes to the
+            # same row (the record's _devt).
+            self.devicetime.note_dispatch(t0)
+            self.devicetime.attribute("chunk", wall, [(row, real)])
+            self.devicetime.note_dispatch_end(t0 + wall)
+        if obs_trace.enabled():
+            obs_trace.event("prefill", t0_trace, obs_trace.now() - t0_trace,
+                            track=f"req-{row['rid']}", slot=slot,
+                            offset=off, tokens=real,
+                            trace_id=row.get("trace_id", ""),
+                            device_s=round(wall, 6))
         row["prefill_offset"] = off + seg_len
         rec = {"kind": "seg", "row": row, "slot": slot, "tok": tok_h,
                "event": event, "epoch": self._kv_epoch,
                "gen": row.get("_sync_gen", 0)}
+        if self.devicetime is not None:
+            rec["_devt"] = ("chunk", [(row, real)])
         if last:
             self.positions[slot] = total
             row["n_generated"] += 1
@@ -1684,15 +2074,17 @@ class ContinuousEngine:
                 self.eager_chunks_on_cuda += 1
             return self._to_host(toks)
 
-        t0 = time.perf_counter()
+        self._m_batch.set(len(occupied))
         try:
             start = self._timing_event()
             # Allocation and copy-on-write above ran once; a retry holds
             # the same blocks. Once a step has advanced last_dev in place
             # the chunk is not retried.
-            toks_h, event = self._retrying(
-                "decode_chunk", call, lambda: self.decode_graphs.launched,
-                rows=len(occupied))
+            with obs_trace.span("decode_chunk", steps=steps,
+                                rows=len(occupied), window=window):
+                (toks_h, event), t0 = self._retrying(
+                    "decode_chunk", call,
+                    lambda: self.decode_graphs.launched, rows=len(occupied))
         except Exception as e:  # noqa: BLE001 - fail the rows, keep serving
             log.exception("paged decode chunk failed")
             for i in occupied:
@@ -1700,10 +2092,18 @@ class ContinuousEngine:
                     self._fail_paged_row(self.occupied[i], i, e,
                                          "decode chunk")
             return None
-        self.t_chunk_dispatch_s += time.perf_counter() - t0
-        self.steps_done += steps
-        self.n_chunks += 1
-        self.occupied_steps += steps * len(occupied)
+        wall = time.perf_counter() - t0
+        self.t_chunk_dispatch_s += wall
+        self._m_t_chunk.inc(wall)
+        self._m_occupied_steps.inc(steps * len(occupied))
+        if self.devicetime is not None:
+            # The fused chunk advances every row by the same steps.
+            self.devicetime.note_dispatch(t0)
+            self.devicetime.attribute(
+                "decode", wall, [(self.occupied[i], steps) for i in occupied])
+            self.devicetime.note_dispatch_end(t0 + wall)
+        self._m_steps.inc(steps)
+        self._m_chunks.inc()
         rows, gens = {}, {}
         for i in occupied:
             row = self.occupied[i]
@@ -1720,9 +2120,12 @@ class ContinuousEngine:
                 row["_blocks_gen"] = row.get("_sync_gen", 0)
                 self.occupied[i] = None
                 self.positions[i] = 0
-        return {"kind": "chunk", "toks": toks_h, "event": event,
-                "start": start, "rows": rows, "gens": gens,
-                "steps": steps, "epoch": self._kv_epoch}
+        rec = {"kind": "chunk", "toks": toks_h, "event": event,
+               "start": start, "rows": rows, "gens": gens,
+               "steps": steps, "epoch": self._kv_epoch}
+        if self.devicetime is not None:
+            rec["_devt"] = ("decode", [(r, steps) for r in rows.values()])
+        return rec
 
     def _sync_record(self, rec):
         """Sync one prior-iteration dispatch: wait for its event, append
@@ -1746,14 +2149,23 @@ class ContinuousEngine:
         fresh = rec["epoch"] == self._kv_epoch
         if rec["kind"] != "chunk":
             self.t_prefill_wait_s += wait
+            self._m_t_prefill.inc(wait)
         else:
             self.t_chunk_wait_s += wait
+            self._m_t_chunk.inc(wait)
             if rec["start"] is not None:
                 self.t_chunk_device_s += \
                     rec["start"].elapsed_time(rec["event"]) / 1e3
+        if self.devicetime is not None:
+            # Device wall of the rows captured at dispatch, booked even
+            # when the record is void below: the card did the work.
+            devt = rec.get("_devt")
+            if devt is not None:
+                self.devicetime.attribute(devt[0], wait, devt[1])
+            self.devicetime.note_dispatch_end(time.perf_counter())
         if rec["kind"] == "seg":
             return
-        now = time.perf_counter()
+        now = obs_trace.now()
         if rec["kind"] == "first":
             row, slot = rec["row"], rec["slot"]
             if rec["gen"] != row.get("_sync_gen", 0) or \
@@ -1763,9 +2175,7 @@ class ContinuousEngine:
                 return
             self._note_migration_replayed(row, slot)
             row.setdefault("generated", []).append(tok)
-            if "t_first" not in row:
-                row["t_first"] = now
-                self.ttft_s.append((len(row["prompt"]), now - row["t_enq"]))
+            self._note_first_token(row, now)
             if "blocks" in rec:
                 self._finish_retire_paged(row, slot, rec["blocks"], fresh)
             return
@@ -1812,12 +2222,63 @@ class ContinuousEngine:
             )
         self._retire_row(row, slot)
 
+    def _reused_prefill_s(self, row):
+        """The prefill seconds the radix reuse saved this row: its hit
+        tokens times the engine's measured prefill seconds per prefilled
+        token (0.0 on a dense engine), as in JAX."""
+        hit = row.get("prefix_hit_tokens", 0)
+        if not hit or self.kv is None or not self._prefill_tokens:
+            return 0.0
+        return hit * self._m_t_prefill.value / self._prefill_tokens
+
     def _retire_row(self, row, slot):
-        """The retire tail (its slot is already free): publish the output
-        and wake the handler thread."""
-        del slot
+        """The retire tail (its slot is already free), the JAX engine's:
+        publish the output, observe TPOT, close the request's spans,
+        classify it against the SLO, emit ``request_retired`` and wake
+        the handler thread."""
         row["out"] = row["generated"]
-        row["finish_step"] = self.steps_done
+        row["finish_step"] = int(self._m_steps.value)
+        t_ret = obs_trace.now()
+        n_out = len(row["generated"])
+        t_first = row.get("t_first")
+        tpot = None
+        if t_first is not None and n_out > 1:
+            tpot = (t_ret - t_first) / (n_out - 1)
+            self._observe_tpot(row, tpot)
+        if obs_trace.enabled():
+            track = f"req-{row['rid']}"
+            tid = row.get("trace_id", "")
+            if tpot is not None:
+                dbp = row.get("device_by_phase") or {}
+                obs_trace.event("decode", t_first, t_ret - t_first,
+                                track=track, tokens=n_out - 1,
+                                trace_id=tid,
+                                device_s=round(dbp.get("decode", 0.0)
+                                               + dbp.get("verify", 0.0), 6))
+            obs_trace.event("retire", t_ret, 0.0, track=track, slot=slot,
+                            trace_id=tid)
+            obs_trace.event("request", row["t_enq"], t_ret - row["t_enq"],
+                            track=track, rid=row["rid"], tokens=n_out,
+                            prompt_len=len(row["prompt"]), trace_id=tid)
+        slo_outcome = None
+        if self.slo is not None:
+            ttft = (t_first if t_first is not None else t_ret) - row["t_enq"]
+            slo_outcome = self.slo.classify_retired(
+                ttft, tpot, row.get("tenant") or "default")
+        if self.events is not None:
+            attrs = {} if slo_outcome is None else {"slo": slo_outcome}
+            self.events.emit(
+                "request_retired", rid=row["rid"], slot=slot,
+                tokens=n_out, prompt_len=len(row["prompt"]),
+                latency_s=round(t_ret - row["t_enq"], 6),
+                prefix_hit_tokens=row.get("prefix_hit_tokens", 0),
+                reused_prefill_s=round(self._reused_prefill_s(row), 6),
+                spec_accepted_tokens=row.get("spec_accepted", 0),
+                device_s=round(row.get("device_s", 0.0), 6),
+                tenant_class=row.get("tenant") or "default",
+                trace_id=row.get("trace_id", ""),
+                **attrs,
+            )
         if self.spec_proposer is not None:
             self.retired_spec_accepted.append(row.get("spec_accepted", 0))
         row["event"].set()
@@ -1860,7 +2321,8 @@ class ContinuousEngine:
     # which still emits one token.
 
     def _spec_acceptance(self):
-        rounds = list(self._spec_rounds)
+        with self._spec_lock:
+            rounds = list(self._spec_rounds)
         proposed = sum(p for p, _ in rounds)
         return sum(a for _, a in rounds) / proposed if proposed else 0.0
 
@@ -1998,11 +2460,10 @@ class ContinuousEngine:
                 self.eager_verifies_on_cuda += 1
             return self._to_host(greedy)
 
-        t0 = time.perf_counter()
         try:
             start = self._timing_event()
-            greedy_h, event = self._retrying("verify", call,
-                                             rows=len(entries))
+            (greedy_h, event), t0 = self._retrying("verify", call,
+                                                   rows=len(entries))
         except Exception as e:  # noqa: BLE001 - fail the rows, keep serving
             log.exception("speculative verify failed")
             for entry in entries:
@@ -2010,11 +2471,23 @@ class ContinuousEngine:
                     self._fail_paged_row(entry["row"], entry["slot"], e,
                                          "speculative verify")
             return None
-        self.t_verify_dispatch_s += time.perf_counter() - t0
-        self.spec_verifies += 1
-        self.spec_proposed += sum(len(e["props"]) for e in entries)
-        return {"greedy": greedy_h, "event": event, "start": start,
-                "entries": entries, "epoch": self._kv_epoch}
+        wall = time.perf_counter() - t0
+        self.t_verify_dispatch_s += wall
+        self._m_t_verify.inc(wall)
+        self._m_spec_verifies.inc()
+        self._m_spec_proposed.labels(self.speculate).inc(
+            sum(len(e["props"]) for e in entries))
+        rec = {"greedy": greedy_h, "event": event, "start": start,
+               "entries": entries, "epoch": self._kv_epoch}
+        if self.devicetime is not None:
+            # Each row weighs the tokens the verify scored for it: its
+            # proposals and the correction.
+            parts = [(e["row"], len(e["props"]) + 1) for e in entries]
+            self.devicetime.note_dispatch(t0)
+            self.devicetime.attribute("verify", wall, parts)
+            self.devicetime.note_dispatch_end(t0 + wall)
+            rec["_devt"] = ("verify", parts)
+        return rec
 
     def _sync_verify_batch(self, rec):
         """Sync one batched verify round: wait for its event, read the
@@ -2033,12 +2506,17 @@ class ContinuousEngine:
                     if self.occupied[entry["slot"]] is entry["row"]],
                 "verify sync")
             return
-        self.t_verify_wait_s += time.perf_counter() - t0
+        wait = time.perf_counter() - t0
+        self.t_verify_wait_s += wait
+        self._m_t_verify.inc(wait)
         if rec["start"] is not None:
             self.t_verify_device_s += \
                 rec["start"].elapsed_time(rec["event"]) / 1e3
+        if self.devicetime is not None:
+            self.devicetime.attribute("verify", wait, rec["_devt"][1])
+            self.devicetime.note_dispatch_end(time.perf_counter())
         # One sequential device step advanced every row of the batch.
-        self.steps_done += 1
+        self._m_steps.inc()
         for idx, entry in enumerate(rec["entries"]):
             # Entries sit at their compact batch index, not their slot.
             self._sync_verify_row(entry, g[idx], rec["epoch"])
@@ -2063,15 +2541,17 @@ class ContinuousEngine:
         emitted = (props[:a] + [int(g[a])])[: row["remaining"]]
         st = row["_spec"]
         st["ak"].update(len(props), a)
-        self._spec_rounds.append((len(props), a))
+        with self._spec_lock:
+            self._spec_rounds.append((len(props), a))
         saved = len(emitted) - 1
-        self.spec_accepted += saved
+        if saved:
+            self._m_spec_accepted.labels(self.speculate).inc(saved)
         row["spec_accepted"] = row.get("spec_accepted", 0) + saved
         row["generated"].extend(emitted)
         row["n_generated"] += len(emitted)
         row["remaining"] -= len(emitted)
         self.positions[slot] += len(emitted)
-        self.occupied_steps += len(emitted)
+        self._m_occupied_steps.inc(len(emitted))
         self.spec_proposer.observe(slot, emitted)
         # The chunk reads a row's token from last_dev: if this row falls
         # back to the chunk, it must find the last emitted token there. In
@@ -2094,18 +2574,20 @@ class ContinuousEngine:
             except queue.Empty:
                 return None
         t0 = time.perf_counter()
+        row = None
         while not self._stop.is_set() and self._calls.empty():
             try:
                 row = self._q.get(block=True, timeout=0.05)
+                break
             except queue.Empty:
                 now = time.perf_counter()
-                self.t_idle_s += now - t0
+                self._m_t_idle.inc(now - t0)
                 t0 = now
-                continue
-            self.t_idle_s += time.perf_counter() - t0
-            return row
-        self.t_idle_s += time.perf_counter() - t0
-        return None
+        self._m_t_idle.inc(time.perf_counter() - t0)
+        if self.devicetime is not None:
+            # The gap to the next dispatch is wait for work, not a bubble.
+            self.devicetime.note_idle()
+        return row
 
     @staticmethod
     def _run_call(call):
@@ -2156,7 +2638,53 @@ class ContinuousEngine:
             self._drain_pending_syncs()
 
 
-def make_handler(model, state):
+class ServingMetrics:
+    """The serving daemon's workload metrics, the JAX server's: the
+    request counters live on ``registry`` (a fresh one when None), and
+    the engine's or the micro-batcher's own registry (TTFT/TPOT/queue
+    wait histograms, occupancy and batch gauges, phase counters, the
+    SLO and chip accounting) renders into the same exposition. Served
+    on ``GET /metrics`` and, with ``--metrics-port``, on a port of its
+    own."""
+
+    def __init__(self, model, registry=None):
+        self.registry = registry if registry is not None \
+            else obs_metrics.Registry()
+        self.requests = obs_metrics.Counter(
+            "tpu_serving_requests_total", "Completed /generate requests",
+            ["outcome"], registry=self.registry)
+        self.tokens = obs_metrics.Counter(
+            "tpu_serving_generated_tokens_total",
+            "Tokens generated (sum of max_new_tokens of successes)",
+            registry=self.registry)
+        self.latency = obs_metrics.Histogram(
+            "tpu_serving_request_latency_seconds",
+            "End-to-end /generate latency", buckets=LATENCY_BUCKETS,
+            registry=self.registry)
+        # The engine's or batcher's registry (and, behind a batcher, a
+        # wrapped engine's), each rendered once.
+        self._extra = []
+        seen = {id(self.registry)}
+        for m in (model, getattr(model, "model", None)):
+            reg = getattr(m, "registry", None)
+            if reg is not None and id(reg) not in seen:
+                seen.add(id(reg))
+                self._extra.append(reg)
+
+    def observe(self, ok, latency_s, new_tokens, outcome=None):
+        """``outcome`` overrides the label ("shed" for a typed shed,
+        neither ok nor an error)."""
+        self.requests.labels(outcome or ("ok" if ok else "error")).inc()
+        if ok:
+            self.tokens.inc(new_tokens)
+            self.latency.observe(latency_s)
+
+    def render(self):
+        return b"".join(
+            [self.registry.render()] + [r.render() for r in self._extra])
+
+
+def make_handler(model, state, metrics=None):
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, fmt, *args):
             log.debug(fmt, *args)
@@ -2170,7 +2698,15 @@ def make_handler(model, state):
             self.wfile.write(body)
 
         def do_GET(self):
-            if self.path != "/healthz":
+            if self.path == "/metrics" and metrics is not None:
+                body = metrics.render()
+                self.send_response(200)
+                self.send_header("Content-Type",
+                                 "text/plain; version=0.0.4")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+            elif self.path != "/healthz":
                 self._send({"error": "not found"}, 404)
             elif state["ready"]:
                 info = {"status": "ok"}
@@ -2193,7 +2729,25 @@ def make_handler(model, state):
             else:
                 self._send({"status": "warming up"}, 503)
 
+        def _dump_flight(self):
+            """POST /debug/flight: dump the flight recorder's bundle now
+            (503 when it is off, 429 when its rate limit held it)."""
+            rec = obs_flight.get()
+            if rec is None:
+                self._send({"error": "flight recorder disarmed "
+                                     "(--flight-recorder)"}, 503)
+                return
+            path = rec.trigger("on_demand")
+            if path is None:
+                self._send({"error": "dump suppressed (rate limit / "
+                                     "dedup window)"}, 429)
+                return
+            self._send({"bundle": path})
+
         def do_POST(self):
+            if self.path == "/debug/flight":
+                self._dump_flight()
+                return
             if self.path != "/generate":
                 self._send({"error": "not found"}, 404)
                 return
@@ -2208,22 +2762,31 @@ def make_handler(model, state):
                     float(req.get("top_p", 1.0)),
                     model.cfg.vocab_size,
                 )
+                # W3C trace context: body field, else the header.
+                traceparent = req.get("traceparent") or \
+                    self.headers.get("traceparent")
                 extra = {}
                 if isinstance(model, ContinuousEngine):
-                    # An engine's admission deadline and tenant class
-                    # (body field, else the header); the other paths
-                    # have no queue.
+                    # An engine's admission deadline, tenant class (body
+                    # field, else the header) and trace context; the
+                    # other paths have no queue.
                     if req.get("deadline_s") is not None:
                         extra["deadline_s"] = float(req["deadline_s"])
                     tenant = req.get("tenant") or \
                         self.headers.get("X-Tenant-Class")
                     if tenant is not None:
                         extra["tenant"] = str(tenant)
+                    if traceparent is not None:
+                        extra["traceparent"] = str(traceparent)
                 t0 = time.perf_counter()
-                out = model.generate(
-                    tokens, max_new, temperature=eff_t, top_k=eff_k,
-                    top_p=eff_p, seed=int(req.get("seed", 0)), **extra,
-                )
+                with obs_trace.span("generate", rows=len(tokens),
+                                    max_new=max_new,
+                                    traceparent=traceparent):
+                    out = model.generate(
+                        tokens, max_new, temperature=eff_t, top_k=eff_k,
+                        top_p=eff_p, seed=int(req.get("seed", 0)),
+                        **extra,
+                    )
                 dt = time.perf_counter() - t0
                 try:
                     self._send({
@@ -2239,15 +2802,21 @@ def make_handler(model, state):
                     # The client hung up before the write: the generate
                     # succeeded, so this is no failure.
                     log.info("client disconnected before response write")
+                if metrics is not None:
+                    metrics.observe(True, dt, len(tokens) * max_new)
             except ShedError as e:
                 # A typed shed: 429 with its reason (and the shedding
                 # tenant class), so the client backs off.
+                if metrics is not None:
+                    metrics.observe(False, 0.0, 0, outcome="shed")
                 log.warning("request shed (%s): %s", e.reason, e)
                 body = {"error": str(e), "shed": e.reason}
                 if getattr(e, "tenant", None):
                     body["tenant"] = e.tenant
                 self._send(body, 429)
             except Exception as e:  # noqa: BLE001 - serve errors as JSON
+                if metrics is not None:
+                    metrics.observe(False, 0.0, 0)
                 log.exception("generate failed")
                 self._send({"error": str(e)}, 500)
 
@@ -2282,13 +2851,19 @@ def warmup(model, state, mode="lazy"):
         state["error"] = str(e)
 
 
-def start_server(model, port=8000, host="0.0.0.0", warmup_mode="lazy"):
+def start_server(model, port=8000, host="0.0.0.0", warmup_mode="lazy",
+                 metrics=None):
     """Serve ``model`` on (host, port) from a daemon thread and warm it up
-    in another (``warmup`` with ``warmup_mode``). Returns (server, state);
+    in another (``warmup`` with ``warmup_mode``). ``metrics`` (a
+    :class:`ServingMetrics`, built for ``model`` when None) counts the
+    requests and renders ``GET /metrics``. Returns (server, state);
     ``state["ready"]`` flips once the warmup decode succeeded. ``port=0``
     picks a free port (``server.server_address[1]``)."""
+    if metrics is None:
+        metrics = ServingMetrics(model)
     state = {"ready": False}
-    server = ThreadingHTTPServer((host, port), make_handler(model, state))
+    server = ThreadingHTTPServer((host, port),
+                                 make_handler(model, state, metrics))
     threading.Thread(target=server.serve_forever, daemon=True).start()
     threading.Thread(target=warmup, args=(model, state, warmup_mode),
                      daemon=True).start()
@@ -2333,11 +2908,8 @@ def config_from_args(args):
     )
 
 
-def main(argv=None):
-    logging.basicConfig(
-        level=logging.INFO,
-        format="%(asctime)s %(levelname)s %(name)s: %(message)s",
-    )
+def build_parser():
+    """The daemon's flags, the JAX server's names and defaults."""
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--seq-len", type=int, default=256)
@@ -2452,7 +3024,79 @@ def main(argv=None):
                         "captured) BEFORE /healthz flips ready; 'lazy' "
                         "captures each decode graph at its first chunk "
                         "(default)")
-    args = p.parse_args(argv)
+    p.add_argument("--slo-ttft-ms", type=float, default=0.0,
+                   help="serving SLO: time-to-first-token objective in "
+                        "ms. Retired requests above it (and every "
+                        "shed/deadline rejection) count as SLO "
+                        "violations in tpu_serving_slo_requests_total"
+                        "{outcome} and drag the rolling "
+                        "tpu_serving_slo_goodput_ratio gauge the "
+                        "burn-rate alerts watch. Engine paths only "
+                        "(--continuous-batching); 0 = no TTFT "
+                        "objective")
+    p.add_argument("--slo-tpot-ms", type=float, default=0.0,
+                   help="serving SLO: per-output-token decode-time "
+                        "objective in ms (0 = no TPOT objective)")
+    p.add_argument("--alert-rules", default="",
+                   help="arm the multi-window burn-rate alert "
+                        "evaluator (obs/alerts.py) with this JSON rule "
+                        "file; alert_fired/alert_resolved events land "
+                        "on the unified stream (and --alerts-out)")
+    p.add_argument("--alerts-out", default="",
+                   help="append alert_fired/alert_resolved events to "
+                        "this JSONL file (with --alert-rules)")
+    p.add_argument("--trace-out", default="",
+                   help="write a Chrome trace-event JSON of the run's "
+                        "request/engine spans here on exit (load in "
+                        "Perfetto); a JSONL twin lands at <path>.jsonl")
+    p.add_argument("--chip-accounting", action="store_true",
+                   help="arm the chip-accounting tier (obs/devicetime"
+                        ".py + obs/hbm.py): every device call's "
+                        "measured wall is attributed pro-rata to the "
+                        "rows it served (tpu_serving_device_seconds_"
+                        "total{phase,tenant_class} + a device_s attr "
+                        "on request_retired), host-loop bubbles become "
+                        "first-class, the fairness share gauges the "
+                        "tenant-share-drift rule watches go live, and "
+                        "the modeled tpu_hbm_bytes{component} "
+                        "occupancy gauges land in the engine registry. "
+                        "Engine paths only (--continuous-batching); "
+                        "zero cost when off")
+    p.add_argument("--flight-recorder", action="store_true",
+                   help="arm the always-on flight recorder (obs/"
+                        "flight.py): a bounded ring of 250ms delta "
+                        "snapshots over every serving registry, fused "
+                        "with the event tail and recent trace spans; "
+                        "an alert, crash, SIGUSR2 or POST /debug/flight "
+                        "dumps a postmortem bundle. Recorder health on "
+                        f":{obs_ports.FLIGHT_PORT}/metrics; zero cost "
+                        "when off (one is-None check per hook site)")
+    p.add_argument("--flight-window-s", type=float,
+                   default=obs_flight.DEFAULT_WINDOW_S,
+                   help="flight-recorder ring depth in seconds of "
+                        "history retained (memory stays O(window))")
+    p.add_argument("--flight-dir", default="/tmp/tpu-flight",
+                   help="directory postmortem bundles are dumped into")
+    p.add_argument("--metrics-port", type=int, default=0,
+                   help="ALSO serve the workload /metrics on this "
+                        "dedicated port (convention: "
+                        f"{obs_ports.WORKLOAD_METRICS_PORT}, see "
+                        "obs/ports.py; 0 = main port only)")
+    p.add_argument("--profile-dir", default="",
+                   help="capture a torch.profiler trace (CPU and CUDA "
+                        "activities) of the serving run into this "
+                        "directory as Chrome trace JSON; align it with "
+                        "--trace-out's spans through the span trace's "
+                        "epoch metadata")
+    return p
+
+
+def main(argv=None):
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(asctime)s %(levelname)s %(name)s: %(message)s",
+    )
+    args = build_parser().parse_args(argv)
     if args.speculate != "off" and (
         not args.continuous_batching or args.kv_cache != "paged"
     ):
@@ -2466,10 +3110,88 @@ def main(argv=None):
                                     sink_path=args.event_log)
         log.warning("fault plan armed from %s (seed %d, %d faults)",
                     args.fault_plan, plan.seed, len(plan.faults))
-    tenants = fleet_tenants.TenantClasses.from_flag(args.tenant_classes)
-    model = Model(config_from_args(args), device=args.device,
-                  quantize=args.quantize)
+    tracer = obs_trace.configure() if args.trace_out else None
+    try:
+        # The profiler and the span tracer bracket the same region (the
+        # whole run, warmup included); the span trace's metadata carries
+        # its wall-clock epoch, which aligns the two timelines.
+        with profiling.trace_or_null(args.profile_dir):
+            return _serve(args)
+    finally:
+        if args.profile_dir:
+            log.info("torch.profiler trace written to %s",
+                     args.profile_dir)
+        if tracer is not None:
+            tracer.write_chrome(args.trace_out)
+            tracer.write_jsonl(args.trace_out + ".jsonl")
+            log.info("span trace written to %s (+ .jsonl)", args.trace_out)
+
+
+def _make_slo(args, registry):
+    """A :class:`ServingSLO` on the engine's registry when an SLO flag
+    is set; None otherwise (nothing registered, one check a retire)."""
+    ttft_ms = getattr(args, "slo_ttft_ms", 0.0) or 0.0
+    tpot_ms = getattr(args, "slo_tpot_ms", 0.0) or 0.0
+    if not ttft_ms and not tpot_ms:
+        return None
+    return ServingSLO(ttft_s=ttft_ms / 1e3, tpot_s=tpot_ms / 1e3,
+                      registry=registry)
+
+
+def _make_devicetime(args, registry, tenants):
+    """A ``DeviceTimeLedger`` on the engine's registry under
+    ``--chip-accounting``; None otherwise (nothing registered, one check
+    a dispatch hook)."""
+    if not getattr(args, "chip_accounting", False):
+        return None
+    return obs_devicetime.DeviceTimeLedger(registry=registry,
+                                           tenants=tenants)
+
+
+def _attach_hbm(args, engine):
+    """The ``HbmModel`` gauges on the built engine's registry under
+    ``--chip-accounting``, kept on the engine for its shutdown record.
+    Returns the model or None."""
+    if not getattr(args, "chip_accounting", False):
+        return None
+    engine.hbm = obs_hbm.HbmModel(engine)
+    return engine.hbm
+
+
+def _wire_flight(args, model, metrics):
+    """Arm the flight recorder over every registry and stream the daemon
+    owns under ``--flight-recorder``; None otherwise (nothing created).
+    Its state providers are /healthz's cheap snapshots: ``stats()`` and
+    ``kv_stats()``."""
+    if not getattr(args, "flight_recorder", False):
+        return None
+    registries = [("serving", metrics.registry)]
+    for i, reg in enumerate(metrics._extra):
+        registries.append((f"engine{i}" if i else "engine", reg))
+    streams = []
+    providers = []
+    if isinstance(model, ContinuousEngine):
+        if model.events is not None:
+            streams.append(model.events)
+        providers.append(("stats", model.stats))
+        providers.append(("kv_stats", model.kv_stats))
+    return obs_flight.wire_from_flags(
+        True, args.flight_dir, registries=registries, streams=streams,
+        tracer=obs_trace.get(), providers=providers,
+        window_s=args.flight_window_s,
+    )
+
+
+def build_serving(args, model):
+    """What ``args`` serves over ``model`` (a :class:`Model`): a
+    :class:`ContinuousEngine` with its SLO, device-time ledger, HBM model
+    and event stream under ``--continuous-batching``, a
+    :class:`BatchingModel` under ``--batch-window-ms``, else ``model``;
+    then the request metrics, the alert evaluator and the flight
+    recorder. Returns (served, metrics, alerts, flight); the last two
+    None when their flags are off."""
     if args.continuous_batching:
+        tenants = fleet_tenants.TenantClasses.from_flag(args.tenant_classes)
         registry = obs_metrics.Registry()
         model = ContinuousEngine(
             model, max_slots=args.max_slots, chunk=args.decode_chunk,
@@ -2482,13 +3204,39 @@ def main(argv=None):
             events=obs_events.EventStream(
                 "serve", sink_path=args.event_log, registry=registry,
             ) if args.event_log else None,
+            slo=_make_slo(args, registry),
+            devicetime=_make_devicetime(args, registry, tenants),
         )
+        _attach_hbm(args, model)
     elif args.batch_window_ms > 0:
         model = BatchingModel(model, window_ms=args.batch_window_ms)
+    metrics = ServingMetrics(model)
+    alerts = obs_alerts.wire_from_flags(
+        [metrics.registry] + metrics._extra, args.alert_rules,
+        alerts_out=args.alerts_out,
+    )
+    flight = _wire_flight(args, model, metrics)
+    return model, metrics, alerts, flight
+
+
+def _serve(args):
+    """Build the model, what it serves (``build_serving``) and the
+    server; serve until interrupted (``--once``: one request). Split
+    from :func:`main` so ``--profile-dir`` and ``--trace-out`` bracket
+    the whole run."""
+    model, metrics, alerts, flight = build_serving(args, Model(
+        config_from_args(args), device=args.device, quantize=args.quantize))
     server, state = start_server(model, port=args.port,
-                                 warmup_mode=args.warmup)
+                                 warmup_mode=args.warmup, metrics=metrics)
     log.info("listening on :%d", server.server_address[1])
+    metrics_server = None
     try:
+        if args.metrics_port:
+            metrics_server = obs_metrics.serve(
+                args.metrics_port, registry=metrics,
+                owner="serving workload metrics (serve_cli --metrics-port)",
+            )
+            log.info("workload metrics on :%d/metrics", metrics_server.port)
         if args.once:
             try:
                 wait_ready(state, timeout=3600)
@@ -2505,6 +3253,14 @@ def main(argv=None):
         return 0
     finally:
         server.shutdown()
+        server.server_close()
+        if metrics_server is not None:
+            metrics_server.close()
+        if alerts is not None:
+            alerts.close()
+        if flight is not None:
+            flight.close()
+            obs_flight.deactivate()
         if isinstance(model, (ContinuousEngine, BatchingModel)):
             model.shutdown()
 

@@ -937,3 +937,92 @@ def test_int8_dense_chunk_replay_matches_the_eager_chunk(gen):
     assert torch.equal(runner.positions, pos)
     for name in ("k", "v"):
         assert (cache[name] - eager[name]).abs().max().item() == 0.0
+
+
+# -- observability on the card --------------------------------------------------
+
+@pytest.mark.parametrize("kv", ["dense", "paged", "paged_ngram"])
+def test_ledger_sums_to_its_envelopes_on_replayed_chunks(gen, kv):
+    """``--chip-accounting`` on the card: every decode chunk (and verify)
+    a graph replay, timed by no added sync, and the ledger's device
+    seconds over every label equal the envelopes it booked, the phase
+    counters' seconds, to 1e-9 s; its decode seconds are positive."""
+    from container_engine_accelerators_tpu_torch.obs import devicetime
+    from container_engine_accelerators_tpu_torch.obs import metrics
+
+    cfg = tf.TransformerConfig(**SMALL)
+    model = serve_cli.Model(cfg, seed=11, device="cuda")
+    extra = {"dense": {},
+             "paged": dict(kv_cache="paged", kv_block_size=16),
+             "paged_ngram": dict(kv_cache="paged", kv_block_size=16,
+                                 speculate="ngram")}[kv]
+    reg = metrics.Registry()
+    engine = serve_cli.ContinuousEngine(
+        model, max_slots=2, chunk=4, prefill_chunk=32, registry=reg,
+        devicetime=devicetime.DeviceTimeLedger(registry=reg), **extra)
+    cases = [(list(range(7, 47)), 6), ([1, 2, 3] * 10, 12), ([5, 6, 7], 9)]
+    try:
+        with chip_smoke.concurrent.futures.ThreadPoolExecutor(3) as pool:
+            for f in [pool.submit(engine.generate, [p], n)
+                      for p, n in cases]:
+                f.result(timeout=300)
+    finally:
+        engine.shutdown()
+    graphs = engine.graph_stats()
+    assert graphs["graph_replays"] > 0 and graphs["eager_chunks_on_cuda"] == 0
+    assert graphs.get("eager_verifies_on_cuda", 0) == 0
+    series = engine.registry.get("tpu_serving_device_seconds_total")
+    device_s = sum(c.value for _, c in series._series())
+    envelopes = engine._m_t_prefill.value + engine._m_t_chunk.value
+    if kv == "paged_ngram":
+        envelopes += engine._m_t_verify.value
+    assert abs(device_s - envelopes) <= 1e-9
+    assert engine.devicetime.per_phase["decode"] > 0
+    assert engine.chip_stats()["device_s"] == pytest.approx(device_s)
+
+
+def test_hbm_model_weights_equal_the_allocation_of_loading(gen):
+    """The HBM model's ``weights`` (bf16) against the bytes loading the
+    model allocated on the card, within 1 % (the allocator rounds each
+    tensor up to 512 B); its ``kv_pool`` equal to the pools' bytes."""
+    from container_engine_accelerators_tpu_torch.obs import hbm
+
+    cfg = tf.TransformerConfig(**{**SMALL, "vocab_size": 4096,
+                                  "d_model": 512, "d_ff": 1536,
+                                  "n_heads": 4, "n_kv_heads": 2,
+                                  "dtype": "bfloat16"})
+    torch.cuda.synchronize()
+    alloc0 = torch.cuda.memory_allocated()
+    model = serve_cli.Model(cfg, seed=12, device="cuda")
+    torch.cuda.synchronize()
+    loaded = torch.cuda.memory_allocated() - alloc0
+    assert abs(hbm.weights_bytes(cfg) - loaded) <= 0.01 * loaded
+    engine = serve_cli.ContinuousEngine(model, max_slots=2, chunk=4,
+                                        prefill_chunk=32, kv_cache="paged",
+                                        kv_block_size=16, start_loop=False)
+    assert hbm.HbmModel(engine).kv_pool == \
+        sum(t.nbytes for t in engine.cache.values())
+
+
+def test_profile_dir_trace_names_the_flash_kernel(gen, tmp_path):
+    """``--profile-dir``'s bracket on the card: the trace holds one
+    ``flash_fwd_sm90_kernel`` event per launch the request made."""
+    import json
+    import os
+
+    from container_engine_accelerators_tpu_torch.utils import profiling
+
+    cfg = tf.TransformerConfig(**{**SMALL, "dtype": "bfloat16",
+                                  "n_heads": 2, "d_model": 256})
+    model = serve_cli.Model(cfg, seed=13, device="cuda")
+    model.generate([[1, 2, 3]], 2)  # kernels built outside the window
+    before = attention.flash_fwd_launches
+    with profiling.trace_or_null(str(tmp_path)):
+        model.generate([list(range(5, 45))], 4)
+    launches = attention.flash_fwd_launches - before
+    (name,) = os.listdir(tmp_path)
+    with open(tmp_path / name) as f:
+        kernels = [e["name"] for e in json.load(f)["traceEvents"]
+                   if e.get("cat") == "kernel"]
+    assert launches == cfg.n_layers
+    assert sum("flash_fwd_sm90_kernel" in k for k in kernels) == launches

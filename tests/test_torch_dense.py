@@ -671,7 +671,8 @@ def test_batcher_coalesces_compatible_greedy_requests():
     finally:
         batcher.shutdown()
     assert len(inner.calls) == batcher.n_batches == 1
-    assert batcher.batch_rows == 4 and len(batcher.queue_wait_s) == 4
+    assert batcher._m_batch_rows.value == 4
+    assert batcher._m_queue_wait.count == 4
     assert sorted(inner.calls[0][0]) == [[i + 1, 2, 3] for i in range(4)]
     for (rows, _), out in zip(reqs, outs):
         assert out == [rows[0] + [rows[0][0]] * 4]
@@ -744,7 +745,7 @@ def test_batcher_on_real_weights_matches_jax(models, expect):
         outs = _post_all(batcher, [([p], 7) for p in prompts])
     finally:
         batcher.shutdown()
-    assert batcher.n_batches == 1 and batcher.batch_rows == 3
+    assert batcher.n_batches == 1 and batcher._m_batch_rows.value == 3
     for prompt, out in zip(prompts, outs):
         assert out == [expect(prompt, 7)]
 
