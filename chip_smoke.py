@@ -19,7 +19,9 @@ overload and injected faults (bounded admission with typed 429s,
 deadlines, tenant classes, step retries, drains, a client that hangs
 up), with every observability flag on (``/metrics`` with the JAX
 server's families, the SLO, chip accounting, span traces, the flight
-recorder, ``--profile-dir``), serves it
+recorder, ``--profile-dir``), hands a cached prompt's KV blocks
+from a prefill replica to a decode replica over HTTP (``/kv/export``,
+``/kv/install``, the JAX wire), serves it
 again with int8 weights (``--quantize int8``: every projection the
 hand-written W8A16 kernel, eagerly and inside the captured graphs), and
 trains it at full width
@@ -62,13 +64,26 @@ the JAX server's families and counts on ``/metrics`` and the metrics
 port, the device-time ledger against its envelopes, the HBM model
 against the card's allocations, the flight bundle, each request's spans,
 one request under ``--profile-dir``; then the dense engine's tokens/s
-and TTFT with every obs flag on against all off), serve_int8
+and TTFT with every obs flag on against all off), serve_handoff (a
+``--role prefill`` and a ``--role decode`` paged replica built by the
+CLI's code; a client splits serve_paged's 1024- and 3000-token prompts
+as JAX's router does: the prefill leg, ``POST /kv/export``, ``POST
+/kv/install``, the request on the decode replica; installed bytes equal
+to the exported ones bit for bit, the receiver's tokens equal to the
+sender's radix-hit tokens, the sharing prompts hit on the receiver, a
+corrupted and a cut stream refused with 409 and nothing changed, the
+fallback equal to the cold reference; export and install seconds, HTTP
+round trips, wire bytes, TTFT handed off against cold, the split path
+against the unified TTFT), serve_int8
 (``--quantize int8`` on generate, the dense engine and the speculating
 paged engine; every served token held to the int8 reference; then
 serve_obs's dense checks on the int8 model, serve_obs_int8), train_grads
 (loss and every gradient through the kernels vs plain attention), train
-(5 timed steps), train_cli, kernels (the summary line), then the card's
-name and power limit, then the result.
+(5 timed steps), train_cli, hostbench (the port's host-loop bench on
+this machine's CPU: host microseconds per token with fake device seams,
+paged, dense and paged with ngram; a host measurement, not the card's),
+kernels (the summary line), then the card's name and power limit, then
+the result.
 """
 
 import concurrent.futures
@@ -2026,11 +2041,11 @@ ROBUST_TENANTS = {"a": {"priority": 0, "queue_share": 0.75},
                   "b": {"priority": 1, "queue_share": 0.25}}
 
 
-def _post_status(port, body, headers=None, timeout=600):
-    """POST /generate: (HTTP status, decoded body), a 429 or 500
-    included."""
+def _post_status(port, body, headers=None, timeout=600, path="/generate"):
+    """POST ``path`` (/generate unless said): (HTTP status, decoded body),
+    a 429 or 500 included."""
     req = urllib.request.Request(
-        f"http://127.0.0.1:{port}/generate", data=json.dumps(body).encode(),
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
         method="POST", headers=headers or {})
     try:
         with urllib.request.urlopen(req, timeout=timeout) as resp:
@@ -2377,10 +2392,13 @@ def serve_robust(torch, np, tf, serve_cli, attention, card, model):
                 with _held_loop(dense):
                     burst = pool.submit(_post_all, port, bodies,
                                         heads)
-                    # Held until every request queued or was shed.
+                    # Held until every request queued or was shed (for
+                    # any reason: a queue_full shed fails the check
+                    # below, not this wait).
                     deadline = time.monotonic() + 600
-                    while dense._q.qsize() + int(
-                            dense._m_shed.labels("class_share").value) < 12:
+                    while dense._q.qsize() + sum(
+                            int(dense._m_shed.labels(r).value)
+                            for r in ("class_share", "queue_full")) < 12:
                         if time.monotonic() > deadline:
                             fail("serve_robust tenants: the burst did not "
                                  "land")
@@ -2658,7 +2676,7 @@ def _obs_server(torch, serve_cli, model, argv):
     built = torch.cuda.memory_allocated() - alloc0
     server, state = serve_cli.start_server(
         engine, port=0, host="127.0.0.1", warmup_mode=args.warmup,
-        metrics=metrics)
+        metrics=metrics, replica_id=args.replica_id, role=args.role)
     own = None
     try:
         if args.metrics_port:
@@ -3085,6 +3103,285 @@ def serve_obs(torch, np, serve_cli, attention, card, model, bf16):
                 bf16["load_allocated_bytes"], overhead=mode == "dense")
             launches += n
     return launches
+
+
+# serve_handoff: two paged engines at the JAX server's engine defaults,
+# each built by the CLI's code with its --role and --replica-id.
+HANDOFF_ENGINE_FLAGS = ["--continuous-batching", "--kv-cache", "paged",
+                        "--max-slots", "8", "--decode-chunk", "32",
+                        "--prefill-chunk", "512", "--kv-block-size", "16",
+                        "--warmup", "all"]
+HANDOFF_NEW = 32
+
+
+def _timed_loop_calls(engine):
+    """Wrap ``engine.run_on_loop`` so that each call's seconds on the loop
+    thread land in the returned list: the engine side of a handoff
+    operation, apart from its wait to be taken up."""
+    seconds, real = [], engine.run_on_loop
+
+    def run_on_loop(fn, timeout_s=None):
+        def timed():
+            t0 = time.perf_counter()
+            try:
+                return fn()
+            finally:
+                seconds.append(time.perf_counter() - t0)
+
+        return real(timed, timeout_s=timeout_s)
+
+    engine.run_on_loop = run_on_loop
+    return seconds
+
+
+def _timed_post(port, path, body):
+    """(status, decoded body, seconds): the round trip of a POST, the
+    request's JSON encoding and the response's decoding included."""
+    t0 = time.perf_counter()
+    status, out = _post_status(port, body, timeout=900, path=path)
+    return status, out, time.perf_counter() - t0
+
+
+def _flush_prefixes(engine):
+    """Evict every cached prefix of an idle paged engine (the radix
+    index's LRU eviction, on the loop): the next admissions prefill
+    cold."""
+    engine.run_on_loop(lambda: engine.kv.radix.evict(
+        engine.kv.pool, len(engine.kv.radix)))
+    if engine.kv_stats()["cached_blocks"]:
+        fail(f"serve_handoff: {engine.kv_stats()['cached_blocks']} blocks "
+             f"still cached after the flush")
+
+
+def serve_handoff(torch, np, tf, serve_cli, attention, card, model):
+    """Cross-replica KV handoff on full-width Llama-3-8B (the serve
+    phases' bf16 model from seed 0): a prefill replica p0 and a decode
+    replica d0, paged engines at the JAX server's engine defaults built
+    by the CLI's code (``--role prefill --replica-id p0``, ``--role decode
+    --replica-id d0``), behind the HTTP server. A client does what JAX's
+    router does for a split request, one request at a time: the prompt
+    with ``max_new_tokens`` 1 on p0 (the prefill leg), ``POST
+    /kv/export`` on p0, ``POST /kv/install`` on d0, the request on d0.
+    Traffic: serve_paged's 1024- and 3000-token prompts (32 new each),
+    then the 6 prompts sharing the 1024-token prefix at once; then d0's
+    prefixes flushed, both prompts cold on d0 (the unified reference);
+    flushed again, a ``corrupt_payload`` and a ``drop`` fault on the
+    ``serving.handoff`` site through the port's ``perturb_frames``.
+    Checks: installed blocks = exported (64, 187); d0's pools hold p0's
+    bytes at the installed ids, bit for bit, and keep their addresses;
+    d0's prefix hits grow by at least 1008 and 2992; d0's tokens equal
+    p0's second serving (the same radix hit over the same bytes) bit for
+    bit; the sharing prompts hit on d0; every served token within
+    SERVE_LOGITS_ATOL of its teacher-forced top logit; each fault
+    answers 409 and leaves d0's free and cached blocks and radix size as
+    they were, and the fallback's tokens equal the cold reference;
+    ``eager_chunks_on_cuda`` 0 on both; flash launches = 32 per prefill
+    segment. Prints each transfer's engine seconds, HTTP round trips,
+    wire bytes and MB/s, d0's TTFT handed off and cold, the split path
+    against the unified TTFT. Returns the flash kernel's launches."""
+    from container_engine_accelerators_tpu_torch import faults
+    from container_engine_accelerators_tpu_torch.kvcache import handoff
+
+    cfg = model.cfg
+    prompts, _ = _shared_prefix_prompts(np, cfg.vocab_size)
+    big = ("prefix_1024", "long_3000")
+    shared = [n for n in prompts if n.startswith("shared_")]
+    row = {"phase": "serve_handoff", **card, "model": "llama3-8b",
+           "n_layers": cfg.n_layers, "argv": HANDOFF_ENGINE_FLAGS}
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+
+    def served(port, name, max_new, what):
+        status, out, secs = _timed_post(
+            port, "/generate", {"tokens": [prompts[name]],
+                                "max_new_tokens": max_new})
+        if status != 200:
+            fail(f"serve_handoff {name} ({what}): HTTP {status}: {out}")
+        _check_response(f"serve_handoff {name} ({what})", out,
+                        prompts[name], max_new, cfg.vocab_size)
+        return out["tokens"][0], secs
+
+    # The main path: counts at zero, then both replicas built (their warm
+    # grids), the traffic, the flushes and the faults.
+    attention.flash_fwd_launches = 0
+    with contextlib.ExitStack() as stack:
+        ports, engines = {}, {}
+        for rid, role in (("p0", "prefill"), ("d0", "decode")):
+            _, engines[rid], _, ports[rid], _, _ = stack.enter_context(
+                _obs_server(torch, serve_cli, model, HANDOFF_ENGINE_FLAGS
+                            + ["--role", role, "--replica-id", rid]))
+            health = json.loads(_get_text(ports[rid], "/healthz"))
+            if (health.get("role"), health.get("replica")) != (role, rid):
+                fail(f"serve_handoff: {rid}'s /healthz is {health}")
+        p0, d0 = engines["p0"], engines["d0"]
+        bs = d0.kv.block_size
+        at_ready = {"launches": attention.flash_fwd_launches,
+                    "n_prefills": p0.stats()["n_prefills"]
+                    + d0.stats()["n_prefills"]}
+        ptrs = [t.data_ptr() for t in d0.cache.values()]
+        loop_s = {"p0": _timed_loop_calls(p0), "d0": _timed_loop_calls(d0)}
+        frames, streams, legs = {}, {}, {}
+        for name in big:
+            prompt = prompts[name]
+            n_blocks = len(prompt) // bs
+            _, prefill_leg_s = served(ports["p0"], name, 1, "prefill leg")
+            status, out, export_http_s = _timed_post(
+                ports["p0"], "/kv/export",
+                {"tokens": prompt, "traceparent": "00-" + "1" * 32 + "-"
+                 + "2" * 16 + "-01"})
+            frames[name] = out.get("frames") or []
+            if status != 200 or len(frames[name]) != n_blocks + 2:
+                fail(f"serve_handoff {name}: export answered {status} with "
+                     f"{len(frames[name])} frames, want {n_blocks + 2}")
+            export_s = loop_s["p0"][-1]
+            hit0 = d0.kv_stats()["prefix_hit_tokens"]
+            status, summary, install_http_s = _timed_post(
+                ports["d0"], "/kv/install", {"frames": frames[name]})
+            if status != 200 or summary["installed_blocks"] != n_blocks:
+                fail(f"serve_handoff {name}: install answered {status}: "
+                     f"{summary}, want {n_blocks} installed blocks")
+            install_s = loop_s["d0"][-1]
+            # The installed bytes are the exported ones, bit for bit.
+            ids = torch.tensor(d0.run_on_loop(
+                lambda: d0.kv.radix.match(prompt)), device="cuda")
+            sent = torch.tensor([f["payload"]["block"]
+                                 for f in frames[name][1:-1]],
+                                device="cuda")
+            if len(ids) != n_blocks or not all(
+                    torch.equal(d0.cache[k][:, ids].view(torch.int16),
+                                p0.cache[k][:, sent].view(torch.int16))
+                    for k in ("k", "v")):
+                fail(f"serve_handoff {name}: d0's pools do not hold the "
+                     f"exported bytes at the {len(ids)} installed ids")
+            got, _ = served(ports["d0"], name, HANDOFF_NEW, "handed off")
+            receiver_ttft_s = d0.ttft_s[-1][1]
+            hit = d0.kv_stats()["prefix_hit_tokens"] - hit0
+            if hit < (len(prompt) - 1) // bs * bs:
+                fail(f"serve_handoff {name}: d0 reused {hit} tokens of the "
+                     f"handed-off prefix")
+            want, _ = served(ports["p0"], name, HANDOFF_NEW,
+                             "the sender's second serving")
+            if got != want:
+                fail(f"serve_handoff {name}: d0's tokens part from p0's "
+                     f"radix-hit tokens at {_equal_prefix(got, want, 0)}")
+            streams[f"{name}_handed_off"] = (prompt, got)
+            nbytes = handoff.frames_nbytes(frames[name])
+            legs[name] = {
+                "blocks": n_blocks, "frames": len(frames[name]),
+                "wire_bytes": nbytes, "export_s": export_s,
+                "install_s": install_s, "export_http_s": export_http_s,
+                "install_http_s": install_http_s,
+                "export_http_mb_per_s": nbytes / export_http_s / 1e6,
+                "install_http_mb_per_s": nbytes / install_http_s / 1e6,
+                "prefill_leg_s": prefill_leg_s,
+                "receiver_ttft_s": receiver_ttft_s,
+                "split_path_s": prefill_leg_s + export_http_s
+                + install_http_s + receiver_ttft_s,
+                "prefix_hit_tokens": hit, "installed": summary,
+            }
+        hit0 = d0.kv_stats()["prefix_hit_tokens"]
+        results = _post_all(ports["d0"], [
+            {"tokens": [prompts[n]], "max_new_tokens": HANDOFF_NEW}
+            for n in shared])
+        for n, (status, out) in zip(shared, results):
+            if status != 200:
+                fail(f"serve_handoff {n}: HTTP {status}: {out}")
+            _check_response(f"serve_handoff {n}", out, prompts[n],
+                            HANDOFF_NEW, cfg.vocab_size)
+            streams[n] = (prompts[n], out["tokens"][0])
+        row["shared_prefix_hit_tokens"] = \
+            d0.kv_stats()["prefix_hit_tokens"] - hit0
+        if row["shared_prefix_hit_tokens"] < len(shared) * 1024:
+            fail(f"serve_handoff: the sharing prompts reused "
+                 f"{row['shared_prefix_hit_tokens']} tokens on d0, want "
+                 f"{len(shared)} x 1024")
+        # The unified reference: each prompt cold on the same receiver.
+        _flush_prefixes(d0)
+        cold = {}
+        for name in big:
+            cold[name], _ = served(ports["d0"], name, HANDOFF_NEW, "cold")
+            legs[name]["cold_ttft_s"] = d0.ttft_s[-1][1]
+            legs[name]["split_over_unified"] = \
+                legs[name]["split_path_s"] / legs[name]["cold_ttft_s"]
+            streams[f"{name}_cold"] = (prompts[name], cold[name])
+        # Faults: a stream corrupted or cut in flight is refused with 409
+        # and changes nothing; the request then prefills on d0.
+        _flush_prefixes(d0)
+        row["faults"] = {}
+        for kind, name in (("corrupt_payload", "prefix_1024"),
+                           ("drop", "long_3000")):
+            faults.arm(faults.FaultPlan([{
+                "kind": kind, "site": handoff.HANDOFF_FAULT_SITE, "at": 0,
+                "count": 1}]))
+            try:
+                bad = handoff.perturb_frames(frames[name])
+            finally:
+                faults.disarm()
+            before = (d0.kv_stats(), len(d0.kv.radix))
+            status, out, _ = _timed_post(ports["d0"], "/kv/install",
+                                         {"frames": bad})
+            after = (d0.kv_stats(), len(d0.kv.radix))
+            if status != 409 or after != before:
+                fail(f"serve_handoff {kind}: install answered {status} "
+                     f"({out}); d0 before {before}, after {after}")
+            hit0 = d0.kv_stats()["prefix_hit_tokens"]
+            got, _ = served(ports["d0"], name, HANDOFF_NEW, "fallback")
+            if got != cold[name] or \
+                    d0.kv_stats()["prefix_hit_tokens"] != hit0:
+                fail(f"serve_handoff {kind}: the fallback's tokens part "
+                     f"from the cold reference or reused a prefix")
+            row["faults"][kind] = {"prompt": name, "status": status,
+                                   "error": out.get("error", "")[:120]}
+        graphs = {rid: e.graph_stats() for rid, e in engines.items()}
+        stats = {rid: e.stats() for rid, e in engines.items()}
+        kvs = {rid: e.kv_stats() for rid, e in engines.items()}
+        if [t.data_ptr() for t in d0.cache.values()] != ptrs:
+            fail("serve_handoff: d0's pools moved")
+    launches = attention.flash_fwd_launches
+    served_segments = sum(s["n_prefills"] for s in stats.values()) - \
+        at_ready["n_prefills"]
+    if launches - at_ready["launches"] != cfg.n_layers * served_segments:
+        fail(f"serve_handoff: {launches - at_ready['launches']} flash "
+             f"launches after ready for {served_segments} prefill segments")
+    if any(g["eager_chunks_on_cuda"] for g in graphs.values()):
+        fail(f"serve_handoff: a chunk ran eagerly on the card: {graphs}")
+    names = list(streams)
+    held = _served_gaps(torch, tf, model, [streams[n][0] for n in names],
+                        [streams[n][1] for n in names])
+    if held["gaps_over_tol"]:
+        fail(f"serve_handoff: {held['gaps_over_tol']} served tokens lie "
+             f"{SERVE_LOGITS_ATOL} or more below the dense forward's top "
+             f"logit: {held}")
+    row.update(transfers=legs, served_tokens=held, tol=SERVE_LOGITS_ATOL,
+               flash_fwd_launches=launches,
+               flash_fwd_launches_at_ready=at_ready["launches"],
+               served_segments=served_segments, kv=kvs,
+               graph_stats=graphs,
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+               / 1e9)
+    emit(row)
+    return launches
+
+
+def hostbench_phase():
+    """The port's host-loop microbench (``kvcache/hostbench.py``) on this
+    machine's CPU: a port engine on the CPU with fake device seams, so
+    the time per token is the host loop's. A host measurement, not a
+    card one."""
+    from container_engine_accelerators_tpu_torch.kvcache import hostbench
+
+    row = {"phase": "hostbench",
+           "measures": "the host loop on the CPU (the engine on the CPU, "
+                       "fake device seams), not the card"}
+    for mode, kw in (("paged", {}), ("dense", {"kv_cache": "dense"}),
+                     ("paged_ngram", {"requests": 24,
+                                      "speculate": "ngram"})):
+        result = hostbench.run_hostbench(**{"requests": 32, "max_new": 32,
+                                            **kw})
+        row[mode] = {k: result.get(k) for k in (
+            "host_us_per_token", "prefix_hit_ratio",
+            "device_steps_per_token", "tokens", "wall_s")}
+    emit(row)
 
 
 def serve_obs_int8(torch, np, serve_cli, attention, int8_matmul, card,
@@ -3568,6 +3865,9 @@ def main():
     _free(torch)
     obs_launches = serve_obs(torch, np, serve_cli, attention, card, model,
                              bf16)
+    _free(torch)
+    handoff_launches = serve_handoff(torch, np, tf, serve_cli, attention,
+                                     card, model)
     del model
     int8_launches, obs_int8_launches = serve_int8(
         torch, np, tf, serve_cli, attention, int8_matmul, q8, card, bf16)
@@ -3577,6 +3877,7 @@ def main():
     fwd_train, dq_train, dkv_train = train(torch, np, tf, attention, card)
     _free(torch)
     train_cli_phase(train_cli)
+    hostbench_phase()
 
     src = "container_engine_accelerators_tpu_torch/ops/csrc/"
     replaces = "container_engine_accelerators_tpu/ops/attention.py:"
@@ -3593,7 +3894,7 @@ def main():
             "replaces": replaces + "136",
             "launches": serve_launches + paged_launches + spec_launches
             + dense_launches + robust_launches + obs_launches
-            + obs_int8_launches + fwd_train,
+            + obs_int8_launches + handoff_launches + fwd_train,
             "launches_by_path": {"serve": serve_launches,
                                  "serve_paged": paged_launches,
                                  "serve_spec": spec_launches,
@@ -3601,6 +3902,7 @@ def main():
                                  "serve_robust": robust_launches,
                                  "serve_obs": obs_launches,
                                  "serve_obs_int8": obs_int8_launches,
+                                 "serve_handoff": handoff_launches,
                                  "train": fwd_train},
             "max_abs_err": main_row["max_abs_err_out"],
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],

@@ -46,7 +46,8 @@ graph before ``/healthz`` flips ready (``warmstart/warmup.py``);
 
 Endpoints (the same JSON as the JAX server):
   GET  /healthz    200 once the warmup decode succeeded, 503 before,
-                   500 if it failed; an engine adds queue_depth,
+                   500 if it failed; with role (--role) and replica
+                   (--replica-id, when set); an engine adds queue_depth,
                    occupied_slots and max_slots, a paged one also
                    prefix_hit_ratio and free_blocks, one with
                    --tenant-classes also tenant_queues (queued rows
@@ -71,6 +72,16 @@ Endpoints (the same JSON as the JAX server):
   POST /debug/flight  dump the flight recorder's bundle now
                    (``--flight-recorder``) → {"bundle": path}; 503
                    when it is off, 429 when its rate limit held it
+  POST /kv/export  {"tokens": [...], "traceparent": "00-..."}
+                   → {"frames": [...]}: the longest cached prefix of
+                   the prompt as a handoff stream (``kvcache/handoff.py``,
+                   the JAX wire), ``{"frames": []}`` on a miss or a
+                   dense engine
+  POST /kv/install {"frames": [...]} → the install summary
+                   (installed_blocks, duplicate_blocks, n_tokens,
+                   nbytes, traceparent); for both: 503 before ready, 409
+                   on a desync, 503 on another handoff error, 501 for a
+                   model with no engine, 502 on any other error
 
 Sampler params snap to the JAX server's whitelist grids
 (sanitize_sampler). Sampled requests draw from a ``torch.Generator``
@@ -102,8 +113,15 @@ same run with ``torch.profiler`` (``utils.profiling``);
 ``--alert-rules`` evaluates burn-rate rules over the registries. Each
 costs one ``is None`` check per hook when its flag is off.
 
-Not ported yet (ROADMAP.md): KV handoff, the multi-host link, tensor
-parallelism, and the fleet reactor (``faults/reactor.FleetReactor``).
+Cross-replica KV handoff, the JAX server's (``kv_export`` /
+``kv_install``, ``--role``, ``--replica-id``): a prefill replica ships a
+cached prompt's blocks, K/V bytes and radix entry, to a decode replica,
+whose next admission of that prompt reuses them instead of prefilling.
+The stream is JAX's byte for byte, so either package installs the
+other's; the install writes the pools in place.
+
+Not ported yet (ROADMAP.md): the multi-host link, tensor parallelism,
+and the fleet reactor (``faults/reactor.FleetReactor``).
 
   python -m container_engine_accelerators_tpu_torch.models.serve_cli \\
       --preset llama3-8b --port 8000
@@ -121,11 +139,14 @@ parallelism, and the fleet reactor (``faults/reactor.FleetReactor``).
 """
 
 import argparse
+import base64
 import collections
 import functools
 import itertools
 import json
 import logging
+import math
+import os
 import queue
 import random
 import sys
@@ -141,6 +162,9 @@ from container_engine_accelerators_tpu_torch import faults
 from container_engine_accelerators_tpu_torch import spec as spec_pkg
 from container_engine_accelerators_tpu_torch.fleet import (
     tenants as fleet_tenants,
+)
+from container_engine_accelerators_tpu_torch.kvcache import (
+    handoff as kv_handoff,
 )
 from container_engine_accelerators_tpu_torch.kvcache.blockpool import (
     PoolExhausted,
@@ -231,6 +255,17 @@ class ClassShareExceeded(ShedError):
     def __init__(self, message, tenant="default"):
         super().__init__(message)
         self.tenant = tenant
+
+
+class LoopTimeout(TimeoutError):
+    """A ``run_on_loop`` call the engine loop did not take up within its
+    ``timeout_s``: it was withdrawn and never runs."""
+
+
+def _wire_dtype(dtype):
+    """A cache dtype's name on the handoff wire: numpy's, as JAX writes
+    it (``"bfloat16"``, ``"float32"``), never ``"torch.bfloat16"``."""
+    return str(dtype).removeprefix("torch.")
 
 
 class ServingSLO:
@@ -809,6 +844,11 @@ class ContinuousEngine:
         self.tenants = tenants
         self._q = (fleet_tenants.TenantQueue(tenants) if tenants is not None
                    else queue.Queue())
+        # Admission (the share and watermark checks, then the put) runs
+        # under one lock, so concurrent handlers cannot all pass a check
+        # before any of them queues: a burst of one class cannot overrun
+        # its share and push another class's rows past max_queue.
+        self._admit_lock = threading.Lock()
         # run_on_loop's calls: run by the loop before admission, never
         # counted against max_queue or a tenant class.
         self._calls = queue.Queue()
@@ -820,9 +860,12 @@ class ContinuousEngine:
         # random stream.
         self._rng = random.Random(0)
         # drain() requests land here from any thread; the loop applies
-        # them between iterations (slot state has one writer).
+        # them between iterations (slot state has one writer). The lock
+        # also guards a control call's take-up against its withdrawal.
         self._drain_lock = threading.Lock()
         self._drain_requests = []
+        # The handoff stream's ``src`` (``--replica-id``).
+        self.replica_id = ""
         self._rid = itertools.count(
             1 + 1_000_000 * next(ContinuousEngine._engine_seq))
         self.events = events
@@ -1022,6 +1065,8 @@ class ContinuousEngine:
         )
         self._paged_chunk = self.decode_graphs
         self._copy_blocks = pa.copy_blocks
+        # A KV handoff install's device half.
+        self._write_blocks = pa.write_blocks
         # Bumped by _reset_paged: sync records dispatched before a pool
         # rebuild must not touch the fresh pool.
         self._kv_epoch = 0
@@ -1090,69 +1135,72 @@ class ContinuousEngine:
             )
         if self._stop.is_set():
             raise RuntimeError("engine is shut down")
-        tcls = None
-        if self.tenants is not None:
-            tcls = self.tenants.resolve(tenant)
-            # The class's share of the bounded queue first; the quota
-            # last, so only work that passes every other gate consumes
-            # bucket tokens.
-            if self.max_queue:
-                bound = max(1, int(tcls.queue_share * self.max_queue))
-                if self._q.depth(tcls.name) + len(tokens) > bound:
-                    self._shed_tenant(ClassShareExceeded(
-                        f"tenant class {tcls.name} queue share full "
-                        f"({self._q.depth(tcls.name)} waiting, share "
-                        f"bound {bound}); retry with backoff",
-                        tenant=tcls.name,
-                    ), tcls.name, len(tokens), trace_id=trace_id)
-        # A watermark, not an exact cap: qsize is approximate across
-        # racing handlers.
-        if self.max_queue and self._q.qsize() + len(tokens) > self.max_queue:
-            self._m_shed.labels("queue_full").inc(len(tokens))
-            if self.slo is not None:
-                for _ in tokens:
-                    self.slo.record_shed(
-                        "queue_full",
-                        tcls.name if tcls is not None else "default")
-            if self.events is not None:
-                self.events.emit(
-                    "request_shed", severity="warning",
-                    reason="queue_full", rows=len(tokens),
-                    queue_depth=self._q.qsize(),
+        with self._admit_lock:
+            tcls = None
+            if self.tenants is not None:
+                tcls = self.tenants.resolve(tenant)
+                # The class's share of the bounded queue first; the quota
+                # last, so only work that passes every other gate consumes
+                # bucket tokens.
+                if self.max_queue:
+                    bound = max(1, int(tcls.queue_share * self.max_queue))
+                    if self._q.depth(tcls.name) + len(tokens) > bound:
+                        self._shed_tenant(ClassShareExceeded(
+                            f"tenant class {tcls.name} queue share full "
+                            f"({self._q.depth(tcls.name)} waiting, share "
+                            f"bound {bound}); retry with backoff",
+                            tenant=tcls.name,
+                        ), tcls.name, len(tokens), trace_id=trace_id)
+            # Exact among admissions (they hold the lock); the loop's
+            # own re-queues (a drain's migrations) bypass it.
+            if self.max_queue and \
+                    self._q.qsize() + len(tokens) > self.max_queue:
+                self._m_shed.labels("queue_full").inc(len(tokens))
+                if self.slo is not None:
+                    for _ in tokens:
+                        self.slo.record_shed(
+                            "queue_full",
+                            tcls.name if tcls is not None else "default")
+                if self.events is not None:
+                    self.events.emit(
+                        "request_shed", severity="warning",
+                        reason="queue_full", rows=len(tokens),
+                        queue_depth=self._q.qsize(),
+                    )
+                raise QueueFull(
+                    f"admission queue full ({self._q.qsize()} waiting, "
+                    f"bound {self.max_queue}); retry with backoff"
                 )
-            raise QueueFull(
-                f"admission queue full ({self._q.qsize()} waiting, "
-                f"bound {self.max_queue}); retry with backoff"
-            )
-        if tcls is not None and not self.tenants.try_consume(
-            tcls.name, len(tokens) * int(max_new_tokens)
-        ):
-            self._shed_tenant(QuotaExceeded(
-                f"tenant class {tcls.name} outran its token-rate "
-                f"quota; retry with backoff", tenant=tcls.name,
-            ), tcls.name, len(tokens), trace_id=trace_id)
-        if deadline_s is None:
-            deadline_s = self.deadline_s
-        t_enq = obs_trace.now()
-        rows = [
-            {
-                "prompt": [int(t) for t in r],
-                "max_new": int(max_new_tokens),
-                "out": None,
-                "finish_step": None,
-                "event": threading.Event(),
-                "err": None,
-                "rid": next(self._rid),
-                "t_enq": t_enq,
-                "deadline": (t_enq + deadline_s) if deadline_s else None,
-                "tenant": tcls.name if tcls is not None else None,
-                "trace_id": trace_id,
-                "trace_sampled": trace_sampled,
-            }
-            for r in tokens
-        ]
-        for row in rows:
-            self._q.put(row)
+            if tcls is not None and not self.tenants.try_consume(
+                tcls.name, len(tokens) * int(max_new_tokens)
+            ):
+                self._shed_tenant(QuotaExceeded(
+                    f"tenant class {tcls.name} outran its token-rate "
+                    f"quota; retry with backoff", tenant=tcls.name,
+                ), tcls.name, len(tokens), trace_id=trace_id)
+            if deadline_s is None:
+                deadline_s = self.deadline_s
+            t_enq = obs_trace.now()
+            rows = [
+                {
+                    "prompt": [int(t) for t in r],
+                    "max_new": int(max_new_tokens),
+                    "out": None,
+                    "finish_step": None,
+                    "event": threading.Event(),
+                    "err": None,
+                    "rid": next(self._rid),
+                    "t_enq": t_enq,
+                    "deadline": (t_enq + deadline_s) if deadline_s
+                    else None,
+                    "tenant": tcls.name if tcls is not None else None,
+                    "trace_id": trace_id,
+                    "trace_sampled": trace_sampled,
+                }
+                for r in tokens
+            ]
+            for row in rows:
+                self._q.put(row)
         for row in rows:
             row["event"].wait()
         for row in rows:
@@ -1233,21 +1281,34 @@ class ContinuousEngine:
             f"{prefix}graph_pool_bytes": sum(g.pool_bytes() for g in sets),
         }
 
-    def run_on_loop(self, fn):
+    def run_on_loop(self, fn, timeout_s=None):
         """Run ``fn()`` on the engine-loop thread between iterations
         (after the pending syncs) and return its result; captures and warm
         tasks go there, never beside the loop's own device calls. Runs it
         here when the engine has no loop thread, or this is it. The call
         waits in a queue of its own, which the loop serves before it
-        admits requests: it never counts against ``max_queue`` or a
-        tenant class."""
+        admits requests (an idle loop wakes for it): it never counts
+        against ``max_queue`` or a tenant class. ``timeout_s`` bounds the
+        wait for the loop to take the call up: one still queued then is
+        withdrawn and :class:`LoopTimeout` raised; one already running
+        is waited for to its end."""
         if self._thread is None or self._thread is threading.current_thread():
             return fn()
         if self._stop.is_set():
             raise RuntimeError("engine is shut down")
         call = {"call": fn, "out": None, "err": None,
-                "event": threading.Event()}
+                "event": threading.Event(), "state": "queued"}
         self._calls.put(call)
+        if timeout_s is not None and not call["event"].wait(timeout_s):
+            with self._drain_lock:
+                withdrawn = call["state"] == "queued"
+                if withdrawn:
+                    call["state"] = "withdrawn"
+            if withdrawn:
+                raise LoopTimeout(
+                    f"the engine loop did not take the call up within "
+                    f"{timeout_s:.3f}s (stalled or not running)"
+                )
         call["event"].wait()
         if call["err"] is not None:
             raise call["err"]
@@ -1271,6 +1332,128 @@ class ContinuousEngine:
                 (None if slots is None else set(slots), reason)
             )
         return targeted
+
+    # -- cross-replica KV handoff (kvcache/handoff.py) ------------------------
+
+    def kv_export(self, tokens, timeout_s=2.0, traceparent=None):
+        """The longest cached prefix of ``tokens`` as a handoff stream
+        (``kvcache/handoff.py``'s frames, each BLOCK carrying its K/V
+        bytes), the JAX engine's ``kv_export``. Runs on the engine loop
+        after its pending syncs (the radix index and the pools have one
+        writer, and the blocks hold their tokens' bytes by then); raises
+        ``HandoffTimeout`` when the loop does not take it up within
+        ``timeout_s``, ``HandoffUnsupported`` on a dense engine or a
+        miss."""
+        if self.kv is None:
+            raise kv_handoff.HandoffUnsupported(
+                "dense engine: no paged KV manager to export from"
+            )
+        tokens = [int(t) for t in tokens]
+        return self._kv_handoff_op(
+            "export", lambda: kv_handoff.export_prefix(
+                self.kv, tokens, src=self.replica_id,
+                block_bytes=self._kv_block_bytes, traceparent=traceparent,
+            ), timeout_s)
+
+    def kv_install(self, frames, timeout_s=2.0):
+        """Verify and install a handoff stream (the receiving half, the
+        JAX engine's ``kv_install``): the blocks join this engine's pool
+        and radix index, so the next admission of the shipped prompt
+        reuses them. Every block's bytes are decoded and checked before
+        any lands (a bad one raises ``HandoffDesync`` and leaves the
+        manager and the pools as they were), then all land in one copy
+        per pool, in place. Same loop marshalling and failures as
+        :meth:`kv_export`."""
+        if self.kv is None:
+            raise kv_handoff.HandoffUnsupported(
+                "dense engine: no paged KV manager to install into"
+            )
+        return self._kv_handoff_op(
+            "install", lambda: self._install_on_loop(frames), timeout_s)
+
+    def _kv_handoff_op(self, op, fn, timeout_s):
+        try:
+            return self.run_on_loop(fn, timeout_s=timeout_s)
+        except LoopTimeout as e:
+            raise kv_handoff.HandoffTimeout(
+                f"kv {op} not applied within {timeout_s:.3f}s (engine "
+                f"loop stalled or not running)"
+            ) from e
+
+    def _install_on_loop(self, frames):
+        """The loop's half of :meth:`kv_install`. The radix index has
+        adopted the blocks when their device copy runs: a failure there
+        resets the pools and the index (``_reset_paged``, as a failed
+        sync does) and is raised, so no adopted block goes unwritten."""
+        staged = []
+
+        def write(bid, kv):
+            staged.append((bid, self._decode_kv_block(kv)))
+
+        result = kv_handoff.install_prefix(self.kv, frames,
+                                           write_block=write)
+        if staged:
+            ids = torch.tensor([bid for bid, _ in staged], dtype=torch.long)
+            k = torch.stack([kv[0] for _, kv in staged], dim=1)
+            v = torch.stack([kv[1] for _, kv in staged], dim=1)
+            try:
+                self._write_blocks(self.cache, ids, k, v)
+                event = self._timing_event()
+                if event is not None:
+                    event.synchronize()
+            except Exception as e:  # noqa: BLE001 - reset, then raised
+                log.exception("kv install: the device copy failed")
+                self._reset_paged(e, phase="kv install")
+                raise
+        return result
+
+    def _kv_block_bytes(self, bid):
+        """One block's device bytes as a wire payload, the JAX engine's:
+        the C-order (L, Hkv, block_size, hd) slabs of K and V,
+        little-endian, base64, and the dtype's numpy name. A bf16 slab
+        goes through its bytes (numpy has no bf16), never through f32."""
+        def b64(pool):
+            slab = pool[:, int(bid)].cpu().contiguous()
+            return base64.b64encode(
+                slab.view(torch.uint8).numpy().tobytes()).decode("ascii")
+
+        return {"k": b64(self.cache["k"]), "v": b64(self.cache["v"]),
+                "dtype": _wire_dtype(self.cache["k"].dtype)}
+
+    def _decode_kv_block(self, kv):
+        """Inverse of :meth:`_kv_block_bytes` against this engine's cache
+        geometry: host (L, Hkv, block_size, hd) tensors of K and V. A
+        missing payload, another dtype or another byte size is a desync,
+        never a reinterpretation (JAX installs a byte-less block
+        unwritten; here its pages would decode garbage)."""
+        ref = self.cache["k"]
+        shape = (ref.shape[0],) + tuple(ref.shape[2:])
+        want = math.prod(shape) * ref.element_size()
+        if not isinstance(kv, dict):
+            raise kv_handoff.HandoffDesync(
+                "BLOCK frame carries no KV bytes"
+            )
+        if kv.get("dtype") != _wire_dtype(ref.dtype):
+            raise kv_handoff.HandoffDesync(
+                f"KV dtype mismatch: stream {kv.get('dtype')}, "
+                f"receiver {_wire_dtype(ref.dtype)}"
+            )
+        out = []
+        for key in ("k", "v"):
+            try:
+                buf = base64.b64decode(kv.get(key) or "")
+            except (TypeError, ValueError) as e:
+                raise kv_handoff.HandoffDesync(
+                    f"KV block {key!r} is not base64: {e}") from e
+            if len(buf) != want:
+                raise kv_handoff.HandoffDesync(
+                    f"KV block byte-size mismatch on {key!r}: stream "
+                    f"{len(buf)}, receiver wants {want} (model config "
+                    f"drift between replicas)"
+                )
+            out.append(torch.frombuffer(bytearray(buf), dtype=torch.uint8)
+                       .view(ref.dtype).reshape(shape))
+        return out[0], out[1]
 
     def shutdown(self):
         """Stop the engine loop and fail whatever is still queued or in
@@ -2589,8 +2772,11 @@ class ContinuousEngine:
             self.devicetime.note_idle()
         return row
 
-    @staticmethod
-    def _run_call(call):
+    def _run_call(self, call):
+        with self._drain_lock:
+            if call["state"] == "withdrawn":
+                return
+            call["state"] = "running"
         try:
             call["out"] = call["call"]()
         except Exception as e:  # noqa: BLE001 - raised in run_on_loop
@@ -2710,6 +2896,12 @@ def make_handler(model, state, metrics=None):
                 self._send({"error": "not found"}, 404)
             elif state["ready"]:
                 info = {"status": "ok"}
+                # The fleet identity and serving role (--replica-id,
+                # --role): a router's probe learns them.
+                if state.get("replica_id"):
+                    info["replica"] = state["replica_id"]
+                if state.get("role"):
+                    info["role"] = state["role"]
                 if isinstance(model, ContinuousEngine):
                     # The cheap load snapshot a router probes: host-side
                     # integers only.
@@ -2744,9 +2936,43 @@ def make_handler(model, state, metrics=None):
                 return
             self._send({"bundle": path})
 
+        def _kv_handoff(self):
+            """POST /kv/export {tokens, traceparent} → {frames}; POST
+            /kv/install {frames} → the install summary. The JAX server's
+            status codes: a miss (or a dense engine) is an empty export,
+            not an error, so the router re-prefills."""
+            if not state["ready"]:
+                self._send({"error": "not ready"}, 503)
+                return
+            try:
+                length = int(self.headers.get("Content-Length", 0))
+                req = json.loads(self.rfile.read(length) or b"{}")
+                if self.path == "/kv/export":
+                    frames = model.kv_export(
+                        [int(t) for t in (req.get("tokens") or [])],
+                        traceparent=req.get("traceparent"))
+                    self._send({"frames": frames})
+                else:
+                    self._send(model.kv_install(req.get("frames") or []))
+            except kv_handoff.HandoffUnsupported:
+                self._send({"frames": []})
+            except kv_handoff.HandoffDesync as e:
+                self._send({"error": f"desync: {e}"}, 409)
+            except kv_handoff.HandoffError as e:
+                self._send({"error": str(e)}, 503)
+            except AttributeError:
+                # A model with no engine has no kv_export / kv_install.
+                self._send({"error": "no paged KV engine"}, 501)
+            except Exception as e:  # noqa: BLE001 - serve errors as JSON
+                log.exception("kv handoff endpoint failed")
+                self._send({"error": str(e)}, 502)
+
         def do_POST(self):
             if self.path == "/debug/flight":
                 self._dump_flight()
+                return
+            if self.path in ("/kv/export", "/kv/install"):
+                self._kv_handoff()
                 return
             if self.path != "/generate":
                 self._send({"error": "not found"}, 404)
@@ -2788,6 +3014,10 @@ def make_handler(model, state, metrics=None):
                         **extra,
                     )
                 dt = time.perf_counter() - t0
+                # Counted before the write, so /metrics holds a request
+                # once its client has the response.
+                if metrics is not None:
+                    metrics.observe(True, dt, len(tokens) * max_new)
                 try:
                     self._send({
                         "tokens": out,
@@ -2802,8 +3032,6 @@ def make_handler(model, state, metrics=None):
                     # The client hung up before the write: the generate
                     # succeeded, so this is no failure.
                     log.info("client disconnected before response write")
-                if metrics is not None:
-                    metrics.observe(True, dt, len(tokens) * max_new)
             except ShedError as e:
                 # A typed shed: 429 with its reason (and the shedding
                 # tenant class), so the client backs off.
@@ -2852,16 +3080,18 @@ def warmup(model, state, mode="lazy"):
 
 
 def start_server(model, port=8000, host="0.0.0.0", warmup_mode="lazy",
-                 metrics=None):
+                 metrics=None, replica_id="", role=""):
     """Serve ``model`` on (host, port) from a daemon thread and warm it up
     in another (``warmup`` with ``warmup_mode``). ``metrics`` (a
     :class:`ServingMetrics`, built for ``model`` when None) counts the
-    requests and renders ``GET /metrics``. Returns (server, state);
+    requests and renders ``GET /metrics``; ``/healthz`` carries
+    ``replica_id`` and ``role`` when set (the CLI sets ``--role``, whose
+    default is "unified", as the JAX server does). Returns (server, state);
     ``state["ready"]`` flips once the warmup decode succeeded. ``port=0``
     picks a free port (``server.server_address[1]``)."""
     if metrics is None:
         metrics = ServingMetrics(model)
-    state = {"ready": False}
+    state = {"ready": False, "replica_id": replica_id, "role": role}
     server = ThreadingHTTPServer((host, port),
                                  make_handler(model, state, metrics))
     threading.Thread(target=server.serve_forever, daemon=True).start()
@@ -2926,6 +3156,22 @@ def build_parser():
                         "(tests). Without a GPU the default fails.")
     p.add_argument("--once", action="store_true",
                    help="warm up, serve one request to self, exit (tests)")
+    p.add_argument("--replica-id",
+                   default=os.environ.get("TPU_REPLICA_ID", ""),
+                   help="fleet identity this replica registers under: "
+                        "stamped into /healthz (the router's probe), "
+                        "the event stream's host identity and a KV "
+                        "handoff stream's source (default: the "
+                        "TPU_REPLICA_ID env)")
+    p.add_argument("--role", choices=["unified", "prefill", "decode"],
+                   default="unified",
+                   help="serving role in a disaggregated fleet: "
+                        "'prefill' replicas take new prompts and export "
+                        "their KV blocks, 'decode' replicas install "
+                        "handed-off blocks (POST /kv/export | "
+                        "/kv/install) and run the decode batch, "
+                        "'unified' does both. Advertised on /healthz; "
+                        "the fleet router narrows dispatch by it")
     p.add_argument("--batch-window-ms", type=float, default=0.0,
                    help="> 0 enables dynamic micro-batching: concurrent "
                         "compatible greedy requests coalesce into one "
@@ -3179,6 +3425,7 @@ def _wire_flight(args, model, metrics):
         True, args.flight_dir, registries=registries, streams=streams,
         tracer=obs_trace.get(), providers=providers,
         window_s=args.flight_window_s,
+        host=getattr(args, "replica_id", "") or None,
     )
 
 
@@ -3203,10 +3450,12 @@ def build_serving(args, model):
             registry=registry,
             events=obs_events.EventStream(
                 "serve", sink_path=args.event_log, registry=registry,
+                host=getattr(args, "replica_id", "") or None,
             ) if args.event_log else None,
             slo=_make_slo(args, registry),
             devicetime=_make_devicetime(args, registry, tenants),
         )
+        model.replica_id = getattr(args, "replica_id", "")
         _attach_hbm(args, model)
     elif args.batch_window_ms > 0:
         model = BatchingModel(model, window_ms=args.batch_window_ms)
@@ -3227,7 +3476,8 @@ def _serve(args):
     model, metrics, alerts, flight = build_serving(args, Model(
         config_from_args(args), device=args.device, quantize=args.quantize))
     server, state = start_server(model, port=args.port,
-                                 warmup_mode=args.warmup, metrics=metrics)
+                                 warmup_mode=args.warmup, metrics=metrics,
+                                 replica_id=args.replica_id, role=args.role)
     log.info("listening on :%d", server.server_address[1])
     metrics_server = None
     try:

@@ -114,3 +114,15 @@ def copy_blocks(pools, src_ids, dst_ids):
     for buf in pools.values():
         buf[:, dst_ids] = buf[:, src_ids]
     return pools
+
+
+def write_blocks(pools, block_ids, k, v):
+    """A KV handoff install's device half: whole blocks ``block_ids``
+    ((n,) integer tensor) of every layer ← ``k`` and ``v`` (L, n, H, bs,
+    hd), in place, one indexed copy per pool (the pools keep their
+    addresses, which captured graphs hold). ``k`` and ``v`` may lie on
+    the host: each goes to the pool's device by a blocking copy first, so
+    its host buffer is free on return. Returns ``pools``."""
+    for buf, src in ((pools["k"], k), (pools["v"], v)):
+        buf.index_copy_(1, block_ids.to(buf.device), src.to(buf.device))
+    return pools

@@ -8,6 +8,9 @@ without the repo's JAX-configuring conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import threading
+import time
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -1026,3 +1029,126 @@ def test_profile_dir_trace_names_the_flash_kernel(gen, tmp_path):
                    if e.get("cat") == "kernel"]
     assert launches == cfg.n_layers
     assert sum("flash_fwd_sm90_kernel" in k for k in kernels) == launches
+
+
+# -- cross-replica KV handoff on the card -------------------------------------
+
+HANDOFF_ENGINE = dict(max_slots=2, chunk=4, prefill_chunk=32,
+                      kv_cache="paged", kv_block_size=16)
+# 50 tokens: 3 full blocks of 16 travel, the receiver prefills the rest.
+HANDOFF_PROMPT = list(range(3, 53))
+
+
+def _handoff_pair(cfg, seed):
+    model = serve_cli.Model(cfg, seed=seed, device="cuda")
+    return (serve_cli.ContinuousEngine(model, **HANDOFF_ENGINE),
+            serve_cli.ContinuousEngine(model, **HANDOFF_ENGINE))
+
+
+def _pool_ptrs(engine):
+    return [p.data_ptr() for p in engine.cache.values()]
+
+
+def test_kv_handoff_bf16_round_trip_is_bit_exact(gen):
+    """A bf16 stream exported on the card installs bit for bit: the
+    receiver's pools hold the sender's bytes at the installed ids, its
+    pools keep their addresses, and it serves the sender's radix-hit
+    tokens."""
+    cfg = tf.TransformerConfig(**{**SMALL, "dtype": "bfloat16"})
+    a, b = _handoff_pair(cfg, 14)
+    try:
+        a.generate([HANDOFF_PROMPT], 6)
+        want = a.generate([HANDOFF_PROMPT], 6)[0]
+        frames = a.kv_export(HANDOFF_PROMPT)
+        assert frames[1]["payload"]["kv"]["dtype"] == "bfloat16"
+        ptrs = _pool_ptrs(b)
+        assert b.kv_install(frames)["installed_blocks"] == 3
+        assert _pool_ptrs(b) == ptrs
+        ids = torch.tensor(b.kv.radix.match(HANDOFF_PROMPT), device="cuda")
+        sent = torch.tensor([f["payload"]["block"] for f in frames[1:-1]],
+                            device="cuda")
+        for name in ("k", "v"):
+            assert torch.equal(b.cache[name][:, ids].view(torch.int16),
+                               a.cache[name][:, sent].view(torch.int16))
+        assert b.generate([HANDOFF_PROMPT], 6)[0] == want
+    finally:
+        a.shutdown()
+        b.shutdown()
+
+
+def test_kv_install_under_captured_graphs_is_read_by_the_replay(gen):
+    """An install into a receiver whose decode graph is captured already:
+    the install writes the pools the graph holds, so the next chunks
+    replay (no capture, nothing eager) over the installed blocks and give
+    the sender's tokens."""
+    cfg = tf.TransformerConfig(**SMALL)
+    a, b = _handoff_pair(cfg, 15)
+    try:
+        a.generate([HANDOFF_PROMPT], 6)
+        want = a.generate([HANDOFF_PROMPT], 6)[0]
+        b.generate([list(range(100, 150))], 6)  # captures the window
+        before = b.graph_stats()
+        assert before["graph_captures"] > 0
+        assert b.kv_install(a.kv_export(HANDOFF_PROMPT))[
+            "installed_blocks"] == 3
+        hit0 = b.kv_stats()["prefix_hit_tokens"]
+        assert b.generate([HANDOFF_PROMPT], 6)[0] == want
+        after = b.graph_stats()
+        assert b.kv_stats()["prefix_hit_tokens"] - hit0 == 48
+        assert after["graph_captures"] == before["graph_captures"]
+        assert after["graph_replays"] > before["graph_replays"]
+        assert after["eager_chunks_on_cuda"] == 0
+    finally:
+        a.shutdown()
+        b.shutdown()
+
+
+def test_failed_install_copy_resets_and_wakes_no_row_on_unwritten_blocks(
+        gen):
+    """A failure in the install's device copy (half the blocks written,
+    then an error) takes the reset path: the pools are zeroed in place,
+    the radix index forgotten, the row in flight fails instead of reading
+    on, and the prompt then prefills cold to the sender's cold tokens."""
+    cfg = tf.TransformerConfig(**SMALL)
+    a, b = _handoff_pair(cfg, 16)
+    try:
+        cold = a.generate([HANDOFF_PROMPT], 6)[0]
+        frames = a.kv_export(HANDOFF_PROMPT)
+        ptrs = _pool_ptrs(b)
+        real = b._write_blocks
+
+        def half_then_fail(pools, ids, k, v):
+            real(pools, ids[:1], k[:, :1], v[:, :1])
+            raise RuntimeError("injected device copy failure")
+
+        b._write_blocks = half_then_fail
+        errors = []
+
+        def long_request():
+            try:
+                b.generate([[7, 8, 9]], 120)
+            except RuntimeError as e:
+                errors.append(e)
+
+        worker = threading.Thread(target=long_request)
+        worker.start()
+        deadline = time.monotonic() + 300
+        while b.stats()["steps_done"] == 0:
+            assert time.monotonic() < deadline
+            time.sleep(0.001)
+        with pytest.raises(RuntimeError, match="injected device copy"):
+            b.kv_install(frames)
+        worker.join(300)
+        assert not worker.is_alive()
+        assert errors and "cache lost" in str(errors[0])
+        kv = b.kv_stats()
+        assert kv["cached_blocks"] == 0
+        assert kv["free_blocks"] == kv["total_blocks"]
+        assert _pool_ptrs(b) == ptrs
+        b._write_blocks = real
+        hit0 = b.kv_stats()["prefix_hit_tokens"]
+        assert b.generate([HANDOFF_PROMPT], 6)[0] == cold
+        assert b.kv_stats()["prefix_hit_tokens"] == hit0
+    finally:
+        a.shutdown()
+        b.shutdown()

@@ -16,8 +16,11 @@ and tenant admission on the port's engines (CPU, f32, exact).
     class is served, tokens equal to JAX ``Model.generate``'s.
 """
 
+import concurrent.futures
 import functools
 import queue
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -250,3 +253,63 @@ def test_engine_class_share_bounds_the_queue_slice(engine, expect, kv):
     text = eng.registry.render().decode()
     assert ('tpu_serving_tenant_shed_total{tenant_class="bulk",'
             'reason="class_share"} 3.0') in text
+
+
+@pytest.mark.parametrize("kv", sorted(ENGINES))
+def test_engine_concurrent_burst_keeps_each_class_in_its_share(
+        engine, expect, kv, monkeypatch):
+    """Twelve requests posted at once while the loop is held (4 of
+    class a, share 0.75, then 8 of class b, share 0.25, max_queue 8):
+    b queues its 2 rows and sheds the other 6 as ``class_share``, a
+    queues all 4, and nothing is shed as ``queue_full``. A sleep in the
+    share check lets the handlers interleave there, as a loaded host
+    does."""
+    tc = tt.TenantClasses.from_dict({"a": {"priority": 0,
+                                           "queue_share": 0.75},
+                                     "b": {"priority": 1,
+                                           "queue_share": 0.25}})
+    eng = engine(kv, tenants=tc, max_queue=8)
+    depth = eng._q.depth
+
+    def slow_depth(name):
+        got = depth(name)
+        time.sleep(0.01)
+        return got
+
+    monkeypatch.setattr(eng._q, "depth", slow_depth)
+    classes = ["a"] * 4 + ["b"] * 8
+    prompts = [[i + 1, i + 2] for i in range(len(classes))]
+    release, running = threading.Event(), threading.Event()
+    holder = threading.Thread(target=lambda: eng.run_on_loop(
+        lambda: (running.set(), release.wait(60))))
+    holder.start()
+    assert running.wait(60)
+    start = threading.Barrier(len(classes))
+
+    def post(i):
+        start.wait()
+        try:
+            return eng.generate([prompts[i]], 2, tenant=classes[i])
+        except tserve.ShedError as e:
+            return e.reason
+
+    try:
+        with concurrent.futures.ThreadPoolExecutor(len(classes)) as pool:
+            futures = [pool.submit(post, i) for i in range(len(classes))]
+            deadline = time.monotonic() + 60
+            while eng._q.qsize() + sum(
+                    f.done() for f in futures) < len(classes):
+                assert time.monotonic() < deadline
+                time.sleep(0.002)
+            depths = eng.stats()["tenant_queues"]
+            release.set()
+            results = [f.result(60) for f in futures]
+    finally:
+        release.set()
+        holder.join(60)
+    assert depths == {"a": 4, "b": 2}
+    assert results[:4] == [[expect(p, 2)] for p in prompts[:4]]
+    served = [(p, r) for p, r in zip(prompts[4:], results[4:])
+              if r != "class_share"]
+    assert len(served) == 2
+    assert [r for _, r in served] == [[expect(p, 2)] for p, _ in served]
