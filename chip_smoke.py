@@ -23,9 +23,13 @@ recorder, ``--profile-dir``), hands a cached prompt's KV blocks
 from a prefill replica to a decode replica over HTTP (``/kv/export``,
 ``/kv/install``, the JAX wire), serves it
 again with int8 weights (``--quantize int8``: every projection the
-hand-written W8A16 kernel, eagerly and inside the captured graphs), and
+hand-written W8A16 kernel, eagerly and inside the captured graphs),
 trains it at full width
-(depth cut to 8 layers) through ``make_train_step``, checking that every
+(depth cut to 8 layers) through ``make_train_step``, trains BERT-large
+MLM at full width and depth (every layer's attention the non-causal
+flash forward, dq and dk/dv kernels), runs ``train_cli`` for every
+``--model`` and its recovery (a preempted supervised run resumed from
+its checkpoint, a corrupt checkpoint quarantined), checking that every
 prefill, every prefill segment and every training step went through the
 kernels, and that every decode chunk replayed its captured graph. Each
 phase prints one JSON line; a failed phase raises and the script exits
@@ -79,7 +83,14 @@ against the unified TTFT), serve_int8
 paged engine; every served token held to the int8 reference; then
 serve_obs's dense checks on the int8 model, serve_obs_int8), train_grads
 (loss and every gradient through the kernels vs plain attention), train
-(5 timed steps), train_cli, hostbench (the port's host-loop bench on
+(5 timed steps), train_bert_grads (BERT-large cut to 2 layers, loss and
+every gradient through the kernels vs JAX's plain attention), train_bert
+(BERT-large, 5 timed steps, 24 launches of each kernel a step),
+train_cli, train_cli_models (mnist, resnet, bert and the transformer with
+4 experts through ``train_cli.main``: the JAX CLI's result keys),
+train_recovery (BERT through ``train_cli``: a preemption at step 3, one
+restart from step 2, the end state against an unfaulted run's; then a
+corrupted newest checkpoint quarantined with one fallback), hostbench (the port's host-loop bench on
 this machine's CPU: host microseconds per token with fake device seams,
 paged, dense and paged with ngram; a host measurement, not the card's),
 kernels (the summary line), then the card's name and power limit, then
@@ -151,6 +162,10 @@ TRAIN_GRAD_TOL = {"rel_l2": 3e-2, "max_rel": 1e-1, "loss_abs": 1e-2}
 TRAIN_CLI_KEYS = {"loss", "start_step", "steps_run", "units_per_s",
                   "mean_step_s", "est_mfu", "batch_size", "model", "steps",
                   "n_devices", "wall_s"}
+# The same CLI's keys for every --model at its single-device flags (mnist,
+# resnet, bert, transformer; pp 1), and what a supervised run
+# (--max-restarts) and an --event-log add.
+TRAIN_CLI_SUPERVISED_KEYS = TRAIN_CLI_KEYS | {"restarts", "goodput"}
 
 
 # The int8 kernel against int8_mm_reference on the same operands. bf16:
@@ -280,7 +295,11 @@ def time_ms(fn, torch, min_iters=3, budget_ms=300.0):
 # launches, which has no host work between the kernels.
 GRAPH_MS_CASES = ("causal_512_b2", "q_base_1536", "paged_sq16_qb1040",
                   "paged_sq64_qb2000", "verify_b8_sq16", "draft_d32_sq512",
-                  "dense_seg_sq512_qb2560")
+                  "dense_seg_sq512_qb2560", "bert_large_s512")
+# Backward cases timed the same way, each kernel apart (dq_graph_ms,
+# dkv_graph_ms): BERT-large's dq and dk/dv read about 50 µs of host time
+# back to back.
+BWD_GRAPH_MS_CASES = ("bert_large_s512",)
 GRAPH_LAUNCHES = 20
 
 
@@ -320,6 +339,8 @@ def host_us(fn, torch, calls=20):
     return elapsed / calls * 1e6
 
 
+BERT_LARGE_CASE = ("bert_large_s512", 8, 512, 512, False, 0, 0, None, 16,
+                   16, 64, "bfloat16")
 # (name, batch, seq_q, seq_k, causal, q_base, k_base, kv_len, hq, hkv, d,
 #  dtype). The first four are the Llama-3-8B prefill shapes (Hq 32, Hkv 8,
 # D 128): the serve phase's prompts of 300 (batch 2) and 1500 tokens land
@@ -381,6 +402,9 @@ KERNEL_CASES = [
     # the K/V walk at 3072.
     ("dense_seg_sq512_qb2560", 1, 512, 8192, True, 2560, 0, 4096, 32, 8,
      128, "bfloat16"),
+    # BERT-large's attention (train_bert): non-causal, 16 q heads on 16
+    # kv heads (a GQA group of 1), head dim 64, S 512, B 8.
+    BERT_LARGE_CASE,
 ]
 MAIN_CASE = "causal_2048"
 
@@ -526,6 +550,7 @@ BWD_CASES = [
     ("sk191", 1, 256, 191, False, 0, 0, None, 32, 8, 128, "bfloat16"),
     ("gqa8", 1, 1024, 1024, True, 0, 0, None, 32, 4, 128, "bfloat16"),
     ("f32_d128", 1, 512, 512, True, 0, 0, None, 8, 2, 128, "float32"),
+    BERT_LARGE_CASE,
 ]
 BWD_MAIN_CASE = "causal_8192"
 
@@ -553,7 +578,7 @@ def grad_errors(got, ref):
     return diff.abs().max().item(), rel_l2, worst.item()
 
 
-def run_bwd_case(case, torch, attention, _ext, gen):
+def run_bwd_case(case, torch, attention, _ext, gen, serving_graphs):
     (name, batch, seq_q, seq_k, causal, q_base, k_base, kv_len, hq, hkv, d,
      dtype) = case
     dt = getattr(torch, dtype)
@@ -610,6 +635,14 @@ def run_bwd_case(case, torch, attention, _ext, gen):
         torch)
     row["bwd_ms"] = time_ms(
         lambda: attention.flash_bwd(q, k, v, out, lse, g, **kw), torch)
+    if name in BWD_GRAPH_MS_CASES:
+        row["dq_graph_ms"] = graph_ms(
+            lambda: _ext.flash_bwd_dq(q, k, v, g, lse, delta, dq, **ext_kw),
+            torch, attention, serving_graphs)
+        row["dkv_graph_ms"] = graph_ms(
+            lambda: _ext.flash_bwd_dkv(q, k, v, g, lse, delta, dk, dv,
+                                       **ext_kw),
+            torch, attention, serving_graphs)
     row["dq_host_us"] = host_us(
         lambda: _ext.flash_bwd_dq(q, k, v, g, lse, delta, dq, **ext_kw), torch)
     row["dkv_host_us"] = host_us(
@@ -1217,7 +1250,7 @@ def segment_witness(torch, tf, attention, model, engine, prompt, offset,
                     q_base=offset, k_base=0,
                 )
                 return out
-            x, _ = layer(x, positions, attend)
+            x = layer(x, positions, attend)[0]
         replay = tf.lm_head(x[:, -1:], m.ln_f.weight, m.embed)[0, 0]
     return {
         "prompt_len": len(prompt), "offset": offset,
@@ -2144,6 +2177,21 @@ def _robust_gaps(torch, tf, model, case, prompts, streams, refs):
             "streams": len(streams), "tol": SERVE_LOGITS_ATOL}
 
 
+def _shed_counts(engine):
+    return {r: int(engine._m_shed.labels(r).value)
+            for r in ("class_share", "queue_full", "quota", "deadline")}
+
+
+def _burst_outcome(future):
+    """What a finished ``_post_all`` future left: its statuses, or the
+    error a client raised; "running" while it runs."""
+    if not future.done():
+        return "running"
+    if future.exception() is not None:
+        return repr(future.exception())
+    return [code for code, _ in future.result()]
+
+
 def _quantiles(values):
     if not values:
         return None
@@ -2396,12 +2444,21 @@ def serve_robust(torch, np, tf, serve_cli, attention, card, model):
                     # any reason: a queue_full shed fails the check
                     # below, not this wait).
                     deadline = time.monotonic() + 600
-                    while dense._q.qsize() + sum(
+
+                    def landed():
+                        return dense._q.qsize() + sum(
                             int(dense._m_shed.labels(r).value)
-                            for r in ("class_share", "queue_full")) < 12:
-                        if time.monotonic() > deadline:
-                            fail("serve_robust tenants: the burst did not "
-                                 "land")
+                            for r in ("class_share", "queue_full"))
+
+                    while landed() < 12:
+                        # A burst that ended (a client's error) or ran
+                        # out of time fails with what it left.
+                        if burst.done() or time.monotonic() > deadline:
+                            fail(f"serve_robust tenants: the burst did "
+                                 f"not land: {landed()} of 12 queued or "
+                                 f"shed, queues {dense._q.depths()}, "
+                                 f"sheds {_shed_counts(dense)}, burst "
+                                 f"{_burst_outcome(burst)}")
                         time.sleep(0.002)
                     depths = dense.stats()["tenant_queues"]
                 results = burst.result(600)
@@ -3799,6 +3856,327 @@ def train_cli_phase(train_cli):
         fail("train_cli: no finite loss after 3 steps")
 
 
+def _flash_counts(attention):
+    return (attention.flash_fwd_launches, attention.flash_dq_launches,
+            attention.flash_dkv_launches)
+
+
+def _zero_flash_counts(attention):
+    attention.flash_fwd_launches = 0
+    attention.flash_dq_launches = 0
+    attention.flash_dkv_launches = 0
+
+
+def train_bert_grads(torch, np, bert, attention):
+    """BERT-large cut to 2 layers (bf16, B 8, S 512): the loss and every
+    parameter's gradient through the flash kernels vs the same model with
+    JAX's plain f32 attention (``attn_impl="reference"``), held to
+    TRAIN_GRAD_TOL as train_grads holds the decoder: the kernels round p
+    to bf16 before P·V, the plain path keeps it f32, about one bf16 step
+    per element through two layers' backward."""
+    cfg = dataclasses.replace(bert.BertConfig.bert_large(), n_layers=2)
+    model = bert.init_params(cfg, device="cuda", seed=0)
+    batch = bert.synthetic_mlm_batch(np.random.default_rng(1), 8, cfg,
+                                     device="cuda")
+
+    def loss_and_grads(attn_impl):
+        model.zero_grad(set_to_none=True)
+        loss = bert.loss_fn(model, batch, attn_impl=attn_impl)
+        loss.backward()
+        return loss.item(), {n: p.grad for n, p in model.named_parameters()}
+
+    before = _flash_counts(attention)
+    loss_k, grads_k = loss_and_grads("flash")
+    launches = [a - b for a, b in zip(_flash_counts(attention), before)]
+    grads_k = {n: g.clone() for n, g in grads_k.items()}
+    loss_r, grads_r = loss_and_grads("reference")
+    worst_l2, worst_max, worst_name, bad = 0.0, 0.0, None, []
+    for name, ref in grads_r.items():
+        got, ref = grads_k[name].float(), ref.float()
+        rel_l2 = ((got - ref).norm() / ref.norm().clamp_min(1e-30)).item()
+        _, max_rel = _rel_err(got, ref)
+        if not torch.isfinite(got).all() or \
+                rel_l2 > TRAIN_GRAD_TOL["rel_l2"] or \
+                max_rel > TRAIN_GRAD_TOL["max_rel"]:
+            bad.append(name)
+        if rel_l2 > worst_l2:
+            worst_l2, worst_name = rel_l2, name
+        worst_max = max(worst_max, max_rel)
+    emit({
+        "phase": "train_bert_grads", "model": "bert-large", "n_layers": 2,
+        "batch": 8, "seq_len": cfg.max_seq_len, "dtype": "bfloat16",
+        "loss_kernels": loss_k, "loss_plain": loss_r,
+        "n_params_compared": len(grads_r), "worst_rel_l2": worst_l2,
+        "worst_rel_l2_param": worst_name, "worst_max_rel": worst_max,
+        "tol": TRAIN_GRAD_TOL, "launches_fwd_dq_dkv": launches,
+    })
+    if bad or abs(loss_k - loss_r) > TRAIN_GRAD_TOL["loss_abs"] or \
+            not math.isfinite(loss_k):
+        fail(f"BERT gradients through the kernels disagree with plain "
+             f"attention for {bad or 'the loss'}")
+    if launches != [cfg.n_layers] * 3:
+        fail(f"train_bert_grads launched fwd/dq/dkv {launches} times, "
+             f"want {cfg.n_layers} each")
+
+
+def train_bert(torch, np, attention, card, steps=5):
+    """BERT-large MLM at full width and depth (vocab 30522, d 1024, 24
+    layers, 16 heads, d_ff 4096, S 512, B 8, bf16) through
+    ``bert.make_train_step`` (AdamW, no remat): one warm-up step, then
+    ``steps`` timed ones with the kernel counts at zero before them; every
+    layer's unmasked attention is the non-causal flash forward, dq and
+    dk/dv. Returns the counts (fwd, dq, dkv)."""
+    from container_engine_accelerators_tpu_torch.models import bert
+
+    train_bert_grads(torch, np, bert, attention)
+    _free(torch)
+    cfg = bert.BertConfig.bert_large()
+    batch_size = 8
+    init_state, train_step = bert.make_train_step(cfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(seed=0)
+    n_params = sum(p.numel() for p in state[0].parameters())
+
+    def batch(step):
+        return bert.synthetic_mlm_batch(np.random.default_rng(1 + step),
+                                        batch_size, cfg, device="cuda")
+
+    t0 = time.perf_counter()
+    state, loss = train_step(state, batch(0))
+    warm = loss.item()
+    warm_s = time.perf_counter() - t0
+    # Random weights: the MLM head's LayerNorm leaves unit-variance
+    # states, the tied embedding is N(0, 0.02^2), so the logits are about
+    # N(0, d_model * 0.02^2) and the first loss about ln(V) + d_model *
+    # 0.02^2 / 2.
+    expected = math.log(cfg.vocab_size) + cfg.d_model * 0.02 ** 2 / 2
+
+    _zero_flash_counts(attention)
+    losses, step_s = [], []
+    for step in range(1, steps + 1):
+        b = batch(step)
+        t0 = time.perf_counter()
+        state, loss = train_step(state, b)
+        losses.append(loss.item())
+        step_s.append(time.perf_counter() - t0)
+    launches = _flash_counts(attention)
+    mean_s = sum(step_s) / len(step_s)
+    tokens = batch_size * cfg.max_seq_len
+    flops = 6.0 * n_params * tokens
+    row = {
+        "phase": "train_bert", **card, "model": "bert-large",
+        "vocab": cfg.vocab_size, "d_model": cfg.d_model,
+        "n_layers": cfg.n_layers, "n_heads": cfg.n_heads, "d_ff": cfg.d_ff,
+        "batch": batch_size, "seq_len": cfg.max_seq_len, "dtype": cfg.dtype,
+        "remat": False, "n_params": n_params, "warmup_loss": warm,
+        "warmup_s": warm_s, "expected_first_loss": expected,
+        "losses": losses, "step_ms": [t * 1e3 for t in step_s],
+        "mean_step_ms": mean_s * 1e3, "tokens_per_s": tokens / mean_s,
+        "flops_per_step": flops,
+        "step_ms_at_peak": flops / PEAK_BF16_FLOPS * 1e3,
+        "est_mfu": flops / mean_s / PEAK_BF16_FLOPS,
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                             launches)),
+        "launches_per_step_want": [cfg.n_layers] * 3,
+    }
+    emit(row)
+    if not all(math.isfinite(x) for x in [warm] + losses):
+        fail("non-finite BERT training loss")
+    if abs(warm - expected) > 0.5:
+        fail(f"first BERT loss {warm} is not within 0.5 of {expected}")
+    want = (cfg.n_layers * steps,) * 3
+    if launches != want:
+        fail(f"{steps} BERT steps launched fwd/dq/dkv {launches} times, "
+             f"want {want} (no remat: each kernel once per layer and step)")
+    return launches
+
+
+def _cli_run(train_cli, argv):
+    """train_cli.main(argv) in this process → (rc, its result JSON)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = train_cli.main(argv)
+    return rc, json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+# train_cli_models: each --model at the CLI's defaults for 3 steps, and
+# the flash launches each must make (fwd, dq, dkv): 2 layers × 3 steps;
+# the transformer's per-layer remat runs the forward twice.
+CLI_MODELS = {
+    "mnist": ([], (0, 0, 0)),
+    "resnet": ([], (0, 0, 0)),
+    "bert": ([], (6, 6, 6)),
+    "transformer": (["--n-experts", "4"], (12, 6, 6)),
+}
+
+
+def train_cli_models(train_cli, attention):
+    """``train_cli.main`` for every --model at its defaults on the card
+    (the default --model mnist, resnet18_ish at 64, bert, the transformer
+    with 4 experts): rc 0, finite losses, the JAX CLI's result keys and
+    the flash launches each model's path makes. Returns the launches."""
+    total = [0, 0, 0]
+    for model, (extra, want) in CLI_MODELS.items():
+        argv = ["--steps", "3", *extra]
+        if model != "mnist":  # mnist is the default --model
+            argv = ["--model", model, *argv]
+        before = _flash_counts(attention)
+        rc, result = _cli_run(train_cli, argv)
+        launches = tuple(a - b for a, b in
+                         zip(_flash_counts(attention), before))
+        total = [t + n for t, n in zip(total, launches)]
+        emit({"phase": "train_cli_models", "argv": argv, "rc": rc,
+              "result": result, "launches_fwd_dq_dkv": launches})
+        if rc != 0 or set(result) != TRAIN_CLI_KEYS:
+            fail(f"train_cli {argv}: rc {rc}, keys {sorted(result)}, want "
+                 f"{sorted(TRAIN_CLI_KEYS)}")
+        if result["model"] != model or result["steps_run"] != 3 or \
+                not math.isfinite(result["loss"]):
+            fail(f"train_cli {argv}: no finite loss after 3 steps")
+        if launches != want:
+            fail(f"train_cli {argv} launched fwd/dq/dkv {launches}, want "
+                 f"{want}")
+    return tuple(total)
+
+
+# train_recovery: BERT at the CLI's defaults (bf16), 6 steps, checkpoints
+# every 2, a preemption at train.step hit 3. Where the card's run is not
+# bit-reproducible (the index and gather backwards accumulate with
+# atomics), the faulted run is held to the straight one within: the loss
+# to 2e-2 (about 7 in bf16 MLM), every parameter to 2 · lr for each of the
+# 4 steps after the restart plus one bf16 step (2^-8) of its magnitude.
+RECOVERY_STEPS = 6
+RECOVERY_TOL = {"loss_abs": 2e-2, "param_abs": 2 * 1e-4 * 4,
+                "param_rel": 2.0 ** -8}
+
+
+def _state_diff(torch, a, b, path=""):
+    """(largest |a - b| over the tensors, over the limit set by
+    RECOVERY_TOL, whether every tensor and value is equal) of two
+    checkpoint states."""
+    if isinstance(a, dict):
+        out = [_state_diff(torch, a[k], b[k], f"{path}.{k}") for k in a]
+    elif isinstance(a, (list, tuple)):
+        out = [_state_diff(torch, x, y, path) for x, y in zip(a, b)]
+    elif torch.is_tensor(a):
+        if not a.is_floating_point():
+            return 0.0, 0.0, bool(torch.equal(a, b))
+        diff = (a.float() - b.float()).abs()
+        limit = RECOVERY_TOL["param_abs"] + \
+            RECOVERY_TOL["param_rel"] * b.float().abs()
+        return (diff.max().item() if diff.numel() else 0.0,
+                (diff / limit).max().item() if diff.numel() else 0.0,
+                bool(torch.equal(a, b)))
+    else:
+        return 0.0, 0.0, a == b
+    out = out or [(0.0, 0.0, True)]
+    return (max(o[0] for o in out), max(o[1] for o in out),
+            all(o[2] for o in out))
+
+
+def train_recovery(torch, train_cli, attention):
+    """The training loop's recovery on the card through ``train_cli``:
+    a supervised BERT run preempted at step 3 restarts once from the
+    step-2 checkpoint and ends where an unfaulted run ends; then its
+    newest checkpoint is corrupted and the next run quarantines it,
+    emits ``checkpoint_fallback`` and resumes one checkpoint earlier.
+    Returns the flash launches (fwd, dq, dkv) of its runs."""
+    import shutil
+    import tempfile
+
+    from container_engine_accelerators_tpu_torch.utils import checkpointing
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_recovery_")
+    before = _flash_counts(attention)
+    try:
+        plan = os.path.join(work, "plan.json")
+        with open(plan, "w") as f:
+            json.dump({"faults": [{"kind": "preemption",
+                                   "site": "train.step", "at": 3}]}, f)
+        base = ["--model", "bert", "--steps", str(RECOVERY_STEPS),
+                "--checkpoint-every", "2"]
+        dirs = {n: os.path.join(work, n) for n in ("a", "a2", "b")}
+        results = {}
+        for name in ("a", "a2"):
+            rc, results[name] = _cli_run(
+                train_cli, base + ["--checkpoint-dir", dirs[name]])
+            if rc != 0:
+                fail(f"train_recovery straight run {name}: rc {rc}")
+        ev = os.path.join(work, "ev.jsonl")
+        rc, faulted = _cli_run(train_cli, base + [
+            "--checkpoint-dir", dirs["b"], "--max-restarts", "1",
+            "--restart-backoff-s", "0.01", "--event-log", ev,
+            "--fault-plan", plan])
+        if rc != 0 or set(faulted) != TRAIN_CLI_SUPERVISED_KEYS:
+            fail(f"train_recovery faulted run: rc {rc}, keys "
+                 f"{sorted(faulted)}")
+
+        def final(name):
+            return torch.load(os.path.join(
+                dirs[name], f"step_{RECOVERY_STEPS}",
+                checkpointing.STATE_FILE), weights_only=True)
+
+        straight = final("a")
+        _, _, reproducible = _state_diff(torch, final("a2"), straight)
+        max_abs, over, exact = _state_diff(torch, final("b"), straight)
+        loss_gap = abs(faulted["loss"] - results["a"]["loss"])
+        row = {
+            "phase": "train_recovery", "model": "bert",
+            "steps": RECOVERY_STEPS, "restarts": faulted["restarts"],
+            "start_step": faulted["start_step"],
+            "loss_straight": results["a"]["loss"],
+            "loss_straight_again": results["a2"]["loss"],
+            "loss_faulted": faulted["loss"],
+            "bit_exact": exact and loss_gap == 0.0,
+            "straight_runs_bit_equal": reproducible,
+            "max_abs_state_diff": max_abs, "over_tol": over,
+            "tol": RECOVERY_TOL, "goodput": faulted["goodput"],
+        }
+        if not row["bit_exact"]:
+            row["reason"] = (
+                "not bit for bit: two unfaulted runs on the card "
+                + ("differ too (atomic accumulation in the embedding "
+                   "index and the label gather backwards)"
+                   if not reproducible else "are bit-equal"))
+        if faulted["restarts"] != 1 or faulted["start_step"] != 2:
+            emit(row)
+            fail("train_recovery: want 1 restart from step 2")
+        if not row["bit_exact"] and (
+                reproducible or over > 1.0
+                or loss_gap > RECOVERY_TOL["loss_abs"]):
+            emit(row)
+            fail("train_recovery: the resumed run left the unfaulted one")
+
+        # The newest checkpoint corrupted: quarantined, one step back.
+        newest = os.path.join(dirs["b"], f"step_{RECOVERY_STEPS}")
+        for root, _, files in os.walk(newest):
+            for fn in files:
+                with open(os.path.join(root, fn), "wb") as f:
+                    f.write(b"garbage")
+        rc, resumed = _cli_run(train_cli, base[:2] + [
+            "--steps", str(RECOVERY_STEPS + 2), "--checkpoint-every", "2",
+            "--checkpoint-dir", dirs["b"], "--event-log", ev])
+        with open(ev) as f:
+            fallbacks = [r for r in map(json.loads, f)
+                         if r.get("kind") == "checkpoint_fallback"]
+        row.update(
+            resumed_start_step=resumed.get("start_step"),
+            fallback_events=len(fallbacks),
+            quarantined=os.path.isdir(newest + ".corrupt"),
+            resumed_goodput=resumed.get("goodput"),
+        )
+        emit(row)
+        if rc != 0 or resumed["start_step"] != RECOVERY_STEPS - 2 or \
+                len(fallbacks) != 1 or not row["quarantined"] or \
+                "goodput" not in resumed:
+            fail("train_recovery: a corrupt newest checkpoint was not "
+                 "quarantined with one fallback to the prior step")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return tuple(a - b for a, b in zip(_flash_counts(attention), before))
+
+
 def main():
     import torch
 
@@ -3836,7 +4214,8 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {c[0]: run_kernel_case(c, torch, attention, gen, serving_graphs)
             for c in KERNEL_CASES}
-    bwd_rows = {c[0]: run_bwd_case(c, torch, attention, _ext, gen)
+    bwd_rows = {c[0]: run_bwd_case(c, torch, attention, _ext, gen,
+                                   serving_graphs)
                 for c in BWD_CASES}
     _free(torch)
     int8_rows = {c[0]: run_int8_case(c, torch, int8_matmul, q8, gen,
@@ -3876,12 +4255,39 @@ def main():
     _free(torch)
     fwd_train, dq_train, dkv_train = train(torch, np, tf, attention, card)
     _free(torch)
+    bert_launches = train_bert(torch, np, attention, card)
+    _free(torch)
+    _zero_flash_counts(attention)
     train_cli_phase(train_cli)
+    cli_launches = [a + b for a, b in zip(
+        _flash_counts(attention), train_cli_models(train_cli, attention))]
+    _zero_flash_counts(attention)
+    recovery_launches = train_recovery(torch, train_cli, attention)
+    _free(torch)
     hostbench_phase()
+    training = {"train": (fwd_train, dq_train, dkv_train),
+                "train_bert": bert_launches, "train_cli": cli_launches,
+                "train_recovery": recovery_launches}
+
+    def by_path(i):
+        return {path: counts[i] for path, counts in training.items()}
 
     src = "container_engine_accelerators_tpu_torch/ops/csrc/"
     replaces = "container_engine_accelerators_tpu/ops/attention.py:"
     main_row, bwd_row = rows[MAIN_CASE], bwd_rows[BWD_MAIN_CASE]
+    # The same numbers at BERT-large's shape (train_bert's calls).
+    bert_fwd, bert_bwd = rows[BERT_LARGE_CASE[0]], bwd_rows[BERT_LARGE_CASE[0]]
+
+    def bert_shape(kind, err):
+        row = bert_fwd if kind == "fwd" else bert_bwd
+        pre = "" if kind == "fwd" else f"{kind}_"
+        return {"case": BERT_LARGE_CASE[0], "max_abs_err": err,
+                "ms": row[f"{pre}ms"], "plain_ms": row[f"{pre}plain_ms"],
+                "bound_ms": row[f"{pre}bound_ms"],
+                "bound_by": row[f"{pre}bound_by"],
+                "library_ms": row["library_ms"] if kind == "fwd" else None,
+                "host_us": row[f"{pre}host_us"],
+                "graph_ms": row[f"{pre}graph_ms"]}
     int8_row = int8_rows[INT8_MAIN_CASE]
     # No one PyTorch call computes dq alone or dk/dv alone (the library's
     # attention backward gives all three), so the two backward kernels
@@ -3894,7 +4300,8 @@ def main():
             "replaces": replaces + "136",
             "launches": serve_launches + paged_launches + spec_launches
             + dense_launches + robust_launches + obs_launches
-            + obs_int8_launches + handoff_launches + fwd_train,
+            + obs_int8_launches + handoff_launches
+            + sum(by_path(0).values()),
             "launches_by_path": {"serve": serve_launches,
                                  "serve_paged": paged_launches,
                                  "serve_spec": spec_launches,
@@ -3903,7 +4310,7 @@ def main():
                                  "serve_obs": obs_launches,
                                  "serve_obs_int8": obs_int8_launches,
                                  "serve_handoff": handoff_launches,
-                                 "train": fwd_train},
+                                 **by_path(0)},
             "max_abs_err": main_row["max_abs_err_out"],
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
@@ -3912,12 +4319,14 @@ def main():
             "ms_over_library": main_row["ms_over_library"],
             "host_us": main_row["host_us"],
             "shape": main_row["shape"],
+            "bert_large": bert_shape("fwd", bert_fwd["max_abs_err_out"]),
         },
         {
             "name": "flash_bwd_dq", "route": "cuda",
             "source": src + "flash_bwd.cu",
             "replaces": replaces + "203",
-            "launches": dq_train,
+            "launches": sum(by_path(1).values()),
+            "launches_by_path": by_path(1),
             "max_abs_err": bwd_row["max_abs_err_dq"],
             "ms": bwd_row["dq_ms"], "plain_ms": bwd_row["dq_plain_ms"],
             "bound_ms": bwd_row["dq_bound_ms"],
@@ -3925,12 +4334,14 @@ def main():
             "library_ms": None,
             "host_us": bwd_row["dq_host_us"],
             "shape": bwd_row["shape"],
+            "bert_large": bert_shape("dq", bert_bwd["max_abs_err_dq"]),
         },
         {
             "name": "flash_bwd_dkv", "route": "cuda",
             "source": src + "flash_bwd.cu",
             "replaces": replaces + "255",
-            "launches": dkv_train,
+            "launches": sum(by_path(2).values()),
+            "launches_by_path": by_path(2),
             "max_abs_err": max(bwd_row["max_abs_err_dk"],
                                bwd_row["max_abs_err_dv"]),
             "ms": bwd_row["dkv_ms"], "plain_ms": bwd_row["dkv_plain_ms"],
@@ -3939,6 +4350,8 @@ def main():
             "library_ms": None,
             "host_us": bwd_row["dkv_host_us"],
             "shape": bwd_row["shape"],
+            "bert_large": bert_shape("dkv", max(bert_bwd["max_abs_err_dk"],
+                                                bert_bwd["max_abs_err_dv"])),
         },
         {
             "name": "int8_mm", "route": "cuda",
@@ -3961,7 +4374,7 @@ def main():
     ], "flash_bwd": {
         "source": src + "flash_bwd.cu",
         "replaces": replaces + "771",
-        "calls": dq_train,
+        "calls": sum(by_path(1).values()),
         "ms": bwd_row["bwd_ms"], "plain_ms": bwd_row["bwd_plain_ms"],
         "bound_ms": bwd_row["bwd_bound_ms"],
         "bound_by": bwd_row["bwd_bound_by"],

@@ -14,8 +14,14 @@ the JAX package; what it needs from there is copied.
   models/weights.py      bridge from the JAX parameter pytree (tests)
   models/serve_cli.py    HTTP serving daemon (/generate, /healthz,
                          /metrics, /debug/flight)
+  models/train_cli.py    synthetic-data training of every --model
+                         (bert.py, mnist.py, resnet.py, the transformer)
+                         with resume, the supervisor and fault plans
+  parallel/moe.py        the mixture-of-experts FFN (one device)
   obs/                   metrics, events, spans, the device-time ledger,
-                         the HBM model, the flight recorder, alert rules
+                         the HBM model, the flight recorder, alert rules,
+                         the goodput ledger
+  utils/checkpointing.py step_<N>/ checkpoints, crash-safe resume
   utils/profiling.py     --profile-dir's torch.profiler bracket
   warmstart/warmup.py    the shape grid run before ready (--warmup=all)
 

@@ -1,5 +1,6 @@
 # Copyright 2026 The TPU Accelerator Stack Authors.
 # SPDX-License-Identifier: Apache-2.0
-"""Serving workload of the port: the Llama-style transformer, its weight
-bridge from the JAX package's parameter pytree, its decode as CUDA graphs,
-and the HTTP daemon."""
+"""Workloads of the port: the Llama-style transformer (served and
+trained), BERT, MNIST and ResNet (trained), the weight bridge from the
+JAX package's parameter trees, the decode as CUDA graphs, the HTTP
+daemon, the training CLI and its supervisor."""

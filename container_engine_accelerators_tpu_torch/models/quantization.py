@@ -83,7 +83,12 @@ def quantize_params(model, keys=DENSE_WEIGHT_KEYS):
     dense matrix is replaced as soon as it is quantized, so its storage
     is freed then (if nothing else holds it) and the peak stays near the
     dense model plus one matrix's f32 temporaries. Keys a layer does not
-    have, and matrices already quantized, are left as they are."""
+    have, and matrices already quantized, are left as they are. A model
+    with experts is refused: int8 experts are not ported yet."""
+    if model.cfg.n_experts:
+        raise NotImplementedError(
+            "int8 weights for a model with experts (n_experts > 0) are not "
+            "ported yet (ROADMAP.md)")
     with torch.no_grad():
         for layer in model.layers:
             for owner in (layer.attn, layer.ffn):

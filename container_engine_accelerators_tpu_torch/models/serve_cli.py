@@ -121,7 +121,10 @@ The stream is JAX's byte for byte, so either package installs the
 other's; the install writes the pools in place.
 
 Not ported yet (ROADMAP.md): the multi-host link, tensor parallelism,
-and the fleet reactor (``faults/reactor.FleetReactor``).
+and the fleet reactor (``faults/reactor.FleetReactor``). A model with
+experts (``n_experts > 0``, which only training builds: the JAX server
+has no flag that reaches them) is refused by ``Model``, the engines and
+``--quantize int8``.
 
   python -m container_engine_accelerators_tpu_torch.models.serve_cli \\
       --preset llama3-8b --port 8000
@@ -359,6 +362,14 @@ def sanitize_sampler(temperature, top_k, top_p, vocab_size):
     return temperature, top_k, top_p
 
 
+def refuse_experts(cfg):
+    """Serving a mixture-of-experts model is not ported yet."""
+    if cfg.n_experts:
+        raise NotImplementedError(
+            f"serving a model with experts (n_experts={cfg.n_experts}) is "
+            f"not ported yet (ROADMAP.md); the port trains one")
+
+
 class Model:
     """The served model. Random weights from ``seed`` on ``device``
     (CUDA unless the caller asks for the CPU), or the given ``weights``
@@ -376,6 +387,7 @@ class Model:
         if quantize not in QUANTIZE_MODES:
             raise ValueError(f"quantize must be one of {QUANTIZE_MODES}, "
                              f"got {quantize!r}")
+        refuse_experts(cfg)
         self.cfg = cfg
         if weights is None:
             weights = tf.init_params(cfg, device=device, seed=seed)
@@ -758,6 +770,7 @@ class ContinuousEngine:
                  deadline_s=0.0, step_retries=0, retry_backoff_s=0.05,
                  registry=None, events=None, tenants=None, slo=None,
                  devicetime=None):
+        refuse_experts(model.cfg)
         if max_slots < 1 or chunk < 1 or prefill_chunk < 1:
             raise ValueError(
                 f"max_slots ({max_slots}), chunk ({chunk}) and "
@@ -3079,6 +3092,15 @@ def warmup(model, state, mode="lazy"):
         state["error"] = str(e)
 
 
+class ServingHTTPServer(ThreadingHTTPServer):
+    """The daemon's HTTP server, with a listen backlog for bursts of
+    concurrent clients: past socketserver's default of 5 pending
+    connections, a burst that arrives while the accept thread is behind
+    is reset by the kernel, and those requests never reach admission."""
+
+    request_queue_size = 128
+
+
 def start_server(model, port=8000, host="0.0.0.0", warmup_mode="lazy",
                  metrics=None, replica_id="", role=""):
     """Serve ``model`` on (host, port) from a daemon thread and warm it up
@@ -3092,8 +3114,8 @@ def start_server(model, port=8000, host="0.0.0.0", warmup_mode="lazy",
     if metrics is None:
         metrics = ServingMetrics(model)
     state = {"ready": False, "replica_id": replica_id, "role": role}
-    server = ThreadingHTTPServer((host, port),
-                                 make_handler(model, state, metrics))
+    server = ServingHTTPServer((host, port),
+                               make_handler(model, state, metrics))
     threading.Thread(target=server.serve_forever, daemon=True).start()
     threading.Thread(target=warmup, args=(model, state, warmup_mode),
                      daemon=True).start()

@@ -29,10 +29,13 @@ sends a layer matrix quantized by ``models/quantization.py``
 (``Int8Weight``, ``--quantize int8``) to the W8A16 product of
 ``ops/int8_matmul.py`` (the hand-written kernel on CUDA tensors).
 Parameters are trainable, dense ones only; the serving entry points run
-under ``torch.inference_mode()``.
+under ``torch.inference_mode()``. With ``n_experts > 0`` every layer's
+FFN is the mixture-of-experts block of ``parallel/moe.py`` (forward,
+``loss_fn`` with the aux loss, ``make_train_step``); serving such a
+model is refused, as the JAX server has no flag that reaches experts.
 
-Not in this port yet: MoE FFNs, tensor/sequence/pipeline parallelism
-and ring attention (see ROADMAP.md).
+Not in this port yet: tensor/sequence/pipeline/expert parallelism and
+ring attention (see ROADMAP.md).
 """
 
 import dataclasses
@@ -54,6 +57,7 @@ from container_engine_accelerators_tpu_torch.ops.attention import (
     flash_fwd_reference,
     mha_reference,
 )
+from container_engine_accelerators_tpu_torch.parallel import moe
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -69,8 +73,12 @@ class TransformerConfig:
     max_seq_len: int = 2048
     rope_theta: float = 10000.0
     dtype: str = "bfloat16"
-    # Mixture-of-experts FFNs are not ported yet; n_experts > 0 raises.
+    # Mixture-of-experts: n_experts > 0 replaces every layer's dense FFN
+    # with the MoE FFN of parallel/moe.py (all experts on one device).
     n_experts: int = 0
+    expert_top_k: int = 2
+    capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
 
     @property
     def head_dim(self):
@@ -191,8 +199,31 @@ class FeedForward(nn.Module):
         self.w2 = _weight(f, d, dt, device)
 
     def forward(self, h):
+        """(B, S, D) → (the FFN's output, None: no aux loss)."""
         gate = torch.nn.functional.silu(_mm(h, self.w1).float()).to(h.dtype)
-        return _mm(gate * _mm(h, self.w3), self.w2)
+        return _mm(gate * _mm(h, self.w3), self.w2), None
+
+
+class MoEFeedForward(nn.Module):
+    """The MoE FFN (``parallel/moe.moe_ffn``, routed per sequence): an f32
+    router (D, E) and per-expert GELU matrices w1 (E, D, F), w2 (E, F, D),
+    JAX's ``moe_router``, ``moe_w1`` and ``moe_w2``."""
+
+    def __init__(self, cfg, device):
+        super().__init__()
+        d, f, e, dt = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.torch_dtype
+        self.cfg = cfg
+        self.router = nn.Parameter(
+            torch.empty(d, e, dtype=torch.float32, device=device))
+        self.w1 = nn.Parameter(torch.empty(e, d, f, dtype=dt, device=device))
+        self.w2 = nn.Parameter(torch.empty(e, f, d, dtype=dt, device=device))
+
+    def forward(self, h):
+        """(B, S, D) → (the FFN's output, the layer's f32 aux loss)."""
+        return moe.moe_ffn(
+            h, {"router": self.router, "w1": self.w1, "w2": self.w2},
+            top_k=self.cfg.expert_top_k,
+            capacity_factor=self.cfg.capacity_factor)
 
 
 class DecoderLayer(nn.Module):
@@ -202,14 +233,17 @@ class DecoderLayer(nn.Module):
         self.ln1 = RMSNorm(cfg.d_model, dt, device)
         self.attn = Attention(cfg, device)
         self.ln2 = RMSNorm(cfg.d_model, dt, device)
-        self.ffn = FeedForward(cfg, device)
+        self.ffn = (MoEFeedForward if cfg.n_experts else FeedForward)(
+            cfg, device)
 
     def forward(self, x, positions, attend):
         """One block on (B, S, D). ``attend(q, k, v)`` maps the rope'd
-        q/k/v to (B, Hq, S, hd); returns (x, (k, v))."""
+        q/k/v to (B, Hq, S, hd); returns (x, (k, v), aux): aux is the MoE
+        FFN's load-balancing loss, None for a dense FFN."""
         q, k, v = self.attn.qkv(self.ln1(x), positions)
         x = x + self.attn.out(attend(q, k, v))
-        return x + self.ffn(self.ln2(x)), (k, v)
+        y, aux = self.ffn(self.ln2(x))
+        return x + y, (k, v), aux
 
 
 class Transformer(nn.Module):
@@ -219,11 +253,6 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg, device):
         super().__init__()
-        if cfg.n_experts:
-            raise NotImplementedError(
-                "MoE FFNs (n_experts > 0) are not ported yet; they belong "
-                "to a later slice of the port (ROADMAP.md)"
-            )
         dt = cfg.torch_dtype
         self.cfg = cfg
         self.embed = nn.Parameter(
@@ -243,8 +272,9 @@ def init_params(cfg, device="cuda", seed=0):
     """A Transformer with random weights drawn on ``device`` from a
     ``torch.Generator`` seeded with ``seed``: the JAX ``init_params``
     distributions and scales (normal * fan_in ** -0.5, embed * 0.02,
-    norms ones), drawn in f32 and cast, one tensor at a time — an 8B
-    model is never built on the host. The numbers differ from
+    norms ones; an MoE FFN's router, w1 and w2 each by its fan in), drawn
+    in f32 and cast, one tensor at a time — an 8B model is never built on
+    the host. The numbers differ from
     ``jax.random``'s; tests bridge JAX's own weights instead."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -259,9 +289,9 @@ def init_params(cfg, device="cuda", seed=0):
         fill(model.embed, 0.02)
         for layer in model.layers:
             for w in (layer.attn.wq, layer.attn.wk, layer.attn.wv,
-                      layer.attn.wo, layer.ffn.w1, layer.ffn.w3,
-                      layer.ffn.w2):
-                fill(w, w.shape[0] ** -0.5)
+                      layer.attn.wo, *layer.ffn.parameters()):
+                # (in, out), or (experts, in, out): the fan in is dim -2.
+                fill(w, w.shape[-2] ** -0.5)
     return model
 
 
@@ -285,7 +315,7 @@ ATTN_IMPLS = {"flash": _flash_attend, "plain": _plain_attend,
 
 
 def forward(model, tokens, positions=None, return_kv=False, logits_at=None,
-            attn_impl="flash", remat=False):
+            attn_impl="flash", remat=False, return_aux=False):
     """tokens: (B, S) int → logits (B, S, vocab) float32; differentiable.
 
     ``return_kv=True`` also returns the rope'd K/V stacks
@@ -296,19 +326,24 @@ def forward(model, tokens, positions=None, return_kv=False, logits_at=None,
     the comparison the chip smoke makes for serving; not differentiable)
     or "reference" (``mha_reference``, the plain oracle, differentiable by
     autograd: the comparison for gradients). ``remat=True`` checkpoints
-    each layer (its activations are recomputed in the backward pass)."""
+    each layer (its activations are recomputed in the backward pass).
+    ``return_aux=True`` also returns the MoE aux loss averaged over the
+    layers (an f32 0 for dense FFNs), last."""
     batch, seq = tokens.shape
     if positions is None:
         positions = torch.arange(seq, device=tokens.device).expand(batch, seq)
     attend = ATTN_IMPLS[attn_impl]
     x = model.embed[tokens]
     ks, vs = [], []
+    aux = None
     for layer in model.layers:
         if remat:
-            x, (k, v) = checkpoint(layer, x, positions, attend,
-                                   use_reentrant=False)
+            x, (k, v), layer_aux = checkpoint(layer, x, positions, attend,
+                                              use_reentrant=False)
         else:
-            x, (k, v) = layer(x, positions, attend)
+            x, (k, v), layer_aux = layer(x, positions, attend)
+        if layer_aux is not None:
+            aux = layer_aux if aux is None else aux + layer_aux
         if return_kv:
             ks.append(k)
             vs.append(v)
@@ -317,9 +352,14 @@ def forward(model, tokens, positions=None, return_kv=False, logits_at=None,
         idx = seq - 1 if isinstance(logits_at, str) else int(logits_at)
         x = x[:, idx:idx + 1]
     logits = lm_head(x, model.ln_f.weight, model.embed)
+    out = (logits,)
     if return_kv:
-        return logits, (torch.stack(ks), torch.stack(vs))
-    return logits
+        out += ((torch.stack(ks), torch.stack(vs)),)
+    if return_aux:
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+        out += (aux / max(model.cfg.n_layers, 1),)
+    return out if len(out) > 1 else logits
 
 
 def lm_head(x, ln_f, embed):
@@ -338,12 +378,18 @@ def softmax_xent(logits, targets):
 
 
 def loss_fn(model, batch, attn_impl="flash", remat=False):
-    """Next-token cross entropy; batch = {"tokens": (B, S+1)} (a tensor or
-    an integer array, moved to the model's device)."""
+    """Next-token cross entropy (+ ``moe_aux_weight`` × the MoE
+    load-balance aux when the config has experts); batch = {"tokens":
+    (B, S+1)} (a tensor or an integer array, moved to the model's
+    device)."""
     tokens = torch.as_tensor(batch["tokens"], device=model.device)
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    logits = forward(model, inputs, attn_impl=attn_impl, remat=remat)
-    return softmax_xent(logits, targets)
+    logits, aux = forward(model, inputs, attn_impl=attn_impl, remat=remat,
+                          return_aux=True)
+    loss = softmax_xent(logits, targets)
+    if model.cfg.n_experts:
+        loss = loss + model.cfg.moe_aux_weight * aux
+    return loss
 
 
 def adamw(params):
@@ -485,7 +531,7 @@ def _decode_step(model, tokens, positions, attend_for):
     writes the step's K/V and reads the cache. → (B, V) f32 logits."""
     x = model.embed[tokens][:, None, :]  # (B, 1, D)
     for i, layer in enumerate(model.layers):
-        x, _ = layer(x, positions, attend_for(i))
+        x = layer(x, positions, attend_for(i))[0]
     return lm_head(x, model.ln_f.weight, model.embed)[:, 0, :]
 
 
@@ -787,7 +833,7 @@ def prefill_chunk_into_slot(model, cache, seg, offset, slot, true_pos, window,
             )
             return out
 
-        x, _ = layer(x, positions, attend)
+        x = layer(x, positions, attend)[0]
     if not want_logits:
         return None
     idx = true_pos - offset
@@ -921,7 +967,7 @@ def paged_prefill_segment(model, pools, seg, offset, seg_ids, table_row,
             )
             return out
 
-        x, _ = layer(x, positions, attend)
+        x = layer(x, positions, attend)[0]
     if not want_logits:
         return None
     idx = true_pos - offset
@@ -992,7 +1038,7 @@ def paged_verify_batch(model, pools, segs, poss, block_ids, offsets, tables,
             )
             return out
 
-        x, _ = layer(x, positions, attend)
+        x = layer(x, positions, attend)[0]
     logits = lm_head(x, model.ln_f.weight, model.embed)
     greedy = logits.argmax(dim=-1)
     return (greedy, logits) if return_logits else greedy

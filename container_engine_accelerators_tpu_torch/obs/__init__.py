@@ -1,6 +1,6 @@
 # Copyright 2026 The TPU Accelerator Stack Authors.
 # SPDX-License-Identifier: Apache-2.0
-"""Observability for the port's serving engine.
+"""Observability for the port's serving engine and training loop.
 
 Copies of the JAX package's stdlib-only ``obs`` modules (that package's
 ``__init__`` pulls in more than these):
@@ -20,11 +20,14 @@ Copies of the JAX package's stdlib-only ``obs`` modules (that package's
     postmortem bundles;
   * :mod:`.alerts` — multi-window burn-rate alert rules
     (``--alert-rules``);
+  * :mod:`.goodput` — the goodput ledger over an event log
+    (``train_cli --event-log``'s ``goodput`` block), with :mod:`.fleet`,
+    the per-host span-trace loaders it reads;
 
 and :mod:`.hbm`, the HBM occupancy model (``--chip-accounting``),
 adapted: its item sizes come from the port config's ``torch_dtype``.
 
-Not ported yet (ROADMAP.md): the fleet-level modules (``goodput``,
-``capacity``, ``journey``, ``fleet``, ``postmortem``, ``baseline``), the
+Not ported yet (ROADMAP.md): the fleet-level modules ``capacity``,
+``journey``, ``postmortem``, ``baseline`` and the ``merge`` CLI, the
 link metrics of multi-GPU serving, and ``faults/reactor.FleetReactor``.
 """

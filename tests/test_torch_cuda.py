@@ -1152,3 +1152,61 @@ def test_failed_install_copy_resets_and_wakes_no_row_on_unwritten_blocks(
     finally:
         a.shutdown()
         b.shutdown()
+
+
+def test_bert_large_attention_launches_the_kernels_and_matches_plain(gen):
+    """BERT-large's unmasked attention (B 8, S 512, 16/16 heads, D 64,
+    non-causal, bf16) goes through the forward, dq and dk/dv kernels once
+    each, and equals the plain versions within chip_smoke's tolerances."""
+    from container_engine_accelerators_tpu_torch.models import bert
+
+    shape = (8, 16, 512, 64)
+    q, k, v, g = (torch.randn(*shape, generator=gen, device="cuda")
+                  .bfloat16() for _ in range(4))
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    counts = (attention.flash_fwd_launches, attention.flash_dq_launches,
+              attention.flash_dkv_launches)
+    out = bert._attention(*qkv, None, "flash")
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (attention.flash_fwd_launches - counts[0],
+            attention.flash_dq_launches - counts[1],
+            attention.flash_dkv_launches - counts[2]) == (1, 1, 1)
+    kw = dict(causal=False, sm_scale=64 ** -0.5)
+    ref_out, ref_lse = attention.flash_fwd_reference(q, k, v, **kw)
+    tol = chip_smoke.TOL["bfloat16"]
+    assert ((out.float() - ref_out.float()).abs()
+            - tol["out_atol"] - tol["out_rtol"] * ref_out.float().abs()
+            ).max().item() <= 0
+    ref = attention.flash_bwd_reference(q, k, v, ref_out, ref_lse, g, **kw)
+    for name, got, want in zip(("dq", "dk", "dv"),
+                               (t.grad for t in qkv), ref):
+        _, rel_l2, worst = chip_smoke.grad_errors(got, want)
+        assert rel_l2 <= chip_smoke.BWD_TOL["bfloat16"]["rel_l2"], name
+        assert worst <= chip_smoke.BWD_TOL["bfloat16"]["row"], name
+
+
+def test_bert_step_on_card_matches_cpu(gen):
+    """A small f32 BERT: the loss and every gradient through the kernels
+    on the card equal the CPU's plain versions on the same weights."""
+    import numpy as np
+
+    from container_engine_accelerators_tpu_torch.models import bert
+
+    cfg = bert.BertConfig(vocab_size=256, d_model=128, n_layers=2,
+                          n_heads=2, d_ff=256, max_seq_len=128,
+                          dtype="float32")
+    cpu = bert.init_params(cfg, device="cpu", seed=0)
+    card = bert.Bert(cfg, "cuda")
+    card.load_state_dict(cpu.state_dict())
+    batch = bert.synthetic_mlm_batch(np.random.default_rng(0), 2, cfg)
+    losses = []
+    for model in (cpu, card):
+        loss = bert.loss_fn(model, batch)
+        loss.backward()
+        losses.append(loss.item())
+    assert abs(losses[0] - losses[1]) < 1e-4
+    for (name, a), b in zip(cpu.named_parameters(), card.parameters()):
+        want = a.grad
+        err = (b.grad.cpu() - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item() + 1e-7, name

@@ -721,6 +721,33 @@ def test_http_full_queue_answers_429_with_its_reason(engine, server, expect,
     assert first[0][1]["tokens"] == [expect([3, 1, 4], 4)]
 
 
+def test_http_burst_of_concurrent_clients_all_reach_admission(engine,
+                                                              server):
+    """64 clients posting at once while the loop is held: every request
+    is queued (none reset in the listen backlog), then every one served."""
+    eng = engine("dense")
+    port = server(eng)
+    release = _hold_loop(eng)
+    n = 64
+    start = threading.Barrier(n)
+    results = [None] * n
+
+    def post(i):
+        start.wait()
+        results[i] = _post(port, {"tokens": [[1 + i % 7, 2]],
+                                  "max_new_tokens": 1})
+
+    threads = [threading.Thread(target=post, args=(i,), daemon=True)
+               for i in range(n)]
+    for t in threads:
+        t.start()
+    _wait_for(lambda: eng._q.qsize() == n, "every request queued")
+    release.set()
+    for t in threads:
+        t.join(TIMEOUT_S)
+    assert [r[0] for r in results] == [200] * n
+
+
 def test_http_deadline_and_tenant_sheds_name_them(engine, server):
     tc = tt.TenantClasses.from_dict({
         "a": {"priority": 0, "queue_share": 0.75},

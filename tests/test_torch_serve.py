@@ -111,6 +111,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
         "assert len(names) >= 7, names\n"
+        "want = {'models.bert', 'models.mnist', 'models.resnet', "
+        "'parallel.moe', 'utils.checkpointing', 'models.supervisor', "
+        "'obs.goodput', 'obs.fleet'}\n"
+        "assert {p.__name__ + '.' + w for w in want} <= set(names), names\n"
         "[importlib.import_module(n) for n in names]\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' "

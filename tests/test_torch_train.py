@@ -161,6 +161,39 @@ def test_train_cli_prints_the_jax_result_keys(capsys):
     assert port["est_mfu"] == 0.0  # no known card: no peak to divide by
 
 
-def test_models_other_than_the_transformer_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        train_cli.main(["--model", "mnist", "--device", "cpu"])
+# Small flags each model takes on both packages (the JAX CLI's batch
+# must divide over its 8 virtual CPU devices).
+MODEL_FLAGS = {
+    "mnist": ["--batch-size", "8"],
+    "resnet": ["--batch-size", "8", "--image-size", "32"],
+    "bert": ["--batch-size", "8", "--seq-len", "32", "--d-model", "64",
+             "--n-heads", "4", "--vocab-size", "128"],
+}
+
+
+@pytest.mark.parametrize("model", sorted(MODEL_FLAGS))
+def test_train_cli_runs_every_model_with_jax_s_result_keys(model, capsys):
+    flags = ["--model", model, "--steps", "2", *MODEL_FLAGS[model]]
+    assert train_cli.main([*flags, "--device", "cpu"]) == 0
+    port = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert jtrain_cli.main(flags) == 0
+    ref = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert sorted(port) == sorted(ref)
+    assert port["steps_run"] == 2 and np.isfinite(port["loss"])
+    assert port["batch_size"] == ref["batch_size"] == 8
+    assert port["model"] == model
+
+
+def test_train_cli_default_model_is_mnist(capsys):
+    assert train_cli.main(["--steps", "1", "--device", "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["model"] == "mnist" and out["batch_size"] == 64
+
+
+@pytest.mark.parametrize("flag", [["--tp", "2"], ["--sp", "2"],
+                                  ["--ep", "2"], ["--pp", "2"],
+                                  ["--microbatches", "4"],
+                                  ["--distributed"]])
+def test_multi_gpu_flags_are_not_ported_yet(flag):
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        train_cli.main(["--model", "transformer", "--device", "cpu", *flag])

@@ -200,9 +200,16 @@ def test_init_params_scales_follow_jax():
 
 
 def test_moe_configs_are_not_ported_yet():
+    """A model with experts builds and trains (tests/test_torch_moe.py);
+    serving one is what is not ported yet."""
+    from container_engine_accelerators_tpu_torch.models import serve_cli
+
     cfg = dataclasses.replace(_configs("float32")[1], n_experts=4)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        ttf.Transformer(cfg, "cpu")
+    model = ttf.Transformer(cfg, "cpu")
+    assert all(isinstance(layer.ffn, ttf.MoEFeedForward)
+               for layer in model.layers)
+    with pytest.raises(NotImplementedError, match="experts"):
+        serve_cli.Model(cfg, device="cpu", weights=model)
 
 
 def test_config_llama3_8b_matches_jax():
