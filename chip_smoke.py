@@ -29,7 +29,11 @@ trains it at full width
 MLM at full width and depth (every layer's attention the non-causal
 flash forward, dq and dk/dv kernels), runs ``train_cli`` for every
 ``--model`` and its recovery (a preempted supervised run resumed from
-its checkpoint, a corrupt checkpoint quarantined), checking that every
+its checkpoint, a corrupt checkpoint quarantined), runs every
+single-card qualification row of ``collectives/device_bench.py`` (bf16
+and int8 matmul, HBM patterns through the Triton triad, read and copy,
+decode, prefill, the engines, flash attention at S 32768, train-step MFU
+up to 1.1 B parameters) against the card table's peaks, checking that every
 prefill, every prefill segment and every training step went through the
 kernels, and that every decode chunk replayed its captured graph. Each
 phase prints one JSON line; a failed phase raises and the script exits
@@ -38,7 +42,8 @@ non-zero before its last line, which is ``{"ok": true, "device":
 
 Phases: env, build, kernel (forward, one line per case; the host-bound
 shapes also timed as a CUDA graph of 20 launches; then the int8 product's
-rows, ``int8_mm_*``, at Llama-3-8B's projections), bwd_kernel (backward,
+rows, ``int8_mm_*``, at Llama-3-8B's projections and at the qualification
+model's, ``int8_mm_bench_*``), bwd_kernel (backward,
 one line per case), small_parity (a tiny f32 model on the card against
 the same weights on the CPU), int8_small_parity (a tiny f32 int8 model's
 tokens through generate, the dense and the paged engine, with and
@@ -93,8 +98,23 @@ restart from step 2, the end state against an unfaulted run's; then a
 corrupted newest checkpoint quarantined with one fallback), hostbench (the port's host-loop bench on
 this machine's CPU: host microseconds per token with fake device seams,
 paged, dense and paged with ngram; a host measurement, not the card's),
+device_bench (the single-card qualification rows of
+``collectives/device_bench.py`` in the JAX package's bench.py order at
+its arguments, plus the int8 decode row and the batcher head-to-head: one
+line a row with the card's name and power limit; fails on a reading <= 0
+or above 1.05 of its peak, a matmul shape, decode point or HBM pattern
+that errs, an S 32768 row that missed the flash kernels or an int8 row
+that missed ``int8_mm`` or whose launches are not 7 × layers per
+prefill and per graph replay), device_bench_int8_tokens (that row's
+decoded tokens, equal in every run and each within SERVE_LOGITS_ATOL of
+the plain int8 model's top logit on its own context), stream_kernels
+(the Triton triad, read and copy of ``ops/stream.py`` against their
+plain versions at every dtype and size the HBM rows run, at the rows'
+constants and at constants that move every term; then timed at 1 GiB
+bf16),
 kernels (the summary line), then the card's name and power limit, then
-the result.
+the result. The kernel phases include device_bench's long-context shape
+(``long_context_s32768``: S 32768, 4/2 heads, D 128) forward and backward.
 """
 
 import concurrent.futures
@@ -116,10 +136,15 @@ import time
 import urllib.error
 import urllib.request
 
-# NVIDIA H100 SXM data sheet, dense: the bounds below are against these.
-PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12   # f32 outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
+from container_engine_accelerators_tpu_torch.collectives import cards
+
+# The bounds below are against the nominal dense peaks of the card this
+# script runs on, its entry in the port's card table (collectives/cards.py:
+# NVIDIA's H100 SXM data sheet); main() fails on any other card.
+PEAK_CARD = cards.H100_SXM
+PEAK_BF16_FLOPS = PEAK_CARD.bf16_tflops * 1e12
+PEAK_F32_FLOPS = 67e12   # f32 outside the tensor cores (not in the table)
+HBM_BYTES_PER_S = PEAK_CARD.hbm_gbps * 1e9
 
 # Tolerances of the kernel against its plain version on the same inputs.
 # bf16: the kernel and the plain version both round p and out to bf16
@@ -176,6 +201,39 @@ TRAIN_CLI_SUPERVISED_KEYS = TRAIN_CLI_KEYS | {"restarts", "goodput"}
 # unit size). f32: summation order only.
 INT8_TOL = {"bfloat16": {"rtol": 2.0 ** -7, "atol": 1e-3},
             "float32": {"rtol": 1e-5, "atol": 1e-5}}
+# The Triton triad and copy against their plain versions (bf16, f32): both
+# compute x + y·s + z·ε (x·c + t) in f32 in one order (the kernels without
+# fused multiply-adds) and round once to the buffer's dtype, so they may
+# differ only where the f32 results differ, by one unit in the last place
+# of the dtype at most. The int8 copy is exact.
+STREAM_ULPS = 1.0
+
+
+def ulp_gap(torch, got, want):
+    """Largest |got - want| in units of the last place of got's dtype at
+    the larger magnitude of the two (0 where they are equal)."""
+    bits = {torch.bfloat16: 7, torch.float32: 23}[got.dtype]
+    a, b = got.float(), want.float()
+    mag = torch.maximum(a.abs(), b.abs()).clamp_min(
+        torch.finfo(torch.float32).tiny)
+    _, exp = torch.frexp(mag)
+    ulp = torch.ldexp(torch.ones_like(mag), exp - 1 - bits)
+    return ((a - b).abs() / ulp).max().item()
+
+
+def read_rtol(torch, n):
+    """Relative bound on the Triton read's f32 total against the plain
+    version's, for n elements: every term is >= 0, so a chain of c f32
+    additions errs by at most c · 2^-24 of the total; the kernel's longest
+    chain is a lane's share of its program's tiles plus the programs'
+    atomic adds, and the plain version's pairwise sum is shorter."""
+    from container_engine_accelerators_tpu_torch.ops import stream
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tiles = -(-n // stream.READ_BLOCK)
+    programs = max(1, min(tiles, sms * stream.READ_PROGRAMS_PER_SM))
+    chain = -(-tiles // programs) + programs
+    return 2 * chain * 2.0 ** -24
 
 
 def emit(obj):
@@ -341,6 +399,11 @@ def host_us(fn, torch, calls=20):
 
 BERT_LARGE_CASE = ("bert_large_s512", 8, 512, 512, False, 0, 0, None, 16,
                    16, 64, "bfloat16")
+# device_bench's bench_flash_long_context: S 32768, B 1, 4 q heads over 2
+# kv heads, D 128, causal (the JAX package streams K/V, and Q in dk/dv,
+# past 8192).
+LONG_CONTEXT_CASE = ("long_context_s32768", 1, 32768, 32768, True, 0, 0,
+                     None, 4, 2, 128, "bfloat16")
 # (name, batch, seq_q, seq_k, causal, q_base, k_base, kv_len, hq, hkv, d,
 #  dtype). The first four are the Llama-3-8B prefill shapes (Hq 32, Hkv 8,
 # D 128): the serve phase's prompts of 300 (batch 2) and 1500 tokens land
@@ -405,6 +468,7 @@ KERNEL_CASES = [
     # BERT-large's attention (train_bert): non-causal, 16 q heads on 16
     # kv heads (a GQA group of 1), head dim 64, S 512, B 8.
     BERT_LARGE_CASE,
+    LONG_CONTEXT_CASE,
 ]
 MAIN_CASE = "causal_2048"
 
@@ -551,6 +615,7 @@ BWD_CASES = [
     ("gqa8", 1, 1024, 1024, True, 0, 0, None, 32, 4, 128, "bfloat16"),
     ("f32_d128", 1, 512, 512, True, 0, 0, None, 8, 2, 128, "float32"),
     BERT_LARGE_CASE,
+    LONG_CONTEXT_CASE,
 ]
 BWD_MAIN_CASE = "causal_8192"
 
@@ -678,13 +743,23 @@ INT8_CASES = [
     ("m128_w1", 128, 4096, 14336), ("m128_w2", 128, 14336, 4096),
     ("m512_w1", 512, 4096, 14336), ("m512_w2", 512, 14336, 4096),
     ("m2048_w1", 2048, 4096, 14336), ("m2048_w2", 2048, 14336, 4096),
+    # device_bench's model (_bench_cfg: wq/wo (2048, 2048), wk/wv (2048,
+    # 1024), w1/w3 (2048, 8192), w2 (8192, 2048)) at the int8 decode row's
+    # batch of 8 and its prefill of 8 × 128 rows.
+    ("bench_m8_wq", 8, 2048, 2048), ("bench_m8_wk", 8, 2048, 1024),
+    ("bench_m8_w1", 8, 2048, 8192), ("bench_m8_w2", 8, 8192, 2048),
+    ("bench_m1024_wq", 1024, 2048, 2048),
+    ("bench_m1024_wk", 1024, 2048, 1024),
+    ("bench_m1024_w1", 1024, 2048, 8192),
+    ("bench_m1024_w2", 1024, 8192, 2048),
 ]
 INT8_MAIN_CASE = "m8_w1"
 # Rows whose back-to-back time may read the wrapper's host time: also
 # timed as a CUDA graph of GRAPH_LAUNCHES launches, and held bit-equal to
 # the eager launch when replayed.
 INT8_GRAPH_CASES = ("m1_w1", "m8_wq", "m8_wk", "m8_w1", "m8_w2",
-                    "m16_w1", "m128_w1", "m128_w2")
+                    "m16_w1", "m128_w1", "m128_w2", "bench_m8_wq",
+                    "bench_m8_wk", "bench_m8_w1", "bench_m8_w2")
 # Weight bytes one timed pass cycles through, so that a launch finds its
 # weight in HBM (the 50 MB L2 cannot hold them), as the decode does: it
 # streams 218 MB of layer matrices a layer.
@@ -1729,7 +1804,7 @@ def _divergences(torch, tf, model, prompts, got, want):
     return rows
 
 
-def _served_gaps(torch, tf, model, prompts, got):
+def _served_gaps(torch, tf, transformer, prompts, got):
     """Every served token of the streams ``got`` (prompt + generated)
     against the dense forward over that stream's own context (teacher
     forced, so a stream is read past where it parts from the
@@ -1742,7 +1817,7 @@ def _served_gaps(torch, tf, model, prompts, got):
     gaps, margins = [], []
     for prompt, stream in zip(prompts, got):
         with torch.inference_mode():
-            logits = tf.forward(model.model,
+            logits = tf.forward(transformer,
                                 torch.as_tensor([stream[:-1]], device="cuda"))
         logits = logits[0, len(prompt) - 1:]
         served = torch.as_tensor(stream[len(prompt):], device="cuda")
@@ -1985,7 +2060,7 @@ def serve_dense(torch, np, tf, serve_cli, attention, card, model):
                        want)
     div_b = _divergences(torch, tf, model, b_row["prompts"], b_row["outs"],
                          b_row.pop("want"))
-    held = _served_gaps(torch, tf, model,
+    held = _served_gaps(torch, tf, model.model,
                         [prompts[n] for n in names] + b_row.pop("prompts"),
                         got + b_row.pop("outs"))
     emit({"phase": "serve_dense_divergences",
@@ -2167,7 +2242,7 @@ def _robust_gaps(torch, tf, model, case, prompts, streams, refs):
     """Every served token of ``streams`` within SERVE_LOGITS_ATOL of the
     dense forward's top logit on its own context (``_served_gaps``), and
     the count of streams equal to their reference."""
-    held = _served_gaps(torch, tf, model, prompts, streams)
+    held = _served_gaps(torch, tf, model.model, prompts, streams)
     equal = sum(a == b for a, b in zip(streams, refs))
     if held["gaps_over_tol"]:
         fail(f"serve_robust {case}: {held['gaps_over_tol']} served tokens "
@@ -3403,7 +3478,8 @@ def serve_handoff(torch, np, tf, serve_cli, attention, card, model):
     if any(g["eager_chunks_on_cuda"] for g in graphs.values()):
         fail(f"serve_handoff: a chunk ran eagerly on the card: {graphs}")
     names = list(streams)
-    held = _served_gaps(torch, tf, model, [streams[n][0] for n in names],
+    held = _served_gaps(torch, tf, model.model,
+                        [streams[n][0] for n in names],
                         [streams[n][1] for n in names])
     if held["gaps_over_tol"]:
         fail(f"serve_handoff: {held['gaps_over_tol']} served tokens lie "
@@ -3697,7 +3773,7 @@ def serve_int8(torch, np, tf, serve_cli, attention, int8_matmul, q8, card,
     _free(torch)
     with plain_int8(int8_matmul):
         held = _served_gaps(
-            torch, tf, model, [p1500] + dense_prompts + spec_prompts,
+            torch, tf, model.model, [p1500] + dense_prompts + spec_prompts,
             [gen_stream] + dense_streams + spec_streams)
     row["served_tokens_vs_int8_reference"] = held
     row["tol"] = SERVE_LOGITS_ATOL
@@ -4177,6 +4253,341 @@ def train_recovery(torch, train_cli, attention):
     return tuple(a - b for a, b in zip(_flash_counts(attention), before))
 
 
+# The single-card qualification rows (collectives/device_bench.py) in the
+# order the JAX package's bench.py runs them on one chip, with its
+# arguments, plus what it leaves out: the int8 decode row and the
+# engine-against-batcher head-to-head. (label, function, arguments)
+DEVICE_BENCH_ROWS = (
+    ("matmul_bf16", "bench_matmul", {}),
+    ("hbm_bandwidth", "bench_hbm_bandwidth", {"repeats": 2}),
+    ("hbm_pattern_sweep", "bench_hbm_pattern_sweep", {"repeats": 2}),
+    ("matmul_int8", "bench_matmul_int8", {}),
+    ("train_step_mfu", "bench_train_step_mfu", {}),
+    ("decode_throughput", "bench_decode_throughput", {}),
+    ("decode_throughput_int8", "bench_decode_throughput",
+     {"quantize": True}),
+    ("train_step_mfu_remat", "bench_train_step_mfu_remat", {}),
+    ("train_step_mfu_remat_required", "bench_train_step_mfu_remat_required",
+     {}),
+    ("train_step_mfu_1b", "bench_train_step_mfu_1b", {}),
+    ("decode_sweep", "bench_decode_sweep", {"batches": (1, 32)}),
+    ("prefill_throughput", "bench_prefill_throughput", {}),
+    ("decode_window_benefit", "bench_decode_window_benefit", {}),
+    ("flash_long_context", "bench_flash_long_context", {}),
+    ("continuous_serving", "bench_continuous_serving",
+     {"versus_batcher": True}),
+    ("continuous_serving_shared_prefix",
+     "bench_continuous_serving_shared_prefix", {}),
+    ("engine_chunk_step", "bench_engine_chunk_step", {}),
+    ("continuous_serving_saturated", "bench_continuous_serving_saturated",
+     {}),
+)
+# A reading above the nominal peak by more than this means a wrong count.
+MAX_FRAC_OF_PEAK = 1.05
+# bench_hbm_pattern_sweep's rows: every one must run on an 80 GB card.
+PATTERN_KEYS = {f"{p}_{d}_{s}" for p in ("read", "copy")
+                for d in ("bf16", "f32", "i8") for s in ("256M", "1G")}
+
+
+def _numbers(obj):
+    """Every int or float inside a JSON-like object (bools aside)."""
+    if isinstance(obj, dict):
+        return [x for v in obj.values() for x in _numbers(v)]
+    if isinstance(obj, (list, tuple)):
+        return [x for v in obj for x in _numbers(v)]
+    if isinstance(obj, (int, float)) and not isinstance(obj, bool):
+        return [obj]
+    return []
+
+
+def _errors(obj):
+    """Every "error: ..." string inside a JSON-like object."""
+    if isinstance(obj, dict):
+        return [x for v in obj.values() for x in _errors(v)]
+    if isinstance(obj, str) and obj.startswith("error"):
+        return [obj]
+    return []
+
+
+def _device_bench_problems(label, out, cfg_layers):
+    """What is wrong with one row's result (an empty list when nothing)."""
+    if isinstance(out, dict):  # decode_sweep, decode_window_benefit
+        bad = [f"error: {e}" for e in _errors(out)]
+        bad += [f"{label}: a reading <= 0"
+                for x in _numbers(out) if not x > 0][:1]
+        return bad
+    bad = []
+    if not (math.isfinite(out.value) and out.value > 0):
+        bad.append(f"value {out.value}")
+    if out.frac_of_peak > MAX_FRAC_OF_PEAK:
+        bad.append(f"frac_of_peak {out.frac_of_peak} > {MAX_FRAC_OF_PEAK}")
+    d = out.detail
+    if label == "matmul_bf16":
+        bad += [f"{shape}: {v}" for shape, v in d["per_shape"].items()
+                if not isinstance(v, float)]
+    elif label == "hbm_pattern_sweep" and set(d) != PATTERN_KEYS:
+        bad.append(f"patterns missing: {sorted(PATTERN_KEYS - set(d))}")
+    elif label == "flash_long_context":
+        # A warm and 3 timed rounds of 8 forwards, then of 8 fwd+bwd.
+        got = (d["flash_fwd_launches"], d["flash_dq_launches"],
+               d["flash_dkv_launches"])
+        if got != (64, 32, 32):
+            bad.append(f"flash launches {got}, want (64, 32, 32)")
+    elif label == "decode_throughput_int8":
+        # One eager prefill through every projection, then every decode
+        # step a replay of a captured graph that launches each of them.
+        per = 7 * cfg_layers
+        if not d["graph_replays"] or \
+                d["int8_mm_launches"] != per * (1 + d["graph_replays"]) or \
+                d["int8_mm_captured"] != per * d["graph_captures"]:
+            bad.append(f"int8_mm launches {d['int8_mm_launches']}, "
+                       f"captured {d['int8_mm_captured']}, graphs "
+                       f"{d['graph_captures']} captured, "
+                       f"{d['graph_replays']} replayed; want {per} a "
+                       f"prefill, a replay and a capture")
+    return bad
+
+
+STREAM_KERNELS = ("stream_triad", "stream_read", "stream_copy")
+
+
+@contextlib.contextmanager
+def recorded_decodes(db, seen):
+    """Inside the block, every run of a ``db.decode_runner`` runner
+    appends (model, prompt, tokens) to ``seen``: the tokens a decode row
+    decodes, for holding them afterwards."""
+    runner = db.decode_runner
+
+    def recording(model, prompt, steps, use_window=True):
+        run, windows, graphs = runner(model, prompt, steps, use_window)
+
+        def recorded():
+            out = run()
+            seen.append((model, prompt, out))
+            return out
+
+        return recorded, windows, graphs
+
+    db.decode_runner = recording
+    try:
+        yield
+    finally:
+        db.decode_runner = runner
+
+
+def device_bench_phase(torch, db, attention, int8_matmul, stream, card):
+    """Every qualification row on the card (DEVICE_BENCH_ROWS), one JSON
+    line each with the card's name and power limit: the result's
+    ``to_json()`` and the row's seconds. Fails when a reading is <= 0 or
+    above MAX_FRAC_OF_PEAK of its peak, a default matmul shape, a decode
+    point or an HBM pattern errs, the S 32768 row did not launch the
+    flash kernels, or the int8 decode row went around ``int8_mm``.
+    Returns the kernel launches the rows made (the counts are zeroed
+    first)."""
+    _zero_flash_counts(attention)
+    int8_matmul.int8_mm_launches = 0
+    for name in STREAM_KERNELS:
+        setattr(stream, f"{name}_launches", 0)
+    bad, int8_decodes = [], []
+    t_phase = time.perf_counter()
+    layers = db._bench_cfg().n_layers
+    for label, fn, kwargs in DEVICE_BENCH_ROWS:
+        t0 = time.perf_counter()
+        with (recorded_decodes(db, int8_decodes)
+              if label == "decode_throughput_int8"
+              else contextlib.nullcontext()):
+            out = getattr(db, fn)(**kwargs)
+        row = {"phase": "device_bench", "row": label, **card,
+               "seconds": time.perf_counter() - t0}
+        row.update(out.to_json() if isinstance(out, db.DeviceBenchResult)
+                   else {"detail": out})
+        emit(row)
+        bad += [f"{label}: {p}" for p in
+                _device_bench_problems(label, out, layers)]
+        _free(torch)
+        if label == "decode_throughput_int8":
+            int8_replays = out.detail["graph_replays"]
+    fwd, dq, dkv = _flash_counts(attention)
+    # int8_mm: the calls that launched it eagerly, and the 7 × layers
+    # launches of each of the int8 decode row's graph replays, which the
+    # counter does not see.
+    launches = {"flash_fwd": fwd, "flash_bwd_dq": dq, "flash_bwd_dkv": dkv,
+                "int8_mm": int8_matmul.int8_mm_launches
+                + 7 * layers * int8_replays,
+                **{name: getattr(stream, f"{name}_launches")
+                   for name in STREAM_KERNELS}}
+    emit({"phase": "device_bench", "seconds": time.perf_counter() - t_phase,
+          "launches": launches, **card})
+    if bad:
+        fail(f"device_bench: {bad}")
+    return launches, int8_decodes
+
+
+def hold_int8_decodes(torch, tf, int8_matmul, card, decodes):
+    """The int8 decode row's tokens (every run's, ``recorded_decodes``):
+    every run decodes the same tokens, and each of the last run's lies
+    within SERVE_LOGITS_ATOL of the top logit of the same int8 model
+    through the plain version of ``int8_mm`` on its own context (teacher
+    forced, ``_served_gaps``)."""
+    model, prompt, _ = decodes[0]
+    runs = [tokens for _, _, tokens in decodes]
+    prompts = prompt.tolist()
+    streams = [p + t for p, t in zip(prompts, runs[-1].tolist())]
+    with plain_int8(int8_matmul):
+        held = _served_gaps(torch, tf, model, prompts, streams)
+    row = {"phase": "device_bench_int8_tokens", **card, "runs": len(runs),
+           "runs_equal": all(torch.equal(runs[0], t) for t in runs[1:]),
+           "tokens_vs_int8_reference": held, "tol": SERVE_LOGITS_ATOL}
+    emit(row)
+    if not row["runs_equal"]:
+        fail("device_bench: the int8 decode row's runs decoded different "
+             "tokens")
+    if held["gaps_over_tol"]:
+        fail(f"device_bench: {held['gaps_over_tol']} tokens of the int8 "
+             f"decode row lie {SERVE_LOGITS_ATOL} or more below the int8 "
+             f"reference's top logit on their own context: {held}")
+
+
+# bench_hbm_pattern_sweep's buffers (bench_hbm_bandwidth's is the 1 GiB).
+STREAM_SIZES = (1 << 28, 1 << 30)
+
+
+def _stream_buffer(torch, gen, n, dtype):
+    if dtype == torch.int8:
+        return torch.randint(-127, 127, (n,), generator=gen, device="cuda",
+                             dtype=torch.int8)
+    return torch.randn(n, generator=gen, device="cuda").to(dtype)
+
+
+def _stream_checks(torch, db, stream, gen):
+    """Each Triton kernel against its plain version at every dtype and
+    size its row runs it at: the read and the copy at bf16, f32 and int8
+    over 256 MiB and 1 GiB, the triad in place over bench_hbm_bandwidth's
+    1 GiB bf16 buffers. Each at its row's constants of the last step and
+    at constants that move every term (the rows' 1e-9 terms fall below a
+    bf16 step, where a kernel that dropped one would still agree). Returns
+    (checks, the 1 GiB bf16 buffers (x, y, z, src) for the timing)."""
+    checks = []
+
+    def check(kernel, x, consts, err, tol, abs_err):
+        checks.append({"kernel": kernel, "dtype": str(x.dtype)[6:],
+                       "bytes": x.nbytes, "constants": consts, "err": err,
+                       "tol": tol, "max_abs_err": abs_err,
+                       "ok": bool(err <= tol)})
+
+    timed = None
+    for dtype in (torch.bfloat16, torch.float32, torch.int8):
+        size = torch.empty((), dtype=dtype).element_size()
+        for nbytes in STREAM_SIZES:
+            n = nbytes // size
+            x, src = (_stream_buffer(torch, gen, n, dtype) for _ in range(2))
+            for bias in (db.read_bias(1023), 0.125):
+                want = stream.stream_read_reference(x, bias).item()
+                got = stream.stream_read(
+                    x, torch.zeros(1, device="cuda"), bias).item()
+                check("stream_read", x, {"bias": bias},
+                      abs(got - want) / want, read_rtol(torch, n),
+                      abs(got - want))
+            if dtype == torch.int8:
+                consts = ({"k": db.int8_index(1023)}, {"k": -77})
+            else:
+                consts = ({"c": db.copy_scales(1024, dtype)[1023],
+                           "eps": db.step_eps(dtype)},
+                          {"c": 0.375, "eps": -0.25})
+            out = torch.empty_like(x)
+            for kw in consts:
+                want = stream.stream_copy_reference(x, src, **kw)
+                got = stream.stream_copy(x, src, out, **kw)
+                abs_err = (got.float() - want.float()).abs().max().item()
+                if dtype == torch.int8:
+                    check("stream_copy", x, kw, abs_err, 0.0, abs_err)
+                else:
+                    check("stream_copy", x, kw, ulp_gap(torch, got, want),
+                          STREAM_ULPS, abs_err)
+                del want
+            del out
+            if (dtype, nbytes) != (torch.bfloat16, 1 << 30):
+                del x, src
+                continue
+            y, z = (_stream_buffer(torch, gen, n, dtype) for _ in range(2))
+            for sc, eps in ((db.step_scales(2048, dtype)[2047],
+                             db.step_eps(dtype)), (0.375, -0.25)):
+                want = stream.triad_reference(x, y, z, sc, eps)
+                got = stream.triad(x, y, z, sc, eps, out=z)
+                check("stream_triad", x, {"s": sc, "eps": eps},
+                      ulp_gap(torch, got, want), STREAM_ULPS,
+                      (got.float() - want.float()).abs().max().item())
+                del want
+            timed = (x, y, z, src)
+    return checks, timed
+
+
+def stream_kernel_rows(torch, db, stream, gen):
+    """The Triton kernels held to their plain versions (``_stream_checks``),
+    then timed at the HBM rows' 1 GiB bf16 buffers: the kernel, the plain
+    version, the bound (the bytes each moves once over the HBM rate, or
+    its f32 operations over the f32 peak, the larger) and beside them the
+    PyTorch calls nearest to each, which compute less or take two calls
+    (so no library_ms): ``torch.sum``'s one-pass read without |x + b|,
+    and the copy through ``addcmul`` and a one-element product."""
+    checks, (x, y, z, src) = _stream_checks(torch, db, stream, gen)
+    row = {"phase": "stream_kernels", "buffer_bytes": x.nbytes,
+           "dtype": "bfloat16", "checks": checks}
+    n = x.numel()
+
+    def first(kernel):
+        return next(c for c in checks
+                    if c["kernel"] == kernel and c["bytes"] == x.nbytes
+                    and c["dtype"] == "bfloat16")
+
+    sc, eps = db.step_scales(2048, torch.bfloat16)[2047], \
+        db.step_eps(torch.bfloat16)
+    triad = {"max_abs_err": first("stream_triad")["max_abs_err"]}
+    triad["ms"] = time_ms(lambda: stream.triad(x, y, z, sc, eps, out=z),
+                          torch)
+    triad["plain_ms"] = time_ms(
+        lambda: stream.triad_reference(x, y, z, sc, eps), torch,
+        budget_ms=100.0)
+    triad["bound_ms"], triad["bound_by"] = _stream_bound(4 * x.nbytes, 4 * n)
+    acc = torch.zeros(1, device="cuda")
+    bias = db.read_bias(1023)
+    read = {"max_abs_err": first("stream_read")["max_abs_err"]}
+    read["ms"] = time_ms(lambda: stream.stream_read(x, acc, bias), torch)
+    read["plain_ms"] = time_ms(
+        lambda: stream.stream_read_reference(x, bias), torch,
+        budget_ms=100.0)
+    read["bound_ms"], read["bound_by"] = _stream_bound(x.nbytes, 3 * n)
+    read["torch_sum_ms"] = time_ms(
+        lambda: torch.sum(x, dtype=torch.float32), torch)
+    out = torch.empty_like(x)
+    c = db.copy_scales(1024, torch.bfloat16)[1023]
+    scale = torch.full((1,), c, dtype=torch.bfloat16, device="cuda")
+    copy = {"max_abs_err": first("stream_copy")["max_abs_err"]}
+    copy["ms"] = time_ms(
+        lambda: stream.stream_copy(x, src, out, c=c, eps=eps), torch)
+    copy["plain_ms"] = time_ms(
+        lambda: stream.stream_copy_reference(x, src, c=c, eps=eps), torch,
+        budget_ms=100.0)
+    copy["bound_ms"], copy["bound_by"] = _stream_bound(2 * x.nbytes, 2 * n)
+    copy["addcmul_ms"] = time_ms(
+        lambda: torch.addcmul(src[:1] * eps, x, scale, out=out), torch)
+    row.update(stream_triad=triad, stream_read=read, stream_copy=copy)
+    emit(row)
+    bad = [c for c in checks if not c["ok"]]
+    if bad:
+        fail(f"stream kernels disagree with their plain versions: {bad}")
+    return row
+
+
+def _stream_bound(nbytes, f32_ops):
+    """(bound_ms, bound_by) of a streaming pass: bytes over the HBM rate
+    or its f32 operations over the f32 peak, the larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, f32_ops / PEAK_F32_FLOPS
+    if t_ops > t_bytes:
+        return t_ops * 1e3, "operations"
+    return t_bytes * 1e3, "bytes"
+
+
 def main():
     import torch
 
@@ -4186,6 +4597,9 @@ def main():
         return 1
     import numpy as np
 
+    from container_engine_accelerators_tpu_torch.collectives import (
+        device_bench as db,
+    )
     from container_engine_accelerators_tpu_torch.models import quantization as q8
     from container_engine_accelerators_tpu_torch.models import serve_cli
     from container_engine_accelerators_tpu_torch.models import serving_graphs
@@ -4193,6 +4607,7 @@ def main():
     from container_engine_accelerators_tpu_torch.models import transformer as tf
     from container_engine_accelerators_tpu_torch.ops import _ext, attention
     from container_engine_accelerators_tpu_torch.ops import int8_matmul
+    from container_engine_accelerators_tpu_torch.ops import stream
 
     # Plain versions compute in full f32 (no TF32), as the kernels do.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4200,9 +4615,15 @@ def main():
     smi = nvidia_smi_line()
     name, power = [s.strip() for s in smi.split(",", 1)]
     card = {"gpu": name, "power_limit": power}
+    peaks = db.detect_generation(torch.device("cuda", 0))
     emit({"phase": "env", **card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "python": sys.version.split()[0]})
+          "python": sys.version.split()[0],
+          "card_table": peaks and dataclasses.asdict(peaks)})
+    if peaks != PEAK_CARD:
+        fail(f"{torch.cuda.get_device_name(0)}: the bounds hold the peaks "
+             f"of {PEAK_CARD.name}, and collectives/cards.py gives this "
+             f"card {peaks}")
 
     t0 = time.perf_counter()
     _ext.build()
@@ -4265,9 +4686,20 @@ def main():
     recovery_launches = train_recovery(torch, train_cli, attention)
     _free(torch)
     hostbench_phase()
+    bench_launches, int8_decodes = device_bench_phase(
+        torch, db, attention, int8_matmul, stream, card)
+    _free(torch)
+    hold_int8_decodes(torch, tf, int8_matmul, card, int8_decodes)
+    del int8_decodes
+    _free(torch)
+    stream_rows = stream_kernel_rows(torch, db, stream, gen)
+    _free(torch)
     training = {"train": (fwd_train, dq_train, dkv_train),
                 "train_bert": bert_launches, "train_cli": cli_launches,
-                "train_recovery": recovery_launches}
+                "train_recovery": recovery_launches,
+                "device_bench": tuple(bench_launches[k] for k in (
+                    "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))}
+    int8_launches["device_bench"] = bench_launches["int8_mm"]
 
     def by_path(i):
         return {path: counts[i] for path, counts in training.items()}
@@ -4289,6 +4721,31 @@ def main():
                 "host_us": row[f"{pre}host_us"],
                 "graph_ms": row[f"{pre}graph_ms"]}
     int8_row = int8_rows[INT8_MAIN_CASE]
+    # The same numbers at device_bench's S 32768 (bench_flash_long_context).
+    long_fwd = rows[LONG_CONTEXT_CASE[0]]
+    long_bwd = bwd_rows[LONG_CONTEXT_CASE[0]]
+
+    def long_shape(kind, err):
+        row = long_fwd if kind == "fwd" else long_bwd
+        pre = "" if kind == "fwd" else f"{kind}_"
+        return {"case": LONG_CONTEXT_CASE[0], "max_abs_err": err,
+                "ms": row[f"{pre}ms"], "plain_ms": row[f"{pre}plain_ms"],
+                "bound_ms": row[f"{pre}bound_ms"],
+                "bound_by": row[f"{pre}bound_by"],
+                "library_ms": row["library_ms"] if kind == "fwd" else None}
+    stream_src = "container_engine_accelerators_tpu_torch/ops/stream.py"
+    bench_src = "container_engine_accelerators_tpu/collectives/device_bench.py:"
+
+    def stream_entry(name, row, replaces):
+        return {"name": name, "route": "triton", "source": stream_src,
+                "replaces": bench_src + replaces,
+                "launches": bench_launches[name],
+                "launches_by_path": {"device_bench": bench_launches[name]},
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": None,
+                "shape": {"bytes": stream_rows["buffer_bytes"],
+                          "dtype": stream_rows["dtype"]}}
     # No one PyTorch call computes dq alone or dk/dv alone (the library's
     # attention backward gives all three), so the two backward kernels
     # have no library_ms; "flash_bwd" beside the list holds the whole
@@ -4320,6 +4777,7 @@ def main():
             "host_us": main_row["host_us"],
             "shape": main_row["shape"],
             "bert_large": bert_shape("fwd", bert_fwd["max_abs_err_out"]),
+            "long_context": long_shape("fwd", long_fwd["max_abs_err_out"]),
         },
         {
             "name": "flash_bwd_dq", "route": "cuda",
@@ -4335,6 +4793,7 @@ def main():
             "host_us": bwd_row["dq_host_us"],
             "shape": bwd_row["shape"],
             "bert_large": bert_shape("dq", bert_bwd["max_abs_err_dq"]),
+            "long_context": long_shape("dq", long_bwd["max_abs_err_dq"]),
         },
         {
             "name": "flash_bwd_dkv", "route": "cuda",
@@ -4352,6 +4811,8 @@ def main():
             "shape": bwd_row["shape"],
             "bert_large": bert_shape("dkv", max(bert_bwd["max_abs_err_dk"],
                                                 bert_bwd["max_abs_err_dv"])),
+            "long_context": long_shape("dkv", max(
+                long_bwd["max_abs_err_dk"], long_bwd["max_abs_err_dv"])),
         },
         {
             "name": "int8_mm", "route": "cuda",
@@ -4371,6 +4832,9 @@ def main():
             "host_us": int8_row["host_us"],
             "shape": int8_row["shape"],
         },
+        stream_entry("stream_triad", stream_rows["stream_triad"], "234"),
+        stream_entry("stream_read", stream_rows["stream_read"], "291"),
+        stream_entry("stream_copy", stream_rows["stream_copy"], "309"),
     ], "flash_bwd": {
         "source": src + "flash_bwd.cu",
         "replaces": replaces + "771",

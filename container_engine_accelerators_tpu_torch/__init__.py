@@ -18,6 +18,10 @@ the JAX package; what it needs from there is copied.
                          (bert.py, mnist.py, resnet.py, the transformer)
                          with resume, the supervisor and fault plans
   parallel/moe.py        the mixture-of-experts FFN (one device)
+  collectives/           single-card node qualification: device_bench.py
+                         (matmul, HBM patterns, serving and training rows)
+                         over the card table cards.py; the HBM steps' Triton
+                         kernels in ops/stream.py
   obs/                   metrics, events, spans, the device-time ledger,
                          the HBM model, the flight recorder, alert rules,
                          the goodput ledger

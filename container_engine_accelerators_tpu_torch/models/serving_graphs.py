@@ -567,14 +567,18 @@ class DenseDecodeGraphs:
         self.evictions += 1
 
     @torch.inference_mode()
-    def step(self, tokens, position):
+    def step(self, tokens, position, window=None):
         """One decode step of ``tokens`` (B,) at ``position`` (an int)
-        over ``cache(B)`` → (B, V) f32 logits. On CUDA the graph's output
-        buffer, valid until the next step at the same (B, window)."""
+        over ``cache(B)`` → (B, V) f32 logits, attending the first
+        ``window`` positions of the cache (default: the bucket of
+        position + 1; ``device_bench`` also reads the whole context). On
+        CUDA the graph's output buffer, valid until the next step at the
+        same (B, window)."""
         batch = tokens.shape[0]
         cache = self.cache(batch)
         _, tok, pos = self._batches[batch]
-        window = tf._window_for(position + 1, self.model.cfg.max_seq_len)
+        if window is None:
+            window = tf._window_for(position + 1, self.model.cfg.max_seq_len)
         tok.copy_(tokens)
         pos.fill_(position)
         if self.model.device.type != "cuda":

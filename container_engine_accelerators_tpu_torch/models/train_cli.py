@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from container_engine_accelerators_tpu_torch import faults
+from container_engine_accelerators_tpu_torch.collectives import device_bench
 from container_engine_accelerators_tpu_torch.models import supervisor
 from container_engine_accelerators_tpu_torch.models import transformer as tf
 from container_engine_accelerators_tpu_torch.obs import alerts as obs_alerts
@@ -66,11 +67,6 @@ from container_engine_accelerators_tpu_torch.utils import (
 
 log = logging.getLogger("train_cli")
 
-# The card the port targets and its dense bf16 tensor-core peak (NVIDIA's
-# H100 SXM data sheet); est_mfu is 0 on any other card and on the CPU.
-PEAK_CARD = "NVIDIA H100 80GB HBM3"
-PEAK_BF16_FLOPS = 989e12
-
 # Step-time histogram bounds: a CPU smoke step (~10ms) up to a
 # first step that builds the kernels.
 STEP_SECONDS_BUCKETS = (0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
@@ -86,11 +82,12 @@ def _count_params(state):
 
 
 def peak_flops(device):
-    """The card's dense bf16 peak: PEAK_BF16_FLOPS on PEAK_CARD, else 0."""
-    if device.type == "cuda" and \
-            torch.cuda.get_device_name(device) == PEAK_CARD:
-        return PEAK_BF16_FLOPS
-    return 0.0
+    """The card's dense bf16 peak in FLOP/s from the card table
+    (``collectives.device_bench.detect_generation``, as the JAX
+    ``calibrate`` reads its generation's): 0 on the CPU and on a card the
+    table lacks, so est_mfu is 0 there."""
+    card = device_bench.detect_generation(device)
+    return card.bf16_tflops * 1e12 if card else 0.0
 
 
 class TrainMetrics:

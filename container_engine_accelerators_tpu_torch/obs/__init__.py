@@ -25,7 +25,9 @@ Copies of the JAX package's stdlib-only ``obs`` modules (that package's
     the per-host span-trace loaders it reads;
 
 and :mod:`.hbm`, the HBM occupancy model (``--chip-accounting``),
-adapted: its item sizes come from the port config's ``torch_dtype``.
+adapted: its item sizes come from the port config's ``torch_dtype``, and
+:mod:`.collective`, the collective and device-bench gauges
+(``collectives/device_bench.py`` records its rows there once configured).
 
 Not ported yet (ROADMAP.md): the fleet-level modules ``capacity``,
 ``journey``, ``postmortem``, ``baseline`` and the ``merge`` CLI, the

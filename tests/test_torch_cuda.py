@@ -1210,3 +1210,157 @@ def test_bert_step_on_card_matches_cpu(gen):
         want = a.grad
         err = (b.grad.cpu() - want).abs().max().item()
         assert err <= 1e-4 * want.abs().max().item() + 1e-7, name
+
+
+# -- single-card qualification (collectives/device_bench.py) ------------------
+
+GIB = 1 << 30
+
+
+def _stream_length(length, dtype):
+    """A 1 GiB buffer's elements, or a length off the kernels' blocks."""
+    if length == "1GiB":
+        return GIB // torch.empty((), dtype=dtype).element_size()
+    return 3 * 4096 + 77
+
+
+def _stream_buffer(gen, n, dtype):
+    if dtype == torch.int8:
+        return torch.randint(-127, 127, (n,), generator=gen, device="cuda",
+                             dtype=torch.int8)
+    return torch.randn(n, generator=gen, device="cuda").to(dtype)
+
+
+@pytest.mark.parametrize("length", ["1GiB", "ragged"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_stream_triad_matches_plain_version(gen, dtype, length):
+    """The Triton triad, in place as the HBM row runs it, against
+    ``triad_reference`` within one ulp of the dtype (both compute in f32
+    in one order and round once; the kernel has no fused multiply-add),
+    at constants that move every term."""
+    from container_engine_accelerators_tpu_torch.ops import stream
+
+    n = _stream_length(length, dtype)
+    x, y, z = (_stream_buffer(gen, n, dtype) for _ in range(3))
+    want = stream.triad_reference(x, y, z, 0.375, -0.25)
+    before = stream.stream_triad_launches
+    got = stream.triad(x, y, z, 0.375, -0.25, out=z)
+    torch.cuda.synchronize()
+    assert stream.stream_triad_launches == before + 1
+    assert got.data_ptr() == z.data_ptr()
+    assert chip_smoke.ulp_gap(torch, got, want) <= chip_smoke.STREAM_ULPS
+
+
+@pytest.mark.parametrize("length", ["1GiB", "ragged"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.int8])
+def test_stream_read_matches_plain_version(gen, dtype, length):
+    """The Triton read's f32 total against ``stream_read_reference`` plus
+    the carry, within chip_smoke's bound for the kernel's longest chain of
+    f32 additions (every term is >= 0)."""
+    from container_engine_accelerators_tpu_torch.ops import stream
+
+    n = _stream_length(length, dtype)
+    x = _stream_buffer(gen, n, dtype)
+    want = 3.0 + stream.stream_read_reference(x, 0.125).item()
+    acc = torch.full((1,), 3.0, device="cuda")
+    before = stream.stream_read_launches
+    got = stream.stream_read(x, acc, 0.125).item()
+    assert stream.stream_read_launches == before + 1
+    assert abs(got - want) <= chip_smoke.read_rtol(torch, n) * want
+
+
+@pytest.mark.parametrize("length", ["1GiB", "ragged"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.int8])
+def test_stream_copy_matches_plain_version(gen, dtype, length):
+    """The Triton copy against ``stream_copy_reference``, at constants that
+    move every term: bf16 and f32 within one ulp (both compute in f32 in
+    one order and round once; no fused multiply-add), int8 exactly (the
+    sum wraps)."""
+    from container_engine_accelerators_tpu_torch.ops import stream
+
+    n = _stream_length(length, dtype)
+    x, src = (_stream_buffer(gen, n, dtype) for _ in range(2))
+    out = torch.empty_like(x)
+    kw = {"k": -77} if dtype == torch.int8 else {"c": 0.375, "eps": -0.25}
+    want = stream.stream_copy_reference(x, src, **kw)
+    before = stream.stream_copy_launches
+    got = stream.stream_copy(x, src, out, **kw)
+    torch.cuda.synchronize()
+    assert stream.stream_copy_launches == before + 1
+    assert got.data_ptr() == out.data_ptr()
+    if dtype == torch.int8:
+        assert torch.equal(got, want)
+    else:
+        assert chip_smoke.ulp_gap(torch, got, want) <= chip_smoke.STREAM_ULPS
+
+
+HBM_STEPS = ["rw", "triad", "read_bf16", "read_f32", "read_i8", "copy_bf16",
+             "copy_f32", "copy_i8"]
+
+
+@pytest.mark.parametrize("pattern", HBM_STEPS)
+def test_each_hbm_pattern_step_is_one_pass_over_the_buffer(gen, pattern):
+    """One iteration of each HBM pattern over 1 GiB, under torch.profiler:
+    exactly one kernel runs, and long enough to touch the buffer (at least
+    a tenth of the bytes' bound at 3.35 TB/s), so the bytes each row
+    credits are the bytes its kernel moves."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from container_engine_accelerators_tpu_torch.collectives import (
+        device_bench as db,
+    )
+    from container_engine_accelerators_tpu_torch.ops import stream
+
+    kind, _, dt = pattern.partition("_")
+    dtype = {"": torch.bfloat16, "bf16": torch.bfloat16,
+             "f32": torch.float32, "i8": torch.int8}[dt]
+    n = _stream_length("1GiB", dtype)
+    x = _stream_buffer(gen, n, dtype)
+    if kind == "rw":
+        step, factor = (lambda: db.rw_step(x, 5e-9)), 2
+    elif kind == "triad":
+        y, z = _stream_buffer(gen, n, dtype), torch.zeros_like(x)
+        step, factor = (lambda: stream.triad(x, y, z, 5e-9, 1e-9, out=z)), 4
+    elif kind == "read":
+        acc = torch.zeros(1, device="cuda")
+        step, factor = (lambda: stream.stream_read(x, acc, 5e-9)), 1
+    else:
+        dst = torch.empty_like(x)
+        scales = None if dtype == torch.int8 else \
+            db.copy_scales(8, dtype)
+        step, factor = (lambda: db.copy_step(x, x, 5, scales, 1e-9, dst)), 2
+    step()  # built and set up outside the window
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    kernels = [(e.name, e.device_time_total) for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    bound_us = factor * GIB / chip_smoke.HBM_BYTES_PER_S * 1e6
+    passes = [k for k in kernels if k[1] >= 0.1 * bound_us]
+    assert len(passes) == 1, kernels
+    assert len(kernels) == 1, kernels
+
+
+def test_flash_long_context_launches_the_kernels():
+    """``bench_flash_long_context`` at S 32768 (one iteration a round)
+    goes through the flash forward, dq and dk/dv kernels: a warm and three
+    timed rounds of the forward chain, then of the fwd+bwd chain."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from container_engine_accelerators_tpu_torch.collectives import (
+        device_bench as db,
+    )
+
+    before = (attention.flash_fwd_launches, attention.flash_dq_launches,
+              attention.flash_dkv_launches)
+    r = db.bench_flash_long_context(seq=32768, iters=1)
+    d = r.detail
+    assert (d["flash_fwd_launches"], d["flash_dq_launches"],
+            d["flash_dkv_launches"]) == (8, 4, 4)
+    assert (attention.flash_fwd_launches - before[0],
+            attention.flash_dq_launches - before[1],
+            attention.flash_dkv_launches - before[2]) == (8, 4, 4)
+    assert r.value > 0 and d["fwd_bwd_ms"] > 0

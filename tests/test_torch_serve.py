@@ -113,7 +113,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "assert len(names) >= 7, names\n"
         "want = {'models.bert', 'models.mnist', 'models.resnet', "
         "'parallel.moe', 'utils.checkpointing', 'models.supervisor', "
-        "'obs.goodput', 'obs.fleet'}\n"
+        "'obs.goodput', 'obs.fleet', 'collectives.device_bench', "
+        "'collectives.cards', 'obs.collective', 'ops.stream'}\n"
         "assert {p.__name__ + '.' + w for w in want} <= set(names), names\n"
         "[importlib.import_module(n) for n in names]\n"
         "import chip_smoke\n"

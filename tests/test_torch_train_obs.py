@@ -28,6 +28,9 @@ from container_engine_accelerators_tpu.obs import fleet as jfleet  # noqa: E402
 from container_engine_accelerators_tpu.obs import goodput as jgoodput  # noqa: E402
 from container_engine_accelerators_tpu.obs import trace as jtrace  # noqa: E402
 from container_engine_accelerators_tpu_torch import faults as tfaults  # noqa: E402
+from container_engine_accelerators_tpu_torch.collectives import (  # noqa: E402
+    cards,
+)
 from container_engine_accelerators_tpu_torch.models import (  # noqa: E402
     train_cli as ttrain_cli,
 )
@@ -58,14 +61,18 @@ def test_train_metrics_families_equal_jax_s():
     assert port.summary() == ref.summary()
 
 
-def test_est_mfu_needs_the_card_s_peak():
+def test_est_mfu_needs_the_card_s_peak(monkeypatch):
     m = ttrain_cli.TrainMetrics(1000, "tok")
     m.calibrate((torch.nn.Linear(10, 10),), torch.device("cpu"))
     m.observe_step(0.001, 1.0)
     assert m.summary()["est_mfu"] == 0.0
-    m._peak_flops = ttrain_cli.PEAK_BF16_FLOPS
+    # On the H100 (its name monkeypatched in) the card table's peak.
+    monkeypatch.setattr(torch.cuda, "get_device_name",
+                        lambda device=None: cards.H100_SXM.name)
+    m.calibrate((torch.nn.Linear(10, 10),), torch.device("cuda", 0))
+    peak = cards.H100_SXM.bf16_tflops * 1e12
     m.observe_step(0.001, 1.0)
-    want = 6.0 * 110 * 1000 / 0.001 / ttrain_cli.PEAK_BF16_FLOPS
+    want = 6.0 * 110 * 1000 / 0.001 / peak
     assert m.summary()["est_mfu"] == round(want, 5)
 
 
