@@ -54,7 +54,9 @@ on that model against dense generate and the paged engine), serve,
 serve_logits (prefill logits
 through the kernel vs plain attention), serve_paged (the paged engine
 behind the server: shared prefixes and a long prompt prefilled between
-decode chunks), spec_small_parity (a tiny f32 engine's tokens with
+decode chunks; ``--health-log`` holds JAX's ready line after warmup and
+the event stream one ``warmup_done`` record with JAX's attrs),
+spec_small_parity (a tiny f32 engine's tokens with
 speculate ngram and draft equal to off), paged_graph_parity (the graphed
 decode chunk against the eager one on the full-width model), serve_spec
 (speculative decoding, ngram, off and draft, on the full-width paged
@@ -95,7 +97,18 @@ train_cli, train_cli_models (mnist, resnet, bert and the transformer with
 4 experts through ``train_cli.main``: the JAX CLI's result keys),
 train_recovery (BERT through ``train_cli``: a preemption at step 3, one
 restart from step 2, the end state against an unfaulted run's; then a
-corrupted newest checkpoint quarantined with one fallback), hostbench (the port's host-loop bench on
+corrupted newest checkpoint quarantined with one fallback), ring (ring
+attention's kernel half at Llama-3-8B's attention widths, S 32768, sp 2
+and sp 4: every rank's forward and backward ring through
+``parallel/ring_attention.py``'s own ring loops in this process, an
+in-process transport in place of NCCL, sp² launches of each flash kernel,
+the assembled out, lse, dq, dk and dv held to the whole-sequence flash
+kernels by ``parallel/world_smoke.py``'s checks, every shard call of the held ranks,
+a wholly-future shard among them, held to its plain version, each step
+timed beside the whole sequence), train_dist (``train_cli --distributed``
+as a world of one over NCCL through the env contract: the bootstrap
+marker, ``n_devices`` 1, every step's loss equal to the same run without
+``--distributed``), hostbench (the port's host-loop bench on
 this machine's CPU: host microseconds per token with fake device seams,
 paged, dense and paged with ngram; a host measurement, not the card's),
 device_bench (the single-card qualification rows of
@@ -298,6 +311,12 @@ WORK = {
     "dkv": (8, 2, 4, 2),
     "bwd": (10, 4, 4, 1),
 }
+# What a batch row must still write when none of its queries sees a key
+# (a ring's wholly-future shard): (q-shaped, k-shaped over all Sk, f32
+# rows of Sq) outputs; its inputs are not needed, as the kernels skip
+# them (out 0, lse -1e30, zero gradients).
+WRITES = {"fwd": (1, 0, 1), "dq": (1, 0, 0), "dkv": (0, 2, 0),
+          "bwd": (1, 2, 0)}
 
 
 def flash_bound(batch, num_q_heads, num_kv_heads, seq_q, seq_k, d, dtype,
@@ -306,7 +325,8 @@ def flash_bound(batch, num_q_heads, num_kv_heads, seq_q, seq_k, d, dtype,
     larger of FLOPs / peak and bytes / HBM rate. K and V are read only
     below kv_len and, when causal, up to the last query's diagonal.
     ``q_base`` may be a list of one per batch row (the device base): the
-    rows' work and bytes are summed."""
+    rows' work and bytes are summed. A row whose queries see no key moves
+    only its outputs (WRITES)."""
     flops_per_d, q_like, k_like, rows = WORK[kind]
     elt = 2 if dtype == "bfloat16" else 4
     q_bases = q_base if isinstance(q_base, (list, tuple)) else \
@@ -317,6 +337,12 @@ def flash_bound(batch, num_q_heads, num_kv_heads, seq_q, seq_k, d, dtype,
         pairs = num_q_heads * attended_pairs(seq_q, seq_k, causal, qb,
                                              k_base, kv_len)
         flops += flops_per_d * d * pairs
+        if pairs == 0:
+            q_out, k_out, rows_out = WRITES[kind]
+            nbytes += elt * d * (q_out * num_q_heads * seq_q
+                                 + k_out * num_kv_heads * seq_k)
+            nbytes += 4 * rows_out * num_q_heads * seq_q
+            continue
         keys_read = max(0, min(kv, qb - k_base + seq_q)) if causal else kv
         nbytes += elt * d * (q_like * num_q_heads * seq_q + num_kv_heads
                              * (2 * keys_read + (k_like - 2) * seq_k))
@@ -397,6 +423,17 @@ def host_us(fn, torch, calls=20):
     return elapsed / calls * 1e6
 
 
+# Ring attention's shard calls at S 32768 beyond the diagonal ones
+# (causal_8192 and causal_16384 at bases 0): a whole past shard of sp 4
+# and sp 2 (every key visible) and a wholly-future shard (no key visible).
+RING_SHARD_CASES = (
+    ("ring_past_s8192", 1, 8192, 8192, True, 8192, 0, None, 32, 8, 128,
+     "bfloat16"),
+    ("ring_past_s16384", 1, 16384, 16384, True, 16384, 0, None, 32, 8, 128,
+     "bfloat16"),
+    ("ring_future_s8192", 1, 8192, 8192, True, 0, 8192, None, 32, 8, 128,
+     "bfloat16"),
+)
 BERT_LARGE_CASE = ("bert_large_s512", 8, 512, 512, False, 0, 0, None, 16,
                    16, 64, "bfloat16")
 # device_bench's bench_flash_long_context: S 32768, B 1, 4 q heads over 2
@@ -417,6 +454,7 @@ KERNEL_CASES = [
     # Past 8192 keys the JAX package switches to its streaming forward.
     ("causal_16384", 1, 16384, 16384, True, 0, 0, None, 32, 8, 128,
      "bfloat16"),
+    *RING_SHARD_CASES,
     ("q_base_1536", 1, 512, 2048, True, 1536, 0, None, 32, 8, 128,
      "bfloat16"),
     ("noncausal_kv_len", 1, 300, 1000, False, 0, 0, 777, 32, 8, 128,
@@ -592,6 +630,7 @@ BWD_CASES = [
     ("causal_8192", 1, 8192, 8192, True, 0, 0, None, 32, 8, 128, "bfloat16"),
     ("causal_16384", 1, 16384, 16384, True, 0, 0, None, 32, 8, 128,
      "bfloat16"),
+    *RING_SHARD_CASES,
     ("q_base_1536", 1, 512, 2048, True, 1536, 0, None, 32, 8, 128,
      "bfloat16"),
     ("noncausal_kv_len", 1, 300, 1000, False, 0, 0, 777, 32, 8, 128,
@@ -628,19 +667,15 @@ def _rel_err(got, ref):
 
 def grad_errors(got, ref):
     """(largest |got - ref|, ||got - ref|| / ||ref||, worst row) of one
-    gradient. Rows lie along the last axis; the worst row is the largest
-    ||got_r - ref_r|| / (||ref_r|| + m), m the median norm of the nonzero
-    rows of ref: each row is held to its own scale, and a row whose
-    gradient cancels to about 0 (a causal first query) to the typical
-    one."""
-    got, ref = got.float(), ref.float()
-    diff = got - ref
-    rel_l2 = (diff.norm() / ref.norm().clamp_min(1e-30)).item()
-    rows = ref.norm(dim=-1)
-    nonzero = rows[rows > 0]
-    typical = nonzero.median() if nonzero.numel() else rows.new_zeros(())
-    worst = (diff.norm(dim=-1) / (rows + typical).clamp_min(1e-30)).max()
-    return diff.abs().max().item(), rel_l2, worst.item()
+    gradient: ``parallel/world_smoke.py``'s ``rel_errors``, the measure
+    the assembled ring is held by too. Rows lie along the last axis; the
+    worst row is the largest ||got_r - ref_r|| / (||ref_r|| + m), m the
+    median norm of the nonzero rows of ref: each row is held to its own
+    scale, and a row whose gradient cancels to about 0 (a causal first
+    query) to the typical one."""
+    from container_engine_accelerators_tpu_torch.parallel import world_smoke
+
+    return world_smoke.rel_errors(got, ref)
 
 
 def run_bwd_case(case, torch, attention, _ext, gen, serving_graphs):
@@ -1109,15 +1144,24 @@ def serve_paged(torch, np, tf, serve_cli, attention, card, model):
     arrives and prefills in 512-token segments between their decode
     chunks. Every prefill segment runs the flash kernel once per layer.
     Each final segment's logits are kept (on the card) and held, after the
-    traffic, against the dense ``tf.forward`` on the same context.
+    traffic, against the dense ``tf.forward`` on the same context. The
+    server runs with ``--health-log``: once warmup succeeds the file holds
+    JAX's ready line and nothing before, and the engine's event stream one
+    ``warmup_done`` record with JAX's attrs equal to the warmup summary.
     Returns the kernel's launches."""
+    import tempfile
+
+    from container_engine_accelerators_tpu_torch.obs import events as obs_events
+
     cfg = model.cfg
     vocab = cfg.vocab_size
     torch.cuda.reset_peak_memory_stats()
     engine = serve_cli.ContinuousEngine(
         model, max_slots=8, chunk=32, prefill_chunk=512, kv_block_size=16,
-        kv_cache="paged",
+        kv_cache="paged", events=obs_events.EventStream("serve"),
     )
+    health_dir = tempfile.TemporaryDirectory(prefix="serve_paged-")
+    health_log = os.path.join(health_dir.name, "health.log")
     # Each prefill call: (offset, segment length, true_pos, chunks
     # dispatched before it); each final segment's (tokens, logits).
     segments, finals = [], []
@@ -1151,12 +1195,14 @@ def serve_paged(torch, np, tf, serve_cli, attention, card, model):
     attention.flash_dq_launches = attention.flash_dkv_launches = 0
     t0 = time.perf_counter()
     server, state = serve_cli.start_server(engine, port=0, host="127.0.0.1",
-                                           warmup_mode="all")
+                                           warmup_mode="all",
+                                           health_log=health_log)
     try:
         serve_cli.wait_ready(state, timeout=600)
         ready_s = time.perf_counter() - t0
         port = server.server_address[1]
         warm = state["warmup"]
+        health = _held_health(health_log, engine, warm, "serve_paged")
         at_ready = {"launches": attention.flash_fwd_launches,
                     "n_prefills": engine.stats()["n_prefills"],
                     "steps_done": engine.stats()["steps_done"],
@@ -1186,6 +1232,7 @@ def serve_paged(torch, np, tf, serve_cli, attention, card, model):
         burst_s = time.perf_counter() - t0
     finally:
         server.shutdown()
+        health_dir.cleanup()
     launches = attention.flash_fwd_launches
     other = attention.flash_dq_launches + attention.flash_dkv_launches
     stats, kvs = engine.stats(), engine.kv_stats()
@@ -1262,6 +1309,7 @@ def serve_paged(torch, np, tf, serve_cli, attention, card, model):
         "kv": kvs, "logits": logit_rows, "tol": SERVE_LOGITS_ATOL,
         "segment_witness": witness,
         "ready_s": ready_s, "warmup": warm, "warm_segments": warm_segments,
+        "health_log": health,
         "graph_captures": graph_stats["graph_captures"],
         "graph_replays": graph_stats["graph_replays"],
         "graph_capture_s": graph_stats["graph_capture_s"],
@@ -1270,6 +1318,34 @@ def serve_paged(torch, np, tf, serve_cli, attention, card, model):
         "max_memory_allocated_gb": peak_gb,
     })
     return launches
+
+
+# The attrs of JAX's warmup_done record (warmstart/warmup.py emit_done).
+WARMUP_DONE_ATTRS = ("tasks", "compiled", "skipped", "dropped", "dur_s",
+                     "cache_hits", "cache_misses")
+
+
+def _held_health(path, engine, summary, phase):
+    """The ready line in ``path`` (the server's ``--health-log``, read
+    once ``/healthz`` is ready: the line is written just after) and the
+    engine's one ``warmup_done`` record, whose attrs must equal the
+    warmup summary's. Returns both."""
+    deadline = time.monotonic() + 10
+    while not (os.path.exists(path) and open(path).read()):
+        if time.monotonic() > deadline:
+            fail(f"{phase}: no ready line in --health-log after ready")
+        time.sleep(0.01)
+    text = open(path).read()
+    if not re.fullmatch(r"tpu-serving ready warmup_s=\d+\.\d\n", text):
+        fail(f"{phase}: --health-log holds {text!r}, want one JAX ready "
+             f"line")
+    done = engine.events.events("warmup_done")
+    if len(done) != 1 or any(done[0].get(k) != summary[k]
+                             for k in WARMUP_DONE_ATTRS):
+        fail(f"{phase}: warmup_done records {done}, want one with the "
+             f"summary's {WARMUP_DONE_ATTRS}: {summary}")
+    return {"line": text.strip(),
+            "warmup_done": {k: done[0][k] for k in WARMUP_DONE_ATTRS}}
 
 
 def segment_witness(torch, tf, attention, model, engine, prompt, offset,
@@ -4253,6 +4329,258 @@ def train_recovery(torch, train_cli, attention):
     return tuple(a - b for a, b in zip(_flash_counts(attention), before))
 
 
+# -- ring attention's kernel half and the distributed CLI ---------------------
+
+# The ring phase: Llama-3-8B's attention widths at S 32768, bf16, causal,
+# every rank's steps of a ring of RING_SPS ranks run in this process
+# through parallel/ring_attention.py's own step functions.
+RING_SEQ = 32768
+RING_SPS = (2, 4)
+RING_HEADS = (32, 8)
+RING_D = 128
+# The assembled ring is held to the whole-sequence flash kernels by
+# parallel/world_smoke.py's ring_errors under its RING_TOL, the limits
+# the four-card ring is held to.
+# The ranks of each ring whose every shard call is held to its plain
+# version: at sp 2 both (a diagonal, a past and a wholly-future shard), at
+# sp 4 rank 1 (diagonal, past, two wholly-future shards).
+RING_HELD_RANKS = {2: (0, 1), 4: (1,)}
+
+
+def _held_shard_call(torch, attention, q, k, v, out, lse, g, delta, q_base,
+                     k_base, sm_scale):
+    """One rank's shard call, kernel against plain version at the shard's
+    bases (forward, then the backward at the ring's global lse and δ):
+    the errors, and the wholly-future shard's exact zeros."""
+    kw = dict(causal=True, sm_scale=sm_scale, q_base=q_base, k_base=k_base)
+    o_k, lse_k = attention.flash_fwd(q, k, v, **kw)
+    o_p, lse_p = attention.flash_fwd_reference(q, k, v, **kw)
+    tol = TOL["bfloat16"]
+    diff = (o_k.float() - o_p.float()).abs()
+    fwd_err = diff.max().item()
+    lse_err = (lse_k - lse_p).abs().max().item()
+    ok = bool((diff <= tol["out_atol"] + tol["out_rtol"]
+               * o_p.float().abs()).all()) and lse_err <= tol["lse_atol"]
+    got = attention.flash_bwd(q, k, v, out, lse, g, delta=delta, **kw)
+    ref = attention.flash_bwd_reference(q, k, v, out, lse, g, delta=delta,
+                                        **kw)
+    errs = {name: grad_errors(a, b) for name, a, b in zip(
+        ("dq", "dk", "dv"), got, ref)}
+    btol = BWD_TOL["bfloat16"]
+    for name, (_, rel_l2, row) in errs.items():
+        if ref[("dq", "dk", "dv").index(name)].abs().max() == 0:
+            continue  # the wholly-future shard: held exactly below
+        ok = ok and rel_l2 <= btol["rel_l2"] and row <= btol["row"]
+    future = k_base >= q_base + q.shape[2]
+    if future:
+        ok = ok and not o_k.any() and bool((lse_k == -1e30).all()) and \
+            not any(t.any() for t in got)
+    return ok, {"future": future, "max_abs_err_out": fwd_err,
+                "max_abs_err_lse": lse_err,
+                **{f"{n}_max_abs_err": e[0] for n, e in errs.items()},
+                **{f"{n}_rel_l2": e[1] for n, e in errs.items()},
+                **{f"{n}_worst_row": e[2] for n, e in errs.items()}}
+
+
+def ring_phase(torch, attention, ra, ws, card, device="cuda"):
+    """The ring's kernel half at full width: for each ring size, every
+    rank's forward and backward ring through the module's own loops
+    (``ring_flash_forward``/``ring_flash_backward`` over an
+    ``InProcess`` transport: the same steps, combine, dk/dv travel and
+    casts as between processes; the counts zeroed before and read after:
+    sp² launches of each kernel), the assembled out, lse, dq, dk and dv
+    held to the whole-sequence flash forward and backward by
+    ``world_smoke.ring_errors``, the held ranks' shard
+    calls held to their plain versions, and each step timed (its kernel
+    and the f32 combine or accumulate) beside the whole-sequence
+    kernels. Returns the launches (fwd, dq, dk/dv) and the per-ring
+    rows."""
+    hq, hkv = RING_HEADS
+    gen = torch.Generator(device=device).manual_seed(16)
+
+    def rand(h):
+        return torch.randn(1, h, RING_SEQ, RING_D, generator=gen,
+                           device=device).to(torch.bfloat16)
+
+    q, k, v, g = rand(hq), rand(hkv), rand(hkv), rand(hq)
+    sm_scale = RING_D ** -0.5
+    whole_kw = dict(causal=True, sm_scale=sm_scale)
+    out_w, lse_w = attention.flash_fwd(q, k, v, **whole_kw)
+    grads_w = attention.flash_bwd(q, k, v, out_w, lse_w, g, **whole_kw)
+    whole_ms = {
+        "fwd": time_ms(lambda: attention.flash_fwd(q, k, v, **whole_kw),
+                       torch, budget_ms=100),
+        "bwd": time_ms(lambda: attention.flash_bwd(
+            q, k, v, out_w, lse_w, g, **whole_kw), torch, budget_ms=100),
+    }
+    whole_bound = {kind: flash_bound(1, hq, hkv, RING_SEQ, RING_SEQ, RING_D,
+                                     "bfloat16", True, kind=kind)[0]
+                   for kind in ("fwd", "bwd")}
+    launches = [0, 0, 0]
+    rows = {}
+    for sp in RING_SPS:
+        sl = RING_SEQ // sp
+        qs, ks, vs, gs = ([t.contiguous() for t in x.split(sl, dim=2)]
+                          for x in (q, k, v, g))
+        transport = ra.InProcess(sp)
+        _zero_flash_counts(attention)
+        outs, lses = ra.ring_flash_forward(qs, ks, vs, transport, True,
+                                           sm_scale)
+        dqs, dks, dvs = ra.ring_flash_backward(qs, ks, vs, outs, lses, gs,
+                                               transport, True, sm_scale)
+        torch.cuda.synchronize()
+        counts = _flash_counts(attention)
+        if counts != (sp * sp,) * 3:
+            fail(f"ring sp {sp}: launches {counts}, want {sp * sp} of each "
+                 f"kernel (every rank, every step)")
+        launches = [a + b for a, b in zip(launches, counts)]
+        got = {"out": torch.cat(outs, 2), "lse": torch.cat(lses, 2),
+               "dq": torch.cat(dqs, 2), "dk": torch.cat(dks, 2),
+               "dv": torch.cat(dvs, 2)}
+        want = {"out": out_w, "lse": lse_w, **dict(zip(("dq", "dk", "dv"),
+                                                       grads_w))}
+        errs, ok = ws.ring_errors(got, want)
+        del got
+        deltas = [ra.delta_of(o, g) for o, g in zip(outs, gs)]
+        held = {}
+        for r in RING_HELD_RANKS[sp]:
+            for t in range(sp):
+                src = (r - t) % sp
+                good, held[f"r{r}_t{t}_src{src}"] = _held_shard_call(
+                    torch, attention, qs[r], ks[src], vs[src], outs[r],
+                    lses[r], gs[r], deltas[r], r * sl, src * sl, sm_scale)
+                if not good:
+                    fail(f"ring sp {sp}: rank {r} step {t} (shard {src}) "
+                         f"disagrees with its plain version: "
+                         f"{held[f'r{r}_t{t}_src{src}']}")
+                _free(torch)
+        steps = []
+        for r in range(sp):
+            for t in range(sp):
+                src = (r - t) % sp
+                kw = dict(causal=True, sm_scale=sm_scale, q_base=r * sl,
+                          k_base=src * sl)
+                acc = [torch.zeros(x.shape, dtype=torch.float32,
+                                   device=device)
+                       for x in (qs[r], ks[src], vs[src])]
+                out_f = outs[r].float()
+                steps.append({
+                    "rank": r, "step": t, "shard": src,
+                    "fwd_ms": time_ms(lambda: ra.fwd_step(
+                        qs[r], ks[src], vs[src], out_f, lses[r], **kw),
+                        torch, budget_ms=100),
+                    "bwd_ms": time_ms(lambda: ra.bwd_step(
+                        qs[r], ks[src], vs[src], outs[r], lses[r], gs[r],
+                        deltas[r], *acc, **kw), torch, budget_ms=100),
+                    "fwd_bound_ms": flash_bound(
+                        1, hq, hkv, sl, sl, RING_D, "bfloat16", True,
+                        r * sl, src * sl, kind="fwd")[0],
+                    "bwd_bound_ms": flash_bound(
+                        1, hq, hkv, sl, sl, RING_D, "bfloat16", True,
+                        r * sl, src * sl, kind="bwd")[0],
+                })
+        per_rank = {
+            kind: [sum(s[f"{kind}_ms"] for s in steps if s["rank"] == r)
+                   for r in range(sp)] for kind in ("fwd", "bwd")}
+        rows[f"sp{sp}"] = {
+            "shard": sl, "launches": counts, "errors": errs,
+            "tol": ws.RING_TOL, "held": held, "steps": steps,
+            "rank_ms": per_rank,
+            "ring_ms": {kind: max(v) for kind, v in per_rank.items()},
+        }
+        emit({"phase": "ring", **card, "sp": sp, "seq": RING_SEQ,
+              "heads": RING_HEADS, "d": RING_D, "dtype": "bfloat16",
+              "whole_ms": whole_ms, "whole_bound_ms": whole_bound,
+              **rows[f"sp{sp}"]})
+        if not ok:
+            fail(f"ring sp {sp}: the assembled ring disagrees with the "
+                 f"whole-sequence flash: {errs}")
+        del outs, lses, dqs, dks, dvs, deltas, qs, ks, vs, gs
+        _free(torch)
+    return tuple(launches), rows
+
+
+# train_dist: a world of one over NCCL through the env contract, against
+# the same run without --distributed. Two layers at d_model 4096 (32
+# heads, train_cli's 16 kv heads), S 4096.
+TRAIN_DIST_ARGV = ["--model", "transformer", "--d-model", "4096",
+                   "--n-heads", "32", "--n-layers", "2", "--seq-len", "4096",
+                   "--vocab-size", "32000", "--steps", "3"]
+# Runs train_cli.main in a process of its own and prints its kernel
+# launches after the CLI's result line.
+_TRAIN_DIST_SNIPPET = (
+    "import json, sys\n"
+    "from container_engine_accelerators_tpu_torch.models import train_cli\n"
+    "from container_engine_accelerators_tpu_torch.ops import attention\n"
+    "rc = train_cli.main(sys.argv[1:])\n"
+    "print(json.dumps({'launches': [attention.flash_fwd_launches, "
+    "attention.flash_dq_launches, attention.flash_dkv_launches]}))\n"
+    "sys.exit(rc)\n")
+
+
+def _train_cli_process(argv, env, timeout=600):
+    """(rc, result, launches, stderr) of train_cli in a subprocess."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _TRAIN_DIST_SNIPPET, *argv], env=env,
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=timeout)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or len(lines) < 2:
+        fail(f"train_dist: train_cli {' '.join(argv)} exited "
+             f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    return (json.loads(lines[-2]), tuple(json.loads(lines[-1])["launches"]),
+            proc.stderr)
+
+
+def train_dist_phase(card):
+    """``train_cli --distributed`` as a world of one on NCCL, from the
+    env contract (TPU_WORKER_ID 0, TPU_WORKER_HOSTNAMES localhost, a free
+    TPU_COORDINATOR_PORT, TPU_HEALTH_CHECK_LOG_FILE): the marker, n_devices
+    1, and every step's loss equal to the same run without
+    --distributed. Returns the distributed run's launches."""
+    import tempfile
+
+    base = {k: v for k, v in os.environ.items()
+            if not k.startswith(("TPU_", "MEGASCALE_", "LOCAL_"))}
+    with tempfile.TemporaryDirectory(prefix="train_dist-") as work:
+        marker = os.path.join(work, "health.log")
+        runs = {}
+        for name, extra in (("plain", {}), ("distributed", {
+                "TPU_WORKER_ID": "0", "TPU_WORKER_HOSTNAMES": "localhost",
+                "TPU_COORDINATOR_PORT": str(_free_port()),
+                "TPU_HEALTH_CHECK_LOG_FILE": marker})):
+            events = os.path.join(work, f"{name}.jsonl")
+            flags = ["--distributed"] if extra else []
+            t0 = time.perf_counter()
+            result, launches, _ = _train_cli_process(
+                [*TRAIN_DIST_ARGV, *flags, "--event-log", events],
+                {**base, **extra})
+            with open(events) as f:
+                losses = [r["loss"] for r in map(json.loads, f)
+                          if r.get("kind") == "train_step"]
+            runs[name] = {"result": result, "launches": launches,
+                          "losses": losses,
+                          "process_s": time.perf_counter() - t0}
+        text = open(marker).read() if os.path.exists(marker) else ""
+    dist, plain = runs["distributed"], runs["plain"]
+    layers, steps = 2, 3
+    want = (2 * layers * steps, layers * steps, layers * steps)
+    emit({"phase": "train_dist", **card, "marker": text.strip(),
+          "argv": TRAIN_DIST_ARGV, "want_launches": want, **runs})
+    if text != "TPU_BOOTSTRAP_OK rank=0 world=1\n":
+        fail(f"train_dist: the marker file holds {text!r}")
+    if dist["result"]["n_devices"] != 1 or len(dist["losses"]) != steps:
+        fail(f"train_dist: n_devices {dist['result']['n_devices']}, "
+             f"{len(dist['losses'])} step losses")
+    if dist["losses"] != plain["losses"]:
+        fail(f"train_dist: losses {dist['losses']} with --distributed, "
+             f"{plain['losses']} without")
+    if dist["launches"] != want or plain["launches"] != want:
+        fail(f"train_dist: launches {dist['launches']} / "
+             f"{plain['launches']}, want {want}")
+    return dist["launches"]
+
+
 # The single-card qualification rows (collectives/device_bench.py) in the
 # order the JAX package's bench.py runs them on one chip, with its
 # arguments, plus what it leaves out: the int8 decode row and the
@@ -4608,6 +4936,10 @@ def main():
     from container_engine_accelerators_tpu_torch.ops import _ext, attention
     from container_engine_accelerators_tpu_torch.ops import int8_matmul
     from container_engine_accelerators_tpu_torch.ops import stream
+    from container_engine_accelerators_tpu_torch.parallel import (
+        ring_attention,
+        world_smoke,
+    )
 
     # Plain versions compute in full f32 (no TF32), as the kernels do.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4685,6 +5017,10 @@ def main():
     _zero_flash_counts(attention)
     recovery_launches = train_recovery(torch, train_cli, attention)
     _free(torch)
+    ring_launches, _ = ring_phase(torch, attention, ring_attention, world_smoke,
+                                  card)
+    _free(torch)
+    train_dist_launches = train_dist_phase(card)
     hostbench_phase()
     bench_launches, int8_decodes = device_bench_phase(
         torch, db, attention, int8_matmul, stream, card)
@@ -4697,6 +5033,7 @@ def main():
     training = {"train": (fwd_train, dq_train, dkv_train),
                 "train_bert": bert_launches, "train_cli": cli_launches,
                 "train_recovery": recovery_launches,
+                "ring": ring_launches, "train_dist": train_dist_launches,
                 "device_bench": tuple(bench_launches[k] for k in (
                     "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))}
     int8_launches["device_bench"] = bench_launches["int8_mm"]

@@ -11,7 +11,8 @@ requests migrate off their slots and re-prefill on fresh ones instead
 of riding a wedged chip to a timeout
 (``tpu_serving_requests_migrated_total``). ``FleetReactor`` (cordon and
 gang drain through the scheduler and the Kubernetes API) and the
-reactor CLI are not ported yet (ROADMAP.md).
+reactor CLI need no copy: they are jax-free control plane that touches
+no engine, so the JAX package's run unchanged beside port replicas.
 """
 
 # The device plugin's health states (kubeletapi's constants).

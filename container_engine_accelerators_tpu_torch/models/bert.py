@@ -1,8 +1,7 @@
 # Copyright 2026 The TPU Accelerator Stack Authors.
 # SPDX-License-Identifier: Apache-2.0
 """BERT-style bidirectional encoder with masked-language-model training,
-the PyTorch port of ``container_engine_accelerators_tpu/models/bert.py``
-on one device.
+the PyTorch port of ``container_engine_accelerators_tpu/models/bert.py``.
 
 The same model: learned position and segment embeddings, post-LN
 residuals with LayerNorm (f32 statistics, scale and bias in f32, one cast
@@ -16,7 +15,11 @@ device, as JAX does. Parameters are named after the JAX pytree's keys,
 its stacked layer dim a ``ModuleList``, so ``models/weights.py`` bridges
 JAX's weights leaf for leaf.
 
-Not ported: the dp×tp shardings (``param_shardings``).
+Data parallel: ``make_train_step(mesh=...)`` runs this rank's rows of
+the global batch and sums the gradients over the world
+(``parallel/data_parallel.py``); the parameters stay replicated, which
+JAX's dp sharding computes the same numbers as. Not ported: the tp
+shardings of ``param_shardings`` (ROADMAP.md Queue 1 item 5).
 """
 
 import dataclasses
@@ -34,6 +37,7 @@ from container_engine_accelerators_tpu_torch.ops.attention import (
     NEG_INF,
     flash_attention,
 )
+from container_engine_accelerators_tpu_torch.parallel import data_parallel
 
 MASK_TOKEN = 1  # vocab slot reserved for [MASK] in synthetic batches
 
@@ -217,12 +221,14 @@ def mlm_logits(model, hidden):
     return t.float() @ model.embed.T.float() + m.out_bias
 
 
-def loss_fn(model, batch, attn_impl="flash"):
+def loss_fn(model, batch, attn_impl="flash", denom=None):
     """Masked-LM cross entropy on the masked positions only. batch:
     tokens (B, S) with [MASK] already substituted, labels (B, S) the
     original tokens, mlm_mask (B, S) 1.0 where masked, and optionally
     segment_ids and pad_mask (tensors or arrays, moved to the model's
-    device)."""
+    device). ``denom``: what the masked sum is divided by, by default
+    this batch's masked count (at least 1); a rank of a data-parallel
+    step passes the global batch's."""
     dev = model.device
 
     def get(key):
@@ -234,7 +240,9 @@ def loss_fn(model, batch, attn_impl="flash"):
     logp = torch.log_softmax(mlm_logits(model, hidden), dim=-1)
     ll = torch.gather(logp, -1, get("labels")[..., None])[..., 0]
     mask = get("mlm_mask").float()
-    return -(ll * mask).sum() / mask.sum().clamp_min(1.0)
+    if denom is None:
+        denom = mask.sum().clamp_min(1.0)
+    return -(ll * mask).sum() / denom
 
 
 def adamw(params):
@@ -244,10 +252,24 @@ def adamw(params):
                              weight_decay=0.01)
 
 
-def make_train_step(cfg, optimizer=None, device="cuda"):
+def local_loss(model, batch, mesh):
+    """This rank's share of the global batch's loss: its rows' masked sum
+    over the GLOBAL masked count, so the ranks' shares sum to the global
+    loss. No mesh: the loss."""
+    if mesh is None:
+        return loss_fn(model, batch)
+    mask = torch.as_tensor(batch["mlm_mask"], device=model.device).float()
+    local = data_parallel.shard_batch(batch, mesh, model.device)
+    return loss_fn(model, local, denom=mask.sum().clamp_min(1.0))
+
+
+def make_train_step(cfg, optimizer=None, device="cuda", mesh=None):
     """Returns (init_state, train_step); state = (model, optimizer). No
     remat, as in JAX. ``init_state(seed)`` draws random weights on
-    ``device``; ``init_state(model=m)`` starts from given ones."""
+    ``device``; ``init_state(model=m)`` starts from given ones. ``mesh``
+    (a DeviceMesh with a "dp" axis): each step takes the GLOBAL batch,
+    runs this rank's rows and sums the gradients and the loss over the
+    world (``parallel/data_parallel.train_step``)."""
     device = resolve_device(device)
     make_optimizer = optimizer or adamw
 
@@ -259,11 +281,9 @@ def make_train_step(cfg, optimizer=None, device="cuda"):
     def train_step(state, batch):
         """One step in place; returns (state, loss)."""
         model, opt = state
-        opt.zero_grad(set_to_none=True)
-        loss = loss_fn(model, batch)
-        loss.backward()
-        opt.step()
-        return state, loss.detach()
+        loss = data_parallel.train_step(
+            model, opt, lambda: local_loss(model, batch, mesh), mesh)
+        return state, loss
 
     return init_state, train_step
 

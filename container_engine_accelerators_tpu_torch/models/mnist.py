@@ -1,7 +1,8 @@
 # Copyright 2026 The TPU Accelerator Stack Authors.
 # SPDX-License-Identifier: Apache-2.0
 """MNIST CNN, the PyTorch port of
-``container_engine_accelerators_tpu/models/mnist.py`` on one device.
+``container_engine_accelerators_tpu/models/mnist.py``: one device, or
+data-parallel over a mesh's "dp" axis (``make_train_step(mesh=...)``).
 
 f32: two SAME 3×3 convs, each followed by ReLU and a 2×2 max pool, then
 two dense layers. Images arrive NHWC (B, 28, 28, 1), as in JAX; the
@@ -19,6 +20,7 @@ from torch import nn
 from container_engine_accelerators_tpu_torch.models.transformer import (
     resolve_device,
 )
+from container_engine_accelerators_tpu_torch.parallel import data_parallel
 
 
 class Mnist(nn.Module):
@@ -83,8 +85,11 @@ def sgd(params):
     return torch.optim.SGD(params, lr=0.05, momentum=0.9)
 
 
-def make_train_step(optimizer=None, device="cuda"):
-    """Returns (init_state, train_step); state = (model, optimizer)."""
+def make_train_step(optimizer=None, device="cuda", mesh=None):
+    """Returns (init_state, train_step); state = (model, optimizer).
+    ``mesh`` (a DeviceMesh with a "dp" axis): each step takes the GLOBAL
+    batch, runs this rank's rows and sums the gradients and the loss over
+    the world (``parallel/data_parallel.train_step``)."""
     device = resolve_device(device)
     make_optimizer = optimizer or sgd
 
@@ -95,11 +100,10 @@ def make_train_step(optimizer=None, device="cuda"):
 
     def train_step(state, batch):
         model, opt = state
-        opt.zero_grad(set_to_none=True)
-        loss = loss_fn(model, batch)
-        loss.backward()
-        opt.step()
-        return state, loss.detach()
+        loss = data_parallel.train_step(
+            model, opt, lambda: data_parallel.mean_loss_share(
+                loss_fn, model, batch, mesh), mesh)
+        return state, loss
 
     return init_state, train_step
 

@@ -1,8 +1,7 @@
 # Copyright 2026 The TPU Accelerator Stack Authors.
 # SPDX-License-Identifier: Apache-2.0
 """ResNet with bottleneck blocks, the PyTorch port of
-``container_engine_accelerators_tpu/models/resnet.py`` (flax linen) on
-one device.
+``container_engine_accelerators_tpu/models/resnet.py`` (flax linen).
 
 What flax does and torch's own layers do not, written out here:
 
@@ -27,7 +26,12 @@ buffers ``mean`` and ``var``), so ``models/weights.py`` bridges a
 Images arrive NHWC, as in JAX. Computation runs in the model's ``dtype``
 with f32 parameters and statistics, as flax's ``dtype`` does.
 
-Not ported: the data-parallel mesh placement.
+Data parallel (``make_train_step(mesh=...)``): each rank runs its rows
+of the global batch, and every BatchNorm sums its per-channel Σx, Σx²
+over the mesh's "dp" group before the statistics, through the
+autograd-aware ``torch.distributed.nn.functional.all_reduce``, so they
+are the global batch's, as flax's mean over the dp-sharded array gives
+them, and the backward carries the other ranks' terms.
 """
 
 import math
@@ -39,6 +43,7 @@ from torch import nn
 from container_engine_accelerators_tpu_torch.models.transformer import (
     resolve_device,
 )
+from container_engine_accelerators_tpu_torch.parallel import data_parallel
 
 BN_MOMENTUM = 0.99
 BN_EPS = 1e-5
@@ -81,13 +86,27 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(c, device=device))
         self.register_buffer("mean", torch.zeros(c, device=device))
         self.register_buffer("var", torch.ones(c, device=device))
+        # The process group the batch is split over (None: one device).
+        self.group = None
 
     def forward(self, x):
         """x (N, C, H, W); updates ``mean``/``var`` in place. Statistics
-        in at least f32, as flax promotes them."""
+        in at least f32, as flax promotes them; with a ``group``, over the
+        group's whole batch (every rank holds as many rows)."""
         x32 = x.to(torch.promote_types(x.dtype, torch.float32))
-        mu = x32.mean(dim=(0, 2, 3))
-        var = (x32.square().mean(dim=(0, 2, 3)) - mu.square()).clamp_min(0.0)
+        if self.group is None:
+            mu = x32.mean(dim=(0, 2, 3))
+            mean_sq = x32.square().mean(dim=(0, 2, 3))
+        else:
+            import torch.distributed as dist
+            from torch.distributed.nn.functional import all_reduce
+
+            sums = all_reduce(torch.stack([x32.sum(dim=(0, 2, 3)),
+                                           x32.square().sum(dim=(0, 2, 3))]),
+                              group=self.group)
+            count = x32[:, 0].numel() * dist.get_world_size(self.group)
+            mu, mean_sq = sums[0] / count, sums[1] / count
+        var = (mean_sq - mu.square()).clamp_min(0.0)
         with torch.no_grad():
             self.mean.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * mu)
             self.var.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * var)
@@ -207,24 +226,33 @@ def sgd(params):
     return torch.optim.SGD(params, lr=0.1, momentum=0.9, nesterov=True)
 
 
-def make_train_step(build_model, optimizer=None):
+def make_train_step(build_model, optimizer=None, mesh=None):
     """Returns (init_state, train_step); state = (model, optimizer).
     ``build_model()`` makes an unfilled ResNet (e.g. ``resnet18_ish``);
     the running statistics are the model's buffers, updated by each
-    step's forward as flax's ``mutable=["batch_stats"]`` returns them."""
+    step's forward as flax's ``mutable=["batch_stats"]`` returns them.
+    ``mesh`` (a DeviceMesh with a "dp" axis): each step takes the GLOBAL
+    batch and runs this rank's rows, every BatchNorm takes its statistics
+    over the dp group, and the gradients and the loss are summed over the
+    world (``parallel/data_parallel.train_step``)."""
     make_optimizer = optimizer or sgd
+    group = None
+    if data_parallel.axis(mesh, "dp")[1] > 1:
+        group = mesh.get_group("dp")
 
     def init_state(seed=0, model=None):
         if model is None:
             model = init_params(build_model(), seed=seed)
+        for module in model.modules():
+            if isinstance(module, BatchNorm):
+                module.group = group
         return model, make_optimizer(model.parameters())
 
     def train_step(state, batch):
         model, opt = state
-        opt.zero_grad(set_to_none=True)
-        loss = loss_fn(model, batch)
-        loss.backward()
-        opt.step()
-        return state, loss.detach()
+        loss = data_parallel.train_step(
+            model, opt, lambda: data_parallel.mean_loss_share(
+                loss_fn, model, batch, mesh), mesh)
+        return state, loss
 
     return init_state, train_step

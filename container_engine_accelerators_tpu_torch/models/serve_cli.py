@@ -41,8 +41,12 @@ is the hand-written dequantising kernel on the card, in the eager
 prefills and inside the captured decode and verify graphs alike.
 
 ``--warmup=all`` runs every prefill shape and captures every decode
-graph before ``/healthz`` flips ready (``warmstart/warmup.py``);
+graph before ``/healthz`` flips ready (``warmstart/warmup.py``; its
+``warmup_done`` record goes to ``--event-log``);
 ``--warmup=lazy`` (the default) captures a graph at its first chunk.
+Once warmup succeeds, ``--health-log`` (default
+``$HEALTH_CHECK_LOG_FILE``) gets JAX's ready line, ``tpu-serving ready
+warmup_s=<s>``, which the serving manifests' startupProbe greps for.
 
 Endpoints (the same JSON as the JAX server):
   GET  /healthz    200 once the warmup decode succeeded, 503 before,
@@ -120,8 +124,11 @@ whose next admission of that prompt reuses them instead of prefilling.
 The stream is JAX's byte for byte, so either package installs the
 other's; the install writes the pools in place.
 
-Not ported yet (ROADMAP.md): the multi-host link, tensor parallelism,
-and the fleet reactor (``faults/reactor.FleetReactor``). A model with
+Not ported yet (ROADMAP.md): the multi-host link and tensor
+parallelism. The fleet reactor (``faults/reactor.FleetReactor`` of the
+JAX package and its CLI) is jax-free control plane: it cordons nodes and
+evicts gangs through the Kubernetes API, touches no engine, and runs
+unchanged beside port replicas. A model with
 experts (``n_experts > 0``, which only training builds: the JAX server
 has no flag that reaches them) is refused by ``Model``, the engines and
 ``--quantize int8``.
@@ -195,6 +202,8 @@ from container_engine_accelerators_tpu_torch.warmstart import (
 )
 
 log = logging.getLogger("serve_cli")
+
+READY_LINE = "tpu-serving ready"
 
 # Continuous batching: default KV slots (concurrent requests), as in the
 # JAX server.
@@ -3064,19 +3073,23 @@ def make_handler(model, state, metrics=None):
     return Handler
 
 
-def warmup(model, state, mode="lazy"):
+def warmup(model, state, health_log, mode="lazy"):
     """Warm the model, then flip ready. ``mode="all"`` first runs a
     continuous engine's whole shape grid (``warmstart.warmup.warm_engine``:
-    every prefill shape, every decode graph captured) and keeps its
+    every prefill shape, every decode graph captured; its
+    ``warmup_done`` record on the engine's event stream) and keeps its
     summary in ``state["warmup"]``; ``"lazy"`` leaves each decode graph's
     capture to its first chunk. Either way one short request
     then runs end to end (through the engine when ``model`` is one; it
-    builds the CUDA kernels on first use)."""
+    builds the CUDA kernels on first use). Once it succeeds, JAX's ready
+    line is appended to ``health_log`` when set; a failed warmup writes
+    nothing."""
     try:
         t0 = time.perf_counter()
         if mode == "all":
             if isinstance(model, ContinuousEngine):
-                state["warmup"] = ws_warmup.warm_engine(model, mode=mode)
+                state["warmup"] = ws_warmup.warm_engine(
+                    model, mode=mode, events=model.events)
             else:
                 log.warning(
                     "--warmup=all needs --continuous-batching (only the "
@@ -3087,6 +3100,11 @@ def warmup(model, state, mode="lazy"):
         dt = time.perf_counter() - t0
         state["ready"] = True
         log.info("warmup decode done in %.1fs; serving ready", dt)
+        if health_log:
+            # Append-only: the startupProbe greps for the ready line
+            # (demo/serving/transformer-serving.yaml).
+            with open(health_log, "a") as f:
+                f.write(f"{READY_LINE} warmup_s={dt:.1f}\n")
     except Exception as e:  # noqa: BLE001 - must surface, thread dies silent
         log.exception("warmup failed")
         state["error"] = str(e)
@@ -3102,9 +3120,10 @@ class ServingHTTPServer(ThreadingHTTPServer):
 
 
 def start_server(model, port=8000, host="0.0.0.0", warmup_mode="lazy",
-                 metrics=None, replica_id="", role=""):
+                 metrics=None, replica_id="", role="", health_log=""):
     """Serve ``model`` on (host, port) from a daemon thread and warm it up
-    in another (``warmup`` with ``warmup_mode``). ``metrics`` (a
+    in another (``warmup`` with ``warmup_mode``, writing the ready line to
+    ``health_log`` when set). ``metrics`` (a
     :class:`ServingMetrics`, built for ``model`` when None) counts the
     requests and renders ``GET /metrics``; ``/healthz`` carries
     ``replica_id`` and ``role`` when set (the CLI sets ``--role``, whose
@@ -3117,7 +3136,8 @@ def start_server(model, port=8000, host="0.0.0.0", warmup_mode="lazy",
     server = ServingHTTPServer((host, port),
                                make_handler(model, state, metrics))
     threading.Thread(target=server.serve_forever, daemon=True).start()
-    threading.Thread(target=warmup, args=(model, state, warmup_mode),
+    threading.Thread(target=warmup,
+                     args=(model, state, health_log, warmup_mode),
                      daemon=True).start()
     return server, state
 
@@ -3178,6 +3198,11 @@ def build_parser():
                         "(tests). Without a GPU the default fails.")
     p.add_argument("--once", action="store_true",
                    help="warm up, serve one request to self, exit (tests)")
+    p.add_argument("--health-log",
+                   default=os.environ.get("HEALTH_CHECK_LOG_FILE", ""),
+                   help="append the ready line (tpu-serving ready "
+                        "warmup_s=<s>) here once warmup succeeds "
+                        "(default: the HEALTH_CHECK_LOG_FILE env)")
     p.add_argument("--replica-id",
                    default=os.environ.get("TPU_REPLICA_ID", ""),
                    help="fleet identity this replica registers under: "
@@ -3499,7 +3524,8 @@ def _serve(args):
         config_from_args(args), device=args.device, quantize=args.quantize))
     server, state = start_server(model, port=args.port,
                                  warmup_mode=args.warmup, metrics=metrics,
-                                 replica_id=args.replica_id, role=args.role)
+                                 replica_id=args.replica_id, role=args.role,
+                                 health_log=args.health_log)
     log.info("listening on :%d", server.server_address[1])
     metrics_server = None
     try:

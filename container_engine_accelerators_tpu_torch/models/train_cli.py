@@ -34,15 +34,39 @@ recorder and the metrics server it started end with it.
       --model mnist --steps 3 --device cpu
 
 Runs on ``cuda`` unless ``--device cpu`` is given (the kernels' plain
-versions; the tests run so). Not ported yet (ROADMAP.md): multi-GPU
-training (``--sp``, ``--tp``, ``--ep``, ``--pp``, ``--microbatches``
-above 1 and ``--distributed`` raise) and ``--compile-cache-dir`` (the
-port has no compile cache).
+versions; the tests run so).
+
+Multi-process training (JAX's ``--distributed`` and ``--sp``): one
+process per device joins the world from the stack's env contract
+(``parallel/bootstrap.py``: ``TPU_WORKER_ID``, ``TPU_WORKER_HOSTNAMES``,
+``TPU_COORDINATOR_PORT``, and torchrun's ``LOCAL_RANK`` /
+``LOCAL_WORLD_SIZE``; ``TPU_WORKER_ID`` in the env implies
+``--distributed``), NCCL on ``cuda:{LOCAL_RANK}``, gloo under ``--device
+cpu``. ``build_mesh`` lays a ``{"dp": -1, "sp": sp, "tp": tp}`` mesh
+over the world. Every model trains data-parallel: every rank draws the
+same global batch (JAX's default size scaled by dp), runs its rows, and
+the gradients are summed over the world once a step after
+``backward()``; parameters and optimizer state stay replicated. ``--sp``
+(the transformer) shards the sequence: RoPE at global positions and
+ring attention over the sp axis (``parallel/ring_attention.py``). Rank
+0 writes the checkpoints; on resume it restores the newest and every
+rank takes that step and state from it, so a directory local to rank
+0's host is enough.
+
+  TPU_WORKER_ID=0 TPU_WORKER_HOSTNAMES=localhost torchrun \\
+      --nproc-per-node 2 -m \\
+      container_engine_accelerators_tpu_torch.models.train_cli \\
+      --model transformer --sp 2
+
+Not ported yet (ROADMAP.md): ``--tp``, ``--ep``, ``--pp`` and
+``--microbatches`` (they raise), MoE on more than one rank, and
+``--compile-cache-dir`` (the port has no compile cache).
 """
 
 import argparse
 import json
 import logging
+import os
 import sys
 import time
 
@@ -60,6 +84,11 @@ from container_engine_accelerators_tpu_torch.obs import goodput as obs_goodput
 from container_engine_accelerators_tpu_torch.obs import metrics as obs_metrics
 from container_engine_accelerators_tpu_torch.obs import ports as obs_ports
 from container_engine_accelerators_tpu_torch.obs import trace as obs_trace
+from container_engine_accelerators_tpu_torch.parallel import (
+    bootstrap,
+    data_parallel,
+)
+from container_engine_accelerators_tpu_torch.parallel import mesh as pmesh
 from container_engine_accelerators_tpu_torch.utils import (
     checkpointing,
     profiling,
@@ -125,9 +154,12 @@ class TrainMetrics:
         self._n_params = 0
         self._peak_flops = 0.0
 
-    def calibrate(self, state, device):
+    def calibrate(self, state, device, n_devices=1):
+        """The parameter count and the world's peak: the card's times
+        ``n_devices``, as JAX multiplies its generation's by the device
+        count."""
         self._n_params = _count_params(state)
-        self._peak_flops = peak_flops(device)
+        self._peak_flops = peak_flops(device) * n_devices
 
     def observe_step(self, dt_s, loss):
         self.steps.inc()
@@ -149,8 +181,37 @@ class TrainMetrics:
         }
 
 
+def build_mesh(n_devices, sp, tp, ep=1, device_type="cuda"):
+    """JAX's ``build_mesh``: a ``{"dp": -1, "sp": sp, "tp": tp}`` (and
+    ``"ep"`` above 1) DeviceMesh over the initialized world of
+    ``n_devices`` ranks."""
+    axes = {"dp": -1, "sp": sp, "tp": tp}
+    if ep > 1:
+        axes["ep"] = ep
+    return pmesh.make_mesh(pmesh.plan_mesh(n_devices, axes), device_type)
+
+
+def _dp(mesh):
+    """The data-parallel degree: the mesh's dp axis (1 without one)."""
+    return data_parallel.axis(mesh, "dp")[1]
+
+
+def _is_leader():
+    """Rank 0 of the world, or the only process."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier():
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.barrier()
+
+
 def _train_loop(args, init_state, train_step, make_batch, units_per_step,
-                unit_name, device):
+                unit_name, device, n_devices=1):
     """Shared step loop: init (or resume from --checkpoint-dir), run to
     --steps with periodic checkpoints, return the result dict. Every
     step is a trace span and an observation into the run's TrainMetrics
@@ -180,7 +241,7 @@ def _train_loop(args, init_state, train_step, make_batch, units_per_step,
     try:
         return _train_steps(args, init_state, train_step, make_batch,
                             units_per_step, unit_name, obs, ev_stream,
-                            device)
+                            device, n_devices)
     finally:
         if alert_ev is not None:
             alert_ev.close()
@@ -191,26 +252,41 @@ def _train_loop(args, init_state, train_step, make_batch, units_per_step,
             server.close()
 
 
+def _restore(ckpt_dir, state, ev_stream, device):
+    """Resume → (state, step or None). Rank 0 (or the only process)
+    restores the newest readable step of its ``--checkpoint-dir`` (it
+    alone quarantines an unreadable one), and every rank takes that step
+    and state from rank 0, so the ranks resume alike and meet the same
+    collectives whether they share the directory or each host has its
+    own."""
+    restored, step = state, None
+    if _is_leader() and checkpointing.list_steps(ckpt_dir):
+        with obs_trace.span("restore") as sp:
+            got, step = checkpointing.restore_latest(
+                ckpt_dir, state, events=ev_stream,
+            )
+            if step is not None:
+                sp.set(step=step)
+                restored = got
+    return checkpointing.broadcast(restored, step, device)
+
+
 def _train_steps(args, init_state, train_step, make_batch,
-                 units_per_step, unit_name, obs, ev_stream, device):
+                 units_per_step, unit_name, obs, ev_stream, device,
+                 n_devices=1):
     """The step loop proper. Each step's time is host wall clock from
     before the fault hook to the loss read, which waits for the
     device."""
     with obs_trace.span("init_state"):
         state = init_state(args.seed)
-    obs.calibrate(state, device)
+    obs.calibrate(state, device, n_devices)
     start = 0
     ckpt_dir = args.checkpoint_dir
-    if ckpt_dir and checkpointing.list_steps(ckpt_dir):
+    if ckpt_dir:
         # Crash-safe resume: newest readable step wins; an unreadable
         # one is quarantined (checkpoint_fallback event) and the walk
         # falls back — never a crash loop.
-        with obs_trace.span("restore") as sp:
-            restored, step = checkpointing.restore_latest(
-                ckpt_dir, state, events=ev_stream,
-            )
-            if step is not None:
-                sp.set(step=step)
+        restored, step = _restore(ckpt_dir, state, ev_stream, device)
         if step is not None:
             state = restored
             start = step
@@ -241,8 +317,12 @@ def _train_steps(args, init_state, train_step, make_batch,
         if ckpt_dir and (
             done % args.checkpoint_every == 0 or done == args.steps
         ):
-            with obs_trace.span("checkpoint", step=done):
-                checkpointing.save(ckpt_dir, done, state)
+            # Every rank holds the same state: rank 0 writes it, and no
+            # rank steps on before the step directory is whole.
+            if _is_leader():
+                with obs_trace.span("checkpoint", step=done):
+                    checkpointing.save(ckpt_dir, done, state)
+            _barrier()
     return {
         "loss": losses[-1] if losses else None,
         "start_step": start,
@@ -251,11 +331,15 @@ def _train_steps(args, init_state, train_step, make_batch,
     }
 
 
-def run_mnist(args, device):
+def _world(mesh):
+    return 1 if mesh is None else mesh.size()
+
+
+def run_mnist(args, device, mesh=None):
     from container_engine_accelerators_tpu_torch.models import mnist
 
-    init_state, train_step = mnist.make_train_step(device=device)
-    batch_size = args.batch_size or 64
+    init_state, train_step = mnist.make_train_step(device=device, mesh=mesh)
+    batch_size = args.batch_size or 64 * _dp(mesh)
 
     def make_batch(step):
         return mnist.synthetic_batch(
@@ -263,17 +347,17 @@ def run_mnist(args, device):
             device=device)
 
     result = _train_loop(args, init_state, train_step, make_batch,
-                         batch_size, "ex", device)
+                         batch_size, "ex", device, _world(mesh))
     return {**result, "batch_size": batch_size}
 
 
-def run_resnet(args, device):
+def run_resnet(args, device, mesh=None):
     from container_engine_accelerators_tpu_torch.models import resnet
 
     image_size = args.image_size
     init_state, train_step = resnet.make_train_step(
-        lambda: resnet.resnet18_ish(device=device))
-    batch_size = args.batch_size or 8
+        lambda: resnet.resnet18_ish(device=device), mesh=mesh)
+    batch_size = args.batch_size or 8 * _dp(mesh)
 
     def make_batch(step):
         rng = np.random.default_rng(args.seed + 1 + step)
@@ -284,7 +368,7 @@ def run_resnet(args, device):
                                           device=device)}
 
     result = _train_loop(args, init_state, train_step, make_batch,
-                         batch_size, "im", device)
+                         batch_size, "im", device, _world(mesh))
     return {**result, "batch_size": batch_size}
 
 
@@ -302,10 +386,11 @@ def config_from_args(args):
     )
 
 
-def run_transformer(args, device):
+def run_transformer(args, device, mesh=None):
     cfg = config_from_args(args)
-    init_state, train_step = tf.make_train_step(cfg, device=device)
-    batch_size = args.batch_size or 2
+    init_state, train_step = tf.make_train_step(cfg, device=device,
+                                                mesh=mesh)
+    batch_size = args.batch_size or 2 * _dp(mesh)
 
     def make_batch(step):
         rng = np.random.default_rng(args.seed + 1 + step)
@@ -314,11 +399,12 @@ def run_transformer(args, device):
         return {"tokens": torch.as_tensor(tokens, device=device)}
 
     result = _train_loop(args, init_state, train_step, make_batch,
-                         batch_size * args.seq_len, "tok", device)
+                         batch_size * args.seq_len, "tok", device,
+                         _world(mesh))
     return {**result, "batch_size": batch_size}
 
 
-def run_bert(args, device):
+def run_bert(args, device, mesh=None):
     from container_engine_accelerators_tpu_torch.models import bert
 
     cfg = bert.BertConfig(
@@ -330,8 +416,9 @@ def run_bert(args, device):
         max_seq_len=args.seq_len,
         dtype=args.dtype,
     )
-    init_state, train_step = bert.make_train_step(cfg, device=device)
-    batch_size = args.batch_size or 2
+    init_state, train_step = bert.make_train_step(cfg, device=device,
+                                                  mesh=mesh)
+    batch_size = args.batch_size or 2 * _dp(mesh)
 
     def make_batch(step):
         return bert.synthetic_mlm_batch(
@@ -339,7 +426,8 @@ def run_bert(args, device):
             device=device)
 
     result = _train_loop(args, init_state, train_step, make_batch,
-                         batch_size * cfg.max_seq_len, "tok", device)
+                         batch_size * cfg.max_seq_len, "tok", device,
+                         _world(mesh))
     return {**result, "batch_size": batch_size}
 
 
@@ -356,9 +444,9 @@ def build_parser():
     p.add_argument("--model", choices=sorted(RUNNERS), default="mnist")
     p.add_argument("--steps", type=int, default=10)
     p.add_argument("--batch-size", type=int, default=0,
-                   help="global batch; 0 = the JAX CLI's default on one "
-                        "device (mnist 64, resnet 8, bert and transformer "
-                        "2)")
+                   help="global batch; 0 = the JAX CLI's default per dp "
+                        "rank (mnist 64, resnet 8, bert and transformer "
+                        "2) times the mesh's dp size")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--sp", type=int, default=1)
     p.add_argument("--tp", type=int, default=1)
@@ -368,7 +456,11 @@ def build_parser():
     p.add_argument("--n-experts", type=int, default=0,
                    help="transformer: replace dense FFNs with an MoE of "
                         "this many experts (all on the one device)")
-    p.add_argument("--distributed", action="store_true")
+    p.add_argument("--distributed", action="store_true",
+                   help="join the world from the TPU_WORKER_* env, one "
+                        "process per device (LOCAL_RANK / "
+                        "LOCAL_WORLD_SIZE); implied when TPU_WORKER_ID "
+                        "is set")
     p.add_argument("--image-size", type=int, default=64)
     p.add_argument("--seq-len", type=int, default=128)
     p.add_argument("--d-model", type=int, default=256)
@@ -439,15 +531,42 @@ def build_parser():
 
 
 def _refuse_multi_gpu(args):
-    parallel = {"--sp": args.sp, "--tp": args.tp, "--ep": args.ep,
-                "--pp": args.pp, "--microbatches": args.microbatches}
+    """Refuse what is not ported yet: tensor, expert and pipeline
+    parallelism, and sequence parallelism outside the transformer."""
+    parallel = {"--tp": args.tp, "--ep": args.ep, "--pp": args.pp,
+                "--microbatches": args.microbatches}
     asked = [f"{flag} {n}" for flag, n in parallel.items() if n > 1]
-    if args.distributed:
-        asked.append("--distributed")
+    if args.sp > 1 and args.model != "transformer":
+        asked.append(f"--sp {args.sp} with --model {args.model}")
     if asked:
         raise NotImplementedError(
             f"{', '.join(asked)}: not ported yet (multi-GPU); the port "
-            f"trains on one device (ROADMAP.md)")
+            f"trains data-parallel, and the transformer sequence-parallel "
+            f"(ROADMAP.md)")
+
+
+def _refuse_moe_world(args, world):
+    if args.model == "transformer" and args.n_experts and world > 1:
+        raise NotImplementedError(
+            f"--n-experts {args.n_experts} on {world} ranks: not ported "
+            f"yet (multi-GPU); MoE training across ranks comes with "
+            f"expert parallelism (--ep, ROADMAP.md Queue 1 item 5)")
+
+
+def _join(args):
+    """(device, mesh): without ``--distributed`` (or TPU_WORKER_ID) the
+    requested device and no mesh, the sizes checked against a world of
+    one as JAX's ``plan_mesh`` checks them; with it the world joined
+    from the env contract and its ``build_mesh`` over every rank."""
+    if not (args.distributed or os.environ.get(bootstrap.WORKER_ID_ENV)):
+        pmesh.plan_mesh(1, {"dp": -1, "sp": args.sp, "tp": args.tp})
+        return tf.resolve_device(args.device), None
+    opts = bootstrap.initialize_from_env(device=args.device)
+    log.info("process group initialized: %s", opts)
+    device = torch.device(opts["device"])
+    _refuse_moe_world(args, opts["world_size"])
+    return device, build_mesh(opts["world_size"], args.sp, args.tp,
+                              device_type=device.type)
 
 
 def _goodput(event_log):
@@ -474,18 +593,20 @@ def main(argv=None):
     )
     args = build_parser().parse_args(argv)
     _refuse_multi_gpu(args)
-    device = tf.resolve_device(args.device)
-    log.info("device=%s", device)
+    device, mesh = _join(args)
+    log.info("device=%s mesh=%s", device,
+             dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+             if mesh is not None else None)
     armed = tracer = None
-    if args.fault_plan:
-        armed = faults.arm_from_flag(args.fault_plan,
-                                     sink_path=args.event_log)
-        log.warning("fault plan armed from %s (seed %d, %d faults)",
-                    args.fault_plan, armed.seed, len(armed.faults))
-    if args.trace_out:
-        tracer = obs_trace.configure()
-    t0 = time.perf_counter()
     try:
+        if args.fault_plan:
+            armed = faults.arm_from_flag(args.fault_plan,
+                                         sink_path=args.event_log)
+            log.warning("fault plan armed from %s (seed %d, %d faults)",
+                        args.fault_plan, armed.seed, len(armed.faults))
+        if args.trace_out:
+            tracer = obs_trace.configure()
+        t0 = time.perf_counter()
         with profiling.trace_or_null(args.profile_dir):
             if args.watchdog_s or args.max_restarts:
                 # Supervised run: each restart re-enters the runner,
@@ -498,7 +619,7 @@ def main(argv=None):
                 sup_events = obs_events.EventStream(
                     supervisor.EVENT_SOURCE, sink_path=args.event_log)
                 result = supervisor.supervise(
-                    lambda: RUNNERS[args.model](args, device),
+                    lambda: RUNNERS[args.model](args, device, mesh),
                     watchdog_s=args.watchdog_s,
                     max_restarts=args.max_restarts,
                     backoff_base_s=args.restart_backoff_s,
@@ -506,7 +627,7 @@ def main(argv=None):
                     seed=args.seed, events=sup_events,
                 )
             else:
-                result = RUNNERS[args.model](args, device)
+                result = RUNNERS[args.model](args, device, mesh)
     finally:
         if tracer is not None:
             tracer.write_chrome(args.trace_out)
@@ -515,10 +636,15 @@ def main(argv=None):
             log.info("span trace written to %s (+ .jsonl)", args.trace_out)
         if armed is not None:
             faults.disarm()
+        if mesh is not None:
+            # An in-process run leaves no process group behind.
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
     result.update(
         model=args.model,
         steps=args.steps,
-        n_devices=1,
+        n_devices=_world(mesh),
         wall_s=round(time.perf_counter() - t0, 2),
     )
     if args.event_log:

@@ -34,8 +34,12 @@ FFN is the mixture-of-experts block of ``parallel/moe.py`` (forward,
 ``loss_fn`` with the aux loss, ``make_train_step``); serving such a
 model is refused, as the JAX server has no flag that reaches experts.
 
-Not in this port yet: tensor/sequence/pipeline/expert parallelism and
-ring attention (see ROADMAP.md).
+Training takes a DeviceMesh (``make_train_step(mesh=...)``, the JAX
+step's ``mesh``): its "dp" axis splits the global batch's rows and its
+"sp" axis the sequence, each rank running its shard of positions with
+RoPE at global positions and attention as a ring over the sp axis
+(``parallel/ring_attention.py``). Not in this port yet: tensor,
+pipeline and expert parallelism (see ROADMAP.md).
 """
 
 import dataclasses
@@ -57,7 +61,11 @@ from container_engine_accelerators_tpu_torch.ops.attention import (
     flash_fwd_reference,
     mha_reference,
 )
-from container_engine_accelerators_tpu_torch.parallel import moe
+from container_engine_accelerators_tpu_torch.parallel import (
+    data_parallel,
+    moe,
+    ring_attention,
+)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -314,8 +322,19 @@ ATTN_IMPLS = {"flash": _flash_attend, "plain": _plain_attend,
               "reference": _reference_attend}
 
 
+def _ring_attend(mesh, attn_impl):
+    """Attention as a ring over the mesh's "sp" axis: the flash ring
+    for ``"flash"``, the plain block ring otherwise."""
+    impl = "flash" if attn_impl == "flash" else "plain"
+
+    def attend(q, k, v):
+        return ring_attention.ring_attention(q, k, v, mesh, "sp",
+                                             causal=True, impl=impl)
+    return attend
+
+
 def forward(model, tokens, positions=None, return_kv=False, logits_at=None,
-            attn_impl="flash", remat=False, return_aux=False):
+            attn_impl="flash", remat=False, return_aux=False, mesh=None):
     """tokens: (B, S) int → logits (B, S, vocab) float32; differentiable.
 
     ``return_kv=True`` also returns the rope'd K/V stacks
@@ -328,11 +347,17 @@ def forward(model, tokens, positions=None, return_kv=False, logits_at=None,
     autograd: the comparison for gradients). ``remat=True`` checkpoints
     each layer (its activations are recomputed in the backward pass).
     ``return_aux=True`` also returns the MoE aux loss averaged over the
-    layers (an f32 0 for dense FFNs), last."""
+    layers (an f32 0 for dense FFNs), last. ``mesh`` with an "sp" axis
+    above 1: ``tokens`` is this rank's sequence shard, ``positions`` its
+    global positions, and attention is the ring over that axis (the
+    flash ring for "flash", the plain block ring otherwise)."""
     batch, seq = tokens.shape
     if positions is None:
         positions = torch.arange(seq, device=tokens.device).expand(batch, seq)
-    attend = ATTN_IMPLS[attn_impl]
+    if data_parallel.axis(mesh, "sp")[1] > 1:
+        attend = _ring_attend(mesh, attn_impl)
+    else:
+        attend = ATTN_IMPLS[attn_impl]
     x = model.embed[tokens]
     ks, vs = [], []
     aux = None
@@ -377,19 +402,50 @@ def softmax_xent(logits, targets):
     return (lse - tgt).mean()
 
 
-def loss_fn(model, batch, attn_impl="flash", remat=False):
+def loss_fn(model, batch, attn_impl="flash", remat=False, mesh=None):
     """Next-token cross entropy (+ ``moe_aux_weight`` × the MoE
     load-balance aux when the config has experts); batch = {"tokens":
     (B, S+1)} (a tensor or an integer array, moved to the model's
-    device)."""
+    device).
+
+    ``mesh``: the batch is the GLOBAL one and this rank takes its rows
+    (dp) and positions (sp) of ``inputs = tokens[:, :-1]`` and
+    ``targets = tokens[:, 1:]`` (a shard's last target is the next
+    shard's first input, so no token crosses ranks). The result is this
+    rank's share of the global loss, its mean cross entropy scaled by its
+    tokens over the global count: the ranks' shares sum to the global
+    mean. A config with experts is refused under a mesh of more than one
+    rank: its load-balance aux is a product of global token fractions,
+    which per-shard averages would not reproduce."""
     tokens = torch.as_tensor(batch["tokens"], device=model.device)
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    logits, aux = forward(model, inputs, attn_impl=attn_impl, remat=remat,
+    positions = None
+    if mesh is not None:
+        if model.cfg.n_experts and mesh.size() > 1:
+            raise NotImplementedError(
+                "MoE training on more than one rank is not ported yet: it "
+                "comes with expert parallelism (--ep, ROADMAP.md Queue 1 "
+                "item 5)")
+        global_tokens = inputs.numel()
+        seq = inputs.shape[1]
+        sp_index, sp = data_parallel.axis(mesh, "sp")
+        if seq % sp:
+            raise ValueError(f"sequence length {seq} must divide by sp={sp}")
+        local = seq // sp
+        cols = slice(sp_index * local, (sp_index + 1) * local)
+        inputs = data_parallel.shard_rows(inputs, mesh)[:, cols]
+        targets = data_parallel.shard_rows(targets, mesh)[:, cols]
+        positions = (sp_index * local + torch.arange(
+            local, device=inputs.device)).expand(inputs.shape[0], local)
+    logits, aux = forward(model, inputs, positions=positions,
+                          attn_impl=attn_impl, remat=remat, mesh=mesh,
                           return_aux=True)
     loss = softmax_xent(logits, targets)
     if model.cfg.n_experts:
         loss = loss + model.cfg.moe_aux_weight * aux
-    return loss
+    if mesh is None:
+        return loss
+    return loss * (targets.numel() / global_tokens)
 
 
 def adamw(params):
@@ -408,7 +464,8 @@ def _require_dense(model):
             "int8 (quantize_params), which serve only")
 
 
-def make_train_step(cfg, optimizer=None, remat=True, device="cuda"):
+def make_train_step(cfg, optimizer=None, remat=True, device="cuda",
+                    mesh=None):
     """Returns (init_state, train_step). State = (model, optimizer).
 
     ``optimizer`` maps the parameters to a ``torch.optim.Optimizer``
@@ -417,7 +474,11 @@ def make_train_step(cfg, optimizer=None, remat=True, device="cuda"):
     the same, and the forward attention kernel launches twice per layer
     and step. ``init_state(seed)`` draws random weights on ``device``;
     ``init_state(model=m)`` starts from given ones (e.g. bridged from
-    JAX)."""
+    JAX). ``mesh`` (a DeviceMesh with "dp" and "sp" axes): each step
+    takes the GLOBAL batch, runs this rank's shard (``loss_fn``) and sums
+    the gradients and the loss over the world after ``backward()``
+    (``parallel/data_parallel.train_step``); every rank must hold the
+    same parameters, as the same seed gives them."""
     device = resolve_device(device)
     make_optimizer = optimizer or adamw
 
@@ -433,11 +494,10 @@ def make_train_step(cfg, optimizer=None, remat=True, device="cuda"):
         step's donated state (no copy of either per step)."""
         model, opt = state
         _require_dense(model)
-        opt.zero_grad(set_to_none=True)
-        loss = loss_fn(model, batch, remat=remat)
-        loss.backward()
-        opt.step()
-        return state, loss.detach()
+        loss = data_parallel.train_step(
+            model, opt, lambda: loss_fn(model, batch, remat=remat, mesh=mesh),
+            mesh)
+        return state, loss
 
     return init_state, train_step
 

@@ -30,6 +30,7 @@ adapted: its item sizes come from the port config's ``torch_dtype``, and
 (``collectives/device_bench.py`` records its rows there once configured).
 
 Not ported yet (ROADMAP.md): the fleet-level modules ``capacity``,
-``journey``, ``postmortem``, ``baseline`` and the ``merge`` CLI, the
-link metrics of multi-GPU serving, and ``faults/reactor.FleetReactor``.
+``journey``, ``postmortem``, ``baseline`` and the ``merge`` CLI, and the
+link metrics of multi-GPU serving. ``faults/reactor.FleetReactor`` is
+jax-free control plane that runs unchanged beside port replicas.
 """

@@ -11,7 +11,9 @@ list or dict of modules, optimizers, tensors and plain values, e.g. the
 ``(model, optimizer)`` of the port's ``make_train_step``s. Restore loads
 into the live state it is given (``load_state_dict`` in place; tensors
 come back on the given one's device and dtype) and returns it. The port
-does not read the JAX package's orbax checkpoints, nor they its.
+does not read the JAX package's orbax checkpoints, nor they its. In a
+world of processes rank 0 restores and :func:`broadcast` hands its step
+and state to the others.
 
 A save is written into a temporary sibling ``step_<N>.tmp-<pid>-<ns>``
 (fsynced), then renamed to ``step_<N>``: the counterpart of orbax's
@@ -187,6 +189,64 @@ def restore(ckpt_dir, step, like):
     finally:
         with _protect_lock:
             _RESTORING.discard(key)
+
+
+class _Slot(int):
+    """A tensor's place in a broadcast state's skeleton."""
+
+
+def broadcast(state, step, device):
+    """Rank 0's resume to every rank of the initialized world: rank 0
+    passes the step it restored (or None) and its live ``state``; every
+    rank returns (state, step) with rank 0's values loaded into its own
+    live ``state``, whatever its own checkpoint directory holds (each
+    host may mount one of its own). Tensors travel on ``device`` (the
+    backend's: a card under NCCL) and land where the live state keeps
+    them. Without a world of more than one: (state, step) as given."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return state, step
+    leader = dist.get_rank() == 0
+    tensors, metas = [], []
+
+    def strip(x):
+        if torch.is_tensor(x):
+            tensors.append(x)
+            metas.append((tuple(x.shape), x.dtype, x.device.type == "cpu"))
+            return _Slot(len(tensors) - 1)
+        if isinstance(x, dict):
+            return {k: strip(v) for k, v in x.items()}
+        if isinstance(x, (tuple, list)):
+            return type(x)(strip(v) for v in x)
+        return x
+
+    head = [step, None, None]
+    if leader and step is not None:
+        head[1:] = strip(_snapshot(state)), metas
+    dist.broadcast_object_list(head, src=0, device=device)
+    step, skeleton, metas = head
+    if step is None:
+        return state, None
+    received = []
+    for i, (shape, dtype, on_cpu) in enumerate(metas):
+        buf = (tensors[i].to(device) if leader
+               else torch.empty(shape, dtype=dtype, device=device))
+        dist.broadcast(buf, src=0)
+        received.append(buf.cpu() if on_cpu else buf)
+    if leader:
+        return state, step
+
+    def fill(x):
+        if isinstance(x, _Slot):
+            return received[x]
+        if isinstance(x, dict):
+            return {k: fill(v) for k, v in x.items()}
+        if isinstance(x, (tuple, list)):
+            return type(x)(fill(v) for v in x)
+        return x
+
+    return _apply(state, fill(skeleton)), step
 
 
 def quarantine(ckpt_dir, step):

@@ -57,9 +57,12 @@ Deliberate differences from JAX:
     CPU, which has no graphs).
 
 The tasks run on the engine-loop thread (``ContinuousEngine.run_on_loop``),
-where every capture of the engine's graphs happens. Not ported: the
-``warmup_done`` event (the event stream is not ported), the AOT-only path
-of a multi-host engine and the ``max_tasks`` cap.
+where every capture of the engine's graphs happens. ``max_tasks`` caps
+the grid as JAX's does (the rest counted as ``dropped``), and the pass
+ends with JAX's ``warmup_done`` record on the engine's event stream,
+which the goodput ledger (``obs/goodput.py``) charges to ``compile``.
+Not ported: the AOT-only path of a multi-host engine (the port has no
+multi-host link).
 """
 
 import collections
@@ -230,11 +233,28 @@ def build_summary(mode, tasks, compiled, skipped, dropped, dur_s,
     }
 
 
-def warm_engine(engine, mode="all"):
+def emit_done(events, summary):
+    """Emit the ``warmup_done`` record with JAX's attrs (the goodput
+    ledger charges it to ``compile``); no-op without an event stream."""
+    if events is None:
+        return
+    events.emit(
+        "warmup_done",
+        tasks=summary["tasks"], compiled=summary["compiled"],
+        skipped=summary["skipped"], dropped=summary["dropped"],
+        dur_s=summary["dur_s"], cache_hits=summary["cache_hits"],
+        cache_misses=summary["cache_misses"],
+    )
+
+
+def warm_engine(engine, mode="all", events=None, max_tasks=None):
     """Run the warmup pass on the engine-loop thread; returns the summary
     ``{mode, tasks, compiled, skipped, dropped, dur_s, cache_hits,
-    cache_misses}``. ``mode="lazy"`` is the documented no-op. A task that
-    raises fails the pass (the server then never reports ready)."""
+    cache_misses}``. ``mode="lazy"`` is the documented no-op.
+    ``max_tasks`` bounds the grid: the tasks past it are dropped, counted
+    and logged (their shapes capture on first use). ``events`` gets one
+    ``warmup_done`` record. A task that raises fails the pass (the
+    server then never reports ready)."""
     if mode not in WARMUP_MODES:
         raise ValueError(
             f"unknown warmup mode {mode!r}; known: {WARMUP_MODES}"
@@ -244,6 +264,14 @@ def warm_engine(engine, mode="all"):
     if mode != "all":
         return build_summary(mode, 0, 0, 0, 0, 0.0, zero, zero)
     tasks = warm_plan(engine)
+    dropped = 0
+    if max_tasks is not None and len(tasks) > max_tasks:
+        dropped = len(tasks) - max_tasks
+        log.warning(
+            "warmup grid capped at %d of %d tasks (max_tasks); the "
+            "dropped shapes capture on first use", max_tasks, len(tasks),
+        )
+        tasks = tasks[:max_tasks]
 
     def run():
         cache = {"hits": 0, "misses": 0}
@@ -258,11 +286,13 @@ def warm_engine(engine, mode="all"):
         return cache
 
     cache = engine.run_on_loop(run)
-    summary = build_summary(mode, len(tasks), len(tasks), 0, 0,
+    summary = build_summary(mode, len(tasks), len(tasks), 0, dropped,
                             time.perf_counter() - t0, zero, cache)
+    emit_done(events, summary)
     log.info(
-        "warmup (%s): %d task(s) run in %.2fs (graph cache hits %d / "
-        "misses %d)", mode, summary["compiled"], summary["dur_s"],
-        summary["cache_hits"], summary["cache_misses"],
+        "warmup (%s): %d task(s) run, %d dropped in %.2fs (graph cache "
+        "hits %d / misses %d)", mode, summary["compiled"],
+        summary["dropped"], summary["dur_s"], summary["cache_hits"],
+        summary["cache_misses"],
     )
     return summary

@@ -1364,3 +1364,111 @@ def test_flash_long_context_launches_the_kernels():
             attention.flash_dq_launches - before[1],
             attention.flash_dkv_launches - before[2]) == (8, 4, 4)
     assert r.value > 0 and d["fwd_bwd_ms"] > 0
+
+
+# -- ring attention's kernel half ---------------------------------------------
+
+@pytest.mark.parametrize("sp", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ring_steps_in_one_process_match_the_whole_sequence(gen, sp, dtype):
+    """Every rank's forward and backward ring in one process (the chip_smoke
+    ring phase's way: ``parallel/ring_attention.py``'s ring loops over an
+    ``InProcess`` transport) at S 2048, GQA 8/2: sp² launches of each
+    kernel and the assembled out, lse, dq, dk, dv against the
+    whole-sequence flash kernels, bf16 by ``world_smoke.ring_errors``
+    (the ring phase's check), f32 to 1e-4."""
+    from container_engine_accelerators_tpu_torch.parallel import (
+        ring_attention as ra,
+        world_smoke,
+    )
+
+    seq, d = 2048, 128
+    q, g = (torch.randn(1, 8, seq, d, generator=gen, device="cuda")
+            .to(dtype) for _ in range(2))
+    k, v = (torch.randn(1, 2, seq, d, generator=gen, device="cuda")
+            .to(dtype) for _ in range(2))
+    scale = d ** -0.5
+    out_w, lse_w = attention.flash_fwd(q, k, v, causal=True, sm_scale=scale)
+    grads_w = attention.flash_bwd(q, k, v, out_w, lse_w, g, causal=True,
+                                  sm_scale=scale)
+    qs, ks, vs, gs = ([t.contiguous() for t in x.split(seq // sp, dim=2)]
+                      for x in (q, k, v, g))
+    transport = ra.InProcess(sp)
+    before = chip_smoke._flash_counts(attention)
+    outs, lses = ra.ring_flash_forward(qs, ks, vs, transport, True, scale)
+    dqs, dks, dvs = ra.ring_flash_backward(qs, ks, vs, outs, lses, gs,
+                                           transport, True, scale)
+    torch.cuda.synchronize()
+    after = chip_smoke._flash_counts(attention)
+    assert tuple(a - b for a, b in zip(after, before)) == (sp * sp,) * 3
+    got = {"out": torch.cat(outs, 2), "lse": torch.cat(lses, 2),
+           "dq": torch.cat(dqs, 2), "dk": torch.cat(dks, 2),
+           "dv": torch.cat(dvs, 2)}
+    want = {"out": out_w, "lse": lse_w,
+            **dict(zip(("dq", "dk", "dv"), grads_w))}
+    if dtype == torch.bfloat16:
+        errs, ok = world_smoke.ring_errors(got, want)
+        assert ok, errs
+        return
+    torch.testing.assert_close(got["out"], out_w, atol=1e-4, rtol=0)
+    torch.testing.assert_close(got["lse"], lse_w, atol=1e-4, rtol=0)
+    for name, want_grad in zip(("dq", "dk", "dv"), grads_w):
+        _, rel_l2, row = chip_smoke.grad_errors(got[name], want_grad)
+        assert rel_l2 <= 1e-4 and row <= 1e-3, (name, rel_l2, row)
+
+
+def test_wholly_future_shard_gives_exact_zeros(gen):
+    """Trouble spot (a): a K/V shard wholly in the queries' future visits
+    no tile, and the kernels' epilogues still write out = 0, lse = -1e30
+    and zero dq, dk, dv."""
+    q, g = (torch.randn(1, 8, 1024, 128, generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(1, 2, 1024, 128, generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    kw = dict(causal=True, sm_scale=128 ** -0.5, q_base=0, k_base=1024)
+    out = torch.full_like(q, 7.0)
+    lse = torch.full(q.shape[:3], 3.0, device="cuda")
+    o, lse_b = attention.flash_fwd(q, k, v, **kw)
+    assert not o.any() and bool((lse_b == -1e30).all())
+    dq, dk, dv = attention.flash_bwd(q, k, v, out, lse, g, **kw)
+    assert not dq.any() and not dk.any() and not dv.any()
+
+
+def test_train_cli_distributed_world_of_one_over_nccl(tmp_path, gen):
+    """train_cli --distributed in-process: a world of one over NCCL from
+    the env contract, its marker, n_devices 1, and the loss of the run
+    without --distributed."""
+    import json
+    import os
+    import socket
+
+    from container_engine_accelerators_tpu_torch.models import train_cli
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    flags = ["--model", "transformer", "--steps", "2"]
+    marker = tmp_path / "health.log"
+    results = []
+    for env in ({}, {"TPU_WORKER_ID": "0", "TPU_WORKER_HOSTNAMES": "localhost",
+                     "TPU_COORDINATOR_PORT": str(port),
+                     "TPU_HEALTH_CHECK_LOG_FILE": str(marker)}):
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            import contextlib
+            import io
+
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                assert train_cli.main(flags) == 0
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        results.append(json.loads(out.getvalue().strip().splitlines()[-1]))
+    assert marker.read_text() == "TPU_BOOTSTRAP_OK rank=0 world=1\n"
+    assert results[1]["n_devices"] == 1
+    assert results[1]["loss"] == results[0]["loss"]

@@ -415,7 +415,7 @@ def test_reset_keeps_the_pools_in_place_and_zeroes_them(models, engine):
 def test_warmup_all_on_a_plain_model_falls_back(models, caplog):
     state = {"ready": False}
     with caplog.at_level(logging.WARNING, logger="serve_cli"):
-        tserve.warmup(models[1], state, mode="all")
+        tserve.warmup(models[1], state, "", mode="all")
     assert state["ready"] and "warmup" not in state
     assert "--warmup=all needs --continuous-batching" in caplog.text
 

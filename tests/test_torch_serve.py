@@ -197,6 +197,23 @@ def test_chip_smoke_bound_reads_only_the_keys_the_masks_leave(
         assert whole[0] == pytest.approx(cut[0])
 
 
+@pytest.mark.parametrize("kind,outputs", [
+    # out (Sq × D bf16) and lse (Sq f32) per q head; dq; dk and dv over
+    # every key of each kv head; all three.
+    ("fwd", 32 * 8192 * (128 * 2 + 4)), ("dq", 32 * 8192 * 128 * 2),
+    ("dkv", 2 * 8 * 8192 * 128 * 2),
+    ("bwd", (32 + 2 * 8) * 8192 * 128 * 2),
+])
+def test_chip_smoke_bound_of_a_wholly_future_shard_counts_its_outputs(
+        kind, outputs):
+    """A ring's shard in the queries' future: no key is visible, the
+    kernels read no input, and the bound is the outputs' bytes."""
+    ms, by = chip_smoke.flash_bound(1, 32, 8, 8192, 8192, 128, "bfloat16",
+                                    True, q_base=0, k_base=8192, kind=kind)
+    assert by == "bytes"
+    assert ms == pytest.approx(outputs / chip_smoke.HBM_BYTES_PER_S * 1e3)
+
+
 def test_chip_smoke_grad_check_sees_a_wrong_tile_of_small_rows():
     """A backward that is 30 % wrong on a 64-row tile of small late rows
     passes a check against the largest |gradient| but fails the

@@ -190,10 +190,13 @@ def test_train_cli_default_model_is_mnist(capsys):
     assert out["model"] == "mnist" and out["batch_size"] == 64
 
 
-@pytest.mark.parametrize("flag", [["--tp", "2"], ["--sp", "2"],
+# --sp is ported for the transformer and --distributed for every model
+# (tests/test_torch_train_dist.py); --sp stays refused for the others.
+@pytest.mark.parametrize("flag", [["--tp", "2"],
+                                  ["--sp", "2", "--model", "mnist"],
                                   ["--ep", "2"], ["--pp", "2"],
                                   ["--microbatches", "4"],
-                                  ["--distributed"]])
+                                  ["--sp", "2", "--model", "bert"]])
 def test_multi_gpu_flags_are_not_ported_yet(flag):
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         train_cli.main(["--model", "transformer", "--device", "cpu", *flag])

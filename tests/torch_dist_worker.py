@@ -1,0 +1,228 @@
+# Copyright 2026 The TPU Accelerator Stack Authors.
+# SPDX-License-Identifier: Apache-2.0
+"""One rank of a multi-process gloo world for the port's parallel tests.
+
+    python tests/torch_dist_worker.py <scenario> <rank> <world> <dir>
+
+Joins a gloo world through a ``file://`` store in ``<dir>`` (a test's own
+``tmp_path``, so concurrent tests never share a rendezvous), runs the
+scenario on meshes of ``train_cli.build_mesh`` and writes
+``<dir>/<scenario>_rank<rank>.pkl``:
+
+  ring    every case of ``RING_CASES[world]``, on the ``{"dp": dp, "sp":
+          world / dp}`` mesh of its dp: this rank's shard of the output
+          and of dq, dk, dv for the cotangent ``g`` (``ring_inputs``)
+  train   every case of ``<dir>/train_in.pkl`` (JAX's initial weights
+          and batches, written by the test) on the mesh of its sp: the
+          port's train step, a step per batch; the losses, the final
+          weights and, for the AdamW models, the moments
+
+Imports torch and the port only: the tests import this module for its
+inputs and compare against the JAX package themselves.
+"""
+
+import os
+import pickle
+import sys
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# (name, dp, impl, causal, B, Hq, Hkv, S, D) per world size: GQA
+# everywhere but "mha"; dp 2 of a world of 4 is the 2×2 dp×sp mesh.
+RING_CASES = {
+    2: [("flash_causal", 1, "flash", True, 2, 4, 2, 64, 16),
+        ("flash_full", 1, "flash", False, 2, 4, 2, 64, 16),
+        ("plain_causal", 1, "plain", True, 2, 4, 2, 64, 16),
+        ("plain_full", 1, "plain", False, 2, 4, 2, 64, 16),
+        ("flash_mha", 1, "flash", True, 1, 2, 2, 64, 16)],
+    4: [("flash_causal", 1, "flash", True, 2, 4, 2, 64, 16),
+        ("flash_full", 1, "flash", False, 2, 4, 2, 64, 16),
+        ("plain_causal", 1, "plain", True, 2, 4, 2, 64, 16),
+        ("dpxsp_flash_causal", 2, "flash", True, 2, 4, 2, 64, 16),
+        ("dpxsp_plain_causal", 2, "plain", True, 2, 4, 2, 64, 16)],
+}
+
+
+def ring_inputs(case):
+    """The global q, k, v and cotangent g of a ring case, f32, from a
+    numpy generator seeded by the case's shape."""
+    b, hq, hkv, s, d = case[4:]
+    rng = np.random.default_rng(hq * 1000 + hkv * 100 + s + b)
+
+    def normal(*shape):
+        return rng.standard_normal(shape, dtype=np.float32)
+    return (normal(b, hq, s, d), normal(b, hkv, s, d), normal(b, hkv, s, d),
+            normal(b, hq, s, d))
+
+
+def shard(x, dp_index, dp, sp_index, sp):
+    """A rank's block of a (B, H, S, D) array: its rows and positions."""
+    rows, seq = x.shape[0] // dp, x.shape[2] // sp
+    return x[dp_index * rows:(dp_index + 1) * rows, :,
+             sp_index * seq:(sp_index + 1) * seq]
+
+
+def _ring(world):
+    import torch
+
+    from container_engine_accelerators_tpu_torch.models import train_cli
+    from container_engine_accelerators_tpu_torch.parallel import (
+        data_parallel,
+        ring_attention,
+    )
+
+    meshes = {}
+    out = {}
+    for case in RING_CASES[world]:
+        name, dp, impl, causal = case[:4]
+        if dp not in meshes:
+            meshes[dp] = train_cli.build_mesh(world, world // dp, 1,
+                                              device_type="cpu")
+        mesh = meshes[dp]
+        dp_index = data_parallel.axis(mesh, "dp")[0]
+        sp_index, sp = data_parallel.axis(mesh, "sp")
+        q, k, v, g = (torch.tensor(shard(x, dp_index, dp, sp_index, sp),
+                                   requires_grad=True)
+                      for x in ring_inputs(case))
+        o = ring_attention.ring_attention(q, k, v, mesh, "sp",
+                                          causal=causal, impl=impl)
+        o.backward(g.detach())
+        out[name] = {"out": o.detach().numpy(), "dq": q.grad.numpy(),
+                     "dk": k.grad.numpy(), "dv": v.grad.numpy()}
+    return out
+
+
+def _moments(model, opt, grads_to_jax):
+    """AdamW's first and second moments (optax's ``mu`` and ``nu``) as
+    JAX-layout trees, read through the gradient reader: each parameter's
+    ``.grad`` set to the moment in turn."""
+    out = {}
+    for key, name in (("exp_avg", "mu"), ("exp_avg_sq", "nu")):
+        for p in model.parameters():
+            p.grad = opt.state[p][key]
+        out[name] = grads_to_jax(model)
+    return out
+
+
+def _train(world, workdir):
+    import torch
+
+    from container_engine_accelerators_tpu_torch.models import (
+        bert,
+        mnist,
+        resnet,
+        train_cli,
+        transformer,
+        weights,
+    )
+
+    with open(os.path.join(workdir, "train_in.pkl"), "rb") as f:
+        cases = pickle.load(f)
+    out = {}
+    for name, case in cases.items():
+        model_kind = case["model"]
+        mesh = train_cli.build_mesh(world, case["sp"], 1, device_type="cpu")
+        if model_kind == "transformer":
+            cfg = transformer.TransformerConfig(**case["cfg"])
+            model = weights.params_from_jax(case["params"], cfg,
+                                            device="cpu")
+            init, step = transformer.make_train_step(cfg, device="cpu",
+                                                     mesh=mesh)
+        elif model_kind == "mnist":
+            model = weights.load_jax_tree(mnist.Mnist("cpu"), case["params"])
+            init, step = mnist.make_train_step(device="cpu", mesh=mesh)
+        elif model_kind == "bert":
+            cfg = bert.BertConfig(**case["cfg"])
+            model = weights.load_jax_tree(bert.Bert(cfg, "cpu"),
+                                          case["params"])
+            init, step = bert.make_train_step(cfg, device="cpu", mesh=mesh)
+        else:
+            model = resnet.ResNet([1, 1], 10, torch.float32, "cpu")
+            weights.load_jax_tree(model, case["params"])
+            weights.load_jax_tree(model, case["batch_stats"])
+            init, step = resnet.make_train_step(None, mesh=mesh)
+        state = init(model=model)
+        losses = []
+        for batch in case["batches"]:
+            state, loss = step(state, batch)
+            losses.append(float(loss))
+        result = {"losses": losses}
+        if model_kind == "transformer":
+            result["params"] = weights.params_to_jax(model)
+            result.update(_moments(model, state[1], weights.grads_to_jax))
+        else:
+            result["params"] = weights.jax_tree(model)
+        if model_kind == "bert":
+            result.update(_moments(model, state[1],
+                                   lambda m: weights.jax_tree(m, "grads")))
+        if model_kind == "resnet":
+            result["batch_stats"] = weights.jax_tree(model, "buffers")
+        out[name] = result
+    return out
+
+
+def main(argv):
+    scenario, rank, world, workdir = argv
+    rank, world = int(rank), int(world)
+    sys.path.insert(0, REPO)
+    import torch.distributed as dist
+
+    dist.init_process_group(
+        "gloo", init_method=f"file://{os.path.join(workdir, 'rdv')}",
+        rank=rank, world_size=world)
+    try:
+        if scenario == "ring":
+            out = _ring(world)
+        elif scenario == "train":
+            out = _train(world, workdir)
+        else:
+            raise ValueError(f"unknown scenario {scenario!r}")
+    finally:
+        dist.destroy_process_group()
+    path = os.path.join(workdir, f"{scenario}_rank{rank}.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(out, f)
+
+
+def spawn(scenario, world, workdir, timeout=300):
+    """Run ``scenario`` in a gloo world of ``world`` processes of this
+    script (one thread each, so the ranks do not oversubscribe the
+    cores); returns each rank's output in rank order. A rank that fails
+    or a world that outlives ``timeout`` kills the rest and raises with
+    every rank's log."""
+    import subprocess
+
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("TPU_", "MEGASCALE_", "LOCAL_"))}
+    env.update(OMP_NUM_THREADS="1", PYTHONPATH=REPO)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), scenario, str(rank),
+         str(world), str(workdir)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for rank in range(world)]
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=timeout)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        raise AssertionError(
+            f"ranks {failed} of the {scenario} world failed:\n"
+            + "\n".join(f"--- rank {r}\n{log}" for r, log in enumerate(logs)))
+    outs = []
+    for rank in range(world):
+        with open(os.path.join(workdir, f"{scenario}_rank{rank}.pkl"),
+                  "rb") as f:
+            outs.append(pickle.load(f))
+    return outs
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
