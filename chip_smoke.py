@@ -108,9 +108,22 @@ a wholly-future shard among them, held to its plain version, each step
 timed beside the whole sequence), train_dist (``train_cli --distributed``
 as a world of one over NCCL through the env contract: the bootstrap
 marker, ``n_devices`` 1, every step's loss equal to the same run without
-``--distributed``), hostbench (the port's host-loop bench on
+``--distributed``), compile_cache (two fresh processes in turn on one
+new ``--compile-cache-dir`` directory (``warmstart/cache.py``), each
+building the three nvcc libraries and launching each Triton stream
+kernel once: the first misses each library and runs nvcc, the second
+hits each and runs none, and Triton's specialisations likewise; hits,
+misses, seconds and the files of each), train_cli_cache (``train_cli
+--compile-cache-dir`` twice in fresh processes on one directory, the
+CLI's small transformer, a preemption under ``--max-restarts 1``: the
+second run builds nothing, and each restart event carries its attempt's
+``cache_hits``/``cache_misses``), hostbench (the port's host-loop bench on
 this machine's CPU: host microseconds per token with fake device seams,
 paged, dense and paged with ngram; a host measurement, not the card's),
+fleet_drills (the port's hermetic fleet tier on this machine's CPU at
+each CLI's defaults: the replica-kill chaos drill of ``fleet/sim.py``,
+the restart storm of ``faults/storm.py`` and the disaggregation bench of
+``fleet/disagg.py``; fails on any ``pass: false``),
 device_bench (the single-card qualification rows of
 ``collectives/device_bench.py`` in the JAX package's bench.py order at
 its arguments, plus the int8 decode row and the batcher head-to-head: one
@@ -118,7 +131,8 @@ line a row with the card's name and power limit; fails on a reading <= 0
 or above 1.05 of its peak, a matmul shape, decode point or HBM pattern
 that errs, an S 32768 row that missed the flash kernels or an int8 row
 that missed ``int8_mm`` or whose launches are not 7 × layers per
-prefill and per graph replay), device_bench_int8_tokens (that row's
+prefill and per graph replay, or a saturated serving row whose
+``occupancy_frac`` is under 0.8), device_bench_int8_tokens (that row's
 decoded tokens, equal in every run and each within SERVE_LOGITS_ATOL of
 the plain int8 model's top logit on its own context), stream_kernels
 (the Triton triad, read and copy of ``ops/stream.py`` against their
@@ -1242,12 +1256,10 @@ def serve_paged(torch, np, tf, serve_cli, attention, card, model):
 
     for name, prompt in prompts.items():
         _check_response(name, results[name], prompt, max_new[name], vocab)
-    windows = warm["cache_hits"] + warm["cache_misses"]
-    warm_segments = warm["tasks"] - windows
     n_windows = len(tf.serving_shape_buckets(cfg, engine.prefill_chunk,
                                              engine.chunk)["windows"])
-    if warm["cache_misses"] != n_windows or \
-            at_ready["graph_captures"] != n_windows:
+    warm_segments = warm["tasks"] - n_windows
+    if at_ready["graph_captures"] != n_windows:
         fail(f"serve_paged: the warmup captured {at_ready['graph_captures']} "
              f"decode graphs, want one per window ({n_windows})")
     if at_ready["launches"] != cfg.n_layers * (warm_segments
@@ -2097,8 +2109,7 @@ def serve_dense(torch, np, tf, serve_cli, attention, card, model):
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     emit(row)
-    if warm["cache_misses"] != n_graphs or \
-            at_ready["graph_captures"] != n_graphs:
+    if at_ready["graph_captures"] != n_graphs:
         fail(f"serve_dense: the warmup captured {at_ready['graph_captures']} "
              f"decode graphs, want one per (window, mask) ({n_graphs})")
     if at_ready["launches"] != cfg.n_layers * (warm_prefills
@@ -3593,6 +3604,217 @@ def hostbench_phase():
     emit(row)
 
 
+# compile_cache: one fresh process arms the cache in a directory, builds
+# the nvcc libraries and launches each Triton stream kernel once at a
+# small size, then prints its counts; the phase runs it twice on one
+# directory.
+COMPILE_CACHE_CHILD = r"""
+import json, os, sys, time
+import torch
+from container_engine_accelerators_tpu_torch.ops import _ext, stream
+from container_engine_accelerators_tpu_torch.warmstart import cache as ws
+cache = ws.configure(sys.argv[1], key="chip_smoke")
+t0 = time.perf_counter()
+_ext.build()
+build_s = time.perf_counter() - t0
+nvcc = sorted(n for n, i in _ext.build_info.items() if i["seconds"] > 0)
+after_nvcc = cache.snapshot()
+x, y, z = (torch.ones(1 << 16, device="cuda", dtype=torch.bfloat16)
+           for _ in range(3))
+acc = torch.zeros(1, device="cuda")
+t0 = time.perf_counter()
+triton = {"error": None}
+try:
+    stream.triad(x, y, z, 2.0, 1e-3, z)
+    stream.stream_read(x, acc, 1e-9)
+    stream.stream_copy(x, y, z, c=0.5, eps=1e-3)
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    if "compiled specialisations" not in str(e):
+        raise
+    triton["error"] = str(e)
+triton_s = time.perf_counter() - t0
+end = cache.snapshot()
+files = sorted(os.path.relpath(os.path.join(r, f), cache.dir)
+               for r, _, fs in os.walk(cache.dir) for f in fs)
+print(json.dumps({
+    "nvcc": {"hits": after_nvcc["hits"], "misses": after_nvcc["misses"],
+             "ran": nvcc, "seconds": build_s},
+    "triton": {"hits": end["hits"] - after_nvcc["hits"],
+               "misses": end["misses"] - after_nvcc["misses"],
+               "seconds": triton_s, "error": triton["error"]},
+    "files": files}))
+"""
+
+
+def compile_cache_phase(card):
+    """The persistent compile cache (``warmstart/cache.py``) on the card:
+    two fresh processes in turn on one new directory, each arming the
+    cache there, building the nvcc libraries and launching each Triton
+    stream kernel once. The first must miss each of the three libraries
+    (and run nvcc for each), the second hit each and run no nvcc; the
+    same for Triton's specialisations, unless this Triton's count cannot
+    be read (the line then says why)."""
+    import tempfile
+
+    from container_engine_accelerators_tpu_torch.ops import _ext
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_cache_")
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", COMPILE_CACHE_CHILD, work],
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode:
+            fail(f"compile_cache: a child exited {proc.returncode}:\n"
+                 f"{proc.stderr[-4000:]}")
+        runs.append({**json.loads(proc.stdout.strip().splitlines()[-1]),
+                     "process_s": time.perf_counter() - t0})
+    cold, warm = runs
+    row = {"phase": "compile_cache", **card, "dir": work,
+           "cold": cold, "warm": warm}
+    emit(row)
+    n = len(_ext.SOURCES)
+    if cold["nvcc"]["misses"] != n or len(cold["nvcc"]["ran"]) != n:
+        fail(f"compile_cache: the first process missed "
+             f"{cold['nvcc']['misses']} and ran nvcc for "
+             f"{cold['nvcc']['ran']}, want each of the {n} libraries")
+    if warm["nvcc"] != {**warm["nvcc"], "hits": n, "misses": 0, "ran": []}:
+        fail(f"compile_cache: the second process counted "
+             f"{warm['nvcc']}, want {n} hits, no miss and no nvcc")
+    if warm["files"] != cold["files"] and any(
+            f.startswith("torch_ext/") for f in
+            set(warm["files"]) - set(cold["files"])):
+        fail("compile_cache: the second process added libraries")
+    if cold["triton"]["error"] is None:
+        if cold["triton"]["misses"] < len(STREAM_KERNELS) or \
+                warm["triton"]["misses"] or \
+                warm["triton"]["hits"] != cold["triton"]["misses"]:
+            fail(f"compile_cache: Triton counted {cold['triton']} cold "
+                 f"and {warm['triton']} warm; want a miss for each "
+                 f"stream kernel, then as many hits and no miss")
+    return row
+
+
+def train_cli_cache_phase(card):
+    """``train_cli --compile-cache-dir`` twice in fresh processes on one
+    directory, at the CLI's small transformer default with an event log
+    and a preemption at step 2 under ``--max-restarts 1``: the first
+    run's builds miss (nvcc runs for the flash libraries), the second's
+    only hit, and each run's supervisor restart event carries its
+    attempt's ``cache_hits``/``cache_misses``."""
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_cache_")
+    cache_dir = os.path.join(work, "cache")
+    plan = os.path.join(work, "plan.json")
+    with open(plan, "w") as f:
+        json.dump({"faults": [{"kind": "preemption", "site": "train.step",
+                               "at": 2}]}, f)
+    runs = []
+    for i in range(2):
+        events = os.path.join(work, f"events{i}.jsonl")
+        argv = [sys.executable, "-m",
+                "container_engine_accelerators_tpu_torch.models.train_cli",
+                "--model", "transformer", "--steps", "4",
+                "--compile-cache-dir", cache_dir, "--event-log", events,
+                "--fault-plan", plan, "--max-restarts", "1",
+                "--restart-backoff-s", "0.01", "--checkpoint-every", "1",
+                "--checkpoint-dir", os.path.join(work, f"ckpt{i}")]
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode:
+            fail(f"train_cli_cache: run {i} exited {proc.returncode}:\n"
+                 f"{proc.stderr[-4000:]}")
+        result = json.loads(proc.stdout.strip().splitlines()[-1])
+        with open(events) as f:
+            records = [json.loads(line) for line in f if line.strip()]
+        kinds = {}
+        for r in records:
+            kinds.setdefault(r.get("kind") or r.get("event"), []).append(r)
+        restarts = [{k: r.get(k) for k in ("cache_hits", "cache_misses",
+                                           "attempt", "action")}
+                    for r in kinds.get("train_recovery", [])]
+        (configured,) = kinds.get("compile_cache_configured", [None])
+        runs.append({"process_s": time.perf_counter() - t0,
+                     "restarts": result.get("restarts"),
+                     "loss": result.get("loss"),
+                     "recovery_events": restarts,
+                     "configured": configured and {
+                         k: configured[k] for k in ("key", "runtime_cache")},
+                     "libraries": sorted(os.listdir(os.path.join(
+                         configured["dir"], "torch_ext")))
+                     if configured else None})
+    cold, warm = runs
+    emit({"phase": "train_cli_cache", **card, "cold": cold, "warm": warm})
+    for name, run in (("cold", cold), ("warm", warm)):
+        if run["configured"] is None or run["restarts"] != 1 or \
+                len(run["recovery_events"]) != 1 or \
+                not math.isfinite(run["loss"]):
+            fail(f"train_cli_cache: the {name} run: {run}")
+        if run["recovery_events"][0]["cache_hits"] is None:
+            fail(f"train_cli_cache: the {name} run's restart event "
+                 f"carries no cache deltas: {run['recovery_events']}")
+    if cold["configured"]["key"] != warm["configured"]["key"]:
+        fail("train_cli_cache: the two runs keyed their caches apart")
+    first, second = (r["recovery_events"][0] for r in runs)
+    if first["cache_misses"] < 1 or second["cache_misses"] or \
+            second["cache_hits"] < 1 or \
+            warm["libraries"] != cold["libraries"]:
+        fail(f"train_cli_cache: cold attempt {first}, warm attempt "
+             f"{second}, libraries {cold['libraries']} then "
+             f"{warm['libraries']}: want misses, then only hits and no "
+             f"new library")
+
+
+def fleet_drills_phase():
+    """The port's hermetic fleet tier on this machine's CPU (fake device
+    seams, no card), at each CLI's defaults: the replica-kill chaos drill
+    (``fleet/sim.py``), the restart storm (``faults/storm.py``) and the
+    disaggregation bench (``fleet/disagg.py``, its strict timing gates
+    on). Fails on any ``pass: false``."""
+    import tempfile
+
+    from container_engine_accelerators_tpu_torch.faults import storm
+    from container_engine_accelerators_tpu_torch.fleet import disagg
+    from container_engine_accelerators_tpu_torch.fleet import sim
+
+    row = {"phase": "fleet_drills",
+           "measures": "the fleet tier's host loop on the CPU (fake device "
+                       "seams), not the card"}
+    drills = {
+        "chaos": lambda: sim.run_drill(),
+        "storm": lambda: storm.run_drill(
+            work_dir=tempfile.mkdtemp(prefix="chip_smoke_storm_")),
+        "disagg": lambda: disagg.run_bench(),
+    }
+    keep = {
+        "chaos": ("requests", "served", "retired", "reissued", "ejections",
+                  "readmissions", "scale_outs", "scale_ins",
+                  "replicas_final"),
+        "storm": ("restarts", "attempts", "checkpoint_fallbacks",
+                  "serve_timing", "compile_cache", "train_compile_s"),
+        "disagg": ("baseline", "unified", "split", "storm", "fault",
+                   "tpot_inflation_unified", "tpot_inflation_split"),
+    }
+    failed = []
+    for name, run in drills.items():
+        t0 = time.perf_counter()
+        verdict = run()
+        row[name] = {"pass": verdict["pass"],
+                     "seconds": time.perf_counter() - t0,
+                     "failures": verdict["failures"],
+                     **{k: verdict.get(k) for k in keep[name]}}
+        if not verdict["pass"]:
+            failed.append(name)
+    emit(row)
+    if failed:
+        fail(f"fleet_drills: {failed} failed: "
+             f"{[row[n]['failures'] for n in failed]}")
+
+
 def serve_obs_int8(torch, np, serve_cli, attention, int8_matmul, card,
                    model, load_bytes):
     """serve_obs's dense checks on the int8 model (``--quantize int8``):
@@ -4661,6 +4883,12 @@ def _device_bench_problems(label, out, cfg_layers):
                d["flash_dkv_launches"])
         if got != (64, 32, 32):
             bad.append(f"flash launches {got}, want (64, 32, 32)")
+    elif label == "continuous_serving_saturated":
+        # Closed-loop clients keep every slot busy: the steps-weighted
+        # slot occupancy read 1.0 on the card.
+        if not d["occupancy_frac"] >= MIN_SATURATED_OCCUPANCY:
+            bad.append(f"occupancy_frac {d['occupancy_frac']} < "
+                       f"{MIN_SATURATED_OCCUPANCY}")
     elif label == "decode_throughput_int8":
         # One eager prefill through every projection, then every decode
         # step a replay of a captured graph that launches each of them.
@@ -4677,6 +4905,8 @@ def _device_bench_problems(label, out, cfg_layers):
 
 
 STREAM_KERNELS = ("stream_triad", "stream_read", "stream_copy")
+# The saturated serving row's slot occupancy must stay at least this.
+MIN_SATURATED_OCCUPANCY = 0.8
 
 
 @contextlib.contextmanager
@@ -4729,6 +4959,9 @@ def device_bench_phase(torch, db, attention, int8_matmul, stream, card):
                "seconds": time.perf_counter() - t0}
         row.update(out.to_json() if isinstance(out, db.DeviceBenchResult)
                    else {"detail": out})
+        if label == "continuous_serving_saturated":
+            row["occupancy_frac"] = out.detail["occupancy_frac"]
+            row["min_occupancy_frac"] = MIN_SATURATED_OCCUPANCY
         emit(row)
         bad += [f"{label}: {p}" for p in
                 _device_bench_problems(label, out, layers)]
@@ -5021,7 +5254,10 @@ def main():
                                   card)
     _free(torch)
     train_dist_launches = train_dist_phase(card)
+    compile_cache_phase(card)
+    train_cli_cache_phase(card)
     hostbench_phase()
+    fleet_drills_phase()
     bench_launches, int8_decodes = device_bench_phase(
         torch, db, attention, int8_matmul, stream, card)
     _free(torch)

@@ -8,7 +8,8 @@ Copy of ``container_engine_accelerators_tpu/faults/__init__.py``:
 hook surface the port's engine uses: ``faults.tick(site)`` /
 ``faults.fire(site)`` are free no-ops until a :class:`FaultPlan` is
 armed. The port's armed plan is its own, independent of the JAX
-package's."""
+package's. :mod:`.storm` is the restart-storm drill on the port's
+supervisor, checkpoints and compile cache."""
 
 from container_engine_accelerators_tpu_torch.faults.plan import (  # noqa: F401
     FAULT_KINDS,

@@ -1,6 +1,24 @@
 # Copyright 2026 The TPU Accelerator Stack Authors.
 # SPDX-License-Identifier: Apache-2.0
-"""Fleet serving tier, port: only :mod:`.tenants` (tenant classes,
-weighted queue shares and token-rate quotas at the engine's admission),
-a copy of the JAX package's module. The router, the autoscaler and the
-fleet simulator are not ported yet (ROADMAP.md)."""
+"""Fleet serving tier, port. Copies of the JAX package's modules, their
+imports pointed at the port's:
+
+  * :mod:`.tenants` — tenant classes, weighted queue shares and
+    token-rate quotas at the engine's admission;
+  * :mod:`.router` — the replica router (consistent-hash prefix
+    affinity, probes, ejection and re-admission, idempotent re-issue,
+    the prefix directory and KV handoff between replicas);
+  * :mod:`.autoscaler` — the burn-rate driven scale-out/scale-in loop
+    and its gang placer;
+  * :mod:`.lifecycle` — the autoscaler's hands on the cluster (replica
+    pods, gang binding, reconciliation);
+
+and the hermetic tier on the port's engines (fake device seams, the CPU):
+
+  * :mod:`.sim` — replicas, the replica-kill chaos drill and the
+    membership storm;
+  * :mod:`.disagg` — the disaggregated prefill/decode bench.
+
+Not ported yet (ROADMAP.md): ``journeydrill``, ``daysim``, ``linksim``
+and ``flightdrill``.
+"""

@@ -124,6 +124,13 @@ whose next admission of that prompt reuses them instead of prefilling.
 The stream is JAX's byte for byte, so either package installs the
 other's; the install writes the pools in place.
 
+``--compile-cache-dir`` arms the persistent compile cache
+(``warmstart/cache.py``) keyed as JAX keys it: the kernel builds land
+there, so a replacement replica builds nothing. The fleet tier runs
+port replicas: the port's copies of the router and the autoscaler
+(``fleet/``) and its hermetic drills (``fleet/sim.py``,
+``fleet/disagg.py``, ``faults/storm.py``).
+
 Not ported yet (ROADMAP.md): the multi-host link and tensor
 parallelism. The fleet reactor (``faults/reactor.FleetReactor`` of the
 JAX package and its CLI) is jax-free control plane: it cordons nodes and
@@ -151,6 +158,7 @@ has no flag that reaches them) is refused by ``Model``, the engines and
 import argparse
 import base64
 import collections
+import dataclasses
 import functools
 import itertools
 import json
@@ -197,6 +205,9 @@ from container_engine_accelerators_tpu_torch.obs import ports as obs_ports
 from container_engine_accelerators_tpu_torch.obs import trace as obs_trace
 from container_engine_accelerators_tpu_torch.ops import paged_attention as pa
 from container_engine_accelerators_tpu_torch.utils import profiling
+from container_engine_accelerators_tpu_torch.warmstart import (
+    cache as ws_cache,
+)
 from container_engine_accelerators_tpu_torch.warmstart import (
     warmup as ws_warmup,
 )
@@ -1100,11 +1111,11 @@ class ContinuousEngine:
     # -- public surface -------------------------------------------------------
 
     def _shed_tenant(self, exc, tenant_class, rows, trace_id=""):
-        """Account one tenant-policy shed (quota / class share) and raise
-        it: the per-class counters and the SLO budget move and a
-        ``tenant_shed`` event lands on the stream, but no
-        ``request_shed`` record (that one reports engine-wide overload
-        only)."""
+        """Account one tenant-policy shed (quota / class share): the
+        per-class counters and the SLO budget move and a ``tenant_shed``
+        event lands on the stream, but no ``request_shed`` record (that
+        one reports engine-wide overload only). Called after the
+        admission lock is released."""
         self._m_shed.labels(exc.reason).inc(rows)
         self._m_tenant_shed.labels(tenant_class, exc.reason).inc(rows)
         if self.slo is not None:
@@ -1116,6 +1127,91 @@ class ContinuousEngine:
                 tenant_class=tenant_class, reason=exc.reason, rows=rows,
                 trace_id=trace_id,
             )
+
+    def _shed_queue_full(self, rows, tenant_class, queue_depth):
+        """Account one ``queue_full`` shed of ``rows`` rows: the shed
+        counter, the SLO budget and a ``request_shed`` record. Called
+        after the admission lock is released."""
+        self._m_shed.labels("queue_full").inc(rows)
+        if self.slo is not None:
+            for _ in range(rows):
+                self.slo.record_shed("queue_full", tenant_class)
+        if self.events is not None:
+            self.events.emit(
+                "request_shed", severity="warning",
+                reason="queue_full", rows=rows, queue_depth=queue_depth,
+            )
+
+    def _admit_rows(self, tokens, max_new_tokens, deadline_s, tenant,
+                    trace_id, trace_sampled):
+        """Check and queue a request's rows under the admission lock;
+        returns them, or accounts the shed once the lock is released and
+        raises it."""
+        shed = None
+        with self._admit_lock:
+            tcls = None
+            if self.tenants is not None:
+                tcls = self.tenants.resolve(tenant)
+                # The class's share of the bounded queue first; the quota
+                # last, so only work that passes every other gate consumes
+                # bucket tokens.
+                if self.max_queue:
+                    bound = max(1, int(tcls.queue_share * self.max_queue))
+                    depth = self._q.depth(tcls.name)
+                    if depth + len(tokens) > bound:
+                        shed = (ClassShareExceeded(
+                            f"tenant class {tcls.name} queue share full "
+                            f"({depth} waiting, share bound {bound}); "
+                            f"retry with backoff", tenant=tcls.name,
+                        ), None)
+            # Exact among admissions (they hold the lock); the loop's
+            # own re-queues (a drain's migrations) bypass it.
+            if shed is None and self.max_queue and \
+                    self._q.qsize() + len(tokens) > self.max_queue:
+                depth = self._q.qsize()
+                shed = (QueueFull(
+                    f"admission queue full ({depth} waiting, bound "
+                    f"{self.max_queue}); retry with backoff"
+                ), depth)
+            if shed is None and tcls is not None and \
+                    not self.tenants.try_consume(
+                        tcls.name, len(tokens) * int(max_new_tokens)):
+                shed = (QuotaExceeded(
+                    f"tenant class {tcls.name} outran its token-rate "
+                    f"quota; retry with backoff", tenant=tcls.name,
+                ), None)
+            if shed is None:
+                if deadline_s is None:
+                    deadline_s = self.deadline_s
+                t_enq = obs_trace.now()
+                rows = [
+                    {
+                        "prompt": [int(t) for t in r],
+                        "max_new": int(max_new_tokens),
+                        "out": None,
+                        "finish_step": None,
+                        "event": threading.Event(),
+                        "err": None,
+                        "rid": next(self._rid),
+                        "t_enq": t_enq,
+                        "deadline": (t_enq + deadline_s) if deadline_s
+                        else None,
+                        "tenant": tcls.name if tcls is not None else None,
+                        "trace_id": trace_id,
+                        "trace_sampled": trace_sampled,
+                    }
+                    for r in tokens
+                ]
+                for row in rows:
+                    self._q.put(row)
+                return rows
+        exc, queue_depth = shed
+        tenant_class = tcls.name if tcls is not None else "default"
+        if isinstance(exc, QueueFull):
+            self._shed_queue_full(len(tokens), tenant_class, queue_depth)
+        else:
+            self._shed_tenant(exc, tenant_class, len(tokens),
+                              trace_id=trace_id)
         raise exc
 
     def generate(self, tokens, max_new_tokens, temperature=0.0, top_k=0,
@@ -1132,7 +1228,10 @@ class ContinuousEngine:
         any row is queued. ``deadline_s`` (else the engine's) sets the
         rows' admission deadline; ``tenant`` names their class;
         ``traceparent`` (W3C) names the trace their spans and events
-        carry."""
+        carry. The checks and the put hold the admission lock; a shed is
+        accounted (counters, SLO, event stream, whose sink may write a
+        file) after it is released, so a slow sink never holds up
+        another admission."""
         temperature, top_k, top_p = sanitize_sampler(
             temperature, top_k, top_p, self.cfg.vocab_size
         )
@@ -1157,72 +1256,8 @@ class ContinuousEngine:
             )
         if self._stop.is_set():
             raise RuntimeError("engine is shut down")
-        with self._admit_lock:
-            tcls = None
-            if self.tenants is not None:
-                tcls = self.tenants.resolve(tenant)
-                # The class's share of the bounded queue first; the quota
-                # last, so only work that passes every other gate consumes
-                # bucket tokens.
-                if self.max_queue:
-                    bound = max(1, int(tcls.queue_share * self.max_queue))
-                    if self._q.depth(tcls.name) + len(tokens) > bound:
-                        self._shed_tenant(ClassShareExceeded(
-                            f"tenant class {tcls.name} queue share full "
-                            f"({self._q.depth(tcls.name)} waiting, share "
-                            f"bound {bound}); retry with backoff",
-                            tenant=tcls.name,
-                        ), tcls.name, len(tokens), trace_id=trace_id)
-            # Exact among admissions (they hold the lock); the loop's
-            # own re-queues (a drain's migrations) bypass it.
-            if self.max_queue and \
-                    self._q.qsize() + len(tokens) > self.max_queue:
-                self._m_shed.labels("queue_full").inc(len(tokens))
-                if self.slo is not None:
-                    for _ in tokens:
-                        self.slo.record_shed(
-                            "queue_full",
-                            tcls.name if tcls is not None else "default")
-                if self.events is not None:
-                    self.events.emit(
-                        "request_shed", severity="warning",
-                        reason="queue_full", rows=len(tokens),
-                        queue_depth=self._q.qsize(),
-                    )
-                raise QueueFull(
-                    f"admission queue full ({self._q.qsize()} waiting, "
-                    f"bound {self.max_queue}); retry with backoff"
-                )
-            if tcls is not None and not self.tenants.try_consume(
-                tcls.name, len(tokens) * int(max_new_tokens)
-            ):
-                self._shed_tenant(QuotaExceeded(
-                    f"tenant class {tcls.name} outran its token-rate "
-                    f"quota; retry with backoff", tenant=tcls.name,
-                ), tcls.name, len(tokens), trace_id=trace_id)
-            if deadline_s is None:
-                deadline_s = self.deadline_s
-            t_enq = obs_trace.now()
-            rows = [
-                {
-                    "prompt": [int(t) for t in r],
-                    "max_new": int(max_new_tokens),
-                    "out": None,
-                    "finish_step": None,
-                    "event": threading.Event(),
-                    "err": None,
-                    "rid": next(self._rid),
-                    "t_enq": t_enq,
-                    "deadline": (t_enq + deadline_s) if deadline_s
-                    else None,
-                    "tenant": tcls.name if tcls is not None else None,
-                    "trace_id": trace_id,
-                    "trace_sampled": trace_sampled,
-                }
-                for r in tokens
-            ]
-            for row in rows:
-                self._q.put(row)
+        rows = self._admit_rows(tokens, max_new_tokens, deadline_s, tenant,
+                                trace_id, trace_sampled)
         for row in rows:
             row["event"].wait()
         for row in rows:
@@ -1802,6 +1837,8 @@ class ContinuousEngine:
         if t_admit is None:
             return
         tracing = obs_trace.enabled()
+        track = f"req-{row['rid']}" if tracing else None
+        tid = row.get("trace_id", "") if tracing else ""
         ctx = row["prompt"] + row.get("generated", [])
         if len(ctx) > self.prefill_chunk:
             row["pending"] = np.asarray(ctx, np.int64)
@@ -1811,9 +1848,9 @@ class ContinuousEngine:
             self.occupied[slot] = row
             if tracing:
                 obs_trace.event("admit", t_admit, obs_trace.now() - t_admit,
-                                track=f"req-{row['rid']}", slot=slot,
+                                track=track, slot=slot,
                                 chunked=True,
-                                trace_id=row.get("trace_id", ""))
+                                trace_id=tid)
             return
         bucket = tf._length_bucket(len(ctx), self.cfg.max_seq_len)
         padded = np.zeros((1, bucket), np.int64)
@@ -1830,8 +1867,8 @@ class ContinuousEngine:
         t0_trace = obs_trace.now()
         if tracing:
             obs_trace.event("admit", t_admit, t0_trace - t_admit,
-                            track=f"req-{row['rid']}", slot=slot,
-                            trace_id=row.get("trace_id", ""))
+                            track=track, slot=slot,
+                            trace_id=tid)
         ok, first, wall = self._dense_call(
             [(slot, row)], "prefill", dispatch, "prefill",
             devt=None if self.devicetime is None
@@ -1842,9 +1879,9 @@ class ContinuousEngine:
         t_first = obs_trace.now()
         if tracing:
             obs_trace.event("prefill", t0_trace, t_first - t0_trace,
-                            track=f"req-{row['rid']}", slot=slot,
+                            track=track, slot=slot,
                             tokens=len(ctx),
-                            trace_id=row.get("trace_id", ""),
+                            trace_id=tid,
                             device_s=round(wall, 6))
         self._first_token(slot, row, len(ctx), int(first), t_first)
 
@@ -3310,6 +3347,14 @@ def build_parser():
                         "structured events (sheds, step retries, "
                         "migrations) and the fault plan's to this JSONL "
                         "file (obs/events.py schema)")
+    p.add_argument("--compile-cache-dir", default="",
+                   help="arm the persistent compile cache under this "
+                        "stack-owned directory (warmstart/cache.py; keyed "
+                        "by topology + transformer config + shape "
+                        "buckets): the kernel builds (nvcc libraries, "
+                        "Triton specialisations) land there, so a "
+                        "replacement replica reuses them; hits/misses "
+                        "land in tpu_compile_cache_{hits,misses}_total")
     p.add_argument("--warmup", choices=ws_warmup.WARMUP_MODES,
                    default="lazy",
                    help="'all' runs the continuous engine's whole shape "
@@ -3418,6 +3463,8 @@ def main(argv=None):
             tracer.write_chrome(args.trace_out)
             tracer.write_jsonl(args.trace_out + ".jsonl")
             log.info("span trace written to %s (+ .jsonl)", args.trace_out)
+        if args.compile_cache_dir:
+            ws_cache.deactivate()
 
 
 def _make_slo(args, registry):
@@ -3515,13 +3562,54 @@ def build_serving(args, model):
     return model, metrics, alerts, flight
 
 
+def _configure_compile_cache(args, cfg):
+    """Arm ``--compile-cache-dir`` keyed as JAX's serve_cli keys it: the
+    topology (``{n}x{platform}``, n the visible devices), the config and
+    the shape buckets of the chunks the engine will use (two spellings
+    of one effective config share a directory), a speculating paged
+    engine's verify widths, and its mode and k_max. JAX's config has an
+    ``overlap`` field (tensor-parallel serving, not ported yet): the key
+    holds it at JAX's default, so the same flags give JAX's key."""
+    norm_prefill, norm_chunk = normalize_chunks(
+        cfg.max_seq_len, args.prefill_chunk, args.decode_chunk)
+    paged = args.kv_cache == "paged"
+    spec_widths = None
+    if args.speculate != "off" and paged:
+        k_max, width = speculate_grid(args.speculate_k, cfg.max_seq_len)
+        spec_widths = [width]
+    buckets = tf.serving_shape_buckets(
+        cfg, norm_prefill, norm_chunk,
+        block_size=args.kv_block_size if paged else None,
+        speculate_widths=spec_widths,
+    )
+    if spec_widths:
+        buckets["speculate"] = [args.speculate, k_max]
+    device = tf.resolve_device(args.device)
+    if device.type == "cuda":
+        topology = f"{torch.cuda.device_count()}xgpu"
+    else:
+        topology = f"1x{device.type}"
+    return ws_cache.configure_from_flag(
+        args.compile_cache_dir,
+        key=ws_cache.cache_key(
+            topology=topology,
+            cfg={**dataclasses.asdict(cfg), "overlap": "auto"},
+            buckets=sorted((k, tuple(v)) for k, v in buckets.items()),
+        ),
+        sink_path=args.event_log,
+    )
+
+
 def _serve(args):
     """Build the model, what it serves (``build_serving``) and the
     server; serve until interrupted (``--once``: one request). Split
     from :func:`main` so ``--profile-dir`` and ``--trace-out`` bracket
     the whole run."""
+    cfg = config_from_args(args)
+    if args.compile_cache_dir:
+        _configure_compile_cache(args, cfg)
     model, metrics, alerts, flight = build_serving(args, Model(
-        config_from_args(args), device=args.device, quantize=args.quantize))
+        cfg, device=args.device, quantize=args.quantize))
     server, state = start_server(model, port=args.port,
                                  warmup_mode=args.warmup, metrics=metrics,
                                  replica_id=args.replica_id, role=args.role,

@@ -31,9 +31,8 @@ attempt.
 
 Copy of ``container_engine_accelerators_tpu/models/supervisor.py``, its
 imports rewritten to the port's package (the flight recorder is the
-port's ``obs/flight.py``). The port has no compile cache, so
-``_compile_cache_snapshot`` is always None and a restart event never
-carries ``cache_hits``/``cache_misses``. A watchdog-abandoned attempt
+port's ``obs/flight.py``, the compile cache the port's
+``warmstart/cache.py``). A watchdog-abandoned attempt
 keeps the device memory it holds (its model, optimizer state and
 activations) until its thread ends: a wedged CUDA call cannot be
 cancelled from Python, so a restart on the same card allocates beside
@@ -113,11 +112,17 @@ def beat(step):
 
 
 def _compile_cache_snapshot():
-    """Persistent-compile-cache counters: always None in the port, which
-    has no compile cache (its kernels are built once per checkout by
-    ``ops/_ext.py``), so a recovery event carries what the JAX
-    package's carries without ``--compile-cache-dir``."""
-    return None
+    """Armed persistent-compile-cache counters, or None when nothing
+    is armed (telemetry only — never raises)."""
+    try:
+        from container_engine_accelerators_tpu_torch.warmstart import (
+            cache as ws_cache,
+        )
+    except Exception:  # noqa: BLE001 - telemetry only
+        return None
+    if ws_cache.active() is None:
+        return None
+    return ws_cache.snapshot()
 
 
 def _compile_cache_attrs(before):
@@ -170,9 +175,9 @@ def supervise(run_fn, watchdog_s=0.0, max_restarts=0, backoff_base_s=1.0,
     the reset is about *how long* to wait, not *whether* to retry.
 
     Attempts share the process, so they share the kernels ``ops/_ext.py``
-    built and loaded: restart N+1 builds nothing. (The JAX package's
-    events also carry compile-cache hit/miss deltas; the port has no
-    compile cache.)
+    built and loaded: restart N+1 builds nothing. With a compile cache
+    armed (``--compile-cache-dir``), each recovery event carries its
+    attempt's ``cache_hits``/``cache_misses``.
     """
     rng = random.Random(seed)
     restarts = 0

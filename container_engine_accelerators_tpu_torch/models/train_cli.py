@@ -58,9 +58,15 @@ rank takes that step and state from it, so a directory local to rank
       container_engine_accelerators_tpu_torch.models.train_cli \\
       --model transformer --sp 2
 
+``--compile-cache-dir`` arms the persistent compile cache
+(``warmstart/cache.py``) under a subdirectory keyed as JAX keys it, by
+the topology (``{n}x{platform}``, n the world's devices) and the same 14
+args: the kernel builds go there, a resumed or re-launched run builds
+nothing, and the supervisor's recovery events carry each attempt's
+hits and misses.
+
 Not ported yet (ROADMAP.md): ``--tp``, ``--ep``, ``--pp`` and
-``--microbatches`` (they raise), MoE on more than one rank, and
-``--compile-cache-dir`` (the port has no compile cache).
+``--microbatches`` (they raise), and MoE on more than one rank.
 """
 
 import argparse
@@ -93,6 +99,7 @@ from container_engine_accelerators_tpu_torch.utils import (
     checkpointing,
     profiling,
 )
+from container_engine_accelerators_tpu_torch.warmstart import cache as ws_cache
 
 log = logging.getLogger("train_cli")
 
@@ -490,6 +497,15 @@ def build_parser():
     p.add_argument("--restart-backoff-reset-steps", type=int, default=50,
                    help="reset the backoff exponent after an attempt "
                         "sustains this many healthy steps (0 = never)")
+    p.add_argument("--compile-cache-dir", default="",
+                   help="arm the persistent compile cache under this "
+                        "stack-owned directory (warmstart/cache.py; "
+                        "keyed by topology + model config): the kernel "
+                        "builds (nvcc libraries, Triton specialisations) "
+                        "land there, so a supervisor resume or a "
+                        "re-launched run reuses them instead of "
+                        "rebuilding; hits/misses land in "
+                        "tpu_compile_cache_{hits,misses}_total")
     p.add_argument("--fault-plan", default="",
                    help="arm a fault-injection plan (faults/plan.py JSON) "
                         "whose faults fire at the scripted train.step hits")
@@ -569,6 +585,25 @@ def _join(args):
                               device_type=device.type)
 
 
+# The args JAX's train_cli keys its compile cache by.
+CACHE_KEY_ARGS = ("model", "batch_size", "seq_len", "d_model", "n_layers",
+                  "n_heads", "vocab_size", "dtype", "sp", "tp", "ep", "pp",
+                  "n_experts", "image_size")
+
+
+def _configure_compile_cache(args, device, mesh):
+    """Arm ``--compile-cache-dir`` keyed as JAX's train_cli keys it:
+    ``{n}x{platform}`` over the world's devices and the 14 args."""
+    platform = "gpu" if device.type == "cuda" else device.type
+    key = ws_cache.cache_key(
+        topology=f"{_world(mesh)}x{platform}",
+        cfg={k: getattr(args, k) for k in CACHE_KEY_ARGS},
+    )
+    return ws_cache.configure_from_flag(
+        args.compile_cache_dir, key=key, sink_path=args.event_log,
+    )
+
+
 def _goodput(event_log):
     """The JAX CLI's end-of-run goodput block over the run's own event
     log (telemetry only: never fails the run)."""
@@ -599,6 +634,8 @@ def main(argv=None):
              if mesh is not None else None)
     armed = tracer = None
     try:
+        if args.compile_cache_dir:
+            _configure_compile_cache(args, device, mesh)
         if args.fault_plan:
             armed = faults.arm_from_flag(args.fault_plan,
                                          sink_path=args.event_log)
@@ -636,6 +673,8 @@ def main(argv=None):
             log.info("span trace written to %s (+ .jsonl)", args.trace_out)
         if armed is not None:
             faults.disarm()
+        if args.compile_cache_dir:
+            ws_cache.deactivate()
         if mesh is not None:
             # An in-process run leaves no process group behind.
             import torch.distributed as dist

@@ -29,6 +29,9 @@ adapted: its item sizes come from the port config's ``torch_dtype``, and
 :mod:`.collective`, the collective and device-bench gauges
 (``collectives/device_bench.py`` records its rows there once configured).
 
+The port's fleet tier (``fleet/router.py``, ``fleet/autoscaler.py``,
+``fleet/sim.py``) emits and evaluates on these copies.
+
 Not ported yet (ROADMAP.md): the fleet-level modules ``capacity``,
 ``journey``, ``postmortem``, ``baseline`` and the ``merge`` CLI, and the
 link metrics of multi-GPU serving. ``faults/reactor.FleetReactor`` is

@@ -5,9 +5,13 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into a shared library, loaded with ``ctypes``
 (no PyTorch headers, so a build takes seconds). Libraries land in
-``.torch_ext/`` at the checkout root, named by a hash of the source, the
-shared headers (``csrc/*.cuh``) and the flags, so an edited source or
-header rebuilds and an unchanged one is reused. A build with extra
+``.torch_ext/`` at the checkout root, or under the persistent compile
+cache once one is configured (``warmstart/cache.py``,
+``--compile-cache-dir``: :func:`set_build_dir`), named by a hash of the
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header rebuilds and an unchanged one is reused. While a
+compile cache is armed, :func:`build` records a hit for each library it
+finds and a miss for each ``nvcc`` it runs. A build with extra
 preprocessor ``defines`` (an instrumented variant) is a library of its
 own. Nothing here runs at import time: the first kernel call builds.
 """
@@ -24,8 +28,12 @@ from pathlib import Path
 
 import torch
 
+from container_engine_accelerators_tpu_torch.warmstart import cache as ws_cache
+
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / ".torch_ext"
+DEFAULT_BUILD_DIR = Path(__file__).resolve().parents[2] / ".torch_ext"
+# Where libraries are built and looked up (set_build_dir).
+BUILD_DIR = DEFAULT_BUILD_DIR
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -50,6 +58,14 @@ def _nvcc():
     return path
 
 
+def set_build_dir(path):
+    """Build and look up libraries under ``path`` from now on (None: the
+    default ``.torch_ext/``). A library this process already loaded stays
+    loaded from where it was built."""
+    global BUILD_DIR
+    BUILD_DIR = DEFAULT_BUILD_DIR if path is None else Path(path)
+
+
 def _flags(defines):
     return (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
 
@@ -64,22 +80,30 @@ def _library_path(name, defines=()):
 def build(names=SOURCES, defines=()):
     """Compile every source in ``names`` that has no library yet (with
     ``-D`` of each of ``defines``), one ``nvcc`` per source, all started
-    together. Raises with the compiler's output if any fails."""
+    together. Raises with the compiler's output if any fails. With a
+    compile cache armed, each library found counts a hit and each nvcc
+    run a miss. Processes building one library into a shared directory
+    each write a temporary file of their own and rename it into place."""
+    cache = ws_cache.active()
     pending = {}
     for name in names:
         path = _library_path(name, defines)
         key = name if not defines else f"{name}{list(defines)}"
         if path.exists():
+            if cache is not None:
+                cache.record_hit()
             build_info.setdefault(
                 key, {"seconds": 0.0, "ptxas": "", "path": str(path)}
             )
             continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        path.parent.mkdir(parents=True, exist_ok=True)
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
         cmd = [_nvcc(), *_flags(defines), "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
+        if cache is not None:
+            cache.record_miss()
         pending[key] = (proc, tmp, path, time.perf_counter())
     failed = []
     for key, (proc, tmp, path, t0) in pending.items():

@@ -45,11 +45,16 @@ plain versions do. Triton is imported at the first launch, and CPU
 tensors take the plain versions (there is no fallback: a CUDA tensor
 launches the kernel or raises). ``stream_triad_launches``,
 ``stream_read_launches`` and ``stream_copy_launches`` count the launches.
+While a persistent compile cache is armed (``warmstart/cache.py``), each
+launch that compiles a specialisation counts a hit or a miss of it
+(``cache.count_triton``).
 """
 
 import functools
 
 import torch
+
+from container_engine_accelerators_tpu_torch.warmstart import cache as ws_cache
 
 TRIAD_BLOCK = 4096
 READ_BLOCK = 4096
@@ -114,6 +119,39 @@ def _kernels():
     return triton, triad_kernel, read_kernel, copy_kernel
 
 
+def _specialisations(kernel):
+    """Specialisations of one ``@triton.jit`` kernel compiled in this
+    process: its in-memory cache, ``device_caches`` (device -> a tuple
+    whose first item maps keys to compiled kernels) in Triton 3.2 and
+    later, ``cache`` (device -> dict) before. Raises on a Triton that
+    keeps neither."""
+    caches = getattr(kernel, "device_caches", None)
+    if caches is not None:
+        return sum(len(entry[0]) for entry in caches.values())
+    cache = getattr(kernel, "cache", None)
+    if isinstance(cache, dict):
+        return sum(len(per_device) for per_device in cache.values())
+    raise RuntimeError(
+        f"cannot read the compiled specialisations of {kernel!r}: this "
+        f"Triton keeps neither device_caches nor cache")
+
+
+def compiled_specialisations():
+    """Specialisations of the stream kernels compiled in this process (0
+    before the first launch)."""
+    if _kernels.cache_info().currsize == 0:
+        return 0
+    return sum(_specialisations(k) for k in _kernels()[1:])
+
+
+def _launch(kernel, grid, *args, **kwargs):
+    """``kernel[grid](*args, **kwargs)``, counted against an armed
+    compile cache (a free ``is None`` check when none is)."""
+    return ws_cache.count_triton(
+        lambda: _specialisations(kernel),
+        lambda: kernel[grid](*args, **kwargs))
+
+
 def _check_buffer(name, t, dtypes):
     if t.dim() != 1 or not t.is_contiguous():
         raise ValueError(f"{name} must be a contiguous 1-D tensor")
@@ -152,9 +190,9 @@ def triad(x, y, z, s, eps, out):
         return out.copy_(triad_reference(x, y, z, s, eps))
     triton, kernel, _, _ = _kernels()
     n = x.numel()
-    kernel[(triton.cdiv(n, TRIAD_BLOCK),)](
-        x, y, z, out, float(s), float(eps), n, BLOCK=TRIAD_BLOCK,
-        num_warps=8, enable_fp_fusion=False)
+    _launch(kernel, (triton.cdiv(n, TRIAD_BLOCK),),
+            x, y, z, out, float(s), float(eps), n, BLOCK=TRIAD_BLOCK,
+            num_warps=8, enable_fp_fusion=False)
     stream_triad_launches += 1
     return out
 
@@ -179,7 +217,8 @@ def stream_read(x, acc, bias):
     n = x.numel()
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     grid = max(1, min(triton.cdiv(n, READ_BLOCK), sms * READ_PROGRAMS_PER_SM))
-    kernel[(grid,)](x, acc, float(bias), n, BLOCK=READ_BLOCK, num_warps=8)
+    _launch(kernel, (grid,), x, acc, float(bias), n, BLOCK=READ_BLOCK,
+            num_warps=8)
     stream_read_launches += 1
     return acc
 
@@ -214,8 +253,8 @@ def stream_copy(x, src, out, c=1.0, eps=0.0, k=0):
         return out.copy_(stream_copy_reference(x, src, c, eps, k))
     triton, _, _, kernel = _kernels()
     n = x.numel()
-    kernel[(triton.cdiv(n, TRIAD_BLOCK),)](
-        x, src, out, float(c), float(eps), int(k), n, BLOCK=TRIAD_BLOCK,
-        INT8=int8, num_warps=8, enable_fp_fusion=False)
+    _launch(kernel, (triton.cdiv(n, TRIAD_BLOCK),),
+            x, src, out, float(c), float(eps), int(k), n, BLOCK=TRIAD_BLOCK,
+            INT8=int8, num_warps=8, enable_fp_fusion=False)
     stream_copy_launches += 1
     return out

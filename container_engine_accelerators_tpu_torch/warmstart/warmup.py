@@ -52,17 +52,20 @@ Deliberate differences from JAX:
     touched. A dense prefill task writes a free slot's rows, which its
     next occupant's prefill overwrites before anything reads them, and a
     dense decode capture restores what its warm-up iterations wrote;
-  * ``cache_hits``/``cache_misses`` count the engine's graph cache: a
-    graph captured already is a hit, a capture a miss (both 0 on the
-    CPU, which has no graphs).
+
+``cache_hits``/``cache_misses`` are JAX's: the armed persistent compile
+cache's deltas over the pass (``warmstart/cache.py``: kernel builds and
+Triton compiles the tasks caused), 0 with nothing armed. The decode
+graphs the pass captures are not persistent compiles; ``ContinuousEngine
+.graph_stats()`` counts them.
 
 The tasks run on the engine-loop thread (``ContinuousEngine.run_on_loop``),
 where every capture of the engine's graphs happens. ``max_tasks`` caps
 the grid as JAX's does (the rest counted as ``dropped``), and the pass
 ends with JAX's ``warmup_done`` record on the engine's event stream,
 which the goodput ledger (``obs/goodput.py``) charges to ``compile``.
-Not ported: the AOT-only path of a multi-host engine (the port has no
-multi-host link).
+Not ported yet: the AOT-only path of a multi-host engine (the port has
+no multi-host link).
 """
 
 import collections
@@ -73,6 +76,7 @@ import torch
 
 from container_engine_accelerators_tpu_torch.models import transformer as tf
 from container_engine_accelerators_tpu_torch.ops import paged_attention as pa
+from container_engine_accelerators_tpu_torch.warmstart import cache as ws_cache
 
 log = logging.getLogger("warmstart.warmup")
 
@@ -260,8 +264,8 @@ def warm_engine(engine, mode="all", events=None, max_tasks=None):
             f"unknown warmup mode {mode!r}; known: {WARMUP_MODES}"
         )
     t0 = time.perf_counter()
-    zero = {"hits": 0, "misses": 0}
     if mode != "all":
+        zero = {"hits": 0, "misses": 0}
         return build_summary(mode, 0, 0, 0, 0, 0.0, zero, zero)
     tasks = warm_plan(engine)
     dropped = 0
@@ -272,25 +276,23 @@ def warm_engine(engine, mode="all", events=None, max_tasks=None):
             "dropped shapes capture on first use", max_tasks, len(tasks),
         )
         tasks = tasks[:max_tasks]
+    snap0 = ws_cache.snapshot()
 
     def run():
-        cache = {"hits": 0, "misses": 0}
         with torch.inference_mode():
             for task in tasks:
-                out = task.fn(*task.args, **task.kwargs)
-                if isinstance(out, bool):  # a graph on CUDA
-                    cache["hits" if out else "misses"] += 1
+                task.fn(*task.args, **task.kwargs)
         if engine.device.type == "cuda":
             # dur_s covers the device work the tasks enqueued.
             torch.cuda.synchronize(engine.device)
-        return cache
 
-    cache = engine.run_on_loop(run)
+    engine.run_on_loop(run)
     summary = build_summary(mode, len(tasks), len(tasks), 0, dropped,
-                            time.perf_counter() - t0, zero, cache)
+                            time.perf_counter() - t0, snap0,
+                            ws_cache.snapshot())
     emit_done(events, summary)
     log.info(
-        "warmup (%s): %d task(s) run, %d dropped in %.2fs (graph cache "
+        "warmup (%s): %d task(s) run, %d dropped in %.2fs (compile cache "
         "hits %d / misses %d)", mode, summary["compiled"],
         summary["dropped"], summary["dur_s"], summary["cache_hits"],
         summary["cache_misses"],

@@ -371,7 +371,7 @@ def test_warm_engine_touches_only_the_null_block(models, engine):
     assert set(summary) == set(jwarmup.build_summary(
         "all", 0, 0, 0, 0, 0.0, {"hits": 0, "misses": 0},
         {"hits": 0, "misses": 0}))
-    # No graphs on the CPU: nothing hit, nothing captured.
+    # JAX's counts: no compile cache armed, nothing hit or missed.
     assert summary["cache_hits"] == summary["cache_misses"] == 0
     assert threads and set(threads) == {eng._thread}
     for name in ("k", "v"):

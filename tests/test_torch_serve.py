@@ -114,7 +114,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "want = {'models.bert', 'models.mnist', 'models.resnet', "
         "'parallel.moe', 'utils.checkpointing', 'models.supervisor', "
         "'obs.goodput', 'obs.fleet', 'collectives.device_bench', "
-        "'collectives.cards', 'obs.collective', 'ops.stream'}\n"
+        "'collectives.cards', 'obs.collective', 'ops.stream', "
+        "'warmstart.cache', 'fleet.router', 'fleet.autoscaler', "
+        "'fleet.lifecycle', 'fleet.sim', 'fleet.disagg', 'faults.storm', "
+        "'scheduler.gang', 'scheduler.incremental', 'scheduler.k8s', "
+        "'topology.labels', 'topology.slice', 'topology.placement'}\n"
         "assert {p.__name__ + '.' + w for w in want} <= set(names), names\n"
         "[importlib.import_module(n) for n in names]\n"
         "import chip_smoke\n"

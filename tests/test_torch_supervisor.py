@@ -4,8 +4,9 @@
 the JAX package's) held to JAX's ``tests/test_supervisor.py``: each
 primitive contract runs on both packages' modules (with each package's
 event stream), so the copy cannot drift from the original. The JAX
-file's compile-cache case has a port counterpart: the port has no
-compile cache, so its recovery events carry no cache attributes."""
+file's compile-cache case: with no cache armed the recovery events of
+both carry no cache attributes; with one armed they carry the attempt's
+deltas (``tests/test_torch_warmstart_cache.py``)."""
 
 import threading
 import time
@@ -207,9 +208,9 @@ def test_backoff_stays_monotone_when_reset_disabled(pkg):
 
 
 def test_port_recovery_events_carry_no_cache_attrs():
-    """The JAX package's restart events add per-attempt compile-cache
-    deltas when a cache is armed; the port has none, so its events carry
-    the keys JAX's carry without one."""
+    """With no compile cache armed, neither package's restart events
+    carry compile-cache deltas: the port's carry JAX's keys. (Armed,
+    both add them: tests/test_torch_warmstart_cache.py.)"""
     keys = {}
     for name, (supervisor, obs_events) in PACKAGES.items():
         calls = {"n": 0}

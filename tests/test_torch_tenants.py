@@ -256,6 +256,66 @@ def test_engine_class_share_bounds_the_queue_slice(engine, expect, kv):
 
 
 @pytest.mark.parametrize("kv", sorted(ENGINES))
+def test_engine_blocked_event_sink_does_not_hold_up_admission(
+        engine, expect, kv, monkeypatch):
+    """A shed's event goes to the stream after the admission lock is
+    released: while a sink write blocks on one request's ``tenant_shed``
+    record, another request is admitted and queued."""
+    tc = tt.TenantClasses.from_dict({"a": {"priority": 0,
+                                           "queue_share": 0.75},
+                                     "b": {"priority": 1,
+                                           "queue_share": 0.25}})
+    events = tevents.EventStream("serve-test")
+    eng = engine(kv, tenants=tc, max_queue=8, events=events)
+    emit = events.emit
+    in_sink, unblock = threading.Event(), threading.Event()
+
+    def blocking_emit(kind, **attrs):
+        if kind == "tenant_shed" and not in_sink.is_set():
+            in_sink.set()
+            assert unblock.wait(60)
+        return emit(kind, **attrs)
+
+    monkeypatch.setattr(events, "emit", blocking_emit)
+    release, running = threading.Event(), threading.Event()
+    holder = threading.Thread(target=lambda: eng.run_on_loop(
+        lambda: (running.set(), release.wait(60))))
+    holder.start()
+    assert running.wait(60)
+    results = {}
+
+    def post(name, rows, tenant):
+        try:
+            results[name] = eng.generate(rows, 2, tenant=tenant)
+        except tserve.ShedError as e:
+            results[name] = e.reason
+
+    # b's share is 0.25 * 8 = 2 rows: 3 rows shed as class_share.
+    shed = threading.Thread(target=post,
+                            args=("shed", [[1], [2], [3]], "b"))
+    admitted = threading.Thread(target=post, args=("ok", [[4, 5]], "a"))
+    try:
+        shed.start()
+        assert in_sink.wait(60)
+        admitted.start()
+        deadline = time.monotonic() + 10
+        while eng._q.qsize() < 1:
+            assert time.monotonic() < deadline, \
+                "admission waited for a blocked event sink"
+            time.sleep(0.002)
+        assert "shed" not in results
+    finally:
+        unblock.set()
+        release.set()
+        holder.join(60)
+        shed.join(60)
+        admitted.join(60)
+    assert results == {"shed": "class_share", "ok": [expect([4, 5], 2)]}
+    assert [e["reason"] for e in events.events(kind="tenant_shed")] == \
+        ["class_share"]
+
+
+@pytest.mark.parametrize("kv", sorted(ENGINES))
 def test_engine_concurrent_burst_keeps_each_class_in_its_share(
         engine, expect, kv, monkeypatch):
     """Twelve requests posted at once while the loop is held (4 of
