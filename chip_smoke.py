@@ -455,6 +455,10 @@ BERT_LARGE_CASE = ("bert_large_s512", 8, 512, 512, False, 0, 0, None, 16,
 # past 8192).
 LONG_CONTEXT_CASE = ("long_context_s32768", 1, 32768, 32768, True, 0, 0,
                      None, 4, 2, 128, "bfloat16")
+# The pipeline phase's stage attention: one microbatch of 1 × 4096 at
+# Llama-3-8B's heads.
+PIPELINE_CASE = ("pipeline_s4096", 1, 4096, 4096, True, 0, 0, None, 32, 8,
+                 128, "bfloat16")
 # (name, batch, seq_q, seq_k, causal, q_base, k_base, kv_len, hq, hkv, d,
 #  dtype). The first four are the Llama-3-8B prefill shapes (Hq 32, Hkv 8,
 # D 128): the serve phase's prompts of 300 (batch 2) and 1500 tokens land
@@ -464,6 +468,7 @@ LONG_CONTEXT_CASE = ("long_context_s32768", 1, 32768, 32768, True, 0, 0,
 KERNEL_CASES = [
     ("causal_512_b2", 2, 512, 512, True, 0, 0, None, 32, 8, 128, "bfloat16"),
     ("causal_2048", 1, 2048, 2048, True, 0, 0, None, 32, 8, 128, "bfloat16"),
+    PIPELINE_CASE,
     ("causal_8192", 1, 8192, 8192, True, 0, 0, None, 32, 8, 128, "bfloat16"),
     # Past 8192 keys the JAX package switches to its streaming forward.
     ("causal_16384", 1, 16384, 16384, True, 0, 0, None, 32, 8, 128,
@@ -641,6 +646,7 @@ def library_bwd_ms(q, k, v, g, torch, attention, *, causal, sm_scale,
 # "causal_8192" is the train phase's shape, reported on the kernels line.
 BWD_CASES = [
     ("causal_2048", 1, 2048, 2048, True, 0, 0, None, 32, 8, 128, "bfloat16"),
+    PIPELINE_CASE,
     ("causal_8192", 1, 8192, 8192, True, 0, 0, None, 32, 8, 128, "bfloat16"),
     ("causal_16384", 1, 16384, 16384, True, 0, 0, None, 32, 8, 128,
      "bfloat16"),
@@ -3772,13 +3778,15 @@ def train_cli_cache_phase(card):
 def fleet_drills_phase():
     """The port's hermetic fleet tier on this machine's CPU (fake device
     seams, no card), at each CLI's defaults: the replica-kill chaos drill
-    (``fleet/sim.py``), the restart storm (``faults/storm.py``) and the
+    (``fleet/sim.py``), the restart storm (``faults/storm.py``), the
     disaggregation bench (``fleet/disagg.py``, its strict timing gates
-    on). Fails on any ``pass: false``."""
+    on) and the request-journey drill (``fleet/journeydrill.py``, its
+    stage-sum gate on). Fails on any ``pass: false``."""
     import tempfile
 
     from container_engine_accelerators_tpu_torch.faults import storm
     from container_engine_accelerators_tpu_torch.fleet import disagg
+    from container_engine_accelerators_tpu_torch.fleet import journeydrill
     from container_engine_accelerators_tpu_torch.fleet import sim
 
     row = {"phase": "fleet_drills",
@@ -3789,6 +3797,7 @@ def fleet_drills_phase():
         "storm": lambda: storm.run_drill(
             work_dir=tempfile.mkdtemp(prefix="chip_smoke_storm_")),
         "disagg": lambda: disagg.run_bench(),
+        "journey": lambda: journeydrill.run_drill()[0],
     }
     keep = {
         "chaos": ("requests", "served", "retired", "reissued", "ejections",
@@ -3798,6 +3807,9 @@ def fleet_drills_phase():
                   "serve_timing", "compile_cache", "train_compile_s"),
         "disagg": ("baseline", "unified", "split", "storm", "fault",
                    "tpot_inflation_unified", "tpot_inflation_split"),
+        "journey": ("measured", "stitched", "stitch_ratio", "journeys",
+                    "hedged_with_leg", "handoff_journeys", "exemplar",
+                    "sum_mismatches", "stage_percentiles"),
     }
     failed = []
     for name, run in drills.items():
@@ -4091,6 +4103,26 @@ def _free(torch):
     torch.cuda.empty_cache()
 
 
+def _grad_errors(torch, got, ref):
+    """``got``'s gradients against ``ref``'s by name, in f32: the names
+    outside ``TRAIN_GRAD_TOL`` (relative L2 error, largest error over the
+    largest |gradient|) or not finite, and the worst readings."""
+    bad, worst_l2, worst_max, worst_name = [], 0.0, 0.0, None
+    for name, r in ref.items():
+        g, r = got[name].float(), r.float()
+        rel_l2 = ((g - r).norm() / r.norm().clamp_min(1e-30)).item()
+        _, max_rel = _rel_err(g, r)
+        if not torch.isfinite(g).all() or \
+                rel_l2 > TRAIN_GRAD_TOL["rel_l2"] or \
+                max_rel > TRAIN_GRAD_TOL["max_rel"]:
+            bad.append(name)
+        if rel_l2 > worst_l2:
+            worst_l2, worst_name = rel_l2, name
+        worst_max = max(worst_max, max_rel)
+    return bad, {"n_params_compared": len(ref), "worst_rel_l2": worst_l2,
+                 "worst_rel_l2_param": worst_name, "worst_max_rel": worst_max}
+
+
 def train_grads(torch, np, tf, attention):
     """Loss and every parameter's gradient of full-width Llama-3-8B (2
     layers, bf16, B 1, S 2048) through the kernels vs the same model with
@@ -4114,25 +4146,11 @@ def train_grads(torch, np, tf, attention):
                 attention.flash_dkv_launches - before[2]]
     grads_k = {n: g.clone() for n, g in grads_k.items()}
     loss_r, grads_r = loss_and_grads("reference")
-    worst_l2, worst_max, worst_name, bad = 0.0, 0.0, None, []
-    for name, ref in grads_r.items():
-        got = grads_k[name].float()
-        ref = ref.float()
-        rel_l2 = ((got - ref).norm() / ref.norm().clamp_min(1e-30)).item()
-        _, max_rel = _rel_err(got, ref)
-        if not torch.isfinite(got).all() or \
-                rel_l2 > TRAIN_GRAD_TOL["rel_l2"] or \
-                max_rel > TRAIN_GRAD_TOL["max_rel"]:
-            bad.append(name)
-        if rel_l2 > worst_l2:
-            worst_l2, worst_name = rel_l2, name
-        worst_max = max(worst_max, max_rel)
+    bad, errs = _grad_errors(torch, grads_k, grads_r)
     row = {
         "phase": "train_grads", "model": "llama3-8b", "n_layers": 2,
         "batch": 1, "seq_len": 2048, "dtype": "bfloat16",
-        "loss_kernels": loss_k, "loss_plain": loss_r,
-        "n_params_compared": len(grads_r), "worst_rel_l2": worst_l2,
-        "worst_rel_l2_param": worst_name, "worst_max_rel": worst_max,
+        "loss_kernels": loss_k, "loss_plain": loss_r, **errs,
         "tol": TRAIN_GRAD_TOL, "launches_fwd_dq_dkv": launches,
     }
     emit(row)
@@ -4264,24 +4282,11 @@ def train_bert_grads(torch, np, bert, attention):
     launches = [a - b for a, b in zip(_flash_counts(attention), before)]
     grads_k = {n: g.clone() for n, g in grads_k.items()}
     loss_r, grads_r = loss_and_grads("reference")
-    worst_l2, worst_max, worst_name, bad = 0.0, 0.0, None, []
-    for name, ref in grads_r.items():
-        got, ref = grads_k[name].float(), ref.float()
-        rel_l2 = ((got - ref).norm() / ref.norm().clamp_min(1e-30)).item()
-        _, max_rel = _rel_err(got, ref)
-        if not torch.isfinite(got).all() or \
-                rel_l2 > TRAIN_GRAD_TOL["rel_l2"] or \
-                max_rel > TRAIN_GRAD_TOL["max_rel"]:
-            bad.append(name)
-        if rel_l2 > worst_l2:
-            worst_l2, worst_name = rel_l2, name
-        worst_max = max(worst_max, max_rel)
+    bad, errs = _grad_errors(torch, grads_k, grads_r)
     emit({
         "phase": "train_bert_grads", "model": "bert-large", "n_layers": 2,
         "batch": 8, "seq_len": cfg.max_seq_len, "dtype": "bfloat16",
-        "loss_kernels": loss_k, "loss_plain": loss_r,
-        "n_params_compared": len(grads_r), "worst_rel_l2": worst_l2,
-        "worst_rel_l2_param": worst_name, "worst_max_rel": worst_max,
+        "loss_kernels": loss_k, "loss_plain": loss_r, **errs,
         "tol": TRAIN_GRAD_TOL, "launches_fwd_dq_dkv": launches,
     })
     if bad or abs(loss_k - loss_r) > TRAIN_GRAD_TOL["loss_abs"] or \
@@ -4720,6 +4725,192 @@ def ring_phase(torch, attention, ra, ws, card, device="cuda"):
         del outs, lses, dqs, dks, dvs, deltas, qs, ks, vs, gs
         _free(torch)
     return tuple(launches), rows
+
+
+# pipeline: Llama-3-8B's widths, 8 of its 32 layers as 4 stages of 2,
+# M 8 microbatches of 1 × S 4096, every stage in this process
+# (parallel/ring_attention.InProcess), 3 steps of models/pipeline_lm.py.
+PP_STAGES = 4
+PP_LAYERS = 8
+PP_MICRO = 8
+PP_SEQ = 4096
+PP_STEPS = 3
+
+
+def _pp_launches_per_step(stages, layers, micro):
+    """Flash launches of one 1F1B step with recompute: every stage but
+    the last runs its layers' forward under no_grad at its forward tick,
+    and every stage runs it again under autograd at its backward tick
+    (the last stage's two ticks coincide, so it runs it once), then one
+    dq and one dk/dv launch a layer and microbatch."""
+    per = layers // stages
+    return ((2 * stages - 1) * per * micro, layers * micro, layers * micro)
+
+
+def _unsplit_step(torch, tf, cfg, flat, steps=2):
+    """The unsplit model's AdamW step (``make_train_step``'s model,
+    optimizer and per-layer remat) on the flattened batch, its gradient
+    accumulated over the rows in f32: one ``loss_fn`` call over all 8 ×
+    4096 tokens needs more than the card's 80 GB (its f32 logits are
+    16.8 GB, and their backward holds several such), so each row's mean
+    loss over M is backpropagated in turn. ``steps`` steps on the batch.
+    Returns (the first step's loss, its bf16 gradients at the initial
+    weights by name, each step's wall ms, peak GB)."""
+    init1, _ = tf.make_train_step(cfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    model, opt = init1(seed=0)
+    rows = flat["tokens"].shape[0]
+    acc = [torch.zeros(p.shape, dtype=torch.float32, device="cuda")
+           for p in model.parameters()]
+    first, step_ms = None, []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = torch.zeros((), dtype=torch.float32, device="cuda")
+        for a in acc:
+            a.zero_()
+        for r in range(rows):
+            model.zero_grad(set_to_none=True)
+            part = tf.loss_fn(model, {"tokens": flat["tokens"][r:r + 1]},
+                              remat=True) / rows
+            part.backward()
+            loss += part.detach().float()
+            for a, p in zip(acc, model.parameters()):
+                a += p.grad.float()
+        for a, p in zip(acc, model.parameters()):
+            p.grad = a.to(p.dtype)
+        opt.step()
+        loss = loss.item()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if first is None:
+            first = (loss, {n: p.grad for n, p in model.named_parameters()})
+    return (*first, step_ms, torch.cuda.max_memory_allocated() / 1e9)
+
+
+def pipeline_phase(torch, np, tf, attention, ra, card):
+    """The pipeline-parallel training path at full width: 8 layers of
+    Llama-3-8B as 4 stages × 2 (bf16), 8 microbatches of 1 × 4096,
+    through ``pipeline_lm.make_pp_train_step`` over the ``InProcess``
+    transport (every stage's ticks in this process, serially), 3 steps.
+    The first step's loss and gradients are held to the unsplit step's
+    (``_unsplit_step``: the whole model, the flattened batch of 8 × 4096
+    tokens, the gradient accumulated row by row) on the same initial
+    weights within ``TRAIN_GRAD_TOL``; flash
+    launches per step to the schedule's count; the stage's attention
+    calls (kernels 1, 3, 4 at 1 × 32/8 × 4096 × 128) to their plain
+    versions. Prints the step ms beside the unsplit step's, the
+    schedule's bubble and the peak memory. Returns the launches of the
+    3 steps (fwd, dq, dkv)."""
+    from container_engine_accelerators_tpu_torch.models import pipeline_lm
+
+    cfg = dataclasses.replace(tf.TransformerConfig.llama3_8b(),
+                              n_layers=PP_LAYERS)
+    rng = np.random.default_rng(18)
+    batches = [{"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (PP_MICRO, 1, PP_SEQ + 1)), device="cuda")}
+        for _ in range(PP_STEPS)]
+    flat = {"tokens": batches[0]["tokens"].reshape(PP_MICRO, PP_SEQ + 1)}
+
+    # The unsplit step on the initial weights: its loss, its gradients
+    # (kept, bf16) and its wall time.
+    loss1, ref, unsplit_ms, unsplit_peak_gb = _unsplit_step(
+        torch, tf, cfg, flat)
+    _free(torch)
+
+    # The same weights split over the stages.
+    init, step = pipeline_lm.make_pp_train_step(cfg, ra.InProcess(PP_STAGES),
+                                                device="cuda")
+    model = tf.init_params(cfg, device="cuda", seed=0)
+    state = init(model=model)
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    _zero_flash_counts(attention)
+    losses, step_ms, per_step = [], [], []
+    for k, batch in enumerate(batches):
+        before = _flash_counts(attention)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        losses.append(loss.item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append(tuple(a - b for a, b in zip(
+            _flash_counts(attention), before)))
+        if k == 0:
+            bad, errs = _grad_errors(torch, {
+                n: p.grad for n, p in model.named_parameters()}, ref)
+            del ref
+    launches = _flash_counts(attention)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = _pp_launches_per_step(PP_STAGES, PP_LAYERS, PP_MICRO)
+    del state, model
+    _free(torch)
+
+    # Kernels 1, 3 and 4 at the stage's shapes against their plain
+    # versions (_held_shard_call at bases 0: the forward and both
+    # backward kernels).
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def rand(h):
+        return torch.randn(1, h, PP_SEQ, d, generator=gen,
+                           device="cuda").to(torch.bfloat16)
+
+    q, k, v, g = rand(hq), rand(hkv), rand(hkv), rand(hq)
+    sm_scale = d ** -0.5
+    out, lse = attention.flash_fwd(q, k, v, causal=True, sm_scale=sm_scale)
+    held_ok, held = _held_shard_call(torch, attention, q, k, v, out, lse, g,
+                                     ra.delta_of(out, g), 0, 0, sm_scale)
+    del q, k, v, g, out, lse
+    _free(torch)
+
+    tokens = PP_MICRO * PP_SEQ
+    steady = step_ms[1:]
+    bubble = (2 * PP_STAGES - 2) / (PP_MICRO + 2 * PP_STAGES - 2)
+    expected = math.log(cfg.vocab_size) + cfg.d_model * 0.02 ** 2 / 2
+    row = {
+        "phase": "pipeline", **card, "model": "llama3-8b",
+        "n_layers": PP_LAYERS, "n_layers_full": 32, "stages": PP_STAGES,
+        "layers_per_stage": PP_LAYERS // PP_STAGES,
+        "microbatches": PP_MICRO, "microbatch": [1, PP_SEQ],
+        "dtype": "bfloat16", "transport": "InProcess", "n_params": n_params,
+        "losses": losses, "unsplit_loss": loss1,
+        "loss_abs_err": abs(losses[0] - loss1),
+        "expected_first_loss": expected, **errs, "tol": TRAIN_GRAD_TOL,
+        "launches_per_step": per_step, "launches_per_step_want": want,
+        "step_ms": step_ms, "mean_steady_step_ms": sum(steady) / len(steady),
+        "unsplit_step_ms": unsplit_ms,
+        "unsplit_timing": "two unsplit steps, each's gradient "
+                          "accumulated over the 8 rows (AdamW's moments "
+                          "allocated in the first); the second and pp "
+                          "steps 2-3 are steady",
+        "tokens_per_step": tokens,
+        "tokens_per_s": tokens / (sum(steady) / len(steady) / 1e3),
+        "est_mfu": 6.0 * n_params * tokens
+        / (sum(steady) / len(steady) / 1e3) / PEAK_BF16_FLOPS,
+        "bubble_per_stage": bubble,
+        "bubble_note": f"({2 * PP_STAGES - 2})/({PP_MICRO} + "
+                       f"{2 * PP_STAGES - 2}) of each stage's ticks idle "
+                       f"across processes; here every stage runs in one "
+                       f"process, serially, so no tick is idle and the "
+                       f"step is the sum of every stage's work",
+        "max_memory_allocated_gb": peak_gb,
+        "unsplit_max_memory_allocated_gb": unsplit_peak_gb,
+        "held_stage_calls": held,
+    }
+    emit(row)
+    if bad or abs(losses[0] - loss1) > TRAIN_GRAD_TOL["loss_abs"]:
+        fail(f"pipeline: the pp step disagrees with the unsplit step for "
+             f"{bad or 'the loss'}")
+    if not all(math.isfinite(x) for x in losses) or \
+            abs(losses[0] - expected) > 0.5:
+        fail(f"pipeline: losses {losses}, the first not within 0.5 of "
+             f"{expected}")
+    if any(c != want for c in per_step):
+        fail(f"pipeline: launches per step {per_step}, want {want}")
+    if not held_ok:
+        fail(f"pipeline: the stage's kernel calls disagree with their "
+             f"plain versions: {held}")
+    return launches
 
 
 # train_dist: a world of one over NCCL through the env contract, against
@@ -5253,6 +5444,9 @@ def main():
     ring_launches, _ = ring_phase(torch, attention, ring_attention, world_smoke,
                                   card)
     _free(torch)
+    pipeline_launches = pipeline_phase(torch, np, tf, attention,
+                                       ring_attention, card)
+    _free(torch)
     train_dist_launches = train_dist_phase(card)
     compile_cache_phase(card)
     train_cli_cache_phase(card)
@@ -5269,7 +5463,8 @@ def main():
     training = {"train": (fwd_train, dq_train, dkv_train),
                 "train_bert": bert_launches, "train_cli": cli_launches,
                 "train_recovery": recovery_launches,
-                "ring": ring_launches, "train_dist": train_dist_launches,
+                "ring": ring_launches, "pipeline": pipeline_launches,
+                "train_dist": train_dist_launches,
                 "device_bench": tuple(bench_launches[k] for k in (
                     "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))}
     int8_launches["device_bench"] = bench_launches["int8_mm"]
@@ -5294,18 +5489,26 @@ def main():
                 "host_us": row[f"{pre}host_us"],
                 "graph_ms": row[f"{pre}graph_ms"]}
     int8_row = int8_rows[INT8_MAIN_CASE]
-    # The same numbers at device_bench's S 32768 (bench_flash_long_context).
+    # The same numbers at device_bench's S 32768 (bench_flash_long_context)
+    # and at the pipeline phase's stage shape (S 4096).
     long_fwd = rows[LONG_CONTEXT_CASE[0]]
     long_bwd = bwd_rows[LONG_CONTEXT_CASE[0]]
+    pp_fwd, pp_bwd = rows[PIPELINE_CASE[0]], bwd_rows[PIPELINE_CASE[0]]
 
-    def long_shape(kind, err):
-        row = long_fwd if kind == "fwd" else long_bwd
+    def case_shape(case, kind, err):
+        row = rows[case] if kind == "fwd" else bwd_rows[case]
         pre = "" if kind == "fwd" else f"{kind}_"
-        return {"case": LONG_CONTEXT_CASE[0], "max_abs_err": err,
+        return {"case": case, "max_abs_err": err,
                 "ms": row[f"{pre}ms"], "plain_ms": row[f"{pre}plain_ms"],
                 "bound_ms": row[f"{pre}bound_ms"],
                 "bound_by": row[f"{pre}bound_by"],
                 "library_ms": row["library_ms"] if kind == "fwd" else None}
+
+    def long_shape(kind, err):
+        return case_shape(LONG_CONTEXT_CASE[0], kind, err)
+
+    def pp_shape(kind, err):
+        return case_shape(PIPELINE_CASE[0], kind, err)
     stream_src = "container_engine_accelerators_tpu_torch/ops/stream.py"
     bench_src = "container_engine_accelerators_tpu/collectives/device_bench.py:"
 
@@ -5351,6 +5554,7 @@ def main():
             "shape": main_row["shape"],
             "bert_large": bert_shape("fwd", bert_fwd["max_abs_err_out"]),
             "long_context": long_shape("fwd", long_fwd["max_abs_err_out"]),
+            "pipeline": pp_shape("fwd", pp_fwd["max_abs_err_out"]),
         },
         {
             "name": "flash_bwd_dq", "route": "cuda",
@@ -5367,6 +5571,7 @@ def main():
             "shape": bwd_row["shape"],
             "bert_large": bert_shape("dq", bert_bwd["max_abs_err_dq"]),
             "long_context": long_shape("dq", long_bwd["max_abs_err_dq"]),
+            "pipeline": pp_shape("dq", pp_bwd["max_abs_err_dq"]),
         },
         {
             "name": "flash_bwd_dkv", "route": "cuda",
@@ -5386,6 +5591,8 @@ def main():
                                                 bert_bwd["max_abs_err_dv"])),
             "long_context": long_shape("dkv", max(
                 long_bwd["max_abs_err_dk"], long_bwd["max_abs_err_dv"])),
+            "pipeline": pp_shape("dkv", max(pp_bwd["max_abs_err_dk"],
+                                            pp_bwd["max_abs_err_dv"])),
         },
         {
             "name": "int8_mm", "route": "cuda",

@@ -17,8 +17,12 @@ and the hermetic tier on the port's engines (fake device seams, the CPU):
 
   * :mod:`.sim` — replicas, the replica-kill chaos drill and the
     membership storm;
-  * :mod:`.disagg` — the disaggregated prefill/decode bench.
+  * :mod:`.disagg` — the disaggregated prefill/decode bench;
+  * :mod:`.journeydrill` — the request-journey drill: every retired
+    request stitches into one journey (``obs/journey.py``), hedges and
+    handoffs carry their legs, a slow request's TTFT exemplar resolves
+    to the stage to blame.
 
-Not ported yet (ROADMAP.md): ``journeydrill``, ``daysim``, ``linksim``
-and ``flightdrill``.
+Not ported yet (ROADMAP.md): ``daysim``, ``linksim`` and
+``flightdrill``.
 """

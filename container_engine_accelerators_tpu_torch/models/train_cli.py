@@ -65,8 +65,25 @@ args: the kernel builds go there, a resumed or re-launched run builds
 nothing, and the supervisor's recovery events carry each attempt's
 hits and misses.
 
-Not ported yet (ROADMAP.md): ``--tp``, ``--ep``, ``--pp`` and
-``--microbatches`` (they raise), and MoE on more than one rank.
+``--pp N`` (the transformer; exclusive with ``--sp/--tp/--ep``) trains
+the decoder pipeline-parallel (``models/pipeline_lm.py``: the 1F1B
+schedule of ``parallel/pipeline.py`` over point-to-point transfers on a
+"pp" mesh): one stage a rank, so it needs a ``--distributed`` world of
+exactly N ranks (a world of one is refused as JAX refuses too few
+devices). A step is M = ``--microbatches`` (default 2·N) microbatches
+of ``--batch-size`` (default 2) sequences. Checkpoints are per stage:
+rank i writes ``<dir>/stage_<i>/step_<N>/state.pt`` (its layers, its
+copy of the embedding and final norm, its optimizer); on resume every
+rank restores its newest readable step and the world takes the oldest
+of them, so the stages resume at one step.
+
+  TPU_WORKER_ID=0 TPU_WORKER_HOSTNAMES=localhost torchrun \\
+      --nproc-per-node 4 -m \\
+      container_engine_accelerators_tpu_torch.models.train_cli \\
+      --model transformer --pp 4 --n-layers 8
+
+Not ported yet (ROADMAP.md): ``--tp`` and ``--ep`` (they raise), and
+MoE on more than one rank.
 """
 
 import argparse
@@ -161,11 +178,11 @@ class TrainMetrics:
         self._n_params = 0
         self._peak_flops = 0.0
 
-    def calibrate(self, state, device, n_devices=1):
-        """The parameter count and the world's peak: the card's times
-        ``n_devices``, as JAX multiplies its generation's by the device
-        count."""
-        self._n_params = _count_params(state)
+    def calibrate(self, state, device, n_devices=1, n_params=None):
+        """The parameter count (``n_params``, else the state's model's)
+        and the world's peak: the card's times ``n_devices``, as JAX
+        multiplies its generation's by the device count."""
+        self._n_params = n_params or _count_params(state)
         self._peak_flops = peak_flops(device) * n_devices
 
     def observe_step(self, dt_s, loss):
@@ -218,11 +235,15 @@ def _barrier():
 
 
 def _train_loop(args, init_state, train_step, make_batch, units_per_step,
-                unit_name, device, n_devices=1):
+                unit_name, device, n_devices=1, per_rank=False,
+                n_params=None):
     """Shared step loop: init (or resume from --checkpoint-dir), run to
     --steps with periodic checkpoints, return the result dict. Every
     step is a trace span and an observation into the run's TrainMetrics
-    registry."""
+    registry. ``per_rank``: the ranks hold different states (pipeline
+    stages), each checkpointed in its own ``stage_<rank>`` directory.
+    ``n_params``: the model's parameter count for the MFU estimate when
+    the state holds only part of it."""
     obs = TrainMetrics(units_per_step, unit_name)
     server = None
     if args.metrics_port:
@@ -248,7 +269,7 @@ def _train_loop(args, init_state, train_step, make_batch, units_per_step,
     try:
         return _train_steps(args, init_state, train_step, make_batch,
                             units_per_step, unit_name, obs, ev_stream,
-                            device, n_devices)
+                            device, n_devices, per_rank, n_params)
     finally:
         if alert_ev is not None:
             alert_ev.close()
@@ -278,22 +299,63 @@ def _restore(ckpt_dir, state, ev_stream, device):
     return checkpointing.broadcast(restored, step, device)
 
 
+def _rank():
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _restore_per_rank(ckpt_dir, state, ev_stream, device, init):
+    """Resume when every rank holds its own state → (state, step or
+    None): each rank restores the newest readable step of its own
+    directory (quarantining an unreadable one), the world takes the
+    oldest of those steps, and a rank ahead of it restores that step
+    instead; where some rank has none, every rank starts afresh
+    (``init()`` on a rank that had restored in place)."""
+    import torch.distributed as dist
+
+    restored, step = state, None
+    if checkpointing.list_steps(ckpt_dir):
+        with obs_trace.span("restore") as sp:
+            got, step = checkpointing.restore_latest(
+                ckpt_dir, state, events=ev_stream,
+            )
+            if step is not None:
+                sp.set(step=step)
+                restored = got
+    agreed = torch.tensor([-1 if step is None else step], device=device)
+    dist.all_reduce(agreed, op=dist.ReduceOp.MIN)
+    agreed = int(agreed.item())
+    if agreed < 0:
+        return (init() if step is not None else state), None
+    if agreed != step:
+        restored = checkpointing.restore(ckpt_dir, agreed, restored)
+    return restored, agreed
+
+
 def _train_steps(args, init_state, train_step, make_batch,
                  units_per_step, unit_name, obs, ev_stream, device,
-                 n_devices=1):
+                 n_devices=1, per_rank=False, n_params=None):
     """The step loop proper. Each step's time is host wall clock from
     before the fault hook to the loss read, which waits for the
     device."""
     with obs_trace.span("init_state"):
         state = init_state(args.seed)
-    obs.calibrate(state, device, n_devices)
+    obs.calibrate(state, device, n_devices, n_params)
     start = 0
     ckpt_dir = args.checkpoint_dir
+    if ckpt_dir and per_rank:
+        ckpt_dir = os.path.join(ckpt_dir, f"stage_{_rank()}")
     if ckpt_dir:
         # Crash-safe resume: newest readable step wins; an unreadable
         # one is quarantined (checkpoint_fallback event) and the walk
         # falls back — never a crash loop.
-        restored, step = _restore(ckpt_dir, state, ev_stream, device)
+        if per_rank:
+            restored, step = _restore_per_rank(
+                ckpt_dir, state, ev_stream, device,
+                lambda: init_state(args.seed))
+        else:
+            restored, step = _restore(ckpt_dir, state, ev_stream, device)
         if step is not None:
             state = restored
             start = step
@@ -324,9 +386,10 @@ def _train_steps(args, init_state, train_step, make_batch,
         if ckpt_dir and (
             done % args.checkpoint_every == 0 or done == args.steps
         ):
-            # Every rank holds the same state: rank 0 writes it, and no
-            # rank steps on before the step directory is whole.
-            if _is_leader():
+            # Every rank holds the same state: rank 0 writes it (each
+            # rank its own, per rank), and no rank steps on before the
+            # step directory is whole.
+            if per_rank or _is_leader():
                 with obs_trace.span("checkpoint", step=done):
                     checkpointing.save(ckpt_dir, done, state)
             _barrier()
@@ -395,6 +458,8 @@ def config_from_args(args):
 
 def run_transformer(args, device, mesh=None):
     cfg = config_from_args(args)
+    if args.pp > 1:
+        return _run_transformer_pp(args, device, mesh, cfg)
     init_state, train_step = tf.make_train_step(cfg, device=device,
                                                 mesh=mesh)
     batch_size = args.batch_size or 2 * _dp(mesh)
@@ -409,6 +474,38 @@ def run_transformer(args, device, mesh=None):
                          batch_size * args.seq_len, "tok", device,
                          _world(mesh))
     return {**result, "batch_size": batch_size}
+
+
+def _run_transformer_pp(args, device, mesh, cfg):
+    """Pipeline-parallel transformer training (1F1B,
+    ``models/pipeline_lm.py``) over the world's "pp" mesh, this rank's
+    stage moving activations and cotangents point to point. The batch is
+    M microbatches of ``--batch-size`` sequences (M = ``--microbatches``,
+    default 2·pp so the bubble stays at most 1/3, as in JAX)."""
+    from container_engine_accelerators_tpu_torch.models import pipeline_lm
+    from container_engine_accelerators_tpu_torch.parallel import (
+        ring_attention,
+    )
+
+    transport = ring_attention.P2P(ring_attention.ring_of(mesh, "pp"))
+    init_state, train_step = pipeline_lm.make_pp_train_step(
+        cfg, transport, device=device)
+    num_micro = args.microbatches or 2 * args.pp
+    mb = args.batch_size or 2
+    per_layer = sum(p.numel() for p in tf.DecoderLayer(cfg, "meta")
+                    .parameters())
+    n_params = cfg.n_layers * per_layer + (cfg.vocab_size + 1) * cfg.d_model
+
+    def make_batch(step):
+        rng = np.random.default_rng(args.seed + 1 + step)
+        tokens = rng.integers(0, cfg.vocab_size,
+                              (num_micro, mb, args.seq_len + 1))
+        return {"tokens": torch.as_tensor(tokens, device=device)}
+
+    result = _train_loop(args, init_state, train_step, make_batch,
+                         num_micro * mb * args.seq_len, "tok", device,
+                         _world(mesh), per_rank=True, n_params=n_params)
+    return {**result, "microbatches": num_micro, "microbatch_size": mb}
 
 
 def run_bert(args, device, mesh=None):
@@ -458,8 +555,13 @@ def build_parser():
     p.add_argument("--sp", type=int, default=1)
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--ep", type=int, default=1)
-    p.add_argument("--pp", type=int, default=1)
-    p.add_argument("--microbatches", type=int, default=0)
+    p.add_argument("--pp", type=int, default=1,
+                   help="pipeline-parallel stage count (transformer only; "
+                        "1F1B schedule, n_layers must divide over it; "
+                        "exclusive with --sp/--tp/--ep; one stage a rank "
+                        "of a --distributed world of this size)")
+    p.add_argument("--microbatches", type=int, default=0,
+                   help="pipeline microbatch count M (0 = 2*pp)")
     p.add_argument("--n-experts", type=int, default=0,
                    help="transformer: replace dense FFNs with an MoE of "
                         "this many experts (all on the one device)")
@@ -547,10 +649,9 @@ def build_parser():
 
 
 def _refuse_multi_gpu(args):
-    """Refuse what is not ported yet: tensor, expert and pipeline
-    parallelism, and sequence parallelism outside the transformer."""
-    parallel = {"--tp": args.tp, "--ep": args.ep, "--pp": args.pp,
-                "--microbatches": args.microbatches}
+    """Refuse what is not ported yet: tensor and expert parallelism, and
+    sequence parallelism outside the transformer."""
+    parallel = {"--tp": args.tp, "--ep": args.ep}
     asked = [f"{flag} {n}" for flag, n in parallel.items() if n > 1]
     if args.sp > 1 and args.model != "transformer":
         asked.append(f"--sp {args.sp} with --model {args.model}")
@@ -569,19 +670,46 @@ def _refuse_moe_world(args, world):
             f"expert parallelism (--ep, ROADMAP.md Queue 1 item 5)")
 
 
-def _join(args):
+def _check_pp(parser, args):
+    """JAX's checks of ``--pp`` before any world is joined."""
+    if args.pp > 1:
+        if args.sp > 1 or args.tp > 1 or args.ep > 1:
+            parser.error("--pp is exclusive with --sp/--tp/--ep")
+        if args.model != "transformer":
+            parser.error("--pp supports --model transformer only")
+
+
+def _check_pp_world(parser, args, world):
+    """``--pp`` against the world: JAX's error for too few devices; the
+    port runs one stage a rank, so a larger world is refused too (JAX
+    would take its first N devices)."""
+    if args.pp > world:
+        parser.error(f"--pp={args.pp} needs {args.pp} devices, have {world}")
+    if args.pp > 1 and args.pp != world:
+        parser.error(f"--pp={args.pp} runs one stage a rank: it needs a "
+                     f"world of {args.pp} ranks, have {world}")
+
+
+def _join(args, parser):
     """(device, mesh): without ``--distributed`` (or TPU_WORKER_ID) the
     requested device and no mesh, the sizes checked against a world of
     one as JAX's ``plan_mesh`` checks them; with it the world joined
-    from the env contract and its ``build_mesh`` over every rank."""
+    from the env contract and its ``build_mesh`` over every rank (a
+    "pp" mesh under ``--pp``)."""
     if not (args.distributed or os.environ.get(bootstrap.WORKER_ID_ENV)):
+        _check_pp_world(parser, args, 1)
         pmesh.plan_mesh(1, {"dp": -1, "sp": args.sp, "tp": args.tp})
         return tf.resolve_device(args.device), None
     opts = bootstrap.initialize_from_env(device=args.device)
     log.info("process group initialized: %s", opts)
     device = torch.device(opts["device"])
-    _refuse_moe_world(args, opts["world_size"])
-    return device, build_mesh(opts["world_size"], args.sp, args.tp,
+    world = opts["world_size"]
+    _refuse_moe_world(args, world)
+    _check_pp_world(parser, args, world)
+    if args.pp > 1:
+        return device, pmesh.make_mesh(pmesh.plan_mesh(world, {"pp": world}),
+                                       device.type)
+    return device, build_mesh(world, args.sp, args.tp,
                               device_type=device.type)
 
 
@@ -626,9 +754,11 @@ def main(argv=None):
         level=logging.INFO,
         format="%(asctime)s %(levelname)s %(name)s: %(message)s",
     )
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
     _refuse_multi_gpu(args)
-    device, mesh = _join(args)
+    _check_pp(parser, args)
+    device, mesh = _join(args, parser)
     log.info("device=%s mesh=%s", device,
              dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
              if mesh is not None else None)

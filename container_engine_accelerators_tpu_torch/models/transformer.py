@@ -38,8 +38,9 @@ Training takes a DeviceMesh (``make_train_step(mesh=...)``, the JAX
 step's ``mesh``): its "dp" axis splits the global batch's rows and its
 "sp" axis the sequence, each rank running its shard of positions with
 RoPE at global positions and attention as a ring over the sp axis
-(``parallel/ring_attention.py``). Not in this port yet: tensor,
-pipeline and expert parallelism (see ROADMAP.md).
+(``parallel/ring_attention.py``). Pipeline parallelism is
+``models/pipeline_lm.py``. Not in this port yet: tensor and expert
+parallelism (see ROADMAP.md).
 """
 
 import dataclasses

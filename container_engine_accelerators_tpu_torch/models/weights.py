@@ -8,7 +8,9 @@ The JAX transformer's ``init_params`` pytree is ``{"embed": (V, D),
 (in, out) weight matrices and the embedding tied to the output head. The
 port keeps the (in, out) layout, so each stacked slice maps onto one
 module parameter unchanged. This is how the tests run both packages on
-identical weights. A tree from JAX ``quantization.quantize_params``
+identical weights; ``pp_params_from_jax`` and ``pp_split_jax`` do the
+same for JAX ``pipeline_lm.split_params``' (stages, loss_params) pair.
+A tree from JAX ``quantization.quantize_params``
 carries ``{"q": (L, din, dout) int8, "scale": (L, 1, dout) f32}`` leaves
 for the quantized layer matrices; each slice becomes an ``Int8Weight``
 with the same q and scale. With experts, the layer tree holds
@@ -143,6 +145,26 @@ def grads_to_jax(model):
     return _to_jax(
         model, lambda p: p.grad if p.grad is not None else torch.zeros_like(p)
     )
+
+
+def pp_params_from_jax(stages, loss_params, cfg, device="cuda", dtype=None):
+    """A Transformer from JAX ``pipeline_lm.split_params``' pair: the
+    stage leaves (N, L/N, ...) merged back to (L, ...), then
+    :func:`params_from_jax`."""
+    layers = {name: np.asarray(a).reshape((-1,) + np.shape(a)[2:])
+              for name, a in stages.items()}
+    return params_from_jax({"embed": loss_params["embed"], "layers": layers,
+                            "ln_f": loss_params["ln_f"]}, cfg,
+                           device=device, dtype=dtype)
+
+
+def pp_split_jax(tree, n_stages):
+    """A JAX-layout tree (:func:`params_to_jax`, :func:`grads_to_jax`)
+    as JAX ``pipeline_lm.split_params`` splits it: (stages, loss_params),
+    each layer leaf (L, ...) reshaped to (N, L/N, ...)."""
+    stages = {name: a.reshape((n_stages, -1) + a.shape[1:])
+              for name, a in tree["layers"].items()}
+    return stages, {"embed": tree["embed"], "ln_f": tree["ln_f"]}
 
 
 # -- BERT, MNIST, ResNet: parameters named after the JAX trees' keys ----------

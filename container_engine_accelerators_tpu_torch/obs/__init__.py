@@ -23,6 +23,9 @@ Copies of the JAX package's stdlib-only ``obs`` modules (that package's
   * :mod:`.goodput` — the goodput ledger over an event log
     (``train_cli --event-log``'s ``goodput`` block), with :mod:`.fleet`,
     the per-host span-trace loaders it reads;
+  * :mod:`.journey` — the request-journey stitcher (trace id →
+    waterfall and the stage to blame) that ``fleet/journeydrill.py``
+    judges with;
 
 and :mod:`.hbm`, the HBM occupancy model (``--chip-accounting``),
 adapted: its item sizes come from the port config's ``torch_dtype``, and
@@ -30,10 +33,13 @@ adapted: its item sizes come from the port config's ``torch_dtype``, and
 (``collectives/device_bench.py`` records its rows there once configured).
 
 The port's fleet tier (``fleet/router.py``, ``fleet/autoscaler.py``,
-``fleet/sim.py``) emits and evaluates on these copies.
+``fleet/sim.py``, ``fleet/journeydrill.py``) emits and evaluates on
+these copies.
 
-Not ported yet (ROADMAP.md): the fleet-level modules ``capacity``,
-``journey``, ``postmortem``, ``baseline`` and the ``merge`` CLI, and the
-link metrics of multi-GPU serving. ``faults/reactor.FleetReactor`` is
+The JAX package's jax-free readers ``capacity`` and ``postmortem`` read
+the port's event logs and flight bundles as they are (its ``journey``
+too; tests/test_torch_journey.py), so they are not copied. Not ported
+yet (ROADMAP.md): ``baseline`` and the ``merge`` CLI, and the link
+metrics of multi-GPU serving. ``faults/reactor.FleetReactor`` is
 jax-free control plane that runs unchanged beside port replicas.
 """

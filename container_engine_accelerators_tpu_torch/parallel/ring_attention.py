@@ -27,7 +27,9 @@ ring loops (:func:`ring_flash_forward`, :func:`ring_flash_backward`)
 take a transport: :class:`P2P` moves one rank's shards between
 processes (what :class:`RingFlash` uses), :class:`InProcess` rotates the
 lists of every rank's shards in one process, so that one card can run a
-whole ring's steps through the same loops.
+whole ring's steps through the same loops. Both also carry the pipeline
+schedule's neighbour transfers and broadcasts (``pipe`` and ``share``,
+``parallel/pipeline.py``).
 
 ``impl="plain"`` is the counterpart of JAX's ``"xla"`` block path: an
 einsum block with the streaming-softmax combine on the same ring,
@@ -131,6 +133,48 @@ class P2P:
     def wait(self, pending):
         return [tuple(_wait(pending))]
 
+    def pipe(self, to_next, to_prev, want_prev, want_next, like, tag):
+        """One pipeline tick's transfers (``parallel/pipeline.py``), in
+        one ``batch_isend_irecv``: per rank held, the tensor (or None)
+        for the next stage and for the previous one, whether a tensor
+        comes from the previous stage and from the next, and
+        ``like(shape_source)`` → an empty buffer to receive into. The
+        wrap-around pair is never used: the first stage sends nothing
+        back, the last nothing on. Returns (from previous, from next)
+        per rank held, None where nothing came."""
+        ring = self.ring
+        (send_next,), (send_prev,) = to_next, to_prev
+        (take_prev,), (take_next,) = want_prev, want_next
+        ops, got_prev, got_next = [], None, None
+        if send_next is not None:
+            ops.append(dist.P2POp(dist.isend, send_next.contiguous(),
+                                  ring.next, group=ring.group, tag=tag))
+        if send_prev is not None:
+            ops.append(dist.P2POp(dist.isend, send_prev.contiguous(),
+                                  ring.prev, group=ring.group, tag=tag + 1))
+        if take_prev:
+            got_prev = like()
+            ops.append(dist.P2POp(dist.irecv, got_prev, ring.prev,
+                                  group=ring.group, tag=tag))
+        if take_next:
+            got_next = like()
+            ops.append(dist.P2POp(dist.irecv, got_next, ring.next,
+                                  group=ring.group, tag=tag + 1))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return [got_prev], [got_next]
+
+    def share(self, tensors, src):
+        """The value that the rank at index ``src`` holds, on every
+        rank: ``tensors`` (one per rank held) is the value there and a
+        buffer of its shape and dtype elsewhere; broadcast over the
+        axis's group, in place. Returns the list."""
+        (t,) = tensors
+        dist.broadcast(t, dist.get_global_rank(self.ring.group, src),
+                       group=self.ring.group)
+        return [t]
+
 
 class InProcess:
     """Every rank of a ring of ``size`` in one process: a transfer is the
@@ -148,6 +192,22 @@ class InProcess:
 
     def wait(self, pending):
         return pending
+
+    def pipe(self, to_next, to_prev, want_prev, want_next, like, tag):
+        """:meth:`P2P.pipe` for every stage in one process: stage r
+        takes stage r - 1's tensor for the next stage and stage r + 1's
+        for the previous one, by reference."""
+        n = self.size
+        got_prev = [to_next[r - 1] if r > 0 and want_prev[r] else None
+                    for r in range(n)]
+        got_next = [to_prev[r + 1] if r < n - 1 and want_next[r] else None
+                    for r in range(n)]
+        return got_prev, got_next
+
+    def share(self, tensors, src):
+        """:meth:`P2P.share` in one process: every stage takes stage
+        ``src``'s tensor."""
+        return [tensors[src]] * self.size
 
 
 # -- the flash ring -----------------------------------------------------------

@@ -1,7 +1,8 @@
 # Copyright 2026 The TPU Accelerator Stack Authors.
 # SPDX-License-Identifier: Apache-2.0
-"""Ring attention and the sharded train step in a real world of N
-processes, one per device, held to one device.
+"""Ring attention, the sharded train step and the pipeline-parallel
+step in a real world of N processes, one per device, held to one
+device.
 
     python -m container_engine_accelerators_tpu_torch.parallel.world_smoke \\
         --world 4
@@ -27,7 +28,15 @@ gloo under ``--device cpu``. Then, on every rank:
          mesh the world factors into (sp = world; dp 2 × sp world / 2
          where it divides), two steps on the global batches, losses and
          rank 0's parameters held to the same steps on one device (rank
-         0, no mesh), every rank's parameters equal.
+         0, no mesh), every rank's parameters equal;
+  pp     the pipeline-parallel step (``models/pipeline_lm.py``: 1F1B
+         over point-to-point transfers on a "pp" mesh of all the ranks,
+         one stage a rank, 2 layers a stage, 2 × world microbatches of
+         one sequence, f32) against the unsplit ``make_train_step`` on
+         one device on the same weights and the flattened batch: the
+         loss, and every gradient of each rank's stage and of the
+         embedding and final norm (each rank holds its own against the
+         unsplit step run on its device); two steps of each timed.
 
 Rank 0 prints one JSON line per check, with the card's name and power
 limit on CUDA, then ``{"ok": true, ...}``; any miss exits non-zero.
@@ -58,6 +67,10 @@ RING_TOL = {"out_atol": 1e-2, "out_rtol": 1e-2, "lse_atol": 1e-4,
 TRAIN_LOSS_ATOL = 1e-5
 TRAIN_PARAM_ATOL = 2 * 3e-4
 TRAIN_STEPS = 2
+# The pp step's gradients against the unsplit step's, both f32 and
+# summed in other orders (per microbatch, then over the microbatches):
+# each gradient's largest error within 1e-4 of its largest entry.
+PP_GRAD_RTOL = 1e-4
 
 
 def _free_port():
@@ -280,6 +293,95 @@ def check_train(args, torch, dist, device, rank, world, card):
     return flag.item() == 0
 
 
+def _pp_grad_error(state, model, rank, world):
+    """The worst gradient of this rank's pp stage and of the embedding
+    and final norm against the unsplit model's: largest error over the
+    largest |gradient|."""
+    held, loss_params, _ = state
+    per = len(model.layers) // world
+    pairs = [(p, q) for layer, ref_layer in zip(
+        held[0], model.layers[rank * per:(rank + 1) * per])
+        for p, q in zip(layer.parameters(), ref_layer.parameters())]
+    pairs += [(loss_params["embed"], model.embed),
+              (loss_params["ln_f"], model.ln_f.weight)]
+    return max((p.grad - q.grad).abs().max().item()
+               / max(q.grad.abs().max().item(), 1e-30) for p, q in pairs)
+
+
+def check_pp(args, torch, dist, device, rank, world, card):
+    """The pipeline-parallel step over all the ranks against one
+    device's unsplit step."""
+    import numpy as np
+
+    from container_engine_accelerators_tpu_torch.models import pipeline_lm
+    from container_engine_accelerators_tpu_torch.models import (
+        transformer as tf,
+    )
+    from container_engine_accelerators_tpu_torch.parallel import (
+        mesh as pmesh,
+        ring_attention,
+    )
+
+    cfg = tf.TransformerConfig(
+        vocab_size=1024, d_model=args.train_d_model, n_layers=2 * world,
+        n_heads=8, n_kv_heads=4, d_ff=3 * args.train_d_model,
+        max_seq_len=args.train_seq, dtype="float32")
+    mesh = pmesh.make_mesh(pmesh.plan_mesh(world, {"pp": world}),
+                           device.type)
+    transport = ring_attention.P2P(ring_attention.ring_of(mesh, "pp"))
+    tokens = torch.as_tensor(np.random.default_rng(18).integers(
+        0, cfg.vocab_size, (2 * world, 1, args.train_seq + 1)),
+        device=device)
+    init, step = pipeline_lm.make_pp_train_step(cfg, transport,
+                                                device=device)
+    state = init(seed=0)
+    # The unsplit step on this rank's device, from the same seed.
+    init1, step1 = tf.make_train_step(cfg, device=device)
+    ref = init1(seed=0)
+    batch = {"tokens": tokens}
+    flat = {"tokens": tokens.reshape(-1, args.train_seq + 1)}
+    pp_ms, unsplit_ms, losses, unsplit_losses = [], [], [], []
+    for k in range(2):
+        dist.barrier()
+        (state, loss), ms = _timed(torch, device, lambda: step(state, batch))
+        pp_ms.append(ms)
+        (ref, ref_loss), ms = _timed(torch, device, lambda: step1(ref, flat))
+        unsplit_ms.append(ms)
+        losses.append(loss.item())
+        unsplit_losses.append(ref_loss.item())
+        if k == 0:
+            loss_err = abs(losses[0] - unsplit_losses[0])
+            worst = _pp_grad_error(state, ref[0], rank, world)
+    mine = torch.tensor([worst, *pp_ms], dtype=torch.float64, device=device)
+    every = [torch.empty_like(mine) for _ in range(world)]
+    dist.all_gather(every, mine)
+    by_rank = torch.stack(every).tolist()
+    ok = loss_err <= TRAIN_LOSS_ATOL and \
+        max(t[0] for t in by_rank) <= PP_GRAD_RTOL
+    n = world
+    m = tokens.shape[0]
+    _emit(rank, {"check": "pp", **card, "world": world,
+                 "stages": world, "layers_per_stage": cfg.n_layers // world,
+                 "microbatches": m, "seq": args.train_seq,
+                 "d_model": cfg.d_model, "dtype": "float32",
+                 "backend": dist.get_backend(), "losses": losses,
+                 "unsplit_losses": unsplit_losses,
+                 "loss_max_abs_err": loss_err,
+                 "grad_worst_rel_err_by_rank": [t[0] for t in by_rank],
+                 "pp_step_ms_by_rank": [t[1:] for t in by_rank],
+                 "pp_step_ms": [max(t[1 + k] for t in by_rank)
+                                for k in range(2)],
+                 "unsplit_step_ms": unsplit_ms,
+                 "timing": "two steps each; the first builds NCCL's "
+                           "pair communicators and warms the kernels",
+                 "bubble": (2 * n - 2) / (m + 2 * n - 2),
+                 "tol": {"loss": TRAIN_LOSS_ATOL, "grad_rel": PP_GRAD_RTOL},
+                 "ok": ok})
+    flag = torch.tensor([0.0 if ok else 1.0], device=device)
+    dist.all_reduce(flag)
+    return flag.item() == 0
+
+
 def run_rank(args):
     """One rank: join, run the checks, leave. Returns the exit code."""
     import torch
@@ -299,6 +401,7 @@ def run_rank(args):
     try:
         ok = check_ring(args, torch, dist, device, rank, world, card)
         ok = check_train(args, torch, dist, device, rank, world, card) and ok
+        ok = check_pp(args, torch, dist, device, rank, world, card) and ok
     finally:
         dist.destroy_process_group()
     _emit(rank, {"ok": ok, "world": world, "backend": opts["backend"],

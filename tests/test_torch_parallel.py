@@ -400,7 +400,8 @@ def test_ring_processes_leave_no_rendezvous_behind(ring_worlds, tmp_path):
 def test_world_smoke_on_two_gloo_ranks():
     """``parallel/world_smoke.py`` (the multi-GPU check) end to end on
     the CPU: two ranks through the env contract, the ring against the
-    whole sequence and the sp-sharded train step against one device."""
+    whole sequence, and the sp-sharded train step and the pp step
+    against one device."""
     import json
     import subprocess
     import sys
@@ -414,6 +415,7 @@ def test_world_smoke_on_two_gloo_ranks():
         cwd=worker.REPO, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     rows = [json.loads(line) for line in proc.stdout.splitlines()]
-    assert [r.get("check") for r in rows] == ["ring", "train", None]
+    assert [r.get("check") for r in rows] == ["ring", "train", "pp", None]
     assert all(r["ok"] for r in rows) and rows[-1]["world"] == 2
     assert rows[1]["sp"] == 2 and rows[1]["replicated"]
+    assert rows[2]["stages"] == 2 and rows[2]["microbatches"] == 4

@@ -121,14 +121,20 @@ def test_corrupt_step_makes_the_port_s_checkpoint_unreadable(tmp_path):
 
 def test_storm_verdict_agrees_with_jax_s(tmp_path):
     """Both packages' storms on the same seed and schedule: the same
-    restarts, resume points, corrupted step, fallbacks, hit/miss counts
-    and requests served (times are not compared)."""
+    restarts, resume points, corrupted step, fallbacks, hit/miss counts,
+    requests served, faults charged and ledger categories. Nothing that
+    depends on timing is compared: ``pass`` folds in wall-clock checks
+    (each resume's ready time below the first attempt's, the warm
+    replica below the cold one), and ``wedged`` holds the seconds from
+    the last heartbeat to the recovery decision, rounded to the
+    millisecond, which on the port's fast ``torch.save`` are 0.000 to
+    0.002 per restart and so may sum to nothing."""
     got = {}
     for name, mod in (("jax", jstorm), ("port", storm)):
         v = mod.run_drill(n_kills=3, seed=SEED,
                           work_dir=str(tmp_path / name))
         got[name] = {
-            "pass": v["pass"], "restarts": v["restarts"],
+            "restarts": v["restarts"],
             "attempts": [{k: a[k] for k in ("cache_hits", "cache_misses",
                                             "resumed_from")}
                          for a in v["attempts"]],
@@ -138,8 +144,10 @@ def test_storm_verdict_agrees_with_jax_s(tmp_path):
             "warmup": {k: v["serve_timing"]["warmup"][k]
                        for k in ("tasks", "compiled", "cache_hits",
                                  "cache_misses")},
-            # Idle seconds are the gaps between spans: timing.
-            "categories": sorted(c for c, s in v["ledger"]["seconds"].items()
-                                 if s > 0 and c != "idle"),
+            "faults": sorted(v["ledger"]["by_fault"]),
+            "categories": sorted(
+                c for c, s in v["ledger"]["seconds"].items()
+                if s > 0 and c not in ("idle", "wedged")
+            ),
         }
     assert got["port"] == got["jax"], TAG

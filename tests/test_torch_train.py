@@ -191,11 +191,13 @@ def test_train_cli_default_model_is_mnist(capsys):
 
 
 # --sp is ported for the transformer and --distributed for every model
-# (tests/test_torch_train_dist.py); --sp stays refused for the others.
+# (tests/test_torch_train_dist.py), --pp and --microbatches for the
+# transformer (tests/test_torch_pipeline_lm.py); --sp stays refused for
+# the others, and --tp and --ep with any company.
 @pytest.mark.parametrize("flag", [["--tp", "2"],
                                   ["--sp", "2", "--model", "mnist"],
-                                  ["--ep", "2"], ["--pp", "2"],
-                                  ["--microbatches", "4"],
+                                  ["--ep", "2"], ["--tp", "2", "--sp", "2"],
+                                  ["--ep", "2", "--n-experts", "4"],
                                   ["--sp", "2", "--model", "bert"]])
 def test_multi_gpu_flags_are_not_ported_yet(flag):
     with pytest.raises(NotImplementedError, match="multi-GPU"):

@@ -27,9 +27,6 @@ refused.
 import json
 import os
 import pickle
-import socket
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -244,52 +241,7 @@ CLI_FLAGS = ["--model", "transformer", "--device", "cpu", "--d-model", "64",
              "--vocab-size", "128", "--dtype", "float32", "--sp", "2"]
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _cli_world(argv, workdir, tag, world=2, timeout=240):
-    """``world`` train_cli processes joined through the env contract
-    (``argv`` a list, or a function of the rank giving each its own);
-    returns [(rc, result or None, log)] in rank order and the markers'
-    text."""
-    port = _free_port()
-    env = {k: v for k, v in os.environ.items()
-           if not k.startswith(("TPU_", "MEGASCALE_", "LOCAL_"))}
-    env.update(OMP_NUM_THREADS="1", PYTHONPATH=REPO, TPU_WORKER_ID="0",
-               TPU_WORKER_HOSTNAMES="127.0.0.1",
-               TPU_COORDINATOR_PORT=str(port),
-               LOCAL_WORLD_SIZE=str(world))
-    procs = []
-    for rank in range(world):
-        marker = os.path.join(workdir, f"{tag}_health{rank}.log")
-        procs.append(subprocess.Popen(
-            [sys.executable, "-m",
-             "container_engine_accelerators_tpu_torch.models.train_cli",
-             *(argv(rank) if callable(argv) else argv)],
-            env={**env, "LOCAL_RANK": str(rank),
-                 "TPU_HEALTH_CHECK_LOG_FILE": marker},
-            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True))
-    runs = []
-    try:
-        for proc in procs:
-            out, err = proc.communicate(timeout=timeout)
-            lines = out.strip().splitlines()
-            runs.append((proc.returncode,
-                         json.loads(lines[-1]) if lines else None, err))
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.communicate()
-    markers = []
-    for rank in range(world):
-        path = os.path.join(workdir, f"{tag}_health{rank}.log")
-        markers.append(open(path).read() if os.path.exists(path) else "")
-    return runs, markers
+_cli_world = worker.cli_world
 
 
 @pytest.fixture(scope="module")

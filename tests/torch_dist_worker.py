@@ -21,8 +21,11 @@ Imports torch and the port only: the tests import this module for its
 inputs and compare against the JAX package themselves.
 """
 
+import json
 import os
 import pickle
+import socket
+import subprocess
 import sys
 
 import numpy as np
@@ -163,6 +166,160 @@ def _train(world, workdir):
     return out
 
 
+# -- the pipeline schedules (tests/test_torch_pipeline.py) --------------------
+
+def pipeline_inputs(n_stages, n_micro, mb=2, dim=16):
+    """(W (N, dim, dim), b (N, dim), x (M, mb, dim), targets, the loss's
+    per-feature scale), f32, from a numpy generator seeded by the
+    shape."""
+    rng = np.random.default_rng(100 * n_stages + n_micro)
+
+    def normal(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+    return (normal(n_stages, dim, dim, scale=0.3),
+            normal(n_stages, dim, scale=0.1), normal(n_micro, mb, dim),
+            normal(n_micro, mb, dim, scale=0.5),
+            1.0 + normal(dim, scale=0.1))
+
+
+def stage(params, x):
+    """``tests/test_pipeline.py``'s tanh-linear stage."""
+    import torch
+
+    w, b = params
+    return torch.tanh(x @ w + b)
+
+
+def pipeline_loss(y, tgt, lp):
+    return ((y * lp["scale"] - tgt) ** 2).mean()
+
+
+def _pipeline_run(inputs, transport, held):
+    """``pipeline_train_1f1b`` (loss params, dx) over ``transport``,
+    which holds the stages ``held``."""
+    import torch
+
+    from container_engine_accelerators_tpu_torch.parallel import pipeline
+
+    ws, bs, x, tgt, scale = (torch.tensor(a) for a in inputs)
+    return pipeline.pipeline_train_1f1b(
+        stage, pipeline_loss, [(ws[i], bs[i]) for i in held], x, tgt,
+        transport, loss_params={"scale": scale}, return_dx=True)
+
+
+def pipeline_in_process(inputs):
+    from container_engine_accelerators_tpu_torch.parallel import (
+        ring_attention,
+    )
+
+    n = inputs[0].shape[0]
+    return _pipeline_run(inputs, ring_attention.InProcess(n), range(n))
+
+
+def _apply_run(inputs, transport, held):
+    """``pipeline_apply`` with loss sum(out²): (out, each held stage's
+    dW)."""
+    import torch
+
+    from container_engine_accelerators_tpu_torch.parallel import pipeline
+
+    ws, bs, x = (torch.tensor(a) for a in inputs[:3])
+    w_leaves = [ws[i].clone().requires_grad_(True) for i in held]
+    out = pipeline.pipeline_apply(
+        stage, [(w, bs[i]) for w, i in zip(w_leaves, held)], x, transport)
+    (out * out).sum().backward()
+    return out.detach().numpy(), [w.grad.numpy() for w in w_leaves]
+
+
+def pipeline_apply_in_process(inputs):
+    from container_engine_accelerators_tpu_torch.parallel import (
+        ring_attention,
+    )
+
+    n = inputs[0].shape[0]
+    return _apply_run(inputs, ring_attention.InProcess(n), range(n))
+
+
+def _pipeline(world, workdir):
+    """Every case of ``<dir>/pipeline_in.pkl`` ({name: (N, M)}, N the
+    world) over the ``P2P`` transport of this rank's stage."""
+    from container_engine_accelerators_tpu_torch.parallel import (
+        mesh as pmesh,
+        ring_attention,
+    )
+
+    with open(os.path.join(workdir, "pipeline_in.pkl"), "rb") as f:
+        cases = pickle.load(f)
+    mesh = pmesh.make_mesh(pmesh.plan_mesh(world, {"pp": world}), "cpu")
+    ring = ring_attention.ring_of(mesh, "pp")
+    transport = ring_attention.P2P(ring)
+    out = {}
+    for name, (n, m) in cases.items():
+        inputs = pipeline_inputs(n, m)
+        if ring.index != 0:
+            # Only stage 0 reads the inputs.
+            inputs = (*inputs[:2], np.full_like(inputs[2], np.nan),
+                      *inputs[3:])
+        loss, (grads,), lpg, dx = _pipeline_run(inputs, transport,
+                                                [ring.index])
+        apply_out, (apply_dw,) = _apply_run(inputs, transport, [ring.index])
+        out[name] = {"loss": float(loss), "dw": grads[0].numpy(),
+                     "db": grads[1].numpy(),
+                     "dscale": lpg["scale"].numpy(), "dx": dx.numpy(),
+                     "apply_out": apply_out, "apply_dw": apply_dw}
+    return out
+
+
+# -- train_cli worlds through the env contract -------------------------------
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def cli_world(argv, workdir, tag, world=2, timeout=240):
+    """``world`` train_cli processes joined through the env contract
+    (``argv`` a list, or a function of the rank giving each its own);
+    returns [(rc, result or None, log)] in rank order and the markers'
+    text."""
+    port = free_port()
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("TPU_", "MEGASCALE_", "LOCAL_"))}
+    env.update(OMP_NUM_THREADS="1", PYTHONPATH=REPO, TPU_WORKER_ID="0",
+               TPU_WORKER_HOSTNAMES="127.0.0.1",
+               TPU_COORDINATOR_PORT=str(port),
+               LOCAL_WORLD_SIZE=str(world))
+    procs = []
+    for rank in range(world):
+        marker = os.path.join(workdir, f"{tag}_health{rank}.log")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m",
+             "container_engine_accelerators_tpu_torch.models.train_cli",
+             *(argv(rank) if callable(argv) else argv)],
+            env={**env, "LOCAL_RANK": str(rank),
+                 "TPU_HEALTH_CHECK_LOG_FILE": marker},
+            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    runs = []
+    try:
+        for proc in procs:
+            out, err = proc.communicate(timeout=timeout)
+            lines = out.strip().splitlines()
+            runs.append((proc.returncode,
+                         json.loads(lines[-1]) if lines else None, err))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    markers = []
+    for rank in range(world):
+        path = os.path.join(workdir, f"{tag}_health{rank}.log")
+        markers.append(open(path).read() if os.path.exists(path) else "")
+    return runs, markers
+
+
 def main(argv):
     scenario, rank, world, workdir = argv
     rank, world = int(rank), int(world)
@@ -177,6 +334,8 @@ def main(argv):
             out = _ring(world)
         elif scenario == "train":
             out = _train(world, workdir)
+        elif scenario == "pipeline":
+            out = _pipeline(world, workdir)
         else:
             raise ValueError(f"unknown scenario {scenario!r}")
     finally:
@@ -192,8 +351,6 @@ def spawn(scenario, world, workdir, timeout=300):
     cores); returns each rank's output in rank order. A rank that fails
     or a world that outlives ``timeout`` kills the rest and raises with
     every rank's log."""
-    import subprocess
-
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("TPU_", "MEGASCALE_", "LOCAL_"))}
     env.update(OMP_NUM_THREADS="1", PYTHONPATH=REPO)
