@@ -459,6 +459,10 @@ LONG_CONTEXT_CASE = ("long_context_s32768", 1, 32768, 32768, True, 0, 0,
 # Llama-3-8B's heads.
 PIPELINE_CASE = ("pipeline_s4096", 1, 4096, 4096, True, 0, 0, None, 32, 8,
                  128, "bfloat16")
+# The tensor_parallel phase's rank attention: Llama-3-8B's heads over tp 4
+# (8 query heads on 2 kv heads), 1 × 4096.
+TP_LOCAL_CASE = ("tp_local_s4096", 1, 4096, 4096, True, 0, 0, None, 8, 2,
+                 128, "bfloat16")
 # (name, batch, seq_q, seq_k, causal, q_base, k_base, kv_len, hq, hkv, d,
 #  dtype). The first four are the Llama-3-8B prefill shapes (Hq 32, Hkv 8,
 # D 128): the serve phase's prompts of 300 (batch 2) and 1500 tokens land
@@ -469,6 +473,7 @@ KERNEL_CASES = [
     ("causal_512_b2", 2, 512, 512, True, 0, 0, None, 32, 8, 128, "bfloat16"),
     ("causal_2048", 1, 2048, 2048, True, 0, 0, None, 32, 8, 128, "bfloat16"),
     PIPELINE_CASE,
+    TP_LOCAL_CASE,
     ("causal_8192", 1, 8192, 8192, True, 0, 0, None, 32, 8, 128, "bfloat16"),
     # Past 8192 keys the JAX package switches to its streaming forward.
     ("causal_16384", 1, 16384, 16384, True, 0, 0, None, 32, 8, 128,
@@ -647,6 +652,7 @@ def library_bwd_ms(q, k, v, g, torch, attention, *, causal, sm_scale,
 BWD_CASES = [
     ("causal_2048", 1, 2048, 2048, True, 0, 0, None, 32, 8, 128, "bfloat16"),
     PIPELINE_CASE,
+    TP_LOCAL_CASE,
     ("causal_8192", 1, 8192, 8192, True, 0, 0, None, 32, 8, 128, "bfloat16"),
     ("causal_16384", 1, 16384, 16384, True, 0, 0, None, 32, 8, 128,
      "bfloat16"),
@@ -821,12 +827,12 @@ INT8_GRAPH_CASES = ("m1_w1", "m8_wq", "m8_wk", "m8_w1", "m8_w2",
 COLD_BYTES = 120e6
 
 
-def int8_bound(m, k, n):
+def int8_bound(m, k, n, y_bytes=2):
     """(bound_ms, bound_by) of one W8A16 product: the larger of 2MKN over
-    the bf16 peak and K·N (int8) + 4N (scale) + 2MK (x) + 2MN (y) bytes
-    over the HBM rate."""
+    the bf16 peak and K·N (int8) + 4N (scale) + 2MK (x) + ``y_bytes``·MN
+    (y: bf16, or 4 for an f32 output) bytes over the HBM rate."""
     t_ops = 2.0 * m * k * n / PEAK_BF16_FLOPS
-    t_bytes = (k * n + 4 * n + 2 * m * k + 2 * m * n) / HBM_BYTES_PER_S
+    t_bytes = (k * n + 4 * n + 2 * m * k + y_bytes * m * n) / HBM_BYTES_PER_S
     if t_ops >= t_bytes:
         return t_ops * 1e3, "operations"
     return t_bytes * 1e3, "bytes"
@@ -4778,7 +4784,9 @@ def _unsplit_step(torch, tf, cfg, flat, steps=2):
             for a, p in zip(acc, model.parameters()):
                 a += p.grad.float()
         for a, p in zip(acc, model.parameters()):
-            p.grad = a.to(p.dtype)
+            # A copy even for an f32 parameter (an MoE router): the next
+            # step zeroes and refills ``acc``.
+            p.grad = a.to(p.dtype, copy=True)
         opt.step()
         loss = loss.item()
         step_ms.append((time.perf_counter() - t0) * 1e3)
@@ -4910,6 +4918,313 @@ def pipeline_phase(torch, np, tf, attention, ra, card):
     if not held_ok:
         fail(f"pipeline: the stage's kernel calls disagree with their "
              f"plain versions: {held}")
+    return launches
+
+
+# tensor_parallel: Llama-3-8B's widths, 4 of its 32 layers, tp 4 (every
+# rank in this process, parallel/tensor_parallel.Axes.in_process), B 1 ×
+# S 4096, bf16, 3 steps of models/tp_lm.py on each of its paths.
+TP_SIZE = 4
+TP_LAYERS = 4
+TP_SEQ = 4096
+TP_STEPS = 3
+# expert_parallel: Mixtral-8x7B's widths (d 4096, 32/8 heads, d_ff 14336,
+# 8 experts, top-2, the JAX package's GELU experts, vocab 32000, rope
+# theta 1e6), 2 layers, ep 4, the same batch shape.
+EP_SIZE = 4
+EP_LAYERS = 2
+
+
+def _sharded_launches_per_step(ranks, layers):
+    """Flash launches of one tp or ep step with per-layer remat: every
+    rank runs each layer's attention forward twice (the forward and the
+    backward's recompute), then one dq and one dk/dv launch."""
+    return (2 * ranks * layers, ranks * layers, ranks * layers)
+
+
+def _sharded_steps(torch, tf, tp_lm, attention, cfg, axes, overlap,
+                   batches):
+    """``TP_STEPS`` steps of ``tp_lm`` over ``axes`` from seed 0's
+    weights: (losses, step ms, flash launches per step, the first step's
+    gradients merged by name, peak GB, the path)."""
+    init, step = tp_lm.make_train_step(cfg, axes, device="cuda",
+                                       overlap=overlap)
+    model = tf.init_params(cfg, device="cuda", seed=0)
+    state = init(model=model)
+    del model
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, per_step, grads = [], [], [], None
+    for k, batch in enumerate(batches):
+        before = _flash_counts(attention)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        losses.append(loss.item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append(tuple(a - b for a, b in zip(
+            _flash_counts(attention), before)))
+        if k == 0:
+            grads = tp_lm.merged(list(state[0]), axes, "grads")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    path = tp_lm.resolve(cfg, axes, None, 1, TP_SEQ, overlap)
+    del state
+    _free(torch)
+    return losses, step_ms, per_step, grads, peak_gb, path
+
+
+def _sharded_phase(torch, np, tf, attention, card, phase, cfg, axes,
+                   overlaps, seed, kernel_case):
+    """One sharded training path held to the unsplit step by
+    ``world_smoke.wide_verdict`` (its gradients merged from the ranks'
+    shards: in f32 within ``SHARDED_GRAD_RTOL`` of the unsplit f32 step;
+    in bf16 as close to those as the unsplit bf16 step; a dense model's
+    also within ``TRAIN_GRAD_TOL`` of the unsplit bf16 step, and the
+    loss), its flash launches to the schedule's count and the rank's
+    attention calls (``kernel_case``'s shape) to their plain versions.
+    Returns the launches of all its steps (fwd, dq, dkv)."""
+    from container_engine_accelerators_tpu_torch.models import tp_lm
+    from container_engine_accelerators_tpu_torch.parallel import (
+        ring_attention as ra,
+        world_smoke,
+    )
+
+    rng = np.random.default_rng(seed)
+    batches = [{"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (1, TP_SEQ + 1)), device="cuda")}
+        for _ in range(TP_STEPS)]
+    loss1, ref, unsplit_ms, unsplit_peak_gb = _unsplit_step(
+        torch, tf, cfg, batches[0])
+    _free(torch)
+    ref32 = world_smoke.unsplit_f32_grads(
+        torch, tf, tf.init_params(cfg, device="cuda", seed=0), batches[0])
+    _free(torch)
+    n_params = tp_lm.n_params(cfg)
+    ranks = axes.held
+    want = _sharded_launches_per_step(ranks, cfg.n_layers)
+    expected = math.log(cfg.vocab_size) + cfg.d_model * 0.02 ** 2 / 2
+    _zero_flash_counts(attention)
+    problems, launches = [], (0, 0, 0)
+    for overlap in overlaps:
+        losses, step_ms, per_step, grads, peak_gb, path = _sharded_steps(
+            torch, tf, tp_lm, attention, cfg, axes, overlap, batches)
+        # The steps' launches; the f32 hold's below are a comparison's.
+        for counts in per_step:
+            launches = tuple(a + b for a, b in zip(launches, counts))
+        got32 = world_smoke.sharded_f32_grads(
+            torch, tf, tp_lm, tf.init_params(cfg, device="cuda", seed=0),
+            axes, batches[0], overlap=overlap)
+        readings, held = world_smoke.wide_verdict(
+            torch, bool(cfg.n_experts), abs(losses[0] - loss1), grads, ref,
+            got32, ref32)
+        del grads, got32
+        _free(torch)
+        steady = step_ms[1:]
+        tokens = TP_SEQ
+        emit({"phase": phase, **card, "path": path, "tp": axes.tp.size,
+              "ep": axes.ep.size, "n_layers": cfg.n_layers,
+              "n_experts": cfg.n_experts, "batch": [1, TP_SEQ],
+              "dtype": cfg.dtype, "transport": "InProcess",
+              "n_params": n_params, "losses": losses, "unsplit_loss": loss1,
+              "loss_abs_err": abs(losses[0] - loss1),
+              "expected_first_loss": expected, **readings,
+              "tol": {**world_smoke.WIDE_GRAD_TOL,
+                      "f32_grad_rel": world_smoke.SHARDED_GRAD_RTOL,
+                      "f32_anchor": world_smoke.F32_ANCHOR,
+                      "bf16_vs_unsplit_held": not cfg.n_experts},
+              "launches_per_step": per_step, "launches_per_step_want": want,
+              "step_ms": step_ms,
+              "mean_steady_step_ms": sum(steady) / len(steady),
+              "unsplit_step_ms": unsplit_ms,
+              "step_note": f"every rank's step in this process, serially: "
+                           f"the sum of the {ranks} ranks' work and their "
+                           f"in-process transfers (a list rotation)",
+              "tokens_per_s": tokens / (sum(steady) / len(steady) / 1e3),
+              "max_memory_allocated_gb": peak_gb,
+              "unsplit_max_memory_allocated_gb": unsplit_peak_gb})
+        if not held:
+            problems.append(f"{path}: disagrees with the unsplit step: "
+                            f"{readings}")
+        if not all(math.isfinite(x) for x in losses) or \
+                abs(losses[0] - expected) > 0.5:
+            problems.append(f"{path}: losses {losses}, the first not within "
+                            f"0.5 of {expected}")
+        if any(c != want for c in per_step):
+            problems.append(f"{path}: launches per step {per_step}, want "
+                            f"{want}")
+    del ref, ref32
+    _free(torch)
+
+    # Kernels 1, 3 and 4 at the rank's attention shape against their plain
+    # versions (bases 0).
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    hq, hkv, d = kernel_case[8], kernel_case[9], kernel_case[10]
+
+    def rand(h):
+        return torch.randn(1, h, TP_SEQ, d, generator=gen,
+                           device="cuda").to(torch.bfloat16)
+
+    q, k, v, g = rand(hq), rand(hkv), rand(hkv), rand(hq)
+    sm_scale = d ** -0.5
+    out, lse = attention.flash_fwd(q, k, v, causal=True, sm_scale=sm_scale)
+    held_ok, held = _held_shard_call(torch, attention, q, k, v, out, lse, g,
+                                     ra.delta_of(out, g), 0, 0, sm_scale)
+    emit({"phase": f"{phase}_kernels", **card, "case": kernel_case[0],
+          "ok": held_ok, **held})
+    del q, k, v, g, out, lse
+    _free(torch)
+    if not held_ok:
+        problems.append(f"the rank's kernel calls disagree with their plain "
+                        f"versions: {held}")
+    if problems:
+        fail(f"{phase}: " + "; ".join(problems))
+    return launches
+
+
+def tensor_parallel_phase(torch, np, tf, attention, card):
+    """Tensor-parallel training at Llama-3-8B's widths (``TP_LAYERS``
+    layers, tp ``TP_SIZE``, every rank in this process): the ring path and
+    the off path, ``TP_STEPS`` steps each, against the unsplit step.
+    Returns the launches of all its steps (fwd, dq, dkv)."""
+    from container_engine_accelerators_tpu_torch.parallel import (
+        tensor_parallel as tpar,
+    )
+
+    cfg = dataclasses.replace(tf.TransformerConfig.llama3_8b(),
+                              n_layers=TP_LAYERS)
+    return _sharded_phase(torch, np, tf, attention, card, "tensor_parallel",
+                          cfg, tpar.Axes.in_process(tp=TP_SIZE),
+                          ("ring", "off"), 19, TP_LOCAL_CASE)
+
+
+def mixtral_config(tf, n_layers=EP_LAYERS):
+    """Mixtral-8x7B's published widths on the port's MoE FFN (the JAX
+    package's GELU experts)."""
+    return tf.TransformerConfig(
+        vocab_size=32000, d_model=4096, n_layers=n_layers, n_heads=32,
+        n_kv_heads=8, d_ff=14336, max_seq_len=TP_SEQ, rope_theta=1e6,
+        n_experts=8, expert_top_k=2)
+
+
+def expert_parallel_phase(torch, np, tf, attention, card):
+    """Expert-parallel MoE training at Mixtral-8x7B's widths
+    (``EP_LAYERS`` layers, ep ``EP_SIZE``, every rank in this process)
+    against the unsplit MoE step. Returns the launches of its steps."""
+    from container_engine_accelerators_tpu_torch.parallel import (
+        tensor_parallel as tpar,
+    )
+
+    return _sharded_phase(torch, np, tf, attention, card, "expert_parallel",
+                          mixtral_config(tf),
+                          tpar.Axes.in_process(ep=EP_SIZE), (None,), 20,
+                          PIPELINE_CASE)
+
+
+# The int8 ring products at a tp-4 shard of Llama-3-8B's FFN: w1's column
+# shard (K 4096 × N 3584) behind the gathering ring of M 4096 rows, and
+# w2's row shard (K 3584 × N 4096) behind the scattering ring, whose f32
+# partials are the tensor-core kernel's f32 epilogue (bf16 x, f32 y).
+INT8_RING_M = 4096
+
+
+def int8_ring_phase(torch, int8_matmul, q8, card):
+    """Both int8 rings over ``InProcess(4)`` against ``int8_mm_reference``
+    on each rank's whole product, within ``INT8_TOL``; the ring ms beside
+    the monolithic kernel's on the gathered rows; one f32-output product
+    (the scattering ring's partial at its shard) against the plain version
+    with an f32 output (``INT8_TOL["float32"]``), its ms beside the
+    bf16-output launch's, the plain version's and its bound. Returns the
+    kernel's launches in the two rings' timed-free runs."""
+    from container_engine_accelerators_tpu_torch.parallel import overlap
+    from container_engine_accelerators_tpu_torch.parallel.ring_attention \
+        import InProcess
+
+    n = TP_SIZE
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.randn(1, INT8_RING_M, 4096, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    h = torch.randn(1, INT8_RING_M, 14336, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+
+    def int8_weight(k, nn):
+        w = (torch.randn(k, nn, generator=gen, device="cuda")
+             * k ** -0.5).to(torch.bfloat16)
+        return q8.Int8Weight.from_jax_layout(**q8.quantize_weight(w))
+
+    w1, w2 = int8_weight(4096, 14336), int8_weight(14336, 4096)
+    cols, rows = overlap._split_cols(w1, n), overlap._split_rows(w2, n)
+    xs = [c.contiguous() for c in x.chunk(n, dim=-2)]
+    hs = [c.contiguous() for c in h.chunk(n, dim=-1)]
+    ring = InProcess(n)
+    tol = INT8_TOL["bfloat16"]
+    before = int8_matmul.int8_mm_launches
+    ag = overlap.allgather_matmul(xs, cols, ring)
+    rs = overlap.matmul_reducescatter(hs, rows, ring)
+    torch.cuda.synchronize()
+    launches = int8_matmul.int8_mm_launches - before
+    errs, ok = {}, True
+    for r in range(n):
+        want = int8_matmul.int8_mm_reference(x, cols[r].q, cols[r].scale)
+        diff = (ag[r].float() - want.float()).abs()
+        ok = ok and bool((diff <= tol["atol"] + tol["rtol"]
+                          * want.float().abs()).all())
+        errs[f"ag_rank{r}"] = diff.max().item()
+    want = int8_matmul.int8_mm_reference(h, w2.q, w2.scale)
+    got = torch.cat(rs, dim=-2)
+    diff = (got.float() - want.float()).abs()
+    ok = ok and bool((diff <= tol["atol"] + tol["rtol"]
+                      * want.float().abs()).all())
+    errs["rs"] = diff.max().item()
+    # The f32 epilogue alone: rank 0's partial over its K shard.
+    w0 = rows[0]
+    part = int8_matmul.int8_mm(hs[0], w0.q, w0.scale, out_dtype=torch.float32)
+    want32 = int8_matmul.int8_mm_reference(hs[0], w0.q, w0.scale,
+                                           out_dtype=torch.float32)
+    tol32 = INT8_TOL["float32"]
+    diff = (part - want32).abs()
+    f32_ok = part.dtype == torch.float32 and bool(
+        (diff <= tol32["atol"] + tol32["rtol"] * want32.abs()).all())
+    errs["f32_out"] = diff.max().item()
+    f32_bound, f32_bound_by = int8_bound(INT8_RING_M, w0.q.shape[1],
+                                         w0.q.shape[0], y_bytes=4)
+    f32_out = {
+        "shape": [INT8_RING_M, w0.q.shape[1], w0.q.shape[0]],
+        "max_abs_err": errs["f32_out"], "tol": tol32, "ok": f32_ok,
+        "ms": time_ms(lambda: int8_matmul.int8_mm(
+            hs[0], w0.q, w0.scale, out_dtype=torch.float32), torch),
+        "bf16_out_ms": time_ms(lambda: int8_matmul.int8_mm(
+            hs[0], w0.q, w0.scale), torch),
+        "plain_ms": time_ms(lambda: int8_matmul.int8_mm_reference(
+            hs[0], w0.q, w0.scale, out_dtype=torch.float32), torch),
+        "bound_ms": f32_bound, "bound_by": f32_bound_by}
+    del part, want32, diff
+    ok = ok and f32_ok
+    row = {"phase": "int8_ring", **card, "tp": n, "m": INT8_RING_M,
+           "ag_shard": [4096, 3584], "rs_shard": [3584, 4096],
+           "launches": launches, "max_abs_err": errs, "tol": tol,
+           "ag_ring_ms": time_ms(lambda: overlap.allgather_matmul(
+               xs, cols, ring), torch),
+           "ag_monolithic_ms": time_ms(lambda: [
+               int8_matmul.int8_mm(x, c.q, c.scale) for c in cols], torch),
+           "rs_ring_ms": time_ms(lambda: overlap.matmul_reducescatter(
+               hs, rows, ring), torch),
+           "rs_monolithic_bf16_ms": time_ms(lambda: int8_matmul.int8_mm(
+               h, w2.q, w2.scale), torch),
+           "f32_out": f32_out,
+           "timing": "every rank in this process, serially (the transfer "
+                     "is a list rotation); the scattering ring's f32 "
+                     "partials are the tensor-core kernel's f32 epilogue, "
+                     "the monolithic row its bf16 one", "ok": ok}
+    emit(row)
+    del x, h, w1, w2, w0, cols, rows, xs, hs, ag, rs, got, want
+    _free(torch)
+    if not ok:
+        fail(f"int8_ring: the ring products disagree with int8_mm_reference "
+             f"beyond {tol}: {errs}")
+    if launches != 4 * n * n:
+        # Bidirectional at a ring of 4: two half-row chunks a step, n
+        # steps, n ranks, two rings.
+        fail(f"int8_ring: {launches} int8_mm launches, want {4 * n * n}")
     return launches
 
 
@@ -5447,6 +5762,11 @@ def main():
     pipeline_launches = pipeline_phase(torch, np, tf, attention,
                                        ring_attention, card)
     _free(torch)
+    tp_launches = tensor_parallel_phase(torch, np, tf, attention, card)
+    _free(torch)
+    ep_launches = expert_parallel_phase(torch, np, tf, attention, card)
+    _free(torch)
+    int8_ring_launches = int8_ring_phase(torch, int8_matmul, q8, card)
     train_dist_launches = train_dist_phase(card)
     compile_cache_phase(card)
     train_cli_cache_phase(card)
@@ -5464,10 +5784,13 @@ def main():
                 "train_bert": bert_launches, "train_cli": cli_launches,
                 "train_recovery": recovery_launches,
                 "ring": ring_launches, "pipeline": pipeline_launches,
+                "tensor_parallel": tp_launches,
+                "expert_parallel": ep_launches,
                 "train_dist": train_dist_launches,
                 "device_bench": tuple(bench_launches[k] for k in (
                     "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))}
     int8_launches["device_bench"] = bench_launches["int8_mm"]
+    int8_launches["int8_ring"] = int8_ring_launches
 
     def by_path(i):
         return {path: counts[i] for path, counts in training.items()}
@@ -5509,6 +5832,10 @@ def main():
 
     def pp_shape(kind, err):
         return case_shape(PIPELINE_CASE[0], kind, err)
+
+    def tp_shape(kind, err):
+        return case_shape(TP_LOCAL_CASE[0], kind, err)
+    tp_fwd, tp_bwd = rows[TP_LOCAL_CASE[0]], bwd_rows[TP_LOCAL_CASE[0]]
     stream_src = "container_engine_accelerators_tpu_torch/ops/stream.py"
     bench_src = "container_engine_accelerators_tpu/collectives/device_bench.py:"
 
@@ -5555,6 +5882,7 @@ def main():
             "bert_large": bert_shape("fwd", bert_fwd["max_abs_err_out"]),
             "long_context": long_shape("fwd", long_fwd["max_abs_err_out"]),
             "pipeline": pp_shape("fwd", pp_fwd["max_abs_err_out"]),
+            "tp_local": tp_shape("fwd", tp_fwd["max_abs_err_out"]),
         },
         {
             "name": "flash_bwd_dq", "route": "cuda",
@@ -5572,6 +5900,7 @@ def main():
             "bert_large": bert_shape("dq", bert_bwd["max_abs_err_dq"]),
             "long_context": long_shape("dq", long_bwd["max_abs_err_dq"]),
             "pipeline": pp_shape("dq", pp_bwd["max_abs_err_dq"]),
+            "tp_local": tp_shape("dq", tp_bwd["max_abs_err_dq"]),
         },
         {
             "name": "flash_bwd_dkv", "route": "cuda",
@@ -5593,6 +5922,8 @@ def main():
                 long_bwd["max_abs_err_dk"], long_bwd["max_abs_err_dv"])),
             "pipeline": pp_shape("dkv", max(pp_bwd["max_abs_err_dk"],
                                             pp_bwd["max_abs_err_dv"])),
+            "tp_local": tp_shape("dkv", max(tp_bwd["max_abs_err_dk"],
+                                            tp_bwd["max_abs_err_dv"])),
         },
         {
             "name": "int8_mm", "route": "cuda",

@@ -16,10 +16,18 @@ its stacked layer dim a ``ModuleList``, so ``models/weights.py`` bridges
 JAX's weights leaf for leaf.
 
 Data parallel: ``make_train_step(mesh=...)`` runs this rank's rows of
-the global batch and sums the gradients over the world
+the global batch and sums the gradients over the dp axis
 (``parallel/data_parallel.py``); the parameters stay replicated, which
-JAX's dp sharding computes the same numbers as. Not ported: the tp
-shardings of ``param_shardings`` (ROADMAP.md Queue 1 item 5).
+JAX's dp sharding computes the same numbers as. Tensor parallel (a mesh
+"tp" axis above 1, or ``make_tp_train_step`` over ``Axes`` held in one
+process): JAX's ``param_shardings`` (:102) in Megatron's form, wq, wk,
+wv, w_in and b_in split by columns and wo, w_out by rows over tp, the
+embeddings, norms and MLM head whole; activations stay replicated over
+tp, with one all-reduce of each row-parallel product's f32 partials
+(``parallel/tensor_parallel.row_parallel``), and attention runs the
+non-causal flash kernels on the rank's n_heads/tp heads. Every replicated
+parameter then sees every token on every tp rank, so its gradient is
+whole there and only dp sums it.
 """
 
 import dataclasses
@@ -38,6 +46,9 @@ from container_engine_accelerators_tpu_torch.ops.attention import (
     flash_attention,
 )
 from container_engine_accelerators_tpu_torch.parallel import data_parallel
+from container_engine_accelerators_tpu_torch.parallel import (
+    tensor_parallel as tpar,
+)
 
 MASK_TOKEN = 1  # vocab slot reserved for [MASK] in synthetic batches
 
@@ -186,31 +197,66 @@ ATTN_IMPLS = ("flash", "reference")
 
 def forward(model, tokens, segment_ids=None, pad_mask=None,
             attn_impl="flash"):
-    """tokens (B, S) → final hidden states (B, S, D); differentiable."""
-    if attn_impl not in ATTN_IMPLS:
-        raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
-                         f"{attn_impl!r}")
-    cfg = model.cfg
-    batch, seq = tokens.shape
-    h, hd = cfg.n_heads, cfg.head_dim
+    """tokens (B, S) → final hidden states (B, S, D); differentiable
+    (``tp_forward`` on the one whole model)."""
+    return tp_forward([model], tpar.Axes.in_process(), tokens,
+                      segment_ids=segment_ids, pad_mask=pad_mask,
+                      attn_impl=attn_impl)[0]
 
+
+def _embed(model, tokens, segment_ids):
+    seq = tokens.shape[1]
     x = model.embed[tokens] + model.pos_embed[None, :seq, :]
     if segment_ids is None:
         x = x + model.type_embed[0][None, None, :]
     else:
         x = x + model.type_embed[segment_ids]
-    x = model.ln_embed(x)
-    for lp in model.layers:
-        def heads(w):
-            return (x @ w).view(batch, seq, h, hd).transpose(1, 2)
+    return model.ln_embed(x)
 
-        attn = _attention(heads(lp.wq), heads(lp.wk), heads(lp.wv),
-                          pad_mask, attn_impl)
-        attn = attn.transpose(1, 2).reshape(batch, seq, h * hd)
-        x = lp.ln1(x + attn @ lp.wo)  # post-LN
-        act = gelu((x @ lp.w_in + lp.b_in).float())
-        x = lp.ln2(x + (act.to(x.dtype) @ lp.w_out + lp.b_out))
-    return x
+
+def tp_forward(shards, axes, tokens, segment_ids=None, pad_mask=None,
+               attn_impl="flash"):
+    """The encoder on the tp shards of every rank held (``axes``; a lone
+    whole model at tp 1, :func:`forward`): the final hidden states per
+    rank, each the whole (B, S, D). Megatron's layout: the attention's
+    heads and the FFN's columns split over tp, each leaving product's
+    partial sums reduced over tp (``row_parallel``; the plain product at
+    tp 1)."""
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
+                         f"{attn_impl!r}")
+    tp = axes.tp
+    cfg = shards[0].cfg
+    batch, seq = tokens.shape
+    h, hd = cfg.n_heads // tp.size, cfg.head_dim
+    xs = [_embed(s, tokens, segment_ids) for s in shards]
+    for i in range(cfg.n_layers):
+        lps = [s.layers[i] for s in shards]
+
+        def heads(t):
+            return t.view(batch, seq, h, hd).transpose(1, 2)
+
+        outs = []
+        for (q, k, v) in tpar.column_products(
+                xs, [(lp.wq, lp.wk, lp.wv) for lp in lps], [tp]):
+            attn = _attention(heads(q), heads(k), heads(v), pad_mask,
+                              attn_impl)
+            outs.append(attn.transpose(1, 2).reshape(batch, seq, h * hd))
+        outs = tpar.row_parallel(outs, [lp.wo for lp in lps], axes)
+        xs = [lp.ln1(x + o) for x, o, lp in zip(xs, outs, lps)]
+        outs = [gelu((u + lp.b_in).float()).to(x.dtype)
+                for (u,), x, lp in zip(tpar.column_products(
+                    xs, [(lp.w_in,) for lp in lps], [tp]), xs, lps)]
+        outs = tpar.row_parallel(outs, [lp.w_out for lp in lps], axes)
+        xs = [lp.ln2(x + (o + lp.b_out)) for x, o, lp in zip(xs, outs, lps)]
+    return xs
+
+
+def split_params(model, axes):
+    """The tp shards of ``model`` the ranks of ``axes`` hold (new
+    tensors), an ``nn.ModuleList`` in list order."""
+    return tpar.split_module(model, lambda: Bert(model.cfg, "meta"), axes,
+                             tpar.BERT_TP)
 
 
 def mlm_logits(model, hidden):
@@ -237,9 +283,13 @@ def loss_fn(model, batch, attn_impl="flash", denom=None):
 
     hidden = forward(model, get("tokens"), segment_ids=get("segment_ids"),
                      pad_mask=get("pad_mask"), attn_impl=attn_impl)
+    return _mlm_loss(model, hidden, get("labels"), get("mlm_mask"), denom)
+
+
+def _mlm_loss(model, hidden, labels, mlm_mask, denom=None):
     logp = torch.log_softmax(mlm_logits(model, hidden), dim=-1)
-    ll = torch.gather(logp, -1, get("labels")[..., None])[..., 0]
-    mask = get("mlm_mask").float()
+    ll = torch.gather(logp, -1, labels[..., None])[..., 0]
+    mask = mlm_mask.float()
     if denom is None:
         denom = mask.sum().clamp_min(1.0)
     return -(ll * mask).sum() / denom
@@ -270,6 +320,9 @@ def make_train_step(cfg, optimizer=None, device="cuda", mesh=None):
     (a DeviceMesh with a "dp" axis): each step takes the GLOBAL batch,
     runs this rank's rows and sums the gradients and the loss over the
     world (``parallel/data_parallel.train_step``)."""
+    if data_parallel.axis(mesh, "tp")[1] > 1:
+        return make_tp_train_step(cfg, tpar.Axes.of_mesh(mesh), mesh=mesh,
+                                  optimizer=optimizer, device=device)
     device = resolve_device(device)
     make_optimizer = optimizer or adamw
 
@@ -283,6 +336,53 @@ def make_train_step(cfg, optimizer=None, device="cuda", mesh=None):
         model, opt = state
         loss = data_parallel.train_step(
             model, opt, lambda: local_loss(model, batch, mesh), mesh)
+        return state, loss
+
+    return init_state, train_step
+
+
+def make_tp_train_step(cfg, axes, mesh=None, optimizer=None, device="cuda",
+                       attn_impl="flash"):
+    """Tensor-parallel (init_state, train_step) over ``axes``
+    (``tensor_parallel.Axes``: its tp transport) and, for dp, ``mesh``.
+    ``init_state(seed=0, model=None)`` draws or takes the whole model and
+    keeps the shards of the ranks held: state = (the shards, an
+    ``nn.ModuleList``; the optimizer over them). ``train_step(state,
+    batch)`` takes the GLOBAL batch and returns (state, the global
+    loss)."""
+    for name in ("n_heads", "d_ff"):
+        if getattr(cfg, name) % axes.tp.size:
+            raise ValueError(f"tp={axes.tp.size} must divide {name}="
+                             f"{getattr(cfg, name)}")
+    device = resolve_device(device)
+    make_optimizer = optimizer or adamw
+
+    def init_state(seed=0, model=None):
+        if model is None:
+            model = init_params(cfg, device=device, seed=seed)
+        shards = split_params(model, axes)
+        return shards, make_optimizer(list(shards.parameters()))
+
+    def train_step(state, batch):
+        shards, opt = state
+        opt.zero_grad(set_to_none=True)
+        mask = torch.as_tensor(batch["mlm_mask"], device=device).float()
+        local = batch if mesh is None else \
+            data_parallel.shard_batch(batch, mesh, device)
+        get = {k: None if local.get(k) is None else
+               torch.as_tensor(local[k], device=device)
+               for k in ("tokens", "segment_ids", "pad_mask", "labels",
+                         "mlm_mask")}
+        hidden = tp_forward(list(shards), axes, get["tokens"],
+                            segment_ids=get["segment_ids"],
+                            pad_mask=get["pad_mask"], attn_impl=attn_impl)
+        denom = mask.sum().clamp_min(1.0)
+        losses = [_mlm_loss(s, x, get["labels"], get["mlm_mask"], denom)
+                  for s, x in zip(shards, hidden)]
+        sum(losses).backward()
+        tpar.reduce_grads(shards, axes, mesh, lambda name: False)
+        loss = data_parallel.sum_loss(losses[0], mesh)
+        opt.step()
         return state, loss
 
     return init_state, train_step

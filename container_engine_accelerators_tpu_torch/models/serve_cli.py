@@ -131,8 +131,10 @@ port replicas: the port's copies of the router and the autoscaler
 (``fleet/``) and its hermetic drills (``fleet/sim.py``,
 ``fleet/disagg.py``, ``faults/storm.py``).
 
-Not ported yet (ROADMAP.md): the multi-host link and tensor
-parallelism. The fleet reactor (``faults/reactor.FleetReactor`` of the
+Not ported yet (ROADMAP.md): the multi-host link and tensor-parallel
+serving (``--tp``, ``--overlap``; the ring collective matmuls it would run
+are ``parallel/overlap.py``, which tensor-parallel training runs). The
+fleet reactor (``faults/reactor.FleetReactor`` of the
 JAX package and its CLI) is jax-free control plane: it cordons nodes and
 evicts gangs through the Kubernetes API, touches no engine, and runs
 unchanged beside port replicas. A model with
@@ -3567,9 +3569,9 @@ def _configure_compile_cache(args, cfg):
     topology (``{n}x{platform}``, n the visible devices), the config and
     the shape buckets of the chunks the engine will use (two spellings
     of one effective config share a directory), a speculating paged
-    engine's verify widths, and its mode and k_max. JAX's config has an
-    ``overlap`` field (tensor-parallel serving, not ported yet): the key
-    holds it at JAX's default, so the same flags give JAX's key."""
+    engine's verify widths, and its mode and k_max. The config's
+    ``overlap`` field stays at JAX's default (the port's server has no
+    ``--overlap``), so the same flags give JAX's key."""
     norm_prefill, norm_chunk = normalize_chunks(
         cfg.max_seq_len, args.prefill_chunk, args.decode_chunk)
     paged = args.kv_cache == "paged"
@@ -3593,7 +3595,7 @@ def _configure_compile_cache(args, cfg):
         args.compile_cache_dir,
         key=ws_cache.cache_key(
             topology=topology,
-            cfg={**dataclasses.asdict(cfg), "overlap": "auto"},
+            cfg=dataclasses.asdict(cfg),
             buckets=sorted((k, tuple(v)) for k, v in buckets.items()),
         ),
         sink_path=args.event_log,

@@ -82,8 +82,29 @@ of them, so the stages resume at one step.
       container_engine_accelerators_tpu_torch.models.train_cli \\
       --model transformer --pp 4 --n-layers 8
 
-Not ported yet (ROADMAP.md): ``--tp`` and ``--ep`` (they raise), and
-MoE on more than one rank.
+``--tp N`` and ``--ep N`` add JAX's "tp" and "ep" axes to the mesh
+(``build_mesh``; the batch is replicated over both). The transformer
+trains tensor-parallel (``models/tp_lm.py``: Megatron shards, the ring
+collective matmuls of ``parallel/overlap.py`` where JAX's
+``resolve_overlap`` gives "ring", one all-reduce after each row-parallel
+product where it gives "off", attention on the flash kernels at the
+rank's n_heads/tp heads, the sp ring on them under ``--sp``) and its
+``--n-experts`` MoE FFN expert-parallel over ep (``parallel/moe.py``);
+``--model bert`` trains tensor-parallel on its Megatron shards; mnist and
+resnet replicate their parameters and batch over tp and ep, as JAX does,
+so those ranks are replicas. ``--n-experts`` trains under ``--dp`` too
+(routing is per sequence); with ``--sp`` it is refused
+(``transformer.MoESequenceParallelError``). Checkpoints under a tp or ep
+axis are per shard: the ranks of dp (and sp) index 0 write
+``<dir>/tp_<t>_ep_<e>/step_<N>/state.pt`` (their shards and AdamW
+state); on resume those ranks restore their newest readable step, the
+world takes the oldest of them, and each broadcasts its state over its
+dp and sp groups.
+
+  TPU_WORKER_ID=0 TPU_WORKER_HOSTNAMES=localhost torchrun \\
+      --nproc-per-node 4 -m \\
+      container_engine_accelerators_tpu_torch.models.train_cli \\
+      --model transformer --tp 4 --n-heads 32
 """
 
 import argparse
@@ -236,14 +257,16 @@ def _barrier():
 
 def _train_loop(args, init_state, train_step, make_batch, units_per_step,
                 unit_name, device, n_devices=1, per_rank=False,
-                n_params=None):
+                n_params=None, shard_mesh=None):
     """Shared step loop: init (or resume from --checkpoint-dir), run to
     --steps with periodic checkpoints, return the result dict. Every
     step is a trace span and an observation into the run's TrainMetrics
     registry. ``per_rank``: the ranks hold different states (pipeline
     stages), each checkpointed in its own ``stage_<rank>`` directory.
-    ``n_params``: the model's parameter count for the MFU estimate when
-    the state holds only part of it."""
+    ``shard_mesh``: the ranks hold the shards of ``shard_mesh``'s tp and
+    ep coordinates, checkpointed per shard (``_shard_dir``). ``n_params``:
+    the model's parameter count for the MFU estimate when the state
+    holds only part of it."""
     obs = TrainMetrics(units_per_step, unit_name)
     server = None
     if args.metrics_port:
@@ -269,7 +292,8 @@ def _train_loop(args, init_state, train_step, make_batch, units_per_step,
     try:
         return _train_steps(args, init_state, train_step, make_batch,
                             units_per_step, unit_name, obs, ev_stream,
-                            device, n_devices, per_rank, n_params)
+                            device, n_devices, per_rank, n_params,
+                            shard_mesh)
     finally:
         if alert_ev is not None:
             alert_ev.close()
@@ -333,9 +357,54 @@ def _restore_per_rank(ckpt_dir, state, ev_stream, device, init):
     return restored, agreed
 
 
+def _shard_dir(ckpt_dir, mesh):
+    """(this rank's shard directory, whether it writes): ``tp_<t>_ep_<e>``
+    under ``ckpt_dir`` by the rank's mesh coordinates; the ranks of dp and
+    sp index 0 write."""
+    tp_index = data_parallel.axis(mesh, "tp")[0]
+    ep_index = data_parallel.axis(mesh, "ep")[0]
+    writer = all(data_parallel.axis(mesh, name)[0] == 0
+                 for name in data_parallel.DATA_AXES)
+    return os.path.join(ckpt_dir, f"tp_{tp_index}_ep_{ep_index}"), writer
+
+
+def _restore_sharded(ckpt_dir, state, ev_stream, device, mesh, writer,
+                     init):
+    """Resume when the ranks hold shards → (state, step or None): each
+    writer restores the newest readable step of its shard directory, the
+    world takes the oldest of the writers' steps (a writer ahead of it
+    restores that step instead; where a writer has none, every rank
+    starts afresh), and each writer's state goes to its dp and sp
+    groups."""
+    import torch.distributed as dist
+
+    restored, step = state, None
+    if writer and checkpointing.list_steps(ckpt_dir):
+        with obs_trace.span("restore") as sp:
+            got, step = checkpointing.restore_latest(
+                ckpt_dir, state, events=ev_stream,
+            )
+            if step is not None:
+                sp.set(step=step)
+                restored = got
+    mine = (-1 if step is None else step) if writer else 2 ** 62
+    agreed = torch.tensor([mine], device=device)
+    dist.all_reduce(agreed, op=dist.ReduceOp.MIN)
+    agreed = int(agreed.item())
+    if agreed < 0:
+        return (init() if step is not None else state), None
+    if writer and agreed != step:
+        restored = checkpointing.restore(ckpt_dir, agreed, restored)
+    for group in data_parallel.data_groups(mesh):
+        restored, _ = checkpointing.broadcast(restored, agreed, device,
+                                              group=group)
+    return restored, agreed
+
+
 def _train_steps(args, init_state, train_step, make_batch,
                  units_per_step, unit_name, obs, ev_stream, device,
-                 n_devices=1, per_rank=False, n_params=None):
+                 n_devices=1, per_rank=False, n_params=None,
+                 shard_mesh=None):
     """The step loop proper. Each step's time is host wall clock from
     before the fault hook to the loss read, which waits for the
     device."""
@@ -344,8 +413,11 @@ def _train_steps(args, init_state, train_step, make_batch,
     obs.calibrate(state, device, n_devices, n_params)
     start = 0
     ckpt_dir = args.checkpoint_dir
+    writer = per_rank or _is_leader()
     if ckpt_dir and per_rank:
         ckpt_dir = os.path.join(ckpt_dir, f"stage_{_rank()}")
+    if ckpt_dir and shard_mesh is not None:
+        ckpt_dir, writer = _shard_dir(ckpt_dir, shard_mesh)
     if ckpt_dir:
         # Crash-safe resume: newest readable step wins; an unreadable
         # one is quarantined (checkpoint_fallback event) and the walk
@@ -353,6 +425,10 @@ def _train_steps(args, init_state, train_step, make_batch,
         if per_rank:
             restored, step = _restore_per_rank(
                 ckpt_dir, state, ev_stream, device,
+                lambda: init_state(args.seed))
+        elif shard_mesh is not None:
+            restored, step = _restore_sharded(
+                ckpt_dir, state, ev_stream, device, shard_mesh, writer,
                 lambda: init_state(args.seed))
         else:
             restored, step = _restore(ckpt_dir, state, ev_stream, device)
@@ -387,9 +463,10 @@ def _train_steps(args, init_state, train_step, make_batch,
             done % args.checkpoint_every == 0 or done == args.steps
         ):
             # Every rank holds the same state: rank 0 writes it (each
-            # rank its own, per rank), and no rank steps on before the
-            # step directory is whole.
-            if per_rank or _is_leader():
+            # rank its own, per rank; each shard's dp and sp index 0
+            # rank its shard's), and no rank steps on before the step
+            # directory is whole.
+            if writer:
                 with obs_trace.span("checkpoint", step=done):
                     checkpointing.save(ckpt_dir, done, state)
             _barrier()
@@ -456,7 +533,17 @@ def config_from_args(args):
     )
 
 
+def _sharded(mesh):
+    """``mesh`` when it has a tp or ep axis above 1 (the ranks then hold
+    shards), else None."""
+    sizes = tf.axis_sizes(mesh)
+    return mesh if sizes.get("tp", 1) > 1 or sizes.get("ep", 1) > 1 \
+        else None
+
+
 def run_transformer(args, device, mesh=None):
+    from container_engine_accelerators_tpu_torch.models import tp_lm
+
     cfg = config_from_args(args)
     if args.pp > 1:
         return _run_transformer_pp(args, device, mesh, cfg)
@@ -472,7 +559,8 @@ def run_transformer(args, device, mesh=None):
 
     result = _train_loop(args, init_state, train_step, make_batch,
                          batch_size * args.seq_len, "tok", device,
-                         _world(mesh))
+                         _world(mesh), n_params=tp_lm.n_params(cfg),
+                         shard_mesh=_sharded(mesh))
     return {**result, "batch_size": batch_size}
 
 
@@ -531,7 +619,10 @@ def run_bert(args, device, mesh=None):
 
     result = _train_loop(args, init_state, train_step, make_batch,
                          batch_size * cfg.max_seq_len, "tok", device,
-                         _world(mesh))
+                         _world(mesh), n_params=sum(
+                             p.numel() for p in
+                             bert.Bert(cfg, "meta").parameters()),
+                         shard_mesh=_sharded(mesh))
     return {**result, "batch_size": batch_size}
 
 
@@ -553,8 +644,12 @@ def build_parser():
                         "2) times the mesh's dp size")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--sp", type=int, default=1)
-    p.add_argument("--tp", type=int, default=1)
-    p.add_argument("--ep", type=int, default=1)
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel axis size (transformer and bert "
+                        "shard over it; mnist and resnet replicate)")
+    p.add_argument("--ep", type=int, default=1,
+                   help="expert-parallel axis size (the transformer's "
+                        "--n-experts shard over it)")
     p.add_argument("--pp", type=int, default=1,
                    help="pipeline-parallel stage count (transformer only; "
                         "1F1B schedule, n_layers must divide over it; "
@@ -564,7 +659,7 @@ def build_parser():
                    help="pipeline microbatch count M (0 = 2*pp)")
     p.add_argument("--n-experts", type=int, default=0,
                    help="transformer: replace dense FFNs with an MoE of "
-                        "this many experts (all on the one device)")
+                        "this many experts (sharded over --ep)")
     p.add_argument("--distributed", action="store_true",
                    help="join the world from the TPU_WORKER_* env, one "
                         "process per device (LOCAL_RANK / "
@@ -649,25 +744,15 @@ def build_parser():
 
 
 def _refuse_multi_gpu(args):
-    """Refuse what is not ported yet: tensor and expert parallelism, and
-    sequence parallelism outside the transformer."""
-    parallel = {"--tp": args.tp, "--ep": args.ep}
-    asked = [f"{flag} {n}" for flag, n in parallel.items() if n > 1]
+    """Refuse what is not ported: sequence parallelism outside the
+    transformer, and MoE routing across sequence-parallel ranks."""
     if args.sp > 1 and args.model != "transformer":
-        asked.append(f"--sp {args.sp} with --model {args.model}")
-    if asked:
         raise NotImplementedError(
-            f"{', '.join(asked)}: not ported yet (multi-GPU); the port "
-            f"trains data-parallel, and the transformer sequence-parallel "
+            f"--sp {args.sp} with --model {args.model}: not ported yet "
+            f"(multi-GPU); the transformer trains sequence-parallel "
             f"(ROADMAP.md)")
-
-
-def _refuse_moe_world(args, world):
-    if args.model == "transformer" and args.n_experts and world > 1:
-        raise NotImplementedError(
-            f"--n-experts {args.n_experts} on {world} ranks: not ported "
-            f"yet (multi-GPU); MoE training across ranks comes with "
-            f"expert parallelism (--ep, ROADMAP.md Queue 1 item 5)")
+    if args.model == "transformer":
+        tf.check_moe_mesh(config_from_args(args), {"sp": args.sp})
 
 
 def _check_pp(parser, args):
@@ -698,18 +783,20 @@ def _join(args, parser):
     "pp" mesh under ``--pp``)."""
     if not (args.distributed or os.environ.get(bootstrap.WORKER_ID_ENV)):
         _check_pp_world(parser, args, 1)
-        pmesh.plan_mesh(1, {"dp": -1, "sp": args.sp, "tp": args.tp})
+        axes = {"dp": -1, "sp": args.sp, "tp": args.tp}
+        if args.ep > 1:
+            axes["ep"] = args.ep
+        pmesh.plan_mesh(1, axes)
         return tf.resolve_device(args.device), None
     opts = bootstrap.initialize_from_env(device=args.device)
     log.info("process group initialized: %s", opts)
     device = torch.device(opts["device"])
     world = opts["world_size"]
-    _refuse_moe_world(args, world)
     _check_pp_world(parser, args, world)
     if args.pp > 1:
         return device, pmesh.make_mesh(pmesh.plan_mesh(world, {"pp": world}),
                                        device.type)
-    return device, build_mesh(world, args.sp, args.tp,
+    return device, build_mesh(world, args.sp, args.tp, args.ep,
                               device_type=device.type)
 
 

@@ -38,9 +38,12 @@ Training takes a DeviceMesh (``make_train_step(mesh=...)``, the JAX
 step's ``mesh``): its "dp" axis splits the global batch's rows and its
 "sp" axis the sequence, each rank running its shard of positions with
 RoPE at global positions and attention as a ring over the sp axis
-(``parallel/ring_attention.py``). Pipeline parallelism is
-``models/pipeline_lm.py``. Not in this port yet: tensor and expert
-parallelism (see ROADMAP.md).
+(``parallel/ring_attention.py``). A mesh with a "tp" or "ep" axis above
+1 trains tensor- and expert-parallel (``models/tp_lm.py``: the Megatron
+shards of JAX's ``param_shardings``, the ring collective matmuls of
+``parallel/overlap.py`` where ``resolve_overlap`` gives "ring", the
+experts of ``parallel/moe.py`` over ep). Pipeline parallelism is
+``models/pipeline_lm.py``.
 """
 
 import dataclasses
@@ -88,6 +91,12 @@ class TransformerConfig:
     expert_top_k: int = 2
     capacity_factor: float = 1.25
     moe_aux_weight: float = 0.01
+    # Latency-hiding tensor parallelism: "auto"/"ring" run the tp-axis
+    # matmul collectives as ring collective-matmul decompositions
+    # (parallel/overlap.py) wherever legal, "off" keeps one all-reduce
+    # after each row-parallel product. resolve_overlap() degrades what
+    # cannot ring to the exact "off" path.
+    overlap: str = "auto"
 
     @property
     def head_dim(self):
@@ -178,27 +187,22 @@ class Attention(nn.Module):
         self.wv = _weight(d, cfg.n_kv_heads * hd, dt, device)
         self.wo = _weight(cfg.n_heads * hd, d, dt, device)
 
-    def qkv(self, h, positions):
-        """(B, S, D) → rope'd q (B, Hq, S, hd), rope'd k and v
-        (B, Hkv, S, hd), contiguous (the kernel's layout)."""
-        cfg = self.cfg
-        batch, seq, _ = h.shape
-        hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        q = _mm(h, self.wq).view(batch, seq, hq, hd).transpose(1, 2)
-        k = _mm(h, self.wk).view(batch, seq, hkv, hd).transpose(1, 2)
-        v = _mm(h, self.wv).view(batch, seq, hkv, hd).transpose(1, 2)
-        q = _rope(q, positions, cfg.rope_theta)
-        k = _rope(k, positions, cfg.rope_theta)
-        return q.contiguous(), k.contiguous(), v.contiguous()
 
-    def out(self, attn):
-        """(B, Hq, S, hd) → (B, S, D) residual update."""
-        batch, _, seq, _ = attn.shape
-        return _mm(attn.transpose(1, 2).reshape(batch, seq, -1), self.wo)
+def _split_heads(t, hd):
+    """(B, S, H·hd) → (B, H, S, hd)."""
+    batch, seq, width = t.shape
+    return t.view(batch, seq, width // hd, hd).transpose(1, 2)
+
+
+def _merge_heads(a):
+    """(B, H, S, hd) → (B, S, H·hd)."""
+    batch, heads, seq, hd = a.shape
+    return a.transpose(1, 2).reshape(batch, seq, heads * hd)
 
 
 class FeedForward(nn.Module):
-    """Dense SwiGLU; SiLU runs in f32 and casts back before gate * up."""
+    """Dense SwiGLU's weights (``block`` computes it: SiLU in f32, cast
+    back before gate * up)."""
 
     def __init__(self, cfg, device):
         super().__init__()
@@ -206,11 +210,6 @@ class FeedForward(nn.Module):
         self.w1 = _weight(d, f, dt, device)
         self.w3 = _weight(d, f, dt, device)
         self.w2 = _weight(f, d, dt, device)
-
-    def forward(self, h):
-        """(B, S, D) → (the FFN's output, None: no aux loss)."""
-        gate = torch.nn.functional.silu(_mm(h, self.w1).float()).to(h.dtype)
-        return _mm(gate * _mm(h, self.w3), self.w2), None
 
 
 class MoEFeedForward(nn.Module):
@@ -235,6 +234,64 @@ class MoEFeedForward(nn.Module):
             capacity_factor=self.cfg.capacity_factor)
 
 
+def dense_products(hs, wss):
+    """Per rank held, ``_mm(h, w)`` for each weight of its tuple: a block's
+    entering products on whole weights."""
+    return [tuple(_mm(h, w) for w in ws) for h, ws in zip(hs, wss)]
+
+
+def dense_sums(xs, ws):
+    """Per rank held, ``_mm(x, w)``: a block's leaving products on whole
+    weights."""
+    return [_mm(x, w) for x, w in zip(xs, ws)]
+
+
+def block(layers, xs, positions, attend, enter=dense_products,
+          leave=dense_sums, moe_ffn=None):
+    """One decoder block on every rank held: ``layers`` each rank's
+    ``DecoderLayer`` (the whole one, or its tensor-parallel shard: the
+    head counts follow the q/k/v widths), ``xs`` their (B, S, D) inputs.
+
+    ``enter(hs, wss)`` computes the products the normed inputs enter, per
+    rank a tuple for the tuple of weights (q/k/v, then w1/w3), and
+    ``leave(xs, ws)`` the products that leave to the residual stream (wo,
+    w2): plain products on one device; the column shards' products of a
+    replicated input, then row-parallel partial sums over tp (the off
+    path, ``models/tp_lm.py``); or the ring collective matmuls, which
+    gather and scatter the sequence (the ring path). ``attend(q, k, v)`` maps the
+    rope'd q/k/v (B, H, S, hd) at ``positions`` (B, S) to (B, Hq, S, hd).
+    ``moe_ffn(hs)`` replaces an MoE layer's FFN across ranks (expert
+    parallelism); without it each rank runs its layer's own.
+
+    Returns (xs, the rope'd (k, v) per rank, the MoE aux per rank or
+    None)."""
+    hd = layers[0].attn.cfg.head_dim
+    qkv = enter([lp.ln1(x) for x, lp in zip(xs, layers)],
+                [(lp.attn.wq, lp.attn.wk, lp.attn.wv) for lp in layers])
+    theta = layers[0].attn.cfg.rope_theta
+    kvs, outs = [], []
+    for q, k, v in qkv:
+        q = _rope(_split_heads(q, hd), positions, theta).contiguous()
+        k = _rope(_split_heads(k, hd), positions, theta).contiguous()
+        v = _split_heads(v, hd).contiguous()
+        kvs.append((k, v))
+        outs.append(_merge_heads(attend(q, k, v)))
+    outs = leave(outs, [lp.attn.wo for lp in layers])
+    xs = [x + o for x, o in zip(xs, outs)]
+    hs = [lp.ln2(x) for x, lp in zip(xs, layers)]
+    aux = None
+    if moe_ffn is not None:
+        ys, aux = moe_ffn(hs)
+    elif isinstance(layers[0].ffn, MoEFeedForward):
+        ys, aux = map(list, zip(*(lp.ffn(h) for h, lp in zip(hs, layers))))
+    else:
+        gate_up = enter(hs, [(lp.ffn.w1, lp.ffn.w3) for lp in layers])
+        mids = [torch.nn.functional.silu(g.float()).to(g.dtype) * u
+                for g, u in gate_up]
+        ys = leave(mids, [lp.ffn.w2 for lp in layers])
+    return [x + y for x, y in zip(xs, ys)], kvs, aux
+
+
 class DecoderLayer(nn.Module):
     def __init__(self, cfg, device):
         super().__init__()
@@ -246,13 +303,12 @@ class DecoderLayer(nn.Module):
             cfg, device)
 
     def forward(self, x, positions, attend):
-        """One block on (B, S, D). ``attend(q, k, v)`` maps the rope'd
-        q/k/v to (B, Hq, S, hd); returns (x, (k, v), aux): aux is the MoE
-        FFN's load-balancing loss, None for a dense FFN."""
-        q, k, v = self.attn.qkv(self.ln1(x), positions)
-        x = x + self.attn.out(attend(q, k, v))
-        y, aux = self.ffn(self.ln2(x))
-        return x + y, (k, v), aux
+        """One block on (B, S, D) (``block`` on this one layer).
+        ``attend(q, k, v)`` maps the rope'd q/k/v to (B, Hq, S, hd);
+        returns (x, (k, v), aux): aux is the MoE FFN's load-balancing
+        loss, None for a dense FFN."""
+        xs, kvs, aux = block([self], [x], positions, attend)
+        return xs[0], kvs[0], None if aux is None else aux[0]
 
 
 class Transformer(nn.Module):
@@ -302,6 +358,45 @@ def init_params(cfg, device="cuda", seed=0):
                 # (in, out), or (experts, in, out): the fan in is dim -2.
                 fill(w, w.shape[-2] ** -0.5)
     return model
+
+
+def axis_sizes(mesh):
+    """A DeviceMesh's axis sizes by name (JAX's ``mesh.shape``); {} for
+    no mesh."""
+    if mesh is None:
+        return {}
+    return dict(zip(mesh.mesh_dim_names or (), mesh.mesh.shape))
+
+
+def resolve_overlap(overlap, cfg, sizes, seq=None, batch=None,
+                    attn_impl="flash"):
+    """JAX's ``resolve_overlap``: the ``overlap`` switch ("auto" | "ring"
+    | "off" | None → ``cfg.overlap``) resolved to the implementation that
+    runs. ``sizes`` maps the mesh's axis names to sizes (``axis_sizes``,
+    or a dict for ranks held in one process).
+
+    "ring" needs a tp axis above 1, a dense FFN, no sp axis above 1 (the
+    sp ring owns the sequence there), tp-divisible heads, d_ff and
+    sequence, and a dp-divisible batch where dp shards it; anything else
+    is the exact "off" path."""
+    if overlap is None:
+        overlap = cfg.overlap
+    if overlap == "off":
+        return "off"
+    if overlap not in ("auto", "ring"):
+        raise ValueError(f"unknown overlap mode {overlap!r}")
+    n = (sizes or {}).get("tp", 1)
+    if n <= 1 or cfg.n_experts:
+        return "off"
+    if sizes.get("sp", 1) > 1 or attn_impl == "ring":
+        return "off"
+    if cfg.n_heads % n or cfg.n_kv_heads % n or cfg.d_ff % n:
+        return "off"
+    if seq is None or seq % n:
+        return "off"
+    if batch is not None and batch % sizes.get("dp", 1):
+        return "off"
+    return "ring"
 
 
 def _flash_attend(q, k, v):
@@ -415,18 +510,15 @@ def loss_fn(model, batch, attn_impl="flash", remat=False, mesh=None):
     shard's first input, so no token crosses ranks). The result is this
     rank's share of the global loss, its mean cross entropy scaled by its
     tokens over the global count: the ranks' shares sum to the global
-    mean. A config with experts is refused under a mesh of more than one
-    rank: its load-balance aux is a product of global token fractions,
-    which per-shard averages would not reproduce."""
+    mean. A config with experts routes per sequence (JAX's ``vmap`` over
+    the rows), so its aux is a mean of per-row terms and splits over dp
+    shards as the cross entropy does; over an sp axis a sequence's
+    routing would span ranks, which is refused (``check_moe_mesh``)."""
     tokens = torch.as_tensor(batch["tokens"], device=model.device)
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     positions = None
     if mesh is not None:
-        if model.cfg.n_experts and mesh.size() > 1:
-            raise NotImplementedError(
-                "MoE training on more than one rank is not ported yet: it "
-                "comes with expert parallelism (--ep, ROADMAP.md Queue 1 "
-                "item 5)")
+        check_moe_mesh(model.cfg, axis_sizes(mesh))
         global_tokens = inputs.numel()
         seq = inputs.shape[1]
         sp_index, sp = data_parallel.axis(mesh, "sp")
@@ -449,6 +541,21 @@ def loss_fn(model, batch, attn_impl="flash", remat=False, mesh=None):
     return loss * (targets.numel() / global_tokens)
 
 
+class MoESequenceParallelError(NotImplementedError):
+    """MoE with a sequence-parallel axis: JAX routes each sequence as one
+    group, whose capacity cumsum would span the sp ranks; not ported."""
+
+
+def check_moe_mesh(cfg, sizes):
+    """Refuse MoE under an sp axis above 1
+    (:class:`MoESequenceParallelError`)."""
+    if cfg.n_experts and sizes.get("sp", 1) > 1:
+        raise MoESequenceParallelError(
+            f"--n-experts {cfg.n_experts} with --sp {sizes['sp']}: routing a "
+            f"sequence across sequence-parallel ranks is not ported "
+            f"(ROADMAP.md Queue 3)")
+
+
 def adamw(params):
     """optax ``adamw(3e-4, weight_decay=0.01)``: decoupled decay on every
     parameter, moments in the parameter dtype."""
@@ -466,7 +573,7 @@ def _require_dense(model):
 
 
 def make_train_step(cfg, optimizer=None, remat=True, device="cuda",
-                    mesh=None):
+                    mesh=None, overlap=None):
     """Returns (init_state, train_step). State = (model, optimizer).
 
     ``optimizer`` maps the parameters to a ``torch.optim.Optimizer``
@@ -477,9 +584,22 @@ def make_train_step(cfg, optimizer=None, remat=True, device="cuda",
     ``init_state(model=m)`` starts from given ones (e.g. bridged from
     JAX). ``mesh`` (a DeviceMesh with "dp" and "sp" axes): each step
     takes the GLOBAL batch, runs this rank's shard (``loss_fn``) and sums
-    the gradients and the loss over the world after ``backward()``
+    the gradients and the loss over the data axes after ``backward()``
     (``parallel/data_parallel.train_step``); every rank must hold the
-    same parameters, as the same seed gives them."""
+    same parameters, as the same seed gives them. A mesh with a "tp" or
+    "ep" axis above 1 runs ``models/tp_lm.make_train_step`` on this
+    rank's shards (state = (the shards, the optimizer)); ``overlap``
+    (None → ``cfg.overlap``) picks its ring or off path."""
+    sizes = axis_sizes(mesh)
+    if sizes.get("tp", 1) > 1 or sizes.get("ep", 1) > 1:
+        from container_engine_accelerators_tpu_torch.models import tp_lm
+        from container_engine_accelerators_tpu_torch.parallel import (
+            tensor_parallel,
+        )
+
+        return tp_lm.make_train_step(
+            cfg, tensor_parallel.Axes.of_mesh(mesh), mesh=mesh,
+            optimizer=optimizer, remat=remat, device=device, overlap=overlap)
     device = resolve_device(device)
     make_optimizer = optimizer or adamw
 

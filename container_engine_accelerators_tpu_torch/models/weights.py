@@ -9,7 +9,10 @@ The JAX transformer's ``init_params`` pytree is ``{"embed": (V, D),
 port keeps the (in, out) layout, so each stacked slice maps onto one
 module parameter unchanged. This is how the tests run both packages on
 identical weights; ``pp_params_from_jax`` and ``pp_split_jax`` do the
-same for JAX ``pipeline_lm.split_params``' (stages, loss_params) pair.
+same for JAX ``pipeline_lm.split_params``' (stages, loss_params) pair,
+and ``tp_params_from_jax`` / ``tp_to_jax`` (``bert_tp_to_jax``) split a
+tree into the tensor- and expert-parallel shards of JAX's
+``param_shardings`` and merge shards (or their gradients) back.
 A tree from JAX ``quantization.quantize_params``
 carries ``{"q": (L, din, dout) int8, "scale": (L, 1, dout) f32}`` leaves
 for the quantized layer matrices; each slice becomes an ``Int8Weight``
@@ -147,6 +150,42 @@ def grads_to_jax(model):
     )
 
 
+def _named_to_jax(named, cfg):
+    """A JAX-layout tree from the port's parameter names (the whole
+    model's, e.g. ``tp_lm.merged``) → float32 numpy arrays."""
+    def arr(t):
+        return t.detach().float().cpu().numpy()
+
+    layers = {
+        key: np.stack([arr(named[f"layers.{i}.{sub}.{attr}"])
+                       for i in range(cfg.n_layers)])
+        for key, (sub, attr) in _layer_params(cfg).items()
+    }
+    return {"embed": arr(named["embed"]), "layers": layers,
+            "ln_f": arr(named["ln_f.weight"])}
+
+
+def tp_params_from_jax(tree, cfg, axes, device="cuda", dtype=None):
+    """The tensor- and expert-parallel shards of a JAX ``init_params``
+    tree that the ranks of ``axes`` (``parallel/tensor_parallel.Axes``)
+    hold: :func:`params_from_jax`, split as JAX's ``param_shardings``
+    lays the tree out over tp and ep (``models/tp_lm.split_params``)."""
+    from container_engine_accelerators_tpu_torch.models import tp_lm
+
+    return tp_lm.split_params(
+        params_from_jax(tree, cfg, device=device, dtype=dtype), axes)
+
+
+def tp_to_jax(shards, axes, which="params"):
+    """The inverse: the whole model's parameters (``which="grads"``: the
+    gradients, leaf for leaf ``jax.grad``'s tree) as a JAX-layout tree of
+    float32 numpy arrays, merged from every rank's shards (gathered over
+    the tp and ep groups between processes)."""
+    from container_engine_accelerators_tpu_torch.models import tp_lm
+
+    return _named_to_jax(tp_lm.merged(shards, axes, which), shards[0].cfg)
+
+
 def pp_params_from_jax(stages, loss_params, cfg, device="cuda", dtype=None):
     """A Transformer from JAX ``pipeline_lm.split_params``' pair: the
     stage leaves (N, L/N, ...) merged back to (L, ...), then
@@ -213,6 +252,26 @@ def _stack(trees):
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
     return np.stack(trees)
+
+
+def bert_tp_to_jax(shards, axes, which="params"):
+    """:func:`tp_to_jax` for BERT's tp shards (``models/bert.py``): the
+    merged parameters or gradients in ``jax_tree``'s layout."""
+    from container_engine_accelerators_tpu_torch.models import bert
+    from container_engine_accelerators_tpu_torch.parallel import (
+        tensor_parallel,
+    )
+
+    named = tensor_parallel.merged(shards, axes, tensor_parallel.BERT_TP,
+                                   which=which)
+    model = bert.Bert(shards[0].cfg, "cpu")
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if which == "params":
+                p.copy_(named[name])
+            else:
+                p.grad = named[name].to("cpu")
+    return jax_tree(model, which)
 
 
 def jax_tree(module, which="params"):

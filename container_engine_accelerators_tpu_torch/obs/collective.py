@@ -4,8 +4,8 @@
 
 Copy of ``container_engine_accelerators_tpu/obs/collective.py``, its
 imports rewritten to the port's package; the contracts are the same. In
-the port only ``collectives/device_bench.py`` records here (the
-collective sweep and the ring-overlap wrappers are multi-GPU work, not
+the port ``collectives/device_bench.py`` and the global-array wrappers
+of ``parallel/overlap.py`` record here (the collective sweep is not
 ported yet).
 
 The node exporter sees the fabric's error counters; nothing sees the

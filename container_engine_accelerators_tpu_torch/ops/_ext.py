@@ -153,6 +153,8 @@ def _flash_lib(defines=()):
 
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
+# int8_mm_launch's code for bf16 x with an f32 y.
+_INT8_BF16_TO_F32 = 2
 FLASH_HEAD_DIMS = (32, 64, 128)
 
 
@@ -330,14 +332,21 @@ def int8_mm_workspace_floats(dtype, m, n, k):
 
 def int8_mm(x, qt, scale, y, workspace=None):
     """Launch csrc/int8_mm.cu on PyTorch's current stream: y (M, N) =
-    ((x (M, K) @ qt (N, K)^T) in f32 * scale (N,)) in x's dtype. Checks
+    ((x (M, K) @ qt (N, K)^T) in f32 * scale (N,)) in y's dtype, which is
+    x's or, for bf16 x, float32 (the scaled accumulator unrounded). Checks
     device, dtype, shape and contiguity, and raises on anything the kernel
     does not take or on a refused launch. ``workspace``: a float32 tensor
     of at least ``int8_mm_workspace_floats`` elements on x's device, or
     None where that is 0."""
     m, k = x.shape
     n = qt.shape[0]
-    _check({"x": x, "y": y}, {"scale": scale}, x.device)
+    _check({"x": x}, {"scale": scale}, x.device)
+    _check({"y": y}, {}, x.device)
+    if y.dtype != x.dtype and (x.dtype, y.dtype) != (torch.bfloat16,
+                                                     torch.float32):
+        raise ValueError(f"y must be {x.dtype} (or float32 for bfloat16 x), "
+                         f"got {y.dtype}")
+    code = _DTYPE_CODE[x.dtype] if y.dtype == x.dtype else _INT8_BF16_TO_F32
     for name, t in {"qt": qt, "workspace": workspace}.items():
         if t is None:
             continue
@@ -358,7 +367,7 @@ def int8_mm(x, qt, scale, y, workspace=None):
         err = lib.int8_mm_launch(
             x.data_ptr(), qt.data_ptr(), scale.data_ptr(), y.data_ptr(),
             None if workspace is None else workspace.data_ptr(),
-            _DTYPE_CODE[x.dtype], m, n, k, stream,
+            code, m, n, k, stream,
         )
     if err:
         raise RuntimeError(

@@ -183,8 +183,8 @@ Variant baseline(const char* name, const Buf& b) {
   const int blocks = ((b.n + T::BN - 1) / T::BN) *
                      ((b.m + T::BM - 1) / T::BM) * splits;
   return {name, splits, blocks, [splits](Buf& b, int c, cudaStream_t st) {
-            cudaError_t e = launch_tile<T, true>(b.x, b.q[c], b.s[c], b.y,
-                                                 b.ws, b.m, b.n, b.k, splits,
+            cudaError_t e = launch_tile<T, true, __nv_bfloat16>(
+                b.x, b.q[c], b.s[c], b.y, b.ws, b.m, b.n, b.k, splits,
                                                  st);
             if (e == cudaSuccess && splits > 1) {
               const long long total = (long long)b.m * b.n;
@@ -217,8 +217,8 @@ Variant hopper(const std::string& name, const Buf& b, int splits = 0) {
   snprintf(label, sizeof(label), "%s bn%d c%d s%d k%d", name.c_str(), T::BN,
            T::C, T::kStages, T::BK);
   return {label, splits, blocks, [splits](Buf& b, int c, cudaStream_t st) {
-            return launch_sm90<T>(b.x, b.q[c], b.s[c], b.y, b.m, b.n, b.k,
-                                  splits, st);
+            return launch_sm90<T, __nv_bfloat16>(b.x, b.q[c], b.s[c], b.y, b.m,
+                                                 b.n, b.k, splits, st);
           }};
 }
 

@@ -54,8 +54,11 @@
 //   casts and writes y. One launch, no workspace, no atomics, so a result
 //   is the same bit for bit on every run, as the replayed serving graphs
 //   need.
-// - The epilogue stages the bf16 tile in shared memory and writes y's rows
-//   with 16-byte stores.
+// - The epilogue stages the output tile in shared memory and writes y's
+//   rows with 16-byte stores. y is bf16, or f32 where the caller keeps the
+//   scaled accumulator unrounded (the tensor-parallel reduce-scatter's f32
+//   partial sums, parallel/overlap.py): the same kernels, only the
+//   epilogue's element type differs.
 // Tried on the card and slower, so left out: converting stage i + 1's
 //   fragments while stage i's wgmma run (two register sets of A), 64-deep
 //   stages below M 257, K splits past one block an SM, 64-token tiles at
@@ -152,6 +155,19 @@ __device__ __forceinline__ uint32_t int8x2_to_bf16x2(uint16_t v) {
   return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
 }
 
+// The scaled f32 accumulator as an element of y: one rounding to bf16, or
+// none for an f32 y.
+template <typename Y>
+__device__ __forceinline__ Y to_out(float v);
+template <>
+__device__ __forceinline__ __nv_bfloat16 to_out<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+template <>
+__device__ __forceinline__ float to_out<float>(float v) {
+  return v;
+}
+
 // The A fragment of an m16n8k16 product (rows r0..r0+15, k k0..k0+15 of a
 // row-major bf16 tile with `stride` elements a row) in one ldmatrix.x4:
 // lanes 0-15 address rows r0..r0+15 at k0, lanes 16-31 the same rows at
@@ -216,14 +232,14 @@ __device__ __forceinline__ void load_tile(
 }
 
 // One block: the BM x BN output tile (blockIdx.y, blockIdx.x) over split
-// blockIdx.z of the K tiles. With one split, y = acc * scale in bf16;
+// blockIdx.z of the K tiles. With one split, y = acc * scale as a Y;
 // otherwise the f32 partial goes to ws (splits, M, N).
-template <typename T, bool ALIGNED>
+template <typename T, bool ALIGNED, typename Y>
 __global__ void __launch_bounds__(T::kThreads)
     int8_mm_bf16_kernel(const uint16_t* __restrict__ x,
                         const int8_t* __restrict__ qt,
                         const float* __restrict__ scale,
-                        __nv_bfloat16* __restrict__ y, float* __restrict__ ws,
+                        Y* __restrict__ y, float* __restrict__ ws,
                         int m, int n, int k) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint16_t* xs_base = reinterpret_cast<uint16_t*>(smem);
@@ -306,7 +322,7 @@ __global__ void __launch_bounds__(T::kThreads)
         const int c = bn + wn + ni * 8 + 2 * t + (e & 1);
         if (r >= m || c >= n) continue;
         if (splits == 1) {
-          y[(size_t)r * n + c] = __float2bfloat16(acc[mi][ni][e] * scale[c]);
+          y[(size_t)r * n + c] = to_out<Y>(acc[mi][ni][e] * scale[c]);
         } else {
           ws[((size_t)split * m + r) * n + c] = acc[mi][ni][e];
         }
@@ -341,18 +357,18 @@ __global__ void int8_mm_f32_kernel(const float* __restrict__ x,
   if (r < m && c < n) y[(size_t)r * n + c] = acc * scale[c];
 }
 
-template <typename T, bool ALIGNED>
+template <typename T, bool ALIGNED, typename Y>
 cudaError_t launch_tile(const void* x, const int8_t* qt, const float* scale,
                         void* y, float* ws, int m, int n, int k, int splits,
                         cudaStream_t stream) {
   static std::atomic<uint64_t> configured{0};
   const cudaError_t err = host::allow_dynamic_smem(
-      int8_mm_bf16_kernel<T, ALIGNED>, T::kBytes, &configured);
+      int8_mm_bf16_kernel<T, ALIGNED, Y>, T::kBytes, &configured);
   if (err != cudaSuccess) return err;
   const dim3 grid((n + T::BN - 1) / T::BN, (m + T::BM - 1) / T::BM, splits);
-  int8_mm_bf16_kernel<T, ALIGNED><<<grid, T::kThreads, T::kBytes, stream>>>(
-      static_cast<const uint16_t*>(x), qt, scale,
-      static_cast<__nv_bfloat16*>(y), ws, m, n, k);
+  int8_mm_bf16_kernel<T, ALIGNED, Y><<<grid, T::kThreads, T::kBytes, stream>>>(
+      static_cast<const uint16_t*>(x), qt, scale, static_cast<Y*>(y), ws, m,
+      n, k);
   return cudaSuccess;
 }
 
@@ -388,13 +404,13 @@ struct Sm90Tile {
   static constexpr int kXAtom = BN * 128;
   static constexpr int kStageBytes = kQBytes + BK / 64 * kXAtom;
   static constexpr int kAcc = BN / 2;         // f32 accumulators a thread
-  static constexpr int kYStride = BC + 8;     // bf16 a staged y row
-  static constexpr int kYBytes = BN * kYStride * 2;
+  // The staged y tile at its largest: f32 rows of BC, padded by 16 bytes.
+  static constexpr int kYBytesF32 = BN * (BC + 4) * 4;
   static constexpr int kPartBytes = C * 128 * kAcc * 4;
   static constexpr int kRing = kStages * kStageBytes;
   static constexpr int kBars = kRing;
   static constexpr int kBytes = kBars + 16 * kStages + 1024;
-  static_assert(kYBytes <= kRing && kPartBytes <= kRing, "epilogue");
+  static_assert(kYBytesF32 <= kRing && kPartBytes <= kRing, "epilogue");
   static_assert(kBytes <= 232448, "shared memory");
 };
 
@@ -482,12 +498,12 @@ __device__ __forceinline__ void stage_wgmma(float (&acc)[T::kAcc],
 // channels [64w, 64w + 64) of the tile. In a consumer warp (w4 of its
 // warpgroup) lane (g = lane / 4, t = lane % 4) holds channels 16 w4 + g and
 // 16 w4 + g + 8, and tokens 8j + 2t, 8j + 2t + 1 of every 8 tokens j.
-template <typename T>
+template <typename T, typename Y>
 __global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
     int8_mm_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                         const __grid_constant__ CUtensorMap tm_x,
                         const float* __restrict__ scale,
-                        __nv_bfloat16* __restrict__ y, int m, int n, int k) {
+                        Y* __restrict__ y, int m, int n, int k) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) &
                               1023);
@@ -591,8 +607,11 @@ __global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
     }
 
     // Scale (per channel: per accumulator row), cast once, stage the tile
-    // as y's rows (token-major) and write them with 16-byte stores.
-    __nv_bfloat16* ys = reinterpret_cast<__nv_bfloat16*>(smem);
+    // as y's rows (token-major) and write them with 16-byte stores of kVec
+    // elements.
+    constexpr int kVec = 16 / (int)sizeof(Y);
+    constexpr int kStride = T::BC + kVec;  // a row padded by 16 bytes
+    Y* ys = reinterpret_cast<Y*>(smem);
     const int c0 = bn + row;
     const float s0 = c0 < n ? scale[c0] : 0.f;
     const float s1 = c0 + 8 < n ? scale[c0 + 8] : 0.f;
@@ -602,22 +621,22 @@ __global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
       for (int e = 0; e < 4; ++e) {
         const int tok = 8 * j + 2 * t + (e & 1);
         const int ch = row + 8 * (e >> 1);
-        ys[tok * T::kYStride + ch] =
-            __float2bfloat16(acc[4 * j + e] * (e >> 1 ? s1 : s0));
+        ys[tok * kStride + ch] =
+            to_out<Y>(acc[4 * j + e] * (e >> 1 ? s1 : s0));
       }
     }
     consumer_sync(128 * T::C);
-    const bool vec = n % 8 == 0;
-    for (int e = ctid; e < T::BN * (T::BC / 8); e += 128 * T::C) {
-      const int tok = e / (T::BC / 8), c = (e % (T::BC / 8)) * 8;
+    const bool vec = n % kVec == 0;
+    for (int e = ctid; e < T::BN * (T::BC / kVec); e += 128 * T::C) {
+      const int tok = e / (T::BC / kVec), c = (e % (T::BC / kVec)) * kVec;
       const int r = bm + tok, col = bn + c;
       if (r >= m || col >= n) continue;
-      const __nv_bfloat16* src = ys + tok * T::kYStride + c;
-      __nv_bfloat16* dst = y + (size_t)r * n + col;
+      const Y* src = ys + tok * kStride + c;
+      Y* dst = y + (size_t)r * n + col;
       if (vec) {
         *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
       } else {
-        for (int u = 0; u < 8 && col + u < n; ++u) dst[u] = src[u];
+        for (int u = 0; u < kVec && col + u < n; ++u) dst[u] = src[u];
       }
     }
   }
@@ -646,12 +665,12 @@ bool weight_map(CUtensorMap* map, const int8_t* qt, int n, int k,
   return true;
 }
 
-template <typename T>
+template <typename T, typename Y>
 cudaError_t launch_sm90(const void* x, const int8_t* qt, const float* scale,
                         void* y, int m, int n, int k, int splits,
                         cudaStream_t stream) {
   static std::atomic<uint64_t> configured{0};
-  cudaError_t err = host::allow_dynamic_smem(int8_mm_sm90_kernel<T>,
+  cudaError_t err = host::allow_dynamic_smem(int8_mm_sm90_kernel<T, Y>,
                                              T::kBytes, &configured);
   if (err != cudaSuccess) return err;
   CUtensorMap tm_q, tm_x;
@@ -672,19 +691,19 @@ cudaError_t launch_sm90(const void* x, const int8_t* qt, const float* scale,
   cluster[0].val.clusterDim.z = splits;
   cfg.attrs = cluster;
   cfg.numAttrs = splits > 1 ? 1 : 0;
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(y);
+  Y* out = static_cast<Y*>(y);
   void* args[] = {&tm_q, &tm_x, &scale, &out, &m, &n, &k};
   return cudaLaunchKernelExC(&cfg,
                              reinterpret_cast<const void*>(
-                                 int8_mm_sm90_kernel<T>),
+                                 int8_mm_sm90_kernel<T, Y>),
                              args);
 }
 
-template <typename T>
+template <typename T, typename Y>
 cudaError_t launch_sm90(const void* x, const int8_t* qt, const float* scale,
                         void* y, int m, int n, int k, cudaStream_t stream) {
-  return launch_sm90<T>(x, qt, scale, y, m, n, k, sm90_splits<T>(m, n, k),
-                        stream);
+  return launch_sm90<T, Y>(x, qt, scale, y, m, n, k, sm90_splits<T>(m, n, k),
+                           stream);
 }
 
 // What a TMA map describes: K a multiple of 16 (the row stride rule) and
@@ -696,17 +715,37 @@ bool tma_ok(const void* x, const int8_t* qt, int k) {
 }
 
 // The general path: one split, 16-byte cp.async where aligned.
-template <typename T>
+template <typename T, typename Y>
 cudaError_t launch_general(const void* x, const int8_t* qt,
                            const float* scale, void* y, int m, int n, int k,
                            cudaStream_t stream) {
   const bool aligned = k % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(qt) % 16 == 0;
-  return aligned ? launch_tile<T, true>(x, qt, scale, y, nullptr, m, n, k,
-                                        1, stream)
-                 : launch_tile<T, false>(x, qt, scale, y, nullptr, m, n, k,
-                                         1, stream);
+  return aligned ? launch_tile<T, true, Y>(x, qt, scale, y, nullptr, m, n, k,
+                                           1, stream)
+                 : launch_tile<T, false, Y>(x, qt, scale, y, nullptr, m, n,
+                                            k, 1, stream);
+}
+
+// bf16 x, y a Y: the Hopper kernel where TMA describes the operands, else
+// the general path, each at the tile its M picks.
+template <typename Y>
+cudaError_t launch_bf16(const void* x, const int8_t* qt, const float* scale,
+                        void* y, int m, int n, int k, cudaStream_t st) {
+  if (tma_ok(x, qt, k)) {
+    switch (sm90_config(m)) {
+      case 0: return launch_sm90<D8, Y>(x, qt, scale, y, m, n, k, st);
+      case 1: return launch_sm90<D16, Y>(x, qt, scale, y, m, n, k, st);
+      case 2: return launch_sm90<V128, Y>(x, qt, scale, y, m, n, k, st);
+      default: return launch_sm90<P256, Y>(x, qt, scale, y, m, n, k, st);
+    }
+  }
+  switch (config_for(m)) {
+    case 0: return launch_general<Decode, Y>(x, qt, scale, y, m, n, k, st);
+    case 1: return launch_general<Verify, Y>(x, qt, scale, y, m, n, k, st);
+    default: return launch_general<Prefill, Y>(x, qt, scale, y, m, n, k, st);
+  }
 }
 
 }  // namespace
@@ -720,8 +759,10 @@ extern "C" long long int8_mm_workspace_floats(int dtype, int m, int n,
   return 0;
 }
 
-// dtype: 0 = bf16 x and y (the tensor-core kernels), 1 = f32 (the check
-// kernel). x (m, k), qt (n, k) int8 and y (m, n) are contiguous; scale is
+// dtype: 0 = bf16 x and y (the tensor-core kernels), 1 = f32 x and y (the
+// check kernel), 2 = bf16 x and f32 y (the tensor-core kernels with the
+// scaled accumulator written unrounded). x (m, k), qt (n, k) int8 and y
+// (m, n) are contiguous; scale is
 // (n,) f32; ws may be null (int8_mm_workspace_floats is 0). Launches on
 // `stream`, allocates nothing, and returns the first error of the set-up
 // or the launch (0 on success).
@@ -729,7 +770,7 @@ extern "C" int int8_mm_launch(const void* x, const int8_t* qt,
                               const float* scale, void* y, float* ws,
                               int dtype, int m, int n, int k, void* stream) {
   (void)ws;
-  if ((dtype != 0 && dtype != 1) || m <= 0 || n <= 0 || k <= 0) {
+  if (dtype < 0 || dtype > 2 || m <= 0 || n <= 0 || k <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -740,21 +781,9 @@ extern "C" int int8_mm_launch(const void* x, const int8_t* qt,
         k);
     return static_cast<int>(cudaGetLastError());
   }
-  cudaError_t err;
-  if (tma_ok(x, qt, k)) {
-    switch (sm90_config(m)) {
-      case 0: err = launch_sm90<D8>(x, qt, scale, y, m, n, k, st); break;
-      case 1: err = launch_sm90<D16>(x, qt, scale, y, m, n, k, st); break;
-      case 2: err = launch_sm90<V128>(x, qt, scale, y, m, n, k, st); break;
-      default: err = launch_sm90<P256>(x, qt, scale, y, m, n, k, st);
-    }
-  } else {
-    switch (config_for(m)) {
-      case 0: err = launch_general<Decode>(x, qt, scale, y, m, n, k, st); break;
-      case 1: err = launch_general<Verify>(x, qt, scale, y, m, n, k, st); break;
-      default: err = launch_general<Prefill>(x, qt, scale, y, m, n, k, st);
-    }
-  }
+  const cudaError_t err =
+      dtype == 0 ? launch_bf16<__nv_bfloat16>(x, qt, scale, y, m, n, k, st)
+                 : launch_bf16<float>(x, qt, scale, y, m, n, k, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,10 +7,14 @@ Counterpart of the int8 branch of
 ``container_engine_accelerators_tpu/parallel/overlap.py:_chunk_mm``
 (reached from ``transformer._mm``), and of nothing else of that module:
 
-    y = ((x @ q) with f32 accumulation * scale).astype(x.dtype)
+    y = ((x @ q) with f32 accumulation * scale).astype(out_dtype)
 
 x (..., K) bf16 or f32, q int8 (K, N), scale f32 (1, N): the channel
-scale multiplies the f32 accumulator before the one cast. XLA fuses the
+scale multiplies the f32 accumulator before the one cast, to x's dtype
+by default; ``out_dtype=torch.float32`` with bf16 x keeps the scaled
+accumulator unrounded (JAX's ``_chunk_mm(..., jnp.float32)``, the
+tensor-parallel reduce-scatter's partial sums), on the same tensor-core
+kernels. XLA fuses the
 int8 convert into the matmul's operand read; in PyTorch
 ``(x @ q.to(x.dtype)) * scale`` would write and read a dequantized copy
 of the weight on every call and round the product before the scale, so
@@ -23,7 +27,7 @@ copy). ``quantization.quantize_weight`` still returns JAX's (K, N) ``q``.
   int8_mm            CPU tensors go to ``int8_mm_reference``; CUDA
                      tensors launch the kernel (there is no fallback)
   int8_mm_reference  the plain version: (x.float() @ qt.float().T) *
-                     scale, cast to x's dtype
+                     scale, cast to ``out_dtype`` (x's by default)
 
 ``int8_mm_launches`` counts the calls that launch the kernel: not a call
 that a CUDA graph captures (``int8_mm_captured`` counts those; the
@@ -72,29 +76,40 @@ def _check(x, qt, scale):
         raise ValueError(f"x must be bfloat16 or float32, got {x.dtype}")
 
 
-def int8_mm_reference(x, qt, scale):
+def _out_dtype(x, out_dtype):
+    out = x.dtype if out_dtype is None else out_dtype
+    if out != x.dtype and out != torch.float32:
+        raise ValueError(f"out_dtype must be x's dtype or float32, got "
+                         f"{out_dtype}")
+    return out
+
+
+def int8_mm_reference(x, qt, scale, out_dtype=None):
     """Plain version of the kernel: the int8 weight and the activations in
-    f32, one f32 product, the channel scale on it, one cast to x's
-    dtype."""
+    f32, one f32 product, the channel scale on it, one cast to
+    ``out_dtype`` (default x's dtype)."""
     _check(x, qt, scale)
+    out = _out_dtype(x, out_dtype)
     acc = torch.matmul(x.float(), qt.float().T)
-    return (acc * scale.reshape(-1)).to(x.dtype)
+    return (acc * scale.reshape(-1)).to(out)
 
 
-def int8_mm(x, qt, scale):
-    """y = ((x @ qt.T) in f32 * scale) in x's dtype, for x (..., K) and an
-    int8 ``qt`` (N, K) with a float32 ``scale`` of N values. CPU tensors
-    take the plain version; CUDA tensors launch the hand-written kernel
-    (ops/csrc/int8_mm.cu), which raises on what it does not take: there
-    is no fallback. The launch allocates its output (and any f32
+def int8_mm(x, qt, scale, out_dtype=None):
+    """y = ((x @ qt.T) in f32 * scale) in ``out_dtype`` (default x's
+    dtype; float32 keeps the scaled accumulator unrounded), for x (..., K)
+    and an int8 ``qt`` (N, K) with a float32 ``scale`` of N values. CPU
+    tensors take the plain version; CUDA tensors launch the hand-written
+    kernel (ops/csrc/int8_mm.cu), which raises on what it does not take:
+    there is no fallback. The launch allocates its output (and any f32
     workspace the library asks for; none today) from PyTorch's allocator,
     reads nothing back to the host, and runs on the current stream, so it
     can be captured."""
     global int8_mm_launches, int8_mm_captured
     _check(x, qt, scale)
+    out = _out_dtype(x, out_dtype)
     devices = {x.device.type, qt.device.type, scale.device.type}
     if devices == {"cpu"}:
-        return int8_mm_reference(x, qt, scale)
+        return int8_mm_reference(x, qt, scale, out)
     if devices != {"cuda"}:
         raise ValueError(f"x/qt/scale must all be on cpu or all on cuda, "
                          f"got {x.device}, {qt.device}, {scale.device}")
@@ -104,7 +119,7 @@ def int8_mm(x, qt, scale):
     lead = x.shape[:-1]
     x2 = x.reshape(-1, k)
     m = x2.shape[0]
-    y = torch.empty(m, n, dtype=x.dtype, device=x.device)
+    y = torch.empty(m, n, dtype=out, device=x.device)
     if m == 0 or n == 0:
         return y.view(*lead, n)
     if k == 0:

@@ -9,8 +9,14 @@ are replicated (or fsdp-sharded, the same numbers). Here every rank
 builds the same global batch and :func:`train_step` runs one step on
 this rank's part of it: the loss function scales its local loss so that
 the ranks' losses sum to the global loss, ``backward()`` runs, the
-gradients are summed over the world once, in one flat f32 buffer, and
-the optimizer steps on every rank alike. Nothing reduces inside the
+gradients are summed over the mesh's data axes (dp, then sp: the axes
+that split the batch's tokens) once, in one flat f32 buffer a group, and
+the optimizer steps on every rank alike. A tp or ep axis replicates the
+batch, so its ranks are not summed here: a model whose ranks along it
+are replicas (mnist, resnet under ``--tp``) holds the whole gradient on
+each already, and the tensor- and expert-parallel models reduce what
+their tp ranks hold parts of themselves
+(``parallel/tensor_parallel.reduce_grads``). Nothing reduces inside the
 backward (no ``DistributedDataParallel`` bucket hooks), so collectives
 never interleave with the ring attention's transfers, which every rank
 must issue in the same order.
@@ -61,10 +67,22 @@ def mean_loss_share(loss_fn, model, batch, mesh):
     return loss_fn(model, local) * (rows / len(next(iter(batch.values()))))
 
 
-def sync_grads(params):
-    """Sum every parameter's gradient over the world in one flat f32
-    buffer (a parameter without one contributes zeros and gets the sum),
-    then write the sums back in each gradient's dtype."""
+# The mesh axes that split a global batch's tokens, in reduction order.
+DATA_AXES = ("dp", "sp")
+
+
+def data_groups(mesh):
+    """The process groups of ``mesh``'s data axes above size 1 (none for
+    no mesh): a sum over each in turn is the sum over every rank that
+    holds other tokens of the batch."""
+    return [mesh.get_group(name) for name in DATA_AXES
+            if axis(mesh, name)[1] > 1]
+
+
+def sync_grads(params, group=None):
+    """Sum every parameter's gradient over ``group`` (default the world)
+    in one flat f32 buffer (a parameter without one contributes zeros and
+    gets the sum), then write the sums back in each gradient's dtype."""
     params = [p for p in params if p.requires_grad]
     if not params:
         return
@@ -72,7 +90,7 @@ def sync_grads(params):
         (p.grad if p.grad is not None else torch.zeros_like(p))
         .reshape(-1).float() for p in params
     ])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=group)
     offset = 0
     for p in params:
         n = p.numel()
@@ -87,15 +105,25 @@ def sync_grads(params):
 def train_step(model, opt, local_loss, mesh):
     """One optimizer step → the detached loss. ``local_loss()`` returns
     this rank's share of the global loss (the shares sum to it). Under a
-    mesh the gradients and the loss are summed over the world after
-    ``backward()``; without one this is the single-device step."""
+    mesh the gradients and the loss are summed over its data axes after
+    ``backward()`` (:func:`data_groups`); without one this is the
+    single-device step."""
     opt.zero_grad(set_to_none=True)
     loss = local_loss()
     loss.backward()
     loss = loss.detach()
     if mesh is not None:
-        sync_grads(model.parameters())
-        loss = loss.float()
-        dist.all_reduce(loss)
+        for group in data_groups(mesh):
+            sync_grads(model.parameters(), group=group)
+        loss = sum_loss(loss, mesh)
     opt.step()
+    return loss
+
+
+def sum_loss(loss, mesh):
+    """A rank's share of the global loss summed over the mesh's data
+    axes: the global loss, f32, on every rank."""
+    loss = loss.detach().float()
+    for group in data_groups(mesh):
+        dist.all_reduce(loss, group=group)
     return loss

@@ -29,7 +29,8 @@ processes (what :class:`RingFlash` uses), :class:`InProcess` rotates the
 lists of every rank's shards in one process, so that one card can run a
 whole ring's steps through the same loops. Both also carry the pipeline
 schedule's neighbour transfers and broadcasts (``pipe`` and ``share``,
-``parallel/pipeline.py``).
+``parallel/pipeline.py``), and the all-reduces of tensor and expert
+parallelism (``all_reduce``, ``parallel/tensor_parallel.py``).
 
 ``impl="plain"`` is the counterpart of JAX's ``"xla"`` block path: an
 einsum block with the streaming-softmax combine on the same ring,
@@ -58,6 +59,7 @@ from container_engine_accelerators_tpu_torch.ops.attention import (
 
 NEG_INF = -1e30
 RING_IMPLS = ("auto", "flash", "plain")
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,6 +177,17 @@ class P2P:
                        group=self.ring.group)
         return [t]
 
+    def all_reduce(self, tensors, op="sum"):
+        """The sum (``op="max"``: the maximum) over the ring's ranks of
+        ``tensors`` (one per rank held), on every rank, in a new buffer;
+        a ring of one returns ``tensors`` as they are."""
+        if self.size == 1:
+            return list(tensors)
+        (t,) = tensors
+        out = t.contiguous().clone()
+        dist.all_reduce(out, op=_REDUCE_OPS[op], group=self.ring.group)
+        return [out]
+
 
 class InProcess:
     """Every rank of a ring of ``size`` in one process: a transfer is the
@@ -208,6 +221,18 @@ class InProcess:
         """:meth:`P2P.share` in one process: every stage takes stage
         ``src``'s tensor."""
         return [tensors[src]] * self.size
+
+    def all_reduce(self, tensors, op="sum"):
+        """:meth:`P2P.all_reduce` in one process: the ranks' tensors
+        summed (or their maximum) in rank order, one result a rank. A
+        ring of one returns ``tensors`` as they are, however many ranks
+        of another axis the list holds."""
+        if self.size == 1:
+            return list(tensors)
+        total = tensors[0]
+        for t in tensors[1:]:
+            total = torch.maximum(total, t) if op == "max" else total + t
+        return [total] * self.size
 
 
 # -- the flash ring -----------------------------------------------------------

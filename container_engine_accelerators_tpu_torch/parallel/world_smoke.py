@@ -1,8 +1,8 @@
 # Copyright 2026 The TPU Accelerator Stack Authors.
 # SPDX-License-Identifier: Apache-2.0
-"""Ring attention, the sharded train step and the pipeline-parallel
-step in a real world of N processes, one per device, held to one
-device.
+"""Ring attention, the sharded train step, the pipeline-parallel step
+and the tensor- and expert-parallel steps in a real world of N
+processes, one per device, held to one device.
 
     python -m container_engine_accelerators_tpu_torch.parallel.world_smoke \\
         --world 4
@@ -36,7 +36,25 @@ gloo under ``--device cpu``. Then, on every rank:
          one device on the same weights and the flattened batch: the
          loss, and every gradient of each rank's stage and of the
          embedding and final norm (each rank holds its own against the
-         unsplit step run on its device); two steps of each timed.
+         unsplit step run on its device); two steps of each timed;
+  tp     the tensor-parallel step (``models/tp_lm.py``, f32, 2 layers,
+         8/4 heads) on a tp mesh of all the ranks, its ring path and its
+         off path, and at 4 ranks the ring on a dp 2 × tp 2 mesh: the
+         loss and every gradient merged from the shards (gathered over
+         the tp group) against the unsplit step on each rank's device;
+         with ``--full-width`` (the default on CUDA) then both paths at
+         Llama-3-8B's widths (d 4096, 32/8 heads, d_ff 14336, vocab
+         128256; 4 layers, B 1 × S 4096, bf16), three steps each, held
+         to the unsplit step by ``wide_verdict`` and timed beside it;
+  ep     the expert-parallel MoE step (2 layers, 2 experts a rank,
+         top-2) on an ep mesh of all the ranks against the unsplit MoE
+         step the same way; with ``--full-width`` then at Mixtral-8x7B's
+         widths (8 experts, top-2, vocab 32000, 2 layers) in bf16 as the
+         tp step is.
+
+The small f32 steps check the shards' arithmetic (a step of d 256 is
+bound by latency, so their times say nothing of the transport); the
+full-width bf16 steps are the ones whose times mean something.
 
 Rank 0 prints one JSON line per check, with the card's name and power
 limit on CUDA, then ``{"ok": true, ...}``; any miss exits non-zero.
@@ -71,6 +89,35 @@ TRAIN_STEPS = 2
 # summed in other orders (per microbatch, then over the microbatches):
 # each gradient's largest error within 1e-4 of its largest entry.
 PP_GRAD_RTOL = 1e-4
+# The tp and ep steps' merged gradients against the unsplit step's, f32,
+# summed in other orders (ring chunks, per-rank partials, the
+# vocab-parallel cross entropy): the same bound as the pp step's.
+SHARDED_GRAD_RTOL = 1e-4
+# The full-width steps (here on N cards, and chip_smoke.py's
+# tensor_parallel and expert_parallel phases on one) are held three ways:
+#  - in f32, the sharded step's gradients from the same weights widened
+#    against the unsplit step's, each within SHARDED_GRAD_RTOL of its
+#    largest entry: the sharding's arithmetic, up to the order of f32 sums;
+#  - in bf16, each path is as close to those f32 gradients as the unsplit
+#    bf16 step is (worst parameter's relative L2, within F32_ANCHOR of the
+#    unsplit step's): it rounds no more;
+#  - in bf16 against the unsplit bf16 step (the loss, and a dense model's
+#    gradients by relative L2 and largest error over the largest
+#    |gradient|: chip_smoke.py's TRAIN_GRAD_TOL; the two round at other
+#    places, about one bf16 step an element, carried through the layers'
+#    backward). An MoE model's gradients are not held so: a rounding
+#    difference in a layer's input flips some tokens' top-k experts, and
+#    at Mixtral's widths the two bf16 steps then differ by 0.02-0.06
+#    (seeds 19, 20, 24, 25) while each is 0.12-0.18 from f32.
+WIDE_GRAD_TOL = {"rel_l2": 3e-2, "max_rel": 1e-1, "loss_abs": 1e-2}
+F32_ANCHOR = 1.25
+WIDE_STEPS = 3
+# The full-width steps' depth (of Llama-3-8B's 32 layers and Mixtral's 32,
+# as chip_smoke.py's tensor_parallel and expert_parallel phases) and
+# sequence.
+WIDE_TP_LAYERS = 4
+WIDE_EP_LAYERS = 2
+WIDE_SEQ = 4096
 
 
 def _free_port():
@@ -102,6 +149,15 @@ def _timed(torch, device, fn):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     return out, (time.perf_counter() - t0) * 1e3
+
+
+def _release(torch, device):
+    """Return the last check's memory to the card before the next."""
+    import gc
+
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
 
 
 def _gather(dist, torch, t, world):
@@ -382,6 +438,270 @@ def check_pp(args, torch, dist, device, rank, world, card):
     return flag.item() == 0
 
 
+def _grad_readings(torch, grads, ref):
+    """Per parameter of ``ref`` (gradients by name) against ``grads``:
+    the worst relative L2 error, the worst largest error over the largest
+    |gradient| (both in f32), and the parameter with the worst L2."""
+    worst_l2, worst_max, worst_name = 0.0, 0.0, None
+    for name, r in ref.items():
+        g, r = grads[name].float(), r.float()
+        rel_l2 = ((g - r).norm() / r.norm().clamp_min(1e-30)).item()
+        max_rel = ((g - r).abs().max()
+                   / r.abs().max().clamp_min(1e-30)).item()
+        if not torch.isfinite(g).all():
+            rel_l2 = max_rel = float("inf")
+        if rel_l2 > worst_l2:
+            worst_l2, worst_name = rel_l2, name
+        worst_max = max(worst_max, max_rel)
+    return worst_l2, worst_max, worst_name
+
+
+def widened(torch, tf, model):
+    """``model`` in f32, each weight widened exactly."""
+    import dataclasses
+
+    wide = tf.Transformer(dataclasses.replace(model.cfg, dtype="float32"),
+                          model.device)
+    with torch.no_grad():
+        for p, q in zip(wide.parameters(), model.parameters()):
+            p.copy_(q.float())
+    return wide
+
+
+def unsplit_f32_grads(torch, tf, model, batch):
+    """The unsplit step's gradients by name in f32 from ``model``'s
+    weights widened (one ``loss_fn`` with remat; no optimizer step)."""
+    wide = widened(torch, tf, model)
+    tf.loss_fn(wide, batch, remat=True).backward()
+    return {n: p.grad for n, p in wide.named_parameters()}
+
+
+def sharded_f32_grads(torch, tf, tp_lm, model, axes, batch, mesh=None,
+                      overlap=None):
+    """The sharded step's gradients by name in f32 from ``model``'s
+    weights widened, merged from the ranks' shards (``tp_lm.backward``;
+    no optimizer step)."""
+    shards = tp_lm.split_params(widened(torch, tf, model), axes)
+    tp_lm.backward(shards, batch, axes, mesh=mesh, overlap=overlap)
+    return tp_lm.merged(list(shards), axes, "grads")
+
+
+def wide_verdict(torch, moe, loss_err, bf16, unsplit, f32, unsplit_f32):
+    """The three holds of a full-width step (see ``WIDE_GRAD_TOL``):
+    ``bf16``/``unsplit`` the path's and the unsplit step's gradients by
+    name, ``f32``/``unsplit_f32`` the same in f32. Returns (readings,
+    ok)."""
+    l2, max_rel, name = _grad_readings(torch, bf16, unsplit)
+    path_f32, _, path_name = _grad_readings(torch, bf16, unsplit_f32)
+    floor, _, floor_name = _grad_readings(torch, unsplit, unsplit_f32)
+    f32_l2, f32_max, f32_name = _grad_readings(torch, f32, unsplit_f32)
+    readings = {
+        "loss_abs_err": loss_err,
+        "bf16_vs_unsplit": {"worst_rel_l2": l2, "worst_rel_l2_param": name,
+                            "worst_max_rel": max_rel},
+        "bf16_vs_f32": {"path": path_f32, "path_param": path_name,
+                        "unsplit": floor, "unsplit_param": floor_name},
+        "f32_vs_unsplit_f32": {"worst_max_rel": f32_max,
+                               "worst_rel_l2": f32_l2,
+                               "worst_rel_l2_param": f32_name}}
+    ok = loss_err <= WIDE_GRAD_TOL["loss_abs"] and \
+        f32_max <= SHARDED_GRAD_RTOL and path_f32 <= F32_ANCHOR * floor
+    if not moe:
+        ok = ok and l2 <= WIDE_GRAD_TOL["rel_l2"] and \
+            max_rel <= WIDE_GRAD_TOL["max_rel"]
+    return readings, ok
+
+
+def _sharded_row(args, torch, dist, device, rank, world, card, cfg, check,
+                 dp, tp, ep, overlap, wide=False):
+    """One sharded step against the unsplit step on this rank's device:
+    (the row, ok). ``wide``: a bf16 model at published widths, B dp × S
+    ``cfg.max_seq_len``, ``WIDE_STEPS`` steps, held by ``wide_verdict``;
+    otherwise the small f32 step, B 2 dp × S ``--train-seq``, two steps,
+    the f32 bounds."""
+    import numpy as np
+
+    from container_engine_accelerators_tpu_torch.models import (
+        tp_lm,
+        train_cli,
+    )
+    from container_engine_accelerators_tpu_torch.models import (
+        transformer as tf,
+    )
+    from container_engine_accelerators_tpu_torch.parallel import (
+        tensor_parallel,
+    )
+
+    mesh = train_cli.build_mesh(world, 1, tp, ep, device_type=device.type)
+    axes = tensor_parallel.Axes.of_mesh(mesh)
+    rows, seq = (dp, cfg.max_seq_len) if wide else (2 * dp, args.train_seq)
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(19).integers(
+        0, cfg.vocab_size, (rows, seq + 1)), device=device)}
+    init, step = tf.make_train_step(cfg, device=device, mesh=mesh,
+                                    overlap=overlap)
+    state = init(seed=0)
+    init1, step1 = tf.make_train_step(cfg, device=device)
+    ref = init1(seed=0)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    step_ms, unsplit_ms, losses, unsplit_losses = [], [], [], []
+    for k in range(WIDE_STEPS if wide else 2):
+        dist.barrier()
+        (state, loss), ms = _timed(torch, device, lambda: step(state, batch))
+        step_ms.append(ms)
+        (ref, ref_loss), ms = _timed(torch, device,
+                                     lambda: step1(ref, batch))
+        unsplit_ms.append(ms)
+        losses.append(loss.item())
+        unsplit_losses.append(ref_loss.item())
+        if k == 0:
+            grads = tp_lm.merged(list(state[0]), axes, "grads")
+            ref_grads = {n: p.grad for n, p in ref[0].named_parameters()}
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9 \
+        if device.type == "cuda" else None
+    loss_err = abs(losses[0] - unsplit_losses[0])
+    del state, ref
+    _release(torch, device)
+    if wide:
+        model = tf.init_params(cfg, device=device, seed=0)
+        unsplit32 = unsplit_f32_grads(torch, tf, model, batch)
+        _release(torch, device)
+        got32 = sharded_f32_grads(torch, tf, tp_lm, model, axes, batch,
+                                  mesh=mesh, overlap=overlap)
+        del model
+        readings, ok = wide_verdict(torch, bool(cfg.n_experts), loss_err,
+                                    grads, ref_grads, got32, unsplit32)
+        del unsplit32, got32
+        worst, worst_l2 = readings["bf16_vs_unsplit"]["worst_max_rel"], \
+            readings["bf16_vs_unsplit"]["worst_rel_l2"]
+        tol = {**WIDE_GRAD_TOL, "f32_grad_rel": SHARDED_GRAD_RTOL,
+               "f32_anchor": F32_ANCHOR}
+    else:
+        worst_l2, worst, _ = _grad_readings(torch, grads, ref_grads)
+        ok = loss_err <= TRAIN_LOSS_ATOL and worst <= SHARDED_GRAD_RTOL
+        readings = {}
+        tol = {"loss": TRAIN_LOSS_ATOL, "grad_rel": SHARDED_GRAD_RTOL}
+    del grads, ref_grads
+    mine = torch.tensor([worst, worst_l2, 0.0 if ok else 1.0, *step_ms],
+                        dtype=torch.float64, device=device)
+    every = [torch.empty_like(mine) for _ in range(world)]
+    dist.all_gather(every, mine)
+    by_rank = torch.stack(every).tolist()
+    ok = all(t[2] == 0 for t in by_rank)
+    path = tp_lm.resolve(cfg, axes, mesh, rows, seq, overlap)
+    row = {"check": check, **card, "world": world, "dp": dp, "tp": tp,
+           "ep": ep, "path": path, "seq": seq, "batch": rows,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "n_experts": cfg.n_experts, "dtype": cfg.dtype,
+           "backend": dist.get_backend(), "losses": losses,
+           "unsplit_losses": unsplit_losses, "loss_max_abs_err": loss_err,
+           "grad_worst_rel_err_by_rank": [t[0] for t in by_rank],
+           "grad_worst_rel_l2_by_rank": [t[1] for t in by_rank],
+           **readings,
+           "step_ms_by_rank": [t[3:] for t in by_rank],
+           "step_ms": [max(t[3 + k] for t in by_rank)
+                       for k in range(len(step_ms))],
+           "unsplit_step_ms": unsplit_ms,
+           "timing": "each step's slowest rank; the first builds the "
+                     "communicators and warms the kernels"}
+    if peak_gb is not None:
+        row["max_memory_allocated_gb"] = peak_gb
+    return {**row, "tol": tol, "ok": ok}, ok
+
+
+def _shrunk(cfg, shrink):
+    """``cfg`` with its widths, vocabulary and sequence divided by
+    ``shrink`` (heads kept), a CPU rehearsal of the full-width steps."""
+    import dataclasses
+
+    if shrink == 1:
+        return cfg
+    return dataclasses.replace(
+        cfg, d_model=cfg.d_model // shrink, d_ff=cfg.d_ff // shrink,
+        vocab_size=cfg.vocab_size // shrink,
+        max_seq_len=cfg.max_seq_len // shrink)
+
+
+def wide_configs(args):
+    """(the tp check's Llama-3-8B config, the ep check's Mixtral-8x7B
+    config) at ``WIDE_*`` depth and sequence, bf16, shrunk by
+    ``--wide-shrink``."""
+    import dataclasses
+
+    from container_engine_accelerators_tpu_torch.models import (
+        transformer as tf,
+    )
+
+    llama = dataclasses.replace(tf.TransformerConfig.llama3_8b(),
+                                n_layers=WIDE_TP_LAYERS, max_seq_len=WIDE_SEQ)
+    mixtral = tf.TransformerConfig(
+        vocab_size=32000, d_model=4096, n_layers=WIDE_EP_LAYERS,
+        n_heads=32, n_kv_heads=8, d_ff=14336, max_seq_len=WIDE_SEQ,
+        rope_theta=1e6, n_experts=8, expert_top_k=2)
+    return (_shrunk(llama, args.wide_shrink),
+            _shrunk(mixtral, args.wide_shrink))
+
+
+def _full_width(args, device):
+    return device.type == "cuda" if args.full_width is None \
+        else args.full_width
+
+
+def check_tp(args, torch, dist, device, rank, world, card):
+    """The tensor-parallel step (ring and off, and dp 2 × tp at 4 ranks)
+    against one device's unsplit step."""
+    from container_engine_accelerators_tpu_torch.models import (
+        transformer as tf,
+    )
+
+    cfg = tf.TransformerConfig(
+        vocab_size=1024, d_model=args.train_d_model, n_layers=2,
+        n_heads=8, n_kv_heads=4, d_ff=3 * args.train_d_model,
+        max_seq_len=args.train_seq, dtype="float32")
+    cases = [(cfg, 1, world, "ring", False), (cfg, 1, world, "off", False)]
+    if world % 2 == 0 and world > 2:
+        cases.append((cfg, 2, world // 2, "ring", False))
+    if _full_width(args, device):
+        wide = wide_configs(args)[0]
+        cases += [(wide, 1, world, "ring", True), (wide, 1, world, "off", True)]
+    ok = True
+    for case_cfg, dp, tp, overlap, wide in cases:
+        row, good = _sharded_row(args, torch, dist, device, rank, world,
+                                 card, case_cfg, "tp", dp, tp, 1, overlap,
+                                 wide=wide)
+        _emit(rank, row)
+        ok = ok and good
+        _release(torch, device)
+    return ok
+
+
+def check_ep(args, torch, dist, device, rank, world, card):
+    """The expert-parallel MoE step against one device's unsplit step."""
+    from container_engine_accelerators_tpu_torch.models import (
+        transformer as tf,
+    )
+
+    cfg = tf.TransformerConfig(
+        vocab_size=1024, d_model=args.train_d_model, n_layers=2,
+        n_heads=8, n_kv_heads=4, d_ff=3 * args.train_d_model,
+        max_seq_len=args.train_seq, dtype="float32", n_experts=2 * world)
+    row, ok = _sharded_row(args, torch, dist, device, rank, world, card,
+                           cfg, "ep", 1, 1, world, None)
+    _emit(rank, row)
+    if _full_width(args, device):
+        _release(torch, device)
+        row, good = _sharded_row(args, torch, dist, device, rank, world,
+                                 card, wide_configs(args)[1], "ep", 1, 1,
+                                 world, None, wide=True)
+        _emit(rank, row)
+        ok = ok and good
+    return ok
+
+
+CHECKS = {"ring": check_ring, "train": check_train, "pp": check_pp,
+          "tp": check_tp, "ep": check_ep}
+
+
 def run_rank(args):
     """One rank: join, run the checks, leave. Returns the exit code."""
     import torch
@@ -399,9 +719,10 @@ def run_rank(args):
     rank, world = opts["rank"], opts["world_size"]
     card = _card() if device.type == "cuda" else {}
     try:
-        ok = check_ring(args, torch, dist, device, rank, world, card)
-        ok = check_train(args, torch, dist, device, rank, world, card) and ok
-        ok = check_pp(args, torch, dist, device, rank, world, card) and ok
+        ok = True
+        for name in args.checks:
+            ok = CHECKS[name](args, torch, dist, device, rank, world,
+                              card) and ok
     finally:
         dist.destroy_process_group()
     _emit(rank, {"ok": ok, "world": world, "backend": opts["backend"],
@@ -444,7 +765,17 @@ def build_parser():
                    help="timed ring forward/backward runs after the first")
     p.add_argument("--train-seq", type=int, default=2048)
     p.add_argument("--train-d-model", type=int, default=256)
+    p.add_argument("--full-width", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="also run the tp and ep checks at published widths "
+                        "in bf16 (default: on CUDA)")
+    p.add_argument("--wide-shrink", type=int, default=1,
+                   help="divide the full-width steps' widths, vocabulary "
+                        "and sequence by this (a CPU rehearsal)")
     p.add_argument("--timeout-s", type=float, default=600.0)
+    p.add_argument("--checks", nargs="+", choices=sorted(CHECKS),
+                   default=list(CHECKS),
+                   help="the checks to run, in this order (default all)")
     p.add_argument("--rank-process", action="store_true",
                    help=argparse.SUPPRESS)
     return p

@@ -195,19 +195,21 @@ class _Slot(int):
     """A tensor's place in a broadcast state's skeleton."""
 
 
-def broadcast(state, step, device):
-    """Rank 0's resume to every rank of the initialized world: rank 0
-    passes the step it restored (or None) and its live ``state``; every
-    rank returns (state, step) with rank 0's values loaded into its own
-    live ``state``, whatever its own checkpoint directory holds (each
-    host may mount one of its own). Tensors travel on ``device`` (the
-    backend's: a card under NCCL) and land where the live state keeps
-    them. Without a world of more than one: (state, step) as given."""
+def broadcast(state, step, device, group=None):
+    """Rank 0's resume to every rank of the initialized world (of
+    ``group``: its first rank's): that rank passes the step it restored
+    (or None) and its live ``state``; every rank returns (state, step)
+    with its values loaded into its own live ``state``, whatever its own
+    checkpoint directory holds (each host may mount one of its own).
+    Tensors travel on ``device`` (the backend's: a card under NCCL) and
+    land where the live state keeps them. Without a world (group) of
+    more than one: (state, step) as given."""
     import torch.distributed as dist
 
-    if not dist.is_initialized() or dist.get_world_size() == 1:
+    if not dist.is_initialized() or dist.get_world_size(group) == 1:
         return state, step
-    leader = dist.get_rank() == 0
+    src = 0 if group is None else dist.get_global_rank(group, 0)
+    leader = dist.get_rank() == src
     tensors, metas = [], []
 
     def strip(x):
@@ -224,7 +226,7 @@ def broadcast(state, step, device):
     head = [step, None, None]
     if leader and step is not None:
         head[1:] = strip(_snapshot(state)), metas
-    dist.broadcast_object_list(head, src=0, device=device)
+    dist.broadcast_object_list(head, src=src, group=group, device=device)
     step, skeleton, metas = head
     if step is None:
         return state, None
@@ -232,7 +234,7 @@ def broadcast(state, step, device):
     for i, (shape, dtype, on_cpu) in enumerate(metas):
         buf = (tensors[i].to(device) if leader
                else torch.empty(shape, dtype=dtype, device=device))
-        dist.broadcast(buf, src=0)
+        dist.broadcast(buf, src=src, group=group)
         received.append(buf.cpu() if on_cpu else buf)
     if leader:
         return state, step

@@ -812,6 +812,29 @@ def test_int8_mm_matches_plain_version(gen, shape, dtype):
                                atol=atol)
 
 
+@pytest.mark.parametrize("shape", INT8_SHAPES, ids=str)
+def test_int8_mm_f32_output_matches_plain_version(gen, shape):
+    """bf16 activations with an f32 output (the tensor-parallel
+    reduce-scatter's partial sums): the tensor-core kernels with the scaled
+    accumulator written unrounded, against ``int8_mm_reference`` with the
+    same output dtype. Both sum exact int8 x bf16 products in f32, so only
+    the order of the f32 sums differs; the bf16-output launch on the same
+    operands (the same tiles and K splits) is that result rounded once,
+    bit for bit."""
+    m, k, n = shape
+    x, qt, scale = _int8_operands(gen, m, k, n, torch.bfloat16)
+    before = int8_matmul.int8_mm_launches
+    got = int8_matmul.int8_mm(x, qt, scale, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert int8_matmul.int8_mm_launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    want = int8_matmul.int8_mm_reference(x, qt, scale,
+                                         out_dtype=torch.float32)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(int8_matmul.int8_mm(x, qt, scale),
+                       got.to(torch.bfloat16))
+
+
 @pytest.mark.parametrize("shape", [(8, 4096, 1024), (128, 512, 200),
                                    (1, 4096, 1024), (1, 14336, 4096),
                                    (8, 4096, 14336), (128, 4096, 14336)],

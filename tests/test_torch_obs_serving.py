@@ -203,6 +203,15 @@ def _get(port, path="/metrics"):
         return resp.read().decode()
 
 
+def _ok_count(port):
+    """``tpu_serving_requests_total{outcome="ok"}`` on ``port``'s
+    /metrics, 0 before the first request is counted."""
+    try:
+        return _sample(_get(port), 'tpu_serving_requests_total{outcome="ok"}')
+    except AssertionError:
+        return 0
+
+
 def _wait_for(cond, what):
     deadline = time.monotonic() + TIMEOUT_S
     while not cond():
@@ -277,6 +286,13 @@ def _run_scenario(side, models, mode):
         for t in threads:
             t.join(TIMEOUT_S)
             assert not t.is_alive()
+        if side == "jax":
+            # JAX's /generate handler observes a request after it has
+            # sent the reply (serve_cli.py's handler), so the last one
+            # may not be counted yet when its client returns: wait until
+            # every request is.
+            _wait_for(lambda: _ok_count(port) == len(SCENARIO),
+                      "JAX's last request to be observed")
         text = _get(port)
     finally:
         server.shutdown()

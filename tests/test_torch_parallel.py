@@ -397,11 +397,47 @@ def test_ring_processes_leave_no_rendezvous_behind(ring_worlds, tmp_path):
     assert not os.listdir(tmp_path)
 
 
+def test_world_smoke_full_width_steps_rehearse_on_two_gloo_ranks():
+    """The tp and ep checks' full-width bf16 steps (the four-card call's
+    Llama-3-8B and Mixtral-8x7B steps) on the CPU with their widths,
+    vocabularies and sequence divided by 32: the rows, their paths and
+    dtype, and each held to the unsplit step within ``WIDE_GRAD_TOL``."""
+    import json
+    import subprocess
+    import sys
+
+    proc = subprocess.run(
+        [sys.executable, "-m",
+         "container_engine_accelerators_tpu_torch.parallel.world_smoke",
+         "--world", "2", "--device", "cpu", "--checks", "tp", "ep",
+         "--train-seq", "32", "--train-d-model", "64", "--full-width",
+         "--wide-shrink", "32", "--timeout-s", "240"],
+        cwd=worker.REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    rows = [json.loads(line) for line in proc.stdout.splitlines()]
+    assert [r.get("check") for r in rows] == ["tp", "tp", "tp", "tp", "ep",
+                                              "ep", None]
+    assert all(r["ok"] for r in rows)
+    wide = [r for r in rows[:-1] if r["dtype"] == "bfloat16"]
+    assert [(r["check"], r["path"], r["n_layers"], r["seq"], r["d_model"])
+            for r in wide] == [("tp", "ring", 4, 128, 128),
+                               ("tp", "off", 4, 128, 128),
+                               ("ep", "off", 2, 128, 128)]
+    assert all(len(r["step_ms"]) == 3 and r["tol"]["rel_l2"] == 3e-2
+               for r in wide)
+    assert wide[-1]["n_experts"] == 8
+    # In f32 the sharding is the unsplit arithmetic up to the order of
+    # f32 sums; in bf16 each path is as close to f32 as the unsplit step.
+    for r in wide:
+        assert r["f32_vs_unsplit_f32"]["worst_max_rel"] <= 1e-4
+        assert r["bf16_vs_f32"]["path"] <= 1.25 * r["bf16_vs_f32"]["unsplit"]
+
+
 def test_world_smoke_on_two_gloo_ranks():
     """``parallel/world_smoke.py`` (the multi-GPU check) end to end on
     the CPU: two ranks through the env contract, the ring against the
-    whole sequence, and the sp-sharded train step and the pp step
-    against one device."""
+    whole sequence, and the sp-sharded train step, the pp step, the tp
+    step (ring and off) and the ep step against one device."""
     import json
     import subprocess
     import sys
@@ -415,7 +451,10 @@ def test_world_smoke_on_two_gloo_ranks():
         cwd=worker.REPO, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     rows = [json.loads(line) for line in proc.stdout.splitlines()]
-    assert [r.get("check") for r in rows] == ["ring", "train", "pp", None]
+    assert [r.get("check") for r in rows] == ["ring", "train", "pp", "tp",
+                                              "tp", "ep", None]
     assert all(r["ok"] for r in rows) and rows[-1]["world"] == 2
     assert rows[1]["sp"] == 2 and rows[1]["replicated"]
     assert rows[2]["stages"] == 2 and rows[2]["microbatches"] == 4
+    assert [(r["tp"], r["ep"], r["path"]) for r in rows[3:6]] == [
+        (2, 1, "ring"), (2, 1, "off"), (1, 2, "off")]

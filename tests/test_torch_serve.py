@@ -120,7 +120,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'scheduler.gang', 'scheduler.incremental', 'scheduler.k8s', "
         "'topology.labels', 'topology.slice', 'topology.placement', "
         "'parallel.pipeline', 'models.pipeline_lm', 'fleet.journeydrill', "
-        "'obs.journey'}\n"
+        "'obs.journey', 'parallel.overlap', 'parallel.tensor_parallel', "
+        "'models.tp_lm'}\n"
         "assert {p.__name__ + '.' + w for w in want} <= set(names), names\n"
         "[importlib.import_module(n) for n in names]\n"
         "import chip_smoke\n"

@@ -192,13 +192,30 @@ def test_train_cli_default_model_is_mnist(capsys):
 
 # --sp is ported for the transformer and --distributed for every model
 # (tests/test_torch_train_dist.py), --pp and --microbatches for the
-# transformer (tests/test_torch_pipeline_lm.py); --sp stays refused for
-# the others, and --tp and --ep with any company.
-@pytest.mark.parametrize("flag", [["--tp", "2"],
-                                  ["--sp", "2", "--model", "mnist"],
-                                  ["--ep", "2"], ["--tp", "2", "--sp", "2"],
-                                  ["--ep", "2", "--n-experts", "4"],
+# transformer (tests/test_torch_pipeline_lm.py), --tp and --ep
+# (tests/test_torch_tp_train.py, test_torch_moe_ep.py); --sp stays
+# refused for the other models.
+@pytest.mark.parametrize("flag", [["--sp", "2", "--model", "mnist"],
                                   ["--sp", "2", "--model", "bert"]])
 def test_multi_gpu_flags_are_not_ported_yet(flag):
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         train_cli.main(["--model", "transformer", "--device", "cpu", *flag])
+
+
+@pytest.mark.parametrize("flag,world", [
+    (["--tp", "2"], 2), (["--ep", "2"], 2), (["--tp", "2", "--sp", "2"], 4),
+    (["--ep", "2", "--n-experts", "4"], 2)],
+    ids=["tp2", "ep2", "tp2_sp2", "ep2_moe"])
+def test_multi_gpu_flags_train(tmp_path, flag, world):
+    """The flags the port refused before tensor and expert parallelism
+    train over a gloo world of the ranks they need: every rank prints the
+    same finite loss."""
+    import torch_dist_worker as worker
+
+    runs, _ = worker.cli_world(
+        ["--model", "transformer", "--device", "cpu", "--d-model", "64",
+         "--n-heads", "4", "--seq-len", "32", "--vocab-size", "128",
+         "--steps", "1", *flag], str(tmp_path), "flags", world=world)
+    assert [rc for rc, _, _ in runs] == [0] * world, runs[0][2][-2000:]
+    losses = {result["loss"] for _, result, _ in runs}
+    assert len(losses) == 1 and np.isfinite(losses.pop())

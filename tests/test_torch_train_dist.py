@@ -20,8 +20,8 @@ The CLI: two ``train_cli --distributed`` processes (``TPU_WORKER_ID`` 0,
 ``LOCAL_WORLD_SIZE`` 2) write their bootstrap markers, agree on every
 loss, checkpoint from rank 0 only, and resume from it to the loss of a
 straight run, also after a supervisor restart where each rank has a
-checkpoint directory of its own; MoE on two ranks and ``--tp 2`` are
-refused.
+checkpoint directory of its own; MoE trains on two ranks, and under
+``--tp 2`` or ``--ep 2`` the shards checkpoint per shard and resume.
 """
 
 import json
@@ -46,6 +46,7 @@ from container_engine_accelerators_tpu.models import train_cli as jtrain_cli  # 
 from container_engine_accelerators_tpu.models import transformer as jtf  # noqa: E402
 from container_engine_accelerators_tpu_torch.models import bert as tbert  # noqa: E402
 from container_engine_accelerators_tpu_torch.models import train_cli  # noqa: E402
+from container_engine_accelerators_tpu_torch.utils import checkpointing  # noqa: E402
 
 REPO = worker.REPO
 STEPS = 2
@@ -307,22 +308,49 @@ def test_distributed_cli_restarts_every_rank_from_rank_0_s_own_dir(
         not os.listdir(tmp_path / "ckpt1")
 
 
-def test_distributed_cli_refuses_moe_on_two_ranks(tmp_path):
+def test_distributed_cli_trains_moe_on_two_ranks(tmp_path):
+    """MoE routes per sequence, so it trains data-parallel: both ranks
+    print the same loss (tests/test_torch_moe_ep.py holds it to JAX)."""
     runs, markers = _cli_world(
         ["--model", "transformer", "--device", "cpu", "--d-model", "64",
          "--n-heads", "4", "--seq-len", "32", "--vocab-size", "128",
          "--n-experts", "2", "--steps", "1"], tmp_path, "moe")
     for rank, (rc, result, err) in enumerate(runs):
-        assert rc != 0 and result is None
-        assert "--n-experts 2 on 2 ranks" in err and "item 5" in err
+        assert rc == 0, err
+        assert result["n_devices"] == 2 and np.isfinite(result["loss"])
         assert markers[rank] == f"TPU_BOOTSTRAP_OK rank={rank} world=2\n"
+    assert runs[0][1]["loss"] == runs[1][1]["loss"]
 
 
-@pytest.mark.parametrize("flags", [["--tp", "2"], ["--tp", "2",
-                                                   "--distributed"]])
-def test_tp_is_still_refused(flags):
-    with pytest.raises(NotImplementedError, match="--tp 2: not ported yet"):
-        train_cli.main(["--model", "transformer", "--device", "cpu", *flags])
+@pytest.mark.parametrize("flags", [["--tp", "2"],
+                                   ["--ep", "2", "--n-experts", "4"]],
+                         ids=["tp2", "ep2"])
+def test_sharded_cli_checkpoints_per_shard_and_resumes(tmp_path, flags):
+    """Under a tp or ep axis each shard's rank (dp index 0) writes
+    ``tp_<t>_ep_<e>/step_<N>``; a resume restores every shard at the
+    oldest newest step and reaches the loss of a straight run."""
+    argv = [*CLI_FLAGS[:-2], *flags]
+    straight_runs, _ = _cli_world([*argv, "--steps", "3"], tmp_path,
+                                  "straight")
+    ckpt = tmp_path / "ckpt"
+    first, _ = _cli_world([*argv, "--steps", "2", "--checkpoint-dir",
+                           str(ckpt), "--checkpoint-every", "1"],
+                          tmp_path, "first")
+    for rc, _, err in first + straight_runs:
+        assert rc == 0, err
+    dirs = ["tp_0_ep_0", "tp_1_ep_0"] if "--tp" in flags else \
+        ["tp_0_ep_0", "tp_0_ep_1"]
+    assert sorted(os.listdir(ckpt)) == dirs
+    for d in dirs:
+        assert sorted(os.listdir(ckpt / d)) == ["step_1", "step_2"]
+    # One shard a step behind: the world resumes at the older step.
+    checkpointing.quarantine(str(ckpt / dirs[1]), 2)
+    resumed, _ = _cli_world([*argv, "--steps", "3", "--checkpoint-dir",
+                             str(ckpt)], tmp_path, "resumed")
+    for (rc, result, err), (_, ref, _) in zip(resumed, straight_runs):
+        assert rc == 0, err
+        assert result["start_step"] == 1 and result["steps_run"] == 2
+        assert result["loss"] == ref["loss"]
 
 
 def test_sp_on_one_rank_fails_as_jax_s_plan_does():

@@ -75,9 +75,8 @@ def test_cache_key_equals_jax_s(case):
 
 
 def test_cache_key_of_a_config_equals_jax_s_with_its_overlap_field():
-    """JAX's TransformerConfig has ``overlap`` (tensor-parallel serving),
-    the port's does not: the port's key holds it at JAX's default
-    (``--overlap auto``)."""
+    """Both packages' TransformerConfig have ``overlap`` at JAX's default
+    (``--overlap auto``), so the keys of one config agree."""
     jcfg, tcfg = jtf.TransformerConfig(**SHAPE), ttf.TransformerConfig(**SHAPE)
     assert dataclasses.asdict(jcfg) == {**dataclasses.asdict(tcfg),
                                         "overlap": "auto"}

@@ -16,6 +16,11 @@ scenario on meshes of ``train_cli.build_mesh`` and writes
           and batches, written by the test) on the mesh of its sp: the
           port's train step, a step per batch; the losses, the final
           weights and, for the AdamW models, the moments
+  tp_train  every case of ``<dir>/tp_in.pkl`` on the mesh of its sp, tp
+          and ep: one tensor- or expert-parallel step; the loss and the
+          merged gradients at JAX's weights
+  overlap the ring collective matmuls over a "tp" mesh of the world,
+          uni- and bidirectional, forward and gradients
 
 Imports torch and the port only: the tests import this module for its
 inputs and compare against the JAX package themselves.
@@ -270,6 +275,129 @@ def _pipeline(world, workdir):
     return out
 
 
+# -- tensor- and expert-parallel steps (test_torch_tp_train.py, _moe_ep.py) ---
+
+def _tp_train(world, workdir):
+    """Every case of ``<dir>/tp_in.pkl`` (JAX's initial weights and one
+    global batch, written by the test) on ``build_mesh(world, sp, tp,
+    ep)``: one step of the port's train step from those weights; the
+    loss and the whole model's gradients at the initial weights (merged
+    from every rank's shards), JAX-layout."""
+    from container_engine_accelerators_tpu_torch.models import (
+        bert,
+        train_cli,
+        transformer,
+        weights,
+    )
+    from container_engine_accelerators_tpu_torch.parallel import (
+        tensor_parallel,
+    )
+
+    with open(os.path.join(workdir, "tp_in.pkl"), "rb") as f:
+        cases = pickle.load(f)
+    out = {}
+    for name, case in cases.items():
+        mesh = train_cli.build_mesh(world, case["sp"], case["tp"],
+                                    case["ep"], device_type="cpu")
+        sharded = case["tp"] > 1 or case["ep"] > 1
+        if case["model"] == "bert":
+            cfg = bert.BertConfig(**case["cfg"])
+            model = weights.load_jax_tree(bert.Bert(cfg, "cpu"),
+                                          case["params"])
+            init, step = bert.make_train_step(cfg, device="cpu", mesh=mesh)
+        else:
+            cfg = transformer.TransformerConfig(**case["cfg"])
+            model = weights.params_from_jax(case["params"], cfg,
+                                            device="cpu")
+            init, step = transformer.make_train_step(
+                cfg, device="cpu", mesh=mesh, overlap=case["overlap"])
+        state = init(model=model)
+        state, loss = step(state, case["batch"])
+        if sharded:
+            axes = tensor_parallel.Axes.of_mesh(mesh)
+            grads = (weights.bert_tp_to_jax if case["model"] == "bert"
+                     else weights.tp_to_jax)(list(state[0]), axes, "grads")
+        elif case["model"] == "bert":
+            grads = weights.jax_tree(state[0], "grads")
+        else:
+            grads = weights.grads_to_jax(state[0])
+        out[name] = {"loss": float(loss), "grads": grads}
+    return out
+
+
+# -- the ring collective matmuls (tests/test_torch_overlap.py) -----------------
+
+def overlap_inputs():
+    """x (2, 16, 24) and two weights for the gathering ring, xr (2, 16,
+    32) and wr (32, 8) for the scattering one, f32."""
+    rng = np.random.default_rng(21)
+
+    def normal(*shape):
+        return rng.standard_normal(shape, dtype=np.float32)
+    return (normal(2, 16, 24), normal(24, 8), normal(24, 12),
+            normal(2, 16, 32), normal(32, 8))
+
+
+def _overlap_run(transport, held, n):
+    """Both rings over ``transport`` (ranks ``held`` of n), forward and
+    backward with fixed cotangents, uni- and bidirectional: per
+    direction a dict of per-rank numpy results (lists over ``held``)."""
+    import torch
+
+    from container_engine_accelerators_tpu_torch.parallel import overlap
+
+    x, w1, w2, xr, wr = (torch.as_tensor(a) for a in overlap_inputs())
+    out = {}
+    for bidir in (False, True):
+        xs = [c.clone().requires_grad_() for c in x.chunk(n, dim=-2)]
+        w1s = [c.clone().requires_grad_() for c in w1.chunk(n, dim=-1)]
+        w2s = [c.clone().requires_grad_() for c in w2.chunk(n, dim=-1)]
+        ag = overlap.allgather_matmul(
+            [xs[r] for r in held], [(w1s[r], w2s[r]) for r in held],
+            transport, bidirectional=bidir)
+        xrs = [c.clone().requires_grad_() for c in xr.chunk(n, dim=-1)]
+        wrs = [c.clone().requires_grad_() for c in wr.chunk(n, dim=0)]
+        rs = overlap.matmul_reducescatter(
+            [xrs[r] for r in held], [wrs[r] for r in held], transport,
+            bidirectional=bidir)
+        loss = sum((a.square().sum() + 2 * b.sum()) for a, b in ag) + \
+            sum((o * o).sum() for o in rs)
+        loss.backward()
+        res = {"ag0": [a.detach().numpy() for a, _ in ag],
+               "ag1": [b.detach().numpy() for _, b in ag],
+               "rs": [o.detach().numpy() for o in rs]}
+        for name, group in (("dx", xs), ("dw1", w1s), ("dw2", w2s),
+                            ("dxr", xrs), ("dwr", wrs)):
+            res[name] = [group[r].grad.numpy() for r in held]
+        out[bidir] = res
+    return out
+
+
+def overlap_in_process(n):
+    """Every rank of the rings in this process (``InProcess``)."""
+    from container_engine_accelerators_tpu_torch.parallel.ring_attention \
+        import InProcess
+
+    return _overlap_run(InProcess(n), list(range(n)), n)
+
+
+def _overlap(world):
+    """This rank's results of the rings over P2P on a "tp" mesh of the
+    world (each result its own, not a list)."""
+    import torch.distributed as dist
+
+    from container_engine_accelerators_tpu_torch.parallel import mesh as pm
+    from container_engine_accelerators_tpu_torch.parallel import (
+        ring_attention,
+    )
+
+    mesh = pm.make_mesh(pm.plan_mesh(world, {"tp": world}), "cpu")
+    ring = ring_attention.ring_of(mesh, "tp")
+    res = _overlap_run(ring_attention.P2P(ring), [dist.get_rank()], world)
+    return {bidir: {k: v[0] for k, v in r.items()}
+            for bidir, r in res.items()}
+
+
 # -- train_cli worlds through the env contract -------------------------------
 
 def free_port():
@@ -336,6 +464,10 @@ def main(argv):
             out = _train(world, workdir)
         elif scenario == "pipeline":
             out = _pipeline(world, workdir)
+        elif scenario == "overlap":
+            out = _overlap(world)
+        elif scenario == "tp_train":
+            out = _tp_train(world, workdir)
         else:
             raise ValueError(f"unknown scenario {scenario!r}")
     finally:
