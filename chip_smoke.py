@@ -108,7 +108,13 @@ a wholly-future shard among them, held to its plain version, each step
 timed beside the whole sequence), train_dist (``train_cli --distributed``
 as a world of one over NCCL through the env contract: the bootstrap
 marker, ``n_devices`` 1, every step's loss equal to the same run without
-``--distributed``), compile_cache (two fresh processes in turn on one
+``--distributed``), serve_tp (tensor-parallel serving at Llama-3-8B's
+widths, 8 layers, tp 8 with every rank in this process: the dense and
+paged engines under ``--warmup=all`` against the unsplit engines on the
+same weights, streams parting only below SERVE_LOGITS_ATOL's margin,
+final logits, ring against off prefill, int8 under tp against unsplit
+int8, layers × tp flash launches a prefill call, every decode step a
+replay), compile_cache (two fresh processes in turn on one
 new ``--compile-cache-dir`` directory (``warmstart/cache.py``), each
 building the three nvcc libraries and launching each Triton stream
 kernel once: the first misses each library and runs nvcc, the second
@@ -469,11 +475,16 @@ TP_LOCAL_CASE = ("tp_local_s4096", 1, 4096, 4096, True, 0, 0, None, 8, 2,
 # in the 512 and 2048 buckets. "main" marks the shape the kernels line
 # reports. A list of q_base (one per batch row) is passed as the device
 # ``base`` tensor of [q_base, k_base, kv_len] rows, as the verify does.
+# serve_tp's prefill at tp 8 (Llama-3-8B's 32/8 heads over 8 ranks: 4 query
+# heads, 1 key/value head a rank): a 512-token segment.
+TP_SERVE_CASE = ("tp8_serve_sq512", 1, 512, 512, True, 0, 0, None, 4, 1,
+                 128, "bfloat16")
 KERNEL_CASES = [
     ("causal_512_b2", 2, 512, 512, True, 0, 0, None, 32, 8, 128, "bfloat16"),
     ("causal_2048", 1, 2048, 2048, True, 0, 0, None, 32, 8, 128, "bfloat16"),
     PIPELINE_CASE,
     TP_LOCAL_CASE,
+    TP_SERVE_CASE,
     ("causal_8192", 1, 8192, 8192, True, 0, 0, None, 32, 8, 128, "bfloat16"),
     # Past 8192 keys the JAX package switches to its streaming forward.
     ("causal_16384", 1, 16384, 16384, True, 0, 0, None, 32, 8, 128,
@@ -814,6 +825,18 @@ INT8_CASES = [
     ("bench_m1024_w1", 1024, 2048, 8192),
     ("bench_m1024_w2", 1024, 8192, 2048),
 ]
+# serve_tp's shard shapes at tp 8: the column shards (wq 4096 × 512, w1
+# 4096 × 1792) in bf16 and the row shards (wo 512 × 4096, w2 1792 × 4096)
+# with the f32 epilogue of their partial sums, at the engines' decode
+# batch and a 512-token prefill.
+TP_INT8_CASES = [
+    ("tp8_m8_wq", 8, 4096, 512), ("tp8_m8_w1", 8, 4096, 1792),
+    ("tp8_m512_w1", 512, 4096, 1792),
+    ("tp8_m8_wo_f32", 8, 512, 4096, "float32"),
+    ("tp8_m8_w2_f32", 8, 1792, 4096, "float32"),
+    ("tp8_m512_w2_f32", 512, 1792, 4096, "float32"),
+]
+INT8_CASES += TP_INT8_CASES
 INT8_MAIN_CASE = "m8_w1"
 # Rows whose back-to-back time may read the wrapper's host time: also
 # timed as a CUDA graph of GRAPH_LAUNCHES launches, and held bit-equal to
@@ -856,8 +879,10 @@ def run_int8_case(case, torch, int8_matmul, q8, gen, serving_graphs,
     holds, beside the plain version, the unfused PyTorch composition
     (``library_ms``), cuBLAS on a bf16 weight of the same shape
     (``bf16_ms``) and ``torch._weight_int8pack_mm`` where this torch runs
-    it on CUDA."""
-    name, m, k, n = case
+    it on CUDA. A fifth field "float32" asks for the f32 epilogue (a row
+    shard's partial sums), held to the plain version's f32 output."""
+    name, m, k, n, *out_dtype = case
+    out_dt = getattr(torch, out_dtype[0]) if out_dtype else None
     dt = torch.bfloat16
     x = torch.randn(m, k, generator=gen, device="cuda").to(dt)
     copies = max(1, min(GRAPH_LAUNCHES, math.ceil(COLD_BYTES / (k * n))))
@@ -868,21 +893,23 @@ def run_int8_case(case, torch, int8_matmul, q8, gen, serving_graphs,
         qts.append(qw["q"].T.contiguous())
         scales.append(qw["scale"])
         del qw
-    got = int8_matmul.int8_mm(x, qts[0], scales[0])
+    got = int8_matmul.int8_mm(x, qts[0], scales[0], out_dtype=out_dt)
     torch.cuda.synchronize()
-    ref = int8_matmul.int8_mm_reference(x, qts[0], scales[0])
+    ref = int8_matmul.int8_mm_reference(x, qts[0], scales[0],
+                                        out_dtype=out_dt)
     tol = INT8_TOL["bfloat16"]
     err = (got.float() - ref.float()).abs()
     excess = (err - tol["atol"] - tol["rtol"] * ref.float().abs()).max()
     row = {"phase": "kernel", "case": f"int8_mm_{name}", "kernel": "int8_mm",
            "shape": {"M": m, "K": k, "N": n}, "dtype": "bfloat16",
+           "out_dtype": "float32" if out_dt is not None else "bfloat16",
            "weight_copies": copies, "max_abs_err": err.max().item(),
            "tol": tol}
     if not torch.isfinite(got.float()).all() or excess.item() > 0:
         emit(row)
         fail(f"int8 case {name} disagrees with int8_mm_reference")
-    kernel = _cycling(lambda i: int8_matmul.int8_mm(x, qts[i], scales[i]),
-                      copies)
+    kernel = _cycling(lambda i: int8_matmul.int8_mm(x, qts[i], scales[i],
+                                                    out_dtype=out_dt), copies)
     row["ms"] = time_ms(kernel, torch)
     row["host_us"] = host_us(kernel, torch)
     if name in INT8_GRAPH_CASES:
@@ -899,12 +926,15 @@ def run_int8_case(case, torch, int8_matmul, q8, gen, serving_graphs,
                  f"launch")
         row["graph_ms"] = graph_ms(kernel, torch, attention, serving_graphs)
     row["plain_ms"] = time_ms(
-        lambda: int8_matmul.int8_mm_reference(x, qts[0], scales[0]), torch,
+        lambda: int8_matmul.int8_mm_reference(x, qts[0], scales[0],
+                                              out_dtype=out_dt), torch,
         budget_ms=100.0)
-    row["bound_ms"], row["bound_by"] = int8_bound(m, k, n)
+    row["bound_ms"], row["bound_by"] = int8_bound(
+        m, k, n, y_bytes=2 if out_dt is None else 4)
     row["share_of_bound"] = row["bound_ms"] / row["ms"]
     row["library_ms"] = time_ms(_cycling(
-        lambda i: ((x @ qts[i].to(dt).T) * scales[i]).to(dt), copies), torch)
+        lambda i: ((x @ qts[i].to(dt).T) * scales[i]).to(out_dt or dt),
+        copies), torch)
     try:
         scales_bf16 = [sc.reshape(-1).to(dt) for sc in scales]
         row["int8pack_ms"] = time_ms(_cycling(
@@ -1342,6 +1372,282 @@ def serve_paged(torch, np, tf, serve_cli, attention, card, model):
         "max_memory_allocated_gb": peak_gb,
     })
     return launches
+
+
+# -- serve_tp: tensor-parallel serving, every rank in one process -------
+
+# Llama-3-8B's widths at the demo manifest's --tp=8 (4 query and 1 key/value
+# heads, d_ff 1792 a rank), 8 of its 32 layers, every rank held in this
+# process (tensor_parallel.Axes.in_process): the shards' arithmetic and
+# kernels at their shapes on one card. The NCCL transport is
+# parallel/world_smoke.py's serve_tp, across cards.
+SERVE_TP = 8
+SERVE_TP_LAYERS = 8
+
+
+def _serve_tp_traffic(np, vocab):
+    """serve_paged's prompts (same seed): a 1024-token prefix, six prompts
+    sharing it, a 3000-token prompt."""
+    rng = np.random.default_rng(5)
+    prefix = rng.integers(0, vocab, 1024).tolist()
+    prompts = {"prefix_1024": prefix}
+    for i in range(6):
+        prompts[f"shared_{i}"] = prefix + rng.integers(0, vocab, 64).tolist()
+    prompts["long_3000"] = rng.integers(0, vocab, 3000).tolist()
+    max_new = {name: 32 for name in prompts}
+    max_new["prefix_1024"] = 8
+    return prompts, max_new
+
+
+def _serve_tp_engine(torch, serve_cli, attention, model, kv_cache, prompts,
+                     max_new, warmup_mode, keep_logits=False):
+    """``kv_cache``'s engine (serve_paged's settings) on ``model`` behind
+    the HTTP server under ``warmup_mode``, serve_paged's traffic order.
+    Returns (streams, the engine's readings, the kept final-segment
+    logits)."""
+    kw = dict(kv_block_size=16) if kv_cache == "paged" else {}
+    engine = serve_cli.ContinuousEngine(
+        model, max_slots=8, chunk=32, prefill_chunk=512, kv_cache=kv_cache,
+        **kw)
+    finals = []
+    if keep_logits and kv_cache == "paged":
+        paged_prefill = engine._paged_prefill
+
+        def prefill_keeping_logits(*args, want_logits=False, **kwargs):
+            if not want_logits:
+                return paged_prefill(*args, want_logits=False, **kwargs)
+            tok, logits = paged_prefill(*args, want_logits=True,
+                                        return_logits=True, **kwargs)
+            finals.append((args[2], args[3], args[6], logits))
+            return tok
+
+        engine._paged_prefill = prefill_keeping_logits
+    results = {}
+    server, state = serve_cli.start_server(engine, port=0, host="127.0.0.1",
+                                           warmup_mode=warmup_mode)
+    try:
+        t0 = time.perf_counter()
+        serve_cli.wait_ready(state, timeout=600)
+        ready_s = time.perf_counter() - t0
+        at_ready = {"launches": attention.flash_fwd_launches,
+                    "n_prefills": engine.stats()["n_prefills"],
+                    "steps_done": engine.stats()["steps_done"],
+                    **engine.graph_stats()}
+        port = server.server_address[1]
+
+        def post(name):
+            results[name] = serve_cli.post_generate(
+                port, [prompts[name]], max_new[name])["tokens"][0]
+
+        post("prefix_1024")
+        with concurrent.futures.ThreadPoolExecutor(7) as pool:
+            futures = [pool.submit(post, f"shared_{i}") for i in range(6)]
+            chunks = engine.stats()["n_chunks"]
+            deadline = time.monotonic() + 600
+            while engine.stats()["n_chunks"] == chunks and \
+                    time.monotonic() < deadline:
+                time.sleep(0.002)
+            futures.append(pool.submit(post, "long_3000"))
+            for f in futures:
+                f.result(timeout=600)
+    finally:
+        server.shutdown()
+        server.server_close()
+    stats = engine.stats()
+    readings = {
+        "ready_s": ready_s, "at_ready": at_ready,
+        "launches": attention.flash_fwd_launches,
+        "n_prefills": stats["n_prefills"], "n_chunks": stats["n_chunks"],
+        "steps_done": stats["steps_done"],
+        "ttft_s": [{"prompt_len": n, "ttft_s": t} for n, t in engine.ttft_s],
+        "chunk_device_ms_per_step": engine.t_chunk_device_s
+        / max(stats["steps_done"], 1) * 1e3,
+        "decode_tokens_per_s": stats["occupied_steps"]
+        / max(stats["t_chunk_s"], 1e-9),
+        **engine.graph_stats(),
+    }
+    engine.shutdown()
+    return results, readings, finals
+
+
+def _margin_partings(torch, tf, ref, prompts, got, want, phase):
+    """Where ``got``'s streams part from the reference's, each held to
+    serve_spec's rule: only where the reference's top-2 margin is under
+    SERVE_LOGITS_ATOL. Returns the partings."""
+    names = list(prompts)
+    rows = _divergences(torch, tf, ref, [prompts[n] for n in names],
+                        [got[n] for n in names], [want[n] for n in names])
+    for r in rows:
+        r["request"] = names[r["request"]]
+    bad = [r for r in rows if r["want_margin"] >= SERVE_LOGITS_ATOL]
+    if bad:
+        emit({"phase": f"{phase}_partings", "partings": rows})
+        fail(f"{phase}: a stream parts from the unsplit engine's where its "
+             f"top-2 margin is {SERVE_LOGITS_ATOL} or more: {bad}")
+    return rows
+
+
+def _prefill_logits(torch, tf, model, prompt, overlap=None):
+    with torch.inference_mode():
+        logits, _ = tf.prefill(model.model, torch.as_tensor(
+            [prompt], device=model.device), return_logits=True,
+            overlap=overlap)
+    return logits[0].float()
+
+
+def _logit_row(torch, got, want):
+    """(max |got - want|, want's top-2 margin, the argmaxes agree)."""
+    top2 = want.topk(2).values
+    return {"max_abs_err": (got - want).abs().max().item(),
+            "want_margin": (top2[0] - top2[1]).item(),
+            "argmax_equal": int(got.argmax()) == int(want.argmax())}
+
+
+def _hold_logit_row(row, phase, what):
+    if row["max_abs_err"] > SERVE_LOGITS_ATOL or (
+            not row["argmax_equal"]
+            and row["want_margin"] >= SERVE_LOGITS_ATOL):
+        emit({"phase": phase, what: row})
+        fail(f"{phase}: {what} logits outside SERVE_LOGITS_ATOL "
+             f"{SERVE_LOGITS_ATOL} or a decided argmax differs")
+
+
+def serve_tp_phase(torch, np, tf, serve_cli, attention, int8_matmul, card):
+    """Tensor-parallel serving at Llama-3-8B's full width, tp 8 (the demo
+    manifest's ``--tp=8``: 4 query and 1 key/value heads, d_ff 1792 a
+    rank), 8 of its 32 layers in bf16, every rank's shard in this process
+    (``serve_cli.Model(tp=8)`` over ``tensor_parallel.Axes.in_process``):
+    the dense and the paged engine under ``--warmup=all`` with
+    serve_paged's traffic, against the unsplit engines on the same
+    weights and depth. Holds: greedy streams equal wherever the unsplit
+    top-2 margin is SERVE_LOGITS_ATOL or more (every parting printed),
+    the paged engine's final-segment logits within SERVE_LOGITS_ATOL of
+    the unsplit forward, the ring prefill against the off prefill (a
+    2048-token prompt, divisible by 8) and both against the unsplit
+    prefill, int8 under tp against unsplit int8 (``Model.generate``), the
+    flash kernel launched layers × tp times a prefill call, and every
+    decode step a replay (one graph holds the 8 ranks' steps). TTFT and
+    ms a decode step are in-process figures (8 ranks' kernels on one
+    card), no cross-card number. Returns (flash launches, int8 launches)
+    of the tp paths."""
+    cfg = dataclasses.replace(tf.TransformerConfig.llama3_8b(),
+                              n_layers=SERVE_TP_LAYERS)
+    per_call = cfg.n_layers * SERVE_TP
+    whole = tf.init_params(cfg, device="cuda", seed=0)
+    ref = serve_cli.Model(cfg, weights=whole)
+    model = serve_cli.Model(cfg, weights=whole, tp=SERVE_TP)
+    shard = model.model.shards[0].layers[0]
+    shapes = {"wq": tuple(shard.attn.wq.shape),
+              "wk": tuple(shard.attn.wk.shape),
+              "w1": tuple(shard.ffn.w1.shape),
+              "w2": tuple(shard.ffn.w2.shape),
+              "kv_heads_per_rank": cfg.n_kv_heads // SERVE_TP}
+    prompts, max_new = _serve_tp_traffic(np, cfg.vocab_size)
+
+    # The main path: counts at zero, the tp engines' warm grids and
+    # traffic, counts read.
+    attention.flash_fwd_launches = 0
+    attention.flash_dq_launches = attention.flash_dkv_launches = 0
+    runs, finals = {}, None
+    for kv in ("dense", "paged"):
+        got, readings, kept = _serve_tp_engine(
+            torch, serve_cli, attention, model, kv, prompts, max_new, "all",
+            keep_logits=True)
+        runs[kv] = (got, readings)
+        if kv == "paged":
+            finals = kept
+        _free(torch)
+    flash_launches = attention.flash_fwd_launches
+    if attention.flash_dq_launches or attention.flash_dkv_launches:
+        fail("serve_tp: a backward kernel launched while serving")
+    for kv, (got, r) in runs.items():
+        for name, prompt in prompts.items():
+            _check_response(f"serve_tp {kv} {name}", {"tokens": [got[name]]},
+                            prompt, max_new[name], cfg.vocab_size)
+        served = r["n_prefills"] - r["at_ready"]["n_prefills"]
+        if r["launches"] - r["at_ready"]["launches"] != per_call * served:
+            fail(f"serve_tp {kv}: {r['launches'] - r['at_ready']['launches']}"
+                 f" flash launches for {served} prefill calls, want "
+                 f"{per_call} (layers × tp) each")
+        if r["eager_chunks_on_cuda"] or \
+                r["graph_captures"] != r["at_ready"]["graph_captures"] or \
+                r["graph_replays"] - r["at_ready"]["graph_replays"] != \
+                r["steps_done"] - r["at_ready"]["steps_done"]:
+            fail(f"serve_tp {kv}: a decode step ran eagerly or a graph was "
+                 f"captured during the traffic: {r}")
+
+    # The reference: the unsplit engines on the same weights and depth.
+    partings = {}
+    for kv in ("dense", "paged"):
+        want, _, _ = _serve_tp_engine(torch, serve_cli, attention, ref, kv,
+                                      prompts, max_new, "lazy")
+        partings[kv] = _margin_partings(torch, tf, ref, prompts,
+                                        runs[kv][0], want, f"serve_tp_{kv}")
+        _free(torch)
+    logit_rows = _hold_final_logits(torch, tf, ref, "serve_tp", prompts,
+                                    {n: {"tokens": [s]} for n, s in
+                                     runs["paged"][0].items()}, finals)
+
+    # The ring prefill against the off one and both against the unsplit.
+    rng = np.random.default_rng(11)
+    p2048 = rng.integers(0, cfg.vocab_size, 2048).tolist()
+    unsplit = _prefill_logits(torch, tf, ref, p2048)
+    ring = _prefill_logits(torch, tf, model, p2048, overlap="ring")
+    off = _prefill_logits(torch, tf, model, p2048, overlap="off")
+    prefill_rows = {"ring_vs_off": _logit_row(torch, ring, off),
+                    "ring_vs_unsplit": _logit_row(torch, ring, unsplit),
+                    "off_vs_unsplit": _logit_row(torch, off, unsplit)}
+    for what, row in prefill_rows.items():
+        _hold_logit_row(row, "serve_tp_prefill", what)
+    del model, ref
+    _free(torch)
+
+    # int8 under tp against unsplit int8 on the same weights (the tp
+    # shards quantize first: the unsplit quantization is in place).
+    int8_matmul.int8_mm_launches = int8_matmul.int8_mm_captured = 0
+    tp8 = serve_cli.Model(cfg, weights=whole, tp=SERVE_TP, quantize="int8")
+    int8_prompts = {"p512": p2048[:512], "p1500": p2048[:1500]}
+    int8_got = {n: tp8.generate([p], 16)[0] for n, p in int8_prompts.items()}
+    graphs = tp8.decode_graphs.graphs
+    per_step = 7 * cfg.n_layers * SERVE_TP
+    int8_launches = int8_matmul.int8_mm_launches + per_step * graphs.replays
+    if int8_matmul.int8_mm_captured != per_step * graphs.captures or \
+            not int8_matmul.int8_mm_launches:
+        fail(f"serve_tp int8: {int8_matmul.int8_mm_captured} products "
+             f"captured in {graphs.captures} graphs (want {per_step} each), "
+             f"{int8_matmul.int8_mm_launches} eager")
+    int8_tp_logits = _prefill_logits(torch, tf, tp8, int8_prompts["p512"])
+    ref8 = serve_cli.Model(cfg, weights=whole, quantize="int8")
+    int8_want = {n: ref8.generate([p], 16)[0]
+                 for n, p in int8_prompts.items()}
+    int8_partings = _margin_partings(torch, tf, ref8, int8_prompts,
+                                     int8_got, int8_want, "serve_tp_int8")
+    int8_row = _logit_row(torch, int8_tp_logits, _prefill_logits(
+        torch, tf, ref8, int8_prompts["p512"]))
+    _hold_logit_row(int8_row, "serve_tp_int8", "prefill")
+    del tp8, ref8, whole
+    _free(torch)
+
+    def figures(r):
+        return {k: r[k] for k in (
+            "ready_s", "n_prefills", "n_chunks", "steps_done", "ttft_s",
+            "chunk_device_ms_per_step", "decode_tokens_per_s",
+            "graph_captures", "graph_replays", "graph_pool_bytes")}
+
+    emit({"phase": "serve_tp", **card, "model": "llama3-8b",
+          "n_layers": cfg.n_layers, "tp": SERVE_TP, "shard_shapes": shapes,
+          "in_process": True,
+          "note": "every rank in one process on one card: TTFT and decode "
+                  "ms are in-process figures, not cross-card ones; one "
+                  "graph holds all 8 ranks' steps",
+          "dense": figures(runs["dense"][1]),
+          "paged": figures(runs["paged"][1]),
+          "partings": partings, "final_logits": logit_rows,
+          "prefill_logits": prefill_rows, "int8_partings": int8_partings,
+          "int8_prefill_logits": int8_row, "tol": SERVE_LOGITS_ATOL,
+          "flash_fwd_launches": flash_launches,
+          "int8_mm_launches": int8_launches})
+    return flash_launches, int8_launches
 
 
 # The attrs of JAX's warmup_done record (warmstart/warmup.py emit_done).
@@ -5767,6 +6073,10 @@ def main():
     ep_launches = expert_parallel_phase(torch, np, tf, attention, card)
     _free(torch)
     int8_ring_launches = int8_ring_phase(torch, int8_matmul, q8, card)
+    _free(torch)
+    serve_tp_launches, serve_tp_int8_launches = serve_tp_phase(
+        torch, np, tf, serve_cli, attention, int8_matmul, card)
+    _free(torch)
     train_dist_launches = train_dist_phase(card)
     compile_cache_phase(card)
     train_cli_cache_phase(card)
@@ -5791,6 +6101,7 @@ def main():
                     "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))}
     int8_launches["device_bench"] = bench_launches["int8_mm"]
     int8_launches["int8_ring"] = int8_ring_launches
+    int8_launches["serve_tp_int8"] = serve_tp_int8_launches
 
     def by_path(i):
         return {path: counts[i] for path, counts in training.items()}
@@ -5860,7 +6171,7 @@ def main():
             "replaces": replaces + "136",
             "launches": serve_launches + paged_launches + spec_launches
             + dense_launches + robust_launches + obs_launches
-            + obs_int8_launches + handoff_launches
+            + obs_int8_launches + handoff_launches + serve_tp_launches
             + sum(by_path(0).values()),
             "launches_by_path": {"serve": serve_launches,
                                  "serve_paged": paged_launches,
@@ -5870,6 +6181,7 @@ def main():
                                  "serve_obs": obs_launches,
                                  "serve_obs_int8": obs_int8_launches,
                                  "serve_handoff": handoff_launches,
+                                 "serve_tp": serve_tp_launches,
                                  **by_path(0)},
             "max_abs_err": main_row["max_abs_err_out"],
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
@@ -5883,6 +6195,8 @@ def main():
             "long_context": long_shape("fwd", long_fwd["max_abs_err_out"]),
             "pipeline": pp_shape("fwd", pp_fwd["max_abs_err_out"]),
             "tp_local": tp_shape("fwd", tp_fwd["max_abs_err_out"]),
+            "tp_serve": case_shape(TP_SERVE_CASE[0], "fwd",
+                                   rows[TP_SERVE_CASE[0]]["max_abs_err_out"]),
         },
         {
             "name": "flash_bwd_dq", "route": "cuda",
@@ -5942,6 +6256,10 @@ def main():
             "graph_ms": int8_row["graph_ms"],
             "host_us": int8_row["host_us"],
             "shape": int8_row["shape"],
+            "tp_serve": {c[0]: {k: int8_rows[c[0]][k] for k in (
+                "shape", "out_dtype", "max_abs_err", "ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms", "bf16_ms")}
+                for c in TP_INT8_CASES},
         },
         stream_entry("stream_triad", stream_rows["stream_triad"], "234"),
         stream_entry("stream_read", stream_rows["stream_read"], "291"),

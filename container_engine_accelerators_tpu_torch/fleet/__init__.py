@@ -21,8 +21,10 @@ and the hermetic tier on the port's engines (fake device seams, the CPU):
   * :mod:`.journeydrill` — the request-journey drill: every retired
     request stitches into one journey (``obs/journey.py``), hedges and
     handoffs carry their legs, a slow request's TTFT exemplar resolves
-    to the stage to blame.
+    to the stage to blame;
+  * :mod:`.linksim` — the lockstep engine link's multi-rank harness and
+    its chaos drill (byte identity, follower kill with the fleet
+    reactor, corrupt broadcast, leader stall).
 
-Not ported yet (ROADMAP.md): ``daysim``, ``linksim`` and
-``flightdrill``.
+Not ported yet (ROADMAP.md): ``daysim`` and ``flightdrill``.
 """

@@ -169,9 +169,8 @@ def make_fake_engine(alive=None, chunk_sleep_s=0.0, max_slots=4,
     computes); "draft" injects :class:`FakeDraftProposer` unless
     ``spec_proposer`` overrides it.
 
-    ``start_loop=False`` leaves the engine loop unstarted (JAX's
-    multi-rank link harness drives its follower engines so; the port's
-    has no link yet).
+    ``start_loop=False`` leaves the engine loop unstarted (the link
+    harness, ``fleet/linksim.py``, drives its follower engines so).
 
     ``prefill_sleep_s`` charges a simulated device cost of that many
     seconds PER PREFILLED TOKEN (cached prefix tokens skip prefill, so

@@ -32,12 +32,17 @@ from torch import nn
 DENSE_WEIGHT_KEYS = ("wq", "wk", "wv", "wo", "w1", "w3", "w2")
 
 
-def quantize_weight(w, axis=-2):
+def quantize_weight(w, axis=-2, amax=None):
     """Symmetric per-output-channel int8: max|w| over the contraction
     axis → scale, round-to-nearest quantize. The scale is computed and
     rounded in w's dtype (bf16 for a bf16 weight), clamped to 1e-8, and
-    only then widened to f32, in JAX's order."""
-    scale = w.abs().amax(dim=axis, keepdim=True) / 127.0
+    only then widened to f32, in JAX's order. ``amax`` (w's dtype, keepdim
+    over ``axis``) replaces w's own maxima: a row shard of a
+    tensor-parallel weight takes the whole weight's
+    (``models/tp_serving.quantize_shards``)."""
+    if amax is None:
+        amax = w.abs().amax(dim=axis, keepdim=True)
+    scale = amax / 127.0
     scale = scale.clamp_min(1e-8)
     # A copy in f32 (``w.float()`` of an f32 weight would be w itself),
     # then divided, rounded and clipped in place.

@@ -131,13 +131,25 @@ port replicas: the port's copies of the router and the autoscaler
 (``fleet/``) and its hermetic drills (``fleet/sim.py``,
 ``fleet/disagg.py``, ``faults/storm.py``).
 
-Not ported yet (ROADMAP.md): the multi-host link and tensor-parallel
-serving (``--tp``, ``--overlap``; the ring collective matmuls it would run
-are ``parallel/overlap.py``, which tensor-parallel training runs). The
-fleet reactor (``faults/reactor.FleetReactor`` of the
-JAX package and its CLI) is jax-free control plane: it cordons nodes and
-evicts gangs through the Kubernetes API, touches no engine, and runs
-unchanged beside port replicas. A model with
+Tensor-parallel serving, the JAX server's ``--tp``: the port runs one
+process per GPU, so ``--tp N > 1`` is a world of N processes joined
+through the worker-identity env contract (``join_tp_world``; ``--tp``
+must equal the world's size). Every rank holds its Megatron shards
+(``models/tp_serving.py``: attention at n_heads/N and n_kv_heads/N heads,
+the caches at the rank's heads, one all-reduce of each row-parallel
+product's f32 partials over NCCL; ``--overlap`` takes the ring collective
+matmuls of ``parallel/overlap.py`` for a prefill where they apply).
+Rank 0 serves HTTP. Under ``--continuous-batching`` its engine announces
+every device call and every page-table mutation over the lockstep
+engine link (``LockstepEngineLink``, a gloo group on the host), and the
+other ranks replay them (``engine_follower_loop``); without it,
+``LockstepModel`` broadcasts each request and ``follower_loop`` replays
+it. ``--link-timeout-s`` bounds every link collective: a rank that
+vanishes gives ``link_wedged`` on the engine's stream, rank 0 fails its
+requests in flight and exits for its supervisor (``_wedge_abort``).
+``--speculate`` falls back to off under ``--tp``, as in JAX; a linked
+engine declines KV handoff. ``fleet/linksim.py`` drives the link's
+faults hermetically. A model with
 experts (``n_experts > 0``, which only training builds: the JAX server
 has no flag that reaches them) is refused by ``Model``, the engines and
 ``--quantize int8``.
@@ -155,6 +167,10 @@ has no flag that reaches them) is refused by ``Model``, the engines and
       --speculate ngram
   python -m container_engine_accelerators_tpu_torch.models.serve_cli \\
       --preset llama3-8b --quantize int8 --continuous-batching
+  # one of 8 processes (LOCAL_RANK 0..7, LOCAL_WORLD_SIZE=8, with
+  # TPU_WORKER_ID and TPU_WORKER_HOSTNAMES set):
+  python -m container_engine_accelerators_tpu_torch.models.serve_cli \\
+      --preset llama3-8b --tp 8 --continuous-batching --link-timeout-s 30
 """
 
 import argparse
@@ -194,6 +210,7 @@ from container_engine_accelerators_tpu_torch.kvcache.manager import (
 )
 from container_engine_accelerators_tpu_torch.models import quantization as q8
 from container_engine_accelerators_tpu_torch.models import serving_graphs
+from container_engine_accelerators_tpu_torch.models import tp_serving
 from container_engine_accelerators_tpu_torch.models import transformer as tf
 from container_engine_accelerators_tpu_torch.obs import alerts as obs_alerts
 from container_engine_accelerators_tpu_torch.obs import (
@@ -206,6 +223,9 @@ from container_engine_accelerators_tpu_torch.obs import metrics as obs_metrics
 from container_engine_accelerators_tpu_torch.obs import ports as obs_ports
 from container_engine_accelerators_tpu_torch.obs import trace as obs_trace
 from container_engine_accelerators_tpu_torch.ops import paged_attention as pa
+from container_engine_accelerators_tpu_torch.parallel import (
+    tensor_parallel as tpar,
+)
 from container_engine_accelerators_tpu_torch.utils import profiling
 from container_engine_accelerators_tpu_torch.warmstart import (
     cache as ws_cache,
@@ -221,6 +241,8 @@ READY_LINE = "tpu-serving ready"
 # Continuous batching: default KV slots (concurrent requests), as in the
 # JAX server.
 MAX_BATCH = 8
+# LockstepModel's shutdown broadcast (a batch of -1 rows).
+_SHUTDOWN = -1
 # --quantize's choices, the JAX server's.
 QUANTIZE_MODES = ("none", "int8")
 # The JAX server's histogram bucket bounds.
@@ -402,19 +424,46 @@ class Model:
     keeps a dense cache per recent batch size (at most
     ``serving_graphs.MAX_CACHED_ROWS`` rows in all) and, on CUDA, their
     decode steps' graphs per (batch, window); ``lock`` serialises the
-    requests that use them."""
+    requests that use them.
+
+    ``tp > 1`` serves Megatron-style tensor-parallel shards
+    (``models/tp_serving.py``, JAX's ``Model(cfg, tp=...)``): over
+    ``axes`` (``tensor_parallel.Axes``: ``Axes.of_mesh`` for this
+    process's rank of a world of one process per GPU; default
+    ``Axes.in_process(tp)``, every rank in this process). Each rank
+    materialises only its own shard (``tp_serving.init_shards``; the
+    merged shards are ``transformer.init_params(cfg, seed)``), or takes
+    its piece of ``weights``; int8 quantizes the shards as the whole
+    weight would be (``tp_serving.quantize_shards``). ``self.model`` is
+    then a ``tp_serving.ShardedModel``, which every serving program
+    takes."""
 
     def __init__(self, cfg, seed=0, device="cuda", weights=None,
-                 quantize="none"):
+                 quantize="none", tp=1, axes=None):
         if quantize not in QUANTIZE_MODES:
             raise ValueError(f"quantize must be one of {QUANTIZE_MODES}, "
                              f"got {quantize!r}")
         refuse_experts(cfg)
         self.cfg = cfg
-        if weights is None:
-            weights = tf.init_params(cfg, device=device, seed=seed)
-        if quantize == "int8":
-            q8.quantize_params(weights)
+        if tp > 1:
+            if axes is None:
+                axes = tpar.Axes.in_process(tp=tp)
+            if axes.tp.size != tp:
+                raise ValueError(f"--tp={tp} needs {tp} devices, have "
+                                 f"{axes.tp.size}")
+            if weights is None:
+                sharded = tp_serving.init_shards(cfg, axes, device=device,
+                                                 seed=seed)
+            else:
+                sharded = tp_serving.split(weights, axes)
+            if quantize == "int8":
+                tp_serving.quantize_shards(sharded)
+            weights = sharded
+        else:
+            if weights is None:
+                weights = tf.init_params(cfg, device=device, seed=seed)
+            if quantize == "int8":
+                q8.quantize_params(weights)
         self.model = weights
         self.device = weights.device
         self.decode_graphs = serving_graphs.DenseDecodeGraphs(weights)
@@ -669,6 +718,889 @@ def speculate_grid(speculate_k, max_seq_len):
 SPECULATE_MODES = ("off", "ngram", "draft")
 
 
+# -- the lockstep engine link --------------------------------------------
+#
+# Tensor-parallel serving runs one process per GPU: rank 0's engine loop
+# decides the schedule and announces every device call (and every page-table
+# mutation of a paged engine) over the link, and the other ranks replay them
+# in broadcast order, so every rank runs the same programs on the same
+# operands and their per-layer collectives line up (the JAX server's
+# multi-host engine link, serve_cli.py:490-1380). The announcements
+# travel over a gloo group on the host (``join_tp_world``), apart from the
+# NCCL group of the per-layer all-reduces, so a follower blocked on the
+# link holds no CUDA stream.
+
+# Engine-link opcodes, the JAX server's.
+_OP_SHUTDOWN = 0
+_OP_PREFILL = 1
+_OP_PREFILL_SEG = 2
+_OP_CHUNK = 3
+_OP_RESET = 4
+_OP_GENERATE = 5
+# Bring-up handshake: the leader's config digest (LinkConfigMismatch on
+# drift).
+_OP_HELLO = 6
+# A paged engine's manager mutations as page-table delta ops, in dispatch
+# order, and its device dispatches.
+_OP_KV_ADMIT = 7
+_OP_KV_ENSURE = 8
+_OP_KV_COW = 9
+_OP_KV_RELEASE = 10
+_OP_KV_FINISH = 11
+_OP_KV_DROP = 12
+_OP_KV_RESET = 13
+_OP_PAGED_PREFILL = 14
+_OP_PAGED_CHUNK = 15
+
+# The bounded op-name enum of the link ops counter's label.
+_OP_NAMES = {
+    _OP_SHUTDOWN: "shutdown", _OP_PREFILL: "prefill",
+    _OP_PREFILL_SEG: "prefill_seg", _OP_CHUNK: "chunk",
+    _OP_RESET: "reset", _OP_GENERATE: "generate", _OP_HELLO: "hello",
+    _OP_KV_ADMIT: "kv_admit", _OP_KV_ENSURE: "kv_ensure",
+    _OP_KV_COW: "kv_cow", _OP_KV_RELEASE: "kv_release",
+    _OP_KV_FINISH: "kv_finish", _OP_KV_DROP: "kv_drop",
+    _OP_KV_RESET: "kv_reset", _OP_PAGED_PREFILL: "paged_prefill",
+    _OP_PAGED_CHUNK: "paged_chunk",
+}
+
+# Header layout: [0] op, [1..7] its args, [8] op_seq (monotone: a dropped
+# broadcast is a visible gap), [9] the payload digest (crc32 over op, args,
+# floats and payload: a corrupted broadcast is a visible mismatch),
+# [10..11] reserved.
+_LINK_HEADER_INTS = 12
+
+# Fault-injection site: one tick per announced op. ``drop`` (never
+# broadcast: followers see a seq gap), ``delay`` (the collective stalls
+# delay_s inside the watchdog window), ``corrupt_payload`` (delivered bytes
+# differ from the digested ones), ``follower_vanish`` (a loopback rank stops
+# consuming). A free no-op when disarmed.
+LINK_FAULT_SITE = "serving.link"
+
+# Wall seconds blocked inside one lockstep collective.
+LINK_WAIT_BUCKETS = (0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0,
+                     5.0, 30.0)
+
+
+class LinkError(RuntimeError):
+    """Base of every lockstep-link failure (typed, so a supervisor tells
+    a link fault from a device failure)."""
+
+
+class LinkWedgedError(LinkError):
+    """A collective did not complete within ``--link-timeout-s`` (or the
+    transport lost a rank): the link already emitted ``link_wedged``."""
+
+
+class LinkDesyncError(LinkError):
+    """The op stream diverged between ranks (sequence gap, digest
+    mismatch, KV replay divergence): the follower aborts before
+    dispatching the divergent op."""
+
+
+class LinkConfigMismatch(LinkError):
+    """Bring-up handshake failure: the follower's engine config digest
+    differs from the leader's."""
+
+
+def link_config_digest(cfg, max_slots, prefill_chunk, chunk,
+                       kv_cache="dense", kv_block_size=0, kv_blocks=0):
+    """crc32 of the serving config the lockstep ranks must agree on (the
+    transformer config, the slot and chunk geometry, the paged cache's
+    settings), JAX's: each side computes it from its own engine's final
+    settings."""
+    import zlib
+
+    desc = json.dumps({
+        "cfg": {k: str(v)
+                for k, v in sorted(dataclasses.asdict(cfg).items())},
+        "max_slots": int(max_slots),
+        "prefill_chunk": int(prefill_chunk),
+        "chunk": int(chunk),
+        "kv_cache": kv_cache,
+        "kv_block_size": int(kv_block_size),
+        "kv_blocks": int(kv_blocks),
+    }, sort_keys=True)
+    return zlib.crc32(desc.encode()) & 0x7FFFFFFF
+
+
+def engine_link_digest(engine):
+    """The handshake digest of ``engine``'s final settings."""
+    kv = getattr(engine, "kv", None)
+    return link_config_digest(
+        engine.cfg, engine.max_slots, engine.prefill_chunk,
+        engine.chunk, kv_cache=engine.kv_cache,
+        kv_block_size=kv.block_size if kv is not None else 0,
+        kv_blocks=kv.num_blocks if kv is not None else 0,
+    )
+
+
+def _host_broadcast(payload, group):
+    """Rank 0's fixed-shape arrays on every rank of ``group`` (the
+    counterpart of JAX's ``broadcast_one_to_all``): ``payload`` is a
+    numpy array or a tuple of them, the values on rank 0 and buffers of
+    the same shapes and dtypes elsewhere; returns the same structure."""
+    import torch.distributed as dist
+
+    single = not isinstance(payload, tuple)
+    out = []
+    for a in ((payload,) if single else payload):
+        t = torch.from_numpy(np.array(a, copy=True))
+        dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
+        out.append(t.numpy())
+    return out[0] if single else tuple(out)
+
+
+class LinkWatchdog:
+    """Bounds each lockstep collective, JAX's: the link arms a deadline
+    before every blocking broadcast and disarms on return; this daemon
+    thread fires when a deadline expires with the collective still
+    blocked, emitting ``link_wedged`` and calling the link's
+    ``on_wedge``. No thread exists until the first arm, and a link with
+    ``timeout_s == 0`` has no watchdog."""
+
+    def __init__(self, link):
+        self.link = link
+        self._cond = threading.Condition()
+        self._armed = None  # (gen, deadline, op, op_seq, t0)
+        self._gen = 0
+        self._thread = None
+
+    def arm(self, op, op_seq, deadline_s):
+        with self._cond:
+            self._gen += 1
+            now = time.monotonic()
+            self._armed = (self._gen, now + deadline_s, op, op_seq, now)
+            if self._thread is None:
+                self._thread = threading.Thread(
+                    target=self._run, daemon=True, name="link-watchdog"
+                )
+                self._thread.start()
+            self._cond.notify()
+            return self._gen
+
+    def disarm(self, gen):
+        with self._cond:
+            if self._armed is not None and self._armed[0] == gen:
+                self._armed = None
+                self._cond.notify()
+
+    def _run(self):
+        while True:
+            with self._cond:
+                while self._armed is None:
+                    self._cond.wait()
+                gen, deadline, op, op_seq, t0 = self._armed
+                now = time.monotonic()
+                if now < deadline:
+                    self._cond.wait(deadline - now)
+                    continue
+                self._armed = None
+                stalled = now - t0
+            # An observer's self-report: the watchdog cannot name the
+            # vanished rank, only that this rank's collective stalled.
+            self.link._wedge(self.link.rank, op, op_seq, stalled,
+                             culprit=False)
+
+
+class LockstepEngineLink:
+    """The broadcast channel between rank 0's ``ContinuousEngine`` and the
+    follower replayers, the JAX server's: supervised, observable and
+    fault-injectable.
+
+    One fixed-shape payload per announcement: ints (12,) int32 carrying
+    the opcode and every shape argument (bucket, window, steps,
+    want_logits, mask_writes), the monotone ``op_seq`` and the payload
+    digest; floats (2,) float32 (a solo generate's sampler); and an int32
+    array holding the op's dense operand (a padded prompt row, a prefill
+    segment, a chunk's host state, a page-table delta's tokens). Every
+    announcement goes through one lock, so the followers run in exactly
+    broadcast order.
+
+    Supervision (off by default: ``timeout_s=0`` arms nothing):
+
+      * ``timeout_s`` arms a :class:`LinkWatchdog` around every
+        collective; a vanished rank gives ``link_wedged{rank, op_seq,
+        stalled_s}``, ``tpu_serving_link_wedges_total`` and the
+        ``on_wedge(rank, op_seq)`` callback instead of a silent hang; a
+        broadcast that fails (the gloo transport lost a peer) is reported
+        the same way and raises :class:`LinkWedgedError`;
+      * every op carries a sequence number and a digest: a follower
+        seeing a gap or a mismatch emits ``link_desync{rank, op_seq}``
+        and raises :class:`LinkDesyncError` before dispatching;
+      * ``transport`` replaces the broadcast over ``group`` (a gloo
+        group of the world, ``join_tp_world``) with an in-process loopback
+        (``fleet/linksim.py``), so multi-rank chaos drills run
+        hermetically; ``rank_hosts`` (the TPU_WORKER_HOSTNAMES contract)
+        lets link events name the culprit's node for the fleet reactor.
+    """
+
+    def __init__(self, cfg, max_slots, prefill_chunk=None,
+                 transport=None, timeout_s=0.0, rank=0, rank_hosts=(),
+                 events=None, registry=None, on_wedge=None, group=None):
+        self.cfg = cfg
+        self.max_slots = max_slots
+        self.prefill_chunk = prefill_chunk
+        # Reentrant: the leader holds it across announce and dispatch,
+        # and announce takes it again.
+        self.lock = threading.RLock()
+        self.transport = transport
+        self.group = group
+        self.timeout_s = float(timeout_s)
+        self.rank = int(rank)
+        self.rank_hosts = list(rank_hosts)
+        self.events = events
+        self.on_wedge = on_wedge
+        # Leader: the next op_seq to stamp. Follower: the next expected
+        # (None until the first op: a (re)joining rank adopts the
+        # leader's position).
+        self._seq = 0
+        self._expect = None
+        # Follower: its own engine's digest, checked against every hello
+        # (set by engine_follower_loop).
+        self.local_digest = None
+        # (op_seq, rank) pairs already reported wedged.
+        self._wedged_ops = set()
+        self._watchdog = LinkWatchdog(self) if self.timeout_s else None
+        self._m_ops = self._m_wedges = self._m_desyncs = None
+        self._m_wait = None
+        if registry is not None:
+            self._m_ops = obs_metrics.get_or_create(
+                obs_metrics.Counter, "tpu_serving_link_ops_total",
+                "Lockstep engine-link ops announced/replayed, by op "
+                "(bounded opcode enum)", labelnames=("op",),
+                registry=registry)
+            self._m_wedges = obs_metrics.get_or_create(
+                obs_metrics.Counter, "tpu_serving_link_wedges_total",
+                "Lockstep collectives that exceeded --link-timeout-s "
+                "(a rank vanished or stalled)", registry=registry)
+            self._m_desyncs = obs_metrics.get_or_create(
+                obs_metrics.Counter, "tpu_serving_link_desyncs_total",
+                "Op-stream divergences detected before dispatch "
+                "(sequence gap, digest mismatch, or KV replay "
+                "divergence)", registry=registry)
+            self._m_wait = obs_metrics.get_or_create(
+                obs_metrics.Histogram,
+                "tpu_serving_link_op_wait_seconds",
+                "Wall seconds blocked inside one lockstep collective "
+                "(the watchdog bounds the tail)",
+                buckets=LINK_WAIT_BUCKETS, registry=registry)
+
+    def _bcast(self, payload):
+        return _host_broadcast(payload, self.group)
+
+    def _digest(self, header_i, header_f, a):
+        """crc32 over the op, its args, the floats and the payload,
+        computed alike on both sides from the values each uses."""
+        import zlib
+
+        d = zlib.crc32(header_i[:8].tobytes())
+        d = zlib.crc32(header_f.tobytes(), d)
+        if a is not None:
+            d = zlib.crc32(a.tobytes(), d)
+        return d & 0x7FFFFFFF
+
+    def _node_of_rank(self, rank):
+        if 0 <= rank < len(self.rank_hosts):
+            return self.rank_hosts[rank]
+        return ""
+
+    def _wedge(self, rank, op, op_seq, stalled_s, culprit=True):
+        """Report one wedged collective once per (op_seq, rank).
+        ``culprit=False`` marks an observer's self-report (the watchdog,
+        or a broadcast that failed without naming its peer): the event
+        names the reporter, and the reactor drains without cordoning."""
+        key = (op_seq, rank)
+        if key in self._wedged_ops:
+            return
+        self._wedged_ops.add(key)
+        if len(self._wedged_ops) > 1024:
+            self._wedged_ops = {key}
+        if self._m_wedges is not None:
+            self._m_wedges.inc()
+        if self.events is not None:
+            self.events.emit(
+                "link_wedged", severity="error", rank=rank,
+                op_seq=op_seq, op=_OP_NAMES.get(op, str(op)),
+                node=self._node_of_rank(rank),
+                stalled_s=round(stalled_s, 6),
+                culprit=bool(culprit),
+            )
+        log.error(
+            "lockstep link wedged: rank %d did not complete op_seq %d "
+            "(%s) within %.3fs", rank, op_seq,
+            _OP_NAMES.get(op, str(op)), stalled_s,
+        )
+        obs_flight.trigger("link_wedged", rank=rank, op_seq=op_seq)
+        if self.on_wedge is not None:
+            try:
+                self.on_wedge(rank, op_seq)
+            except Exception:  # noqa: BLE001 - supervisor must not kill link
+                log.exception("on_wedge callback failed")
+
+    def desync(self, op_seq, reason):
+        """Record one detected divergence and abort before anything
+        divergent is dispatched."""
+        if self._m_desyncs is not None:
+            self._m_desyncs.inc()
+        if self.events is not None:
+            # The desyncing rank names itself: its replay diverged.
+            self.events.emit(
+                "link_desync", severity="error", rank=self.rank,
+                op_seq=op_seq, reason=reason,
+                node=self._node_of_rank(self.rank), culprit=True,
+            )
+        obs_flight.trigger("link_desync", op_seq=op_seq, reason=reason)
+        raise LinkDesyncError(
+            f"lockstep op stream diverged at op_seq {op_seq} "
+            f"(rank {self.rank}): {reason}"
+        )
+
+    def _supervised(self, op, op_seq, payload, send, delay_s=0.0,
+                    watch=True):
+        """One blocking collective under the watchdog; ``send`` picks the
+        leader's (True) or a follower's (False) side, which returns the
+        received payload. ``watch=False`` (a follower waiting for the next
+        op header, which an idle leader leaves it doing) arms nothing. A
+        broadcast over the gloo group that raises (a peer's process is
+        gone) is reported as a wedge and raised as
+        :class:`LinkWedgedError`."""
+        t0 = time.perf_counter()
+        gen = None
+        if watch and self._watchdog is not None:
+            # A timeout-capable transport names the culprit itself at
+            # timeout_s (a send may block that long per dead rank): the
+            # rank-blind watchdog backstops at 4x there.
+            scale = 4.0 if getattr(
+                self.transport, "handles_timeout", False) else 1.0
+            gen = self._watchdog.arm(op, op_seq, self.timeout_s * scale)
+        try:
+            if delay_s:
+                # An injected stall (the delay fault), inside the armed
+                # window.
+                time.sleep(delay_s)
+            if self.transport is not None:
+                if send:
+                    for r in self.transport.send(
+                        payload, self.timeout_s or None
+                    ):
+                        self._wedge(r, op, op_seq,
+                                    time.perf_counter() - t0)
+                    return None
+                # A follower's mid-op payload waits 5x the timeout, past
+                # the watchdog's 4x: link_wedged always fires first.
+                return self.transport.recv(
+                    payload,
+                    self.timeout_s * 5.0
+                    if (watch and self.timeout_s) else None,
+                )
+            try:
+                return self._bcast(payload)
+            except RuntimeError as err:
+                self._wedge(self.rank, op, op_seq,
+                            time.perf_counter() - t0, culprit=False)
+                raise LinkWedgedError(
+                    f"lockstep broadcast of op_seq {op_seq} "
+                    f"({_OP_NAMES.get(op, str(op))}) failed on rank "
+                    f"{self.rank}: {err}") from err
+        finally:
+            if gen is not None:
+                self._watchdog.disarm(gen)
+            if self._m_wait is not None:
+                self._m_wait.observe(time.perf_counter() - t0)
+
+    def _op_shape(self, op, ints):
+        """The payload's shape for ``op``, which both sides derive from
+        the header alone."""
+        if op == _OP_PREFILL:
+            return (1, int(ints[1]))           # the padded bucket row
+        if op == _OP_PREFILL_SEG:
+            return (1, int(self.prefill_chunk))
+        if op == _OP_CHUNK:
+            return (3, self.max_slots)         # last_tok/positions/active
+        if op == _OP_GENERATE:
+            return (int(ints[1]), int(ints[2]))
+        if op in (_OP_KV_ADMIT, _OP_KV_FINISH):
+            return (1, max(int(ints[2]), 1))   # the op's token list
+        if op == _OP_PAGED_PREFILL:
+            return (1, int(ints[3]))           # the padded segment
+        if op == _OP_PAGED_CHUNK:
+            return (2, self.max_slots)         # positions/active
+        return None                            # header-only ops
+
+    def hello(self, digest):
+        """The leader's bring-up (and rejoin) handshake: every follower
+        checks ``digest`` against its own engine's."""
+        self.announce(_OP_HELLO, ints=(int(digest),))
+
+    def announce(self, op, ints=(), floats=(), arr_rows=()):
+        """Rank 0: broadcast one op header, then its payload when the op
+        carries one. Called with ``self.lock`` held across the device
+        dispatch that follows, so the leader's dispatch order is its
+        broadcast order (the followers dispatch in the latter)."""
+        header_i = np.zeros(_LINK_HEADER_INTS, np.int32)
+        header_f = np.zeros(2, np.float32)
+        header_i[0] = op
+        for idx, v in enumerate(ints):
+            header_i[1 + idx] = int(v)
+        for idx, v in enumerate(floats):
+            header_f[idx] = float(v)
+        with self.lock:
+            shape = self._op_shape(op, header_i)
+            a = None
+            if shape is not None:
+                a = np.zeros(shape, np.int32)
+                for idx, row in enumerate(arr_rows):
+                    row = np.asarray(row).reshape(-1)
+                    a[idx, : row.shape[0]] = row
+            op_seq = self._seq
+            self._seq += 1
+            header_i[8] = op_seq
+            header_i[9] = self._digest(header_i, header_f, a)
+            if self._m_ops is not None:
+                self._m_ops.labels(_OP_NAMES.get(op, "unknown")).inc()
+            drop = False
+            delay_s = 0.0
+            a_send = a
+            header_send = header_i
+            for spec in faults.tick(LINK_FAULT_SITE):
+                if spec.kind == "drop":
+                    drop = True
+                elif spec.kind == "delay":
+                    delay_s += spec.delay_s
+                elif spec.kind == "corrupt_payload":
+                    # After the digest: the delivered bytes no longer
+                    # match header[9]. A header-only op corrupts an arg.
+                    if a_send is not None:
+                        a_send = a_send.copy()
+                        a_send.flat[0] = (int(a_send.flat[0]) + 1) % \
+                            np.iinfo(np.int32).max
+                    else:
+                        header_send = header_i.copy()
+                        header_send[1] += 1
+                elif spec.kind == "follower_vanish" and hasattr(
+                    self.transport, "kill"
+                ):
+                    self.transport.kill(int(spec.node or 0))
+            if drop:
+                # Never broadcast (the leader still runs the op): the
+                # followers see the next op's seq as a gap.
+                return
+            self._supervised(op, op_seq, (header_send, header_f),
+                             send=True, delay_s=delay_s)
+            if a is not None:
+                self._supervised(op, op_seq, a_send, send=True)
+
+    def recv(self):
+        """Followers: block for the next announcement → (ints, floats,
+        payload or None). The op sequence and the payload digest are
+        checked before the caller can dispatch anything
+        (:class:`LinkDesyncError`; a mismatched handshake
+        :class:`LinkConfigMismatch`)."""
+        out = self._supervised(
+            0, self._expect if self._expect is not None else -1,
+            (np.zeros(_LINK_HEADER_INTS, np.int32),
+             np.zeros(2, np.float32)),
+            send=False, watch=False,
+        )
+        i, f = out
+        i = np.asarray(i)
+        f = np.asarray(f)
+        op, op_seq = int(i[0]), int(i[8])
+        if self._expect is not None and op_seq != self._expect:
+            self.desync(
+                op_seq,
+                f"op_seq gap (expected {self._expect}): a broadcast "
+                f"was dropped or reordered",
+            )
+        self._expect = op_seq + 1
+        shape = self._op_shape(op, i)
+        a = None
+        if shape is not None:
+            a = np.asarray(self._supervised(
+                op, op_seq, np.zeros(shape, np.int32), send=False,
+            ))
+        if int(i[9]) != self._digest(i, f, a):
+            self.desync(op_seq, "payload digest mismatch (corrupted "
+                                "or divergent broadcast)")
+        if op == _OP_HELLO and self.local_digest is not None and \
+                int(i[1]) != int(self.local_digest):
+            raise LinkConfigMismatch(
+                f"leader config digest {int(i[1])} != this rank's "
+                f"{int(self.local_digest)}: topology/transformer/"
+                f"chunk/kv settings drifted between ranks"
+            )
+        if self._m_ops is not None:
+            self._m_ops.labels(_OP_NAMES.get(op, "unknown")).inc()
+        return i, f, a
+
+
+class _LinkSnapshot(list):
+    """A released slot's block snapshot on the leader, tagged with the id
+    the followers key their replayed snapshot under."""
+
+    snap_id = 0
+
+
+class _LinkedKV:
+    """The leader's ``PagedKVManager`` proxy, JAX's: every mutation is
+    announced as a page-table delta op, in call (= dispatch) order,
+    before the caller goes on; the followers replay it on their own
+    manager, whose allocation and eviction are deterministic, so page
+    tables, refcounts and radix index stay identical on every rank.
+    Reads pass through; no-op calls (an ensure with full coverage, a COW
+    with nothing shared) are not announced, as both sides skip them.
+    Each announce carries a replay invariant the follower checks (admit's
+    reused length, COW's fork count): a divergence is a
+    ``link_desync``."""
+
+    def __init__(self, kv, link):
+        object.__setattr__(self, "_kv", kv)
+        object.__setattr__(self, "_link", link)
+        object.__setattr__(self, "_next_snap", 1)
+
+    def __getattr__(self, name):
+        return getattr(self._kv, name)
+
+    def admit(self, slot, tokens):
+        with self._link.lock:
+            out = self._kv.admit(slot, tokens)
+            self._link.announce(
+                _OP_KV_ADMIT, ints=(slot, len(tokens), out[0]),
+                arr_rows=[np.asarray(tokens, np.int32)],
+            )
+        return out
+
+    def ensure_blocks(self, slot, upto_pos):
+        with self._link.lock:
+            # PoolExhausted propagates without an announce: the follower's
+            # identical manager would raise too.
+            fresh = self._kv.ensure_blocks(slot, upto_pos)
+            if fresh:
+                self._link.announce(
+                    _OP_KV_ENSURE, ints=(slot, int(upto_pos))
+                )
+        return fresh
+
+    def ensure_writable(self, slot, first_block, last_block):
+        with self._link.lock:
+            src, dst = self._kv.ensure_writable(
+                slot, first_block, last_block
+            )
+            if src:
+                self._link.announce(
+                    _OP_KV_COW,
+                    ints=(slot, first_block, last_block, len(src)),
+                )
+        return src, dst
+
+    def release(self, slot):
+        with self._link.lock:
+            snap = _LinkSnapshot(self._kv.release(slot))
+            snap.snap_id = self._next_snap
+            object.__setattr__(self, "_next_snap", self._next_snap + 1)
+            self._link.announce(
+                _OP_KV_RELEASE, ints=(slot, snap.snap_id)
+            )
+        return snap
+
+    def finish_release(self, blocks, tokens):
+        with self._link.lock:
+            self._kv.finish_release(blocks, tokens)
+            self._link.announce(
+                _OP_KV_FINISH,
+                ints=(getattr(blocks, "snap_id", 0), len(tokens)),
+                arr_rows=[np.asarray(tokens, np.int32)],
+            )
+
+    def drop(self, blocks):
+        sid = getattr(blocks, "snap_id", 0)
+        with self._link.lock:
+            self._kv.drop(blocks)
+            if sid:
+                self._link.announce(_OP_KV_DROP, ints=(sid,))
+
+    def reset(self):
+        with self._link.lock:
+            self._kv.reset()
+            self._link.announce(_OP_KV_RESET)
+
+
+class _LinkedSoloModel:
+    """The engine's sampled fall-through under a link: a solo generate is
+    announced through the same link (and lock) as the engine's op
+    stream, so the followers replay everything in one order."""
+
+    def __init__(self, model, link):
+        self.solo = model
+        self.link = link
+        self.cfg = model.cfg
+        self.device = model.device
+        # The weights the engine's programs take.
+        self.model = model.model
+
+    def generate(self, tokens, max_new_tokens, temperature=0.0, top_k=0,
+                 top_p=1.0, seed=0):
+        arr = np.asarray(tokens, np.int32)
+        if arr.ndim != 2 or arr.shape[0] > MAX_BATCH:
+            raise ValueError(
+                f"batch must be 2-D with <= {MAX_BATCH} rows, got "
+                f"{arr.shape}"
+            )
+        temperature, top_k, top_p = sanitize_sampler(
+            temperature, top_k, top_p, self.cfg.vocab_size
+        )
+        # The lock spans the announce and the whole solo decode: the
+        # engine may not interleave chunks into it (the slow path).
+        with self.link.lock:
+            self.link.announce(
+                _OP_GENERATE,
+                ints=(arr.shape[0], arr.shape[1], max_new_tokens, top_k,
+                      seed),
+                floats=(temperature, top_p),
+                arr_rows=list(arr),
+            )
+            return self.solo.generate(
+                tokens, max_new_tokens, temperature=temperature,
+                top_k=top_k, top_p=top_p, seed=seed,
+            )
+
+    def shutdown(self):
+        self.link.announce(_OP_SHUTDOWN)
+
+
+def _follower_kv_reset(engine, snapshots):
+    """A follower's half of ``_OP_KV_RESET``: the manager reset, the
+    pools and the device token vector zeroed in place (the graphs hold
+    their addresses), the replayed snapshots forgotten."""
+    engine.kv.reset()
+    for pool in engine.cache.values():
+        pool.zero_()
+    engine.last_dev.zero_()
+    snapshots.clear()
+
+
+def _follower_sync(tensor):
+    """Wait for a replayed dispatch's result (a follower keeps pace with
+    the leader one op at a time)."""
+    if tensor is not None:
+        tensor.cpu()
+
+
+def engine_follower_loop(engine, link, warm=None):
+    """Ranks other than 0: replay rank 0's engine-op broadcasts until the
+    shutdown op, JAX's. The follower never schedules: it runs exactly the
+    calls announced, on its own shards and caches, so every collective
+    lines up; a paged follower also replays the page-table delta ops on
+    its own manager (deterministic, so its tables, pool and radix index
+    stay identical and the paged dispatches replay the same programs).
+    ``warm()``, when given, runs once, right after the first handshake:
+    the leader runs the same warm plan right after sending it
+    (``--warmup=all``: every rank runs the same grid in the same order,
+    before any announced op), so the warm pass's collectives line up too.
+
+    A device failure on the follower is logged and the stream goes on
+    (its values diverge until the rows retire; the leader's own failures
+    arrive as announced resets). A link failure (sequence gap, digest
+    mismatch, KV replay divergence, config mismatch) raises before the
+    divergent op is dispatched. Returns 0 on shutdown."""
+    link.prefill_chunk = engine.prefill_chunk
+    link.max_slots = engine.max_slots
+    link.local_digest = engine_link_digest(engine)
+    model = engine.model.model
+    to_dev = engine._to_device
+    # snap_id -> this rank's replayed block snapshot.
+    snapshots = {}
+    with torch.inference_mode():
+        while True:
+            ints, floats, arr = link.recv()
+            op = int(ints[0])
+            if op == _OP_SHUTDOWN:
+                log.info("engine follower: shutdown broadcast received")
+                return 0
+            if op == _OP_HELLO:
+                # The digest was checked inside recv().
+                if warm is not None:
+                    warm()
+                    warm = None
+                continue
+            try:
+                if op == _OP_PREFILL:
+                    plen, slot = int(ints[2]), int(ints[3])
+                    _follower_sync(engine._prefill(
+                        model, engine.cache, to_dev(arr), plen, slot))
+                elif op == _OP_PREFILL_SEG:
+                    slot, off, last_idx, window, want = (
+                        int(ints[1]), int(ints[2]), int(ints[3]),
+                        int(ints[4]), bool(int(ints[5])),
+                    )
+                    _follower_sync(engine._prefill_seg(
+                        model, engine.cache, to_dev(arr), off, slot,
+                        last_idx, window=window, want_logits=want))
+                elif op == _OP_CHUNK:
+                    steps, window, mask = (int(ints[1]), int(ints[2]),
+                                           bool(int(ints[3])))
+                    _follower_sync(engine._chunk(
+                        arr[0].copy(), arr[1].copy(), arr[2].astype(bool),
+                        steps=steps, window=window, mask_writes=mask))
+                elif op == _OP_RESET:
+                    for buf in engine.cache.values():
+                        buf.zero_()
+                elif op == _OP_GENERATE:
+                    # Followers' engines wrap the raw model: the solo
+                    # decode replays directly.
+                    engine.model.generate(
+                        arr.tolist(), int(ints[3]),
+                        temperature=float(floats[0]), top_k=int(ints[4]),
+                        top_p=float(floats[1]), seed=int(ints[5]),
+                    )
+                elif op == _OP_KV_ADMIT:
+                    slot, n, claim = (int(ints[1]), int(ints[2]),
+                                      int(ints[3]))
+                    reused, _, _ = engine.kv.admit(
+                        slot, [int(t) for t in arr[0][:n]]
+                    )
+                    if reused != claim:
+                        link.desync(
+                            int(ints[8]),
+                            f"kv admit replay diverged: reused {reused} "
+                            f"!= leader's {claim} (radix state drift)",
+                        )
+                elif op == _OP_KV_ENSURE:
+                    engine.kv.ensure_blocks(int(ints[1]), int(ints[2]))
+                elif op == _OP_KV_COW:
+                    src, dst = engine.kv.ensure_writable(
+                        int(ints[1]), int(ints[2]), int(ints[3])
+                    )
+                    if len(src) != int(ints[4]):
+                        link.desync(
+                            int(ints[8]),
+                            f"kv COW replay diverged: {len(src)} forks "
+                            f"!= leader's {int(ints[4])}",
+                        )
+                    if src:
+                        engine._copy_blocks(engine.cache, to_dev(src),
+                                            to_dev(dst))
+                elif op == _OP_KV_RELEASE:
+                    snapshots[int(ints[2])] = engine.kv.release(
+                        int(ints[1])
+                    )
+                elif op == _OP_KV_FINISH:
+                    n = int(ints[2])
+                    engine.kv.finish_release(
+                        snapshots.pop(int(ints[1]), []),
+                        [int(t) for t in arr[0][:n]],
+                    )
+                elif op == _OP_KV_DROP:
+                    engine.kv.drop(snapshots.pop(int(ints[1]), []))
+                elif op == _OP_KV_RESET:
+                    _follower_kv_reset(engine, snapshots)
+                elif op == _OP_PAGED_PREFILL:
+                    slot, off, C, last_idx, window, want = (
+                        int(ints[1]), int(ints[2]), int(ints[3]),
+                        int(ints[4]), int(ints[5]), bool(int(ints[6])),
+                    )
+                    seg_ids = engine.kv.segment_ids(slot, off, C)
+                    _follower_sync(engine._paged_prefill(
+                        model, engine.cache, to_dev(arr), off,
+                        to_dev(seg_ids), to_dev(engine.kv.tables[slot]),
+                        last_idx, engine.last_dev, slot, window=window,
+                        want_logits=want))
+                elif op == _OP_PAGED_CHUNK:
+                    steps, window = int(ints[1]), int(ints[2])
+                    _follower_sync(engine._paged_chunk(
+                        engine.kv.tables, arr[0].copy(),
+                        arr[1].astype(bool), steps=steps, window=window))
+                else:
+                    log.error("engine follower: unknown op %d", op)
+            except LinkError:
+                raise  # never dispatch past a desync
+            except Exception:  # noqa: BLE001 - mirror the leader's catch
+                log.exception("engine follower op %d failed (mirrors "
+                              "leader)", op)
+
+
+class LockstepModel:
+    """``--tp`` without ``--continuous-batching``, JAX's: every rank must
+    run the same generate, but only rank 0 takes HTTP traffic. Rank 0
+    broadcasts each request (a fixed-shape control and token buffer) over
+    the link's gloo ``group`` before running it; the other ranks replay
+    it from :func:`follower_loop`."""
+
+    def __init__(self, model, group):
+        self.model = model
+        self.cfg = model.cfg
+        self.device = model.device
+        self.group = group
+        # Broadcast and generate are one atomic step per request, or two
+        # handler threads could broadcast in one order and run in the
+        # other.
+        self._outer = threading.Lock()
+
+    def _broadcast(self, control, fcontrol, buf):
+        return _host_broadcast((control, fcontrol, buf), self.group)
+
+    def generate(self, tokens, max_new_tokens, temperature=0.0, top_k=0,
+                 top_p=1.0, seed=0):
+        arr = np.asarray(tokens, np.int32)
+        if arr.ndim != 2 or arr.shape[0] > MAX_BATCH:
+            raise ValueError(
+                f"batch must be 2-D with <= {MAX_BATCH} rows, got "
+                f"{arr.shape}"
+            )
+        # Snapped before the broadcast, so the f32 sidecar round-trips
+        # exactly and every rank runs the same sampler.
+        temperature, top_k, top_p = sanitize_sampler(
+            temperature, top_k, top_p, self.cfg.vocab_size
+        )
+        control = np.asarray(
+            [arr.shape[0], arr.shape[1], max_new_tokens, top_k, seed],
+            np.int32,
+        )
+        fcontrol = np.asarray([temperature, top_p], np.float32)
+        buf = np.zeros((MAX_BATCH, self.cfg.max_seq_len), np.int32)
+        buf[: arr.shape[0], : arr.shape[1]] = arr
+        with self._outer:
+            self._broadcast(control, fcontrol, buf)
+            return self.model.generate(
+                tokens, max_new_tokens,
+                temperature=float(fcontrol[0]), top_k=top_k,
+                top_p=float(fcontrol[1]), seed=seed,
+            )
+
+    def shutdown(self):
+        with self._outer:
+            self._broadcast(
+                np.asarray([_SHUTDOWN, 0, 0, 0, 0], np.int32),
+                np.zeros(2, np.float32),
+                np.zeros((MAX_BATCH, self.cfg.max_seq_len), np.int32),
+            )
+
+
+def follower_loop(model, group):
+    """Ranks other than 0 under :class:`LockstepModel`: replay rank 0's
+    requests until the shutdown broadcast; returns 0."""
+    zeros = (
+        np.zeros(5, np.int32),
+        np.zeros(2, np.float32),
+        np.zeros((MAX_BATCH, model.cfg.max_seq_len), np.int32),
+    )
+    while True:
+        control, fcontrol, buf = _host_broadcast(zeros, group)
+        b, p, m = int(control[0]), int(control[1]), int(control[2])
+        if b == _SHUTDOWN:
+            log.info("follower: shutdown broadcast received")
+            return 0
+        try:
+            model.generate(
+                np.asarray(buf)[:b, :p].tolist(), m,
+                temperature=float(fcontrol[0]), top_k=int(control[3]),
+                top_p=float(fcontrol[1]), seed=int(control[4]),
+            )
+        except Exception:  # noqa: BLE001 - mirror rank 0's handler catch
+            log.exception("follower generate failed (mirrors rank 0)")
+
+
 class ContinuousEngine:
     """Slot-based continuous batching, the port of the JAX
     ``ContinuousEngine``: requests multiplex onto ``max_slots`` slots of
@@ -791,7 +1723,7 @@ class ContinuousEngine:
                  speculate_k=8, spec_proposer=None, max_queue=0,
                  deadline_s=0.0, step_retries=0, retry_backoff_s=0.05,
                  registry=None, events=None, tenants=None, slo=None,
-                 devicetime=None):
+                 devicetime=None, link=None):
         refuse_experts(model.cfg)
         if max_slots < 1 or chunk < 1 or prefill_chunk < 1:
             raise ValueError(
@@ -812,6 +1744,12 @@ class ContinuousEngine:
                 "speculative decoding requires kv_cache='paged' (the "
                 "verify step is a paged program)"
             )
+        if speculate != "off" and link is not None:
+            # The per-row propose/verify state machine is single-rank.
+            raise ValueError(
+                "speculative decoding is single-host; multi-host "
+                "engines serve paged WITHOUT --speculate"
+            )
         if speculate == "draft" and spec_proposer is None and \
                 getattr(model, "model", None) is None:
             raise ValueError(
@@ -829,9 +1767,15 @@ class ContinuousEngine:
         self.prefill_chunk = prefill_chunk
         self.kv_cache = kv_cache
         self.kv = None
+        # The lockstep engine link (tensor-parallel serving, one process
+        # per GPU): every device call and page-table mutation is announced
+        # to the follower ranks before it runs.
+        self.link = link
         self.decode_graphs = self.chunk_graphs = None
         if kv_cache == "dense":
-            self.cache = tf.init_kv_cache(self.cfg, max_slots, self.device)
+            self.cache = tf.init_kv_cache(
+                self.cfg, max_slots, self.device,
+                getattr(model.model, "kv_heads", None))
             self.chunk_graphs = serving_graphs.DenseChunkGraphs(
                 model.model, self.cache, max_slots, self.chunk,
             )
@@ -841,6 +1785,9 @@ class ContinuousEngine:
             self._chunk = self.chunk_graphs
         else:
             self._init_paged(kv_block_size, kv_blocks)
+            if link is not None:
+                # Manager mutations ride the link as page-table delta ops.
+                self.kv = _LinkedKV(self.kv, link)
         self.speculate = speculate
         self.spec_proposer = None
         self.verify_graphs = None
@@ -1065,6 +2012,17 @@ class ContinuousEngine:
         self.ttft_s = collections.deque(maxlen=4096)
         self._stop = threading.Event()
         self._thread = None
+        # rejoin_link's requests (the loop applies them) and the count
+        # applied, which a supervisor polls.
+        self._link_rejoins = 0
+        self._link_rejoins_done = 0
+        if link is not None:
+            # The link sizes op payloads from the final (normalized)
+            # chunks; then the handshake, which a follower built from
+            # other flags fails by name (LinkConfigMismatch).
+            link.prefill_chunk = self.prefill_chunk
+            link.max_slots = max_slots
+            link.hello(engine_link_digest(self))
         if start_loop:
             self._thread = threading.Thread(
                 target=self._loop if self.kv is None else self._loop_paged,
@@ -1080,7 +2038,8 @@ class ContinuousEngine:
             num_blocks=kv_blocks,
         )
         self.cache = pa.init_paged_kv_cache(
-            self.cfg.n_layers, self.kv.num_blocks, self.cfg.n_kv_heads,
+            self.cfg.n_layers, self.kv.num_blocks,
+            getattr(self.model.model, "kv_heads", self.cfg.n_kv_heads),
             self.kv.block_size, self.cfg.head_dim, self.cfg.torch_dtype,
             self.device,
         )
@@ -1109,6 +2068,40 @@ class ContinuousEngine:
         # attribute so allocation-pressure paths can drain them early
         # (their retire snapshots pin blocks until synced).
         self._pending_syncs = []
+
+    def _link_lock(self):
+        """The announce + dispatch critical section (nothing without a
+        link)."""
+        import contextlib
+
+        return self.link.lock if self.link else contextlib.nullcontext()
+
+    def rejoin_link(self, reason="follower restart"):
+        """Ask the loop to resynchronize a (re)joined follower rank (a
+        paged engine under a link), JAX's: at its next iteration the
+        leader announces a fresh handshake and a pool reset, so the new
+        rank replays from a known-empty state; rows in flight fail (their
+        state predates the reset). Without a link, or on a dense engine,
+        the request completes at once (``_link_rejoins_done`` advances).
+        Thread-safe."""
+        del reason
+        with self._drain_lock:
+            if self.link is None or self.kv is None:
+                self._link_rejoins_done += 1
+                return
+            self._link_rejoins += 1
+
+    def _apply_link_rejoins(self):
+        """The loop's half of :meth:`rejoin_link`."""
+        if self.link is None or self.kv is None:
+            return
+        with self._drain_lock:
+            n, self._link_rejoins = self._link_rejoins, 0
+        if n:
+            self.link.hello(engine_link_digest(self))
+            self._reset_paged(RuntimeError("link rejoin"))
+            with self._drain_lock:
+                self._link_rejoins_done += n
 
     # -- public surface -------------------------------------------------------
 
@@ -1407,6 +2400,13 @@ class ContinuousEngine:
             raise kv_handoff.HandoffUnsupported(
                 "dense engine: no paged KV manager to export from"
             )
+        if self.link is not None:
+            # A device-bytes install has no replay op: linked replicas
+            # decline, and the router re-prefills.
+            raise kv_handoff.HandoffUnsupported(
+                "multi-host paged engine: KV handoff not supported "
+                "over the lockstep link"
+            )
         tokens = [int(t) for t in tokens]
         return self._kv_handoff_op(
             "export", lambda: kv_handoff.export_prefix(
@@ -1426,6 +2426,11 @@ class ContinuousEngine:
         if self.kv is None:
             raise kv_handoff.HandoffUnsupported(
                 "dense engine: no paged KV manager to install into"
+            )
+        if self.link is not None:
+            raise kv_handoff.HandoffUnsupported(
+                "multi-host paged engine: KV handoff not supported "
+                "over the lockstep link"
             )
         return self._kv_handoff_op(
             "install", lambda: self._install_on_loop(frames), timeout_s)
@@ -1544,6 +2549,35 @@ class ContinuousEngine:
                     break
                 row["err"] = cause
                 row["event"].set()
+        if self.link is not None:
+            # The followers' replay loops end at the shutdown op.
+            try:
+                self.link.announce(_OP_SHUTDOWN)
+            except LinkError:
+                log.exception("shutdown broadcast failed")
+
+    def fail_in_flight(self, cause):
+        """Fail every row in flight or queued with ``cause``, from any
+        thread, touching no device or manager state: the terminal path of
+        a link wedge (the loop may be blocked inside the wedged
+        collective, and the process exits next). The waiters' handlers
+        answer with the error. A paged engine's rows whose last tokens
+        wait on a deferred sync are failed too (their slots were freed at
+        dispatch)."""
+        rows = [row for row in list(self.occupied) if row is not None]
+        for rec in list(getattr(self, "_pending_syncs", ())):
+            rows.extend(rec["rows"].values() if "rows" in rec
+                        else [rec["row"]])
+        for row in rows:
+            row["err"] = cause
+            row["event"].set()
+        while True:
+            try:
+                row = self._q.get_nowait()
+            except queue.Empty:
+                break
+            row["err"] = cause
+            row["event"].set()
 
     # -- host <-> device ------------------------------------------------------
 
@@ -1642,9 +2676,10 @@ class ContinuousEngine:
         ``attrs``) and sleeps the backoff on the loop thread, as in JAX.
         ``launched()`` (optional) counts the call's launches: an attempt
         that raised after it moved left state advanced in place and is
-        not retried. Returns (the result, the host time the successful
-        attempt started: the dispatch envelope opens there, as in JAX);
-        raises the last attempt's error."""
+        not retried. Under a link nothing is retried: the announce
+        committed the followers to one dispatch. Returns (the result, the
+        host time the successful attempt started: the dispatch envelope
+        opens there, as in JAX); raises the last attempt's error."""
         attempt = 0
         while True:
             mark = launched() if launched is not None else None
@@ -1652,8 +2687,8 @@ class ContinuousEngine:
             try:
                 return call(), t0
             except Exception as e:  # noqa: BLE001 - retried or re-raised
-                if attempt >= self.step_retries or (
-                        launched is not None and launched() != mark):
+                if attempt >= self.step_retries or self.link is not None \
+                        or (launched is not None and launched() != mark):
                     raise
                 self._m_retries.inc()
                 delay = self._backoff_delay(attempt)
@@ -1817,6 +2852,10 @@ class ContinuousEngine:
         waiter wakes to a cache the loop no longer writes."""
         for buf in self.cache.values():
             buf.zero_()
+        if self.link:
+            # The followers' caches went down with the same call (the op
+            # stream is the same): they zero theirs in lockstep.
+            self.link.announce(_OP_RESET)
         for slot, row in failed:
             self._fail_row(row, slot, cause, phase)
         for i, row in enumerate(self.occupied):
@@ -1863,8 +2902,16 @@ class ContinuousEngine:
             # The armed plan's fault fires before the dispatch, so it is
             # always retriable (a free None check when disarmed).
             faults.fire("serving.prefill", slot=slot)
-            return self._prefill(self.model.model, self.cache,
-                                 self._to_device(padded), len(ctx), slot)
+            # The link lock spans the announce and the dispatch: the
+            # followers dispatch in broadcast order.
+            with self._link_lock():
+                if self.link:
+                    self.link.announce(
+                        _OP_PREFILL, ints=(bucket, len(ctx), slot),
+                        arr_rows=[padded[0]])
+                return self._prefill(self.model.model, self.cache,
+                                     self._to_device(padded), len(ctx),
+                                     slot)
 
         t0_trace = obs_trace.now()
         if tracing:
@@ -1902,13 +2949,23 @@ class ContinuousEngine:
         seg[0, :real] = ctx[off:off + real]
         last = off + C >= total
         window = tf._window_for(min(off + C, S), S)
+
+        def dispatch():
+            with self._link_lock():
+                if self.link:
+                    self.link.announce(
+                        _OP_PREFILL_SEG,
+                        ints=(slot, off, total - 1, window, int(last)),
+                        arr_rows=[seg[0]])
+                return self._prefill_seg(
+                    self.model.model, self.cache, self._to_device(seg),
+                    off, slot, total - 1, window=window, want_logits=last,
+                )
+
         t0_trace = obs_trace.now()
         ok, tok, wall = self._dense_call(
-            [(slot, row)], "chunked prefill",
-            lambda: self._prefill_seg(
-                self.model.model, self.cache, self._to_device(seg), off,
-                slot, total - 1, window=window, want_logits=last,
-            ), "prefill", rid=row["rid"],
+            [(slot, row)], "chunked prefill", dispatch, "prefill",
+            rid=row["rid"],
             devt=None if self.devicetime is None
             else ("chunk", [(row, real)]),
         )
@@ -1998,9 +3055,15 @@ class ContinuousEngine:
         def dispatch():
             faults.fire("serving.chunk", rows=len(occupied))
             replays = graphs.replays
-            toks = self._chunk(self.last_tok, self.positions, active,
-                               steps=steps, window=window,
-                               mask_writes=prefilling)
+            with self._link_lock():
+                if self.link:
+                    self.link.announce(
+                        _OP_CHUNK, ints=(steps, window, int(prefilling)),
+                        arr_rows=[self.last_tok, self.positions,
+                                  active.astype(np.int32)])
+                toks = self._chunk(self.last_tok, self.positions, active,
+                                   steps=steps, window=window,
+                                   mask_writes=prefilling)
             if self.device.type == "cuda" and \
                     graphs.replays - replays != steps:
                 self.eager_chunks_on_cuda += 1
@@ -2155,11 +3218,15 @@ class ContinuousEngine:
         """ensure_writable + the device copy of every forked block.
         Returns the number of forked blocks (0 in the steady state:
         reused blocks precede every write offset)."""
-        src, dst = self.kv.ensure_writable(slot, first_block, last_block)
-        if src:
-            self._m_cow.inc(len(src))
-            self._copy_blocks(self.cache, self._to_device(src),
-                              self._to_device(dst))
+        # Under a link the COW announce and the copy's dispatch are one
+        # step (the followers dispatch their copy at the announce).
+        with self._link_lock():
+            src, dst = self.kv.ensure_writable(slot, first_block,
+                                               last_block)
+            if src:
+                self._m_cow.inc(len(src))
+                self._copy_blocks(self.cache, self._to_device(src),
+                                  self._to_device(dst))
         return len(src)
 
     def _back_out(self, slot, row):
@@ -2211,12 +3278,20 @@ class ContinuousEngine:
             # The segment rewrites its own blocks (and, the last one,
             # its slot of last_dev): a retry starts from the same state.
             faults.fire("serving.prefill", slot=slot)
-            tok = self._paged_prefill(
-                self.model.model, self.cache, self._to_device(seg), off,
-                self._to_device(seg_ids), self._to_device(self.kv.tables[slot]),
-                total - 1, self.last_dev, slot, window=window,
-                want_logits=last,
-            )
+            with self._link_lock():
+                if self.link:
+                    self.link.announce(
+                        _OP_PAGED_PREFILL,
+                        ints=(slot, off, seg_len, total - 1, window,
+                              int(last)),
+                        arr_rows=[seg[0]])
+                tok = self._paged_prefill(
+                    self.model.model, self.cache, self._to_device(seg), off,
+                    self._to_device(seg_ids),
+                    self._to_device(self.kv.tables[slot]),
+                    total - 1, self.last_dev, slot, window=window,
+                    want_logits=last,
+                )
             if last:
                 return self._to_host(tok)
             return None, self._timing_event()
@@ -2311,8 +3386,13 @@ class ContinuousEngine:
             faults.fire("serving.chunk", rows=len(occupied))
             replays = self.decode_graphs.graphs.replays
             # Advances last_dev in place; toks is the graphs' output buffer.
-            toks = self._paged_chunk(self.kv.tables, self.positions, active,
-                                     steps=steps, window=window)
+            with self._link_lock():
+                if self.link:
+                    self.link.announce(
+                        _OP_PAGED_CHUNK, ints=(steps, window),
+                        arr_rows=[self.positions, active.astype(np.int32)])
+                toks = self._paged_chunk(self.kv.tables, self.positions,
+                                         active, steps=steps, window=window)
             if self.device.type == "cuda" and \
                     self.decode_graphs.graphs.replays - replays != steps:
                 self.eager_chunks_on_cuda += 1
@@ -2819,7 +3899,8 @@ class ContinuousEngine:
                 return None
         t0 = time.perf_counter()
         row = None
-        while not self._stop.is_set() and self._calls.empty():
+        while not self._stop.is_set() and self._calls.empty() \
+                and not self._link_rejoins:
             try:
                 row = self._q.get(block=True, timeout=0.05)
                 break
@@ -2853,12 +3934,14 @@ class ContinuousEngine:
         dispatches."""
         with torch.inference_mode():
             while not self._stop.is_set():
-                if not self._calls.empty() or self._drain_requests:
+                if not self._calls.empty() or self._drain_requests or \
+                        self._link_rejoins:
                     # Every migrated row's dispatched tokens land in it
                     # first, so its re-prefill regenerates none of them.
                     self._drain_pending_syncs()
                     self._run_calls()
                     self._apply_drains()
+                    self._apply_link_rejoins()
                 batch = []
                 free = self._free_slots()
                 while free:
@@ -2982,6 +4065,14 @@ def make_handler(model, state, metrics=None):
             else:
                 self._send({"status": "warming up"}, 503)
 
+        def _body(self):
+            """The request's body, read whole. Every POST path reads it
+            before replying: a body left unread when the connection
+            closes makes the kernel reset it, dropping whatever of the
+            reply it has not sent yet."""
+            length = int(self.headers.get("Content-Length", 0))
+            return self.rfile.read(length)
+
         def _dump_flight(self):
             """POST /debug/flight: dump the flight recorder's bundle now
             (503 when it is off, 429 when its rate limit held it)."""
@@ -3002,12 +4093,12 @@ def make_handler(model, state, metrics=None):
             /kv/install {frames} → the install summary. The JAX server's
             status codes: a miss (or a dense engine) is an empty export,
             not an error, so the router re-prefills."""
+            body = self._body()
             if not state["ready"]:
                 self._send({"error": "not ready"}, 503)
                 return
             try:
-                length = int(self.headers.get("Content-Length", 0))
-                req = json.loads(self.rfile.read(length) or b"{}")
+                req = json.loads(body or b"{}")
                 if self.path == "/kv/export":
                     frames = model.kv_export(
                         [int(t) for t in (req.get("tokens") or [])],
@@ -3030,17 +4121,18 @@ def make_handler(model, state, metrics=None):
 
         def do_POST(self):
             if self.path == "/debug/flight":
+                self._body()
                 self._dump_flight()
                 return
             if self.path in ("/kv/export", "/kv/install"):
                 self._kv_handoff()
                 return
             if self.path != "/generate":
+                self._body()
                 self._send({"error": "not found"}, 404)
                 return
             try:
-                length = int(self.headers.get("Content-Length", 0))
-                req = json.loads(self.rfile.read(length) or b"{}")
+                req = json.loads(self._body() or b"{}")
                 tokens = req.get("tokens") or [[1, 2, 3]]
                 max_new = int(req.get("max_new_tokens", 16))
                 eff_t, eff_k, eff_p = sanitize_sampler(
@@ -3205,18 +4297,26 @@ def wait_ready(state, timeout):
 
 
 def config_from_args(args):
+    """The served config, JAX's: the preset or the flags' widths, with
+    ``--overlap`` riding the config so every serving path resolves the
+    same mode."""
     if args.preset == "llama3-8b":
-        return tf.TransformerConfig.llama3_8b()
-    return tf.TransformerConfig(
-        vocab_size=args.vocab_size,
-        d_model=args.d_model,
-        n_layers=args.n_layers,
-        n_heads=args.n_heads,
-        n_kv_heads=max(args.n_heads // 2, 1),
-        d_ff=args.d_model * 3,
-        max_seq_len=args.seq_len,
-        dtype=args.dtype,
-    )
+        cfg = tf.TransformerConfig.llama3_8b()
+    else:
+        cfg = tf.TransformerConfig(
+            vocab_size=args.vocab_size,
+            d_model=args.d_model,
+            n_layers=args.n_layers,
+            n_heads=args.n_heads,
+            n_kv_heads=max(args.n_heads // 2, 1),
+            d_ff=args.d_model * 3,
+            max_seq_len=args.seq_len,
+            dtype=args.dtype,
+        )
+    overlap = getattr(args, "overlap", cfg.overlap)
+    if cfg.overlap != overlap:
+        cfg = dataclasses.replace(cfg, overlap=overlap)
+    return cfg
 
 
 def build_parser():
@@ -3237,6 +4337,32 @@ def build_parser():
                         "(tests). Without a GPU the default fails.")
     p.add_argument("--once", action="store_true",
                    help="warm up, serve one request to self, exit (tests)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel degree: >1 runs a world of that "
+                        "many processes, one per GPU, joined through the "
+                        "worker-identity env contract (TPU_WORKER_ID, "
+                        "TPU_WORKER_HOSTNAMES, LOCAL_RANK, "
+                        "LOCAL_WORLD_SIZE); rank 0 serves HTTP and "
+                        "announces every device call over the lockstep "
+                        "link, the others replay them. Must equal the "
+                        "world's size")
+    p.add_argument("--overlap", choices=["auto", "ring", "off"],
+                   default="auto",
+                   help="latency-hiding tensor parallelism: ring "
+                        "collective-matmul decomposition for the tp-axis "
+                        "collectives (parallel/overlap.py); rides "
+                        "TransformerConfig so every engine path sees it; "
+                        "shapes that cannot ring (incl. single-token "
+                        "decode steps) take the exact fallback")
+    p.add_argument("--link-timeout-s", type=float, default=0.0,
+                   help="tensor-parallel continuous batching: bound every "
+                        "lockstep-link collective with a watchdog; a "
+                        "rank that vanishes mid-collective produces a "
+                        "link_wedged event (badput) + "
+                        "tpu_serving_link_wedges_total, rank 0 fails its "
+                        "in-flight requests and the process exits for "
+                        "its supervisor to restart the gang. 0 = "
+                        "unbounded")
     p.add_argument("--health-log",
                    default=os.environ.get("HEALTH_CHECK_LOG_FILE", ""),
                    help="append the ready line (tpu-serving ready "
@@ -3439,11 +4565,14 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.speculate != "off" and (
         not args.continuous_batching or args.kv_cache != "paged"
+        or args.tp > 1
     ):
-        # Speculation rides the paged engine's verify and its host loop:
-        # degrade loudly, keep serving.
-        log.warning("--speculate=%s needs --continuous-batching with "
-                    "--kv-cache=paged; falling back to off", args.speculate)
+        # Speculation rides the paged engine's verify and its host loop,
+        # on one rank: degrade loudly, keep serving (before the compile
+        # cache's key, as in JAX).
+        log.warning("--speculate=%s needs single-host --continuous-batching "
+                    "with --kv-cache=paged; falling back to off",
+                    args.speculate)
         args.speculate = "off"
     if args.fault_plan:
         plan = faults.arm_from_flag(args.fault_plan,
@@ -3525,17 +4654,28 @@ def _wire_flight(args, model, metrics):
     )
 
 
-def build_serving(args, model):
+def build_serving(args, model, link_of=None):
     """What ``args`` serves over ``model`` (a :class:`Model`): a
     :class:`ContinuousEngine` with its SLO, device-time ledger, HBM model
     and event stream under ``--continuous-batching``, a
     :class:`BatchingModel` under ``--batch-window-ms``, else ``model``;
     then the request metrics, the alert evaluator and the flight
-    recorder. Returns (served, metrics, alerts, flight); the last two
-    None when their flags are off."""
+    recorder. ``link_of(events, registry)`` (rank 0 of a ``--tp``
+    world) gives the engine's :class:`LockstepEngineLink` on its event
+    stream and registry; the engine's sampled fall-through then goes
+    through it (:class:`_LinkedSoloModel`). Returns (served, metrics,
+    alerts, flight); the last two None when their flags are off."""
     if args.continuous_batching:
         tenants = fleet_tenants.TenantClasses.from_flag(args.tenant_classes)
         registry = obs_metrics.Registry()
+        events = obs_events.EventStream(
+            "serve", sink_path=args.event_log, registry=registry,
+            host=getattr(args, "replica_id", "") or None,
+        ) if args.event_log else None
+        link = None
+        if link_of is not None:
+            link = link_of(events, registry)
+            model = _LinkedSoloModel(model, link)
         model = ContinuousEngine(
             model, max_slots=args.max_slots, chunk=args.decode_chunk,
             prefill_chunk=args.prefill_chunk, kv_cache=args.kv_cache,
@@ -3543,13 +4683,10 @@ def build_serving(args, model):
             speculate=args.speculate, speculate_k=args.speculate_k,
             max_queue=args.max_queue, deadline_s=args.request_deadline_s,
             step_retries=args.step_retries, tenants=tenants,
-            registry=registry,
-            events=obs_events.EventStream(
-                "serve", sink_path=args.event_log, registry=registry,
-                host=getattr(args, "replica_id", "") or None,
-            ) if args.event_log else None,
+            registry=registry, events=events,
             slo=_make_slo(args, registry),
             devicetime=_make_devicetime(args, registry, tenants),
+            link=link,
         )
         model.replica_id = getattr(args, "replica_id", "")
         _attach_hbm(args, model)
@@ -3566,12 +4703,12 @@ def build_serving(args, model):
 
 def _configure_compile_cache(args, cfg):
     """Arm ``--compile-cache-dir`` keyed as JAX's serve_cli keys it: the
-    topology (``{n}x{platform}``, n the visible devices), the config and
-    the shape buckets of the chunks the engine will use (two spellings
-    of one effective config share a directory), a speculating paged
-    engine's verify widths, and its mode and k_max. The config's
-    ``overlap`` field stays at JAX's default (the port's server has no
-    ``--overlap``), so the same flags give JAX's key."""
+    topology (``{n}x{platform}``: n the world's processes under ``--tp``,
+    else the visible devices), the config (its ``overlap`` field the
+    flag's, as in JAX) and the shape buckets of the chunks the engine
+    will use (two spellings of one effective config share a directory),
+    a speculating paged engine's verify widths, and its mode and
+    k_max."""
     norm_prefill, norm_chunk = normalize_chunks(
         cfg.max_seq_len, args.prefill_chunk, args.decode_chunk)
     paged = args.kv_cache == "paged"
@@ -3587,7 +4724,10 @@ def _configure_compile_cache(args, cfg):
     if spec_widths:
         buckets["speculate"] = [args.speculate, k_max]
     device = tf.resolve_device(args.device)
-    if device.type == "cuda":
+    platform = "gpu" if device.type == "cuda" else device.type
+    if args.tp > 1:
+        topology = f"{args.tp}x{platform}"
+    elif device.type == "cuda":
         topology = f"{torch.cuda.device_count()}xgpu"
     else:
         topology = f"1x{device.type}"
@@ -3602,18 +4742,168 @@ def _configure_compile_cache(args, cfg):
     )
 
 
+# Seconds rank 0 gives its handlers to answer the failed requests after a
+# link wedge, before it exits for its supervisor.
+WEDGE_EXIT_GRACE_S = 1.0
+# Rank 0's exit code after a link wedge (JAX's).
+WEDGE_EXIT_CODE = 86
+
+
+def _wedge_abort(engine_of):
+    """Rank 0's link-watchdog reaction, JAX's ``_wedge_abort``: a wedged
+    lockstep collective cannot be recovered in the process (a blocked
+    broadcast is not interruptible), so once ``link_wedged`` is on the
+    stream the requests in flight fail (``engine_of()``'s
+    ``fail_in_flight``) and the process exits after
+    ``WEDGE_EXIT_GRACE_S`` for its supervisor (the replica lifecycle) to
+    restart the gang. Armed only with ``--link-timeout-s`` > 0."""
+
+    def on_wedge(rank, op_seq):
+        log.error(
+            "lockstep link wedged (rank %d, op_seq %d): failing the "
+            "requests in flight and exiting for supervisor restart",
+            rank, op_seq,
+        )
+        engine = engine_of()
+        if engine is not None:
+            engine.fail_in_flight(LinkWedgedError(
+                f"lockstep link wedged at op_seq {op_seq} (rank {rank})"))
+        timer = threading.Timer(WEDGE_EXIT_GRACE_S, os._exit,
+                                args=(WEDGE_EXIT_CODE,))
+        timer.daemon = True
+        timer.start()
+
+    return on_wedge
+
+
+def join_tp_world(args):
+    """Join the ``--tp`` world: one process per GPU through the
+    worker-identity env contract (``parallel/bootstrap.py``; NCCL on
+    CUDA, gloo on the CPU). Refuses a world of any other size than
+    ``--tp``, with JAX's wording; a process outside any world has one
+    device. Returns (rank, device, the tp ``Axes`` of a ``{"tp": world}``
+    mesh, the link's gloo group, the node of each rank). One eager
+    all-reduce warms the communicator before any graph captures one."""
+    import torch.distributed as dist
+
+    from container_engine_accelerators_tpu_torch.parallel import bootstrap
+    from container_engine_accelerators_tpu_torch.parallel import (
+        mesh as pmesh,
+    )
+
+    if os.environ.get(bootstrap.WORKER_ID_ENV) is None or \
+            not os.environ.get(bootstrap.WORKER_HOSTNAMES_ENV):
+        raise ValueError(f"--tp={args.tp} needs {args.tp} devices, have 1")
+    opts = bootstrap.initialize_from_env(device=args.device)
+    world = dist.get_world_size()
+    if world != args.tp:
+        raise ValueError(
+            f"multi-host serving requires --tp == global device count "
+            f"({world}), got --tp={args.tp}")
+    device = torch.device(opts["device"])
+    mesh = pmesh.make_mesh(pmesh.MeshPlan(("tp",), (world,)),
+                           device_type=device.type)
+    dist.all_reduce(torch.zeros(1, device=device), group=mesh.get_group("tp"))
+    # The link's announcements travel on the host, over gloo, whatever
+    # the backend of the per-layer collectives.
+    group = dist.new_group(backend="gloo")
+    hosts = [h.strip() for h in os.environ[
+        bootstrap.WORKER_HOSTNAMES_ENV].split(",") if h.strip()]
+    per_host = opts["local_world_size"]
+    rank_hosts = [hosts[r // per_host] if r // per_host < len(hosts) else ""
+                  for r in range(world)]
+    return (opts["rank"], device, tpar.Axes.of_mesh(mesh), group,
+            rank_hosts)
+
+
+def _report_graphs(rank, engine):
+    """A ``--tp`` rank's decode graphs as it stops: one JSON line on
+    stdout (``{"rank", "graph_stats"}``), so a world's ranks can be read
+    side by side (their all-reduces replay inside them)."""
+    print(json.dumps({"rank": rank, "graph_stats": engine.graph_stats()}),
+          flush=True)
+
+
+def _follow(args, model, group, rank, rank_hosts):
+    """A follower rank of a ``--tp`` world: no HTTP; replay rank 0's
+    engine ops (``engine_follower_loop``, after the same warm plan under
+    ``--warmup=all``) or its requests (``follower_loop``). Returns 0 on
+    the shutdown broadcast."""
+    if not args.continuous_batching:
+        return follower_loop(model, group=group)
+    events = obs_events.EventStream(
+        "serve", sink_path=args.event_log,
+        host=getattr(args, "replica_id", "") or None,
+    ) if args.event_log else None
+    link = LockstepEngineLink(
+        model.cfg, args.max_slots, timeout_s=args.link_timeout_s,
+        rank=rank, rank_hosts=rank_hosts, events=events, group=group,
+    )
+    engine = ContinuousEngine(
+        model, max_slots=args.max_slots, chunk=args.decode_chunk,
+        prefill_chunk=args.prefill_chunk, start_loop=False,
+        kv_cache=args.kv_cache, kv_block_size=args.kv_block_size,
+        kv_blocks=args.kv_blocks,
+    )
+    warm = None
+    if args.warmup == "all":
+        def warm():
+            ws_warmup.warm_engine(engine, mode="all", events=events)
+    try:
+        return engine_follower_loop(engine, link, warm=warm)
+    finally:
+        _report_graphs(rank, engine)
+        engine.shutdown()
+
+
 def _serve(args):
     """Build the model, what it serves (``build_serving``) and the
     server; serve until interrupted (``--once``: one request). Split
     from :func:`main` so ``--profile-dir`` and ``--trace-out`` bracket
-    the whole run."""
+    the whole run. Under ``--tp`` > 1 this process is one rank of a
+    world of one process per GPU (:func:`join_tp_world`): rank 0 serves
+    and announces (``LockstepModel``, or an engine over the lockstep
+    link), the others follow (:func:`_follow`)."""
     cfg = config_from_args(args)
+    device, axes, rank = args.device, None, 0
+    group = rank_hosts = None
+    if args.tp > 1:
+        tp_serving.check_config(cfg, args.tp)
+        rank, device, axes, group, rank_hosts = join_tp_world(args)
     if args.compile_cache_dir:
         _configure_compile_cache(args, cfg)
-    model, metrics, alerts, flight = build_serving(args, Model(
-        cfg, device=args.device, quantize=args.quantize))
+    model = Model(cfg, device=device, quantize=args.quantize, tp=args.tp,
+                  axes=axes)
+    if rank != 0:
+        return _follow(args, model, group, rank, rank_hosts)
+    link_of = None
+    warmup_mode = args.warmup
+    if args.tp > 1:
+        if args.continuous_batching:
+            served = []
+
+            def link_of(events, registry):
+                return LockstepEngineLink(
+                    cfg, args.max_slots, timeout_s=args.link_timeout_s,
+                    rank=0, rank_hosts=rank_hosts, events=events,
+                    registry=registry, group=group,
+                    on_wedge=_wedge_abort(
+                        lambda: served[0] if served else None),
+                )
+        else:
+            model = LockstepModel(model, group=group)
+    model, metrics, alerts, flight = build_serving(args, model,
+                                                   link_of=link_of)
+    if link_of is not None:
+        served.append(model)
+        if warmup_mode == "all":
+            # The followers run this plan right after the handshake, and
+            # rank 0 runs it before it serves anything: every rank's warm
+            # collectives come in the same order, before any announced op.
+            ws_warmup.warm_engine(model, mode="all", events=model.events)
+            warmup_mode = "lazy"
     server, state = start_server(model, port=args.port,
-                                 warmup_mode=args.warmup, metrics=metrics,
+                                 warmup_mode=warmup_mode, metrics=metrics,
                                  replica_id=args.replica_id, role=args.role,
                                  health_log=args.health_log)
     log.info("listening on :%d", server.server_address[1])
@@ -3649,7 +4939,11 @@ def _serve(args):
         if flight is not None:
             flight.close()
             obs_flight.deactivate()
-        if isinstance(model, (ContinuousEngine, BatchingModel)):
+        if args.tp > 1 and isinstance(model, ContinuousEngine):
+            _report_graphs(rank, model)
+        if isinstance(model, (ContinuousEngine, BatchingModel,
+                              LockstepModel)):
+            # Under --tp this also broadcasts the followers' shutdown.
             model.shutdown()
 
 

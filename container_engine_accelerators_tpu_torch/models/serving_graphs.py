@@ -552,7 +552,8 @@ class DenseDecodeGraphs:
                 self._evict(next(iter(self._batches)))
             device = self.model.device
             self._batches[batch] = (
-                tf.init_kv_cache(self.model.cfg, batch, device),
+                tf.init_kv_cache(self.model.cfg, batch, device,
+                                 self.model.kv_heads),
                 torch.zeros(batch, dtype=torch.long, device=device),
                 torch.zeros(1, dtype=torch.long, device=device),
             )

@@ -259,9 +259,11 @@ def block(layers, xs, positions, attend, enter=dense_products,
     replicated input, then row-parallel partial sums over tp (the off
     path, ``models/tp_lm.py``); or the ring collective matmuls, which
     gather and scatter the sequence (the ring path). ``attend(q, k, v)`` maps the
-    rope'd q/k/v (B, H, S, hd) at ``positions`` (B, S) to (B, Hq, S, hd).
-    ``moe_ffn(hs)`` replaces an MoE layer's FFN across ranks (expert
-    parallelism); without it each rank runs its layer's own.
+    rope'd q/k/v (B, H, S, hd) at ``positions`` (B, S) to (B, Hq, S, hd);
+    a list gives each rank held its own (the serving programs': each
+    rank's cache holds its own heads). ``moe_ffn(hs)`` replaces an MoE
+    layer's FFN across ranks (expert parallelism); without it each rank
+    runs its layer's own.
 
     Returns (xs, the rope'd (k, v) per rank, the MoE aux per rank or
     None)."""
@@ -269,8 +271,9 @@ def block(layers, xs, positions, attend, enter=dense_products,
     qkv = enter([lp.ln1(x) for x, lp in zip(xs, layers)],
                 [(lp.attn.wq, lp.attn.wk, lp.attn.wv) for lp in layers])
     theta = layers[0].attn.cfg.rope_theta
+    attends = attend if isinstance(attend, list) else [attend] * len(layers)
     kvs, outs = [], []
-    for q, k, v in qkv:
+    for (q, k, v), attend in zip(qkv, attends):
         q = _rope(_split_heads(q, hd), positions, theta).contiguous()
         k = _rope(_split_heads(k, hd), positions, theta).contiguous()
         v = _split_heads(v, hd).contiguous()
@@ -328,9 +331,26 @@ class Transformer(nn.Module):
         )
         self.ln_f = RMSNorm(cfg.d_model, dt, device)
 
+    # The serving programs' view of a model, which
+    # ``models/tp_serving.ShardedModel`` (tensor-parallel serving) shares:
+    # the tp size, the ranks this process holds, the K/V heads its caches
+    # hold and the sum that leaves a row-parallel product.
+    tp = 1
+
     @property
     def device(self):
         return self.embed.device
+
+    @property
+    def ranks(self):
+        return [self]
+
+    @property
+    def kv_heads(self):
+        return self.cfg.n_kv_heads
+
+    def leave(self, xs, ws):
+        return dense_sums(xs, ws)
 
 
 def init_params(cfg, device="cuda", seed=0):
@@ -625,8 +645,12 @@ def make_train_step(cfg, optimizer=None, remat=True, device="cuda",
 
 # -- serving (KV-cache decode) ------------------------------------------------
 
-def init_kv_cache(cfg, batch, device):
-    hkv, hd = cfg.n_kv_heads, cfg.head_dim
+def init_kv_cache(cfg, batch, device, kv_heads=None):
+    """A zeroed dense cache {"k", "v"}: (L, batch, Hkv, S, hd), with
+    ``kv_heads`` heads (default the config's; a tensor-parallel model's
+    are the heads of the ranks it holds, ``model.kv_heads``)."""
+    hkv = cfg.n_kv_heads if kv_heads is None else kv_heads
+    hd = cfg.head_dim
     shape = (cfg.n_layers, batch, hkv, cfg.max_seq_len, hd)
     return {
         "k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
@@ -705,15 +729,57 @@ def serving_shape_buckets(cfg, prefill_chunk, decode_chunk,
     return out
 
 
+def _heads(t, j, n):
+    """Rank j's heads of a (B, H, ...) cache view holding the heads of n
+    ranks: the K/V heads of rank j are the j-th of n equal runs (the
+    column order of its wk/wv shard). One rank held: the whole view."""
+    if n == 1:
+        return t
+    h = t.shape[1] // n
+    return t[:, j * h:(j + 1) * h]
+
+
+def _serve_stack(model, tokens, positions, attend_for):
+    """The embedding and every layer of a serving program, on every rank
+    ``model`` holds (``model.ranks``: the whole model, or its
+    tensor-parallel shards, ``models/tp_serving.py``): ``tokens`` (B, S)
+    at ``positions`` (B, S); ``attend_for(i, j, n)`` is layer i's
+    ``attend`` for rank j of the n held, which writes the rank's K/V
+    heads into the cache and reads them. Activations are replicated over
+    tp, and the row-parallel products' partial sums all-reduced
+    (``model.leave``). → the (B, S, D) hidden states, equal on every
+    rank."""
+    ranks = model.ranks
+    n = len(ranks)
+    x = model.embed[tokens]
+    xs = [x] * n
+    for i in range(model.cfg.n_layers):
+        xs, _, _ = block([r.layers[i] for r in ranks], xs, positions,
+                         [attend_for(i, j, n) for j in range(n)],
+                         leave=model.leave)
+    return xs[0]
+
+
 def _decode_step(model, tokens, positions, attend_for):
     """One-token step through every layer, shared by the dense and the
     paged decode (the JAX ``_decode_step_impl``): tokens (B,) at
-    positions (B, 1); ``attend_for(i)`` is layer i's ``attend``, which
-    writes the step's K/V and reads the cache. → (B, V) f32 logits."""
-    x = model.embed[tokens][:, None, :]  # (B, 1, D)
-    for i, layer in enumerate(model.layers):
-        x = layer(x, positions, attend_for(i))[0]
+    positions (B, 1); ``attend_for(i, j, n)`` is layer i's ``attend`` for
+    rank j of the n held (``_serve_stack``), which writes the step's K/V
+    and reads the cache. → (B, V) f32 logits."""
+    x = _serve_stack(model, tokens[:, None], positions, attend_for)
     return lm_head(x, model.ln_f.weight, model.embed)[:, 0, :]
+
+
+def _prefill_forward(model, prompt, logits_at, overlap=None):
+    """A prefill's forward → (logits (B, 1, V), (ks, vs) (L, B, Hkv, P,
+    hd) with the heads the model's caches hold). A tensor-parallel model
+    takes the ring collective matmuls where ``resolve_overlap`` allows
+    (``overlap``, None → the config's), else the off path
+    (``tp_serving.ShardedModel.prefill_forward``), as JAX's ``prefill``
+    and ``prefill_into_slot`` with a mesh do."""
+    if model.tp == 1:
+        return forward(model, prompt, return_kv=True, logits_at=logits_at)
+    return model.prefill_forward(prompt, logits_at, overlap=overlap)
 
 
 @torch.inference_mode()
@@ -740,8 +806,9 @@ def decode_logits(model, cache, tokens, position, window=None):
                               device=tokens.device)
     positions = position.view(1, 1).expand(batch, 1)
 
-    def attend_for(i):
-        k_cache, v_cache = cache["k"][i], cache["v"][i]
+    def attend_for(i, j, n):
+        k_cache = _heads(cache["k"][i], j, n)
+        v_cache = _heads(cache["v"][i], j, n)
 
         def attend(q, k, v):
             k_cache.index_copy_(2, position, k)
@@ -757,22 +824,26 @@ def decode_logits(model, cache, tokens, position, window=None):
 
 
 @torch.inference_mode()
-def prefill(model, prompt, true_len=None, return_logits=False, cache=None):
+def prefill(model, prompt, true_len=None, return_logits=False, cache=None,
+            overlap=None):
     """Single-pass batched prefill: one forward over the whole (B, P)
     prompt; each layer's K/V land in ``cache`` (a fresh one by default)
     at [0, P). With a right-padded (bucketed) prompt, ``true_len`` is the
     real length and the next token reads from position true_len - 1;
     decode overwrites slot p before any query attends it. Entries of a
     reused cache past P keep an earlier request's (finite) K/V, which
-    the decode's length mask removes. Returns (next_tokens, cache), or
-    ((B, V) logits, cache) with ``return_logits``."""
+    the decode's length mask removes. A tensor-parallel model takes the
+    ring path where ``overlap`` allows (``_prefill_forward``). Returns
+    (next_tokens, cache), or ((B, V) logits, cache) with
+    ``return_logits``."""
     batch, prompt_len = prompt.shape
-    logits, (ks, vs) = forward(
-        model, prompt, return_kv=True,
-        logits_at="last" if true_len is None else true_len - 1,
+    logits, (ks, vs) = _prefill_forward(
+        model, prompt, "last" if true_len is None else true_len - 1,
+        overlap=overlap,
     )
     if cache is None:
-        cache = init_kv_cache(model.cfg, batch, prompt.device)
+        cache = init_kv_cache(model.cfg, batch, prompt.device,
+                              model.kv_heads)
     cache["k"][:, :, :, :prompt_len] = ks
     cache["v"][:, :, :, :prompt_len] = vs
     if return_logits:
@@ -888,8 +959,9 @@ def decode_logits_multi(model, cache, tokens, positions, active=None,
     if window is None:
         window = cache["k"].shape[3]
 
-    def attend_for(i):
-        k_cache, v_cache = cache["k"][i], cache["v"][i]
+    def attend_for(i, j, n):
+        k_cache = _heads(cache["k"][i], j, n)
+        v_cache = _heads(cache["v"][i], j, n)
 
         def attend(q, k, v):
             _row_update(k_cache, k, positions, active)
@@ -949,18 +1021,20 @@ def decode_chunk(model, cache, tokens, positions, active, steps, window=None,
 
 
 @torch.inference_mode()
-def prefill_into_slot(model, cache, prompt, true_len, slot):
+def prefill_into_slot(model, cache, prompt, true_len, slot, overlap=None):
     """Prefill ONE request into cache row ``slot``, the counterpart of the
     JAX ``prefill_into_slot``: prompt (1, P) right-padded to a length
     bucket, the real tokens ending at ``true_len``. One forward through
-    the flash kernel (``forward``); the K/V land at cache[:, slot, :, :P]
-    and every other row is left as it was, bit for bit. Returns the
-    greedy first token as a 0-d tensor on the device."""
+    the flash kernel (``_prefill_forward``: on a tensor-parallel model
+    the ring path where ``overlap`` allows, as JAX's with a mesh); the
+    K/V land at cache[:, slot, :, :P] and every other row is left as it
+    was, bit for bit. Returns the greedy first token as a 0-d tensor on
+    the device."""
     batch, prompt_len = prompt.shape
     if batch != 1:
         raise ValueError(f"one request per slot, got batch {batch}")
-    logits, (ks, vs) = forward(model, prompt, return_kv=True,
-                               logits_at=true_len - 1)
+    logits, (ks, vs) = _prefill_forward(model, prompt, true_len - 1,
+                                        overlap=overlap)
     cache["k"][:, slot, :, :prompt_len] = ks[:, 0]
     cache["v"][:, slot, :, :prompt_len] = vs[:, 0]
     return logits[0, 0].argmax()
@@ -1000,12 +1074,13 @@ def prefill_chunk_into_slot(model, cache, seg, offset, slot, true_pos, window,
         )
     hd = model.cfg.head_dim
     positions = offset + torch.arange(seg_len, device=seg.device)[None, :]
-    x = model.embed[seg]
-    for i, layer in enumerate(model.layers):
-        k_row = cache["k"][i][slot:slot + 1]
-        v_row = cache["v"][i][slot:slot + 1]
 
-        def attend(q, k, v, k_row=k_row, v_row=v_row):
+    def attend_for(i, j, n):
+        # One slot's rank-j heads: contiguous, as the kernel takes them.
+        k_row = _heads(cache["k"][i][slot:slot + 1], j, n)
+        v_row = _heads(cache["v"][i][slot:slot + 1], j, n)
+
+        def attend(q, k, v):
             k_row[:, :, offset:offset + seg_len] = k
             v_row[:, :, offset:offset + seg_len] = v
             out, _ = flash_fwd(
@@ -1014,7 +1089,9 @@ def prefill_chunk_into_slot(model, cache, seg, offset, slot, true_pos, window,
             )
             return out
 
-        x = layer(x, positions, attend)[0]
+        return attend
+
+    x = _serve_stack(model, seg, positions, attend_for)
     if not want_logits:
         return None
     idx = true_pos - offset
@@ -1046,8 +1123,9 @@ def paged_decode_step(model, pools, tables, tokens, positions, active,
     bids = torch.where(active, bids, pa.NULL_BLOCK)
     offs = safe % block_size
 
-    def attend_for(i):
-        k_pool, v_pool = pools["k"][i], pools["v"][i]
+    def attend_for(i, j, n):
+        k_pool = _heads(pools["k"][i], j, n)
+        v_pool = _heads(pools["v"][i], j, n)
 
         def attend(q, k, v):
             pa.paged_write(k_pool, k, bids, offs)
@@ -1133,11 +1211,12 @@ def paged_prefill_segment(model, pools, seg, offset, seg_ids, table_row,
     n_win = window // block_size
     tables = table_row[None, :]
     positions = offset + torch.arange(seg_len, device=seg.device)[None, :]
-    x = model.embed[seg]
-    for i, layer in enumerate(model.layers):
-        k_pool, v_pool = pools["k"][i], pools["v"][i]
 
-        def attend(q, k, v, k_pool=k_pool, v_pool=v_pool):
+    def attend_for(i, j, n):
+        k_pool = _heads(pools["k"][i], j, n)
+        v_pool = _heads(pools["v"][i], j, n)
+
+        def attend(q, k, v):
             pa.paged_write_segment(k_pool, k, seg_ids)
             pa.paged_write_segment(v_pool, v, seg_ids)
             k_win = pa.gather_block_kv(k_pool, tables, n_win)
@@ -1148,7 +1227,9 @@ def paged_prefill_segment(model, pools, seg, offset, seg_ids, table_row,
             )
             return out
 
-        x = layer(x, positions, attend)[0]
+        return attend
+
+    x = _serve_stack(model, seg, positions, attend_for)
     if not want_logits:
         return None
     idx = true_pos - offset
@@ -1204,11 +1285,12 @@ def paged_verify_batch(model, pools, segs, poss, block_ids, offsets, tables,
     base = torch.stack([
         poss, torch.zeros_like(poss), torch.full_like(poss, window),
     ], dim=1).to(torch.int32)
-    x = model.embed[segs]
-    for i, layer in enumerate(model.layers):
-        k_pool, v_pool = pools["k"][i], pools["v"][i]
 
-        def attend(q, k, v, k_pool=k_pool, v_pool=v_pool):
+    def attend_for(i, j, n):
+        k_pool = _heads(pools["k"][i], j, n)
+        v_pool = _heads(pools["v"][i], j, n)
+
+        def attend(q, k, v):
             pa.paged_write_positions(k_pool, k, block_ids, offsets)
             pa.paged_write_positions(v_pool, v, block_ids, offsets)
             k_win = pa.gather_block_kv(k_pool, tables, n_win)
@@ -1219,7 +1301,9 @@ def paged_verify_batch(model, pools, segs, poss, block_ids, offsets, tables,
             )
             return out
 
-        x = layer(x, positions, attend)[0]
+        return attend
+
+    x = _serve_stack(model, segs, positions, attend_for)
     logits = lm_head(x, model.ln_f.weight, model.embed)
     greedy = logits.argmax(dim=-1)
     return (greedy, logits) if return_logits else greedy

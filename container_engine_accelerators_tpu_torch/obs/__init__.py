@@ -39,7 +39,8 @@ these copies.
 The JAX package's jax-free readers ``capacity`` and ``postmortem`` read
 the port's event logs and flight bundles as they are (its ``journey``
 too; tests/test_torch_journey.py), so they are not copied. Not ported
-yet (ROADMAP.md): ``baseline`` and the ``merge`` CLI, and the link
-metrics of multi-GPU serving. ``faults/reactor.FleetReactor`` is
-jax-free control plane that runs unchanged beside port replicas.
+yet (ROADMAP.md): ``baseline`` and the ``merge`` CLI. The lockstep
+engine link of tensor-parallel serving (``models/serve_cli.py``) keeps
+its ``tpu_serving_link_*`` families on the engine's registry and its
+``link_wedged`` / ``link_desync`` events on the engine's stream.
 """

@@ -698,8 +698,410 @@ def check_ep(args, torch, dist, device, rank, world, card):
     return ok
 
 
+# -- serve_tp: real serve_cli --tp worlds --------------------------------
+
+# The served config's width and traffic: full-width Llama-3-8B on CUDA
+# (every layer unless --serve-layers cuts it), a 2-layer f32 model of
+# context 64 on the CPU (the tier-1 rehearsal over gloo).
+SERVE_CPU_FLAGS = ["--seq-len", "64", "--d-model", "64", "--n-layers", "2",
+                   "--n-heads", "16", "--vocab-size", "128",
+                   "--dtype", "float32"]
+SERVE_ENGINE_FLAGS = ["--continuous-batching", "--kv-cache", "paged",
+                      "--max-slots", "8"]
+# Greedy streams may part from one GPU's only where its top-2 logit margin
+# is under this (chip_smoke.py's serve_spec rule, SERVE_LOGITS_ATOL).
+SERVE_MARGIN = 0.25
+SERVE_LINK_TIMEOUT_S = 5.0
+# Seconds past the link timeout within which rank 0 must have reported
+# the wedge after a follower is killed.
+SERVE_WEDGE_SLACK_S = 10.0
+# Seconds into the long decode before the follower is killed: its first
+# token is out by then (a 1500-token prefill on the card; the tiny CPU
+# model's).
+SERVE_KILL_AFTER_S = {"cuda": 3.0, "cpu": 0.5}
+
+
+def _serve_argv(args, device):
+    flags = ["--device", device.type]
+    if device.type == "cuda":
+        flags += ["--preset", "llama3-8b"]
+    else:
+        flags += SERVE_CPU_FLAGS
+    return flags + SERVE_ENGINE_FLAGS + ["--warmup", "all"]
+
+
+def _serve_cfg(args, device, serve_cli):
+    parsed = serve_cli.build_parser().parse_args(_serve_argv(args, device))
+    return serve_cli.config_from_args(parsed)
+
+
+def _serve_prompts(np, cfg):
+    """serve_paged's traffic (a shared prefix, six requests sharing it, a
+    long prompt), scaled to the context on the CPU; a TTFT prompt and a
+    decode prompt of their own."""
+    rng = np.random.default_rng(5)
+    short = cfg.max_seq_len < 4096
+    n_prefix, n_suffix, n_long, n_ttft = \
+        (16, 4, 40, 24) if short else (1024, 64, 3000, 1500)
+    max_new = 6 if short else 32
+
+    def draw(n):
+        return rng.integers(0, cfg.vocab_size, n).tolist()
+
+    prefix = draw(n_prefix)
+    prompts = {"ttft": (draw(n_ttft), 1),
+               "decode": (draw(n_ttft), max_new + 1 if short else 65),
+               "prefix": (prefix, max_new)}
+    for i in range(6):
+        prompts[f"shared_{i}"] = (prefix + draw(n_suffix), max_new)
+    prompts["long"] = (draw(n_long), max_new)
+    return prompts
+
+
+def _drive(serve_cli, port, prompts, post_timeout):
+    """The traffic against a server on ``port``: the TTFT and decode
+    requests alone, then the prefix, the six shared requests at once and
+    the long one. Returns ({name: tokens}, {name: seconds})."""
+    import concurrent.futures
+
+    tokens, wall = {}, {}
+
+    def post(name):
+        prompt, max_new = prompts[name]
+        t0 = time.perf_counter()
+        out = serve_cli.post_generate(port, [prompt], max_new,
+                                      timeout=post_timeout)
+        wall[name] = time.perf_counter() - t0
+        tokens[name] = out["tokens"][0]
+
+    for name in ("ttft", "decode", "prefix"):
+        post(name)
+    rest = [n for n in prompts if n.startswith("shared_")] + ["long"]
+    with concurrent.futures.ThreadPoolExecutor(len(rest)) as pool:
+        for f in [pool.submit(post, n) for n in rest]:
+            f.result()
+    return tokens, wall
+
+
+def _latency(prompts, wall):
+    """TTFT (the one-token request's wall) and ms a decode step (the
+    decode request's wall past it, over its extra tokens)."""
+    steps = prompts["decode"][1] - 1
+    return {"ttft_ms": wall["ttft"] * 1e3,
+            "decode_ms_per_step": (wall["decode"] - wall["ttft"]) * 1e3
+            / steps}
+
+
+def _start_world(args, tp, argv_of, log_dir, tag):
+    """``tp`` serve_cli processes through the env contract, rank r with
+    ``argv_of(r)``, each writing ``<log_dir>/<tag>_rank<r>.log``."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("TPU_", "MEGASCALE_", "LOCAL_"))}
+    env.update(TPU_WORKER_ID="0", TPU_WORKER_HOSTNAMES="localhost",
+               TPU_COORDINATOR_PORT=str(_free_port()),
+               LOCAL_WORLD_SIZE=str(tp))
+    if args.device == "cpu":
+        env["OMP_NUM_THREADS"] = "1"
+    procs, logs = [], []
+    for rank in range(tp):
+        path = os.path.join(log_dir, f"{tag}_rank{rank}.log")
+        logs.append(path)
+        with open(path, "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m",
+                 "container_engine_accelerators_tpu_torch.models.serve_cli",
+                 *argv_of(rank)],
+                env={**env, "LOCAL_RANK": str(rank)}, stdout=out,
+                stderr=subprocess.STDOUT))
+    return procs, logs
+
+
+def _stop(procs):
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _wait_ready(port, procs, timeout_s):
+    import urllib.request
+
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if any(p.poll() is not None for p in procs):
+            return False
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/healthz", timeout=5) as r:
+                if r.status == 200:
+                    return True
+        except OSError:
+            pass
+        time.sleep(0.5)
+    return False
+
+
+def _graph_stats(path):
+    """The ``{"rank", "graph_stats"}`` line a ``--tp`` rank prints as it
+    stops, or None."""
+    with open(path) as f:
+        for line in f:
+            if line.startswith('{"rank"'):
+                return json.loads(line)["graph_stats"]
+    return None
+
+
+def _tail(path, n=3000):
+    with open(path) as f:
+        return f.read()[-n:]
+
+
+def _partings(torch, tf, model, prompts, got, want):
+    """Where each stream parts from one GPU's and that GPU's top-2 logit
+    margin there (chip_smoke.py's ``_divergences``)."""
+    rows = []
+    for name, (prompt, _) in prompts.items():
+        a, b = got[name], want[name]
+        if a == b:
+            continue
+        pos = next((j for j in range(min(len(a), len(b))) if a[j] != b[j]),
+                   min(len(a), len(b)))
+        if pos >= len(b):
+            rows.append({"request": name, "margin": 0.0,
+                         "error": "lengths differ"})
+            continue
+        with torch.inference_mode():
+            logits = tf.forward(
+                model.model, torch.as_tensor([b[:pos]],
+                                             device=model.device),
+                logits_at="last")[0, 0].float()
+        top2 = logits.topk(2).values
+        rows.append({"request": name, "generated_index": pos - len(prompt),
+                     "want_token": b[pos], "got_token": a[pos],
+                     "margin": (top2[0] - top2[1]).item()})
+    return rows
+
+
+def _one_gpu(args, torch, np, cfg, device, prompts):
+    """The unsplit engine on one device on the same weights (seed 0) and
+    flags: its streams, TTFT and decode ms, and the model for the
+    margins."""
+    from container_engine_accelerators_tpu_torch.models import serve_cli
+
+    model = serve_cli.Model(cfg, seed=0, device=str(device))
+    engine = serve_cli.ContinuousEngine(
+        model, max_slots=8, chunk=32, prefill_chunk=512, kv_cache="paged")
+    server, state = serve_cli.start_server(
+        engine, port=0, host="127.0.0.1", warmup_mode="all")
+    try:
+        serve_cli.wait_ready(state, timeout=args.timeout_s)
+        tokens, wall = _drive(serve_cli, server.server_address[1], prompts,
+                              args.timeout_s)
+    finally:
+        server.shutdown()
+        engine.shutdown()
+    return model, tokens, _latency(prompts, wall)
+
+
+def _kill_drill(args, tp, base_argv, log_dir, serve_cli, prompts):
+    """``--link-timeout-s`` with a follower SIGKILLed mid-decode: rank 0
+    reports ``link_wedged`` within the timeout (plus slack), the request
+    in flight (and any that follows) comes back instead of hanging, and
+    rank 0 exits for its supervisor."""
+    import signal
+    import threading
+    import urllib.error
+
+    port = _free_port()
+    events = os.path.join(log_dir, f"kill_tp{tp}_events.jsonl")
+
+    def argv_of(rank):
+        extra = ["--event-log", events] if rank == 0 else []
+        return [*base_argv, "--tp", str(tp), "--port", str(port),
+                "--link-timeout-s", str(SERVE_LINK_TIMEOUT_S), *extra]
+
+    procs, logs = _start_world(args, tp, argv_of, log_dir, f"kill_tp{tp}")
+    row = {"check": "serve_tp_kill", "tp": tp,
+           "link_timeout_s": SERVE_LINK_TIMEOUT_S}
+    try:
+        if not _wait_ready(port, procs, args.timeout_s):
+            row["error"] = "not ready: " + _tail(logs[0])
+            return row, False
+        prompt, _ = prompts["decode"]
+        cfg = _serve_cfg(args, _device_of(args), serve_cli)
+        n_new = min(2048, cfg.max_seq_len - len(prompt) - 1)
+        outcome = {}
+
+        def long_request():
+            t0 = time.perf_counter()
+            try:
+                serve_cli.post_generate(port, [prompt], n_new, timeout=120)
+                outcome["result"] = "completed"
+            except urllib.error.HTTPError as e:
+                outcome["result"] = f"http {e.code}"
+            except OSError as e:
+                outcome["result"] = f"{type(e).__name__}"
+            outcome["s"] = time.perf_counter() - t0
+
+        thread = threading.Thread(target=long_request, daemon=True)
+        thread.start()
+        time.sleep(SERVE_KILL_AFTER_S[args.device])
+        victim = procs[-1]
+        t_kill = time.monotonic()
+        victim.send_signal(signal.SIGKILL)
+        wedged_s = None
+        probes = 0
+        deadline = t_kill + SERVE_LINK_TIMEOUT_S + SERVE_WEDGE_SLACK_S
+        while time.monotonic() < deadline and wedged_s is None:
+            if os.path.exists(events):
+                with open(events) as f:
+                    if any('"link_wedged"' in line for line in f):
+                        wedged_s = time.monotonic() - t_kill
+                        break
+            if not thread.is_alive() and procs[0].poll() is None \
+                    and probes < 3:
+                # The request failed before an announce met the dead
+                # rank (its collective raised first): the next request's
+                # announce must report the wedge.
+                probes += 1
+                try:
+                    serve_cli.post_generate(port, [[1, 2, 3]], 2,
+                                            timeout=30)
+                except OSError:
+                    pass
+            time.sleep(0.05)
+        thread.join(60)
+        try:
+            rc0 = procs[0].wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            rc0 = None
+        # On the card the decode outlasts the kill by far, so the row was
+        # in flight and must have failed; on the CPU it may have finished.
+        in_flight = args.device == "cuda"
+        row.update(wedged_after_s=wedged_s, request=outcome,
+                   request_returned=not thread.is_alive(), probes=probes,
+                   rank0_exit=rc0, new_tokens=n_new)
+        ok = (wedged_s is not None and not thread.is_alive()
+              and not (in_flight and outcome.get("result") == "completed")
+              and rc0 not in (None, 0))
+        if not ok:
+            row["rank0_log"] = _tail(logs[0])
+        return row, ok
+    finally:
+        _stop(procs)
+
+
+def _device_of(args):
+    import torch
+
+    return torch.device("cuda" if args.device == "cuda" else "cpu")
+
+
+def check_serve_tp(args):
+    """serve_cli --tp worlds (``--world`` under ``--overlap auto`` and
+    ``off``, then 2 where the world is larger), paged continuous batching
+    at Llama-3-8B's full width on CUDA: rank 0 answers HTTP /generate, the others replay the lockstep
+    link. Each world's greedy streams are held to one GPU's unsplit
+    engine on the same weights (they may part only where its top-2
+    margin is under SERVE_MARGIN), every rank's decode chunks replay
+    their captured graphs (the per-layer all-reduces inside them), and
+    TTFT and ms a decode step are timed beside one GPU's. Then at
+    ``--world``: ``--link-timeout-s`` with a follower SIGKILLed
+    mid-decode (``_kill_drill``). Rank 0's lines are printed by this
+    launcher. Returns ok."""
+    import signal
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from container_engine_accelerators_tpu_torch.models import serve_cli
+    from container_engine_accelerators_tpu_torch.models import (
+        transformer as tf,
+    )
+
+    device = _device_of(args)
+    card = _card() if device.type == "cuda" else {}
+    cfg = _serve_cfg(args, device, serve_cli)
+    base_argv = _serve_argv(args, device)
+    prompts = _serve_prompts(np, cfg)
+    worlds = [args.world] + ([2] if args.world > 2 else [])
+    log_dir = tempfile.mkdtemp(prefix="world_smoke_serve_tp-",
+                               dir=args.log_dir or None)
+    ok = True
+    runs = {}
+    # The largest world runs twice: under --overlap auto (the ring
+    # prefill where the bucket divides by tp, as JAX picks it) and off,
+    # so the prefill's two paths are timed across cards side by side.
+    cases = [(tp, overlap) for tp in worlds
+             for overlap in (("auto", "off") if tp == args.world
+                             else ("auto",))]
+    for tp, overlap in cases:
+        port = _free_port()
+        procs, logs = _start_world(
+            args, tp, lambda r: [*base_argv, "--tp", str(tp), "--port",
+                                 str(port), "--overlap", overlap],
+            log_dir, f"tp{tp}_{overlap}")
+        row = {"check": "serve_tp", "tp": tp, "overlap": overlap,
+               "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+               "dtype": cfg.dtype, **card}
+        try:
+            t0 = time.perf_counter()
+            if not _wait_ready(port, procs, args.timeout_s):
+                row["error"] = "not ready: " + _tail(logs[0])
+                print(json.dumps(row), flush=True)
+                ok = False
+                continue
+            row["ready_s"] = time.perf_counter() - t0
+            tokens, wall = _drive(serve_cli, port, prompts, args.timeout_s)
+            procs[0].send_signal(signal.SIGINT)
+            rcs = []
+            for proc in procs:
+                try:
+                    rcs.append(proc.wait(timeout=120))
+                except subprocess.TimeoutExpired:
+                    rcs.append(None)
+        finally:
+            _stop(procs)
+        stats = [_graph_stats(p) for p in logs]
+        # On CUDA every decode step of every rank is a replay (its
+        # all-reduces captured in the graph); the CPU has no graphs.
+        replayed = all(
+            s is not None and (device.type == "cpu" or (
+                s["graph_replays"] > 0 and s["eager_chunks_on_cuda"] == 0))
+            for s in stats)
+        runs[tp, overlap] = tokens
+        row.update(latency=_latency(prompts, wall), exit_codes=rcs,
+                   graph_stats=stats, graphs_replayed=replayed)
+        good = replayed and rcs == [0] * tp
+        if not good:
+            row["rank0_log"] = _tail(logs[0])
+        print(json.dumps(row), flush=True)
+        ok = ok and good
+    if not runs:
+        return False
+    model, want, one_gpu = _one_gpu(args, torch, np, cfg, device, prompts)
+    for (tp, overlap), got in runs.items():
+        partings = _partings(torch, tf, model, prompts, got, want)
+        good = all(r["margin"] < SERVE_MARGIN for r in partings)
+        print(json.dumps({"check": "serve_tp_tokens", "tp": tp,
+                          "overlap": overlap,
+                          "requests": len(prompts), "partings": partings,
+                          "margin_limit": SERVE_MARGIN, "ok": good,
+                          "one_gpu": one_gpu, **card}), flush=True)
+        ok = ok and good
+    del model
+    _release(torch, device)
+    row, good = _kill_drill(args, args.world, base_argv, log_dir,
+                            serve_cli, prompts)
+    print(json.dumps({**row, **card}), flush=True)
+    return ok and good
+
+
 CHECKS = {"ring": check_ring, "train": check_train, "pp": check_pp,
           "tp": check_tp, "ep": check_ep}
+# Checks the launcher runs itself: their worlds are serve_cli processes.
+LAUNCHER_CHECKS = {"serve_tp": check_serve_tp}
 
 
 def run_rank(args):
@@ -721,8 +1123,9 @@ def run_rank(args):
     try:
         ok = True
         for name in args.checks:
-            ok = CHECKS[name](args, torch, dist, device, rank, world,
-                              card) and ok
+            if name in CHECKS:
+                ok = CHECKS[name](args, torch, dist, device, rank, world,
+                                  card) and ok
     finally:
         dist.destroy_process_group()
     _emit(rank, {"ok": ok, "world": world, "backend": opts["backend"],
@@ -773,9 +1176,14 @@ def build_parser():
                    help="divide the full-width steps' widths, vocabulary "
                         "and sequence by this (a CPU rehearsal)")
     p.add_argument("--timeout-s", type=float, default=600.0)
-    p.add_argument("--checks", nargs="+", choices=sorted(CHECKS),
+    p.add_argument("--checks", nargs="+",
+                   choices=sorted({**CHECKS, **LAUNCHER_CHECKS}),
                    default=list(CHECKS),
-                   help="the checks to run, in this order (default all)")
+                   help="the checks to run, in this order (default all but "
+                        "serve_tp, whose worlds are serve_cli processes)")
+    p.add_argument("--log-dir", default="",
+                   help="serve_tp: where the ranks' logs go (default a "
+                        "temporary directory)")
     p.add_argument("--rank-process", action="store_true",
                    help=argparse.SUPPRESS)
     return p
@@ -786,7 +1194,15 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.rank_process:
         return run_rank(args)
-    return launch(args, argv)
+    rc = 0
+    if any(name in CHECKS for name in args.checks):
+        rc = launch(args, argv)
+    if "serve_tp" in args.checks:
+        ok = LAUNCHER_CHECKS["serve_tp"](args)
+        print(json.dumps({"ok": ok, "launcher_checks": ["serve_tp"],
+                          "world": args.world}), flush=True)
+        rc = max(rc, 0 if ok else 1)
+    return rc
 
 
 if __name__ == "__main__":

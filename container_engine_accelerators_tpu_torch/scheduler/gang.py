@@ -20,7 +20,8 @@ Pipeline per scheduling pass (reference schedule-daemon.py:568-748):
 Port: a subset of ``container_engine_accelerators_tpu/scheduler/gang.py``,
 the closure of ``place_gang_on_slice`` (the types, resource parsing,
 ``find_gate``, ``pod_info``, ``node_info``, the fit and the sub-mesh
-search), copied as JAX has it. The scheduling pass, the DCN path, units
+search) and ``bound_gang_members`` (the fleet reactor's drain), copied as
+JAX has it. The scheduling pass, the DCN path, units
 and preemption are not copied: the gang scheduler daemon that runs them
 is jax-free control plane.
 """
@@ -466,3 +467,31 @@ def _match_pods_to_nodes(gang, nodes):
     if not backtrack(0):
         return None
     return [nodes[j] for j in assign]
+
+
+def bound_gang_members(all_pods, trust_priority_annotation=True):
+    """Parse BOUND gang members out of the full pod list: pods we stamped
+    rank/gate annotations on that are still active (the preemption victim
+    candidates). Returns {gang_key: [PodInfo...]}; each PodInfo.gate is
+    the ORIGINAL gate restored on eviction (from GATE_ANNOTATION)."""
+    gangs = collections.defaultdict(list)
+    for pod in all_pods:
+        meta = pod.get("metadata", {})
+        anno = meta.get("annotations") or {}
+        if RANK_ANNOTATION not in anno or GATE_ANNOTATION not in anno:
+            continue
+        if pod.get("status", {}).get("phase") in ("Succeeded", "Failed"):
+            continue
+        if meta.get("deletionTimestamp"):
+            continue
+        spec = pod.get("spec", {})
+        node = spec.get("nodeName") or (
+            (spec.get("nodeSelector") or {}).get("kubernetes.io/hostname")
+        )
+        if not node:
+            continue
+        info = pod_info(pod, anno[GATE_ANNOTATION],
+                        trust_priority_annotation=trust_priority_annotation)
+        info.bound_node = node
+        gangs[job_key(info)].append(info)
+    return dict(gangs)

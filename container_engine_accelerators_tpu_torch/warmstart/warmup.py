@@ -60,12 +60,17 @@ graphs the pass captures are not persistent compiles; ``ContinuousEngine
 .graph_stats()`` counts them.
 
 The tasks run on the engine-loop thread (``ContinuousEngine.run_on_loop``),
-where every capture of the engine's graphs happens. ``max_tasks`` caps
+where every capture of the engine's graphs happens; a follower rank's
+engine of a ``--tp`` world has no loop, and its replay thread runs them
+(``serve_cli.engine_follower_loop``, right after the link's handshake,
+where rank 0 runs the same plan: every rank's warm collectives in one
+order). ``max_tasks`` caps
 the grid as JAX's does (the rest counted as ``dropped``), and the pass
 ends with JAX's ``warmup_done`` record on the engine's event stream,
 which the goodput ledger (``obs/goodput.py``) charges to ``compile``.
-Not ported yet: the AOT-only path of a multi-host engine (the port has
-no multi-host link).
+A follower rank runs the same plan as rank 0 and executes it: the port
+has no ahead-of-time compile that would leave the collectives out, and
+the handshake orders both passes before any announced op.
 """
 
 import collections
@@ -286,7 +291,12 @@ def warm_engine(engine, mode="all", events=None, max_tasks=None):
             # dur_s covers the device work the tasks enqueued.
             torch.cuda.synchronize(engine.device)
 
-    engine.run_on_loop(run)
+    if engine._thread is None:
+        # A follower rank's engine has no loop: its replay thread is the
+        # only one that touches it.
+        run()
+    else:
+        engine.run_on_loop(run)
     summary = build_summary(mode, len(tasks), len(tasks), 0, dropped,
                             time.perf_counter() - t0, snap0,
                             ws_cache.snapshot())

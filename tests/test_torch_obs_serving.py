@@ -504,6 +504,36 @@ def test_debug_flight_writes_a_bundle(served, monkeypatch, tmp_path):
                for s in snaps for sp in s.get("spans", ()))
 
 
+@pytest.mark.parametrize("path", ["/debug/flight", "/kv/export", "/nope"])
+def test_post_body_is_read_before_the_reply(monkeypatch, path):
+    """A POST whose body arrives after its headers, on the paths that
+    reply without using it (the recorder off, the server not ready, an
+    unknown path): the server reads the body before it closes, so the
+    connection ends with a FIN. A body left unread makes the kernel
+    reset the connection, which can drop the reply itself."""
+    monkeypatch.setattr(tflight, "get", lambda: None)
+    server = ThreadingHTTPServer(("127.0.0.1", 0), tserve.make_handler(
+        object(), {"ready": False}))
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    try:
+        with socket.create_connection(server.server_address,
+                                      timeout=TIMEOUT_S) as s:
+            s.sendall(f"POST {path} HTTP/1.1\r\nHost: x\r\n"
+                      f"Content-Length: 2\r\n\r\n".encode())
+            time.sleep(0.1)
+            s.sendall(b"{}")
+            reply = b""
+            while chunk := s.recv(65536):
+                reply += chunk
+            time.sleep(0.1)
+            # A reset peer refuses this send (EPIPE); a closed one takes it.
+            s.sendall(b"x")
+    finally:
+        server.shutdown()
+        server.server_close()
+    assert reply.split(b"\r\n", 1)[0].split()[1] in (b"404", b"503")
+
+
 def test_batching_model_observes_coalesced_batches():
     """The micro-batcher's instruments, JAX's families (a stub model)."""
 

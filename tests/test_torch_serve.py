@@ -121,7 +121,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'topology.labels', 'topology.slice', 'topology.placement', "
         "'parallel.pipeline', 'models.pipeline_lm', 'fleet.journeydrill', "
         "'obs.journey', 'parallel.overlap', 'parallel.tensor_parallel', "
-        "'models.tp_lm'}\n"
+        "'models.tp_lm', 'models.tp_serving', 'fleet.linksim', "
+        "'faults.reactor', 'testing.kubeapi'}\n"
         "assert {p.__name__ + '.' + w for w in want} <= set(names), names\n"
         "[importlib.import_module(n) for n in names]\n"
         "import chip_smoke\n"

@@ -21,6 +21,10 @@ scenario on meshes of ``train_cli.build_mesh`` and writes
           merged gradients at JAX's weights
   overlap the ring collective matmuls over a "tp" mesh of the world,
           uni- and bidirectional, forward and gradients
+  serve_tp  ``serve_cli.main(argv)`` of ``<dir>/serve_tp_in.pkl`` on JAX's
+          weights, in a world the process joins itself through the env
+          contract (``serve_world`` sets it; no ``file://`` store): its
+          exit code and the JSON lines it printed
 
 Imports torch and the port only: the tests import this module for its
 inputs and compare against the JAX package themselves.
@@ -448,10 +452,50 @@ def cli_world(argv, workdir, tag, world=2, timeout=240):
     return runs, markers
 
 
+def _serve_tp(rank, workdir):
+    """One rank of ``serve_cli --tp``: the served model's weights are
+    JAX's (``weights.params_from_jax`` of the input's tree), so rank 0's
+    tokens can be held to the JAX server's."""
+    import contextlib
+    import io
+
+    from container_engine_accelerators_tpu_torch.models import serve_cli
+    from container_engine_accelerators_tpu_torch.models import transformer
+    from container_engine_accelerators_tpu_torch.models import weights
+
+    with open(os.path.join(workdir, "serve_tp_in.pkl"), "rb") as f:
+        given = pickle.load(f)
+    cfg = transformer.TransformerConfig(**given["cfg"])
+    whole = weights.params_from_jax(given["tree"], cfg, device="cpu")
+
+    class JaxWeightsModel(serve_cli.Model):
+        def __init__(self, cfg, **kwargs):
+            super().__init__(cfg, weights=whole, **kwargs)
+
+    serve_cli.Model = JaxWeightsModel
+    argv = given.get("argv_of", {}).get(rank, given["argv"])
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = serve_cli.main(argv)
+        err = ""
+    except Exception as e:  # noqa: BLE001 - the test reads it
+        rc, err = 1, f"{type(e).__name__}: {e}"
+    lines = [json.loads(line) for line in out.getvalue().splitlines()
+             if line.startswith("{")]
+    return {"rc": rc, "lines": lines, "error": err}
+
+
 def main(argv):
     scenario, rank, world, workdir = argv
     rank, world = int(rank), int(world)
     sys.path.insert(0, REPO)
+    if scenario == "serve_tp":
+        out = _serve_tp(rank, workdir)
+        with open(os.path.join(workdir, f"{scenario}_rank{rank}.pkl"),
+                  "wb") as f:
+            pickle.dump(out, f)
+        return
     import torch.distributed as dist
 
     dist.init_process_group(
@@ -475,6 +519,47 @@ def main(argv):
     path = os.path.join(workdir, f"{scenario}_rank{rank}.pkl")
     with open(path, "wb") as f:
         pickle.dump(out, f)
+
+
+def serve_world(given, workdir, world=2, timeout=240):
+    """``world`` ranks of the ``serve_tp`` scenario joined through the
+    env contract (one host, ``LOCAL_RANK`` 0..world-1, a free coordinator
+    port) on ``given`` ({"cfg", "tree", "argv"}, and "argv_of": {rank:
+    argv} for ranks that take other flags); returns [(returncode, the
+    rank's output or None, its log)] in rank order. A world that outlives
+    ``timeout`` is killed."""
+    with open(os.path.join(workdir, "serve_tp_in.pkl"), "wb") as f:
+        pickle.dump(given, f)
+    port = free_port()
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("TPU_", "MEGASCALE_", "LOCAL_"))}
+    env.update(OMP_NUM_THREADS="1", PYTHONPATH=REPO, TPU_WORKER_ID="0",
+               TPU_WORKER_HOSTNAMES="127.0.0.1",
+               TPU_COORDINATOR_PORT=str(port), LOCAL_WORLD_SIZE=str(world))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "serve_tp", str(rank),
+         str(world), str(workdir)],
+        env={**env, "LOCAL_RANK": str(rank)}, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for rank in range(world)]
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=timeout)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    runs = []
+    for rank, (proc, log) in enumerate(zip(procs, logs)):
+        path = os.path.join(workdir, f"serve_tp_rank{rank}.pkl")
+        out = None
+        if os.path.exists(path):
+            with open(path, "rb") as f:
+                out = pickle.load(f)
+            os.remove(path)
+        runs.append((proc.returncode, out, log))
+    return runs
 
 
 def spawn(scenario, world, workdir, timeout=300):
