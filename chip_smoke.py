@@ -398,7 +398,8 @@ def time_ms(fn, torch, min_iters=3, budget_ms=300.0):
 # time (PERF.md): each is also timed as a CUDA graph of GRAPH_LAUNCHES
 # launches, which has no host work between the kernels.
 GRAPH_MS_CASES = ("causal_512_b2", "q_base_1536", "paged_sq16_qb1040",
-                  "paged_sq64_qb2000", "verify_b8_sq16", "draft_d32_sq512",
+                  "paged_sq64_qb2000", "verify_b8_sq16", "tp8_verify_b8_sq16",
+                  "draft_d32_sq512",
                   "dense_seg_sq512_qb2560", "bert_large_s512")
 # Backward cases timed the same way, each kernel apart (dq_graph_ms,
 # dkv_graph_ms): BERT-large's dq and dk/dv read about 50 µs of host time
@@ -479,12 +480,19 @@ TP_LOCAL_CASE = ("tp_local_s4096", 1, 4096, 4096, True, 0, 0, None, 8, 2,
 # heads, 1 key/value head a rank): a 512-token segment.
 TP_SERVE_CASE = ("tp8_serve_sq512", 1, 512, 512, True, 0, 0, None, 4, 1,
                  128, "bfloat16")
+# serve_tp's verify under --speculate at tp 8 (4 query heads, 1 key/value
+# head a rank): verify_b8_sq16's batch of 8 rows at their own decode
+# positions, read from device memory, over the 2048-token window.
+TP_VERIFY_CASE = ("tp8_verify_b8_sq16", 8, 16, 2048, True,
+                  [1040 + 137 * i for i in range(8)], 0, None, 4, 1, 128,
+                  "bfloat16")
 KERNEL_CASES = [
     ("causal_512_b2", 2, 512, 512, True, 0, 0, None, 32, 8, 128, "bfloat16"),
     ("causal_2048", 1, 2048, 2048, True, 0, 0, None, 32, 8, 128, "bfloat16"),
     PIPELINE_CASE,
     TP_LOCAL_CASE,
     TP_SERVE_CASE,
+    TP_VERIFY_CASE,
     ("causal_8192", 1, 8192, 8192, True, 0, 0, None, 32, 8, 128, "bfloat16"),
     # Past 8192 keys the JAX package switches to its streaming forward.
     ("causal_16384", 1, 16384, 16384, True, 0, 0, None, 32, 8, 128,
@@ -1400,15 +1408,17 @@ def _serve_tp_traffic(np, vocab):
 
 
 def _serve_tp_engine(torch, serve_cli, attention, model, kv_cache, prompts,
-                     max_new, warmup_mode, keep_logits=False):
-    """``kv_cache``'s engine (serve_paged's settings) on ``model`` behind
-    the HTTP server under ``warmup_mode``, serve_paged's traffic order.
+                     max_new, warmup_mode, keep_logits=False,
+                     speculate="off"):
+    """``kv_cache``'s engine (serve_paged's settings, ``speculate``) on
+    ``model`` behind the HTTP server under ``warmup_mode``, serve_paged's
+    traffic order; prompts beyond serve_paged's are posted last, at once.
     Returns (streams, the engine's readings, the kept final-segment
     logits)."""
     kw = dict(kv_block_size=16) if kv_cache == "paged" else {}
     engine = serve_cli.ContinuousEngine(
         model, max_slots=8, chunk=32, prefill_chunk=512, kv_cache=kv_cache,
-        **kw)
+        speculate=speculate, **kw)
     finals = []
     if keep_logits and kv_cache == "paged":
         paged_prefill = engine._paged_prefill
@@ -1450,6 +1460,11 @@ def _serve_tp_engine(torch, serve_cli, attention, model, kv_cache, prompts,
             futures.append(pool.submit(post, "long_3000"))
             for f in futures:
                 f.result(timeout=600)
+        rest = [n for n in prompts if n not in results]
+        if rest:
+            with concurrent.futures.ThreadPoolExecutor(len(rest)) as pool:
+                for f in [pool.submit(post, n) for n in rest]:
+                    f.result(timeout=600)
     finally:
         server.shutdown()
         server.server_close()
@@ -1466,6 +1481,11 @@ def _serve_tp_engine(torch, serve_cli, attention, model, kv_cache, prompts,
         / max(stats["t_chunk_s"], 1e-9),
         **engine.graph_stats(),
     }
+    if speculate != "off":
+        readings.update({k: stats[k] for k in (
+            "spec_verifies", "spec_proposed", "spec_accepted")})
+        readings["verify_device_ms"] = engine.t_verify_device_s / max(
+            stats["spec_verifies"], 1) * 1e3
     engine.shutdown()
     return results, readings, finals
 
@@ -1512,6 +1532,67 @@ def _hold_logit_row(row, phase, what):
              f"{SERVE_LOGITS_ATOL} or a decided argmax differs")
 
 
+def _serve_tp_spec_traffic(np, vocab, prompts, max_new):
+    """serve_paged's traffic and two of serve_spec's requests (a 32-token
+    pattern of its own repeated to 512 tokens, SPEC_NEW new tokens), so
+    the ngram proposer has something to propose whatever the random
+    weights generate."""
+    rng = np.random.default_rng(7)
+    prompts, max_new = dict(prompts), dict(max_new)
+    for i in range(2):
+        pattern = rng.integers(0, vocab, SPEC_PATTERN)
+        prompts[f"pattern_{i}"] = np.tile(
+            pattern, SPEC_PROMPT // SPEC_PATTERN).tolist()
+        max_new[f"pattern_{i}"] = SPEC_NEW
+    return prompts, max_new
+
+
+def _tp_handoff(torch, tf, serve_cli, model, ref, prompts, new):
+    """A KV handoff round trip between the tp engine and the unsplit one
+    (paged, serve_paged's settings): each donor serves its prompt, exports
+    it on JAX's wire, the other installs it and serves the same prompt
+    from the installed blocks; every continuation is held to its donor's
+    stream by the margin rule. Returns the readings."""
+    def engine(m):
+        return serve_cli.ContinuousEngine(
+            m, max_slots=8, chunk=32, prefill_chunk=512, kv_cache="paged",
+            kv_block_size=16)
+
+    tp_eng, un_eng = engine(model), engine(ref)
+    out = {}
+    try:
+        for name, donor, taker in (("tp_to_unsplit", tp_eng, un_eng),
+                                   ("unsplit_to_tp", un_eng, tp_eng)):
+            prompt = prompts[name]
+            want = donor.generate([prompt], new)[0]
+            t0 = time.perf_counter()
+            frames = donor.kv_export(prompt, timeout_s=120)
+            export_s = time.perf_counter() - t0
+            hit0 = taker.kv_stats()["prefix_hit_tokens"]
+            t0 = time.perf_counter()
+            installed = taker.kv_install(frames, timeout_s=120)
+            install_s = time.perf_counter() - t0
+            got = taker.generate([prompt], new)[0]
+            hit = taker.kv_stats()["prefix_hit_tokens"] - hit0
+            blocks = installed["installed_blocks"]
+            out[name] = {"prompt_len": len(prompt), "blocks": blocks,
+                         "nbytes": installed["nbytes"], "export_s": export_s,
+                         "install_s": install_s, "prefix_hit_tokens": hit,
+                         "partings": _margin_partings(
+                             torch, tf, ref, {name: prompt}, {name: got},
+                             {name: want}, f"serve_tp_handoff_{name}")}
+            # An admission reuses at most len - 1 tokens, in whole blocks.
+            if blocks != len(prompt) // 16 or \
+                    hit < 16 * ((len(prompt) - 1) // 16):
+                fail(f"serve_tp handoff {name}: {blocks} blocks installed, "
+                     f"{hit} prefix tokens reused, for a "
+                     f"{len(prompt)}-token prompt")
+    finally:
+        tp_eng.shutdown()
+        un_eng.shutdown()
+    return out
+
+
 def serve_tp_phase(torch, np, tf, serve_cli, attention, int8_matmul, card):
     """Tensor-parallel serving at Llama-3-8B's full width, tp 8 (the demo
     manifest's ``--tp=8``: 4 query and 1 key/value heads, d_ff 1792 a
@@ -1526,10 +1607,17 @@ def serve_tp_phase(torch, np, tf, serve_cli, attention, int8_matmul, card):
     2048-token prompt, divisible by 8) and both against the unsplit
     prefill, int8 under tp against unsplit int8 (``Model.generate``), the
     flash kernel launched layers × tp times a prefill call, and every
-    decode step a replay (one graph holds the 8 ranks' steps). TTFT and
-    ms a decode step are in-process figures (8 ranks' kernels on one
-    card), no cross-card number. Returns (flash launches, int8 launches)
-    of the tp paths."""
+    decode step a replay (one graph holds the 8 ranks' steps). The paged
+    tp engine under ``--speculate ngram`` (serve_paged's traffic and two
+    of serve_spec's pattern requests) is held to the unsplit
+    non-speculating engine by the same margin rule, its verify rounds
+    replays of captured graphs (the flash kernel at 4 query and 1
+    key/value heads a rank, per-row bases in device memory); a KV handoff
+    round trip (tp to unsplit and back, JAX's wire) serves each prompt
+    from the installed blocks to its donor's stream. TTFT and ms a decode
+    step are in-process figures (8 ranks' kernels on one card), no
+    cross-card number. Returns (flash launches, int8 launches) of the tp
+    paths."""
     cfg = dataclasses.replace(tf.TransformerConfig.llama3_8b(),
                               n_layers=SERVE_TP_LAYERS)
     per_call = cfg.n_layers * SERVE_TP
@@ -1557,24 +1645,45 @@ def serve_tp_phase(torch, np, tf, serve_cli, attention, int8_matmul, card):
         if kv == "paged":
             finals = kept
         _free(torch)
-    flash_launches = attention.flash_fwd_launches
+    spec_prompts, spec_new = _serve_tp_spec_traffic(np, cfg.vocab_size,
+                                                    prompts, max_new)
+    got, readings, _ = _serve_tp_engine(
+        torch, serve_cli, attention, model, "paged", spec_prompts, spec_new,
+        "all", speculate="ngram")
+    runs["paged_spec"] = (got, readings)
+    _free(torch)
+    # Verify launches run inside the verify graphs' replays: layers × tp
+    # flash launches each, counted at capture, not at replay.
+    verify_replays = readings["verify_graph_replays"] - \
+        readings["at_ready"]["verify_graph_replays"]
+    verify_launches = per_call * verify_replays
+    flash_launches = attention.flash_fwd_launches + verify_launches
     if attention.flash_dq_launches or attention.flash_dkv_launches:
         fail("serve_tp: a backward kernel launched while serving")
+    if not readings["spec_verifies"] or \
+            verify_replays != readings["spec_verifies"]:
+        fail(f"serve_tp paged_spec: {readings['spec_verifies']} verifies, "
+             f"{verify_replays} verify replays")
     for kv, (got, r) in runs.items():
-        for name, prompt in prompts.items():
+        traffic = spec_prompts if kv == "paged_spec" else prompts
+        for name, prompt in traffic.items():
             _check_response(f"serve_tp {kv} {name}", {"tokens": [got[name]]},
-                            prompt, max_new[name], cfg.vocab_size)
+                            prompt, spec_new[name], cfg.vocab_size)
         served = r["n_prefills"] - r["at_ready"]["n_prefills"]
         if r["launches"] - r["at_ready"]["launches"] != per_call * served:
             fail(f"serve_tp {kv}: {r['launches'] - r['at_ready']['launches']}"
-                 f" flash launches for {served} prefill calls, want "
-                 f"{per_call} (layers × tp) each")
-        if r["eager_chunks_on_cuda"] or \
+                 f" flash launches outside graphs for {served} prefill "
+                 f"calls, want {per_call} (layers × tp) each")
+        replays = r["graph_replays"] + r.get("verify_graph_replays", 0) - \
+            r["at_ready"]["graph_replays"] - \
+            r["at_ready"].get("verify_graph_replays", 0)
+        if r["eager_chunks_on_cuda"] or r.get("eager_verifies_on_cuda") or \
                 r["graph_captures"] != r["at_ready"]["graph_captures"] or \
-                r["graph_replays"] - r["at_ready"]["graph_replays"] != \
-                r["steps_done"] - r["at_ready"]["steps_done"]:
-            fail(f"serve_tp {kv}: a decode step ran eagerly or a graph was "
-                 f"captured during the traffic: {r}")
+                r.get("verify_graph_captures") != \
+                r["at_ready"].get("verify_graph_captures") or \
+                replays != r["steps_done"] - r["at_ready"]["steps_done"]:
+            fail(f"serve_tp {kv}: a decode step or a verify ran eagerly or "
+                 f"a graph was captured during the traffic: {r}")
 
     # The reference: the unsplit engines on the same weights and depth.
     partings = {}
@@ -1584,6 +1693,20 @@ def serve_tp_phase(torch, np, tf, serve_cli, attention, int8_matmul, card):
         partings[kv] = _margin_partings(torch, tf, ref, prompts,
                                         runs[kv][0], want, f"serve_tp_{kv}")
         _free(torch)
+    # The speculating engine against the unsplit paged engine's streams
+    # (the same requests, in the same batches) and, for the pattern
+    # requests posted after them, the unsplit Model.generate's.
+    want.update({n: ref.generate([spec_prompts[n]], spec_new[n])[0]
+                 for n in spec_prompts if n not in prompts})
+    partings["paged_spec"] = _margin_partings(
+        torch, tf, ref, spec_prompts, runs["paged_spec"][0], want,
+        "serve_tp_paged_spec")
+    _free(torch)
+    handoff = _tp_handoff(
+        torch, tf, serve_cli, model, ref,
+        {"tp_to_unsplit": spec_prompts["shared_0"][:512],
+         "unsplit_to_tp": spec_prompts["long_3000"][:512]}, 32)
+    _free(torch)
     logit_rows = _hold_final_logits(torch, tf, ref, "serve_tp", prompts,
                                     {n: {"tokens": [s]} for n, s in
                                      runs["paged"][0].items()}, finals)
@@ -1642,6 +1765,11 @@ def serve_tp_phase(torch, np, tf, serve_cli, attention, int8_matmul, card):
                   "graph holds all 8 ranks' steps",
           "dense": figures(runs["dense"][1]),
           "paged": figures(runs["paged"][1]),
+          "paged_spec": {**figures(runs["paged_spec"][1]), **{
+              k: runs["paged_spec"][1][k] for k in (
+                  "spec_verifies", "spec_proposed", "spec_accepted",
+                  "verify_device_ms", "verify_graph_replays")}},
+          "verify_flash_launches": verify_launches, "handoff": handoff,
           "partings": partings, "final_logits": logit_rows,
           "prefill_logits": prefill_rows, "int8_partings": int8_partings,
           "int8_prefill_logits": int8_row, "tol": SERVE_LOGITS_ATOL,
@@ -4087,17 +4215,27 @@ def train_cli_cache_phase(card):
              f"new library")
 
 
+# The reduced tenant day of fleet_drills (JAX's CLI default is 150000,
+# its tier-1 twin's 20000).
+DAY_REQUESTS = 8000
+
+
 def fleet_drills_phase():
     """The port's hermetic fleet tier on this machine's CPU (fake device
     seams, no card), at each CLI's defaults: the replica-kill chaos drill
     (``fleet/sim.py``), the restart storm (``faults/storm.py``), the
     disaggregation bench (``fleet/disagg.py``, its strict timing gates
-    on) and the request-journey drill (``fleet/journeydrill.py``, its
-    stage-sum gate on). Fails on any ``pass: false``."""
+    on), the request-journey drill (``fleet/journeydrill.py``, its
+    stage-sum gate on), the flight drill (``fleet/flightdrill.py``: a
+    wedged link, one bundle, the wedge attributed first) and a reduced
+    tenant day (``fleet/daysim.py`` at DAY_REQUESTS). Fails on any
+    ``pass: false``."""
     import tempfile
 
     from container_engine_accelerators_tpu_torch.faults import storm
+    from container_engine_accelerators_tpu_torch.fleet import daysim
     from container_engine_accelerators_tpu_torch.fleet import disagg
+    from container_engine_accelerators_tpu_torch.fleet import flightdrill
     from container_engine_accelerators_tpu_torch.fleet import journeydrill
     from container_engine_accelerators_tpu_torch.fleet import sim
 
@@ -4110,6 +4248,9 @@ def fleet_drills_phase():
             work_dir=tempfile.mkdtemp(prefix="chip_smoke_storm_")),
         "disagg": lambda: disagg.run_bench(),
         "journey": lambda: journeydrill.run_drill()[0],
+        "flight": lambda: flightdrill.run_flight_drill(
+            tempfile.mkdtemp(prefix="chip_smoke_flight_")),
+        "day": lambda: daysim.run_day(requests=DAY_REQUESTS),
     }
     keep = {
         "chaos": ("requests", "served", "retired", "reissued", "ejections",
@@ -4122,6 +4263,12 @@ def fleet_drills_phase():
         "journey": ("measured", "stitched", "stitch_ratio", "journeys",
                     "hedged_with_leg", "handoff_journeys", "exemplar",
                     "sum_mismatches", "stage_percentiles"),
+        "flight": ("trigger", "snapshots", "first_anomaly",
+                   "first_anomaly_rel_s", "correlated_kinds"),
+        "day": ("requests_total", "served", "retired", "premium_goodput",
+                "expected_quota_sheds", "phase_shed", "hedged",
+                "scale_outs", "scale_ins", "reconcile", "replicas_final",
+                "fairness_audit"),
     }
     failed = []
     for name, run in drills.items():
@@ -5615,6 +5762,77 @@ def train_dist_phase(card):
     return dist["launches"]
 
 
+class _HeldRankMesh:
+    """The mesh view ``parallel/data_parallel`` reads (axis names, sizes,
+    this rank's coordinates) of one rank of a {"dp": 1, "sp": sp} mesh,
+    held in this process: a model whose sp ranks are replicas reduces over
+    dp alone, a group of one, so no process group is needed to run each
+    rank's step here."""
+
+    def __init__(self, sizes, coords):
+        self.mesh_dim_names = tuple(sizes)
+        self.shape = tuple(sizes.values())
+        self._coords = coords
+
+    def get_local_rank(self, name):
+        return self._coords[name]
+
+    def get_group(self, name):
+        raise RuntimeError(f"the {name} group of a rank held in process")
+
+
+BERT_SP = 2
+
+
+def train_bert_sp(torch, np, attention, card):
+    """``train_cli --sp 2 --model bert``'s step, every rank in this
+    process: BERT-large cut to 2 layers (bf16, B 8, S 512), each sp rank's
+    ``bert.make_train_step`` on its mesh coordinates (the whole batch, the
+    gradients summed over dp alone) against the unsplit step from the
+    same weights, loss and every gradient held to TRAIN_GRAD_TOL; each
+    rank's step runs the non-causal flash forward, dq and dk/dv once a
+    layer. Returns the ranks' launches (fwd, dq, dkv)."""
+    from container_engine_accelerators_tpu_torch.models import bert
+
+    cfg = dataclasses.replace(bert.BertConfig.bert_large(), n_layers=2)
+    batch = bert.synthetic_mlm_batch(np.random.default_rng(1), 8, cfg,
+                                     device="cuda")
+
+    def step(mesh):
+        init_state, train_step = bert.make_train_step(cfg, device="cuda",
+                                                      mesh=mesh)
+        state = init_state(seed=0)
+        state, loss = train_step(state, batch)
+        return loss.item(), {
+            n: p.grad.clone() if p.grad is not None else torch.zeros_like(p)
+            for n, p in state[0].named_parameters()}
+
+    want_loss, want = step(None)
+    _zero_flash_counts(attention)
+    ranks = []
+    for r in range(BERT_SP):
+        loss, grads = step(_HeldRankMesh({"dp": 1, "sp": BERT_SP, "tp": 1},
+                                         {"dp": 0, "sp": r, "tp": 0}))
+        bad, errs = _grad_errors(torch, grads, want)
+        ranks.append({"rank": r, "loss": loss, "bad": bad, **errs})
+        del grads
+    launches = _flash_counts(attention)
+    emit({"phase": "train_bert_sp", **card, "model": "bert-large",
+          "n_layers": cfg.n_layers, "sp": BERT_SP, "batch": 8,
+          "seq_len": cfg.max_seq_len, "dtype": "bfloat16",
+          "unsplit_loss": want_loss, "ranks": ranks, "tol": TRAIN_GRAD_TOL,
+          "launches_fwd_dq_dkv": launches})
+    for row in ranks:
+        if row["bad"] or not math.isfinite(row["loss"]) or \
+                abs(row["loss"] - want_loss) > TRAIN_GRAD_TOL["loss_abs"]:
+            fail(f"train_bert_sp: rank {row['rank']}'s loss or gradients "
+                 f"{row['bad']} disagree with the unsplit step")
+    if launches != (cfg.n_layers * BERT_SP,) * 3:
+        fail(f"train_bert_sp: fwd/dq/dkv launched {launches} times, want "
+             f"{cfg.n_layers} a rank each")
+    return launches
+
+
 # The single-card qualification rows (collectives/device_bench.py) in the
 # order the JAX package's bench.py runs them on one chip, with its
 # arguments, plus what it leaves out: the int8 decode row and the
@@ -6078,6 +6296,8 @@ def main():
         torch, np, tf, serve_cli, attention, int8_matmul, card)
     _free(torch)
     train_dist_launches = train_dist_phase(card)
+    bert_sp_launches = train_bert_sp(torch, np, attention, card)
+    _free(torch)
     compile_cache_phase(card)
     train_cli_cache_phase(card)
     hostbench_phase()
@@ -6097,6 +6317,7 @@ def main():
                 "tensor_parallel": tp_launches,
                 "expert_parallel": ep_launches,
                 "train_dist": train_dist_launches,
+                "train_bert_sp": bert_sp_launches,
                 "device_bench": tuple(bench_launches[k] for k in (
                     "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))}
     int8_launches["device_bench"] = bench_launches["int8_mm"]
@@ -6197,6 +6418,11 @@ def main():
             "tp_local": tp_shape("fwd", tp_fwd["max_abs_err_out"]),
             "tp_serve": case_shape(TP_SERVE_CASE[0], "fwd",
                                    rows[TP_SERVE_CASE[0]]["max_abs_err_out"]),
+            "tp_verify": {**case_shape(
+                TP_VERIFY_CASE[0], "fwd",
+                rows[TP_VERIFY_CASE[0]]["max_abs_err_out"]),
+                "host_us": rows[TP_VERIFY_CASE[0]]["host_us"],
+                "graph_ms": rows[TP_VERIFY_CASE[0]]["graph_ms"]},
         },
         {
             "name": "flash_bwd_dq", "route": "cuda",

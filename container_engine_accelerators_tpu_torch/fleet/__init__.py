@@ -24,7 +24,12 @@ and the hermetic tier on the port's engines (fake device seams, the CPU):
     to the stage to blame;
   * :mod:`.linksim` — the lockstep engine link's multi-rank harness and
     its chaos drill (byte identity, follower kill with the fleet
-    reactor, corrupt broadcast, leader stall).
-
-Not ported yet (ROADMAP.md): ``daysim`` and ``flightdrill``.
+    reactor, corrupt broadcast, leader stall);
+  * :mod:`.flightdrill` — the flight-recorder drill: a wedged link, one
+    bundle, and the postmortem analyzer (``obs/postmortem.py``) naming
+    the wedge first;
+  * :mod:`.daysim` — the tenant-SLO day: three tenant classes through
+    a scripted day of bursts, replica kills, hedging, an autoscaler
+    restart and a fairness audit, on real pods of the in-process kube
+    API server.
 """

@@ -335,7 +335,8 @@ def make_train_step(cfg, optimizer=None, device="cuda", mesh=None):
         """One step in place; returns (state, loss)."""
         model, opt = state
         loss = data_parallel.train_step(
-            model, opt, lambda: local_loss(model, batch, mesh), mesh)
+            model, opt, lambda: local_loss(model, batch, mesh), mesh,
+            data_parallel.BATCH_AXES)
         return state, loss
 
     return init_state, train_step
@@ -380,8 +381,10 @@ def make_tp_train_step(cfg, axes, mesh=None, optimizer=None, device="cuda",
         losses = [_mlm_loss(s, x, get["labels"], get["mlm_mask"], denom)
                   for s, x in zip(shards, hidden)]
         sum(losses).backward()
-        tpar.reduce_grads(shards, axes, mesh, lambda name: False)
-        loss = data_parallel.sum_loss(losses[0], mesh)
+        tpar.reduce_grads(shards, axes, mesh, lambda name: False,
+                          data_axes=data_parallel.BATCH_AXES)
+        loss = data_parallel.sum_loss(losses[0], mesh,
+                                      data_parallel.BATCH_AXES)
         opt.step()
         return state, loss
 

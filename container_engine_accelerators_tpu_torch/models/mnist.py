@@ -102,7 +102,8 @@ def make_train_step(optimizer=None, device="cuda", mesh=None):
         model, opt = state
         loss = data_parallel.train_step(
             model, opt, lambda: data_parallel.mean_loss_share(
-                loss_fn, model, batch, mesh), mesh)
+                loss_fn, model, batch, mesh), mesh,
+            data_parallel.BATCH_AXES)
         return state, loss
 
     return init_state, train_step

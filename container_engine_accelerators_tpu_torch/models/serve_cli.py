@@ -147,9 +147,17 @@ other ranks replay them (``engine_follower_loop``); without it,
 it. ``--link-timeout-s`` bounds every link collective: a rank that
 vanishes gives ``link_wedged`` on the engine's stream, rank 0 fails its
 requests in flight and exits for its supervisor (``_wedge_abort``).
-``--speculate`` falls back to off under ``--tp``, as in JAX; a linked
-engine declines KV handoff. ``fleet/linksim.py`` drives the link's
-faults hermetically. A model with
+On one host (every rank under one name of the worker-identity
+contract, JAX's one-process ``--tp``) the linked engine keeps what
+JAX's does there: ``--speculate`` (rank 0 proposes, every rank replays
+each verify round and the token its accept leaves), KV handoff on
+JAX's wire (an export gathers every rank's heads to rank 0, an install
+is verified there and each rank writes its own heads) and
+``--step-retries`` (a fault before the dispatch's announce is retried;
+one after is not). A world across hosts refuses all three, with JAX's
+messages (``--speculate`` falls back to off). ``fleet/linksim.py``
+drives the link's faults hermetically; ``fleet/flightdrill.py`` wedges
+it and reads the flight recorder's bundle. A model with
 experts (``n_experts > 0``, which only training builds: the JAX server
 has no flag that reaches them) is refused by ``Model``, the engines and
 ``--quantize int8``.
@@ -751,6 +759,15 @@ _OP_KV_DROP = 12
 _OP_KV_RESET = 13
 _OP_PAGED_PREFILL = 14
 _OP_PAGED_CHUNK = 15
+# The port's one-host additions (JAX refuses all three under its link,
+# which only a world across hosts has): a speculating engine's batched
+# verify and the last token its accept leaves in ``last_dev``, and the
+# two halves of a KV handoff (an export's gather of every rank's heads,
+# an install's bytes).
+_OP_PAGED_VERIFY = 16
+_OP_SPEC_ACCEPT = 17
+_OP_KV_EXPORT = 18
+_OP_KV_INSTALL = 19
 
 # The bounded op-name enum of the link ops counter's label.
 _OP_NAMES = {
@@ -761,7 +778,9 @@ _OP_NAMES = {
     _OP_KV_COW: "kv_cow", _OP_KV_RELEASE: "kv_release",
     _OP_KV_FINISH: "kv_finish", _OP_KV_DROP: "kv_drop",
     _OP_KV_RESET: "kv_reset", _OP_PAGED_PREFILL: "paged_prefill",
-    _OP_PAGED_CHUNK: "paged_chunk",
+    _OP_PAGED_CHUNK: "paged_chunk", _OP_PAGED_VERIFY: "paged_verify",
+    _OP_SPEC_ACCEPT: "spec_accept", _OP_KV_EXPORT: "kv_export",
+    _OP_KV_INSTALL: "kv_install",
 }
 
 # Header layout: [0] op, [1..7] its args, [8] op_seq (monotone: a dropped
@@ -962,6 +981,9 @@ class LockstepEngineLink:
         # (op_seq, rank) pairs already reported wedged.
         self._wedged_ops = set()
         self._watchdog = LinkWatchdog(self) if self.timeout_s else None
+        # Per thread: the ops this thread announced (a step retry asks
+        # whether its failed attempt committed the followers to anything).
+        self._announced = threading.local()
         self._m_ops = self._m_wedges = self._m_desyncs = None
         self._m_wait = None
         if registry is not None:
@@ -988,6 +1010,44 @@ class LockstepEngineLink:
 
     def _bcast(self, payload):
         return _host_broadcast(payload, self.group)
+
+    @property
+    def spans_hosts(self):
+        """Whether the world's ranks sit on more than one host: the
+        port's counterpart of JAX's ``jax.process_count() > 1``, the one
+        case where JAX builds its link and refuses speculation, KV
+        handoff and step retries over it. On one host the port's linked
+        world keeps all three, as JAX's one-process ``--tp`` does."""
+        return len({h for h in self.rank_hosts if h}) > 1
+
+    def announced_here(self):
+        """How many ops the calling thread has announced so far."""
+        return getattr(self._announced, "n", 0)
+
+    def gather(self, tensor):
+        """Every rank's ``tensor`` (one shape and dtype on every rank, on
+        the host) on rank 0, in rank order; None on the other ranks: the
+        collective of the op just announced (or received), over the gloo
+        group under the same watchdog. An in-process transport carries
+        broadcasts only."""
+        import torch.distributed as dist
+
+        if self.transport is not None:
+            raise LinkError("the link's transport carries broadcasts only: "
+                            "no gather for a KV export")
+        op_seq = self._seq - 1 if self.rank == 0 else (self._expect or 0) - 1
+
+        def call():
+            out = None
+            if self.rank == 0:
+                out = [torch.empty_like(tensor) for _ in range(
+                    dist.get_world_size(self.group))]
+            dist.gather(tensor, out, dst=dist.get_global_rank(self.group, 0),
+                        group=self.group)
+            return out
+
+        return self._supervised(_OP_KV_EXPORT, op_seq, None,
+                                send=self.rank == 0, call=call)
 
     def _digest(self, header_i, header_f, a):
         """crc32 over the op, its args, the floats and the payload,
@@ -1057,12 +1117,13 @@ class LockstepEngineLink:
         )
 
     def _supervised(self, op, op_seq, payload, send, delay_s=0.0,
-                    watch=True):
+                    watch=True, call=None):
         """One blocking collective under the watchdog; ``send`` picks the
         leader's (True) or a follower's (False) side, which returns the
         received payload. ``watch=False`` (a follower waiting for the next
-        op header, which an idle leader leaves it doing) arms nothing. A
-        broadcast over the gloo group that raises (a peer's process is
+        op header, which an idle leader leaves it doing) arms nothing.
+        ``call`` (a gather) replaces the broadcast of ``payload``. A
+        collective over the gloo group that raises (a peer's process is
         gone) is reported as a wedge and raised as
         :class:`LinkWedgedError`."""
         t0 = time.perf_counter()
@@ -1095,7 +1156,7 @@ class LockstepEngineLink:
                     if (watch and self.timeout_s) else None,
                 )
             try:
-                return self._bcast(payload)
+                return call() if call is not None else self._bcast(payload)
             except RuntimeError as err:
                 self._wedge(self.rank, op, op_seq,
                             time.perf_counter() - t0, culprit=False)
@@ -1126,6 +1187,16 @@ class LockstepEngineLink:
             return (1, int(ints[3]))           # the padded segment
         if op == _OP_PAGED_CHUNK:
             return (2, self.max_slots)         # positions/active
+        if op == _OP_PAGED_VERIFY:
+            # segs, bids, offs and tables (B rows each), then positions.
+            b = int(ints[1])
+            return (4 * b + 1, max(b, int(ints[2]), int(ints[4])))
+        if op == _OP_KV_EXPORT:
+            return (1, max(int(ints[1]), 1))   # the prompt
+        if op == _OP_KV_INSTALL:
+            # The prefix, then each block's K and V bytes as int32 words.
+            return (1 + int(ints[2]),
+                    max(int(ints[1]), int(ints[3]), 1))
         return None                            # header-only ops
 
     def hello(self, digest):
@@ -1155,6 +1226,7 @@ class LockstepEngineLink:
                     a[idx, : row.shape[0]] = row
             op_seq = self._seq
             self._seq += 1
+            self._announced.n = self.announced_here() + 1
             header_i[8] = op_seq
             header_i[9] = self._digest(header_i, header_f, a)
             if self._m_ops is not None:
@@ -1380,6 +1452,50 @@ def _follower_kv_reset(engine, snapshots):
     snapshots.clear()
 
 
+def _gather_kv_heads(link, pools, block_ids):
+    """A linked world's KV export gather: every rank's heads of blocks
+    ``block_ids`` on rank 0, which gets {block id: (K, V)}, host (L,
+    Hkv, block_size, hd) tensors of every head in rank order (rank r
+    holds heads r·Hkv/tp onwards); None on the other ranks."""
+    ids = torch.tensor(block_ids, dtype=torch.long,
+                       device=pools["k"].device)
+    # (2, L, n, heads held, block_size, hd) on the host.
+    local = torch.stack([pools["k"].index_select(1, ids),
+                         pools["v"].index_select(1, ids)]).cpu().contiguous()
+    parts = link.gather(local.view(torch.uint8).reshape(-1))
+    if parts is None:
+        return None
+    whole = torch.cat([p.view(local.dtype).reshape(local.shape)
+                       for p in parts], dim=3)
+    return {int(bid): (whole[0, :, i], whole[1, :, i])
+            for i, bid in enumerate(block_ids)}
+
+
+def _follower_install(engine, ints, arr):
+    """A follower's half of ``_OP_KV_INSTALL``: ``install_prefix``'s
+    manager steps as rank 0 runs them (allocate, adopt into the radix
+    index, drop the transfer's refs), then its own heads of the whole
+    heads' bytes written into the fresh blocks."""
+    n_tokens, n_blocks, words = int(ints[1]), int(ints[2]), int(ints[3])
+    tokens = [int(t) for t in arr[0][:n_tokens]]
+    kv = engine.kv
+    fresh = kv._alloc(n_blocks)
+    kv.radix.insert(tokens, fresh, kv.pool)
+    kv.drop(fresh)
+    if not n_blocks:
+        return
+    ref = engine.cache["k"]
+    first, end = engine._kv_heads_held()
+    shape = (2, ref.shape[0], engine.cfg.n_kv_heads) + tuple(ref.shape[3:])
+    slabs = [torch.frombuffer(bytearray(arr[1 + i][:words].tobytes()),
+                              dtype=torch.uint8).view(ref.dtype)
+             .reshape(shape)[:, :, first:end] for i in range(n_blocks)]
+    k = torch.stack([s[0] for s in slabs], dim=1)
+    v = torch.stack([s[1] for s in slabs], dim=1)
+    engine._write_blocks(engine.cache,
+                         torch.tensor(list(fresh), dtype=torch.long), k, v)
+
+
 def _follower_sync(tensor):
     """Wait for a replayed dispatch's result (a follower keeps pace with
     the leader one op at a time)."""
@@ -1511,6 +1627,31 @@ def engine_follower_loop(engine, link, warm=None):
                     _follower_sync(engine._paged_chunk(
                         engine.kv.tables, arr[0].copy(),
                         arr[1].astype(bool), steps=steps, window=window))
+                elif op == _OP_PAGED_VERIFY:
+                    B, W, window, T = (int(ints[1]), int(ints[2]),
+                                       int(ints[3]), int(ints[4]))
+                    a = arr.astype(np.int64)
+                    _follower_sync(engine._paged_verify(
+                        a[:B, :W], a[4 * B, :B], a[B:2 * B, :W],
+                        a[2 * B:3 * B, :W], a[3 * B:4 * B, :T],
+                        window=window))
+                elif op == _OP_SPEC_ACCEPT:
+                    engine.last_dev[int(ints[1])] = int(ints[2])
+                elif op == _OP_KV_EXPORT:
+                    n, claim = int(ints[1]), int(ints[2])
+                    tokens = [int(t) for t in arr[0][:n]]
+                    matched = engine.kv.radix.match(tokens)
+                    if len(matched) != claim:
+                        link.desync(
+                            int(ints[8]),
+                            f"kv export replay diverged: matched "
+                            f"{len(matched)} blocks != leader's {claim}")
+                    if matched:
+                        _gather_kv_heads(link, engine.cache, matched)
+                    # export_prefix's own lookup on rank 0: the same tick.
+                    engine.kv.radix.match(tokens)
+                elif op == _OP_KV_INSTALL:
+                    _follower_install(engine, ints, arr)
                 else:
                     log.error("engine follower: unknown op %d", op)
             except LinkError:
@@ -1744,8 +1885,10 @@ class ContinuousEngine:
                 "speculative decoding requires kv_cache='paged' (the "
                 "verify step is a paged program)"
             )
-        if speculate != "off" and link is not None:
-            # The per-row propose/verify state machine is single-rank.
+        if speculate != "off" and link is not None and link.spans_hosts:
+            # JAX's refusal, where JAX has a link: a world across hosts.
+            # On one host rank 0 proposes and announces each verify round
+            # (_OP_PAGED_VERIFY, _OP_SPEC_ACCEPT).
             raise ValueError(
                 "speculative decoding is single-host; multi-host "
                 "engines serve paged WITHOUT --speculate"
@@ -1792,21 +1935,7 @@ class ContinuousEngine:
         self.spec_proposer = None
         self.verify_graphs = None
         if speculate != "off":
-            # k moves on the power-of-two grid (one graph per width).
-            self._spec_k_max, self._spec_width = speculate_grid(
-                speculate_k, self.cfg.max_seq_len
-            )
-            # slot -> the row whose proposer state owns it (a deferred
-            # retire sync must not release a successor's).
-            self._spec_owner = {}
-            # Batched verify records dispatched last iteration, synced by
-            # the next _spec_tick: one per window group.
-            self._spec_pending = []
-            self.verify_graphs = serving_graphs.PagedVerifyGraphs(
-                model.model, self.cache, self._spec_width,
-                self.kv.blocks_per_seq, self.kv.block_size,
-            )
-            self._paged_verify = self.verify_graphs
+            self._init_verify(speculate_k)
             if spec_proposer is not None:
                 self.spec_proposer = spec_proposer
             elif speculate == "ngram":
@@ -2068,6 +2197,36 @@ class ContinuousEngine:
         # attribute so allocation-pressure paths can drain them early
         # (their retire snapshots pin blocks until synced).
         self._pending_syncs = []
+
+    def _init_verify(self, speculate_k):
+        """A speculating engine's verify grid and its graphs. A follower
+        rank of a linked world calls it alone: it replays rank 0's verify
+        rounds and runs no proposer."""
+        # k moves on the power-of-two grid (one graph per width).
+        self._spec_k_max, self._spec_width = speculate_grid(
+            speculate_k, self.cfg.max_seq_len
+        )
+        # slot -> the row whose proposer state owns it (a deferred
+        # retire sync must not release a successor's).
+        self._spec_owner = {}
+        # Batched verify records dispatched last iteration, synced by
+        # the next _spec_tick: one per window group.
+        self._spec_pending = []
+        self.verify_graphs = serving_graphs.PagedVerifyGraphs(
+            self.model.model, self.cache, self._spec_width,
+            self.kv.blocks_per_seq, self.kv.block_size,
+        )
+        self._paged_verify = self.verify_graphs
+
+    def _kv_heads_held(self):
+        """(first, end) of the key/value heads this engine's pools hold:
+        all of them, but on a rank of a linked world its own run."""
+        axes = getattr(self.model.model, "axes", None)
+        held = self.cache["k"].shape[2]
+        if axes is None:
+            return 0, held
+        first = axes.tp_index(0) * (self.cfg.n_kv_heads // axes.tp.size)
+        return first, first + held
 
     def _link_lock(self):
         """The announce + dispatch critical section (nothing without a
@@ -2400,19 +2559,17 @@ class ContinuousEngine:
             raise kv_handoff.HandoffUnsupported(
                 "dense engine: no paged KV manager to export from"
             )
-        if self.link is not None:
-            # A device-bytes install has no replay op: linked replicas
-            # decline, and the router re-prefills.
+        if self.link is not None and self.link.spans_hosts:
+            # JAX's refusal across hosts: linked replicas there decline,
+            # and the router re-prefills.
             raise kv_handoff.HandoffUnsupported(
                 "multi-host paged engine: KV handoff not supported "
                 "over the lockstep link"
             )
         tokens = [int(t) for t in tokens]
         return self._kv_handoff_op(
-            "export", lambda: kv_handoff.export_prefix(
-                self.kv, tokens, src=self.replica_id,
-                block_bytes=self._kv_block_bytes, traceparent=traceparent,
-            ), timeout_s)
+            "export", lambda: self._export_on_loop(tokens, traceparent),
+            timeout_s)
 
     def kv_install(self, frames, timeout_s=2.0):
         """Verify and install a handoff stream (the receiving half, the
@@ -2427,7 +2584,7 @@ class ContinuousEngine:
             raise kv_handoff.HandoffUnsupported(
                 "dense engine: no paged KV manager to install into"
             )
-        if self.link is not None:
+        if self.link is not None and self.link.spans_hosts:
             raise kv_handoff.HandoffUnsupported(
                 "multi-host paged engine: KV handoff not supported "
                 "over the lockstep link"
@@ -2444,22 +2601,63 @@ class ContinuousEngine:
                 f"loop stalled or not running)"
             ) from e
 
+    def _export_on_loop(self, tokens, traceparent):
+        """The loop's half of :meth:`kv_export`. On a rank of a linked
+        world the pools hold its own heads only: the export is announced
+        (``_OP_KV_EXPORT``, the prompt and the blocks matched), every rank
+        looks the prompt up in its own radix index (the same LRU ticks as
+        rank 0's) and sends its heads of the matched blocks to rank 0,
+        which frames the whole heads. The stream is JAX's, byte for byte."""
+        slabs = None
+        if self.link is not None:
+            with self.link.lock:
+                matched = self.kv.radix.match(tokens)
+                self.link.announce(
+                    _OP_KV_EXPORT, ints=(len(tokens), len(matched)),
+                    arr_rows=[np.asarray(tokens, np.int32)])
+                if matched:
+                    slabs = _gather_kv_heads(self.link, self.cache, matched)
+        return kv_handoff.export_prefix(
+            self.kv, tokens, src=self.replica_id,
+            block_bytes=functools.partial(self._kv_block_bytes, slabs=slabs),
+            traceparent=traceparent)
+
     def _install_on_loop(self, frames):
-        """The loop's half of :meth:`kv_install`. The radix index has
-        adopted the blocks when their device copy runs: a failure there
-        resets the pools and the index (``_reset_paged``, as a failed
-        sync does) and is raised, so no adopted block goes unwritten."""
+        """The loop's half of :meth:`kv_install`. ``install_prefix``
+        checks every frame, and every block's bytes are decoded, before
+        anything lands (a bad one leaves the manager and the pools as they
+        were). Under a link the install is then announced with the whole
+        heads (``_OP_KV_INSTALL``), and the other ranks replay its manager
+        steps and write their own heads. The radix index has adopted the
+        blocks when their device copy runs: a failure there resets the
+        pools and the index (``_reset_paged``, as a failed sync does) and
+        is raised, so no adopted block goes unwritten."""
         staged = []
 
         def write(bid, kv):
             staged.append((bid, self._decode_kv_block(kv)))
 
-        result = kv_handoff.install_prefix(self.kv, frames,
-                                           write_block=write)
+        with self._link_lock():
+            result = kv_handoff.install_prefix(self.kv, frames,
+                                               write_block=write)
+            if self.link is not None:
+                tokens = [int(t) for f in frames
+                          if f["op"] == kv_handoff.OP_BLOCK
+                          for t in f["payload"]["tokens"]]
+                # Each block's K then V bytes, as the op's int32 words.
+                words = [np.concatenate([
+                    t.contiguous().view(torch.uint8).numpy().reshape(-1)
+                    for t in kv]).view(np.int32) for _, kv in staged]
+                self.link.announce(
+                    _OP_KV_INSTALL,
+                    ints=(len(tokens), len(words),
+                          len(words[0]) if words else 0),
+                    arr_rows=[np.asarray(tokens, np.int32), *words])
         if staged:
+            first, end = self._kv_heads_held()
             ids = torch.tensor([bid for bid, _ in staged], dtype=torch.long)
-            k = torch.stack([kv[0] for _, kv in staged], dim=1)
-            v = torch.stack([kv[1] for _, kv in staged], dim=1)
+            k = torch.stack([kv[0][:, first:end] for _, kv in staged], dim=1)
+            v = torch.stack([kv[1][:, first:end] for _, kv in staged], dim=1)
             try:
                 self._write_blocks(self.cache, ids, k, v)
                 event = self._timing_event()
@@ -2471,27 +2669,32 @@ class ContinuousEngine:
                 raise
         return result
 
-    def _kv_block_bytes(self, bid):
+    def _kv_block_bytes(self, bid, slabs=None):
         """One block's device bytes as a wire payload, the JAX engine's:
-        the C-order (L, Hkv, block_size, hd) slabs of K and V,
-        little-endian, base64, and the dtype's numpy name. A bf16 slab
-        goes through its bytes (numpy has no bf16), never through f32."""
-        def b64(pool):
-            slab = pool[:, int(bid)].cpu().contiguous()
+        the C-order (L, Hkv, block_size, hd) slabs of K and V of every
+        head, little-endian, base64, and the dtype's numpy name. A bf16
+        slab goes through its bytes (numpy has no bf16), never through
+        f32. ``slabs`` (block id -> (K, V)) are a linked world's gathered
+        heads; without them the pools hold every head."""
+        def b64(slab):
+            slab = slab.cpu().contiguous()
             return base64.b64encode(
                 slab.view(torch.uint8).numpy().tobytes()).decode("ascii")
 
-        return {"k": b64(self.cache["k"]), "v": b64(self.cache["v"]),
+        bid = int(bid)
+        k, v = slabs[bid] if slabs is not None else (
+            self.cache["k"][:, bid], self.cache["v"][:, bid])
+        return {"k": b64(k), "v": b64(v),
                 "dtype": _wire_dtype(self.cache["k"].dtype)}
 
     def _decode_kv_block(self, kv):
         """Inverse of :meth:`_kv_block_bytes` against this engine's cache
-        geometry: host (L, Hkv, block_size, hd) tensors of K and V. A
-        missing payload, another dtype or another byte size is a desync,
-        never a reinterpretation (JAX installs a byte-less block
+        geometry: host (L, Hkv, block_size, hd) tensors of K and V, every
+        head. A missing payload, another dtype or another byte size is a
+        desync, never a reinterpretation (JAX installs a byte-less block
         unwritten; here its pages would decode garbage)."""
         ref = self.cache["k"]
-        shape = (ref.shape[0],) + tuple(ref.shape[2:])
+        shape = (ref.shape[0], self.cfg.n_kv_heads) + tuple(ref.shape[3:])
         want = math.prod(shape) * ref.element_size()
         if not isinstance(kv, dict):
             raise kv_handoff.HandoffDesync(
@@ -2676,19 +2879,31 @@ class ContinuousEngine:
         ``attrs``) and sleeps the backoff on the loop thread, as in JAX.
         ``launched()`` (optional) counts the call's launches: an attempt
         that raised after it moved left state advanced in place and is
-        not retried. Under a link nothing is retried: the announce
-        committed the followers to one dispatch. Returns (the result, the
-        host time the successful attempt started: the dispatch envelope
-        opens there, as in JAX); raises the last attempt's error."""
+        not retried (the port's pools are never donated: this is its form
+        of JAX's guard against retrying once the donated cache is gone).
+        Under a link, every fault site fires before the dispatch's
+        announce (the announce moved after the fault point, rather than a
+        retry op that recommits the followers): an attempt that raised
+        before announcing left every rank as it was and is retried; one
+        that announced committed the followers to its dispatch and is
+        not. Across hosts nothing is retried, as in JAX. Returns (the
+        result, the host time the successful attempt started: the
+        dispatch envelope opens there, as in JAX); raises the last
+        attempt's error."""
+        link = self.link
         attempt = 0
         while True:
             mark = launched() if launched is not None else None
+            sent = link.announced_here() if link is not None else 0
             t0 = time.perf_counter()
             try:
                 return call(), t0
             except Exception as e:  # noqa: BLE001 - retried or re-raised
-                if attempt >= self.step_retries or self.link is not None \
-                        or (launched is not None and launched() != mark):
+                if attempt >= self.step_retries \
+                        or (launched is not None and launched() != mark) \
+                        or (link is not None and (
+                            link.spans_hosts
+                            or link.announced_here() != sent)):
                     raise
                 self._m_retries.inc()
                 delay = self._backoff_delay(attempt)
@@ -3777,8 +3992,13 @@ class ContinuousEngine:
         def call():
             faults.fire("serving.verify", rows=len(entries))
             replays = self.verify_graphs.graphs.replays
-            greedy = self._paged_verify(segs, poss, bids, offs, tables,
-                                        window=window)
+            with self._link_lock():
+                if self.link:
+                    self.link.announce(
+                        _OP_PAGED_VERIFY, ints=(B, W, window, T),
+                        arr_rows=[*segs, *bids, *offs, *tables, poss])
+                greedy = self._paged_verify(segs, poss, bids, offs, tables,
+                                            window=window)
             if self.device.type == "cuda" and \
                     self.verify_graphs.graphs.replays - replays != 1:
                 self.eager_verifies_on_cuda += 1
@@ -3879,8 +4099,12 @@ class ContinuousEngine:
         self.spec_proposer.observe(slot, emitted)
         # The chunk reads a row's token from last_dev: if this row falls
         # back to the chunk, it must find the last emitted token there. In
-        # place: last_dev is a captured graph's buffer.
-        self.last_dev[slot] = emitted[-1]
+        # place: last_dev is a captured graph's buffer. Every rank's must.
+        with self._link_lock():
+            if self.link:
+                self.link.announce(_OP_SPEC_ACCEPT,
+                                   ints=(slot, emitted[-1]))
+            self.last_dev[slot] = emitted[-1]
         if row["remaining"] <= 0:
             blocks = self.kv.release(slot)
             self.occupied[slot] = None
@@ -4565,11 +4789,12 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.speculate != "off" and (
         not args.continuous_batching or args.kv_cache != "paged"
-        or args.tp > 1
+        or (args.tp > 1 and tp_world_spans_hosts())
     ):
         # Speculation rides the paged engine's verify and its host loop,
-        # on one rank: degrade loudly, keep serving (before the compile
-        # cache's key, as in JAX).
+        # on one host (a --tp world there announces its verify rounds):
+        # degrade loudly, keep serving (before the compile cache's key,
+        # as in JAX).
         log.warning("--speculate=%s needs single-host --continuous-batching "
                     "with --kv-cache=paged; falling back to off",
                     args.speculate)
@@ -4776,6 +5001,18 @@ def _wedge_abort(engine_of):
     return on_wedge
 
 
+def tp_world_spans_hosts(env=None):
+    """Whether the worker-identity env contract names more than one host:
+    the port's ``jax.process_count() > 1``, read before the world is
+    joined."""
+    from container_engine_accelerators_tpu_torch.parallel import bootstrap
+
+    env = os.environ if env is None else env
+    hosts = {h.strip() for h in env.get(
+        bootstrap.WORKER_HOSTNAMES_ENV, "").split(",") if h.strip()}
+    return len(hosts) > 1
+
+
 def join_tp_world(args):
     """Join the ``--tp`` world: one process per GPU through the
     worker-identity env contract (``parallel/bootstrap.py``; NCCL on
@@ -4845,6 +5082,9 @@ def _follow(args, model, group, rank, rank_hosts):
         kv_cache=args.kv_cache, kv_block_size=args.kv_block_size,
         kv_blocks=args.kv_blocks,
     )
+    if args.speculate != "off":
+        # Rank 0 proposes; this rank replays its verify rounds.
+        engine._init_verify(args.speculate_k)
     warm = None
     if args.warmup == "all":
         def warm():

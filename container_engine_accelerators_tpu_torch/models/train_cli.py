@@ -47,8 +47,12 @@ over the world. Every model trains data-parallel: every rank draws the
 same global batch (JAX's default size scaled by dp), runs its rows, and
 the gradients are summed over the world once a step after
 ``backward()``; parameters and optimizer state stay replicated. ``--sp``
-(the transformer) shards the sequence: RoPE at global positions and
-ring attention over the sp axis (``parallel/ring_attention.py``). Rank
+shards the transformer's sequence: RoPE at global positions and ring
+attention over the sp axis (``parallel/ring_attention.py``). mnist,
+resnet and BERT batches shard over dp alone, as JAX's do, so their sp
+ranks are replicas: the batch is replicated over sp, the gradients and
+the loss are summed over dp only (``data_parallel.BATCH_AXES``) and
+every rank prints the same loss. Rank
 0 writes the checkpoints; on resume it restores the newest and every
 rank takes that step and state from it, so a directory local to rank
 0's host is enough.
@@ -744,13 +748,9 @@ def build_parser():
 
 
 def _refuse_multi_gpu(args):
-    """Refuse what is not ported: sequence parallelism outside the
-    transformer, and MoE routing across sequence-parallel ranks."""
-    if args.sp > 1 and args.model != "transformer":
-        raise NotImplementedError(
-            f"--sp {args.sp} with --model {args.model}: not ported yet "
-            f"(multi-GPU); the transformer trains sequence-parallel "
-            f"(ROADMAP.md)")
+    """JAX's refusal of MoE routing across sequence-parallel ranks. Every
+    other model takes ``--sp`` as JAX does: mnist, resnet and BERT batches
+    shard over dp alone, so their sp ranks are replicas."""
     if args.model == "transformer":
         tf.check_moe_mesh(config_from_args(args), {"sp": args.sp})
 

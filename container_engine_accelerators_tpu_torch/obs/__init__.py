@@ -36,9 +36,11 @@ The port's fleet tier (``fleet/router.py``, ``fleet/autoscaler.py``,
 ``fleet/sim.py``, ``fleet/journeydrill.py``) emits and evaluates on
 these copies.
 
-The JAX package's jax-free readers ``capacity`` and ``postmortem`` read
-the port's event logs and flight bundles as they are (its ``journey``
-too; tests/test_torch_journey.py), so they are not copied. Not ported
+:mod:`.postmortem`, the flight bundles' analyzer, is copied for the
+port's flight drill (``fleet/flightdrill.py``). The JAX package's
+jax-free reader ``capacity`` reads the port's event logs as they are
+(its ``journey`` too; tests/test_torch_journey.py), so it is not
+copied. Not ported
 yet (ROADMAP.md): ``baseline`` and the ``merge`` CLI. The lockstep
 engine link of tensor-parallel serving (``models/serve_cli.py``) keeps
 its ``tpu_serving_link_*`` families on the engine's registry and its

@@ -11,8 +11,11 @@ this rank's part of it: the loss function scales its local loss so that
 the ranks' losses sum to the global loss, ``backward()`` runs, the
 gradients are summed over the mesh's data axes (dp, then sp: the axes
 that split the batch's tokens) once, in one flat f32 buffer a group, and
-the optimizer steps on every rank alike. A tp or ep axis replicates the
-batch, so its ranks are not summed here: a model whose ranks along it
+the optimizer steps on every rank alike. A model whose batch shards over
+dp alone (mnist, resnet and BERT, whose JAX batches shard over dp only)
+holds replicas along sp, so its steps sum over :data:`BATCH_AXES`, dp
+alone. A tp or ep axis replicates the batch, so its ranks are not summed
+here: a model whose ranks along it
 are replicas (mnist, resnet under ``--tp``) holds the whole gradient on
 each already, and the tensor- and expert-parallel models reduce what
 their tp ranks hold parts of themselves
@@ -67,15 +70,18 @@ def mean_loss_share(loss_fn, model, batch, mesh):
     return loss_fn(model, local) * (rows / len(next(iter(batch.values()))))
 
 
-# The mesh axes that split a global batch's tokens, in reduction order.
+# The mesh axes that split a global batch's tokens, in reduction order:
+# the transformer's (its sequences split over sp), and a model's whose
+# batch splits over dp alone (its sp ranks are replicas).
 DATA_AXES = ("dp", "sp")
+BATCH_AXES = ("dp",)
 
 
-def data_groups(mesh):
-    """The process groups of ``mesh``'s data axes above size 1 (none for
-    no mesh): a sum over each in turn is the sum over every rank that
-    holds other tokens of the batch."""
-    return [mesh.get_group(name) for name in DATA_AXES
+def data_groups(mesh, axes=DATA_AXES):
+    """The process groups of ``mesh``'s data axes ``axes`` above size 1
+    (none for no mesh): a sum over each in turn is the sum over every
+    rank that holds other tokens of the batch."""
+    return [mesh.get_group(name) for name in axes
             if axis(mesh, name)[1] > 1]
 
 
@@ -102,28 +108,28 @@ def sync_grads(params, group=None):
         offset += n
 
 
-def train_step(model, opt, local_loss, mesh):
+def train_step(model, opt, local_loss, mesh, axes=DATA_AXES):
     """One optimizer step → the detached loss. ``local_loss()`` returns
     this rank's share of the global loss (the shares sum to it). Under a
-    mesh the gradients and the loss are summed over its data axes after
-    ``backward()`` (:func:`data_groups`); without one this is the
-    single-device step."""
+    mesh the gradients and the loss are summed over its data axes
+    ``axes`` after ``backward()`` (:func:`data_groups`); without one this
+    is the single-device step."""
     opt.zero_grad(set_to_none=True)
     loss = local_loss()
     loss.backward()
     loss = loss.detach()
     if mesh is not None:
-        for group in data_groups(mesh):
+        for group in data_groups(mesh, axes):
             sync_grads(model.parameters(), group=group)
-        loss = sum_loss(loss, mesh)
+        loss = sum_loss(loss, mesh, axes)
     opt.step()
     return loss
 
 
-def sum_loss(loss, mesh):
+def sum_loss(loss, mesh, axes=DATA_AXES):
     """A rank's share of the global loss summed over the mesh's data
-    axes: the global loss, f32, on every rank."""
+    axes ``axes``: the global loss, f32, on every rank."""
     loss = loss.detach().float()
-    for group in data_groups(mesh):
+    for group in data_groups(mesh, axes):
         dist.all_reduce(loss, group=group)
     return loss

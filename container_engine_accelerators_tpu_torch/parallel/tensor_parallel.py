@@ -415,12 +415,14 @@ def _flat_reduce(transport, grads_by_rank):
             offset += n
 
 
-def reduce_grads(shards, axes, mesh, tp_partial):
+def reduce_grads(shards, axes, mesh, tp_partial,
+                 data_axes=data_parallel.DATA_AXES):
     """After ``backward()``: each parameter named by ``tp_partial(name)``
     (a replicated parameter whose gradient each tp rank holds a part of)
-    summed over tp, then every gradient over the mesh's data axes (dp and
-    sp, ``data_parallel.data_groups``); one flat f32 buffer a group. A
-    parameter without a gradient gets zeros."""
+    summed over tp, then every gradient over the mesh's data axes
+    ``data_axes`` (dp and sp, or dp alone for a model whose sp ranks are
+    replicas: ``data_parallel.data_groups``); one flat f32 buffer a
+    group. A parameter without a gradient gets zeros."""
     for shard in shards:
         for p in shard.parameters():
             if p.requires_grad and p.grad is None:
@@ -431,6 +433,6 @@ def reduce_grads(shards, axes, mesh, tp_partial):
                    for shard in shards]
         if partial[0]:
             _flat_reduce(axes.tp, partial)
-    for group in data_parallel.data_groups(mesh):
+    for group in data_parallel.data_groups(mesh, data_axes):
         for shard in shards:
             data_parallel.sync_grads(shard.parameters(), group=group)

@@ -780,7 +780,91 @@ def _drive(serve_cli, port, prompts, post_timeout):
     with concurrent.futures.ThreadPoolExecutor(len(rest)) as pool:
         for f in [pool.submit(post, n) for n in rest]:
             f.result()
+    rest = [n for n in prompts if n not in tokens]
+    if rest:
+        with concurrent.futures.ThreadPoolExecutor(len(rest)) as pool:
+            for f in [pool.submit(post, n) for n in rest]:
+                f.result()
     return tokens, wall
+
+
+def _spec_prompts(np, cfg, prompts):
+    """``prompts`` and two requests of a pattern repeated (chip_smoke.py's
+    serve_spec traffic, scaled to the context on the CPU), so the ngram
+    proposer proposes whatever the random weights generate."""
+    rng = np.random.default_rng(7)
+    short = cfg.max_seq_len < 4096
+    period, length, max_new = (4, 16, 8) if short else (32, 512, 64)
+    out = dict(prompts)
+    for i in range(2):
+        pattern = rng.integers(0, cfg.vocab_size, period)
+        out[f"pattern_{i}"] = (np.tile(pattern, length // period).tolist(),
+                               max_new)
+    return out
+
+
+def _post_json(port, path, body, timeout):
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def _metric(port, name):
+    """One unlabelled sample of rank 0's ``/metrics`` (0.0 when absent)."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=30) as r:
+        for line in r.read().decode().splitlines():
+            if line.startswith(name + " "):
+                return float(line.split()[1])
+    return 0.0
+
+
+def _handoff_round_trip(args, serve_cli, cfg, device, port, prompts, got):
+    """A KV handoff round trip between the world (rank 0's HTTP
+    ``/kv/export`` and ``/kv/install``) and one GPU's unsplit engine in
+    this process, on JAX's wire: the world exports a prompt it served and
+    the engine serves it from the installed blocks; the engine exports
+    one it served and the world serves it from the installed blocks.
+    Returns {direction: (the taker's stream, the donor's, its prompt, the
+    row)}."""
+    model = serve_cli.Model(cfg, seed=0, device=str(device))
+    engine = serve_cli.ContinuousEngine(
+        model, max_slots=8, chunk=32, prefill_chunk=512, kv_cache="paged")
+    out = {}
+    try:
+        # The shared prefix (1024 tokens, 64 blocks of Llama-3-8B's 32
+        # layers: about 130 MB of K/V, JSON over HTTP), and the same
+        # reversed, which the world has not served.
+        prompt, max_new = prompts["prefix"]
+        frames = _post_json(port, "/kv/export", {"tokens": prompt},
+                            args.timeout_s)["frames"]
+        hit0 = engine.kv_stats()["prefix_hit_tokens"]
+        installed = engine.kv_install(frames, timeout_s=args.timeout_s) \
+            if frames else {"installed_blocks": 0}
+        mine = engine.generate([prompt], max_new)[0]
+        out["world_to_one_gpu"] = (mine, got["prefix"], prompt, {
+            "frames": len(frames), "installed": installed,
+            "prefix_hit_tokens":
+                engine.kv_stats()["prefix_hit_tokens"] - hit0})
+        prompt = prompt[::-1]
+        donor = engine.generate([prompt], max_new)[0]
+        frames = engine.kv_export(prompt, timeout_s=args.timeout_s)
+        installed = _post_json(port, "/kv/install", {"frames": frames},
+                               args.timeout_s)
+        theirs = serve_cli.post_generate(port, [prompt], max_new,
+                                         timeout=args.timeout_s)
+        out["one_gpu_to_world"] = (theirs["tokens"][0], donor, prompt, {
+            "frames": len(frames), "installed": installed})
+    finally:
+        engine.shutdown()
+        del engine, model
+    return out
 
 
 def _latency(prompts, wall):
@@ -991,6 +1075,78 @@ def _kill_drill(args, tp, base_argv, log_dir, serve_cli, prompts):
         _stop(procs)
 
 
+def _spec_world(args, torch, np, tf, serve_cli, cfg, device, card,
+                base_argv, log_dir, prompts, model, want):
+    """The world at ``--world`` under ``--speculate ngram`` (rank 0
+    proposes, every rank replays the verify rounds): the traffic and two
+    pattern requests held to one GPU's streams (``want``, speculation
+    off) by the margin rule, every rank's verify rounds replays of its
+    captured graphs on CUDA; then a KV handoff round trip with one GPU's
+    engine (``_handoff_round_trip``), each continuation held to its
+    donor's stream by the same rule. Prints the ``serve_tp_spec`` and
+    ``serve_tp_handoff`` rows; returns ok."""
+    import signal
+
+    tp = args.world
+    spec_prompts = _spec_prompts(np, cfg, prompts)
+    port = _free_port()
+    procs, logs = _start_world(
+        args, tp, lambda r: [*base_argv, "--tp", str(tp), "--port",
+                             str(port), "--speculate", "ngram"],
+        log_dir, f"tp{tp}_spec")
+    row = {"check": "serve_tp_spec", "tp": tp, "speculate": "ngram",
+           "n_layers": cfg.n_layers, **card}
+    trips = {}
+    try:
+        if not _wait_ready(port, procs, args.timeout_s):
+            row["error"] = "not ready: " + _tail(logs[0])
+            print(json.dumps(row), flush=True)
+            return False
+        tokens, wall = _drive(serve_cli, port, spec_prompts, args.timeout_s)
+        row["verifies"] = _metric(port, "tpu_serving_spec_verify_steps_total")
+        trips = _handoff_round_trip(args, serve_cli, cfg, device, port,
+                                    prompts, tokens)
+        procs[0].send_signal(signal.SIGINT)
+        rcs = []
+        for proc in procs:
+            try:
+                rcs.append(proc.wait(timeout=120))
+            except subprocess.TimeoutExpired:
+                rcs.append(None)
+    finally:
+        _stop(procs)
+    stats = [_graph_stats(p) for p in logs]
+    if device.type == "cuda":
+        verified = all(s is not None and s.get("verify_graph_replays", 0) > 0
+                       and s.get("eager_verifies_on_cuda") == 0
+                       for s in stats)
+    else:
+        verified = all(s is not None for s in stats)
+    partings = _partings(torch, tf, model, spec_prompts, tokens, want)
+    good = verified and rcs == [0] * tp and row["verifies"] > 0 and \
+        all(r["margin"] < SERVE_MARGIN for r in partings)
+    row.update(requests=len(spec_prompts), exit_codes=rcs,
+               graph_stats=stats, verify_replayed=verified,
+               partings=partings, margin_limit=SERVE_MARGIN, ok=good)
+    if not good:
+        row["rank0_log"] = _tail(logs[0])
+    print(json.dumps(row), flush=True)
+    trip_rows, trips_good = {}, True
+    for name, (got, donor, prompt, info) in trips.items():
+        rows = _partings(torch, tf, model, {name: (prompt, 0)},
+                         {name: got}, {name: donor})
+        trip_good = info["frames"] > 0 and \
+            info["installed"].get("installed_blocks", 0) > 0 and \
+            all(r["margin"] < SERVE_MARGIN for r in rows)
+        trip_rows[name] = {**info, "partings": rows, "ok": trip_good}
+        trips_good = trips_good and trip_good
+    trips_good = trips_good and len(trips) == 2
+    print(json.dumps({"check": "serve_tp_handoff", "tp": tp,
+                      "directions": trip_rows, "ok": trips_good, **card}),
+          flush=True)
+    return good and trips_good
+
+
 def _device_of(args):
     import torch
 
@@ -1007,7 +1163,9 @@ def check_serve_tp(args):
     their captured graphs (the per-layer all-reduces inside them), and
     TTFT and ms a decode step are timed beside one GPU's. Then at
     ``--world``: ``--link-timeout-s`` with a follower SIGKILLed
-    mid-decode (``_kill_drill``). Rank 0's lines are printed by this
+    mid-decode (``_kill_drill``). Then at ``--world``, on one host:
+    ``--speculate ngram`` and a KV handoff round trip with one GPU's
+    engine (``_spec_world``). Rank 0's lines are printed by this
     launcher. Returns ok."""
     import signal
     import tempfile
@@ -1080,7 +1238,8 @@ def check_serve_tp(args):
         ok = ok and good
     if not runs:
         return False
-    model, want, one_gpu = _one_gpu(args, torch, np, cfg, device, prompts)
+    model, want, one_gpu = _one_gpu(args, torch, np, cfg, device,
+                                    _spec_prompts(np, cfg, prompts))
     for (tp, overlap), got in runs.items():
         partings = _partings(torch, tf, model, prompts, got, want)
         good = all(r["margin"] < SERVE_MARGIN for r in partings)
@@ -1090,6 +1249,9 @@ def check_serve_tp(args):
                           "margin_limit": SERVE_MARGIN, "ok": good,
                           "one_gpu": one_gpu, **card}), flush=True)
         ok = ok and good
+    spec = _spec_world(args, torch, np, tf, serve_cli, cfg, device, card,
+                       base_argv, log_dir, prompts, model, want)
+    ok = ok and spec
     del model
     _release(torch, device)
     row, good = _kill_drill(args, args.world, base_argv, log_dir,

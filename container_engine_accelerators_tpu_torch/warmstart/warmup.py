@@ -172,12 +172,14 @@ def _warm_plan_paged(engine):
     segments only ever run at the full ``prefill_chunk``), then one
     decode graph per window; a speculating engine adds its verify graph
     per (batch bucket, width, window), JAX's labels, and a draft
-    proposer's own tasks. No dense program is enumerated: a paged engine
+    proposer's own tasks (rank 0 of a linked world alone runs one). No dense program is enumerated: a paged engine
     never dispatches one. Allocates the tasks' operands (zeros, a few per
     segment length) on the engine's device."""
     cfg = engine.cfg
     bs = engine.kv.block_size
-    speculating = engine.spec_proposer is not None
+    # A follower rank of a linked world has the verify graphs and no
+    # proposer.
+    speculating = getattr(engine, "verify_graphs", None) is not None
     buckets = tf.serving_shape_buckets(
         cfg, engine.prefill_chunk, engine.chunk, block_size=bs,
         speculate_widths=[engine._spec_width] if speculating else None,

@@ -301,12 +301,24 @@ def test_int8_shards_are_the_whole_weight_quantized_and_split(whole, tp):
 
 
 def test_engine_refuses_speculation_under_a_link():
-    link = tserve.LockstepEngineLink(sim._sim_cfg(), 2,
-                                     transport=linksim.LoopbackTransport(1))
+    """A link whose ranks span hosts refuses speculation, as JAX's link
+    (which only a multi-host world has) does; on one host the linked
+    engine speculates: it builds its proposer and its verify graphs
+    (tests/test_torch_tp_link.py serves through them)."""
+    across = tserve.LockstepEngineLink(
+        sim._sim_cfg(), 2, transport=linksim.LoopbackTransport(1),
+        rank_hosts=["host-a", "host-b"])
     with pytest.raises(ValueError, match="single-host"):
         tserve.ContinuousEngine(sim._StubModel(sim._sim_cfg()),
                                 kv_cache="paged", speculate="ngram",
-                                link=link, start_loop=False)
+                                link=across, start_loop=False)
+    one = tserve.LockstepEngineLink(
+        sim._sim_cfg(), 2, transport=linksim.LoopbackTransport(1),
+        rank_hosts=["host-a", "host-a"])
+    eng = tserve.ContinuousEngine(sim._StubModel(sim._sim_cfg()),
+                                  kv_cache="paged", speculate="ngram",
+                                  link=one, start_loop=False)
+    assert eng.spec_proposer is not None and eng.verify_graphs is not None
 
 
 def test_follower_warms_the_same_plan_right_after_the_handshake():
@@ -410,9 +422,10 @@ def test_serve_cli_tp_handshake_mismatch_fails_by_name(tmp_path, cli_jax):
 def test_world_smoke_serve_tp_on_two_gloo_ranks(tmp_path):
     """``parallel/world_smoke.py --checks serve_tp`` (the four-card check)
     at a tiny width over two gloo ranks: the world's greedy streams equal
-    one process's unsplit engine, and with ``--link-timeout-s`` a killed
-    follower makes rank 0 report ``link_wedged`` and exit instead of
-    hanging."""
+    one process's unsplit engine, also under ``--speculate ngram`` and
+    across a KV handoff round trip, and with ``--link-timeout-s`` a
+    killed follower makes rank 0 report ``link_wedged`` and exit instead
+    of hanging."""
     import json
     import subprocess
 
@@ -433,6 +446,14 @@ def test_world_smoke_serve_tp_on_two_gloo_ranks(tmp_path):
     by = {r.get("check"): r for r in rows}
     assert by["serve_tp"]["exit_codes"] == [0, 0]
     assert by["serve_tp_tokens"]["partings"] == []
+    # One host: the world speculates (rank 0 proposes, every rank replays
+    # the verify rounds) and hands KV off both ways with one process's
+    # unsplit engine, every stream within the margin rule.
+    spec = by["serve_tp_spec"]
+    assert spec["ok"] and spec["exit_codes"] == [0, 0], spec
+    handoff = by["serve_tp_handoff"]
+    assert handoff["ok"] and set(handoff["directions"]) == {
+        "world_to_one_gpu", "one_gpu_to_world"}, handoff
     kill = by["serve_tp_kill"]
     assert kill["wedged_after_s"] is not None and kill["request_returned"]
     assert kill["rank0_exit"] == tserve.WEDGE_EXIT_CODE

@@ -190,16 +190,46 @@ def test_train_cli_default_model_is_mnist(capsys):
     assert out["model"] == "mnist" and out["batch_size"] == 64
 
 
-# --sp is ported for the transformer and --distributed for every model
-# (tests/test_torch_train_dist.py), --pp and --microbatches for the
-# transformer (tests/test_torch_pipeline_lm.py), --tp and --ep
-# (tests/test_torch_tp_train.py, test_torch_moe_ep.py); --sp stays
-# refused for the other models.
-@pytest.mark.parametrize("flag", [["--sp", "2", "--model", "mnist"],
-                                  ["--sp", "2", "--model", "bert"]])
-def test_multi_gpu_flags_are_not_ported_yet(flag):
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        train_cli.main(["--model", "transformer", "--device", "cpu", *flag])
+# --sp and --distributed train every model (the step against JAX's on
+# its 2-device mesh: tests/test_torch_train_dist.py), --pp and
+# --microbatches the transformer (tests/test_torch_pipeline_lm.py), --tp
+# and --ep (tests/test_torch_tp_train.py, test_torch_moe_ep.py).
+SP_MODEL_FLAGS = {
+    "mnist": ["--batch-size", "8"],
+    "resnet": ["--batch-size", "4", "--image-size", "16"],
+    "bert": ["--batch-size", "4", "--d-model", "64", "--n-heads", "4",
+             "--n-layers", "2", "--seq-len", "32", "--vocab-size", "128"],
+}
+
+
+@pytest.fixture(scope="module")
+def sp_worlds(tmp_path_factory):
+    """``--sp 2`` with each of mnist, resnet and BERT: gloo worlds of two
+    ranks, one sp group of replicas (their batches shard over dp alone,
+    as JAX's do), run side by side; {model: the ranks' runs}."""
+    import concurrent.futures
+
+    import torch_dist_worker as worker
+
+    def run(model):
+        runs, _ = worker.cli_world(
+            ["--model", model, "--device", "cpu", "--sp", "2", "--steps",
+             "2", *SP_MODEL_FLAGS[model]],
+            str(tmp_path_factory.mktemp(f"sp_{model}")), "sp", world=2)
+        return model, runs
+
+    with concurrent.futures.ThreadPoolExecutor(len(SP_MODEL_FLAGS)) as pool:
+        return dict(pool.map(run, sorted(SP_MODEL_FLAGS)))
+
+
+@pytest.mark.parametrize("model", sorted(SP_MODEL_FLAGS))
+def test_sp_trains_the_models_whose_sp_ranks_are_replicas(sp_worlds, model):
+    """Every rank exits 0 and prints the same finite loss (the step's
+    equality with JAX's on its sp mesh: tests/test_torch_train_dist.py)."""
+    runs = sp_worlds[model]
+    assert [rc for rc, _, _ in runs] == [0, 0], runs[0][2][-2000:]
+    losses = {result["loss"] for _, result, _ in runs}
+    assert len(losses) == 1 and np.isfinite(losses.pop())
 
 
 @pytest.mark.parametrize("flag,world", [

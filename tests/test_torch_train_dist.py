@@ -124,32 +124,32 @@ def _transformer_case():
             "params": params, "batches": batches}, mesh, init, step
 
 
-def _mnist_case():
+def _mnist_case(sp=1):
     params = jmnist.init_params(jax.random.PRNGKey(0))
     rng = np.random.default_rng(12)
     batches = [{"images": rng.standard_normal((8, 28, 28, 1),
                                               dtype=np.float32),
                 "labels": rng.integers(0, 10, 8)} for _ in range(STEPS)]
-    mesh = jtrain_cli.build_mesh(2, 1, 1)
+    mesh = jtrain_cli.build_mesh(2, sp, 1)
     init, step = jmnist.make_train_step(mesh=mesh)
-    return {"model": "mnist", "sp": 1, "params": params,
+    return {"model": "mnist", "sp": sp, "params": params,
             "batches": batches}, mesh, init, step
 
 
-def _bert_case():
+def _bert_case(sp=1):
     cfg = jbert.BertConfig(**BERT_SHAPE)
     params = jbert.init_params(jax.random.PRNGKey(0), cfg)
     rng = np.random.default_rng(13)
     batches = [{k: v.numpy() for k, v in tbert.synthetic_mlm_batch(
         rng, 4, tbert.BertConfig(**BERT_SHAPE)).items()}
         for _ in range(STEPS)]
-    mesh = jtrain_cli.build_mesh(2, 1, 1)
+    mesh = jtrain_cli.build_mesh(2, sp, 1)
     init, step = jbert.make_train_step(cfg, mesh=mesh)
-    return {"model": "bert", "sp": 1, "cfg": BERT_SHAPE, "params": params,
+    return {"model": "bert", "sp": sp, "cfg": BERT_SHAPE, "params": params,
             "batches": batches}, mesh, init, step
 
 
-def _resnet_case():
+def _resnet_case(sp=1):
     model = jresnet.ResNet([1, 1], 10, jnp.float32)
     variables = model.init(jax.random.PRNGKey(0),
                            jnp.zeros((1, IMAGE, IMAGE, 3)), train=False)
@@ -167,19 +167,25 @@ def _resnet_case():
     batches = [{"images": rng.standard_normal((4, IMAGE, IMAGE, 3),
                                               dtype=np.float32),
                 "labels": rng.integers(0, 10, 4)} for _ in range(STEPS)]
-    mesh = jtrain_cli.build_mesh(2, 1, 1)
+    mesh = jtrain_cli.build_mesh(2, sp, 1)
     _, step = jresnet.make_train_step(model, mesh=mesh, image_size=IMAGE)
 
     def init(_key):
         rep = NamedSharding(mesh, P())
         return (jax.device_put(params, rep), jax.device_put(stats, rep),
                 optax.sgd(0.1, momentum=0.9, nesterov=True).init(params))
-    return {"model": "resnet", "sp": 1, "params": params,
+    return {"model": "resnet", "sp": sp, "params": params,
             "batch_stats": stats, "batches": batches}, mesh, init, step
 
 
+# The sp 2 cases of mnist, bert and resnet: a {"dp": 1, "sp": 2} mesh,
+# whose sp ranks are replicas (JAX shards those batches over dp alone), so
+# the port must not sum their gradients over sp.
 CASES = {"transformer_sp2": _transformer_case, "mnist_dp2": _mnist_case,
-         "bert_dp2": _bert_case, "resnet_dp2": _resnet_case}
+         "bert_dp2": _bert_case, "resnet_dp2": _resnet_case,
+         "mnist_sp2": lambda: _mnist_case(sp=2),
+         "bert_sp2": lambda: _bert_case(sp=2),
+         "resnet_sp2": lambda: _resnet_case(sp=2)}
 
 
 @pytest.fixture(scope="module")
@@ -194,7 +200,8 @@ def train_world(tmp_path_factory):
         inputs[name] = {k: (jax.tree.map(np.array, v)
                             if k in ("params", "batch_stats") else v)
                         for k, v in case.items()}
-        spec = (lambda v: P("dp", None)) if case["sp"] > 1 else _rows
+        spec = (lambda v: P("dp", None)) \
+            if case["model"] == "transformer" else _rows
         state = init(jax.random.PRNGKey(0))
         losses = []
         for batch in case["batches"]:

@@ -25,6 +25,11 @@ scenario on meshes of ``train_cli.build_mesh`` and writes
           weights, in a world the process joins itself through the env
           contract (``serve_world`` sets it; no ``file://`` store): its
           exit code and the JSON lines it printed
+  serve_link  the phases of ``<dir>/serve_link_in.pkl`` on a linked
+          ``--tp 2`` world joined the same way: each a fresh engine over
+          the lockstep link (``_lead_phase``) and its replay
+          (``serve_cli._follow``); rank 0's tokens, handoff results and
+          replicated state, the followers' replicated state
 
 Imports torch and the port only: the tests import this module for its
 inputs and compare against the JAX package themselves.
@@ -486,12 +491,118 @@ def _serve_tp(rank, workdir):
     return {"rc": rc, "lines": lines, "error": err}
 
 
+def _mirror(engine):
+    """A paged engine's replicated state: page tables, free blocks,
+    radix size and the device token vector (equal on every rank of a
+    linked world)."""
+    kv = engine.kv
+    return {"tables": [list(map(int, r)) for r in kv.tables],
+            "free": kv.free_blocks(), "radix": kv.cached_blocks(),
+            "last_dev": [int(t) for t in engine.last_dev]}
+
+
+def _lead_phase(serve_cli, args, model, group, rank_hosts, phase):
+    """Rank 0 of one phase of ``serve_link``: the engine serve_cli builds
+    over the link (``build_serving``), its warm plan under
+    ``--warmup=all``, the phase's requests (under its fault plan), then
+    its export, corrupt install and install with the continuation."""
+    from container_engine_accelerators_tpu_torch import faults
+    from container_engine_accelerators_tpu_torch.kvcache import handoff
+    from container_engine_accelerators_tpu_torch.warmstart import warmup
+
+    def link_of(events, registry):
+        return serve_cli.LockstepEngineLink(
+            model.cfg, args.max_slots, timeout_s=args.link_timeout_s,
+            rank=0, rank_hosts=rank_hosts, events=events,
+            registry=registry, group=group)
+
+    engine, _, _, _ = serve_cli.build_serving(args, model, link_of=link_of)
+    if args.warmup == "all":
+        warmup.warm_engine(engine, mode="all", events=engine.events)
+    res = {}
+    try:
+        if phase.get("plan"):
+            faults.arm(faults.FaultPlan(phase["plan"]))
+        try:
+            res["tokens"] = [engine.generate([p], m)[0]
+                             for p, m in phase["cases"]]
+        finally:
+            faults.disarm()
+        res["stats"] = {k: v for k, v in engine.stats().items()
+                        if k.startswith("spec_")}
+        res["retries"] = int(engine._m_retries.value)
+        if phase.get("export"):
+            res["frames"] = engine.kv_export(phase["export"])
+        if phase.get("corrupt"):
+            seq, before = engine.link._seq, _mirror(engine)
+            try:
+                engine.kv_install(phase["corrupt"])
+                res["corrupt"] = "installed"
+            except handoff.HandoffDesync as e:
+                res["corrupt"] = f"HandoffDesync: {e}"
+            res["corrupt_unchanged"] = (engine.link._seq == seq
+                                        and _mirror(engine) == before)
+        if phase.get("install"):
+            res["installed"] = engine.kv_install(phase["install"])
+            prompt, max_new = phase["continue"]
+            hit0 = engine.kv_stats()["prefix_hit_tokens"]
+            res["continued"] = engine.generate([prompt], max_new)[0]
+            res["hit"] = engine.kv_stats()["prefix_hit_tokens"] - hit0
+        res["state"] = _mirror(engine)
+    finally:
+        engine.shutdown()
+    return res
+
+
+def _serve_link(rank, workdir):
+    """One rank of a linked ``serve_cli --tp`` world on one host, driven
+    through serve_cli's own builders phase by phase (each phase a fresh
+    engine on rank 0 and ``_follow`` on the others, over one model and
+    one link group): rank 0 reports each phase's tokens, handoff results
+    and replicated state, the followers their replicated state as each
+    phase's replay ends."""
+    from container_engine_accelerators_tpu_torch.models import serve_cli
+    from container_engine_accelerators_tpu_torch.models import transformer
+    from container_engine_accelerators_tpu_torch.models import weights
+
+    with open(os.path.join(workdir, "serve_link_in.pkl"), "rb") as f:
+        given = pickle.load(f)
+    cfg = transformer.TransformerConfig(**given["cfg"])
+    whole = weights.params_from_jax(given["tree"], cfg, device="cpu")
+    base = ["--tp", "2", "--device", "cpu", "--port", "0", *given["flags"]]
+    parse = serve_cli.build_parser().parse_args
+    rank_, device, axes, group, rank_hosts = serve_cli.join_tp_world(
+        parse(base))
+    model = serve_cli.Model(cfg, device=device, tp=2, axes=axes,
+                            weights=whole)
+    states = []
+    replay = serve_cli.engine_follower_loop
+
+    def recorded(engine, link, warm=None):
+        try:
+            return replay(engine, link, warm=warm)
+        finally:
+            states.append(_mirror(engine))
+
+    serve_cli.engine_follower_loop = recorded
+    phases = []
+    for phase in given["phases"]:
+        args = parse(base + phase["argv"])
+        if rank_:
+            serve_cli._follow(args, model, group, rank_, rank_hosts)
+        else:
+            phases.append(_lead_phase(serve_cli, args, model, group,
+                                      rank_hosts, phase))
+    return {"phases": phases, "states": states}
+
+
 def main(argv):
     scenario, rank, world, workdir = argv
     rank, world = int(rank), int(world)
     sys.path.insert(0, REPO)
-    if scenario == "serve_tp":
-        out = _serve_tp(rank, workdir)
+    if scenario in ("serve_tp", "serve_link"):
+        out = (_serve_tp if scenario == "serve_tp" else _serve_link)(
+            rank, workdir)
         with open(os.path.join(workdir, f"{scenario}_rank{rank}.pkl"),
                   "wb") as f:
             pickle.dump(out, f)
@@ -521,14 +632,15 @@ def main(argv):
         pickle.dump(out, f)
 
 
-def serve_world(given, workdir, world=2, timeout=240):
-    """``world`` ranks of the ``serve_tp`` scenario joined through the
+def serve_world(given, workdir, world=2, timeout=240, scenario="serve_tp"):
+    """``world`` ranks of ``scenario`` (``serve_tp``, or ``serve_link``)
+    joined through the
     env contract (one host, ``LOCAL_RANK`` 0..world-1, a free coordinator
     port) on ``given`` ({"cfg", "tree", "argv"}, and "argv_of": {rank:
     argv} for ranks that take other flags); returns [(returncode, the
     rank's output or None, its log)] in rank order. A world that outlives
     ``timeout`` is killed."""
-    with open(os.path.join(workdir, "serve_tp_in.pkl"), "wb") as f:
+    with open(os.path.join(workdir, f"{scenario}_in.pkl"), "wb") as f:
         pickle.dump(given, f)
     port = free_port()
     env = {k: v for k, v in os.environ.items()
@@ -537,7 +649,7 @@ def serve_world(given, workdir, world=2, timeout=240):
                TPU_WORKER_HOSTNAMES="127.0.0.1",
                TPU_COORDINATOR_PORT=str(port), LOCAL_WORLD_SIZE=str(world))
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "serve_tp", str(rank),
+        [sys.executable, os.path.abspath(__file__), scenario, str(rank),
          str(world), str(workdir)],
         env={**env, "LOCAL_RANK": str(rank)}, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for rank in range(world)]
@@ -552,7 +664,7 @@ def serve_world(given, workdir, world=2, timeout=240):
                 proc.communicate()
     runs = []
     for rank, (proc, log) in enumerate(zip(procs, logs)):
-        path = os.path.join(workdir, f"serve_tp_rank{rank}.pkl")
+        path = os.path.join(workdir, f"{scenario}_rank{rank}.pkl")
         out = None
         if os.path.exists(path):
             with open(path, "rb") as f:
