@@ -7,7 +7,8 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card, serves full-width
-Llama-3-8B (all 32 layers, random weights from seed 0) through the
+Llama-3-8B (16 of its 32 layers, ``SERVE_LAYERS``; random weights from
+seed 0) through the
 port's HTTP server, one request at a time, through the paged
 continuous-batching engine (warmed with ``--warmup=all``: every decode
 window's CUDA graph captured before ready), with speculative decoding
@@ -109,12 +110,23 @@ timed beside the whole sequence), train_dist (``train_cli --distributed``
 as a world of one over NCCL through the env contract: the bootstrap
 marker, ``n_devices`` 1, every step's loss equal to the same run without
 ``--distributed``), serve_tp (tensor-parallel serving at Llama-3-8B's
-widths, 8 layers, tp 8 with every rank in this process: the dense and
+widths, 4 layers, tp 8 with every rank in this process: the dense and
 paged engines under ``--warmup=all`` against the unsplit engines on the
 same weights, streams parting only below SERVE_LOGITS_ATOL's margin,
 final logits, ring against off prefill, int8 under tp against unsplit
 int8, layers × tp flash launches a prefill call, every decode step a
-replay), compile_cache (two fresh processes in turn on one
+replay; last an MoE paged engine at Mixtral-8x7B's widths, 4 layers, tp
+8, against the unsplit one), moe_small_parity (a small f32 MoE model
+whose groups drop nothing: the paged engine's tokens equal dense
+generate's), serve_moe (an MoE model at Mixtral-8x7B's widths, 8 of its
+32 layers: generate, the dense engine, the paged engine under
+``--warmup=all`` and under ``--speculate ngram``, each against itself on
+the plain attention, partings past the margin held by world_smoke's
+router rule; int8 attention projections; then all 32 layers over HTTP:
+TTFT, ms a token, peak memory), collectives (the collectives CLI's
+one-device refusal, every bench over an NCCL world of one with each
+op's output held, the env profiles' ConfigMap), compile_cache (two
+fresh processes in turn on one
 new ``--compile-cache-dir`` directory (``warmstart/cache.py``), each
 building the three nvcc libraries and launching each Triton stream
 kernel once: the first misses each library and runs nvcc, the second
@@ -269,7 +281,15 @@ def read_rtol(torch, n):
     return 2 * chain * 2.0 ** -24
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line also carries ``t_s``, the seconds
+    since the script started, so a phase's time is the difference from
+    the line before it."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -1076,10 +1096,19 @@ def small_parity(torch, tf, serving_graphs, attention):
         fail("small f32 model on the card disagrees with the CPU")
 
 
+# The depth of the Llama-3-8B model the serving phases share (serve,
+# serve_paged, serve_spec, serve_dense, serve_robust, serve_obs,
+# serve_handoff) and of serve_int8's: 16 of its 32 layers, cut from all 32
+# to keep the script inside its time limit once serve_moe came.
+SERVE_LAYERS = 16
+
+
 def serve(torch, np, tf, serve_cli, attention, card):
-    """Full-width Llama-3-8B behind the port's HTTP server. ``card``: the
-    GPU's name and power limit, printed beside the times."""
-    cfg = tf.TransformerConfig.llama3_8b()
+    """Full-width Llama-3-8B (SERVE_LAYERS of its layers) behind the
+    port's HTTP server. ``card``: the GPU's name and power limit, printed
+    beside the times."""
+    cfg = dataclasses.replace(tf.TransformerConfig.llama3_8b(),
+                              n_layers=SERVE_LAYERS)
     _free(torch)
     t0 = time.perf_counter()
     alloc0 = torch.cuda.memory_allocated()
@@ -1385,12 +1414,14 @@ def serve_paged(torch, np, tf, serve_cli, attention, card, model):
 # -- serve_tp: tensor-parallel serving, every rank in one process -------
 
 # Llama-3-8B's widths at the demo manifest's --tp=8 (4 query and 1 key/value
-# heads, d_ff 1792 a rank), 8 of its 32 layers, every rank held in this
-# process (tensor_parallel.Axes.in_process): the shards' arithmetic and
-# kernels at their shapes on one card. The NCCL transport is
-# parallel/world_smoke.py's serve_tp, across cards.
+# heads, d_ff 1792 a rank), SERVE_TP_LAYERS of its 32 layers, every rank
+# held in this process (tensor_parallel.Axes.in_process): the shards'
+# arithmetic and kernels at their shapes on one card. The NCCL transport
+# is parallel/world_smoke.py's serve_tp, across cards.
 SERVE_TP = 8
-SERVE_TP_LAYERS = 8
+# 4 of the 32 layers, cut from 8 to keep the script inside its time limit
+# once serve_moe came.
+SERVE_TP_LAYERS = 4
 
 
 def _serve_tp_traffic(np, vocab):
@@ -1490,16 +1521,28 @@ def _serve_tp_engine(torch, serve_cli, attention, model, kv_cache, prompts,
     return results, readings, finals
 
 
-def _margin_partings(torch, tf, ref, prompts, got, want, phase):
+def _margin_partings(torch, tf, ref, prompts, got, want, phase,
+                     routes=None):
     """Where ``got``'s streams part from the reference's, each held to
     serve_spec's rule: only where the reference's top-2 margin is under
-    SERVE_LOGITS_ATOL. Returns the partings."""
+    SERVE_LOGITS_ATOL. An MoE model's parting past it is held by
+    world_smoke's router rule instead: ``routes(context)`` gives (the
+    got path's, the reference's) routing of the shared context
+    (``world_smoke.routing``), which may differ only at router ties
+    (``world_smoke.router_ties``). Returns the partings."""
+    from container_engine_accelerators_tpu_torch.parallel import world_smoke
+
     names = list(prompts)
     rows = _divergences(torch, tf, ref, [prompts[n] for n in names],
                         [got[n] for n in names], [want[n] for n in names])
     for r in rows:
         r["request"] = names[r["request"]]
-    bad = [r for r in rows if r["want_margin"] >= SERVE_LOGITS_ATOL]
+        if routes is not None and r["want_margin"] >= SERVE_LOGITS_ATOL:
+            context = want[r["request"]][:len(prompts[r["request"]])
+                                         + r["generated_index"]]
+            r["router"] = world_smoke.router_ties(*routes(context))
+    bad = [r for r in rows if r["want_margin"] >= SERVE_LOGITS_ATOL
+           and not r.get("router", {}).get("router_tie")]
     if bad:
         emit({"phase": f"{phase}_partings", "partings": rows})
         fail(f"{phase}: a stream parts from the unsplit engine's where its "
@@ -1593,10 +1636,64 @@ def _tp_handoff(torch, tf, serve_cli, model, ref, prompts, new):
     return out
 
 
+SERVE_TP_MOE_LAYERS = 4
+
+
+def _serve_tp_moe(torch, np, tf, serve_cli, attention):
+    """The MoE engine under tp: Mixtral-8x7B's widths (``mixtral_config``)
+    at 4 of its 32 layers, tp 8 in this process (each rank 4/1 heads and
+    1792 of every expert's 14336 columns, the router whole): the paged
+    engine under ``--warmup=all`` on serve_paged's traffic against the
+    unsplit paged engine on the same weights by the margin rule, every
+    decode step a replay; a parting past the margin held by the router
+    rule. Returns (flash launches, its row)."""
+    from container_engine_accelerators_tpu_torch.parallel import world_smoke
+
+    cfg = mixtral_config(tf, SERVE_TP_MOE_LAYERS)
+    whole = tf.init_params(cfg, device="cuda", seed=0)
+    ref = serve_cli.Model(cfg, weights=whole)
+    model = serve_cli.Model(cfg, weights=whole, tp=SERVE_TP)
+    ffn = model.model.shards[0].layers[0].ffn
+    shapes = {k: tuple(getattr(ffn, k).shape) for k in ("router", "w1", "w2")}
+    prompts, max_new = _serve_tp_traffic(np, cfg.vocab_size)
+    before = attention.flash_fwd_launches
+    got, r, _ = _serve_tp_engine(torch, serve_cli, attention, model, "paged",
+                                 prompts, max_new, "all")
+    launches = attention.flash_fwd_launches - before
+    per_call = cfg.n_layers * SERVE_TP
+    served = r["n_prefills"] - r["at_ready"]["n_prefills"]
+    if r["launches"] - r["at_ready"]["launches"] != per_call * served:
+        fail(f"serve_tp moe: {r['launches'] - r['at_ready']['launches']} "
+             f"flash launches for {served} prefill calls, want {per_call} "
+             f"(layers × tp) each")
+    replays = _held_replays("serve_tp moe", r)
+    del model
+    _free(torch)
+    want, _, _ = _serve_tp_engine(torch, serve_cli, attention, ref, "paged",
+                                  prompts, max_new, "lazy")
+    model = serve_cli.Model(cfg, weights=whole, tp=SERVE_TP)
+
+    def routes(context):
+        return (world_smoke.routing(torch, tf, model, context),
+                world_smoke.routing(torch, tf, ref, context))
+
+    partings = _margin_partings(torch, tf, ref, prompts, got, want,
+                                "serve_tp_moe", routes)
+    del model
+    del ref, whole
+    _free(torch)
+    return launches, {
+        "n_layers": cfg.n_layers, "tp": SERVE_TP, "shard_shapes": shapes,
+        "ready_s": r["ready_s"], "ttft_s": r["ttft_s"],
+        "chunk_device_ms_per_step": r["chunk_device_ms_per_step"],
+        "replays_during_traffic": replays, "partings": partings,
+        "flash_fwd_launches": launches}
+
+
 def serve_tp_phase(torch, np, tf, serve_cli, attention, int8_matmul, card):
     """Tensor-parallel serving at Llama-3-8B's full width, tp 8 (the demo
     manifest's ``--tp=8``: 4 query and 1 key/value heads, d_ff 1792 a
-    rank), 8 of its 32 layers in bf16, every rank's shard in this process
+    rank), 4 of its 32 layers in bf16, every rank's shard in this process
     (``serve_cli.Model(tp=8)`` over ``tensor_parallel.Axes.in_process``):
     the dense and the paged engine under ``--warmup=all`` with
     serve_paged's traffic, against the unsplit engines on the same
@@ -1614,7 +1711,8 @@ def serve_tp_phase(torch, np, tf, serve_cli, attention, int8_matmul, card):
     replays of captured graphs (the flash kernel at 4 query and 1
     key/value heads a rank, per-row bases in device memory); a KV handoff
     round trip (tp to unsplit and back, JAX's wire) serves each prompt
-    from the installed blocks to its donor's stream. TTFT and ms a decode
+    from the installed blocks to its donor's stream. Last, an MoE engine
+    at tp 8 against the unsplit one (``_serve_tp_moe``). TTFT and ms a decode
     step are in-process figures (8 ranks' kernels on one card), no
     cross-card number. Returns (flash launches, int8 launches) of the tp
     paths."""
@@ -1750,6 +1848,9 @@ def serve_tp_phase(torch, np, tf, serve_cli, attention, int8_matmul, card):
     _hold_logit_row(int8_row, "serve_tp_int8", "prefill")
     del tp8, ref8, whole
     _free(torch)
+    moe_launches, moe_row = _serve_tp_moe(torch, np, tf, serve_cli,
+                                          attention)
+    flash_launches += moe_launches
 
     def figures(r):
         return {k: r[k] for k in (
@@ -1773,9 +1874,348 @@ def serve_tp_phase(torch, np, tf, serve_cli, attention, int8_matmul, card):
           "partings": partings, "final_logits": logit_rows,
           "prefill_logits": prefill_rows, "int8_partings": int8_partings,
           "int8_prefill_logits": int8_row, "tol": SERVE_LOGITS_ATOL,
-          "flash_fwd_launches": flash_launches,
+          "moe": moe_row, "flash_fwd_launches": flash_launches,
           "int8_mm_launches": int8_launches})
     return flash_launches, int8_launches
+
+
+SERVE_MOE_LAYERS = 8
+SERVE_MOE_FULL_LAYERS = 32
+SERVE_MOE_NEW = 32
+
+
+@contextlib.contextmanager
+def plain_attention(tf, attention):
+    """Inside the block the serving programs' flash calls (prefill,
+    segments, verify; ``transformer.flash_attention`` and
+    ``transformer.flash_fwd``) run the plain version on the card
+    (``flash_fwd_reference``): the reference the MoE streams are held to,
+    the same programs on the same routing groups. The port itself never
+    does this."""
+    fwd, attn = tf.flash_fwd, tf.flash_attention
+
+    def plain(q, k, v, causal=True, sm_scale=None):
+        return attention.flash_fwd_reference(
+            q, k, v, causal=causal,
+            sm_scale=sm_scale or q.shape[-1] ** -0.5)[0]
+
+    tf.flash_fwd, tf.flash_attention = attention.flash_fwd_reference, plain
+    try:
+        yield
+    finally:
+        tf.flash_fwd, tf.flash_attention = fwd, attn
+
+
+def _moe_latency(model, prompt):
+    """``Model.generate``'s TTFT (a one-token request) and ms a token
+    (32 new tokens, the second run: its decode steps replay the graph
+    the first captured) for ``prompt``."""
+    walls = {}
+    for name, n in (("ttft", 1), ("first", SERVE_MOE_NEW),
+                    ("again", SERVE_MOE_NEW)):
+        t0 = time.perf_counter()
+        model.generate([prompt], n)
+        walls[name] = time.perf_counter() - t0
+    return {"prompt_len": len(prompt), "ttft_s": walls["ttft"],
+            "decode_ms_per_token": (walls["again"] - walls["ttft"])
+            / (SERVE_MOE_NEW - 1) * 1e3}
+
+
+def _moe_generate(model, prompts, max_new):
+    """``Model.generate`` of each prompt in turn → ({name: stream},
+    {name: seconds})."""
+    streams, wall = {}, {}
+    for name, prompt in prompts.items():
+        t0 = time.perf_counter()
+        streams[name] = model.generate([prompt], max_new[name])[0]
+        wall[name] = time.perf_counter() - t0
+    return streams, wall
+
+
+def _held_replays(phase, r):
+    """Every decode step (and verify) of an engine run after its warm grid
+    a replay of a graph captured before the traffic; none eager."""
+    replays = r["graph_replays"] + r.get("verify_graph_replays", 0) - \
+        r["at_ready"]["graph_replays"] - \
+        r["at_ready"].get("verify_graph_replays", 0)
+    if r["eager_chunks_on_cuda"] or r.get("eager_verifies_on_cuda") or \
+            replays != r["steps_done"] - r["at_ready"]["steps_done"]:
+        fail(f"{phase}: a decode step or a verify ran eagerly: {r}")
+    return replays
+
+
+def moe_small_parity(torch, np, tf, serve_cli, attention):
+    """A small f32 MoE model (head dim 128, the f32 kernel) on the card,
+    its capacity factor E / k so that no group drops a token and every
+    token routes as it would alone: the paged engine's greedy tokens
+    equal the dense ``Model.generate``'s exactly, for shared prefixes, a
+    prompt prefilled in three segments and a one-token request."""
+    cfg = tf.TransformerConfig(vocab_size=512, d_model=256, n_layers=2,
+                               n_heads=2, n_kv_heads=1, d_ff=256,
+                               max_seq_len=128, dtype="float32",
+                               n_experts=4, expert_top_k=2,
+                               capacity_factor=2.0)
+    model = serve_cli.Model(cfg, seed=1, device="cuda")
+    engine = serve_cli.ContinuousEngine(model, max_slots=2, chunk=4,
+                                        prefill_chunk=32, kv_block_size=16,
+                                        kv_cache="paged")
+    rng = np.random.default_rng(2)
+    prefix = rng.integers(0, cfg.vocab_size, 40).tolist()
+    cases = [(prefix + rng.integers(0, cfg.vocab_size, 3 + i).tolist(), 8)
+             for i in range(3)]
+    cases += [(rng.integers(0, cfg.vocab_size, 70).tolist(), 10),
+              (prefix[:5], 1)]
+    before = attention.flash_fwd_launches
+    try:
+        outs = [engine.generate([p], n)[0] for p, n in cases]
+    finally:
+        engine.shutdown()
+    launches = attention.flash_fwd_launches - before
+    equal = [got == model.generate([p], n)[0]
+             for (p, n), got in zip(cases, outs)]
+    kvs = engine.kv_stats()
+    row = {"phase": "moe_small_parity", "requests": len(cases),
+           "tokens_equal": equal, "kernel_launches": launches,
+           "n_prefills": engine.stats()["n_prefills"],
+           "prefix_hit_tokens": kvs["prefix_hit_tokens"]}
+    emit(row)
+    if not all(equal) or launches != cfg.n_layers * row["n_prefills"] or \
+            kvs["prefix_hit_tokens"] <= 0:
+        fail("moe_small_parity: the f32 MoE paged engine on the card "
+             "disagrees with dense generate, or skipped the kernel or the "
+             "radix cache")
+
+
+def _moe_full_depth(torch, np, tf, serve_cli, attention, card):
+    """Mixtral-8x7B at its full 32 layers (about 63 GB of bf16 weights)
+    behind the HTTP server: one 1500-token prompt, its TTFT (a one-token
+    request), then 32 new tokens twice (the second replays the captured
+    decode graph: its time is the served one), ms a token, the peak of
+    allocated memory. Returns the flash launches."""
+    cfg = mixtral_config(tf, SERVE_MOE_FULL_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = serve_cli.Model(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = weight_bytes(model.model) / 1e9
+    prompt = np.random.default_rng(13).integers(
+        0, cfg.vocab_size, 1500).tolist()
+    before = attention.flash_fwd_launches
+    server, state = serve_cli.start_server(model, port=0, host="127.0.0.1")
+    try:
+        serve_cli.wait_ready(state, timeout=600)
+        port = server.server_address[1]
+        out = {name: serve_cli.post_generate(port, [prompt], n)
+               for name, n in (("ttft", 1), ("first", SERVE_MOE_NEW),
+                               ("again", SERVE_MOE_NEW))}
+    finally:
+        server.shutdown()
+        server.server_close()
+    launches = attention.flash_fwd_launches - before
+    for name, n in (("ttft", 1), ("again", SERVE_MOE_NEW)):
+        _check_response(f"serve_moe full {name}", out[name], prompt, n,
+                        cfg.vocab_size)
+    if out["first"]["tokens"] != out["again"]["tokens"]:
+        fail("serve_moe full: the same greedy request gave other tokens")
+    # The warmup prefill and three requests: one prefill each.
+    if launches != 4 * cfg.n_layers:
+        fail(f"serve_moe full: {launches} flash launches, want "
+             f"{4 * cfg.n_layers} (one a layer for 4 prefills)")
+    ttft = out["ttft"]["latency_s"]
+    graphs = model.decode_graphs.graphs
+    row = {"n_layers": cfg.n_layers, "init_s": init_s,
+           "weights_gb": weights_gb, "prompt_len": len(prompt),
+           "ttft_s": ttft,
+           "decode_ms_per_token": (out["again"]["latency_s"] - ttft)
+           / (SERVE_MOE_NEW - 1) * 1e3,
+           "decode_ms_per_token_with_capture":
+               (out["first"]["latency_s"] - ttft) / (SERVE_MOE_NEW - 1)
+               * 1e3,
+           "bound_ms_per_token": weights_gb * 1e9 / HBM_BYTES_PER_S * 1e3,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated()
+           / 1e9,
+           "graph_captures": graphs.captures,
+           "graph_replays": graphs.replays,
+           "flash_fwd_launches": launches}
+    del model, server, state
+    _free(torch)
+    return row
+
+
+def serve_moe_phase(torch, np, tf, serve_cli, attention, int8_matmul, card):
+    """A mixture-of-experts model served at Mixtral-8x7B's widths
+    (``mixtral_config``: d 4096, 32/8 heads, d_ff 14336, 8 experts, top-2,
+    vocab 32000, the JAX package's GELU experts; bf16, random weights
+    from seed 0), reached as in JAX through ``Model(cfg)``. At 8 of its
+    32 layers (about 15.9 GB): serve_paged's traffic through
+    ``Model.generate``, the dense engine, the paged engine under
+    ``--warmup=all`` and the paged engine under ``--speculate ngram``
+    (two pattern requests more), each held to the same path on the plain
+    attention (the same model, programs and routing groups:
+    ``plain_attention``) by the margin rule (a parting past the margin
+    by world_smoke's router rule: the two attentions may route the
+    shared context apart only at router ties), every decode step and
+    verify a replay; then ``--quantize int8`` (the attention projections the
+    ``int8_mm`` kernel, the experts bf16) held to the plain int8 model on
+    the plain attention. Then at the full 32 layers
+    (``_moe_full_depth``). First ``moe_small_parity``. Returns (flash
+    launches, int8 launches) of the main path."""
+    from container_engine_accelerators_tpu_torch.parallel import world_smoke
+
+    moe_small_parity(torch, np, tf, serve_cli, attention)
+    cfg = mixtral_config(tf, SERVE_MOE_LAYERS)
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = serve_cli.Model(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = weight_bytes(model.model) / 1e9
+    prompts, max_new = _serve_tp_traffic(np, cfg.vocab_size)
+    spec_prompts, spec_new = _serve_tp_spec_traffic(np, cfg.vocab_size,
+                                                    prompts, max_new)
+
+    # The main path: counts at zero, the four bf16 paths, counts read.
+    attention.flash_fwd_launches = 0
+    attention.flash_dq_launches = attention.flash_dkv_launches = 0
+    graphs = model.decode_graphs.graphs
+    replays0 = graphs.replays
+    got, readings = {}, {}
+    got["generate"], walls = _moe_generate(model, prompts, max_new)
+    generate_launches = attention.flash_fwd_launches
+    generate_replays = graphs.replays - replays0
+    if generate_launches != cfg.n_layers * len(prompts) or \
+            generate_replays != sum(n - 1 for n in max_new.values()):
+        fail(f"serve_moe generate: {generate_launches} flash launches for "
+             f"{len(prompts)} prefills of {cfg.n_layers} layers, "
+             f"{generate_replays} decode replays")
+    for kv, traffic, new, spec in (("dense", prompts, max_new, "off"),
+                                   ("paged", prompts, max_new, "off"),
+                                   ("paged_spec", spec_prompts, spec_new,
+                                    "ngram")):
+        got[kv], readings[kv], _ = _serve_tp_engine(
+            torch, serve_cli, attention, model, kv.split("_")[0], traffic,
+            new, "all", speculate=spec)
+        _free(torch)
+    spec = readings["paged_spec"]
+    verify_replays = spec["verify_graph_replays"] - \
+        spec["at_ready"]["verify_graph_replays"]
+    flash_launches = attention.flash_fwd_launches + \
+        cfg.n_layers * verify_replays
+    if attention.flash_dq_launches or attention.flash_dkv_launches:
+        fail("serve_moe: a backward kernel launched while serving")
+    if not spec["spec_verifies"] or verify_replays != spec["spec_verifies"]:
+        fail(f"serve_moe paged_spec: {spec['spec_verifies']} verifies, "
+             f"{verify_replays} verify replays")
+    for kv, r in readings.items():
+        traffic, new = (spec_prompts, spec_new) if kv == "paged_spec" \
+            else (prompts, max_new)
+        for name, prompt in traffic.items():
+            _check_response(f"serve_moe {kv} {name}",
+                            {"tokens": [got[kv][name]]}, prompt, new[name],
+                            cfg.vocab_size)
+        served = r["n_prefills"] - r["at_ready"]["n_prefills"]
+        if r["launches"] - r["at_ready"]["launches"] != \
+                cfg.n_layers * served:
+            fail(f"serve_moe {kv}: {r['launches'] - r['at_ready']['launches']}"
+                 f" flash launches outside graphs for {served} prefill "
+                 f"calls, want {cfg.n_layers} each")
+        r["replays_during_traffic"] = _held_replays(f"serve_moe {kv}", r)
+
+    # The reference: each path again on the plain attention.
+    want, partings = {}, {}
+    with plain_attention(tf, attention):
+        want["generate"], _ = _moe_generate(model, prompts, max_new)
+        for kv, traffic, new, spec_mode in (
+                ("dense", prompts, max_new, "off"),
+                ("paged", prompts, max_new, "off"),
+                ("paged_spec", spec_prompts, spec_new, "ngram")):
+            want[kv], _, _ = _serve_tp_engine(
+                torch, serve_cli, attention, model, kv.split("_")[0],
+                traffic, new, "lazy", speculate=spec_mode)
+            _free(torch)
+    def routes(context):
+        return (world_smoke.routing(torch, tf, model, context),
+                world_smoke.routing(torch, tf, model, context,
+                                    plain_attention(tf, attention)))
+
+    for path in want:
+        traffic = spec_prompts if path == "paged_spec" else prompts
+        partings[path] = _margin_partings(torch, tf, model, traffic,
+                                          got[path], want[path],
+                                          f"serve_moe_{path}", routes)
+    _free(torch)
+    latency = _moe_latency(model, prompts["long_3000"][:1500])
+    latency["max_memory_allocated_gb"] = \
+        torch.cuda.max_memory_allocated() / 1e9
+
+    # int8: the attention projections quantized in place (the experts
+    # stay bf16), generate held to the plain int8 model on the plain
+    # attention.
+    int8_matmul.int8_mm_launches = int8_matmul.int8_mm_captured = 0
+    q8model = serve_cli.Model(cfg, weights=model.model, quantize="int8")
+    del model
+    _free(torch)
+    int8_prompts = {"prefix_1024": prompts["prefix_1024"],
+                    "p1500": prompts["long_3000"][:1500]}
+    int8_new = {n: SERVE_MOE_NEW for n in int8_prompts}
+    int8_got, int8_walls = _moe_generate(q8model, int8_prompts,
+                                         int8_new)
+    graphs = q8model.decode_graphs.graphs
+    per_step = 4 * cfg.n_layers
+    int8_launches = int8_matmul.int8_mm_launches + per_step * graphs.replays
+    if int8_matmul.int8_mm_captured != per_step * graphs.captures or \
+            int8_matmul.int8_mm_launches != per_step * len(int8_prompts):
+        fail(f"serve_moe int8: {int8_matmul.int8_mm_launches} eager "
+             f"products for {len(int8_prompts)} prefills and "
+             f"{int8_matmul.int8_mm_captured} captured in {graphs.captures} "
+             f"graphs, want {per_step} (wq/wk/wv/wo a layer) each")
+    # A Model of its own on the same int8 weights: its decode graphs are
+    # captured with the plain product, where q8model's hold the kernel.
+    ref8 = serve_cli.Model(cfg, weights=q8model.model)
+    with plain_attention(tf, attention), plain_int8(int8_matmul):
+        int8_want, _ = _moe_generate(ref8, int8_prompts, int8_new)
+    def int8_routes(context):
+        with plain_int8(int8_matmul):
+            want = world_smoke.routing(torch, tf, ref8, context,
+                                       plain_attention(tf, attention))
+        return world_smoke.routing(torch, tf, q8model, context), want
+
+    partings["int8"] = _margin_partings(torch, tf, q8model, int8_prompts,
+                                        int8_got, int8_want, "serve_moe_int8",
+                                        int8_routes)
+    experts_dtype = str(q8model.model.layers[0].ffn.w1.dtype)
+    del q8model, ref8
+    _free(torch)
+
+    full = _moe_full_depth(torch, np, tf, serve_cli, attention, card)
+
+    def figures(r):
+        return {k: r[k] for k in (
+            "ready_s", "n_prefills", "n_chunks", "steps_done", "ttft_s",
+            "chunk_device_ms_per_step", "decode_tokens_per_s",
+            "graph_captures", "graph_replays", "replays_during_traffic",
+            "eager_chunks_on_cuda")}
+
+    emit({"phase": "serve_moe", **card, "model": "mixtral-8x7b widths",
+          "n_layers": cfg.n_layers, "init_s": init_s,
+          "weights_gb": weights_gb,
+          "bound_ms_per_step": weights_gb * 1e9 / HBM_BYTES_PER_S * 1e3,
+          "latency": latency,
+          "generate": {"wall_s": walls, "decode_replays": generate_replays},
+          "dense": figures(readings["dense"]),
+          "paged": figures(readings["paged"]),
+          "paged_spec": {**figures(spec), **{k: spec[k] for k in (
+              "spec_verifies", "spec_proposed", "spec_accepted",
+              "verify_device_ms", "verify_graph_replays")}},
+          "int8": {"wall_s": int8_walls, "experts_dtype": experts_dtype,
+                   "int8_mm_launches": int8_launches},
+          "partings": partings, "tol": SERVE_LOGITS_ATOL,
+          "full_depth": full,
+          "flash_fwd_launches": flash_launches + full["flash_fwd_launches"],
+          "int8_mm_launches": int8_launches})
+    return flash_launches + full["flash_fwd_launches"], int8_launches
 
 
 # The attrs of JAX's warmup_done record (warmstart/warmup.py emit_done).
@@ -4493,7 +4933,8 @@ def serve_int8(torch, np, tf, serve_cli, attention, int8_matmul, q8, card,
     with the bf16 model is printed, not held (random weights have
     near-ties). ``bf16``: the serve phases' figures of this run. Returns
     the kernel's launches by path."""
-    cfg = tf.TransformerConfig.llama3_8b()
+    cfg = dataclasses.replace(tf.TransformerConfig.llama3_8b(),
+                              n_layers=SERVE_LAYERS)
     _free(torch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -5650,6 +6091,20 @@ def int8_ring_phase(torch, int8_matmul, q8, card):
         "plain_ms": time_ms(lambda: int8_matmul.int8_mm_reference(
             hs[0], w0.q, w0.scale, out_dtype=torch.float32), torch),
         "bound_ms": f32_bound, "bound_by": f32_bound_by}
+    # The library column, as run_int8_case times it: the unfused PyTorch
+    # composition (bf16 product of the widened weight, the f32 scale)
+    # with an f32 output, and torch._weight_int8pack_mm (bf16 output).
+    h0 = hs[0].reshape(-1, hs[0].shape[-1])
+    f32_out["library_ms"] = time_ms(
+        lambda: ((h0 @ w0.q.to(torch.bfloat16).T) * w0.scale).float(),
+        torch)
+    try:
+        scale_bf16 = w0.scale.reshape(-1).to(torch.bfloat16)
+        f32_out["int8pack_ms"] = time_ms(
+            lambda: torch._weight_int8pack_mm(h0, w0.q, scale_bf16), torch)
+    except (RuntimeError, AttributeError, NotImplementedError) as e:
+        f32_out["int8pack_ms"] = None
+        f32_out["int8pack_note"] = f"not run on CUDA here: {e}"[:200]
     del part, want32, diff
     ok = ok and f32_ok
     row = {"phase": "int8_ring", **card, "tp": n, "m": INT8_RING_M,
@@ -5779,6 +6234,106 @@ class _HeldRankMesh:
 
     def get_group(self, name):
         raise RuntimeError(f"the {name} group of a rank held in process")
+
+
+# collectives: the sweep on one card. The CLI refuses a world of one, as
+# JAX refuses one device; the benches run over an NCCL world of one
+# joined through the env contract, in a process of their own, each op's
+# output held to its plain expectation there (every collective over a
+# group of one is its identity; the ring matmul the plain product).
+COLLECTIVES_CHILD = r"""
+import json
+import torch
+from container_engine_accelerators_tpu_torch.collectives import bench as cb
+from container_engine_accelerators_tpu_torch.parallel import bootstrap
+opts = bootstrap.initialize_from_env(device="cuda")
+mesh = cb._mesh_1d()
+bf16, elems = torch.bfloat16, 1 << 19
+x = cb._sharded_input(mesh, elems, bf16)
+want = torch.arange(elems, dtype=torch.float32, device=x.device).to(bf16)
+full = cb.reduce_scatter_input(mesh, "x", elems, bf16)
+m, xm, wm = cb.collective_matmul_inputs(mesh, "x", 1 << 20, bf16)
+checks = {
+    "psum": torch.equal(cb.psum_op(mesh, "x")(x.clone()), want),
+    "all_gather": torch.equal(
+        cb.all_gather_op(mesh, "x")(x, torch.empty_like(x)), want),
+    "reduce_scatter": torch.equal(
+        cb.reduce_scatter_op(mesh, "x")(full, torch.empty_like(x)), want),
+    "ppermute": torch.equal(
+        cb.ppermute_op(mesh, "x")(x, torch.empty_like(x)), want),
+    "collective_matmul": torch.equal(
+        cb.collective_matmul_op(mesh, "x")(xm, wm), torch.matmul(xm, wm)),
+}
+results = {name: [r.to_json() for r in cb.sweep(
+    name, 1 << 20, 1 << 28, 4, mesh=mesh, iters=10)]
+    for name in sorted(cb.BENCHES)}
+torch.distributed.destroy_process_group()
+print(json.dumps({"world": opts["world_size"], "backend": opts["backend"],
+                  "checks": checks, "results": results}))
+"""
+
+
+def collectives_phase(card):
+    """The collective sweep (``collectives/bench.py``, its CLI and the
+    NCCL environment profiles) on one card: the CLI refuses the world of
+    one with JAX's JSON and exit code 1; every ``BENCHES`` entry runs
+    over an NCCL world of one (``COLLECTIVES_CHILD``), 1M to 256M bytes
+    by factor 4, with JAX's byte accounting and one device, the
+    collective matmul's transfer 0; each op's output is its plain
+    expectation; the profiles render as a ConfigMap holding every
+    key."""
+    from container_engine_accelerators_tpu_torch.collectives import (
+        env_profiles,
+    )
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("TPU_", "MEGASCALE_", "LOCAL_"))}
+    proc = subprocess.run(
+        [sys.executable, "-m",
+         "container_engine_accelerators_tpu_torch.collectives", "--json"],
+        env=env, cwd=root, capture_output=True, text=True, timeout=300)
+    lines = proc.stdout.strip().splitlines()
+    refusal = json.loads(lines[-1]) if lines else None
+    if proc.returncode != 1 or refusal != {
+            "error": "need >= 2 devices for collectives", "n_devices": 1}:
+        fail(f"collectives: the CLI on one card exited {proc.returncode} "
+             f"with {refusal}, want JAX's one-device refusal:\n"
+             f"{proc.stderr[-2000:]}")
+    env.update(TPU_WORKER_ID="0", TPU_WORKER_HOSTNAMES="localhost",
+               TPU_COORDINATOR_PORT=str(_free_port()), LOCAL_RANK="0",
+               LOCAL_WORLD_SIZE="1")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", COLLECTIVES_CHILD],
+                          env=env, cwd=root, capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode:
+        fail(f"collectives: the NCCL world of one exited {proc.returncode}:"
+             f"\n{proc.stderr[-4000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    sizes = [1 << s for s in range(20, 29, 2)]
+    bad = [name for name, ok in out["checks"].items() if not ok]
+    for name, rows in out["results"].items():
+        per = [r["msg_bytes"] for r in rows]
+        if per != sizes or any(r["n_devices"] != 1 or r["mean_s"] <= 0
+                               for r in rows):
+            bad.append(f"{name} results {per}")
+        if name == "collective_matmul" and any(
+                r["detail"]["collective_s"] != 0.0 for r in rows):
+            bad.append("collective_matmul moved bytes on one card")
+    text = env_profiles.render_configmap()
+    missing = [f"{p}:{k}" for p, env_ in env_profiles.PROFILES.items()
+               for k, v in env_.items() if f"    {k}={v}" not in text]
+    emit({"phase": "collectives", **card, "refusal": refusal,
+          "world": out["world"], "backend": out["backend"],
+          "checks": out["checks"], "seconds": time.perf_counter() - t0,
+          "results": {name: [[r["msg_bytes"], r["mean_s"], r["busbw_gbps"]]
+                             for r in rows]
+                      for name, rows in out["results"].items()},
+          "profiles": sorted(env_profiles.PROFILES),
+          "profile_keys_missing": missing})
+    if bad or missing:
+        fail(f"collectives: {bad} {missing}")
 
 
 BERT_SP = 2
@@ -6295,7 +6850,11 @@ def main():
     serve_tp_launches, serve_tp_int8_launches = serve_tp_phase(
         torch, np, tf, serve_cli, attention, int8_matmul, card)
     _free(torch)
+    moe_launches, moe_int8_launches = serve_moe_phase(
+        torch, np, tf, serve_cli, attention, int8_matmul, card)
+    _free(torch)
     train_dist_launches = train_dist_phase(card)
+    collectives_phase(card)
     bert_sp_launches = train_bert_sp(torch, np, attention, card)
     _free(torch)
     compile_cache_phase(card)
@@ -6323,6 +6882,7 @@ def main():
     int8_launches["device_bench"] = bench_launches["int8_mm"]
     int8_launches["int8_ring"] = int8_ring_launches
     int8_launches["serve_tp_int8"] = serve_tp_int8_launches
+    int8_launches["serve_moe"] = moe_int8_launches
 
     def by_path(i):
         return {path: counts[i] for path, counts in training.items()}
@@ -6393,7 +6953,7 @@ def main():
             "launches": serve_launches + paged_launches + spec_launches
             + dense_launches + robust_launches + obs_launches
             + obs_int8_launches + handoff_launches + serve_tp_launches
-            + sum(by_path(0).values()),
+            + moe_launches + sum(by_path(0).values()),
             "launches_by_path": {"serve": serve_launches,
                                  "serve_paged": paged_launches,
                                  "serve_spec": spec_launches,
@@ -6403,6 +6963,7 @@ def main():
                                  "serve_obs_int8": obs_int8_launches,
                                  "serve_handoff": handoff_launches,
                                  "serve_tp": serve_tp_launches,
+                                 "serve_moe": moe_launches,
                                  **by_path(0)},
             "max_abs_err": main_row["max_abs_err_out"],
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],

@@ -1,15 +1,16 @@
 # Copyright 2026 The TPU Accelerator Stack Authors.
 # SPDX-License-Identifier: Apache-2.0
-"""Single-card node qualification, the port of the JAX package's
-``collectives`` subpackage on one GPU:
+"""Node qualification, the port of the JAX package's ``collectives``
+subpackage:
 
-  cards.py         the cards' nominal peaks (the counterpart of
-                   ``topology/slice.GENERATIONS``)
+  cards.py         the cards' nominal peaks and link ceiling (the
+                   counterpart of ``topology/slice.GENERATIONS``)
   device_bench.py  the single-chip rows: bf16 and int8 matmul, HBM
                    patterns, decode, prefill, the serving engines, long
                    flash attention, train-step MFU
-
-Not ported yet (ROADMAP.md, multi-GPU): the collective sweep
-(``bench.py``), its CLI (``__main__.py``) and the NCCL environment
-profiles (``env_profiles.py``).
+  bench.py         the collective sweep over ``torch.distributed`` (one
+                   process per GPU, NCCL; gloo on the CPU)
+  __main__.py      its CLI (``python -m
+                   container_engine_accelerators_tpu_torch.collectives``)
+  env_profiles.py  the NCCL/PyTorch environment profiles
 """

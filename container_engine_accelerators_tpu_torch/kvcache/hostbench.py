@@ -24,7 +24,10 @@ plus 1 (mod the vocabulary), so every output is known in advance
 ``--budget-us`` fails the run (rc 1) over a host overhead per token, and
 ``tests/test_torch_hostbench.py`` runs the same check, so a host-loop
 regression (a sync on the hot path, a per-token allocation) fails fast.
-JAX's ``--fingerprint-out`` is not ported (``obs/baseline.py`` is not).
+``--fingerprint-out`` writes JAX's perf-sentinel fingerprint
+(``obs/baseline.py``, a copy of JAX's: the bench ``hostbench`` or
+``spec-bench``, ``hostbench_series`` of the result and the run's meta),
+which either package's ``obs.baseline`` gates.
 
 CLI::
 
@@ -301,6 +304,10 @@ def main(argv=None):
                         "0 = report only)")
     p.add_argument("--json", default="",
                    help="write the machine-readable result here")
+    p.add_argument("--fingerprint-out", default="",
+                   help="write a perf-sentinel fingerprint here "
+                        "(obs.baseline gates it against the committed "
+                        "test/baselines/ seed)")
     args = p.parse_args(argv)
     if args.speculate != "off" and args.kv_cache != "paged":
         p.error("--speculate requires --kv-cache=paged")
@@ -314,6 +321,22 @@ def main(argv=None):
     if args.json:
         with open(args.json, "w") as f:
             f.write(out + "\n")
+    if args.fingerprint_out:
+        from container_engine_accelerators_tpu_torch.obs import (
+            baseline as obs_baseline,
+        )
+        obs_baseline.write_fingerprint(
+            args.fingerprint_out,
+            bench=(
+                "spec-bench" if args.speculate != "off" else "hostbench"
+            ),
+            series=obs_baseline.hostbench_series(result),
+            meta={
+                "seed": args.seed, "requests": args.requests,
+                "max_new": args.max_new, "kv_cache": args.kv_cache,
+                "speculate": args.speculate,
+            },
+        )
     if args.budget_us and result["host_us_per_token"] > args.budget_us:
         log.error(
             "host overhead %.1f us/token exceeds the %.1f budget",

@@ -15,8 +15,12 @@ On the card that product is the hand-written kernel of
 version. ``quantize_params`` swaps a ``transformer.Transformer``'s layer
 matrices for ``Int8Weight`` modules in place, which ``transformer._mm``
 routes to that product. The embedding (tied to the output head) and the
-norms stay dense, as in JAX; training keeps bf16 (``make_train_step``
-refuses a quantized model).
+norms stay dense, as in JAX; so do a mixture-of-experts layer's router
+and experts: JAX's default keys name its attention matrices only (its
+experts are ``moe_w1``/``moe_w2``), and the port's ``MoEFeedForward``
+names its expert tensors ``w1``/``w2``, so the owners are chosen by
+module (:func:`weight_owners`), not by key alone. Training keeps bf16
+(``make_train_step`` refuses a quantized model).
 
 ``quantize_weight`` returns JAX's ``{"q": int8 (..., din, dout),
 "scale": f32 (..., 1, dout)}``, bit for bit: the scale is rounded in the
@@ -82,21 +86,27 @@ class Int8Weight(nn.Module):
         return cls(q.T.contiguous(), scale)
 
 
+def weight_owners(cfg):
+    """The names of a decoder layer's modules whose matrices
+    ``quantize_params`` swaps: the attention's, and a dense FFN's. An MoE
+    FFN keeps its router and experts in their dtypes, as JAX's
+    ``quantize_params(params, DENSE_WEIGHT_KEYS)`` reaches none of
+    them."""
+    return ("attn",) if cfg.n_experts else ("attn", "ffn")
+
+
 def quantize_params(model, keys=DENSE_WEIGHT_KEYS):
     """Quantize the transformer layer matrices named by ``keys`` in place
     and return the model. Layer by layer on the model's device: each
     dense matrix is replaced as soon as it is quantized, so its storage
     is freed then (if nothing else holds it) and the peak stays near the
     dense model plus one matrix's f32 temporaries. Keys a layer does not
-    have, and matrices already quantized, are left as they are. A model
-    with experts is refused: int8 experts are not ported yet."""
-    if model.cfg.n_experts:
-        raise NotImplementedError(
-            "int8 weights for a model with experts (n_experts > 0) are not "
-            "ported yet (ROADMAP.md)")
+    have, and matrices already quantized, are left as they are; so is an
+    MoE layer's FFN (:func:`weight_owners`)."""
     with torch.no_grad():
         for layer in model.layers:
-            for owner in (layer.attn, layer.ffn):
+            for owner in (getattr(layer, name)
+                          for name in weight_owners(model.cfg)):
                 for key in keys:
                     w = getattr(owner, key, None)
                     if w is None or is_quantized(w):

@@ -158,9 +158,14 @@ one after is not). A world across hosts refuses all three, with JAX's
 messages (``--speculate`` falls back to off). ``fleet/linksim.py``
 drives the link's faults hermetically; ``fleet/flightdrill.py`` wedges
 it and reads the flight recorder's bundle. A model with
-experts (``n_experts > 0``, which only training builds: the JAX server
-has no flag that reaches them) is refused by ``Model``, the engines and
-``--quantize int8``.
+experts (``n_experts > 0``) is served by ``Model``, ``BatchingModel``
+and every engine, under ``--tp`` and ``--quantize int8`` too (its
+attention projections int8, its experts in the model's dtype, as JAX's
+``quantize_params``); as in JAX no flag builds one: it is reached
+through ``Model(cfg)``. Its FFN routes per leading-dim group of each
+program (``parallel/moe.moe_ffn``: a prefill's bucket, a segment, a
+decode step's one token a row, a verify row), with capacity from that
+group's padded length, as JAX's programs route.
 
   python -m container_engine_accelerators_tpu_torch.models.serve_cli \\
       --preset llama3-8b --port 8000
@@ -414,14 +419,6 @@ def sanitize_sampler(temperature, top_k, top_p, vocab_size):
     return temperature, top_k, top_p
 
 
-def refuse_experts(cfg):
-    """Serving a mixture-of-experts model is not ported yet."""
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"serving a model with experts (n_experts={cfg.n_experts}) is "
-            f"not ported yet (ROADMAP.md); the port trains one")
-
-
 class Model:
     """The served model. Random weights from ``seed`` on ``device``
     (CUDA unless the caller asks for the CPU), or the given ``weights``
@@ -451,7 +448,6 @@ class Model:
         if quantize not in QUANTIZE_MODES:
             raise ValueError(f"quantize must be one of {QUANTIZE_MODES}, "
                              f"got {quantize!r}")
-        refuse_experts(cfg)
         self.cfg = cfg
         if tp > 1:
             if axes is None:
@@ -1865,7 +1861,6 @@ class ContinuousEngine:
                  deadline_s=0.0, step_retries=0, retry_backoff_s=0.05,
                  registry=None, events=None, tenants=None, slo=None,
                  devicetime=None, link=None):
-        refuse_experts(model.cfg)
         if max_slots < 1 or chunk < 1 or prefill_chunk < 1:
             raise ValueError(
                 f"max_slots ({max_slots}), chunk ({chunk}) and "

@@ -30,6 +30,16 @@ rank keeps them in rank order, the whole model's head order), the
 activations replicated, and each row-parallel product's f32 partials
 all-reduced over tp and cast once (:meth:`ShardedModel.leave`).
 
+A mixture-of-experts layer splits as JAX's ``serving_shardings`` does on
+a tp-only mesh (``moe_w1`` P(None, ep, dp, tp): ep and dp absent): the
+experts' F dim over tp (``ffn.w1`` (E, D, F) by columns, ``ffn.w2`` (E,
+F, D) by rows, ``TRANSFORMER_TP``'s names), the router whole on every
+rank. Each rank routes the replicated input on the whole router, runs
+its columns of every expert, and the combine's f32 partials are
+all-reduced over tp once and cast once (:meth:`ShardedModel.moe_ffn`),
+the rule of the row-parallel products. Its prefill takes the off path
+(``transformer.resolve_overlap`` gives no ring with experts).
+
 ``--quantize int8`` under tp (:func:`quantize_shards`): a column shard
 keeps its own per-channel scales; a row-parallel shard (wo, w2) takes the
 scale of the whole weight, the max over tp (the all-reduce GSPMD inserts
@@ -38,11 +48,14 @@ and then split. Its f32 partials come from ``int8_mm(...,
 out_dtype=torch.float32)``.
 """
 
+import functools
+
 import torch
 from torch import nn
 
 from container_engine_accelerators_tpu_torch.models import quantization as q8
 from container_engine_accelerators_tpu_torch.models import transformer as tf
+from container_engine_accelerators_tpu_torch.parallel import moe
 from container_engine_accelerators_tpu_torch.parallel import (
     overlap as ring_mm,
 )
@@ -108,6 +121,22 @@ class ShardedModel(nn.Module):
         sums = self.axes.tp.all_reduce(parts)
         return [p.to(x.dtype) for p, x in zip(sums, xs)]
 
+    def moe_ffn(self, layers):
+        """``transformer.block``'s ``moe_ffn`` for ``layers`` (one a rank
+        held), None for a dense FFN: ``moe.moe_ffn_parallel`` at ep 1.
+        Each rank routes its (replicated) normed input per leading-dim
+        group on the whole router (``moe.moe_ffn``'s groups and
+        capacity), runs every expert on its columns of F, and the f32
+        combines are all-reduced over tp and cast once."""
+        if not self.cfg.n_experts:
+            return None
+        params = [{"router": lp.ffn.router, "w1": lp.ffn.w1,
+                   "w2": lp.ffn.w2} for lp in layers]
+        return functools.partial(
+            moe.moe_ffn_parallel, params=params, axes=self.axes,
+            top_k=self.cfg.expert_top_k,
+            capacity_factor=self.cfg.capacity_factor)
+
     def prefill_forward(self, tokens, logits_at, overlap=None):
         """A prefill's forward on every rank held → (f32 logits (B, 1, V)
         at ``logits_at`` ("last" or an index), (ks, vs) (L, B, Hkv held,
@@ -142,9 +171,10 @@ class ShardedModel(nn.Module):
             enter, leave = tf.dense_products, self.leave
         ks, vs = [], []
         for i in range(cfg.n_layers):
-            xs, kvs, _ = tf.block([s.layers[i] for s in ranks], xs,
-                                  positions, tf._flash_attend, enter=enter,
-                                  leave=leave)
+            layers = [s.layers[i] for s in ranks]
+            xs, kvs, _ = tf.block(layers, xs, positions, tf._flash_attend,
+                                  enter=enter, leave=leave,
+                                  moe_ffn=self.moe_ffn(layers))
             ks.append(torch.cat([k for k, _ in kvs], dim=1))
             vs.append(torch.cat([v for _, v in kvs], dim=1))
         if mode == "ring":
@@ -207,24 +237,26 @@ def init_shards(cfg, axes, device="cuda", seed=0):
                 _set(shard, name, tpar._piece(
                     whole, dim, axes.tp.size, r).clone())
 
-    def draw(name, shape, scale):
+    def draw(name, shape, scale, dtype):
         put(name, (torch.randn(shape, generator=gen, device=device)
-                   * scale).to(dt))
+                   * scale).to(dtype))
 
     with torch.no_grad():
-        draw("embed", (cfg.vocab_size, cfg.d_model), 0.02)
+        draw("embed", (cfg.vocab_size, cfg.d_model), 0.02, dt)
         whole = tf.Transformer(cfg, "meta")
         for i, layer in enumerate(whole.layers):
             pre = f"layers.{i}."
             # transformer.init_params' order: wq, wk, wv, wo, then the
-            # FFN's parameters; the fan in is dim -2.
+            # FFN's parameters, each in its own dtype (an MoE router is
+            # f32); the fan in is dim -2.
             for key, w in (("attn.wq", layer.attn.wq),
                            ("attn.wk", layer.attn.wk),
                            ("attn.wv", layer.attn.wv),
                            ("attn.wo", layer.attn.wo),
                            *(("ffn." + n, p) for n, p in
                              layer.ffn.named_parameters())):
-                draw(pre + key, tuple(w.shape), w.shape[-2] ** -0.5)
+                draw(pre + key, tuple(w.shape), w.shape[-2] ** -0.5,
+                     w.dtype)
             for norm in ("ln1.weight", "ln2.weight"):
                 put(pre + norm, torch.ones(cfg.d_model, dtype=dt,
                                            device=device))
@@ -242,7 +274,7 @@ def quantize_shards(model, keys=q8.DENSE_WEIGHT_KEYS):
     tp = model.axes.tp
     with torch.no_grad():
         for i in range(model.cfg.n_layers):
-            for owner_name in ("attn", "ffn"):
+            for owner_name in q8.weight_owners(model.cfg):
                 owners = [getattr(s.layers[i], owner_name)
                           for s in model.shards]
                 for key in keys:

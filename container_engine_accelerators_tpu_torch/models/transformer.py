@@ -31,8 +31,8 @@ sends a layer matrix quantized by ``models/quantization.py``
 Parameters are trainable, dense ones only; the serving entry points run
 under ``torch.inference_mode()``. With ``n_experts > 0`` every layer's
 FFN is the mixture-of-experts block of ``parallel/moe.py`` (forward,
-``loss_fn`` with the aux loss, ``make_train_step``); serving such a
-model is refused, as the JAX server has no flag that reaches experts.
+``loss_fn`` with the aux loss, ``make_train_step``, and every serving
+program: each routes per leading-dim group of its input, as JAX's do).
 
 Training takes a DeviceMesh (``make_train_step(mesh=...)``, the JAX
 step's ``mesh``): its "dp" axis splits the global batch's rows and its
@@ -334,7 +334,8 @@ class Transformer(nn.Module):
     # The serving programs' view of a model, which
     # ``models/tp_serving.ShardedModel`` (tensor-parallel serving) shares:
     # the tp size, the ranks this process holds, the K/V heads its caches
-    # hold and the sum that leaves a row-parallel product.
+    # hold, the sum that leaves a row-parallel product and the MoE FFN
+    # across ranks.
     tp = 1
 
     @property
@@ -351,6 +352,11 @@ class Transformer(nn.Module):
 
     def leave(self, xs, ws):
         return dense_sums(xs, ws)
+
+    def moe_ffn(self, layers):
+        """``block``'s ``moe_ffn`` for ``layers``: None, each layer runs
+        its own (whole) FFN."""
+        return None
 
 
 def init_params(cfg, device="cuda", seed=0):
@@ -747,16 +753,17 @@ def _serve_stack(model, tokens, positions, attend_for):
     ``attend`` for rank j of the n held, which writes the rank's K/V
     heads into the cache and reads them. Activations are replicated over
     tp, and the row-parallel products' partial sums all-reduced
-    (``model.leave``). → the (B, S, D) hidden states, equal on every
-    rank."""
+    (``model.leave``; an MoE FFN's by ``model.moe_ffn``). → the (B, S, D)
+    hidden states, equal on every rank."""
     ranks = model.ranks
     n = len(ranks)
     x = model.embed[tokens]
     xs = [x] * n
     for i in range(model.cfg.n_layers):
-        xs, _, _ = block([r.layers[i] for r in ranks], xs, positions,
+        layers = [r.layers[i] for r in ranks]
+        xs, _, _ = block(layers, xs, positions,
                          [attend_for(i, j, n) for j in range(n)],
-                         leave=model.leave)
+                         leave=model.leave, moe_ffn=model.moe_ffn(layers))
     return xs[0]
 
 

@@ -52,6 +52,23 @@ gloo under ``--device cpu``. Then, on every rank:
          widths (8 experts, top-2, vocab 32000, 2 layers) in bf16 as the
          tp step is.
 
+Not run unless named in ``--checks``:
+
+  collectives  every op of ``collectives/bench.py`` over the world's
+         1-D mesh and its dcn 2 × x hybrid mesh, each rank's output held
+         to its plain expectation on the device (``_op_errors``); then
+         the launcher runs the collectives CLI as ``--world`` processes:
+         every collective from ``--collective-min`` to
+         ``--collective-max`` (1M to 256M, factor 2, JAX's defaults), 10
+         iterations, psum again under the ``low-latency`` profile, one
+         ``--dcn --slices 2`` sweep, busbw beside ``nvidia-smi topo -m``'s
+         link types;
+  serve_moe_tp  ``serve_cli.Model(tp=world)`` of Mixtral-8x7B's widths
+         at 8 layers over a tp mesh of all the ranks, rank 0's greedy
+         streams held to one GPU's ``Model.generate`` by the margin
+         rule;
+  serve_tp  (the launcher's) real ``serve_cli --tp`` worlds, below.
+
 The small f32 steps check the shards' arithmetic (a step of d 256 is
 bound by latency, so their times say nothing of the transport); the
 full-width bf16 steps are the ones whose times mean something.
@@ -876,14 +893,17 @@ def _latency(prompts, wall):
             / steps}
 
 
-def _start_world(args, tp, argv_of, log_dir, tag):
-    """``tp`` serve_cli processes through the env contract, rank r with
-    ``argv_of(r)``, each writing ``<log_dir>/<tag>_rank<r>.log``."""
+def _start_world(args, tp, argv_of, log_dir, tag,
+                 module="container_engine_accelerators_tpu_torch.models."
+                        "serve_cli", env_extra=None):
+    """``tp`` processes of ``module`` (serve_cli by default) through the
+    env contract, rank r with ``argv_of(r)`` and ``env_extra`` in its
+    environment, each writing ``<log_dir>/<tag>_rank<r>.log``."""
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("TPU_", "MEGASCALE_", "LOCAL_"))}
     env.update(TPU_WORKER_ID="0", TPU_WORKER_HOSTNAMES="localhost",
                TPU_COORDINATOR_PORT=str(_free_port()),
-               LOCAL_WORLD_SIZE=str(tp))
+               LOCAL_WORLD_SIZE=str(tp), **(env_extra or {}))
     if args.device == "cpu":
         env["OMP_NUM_THREADS"] = "1"
     procs, logs = [], []
@@ -892,9 +912,7 @@ def _start_world(args, tp, argv_of, log_dir, tag):
         logs.append(path)
         with open(path, "w") as out:
             procs.append(subprocess.Popen(
-                [sys.executable, "-m",
-                 "container_engine_accelerators_tpu_torch.models.serve_cli",
-                 *argv_of(rank)],
+                [sys.executable, "-m", module, *argv_of(rank)],
                 env={**env, "LOCAL_RANK": str(rank)}, stdout=out,
                 stderr=subprocess.STDOUT))
     return procs, logs
@@ -964,6 +982,69 @@ def _partings(torch, tf, model, prompts, got, want):
                      "want_token": b[pos], "got_token": a[pos],
                      "margin": (top2[0] - top2[1]).item()})
     return rows
+
+
+# An MoE model's streams may also part where the reference's top-2 logit
+# margin is SERVE_MARGIN or more: two paths whose layer inputs differ by
+# a rounding can swap a router's k-th and (k+1)-th experts for a token,
+# and the swapped expert moves that token's output, and what attends to
+# it later, by far more than a rounding. Such a parting is held by the
+# routing of the context it parts at (``router_ties``): at the first
+# layer where the two paths route any token apart, before any swap can
+# have spread, their router probabilities must agree within ROUTER_ATOL
+# for every token, so every swap there is a tie broken by rounding.
+ROUTER_ATOL = 0.02
+
+
+def routing(torch, tf, model, tokens, context=None):
+    """Every MoE layer's router probabilities (G, E) for the tokens of
+    one prefill of ``tokens`` on ``model`` (a ``serve_cli.Model``: whole,
+    or tp shards, whose ranks route alike), under ``context`` (e.g.
+    chip_smoke.py's ``plain_attention``), and the layer's k: [(probs,
+    k)], a layer each."""
+    import contextlib
+
+    from container_engine_accelerators_tpu_torch.parallel import moe
+
+    seen = []
+    route = moe._route
+
+    def record(x, router, k, capacity_factor):
+        seen.append((torch.softmax(x.float() @ router, dim=-1)[0], k))
+        return route(x, router, k, capacity_factor)
+
+    moe._route = record
+    try:
+        with context or contextlib.nullcontext(), torch.inference_mode():
+            tf.prefill(model.model, torch.as_tensor([tokens],
+                                                    device=model.device),
+                       return_logits=True)
+    finally:
+        moe._route = route
+    return seen[::model.model.tp]
+
+
+def router_ties(got, want):
+    """Two routings of one context (``routing``) → the first layer at
+    which some token's top-k experts differ, the tokens that differ
+    there, the largest router-probability difference over all tokens
+    there, the reference's k-th/(k+1)-th gaps of the swapped tokens, and
+    whether the swaps there are ties (the difference within
+    ROUTER_ATOL)."""
+    from container_engine_accelerators_tpu_torch.parallel import moe
+
+    for layer, ((p, k), (q, _)) in enumerate(zip(got, want)):
+        experts = moe.sorted_top_k(p, k)[1].sort(dim=-1).values
+        ref_vals, ref = moe.sorted_top_k(q, k + 1)
+        diff = (experts != ref[:, :k].sort(dim=-1).values).any(dim=-1)
+        if diff.any():
+            gaps = (ref_vals[:, k - 1] - ref_vals[:, k])[diff]
+            worst = (p - q).abs().max().item()
+            return {"first_layer": layer, "tokens_swapped": int(diff.sum()),
+                    "max_prob_diff": worst,
+                    "swap_gaps": [gaps.min().item(), gaps.max().item()],
+                    "router_tie": worst <= ROUTER_ATOL}
+    return {"first_layer": None, "router_tie": False}
 
 
 def _one_gpu(args, torch, np, cfg, device, prompts):
@@ -1260,10 +1341,310 @@ def check_serve_tp(args):
     return ok and good
 
 
+# -- collectives: the collective sweep over the world ---------------------------
+
+# Each op's output on the card against its plain expectation: data moves
+# exactly; a bf16 sum over n ranks rounds each partial sum once, so
+# within n bf16 steps of the f32 sum (relative); the ring matmul's chunk
+# products against the whole product by one bf16 step.
+COLLECTIVE_SUM_RTOL = 2.0 ** -8
+COLLECTIVE_MM_RTOL = 2.0 ** -7
+# The op checks' per-device elements: an f32-exact bf16 size (sums below
+# 256) and a 1 MiB one.
+COLLECTIVE_CHECK_ELEMS = (16, 1 << 19)
+
+
+def _op_errors(torch, bench, mesh, axis, elems, device):
+    """This rank's output of each collective op at ``elems`` per device
+    against its plain f32 expectation → {op: (max relative error, ok)}."""
+    n = bench.axis_size(mesh, axis)
+    index = mesh.get_local_rank(axis)
+    flat = bench.flat_index(mesh)
+    dim = mesh.mesh_dim_names.index(axis)
+    coord = list(mesh.get_coordinate())
+    peers = []
+    for j in range(n):
+        coord[dim] = j
+        peers.append(int(mesh.mesh[tuple(coord)]))
+    order = mesh.mesh.flatten().tolist()
+    blocks = [bench.arange_block(order.index(r) * elems, elems,
+                                 torch.bfloat16, device).float()
+              for r in peers]
+    bf16 = torch.bfloat16
+    x = bench._sharded_input(mesh, elems, bf16)
+    out = {}
+
+    def hold(name, got, want, rtol):
+        err = ((got.float() - want).abs()
+               / want.abs().clamp_min(1.0)).max().item()
+        out[name] = (err, err <= rtol)
+
+    hold("psum", bench.psum_op(mesh, axis)(x.clone()), sum(blocks),
+         n * COLLECTIVE_SUM_RTOL)
+    hold("all_gather", bench.all_gather_op(mesh, axis)(
+        x, torch.empty(n * elems, dtype=bf16, device=device)),
+        torch.cat(blocks), 0.0)
+    full = bench.reduce_scatter_input(mesh, axis, elems, bf16)
+    hold("reduce_scatter", bench.reduce_scatter_op(mesh, axis)(
+        full, torch.empty(elems, dtype=bf16, device=device)),
+        n * full.float()[index * elems:(index + 1) * elems],
+        n * COLLECTIVE_SUM_RTOL)
+    hold("ppermute", bench.ppermute_op(mesh, axis)(x, torch.empty_like(x)),
+         blocks[(index - 1) % n], 0.0)
+    _, xm, wm = bench.collective_matmul_inputs(mesh, axis, 1 << 16, bf16)
+    xs = xm.chunk(n, dim=0)[index].contiguous()
+    ws = wm.chunk(n, dim=1)[index].contiguous()
+    hold("collective_matmul", bench.collective_matmul_op(mesh, axis)(xs, ws),
+         torch.mm(xm, ws).float(), COLLECTIVE_MM_RTOL)
+    return out
+
+
+def check_collectives(args, torch, dist, device, rank, world, card):
+    """Every op of ``collectives/bench.py`` over the world's 1-D mesh and
+    its dcn 2 × x hybrid mesh, each rank's output against its plain
+    expectation on the device (``_op_errors``)."""
+    from container_engine_accelerators_tpu_torch.collectives import (
+        bench as cb,
+    )
+    from container_engine_accelerators_tpu_torch.parallel import (
+        mesh as pmesh,
+    )
+
+    meshes = [("x", pmesh.make_mesh(pmesh.plan_mesh(world, {"x": -1}),
+                                    device.type))]
+    if world % 2 == 0:
+        meshes.append(("dcn", pmesh.make_hybrid_mesh(
+            {"dcn": 2}, {"x": -1}, 2, device_type=device.type)))
+    ok, rows = True, {}
+    for axis, mesh in meshes:
+        for elems in COLLECTIVE_CHECK_ELEMS:
+            errs = _op_errors(torch, cb, mesh, axis, elems, device)
+            every = [None] * world
+            dist.all_gather_object(every, errs)
+            rows[f"{axis}_{elems}"] = {
+                op: max(e[op][0] for e in every) for op in errs}
+            ok = ok and all(e[op][1] for e in every for op in e)
+    _emit(rank, {"check": "collectives_ops", "world": world,
+                 "max_rel_err": rows,
+                 "tol": {"sum_rtol": COLLECTIVE_SUM_RTOL,
+                         "matmul_rtol": COLLECTIVE_MM_RTOL},
+                 "ok": ok, **card})
+    return ok
+
+
+def _topology():
+    """How the cards are linked: ``nvidia-smi topo -m``'s link type
+    between each pair ({"links": {"GPU0-GPU1": "NV18", ...}}). Where this
+    machine's ``nvidia-smi`` cannot print the matrix: its message, each
+    card's NVLink links and their rates from ``nvidia-smi nvlink
+    --status``, and whether each pair has peer access."""
+    proc = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                          text=True)
+    if proc.returncode == 0:
+        rows = [line.split() for line in proc.stdout.splitlines()
+                if line.startswith("GPU")]
+        return {"links": {f"{row[0]}-GPU{j}": kind
+                          for row in rows
+                          for j, kind in enumerate(row[1:len(rows) + 1])
+                          if kind != "X"}}
+    import re
+
+    import torch
+
+    out = {"topo_error": (proc.stdout + proc.stderr).strip()[:300]}
+    proc = subprocess.run(["nvidia-smi", "nvlink", "--status"],
+                          capture_output=True, text=True)
+    nvlink, card = {}, None
+    for line in proc.stdout.splitlines():
+        if line.startswith("GPU "):
+            card = "GPU" + line.split()[1].rstrip(":")
+            nvlink[card] = []
+        elif card and re.search(r"[0-9.]+ GB/s", line):
+            nvlink[card].append(float(
+                re.search(r"([0-9.]+) GB/s", line).group(1)))
+    out["nvlink_gbps"] = nvlink or (proc.stdout + proc.stderr).strip()[:300]
+    n = torch.cuda.device_count()
+    out["peer_access"] = {f"GPU{i}-GPU{j}":
+                          torch.cuda.can_device_access_peer(i, j)
+                          for i in range(n) for j in range(n) if i != j}
+    return out
+
+
+def _collectives_world(args, env_extra, argv, log_dir, tag):
+    """``--world`` processes of the collectives CLI through the env
+    contract → (exit codes, rank 0's JSON lines, the logs)."""
+    procs, logs = _start_world(
+        args, args.world,
+        lambda r: ["--device", args.device, "--json", *argv], log_dir, tag,
+        module="container_engine_accelerators_tpu_torch.collectives",
+        env_extra=env_extra)
+    rcs = []
+    try:
+        for proc in procs:
+            rcs.append(proc.wait(timeout=args.timeout_s))
+    finally:
+        _stop(procs)
+    with open(logs[0]) as f:
+        lines = [json.loads(line) for line in f if line.startswith("{")]
+    return rcs, lines, logs
+
+
+def check_collectives_sweep(args):
+    """The collectives CLI as ``--world`` processes (one a GPU, NCCL):
+    every collective from 1M to 256M bytes by factor 2, 10 iterations
+    (JAX's defaults); psum again under the ``low-latency`` profile; one
+    ``--dcn --slices 2`` sweep; busbw against the card's link ceiling,
+    beside the cards' link types (``nvidia-smi topo -m``). Returns ok."""
+    import tempfile
+
+    from container_engine_accelerators_tpu_torch.collectives import (
+        env_profiles,
+    )
+
+    card = _card() if args.device == "cuda" else {}
+    links = _topology() if args.device == "cuda" else {}
+    log_dir = tempfile.mkdtemp(prefix="world_smoke_collectives-",
+                               dir=args.log_dir or None)
+    sweep = ["--min-bytes", args.collective_min, "--max-bytes",
+             args.collective_max, "--iters", "10"]
+    runs = [("all", {}, ["--collective", "all", *sweep]),
+            ("psum_low_latency", env_profiles.profile_env("low-latency"),
+             ["--collective", "psum", *sweep]),
+            ("dcn", {}, ["--dcn", "--slices", "2", "--collective", "all",
+                         *sweep])]
+    ok = True
+    for tag, env_extra, argv in runs:
+        rcs, lines, logs = _collectives_world(args, env_extra, argv, log_dir,
+                                              tag)
+        results = [r for r in lines if "collective" in r]
+        summary = lines[-1] if lines else {}
+        good = rcs == [0] * args.world and "metric" in summary and \
+            results and all(r["busbw_gbps"] > 0 for r in results)
+        row = {"check": "collectives_sweep", "run": tag, "world": args.world,
+               "env": env_extra, "summary": summary,
+               "busbw_gbps": {f"{r['collective']}@{r['msg_bytes']}":
+                              r["busbw_gbps"] for r in results},
+               "links": links, "exit_codes": rcs, "ok": good, **card}
+        cm = [r["detail"] for r in results
+              if r["collective"] == "collective_matmul"]
+        if cm:
+            row["collective_matmul"] = cm
+        if not good:
+            row["rank0_log"] = _tail(logs[0])
+        print(json.dumps(row), flush=True)
+        ok = ok and good
+    return ok
+
+
+# -- serve_moe_tp: an MoE model over tp ranks against one GPU -------------------
+
+SERVE_MOE_TP_LAYERS = 8
+
+
+def _moe_serve_cfg(args, device):
+    """Mixtral-8x7B's widths at 8 of its 32 layers (bf16) on CUDA; on the
+    CPU the same shape shrunk by ``--wide-shrink`` to 2 layers in f32."""
+    import dataclasses
+
+    from container_engine_accelerators_tpu_torch.models import (
+        transformer as tf,
+    )
+
+    cfg = tf.TransformerConfig(
+        vocab_size=32000, d_model=4096, n_layers=SERVE_MOE_TP_LAYERS,
+        n_heads=32, n_kv_heads=8, d_ff=14336, max_seq_len=WIDE_SEQ,
+        rope_theta=1e6, n_experts=8, expert_top_k=2)
+    if device.type == "cuda":
+        return cfg
+    return dataclasses.replace(_shrunk(cfg, args.wide_shrink), n_layers=2,
+                               dtype="float32")
+
+
+def check_serve_moe_tp(args, torch, dist, device, rank, world, card):
+    """``serve_cli.Model(tp=world)`` of an MoE model (Mixtral's widths,
+    8 layers) over a tp mesh of all the ranks, every rank generating the
+    same greedy requests (serve_paged's prompts): rank 0's streams held
+    to one GPU's ``Model.generate`` on the same weights (seed 0) by the
+    margin rule (SERVE_MARGIN), a parting past it by the router rule
+    (``router_ties``), times beside it."""
+    import numpy as np
+
+    from container_engine_accelerators_tpu_torch.models import serve_cli
+    from container_engine_accelerators_tpu_torch.models import (
+        transformer as tf,
+    )
+    from container_engine_accelerators_tpu_torch.parallel import (
+        mesh as pmesh,
+    )
+    from container_engine_accelerators_tpu_torch.parallel import (
+        tensor_parallel as tpar,
+    )
+
+    cfg = _moe_serve_cfg(args, device)
+    mesh = pmesh.make_mesh(pmesh.plan_mesh(world, {"tp": world}),
+                           device.type)
+    model = serve_cli.Model(cfg, seed=0, device=str(device), tp=world,
+                            axes=tpar.Axes.of_mesh(mesh))
+    prompts = {n: p for n, p in _serve_prompts(np, cfg).items()
+               if n in ("ttft", "prefix", "long")}
+
+    def run(m):
+        tokens, wall = {}, {}
+        for name, (prompt, max_new) in prompts.items():
+            t0 = time.perf_counter()
+            tokens[name] = m.generate([prompt], max_new)[0]
+            wall[name] = time.perf_counter() - t0
+        return tokens, wall
+
+    got, wall = run(model)
+    every = [None] * world
+    dist.all_gather_object(every, got)
+    del model
+    _release(torch, device)
+    ok = all(e == got for e in every)
+    row = {"check": "serve_moe_tp", "tp": world, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "n_experts": cfg.n_experts,
+           "dtype": cfg.dtype, "ranks_agree": ok, "wall_s": wall, **card}
+    if rank == 0:
+        one = serve_cli.Model(cfg, seed=0, device=str(device))
+        want, one_wall = run(one)
+        partings = _partings(torch, tf, one,
+                             {n: (p, m) for n, (p, m) in prompts.items()},
+                             got, want)
+        for r in partings:
+            if r["margin"] >= SERVE_MARGIN:
+                # The world's shards are gone: the same split in this
+                # process routes as they did.
+                context = want[r["request"]][:len(prompts[r["request"]][0])
+                                             + r["generated_index"]]
+                r["router"] = router_ties(
+                    routing(torch, tf, serve_cli.Model(
+                        cfg, weights=one.model, tp=world), context),
+                    routing(torch, tf, one, context))
+        good = all(r["margin"] < SERVE_MARGIN or r["router"]["router_tie"]
+                   for r in partings)
+        row.update(one_gpu_wall_s=one_wall, partings=partings,
+                   margin_limit=SERVE_MARGIN, ok=ok and good)
+        ok = ok and good
+        del one
+        _release(torch, device)
+    _emit(rank, row)
+    dist.barrier()
+    flags = [None] * world
+    dist.all_gather_object(flags, ok)
+    return all(flags)
+
+
 CHECKS = {"ring": check_ring, "train": check_train, "pp": check_pp,
-          "tp": check_tp, "ep": check_ep}
-# Checks the launcher runs itself: their worlds are serve_cli processes.
-LAUNCHER_CHECKS = {"serve_tp": check_serve_tp}
+          "tp": check_tp, "ep": check_ep, "collectives": check_collectives,
+          "serve_moe_tp": check_serve_moe_tp}
+# The checks run when --checks is not given.
+DEFAULT_CHECKS = ["ring", "train", "pp", "tp", "ep"]
+# Checks the launcher runs itself: their worlds are serve_cli or
+# collectives CLI processes. "collectives" is both: the ranks hold the
+# ops' outputs, then the launcher runs the CLI's sweeps.
+LAUNCHER_CHECKS = {"serve_tp": check_serve_tp,
+                   "collectives": check_collectives_sweep}
 
 
 def run_rank(args):
@@ -1340,9 +1721,13 @@ def build_parser():
     p.add_argument("--timeout-s", type=float, default=600.0)
     p.add_argument("--checks", nargs="+",
                    choices=sorted({**CHECKS, **LAUNCHER_CHECKS}),
-                   default=list(CHECKS),
-                   help="the checks to run, in this order (default all but "
-                        "serve_tp, whose worlds are serve_cli processes)")
+                   default=DEFAULT_CHECKS,
+                   help="the checks to run, in this order (default: "
+                        f"{' '.join(DEFAULT_CHECKS)})")
+    p.add_argument("--collective-min", default="1M",
+                   help="collectives: the sweep's smallest message")
+    p.add_argument("--collective-max", default="256M",
+                   help="collectives: the sweep's largest message")
     p.add_argument("--log-dir", default="",
                    help="serve_tp: where the ranks' logs go (default a "
                         "temporary directory)")
@@ -1359,11 +1744,12 @@ def main(argv=None):
     rc = 0
     if any(name in CHECKS for name in args.checks):
         rc = launch(args, argv)
-    if "serve_tp" in args.checks:
-        ok = LAUNCHER_CHECKS["serve_tp"](args)
-        print(json.dumps({"ok": ok, "launcher_checks": ["serve_tp"],
-                          "world": args.world}), flush=True)
-        rc = max(rc, 0 if ok else 1)
+    for name in args.checks:
+        if name in LAUNCHER_CHECKS:
+            ok = LAUNCHER_CHECKS[name](args)
+            print(json.dumps({"ok": ok, "launcher_checks": [name],
+                              "world": args.world}), flush=True)
+            rc = max(rc, 0 if ok else 1)
     return rc
 
 

@@ -10,7 +10,6 @@ f32 on both sides: outputs to 1e-5, the aux loss to 1e-6, the loss to
 2 · lr after AdamW steps.
 """
 
-import dataclasses
 
 import numpy as np
 import pytest
@@ -244,12 +243,25 @@ def test_dense_forward_reports_a_zero_aux():
 
 
 def test_serving_and_int8_refuse_experts(jax_params):
+    """Serving and int8 no longer refuse experts: ``Model`` and the
+    engine take the MoE config, and ``quantize_params`` quantizes the
+    attention matrices only, the experts refused the int8 treatment as
+    JAX's default keys refuse them (``tests/test_torch_moe_serving.py``
+    holds the served tokens to JAX's)."""
     cfg = ttf.TransformerConfig(**SHAPE)
     model = _port_model(jax_params)
-    with pytest.raises(NotImplementedError, match="experts"):
-        serve_cli.Model(cfg, device="cpu", weights=model)
-    with pytest.raises(NotImplementedError, match="experts"):
-        serve_cli.ContinuousEngine(
-            dataclasses.make_dataclass("M", ["cfg"])(cfg), start_loop=False)
-    with pytest.raises(NotImplementedError, match="experts"):
-        quantization.quantize_params(model)
+    served = serve_cli.Model(cfg, device="cpu", weights=model)
+    assert served.model is model
+    engine = serve_cli.ContinuousEngine(served, start_loop=False)
+    assert engine.model is served
+    experts = [(layer.ffn.w1.clone(), layer.ffn.w2.clone(),
+                layer.ffn.router.clone()) for layer in model.layers]
+    quantization.quantize_params(model)
+    for layer, (w1, w2, router) in zip(model.layers, experts):
+        for key in ("wq", "wk", "wv", "wo"):
+            assert isinstance(getattr(layer.attn, key),
+                              quantization.Int8Weight)
+        assert not quantization.is_quantized(layer.ffn.w1)
+        assert torch.equal(layer.ffn.w1, w1)
+        assert torch.equal(layer.ffn.w2, w2)
+        assert torch.equal(layer.ffn.router, router)

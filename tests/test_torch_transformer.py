@@ -200,16 +200,20 @@ def test_init_params_scales_follow_jax():
 
 
 def test_moe_configs_are_not_ported_yet():
-    """A model with experts builds and trains (tests/test_torch_moe.py);
-    serving one is what is not ported yet."""
+    """A model with experts builds, trains (tests/test_torch_moe.py) and
+    is served: ``serve_cli.Model`` takes it and generates, each layer's
+    FFN the MoE block (tests/test_torch_moe_serving.py holds the tokens
+    to JAX's)."""
     from container_engine_accelerators_tpu_torch.models import serve_cli
 
     cfg = dataclasses.replace(_configs("float32")[1], n_experts=4)
-    model = ttf.Transformer(cfg, "cpu")
+    model = ttf.init_params(cfg, device="cpu", seed=0)
     assert all(isinstance(layer.ffn, ttf.MoEFeedForward)
                for layer in model.layers)
-    with pytest.raises(NotImplementedError, match="experts"):
-        serve_cli.Model(cfg, device="cpu", weights=model)
+    served = serve_cli.Model(cfg, device="cpu", weights=model)
+    (out,) = served.generate([[5, 6, 7]], 4)
+    assert out[:3] == [5, 6, 7] and len(out) == 7
+    assert all(0 <= t < cfg.vocab_size for t in out)
 
 
 def test_config_llama3_8b_matches_jax():

@@ -25,6 +25,18 @@ scenario on meshes of ``train_cli.build_mesh`` and writes
           weights, in a world the process joins itself through the env
           contract (``serve_world`` sets it; no ``file://`` store): its
           exit code and the JSON lines it printed
+  collectives  every op of ``collectives/bench.py`` (``COLLECTIVE_CASES``)
+          on the world's 1-D ``("x",)`` mesh and its ``dcn`` 2 × ``x``
+          hybrid mesh: this rank's inputs and outputs; then every bench
+          and a sweep at ``iters=1``: their results' JSON
+  moe_tp  ``serve_cli.Model(tp=world)`` over a "tp" mesh of the world on
+          the MoE weights of ``<dir>/moe_tp_in.pkl`` (JAX's tree): the
+          greedy streams of its cases
+  collectives_cli  ``collectives.__main__.main(argv)`` of
+          ``<dir>/collectives_cli_in.pkl`` in a world joined through the
+          env contract (``serve_world`` sets it): its exit code, the lines
+          it printed, and the port and exposition of each
+          ``--metrics-port`` endpoint it served (a fake ``serve``)
   serve_link  the phases of ``<dir>/serve_link_in.pkl`` on a linked
           ``--tp 2`` world joined the same way: each a fresh engine over
           the lockstep link (``_lead_phase``) and its replay
@@ -596,13 +608,132 @@ def _serve_link(rank, workdir):
     return {"phases": phases, "states": states}
 
 
+# (op, per-device elements, the matmul's per-device rows): sizes whose
+# bf16 sums stay exact integers (below 256 at 4 ranks), so an output is
+# the same whatever order a backend sums in; the data moves also at a
+# size whose arange values bf16 rounds.
+COLLECTIVE_CASES = (("psum", 16), ("all_gather", 16), ("all_gather", 4096),
+                    ("reduce_scatter", 16), ("ppermute", 16),
+                    ("ppermute", 4096), ("collective_matmul", 4))
+
+
+def collective_matmul_inputs(rows, n):
+    """Integer-valued f32 x (rows · n, K) and w (K, N) in [-1, 1] from
+    one seed: their products' f32 sums are exact, so the ring's output
+    does not depend on the order it accumulates in."""
+    from container_engine_accelerators_tpu_torch.collectives import bench
+
+    rng = np.random.default_rng(17)
+    x = rng.integers(-1, 2, (rows * n, bench._CM_K)).astype(np.float32)
+    w = rng.integers(-1, 2, (bench._CM_K, bench._CM_N)).astype(np.float32)
+    return x, w
+
+
+def _collective_case(bench, torch, mesh, axis, name, elems):
+    """One op of ``bench`` on this rank: (its input, its output)."""
+    n = bench.axis_size(mesh, axis)
+    bf16 = torch.bfloat16
+    if name == "psum":
+        x = bench._sharded_input(mesh, elems, bf16)
+        return x.clone(), bench.psum_op(mesh, axis)(x)
+    if name in ("all_gather", "ppermute"):
+        x = bench._sharded_input(mesh, elems, bf16)
+        out = torch.empty(n * elems if name == "all_gather" else elems,
+                          dtype=bf16)
+        op = (bench.all_gather_op if name == "all_gather"
+              else bench.ppermute_op)(mesh, axis)
+        return x, op(x, out)
+    if name == "reduce_scatter":
+        full = bench.reduce_scatter_input(mesh, axis, elems, bf16)
+        out = torch.empty(elems, dtype=bf16)
+        return full, bench.reduce_scatter_op(mesh, axis)(full, out)
+    x, w = collective_matmul_inputs(elems, n)
+    i = mesh.get_local_rank(axis)
+    xs = torch.from_numpy(x).to(bf16).chunk(n, dim=0)[i].contiguous()
+    ws = torch.from_numpy(w).to(bf16).chunk(n, dim=1)[i].contiguous()
+    return xs, bench.collective_matmul_op(mesh, axis)(xs, ws)
+
+
+def _collectives(world):
+    import torch
+
+    from container_engine_accelerators_tpu_torch.collectives import bench
+    from container_engine_accelerators_tpu_torch.parallel import mesh as pm
+
+    meshes = {"x": (pm.make_mesh(pm.plan_mesh(world, {"x": -1}), "cpu"),
+                    "x"),
+              "dcn": (pm.make_hybrid_mesh({"dcn": 2}, {"x": -1}, 2,
+                                          device_type="cpu"), "dcn")}
+    ops, results = {}, {}
+    for tier, (mesh, axis) in meshes.items():
+        for name, elems in COLLECTIVE_CASES:
+            x, y = _collective_case(bench, torch, mesh, axis, name, elems)
+            ops[tier, name, elems] = (x.float().numpy(), y.float().numpy())
+        for name, fn in bench.BENCHES.items():
+            results[tier, name] = fn(1 << 12, mesh=mesh, iters=1,
+                                     axis=axis).to_json()
+    sweep = [r.msg_bytes for r in bench.sweep(
+        "ppermute", min_bytes=1 << 12, max_bytes=1 << 14, factor=2,
+        mesh=meshes["x"][0], iters=1)]
+    return {"ops": ops, "results": results, "sweep": sweep}
+
+
+def _moe_tp(world, workdir):
+    from container_engine_accelerators_tpu_torch.models import serve_cli
+    from container_engine_accelerators_tpu_torch.models import weights
+    from container_engine_accelerators_tpu_torch.models.transformer import (
+        TransformerConfig,
+    )
+    from container_engine_accelerators_tpu_torch.parallel import mesh as pm
+    from container_engine_accelerators_tpu_torch.parallel import (
+        tensor_parallel as tpar,
+    )
+
+    with open(os.path.join(workdir, "moe_tp_in.pkl"), "rb") as f:
+        given = pickle.load(f)
+    cfg = TransformerConfig(**given["cfg"])
+    whole = weights.params_from_jax(given["tree"], cfg, device="cpu")
+    mesh = pm.make_mesh(pm.plan_mesh(world, {"tp": world}), "cpu")
+    model = serve_cli.Model(cfg, device="cpu", tp=world, weights=whole,
+                            axes=tpar.Axes.of_mesh(mesh))
+    return [model.generate([p], n) for p, n in given["cases"]]
+
+
+def _collectives_cli(rank, workdir):
+    """One rank of the collectives CLI in a world it joins itself."""
+    import contextlib
+    import io
+
+    from container_engine_accelerators_tpu_torch.collectives import (
+        __main__ as cli,
+    )
+    from container_engine_accelerators_tpu_torch.obs import (
+        metrics as obs_metrics,
+    )
+
+    with open(os.path.join(workdir, "collectives_cli_in.pkl"), "rb") as f:
+        given = pickle.load(f)
+    served = []
+
+    def fake_serve(port, registry=None, owner=""):
+        served.append((port, registry))
+
+    obs_metrics.serve = fake_serve
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(given["argv"])
+    return {"rc": rc, "lines": out.getvalue().splitlines(),
+            "served": [(port, reg.render().decode())
+                       for port, reg in served]}
+
+
 def main(argv):
     scenario, rank, world, workdir = argv
     rank, world = int(rank), int(world)
     sys.path.insert(0, REPO)
-    if scenario in ("serve_tp", "serve_link"):
-        out = (_serve_tp if scenario == "serve_tp" else _serve_link)(
-            rank, workdir)
+    if scenario in ("serve_tp", "serve_link", "collectives_cli"):
+        out = {"serve_tp": _serve_tp, "serve_link": _serve_link,
+               "collectives_cli": _collectives_cli}[scenario](rank, workdir)
         with open(os.path.join(workdir, f"{scenario}_rank{rank}.pkl"),
                   "wb") as f:
             pickle.dump(out, f)
@@ -623,6 +754,10 @@ def main(argv):
             out = _overlap(world)
         elif scenario == "tp_train":
             out = _tp_train(world, workdir)
+        elif scenario == "collectives":
+            out = _collectives(world)
+        elif scenario == "moe_tp":
+            out = _moe_tp(world, workdir)
         else:
             raise ValueError(f"unknown scenario {scenario!r}")
     finally:
