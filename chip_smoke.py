@@ -106,7 +106,13 @@ in-process transport in place of NCCL, sp² launches of each flash kernel,
 the assembled out, lse, dq, dk and dv held to the whole-sequence flash
 kernels by ``parallel/world_smoke.py``'s checks, every shard call of the held ranks,
 a wholly-future shard among them, held to its plain version, each step
-timed beside the whole sequence), train_dist (``train_cli --distributed``
+timed beside the whole sequence), moe_sp (MoE at Mixtral-8x7B's widths
+with the sequence over sp 2 and sp 4 in this process, each sequence
+routed whole across the ranks: the layer at S 8192 against the whole
+sequence's, then 2 layers' steps on the flash ring against the unsplit
+step), tp_whole (4 Qwen2-1.5B layers at tp 4 in this process, the
+attention whole on every rank: its 2 KV heads do not divide over 4),
+train_dist (``train_cli --distributed``
 as a world of one over NCCL through the env contract: the bootstrap
 marker, ``n_devices`` 1, every step's loss equal to the same run without
 ``--distributed``), serve_tp (tensor-parallel serving at Llama-3-8B's
@@ -5830,17 +5836,28 @@ EP_LAYERS = 2
 
 
 def _sharded_launches_per_step(ranks, layers):
-    """Flash launches of one tp or ep step with per-layer remat: every
-    rank runs each layer's attention forward twice (the forward and the
-    backward's recompute), then one dq and one dk/dv launch."""
+    """Flash launches of one sharded step with per-layer remat: each of
+    ``ranks`` attention calls a layer (a rank's own, or one rank's step
+    of an sp ring held in this process) runs its forward twice (the
+    forward and the backward's recompute), then one dq and one dk/dv
+    launch."""
     return (2 * ranks * layers, ranks * layers, ranks * layers)
 
 
+def _ring_calls(axes):
+    """Attention kernel calls a layer of one step makes over ``axes``:
+    every rank held, each an sp ring's sp steps."""
+    return axes.held * axes.sp.size
+
+
 def _sharded_steps(torch, tf, tp_lm, attention, cfg, axes, overlap,
-                   batches):
+                   batches, seq, routes=False):
     """``TP_STEPS`` steps of ``tp_lm`` over ``axes`` from seed 0's
     weights: (losses, step ms, flash launches per step, the first step's
-    gradients merged by name, peak GB, the path)."""
+    gradients merged by name, peak GB, the path, the first step's
+    routing when ``routes``)."""
+    from container_engine_accelerators_tpu_torch.parallel import world_smoke
+
     init, step = tp_lm.make_train_step(cfg, axes, device="cuda",
                                        overlap=overlap)
     model = tf.init_params(cfg, device="cuda", seed=0)
@@ -5848,35 +5865,48 @@ def _sharded_steps(torch, tf, tp_lm, attention, cfg, axes, overlap,
     del model
     _free(torch)
     torch.cuda.reset_peak_memory_stats()
-    losses, step_ms, per_step, grads = [], [], [], None
+    losses, step_ms, per_step, grads, seen = [], [], [], None, []
     for k, batch in enumerate(batches):
         before = _flash_counts(attention)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, loss = step(state, batch)
-        losses.append(loss.item())
+        with world_smoke.recorded_routes(torch, routes and k == 0) as got:
+            state, loss = step(state, batch)
+            losses.append(loss.item())
         step_ms.append((time.perf_counter() - t0) * 1e3)
         per_step.append(tuple(a - b for a, b in zip(
             _flash_counts(attention), before)))
         if k == 0:
             grads = tp_lm.merged(list(state[0]), axes, "grads")
+            seen = got
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    path = tp_lm.resolve(cfg, axes, None, 1, TP_SEQ, overlap)
+    path = tp_lm.resolve(cfg, axes, None, 1, seq, overlap)
     del state
     _free(torch)
-    return losses, step_ms, per_step, grads, peak_gb, path
+    return losses, step_ms, per_step, grads, peak_gb, path, seen
 
 
-def _sharded_phase(torch, np, tf, attention, card, phase, cfg, axes,
-                   overlaps, seed, kernel_case):
-    """One sharded training path held to the unsplit step by
-    ``world_smoke.wide_verdict`` (its gradients merged from the ranks'
+def _layer_routes(torch, seen, n_layers, ranks):
+    """The first forward's routing per layer from ``recorded_routes``,
+    as ``router_ties`` reads it: each layer's ``ranks`` calls'
+    probabilities of batch row 0 joined along the sequence, and k."""
+    return [(torch.cat([p[0] for p, _ in seen[i * ranks:(i + 1) * ranks]]),
+             seen[i * ranks][1]) for i in range(n_layers)]
+
+
+def _sharded_phase(torch, np, tf, attention, card, phase, cfg, variants,
+                   seed, kernel_case, seq=TP_SEQ):
+    """Sharded training paths held to the unsplit step by
+    ``world_smoke.wide_verdict`` (their gradients merged from the ranks'
     shards: in f32 within ``SHARDED_GRAD_RTOL`` of the unsplit f32 step;
     in bf16 as close to those as the unsplit bf16 step; a dense model's
     also within ``TRAIN_GRAD_TOL`` of the unsplit bf16 step, and the
-    loss), its flash launches to the schedule's count and the rank's
-    attention calls (``kernel_case``'s shape) to their plain versions.
-    Returns the launches of all its steps (fwd, dq, dkv)."""
+    loss; an MoE model under sp also its routing against the unsplit
+    step's by ``world_smoke.router_ties``), their flash launches to the
+    schedule's count and a rank's attention calls (``kernel_case``'s
+    shape) to their plain versions. ``variants``: (overlap, axes) pairs,
+    each run ``TP_STEPS`` steps on B 1 × S ``seq``. Returns the launches
+    of all their steps (fwd, dq, dkv)."""
     from container_engine_accelerators_tpu_torch.models import tp_lm
     from container_engine_accelerators_tpu_torch.parallel import (
         ring_attention as ra,
@@ -5885,23 +5915,29 @@ def _sharded_phase(torch, np, tf, attention, card, phase, cfg, axes,
 
     rng = np.random.default_rng(seed)
     batches = [{"tokens": torch.as_tensor(rng.integers(
-        0, cfg.vocab_size, (1, TP_SEQ + 1)), device="cuda")}
+        0, cfg.vocab_size, (1, seq + 1)), device="cuda")}
         for _ in range(TP_STEPS)]
-    loss1, ref, unsplit_ms, unsplit_peak_gb = _unsplit_step(
-        torch, tf, cfg, batches[0])
+    routes = bool(cfg.n_experts) and any(a.sp.size > 1 for _, a in variants)
+    with world_smoke.recorded_routes(torch, routes) as seen_ref:
+        loss1, ref, unsplit_ms, unsplit_peak_gb = _unsplit_step(
+            torch, tf, cfg, batches[0])
+    ref_routes = _layer_routes(torch, seen_ref, cfg.n_layers, 1) \
+        if routes else None
     _free(torch)
     ref32 = world_smoke.unsplit_f32_grads(
         torch, tf, tf.init_params(cfg, device="cuda", seed=0), batches[0])
     _free(torch)
     n_params = tp_lm.n_params(cfg)
-    ranks = axes.held
-    want = _sharded_launches_per_step(ranks, cfg.n_layers)
     expected = math.log(cfg.vocab_size) + cfg.d_model * 0.02 ** 2 / 2
     _zero_flash_counts(attention)
     problems, launches = [], (0, 0, 0)
-    for overlap in overlaps:
-        losses, step_ms, per_step, grads, peak_gb, path = _sharded_steps(
-            torch, tf, tp_lm, attention, cfg, axes, overlap, batches)
+    for overlap, axes in variants:
+        ranks = _ring_calls(axes)
+        want = _sharded_launches_per_step(ranks, cfg.n_layers)
+        sp_routes = routes and axes.sp.size > 1
+        losses, step_ms, per_step, grads, peak_gb, path, seen = \
+            _sharded_steps(torch, tf, tp_lm, attention, cfg, axes, overlap,
+                           batches, seq, routes=sp_routes)
         # The steps' launches; the f32 hold's below are a comparison's.
         for counts in per_step:
             launches = tuple(a + b for a, b in zip(launches, counts))
@@ -5911,34 +5947,42 @@ def _sharded_phase(torch, np, tf, attention, card, phase, cfg, axes,
         readings, held = world_smoke.wide_verdict(
             torch, bool(cfg.n_experts), abs(losses[0] - loss1), grads, ref,
             got32, ref32)
+        if sp_routes:
+            ties = world_smoke.router_ties(
+                _layer_routes(torch, seen, cfg.n_layers, axes.held),
+                ref_routes)
+            readings["router"] = ties
+            held = held and (ties["first_layer"] is None
+                             or ties["router_tie"])
         del grads, got32
         _free(torch)
         steady = step_ms[1:]
-        tokens = TP_SEQ
         emit({"phase": phase, **card, "path": path, "tp": axes.tp.size,
-              "ep": axes.ep.size, "n_layers": cfg.n_layers,
-              "n_experts": cfg.n_experts, "batch": [1, TP_SEQ],
-              "dtype": cfg.dtype, "transport": "InProcess",
+              "ep": axes.ep.size, "sp": axes.sp.size,
+              "whole_parts": sorted(tp_lm.whole_parts(cfg, axes.tp.size)),
+              "n_layers": cfg.n_layers, "n_experts": cfg.n_experts,
+              "batch": [1, seq], "dtype": cfg.dtype, "transport": "InProcess",
               "n_params": n_params, "losses": losses, "unsplit_loss": loss1,
               "loss_abs_err": abs(losses[0] - loss1),
               "expected_first_loss": expected, **readings,
               "tol": {**world_smoke.WIDE_GRAD_TOL,
                       "f32_grad_rel": world_smoke.SHARDED_GRAD_RTOL,
                       "f32_anchor": world_smoke.F32_ANCHOR,
+                      "router_atol": world_smoke.ROUTER_ATOL,
                       "bf16_vs_unsplit_held": not cfg.n_experts},
               "launches_per_step": per_step, "launches_per_step_want": want,
               "step_ms": step_ms,
               "mean_steady_step_ms": sum(steady) / len(steady),
               "unsplit_step_ms": unsplit_ms,
               "step_note": f"every rank's step in this process, serially: "
-                           f"the sum of the {ranks} ranks' work and their "
-                           f"in-process transfers (a list rotation)",
-              "tokens_per_s": tokens / (sum(steady) / len(steady) / 1e3),
+                           f"the sum of the {axes.held} ranks' work and "
+                           f"their in-process transfers (a list rotation)",
+              "tokens_per_s": seq / (sum(steady) / len(steady) / 1e3),
               "max_memory_allocated_gb": peak_gb,
               "unsplit_max_memory_allocated_gb": unsplit_peak_gb})
         if not held:
-            problems.append(f"{path}: disagrees with the unsplit step: "
-                            f"{readings}")
+            problems.append(f"{path} over {axes.held} ranks: disagrees with "
+                            f"the unsplit step: {readings}")
         if not all(math.isfinite(x) for x in losses) or \
                 abs(losses[0] - expected) > 0.5:
             problems.append(f"{path}: losses {losses}, the first not within "
@@ -5949,27 +5993,31 @@ def _sharded_phase(torch, np, tf, attention, card, phase, cfg, axes,
     del ref, ref32
     _free(torch)
 
-    # Kernels 1, 3 and 4 at the rank's attention shape against their plain
-    # versions (bases 0).
+    # Kernels 1, 3 and 4 at a rank's attention shape against their plain
+    # versions: bases 0 and, for an sp ring, its last rank's past shard.
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    hq, hkv, d = kernel_case[8], kernel_case[9], kernel_case[10]
+    q_len, hq, hkv, d = kernel_case[2], kernel_case[8], kernel_case[9], \
+        kernel_case[10]
 
     def rand(h):
-        return torch.randn(1, h, TP_SEQ, d, generator=gen,
+        return torch.randn(1, h, q_len, d, generator=gen,
                            device="cuda").to(torch.bfloat16)
 
     q, k, v, g = rand(hq), rand(hkv), rand(hkv), rand(hq)
     sm_scale = d ** -0.5
-    out, lse = attention.flash_fwd(q, k, v, causal=True, sm_scale=sm_scale)
-    held_ok, held = _held_shard_call(torch, attention, q, k, v, out, lse, g,
-                                     ra.delta_of(out, g), 0, 0, sm_scale)
-    emit({"phase": f"{phase}_kernels", **card, "case": kernel_case[0],
-          "ok": held_ok, **held})
+    for q_base in sorted({0, kernel_case[5]}):
+        out, lse = attention.flash_fwd(q, k, v, causal=True,
+                                       sm_scale=sm_scale, q_base=q_base)
+        held_ok, held = _held_shard_call(torch, attention, q, k, v, out, lse,
+                                         g, ra.delta_of(out, g), q_base, 0,
+                                         sm_scale)
+        emit({"phase": f"{phase}_kernels", **card, "case": kernel_case[0],
+              "q_base": q_base, "ok": held_ok, **held})
+        if not held_ok:
+            problems.append(f"the rank's kernel calls at q_base {q_base} "
+                            f"disagree with their plain versions: {held}")
     del q, k, v, g, out, lse
     _free(torch)
-    if not held_ok:
-        problems.append(f"the rank's kernel calls disagree with their plain "
-                        f"versions: {held}")
     if problems:
         fail(f"{phase}: " + "; ".join(problems))
     return launches
@@ -5986,9 +6034,10 @@ def tensor_parallel_phase(torch, np, tf, attention, card):
 
     cfg = dataclasses.replace(tf.TransformerConfig.llama3_8b(),
                               n_layers=TP_LAYERS)
+    axes = tpar.Axes.in_process(tp=TP_SIZE)
     return _sharded_phase(torch, np, tf, attention, card, "tensor_parallel",
-                          cfg, tpar.Axes.in_process(tp=TP_SIZE),
-                          ("ring", "off"), 19, TP_LOCAL_CASE)
+                          cfg, [("ring", axes), ("off", axes)], 19,
+                          TP_LOCAL_CASE)
 
 
 def mixtral_config(tf, n_layers=EP_LAYERS):
@@ -6010,8 +6059,173 @@ def expert_parallel_phase(torch, np, tf, attention, card):
 
     return _sharded_phase(torch, np, tf, attention, card, "expert_parallel",
                           mixtral_config(tf),
-                          tpar.Axes.in_process(ep=EP_SIZE), (None,), 20,
+                          [(None, tpar.Axes.in_process(ep=EP_SIZE))], 20,
                           PIPELINE_CASE)
+
+
+# moe_sp: Mixtral-8x7B's widths (mixtral_config), MOE_SP_LAYERS layers,
+# B 1 × S MOE_SP_SEQ, its sequence over sp 2 and sp 4 with every sp rank
+# in this process (Axes.in_process(sp=...)): each sequence routed whole
+# across the ranks (parallel/moe.py), attention the flash ring
+# (ring_attention.RingFlash over InProcess).
+MOE_SP_SEQ = 8192
+MOE_SP_SIZES = (2, 4)
+MOE_SP_LAYERS = 2
+# The MoE layer through the sharded routing against moe_ffn on the whole
+# sequence in f32: the slot masks equal, y's largest error within this
+# share of its largest |y| (the expert products run on other buffers, so
+# only the order of f32 sums differs), the gradients by wide_verdict's f32
+# rule (SHARDED_GRAD_RTOL).
+MOE_SP_Y_RTOL = 1e-4
+# A rank's shard attention there: Mixtral's 32/8 heads, a 4096-token
+# shard (sp 2), at base 0 and at the last rank's base against the first
+# shard.
+MOE_SP_CASE = ("moe_sp_shard_s4096", 1, 4096, 4096, True, 4096, 0, None, 32,
+               8, 128, "bfloat16")
+# tp_whole: Qwen2-1.5B's widths (world_smoke.qwen2_config), TP_LAYERS
+# layers, tp 4 in this process: tp does not divide its 2 KV heads, so the
+# attention is whole on every rank (12/2 heads), the FFN and vocabulary
+# split.
+TP_WHOLE_CASE = ("tp_whole_s4096", 1, 4096, 4096, True, 0, 0, None, 12, 2,
+                 128, "bfloat16")
+
+
+def _moe_layer(torch, moe, tpar, cfg, params, x, sp):
+    """One MoE layer's loss, ``(y.float() ** 2).mean() + 0.01 · aux``,
+    and its backward: whole (sp 1, ``moe.moe_ffn``) or every rank of an
+    sp axis in this process (``moe.moe_ffn_parallel``, each rank's share
+    of the loss, the ranks' weights one tensor). Returns (y, the loss,
+    gradients by name: router, w1, w2 and x)."""
+    leaves = {n: t.detach().clone().requires_grad_()
+              for n, t in params.items()}
+    kw = dict(top_k=cfg.expert_top_k, capacity_factor=cfg.capacity_factor)
+    xs = [t.contiguous().requires_grad_()
+          for t in x.detach().split(x.shape[1] // sp, dim=1)]
+    if sp == 1:
+        y, aux = moe.moe_ffn(xs[0], leaves, **kw)
+        ys, loss = [y], (y.float() ** 2).mean() + 0.01 * aux
+    else:
+        ys, auxes = moe.moe_ffn_parallel(
+            xs, [leaves] * sp, tpar.Axes.in_process(sp=sp), **kw)
+        loss = sum((y.float() ** 2).sum() / x.numel() + 0.01 * a / sp
+                   for y, a in zip(ys, auxes))
+    loss.backward()
+    grads = {n: t.grad for n, t in leaves.items()}
+    grads["x"] = torch.cat([t.grad for t in xs], dim=1)
+    return torch.cat([y.detach() for y in ys], dim=1), loss.item(), grads
+
+
+def moe_sp_layer(torch, tf, card):
+    """The MoE layer at Mixtral-8x7B's widths and S ``MOE_SP_SEQ``
+    through the sharded routing at each sp of ``MOE_SP_SIZES`` against
+    ``moe_ffn`` on the whole sequence, on the same bf16 weights: in f32
+    (the weights widened) the slot masks equal and y and every gradient
+    within ``MOE_SP_Y_RTOL`` / ``SHARDED_GRAD_RTOL``; in bf16 by
+    ``wide_verdict``'s MoE rule, the routing by ``router_ties``."""
+    from container_engine_accelerators_tpu_torch.parallel import moe
+    from container_engine_accelerators_tpu_torch.parallel import (
+        tensor_parallel as tpar,
+        world_smoke,
+    )
+
+    cfg = mixtral_config(tf, MOE_SP_LAYERS)
+    d, f, e, k = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.expert_top_k
+    gen = torch.Generator(device="cuda").manual_seed(23)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    bf16 = {"router": randn(d, e, scale=d ** -0.5),
+            "w1": randn(e, d, f, scale=d ** -0.5).to(torch.bfloat16),
+            "w2": randn(e, f, d, scale=f ** -0.5).to(torch.bfloat16)}
+    wide = {n: t.float() for n, t in bf16.items()}
+    x = randn(1, MOE_SP_SEQ, d).to(torch.bfloat16)
+    with world_smoke.recorded_routes(torch) as seen:
+        _, loss_ref, ref = _moe_layer(torch, moe, tpar, cfg, bf16, x, 1)
+    y32_ref, _, ref32 = _moe_layer(torch, moe, tpar, cfg, wide, x.float(), 1)
+    with torch.no_grad():
+        _, want_masks, _ = moe._route(x.float(), wide["router"], k,
+                                      cfg.capacity_factor)
+    problems = []
+    for sp in MOE_SP_SIZES:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            routes, _, c = moe._route_sharded(
+                list(x.float().split(MOE_SP_SEQ // sp, dim=1)),
+                [wide["router"]] * sp, k, cfg.capacity_factor,
+                tpar.Axes.in_process(sp=sp))
+            masks_equal = all(torch.equal(torch.cat(
+                [moe.slot_masks(r, e, c)[j] for r in routes], dim=1),
+                want_masks[j]) for j in range(k))
+            drops = int(sum((~r[3]).sum() for r in routes))
+            del routes
+        with world_smoke.recorded_routes(torch) as seen_sp:
+            _, loss_sp, got = _moe_layer(torch, moe, tpar, cfg, bf16, x, sp)
+        y32, _, got32 = _moe_layer(torch, moe, tpar, cfg, wide, x.float(),
+                                   sp)
+        y_err = ((y32 - y32_ref).abs().max()
+                 / y32_ref.abs().max()).item()
+        readings, held = world_smoke.wide_verdict(
+            torch, True, abs(loss_sp - loss_ref), got, ref, got32, ref32)
+        ties = world_smoke.router_ties(
+            _layer_routes(torch, seen_sp, 1, sp),
+            _layer_routes(torch, seen, 1, 1))
+        ok = held and masks_equal and y_err <= MOE_SP_Y_RTOL and (
+            ties["first_layer"] is None or ties["router_tie"])
+        emit({"phase": "moe_sp_layer", **card, "sp": sp, "seq": MOE_SP_SEQ,
+              "d_model": d, "d_ff": f, "n_experts": e, "top_k": k,
+              "capacity": c, "drops": drops, "masks_equal": masks_equal,
+              "f32_y_rel_err": y_err, **readings, "router": ties,
+              "tol": {"f32_y_rel": MOE_SP_Y_RTOL,
+                      "f32_grad_rel": world_smoke.SHARDED_GRAD_RTOL,
+                      "f32_anchor": world_smoke.F32_ANCHOR,
+                      "loss_abs": world_smoke.WIDE_GRAD_TOL["loss_abs"],
+                      "router_atol": world_smoke.ROUTER_ATOL},
+              "seconds": time.perf_counter() - t0, "ok": ok})
+        if not ok:
+            problems.append(f"sp {sp}: masks equal {masks_equal}, f32 y "
+                            f"{y_err}, {readings}, router {ties}")
+        del got, got32, y32
+        _free(torch)
+    del bf16, wide, x, ref, ref32, want_masks
+    _free(torch)
+    if problems:
+        fail("moe_sp layer: " + "; ".join(problems))
+
+
+def moe_sp_phase(torch, np, tf, attention, card):
+    """MoE training with its sequence over sp at Mixtral-8x7B's widths:
+    the layer through the sharded routing (``moe_sp_layer``), then
+    ``TP_STEPS`` steps of ``tp_lm`` over an in-process sp axis of each
+    size of ``MOE_SP_SIZES`` on the flash ring against the unsplit step
+    (``_sharded_phase``). Returns the launches of its steps."""
+    from container_engine_accelerators_tpu_torch.parallel import (
+        tensor_parallel as tpar,
+    )
+
+    moe_sp_layer(torch, tf, card)
+    cfg = dataclasses.replace(mixtral_config(tf, MOE_SP_LAYERS),
+                              max_seq_len=MOE_SP_SEQ)
+    return _sharded_phase(
+        torch, np, tf, attention, card, "moe_sp", cfg,
+        [(None, tpar.Axes.in_process(sp=sp)) for sp in MOE_SP_SIZES], 21,
+        MOE_SP_CASE, seq=MOE_SP_SEQ)
+
+
+def tp_whole_phase(torch, np, tf, attention, card):
+    """Tensor-parallel training over dims tp does not divide: Qwen2-1.5B's
+    widths (``TP_LAYERS`` layers, tp ``TP_SIZE`` in this process; its 2
+    KV heads whole on every rank), ``TP_STEPS`` steps against the unsplit
+    step. Returns the launches of its steps."""
+    from container_engine_accelerators_tpu_torch.parallel import (
+        tensor_parallel as tpar,
+        world_smoke,
+    )
+
+    cfg = world_smoke.qwen2_config(n_layers=TP_LAYERS, seq=TP_SEQ)
+    return _sharded_phase(
+        torch, np, tf, attention, card, "tp_whole", cfg,
+        [(None, tpar.Axes.in_process(tp=TP_SIZE))], 22, TP_WHOLE_CASE)
 
 
 # The int8 ring products at a tp-4 shard of Llama-3-8B's FFN: w1's column
@@ -6845,6 +7059,10 @@ def main():
     _free(torch)
     ep_launches = expert_parallel_phase(torch, np, tf, attention, card)
     _free(torch)
+    moe_sp_launches = moe_sp_phase(torch, np, tf, attention, card)
+    _free(torch)
+    tp_whole_launches = tp_whole_phase(torch, np, tf, attention, card)
+    _free(torch)
     int8_ring_launches = int8_ring_phase(torch, int8_matmul, q8, card)
     _free(torch)
     serve_tp_launches, serve_tp_int8_launches = serve_tp_phase(
@@ -6875,6 +7093,7 @@ def main():
                 "ring": ring_launches, "pipeline": pipeline_launches,
                 "tensor_parallel": tp_launches,
                 "expert_parallel": ep_launches,
+                "moe_sp": moe_sp_launches, "tp_whole": tp_whole_launches,
                 "train_dist": train_dist_launches,
                 "train_bert_sp": bert_sp_launches,
                 "device_bench": tuple(bench_launches[k] for k in (

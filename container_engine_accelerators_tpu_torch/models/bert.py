@@ -27,7 +27,12 @@ tp, with one all-reduce of each row-parallel product's f32 partials
 (``parallel/tensor_parallel.row_parallel``), and attention runs the
 non-causal flash kernels on the rank's n_heads/tp heads. Every replicated
 parameter then sees every token on every tp rank, so its gradient is
-whole there and only dp sums it.
+whole there and only dp sums it. Where tp does not divide n_heads the
+attention is held whole on every tp rank (``whole_parts``) and computed
+there alike with no collective, its input gradient not summed over tp:
+the function GSPMD computes where its shards of the d_model columns cut
+through a head. Widths JAX's ``device_put`` cannot shard over tp (d_ff,
+d_model) are refused as it fails (``make_tp_train_step``).
 """
 
 import dataclasses
@@ -228,7 +233,11 @@ def tp_forward(shards, axes, tokens, segment_ids=None, pad_mask=None,
     tp = axes.tp
     cfg = shards[0].cfg
     batch, seq = tokens.shape
-    h, hd = cfg.n_heads // tp.size, cfg.head_dim
+    whole = whole_parts(cfg, tp.size)
+    attn_in, attn_out = _products(axes, "attn" not in whole)
+    ffn_in, ffn_out = _products(axes, True)
+    h = cfg.n_heads // (1 if "attn" in whole else tp.size)
+    hd = cfg.head_dim
     xs = [_embed(s, tokens, segment_ids) for s in shards]
     for i in range(cfg.n_layers):
         lps = [s.layers[i] for s in shards]
@@ -237,26 +246,60 @@ def tp_forward(shards, axes, tokens, segment_ids=None, pad_mask=None,
             return t.view(batch, seq, h, hd).transpose(1, 2)
 
         outs = []
-        for (q, k, v) in tpar.column_products(
-                xs, [(lp.wq, lp.wk, lp.wv) for lp in lps], [tp]):
+        for (q, k, v) in attn_in(xs, [(lp.wq, lp.wk, lp.wv) for lp in lps]):
             attn = _attention(heads(q), heads(k), heads(v), pad_mask,
                               attn_impl)
             outs.append(attn.transpose(1, 2).reshape(batch, seq, h * hd))
-        outs = tpar.row_parallel(outs, [lp.wo for lp in lps], axes)
+        outs = attn_out(outs, [lp.wo for lp in lps])
         xs = [lp.ln1(x + o) for x, o, lp in zip(xs, outs, lps)]
         outs = [gelu((u + lp.b_in).float()).to(x.dtype)
-                for (u,), x, lp in zip(tpar.column_products(
-                    xs, [(lp.w_in,) for lp in lps], [tp]), xs, lps)]
-        outs = tpar.row_parallel(outs, [lp.w_out for lp in lps], axes)
+                for (u,), x, lp in zip(ffn_in(
+                    xs, [(lp.w_in,) for lp in lps]), xs, lps)]
+        outs = ffn_out(outs, [lp.w_out for lp in lps])
         xs = [lp.ln2(x + (o + lp.b_out)) for x, o, lp in zip(xs, outs, lps)]
     return xs
 
 
+def whole_parts(cfg, tp):
+    """The parts tp does not divide, each held whole on every tp rank and
+    computed there alike with no collective (``tp_lm.whole_parts``'s
+    rule): "attn" (wq, wk, wv, wo) unless tp divides n_heads."""
+    return frozenset({"attn"} if cfg.n_heads % tp else ())
+
+
+def layout(cfg, tp):
+    """``tensor_parallel.BERT_TP`` without the whole parts' weights."""
+    if "attn" not in whole_parts(cfg, tp):
+        return dict(tpar.BERT_TP)
+    return {name: dim for name, dim in tpar.BERT_TP.items()
+            if name not in ("wq", "wk", "wv", "wo")}
+
+
+def _products(axes, split):
+    """(enter, leave) of a part: a split part's column shards and
+    row-parallel sums over tp, a whole part's plain products (its input
+    gradient whole already, so not summed over tp)."""
+    if not split:
+        return (lambda xs, wss: [tuple(x @ w for w in ws)
+                                 for x, ws in zip(xs, wss)],
+                lambda ys, ws: [y @ w for y, w in zip(ys, ws)])
+    return (lambda xs, wss: tpar.column_products(xs, wss, [axes.tp]),
+            lambda ys, ws: tpar.row_parallel(ys, ws, axes))
+
+
 def split_params(model, axes):
     """The tp shards of ``model`` the ranks of ``axes`` hold (new
-    tensors), an ``nn.ModuleList`` in list order."""
+    tensors), an ``nn.ModuleList`` in list order: :func:`layout`'s
+    parts split, the whole parts whole."""
     return tpar.split_module(model, lambda: Bert(model.cfg, "meta"), axes,
-                             tpar.BERT_TP)
+                             layout(model.cfg, axes.tp.size))
+
+
+def merged(shards, axes, which="params"):
+    """The whole model's parameters (``which="grads"``: gradients) by
+    name from every rank's shards (``tensor_parallel.merged``)."""
+    return tpar.merged(shards, axes, layout(shards[0].cfg, axes.tp.size),
+                       which=which)
 
 
 def mlm_logits(model, hidden):
@@ -350,8 +393,9 @@ def make_tp_train_step(cfg, axes, mesh=None, optimizer=None, device="cuda",
     keeps the shards of the ranks held: state = (the shards, an
     ``nn.ModuleList``; the optimizer over them). ``train_step(state,
     batch)`` takes the GLOBAL batch and returns (state, the global
-    loss)."""
-    for name in ("n_heads", "d_ff"):
+    loss). A d_ff or a d_model that tp does not divide is refused, as
+    JAX's ``device_put`` of ``param_shardings`` fails on it."""
+    for name in ("d_model", "d_ff"):
         if getattr(cfg, name) % axes.tp.size:
             raise ValueError(f"tp={axes.tp.size} must divide {name}="
                              f"{getattr(cfg, name)}")

@@ -172,7 +172,8 @@ class ShardedModel(nn.Module):
         ks, vs = [], []
         for i in range(cfg.n_layers):
             layers = [s.layers[i] for s in ranks]
-            xs, kvs, _ = tf.block(layers, xs, positions, tf._flash_attend,
+            xs, kvs, _ = tf.block(layers, xs, positions,
+                                  tf.each_rank(tf._flash_attend),
                                   enter=enter, leave=leave,
                                   moe_ffn=self.moe_ffn(layers))
             ks.append(torch.cat([k for k, _ in kvs], dim=1))

@@ -96,9 +96,15 @@ rank's n_heads/tp heads, the sp ring on them under ``--sp``) and its
 ``--n-experts`` MoE FFN expert-parallel over ep (``parallel/moe.py``);
 ``--model bert`` trains tensor-parallel on its Megatron shards; mnist and
 resnet replicate their parameters and batch over tp and ep, as JAX does,
-so those ranks are replicas. ``--n-experts`` trains under ``--dp`` too
-(routing is per sequence); with ``--sp`` it is refused
-(``transformer.MoESequenceParallelError``). Checkpoints under a tp or ep
+so those ranks are replicas. A part whose dims tp does not divide (the
+attention where tp does not divide the heads or KV heads, the
+vocabulary) is held whole on every tp rank and computed there alike, as
+GSPMD computes it where its shards cut through a head
+(``tp_lm.whole_parts``); a d_ff or head width tp does not divide is
+refused, as JAX's ``device_put`` fails on it. ``--n-experts`` trains under every axis:
+routing is per sequence, and under ``--sp`` each sequence is routed
+whole across its sp ranks, which exchange their hit counts and run the
+experts on their own tokens (``parallel/moe.py``). Checkpoints under a tp or ep
 axis are per shard: the ranks of dp (and sp) index 0 write
 ``<dir>/tp_<t>_ep_<e>/step_<N>/state.pt`` (their shards and AdamW
 state); on resume those ranks restore their newest readable step, the
@@ -747,14 +753,6 @@ def build_parser():
     return p
 
 
-def _refuse_multi_gpu(args):
-    """JAX's refusal of MoE routing across sequence-parallel ranks. Every
-    other model takes ``--sp`` as JAX does: mnist, resnet and BERT batches
-    shard over dp alone, so their sp ranks are replicas."""
-    if args.model == "transformer":
-        tf.check_moe_mesh(config_from_args(args), {"sp": args.sp})
-
-
 def _check_pp(parser, args):
     """JAX's checks of ``--pp`` before any world is joined."""
     if args.pp > 1:
@@ -843,7 +841,6 @@ def main(argv=None):
     )
     parser = build_parser()
     args = parser.parse_args(argv)
-    _refuse_multi_gpu(args)
     _check_pp(parser, args)
     device, mesh = _join(args, parser)
     log.info("device=%s mesh=%s", device,

@@ -32,7 +32,9 @@ Parameters are trainable, dense ones only; the serving entry points run
 under ``torch.inference_mode()``. With ``n_experts > 0`` every layer's
 FFN is the mixture-of-experts block of ``parallel/moe.py`` (forward,
 ``loss_fn`` with the aux loss, ``make_train_step``, and every serving
-program: each routes per leading-dim group of its input, as JAX's do).
+program: each routes per leading-dim group of its input, as JAX's do;
+under a mesh's "sp" axis each sequence is routed whole across its sp
+ranks).
 
 Training takes a DeviceMesh (``make_train_step(mesh=...)``, the JAX
 step's ``mesh``): its "dp" axis splits the global batch's rows and its
@@ -69,6 +71,7 @@ from container_engine_accelerators_tpu_torch.parallel import (
     data_parallel,
     moe,
     ring_attention,
+    tensor_parallel,
 )
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -226,12 +229,20 @@ class MoEFeedForward(nn.Module):
         self.w1 = nn.Parameter(torch.empty(e, d, f, dtype=dt, device=device))
         self.w2 = nn.Parameter(torch.empty(e, f, d, dtype=dt, device=device))
 
-    def forward(self, h):
-        """(B, S, D) → (the FFN's output, the layer's f32 aux loss)."""
-        return moe.moe_ffn(
-            h, {"router": self.router, "w1": self.w1, "w2": self.w2},
-            top_k=self.cfg.expert_top_k,
-            capacity_factor=self.cfg.capacity_factor)
+    def forward(self, h, sp=None):
+        """(B, S, D) → (the FFN's output, the layer's f32 aux loss).
+        ``sp``: the transport of a sequence-parallel axis ``h``'s
+        positions are this rank's shard of; each sequence is routed
+        whole over it (``moe.moe_ffn_parallel``)."""
+        params = {"router": self.router, "w1": self.w1, "w2": self.w2}
+        kw = dict(top_k=self.cfg.expert_top_k,
+                  capacity_factor=self.cfg.capacity_factor)
+        if sp is None or sp.size == 1:
+            return moe.moe_ffn(h, params, **kw)
+        lone = ring_attention.InProcess(1)
+        ys, auxes = moe.moe_ffn_parallel(
+            [h], [params], tensor_parallel.Axes(lone, lone, sp), **kw)
+        return ys[0], auxes[0]
 
 
 def dense_products(hs, wss):
@@ -246,11 +257,22 @@ def dense_sums(xs, ws):
     return [_mm(x, w) for x, w in zip(xs, ws)]
 
 
+def each_rank(attend):
+    """``block``'s ``attend`` from per-rank attention: ``attend(q, k, v)``
+    on every rank held, or a list of each rank's own (the serving
+    programs': each rank's cache holds its own heads)."""
+    def run(qs, ks, vs):
+        fns = attend if isinstance(attend, list) else [attend] * len(qs)
+        return [a(q, k, v) for a, q, k, v in zip(fns, qs, ks, vs)]
+    return run
+
+
 def block(layers, xs, positions, attend, enter=dense_products,
-          leave=dense_sums, moe_ffn=None):
+          leave=dense_sums, moe_ffn=None, ffn_enter=None, ffn_leave=None):
     """One decoder block on every rank held: ``layers`` each rank's
     ``DecoderLayer`` (the whole one, or its tensor-parallel shard: the
-    head counts follow the q/k/v widths), ``xs`` their (B, S, D) inputs.
+    head counts follow the q/k/v widths), ``xs`` their (B, S, D) inputs
+    at ``positions`` (B, S), or a list of each rank's.
 
     ``enter(hs, wss)`` computes the products the normed inputs enter, per
     rank a tuple for the tuple of weights (q/k/v, then w1/w3), and
@@ -258,12 +280,14 @@ def block(layers, xs, positions, attend, enter=dense_products,
     w2): plain products on one device; the column shards' products of a
     replicated input, then row-parallel partial sums over tp (the off
     path, ``models/tp_lm.py``); or the ring collective matmuls, which
-    gather and scatter the sequence (the ring path). ``attend(q, k, v)`` maps the
-    rope'd q/k/v (B, H, S, hd) at ``positions`` (B, S) to (B, Hq, S, hd);
-    a list gives each rank held its own (the serving programs': each
-    rank's cache holds its own heads). ``moe_ffn(hs)`` replaces an MoE
-    layer's FFN across ranks (expert parallelism); without it each rank
-    runs its layer's own.
+    gather and scatter the sequence (the ring path). ``attend(qs, ks,
+    vs)`` maps every rank's rope'd q/k/v (B, H, S, hd) at its positions
+    to its (B, Hq, S, hd): :func:`each_rank`'s per-rank attention, or a
+    sequence-parallel ring over the ranks (``ring_attention.ring_attend``).
+    ``moe_ffn(hs)`` replaces an MoE layer's FFN across ranks (expert
+    parallelism); without it each rank runs its layer's own.
+    ``ffn_enter``/``ffn_leave`` (default ``enter``/``leave``) are the
+    FFN's, where it is split otherwise than the attention.
 
     Returns (xs, the rope'd (k, v) per rank, the MoE aux per rank or
     None)."""
@@ -271,15 +295,16 @@ def block(layers, xs, positions, attend, enter=dense_products,
     qkv = enter([lp.ln1(x) for x, lp in zip(xs, layers)],
                 [(lp.attn.wq, lp.attn.wk, lp.attn.wv) for lp in layers])
     theta = layers[0].attn.cfg.rope_theta
-    attends = attend if isinstance(attend, list) else [attend] * len(layers)
-    kvs, outs = [], []
-    for (q, k, v), attend in zip(qkv, attends):
-        q = _rope(_split_heads(q, hd), positions, theta).contiguous()
-        k = _rope(_split_heads(k, hd), positions, theta).contiguous()
-        v = _split_heads(v, hd).contiguous()
-        kvs.append((k, v))
-        outs.append(_merge_heads(attend(q, k, v)))
-    outs = leave(outs, [lp.attn.wo for lp in layers])
+    if not isinstance(positions, list):
+        positions = [positions] * len(layers)
+    qs, ks, vs = [], [], []
+    for (q, k, v), pos in zip(qkv, positions):
+        qs.append(_rope(_split_heads(q, hd), pos, theta).contiguous())
+        ks.append(_rope(_split_heads(k, hd), pos, theta).contiguous())
+        vs.append(_split_heads(v, hd).contiguous())
+    kvs = list(zip(ks, vs))
+    outs = leave([_merge_heads(o) for o in attend(qs, ks, vs)],
+                 [lp.attn.wo for lp in layers])
     xs = [x + o for x, o in zip(xs, outs)]
     hs = [lp.ln2(x) for x, lp in zip(xs, layers)]
     aux = None
@@ -288,10 +313,11 @@ def block(layers, xs, positions, attend, enter=dense_products,
     elif isinstance(layers[0].ffn, MoEFeedForward):
         ys, aux = map(list, zip(*(lp.ffn(h) for h, lp in zip(hs, layers))))
     else:
-        gate_up = enter(hs, [(lp.ffn.w1, lp.ffn.w3) for lp in layers])
+        gate_up = (ffn_enter or enter)(
+            hs, [(lp.ffn.w1, lp.ffn.w3) for lp in layers])
         mids = [torch.nn.functional.silu(g.float()).to(g.dtype) * u
                 for g, u in gate_up]
-        ys = leave(mids, [lp.ffn.w2 for lp in layers])
+        ys = (ffn_leave or leave)(mids, [lp.ffn.w2 for lp in layers])
     return [x + y for x, y in zip(xs, ys)], kvs, aux
 
 
@@ -305,12 +331,20 @@ class DecoderLayer(nn.Module):
         self.ffn = (MoEFeedForward if cfg.n_experts else FeedForward)(
             cfg, device)
 
-    def forward(self, x, positions, attend):
+    def forward(self, x, positions, attend, sp=None):
         """One block on (B, S, D) (``block`` on this one layer).
         ``attend(q, k, v)`` maps the rope'd q/k/v to (B, Hq, S, hd);
-        returns (x, (k, v), aux): aux is the MoE FFN's load-balancing
-        loss, None for a dense FFN."""
-        xs, kvs, aux = block([self], [x], positions, attend)
+        ``sp`` routes an MoE FFN's sequences whole over that sequence-
+        parallel transport (``MoEFeedForward.forward``). Returns (x,
+        (k, v), aux): aux is the MoE FFN's load-balancing loss, None for
+        a dense FFN."""
+        moe_ffn = None
+        if sp is not None and isinstance(self.ffn, MoEFeedForward):
+            def moe_ffn(hs):
+                y, aux = self.ffn(hs[0], sp)
+                return [y], [aux]
+        xs, kvs, aux = block([self], [x], positions, each_rank(attend),
+                             moe_ffn=moe_ffn)
         return xs[0], kvs[0], None if aux is None else aux[0]
 
 
@@ -444,15 +478,13 @@ ATTN_IMPLS = {"flash": _flash_attend, "plain": _plain_attend,
               "reference": _reference_attend}
 
 
-def _ring_attend(mesh, attn_impl):
-    """Attention as a ring over the mesh's "sp" axis: the flash ring
-    for ``"flash"``, the plain block ring otherwise."""
-    impl = "flash" if attn_impl == "flash" else "plain"
-
-    def attend(q, k, v):
-        return ring_attention.ring_attention(q, k, v, mesh, "sp",
-                                             causal=True, impl=impl)
-    return attend
+def _ring_attend(sp, attn_impl):
+    """Attention as a ring over the sequence-parallel transport ``sp``
+    (``ring_attention.ring_attend`` of this process's rank): the flash
+    ring for ``"flash"``, the plain block ring otherwise."""
+    ring = ring_attention.ring_attend(
+        sp, "flash" if attn_impl == "flash" else "plain")
+    return lambda q, k, v: ring([q], [k], [v])[0]
 
 
 def forward(model, tokens, positions=None, return_kv=False, logits_at=None,
@@ -472,23 +504,25 @@ def forward(model, tokens, positions=None, return_kv=False, logits_at=None,
     layers (an f32 0 for dense FFNs), last. ``mesh`` with an "sp" axis
     above 1: ``tokens`` is this rank's sequence shard, ``positions`` its
     global positions, and attention is the ring over that axis (the
-    flash ring for "flash", the plain block ring otherwise)."""
+    flash ring for "flash", the plain block ring otherwise), and an MoE
+    FFN routes each sequence whole over that axis."""
     batch, seq = tokens.shape
     if positions is None:
         positions = torch.arange(seq, device=tokens.device).expand(batch, seq)
+    sp = None
+    attend = ATTN_IMPLS[attn_impl]
     if data_parallel.axis(mesh, "sp")[1] > 1:
-        attend = _ring_attend(mesh, attn_impl)
-    else:
-        attend = ATTN_IMPLS[attn_impl]
+        sp = ring_attention.P2P(ring_attention.ring_of(mesh, "sp"))
+        attend = _ring_attend(sp, attn_impl)
     x = model.embed[tokens]
     ks, vs = [], []
     aux = None
     for layer in model.layers:
         if remat:
             x, (k, v), layer_aux = checkpoint(layer, x, positions, attend,
-                                              use_reentrant=False)
+                                              sp, use_reentrant=False)
         else:
-            x, (k, v), layer_aux = layer(x, positions, attend)
+            x, (k, v), layer_aux = layer(x, positions, attend, sp)
         if layer_aux is not None:
             aux = layer_aux if aux is None else aux + layer_aux
         if return_kv:
@@ -538,13 +572,16 @@ def loss_fn(model, batch, attn_impl="flash", remat=False, mesh=None):
     tokens over the global count: the ranks' shares sum to the global
     mean. A config with experts routes per sequence (JAX's ``vmap`` over
     the rows), so its aux is a mean of per-row terms and splits over dp
-    shards as the cross entropy does; over an sp axis a sequence's
-    routing would span ranks, which is refused (``check_moe_mesh``)."""
+    shards as the cross entropy does. Over an sp axis each sequence is
+    routed whole across its sp ranks (``moe.moe_ffn_parallel``), every
+    sp rank holding the whole sequence's aux: scaled by the rank's share
+    and summed over sp, each sequence's aux counts once, and the sum of
+    the router probabilities over sp, whose backward sums the ranks'
+    cotangents, brings it to each rank's router once."""
     tokens = torch.as_tensor(batch["tokens"], device=model.device)
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     positions = None
     if mesh is not None:
-        check_moe_mesh(model.cfg, axis_sizes(mesh))
         global_tokens = inputs.numel()
         seq = inputs.shape[1]
         sp_index, sp = data_parallel.axis(mesh, "sp")
@@ -565,21 +602,6 @@ def loss_fn(model, batch, attn_impl="flash", remat=False, mesh=None):
     if mesh is None:
         return loss
     return loss * (targets.numel() / global_tokens)
-
-
-class MoESequenceParallelError(NotImplementedError):
-    """MoE with a sequence-parallel axis: JAX routes each sequence as one
-    group, whose capacity cumsum would span the sp ranks; not ported."""
-
-
-def check_moe_mesh(cfg, sizes):
-    """Refuse MoE under an sp axis above 1
-    (:class:`MoESequenceParallelError`)."""
-    if cfg.n_experts and sizes.get("sp", 1) > 1:
-        raise MoESequenceParallelError(
-            f"--n-experts {cfg.n_experts} with --sp {sizes['sp']}: routing a "
-            f"sequence across sequence-parallel ranks is not ported "
-            f"(ROADMAP.md Queue 3)")
 
 
 def adamw(params):
@@ -619,9 +641,6 @@ def make_train_step(cfg, optimizer=None, remat=True, device="cuda",
     sizes = axis_sizes(mesh)
     if sizes.get("tp", 1) > 1 or sizes.get("ep", 1) > 1:
         from container_engine_accelerators_tpu_torch.models import tp_lm
-        from container_engine_accelerators_tpu_torch.parallel import (
-            tensor_parallel,
-        )
 
         return tp_lm.make_train_step(
             cfg, tensor_parallel.Axes.of_mesh(mesh), mesh=mesh,
@@ -762,7 +781,7 @@ def _serve_stack(model, tokens, positions, attend_for):
     for i in range(model.cfg.n_layers):
         layers = [r.layers[i] for r in ranks]
         xs, _, _ = block(layers, xs, positions,
-                         [attend_for(i, j, n) for j in range(n)],
+                         each_rank([attend_for(i, j, n) for j in range(n)]),
                          leave=model.leave, moe_ffn=model.moe_ffn(layers))
     return xs[0]
 

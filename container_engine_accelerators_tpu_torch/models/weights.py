@@ -258,12 +258,8 @@ def bert_tp_to_jax(shards, axes, which="params"):
     """:func:`tp_to_jax` for BERT's tp shards (``models/bert.py``): the
     merged parameters or gradients in ``jax_tree``'s layout."""
     from container_engine_accelerators_tpu_torch.models import bert
-    from container_engine_accelerators_tpu_torch.parallel import (
-        tensor_parallel,
-    )
 
-    named = tensor_parallel.merged(shards, axes, tensor_parallel.BERT_TP,
-                                   which=which)
+    named = bert.merged(shards, axes, which)
     model = bert.Bert(shards[0].cfg, "cpu")
     with torch.no_grad():
         for name, p in model.named_parameters():

@@ -40,9 +40,11 @@ these copies.
 port's flight drill (``fleet/flightdrill.py``). The JAX package's
 jax-free reader ``capacity`` reads the port's event logs as they are
 (its ``journey`` too; tests/test_torch_journey.py), so it is not
-copied. Not ported
-yet (ROADMAP.md): ``baseline`` and the ``merge`` CLI. The lockstep
-engine link of tensor-parallel serving (``models/serve_cli.py``) keeps
-its ``tpu_serving_link_*`` families on the engine's registry and its
-``link_wedged`` / ``link_desync`` events on the engine's stream.
+copied. :mod:`.baseline` is copied for the hostbench's
+``--fingerprint-out``; the JAX package's ``merge`` CLI imports no JAX
+and merges the port's trace files as they are (``obs/fleet.py``). The
+lockstep engine link of tensor-parallel serving
+(``models/serve_cli.py``) keeps its ``tpu_serving_link_*`` families on
+the engine's registry and its ``link_wedged`` / ``link_desync`` events
+on the engine's stream.
 """

@@ -34,7 +34,8 @@ Dapper-style aggregation layer that makes the whole step visible:
     names the straggler host per phase (span name): the host whose
     median duration is slowest, with its ratio against the fastest.
 
-The JAX package's CLI over it, ``obs/merge.py``, is not ported.
+The JAX package's CLI over it, ``obs/merge.py``, imports no JAX and
+merges the port's trace files as they are, so it has no copy here.
 """
 
 import dataclasses

@@ -26,6 +26,18 @@ the router (``tensor_parallel.copy_to`` on the gate values), and the aux
 term, which every rank computes whole and keeps as it is. GSPMD lowers
 the same layout to all-to-alls where the batch is sharded over ep; with
 the batch replicated, the all-reduce of the combine is the collective.
+
+Sequence parallelism (``axes.sp`` above 1) splits each group's tokens
+over the sp ranks, rank r holding positions [r·G/sp, (r+1)·G/sp), and
+routes each group whole, as JAX's GSPMD routes the sp-sharded
+activations (:func:`_route_sharded`): the capacity of the whole group,
+a token's slot in its expert's buffer the sum of the group's slot-j
+hits before slot j on every rank, the slot-j hits on the ranks before
+r and the local cumsum, and the aux over the whole group. The ranks
+exchange their per-group hit counts (N · sp · k · E numbers), not
+tokens: each runs the experts on its own tokens only, in buffers as
+deep as its kept tokens need (:func:`_local_masks`), since a token's
+expert output depends on no other token.
 """
 
 import torch
@@ -61,34 +73,95 @@ def moe_ffn(x, params, *, top_k=2, capacity_factor=1.25):
 
 
 def _route(x, router, k, capacity_factor):
-    """The routing of N groups of G tokens, x (N, G, D): (gate values
-    (N, G, k) f32, the top-k slot masks (k of (N, G, E, C) f32, no
-    gradient), the aux (N,)). JAX's ``_moe_ffn_flat`` up to the expert
-    products."""
-    n_experts = router.shape[1]
-    c = capacity(x.shape[1], n_experts, k, capacity_factor)
+    """The routing of N groups of G tokens, x (N, G, D), held whole in
+    this process: (gate values (N, G, k) f32, the top-k slot masks (k of
+    (N, G, E, C) f32, no gradient), the aux (N,)). JAX's
+    ``_moe_ffn_flat`` up to the expert products (:func:`_route_sharded`
+    over an sp axis of one)."""
+    from container_engine_accelerators_tpu_torch.parallel import (
+        tensor_parallel as tpar,
+    )
 
-    logits = x.float() @ router  # (N, G, E)
-    probs = torch.softmax(logits, dim=-1)
-    gate_vals, gate_idx = sorted_top_k(probs, k)  # (N, G, k)
+    (route,), (aux,), c = _route_sharded([x], [router], k, capacity_factor,
+                                         tpar.Axes.in_process())
+    return route[0], slot_masks(route, router.shape[1], c), aux
 
-    # (N, G, E, C) slot masks from per-slot cumsum positions. A position
-    # outside [0, C) selects no slot, as jax.nn.one_hot gives.
-    slots = torch.arange(c, device=x.device, dtype=torch.float32)
-    masks = []
-    counts = torch.zeros(x.shape[0], 1, n_experts, device=x.device)
-    for j in range(k):
-        onehot = F.one_hot(gate_idx[..., j], n_experts).float()
-        pos = torch.cumsum(onehot, dim=1) - 1 + counts
-        counts = counts + onehot.sum(dim=1, keepdim=True)
-        within = (pos < c) & (onehot > 0)
-        masks.append((pos[..., None] == slots).float() * within[..., None])
 
-    # Switch load balance: E · Σ_e (mean router prob)·(top-1 token frac).
-    token_frac = F.one_hot(gate_idx[..., 0], n_experts).float().mean(dim=1)
-    prob_mean = probs.mean(dim=1)
-    aux = n_experts * (token_frac * prob_mean).sum(dim=-1)
-    return gate_vals, masks, aux
+def _route_sharded(xs, routers, k, capacity_factor, axes):
+    """The routing of groups whose tokens are split over ``axes.sp``:
+    per rank held, its shards xs (N, G/sp, D) of N groups and the
+    router. Returns (per rank (gate values (N, G/sp, k) f32, expert
+    indices (N, G/sp, k), slots (N, G/sp, k): each token's position in
+    its expert's buffer of the whole group, kept (N, G/sp, k): the slot
+    within capacity), the aux per rank (N,), the capacity C of a whole
+    group). JAX's ``_moe_ffn_flat`` on each whole group, up to the
+    expert products."""
+    from container_engine_accelerators_tpu_torch.parallel import (
+        tensor_parallel as tpar,
+    )
+
+    sp = axes.sp
+    n_experts = routers[0].shape[1]
+    seq = xs[0].shape[1] * sp.size
+    c = capacity(seq, n_experts, k, capacity_factor)
+    probs, tops, hits = [], [], []
+    for j, (x, router) in enumerate(zip(xs, routers)):
+        p = torch.softmax(x.float() @ router, dim=-1)  # (N, Gl, E)
+        gate_vals, gate_idx = sorted_top_k(p, k)  # (N, Gl, k)
+        onehot = F.one_hot(gate_idx, n_experts).float()  # (N, Gl, k, E)
+        # This rank's slot-j hits per expert, at its place among the
+        # ranks: the sum over sp is every rank's (sp, N, k, E).
+        h = onehot.new_zeros(sp.size, x.shape[0], k, n_experts)
+        h[axes.sp_index(j)] = onehot.sum(dim=1)
+        probs.append(p)
+        tops.append((gate_vals, gate_idx, onehot))
+        hits.append(h)
+    every = sp.all_reduce(hits)
+    routes, fracs = [], []
+    for j, ((gate_vals, gate_idx, onehot), h) in enumerate(zip(tops, every)):
+        total = h.sum(dim=0)  # the group's slot-j hits (N, k, E)
+        offset = (torch.cumsum(total, dim=1) - total
+                  + h[:axes.sp_index(j)].sum(dim=0))
+        pos = torch.cumsum(onehot, dim=1) - 1 + offset[:, None]
+        slots = torch.gather(pos, -1, gate_idx[..., None])[..., 0].long()
+        routes.append((gate_vals, gate_idx, slots, slots < c))
+        fracs.append(total[:, 0] / seq)  # top-1 token fraction (N, E)
+    # Switch load balance over the whole group: the probabilities' sum
+    # over sp carries each rank's cotangent to every rank's router.
+    prob_sums = tpar.sum_over(sp, [p.sum(dim=1) for p in probs])
+    auxes = [n_experts * (frac * (s / seq)).sum(dim=-1)
+             for frac, s in zip(fracs, prob_sums)]
+    return routes, auxes, c
+
+
+def slot_masks(route, n_experts, c):
+    """The k slot masks (N, Gl, E, C) f32 of a rank's routed tokens in
+    the whole group's buffers of static depth C (:func:`_route_sharded`'s
+    route): the rows of the whole group's masks at the rank's
+    positions."""
+    _, gate_idx, slots, kept = route
+    onehot = F.one_hot(gate_idx, n_experts).bool() & kept[..., None]
+    at = F.one_hot(slots.clamp(0, c - 1), c).bool()
+    return [(onehot[..., j, :, None] & at[..., j, None, :]).float()
+            for j in range(gate_idx.shape[-1])]
+
+
+def _local_masks(route, n_experts):
+    """The k slot masks (N, Gl, E, Cl) f32 of a rank's kept tokens in
+    buffers of its own: each expert's kept tokens in slot order (slot 0's
+    tokens, then slot 1's), Cl the most any expert keeps on this rank
+    (read back to the host; the static C of :func:`slot_masks` is what
+    the serving programs' CUDA graphs replay)."""
+    _, gate_idx, _, kept = route
+    n, gl, k = gate_idx.shape
+    onehot = F.one_hot(gate_idx, n_experts).float() * kept[..., None]
+    flat = onehot.transpose(1, 2).reshape(n, k * gl, n_experts)
+    pos = torch.cumsum(flat, dim=1) - 1
+    depth = max(1, int(flat.sum(dim=1).max()))
+    slots = torch.arange(depth, device=flat.device, dtype=flat.dtype)
+    masks = ((pos[..., None] == slots) & (flat[..., None] > 0)).float()
+    masks = masks.view(n, k, gl, n_experts, depth)
+    return [masks[:, j] for j in range(k)]
 
 
 def _experts(x, gate_vals, masks, w1, w2, first=0):
@@ -126,27 +199,36 @@ def _groups(x):
 
 
 def moe_ffn_parallel(xs, params, axes, *, top_k=2, capacity_factor=1.25):
-    """:func:`moe_ffn` with the experts split over ``axes.ep`` and their
-    F dim over ``axes.tp`` (``parallel/tensor_parallel.Axes``). Per rank
-    held: x (..., D), the same on every rank of both axes; params
-    {"router" (D, E) whole, "w1" (E/ep, D, F/tp), "w2" (E/ep, F/tp, D)}
-    of the rank's experts [ep_index · E/ep, ...). Returns (ys, auxes) per
-    rank held, each the whole MoE output and aux."""
+    """:func:`moe_ffn` with the experts split over ``axes.ep``, their F
+    dim over ``axes.tp`` and the groups' tokens over ``axes.sp``
+    (``parallel/tensor_parallel.Axes``). Per rank held: x (..., D), the
+    same on every rank of tp and ep, its sp rank's positions of each
+    group; params {"router" (D, E) whole, "w1" (E/ep, D, F/tp), "w2"
+    (E/ep, F/tp, D)} of the rank's experts [ep_index · E/ep, ...).
+    Returns (ys, auxes) per rank held: the MoE output at the rank's
+    tokens and the whole groups' aux."""
     from container_engine_accelerators_tpu_torch.parallel import (
         tensor_parallel as tpar,
     )
 
     axis_list = [axes.tp, axes.ep]
-    routed = [_route(_groups(x), p["router"], top_k, capacity_factor)
-              for x, p in zip(xs, params)]
-    gates = tpar.copy_to(axis_list, [r[0] for r in routed])
+    groups = [_groups(x) for x in xs]
+    n_experts = params[0]["router"].shape[1]
+    routes, aux_list, c = _route_sharded(
+        groups, [p["router"] for p in params], top_k, capacity_factor, axes)
+    gate_list = [r[0] for r in routes]
+    # Over sp each rank's buffers hold its own kept tokens; in one group
+    # the static C of the whole, which the serving programs' graphs need.
+    masks_list = [_local_masks(r, n_experts) if axes.sp.size > 1
+                  else slot_masks(r, n_experts, c) for r in routes]
+    gates = tpar.copy_to(axis_list, gate_list)
     inputs = tpar.copy_to(axis_list, xs)
     parts = []
-    for j, (x, p, (_, masks, _)) in enumerate(zip(inputs, params, routed)):
+    for j, (x, p, masks) in enumerate(zip(inputs, params, masks_list)):
         first = axes.ep_index(j) * p["w1"].shape[0]
         parts.append(_experts(_groups(x), gates[j], masks, p["w1"],
                               p["w2"], first))
     ys = tpar.reduce_from(axis_list, parts)
-    auxes = [r[2].mean() if x.dim() > 2 else r[2][0]
-             for r, x in zip(routed, xs)]
+    auxes = [a.mean() if x.dim() > 2 else a[0]
+             for a, x in zip(aux_list, xs)]
     return [y.to(x.dtype).reshape(x.shape) for y, x in zip(ys, xs)], auxes

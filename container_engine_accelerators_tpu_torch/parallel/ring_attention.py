@@ -327,27 +327,63 @@ def ring_flash_backward(qs, ks, vs, outs, lses, gs, transport, causal,
 
 
 class RingFlash(torch.autograd.Function):
-    """The flash ring of this process's rank with its own backward ring
-    (JAX's ``_ring_flash`` custom_vjp): returns (out, lse), lse not
-    differentiable; saves (q, k, v, out, lse) and recomputes the
-    probabilities blockwise from the global lse."""
+    """The flash ring of every rank a transport holds (``InProcess``: a
+    whole ring in one process; ``P2P``: this process's rank) with its own
+    backward ring (JAX's ``_ring_flash`` custom_vjp): ``apply(transport,
+    causal, sm_scale, n, *qs, *ks, *vs)`` → the n ranks' outs, then their
+    lses (not differentiable). Saves (q, k, v, out, lse) and recomputes
+    the probabilities blockwise from the global lse over the same
+    transport."""
 
     @staticmethod
-    def forward(ctx, q, k, v, ring, causal, sm_scale):
-        (out,), (lse,) = ring_flash_forward([q], [k], [v], P2P(ring),
-                                            causal, sm_scale)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.ring, ctx.causal, ctx.sm_scale = ring, causal, sm_scale
-        ctx.mark_non_differentiable(lse)
-        return out, lse
+    def forward(ctx, transport, causal, sm_scale, n, *qkv):
+        qs, ks, vs = (list(qkv[i * n:(i + 1) * n]) for i in range(3))
+        outs, lses = ring_flash_forward(qs, ks, vs, transport, causal,
+                                        sm_scale)
+        ctx.save_for_backward(*qs, *ks, *vs, *outs, *lses)
+        ctx.transport, ctx.causal, ctx.sm_scale, ctx.n = (
+            transport, causal, sm_scale, n)
+        ctx.mark_non_differentiable(*lses)
+        return (*outs, *lses)
 
     @staticmethod
-    def backward(ctx, g, _g_lse):
-        q, k, v, out, lse = ctx.saved_tensors
-        (dq,), (dk,), (dv,) = ring_flash_backward(
-            [q], [k], [v], [out], [lse], [g.contiguous()], P2P(ctx.ring),
-            ctx.causal, ctx.sm_scale)
-        return dq, dk, dv, None, None, None
+    def backward(ctx, *gs):
+        n = ctx.n
+        saved = ctx.saved_tensors
+        qs, ks, vs, outs, lses = (list(saved[i * n:(i + 1) * n])
+                                  for i in range(5))
+        gs = [torch.zeros_like(o) if g is None else g.contiguous()
+              for g, o in zip(gs[:n], outs)]
+        dqs, dks, dvs = ring_flash_backward(qs, ks, vs, outs, lses, gs,
+                                            ctx.transport, ctx.causal,
+                                            ctx.sm_scale)
+        return (None, None, None, None, *dqs, *dks, *dvs)
+
+
+def ring_attend(transport, impl="flash", causal=True):
+    """Attention over a sequence-parallel axis for every rank
+    ``transport`` holds: a function of the lists (qs, ks, vs) of their
+    shards → their outs. ``impl`` "flash" (or "auto") runs
+    :class:`RingFlash`; "plain" the block ring, which moves shards
+    between processes only (a ``P2P`` transport)."""
+    if impl not in RING_IMPLS:
+        raise ValueError(f"unknown ring impl {impl!r}; known: {RING_IMPLS}")
+    if impl == "plain":
+        if not isinstance(transport, P2P):
+            raise ValueError("the plain ring moves shards between processes "
+                             "only; a ring held in one process is flash")
+
+        def plain(qs, ks, vs):
+            return [ring_plain(q, k, v, transport.ring, causal)
+                    for q, k, v in zip(qs, ks, vs)]
+        return plain
+
+    def flash(qs, ks, vs):
+        sm_scale = 1.0 / (qs[0].shape[-1] ** 0.5)
+        n = len(qs)
+        return list(RingFlash.apply(transport, causal, sm_scale, n, *qs,
+                                    *ks, *vs)[:n])
+    return flash
 
 
 # -- the plain ring -----------------------------------------------------------
@@ -430,11 +466,8 @@ def ring_attention(q, k, v, mesh, axis_name="sp", causal=True, impl="auto"):
     if impl not in RING_IMPLS:
         raise ValueError(f"unknown ring impl {impl!r}; known: {RING_IMPLS}")
     ring = None if mesh is None else ring_of(mesh, axis_name)
-    sm_scale = 1.0 / (q.shape[-1] ** 0.5)
-    if impl == "plain":
-        if ring is None:
-            ring = Ring(None, 0, 1, 0, 0)
-        return ring_plain(q, k, v, ring, causal)
-    if ring is None or ring.size == 1:
-        return flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
-    return RingFlash.apply(q, k, v, ring, causal, sm_scale)[0]
+    if impl != "plain" and (ring is None or ring.size == 1):
+        return flash_attention(q, k, v, causal=causal,
+                               sm_scale=1.0 / (q.shape[-1] ** 0.5))
+    return ring_attend(P2P(ring or Ring(None, 0, 1, 0, 0)), impl,
+                       causal)([q], [k], [v])[0]

@@ -21,7 +21,10 @@ model's), and the forward calls the collectives itself:
                        input's gradient summed over the axis from f32
                        partials, cast once, as the whole product's
                        backward rounds once (:func:`row_parallel` does
-                       the same for the forward's partial sums).
+                       the same for the forward's partial sums);
+  :func:`sum_over`     all-reduce forward and backward (a sum each
+                       rank's own share of the loss consumes: the MoE
+                       router probabilities over sp).
 
 Each rank's loss is then the whole loss and its backward, seeded with 1,
 gives every shard its gradient and every replicated parameter the
@@ -30,12 +33,12 @@ part where it saw a part (the sequence shard of ring TP, the embedding's
 vocabulary shard), summed over the axis by :func:`reduce_grads`.
 
 The transports are ``parallel/ring_attention.py``'s, one per axis
-(:class:`Axes`): ``P2P`` over the axis's ring of a DeviceMesh, one rank a
-process, or ``InProcess`` holding every rank of one axis in this process
-(the CPU tests and the card check). Per-rank values travel as lists with
-one entry per rank held. In one process the joint backward of the ranks'
-summed losses runs each collective's backward once, as the processes
-would.
+(:class:`Axes`: tp, ep and sp): ``P2P`` over the axis's ring of a
+DeviceMesh, one rank a process, or ``InProcess`` holding every rank of
+one axis in this process (the CPU tests and the card check). Per-rank
+values travel as lists with one entry per rank held. In one process the
+joint backward of the ranks' summed losses runs each collective's
+backward once, as the processes would.
 """
 
 import dataclasses
@@ -53,35 +56,39 @@ from container_engine_accelerators_tpu_torch.parallel.ring_attention import (
 
 @dataclasses.dataclass(frozen=True)
 class Axes:
-    """The tp and ep transports of a step. At most one holds more than
-    one rank of its axis in this process; the other then has size 1 or
-    holds this process's one rank."""
+    """The tp, ep and sp transports of a step. At most one holds more
+    than one rank of its axis in this process; the others then have size
+    1 or hold this process's one rank. The sp axis splits the sequence:
+    its ranks hold other tokens of the same parameters (ranks of it held
+    in one process share one shard, :func:`split_module`)."""
 
     tp: object
     ep: object
+    sp: object = dataclasses.field(default_factory=lambda: InProcess(1))
 
     def __post_init__(self):
-        if len(self.tp.indices) > 1 and len(self.ep.indices) > 1:
+        if sum(len(t.indices) > 1 for t in (self.tp, self.ep, self.sp)) > 1:
             raise ValueError("one process holds the ranks of one axis at most")
 
     @classmethod
-    def in_process(cls, tp=1, ep=1):
-        """Every rank of the tp (or the ep) axis in this process."""
-        return cls(InProcess(tp), InProcess(ep))
+    def in_process(cls, tp=1, ep=1, sp=1):
+        """Every rank of the tp (or the ep, or the sp) axis in this
+        process."""
+        return cls(InProcess(tp), InProcess(ep), InProcess(sp))
 
     @classmethod
     def of_mesh(cls, mesh):
-        """This process's rank of a DeviceMesh's "tp" and "ep" axes (a
-        lone rank where the mesh lacks one)."""
+        """This process's rank of a DeviceMesh's "tp", "ep" and "sp" axes
+        (a lone rank where the mesh lacks one)."""
         names = mesh.mesh_dim_names or ()
 
         def axis(name):
             return P2P(ring_of(mesh, name)) if name in names else InProcess(1)
-        return cls(axis("tp"), axis("ep"))
+        return cls(axis("tp"), axis("ep"), axis("sp"))
 
     @property
     def held(self):
-        return max(len(self.tp.indices), len(self.ep.indices))
+        return max(len(t.indices) for t in (self.tp, self.ep, self.sp))
 
     def _index(self, transport, j):
         idx = transport.indices
@@ -92,6 +99,9 @@ class Axes:
 
     def ep_index(self, j):
         return self._index(self.ep, j)
+
+    def sp_index(self, j):
+        return self._index(self.sp, j)
 
     def coords(self):
         """(tp index, ep index) of each rank held, in list order."""
@@ -124,6 +134,31 @@ class _Copy(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *gs):
         return (None, *ctx.transport.all_reduce(list(gs)))
+
+
+class _Sum(torch.autograd.Function):
+    """The all-reduce forward and the all-reduce backward: a sum over the
+    axis that each rank's own loss consumes, where the ranks' losses
+    add up to the whole (the sp ranks' shares), so each rank's input
+    gets every rank's cotangent."""
+
+    @staticmethod
+    def forward(ctx, transport, *xs):
+        ctx.transport = transport
+        out = transport.all_reduce(list(xs))
+        return tuple(o if i == 0 else o.clone() for i, o in enumerate(out))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, *ctx.transport.all_reduce(list(gs)))
+
+
+def sum_over(transport, xs):
+    """The sum of ``xs`` (per rank held) over ``transport``'s axis, its
+    gradient summed over the axis too (:class:`_Sum`)."""
+    if transport.size == 1:
+        return list(xs)
+    return list(_Sum.apply(transport, *xs))
 
 
 def reduce_from(transports, xs):
@@ -339,9 +374,13 @@ def split_module(model, build, axes, tp_layout, moe=False):
     """The shards of ``model`` the ranks ``axes`` holds, in list order:
     each a module from ``build()`` (built on the meta device) whose
     parameters are new contiguous tensors holding the rank's piece of
-    the model's (a replicated parameter's copy whole)."""
-    shards = []
+    the model's (a replicated parameter's copy whole). Ranks at one
+    (tp, ep) coordinate, the sp ranks held in one process, share one
+    shard: their gradients accumulate in it, the sum over sp."""
+    built = {}
     for tp_i, ep_i in axes.coords():
+        if (tp_i, ep_i) in built:
+            continue
         shard = build()
         with torch.no_grad():
             for name, p in model.named_parameters():
@@ -350,8 +389,8 @@ def split_module(model, build, axes, tp_layout, moe=False):
                 t = _piece(t, ep_dim, axes.ep.size, ep_i)
                 _set_param(shard, name, nn.Parameter(
                     t.clone().contiguous(), requires_grad=p.requires_grad))
-        shards.append(shard)
-    return nn.ModuleList(shards)
+        built[(tp_i, ep_i)] = shard
+    return nn.ModuleList(built[c] for c in axes.coords())
 
 
 def merge_tensors(pieces, coords, name, tp_size, ep_size, tp_layout,
@@ -433,6 +472,7 @@ def reduce_grads(shards, axes, mesh, tp_partial,
                    for shard in shards]
         if partial[0]:
             _flat_reduce(axes.tp, partial)
+    unique = list({id(s): s for s in shards}.values())
     for group in data_parallel.data_groups(mesh, data_axes):
-        for shard in shards:
+        for shard in unique:
             data_parallel.sync_grads(shard.parameters(), group=group)

@@ -67,7 +67,18 @@ Not run unless named in ``--checks``:
          at 8 layers over a tp mesh of all the ranks, rank 0's greedy
          streams held to one GPU's ``Model.generate`` by the margin
          rule;
-  serve_tp  (the launcher's) real ``serve_cli --tp`` worlds, below.
+  serve_tp  (the launcher's) real ``serve_cli --tp`` worlds, below;
+  moe_sp the MoE step with its sequences over sp, each routed whole
+         across the sp ranks (``parallel/moe.py``), at sp world and sp
+         world / 2 × ep 2: the small f32 step, then with
+         ``--full-width`` at Mixtral-8x7B's widths (2 layers, S 8192,
+         bf16) held by ``wide_verdict``'s MoE rule, the first forward's
+         routing of both steps read by ``router_ties``;
+  tp_whole  tp over dims it does not divide, each such part whole on
+         every rank (``tp_lm.whole_parts``): the small f32 step with
+         world / 2 KV heads, then with ``--full-width`` Qwen2-1.5B's
+         widths (12/2 heads: at tp 4 the attention whole; 4 layers, S
+         4096, bf16) held by ``wide_verdict``.
 
 The small f32 steps check the shards' arithmetic (a step of d 256 is
 bound by latency, so their times say nothing of the transport); the
@@ -135,6 +146,9 @@ WIDE_STEPS = 3
 WIDE_TP_LAYERS = 4
 WIDE_EP_LAYERS = 2
 WIDE_SEQ = 4096
+# The moe_sp check's full-width sequence: long-context MoE is what sp is
+# for.
+MOE_SP_SEQ = 8192
 
 
 def _free_port():
@@ -247,7 +261,7 @@ def check_ring(args, torch, dist, device, rank, world, card):
         dist.barrier()
         (out, lse), ms = _timed(
             torch, device, lambda: ring_attention.RingFlash.apply(
-                *shards, ring, True, d ** -0.5))
+                ring_attention.P2P(ring), True, d ** -0.5, 1, *shards))
         fwd_ms.append(ms)
         dist.barrier()
         _, ms = _timed(torch, device, lambda: out.backward(g_local))
@@ -529,13 +543,23 @@ def wide_verdict(torch, moe, loss_err, bf16, unsplit, f32, unsplit_f32):
     return readings, ok
 
 
+def _step_grads(tf, tp_lm, model_or_shards, axes):
+    """The gradients by name after a step: the shards' merged, or a
+    whole model's (an sp mesh without tp or ep: summed over sp)."""
+    if isinstance(model_or_shards, tf.Transformer):
+        return {n: p.grad.clone()
+                for n, p in model_or_shards.named_parameters()}
+    return tp_lm.merged(list(model_or_shards), axes, "grads")
+
+
 def _sharded_row(args, torch, dist, device, rank, world, card, cfg, check,
-                 dp, tp, ep, overlap, wide=False):
+                 dp, tp, ep, overlap, wide=False, sp=1):
     """One sharded step against the unsplit step on this rank's device:
     (the row, ok). ``wide``: a bf16 model at published widths, B dp × S
     ``cfg.max_seq_len``, ``WIDE_STEPS`` steps, held by ``wide_verdict``;
     otherwise the small f32 step, B 2 dp × S ``--train-seq``, two steps,
-    the f32 bounds."""
+    the f32 bounds. ``sp`` splits the sequence too; an MoE model's row
+    then also reads the two steps' routing with :func:`router_ties`."""
     import numpy as np
 
     from container_engine_accelerators_tpu_torch.models import (
@@ -549,7 +573,7 @@ def _sharded_row(args, torch, dist, device, rank, world, card, cfg, check,
         tensor_parallel,
     )
 
-    mesh = train_cli.build_mesh(world, 1, tp, ep, device_type=device.type)
+    mesh = train_cli.build_mesh(world, sp, tp, ep, device_type=device.type)
     axes = tensor_parallel.Axes.of_mesh(mesh)
     rows, seq = (dp, cfg.max_seq_len) if wide else (2 * dp, args.train_seq)
     batch = {"tokens": torch.as_tensor(np.random.default_rng(19).integers(
@@ -562,18 +586,25 @@ def _sharded_row(args, torch, dist, device, rank, world, card, cfg, check,
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     step_ms, unsplit_ms, losses, unsplit_losses = [], [], [], []
+    read_routes = sp > 1 and bool(cfg.n_experts)
     for k in range(WIDE_STEPS if wide else 2):
         dist.barrier()
-        (state, loss), ms = _timed(torch, device, lambda: step(state, batch))
+        with recorded_routes(torch, read_routes and k == 0) as seen:
+            (state, loss), ms = _timed(torch, device,
+                                       lambda: step(state, batch))
         step_ms.append(ms)
-        (ref, ref_loss), ms = _timed(torch, device,
-                                     lambda: step1(ref, batch))
+        with recorded_routes(torch, read_routes and k == 0) as seen_ref:
+            (ref, ref_loss), ms = _timed(torch, device,
+                                         lambda: step1(ref, batch))
         unsplit_ms.append(ms)
         losses.append(loss.item())
         unsplit_losses.append(ref_loss.item())
         if k == 0:
-            grads = tp_lm.merged(list(state[0]), axes, "grads")
+            grads = _step_grads(tf, tp_lm, state[0], axes)
             ref_grads = {n: p.grad for n, p in ref[0].named_parameters()}
+            if read_routes:
+                ties = _sp_router_ties(torch, dist, mesh, world, seen,
+                                       seen_ref, cfg.n_layers)
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9 \
         if device.type == "cuda" else None
     loss_err = abs(losses[0] - unsplit_losses[0])
@@ -606,8 +637,15 @@ def _sharded_row(args, torch, dist, device, rank, world, card, cfg, check,
     by_rank = torch.stack(every).tolist()
     ok = all(t[2] == 0 for t in by_rank)
     path = tp_lm.resolve(cfg, axes, mesh, rows, seq, overlap)
-    row = {"check": check, **card, "world": world, "dp": dp, "tp": tp,
-           "ep": ep, "path": path, "seq": seq, "batch": rows,
+    if read_routes:
+        # Bf16 MoE steps part where rounding swaps a near tie; a parting
+        # that is no tie fails.
+        readings["router"] = ties
+        ok = ok and (ties["first_layer"] is None or ties["router_tie"])
+    row = {"check": check, **card, "world": world, "dp": dp, "sp": sp,
+           "tp": tp, "ep": ep, "path": path,
+           "whole_parts": sorted(tp_lm.whole_parts(cfg, tp)),
+           "seq": seq, "batch": rows,
            "n_layers": cfg.n_layers, "d_model": cfg.d_model,
            "n_experts": cfg.n_experts, "dtype": cfg.dtype,
            "backend": dist.get_backend(), "losses": losses,
@@ -624,6 +662,21 @@ def _sharded_row(args, torch, dist, device, rank, world, card, cfg, check,
     if peak_gb is not None:
         row["max_memory_allocated_gb"] = peak_gb
     return {**row, "tol": tol, "ok": ok}, ok
+
+
+def _sp_router_ties(torch, dist, mesh, world, seen, seen_ref, n_layers):
+    """``router_ties`` of the sp step's first forward against the unsplit
+    step's (``recorded_routes``): every layer's router probabilities of
+    batch row 0, the sp ranks' (at dp, tp and ep index 0) gathered in sp
+    order, on every rank."""
+    mine = torch.stack([p[0] for p, _ in seen[:n_layers]]).contiguous()
+    every = [torch.empty_like(mine) for _ in range(world)]
+    dist.all_gather(every, mine)
+    ranks = mesh.mesh[tuple(slice(None) if name == "sp" else 0
+                            for name in mesh.mesh_dim_names)].tolist()
+    got = torch.cat([every[r] for r in ranks], dim=1)  # (L, S, E)
+    return router_ties([(g, k) for g, (_, k) in zip(got, seen)],
+                       [(p[0], k) for p, k in seen_ref[:n_layers]])
 
 
 def _shrunk(cfg, shrink):
@@ -712,6 +765,91 @@ def check_ep(args, torch, dist, device, rank, world, card):
                                  world, None, wide=True)
         _emit(rank, row)
         ok = ok and good
+    return ok
+
+
+def qwen2_config(n_layers=WIDE_TP_LAYERS, seq=WIDE_SEQ):
+    """Qwen2-1.5B's published widths (Hugging Face ``Qwen/Qwen2-1.5B``:
+    d 1536, 12 heads, 2 KV heads, head dim 128, d_ff 8960, vocabulary
+    151936, rope theta 1e6, tied embeddings) on the repo's Llama-style
+    block (Qwen2's q/k/v biases are not in the model), bf16."""
+    from container_engine_accelerators_tpu_torch.models import (
+        transformer as tf,
+    )
+
+    return tf.TransformerConfig(
+        vocab_size=151936, d_model=1536, n_layers=n_layers, n_heads=12,
+        n_kv_heads=2, d_ff=8960, max_seq_len=seq, rope_theta=1e6)
+
+
+def _sp_meshes(world):
+    """(sp, ep) of the moe_sp check: every rank on sp, and sp world / 2
+    × ep 2 where the world divides so."""
+    meshes = [(world, 1)]
+    if world % 2 == 0 and world > 2:
+        meshes.append((world // 2, 2))
+    return meshes
+
+
+def check_moe_sp(args, torch, dist, device, rank, world, card):
+    """The MoE step with its sequences over sp (each routed whole across
+    the sp ranks; sp world, and sp world / 2 × ep 2) against one device's
+    unsplit step: the small f32 step, then with ``--full-width`` at
+    Mixtral-8x7B's widths, 2 layers, S ``MOE_SP_SEQ``, bf16, held by
+    ``wide_verdict``'s MoE rule, the two steps' routing read by
+    ``router_ties``."""
+    import dataclasses
+
+    from container_engine_accelerators_tpu_torch.models import (
+        transformer as tf,
+    )
+
+    small = tf.TransformerConfig(
+        vocab_size=1024, d_model=args.train_d_model, n_layers=2,
+        n_heads=8, n_kv_heads=4, d_ff=3 * args.train_d_model,
+        max_seq_len=args.train_seq, dtype="float32", n_experts=4)
+    cases = [(small, sp, ep, False) for sp, ep in _sp_meshes(world)]
+    if _full_width(args, device):
+        mixtral = dataclasses.replace(
+            wide_configs(args)[1],
+            max_seq_len=MOE_SP_SEQ // args.wide_shrink)
+        cases += [(mixtral, sp, ep, True) for sp, ep in _sp_meshes(world)]
+    ok = True
+    for cfg, sp, ep, wide in cases:
+        row, good = _sharded_row(args, torch, dist, device, rank, world,
+                                 card, cfg, "moe_sp", 1, 1, ep, None,
+                                 wide=wide, sp=sp)
+        _emit(rank, row)
+        ok = ok and good
+        _release(torch, device)
+    return ok
+
+
+def check_tp_whole(args, torch, dist, device, rank, world, card):
+    """tp over dims it does not divide (each such part whole on every
+    rank): the small f32 step with 2 KV heads, then with
+    ``--full-width`` Qwen2-1.5B's widths (``qwen2_config``: at tp 4 the
+    attention whole, the FFN and the vocabulary split), 4 layers, S
+    4096, bf16, against one device's unsplit step."""
+    from container_engine_accelerators_tpu_torch.models import (
+        transformer as tf,
+    )
+
+    small = tf.TransformerConfig(
+        vocab_size=1026, d_model=args.train_d_model, n_layers=2,
+        n_heads=8, n_kv_heads=world // 2 or 1, d_ff=3 * args.train_d_model,
+        max_seq_len=args.train_seq, dtype="float32")
+    cases = [(small, False)]
+    if _full_width(args, device):
+        cases.append((_shrunk(qwen2_config(), args.wide_shrink), True))
+    ok = True
+    for cfg, wide in cases:
+        row, good = _sharded_row(args, torch, dist, device, rank, world,
+                                 card, cfg, "tp_whole", 1, world, 1, None,
+                                 wide=wide)
+        _emit(rank, row)
+        ok = ok and good
+        _release(torch, device)
     return ok
 
 
@@ -996,6 +1134,42 @@ def _partings(torch, tf, model, prompts, got, want):
 ROUTER_ATOL = 0.02
 
 
+class recorded_routes:
+    """Records every MoE routing's router probabilities while entered
+    (``moe._route_sharded``'s groups or shards, which every routing
+    runs), in call order: a list of (f32 (N, G, E) probabilities, k), one
+    a call and rank held (empty, and nothing wrapped, when ``on`` is
+    false)."""
+
+    def __init__(self, torch, on=True):
+        self.torch, self.on = torch, on
+        self.seen = []
+
+    def __enter__(self):
+        from container_engine_accelerators_tpu_torch.parallel import moe
+
+        torch, seen = self.torch, self.seen
+        if not self.on:
+            return seen
+        self.sharded = moe._route_sharded
+
+        def sharded(xs, routers, k, capacity_factor, axes):
+            with torch.no_grad():
+                seen.extend((torch.softmax(x.float() @ r, dim=-1), k)
+                            for x, r in zip(xs, routers))
+            return self.sharded(xs, routers, k, capacity_factor, axes)
+
+        moe._route_sharded = sharded
+        return seen
+
+    def __exit__(self, *exc):
+        from container_engine_accelerators_tpu_torch.parallel import moe
+
+        if self.on:
+            moe._route_sharded = self.sharded
+        return False
+
+
 def routing(torch, tf, model, tokens, context=None):
     """Every MoE layer's router probabilities (G, E) for the tokens of
     one prefill of ``tokens`` on ``model`` (a ``serve_cli.Model``: whole,
@@ -1004,24 +1178,12 @@ def routing(torch, tf, model, tokens, context=None):
     k)], a layer each."""
     import contextlib
 
-    from container_engine_accelerators_tpu_torch.parallel import moe
-
-    seen = []
-    route = moe._route
-
-    def record(x, router, k, capacity_factor):
-        seen.append((torch.softmax(x.float() @ router, dim=-1)[0], k))
-        return route(x, router, k, capacity_factor)
-
-    moe._route = record
-    try:
-        with context or contextlib.nullcontext(), torch.inference_mode():
-            tf.prefill(model.model, torch.as_tensor([tokens],
-                                                    device=model.device),
-                       return_logits=True)
-    finally:
-        moe._route = route
-    return seen[::model.model.tp]
+    with recorded_routes(torch) as seen, context or \
+            contextlib.nullcontext(), torch.inference_mode():
+        tf.prefill(model.model, torch.as_tensor([tokens],
+                                                device=model.device),
+                   return_logits=True)
+    return [(p[0], k) for p, k in seen[::model.model.tp]]
 
 
 def router_ties(got, want):
@@ -1637,7 +1799,8 @@ def check_serve_moe_tp(args, torch, dist, device, rank, world, card):
 
 CHECKS = {"ring": check_ring, "train": check_train, "pp": check_pp,
           "tp": check_tp, "ep": check_ep, "collectives": check_collectives,
-          "serve_moe_tp": check_serve_moe_tp}
+          "serve_moe_tp": check_serve_moe_tp, "moe_sp": check_moe_sp,
+          "tp_whole": check_tp_whole}
 # The checks run when --checks is not given.
 DEFAULT_CHECKS = ["ring", "train", "pp", "tp", "ep"]
 # Checks the launcher runs itself: their worlds are serve_cli or

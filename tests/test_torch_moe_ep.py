@@ -15,8 +15,11 @@ combine parts summed over ep, the aux part once) are held to JAX's
 ``jax.grad`` on the same weights. f32: outputs within JAX's own bounds
 (1e-4 relative and 1e-5 absolute; the aux 1e-5), losses 1e-5 relative,
 each gradient leaf within 1e-4 of its largest entry. ``train_cli --ep``
-and ``--n-experts`` on a dp world are held to one rank's run, and MoE
-with ``--sp`` is refused by name.
+and ``--n-experts`` on a dp or an sp world are held to one rank's run;
+MoE with ``--sp`` has no refusal of its own (on one process the CLI
+fails only as JAX's mesh plan fails), and an in-process sp 2 step gives
+the unsplit loss. Each sequence's routing across sp ranks is
+``tests/test_torch_moe_sp.py``'s.
 """
 
 import json
@@ -33,6 +36,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P  # noqa: E402
 import torch_dist_worker as worker  # noqa: E402
 from container_engine_accelerators_tpu.models import train_cli as jtrain_cli  # noqa: E402
 from container_engine_accelerators_tpu.models import transformer as jtf  # noqa: E402
+from container_engine_accelerators_tpu.parallel import mesh as jmesh  # noqa: E402
 from container_engine_accelerators_tpu.parallel import moe as jmoe  # noqa: E402
 from container_engine_accelerators_tpu_torch.models import tp_lm  # noqa: E402
 from container_engine_accelerators_tpu_torch.models import train_cli  # noqa: E402
@@ -226,11 +230,13 @@ CLI = ["--model", "transformer", "--device", "cpu", "--d-model", "64",
        "--batch-size", "4"]
 
 
-@pytest.mark.parametrize("flags", [["--ep", "2"], []], ids=["ep2", "dp2"])
+@pytest.mark.parametrize("flags", [["--ep", "2"], [], ["--sp", "2"]],
+                         ids=["ep2", "dp2", "sp2"])
 def test_cli_moe_trains_on_two_ranks_as_one_rank_does(tmp_path, capsys,
                                                      flags):
     """The same global batch (``--batch-size 4``) on two ranks, split
-    over ep 2's experts or dp 2's rows, and on one."""
+    over ep 2's experts, dp 2's rows or sp 2's positions (each sequence
+    routed whole across the two), and on one."""
     runs, markers = worker.cli_world(CLI + flags, str(tmp_path), "moe")
     assert [rc for rc, _, _ in runs] == [0, 0], runs[0][2][-2000:]
     assert train_cli.main(CLI) == 0
@@ -243,9 +249,21 @@ def test_cli_moe_trains_on_two_ranks_as_one_rank_does(tmp_path, capsys,
                        for r in range(2)]
 
 
-def test_moe_with_sp_is_refused_by_name():
-    with pytest.raises(ttf.MoESequenceParallelError, match="--sp 2"):
+def test_moe_with_sp_trains_in_process_as_unsplit():
+    """No name refuses MoE with ``--sp`` any more: the transformer module
+    holds no such refusal, one process's CLI fails only as JAX's mesh
+    plan fails (one device does not factor into sp 2), and every sp rank
+    of a step held in this process gives the unsplit loss."""
+    assert not hasattr(ttf, "MoESequenceParallelError")
+    assert not hasattr(ttf, "check_moe_mesh")
+    with pytest.raises(ValueError, match="cannot factor 1 devices"):
         train_cli.main(CLI + ["--sp", "2"])
-    model = ttf.init_params(ttf.TransformerConfig(**MOE_SHAPE), device="cpu")
-    with pytest.raises(ttf.MoESequenceParallelError):
-        ttf.check_moe_mesh(model.cfg, {"dp": 1, "sp": 2})
+    with pytest.raises(ValueError, match="cannot factor 1 devices"):
+        jmesh.plan_mesh(1, {"dp": -1, "sp": 2, "tp": 1})
+    cfg = ttf.TransformerConfig(**MOE_SHAPE)
+    batch = {"tokens": _toks()}
+    want = ttf.loss_fn(ttf.init_params(cfg, device="cpu"), batch)
+    init, step = tp_lm.make_train_step(cfg, tpar.Axes.in_process(sp=2),
+                                       device="cpu")
+    _, loss = step(init(seed=0), batch)
+    np.testing.assert_allclose(float(loss), want.item(), rtol=LOSS_RTOL)

@@ -433,6 +433,36 @@ def test_world_smoke_full_width_steps_rehearse_on_two_gloo_ranks():
         assert r["bf16_vs_f32"]["path"] <= 1.25 * r["bf16_vs_f32"]["unsplit"]
 
 
+def test_world_smoke_moe_sp_and_tp_whole_rehearse_on_two_gloo_ranks():
+    """The ``moe_sp`` and ``tp_whole`` checks (the four-card call's
+    Mixtral-8x7B steps over sp and Qwen2-1.5B's over tp), their widths,
+    vocabularies and sequence divided by 32 on the CPU: each row held to
+    the unsplit step; at two ranks the small tp step's one KV head is
+    whole, and the MoE rows read the routing with ``router_ties``."""
+    import json
+    import subprocess
+    import sys
+
+    proc = subprocess.run(
+        [sys.executable, "-m",
+         "container_engine_accelerators_tpu_torch.parallel.world_smoke",
+         "--world", "2", "--device", "cpu", "--checks", "moe_sp",
+         "tp_whole", "--train-seq", "32", "--train-d-model", "64",
+         "--full-width", "--wide-shrink", "32", "--timeout-s", "240"],
+        cwd=worker.REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    rows = [json.loads(line) for line in proc.stdout.splitlines()]
+    assert [(r.get("check"), r.get("dtype")) for r in rows] == [
+        ("moe_sp", "float32"), ("moe_sp", "bfloat16"),
+        ("tp_whole", "float32"), ("tp_whole", "bfloat16"), (None, None)]
+    assert all(r["ok"] for r in rows)
+    assert [(r["sp"], r["ep"], r["n_experts"]) for r in rows[:2]] == [
+        (2, 1, 4), (2, 1, 8)]
+    assert all("first_layer" in r["router"] for r in rows[:2])
+    assert rows[2]["whole_parts"] == ["attn"] and rows[2]["tp"] == 2
+    assert rows[1]["seq"] == 256 and rows[3]["seq"] == 128
+
+
 def test_world_smoke_on_two_gloo_ranks():
     """``parallel/world_smoke.py`` (the multi-GPU check) end to end on
     the CPU: two ranks through the env contract, the ring against the

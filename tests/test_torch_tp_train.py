@@ -11,7 +11,7 @@ differentiates (its remat changes nothing of them), and its step's loss.
 The port runs ``models/tp_lm.py`` (and ``bert.make_tp_train_step``) from
 the same weights, every tp rank in this process (``Axes.in_process``)
 and over gloo worlds of 2 (tp 2, the MoE off path among them) and 4
-(dp 2 × tp 2) processes
+(dp 2 × tp 2; tp 4 over 2 KV heads and over BERT's 2 heads) processes
 (``tests/torch_dist_worker.py`` scenario ``tp_train``), and merges the
 ranks' gradients (``weights.tp_to_jax``). f32 throughout, summed in
 other orders (ring chunks, per-rank partials, the vocab-parallel cross
@@ -20,7 +20,11 @@ of its largest entry (readings here: at most 2e-6).
 
 ``resolve_overlap``'s rules are held to JAX's on the same sizes, the
 shards to JAX's ``param_shardings`` layout, and ``train_cli --tp`` to a
-one-rank run through the CLI.
+one-rank run through the CLI. tp over heads, KV heads or a vocabulary
+it does not divide holds those parts whole on every rank
+(``tp_lm.whole_parts``, ``bert.whole_parts``); a d_ff (or a head width)
+tp does not divide and ep that does not divide the experts are refused,
+as JAX's ``device_put`` fails on them.
 """
 
 import dataclasses
@@ -77,9 +81,10 @@ def tokens(batch=2, seq=32, vocab=128, seed=11):
     return np.random.default_rng(seed).integers(0, vocab, (batch, seq + 1))
 
 
-def jax_transformer(shape, toks, dp, tp, ep=1, overlap="auto"):
+def jax_transformer(shape, toks, dp, tp, ep=1, overlap="auto", step=True):
     """(JAX's initial weights as numpy, its loss, its gradients, its
-    make_train_step loss) on ``build_mesh(dp·tp·ep, 1, tp, ep)``."""
+    make_train_step loss, or None without ``step``) on
+    ``build_mesh(dp·tp·ep, 1, tp, ep)``."""
     cfg = jtf.TransformerConfig(**shape)
     params = jtf.init_params(jax.random.PRNGKey(0), cfg)
     host = jax.tree.map(np.array, params)
@@ -90,14 +95,17 @@ def jax_transformer(shape, toks, dp, tp, ep=1, overlap="auto"):
     loss, grads = jax.jit(jax.value_and_grad(
         lambda p, b: jtf.loss_fn(p, b, cfg, mesh=mesh, overlap=overlap)))(
         sharded, batch)
-    init, step = jtf.make_train_step(cfg, mesh=mesh, overlap=overlap)
-    _, step_loss = step(init(jax.random.PRNGKey(0)), batch)
-    return host, float(loss), jax.tree.map(np.asarray, grads), \
-        float(step_loss)
+    step_loss = None
+    if step:
+        init, train_step = jtf.make_train_step(cfg, mesh=mesh,
+                                               overlap=overlap)
+        _, step_loss = train_step(init(jax.random.PRNGKey(0)), batch)
+        step_loss = float(step_loss)
+    return host, float(loss), jax.tree.map(np.asarray, grads), step_loss
 
 
-def jax_bert(batch, dp, tp):
-    cfg = jbert.BertConfig(**BERT_SHAPE)
+def jax_bert(batch, dp, tp, shape=BERT_SHAPE):
+    cfg = jbert.BertConfig(**shape)
     params = jbert.init_params(jax.random.PRNGKey(0), cfg)
     host = jax.tree.map(np.array, params)
     mesh = jtrain_cli.build_mesh(dp * tp, 1, tp)
@@ -109,10 +117,10 @@ def jax_bert(batch, dp, tp):
     return host, float(loss), jax.tree.map(np.asarray, grads)
 
 
-def bert_batch(rows=4, seed=13):
+def bert_batch(rows=4, seed=13, shape=BERT_SHAPE):
     return {k: v.numpy() for k, v in tbert.synthetic_mlm_batch(
         np.random.default_rng(seed), rows,
-        tbert.BertConfig(**BERT_SHAPE)).items()}
+        tbert.BertConfig(**shape)).items()}
 
 
 # -- every tp rank in one process ----------------------------------------------
@@ -269,13 +277,138 @@ def test_resolve_overlap_refuses_an_unknown_mode_as_jax_does():
                else jtrain_cli.build_mesh(2, 1, 2), seq=32)
 
 
+# Shapes tp does not divide: the parts held whole (``tp_lm.whole_parts``).
+# JAX shards the weight arrays (n_heads·hd, n_kv_heads·hd and d_ff
+# columns) and lets GSPMD cut through a head, so it trains heads or KV
+# heads that tp does not divide where those widths divide, and the
+# vocabulary (its embedding is not tp-sharded) at any tp; its
+# ``device_put`` refuses a d_ff that tp does not divide, and so does the
+# port (``test_widths_jax_cannot_shard_are_refused_as_jax_does``).
+WHOLE_CASES = {
+    "kv2": (dict(TF_SHAPE, n_kv_heads=2), "auto", {"attn"}),
+    "vocab_ring": (dict(TF_SHAPE, vocab_size=130), "ring", {"vocab"}),
+    "all": (dict(TF_SHAPE, n_heads=2, n_kv_heads=1, vocab_size=130),
+            "auto", {"attn", "vocab"}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WHOLE_CASES))
+def test_tp_over_dims_it_does_not_divide_matches_jax(name):
+    """tp 4 over heads, KV heads or a vocabulary it does not divide: each
+    such part whole on every rank (its weights the whole model's), the
+    rest split, the path JAX's ``resolve_overlap`` gives; the loss and
+    the merged gradients against JAX's ``loss_fn`` and ``jax.grad`` on a
+    tp-4 mesh. A whole part's gradients are not summed over tp: a sum
+    would read 4 times too large. The "all" case has the attention (2
+    heads, 1 KV head) and the vocabulary whole on the off path."""
+    shape, overlap, whole = WHOLE_CASES[name]
+    toks = tokens(vocab=shape["vocab_size"])
+    host, jloss, jgrads, _ = jax_transformer(shape, toks, 1, 4,
+                                             overlap=overlap, step=False)
+    cfg = ttf.TransformerConfig(**shape)
+    axes = tpar.Axes.in_process(tp=4)
+    assert tp_lm.whole_parts(cfg, 4) == whole
+    assert tp_lm.resolve(cfg, axes, None, 2, 32, overlap) == \
+        ("ring" if overlap == "ring" else "off")
+    init, step = tp_lm.make_train_step(cfg, axes, device="cpu",
+                                       overlap=overlap)
+    state = init(model=weights.params_from_jax(host, cfg, device="cpu"))
+    whole_layer = weights.params_from_jax(host, cfg, device="cpu").layers[0]
+    for shard in state[0]:
+        for part, names in (("attn", ("wq", "wk", "wv", "wo")),
+                            ("ffn", ("w1", "w2"))):
+            module = getattr(shard.layers[0], part)
+            for n in names:
+                full = getattr(getattr(whole_layer, part), n).shape
+                assert (getattr(module, n).shape == full) == \
+                    (part in whole), (part, n)
+    state, loss = step(state, {"tokens": toks})
+    np.testing.assert_allclose(float(loss), jloss, rtol=LOSS_RTOL)
+    assert_grads_close(weights.tp_to_jax(list(state[0]), axes, "grads"),
+                       jgrads, name)
+
+
+@pytest.mark.parametrize("shape", [dict(BERT_SHAPE, n_heads=2)],
+                         ids=["heads2"])
+def test_bert_tp_over_dims_it_does_not_divide_matches_jax(shape):
+    """BERT at tp 4 with 2 heads: the attention whole (JAX cuts through
+    the heads), the FFN split."""
+    batch = bert_batch(shape=shape)
+    host, jloss, jgrads = jax_bert(batch, 1, 4, shape)
+    cfg = tbert.BertConfig(**shape)
+    axes = tpar.Axes.in_process(tp=4)
+    assert tbert.whole_parts(cfg, 4) == {"attn"}
+    init, step = tbert.make_tp_train_step(cfg, axes, device="cpu")
+    state = init(model=weights.load_jax_tree(tbert.Bert(cfg, "cpu"), host))
+    state, loss = step(state, batch)
+    np.testing.assert_allclose(float(loss), jloss, rtol=LOSS_RTOL)
+    assert_grads_close(weights.bert_tp_to_jax(list(state[0]), axes, "grads"),
+                       jgrads, "bert whole parts")
+
+
 def test_shapes_that_do_not_divide_are_refused_by_name():
-    cfg = ttf.TransformerConfig(**dict(TF_SHAPE, n_kv_heads=2))
-    with pytest.raises(ValueError, match="tp=4 must divide n_kv_heads=2"):
-        tp_lm.make_train_step(cfg, tpar.Axes.in_process(tp=4), device="cpu")
+    """A d_ff that tp does not divide and ep that does not divide the
+    experts stay refused, as JAX's ``device_put`` of ``param_shardings``
+    and of ``moe_shardings`` fails on them."""
+    from jax.sharding import Mesh
+
+    from container_engine_accelerators_tpu.parallel import moe as jmoe
+
+    shape = dict(TF_SHAPE, d_ff=126)
+    with pytest.raises(ValueError, match="tp=4 must divide d_ff=126"):
+        tp_lm.make_train_step(ttf.TransformerConfig(**shape),
+                              tpar.Axes.in_process(tp=4), device="cpu")
+    cfg = jtf.TransformerConfig(**shape)
+    mesh = jtrain_cli.build_mesh(4, 1, 4)
+    with pytest.raises(ValueError, match="divisible by 4"):
+        jax.device_put(jtf.init_params(jax.random.PRNGKey(0), cfg),
+                       jtf.param_shardings(cfg, mesh))
     with pytest.raises(ValueError, match="ep=3 must divide n_experts=4"):
         tp_lm.make_train_step(ttf.TransformerConfig(**MOE_SHAPE),
                               tpar.Axes.in_process(ep=3), device="cpu")
+    params = jmoe.init_moe_params(jax.random.PRNGKey(0), 16, 32, 4,
+                                  dtype=jnp.float32)
+    mesh = Mesh(np.asarray(jax.devices()[:3]), ("ep",))
+    with pytest.raises(ValueError, match="divisible by 3"):
+        jax.device_put(params, jmoe.moe_shardings(mesh))
+
+
+# Widths JAX's ``param_shardings`` puts on tp and ``device_put`` cannot
+# cut: (the model, its shape, tp, the port's message).
+REFUSED_WIDTHS = {
+    "moe_dff": ("transformer", dict(MOE_SHAPE, d_ff=126), 4,
+                "tp=4 must divide d_ff=126"),
+    "head_width": ("transformer", dict(TF_SHAPE, d_ff=192), 3,
+                   "tp=3 must divide n_heads\\*head_dim=64"),
+    "bert_dff": ("bert", dict(BERT_SHAPE, d_ff=126), 4,
+                 "tp=4 must divide d_ff=126"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(REFUSED_WIDTHS))
+def test_widths_jax_cannot_shard_are_refused_as_jax_does(name):
+    """An MoE FFN's experts' F, a head width (n_heads·head_dim) or BERT's
+    d_ff that tp does not divide: the port refuses it by name before any
+    shard is made, and JAX's ``device_put`` of its ``param_shardings`` on
+    the tp mesh fails on the same weights."""
+    from jax.sharding import Mesh
+
+    model, shape, tp, message = REFUSED_WIDTHS[name]
+    axes = tpar.Axes.in_process(tp=tp)
+    mesh = Mesh(np.asarray(jax.devices()[:tp]), ("tp",))
+    if model == "bert":
+        jmod, cfg = jbert, jbert.BertConfig(**shape)
+        with pytest.raises(ValueError, match=message):
+            tbert.make_tp_train_step(tbert.BertConfig(**shape), axes,
+                                     device="cpu")
+    else:
+        jmod, cfg = jtf, jtf.TransformerConfig(**shape)
+        with pytest.raises(ValueError, match=message):
+            tp_lm.make_train_step(ttf.TransformerConfig(**shape), axes,
+                                  device="cpu")
+    with pytest.raises(ValueError, match=f"divisible by {tp}"):
+        jax.device_put(jmod.init_params(jax.random.PRNGKey(0), cfg),
+                       jmod.param_shardings(cfg, mesh))
 
 
 # -- gloo worlds ----------------------------------------------------------------
@@ -287,8 +420,14 @@ WORLD_CASES = {
         "bert_tp2": ("bert", 1, 2, None)},
     4: {"ring_dp2_tp2": ("transformer", 2, 2, "ring"),
         "off_dp2_tp2": ("transformer", 2, 2, "off"),
-        "bert_dp2_tp2": ("bert", 2, 2, None)},
+        "bert_dp2_tp2": ("bert", 2, 2, None),
+        # tp 4 over 2 KV heads and over BERT's 2 heads: attention whole.
+        "kv2_tp4": ("kv2", 1, 4, "auto"),
+        "bert_heads2_tp4": ("bert_heads2", 1, 4, None)},
 }
+WORLD_SHAPES = {"transformer": TF_SHAPE, "moe": MOE_SHAPE,
+                "kv2": dict(TF_SHAPE, n_kv_heads=2), "bert": BERT_SHAPE,
+                "bert_heads2": dict(BERT_SHAPE, n_heads=2)}
 
 
 @pytest.fixture(scope="module")
@@ -300,14 +439,14 @@ def tp_worlds(tmp_path_factory):
         workdir = tmp_path_factory.mktemp(f"tp{world}")
         inputs, refs = {}, {}
         for name, (model, dp, tp, overlap) in cases.items():
-            if model == "bert":
-                batch = bert_batch(rows=2 * dp)
-                host, jloss, jgrads = jax_bert(batch, dp, tp)
-                inputs[name] = {"model": "bert", "cfg": BERT_SHAPE,
+            shape = WORLD_SHAPES[model]
+            if model.startswith("bert"):
+                batch = bert_batch(rows=2 * dp, shape=shape)
+                host, jloss, jgrads = jax_bert(batch, dp, tp, shape)
+                inputs[name] = {"model": "bert", "cfg": shape,
                                 "params": host, "batch": batch, "sp": 1,
                                 "tp": tp, "ep": 1, "overlap": None}
             else:
-                shape = MOE_SHAPE if model == "moe" else TF_SHAPE
                 toks = tokens(batch=2 * dp)
                 host, jloss, jgrads, _ = jax_transformer(
                     shape, toks, dp, tp, overlap=overlap)
