@@ -512,6 +512,25 @@ TP_SERVE_CASE = ("tp8_serve_sq512", 1, 512, 512, True, 0, 0, None, 4, 1,
 TP_VERIFY_CASE = ("tp8_verify_b8_sq16", 8, 16, 2048, True,
                   [1040 + 137 * i for i in range(8)], 0, None, 4, 1, 128,
                   "bfloat16")
+# Head widths between the kernels' instantiations (80 and 96 on the D 128
+# kernel, the columns past D read as zeros), D 256 (its own layouts), and
+# D 100 (the binding pads it to 104): the public checkpoints' prefill
+# shapes at their heads (head_widths' models) and the masks' edges.
+HEAD_WIDTH_CASES = [
+    ("phi3_d96_s4096", 1, 4096, 4096, True, 0, 0, None, 32, 32, 96,
+     "bfloat16"),
+    ("gemma2b_d256_s8192", 1, 8192, 8192, True, 0, 0, None, 8, 1, 256,
+     "bfloat16"),
+    ("stablelm3b_d80_s4096", 1, 4096, 4096, True, 0, 0, None, 32, 32, 80,
+     "bfloat16"),
+    ("d96_noncausal_kv_len", 1, 300, 1000, False, 0, 0, 777, 32, 32, 96,
+     "bfloat16"),
+    ("d100_padded", 1, 1000, 1000, True, 0, 0, None, 8, 2, 100, "bfloat16"),
+    ("f32_d80", 1, 100, 300, True, 250, 0, None, 8, 2, 80, "float32"),
+    ("f32_d96", 1, 100, 300, True, 250, 0, None, 8, 2, 96, "float32"),
+    ("f32_d100", 2, 77, 300, False, 0, 0, 250, 4, 1, 100, "float32"),
+    ("f32_d256", 2, 77, 300, False, 0, 0, 250, 4, 1, 256, "float32"),
+]
 KERNEL_CASES = [
     ("causal_512_b2", 2, 512, 512, True, 0, 0, None, 32, 8, 128, "bfloat16"),
     ("causal_2048", 1, 2048, 2048, True, 0, 0, None, 32, 8, 128, "bfloat16"),
@@ -576,6 +595,10 @@ KERNEL_CASES = [
     # kv heads (a GQA group of 1), head dim 64, S 512, B 8.
     BERT_LARGE_CASE,
     LONG_CONTEXT_CASE,
+    *HEAD_WIDTH_CASES,
+    # B * Hq past grid.y's 65535 (BERT-large's 16 heads reach it at batch
+    # 4096): folded over grid.y and grid.z.
+    ("bhq_65792", 2056, 128, 128, True, 0, 0, None, 32, 8, 64, "bfloat16"),
 ]
 MAIN_CASE = "causal_2048"
 
@@ -726,6 +749,20 @@ BWD_CASES = [
     ("f32_d128", 1, 512, 512, True, 0, 0, None, 8, 2, 128, "float32"),
     BERT_LARGE_CASE,
     LONG_CONTEXT_CASE,
+    # The head widths (dk/dv at D 256: 32-row q tiles and two walks): the
+    # training shapes of head_widths' models, the padded D 100, f32.
+    ("phi3_d96_s4096", 1, 4096, 4096, True, 0, 0, None, 32, 32, 96,
+     "bfloat16"),
+    ("gemma2b_d256_s4096", 1, 4096, 4096, True, 0, 0, None, 8, 1, 256,
+     "bfloat16"),
+    ("stablelm3b_d80_s4096", 1, 4096, 4096, True, 0, 0, None, 32, 32, 80,
+     "bfloat16"),
+    ("d100_padded", 1, 1000, 1000, True, 0, 0, None, 8, 2, 100, "bfloat16"),
+    ("f32_d80", 1, 256, 256, True, 0, 0, None, 8, 2, 80, "float32"),
+    ("f32_d96", 1, 200, 300, False, 0, 0, 250, 8, 2, 96, "float32"),
+    ("f32_d100", 1, 256, 256, True, 0, 0, None, 8, 2, 100, "float32"),
+    ("f32_d256", 1, 256, 256, True, 0, 0, None, 8, 2, 256, "float32"),
+    ("bhq_65792", 2056, 128, 128, True, 0, 0, None, 32, 8, 64, "bfloat16"),
 ]
 BWD_MAIN_CASE = "causal_8192"
 
@@ -6948,6 +6985,263 @@ def _stream_bound(nbytes, f32_ops):
     return t_bytes * 1e3, "bytes"
 
 
+# Public checkpoints whose head widths only this block's padded and D 256
+# kernels take, at their published widths on the repo's Llama-style block
+# (``Model(cfg)``; random weights from a seed, no checkpoint):
+# Phi-3-mini (config.json of microsoft/Phi-3-mini-4k-instruct: D 3072 / 32
+# = 96), Gemma-2B (google/gemma-2b: 8 heads of 256 over one KV head) and
+# StableLM-3B-4E1T (stabilityai/stablelm-3b-4e1t: 2560 / 32 = 80). The
+# block keeps its own MLP, norms and full rotary: the widths, not the
+# models, are what the kernels see.
+HEAD_WIDTH_MODELS = {
+    "phi3_mini": dict(vocab_size=32064, d_model=3072, n_layers=32,
+                      n_heads=32, n_kv_heads=32, d_ff=8192,
+                      max_seq_len=4096, rope_theta=10000.0),
+    "gemma_2b": dict(vocab_size=256000, d_model=2048, n_layers=18,
+                     n_heads=8, n_kv_heads=1, d_ff=16384, max_seq_len=8192,
+                     rope_theta=10000.0),
+    "stablelm_3b": dict(vocab_size=50304, d_model=2560, n_layers=32,
+                        n_heads=32, n_kv_heads=32, d_ff=6912,
+                        max_seq_len=4096, rope_theta=10000.0),
+}
+# Served depth: Phi-3-mini cut to SERVE_LAYERS of its 32 as the Llama
+# phases are; Gemma-2B whole (18 layers, about 6 GB of bf16 weights).
+HEAD_WIDTH_SERVE_LAYERS = {"phi3_mini": SERVE_LAYERS, "gemma_2b": 18}
+HEAD_WIDTH_TRAIN = {"gemma_2b": 3, "stablelm_3b": 0}  # make_train_step steps
+HEAD_WIDTH_TRAIN_LAYERS = 2
+HEAD_WIDTH_TRAIN_SEQ = 4096
+HEAD_WIDTH_NEW = 16
+
+
+def _width_traffic(np, vocab):
+    """Greedy requests of 300, 800 and 1500 random tokens, and a 32-token
+    pattern repeated to 512 (SPEC_NEW new tokens) for the ngram proposer
+    to find, so that the run verifies."""
+    rng = np.random.default_rng(11)
+    prompts = {f"p{n}": rng.integers(0, vocab, n).tolist()
+               for n in (300, 800, 1500)}
+    max_new = {name: HEAD_WIDTH_NEW for name in prompts}
+    prompts["pattern"] = np.tile(rng.integers(0, vocab, SPEC_PATTERN),
+                                 SPEC_PROMPT // SPEC_PATTERN).tolist()
+    max_new["pattern"] = SPEC_NEW
+    return prompts, max_new
+
+
+def _width_engine(torch, serve_cli, attention, model, prompts, max_new):
+    """The paged engine under ``--speculate ngram`` (serve_paged's slots,
+    chunks and blocks) on ``model`` behind the HTTP server, every prompt
+    posted at once → (streams, readings)."""
+    engine = serve_cli.ContinuousEngine(
+        model, max_slots=8, chunk=32, prefill_chunk=512, kv_cache="paged",
+        kv_block_size=16, speculate="ngram")
+    server, state = serve_cli.start_server(engine, port=0, host="127.0.0.1")
+    try:
+        t0 = time.perf_counter()
+        serve_cli.wait_ready(state, timeout=600)
+        ready_s = time.perf_counter() - t0
+        port = server.server_address[1]
+        with concurrent.futures.ThreadPoolExecutor(len(prompts)) as pool:
+            futures = {name: pool.submit(serve_cli.post_generate, port,
+                                         [prompt], max_new[name])
+                       for name, prompt in prompts.items()}
+            streams = {name: f.result(timeout=600)["tokens"][0]
+                       for name, f in futures.items()}
+    finally:
+        server.shutdown()
+        server.server_close()
+    stats = engine.stats()
+    readings = {"ready_s": ready_s, "n_prefills": stats["n_prefills"],
+                "steps_done": stats["steps_done"],
+                "ttft_s": [{"prompt_len": n, "ttft_s": t}
+                           for n, t in engine.ttft_s],
+                "decode_tokens_per_s": stats["occupied_steps"]
+                / max(stats["t_chunk_s"], 1e-9),
+                **{k: stats[k] for k in ("spec_verifies", "spec_proposed",
+                                         "spec_accepted")},
+                **engine.graph_stats()}
+    engine.shutdown()
+    return streams, readings
+
+
+def _width_serve(torch, np, tf, serve_cli, attention, _ext, name):
+    """One HEAD_WIDTH_MODELS model at HEAD_WIDTH_SERVE_LAYERS: the paged
+    engine's streams (``_width_engine``) held to the same engine on the
+    plain attention by the margin rule, and a 1500-token prefill's logits
+    to the plain attention's. Returns (the phase row, flash launches:
+    the eager calls and n_layers a verify replay)."""
+    cfg = tf.TransformerConfig(**dict(
+        HEAD_WIDTH_MODELS[name], n_layers=HEAD_WIDTH_SERVE_LAYERS[name]))
+    model = serve_cli.Model(cfg, seed=0, device="cuda")
+    prompts, max_new = _width_traffic(np, cfg.vocab_size)
+    before = attention.flash_fwd_launches
+    got, r = _width_engine(torch, serve_cli, attention, model, prompts,
+                           max_new)
+    logits = _prefill_logits(torch, tf, model, prompts["p1500"])
+    launches = attention.flash_fwd_launches - before + \
+        cfg.n_layers * r["verify_graph_replays"]
+    before = attention.flash_fwd_launches
+    with plain_attention(tf, attention):
+        want, _ = _width_engine(torch, serve_cli, attention, model, prompts,
+                                max_new)
+        row = _logit_row(torch, logits, _prefill_logits(
+            torch, tf, model, prompts["p1500"]))
+    if attention.flash_fwd_launches != before:
+        fail(f"head_widths {name}: the plain-attention reference launched "
+             f"the kernel")
+    for req, prompt in prompts.items():
+        _check_response(f"head_widths {name} {req}",
+                        {"tokens": [got[req]]}, prompt, max_new[req],
+                        cfg.vocab_size)
+    if not r["spec_verifies"] or \
+            r["verify_graph_replays"] != r["spec_verifies"] or \
+            r["eager_chunks_on_cuda"] or r["eager_verifies_on_cuda"]:
+        fail(f"head_widths {name}: {r['spec_verifies']} verifies, "
+             f"{r['verify_graph_replays']} verify replays, "
+             f"{r['eager_chunks_on_cuda']} eager chunks")
+    _hold_logit_row(row, f"head_widths {name}", "prefill_p1500")
+    partings = _margin_partings(torch, tf, model, prompts, got, want,
+                                f"head_widths_{name}")
+    out = {"n_layers": cfg.n_layers, "n_layers_full": HEAD_WIDTH_MODELS[
+        name]["n_layers"], "head_dim": cfg.head_dim,
+        "kernel_head_dim": _ext.kernel_head_dim(cfg.head_dim),
+        "weights_gb": weight_bytes(model.model) / 1e9,
+        "prefill_p1500": row, "partings": partings,
+        "flash_fwd_launches": launches,
+        **{k: r[k] for k in ("ready_s", "n_prefills", "steps_done", "ttft_s",
+                             "decode_tokens_per_s", "spec_verifies",
+                             "spec_proposed", "spec_accepted",
+                             "graph_captures", "graph_replays",
+                             "verify_graph_replays")}}
+    del model
+    _free(torch)
+    return out, launches
+
+
+def _width_train(torch, np, tf, serve_cli, attention, _ext, name, steps):
+    """One HEAD_WIDTH_MODELS model at HEAD_WIDTH_TRAIN_LAYERS layers, B 1 ×
+    HEAD_WIDTH_TRAIN_SEQ: the loss and every gradient through the kernels
+    (``FlashAttention.backward``) held to plain attention by
+    TRAIN_GRAD_TOL, then ``steps`` make_train_step steps (AdamW, remat; the
+    train_cli path). Returns (the phase row, launches (fwd, dq, dkv))."""
+    cfg = tf.TransformerConfig(**dict(HEAD_WIDTH_MODELS[name],
+                                      n_layers=HEAD_WIDTH_TRAIN_LAYERS))
+    model = tf.init_params(cfg, device="cuda", seed=0)
+    rng = np.random.default_rng(3)
+
+    def batch():
+        return {"tokens": torch.as_tensor(rng.integers(
+            0, cfg.vocab_size, (1, HEAD_WIDTH_TRAIN_SEQ + 1)),
+            device="cuda")}
+
+    tokens = batch()
+
+    def loss_and_grads(attn_impl):
+        model.zero_grad(set_to_none=True)
+        loss = tf.loss_fn(model, tokens, attn_impl=attn_impl)
+        loss.backward()
+        return loss.item(), {n: p.grad for n, p in model.named_parameters()}
+
+    counts = _flash_counts(attention)
+    loss_k, grads_k = loss_and_grads("flash")
+    grads_k = {n: g.clone() for n, g in grads_k.items()}
+    launches = [a - b for a, b in zip(_flash_counts(attention), counts)]
+    loss_r, grads_r = loss_and_grads("reference")
+    bad, errs = _grad_errors(torch, grads_k, grads_r)
+    del grads_k, grads_r
+    model.zero_grad(set_to_none=True)
+    row = {"n_layers": cfg.n_layers, "seq_len": HEAD_WIDTH_TRAIN_SEQ,
+           "batch": 1, "head_dim": cfg.head_dim,
+           "kernel_head_dim": _ext.kernel_head_dim(cfg.head_dim),
+           "loss_kernels": loss_k,
+           "loss_plain": loss_r, **errs}
+    if bad or abs(loss_k - loss_r) > TRAIN_GRAD_TOL["loss_abs"] or \
+            not math.isfinite(loss_k):
+        emit({"phase": "head_widths_train", "model": name, **row})
+        fail(f"head_widths {name}: gradients through the kernels disagree "
+             f"with plain attention for {bad or 'the loss'}")
+    if launches != [cfg.n_layers] * 3:
+        fail(f"head_widths {name}: the step launched fwd/dq/dkv {launches} "
+             f"times, want {cfg.n_layers} each")
+    if steps:
+        init_state, train_step = tf.make_train_step(cfg, device="cuda")
+        state = init_state(model=model)
+        torch.cuda.reset_peak_memory_stats()
+        counts = _flash_counts(attention)
+        losses, step_s = [], []
+        for _ in range(steps):
+            b = batch()
+            t0 = time.perf_counter()
+            state, loss = train_step(state, b)
+            losses.append(loss.item())
+            step_s.append(time.perf_counter() - t0)
+        step_launches = [a - b for a, b in zip(_flash_counts(attention),
+                                               counts)]
+        want = [2 * cfg.n_layers * steps] + [cfg.n_layers * steps] * 2
+        if step_launches != want or not all(map(math.isfinite, losses)):
+            fail(f"head_widths {name}: {steps} steps launched fwd/dq/dkv "
+                 f"{step_launches} times (want {want}), losses {losses}")
+        launches = [a + b for a, b in zip(launches, step_launches)]
+        row.update(losses=losses, step_ms=[t * 1e3 for t in step_s],
+                   tokens_per_s=HEAD_WIDTH_TRAIN_SEQ * steps / sum(step_s),
+                   max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+                   / 1e9)
+        del state
+    if name == "stablelm_3b":
+        # One prefill through the serving entry point's program, held to
+        # the plain attention's logits.
+        served = serve_cli.Model(cfg, weights=model)
+        prompt = rng.integers(0, cfg.vocab_size, 1500).tolist()
+        before = attention.flash_fwd_launches
+        got = _prefill_logits(torch, tf, served, prompt)
+        launches[0] += attention.flash_fwd_launches - before
+        with plain_attention(tf, attention):
+            row["prefill_p1500"] = _logit_row(
+                torch, got, _prefill_logits(torch, tf, served, prompt))
+        _hold_logit_row(row["prefill_p1500"], f"head_widths {name}",
+                        "prefill_p1500")
+    row["launches_fwd_dq_dkv"] = launches
+    del model
+    _free(torch)
+    return row, launches
+
+
+def head_widths_phase(torch, np, tf, serve_cli, attention, _ext, card):
+    """The head widths only the padded kernels (D 80 and 96 on the D 128
+    instantiation) and the D 256 ones take, through the entry points a
+    user calls at public checkpoints' widths (HEAD_WIDTH_MODELS):
+    Phi-3-mini and Gemma-2B served on the paged engine under ``--speculate
+    ngram`` (``_width_serve``), Gemma-2B and StableLM-3B trained at 2
+    layers, B 1 × 4096 (``_width_train``; Gemma-2B three make_train_step
+    steps more), StableLM-3B's prefill; each held to the same path on the
+    plain attention. Counts at zero before, read after; returns the
+    launches (fwd, dq, dkv), each above 0."""
+    _zero_flash_counts(attention)
+    t0 = time.perf_counter()
+    serving, training = {}, {}
+    launches = [0, 0, 0]
+    for name in HEAD_WIDTH_SERVE_LAYERS:
+        serving[name], fwd = _width_serve(torch, np, tf, serve_cli,
+                                          attention, _ext, name)
+        launches[0] += fwd
+    for name, steps in HEAD_WIDTH_TRAIN.items():
+        training[name], counts = _width_train(torch, np, tf, serve_cli,
+                                              attention, _ext, name, steps)
+        launches = [a + b for a, b in zip(launches, counts)]
+    if list(_flash_counts(attention)[1:]) != launches[1:] or \
+            min(launches) <= 0:
+        fail(f"head_widths: launches {launches} against the counters "
+             f"{_flash_counts(attention)}")
+    emit({"phase": "head_widths", **card,
+          "models": {n: {k: v for k, v in HEAD_WIDTH_MODELS[n].items()
+                         if k != "n_layers"} for n in HEAD_WIDTH_MODELS},
+          "serve": serving, "train": training, "tol": {
+              "serve_logits_atol": SERVE_LOGITS_ATOL,
+              "train": TRAIN_GRAD_TOL},
+          "seconds": time.perf_counter() - t0,
+          "launches_fwd_dq_dkv": launches})
+    return tuple(launches)
+
+
 def main():
     import torch
 
@@ -7087,6 +7381,9 @@ def main():
     _free(torch)
     stream_rows = stream_kernel_rows(torch, db, stream, gen)
     _free(torch)
+    head_widths_launches = head_widths_phase(torch, np, tf, serve_cli,
+                                             attention, _ext, card)
+    _free(torch)
     training = {"train": (fwd_train, dq_train, dkv_train),
                 "train_bert": bert_launches, "train_cli": cli_launches,
                 "train_recovery": recovery_launches,
@@ -7097,7 +7394,8 @@ def main():
                 "train_dist": train_dist_launches,
                 "train_bert_sp": bert_sp_launches,
                 "device_bench": tuple(bench_launches[k] for k in (
-                    "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))}
+                    "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+                "head_widths": head_widths_launches}
     int8_launches["device_bench"] = bench_launches["int8_mm"]
     int8_launches["int8_ring"] = int8_ring_launches
     int8_launches["serve_tp_int8"] = serve_tp_int8_launches
@@ -7146,6 +7444,18 @@ def main():
 
     def tp_shape(kind, err):
         return case_shape(TP_LOCAL_CASE[0], kind, err)
+
+    def widths(kind):
+        """The head-width rows of ``kind``: every case of both tables
+        whose D is not 32, 64 or 128, and the folded B * Hq."""
+        table = rows if kind == "fwd" else bwd_rows
+        errs = {"fwd": ("out",), "dq": ("dq",), "dkv": ("dk", "dv")}[kind]
+        return {case: {**case_shape(case, kind, max(
+            row[f"max_abs_err_{e}"] for e in errs)), "shape": row["shape"],
+            "dtype": row["dtype"]}
+            for case, row in table.items()
+            if row["shape"]["D"] not in (32, 64, 128) or
+            case.startswith("bhq")}
     tp_fwd, tp_bwd = rows[TP_LOCAL_CASE[0]], bwd_rows[TP_LOCAL_CASE[0]]
     stream_src = "container_engine_accelerators_tpu_torch/ops/stream.py"
     bench_src = "container_engine_accelerators_tpu/collectives/device_bench.py:"
@@ -7203,6 +7513,7 @@ def main():
                 rows[TP_VERIFY_CASE[0]]["max_abs_err_out"]),
                 "host_us": rows[TP_VERIFY_CASE[0]]["host_us"],
                 "graph_ms": rows[TP_VERIFY_CASE[0]]["graph_ms"]},
+            "head_widths": widths("fwd"),
         },
         {
             "name": "flash_bwd_dq", "route": "cuda",
@@ -7221,6 +7532,7 @@ def main():
             "long_context": long_shape("dq", long_bwd["max_abs_err_dq"]),
             "pipeline": pp_shape("dq", pp_bwd["max_abs_err_dq"]),
             "tp_local": tp_shape("dq", tp_bwd["max_abs_err_dq"]),
+            "head_widths": widths("dq"),
         },
         {
             "name": "flash_bwd_dkv", "route": "cuda",
@@ -7244,6 +7556,7 @@ def main():
                                             pp_bwd["max_abs_err_dv"])),
             "tp_local": tp_shape("dkv", max(tp_bwd["max_abs_err_dk"],
                                             tp_bwd["max_abs_err_dv"])),
+            "head_widths": widths("dkv"),
         },
         {
             "name": "int8_mm", "route": "cuda",

@@ -155,7 +155,39 @@ def _flash_lib(defines=()):
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 # int8_mm_launch's code for bf16 x with an f32 y.
 _INT8_BF16_TO_F32 = 2
-FLASH_HEAD_DIMS = (32, 64, 128)
+# The head dims the flash kernels are built for (csrc/flash_fwd.cu,
+# flash_bwd.cu), and the widest: wgmma's N stops at 256, and a wider
+# head's O accumulator (64 rows x D f32 a warpgroup) would pass the
+# register file.
+FLASH_WIDTHS = (32, 64, 128, 256)
+MAX_HEAD_DIM = FLASH_WIDTHS[-1]
+# A grid dimension past x holds at most this many blocks.
+GRID_YZ_LIMIT = 65535
+
+
+def kernel_head_dim(d):
+    """(padded width, kernel width) of head dim ``d``: the wrappers below
+    copy q, k and v (and dO) into zero-padded tensors of the padded width
+    where it differs from d (TMA takes row strides that are multiples of
+    16 bytes: d % 8 == 0), and the launch runs the kernel built for the
+    kernel width, the next of FLASH_WIDTHS (csrc dispatches on the same
+    rule), at the padded width. Raises ValueError past MAX_HEAD_DIM."""
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"head dim {d} is not supported by the flash kernels: they take "
+            f"1 to {MAX_HEAD_DIM} (wgmma's widest N is {MAX_HEAD_DIM}, and "
+            f"a wider O accumulator would pass the register file)")
+    width = -(-d // 8) * 8
+    return width, next(w for w in FLASH_WIDTHS if w >= width)
+
+
+def fold_rows(n):
+    """(grid.y, grid.z) of a grid's ``n`` batch * heads rows, as
+    csrc/launch.cuh's fold_rows lays them out: z = ceil(n / 65535) slices
+    of y = ceil(n / z) rows, block row z * y + y_index, rows at or past n
+    idle. n up to 65535 keeps the unfolded (n, 1)."""
+    z = -(-n // GRID_YZ_LIMIT) if n > GRID_YZ_LIMIT else 1
+    return -(-n // z), z
 
 
 def _flash_bwd_lib(defines=()):
@@ -204,14 +236,11 @@ def _check(same_dtype, f32, device):
             raise ValueError(f"{name} must be float32, got {t.dtype}")
 
 
-def _check_shapes(q, k):
-    batch, num_q_heads, seq_q, d = q.shape
-    if d not in FLASH_HEAD_DIMS:
-        raise ValueError(f"head dim {d} not supported by the kernel "
-                         f"(takes {FLASH_HEAD_DIMS})")
-    if batch * num_q_heads > 65535:
-        raise ValueError(f"B*Hq = {batch * num_q_heads} exceeds the "
-                         f"kernel's grid limit of 65535")
+def _padded(t, width):
+    """``t`` with its last dim zero-padded to ``width`` (a new contiguous
+    tensor), or ``t`` itself where it is that wide already."""
+    d = t.shape[-1]
+    return t if d == width else torch.nn.functional.pad(t, (0, width - d))
 
 
 def flash_fwd(q, k, v, out, lse, *, causal, sm_scale, q_base, k_base,
@@ -222,11 +251,14 @@ def flash_fwd(q, k, v, out, lse, *, causal, sm_scale, q_base, k_base,
     ``base`` (a contiguous int32 (B, 3) tensor on q's device, or None):
     per batch row [q_base, k_base, kv_len], read by the kernel from
     device memory in place of the three ints, which it then ignores.
-    ``defines`` picks an instrumented build (see flash_phases.py)."""
+    ``defines`` picks an instrumented build (see flash_phases.py). A head
+    dim that is not a multiple of 8 runs on zero-padded copies of q, k
+    and v, and out is copied back from the kernel's padded output
+    (kernel_head_dim)."""
     _check({"q": q, "k": k, "v": v, "out": out}, {"lse": lse}, q.device)
     batch, num_q_heads, seq_q, d = q.shape
     _, num_kv_heads, seq_k, _ = k.shape
-    _check_shapes(q, k)
+    width, _ = kernel_head_dim(d)
     if out.shape != q.shape or lse.shape != q.shape[:3]:
         raise ValueError("out must be shaped like q and lse like q[:3]")
     if base is not None and (
@@ -238,11 +270,15 @@ def flash_fwd(q, k, v, out, lse, *, causal, sm_scale, q_base, k_base,
             f"{base.device}")
     lib = _flash_lib(defines)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    dest = out
+    if width != d:
+        q, k, v = (_padded(t, width) for t in (q, k, v))
+        out = q.new_empty(q.shape)
     with torch.cuda.device(q.device):
         err = lib.flash_fwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), _DTYPE_CODE[q.dtype],
-            batch, num_q_heads, num_kv_heads, seq_q, seq_k, d,
+            batch, num_q_heads, num_kv_heads, seq_q, seq_k, width,
             int(bool(causal)), float(sm_scale),
             q_base, k_base, kv_len,
             None if base is None else base.data_ptr(), stream,
@@ -252,6 +288,8 @@ def flash_fwd(q, k, v, out, lse, *, causal, sm_scale, q_base, k_base,
             f"flash_fwd launch failed: "
             f"{lib.flash_fwd_error_string(err).decode()} ({err})"
         )
+    if dest is not out:
+        dest.copy_(out[..., :d])
 
 
 def _bwd_launch(fn_name, q, k, v, dout, lse, delta, outs, *, causal,
@@ -260,7 +298,7 @@ def _bwd_launch(fn_name, q, k, v, dout, lse, delta, outs, *, causal,
            {"lse": lse, "delta": delta}, q.device)
     batch, num_q_heads, seq_q, d = q.shape
     _, num_kv_heads, seq_k, _ = k.shape
-    _check_shapes(q, k)
+    width, _ = kernel_head_dim(d)
     if dout.shape != q.shape or lse.shape != q.shape[:3] or \
             delta.shape != q.shape[:3]:
         raise ValueError("dout must be shaped like q, lse and delta like "
@@ -271,12 +309,17 @@ def _bwd_launch(fn_name, q, k, v, dout, lse, delta, outs, *, causal,
             raise ValueError(f"{name} must be shaped {tuple(want)}")
     lib = _flash_bwd_lib(defines)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    dests = outs
+    if width != d:
+        q, k, v, dout = (_padded(t, width) for t in (q, k, v, dout))
+        outs = {name: t.new_empty(*t.shape[:3], width)
+                for name, t in outs.items()}
     with torch.cuda.device(q.device):
         err = getattr(lib, fn_name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(),
             *(t.data_ptr() for t in outs.values()), _DTYPE_CODE[q.dtype],
-            batch, num_q_heads, num_kv_heads, seq_q, seq_k, d,
+            batch, num_q_heads, num_kv_heads, seq_q, seq_k, width,
             int(bool(causal)), float(sm_scale),
             q_base, k_base, kv_len, stream,
         )
@@ -285,11 +328,15 @@ def _bwd_launch(fn_name, q, k, v, dout, lse, delta, outs, *, causal,
             f"{fn_name} failed: "
             f"{lib.flash_bwd_error_string(err).decode()} ({err})"
         )
+    if dests is not outs:
+        for name, t in dests.items():
+            t.copy_(outs[name][..., :d])
 
 
 def flash_bwd_dq(q, k, v, dout, lse, delta, dq, **kw):
     """Launch the dq kernel of csrc/flash_bwd.cu on PyTorch's current
-    stream; checks as ``flash_fwd`` does. Keywords: causal, sm_scale,
+    stream; checks, and pads a head dim that is not a multiple of 8, as
+    ``flash_fwd`` does. Keywords: causal, sm_scale,
     q_base, k_base, kv_len, and ``defines`` for an instrumented build (see
     flash_phases.py)."""
     _bwd_launch("flash_bwd_dq_launch", q, k, v, dout, lse, delta,

@@ -39,7 +39,14 @@
 // byte, far above the card's ridge of about 295 (989 TFLOP/s bf16 dense over
 // 3.35 TB/s): both kernels are bound by the tensor cores' bf16 rate.
 //
-// What the design does about it (bf16, head dims 32, 64 and 128). Both
+// Head dims: the kernels are built for D = 32, 64, 128 and 256, and a head
+// dim d in between (a multiple of 8) runs the next D up with d passed at
+// run time, as in flash_fwd.cu: columns past d read as zeros through the
+// TMA maps and are not stored, at D / d the operations. At D 256 the
+// streamed tiles are 32 rows (dq: keys; dk/dv: q rows) and the dk/dv
+// kernel walks its q tiles twice (DkvLayout).
+//
+// What the design does about it (bf16). Both
 // kernels have the forward's shape: 384 threads, a producer warpgroup whose
 // one thread issues TMA loads into an mbarrier ring (full: expect-tx bytes;
 // empty: the 8 consumer warps' arrivals) and hands its registers to two
@@ -99,9 +106,7 @@ constexpr int kConsumerWarps = 8;
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 constexpr int kStages = 2;     // depth of the streamed operand's ring
-constexpr int kDqKeys = 64;    // keys of a streamed K/V tile (dq)
 constexpr int kResident = 128; // rows of the resident operand per block
-constexpr int kStream = 64;    // rows of a streamed q/dO tile (dk/dv)
 
 // Shared-memory geometry of bf16 tiles of head dim D in TMA's swizzled
 // layout: D / kAtomCols atoms side by side, each `rows` rows of kRowBytes
@@ -114,14 +119,9 @@ struct Tiles {
   static constexpr int kSwizzle =
       kRowBytes == 128 ? sm90::kSwizzle128B : sm90::kSwizzle64B;
   static constexpr uint32_t kSbo = 8 * kRowBytes;  // between 8-row groups
-  // A resident tile (128 rows), a streamed q/dO tile (64 rows) and a
-  // streamed K/V tile of the dq kernel (kDqKeys rows).
+  // A resident tile (128 rows); the streamed tiles are the layouts'.
   static constexpr int kResAtomBytes = kResident * kRowBytes;
   static constexpr int kResBytes = kResident * D * 2;
-  static constexpr int kStrAtomBytes = kStream * kRowBytes;
-  static constexpr int kStrBytes = kStream * D * 2;
-  static constexpr int kKeyAtomBytes = kDqKeys * kRowBytes;
-  static constexpr int kKeyBytes = kDqKeys * D * 2;
 
   // Byte offset of k-step kk (16 values of D) in a K-major tile whose
   // atoms are `atom_bytes` apart: 32 bytes into an atom's rows.
@@ -142,34 +142,48 @@ struct Tiles {
 };
 
 // dk/dv block: K and V resident (128 rows each), then a ring of q and dO
-// tiles (64 rows each) with their 64 lse and 64 delta values.
+// tiles (kStream rows each) with their kStream lse and delta values. At D
+// 256 the tiles are 32 rows (K and V take 128 KB, a 2-stage ring of 64-row
+// tiles another 128 KB: past the 227 KB a block may have), and the block
+// walks its q tiles twice, forming dV on the first walk and dK on the
+// second (kPasses): dK and dV together would take 256 f32 registers a
+// thread, past the consumers' 240. The second walk recomputes S^T, so the
+// kernel does 10 * D FLOPs a visible pair instead of 8 * D.
 template <int D>
 struct DkvLayout {
   using T = Tiles<D>;
+  static constexpr int kStream = D > 128 ? 32 : 64;
+  static constexpr int kPasses = D > 128 ? 2 : 1;
+  static constexpr int kStrAtomBytes = kStream * T::kRowBytes;
+  static constexpr int kStrBytes = kStream * D * 2;
   static constexpr int kK = 0;
   static constexpr int kV = T::kResBytes;
-  static constexpr int kQ = 2 * T::kResBytes;              // + stage * tile
-  static constexpr int kDO = kQ + kStages * T::kStrBytes;  // + stage * tile
-  static constexpr int kLse = kDO + kStages * T::kStrBytes;      // + 256 st
+  static constexpr int kQ = 2 * T::kResBytes;           // + stage * tile
+  static constexpr int kDO = kQ + kStages * kStrBytes;  // + stage * tile
+  static constexpr int kLse = kDO + kStages * kStrBytes;  // + 4 kStream st
   // (kLse holds -lse * log2 e, the exponent's offset, not lse itself.)
-  static constexpr int kDelta = kLse + kStages * kStream * 4;    // + 256 st
+  static constexpr int kDelta = kLse + kStages * kStream * 4;
   static constexpr int kBars = kDelta + kStages * kStream * 4;
   static constexpr int kNumBars = 1 + 2 * kStages;  // k/v, full, empty
-  static constexpr int kStageTx = 2 * T::kStrBytes;
+  static constexpr int kStageTx = 2 * kStrBytes;
   // Barriers, and slack to align the dynamic base to 1024 bytes.
   static constexpr int kBytes = kBars + 8 * kNumBars + 1024;
 };
 
 // dq block: q and dO resident (128 rows each), then a ring of K and V
-// tiles (kDqKeys keys each).
+// tiles (kKeys keys each: 64, and 32 at D 256, where q and dO take 128 KB
+// and a 2-stage ring of 64-key tiles another 128 KB).
 template <int D>
 struct DqLayout {
   using T = Tiles<D>;
+  static constexpr int kKeys = D > 128 ? 32 : 64;
+  static constexpr int kKeyAtomBytes = kKeys * T::kRowBytes;
+  static constexpr int kKeyBytes = kKeys * D * 2;
   static constexpr int kQ = 0;
   static constexpr int kDO = T::kResBytes;
-  static constexpr int kK = 2 * T::kResBytes;              // + stage * tile
-  static constexpr int kV = kK + kStages * T::kKeyBytes;   // + stage * tile
-  static constexpr int kBars = kV + kStages * T::kKeyBytes;
+  static constexpr int kK = 2 * T::kResBytes;           // + stage * tile
+  static constexpr int kV = kK + kStages * kKeyBytes;   // + stage * tile
+  static constexpr int kBars = kV + kStages * kKeyBytes;
   static constexpr int kNumBars = 1 + 2 * kStages;  // q/dO, full, empty
   static constexpr int kBytes = kBars + 8 * kNumBars + 1024;
 };
@@ -257,13 +271,21 @@ struct PhaseClock {
 };
 #endif
 
+// Which gradients a walk of the dk/dv kernel over its q tiles forms.
+template <bool Dv, bool Dk>
+struct Grads {
+  static constexpr bool kDv = Dv, kDk = Dk;
+};
+
 // dk/dv: one block = one (batch * KV head, 128-key tile), blockIdx.x the
 // KV head and blockIdx.y the key tile, so key tile 0 (which, causal, sees
 // every query) launches first. Warpgroup 0 loads; consumer c = 0, 1 owns
 // keys [64c, 64c + 64). In a consumer, warp w and lane (g = lane / 4,
 // t = lane % 4) hold keys 16w + g and 16w + g + 8 of its 64 (rows of S^T,
 // dK, dV), and columns 8j + 2t, 8j + 2t + 1 of every 8-column chunk j
-// (query rows of the q tile for S^T; head-dim columns for dK, dV).
+// (query rows of the q tile for S^T; head-dim columns for dK, dV). D is
+// the kernel's width and `d` (<= D, a multiple of 8) the tensors', as in
+// the forward: columns past d read as zeros and are not stored.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -273,11 +295,12 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
                           uint16_t* __restrict__ dk, uint16_t* __restrict__ dv,
-                          int hq, int hkv, int sq, int sk, int causal,
+                          int hq, int hkv, int sq, int sk, int d, int causal,
                           float sm_scale, float scale_log2, int q_base,
                           int k_base, int kv_len) {
   using T = Tiles<D>;
   using L = DkvLayout<D>;
+  constexpr int kStream = L::kStream;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
   uint64_t* bar_kv = reinterpret_cast<uint64_t*>(smem + L::kBars);
@@ -291,7 +314,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   // The (q head, q tile) pairs of the block: for each head of the group,
   // the q tiles from the first with a row that sees the block's first key
   // (global positions, clamped at 0) on. A block wholly past kv_len has
-  // none.
+  // none. Each of the kPasses walks goes over all of them.
   const int n_qt = (sq + kStream - 1) / kStream;
   const int first_qt = causal ? max(0, k_base + k0 - q_base) / kStream : 0;
   const int per_head = k0 < kv_len ? max(0, n_qt - first_qt) : 0;
@@ -312,7 +335,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (threadIdx.x < 128) {
     // Producer: warp 0. Round r of a stage waits for the consumers to
     // release round r - 1 (the first round's wait passes at once). Lane 0
-    // issues the TMA loads; every lane stores two of the tile's 64
+    // issues the TMA loads; every lane stores its share of the tile's
     // -lse * log2 e and delta values (0 for rows past Sq, which are masked)
     // from plain loads, then arrives. (A TMA box of an f32 vector at a row
     // offset that is not 16-byte aligned, any head past the first when
@@ -329,15 +352,16 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                             bar_kv, a * T::kAtomCols, k0, bkv);
         }
       }
-      for (int it = 0; it < n_items; ++it) {
+      for (int it = 0; it < L::kPasses * n_items; ++it) {
         const int st = it % kStages;
-        const int bh = b * hq + kvh * group + it / per_head;
-        const int q0 = (first_qt + it % per_head) * kStream;
+        const int item = it % n_items;
+        const int bh = b * hq + kvh * group + item / per_head;
+        const int q0 = (first_qt + item % per_head) * kStream;
         sm90::mbar_wait(empty + st, ((it / kStages) & 1) ^ 1);
         if (lane == 0) {
           sm90::mbar_arrive_expect_tx(full + st, L::kStageTx);
           for (int a = 0; a < T::kAtoms; ++a) {
-            const int off = st * T::kStrBytes + a * T::kStrAtomBytes;
+            const int off = st * L::kStrBytes + a * L::kStrAtomBytes;
             sm90::tma_load_3d(smem + L::kQ + off, &tm_q, full + st,
                               a * T::kAtomCols, q0, bh);
             sm90::tma_load_3d(smem + L::kDO + off, &tm_do, full + st,
@@ -370,148 +394,182 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     const uint64_t v_desc = T::kmajor(smem + L::kV + 64 * c * T::kRowBytes);
     const uint64_t q_desc = T::kmajor(smem + L::kQ);
     const uint64_t do_desc = T::kmajor(smem + L::kDO);
-    const uint64_t q_mn = T::mnmajor(smem + L::kQ, T::kStrAtomBytes);
-    const uint64_t do_mn = T::mnmajor(smem + L::kDO, T::kStrAtomBytes);
-
-    float acc_dk[D / 2], acc_dv[D / 2], s[32], dp[32];
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    const uint64_t q_mn = T::mnmajor(smem + L::kQ, L::kStrAtomBytes);
+    const uint64_t do_mn = T::mnmajor(smem + L::kDO, L::kStrAtomBytes);
 
     PhaseClock phases;
     if (n_items > 0) sm90::mbar_wait(bar_kv, 0);
     phases.mark(kWait);
-    for (int it = 0; it < n_items; ++it) {
-      const int st = it % kStages;
-      const int q0 = (first_qt + it % per_head) * kStream;
-      const uint32_t st_off = st * T::kStrBytes;
-      const float* neg_lse_s =
-          reinterpret_cast<const float*>(smem + L::kLse + st * kStream * 4);
-      const float* delta_s =
-          reinterpret_cast<const float*>(smem + L::kDelta + st * kStream * 4);
-      sm90::mbar_wait(full + st, (it / kStages) & 1);
-      phases.mark(kWait);
-      phases.tile();
 
-      // S^T = K Q^T and dP^T = V dO^T, committed as two groups.
-      sm90::fence_regs(s);
-      sm90::fence_regs(dp);
-      sm90::wgmma_fence();
+    // One walk over the block's items from ring position it0: S^T always,
+    // then dV += P^T dO (grads.kDv) and dP^T and dK += dS^T Q (grads.kDk).
+    auto walk = [&](auto grads, float (&acc_dv)[D / 2],
+                    float (&acc_dk)[D / 2], int it0) {
+      constexpr bool kDv = decltype(grads)::kDv;
+      constexpr bool kDk = decltype(grads)::kDk;
+      float s[kStream / 2], dp[kStream / 2];
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        sm90::WgmmaSS<64, 0>::mma(
-            s, sm90::desc_advance(k_desc, T::kstep(kk, T::kResAtomBytes)),
-            sm90::desc_advance(q_desc,
-                               st_off + T::kstep(kk, T::kStrAtomBytes)),
-            kk > 0);
-      }
-      sm90::wgmma_commit();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        sm90::WgmmaSS<64, 0>::mma(
-            dp, sm90::desc_advance(v_desc, T::kstep(kk, T::kResAtomBytes)),
-            sm90::desc_advance(do_desc,
-                               st_off + T::kstep(kk, T::kStrAtomBytes)),
-            kk > 0);
-      }
-      sm90::wgmma_commit();
-      sm90::wgmma_wait<1>();
-      sm90::fence_regs(s);
-      phases.mark(kScores);
+      for (int i = 0; i < kStream / 2; ++i) s[i] = dp[i] = 0.f;
+      for (int i = 0; i < n_items; ++i) {
+        const int it = it0 + i;
+        const int st = it % kStages;
+        const int q0 = (first_qt + i % per_head) * kStream;
+        const uint32_t st_off = st * L::kStrBytes;
+        const float* neg_lse_s = reinterpret_cast<const float*>(
+            smem + L::kLse + st * kStream * 4);
+        const float* delta_s = reinterpret_cast<const float*>(
+            smem + L::kDelta + st * kStream * 4);
+        sm90::mbar_wait(full + st, (it / kStages) & 1);
+        phases.mark(kWait);
+        phases.tile();
 
-      // p^T = exp2(s * scale * log2 e - lse * log2 e). On a tile that needs
-      // the mask, a hidden score becomes -inf and gives p = 0 exactly; rows
-      // past Sq are masked too, so their p is 0 whatever lse stands there.
-      const bool mask = (causal && q_base + q0 < k_base + kc0 + 63) ||
-                        kc0 + 64 > kv_len || q0 + kStream > sq;
-      if (mask) {
-        // Kept a branch: without the asm the compiler turns the masking
-        // into selects that run on every tile.
-        asm volatile("");
+        // S^T = K Q^T and dP^T = V dO^T, committed as two groups.
+        sm90::fence_regs(s);
+        if constexpr (kDk) sm90::fence_regs(dp);
+        sm90::wgmma_fence();
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int kk = 0; kk < D / 16; ++kk) {
+          sm90::WgmmaSS<kStream, 0>::mma(
+              s, sm90::desc_advance(k_desc, T::kstep(kk, T::kResAtomBytes)),
+              sm90::desc_advance(q_desc,
+                                 st_off + T::kstep(kk, L::kStrAtomBytes)),
+              kk > 0);
+        }
+        sm90::wgmma_commit();
+        if constexpr (kDk) {
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int row = q0 + 8 * j + 2 * t + (i & 1);
-            const int key = key0 + 8 * (i >> 1);
-            if ((causal && q_base + row < k_base + key) || key >= kv_len ||
-                row >= sq) {
-              s[4 * j + i] = -INFINITY;
+          for (int kk = 0; kk < D / 16; ++kk) {
+            sm90::WgmmaSS<kStream, 0>::mma(
+                dp,
+                sm90::desc_advance(v_desc, T::kstep(kk, T::kResAtomBytes)),
+                sm90::desc_advance(do_desc,
+                                   st_off + T::kstep(kk, L::kStrAtomBytes)),
+                kk > 0);
+          }
+          sm90::wgmma_commit();
+        }
+        sm90::wgmma_wait<kDk ? 1 : 0>();
+        sm90::fence_regs(s);
+        phases.mark(kScores);
+
+        // p^T = exp2(s * scale * log2 e - lse * log2 e). On a tile that
+        // needs the mask, a hidden score becomes -inf and gives p = 0
+        // exactly; rows past Sq are masked too, so their p is 0 whatever
+        // lse stands there.
+        const bool mask = (causal && q_base + q0 < k_base + kc0 + 63) ||
+                          kc0 + 64 > kv_len || q0 + kStream > sq;
+        if (mask) {
+          // Kept a branch: without the asm the compiler turns the masking
+          // into selects that run on every tile.
+          asm volatile("");
+#pragma unroll
+          for (int j = 0; j < kStream / 8; ++j) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int row = q0 + 8 * j + 2 * t + (i & 1);
+              const int key = key0 + 8 * (i >> 1);
+              if ((causal && q_base + row < k_base + key) || key >= kv_len ||
+                  row >= sq) {
+                s[4 * j + i] = -INFINITY;
+              }
             }
           }
         }
+#pragma unroll
+        for (int j = 0; j < kStream / 8; ++j) {
+          const float2 l2 = *reinterpret_cast<const float2*>(neg_lse_s +
+                                                             8 * j + 2 * t);
+          const float neg[2] = {l2.x, l2.y};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            s[4 * j + i] = exp2_approx(fmaf(s[4 * j + i], scale_log2,
+                                            neg[i & 1]));
+          }
+        }
+        if constexpr (kDv) {
+          uint32_t pa[kStream / 4];
+          pack_a(pa, s);
+          phases.mark(kPds);
+
+          // dV += P^T dO, issued here to run while dS^T is formed.
+          sm90::fence_regs(acc_dv);
+          sm90::wgmma_fence();
+          mma_rs<D, kStream>(acc_dv, pa, sm90::desc_advance(do_mn, st_off));
+          sm90::wgmma_commit();
+          phases.mark(kGrads);
+        }
+        if constexpr (kDk) {
+          sm90::wgmma_wait<kDv ? 1 : 0>();
+          sm90::fence_regs(dp);
+          phases.mark(kScores);
+
+          // dS^T = P^T (dP^T - delta) * scale, rounded to bf16.
+#pragma unroll
+          for (int j = 0; j < kStream / 8; ++j) {
+            const float2 d2 = *reinterpret_cast<const float2*>(delta_s +
+                                                               8 * j + 2 * t);
+            const float del[2] = {d2.x, d2.y};
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              s[4 * j + i] = s[4 * j + i] * (dp[4 * j + i] - del[i & 1]) *
+                             sm_scale;
+            }
+          }
+          uint32_t dsa[kStream / 4];
+          pack_a(dsa, s);
+          phases.mark(kPds);
+
+          // dK += dS^T Q.
+          sm90::fence_regs(acc_dk);
+          sm90::wgmma_fence();
+          mma_rs<D, kStream>(acc_dk, dsa, sm90::desc_advance(q_mn, st_off));
+          sm90::wgmma_commit();
+        }
+        // Then the stage goes back to the producer.
+        sm90::wgmma_wait<0>();
+        if constexpr (kDk) sm90::fence_regs(acc_dk);
+        if constexpr (kDv) sm90::fence_regs(acc_dv);
+        __syncwarp();
+        if (lane == 0) sm90::mbar_arrive(empty + st);
+        phases.mark(kGrads);
       }
+    };
+
+    // Keys at or past kv_len get zeros; no row past Sk is written, nor a
+    // column past d.
+    auto store = [&](uint16_t* grad, const float (&acc)[D / 2]) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float2 l2 = *reinterpret_cast<const float2*>(neg_lse_s +
-                                                           8 * j + 2 * t);
-        const float neg[2] = {l2.x, l2.y};
+      for (int r = 0; r < 2; ++r) {
+        const int key = key0 + 8 * r;
+        if (key >= sk) continue;
+        const float keep = key < kv_len ? 1.f : 0.f;
+        uint16_t* row = grad + ((size_t)bkv * sk + key) * d + 2 * t;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          s[4 * j + i] = exp2_approx(fmaf(s[4 * j + i], scale_log2,
-                                          neg[i & 1]));
+        for (int j = 0; j < D / 8; ++j) {
+          if (8 * j >= d) break;  // d % 8 == 0: a chunk is wholly in or out
+          *reinterpret_cast<uint32_t*>(row + 8 * j) = pack_bf16(
+              acc[4 * j + 2 * r] * keep, acc[4 * j + 2 * r + 1] * keep);
         }
       }
-      uint32_t pa[16];
-      pack_a(pa, s);
-      phases.mark(kPds);
+    };
 
-      // dV += P^T dO, issued here to run while dS^T is formed.
-      sm90::fence_regs(acc_dv);
-      sm90::wgmma_fence();
-      mma_rs<D, kStream>(acc_dv, pa, sm90::desc_advance(do_mn, st_off));
-      sm90::wgmma_commit();
-      phases.mark(kGrads);
-      sm90::wgmma_wait<1>();
-      sm90::fence_regs(dp);
-      phases.mark(kScores);
-
-      // dS^T = P^T (dP^T - delta) * scale, rounded to bf16.
+    if constexpr (L::kPasses == 1) {
+      float acc_dk[D / 2], acc_dv[D / 2];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float2 d2 = *reinterpret_cast<const float2*>(delta_s + 8 * j +
-                                                           2 * t);
-        const float del[2] = {d2.x, d2.y};
+      for (int i = 0; i < D / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+      walk(Grads<true, true>{}, acc_dv, acc_dk, 0);
+      store(dk, acc_dk);
+      store(dv, acc_dv);
+    } else {
+      float acc[D / 2];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          s[4 * j + i] = s[4 * j + i] * (dp[4 * j + i] - del[i & 1]) *
-                         sm_scale;
-        }
-      }
-      uint32_t dsa[16];
-      pack_a(dsa, s);
-      phases.mark(kPds);
-
-      // dK += dS^T Q; then the stage goes back to the producer.
-      sm90::fence_regs(acc_dk);
-      sm90::wgmma_fence();
-      mma_rs<D, kStream>(acc_dk, dsa, sm90::desc_advance(q_mn, st_off));
-      sm90::wgmma_commit();
-      sm90::wgmma_wait<0>();
-      sm90::fence_regs(acc_dk);
-      sm90::fence_regs(acc_dv);
-      __syncwarp();
-      if (lane == 0) sm90::mbar_arrive(empty + st);
-      phases.mark(kGrads);
-    }
-
-    // Keys at or past kv_len get zeros; no row past Sk is written.
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      walk(Grads<true, false>{}, acc, acc, 0);
+      store(dv, acc);
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int key = key0 + 8 * r;
-      if (key >= sk) continue;
-      const float keep = key < kv_len ? 1.f : 0.f;
-      const size_t off = ((size_t)bkv * sk + key) * D + 2 * t;
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        *reinterpret_cast<uint32_t*>(dk + off + 8 * j) =
-            pack_bf16(acc_dk[4 * j + 2 * r] * keep,
-                      acc_dk[4 * j + 2 * r + 1] * keep);
-        *reinterpret_cast<uint32_t*>(dv + off + 8 * j) =
-            pack_bf16(acc_dv[4 * j + 2 * r] * keep,
-                      acc_dv[4 * j + 2 * r + 1] * keep);
-      }
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      walk(Grads<false, true>{}, acc, acc, n_items);
+      store(dk, acc);
     }
     phases.mark(kEpilogue);
     phases.flush(1, lane);
@@ -523,7 +581,9 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 // the most causal work launch first. Consumer c owns rows [64c, 64c + 64);
 // warp w and lane (g, t) hold rows 16w + g and 16w + g + 8 of its 64, and
 // columns 8j + 2t, 8j + 2t + 1 of every chunk j (keys of the K/V tile for
-// S and dP; head-dim columns for dQ).
+// S and dP; head-dim columns for dQ). `d` as in the dk/dv kernel; it is
+// the last parameter because before `causal` it made the D 128 kernel 11 %
+// slower on the card, the same source otherwise (PERF.md).
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -534,9 +594,10 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const float* __restrict__ delta,
                          uint16_t* __restrict__ dq, int hq, int hkv, int sq,
                          int causal, float sm_scale, float scale_log2,
-                         int q_base, int k_base, int kv_len) {
+                         int q_base, int k_base, int kv_len, int d) {
   using T = Tiles<D>;
   using L = DqLayout<D>;
+  constexpr int kKeys = L::kKeys;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
   uint64_t* bar_q = reinterpret_cast<uint64_t*>(smem + L::kBars);
@@ -552,7 +613,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int q_last = q_base + min(q0 + kResident, sq) - 1;
   int n_cols = kv_len;
   if (causal) n_cols = max(0, min(kv_len, q_last - k_base + 1));
-  const int n_tiles = (n_cols + kDqKeys - 1) / kDqKeys;
+  const int n_tiles = (n_cols + kKeys - 1) / kKeys;
 
   if (threadIdx.x == 0) {
     sm90::mbar_init(bar_q, 1);
@@ -577,13 +638,13 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int kt = 0; kt < n_tiles; ++kt) {
         const int st = kt % kStages;
         sm90::mbar_wait(empty + st, ((kt / kStages) & 1) ^ 1);
-        sm90::mbar_arrive_expect_tx(full + st, 2 * T::kKeyBytes);
+        sm90::mbar_arrive_expect_tx(full + st, 2 * L::kKeyBytes);
         for (int a = 0; a < T::kAtoms; ++a) {
-          const int off = st * T::kKeyBytes + a * T::kKeyAtomBytes;
+          const int off = st * L::kKeyBytes + a * L::kKeyAtomBytes;
           sm90::tma_load_3d(smem + L::kK + off, &tm_k, full + st,
-                            a * T::kAtomCols, kt * kDqKeys, kv_head);
+                            a * T::kAtomCols, kt * kKeys, kv_head);
           sm90::tma_load_3d(smem + L::kV + off, &tm_v, full + st,
-                            a * T::kAtomCols, kt * kDqKeys, kv_head);
+                            a * T::kAtomCols, kt * kKeys, kv_head);
         }
       }
     }
@@ -600,7 +661,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     const uint64_t do_desc = T::kmajor(smem + L::kDO + 64 * c * T::kRowBytes);
     const uint64_t k_desc = T::kmajor(smem + L::kK);
     const uint64_t v_desc = T::kmajor(smem + L::kV);
-    const uint64_t k_mn = T::mnmajor(smem + L::kK, T::kKeyAtomBytes);
+    const uint64_t k_mn = T::mnmajor(smem + L::kK, L::kKeyAtomBytes);
 
     // Rows past Sq see zero q and dO: their ds is 0 and they are not
     // written, so their lse and delta only need to be finite.
@@ -612,19 +673,19 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       row_delta[r] = row < sq ? delta[(size_t)bh * sq + row] : 0.f;
     }
 
-    float acc[D / 2], s[kDqKeys / 2], dp[kDqKeys / 2];
+    float acc[D / 2], s[kKeys / 2], dp[kKeys / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < kDqKeys / 2; ++i) s[i] = dp[i] = 0.f;
+    for (int i = 0; i < kKeys / 2; ++i) s[i] = dp[i] = 0.f;
 
     PhaseClock phases;
     if (n_tiles > 0) sm90::mbar_wait(bar_q, 0);
     phases.mark(kWait);
     for (int kt = 0; kt < n_tiles; ++kt) {
       const int st = kt % kStages;
-      const int k0 = kt * kDqKeys;
-      const uint32_t st_off = st * T::kKeyBytes;
+      const int k0 = kt * kKeys;
+      const uint32_t st_off = st * L::kKeyBytes;
       sm90::mbar_wait(full + st, (kt / kStages) & 1);
       phases.mark(kWait);
       phases.tile();
@@ -635,19 +696,19 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        sm90::WgmmaSS<kDqKeys, 0>::mma(
+        sm90::WgmmaSS<kKeys, 0>::mma(
             s, sm90::desc_advance(q_desc, T::kstep(kk, T::kResAtomBytes)),
             sm90::desc_advance(k_desc,
-                               st_off + T::kstep(kk, T::kKeyAtomBytes)),
+                               st_off + T::kstep(kk, L::kKeyAtomBytes)),
             kk > 0);
       }
       sm90::wgmma_commit();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        sm90::WgmmaSS<kDqKeys, 0>::mma(
+        sm90::WgmmaSS<kKeys, 0>::mma(
             dp, sm90::desc_advance(do_desc, T::kstep(kk, T::kResAtomBytes)),
             sm90::desc_advance(v_desc,
-                               st_off + T::kstep(kk, T::kKeyAtomBytes)),
+                               st_off + T::kstep(kk, L::kKeyAtomBytes)),
             kk > 0);
       }
       sm90::wgmma_commit();
@@ -655,12 +716,12 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       sm90::fence_regs(s);
       phases.mark(kScores);
 
-      const bool mask = (causal && k_base + k0 + kDqKeys - 1 > first_qpos) ||
-                        k0 + kDqKeys > kv_len;
+      const bool mask = (causal && k_base + k0 + kKeys - 1 > first_qpos) ||
+                        k0 + kKeys > kv_len;
       if (mask) {
         asm volatile("");  // kept a branch, as in the dk/dv kernel
 #pragma unroll
-        for (int j = 0; j < kDqKeys / 8; ++j) {
+        for (int j = 0; j < kKeys / 8; ++j) {
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const int col = k0 + 8 * j + 2 * t + (i & 1);
@@ -672,7 +733,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
       }
 #pragma unroll
-      for (int i = 0; i < kDqKeys / 2; ++i) {
+      for (int i = 0; i < kKeys / 2; ++i) {
         s[i] = exp2_approx(fmaf(s[i], scale_log2, neg_lse[(i >> 1) & 1]));
       }
       phases.mark(kPds);
@@ -680,17 +741,17 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       sm90::fence_regs(dp);
       phases.mark(kScores);
 #pragma unroll
-      for (int i = 0; i < kDqKeys / 2; ++i) {
+      for (int i = 0; i < kKeys / 2; ++i) {
         s[i] = s[i] * (dp[i] - row_delta[(i >> 1) & 1]) * sm_scale;
       }
-      uint32_t dsa[kDqKeys / 4];
+      uint32_t dsa[kKeys / 4];
       pack_a(dsa, s);
       phases.mark(kPds);
 
       // dQ += dS K, K read MN-major; then the stage goes back.
       sm90::fence_regs(acc);
       sm90::wgmma_fence();
-      mma_rs<D, kDqKeys>(acc, dsa, sm90::desc_advance(k_mn, st_off));
+      mma_rs<D, kKeys>(acc, dsa, sm90::desc_advance(k_mn, st_off));
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_regs(acc);
@@ -703,9 +764,10 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + 8 * r;
       if (row >= sq) continue;
-      uint16_t* orow = dq + ((size_t)bh * sq + row) * D + 2 * t;
+      uint16_t* orow = dq + ((size_t)bh * sq + row) * d + 2 * t;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
+        if (8 * j >= d) break;  // d % 8 == 0: a chunk is wholly in or out
         *reinterpret_cast<uint32_t*>(orow + 8 * j) =
             pack_bf16(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
       }
@@ -723,8 +785,23 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// f32 dq: one warp per query row, lane holds D / 32 columns; the row's
-// visible keys are [0, n_cols), walked one at a time.
+// Column lane + 32 i of a row of d values; 0 past d.
+__device__ __forceinline__ float col(const float* row, int lane, int i,
+                                     int d) {
+  const int c = lane + 32 * i;
+  return c < d ? row[c] : 0.f;
+}
+
+// Stores x as column lane + 32 i of a row of d values, if it is one.
+__device__ __forceinline__ void put(float* row, int lane, int i, int d,
+                                    float x) {
+  const int c = lane + 32 * i;
+  if (c < d) row[c] = x;
+}
+
+// f32 dq: one warp per query row (a block's rows along blockIdx.x, the
+// batch * q head folded_row()), lane holds D / 32 columns of the d; the
+// row's visible keys are [0, n_cols), walked one at a time.
 template <int D>
 __global__ void __launch_bounds__(kRowsPerBlock * 32)
 flash_bwd_dq_f32_kernel(const float* __restrict__ q,
@@ -733,23 +810,23 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
                         const float* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
-                        float* __restrict__ dq, int hq, int hkv, int sq,
-                        int sk, int causal, float sm_scale, int q_base,
-                        int k_base, int kv_len) {
+                        float* __restrict__ dq, int n_bh, int hq, int hkv,
+                        int sq, int sk, int d, int causal, float sm_scale,
+                        int q_base, int k_base, int kv_len) {
   constexpr int kPer = D / 32;
   const int lane = threadIdx.x % 32;
   const int row = blockIdx.x * kRowsPerBlock + threadIdx.x / 32;
-  if (row >= sq) return;
-  const int bh = blockIdx.y;
+  const int bh = host::folded_row();
+  if (row >= sq || bh >= n_bh) return;
   const int b = bh / hq, kvh = (bh % hq) / (hq / hkv);
-  const float* kg = k + ((size_t)b * hkv + kvh) * sk * D;
-  const float* vg = v + ((size_t)b * hkv + kvh) * sk * D;
-  const size_t off = ((size_t)bh * sq + row) * D;
+  const float* kg = k + ((size_t)b * hkv + kvh) * sk * d;
+  const float* vg = v + ((size_t)b * hkv + kvh) * sk * d;
+  const size_t off = ((size_t)bh * sq + row) * d;
   float qv[kPer], dov[kPer], acc[kPer];
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
-    qv[i] = q[off + lane + 32 * i];
-    dov[i] = dout[off + lane + 32 * i];
+    qv[i] = col(q + off, lane, i, d);
+    dov[i] = col(dout + off, lane, i, d);
     acc[i] = 0.f;
   }
   const float row_lse = lse[(size_t)bh * sq + row];
@@ -760,22 +837,25 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
     float s = 0.f, dp = 0.f;
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
-      s += qv[i] * kg[(size_t)j * D + lane + 32 * i];
-      dp += dov[i] * vg[(size_t)j * D + lane + 32 * i];
+      s += qv[i] * col(kg + (size_t)j * d, lane, i, d);
+      dp += dov[i] * col(vg + (size_t)j * d, lane, i, d);
     }
     s = warp_sum(s);
     dp = warp_sum(dp);
     const float p = expf(s * sm_scale - row_lse);
     const float ds = p * (dp - row_delta) * sm_scale;
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) acc[i] += ds * kg[(size_t)j * D + lane + 32 * i];
+    for (int i = 0; i < kPer; ++i) {
+      acc[i] += ds * col(kg + (size_t)j * d, lane, i, d);
+    }
   }
 #pragma unroll
-  for (int i = 0; i < kPer; ++i) dq[off + lane + 32 * i] = acc[i];
+  for (int i = 0; i < kPer; ++i) put(dq + off, lane, i, d, acc[i]);
 }
 
-// f32 dk/dv: one warp per key row of one KV head; walks the group's q heads
-// and, in each, the query rows that see the key.
+// f32 dk/dv: one warp per key row of one KV head (batch * KV head the
+// folded_row()); walks the group's q heads and, in each, the query rows
+// that see the key.
 template <int D>
 __global__ void __launch_bounds__(kRowsPerBlock * 32)
 flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
@@ -785,33 +865,34 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
                          float* __restrict__ dk, float* __restrict__ dv,
-                         int hq, int hkv, int sq, int sk, int causal,
-                         float sm_scale, int q_base, int k_base, int kv_len) {
+                         int n_bkv, int hq, int hkv, int sq, int sk, int d,
+                         int causal, float sm_scale, int q_base, int k_base,
+                         int kv_len) {
   constexpr int kPer = D / 32;
   const int lane = threadIdx.x % 32;
   const int key = blockIdx.x * kRowsPerBlock + threadIdx.x / 32;
-  if (key >= sk) return;
-  const int bkv = blockIdx.y;
+  const int bkv = host::folded_row();
+  if (key >= sk || bkv >= n_bkv) return;
   const int b = bkv / hkv, kvh = bkv % hkv, group = hq / hkv;
-  const size_t off = ((size_t)bkv * sk + key) * D;
+  const size_t off = ((size_t)bkv * sk + key) * d;
   float kv_[kPer], vv[kPer], adk[kPer], adv[kPer];
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
-    kv_[i] = k[off + lane + 32 * i];
-    vv[i] = v[off + lane + 32 * i];
+    kv_[i] = col(k + off, lane, i, d);
+    vv[i] = col(v + off, lane, i, d);
     adk[i] = adv[i] = 0.f;
   }
   const int first = causal ? max(0, k_base + key - q_base) : 0;
   for (int hg = 0; key < kv_len && hg < group; ++hg) {
     const size_t bh = (size_t)b * hq + (size_t)kvh * group + hg;
     for (int row = first; row < sq; ++row) {
-      const float* qr = q + (bh * sq + row) * D;
-      const float* dr = dout + (bh * sq + row) * D;
+      const float* qr = q + (bh * sq + row) * d;
+      const float* dr = dout + (bh * sq + row) * d;
       float s = 0.f, dp = 0.f;
 #pragma unroll
       for (int i = 0; i < kPer; ++i) {
-        s += kv_[i] * qr[lane + 32 * i];
-        dp += vv[i] * dr[lane + 32 * i];
+        s += kv_[i] * col(qr, lane, i, d);
+        dp += vv[i] * col(dr, lane, i, d);
       }
       s = warp_sum(s);
       dp = warp_sum(dp);
@@ -819,15 +900,15 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
       const float ds = p * (dp - delta[bh * sq + row]) * sm_scale;
 #pragma unroll
       for (int i = 0; i < kPer; ++i) {
-        adv[i] += p * dr[lane + 32 * i];
-        adk[i] += ds * qr[lane + 32 * i];
+        adv[i] += p * col(dr, lane, i, d);
+        adk[i] += ds * col(qr, lane, i, d);
       }
     }
   }
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
-    dk[off + lane + 32 * i] = adk[i];
-    dv[off + lane + 32 * i] = adv[i];
+    put(dk + off, lane, i, d, adk[i]);
+    put(dv + off, lane, i, d, adv[i]);
   }
 }
 
@@ -835,7 +916,7 @@ template <int D>
 cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v,
                            const void* dout, const float* lse,
                            const float* delta, void* dq, int batch, int hq,
-                           int hkv, int sq, int sk, int causal,
+                           int hkv, int sq, int sk, int d, int causal,
                            float sm_scale, int q_base, int k_base,
                            int kv_len, cudaStream_t stream) {
   using L = DqLayout<D>;
@@ -848,18 +929,21 @@ cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v,
   // K/V maps so that they still describe real memory.
   if (sk == 0) k = v = q;
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
-  if (!host::encode_bf16_rows(&tm_q, q, D, sq, batch * hq, kResident) ||
-      !host::encode_bf16_rows(&tm_do, dout, D, sq, batch * hq, kResident) ||
-      !host::encode_bf16_rows(&tm_k, k, D, sk > 0 ? sk : 1, batch * hkv,
-                              kDqKeys) ||
-      !host::encode_bf16_rows(&tm_v, v, D, sk > 0 ? sk : 1, batch * hkv,
-                              kDqKeys)) {
+  if (!host::encode_bf16_rows(&tm_q, q, d, sq, batch * hq, kResident, D) ||
+      !host::encode_bf16_rows(&tm_do, dout, d, sq, batch * hq, kResident,
+                              D) ||
+      !host::encode_bf16_rows(&tm_k, k, d, sk > 0 ? sk : 1, batch * hkv,
+                              L::kKeys, D) ||
+      !host::encode_bf16_rows(&tm_v, v, d, sk > 0 ? sk : 1, batch * hkv,
+                              L::kKeys, D)) {
     return cudaErrorInvalidValue;
   }
+  // batch * hq along x (up to 2^31 - 1 blocks): no fold is needed.
   const dim3 grid(batch * hq, (sq + kResident - 1) / kResident);
   flash_bwd_dq_sm90_kernel<D><<<grid, kThreads, L::kBytes, stream>>>(
       tm_q, tm_k, tm_v, tm_do, lse, delta, static_cast<uint16_t*>(dq), hq,
-      hkv, sq, causal, sm_scale, sm_scale * kLog2e, q_base, k_base, kv_len);
+      hkv, sq, causal, sm_scale, sm_scale * kLog2e, q_base, k_base, kv_len,
+      d);
   return cudaSuccess;
 }
 
@@ -867,7 +951,7 @@ template <int D>
 cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v,
                             const void* dout, const float* lse,
                             const float* delta, void* dk, void* dv,
-                            int batch, int hq, int hkv, int sq, int sk,
+                            int batch, int hq, int hkv, int sq, int sk, int d,
                             int causal, float sm_scale, int q_base,
                             int k_base, int kv_len, cudaStream_t stream) {
   using L = DkvLayout<D>;
@@ -880,18 +964,18 @@ cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v,
   // maps are never read; k only gives them a valid address.
   if (sq == 0) q = dout = k;
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
-  if (!host::encode_bf16_rows(&tm_q, q, D, sq > 0 ? sq : 1, batch * hq,
-                              kStream) ||
-      !host::encode_bf16_rows(&tm_do, dout, D, sq > 0 ? sq : 1, batch * hq,
-                              kStream) ||
-      !host::encode_bf16_rows(&tm_k, k, D, sk, batch * hkv, kResident) ||
-      !host::encode_bf16_rows(&tm_v, v, D, sk, batch * hkv, kResident)) {
+  if (!host::encode_bf16_rows(&tm_q, q, d, sq > 0 ? sq : 1, batch * hq,
+                              L::kStream, D) ||
+      !host::encode_bf16_rows(&tm_do, dout, d, sq > 0 ? sq : 1, batch * hq,
+                              L::kStream, D) ||
+      !host::encode_bf16_rows(&tm_k, k, d, sk, batch * hkv, kResident, D) ||
+      !host::encode_bf16_rows(&tm_v, v, d, sk, batch * hkv, kResident, D)) {
     return cudaErrorInvalidValue;
   }
   const dim3 grid(batch * hkv, (sk + kResident - 1) / kResident);
   flash_bwd_dkv_sm90_kernel<D><<<grid, kThreads, L::kBytes, stream>>>(
       tm_q, tm_k, tm_v, tm_do, lse, delta, static_cast<uint16_t*>(dk),
-      static_cast<uint16_t*>(dv), hq, hkv, sq, sk, causal, sm_scale,
+      static_cast<uint16_t*>(dv), hq, hkv, sq, sk, d, causal, sm_scale,
       sm_scale * kLog2e, q_base, k_base, kv_len);
   return cudaSuccess;
 }
@@ -899,21 +983,22 @@ cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v,
 template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, void* dq, int dtype,
-              int batch, int hq, int hkv, int sq, int sk, int causal,
+              int batch, int hq, int hkv, int sq, int sk, int d, int causal,
               float sm_scale, int q_base, int k_base, int kv_len,
               cudaStream_t stream) {
   if (dtype == 0) {
     const cudaError_t err = launch_dq_bf16<D>(
-        q, k, v, dout, lse, delta, dq, batch, hq, hkv, sq, sk, causal,
+        q, k, v, dout, lse, delta, dq, batch, hq, hkv, sq, sk, d, causal,
         sm_scale, q_base, k_base, kv_len, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   } else {
-    const dim3 grid((sq + kRowsPerBlock - 1) / kRowsPerBlock, batch * hq);
+    const dim3 grid = host::fold_rows(
+        (sq + kRowsPerBlock - 1) / kRowsPerBlock, batch * hq);
     flash_bwd_dq_f32_kernel<D><<<grid, kRowsPerBlock * 32, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-        delta, static_cast<float*>(dq), hq, hkv, sq, sk, causal, sm_scale,
-        q_base, k_base, kv_len);
+        delta, static_cast<float*>(dq), batch * hq, hq, hkv, sq, sk, d,
+        causal, sm_scale, q_base, k_base, kv_len);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -921,36 +1006,44 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, void* dk, void* dv,
-               int dtype, int batch, int hq, int hkv, int sq, int sk,
+               int dtype, int batch, int hq, int hkv, int sq, int sk, int d,
                int causal, float sm_scale, int q_base, int k_base,
                int kv_len, cudaStream_t stream) {
   if (dtype == 0) {
     const cudaError_t err = launch_dkv_bf16<D>(
-        q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv, sq, sk, causal,
+        q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv, sq, sk, d, causal,
         sm_scale, q_base, k_base, kv_len, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   } else {
-    const dim3 grid((sk + kRowsPerBlock - 1) / kRowsPerBlock, batch * hkv);
+    const dim3 grid = host::fold_rows(
+        (sk + kRowsPerBlock - 1) / kRowsPerBlock, batch * hkv);
     flash_bwd_dkv_f32_kernel<D><<<grid, kRowsPerBlock * 32, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-        delta, static_cast<float*>(dk), static_cast<float*>(dv), hq, hkv,
-        sq, sk, causal, sm_scale, q_base, k_base, kv_len);
+        delta, static_cast<float*>(dk), static_cast<float*>(dv),
+        batch * hkv, hq, hkv, sq, sk, d, causal, sm_scale, q_base, k_base,
+        kv_len);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-bool bad_args(int dtype, int hq, int hkv) {
-  return (dtype != 0 && dtype != 1) || hkv <= 0 || hq % hkv;
+// The arguments no kernel takes: an unknown dtype, a q-head count that is
+// not a multiple of the KV heads, a head dim that is not a multiple of 8 in
+// [8, 256].
+bool bad_args(int dtype, int hq, int hkv, int d) {
+  return (dtype != 0 && dtype != 1) || hkv <= 0 || hq % hkv || d <= 0 ||
+         d > 256 || d % 8;
 }
 
 }  // namespace
 
 // dtype: 0 = bf16 (the Hopper kernels), 1 = f32 (check kernels). Tensors
 // are contiguous and 16-byte aligned (the Python wrapper checks); lse and
-// delta are f32. Each call launches one kernel on `stream`, allocates
-// nothing, and returns the first error of the set-up or cudaGetLastError()
-// after the launch (0 on success).
+// delta are f32. The head dim d (a multiple of 8 up to 256) runs the
+// kernels built for the next of 32, 64, 128 and 256, as in flash_fwd.cu.
+// Each call launches one kernel on `stream`, allocates nothing, and returns
+// the first error of the set-up or cudaGetLastError() after the launch (0
+// on success).
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const float* lse, const float* delta,
@@ -958,22 +1051,15 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
                                    int hkv, int sq, int sk, int d, int causal,
                                    float sm_scale, int q_base, int k_base,
                                    int kv_len, void* stream) {
-  if (bad_args(dtype, hq, hkv)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_args(dtype, hq, hkv, d)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d == 32) {
-    return launch_dq<32>(q, k, v, dout, lse, delta, dq, dtype, batch, hq, hkv,
-                         sq, sk, causal, sm_scale, q_base, k_base, kv_len, st);
-  }
-  if (d == 64) {
-    return launch_dq<64>(q, k, v, dout, lse, delta, dq, dtype, batch, hq, hkv,
-                         sq, sk, causal, sm_scale, q_base, k_base, kv_len, st);
-  }
-  if (d == 128) {
-    return launch_dq<128>(q, k, v, dout, lse, delta, dq, dtype, batch, hq,
-                          hkv, sq, sk, causal, sm_scale, q_base, k_base,
-                          kv_len, st);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return host::with_width(d, [&](auto width) {
+    return launch_dq<decltype(width)::value>(
+        q, k, v, dout, lse, delta, dq, dtype, batch, hq, hkv, sq, sk, d,
+        causal, sm_scale, q_base, k_base, kv_len, st);
+  });
 }
 
 extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
@@ -983,24 +1069,15 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
                                     int hq, int hkv, int sq, int sk, int d,
                                     int causal, float sm_scale, int q_base,
                                     int k_base, int kv_len, void* stream) {
-  if (bad_args(dtype, hq, hkv)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_args(dtype, hq, hkv, d)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d == 32) {
-    return launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, dtype, batch, hq,
-                          hkv, sq, sk, causal, sm_scale, q_base, k_base,
-                          kv_len, st);
-  }
-  if (d == 64) {
-    return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, dtype, batch, hq,
-                          hkv, sq, sk, causal, sm_scale, q_base, k_base,
-                          kv_len, st);
-  }
-  if (d == 128) {
-    return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, dtype, batch,
-                           hq, hkv, sq, sk, causal, sm_scale, q_base, k_base,
-                           kv_len, st);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return host::with_width(d, [&](auto width) {
+    return launch_dkv<decltype(width)::value>(
+        q, k, v, dout, lse, delta, dk, dv, dtype, batch, hq, hkv, sq, sk, d,
+        causal, sm_scale, q_base, k_base, kv_len, st);
+  });
 }
 
 extern "C" const char* flash_bwd_error_string(int err) {

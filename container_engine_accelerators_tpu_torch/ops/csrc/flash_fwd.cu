@@ -33,13 +33,21 @@
 // of 512 is bound by HBM, and from about S = 740 on (the 1024..8192 buckets)
 // the kernel is bound by the tensor cores' bf16 rate.
 //
-// What the design does about it (bf16, head dims 32, 64 and 128):
+// Head dims. The kernel is built for D = 32, 64, 128 and 256; a head dim d
+// in between (a multiple of 8: 80 and 96 run the D 128 kernel, 136..248 the
+// D 256 one) runs the next D up with d passed at run time. Its TMA maps
+// describe the tensors at their true d, read columns past d as zeros, and
+// the epilogue stores d columns: the padding costs D / d in operations
+// (1.33x at 96, 1.6x at 80) and nothing in bytes. At D 256 the K/V tiles
+// are 64 keys (Layout).
+//
+// What the design does about it (bf16):
 // - Only wgmma reaches Hopper's tensor-core rate, so both products are
-//   wgmma: S = Q K^T as m64n128k16 with Q and K read from shared memory
-//   through descriptors, O += P V as m64nDk16 with P in registers (the f32
-//   accumulator layout of S is the register layout of the A operand, so P
-//   needs no shuffle) and V read MN-major (the descriptor's transpose bit;
-//   V stays D-contiguous as it lies in memory).
+//   wgmma: S = Q K^T as m64n128k16 (m64n64k16 at D 256) with Q and K read
+//   from shared memory through descriptors, O += P V as m64nDk16 with P in
+//   registers (the f32 accumulator layout of S is the register layout of
+//   the A operand, so P needs no shuffle) and V read MN-major (the
+//   descriptor's transpose bit; V stays D-contiguous as it lies in memory).
 // - Loads overlap the math: a producer warpgroup, one thread of which
 //   issues TMA tile loads, keeps a 2-stage ring of 128-key K and V tiles
 //   full, signalled through mbarriers (full: expect-tx bytes; empty: the
@@ -87,7 +95,6 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 constexpr int kBlockQ = 128;  // query rows per block: two consumers x 64
-constexpr int kBlockK = 128;  // keys per K/V tile
 constexpr int kStages = 2;    // K/V ring depth
 constexpr int kThreads = 384;  // producer warpgroup + two consumers
 constexpr int kConsumerWarps = 8;
@@ -95,22 +102,29 @@ constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 
 // Shared-memory layout of one block for head dim D. Every tile (the q
-// tile, and each stage's K and V tile) is 128 rows of D bf16 values in
-// TMA's swizzled layout: D / kAtomCols atoms side by side, each 128 rows of
-// kRowBytes (128-byte swizzle; 64-byte at D 32, whose rows are 64 bytes).
+// tile of kBlockQ rows, and each stage's K and V tile of kBlockK keys) is
+// D bf16 values a row in TMA's swizzled layout: D / kAtomCols atoms side by
+// side, each of kRowBytes a row (128-byte swizzle; 64-byte at D 32, whose
+// rows are 64 bytes). K/V tiles are 128 keys, and 64 at D 256: there Q (64
+// KB) and a 2-stage ring of 128-key tiles (256 KB) would pass the 227 KB a
+// block may have, and S at 64 keys (32 f32 registers) leaves room for the
+// 128 of O.
 template <int D>
 struct Layout {
+  static constexpr int kBlockK = D > 128 ? 64 : 128;
   static constexpr int kRowBytes = D * 2 < 128 ? D * 2 : 128;
   static constexpr int kAtomCols = kRowBytes / 2;
   static constexpr int kAtoms = D / kAtomCols;
-  static constexpr int kAtomBytes = 128 * kRowBytes;
-  static constexpr int kTileBytes = 128 * D * 2;
+  static constexpr int kQAtomBytes = kBlockQ * kRowBytes;
+  static constexpr int kKVAtomBytes = kBlockK * kRowBytes;
+  static constexpr int kQBytes = kBlockQ * D * 2;
+  static constexpr int kKVBytes = kBlockK * D * 2;
   static constexpr int kSwizzle =
       kRowBytes == 128 ? sm90::kSwizzle128B : sm90::kSwizzle64B;
   static constexpr int kQ = 0;
-  static constexpr int kK = kTileBytes;                   // + stage * tile
-  static constexpr int kV = kK + kStages * kTileBytes;    // + stage * tile
-  static constexpr int kBars = kV + kStages * kTileBytes;
+  static constexpr int kK = kQBytes;                      // + stage * tile
+  static constexpr int kV = kK + kStages * kKVBytes;      // + stage * tile
+  static constexpr int kBars = kV + kStages * kKVBytes;
   static constexpr int kNumBars = 1 + 3 * kStages;        // q, full k/v, empty
   // Barriers, and slack to align the dynamic base to 1024 bytes.
   static constexpr int kBytes = kBars + 8 * kNumBars + 1024;
@@ -157,20 +171,27 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-// One block = one (batch * q head, 128-row q tile). Warpgroup 0 loads;
-// warpgroups 1 and 2 each own 64 query rows. In a consumer, warp w and
-// lane (g = lane / 4, t = lane % 4) hold rows 16w + g and 16w + g + 8 of
-// their 64, and columns 8j + 2t, 8j + 2t + 1 of every 8-column chunk j.
+// One block = one (batch * q head, 128-row q tile): the q tile is
+// blockIdx.x, the row (batch * q head) folded_row() (launch.cuh). Warpgroup
+// 0 loads; warpgroups 1 and 2 each own 64 query rows. In a consumer, warp w
+// and lane (g = lane / 4, t = lane % 4) hold rows 16w + g and 16w + g + 8
+// of their 64, and columns 8j + 2t, 8j + 2t + 1 of every 8-column chunk j.
+// D is the kernel's width and `d` (<= D, a multiple of 8) the tensors': the
+// TMA maps read columns past d as zeros, which leave Q K^T as it is and
+// give zero columns of P V, and only the first d columns of out are
+// stored.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v,
                       uint16_t* __restrict__ out, float* __restrict__ lse,
-                      int hq, int hkv, int sq, int sk, int causal,
-                      float scale_log2, int q_base_arg, int k_base_arg,
-                      int kv_len_arg, const int* __restrict__ base) {
+                      int n_bh, int hq, int hkv, int sq, int sk, int d,
+                      int causal, float scale_log2, int q_base_arg,
+                      int k_base_arg, int kv_len_arg,
+                      const int* __restrict__ base) {
   using L = Layout<D>;
+  constexpr int kBlockK = L::kBlockK;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) &
                               1023);
@@ -180,7 +201,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   uint64_t* empty = full_v + kStages;
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;  // heavy tiles first
-  const int bh = blockIdx.y;
+  const int bh = host::folded_row();
+  if (bh >= n_bh) return;
   const int kv_head = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
 
   // The row's base, read once by one thread before the barrier below: the
@@ -220,24 +242,24 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     // round r - 1 (the first round's wait passes at once).
     sm90::regs_dealloc<kProducerRegs>();
     if (threadIdx.x == 0 && n_tiles > 0) {
-      sm90::mbar_arrive_expect_tx(bar_q, L::kTileBytes);
+      sm90::mbar_arrive_expect_tx(bar_q, L::kQBytes);
       for (int a = 0; a < L::kAtoms; ++a) {
-        sm90::tma_load_3d(smem + L::kQ + a * L::kAtomBytes, &tm_q, bar_q,
+        sm90::tma_load_3d(smem + L::kQ + a * L::kQAtomBytes, &tm_q, bar_q,
                           a * L::kAtomCols, q0, bh);
       }
       for (int kt = 0; kt < n_tiles; ++kt) {
         const int st = kt % kStages;
         sm90::mbar_wait(empty + st, ((kt / kStages) & 1) ^ 1);
-        sm90::mbar_arrive_expect_tx(full_k + st, L::kTileBytes);
+        sm90::mbar_arrive_expect_tx(full_k + st, L::kKVBytes);
         for (int a = 0; a < L::kAtoms; ++a) {
           sm90::tma_load_3d(
-              smem + L::kK + st * L::kTileBytes + a * L::kAtomBytes, &tm_k,
+              smem + L::kK + st * L::kKVBytes + a * L::kKVAtomBytes, &tm_k,
               full_k + st, a * L::kAtomCols, kt * kBlockK, kv_head);
         }
-        sm90::mbar_arrive_expect_tx(full_v + st, L::kTileBytes);
+        sm90::mbar_arrive_expect_tx(full_v + st, L::kKVBytes);
         for (int a = 0; a < L::kAtoms; ++a) {
           sm90::tma_load_3d(
-              smem + L::kV + st * L::kTileBytes + a * L::kAtomBytes, &tm_v,
+              smem + L::kV + st * L::kKVBytes + a * L::kKVAtomBytes, &tm_v,
               full_v + st, a * L::kAtomCols, kt * kBlockK, kv_head);
         }
       }
@@ -253,10 +275,10 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     const uint8_t* q_s = smem + L::kQ + 64 * c * L::kRowBytes;
     constexpr uint32_t kSbo = 8 * L::kRowBytes;
 
-    float s[64];
+    float s[kBlockK / 2];
     float o[D / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) s[i] = 0.f;
+    for (int i = 0; i < kBlockK / 2; ++i) s[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
     float m[2] = {kNegInf, kNegInf};  // running max, log2 domain
@@ -269,8 +291,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int st = kt % kStages;
       const uint32_t phase = (kt / kStages) & 1;
       const int k0 = kt * kBlockK;
-      const uint8_t* k_s = smem + L::kK + st * L::kTileBytes;
-      const uint8_t* v_s = smem + L::kV + st * L::kTileBytes;
+      const uint8_t* k_s = smem + L::kK + st * L::kKVBytes;
+      const uint8_t* v_s = smem + L::kV + st * L::kKVBytes;
 
       // S = Q K^T: D / 16 k-steps; a step is 32 bytes into an atom's row.
       sm90::mbar_wait(full_k + st, phase);
@@ -279,11 +301,14 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const int off = (kk * 32 / L::kRowBytes) * L::kAtomBytes +
-                        (kk * 32) % L::kRowBytes;
-        sm90::WgmmaSS<128, 0>::mma(
-            s, sm90::make_desc(q_s + off, 16, kSbo, L::kSwizzle),
-            sm90::make_desc(k_s + off, 16, kSbo, L::kSwizzle), kk > 0);
+        const int atom = kk * 32 / L::kRowBytes, col = (kk * 32) % L::kRowBytes;
+        sm90::WgmmaSS<kBlockK, 0>::mma(
+            s,
+            sm90::make_desc(q_s + atom * L::kQAtomBytes + col, 16, kSbo,
+                            L::kSwizzle),
+            sm90::make_desc(k_s + atom * L::kKVAtomBytes + col, 16, kSbo,
+                            L::kSwizzle),
+            kk > 0);
       }
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
@@ -301,7 +326,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                         k0 + kBlockK > kv_len;
       if (mask) {
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
+        for (int j = 0; j < kBlockK / 8; ++j) {
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const int col = k0 + 8 * j + 2 * t + (i & 1);
@@ -319,7 +344,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int a = 0; a < 4; ++a) part[r][a] = -INFINITY;
       }
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < kBlockK / 8; ++j) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           float& mx = part[i >> 1][j % 4];
@@ -340,9 +365,9 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
         for (int a = 0; a < 4; ++a) part[r][a] = 0.f;
       }
-      uint32_t p[32];
+      uint32_t p[kBlockK / 4];
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < kBlockK / 8; ++j) {
         float pj[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
@@ -368,7 +393,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 
       phases.mark(kSoftmax);
 
-      // O += P V: 8 k-steps of 16 keys; V MN-major, atoms along D.
+      // O += P V: k-steps of 16 keys; V MN-major, atoms along D.
       sm90::mbar_wait(full_v + st, phase);
       phases.mark(kWaitV);
       sm90::fence_regs(o);
@@ -379,8 +404,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                                p[4 * kk + 3]};
         sm90::WgmmaRS<D, 1>::mma(
             o, a,
-            sm90::make_desc(v_s + kk * 16 * L::kRowBytes, L::kAtomBytes, kSbo,
-                            L::kSwizzle),
+            sm90::make_desc(v_s + kk * 16 * L::kRowBytes, L::kKVAtomBytes,
+                            kSbo, L::kSwizzle),
             1);
       }
       sm90::wgmma_commit();
@@ -398,9 +423,10 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       const float inv = 1.f / fmaxf(l[r], 1e-30f);
       const int row = row0 + 8 * r;
       if (row >= sq) continue;
-      uint16_t* orow = out + ((size_t)bh * sq + row) * D + 2 * t;
+      uint16_t* orow = out + ((size_t)bh * sq + row) * d + 2 * t;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
+        if (8 * j >= d) break;  // d % 8 == 0: a chunk is wholly in or out
         *reinterpret_cast<uint32_t*>(orow + 8 * j) =
             pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
       }
@@ -415,36 +441,38 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// f32 check path: one warp per query row, lane holds D / 32 columns; the
-// row's visible keys are [0, n_cols), walked one at a time.
+// f32 check path: one warp per query row, lane holds D / 32 columns (those
+// at or past d are 0 and not stored); the row's visible keys are
+// [0, n_cols), walked one at a time.
 constexpr int kRowsPerBlock = 8;
 
 template <int D>
 __global__ void __launch_bounds__(kRowsPerBlock * 32)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
-                     float* __restrict__ lse, int hq, int hkv, int sq, int sk,
-                     int causal, float sm_scale, int q_base, int k_base,
-                     int kv_len, const int* __restrict__ base) {
+                     float* __restrict__ lse, int n_bh, int hq, int hkv,
+                     int sq, int sk, int d, int causal, float sm_scale,
+                     int q_base, int k_base, int kv_len,
+                     const int* __restrict__ base) {
   constexpr int kPer = D / 32;
   const int lane = threadIdx.x % 32;
   const int row = blockIdx.x * kRowsPerBlock + threadIdx.x / 32;
-  if (row >= sq) return;
-  const int bh = blockIdx.y;
+  const int bh = host::folded_row();
+  if (row >= sq || bh >= n_bh) return;
   const int b = bh / hq, kvh = (bh % hq) / (hq / hkv);
   if (base != nullptr) {
     q_base = base[3 * b];
     k_base = base[3 * b + 1];
     kv_len = min(max(base[3 * b + 2], 0), sk);
   }
-  const float* kg = k + ((size_t)b * hkv + kvh) * sk * D;
-  const float* vg = v + ((size_t)b * hkv + kvh) * sk * D;
-  const size_t q_off = ((size_t)bh * sq + row) * D;
+  const float* kg = k + ((size_t)b * hkv + kvh) * sk * d;
+  const float* vg = v + ((size_t)b * hkv + kvh) * sk * d;
+  const size_t q_off = ((size_t)bh * sq + row) * d;
 
   float qv[kPer], acc[kPer];
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
-    qv[i] = q[q_off + lane + 32 * i];
+    qv[i] = lane + 32 * i < d ? q[q_off + lane + 32 * i] : 0.f;
     acc[i] = 0.f;
   }
   int n_cols = kv_len;
@@ -453,7 +481,9 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int j = 0; j < n_cols; ++j) {
     float s = 0.f;
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) s += qv[i] * kg[(size_t)j * D + lane + 32 * i];
+    for (int i = 0; i < kPer; ++i) {
+      if (lane + 32 * i < d) s += qv[i] * kg[(size_t)j * d + lane + 32 * i];
+    }
 #pragma unroll
     for (int off = 16; off > 0; off /= 2) {
       s += __shfl_xor_sync(0xffffffffu, s, off);
@@ -465,20 +495,24 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     l = l * alpha + p;
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
-      acc[i] = acc[i] * alpha + p * vg[(size_t)j * D + lane + 32 * i];
+      const float vj = lane + 32 * i < d ? vg[(size_t)j * d + lane + 32 * i]
+                                         : 0.f;
+      acc[i] = acc[i] * alpha + p * vj;
     }
     m = m_new;
   }
   const float l_safe = fmaxf(l, 1e-30f);
 #pragma unroll
-  for (int i = 0; i < kPer; ++i) out[q_off + lane + 32 * i] = acc[i] / l_safe;
+  for (int i = 0; i < kPer; ++i) {
+    if (lane + 32 * i < d) out[q_off + lane + 32 * i] = acc[i] / l_safe;
+  }
   if (lane == 0) lse[(size_t)bh * sq + row] = m + logf(l_safe);
 }
 
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* out, float* lse, int batch, int hq, int hkv,
-                        int sq, int sk, int causal, float sm_scale,
+                        int sq, int sk, int d, int causal, float sm_scale,
                         int q_base, int k_base, int kv_len, const int* base,
                         cudaStream_t stream) {
   using L = Layout<D>;
@@ -490,41 +524,49 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   // K/V maps so that they still describe real memory.
   if (sk == 0) k = v = q;
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!host::encode_bf16_rows(&tm_q, q, D, sq, batch * hq, kBlockQ) ||
-      !host::encode_bf16_rows(&tm_k, k, D, sk > 0 ? sk : 1, batch * hkv,
-                              kBlockK) ||
-      !host::encode_bf16_rows(&tm_v, v, D, sk > 0 ? sk : 1, batch * hkv,
-                              kBlockK)) {
+  if (!host::encode_bf16_rows(&tm_q, q, d, sq, batch * hq, kBlockQ, D) ||
+      !host::encode_bf16_rows(&tm_k, k, d, sk > 0 ? sk : 1, batch * hkv,
+                              L::kBlockK, D) ||
+      !host::encode_bf16_rows(&tm_v, v, d, sk > 0 ? sk : 1, batch * hkv,
+                              L::kBlockK, D)) {
     return cudaErrorInvalidValue;
   }
-  const dim3 grid((sq + kBlockQ - 1) / kBlockQ, batch * hq);
+  const dim3 grid = host::fold_rows((sq + kBlockQ - 1) / kBlockQ, batch * hq);
   flash_fwd_sm90_kernel<D><<<grid, kThreads, L::kBytes, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<uint16_t*>(out), lse, hq, hkv, sq, sk,
-      causal, sm_scale * kLog2e, q_base, k_base, kv_len, base);
+      tm_q, tm_k, tm_v, static_cast<uint16_t*>(out), lse, batch * hq, hq,
+      hkv, sq, sk, d, causal, sm_scale * kLog2e, q_base, k_base, kv_len,
+      base);
   return cudaSuccess;
 }
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* lse, int dtype, int batch, int hq, int hkv, int sq,
-                   int sk, int causal, float sm_scale, int q_base, int k_base,
-                   int kv_len, const int* base, cudaStream_t stream) {
+                   int sk, int d, int causal, float sm_scale, int q_base,
+                   int k_base, int kv_len, const int* base,
+                   cudaStream_t stream) {
   if (dtype == 0) {
-    return launch_bf16<D>(q, k, v, out, lse, batch, hq, hkv, sq, sk, causal,
-                          sm_scale, q_base, k_base, kv_len, base, stream);
+    return launch_bf16<D>(q, k, v, out, lse, batch, hq, hkv, sq, sk, d,
+                          causal, sm_scale, q_base, k_base, kv_len, base,
+                          stream);
   }
-  const dim3 grid((sq + kRowsPerBlock - 1) / kRowsPerBlock, batch * hq);
+  const dim3 grid = host::fold_rows(
+      (sq + kRowsPerBlock - 1) / kRowsPerBlock, batch * hq);
   flash_fwd_f32_kernel<D><<<grid, kRowsPerBlock * 32, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), lse, hq, hkv,
-      sq, sk, causal, sm_scale, q_base, k_base, kv_len, base);
+      static_cast<const float*>(v), static_cast<float*>(out), lse,
+      batch * hq, hq, hkv, sq, sk, d, causal, sm_scale, q_base, k_base,
+      kv_len, base);
   return cudaSuccess;
 }
 
 }  // namespace
 
 // dtype: 0 = bf16 (the Hopper kernel), 1 = f32 (check kernel). Tensors are
-// contiguous and 16-byte aligned (the Python wrapper checks). `base`, when
+// contiguous and 16-byte aligned (the Python wrapper checks). The head dim
+// d is a multiple of 8 up to 256 and runs the kernel built for the next of
+// 32, 64, 128 and 256 (the wrapper pads any other d to a multiple of 8:
+// ops/_ext.py kernel_head_dim). `base`, when
 // not null, is a device int32 (batch, 3) array of [q_base, k_base, kv_len]
 // per batch row, read by the kernel in place of the three ints. Launches on
 // `stream`, allocates nothing, and returns the first error of the set-up
@@ -535,23 +577,16 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 int causal, float sm_scale, int q_base,
                                 int k_base, int kv_len, const int* base,
                                 void* stream) {
-  if ((dtype != 0 && dtype != 1) || hkv <= 0 || hq % hkv) {
+  if ((dtype != 0 && dtype != 1) || hkv <= 0 || hq % hkv || d <= 0 ||
+      d > 256 || d % 8) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (d == 32) {
-    err = launch<32>(q, k, v, out, lse, dtype, batch, hq, hkv, sq, sk, causal,
-                     sm_scale, q_base, k_base, kv_len, base, st);
-  } else if (d == 64) {
-    err = launch<64>(q, k, v, out, lse, dtype, batch, hq, hkv, sq, sk, causal,
-                     sm_scale, q_base, k_base, kv_len, base, st);
-  } else if (d == 128) {
-    err = launch<128>(q, k, v, out, lse, dtype, batch, hq, hkv, sq, sk,
-                      causal, sm_scale, q_base, k_base, kv_len, base, st);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const cudaError_t err = host::with_width(d, [&](auto width) {
+    return launch<decltype(width)::value>(
+        q, k, v, out, lse, dtype, batch, hq, hkv, sq, sk, d, causal,
+        sm_scale, q_base, k_base, kv_len, base, st);
+  });
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -37,14 +37,19 @@ inline EncodeTiled encode_tiled() {
 }
 
 // A rank-3 map (d, rows, heads) of a contiguous (heads, rows, d) bf16
-// tensor whose box is one swizzle atom: min(d, 64) columns of `box_rows`
-// rows of one head, with 128-byte swizzle (64-byte where a row is 64
-// bytes, d 32). Rows past `rows` read as zeros.
+// tensor whose box is one swizzle atom of a tile `width` columns wide (0:
+// d): min(width, 64) columns of `box_rows` rows of one head, with 128-byte
+// swizzle (64-byte where a row of the tile is 64 bytes, width 32). Rows
+// past `rows` and columns past `d` read as zeros, so a kernel built for
+// `width` reads a tensor of d < width columns (d % 8 == 0: TMA takes row
+// strides that are multiples of 16 bytes) as if it were zero-padded.
 inline bool encode_bf16_rows(CUtensorMap* map, const void* base, int d,
-                             int rows, int heads, int box_rows) {
+                             int rows, int heads, int box_rows,
+                             int width = 0) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
-  const int row_bytes = d * 2 < 128 ? d * 2 : 128;
+  if (width == 0) width = d;
+  const int row_bytes = width * 2 < 128 ? width * 2 : 128;
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
                               (cuuint64_t)heads};
   const cuuint64_t strides[2] = {(cuuint64_t)d * 2,
@@ -82,6 +87,37 @@ inline bool encode_int8_rows(CUtensorMap* map, const void* base, int cols,
                                 : CU_TENSOR_MAP_SWIZZLE_64B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A kernel width as a type (Width<D>::value), for with_width.
+template <int D>
+struct Width {
+  static constexpr int value = D;
+};
+
+// f(Width<D>{}) for the kernels' width D that takes head dim d: the next of
+// 32, 64, 128 and 256 (d <= 256; ops/_ext.py kernel_head_dim, the same
+// rule, is what the CPU tests hold).
+template <typename F>
+auto with_width(int d, F f) {
+  return d <= 32    ? f(Width<32>{})
+         : d <= 64  ? f(Width<64>{})
+         : d <= 128 ? f(Width<128>{})
+                    : f(Width<256>{});
+}
+
+// A grid's batch * heads rows folded over grid.y and grid.z, each at most
+// 65535: z = ceil(n / 65535) slices of y = ceil(n / z) rows, so n up to
+// 65535 keeps z = 1 and y = n. A block's row is folded_row(); rows at or
+// past n (fewer than z) return at once. ops/_ext.py's fold_rows is the same
+// rule, held by the CPU tests.
+inline dim3 fold_rows(int x, int n) {
+  const int z = n > 65535 ? (n + 65534) / 65535 : 1;
+  return dim3(x, (n + z - 1) / z, z);
+}
+
+__device__ __forceinline__ int folded_row() {
+  return blockIdx.z * gridDim.y + blockIdx.y;
 }
 
 // Lets `kernel` take `bytes` of dynamic shared memory on the current

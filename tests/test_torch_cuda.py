@@ -65,6 +65,27 @@ CASES = {
     "d64_ragged": ((2, 8, 2, 333, 517, 64), False, {"kv_len": 400}),
     "d32_ragged": ((2, 8, 4, 250, 250, 32), True, {}),
     "waves_b4": ((4, 32, 8, 1024, 1024, 128), True, {}),
+    # Head dims between the kernels' widths (run on the next width up with
+    # the columns past d read as zeros): 80 and 96 on the D 128 kernels, 40
+    # and 24 on the D 64 and D 32 ones, 136 on the D 256 ones (its last
+    # 64-column atom wholly past d), 100 (not a multiple of 8: the binding
+    # pads it to 104); and D 256 itself (64-key forward tiles, 32-row
+    # backward tiles, the dk/dv kernel's two walks).
+    "d80_causal_gqa": ((1, 8, 2, 300, 300, 80), True, {}),
+    "d96_noncausal_kv_len": ((2, 4, 2, 200, 333, 96), False,
+                             {"kv_len": 250}),
+    "d96_q_base": ((1, 8, 8, 100, 512, 96), True, {"q_base": 300}),
+    "d100_padded": ((1, 8, 2, 257, 257, 100), True, {}),
+    "d40_gqa": ((2, 4, 2, 100, 100, 40), True, {}),
+    "d24_unaligned": ((2, 4, 4, 77, 77, 24), True, {}),
+    "d136_atom_past_d": ((1, 4, 2, 129, 129, 136), True, {}),
+    "d256_mqa": ((1, 8, 1, 300, 300, 256), True, {}),
+    "d256_noncausal_kv_len": ((1, 4, 2, 130, 200, 256), False,
+                              {"kv_len": 150}),
+    # B * Hq (and, in the second, B * Hkv) past grid.y's 65535: folded
+    # over grid.y and grid.z.
+    "bhq_65792": ((2056, 32, 8, 128, 128, 64), True, {}),
+    "bhkv_65792": ((4112, 16, 16, 32, 32, 32), True, {}),
 }
 # The paged engine's prefill segments: a segment bucket below the 128-row
 # q tile at a block-aligned (not tile-aligned) q_base, against a window
@@ -109,8 +130,8 @@ def test_kernel_without_keys_gives_zero_rows(gen, dtype):
 
 
 def test_kernel_rejects_what_it_does_not_take(gen):
-    q = torch.randn(1, 2, 16, 96, device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim"):
+    q = torch.randn(1, 2, 16, 264, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 264.*256"):
         attention.flash_fwd(q, q, q, causal=True, sm_scale=0.1)
     q = torch.randn(1, 2, 16, 64, device="cuda", dtype=torch.float16)
     with pytest.raises(ValueError, match="dtype"):
