@@ -515,7 +515,19 @@ TP_VERIFY_CASE = ("tp8_verify_b8_sq16", 8, 16, 2048, True,
 # Head widths between the kernels' instantiations (80 and 96 on the D 128
 # kernel, the columns past D read as zeros), D 256 (its own layouts), and
 # D 100 (the binding pads it to 104): the public checkpoints' prefill
-# shapes at their heads (head_widths' models) and the masks' edges.
+# shapes at their heads (head_widths' models) and the masks' edges. Past
+# 256, the column-chunk kernels: D 288 (Gemma-2-2B's and Gemma-3-1B's
+# widths on the repo's block, head_widths' models), D 512 (JAX's CLI at
+# --d-model 4096 --n-heads 8), D 300 (padded to 304), f32.
+WIDE_CASES = [
+    ("gemma2_2b_d288_s4096", 1, 4096, 4096, True, 0, 0, None, 8, 4, 288,
+     "bfloat16"),
+    ("gemma3_1b_d288_s4096", 1, 4096, 4096, True, 0, 0, None, 4, 1, 288,
+     "bfloat16"),
+    ("d512_s2048", 1, 2048, 2048, True, 0, 0, None, 8, 8, 512, "bfloat16"),
+    ("d300_padded", 1, 1000, 1000, True, 0, 0, None, 8, 2, 300, "bfloat16"),
+    ("f32_d520", 1, 100, 300, True, 250, 0, None, 8, 2, 520, "float32"),
+]
 HEAD_WIDTH_CASES = [
     ("phi3_d96_s4096", 1, 4096, 4096, True, 0, 0, None, 32, 32, 96,
      "bfloat16"),
@@ -530,6 +542,7 @@ HEAD_WIDTH_CASES = [
     ("f32_d96", 1, 100, 300, True, 250, 0, None, 8, 2, 96, "float32"),
     ("f32_d100", 2, 77, 300, False, 0, 0, 250, 4, 1, 100, "float32"),
     ("f32_d256", 2, 77, 300, False, 0, 0, 250, 4, 1, 256, "float32"),
+    *WIDE_CASES,
 ]
 KERNEL_CASES = [
     ("causal_512_b2", 2, 512, 512, True, 0, 0, None, 32, 8, 128, "bfloat16"),
@@ -659,9 +672,11 @@ def run_kernel_case(case, torch, attention, gen, serving_graphs):
         batch, hq, hkv, seq_q, seq_k, d, dtype, causal, q_base, k_base,
         kv_len,
     )
-    row["library_ms"] = library_ms(
+    row["library_ms"], backend = library_ms(
         q, k, v, torch, attention, causal=causal, sm_scale=d ** -0.5,
-        q_base=mask_base, k_base=k_base, kv_len=kv_len)
+        q_base=mask_base, k_base=k_base, kv_len=kv_len, backend=d > 256)
+    if backend:
+        row["library_backend"] = backend
     row["ms_over_library"] = (row["ms"] / row["library_ms"]
                               if row["library_ms"] else None)
     emit(row)
@@ -686,32 +701,71 @@ def _sdpa_mask(q, k, attention, causal, q_base, k_base, kv_len):
     return {"attn_mask": vis}
 
 
+# scaled_dot_product_attention's backends by the names of the ATen ops
+# (and CUDA kernels) a call of each runs.
+SDPA_BACKENDS = (("flash", ("flash_attention",)),
+                 ("efficient", ("efficient_attention", "fmha_cutlass")),
+                 ("cudnn", ("cudnn_attention",)),
+                 ("math", ("attention_math",)))
+
+
+def sdpa_backend(fn, torch):
+    """Which of scaled_dot_product_attention's backends ``fn`` ran
+    (SDPA_BACKENDS), read from the op names a profile of one call shows
+    (the host's ops as well as the kernels, so it does not rest on the
+    device trace alone), or None where it finds none of them. Its flash
+    backend stops at head dim 256."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = " ".join(e.key for e in prof.key_averages()).lower()
+    for backend, marks in SDPA_BACKENDS:
+        if any(m in names for m in marks):
+            return backend
+    return None
+
+
 def library_ms(q, k, v, torch, attention, *, causal, sm_scale, q_base,
-               k_base, kv_len):
-    """Time of PyTorch's scaled_dot_product_attention on the same inputs
-    and mask, as a yardstick only (the port never calls it)."""
+               k_base, kv_len, backend=False):
+    """(ms, backend) of PyTorch's scaled_dot_product_attention on the same
+    inputs and mask, a yardstick only (the port never calls it); the
+    backend it took (``sdpa_backend``) where ``backend`` asks, else None.
+    (None, None) where the masks leave a row no key."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     kw = _sdpa_mask(q, k, attention, causal, q_base, k_base, kv_len)
     if kw is None:
-        return None
-    return time_ms(
-        lambda: sdpa(q, k, v, scale=sm_scale, enable_gqa=True, **kw), torch
-    )
+        return None, None
+
+    def call():
+        return sdpa(q, k, v, scale=sm_scale, enable_gqa=True, **kw)
+
+    return time_ms(call, torch), sdpa_backend(call, torch) if backend else None
 
 
 def library_bwd_ms(q, k, v, g, torch, attention, *, causal, sm_scale,
-                   q_base, k_base, kv_len):
-    """Time of the backward of scaled_dot_product_attention (autograd on
-    the same inputs and mask: dq, dk and dv together), a yardstick only."""
+                   q_base, k_base, kv_len, backend=False):
+    """As ``library_ms``, of the backward of scaled_dot_product_attention
+    (autograd on the same inputs and mask: dq, dk and dv together); the
+    backend is the one its forward took, whose backward autograd runs."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     kw = _sdpa_mask(q, k, attention, causal, q_base, k_base, kv_len)
     if kw is None:
-        return None
+        return None, None
     qkv = [t.detach().requires_grad_() for t in (q, k, v)]
-    out = sdpa(*qkv, scale=sm_scale, enable_gqa=True, **kw)
-    return time_ms(
-        lambda: torch.autograd.grad(out, qkv, g, retain_graph=True), torch
-    )
+
+    def forward():
+        return sdpa(*qkv, scale=sm_scale, enable_gqa=True, **kw)
+
+    out = forward()
+
+    def call():
+        return torch.autograd.grad(out, qkv, g, retain_graph=True)
+
+    return (time_ms(call, torch),
+            sdpa_backend(forward, torch) if backend else None)
 
 
 # Backward cases, the same tuple as KERNEL_CASES. S 16384 takes the JAX
@@ -749,8 +803,9 @@ BWD_CASES = [
     ("f32_d128", 1, 512, 512, True, 0, 0, None, 8, 2, 128, "float32"),
     BERT_LARGE_CASE,
     LONG_CONTEXT_CASE,
-    # The head widths (dk/dv at D 256: 32-row q tiles and two walks): the
-    # training shapes of head_widths' models, the padded D 100, f32.
+    # The head widths (dk/dv at D 256: 32-row q tiles and two walks, Gemma-
+    # 2B's one KV head split over 8 blocks): the training shapes of
+    # head_widths' models, the padded D 100, f32.
     ("phi3_d96_s4096", 1, 4096, 4096, True, 0, 0, None, 32, 32, 96,
      "bfloat16"),
     ("gemma2b_d256_s4096", 1, 4096, 4096, True, 0, 0, None, 8, 1, 256,
@@ -763,6 +818,9 @@ BWD_CASES = [
     ("f32_d100", 1, 256, 256, True, 0, 0, None, 8, 2, 100, "float32"),
     ("f32_d256", 1, 256, 256, True, 0, 0, None, 8, 2, 256, "float32"),
     ("bhq_65792", 2056, 128, 128, True, 0, 0, None, 32, 8, 64, "bfloat16"),
+    # Past 256: the column-chunk dq and dk/dv (head_widths trains
+    # Gemma-3-1B's D 288 over one KV head: its dk/dv split 2).
+    *WIDE_CASES,
 ]
 BWD_MAIN_CASE = "causal_8192"
 
@@ -868,7 +926,10 @@ def run_bwd_case(case, torch, attention, _ext, gen, serving_graphs):
             batch, hq, hkv, seq_q, seq_k, d, dtype, causal, q_base, k_base,
             kv_len, kind=kind,
         )
-    row["library_ms"] = library_bwd_ms(q, k, v, g, torch, attention, **kw)
+    row["library_ms"], backend = library_bwd_ms(
+        q, k, v, g, torch, attention, backend=d > 256, **kw)
+    if backend:
+        row["library_backend"] = backend
     emit(row)
     return row
 
@@ -6997,6 +7058,17 @@ HEAD_WIDTH_MODELS = {
     "phi3_mini": dict(vocab_size=32064, d_model=3072, n_layers=32,
                       n_heads=32, n_kv_heads=32, d_ff=8192,
                       max_seq_len=4096, rope_theta=10000.0),
+    # Gemma-2-2B (config.json of google/gemma-2-2b: d 2304, 8 heads over 4
+    # KV heads, d_ff 9216, vocab 256000, 26 layers) and Gemma-3-1B
+    # (google/gemma-3-1b-pt: d 1152, 4 heads over 1, d_ff 6912, vocab
+    # 262144, 26 layers, rope θ 1e6): their checkpoints' heads are 256
+    # wide, the repo's block's d_model / n_heads = 288, past 256.
+    "gemma2_2b": dict(vocab_size=256000, d_model=2304, n_layers=26,
+                      n_heads=8, n_kv_heads=4, d_ff=9216, max_seq_len=8192,
+                      rope_theta=10000.0),
+    "gemma3_1b": dict(vocab_size=262144, d_model=1152, n_layers=26,
+                      n_heads=4, n_kv_heads=1, d_ff=6912,
+                      max_seq_len=32768, rope_theta=1000000.0),
     "gemma_2b": dict(vocab_size=256000, d_model=2048, n_layers=18,
                      n_heads=8, n_kv_heads=1, d_ff=16384, max_seq_len=8192,
                      rope_theta=10000.0),
@@ -7005,9 +7077,12 @@ HEAD_WIDTH_MODELS = {
                         max_seq_len=4096, rope_theta=10000.0),
 }
 # Served depth: Phi-3-mini cut to SERVE_LAYERS of its 32 as the Llama
-# phases are; Gemma-2B whole (18 layers, about 6 GB of bf16 weights).
-HEAD_WIDTH_SERVE_LAYERS = {"phi3_mini": SERVE_LAYERS, "gemma_2b": 18}
-HEAD_WIDTH_TRAIN = {"gemma_2b": 3, "stablelm_3b": 0}  # make_train_step steps
+# phases are; Gemma-2B whole (18 layers, about 6 GB of bf16 weights) and
+# Gemma-2-2B's widths whole (26 layers).
+HEAD_WIDTH_SERVE_LAYERS = {"phi3_mini": SERVE_LAYERS, "gemma_2b": 18,
+                           "gemma2_2b": 26}
+# make_train_step steps after the gradients are held.
+HEAD_WIDTH_TRAIN = {"gemma_2b": 3, "stablelm_3b": 0, "gemma3_1b": 3}
 HEAD_WIDTH_TRAIN_LAYERS = 2
 HEAD_WIDTH_TRAIN_SEQ = 4096
 HEAD_WIDTH_NEW = 16
@@ -7162,6 +7237,7 @@ def _width_train(torch, np, tf, serve_cli, attention, _ext, name, steps):
     if launches != [cfg.n_layers] * 3:
         fail(f"head_widths {name}: the step launched fwd/dq/dkv {launches} "
              f"times, want {cfg.n_layers} each")
+    row["attention_bwd_ms"] = _layer_bwd_ms(torch, attention, cfg)
     if steps:
         init_state, train_step = tf.make_train_step(cfg, device="cuda")
         state = init_state(model=model)
@@ -7205,16 +7281,40 @@ def _width_train(torch, np, tf, serve_cli, attention, _ext, name, steps):
     return row, launches
 
 
+def _layer_bwd_ms(torch, attention, cfg):
+    """Device ms of one layer's attention backward (``flash_bwd``: dq,
+    dk/dv and delta) at the training shape, B 1 × HEAD_WIDTH_TRAIN_SEQ,
+    bf16, causal. The launch counters are left as they were."""
+    counts = _flash_counts(attention)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, g = (torch.randn(1, cfg.n_heads, HEAD_WIDTH_TRAIN_SEQ, cfg.head_dim,
+                        generator=gen, device="cuda").bfloat16()
+            for _ in range(2))
+    k, v = (torch.randn(1, cfg.n_kv_heads, HEAD_WIDTH_TRAIN_SEQ,
+                        cfg.head_dim, generator=gen, device="cuda").bfloat16()
+            for _ in range(2))
+    kw = dict(causal=True, sm_scale=cfg.head_dim ** -0.5)
+    out, lse = attention.flash_fwd(q, k, v, **kw)
+    ms = time_ms(lambda: attention.flash_bwd(q, k, v, out, lse, g, **kw),
+                 torch)
+    (attention.flash_fwd_launches, attention.flash_dq_launches,
+     attention.flash_dkv_launches) = counts
+    return ms
+
+
 def head_widths_phase(torch, np, tf, serve_cli, attention, _ext, card):
     """The head widths only the padded kernels (D 80 and 96 on the D 128
-    instantiation) and the D 256 ones take, through the entry points a
-    user calls at public checkpoints' widths (HEAD_WIDTH_MODELS):
-    Phi-3-mini and Gemma-2B served on the paged engine under ``--speculate
-    ngram`` (``_width_serve``), Gemma-2B and StableLM-3B trained at 2
-    layers, B 1 × 4096 (``_width_train``; Gemma-2B three make_train_step
-    steps more), StableLM-3B's prefill; each held to the same path on the
-    plain attention. Counts at zero before, read after; returns the
-    launches (fwd, dq, dkv), each above 0."""
+    instantiation), the D 256 ones and the column-chunk ones (D 288) take,
+    through the entry points a user calls at public checkpoints' widths
+    (HEAD_WIDTH_MODELS): Phi-3-mini, Gemma-2B and Gemma-2-2B's widths
+    served on the paged engine under ``--speculate ngram``
+    (``_width_serve``), Gemma-2B, StableLM-3B and Gemma-3-1B's widths
+    trained at 2 layers, B 1 × 4096 (``_width_train``; Gemma-2B and
+    Gemma-3-1B three make_train_step steps more), StableLM-3B's prefill;
+    each held to the same path on the plain attention. Counts at zero
+    before, read after; returns the launches (fwd, dq, dkv), each above 0,
+    and fails unless D 288 launched the forward serving and all three
+    kernels training."""
     _zero_flash_counts(attention)
     t0 = time.perf_counter()
     serving, training = {}, {}
@@ -7231,6 +7331,9 @@ def head_widths_phase(torch, np, tf, serve_cli, attention, _ext, card):
             min(launches) <= 0:
         fail(f"head_widths: launches {launches} against the counters "
              f"{_flash_counts(attention)}")
+    if serving["gemma2_2b"]["flash_fwd_launches"] <= 0 or \
+            min(training["gemma3_1b"]["launches_fwd_dq_dkv"]) <= 0:
+        fail("head_widths: D 288 did not launch the kernels on every path")
     emit({"phase": "head_widths", **card,
           "models": {n: {k: v for k, v in HEAD_WIDTH_MODELS[n].items()
                          if k != "n_layers"} for n in HEAD_WIDTH_MODELS},
@@ -7447,12 +7550,15 @@ def main():
 
     def widths(kind):
         """The head-width rows of ``kind``: every case of both tables
-        whose D is not 32, 64 or 128, and the folded B * Hq."""
+        whose D is not 32, 64 or 128, and the folded B * Hq; past D 256
+        with the backend SDPA took (for dq and dk/dv: its backward's)."""
         table = rows if kind == "fwd" else bwd_rows
         errs = {"fwd": ("out",), "dq": ("dq",), "dkv": ("dk", "dv")}[kind]
+        pre = "" if kind == "fwd" else f"{kind}_"
         return {case: {**case_shape(case, kind, max(
             row[f"max_abs_err_{e}"] for e in errs)), "shape": row["shape"],
-            "dtype": row["dtype"]}
+            "dtype": row["dtype"], "host_us": row[f"{pre}host_us"],
+            **{k: row[k] for k in ("library_backend",) if k in row}}
             for case, row in table.items()
             if row["shape"]["D"] not in (32, 64, 128) or
             case.startswith("bhq")}

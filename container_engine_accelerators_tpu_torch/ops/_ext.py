@@ -156,11 +156,18 @@ _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 # int8_mm_launch's code for bf16 x with an f32 y.
 _INT8_BF16_TO_F32 = 2
 # The head dims the flash kernels are built for (csrc/flash_fwd.cu,
-# flash_bwd.cu), and the widest: wgmma's N stops at 256, and a wider
-# head's O accumulator (64 rows x D f32 a warpgroup) would pass the
-# register file.
+# flash_bwd.cu); past the widest (wgmma's N stops at 256, and a wider
+# accumulator would pass the register file) the wide kernels cut the
+# outputs' columns into chunks of 64-column atoms (column_chunks).
 FLASH_WIDTHS = (32, 64, 128, 256)
-MAX_HEAD_DIM = FLASH_WIDTHS[-1]
+# The widest head dim the kernels take (csrc/launch.cuh kMaxHeadDim): the
+# f32 check kernels hold a lane's columns of a row in registers.
+MAX_HEAD_DIM = 1024
+ATOM_COLS = 64
+# Atoms of the outputs one wide block forms: O or dQ (fwd, dq), and each
+# of dK and dV (dk/dv: 64 + 64 f32 registers a thread, as at D 128).
+FWD_CHUNK_ATOMS = 4
+DKV_CHUNK_ATOMS = 2
 # A grid dimension past x holds at most this many blocks.
 GRID_YZ_LIMIT = 65535
 
@@ -169,16 +176,72 @@ def kernel_head_dim(d):
     """(padded width, kernel width) of head dim ``d``: the wrappers below
     copy q, k and v (and dO) into zero-padded tensors of the padded width
     where it differs from d (TMA takes row strides that are multiples of
-    16 bytes: d % 8 == 0), and the launch runs the kernel built for the
-    kernel width, the next of FLASH_WIDTHS (csrc dispatches on the same
-    rule), at the padded width. Raises ValueError past MAX_HEAD_DIM."""
+    16 bytes: d % 8 == 0), and the launch runs, at the padded width, the
+    kernel built for the kernel width: the next of FLASH_WIDTHS, or past
+    256 the wide kernels at the padded width itself, by column chunks
+    (csrc dispatches on the same rule). Raises ValueError for d < 1 and
+    past MAX_HEAD_DIM."""
     if not 0 < d <= MAX_HEAD_DIM:
         raise ValueError(
             f"head dim {d} is not supported by the flash kernels: they take "
-            f"1 to {MAX_HEAD_DIM} (wgmma's widest N is {MAX_HEAD_DIM}, and "
-            f"a wider O accumulator would pass the register file)")
+            f"1 to {MAX_HEAD_DIM} (the f32 check kernels hold a row's "
+            f"columns in registers)")
     width = -(-d // 8) * 8
+    if width > FLASH_WIDTHS[-1]:
+        return width, width
     return width, next(w for w in FLASH_WIDTHS if w >= width)
+
+
+def column_chunks(width, max_atoms):
+    """(n, per): a width's ceil(width / 64) atoms of 64 columns cut into n
+    chunks of at most ``max_atoms`` atoms, spread evenly: chunk c holds
+    atoms [c * per, min((c + 1) * per, atoms)), none empty. The wide
+    kernels' grids (csrc/launch.cuh column_chunks, the same rule)."""
+    atoms = -(-width // ATOM_COLS)
+    n = -(-atoms // max_atoms)
+    return n, -(-atoms // n)
+
+
+def dkv_plan(batch, num_q_heads, num_kv_heads, seq_k, width, n_sm):
+    """(split, n_chunks, per) of the bf16 dk/dv launch at padded width
+    ``width`` (csrc/launch.cuh dkv_plan, the same rule): column chunks (up
+    to 256 one, column_chunks(width, 4): the kernels hold dK and dV whole
+    or, at D 256, walk the q tiles twice; past 256 column_chunks(width,
+    DKV_CHUNK_ATOMS)), and ``split``, the blocks a KV head's GQA group is
+    spread over: where B * Hkv * key tiles (128 keys) * chunks is under the
+    card's ``n_sm`` SMs, the smallest divisor of the group that brings the
+    blocks to n_sm (the whole group where none does); else 1."""
+    n_chunks, per = column_chunks(
+        width, DKV_CHUNK_ATOMS if width > 256 else 4)
+    blocks = batch * num_kv_heads * -(-seq_k // 128) * n_chunks
+    group = num_q_heads // num_kv_heads
+    split = 1
+    if blocks < n_sm:
+        for g in range(1, group + 1):
+            if group % g:
+                continue
+            split = g
+            if blocks * g >= n_sm:
+                break
+    return split, n_chunks, per
+
+
+def dkv_partial_floats(batch, num_q_heads, num_kv_heads, seq_k, width,
+                       n_sm):
+    """f32 scratch the bf16 dk/dv launch needs: the split blocks' partial
+    dK and dV ([2][split][B * Hkv][Sk][width]), or 0 without a split
+    (csrc's flash_bwd_dkv_partial_floats)."""
+    split = dkv_plan(batch, num_q_heads, num_kv_heads, seq_k, width,
+                     n_sm)[0]
+    if split == 1:
+        return 0
+    return 2 * split * batch * num_kv_heads * seq_k * width
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index):
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def fold_rows(n):
@@ -207,8 +270,13 @@ def _flash_bwd_lib(defines=()):
         lib.flash_bwd_dkv_launch.restype = i32
         # q, k, v, dO, lse, delta, then the outputs.
         lib.flash_bwd_dq_launch.argtypes = [ptr] * 7 + common
+        lib.flash_bwd_dkv_partial_floats.argtypes = [i32] * 6
+        lib.flash_bwd_dkv_partial_floats.restype = ctypes.c_longlong
         # Set last: other threads take a non-None argtypes as "typed".
-        lib.flash_bwd_dkv_launch.argtypes = [ptr] * 8 + common
+        lib.flash_bwd_dkv_launch.argtypes = [ptr] * 8 + common[:-1] + [
+            i32, ptr, ctypes.c_longlong,        # n_sm, partial, its floats
+            ptr,                                # cudaStream_t
+        ]
     return lib
 
 
@@ -314,6 +382,17 @@ def _bwd_launch(fn_name, q, k, v, dout, lse, delta, outs, *, causal,
         q, k, v, dout = (_padded(t, width) for t in (q, k, v, dout))
         outs = {name: t.new_empty(*t.shape[:3], width)
                 for name, t in outs.items()}
+    tail = ()
+    if fn_name == "flash_bwd_dkv_launch":
+        # The plan's f32 scratch for a split GQA group (bf16 only), from
+        # PyTorch's allocator: the kernels allocate nothing.
+        n_sm = sm_count(q.device.index)
+        floats = 0
+        if q.dtype == torch.bfloat16:
+            floats = dkv_partial_floats(
+                batch, num_q_heads, num_kv_heads, seq_k, width, n_sm)
+        partial = q.new_empty(floats, dtype=torch.float32) if floats else None
+        tail = (n_sm, None if partial is None else partial.data_ptr(), floats)
     with torch.cuda.device(q.device):
         err = getattr(lib, fn_name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
@@ -321,7 +400,7 @@ def _bwd_launch(fn_name, q, k, v, dout, lse, delta, outs, *, causal,
             *(t.data_ptr() for t in outs.values()), _DTYPE_CODE[q.dtype],
             batch, num_q_heads, num_kv_heads, seq_q, seq_k, width,
             int(bool(causal)), float(sm_scale),
-            q_base, k_base, kv_len, stream,
+            q_base, k_base, kv_len, *tail, stream,
         )
     if err:
         raise RuntimeError(
@@ -345,7 +424,10 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, dq, **kw):
 
 def flash_bwd_dkv(q, k, v, dout, lse, delta, dk, dv, **kw):
     """Launch the dk/dv kernel of csrc/flash_bwd.cu (dk, dv per KV head,
-    the GQA group summed inside); as ``flash_bwd_dq``."""
+    the GQA group summed in f32 and rounded once); as ``flash_bwd_dq``.
+    Where ``dkv_plan`` splits the group over blocks, the launch also takes
+    the f32 scratch of their partial sums and sums them in a second kernel
+    in a fixed order (no atomics: the same bits every run)."""
     _bwd_launch("flash_bwd_dkv_launch", q, k, v, dout, lse, delta,
                 {"dk": dk, "dv": dv}, **kw)
 

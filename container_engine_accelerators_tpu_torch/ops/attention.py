@@ -19,6 +19,9 @@ grouped-query attention with ``Hq % Hkv == 0``.
                       constants and bf16 rounding of p)
   flash_bwd_reference plain version of the backward kernels (same masks,
                       constants and bf16 rounding of p and ds)
+  flash_bwd_dkv_split_reference
+                      plain version of the dk/dv kernel with its GQA group
+                      split over blocks (f32 partials, summed in order)
   decode_attention    single-token attention over a dense KV cache
   mha_reference       the plain oracle (GQA by repeating kv heads)
 
@@ -258,15 +261,8 @@ def flash_bwd_reference(q, k, v, out, lse, g, *, causal, sm_scale,
         dk, dv = torch.empty_like(k), torch.empty_like(v)
     for h in range(num_kv_heads):
         heads = slice(h * group, (h + 1) * group)
-        qh = q[:, heads].float()
-        gh = g[:, heads].float()
-        kh = k[:, h, None].float()
-        vh = v[:, h, None].float()
-        s = torch.matmul(qh, kh.transpose(-1, -2)).mul_(sm_scale)
-        p = s.sub_(lse[:, heads, :, None]).exp_().masked_fill_(hidden, 0.0)
-        ds = torch.matmul(gh, vh.transpose(-1, -2))
-        ds = ds.sub_(delta[:, heads, :, None]).mul_(p).mul_(sm_scale)
-        ds = ds.to(q.dtype).float()
+        qh, gh, kh, p, ds = _probs_and_ds(q, k, v, g, lse, delta, hidden, h,
+                                          heads, sm_scale)
         if dq is not None:
             dq[:, heads] = torch.matmul(ds, kh).to(q.dtype)
         if dk is None:
@@ -280,6 +276,59 @@ def flash_bwd_reference(q, k, v, out, lse, g, *, causal, sm_scale,
         dv[:, h] = torch.matmul(p.view(*rows, seq_k).transpose(1, 2),
                                 gh.reshape(*rows, d)).to(v.dtype)
     return dq, dk, dv
+
+
+def _probs_and_ds(q, k, v, g, lse, delta, hidden, h, heads, sm_scale):
+    """(q, dO, k of KV head h, p, ds) in f32 for the q heads ``heads`` of
+    h's group, with the kernels' masks and roundings: p = exp(s - lse),
+    hidden pairs 0; ds = p * (dO · vᵀ - δ) * scale rounded to q's dtype."""
+    qh = q[:, heads].float()
+    gh = g[:, heads].float()
+    kh = k[:, h, None].float()
+    vh = v[:, h, None].float()
+    s = torch.matmul(qh, kh.transpose(-1, -2)).mul_(sm_scale)
+    p = s.sub_(lse[:, heads, :, None]).exp_().masked_fill_(hidden, 0.0)
+    ds = torch.matmul(gh, vh.transpose(-1, -2))
+    ds = ds.sub_(delta[:, heads, :, None]).mul_(p).mul_(sm_scale)
+    return qh, gh, kh, p, ds.to(q.dtype).float()
+
+
+def flash_bwd_dkv_split_reference(q, k, v, out, lse, g, *, causal, sm_scale,
+                                  split, q_base=0, k_base=0, delta=None,
+                                  kv_len=None):
+    """Plain version of the dk/dv kernel with each KV head's GQA group
+    split over ``split`` blocks (``_ext.dkv_plan``) → (dk, dv): block s
+    sums in f32 the q heads [s, s + 1) · group / split of the group (its
+    partial), the partials are summed in f32 in split order, and the sum is
+    rounded once to k's dtype, as csrc's dkv_reduce_kernel does. Arguments
+    as ``flash_bwd_reference``'s; keys at or past ``kv_len`` get 0."""
+    batch, num_q_heads, seq_q, d = q.shape
+    _, num_kv_heads, seq_k, _ = k.shape
+    group = num_q_heads // num_kv_heads
+    if group % split:
+        raise ValueError(f"split {split} must divide the group {group}")
+    g = g.to(q.dtype)
+    if delta is None:
+        delta = (out.float() * g.float()).sum(dim=-1)
+    hidden = ~_visible(seq_q, seq_k, causal, q_base, k_base, kv_len,
+                       q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    per = group // split
+    for h in range(num_kv_heads):
+        sums = [0.0, 0.0]
+        for part in range(split):
+            first = h * group + part * per
+            qh, gh, _, p, ds = _probs_and_ds(
+                q, k, v, g, lse, delta, hidden, h,
+                slice(first, first + per), sm_scale)
+            rows = (batch, per * seq_q)
+            sums[0] = sums[0] + torch.matmul(
+                ds.view(*rows, seq_k).transpose(1, 2), qh.reshape(*rows, d))
+            p = p.to(g.dtype).float()
+            sums[1] = sums[1] + torch.matmul(
+                p.view(*rows, seq_k).transpose(1, 2), gh.reshape(*rows, d))
+        dk[:, h], dv[:, h] = sums[0].to(k.dtype), sums[1].to(v.dtype)
+    return dk, dv
 
 
 def flash_bwd(q, k, v, out, lse, g, *, causal, sm_scale, q_base=0,

@@ -39,7 +39,11 @@
 // describe the tensors at their true d, read columns past d as zeros, and
 // the epilogue stores d columns: the padding costs D / d in operations
 // (1.33x at 96, 1.6x at 80) and nothing in bytes. At D 256 the K/V tiles
-// are 64 keys (Layout).
+// are 64 keys (Layout). Past 256 (up to host::kMaxHeadDim) a second kernel,
+// flash_fwd_wide_kernel, cuts O's columns into chunks, one block each, every
+// block recomputing S over the whole d: 2 * d * chunks + 2 * d FLOPs a pair
+// where the work is 4 * d (1.56x at d 288, 2 chunks), and every atom of Q
+// and K streamed from L2 per K tile; see there.
 //
 // What the design does about it (bf16):
 // - Only wgmma reaches Hopper's tensor-core rate, so both products are
@@ -169,6 +173,81 @@ __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// Online softmax of one tile of kBlockK keys for a consumer thread's two
+// rows, in the exp2 domain, with short dependency chains (two consumer
+// warps a scheduler hide little latency): the row max over the raw scores
+// (scale > 0 commutes with max) in 4 partial maxima a row, p = exp2(s *
+// scale - m) as one FFMA and ex2, the sum in 4 partial sums a row. On a
+// tile that needs the `mask`, a masked score becomes -inf: it never raises
+// the max and gives p = 0, and a row that has seen no key keeps m = NEG_INF
+// (exp2(-inf + 1e30) = 0). Packs p into the A registers of the P V product
+// (chunks 2k and 2k + 1 form the k-th k16 step), updates the running max m
+// and partial row sums l, and gives alpha, the factor by which each row's
+// accumulator is to be rescaled.
+template <int kBlockK>
+__device__ __forceinline__ void softmax_step(
+    float (&s)[kBlockK / 2], uint32_t (&p)[kBlockK / 4], float (&m)[2],
+    float (&l)[2], float (&alpha)[2], float scale_log2, bool mask,
+    int causal, int k0, int qpos0, int k_base, int kv_len, int t) {
+  if (mask) {
+#pragma unroll
+    for (int j = 0; j < kBlockK / 8; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = k0 + 8 * j + 2 * t + (i & 1);
+        const int row_pos = qpos0 + 8 * (i >> 1);
+        if ((causal && row_pos < k_base + col) || col >= kv_len) {
+          s[4 * j + i] = -INFINITY;
+        }
+      }
+    }
+  }
+  float part[2][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int a = 0; a < 4; ++a) part[r][a] = -INFINITY;
+  }
+#pragma unroll
+  for (int j = 0; j < kBlockK / 8; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float& mx = part[i >> 1][j % 4];
+      mx = fmaxf(mx, s[4 * j + i]);
+    }
+  }
+  float neg_m[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = fmaxf(fmaxf(part[r][0], part[r][1]),
+                     fmaxf(part[r][2], part[r][3]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[r], mx * scale_log2);
+    alpha[r] = exp2_approx(m[r] - m_new);  // finite - finite: no NaN
+    m[r] = m_new;
+    neg_m[r] = -m_new;
+#pragma unroll
+    for (int a = 0; a < 4; ++a) part[r][a] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < kBlockK / 8; ++j) {
+    float pj[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      pj[i] = exp2_approx(fmaf(s[4 * j + i], scale_log2, neg_m[i >> 1]));
+      part[i >> 1][j % 4] += pj[i];
+    }
+    p[4 * (j / 2) + 2 * (j % 2)] = pack_bf16(pj[0], pj[1]);
+    p[4 * (j / 2) + 2 * (j % 2) + 1] = pack_bf16(pj[2], pj[3]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = l[r] * alpha[r] +
+           ((part[r][0] + part[r][1]) + (part[r][2] + part[r][3]));
+  }
 }
 
 // One block = one (batch * q head, 128-row q tile): the q tile is
@@ -315,74 +394,12 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       sm90::fence_regs(s);
       phases.mark(kQK);
 
-      // Online softmax in the exp2 domain, with short dependency chains
-      // (two consumer warps a scheduler hide little latency): the row max
-      // over the raw scores (scale > 0 commutes with max) in 4 partial
-      // maxima a row, p = exp2(s * scale - m) as one FFMA and ex2, the sum
-      // in 4 partial sums a row. On a tile that needs the mask, a masked
-      // score becomes -inf: it never raises the max and gives p = 0, and a
-      // row that has seen no key keeps m = NEG_INF (exp2(-inf + 1e30) = 0).
       const bool mask = (causal && k_base + k0 + kBlockK - 1 > first_qpos) ||
                         k0 + kBlockK > kv_len;
-      if (mask) {
-#pragma unroll
-        for (int j = 0; j < kBlockK / 8; ++j) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int col = k0 + 8 * j + 2 * t + (i & 1);
-            const int row_pos = qpos0 + 8 * (i >> 1);
-            if ((causal && row_pos < k_base + col) || col >= kv_len) {
-              s[4 * j + i] = -INFINITY;
-            }
-          }
-        }
-      }
-      float part[2][4];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-#pragma unroll
-        for (int a = 0; a < 4; ++a) part[r][a] = -INFINITY;
-      }
-#pragma unroll
-      for (int j = 0; j < kBlockK / 8; ++j) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float& mx = part[i >> 1][j % 4];
-          mx = fmaxf(mx, s[4 * j + i]);
-        }
-      }
-      float alpha[2], neg_m[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float mx = fmaxf(fmaxf(part[r][0], part[r][1]),
-                         fmaxf(part[r][2], part[r][3]));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m[r], mx * scale_log2);
-        alpha[r] = exp2_approx(m[r] - m_new);  // finite - finite: no NaN
-        m[r] = m_new;
-        neg_m[r] = -m_new;
-#pragma unroll
-        for (int a = 0; a < 4; ++a) part[r][a] = 0.f;
-      }
       uint32_t p[kBlockK / 4];
-#pragma unroll
-      for (int j = 0; j < kBlockK / 8; ++j) {
-        float pj[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pj[i] = exp2_approx(fmaf(s[4 * j + i], scale_log2, neg_m[i >> 1]));
-          part[i >> 1][j % 4] += pj[i];
-        }
-        // Chunks 2k and 2k + 1 form the A registers of the k-th k16 step.
-        p[4 * (j / 2) + 2 * (j % 2)] = pack_bf16(pj[0], pj[1]);
-        p[4 * (j / 2) + 2 * (j % 2) + 1] = pack_bf16(pj[2], pj[3]);
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        l[r] = l[r] * alpha[r] +
-               ((part[r][0] + part[r][1]) + (part[r][2] + part[r][3]));
-      }
+      float alpha[2];
+      softmax_step<kBlockK>(s, p, m, l, alpha, scale_log2, mask, causal, k0,
+                            qpos0, k_base, kv_len, t);
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
         o[4 * j] *= alpha[0];
@@ -438,6 +455,243 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
     phases.mark(kEpilogue);
     phases.flush(lane);
+  }
+}
+
+// Head widths past 256: column chunks of O. A block is one (128-row q
+// tile, column chunk, batch * q head): it owns O's columns of its chunk's
+// atoms (at most kWideAtoms of 64 columns: 128 f32 registers a thread, as at
+// D 256), and forms S = Q K^T over the whole width d, so every chunk block
+// of a q tile holds the same m and l and writes its columns of out without
+// a combine (chunk 0 writes lse). Nothing of width d stays resident: per
+// 64-key K tile the producer streams the (Q atom, K atom) pairs of the d
+// columns through a ring of kScoreStages, then the tile's V atoms of the
+// chunk through a ring of two. The consumers issue each atom's four k16
+// steps of S and hand the previous atom's stage back as soon as its
+// products are done, so one group stays in flight.
+constexpr int kWideAtoms = 4;
+
+struct WideLayout {
+  static constexpr int kBlockK = 64;
+  static constexpr int kScoreStages = 4;
+  static constexpr int kRowBytes = 128;  // one 64-column atom of bf16
+  static constexpr int kQAtomBytes = kBlockQ * kRowBytes;
+  static constexpr int kKAtomBytes = kBlockK * kRowBytes;
+  static constexpr int kScoreBytes = kQAtomBytes + kKAtomBytes;
+  static constexpr int kVBytes = kWideAtoms * kKAtomBytes;
+  static constexpr int kScore = 0;                       // + stage * score
+  static constexpr int kV = kScoreStages * kScoreBytes;  // + stage * V
+  static constexpr int kBars = kV + 2 * kVBytes;
+  static constexpr int kNumBars = 2 * kScoreStages + 4;  // full, empty x2
+  static constexpr int kBytes = kBars + 8 * kNumBars + 1024;
+};
+
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      uint16_t* __restrict__ out, float* __restrict__ lse,
+                      int n_bh, int hq, int hkv, int sq, int sk, int d,
+                      int causal, float scale_log2, int q_base_arg,
+                      int k_base_arg, int kv_len_arg,
+                      const int* __restrict__ base, int n_chunks, int per) {
+  using L = WideLayout;
+  constexpr int kBlockK = L::kBlockK;
+  constexpr int kS = L::kScoreStages;
+  constexpr uint32_t kSbo = 8 * L::kRowBytes;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) &
+                              1023);
+  uint64_t* full_s = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* empty_s = full_s + kS;
+  uint64_t* full_v = empty_s + kS;
+  uint64_t* empty_v = full_v + 2;
+
+  const int chunk = blockIdx.x % n_chunks;
+  const int q0 = (gridDim.x / n_chunks - 1 - blockIdx.x / n_chunks) * kBlockQ;
+  const int bh = host::folded_row();
+  if (bh >= n_bh) return;
+  const int kv_head = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
+  const int n_atoms = (d + host::kAtomCols - 1) / host::kAtomCols;
+  const int a0 = chunk * per;
+  const int n_out = min(per, n_atoms - a0);
+
+  __shared__ int base_s[3];
+  if (threadIdx.x == 0) {
+    if (base != nullptr) {
+      const int* row = base + 3 * (bh / hq);
+      base_s[0] = row[0];
+      base_s[1] = row[1];
+      base_s[2] = min(max(row[2], 0), sk);
+    } else {
+      base_s[0] = q_base_arg;
+      base_s[1] = k_base_arg;
+      base_s[2] = kv_len_arg;
+    }
+    for (int s = 0; s < kS; ++s) {
+      sm90::mbar_init(full_s + s, 1);
+      sm90::mbar_init(empty_s + s, kConsumerWarps);
+    }
+    for (int s = 0; s < 2; ++s) {
+      sm90::mbar_init(full_v + s, 1);
+      sm90::mbar_init(empty_v + s, kConsumerWarps);
+    }
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+  const int q_base = base_s[0], k_base = base_s[1], kv_len = base_s[2];
+
+  const int q_last = q_base + min(q0 + kBlockQ, sq) - 1;
+  int n_cols = kv_len;
+  if (causal) n_cols = max(0, min(kv_len, q_last - k_base + 1));
+  const int n_tiles = (n_cols + kBlockK - 1) / kBlockK;
+
+  if (threadIdx.x < 128) {
+    sm90::regs_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int kt = 0; kt < n_tiles; ++kt) {
+        for (int a = 0; a < n_atoms; ++a, ++it) {
+          const int st = it % kS;
+          uint8_t* stage = smem + L::kScore + st * L::kScoreBytes;
+          sm90::mbar_wait(empty_s + st, ((it / kS) & 1) ^ 1);
+          sm90::mbar_arrive_expect_tx(full_s + st, L::kScoreBytes);
+          sm90::tma_load_3d(stage, &tm_q, full_s + st, a * host::kAtomCols,
+                            q0, bh);
+          sm90::tma_load_3d(stage + L::kQAtomBytes, &tm_k, full_s + st,
+                            a * host::kAtomCols, kt * kBlockK, kv_head);
+        }
+        const int vs = kt % 2;
+        sm90::mbar_wait(empty_v + vs, ((kt / 2) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(full_v + vs, n_out * L::kKAtomBytes);
+        for (int j = 0; j < n_out; ++j) {
+          sm90::tma_load_3d(
+              smem + L::kV + vs * L::kVBytes + j * L::kKAtomBytes, &tm_v,
+              full_v + vs, (a0 + j) * host::kAtomCols, kt * kBlockK,
+              kv_head);
+        }
+      }
+    }
+  } else {
+    sm90::regs_alloc<kConsumerRegs>();
+    const int c = threadIdx.x / 128 - 1;  // rows [64c, 64c + 64) of the tile
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int row0 = q0 + 64 * c + 16 * warp + g;  // and row0 + 8
+    const int qpos0 = q_base + row0;
+    const int first_qpos = q_base + q0 + 64 * c;
+
+    float s[kBlockK / 2];
+    float o[kWideAtoms][32];
+#pragma unroll
+    for (int i = 0; i < kBlockK / 2; ++i) s[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kWideAtoms; ++j) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[j][i] = 0.f;
+    }
+    float m[2] = {kNegInf, kNegInf};
+    float l[2] = {0.f, 0.f};
+
+    auto release = [&](uint64_t* bar) {
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(bar);
+    };
+    int it = 0;
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      const int k0 = kt * kBlockK;
+      // S = Q K^T over the atoms of d; k16 steps wholly past d are skipped.
+      for (int a = 0; a < n_atoms; ++a, ++it) {
+        const int st = it % kS;
+        const uint8_t* stage = smem + L::kScore + st * L::kScoreBytes;
+        const uint64_t q_desc = sm90::make_desc(
+            stage + 64 * c * L::kRowBytes, 16, kSbo, sm90::kSwizzle128B);
+        const uint64_t k_desc = sm90::make_desc(
+            stage + L::kQAtomBytes, 16, kSbo, sm90::kSwizzle128B);
+        sm90::mbar_wait(full_s + st, (it / kS) & 1);
+        sm90::fence_regs(s);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          if (a * host::kAtomCols + 16 * kk >= d) break;
+          sm90::WgmmaSS<kBlockK, 0>::mma(
+              s, sm90::desc_advance(q_desc, 32 * kk),
+              sm90::desc_advance(k_desc, 32 * kk), a > 0 || kk > 0);
+        }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<1>();
+        sm90::fence_regs(s);
+        if (a > 0) release(empty_s + (it - 1) % kS);
+      }
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(s);
+      release(empty_s + (it - 1) % kS);
+
+      const bool mask = (causal && k_base + k0 + kBlockK - 1 > first_qpos) ||
+                        k0 + kBlockK > kv_len;
+      uint32_t p[kBlockK / 4];
+      float alpha[2];
+      softmax_step<kBlockK>(s, p, m, l, alpha, scale_log2, mask, causal, k0,
+                            qpos0, k_base, kv_len, t);
+#pragma unroll
+      for (int j = 0; j < kWideAtoms; ++j) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[j][i] *= alpha[(i >> 1) & 1];
+      }
+
+      // O[:, chunk] += P V[:, chunk], one N = 64 product an atom.
+      const int vs = kt % 2;
+      const uint8_t* v_s = smem + L::kV + vs * L::kVBytes;
+      sm90::mbar_wait(full_v + vs, (kt / 2) & 1);
+#pragma unroll
+      for (int j = 0; j < kWideAtoms; ++j) sm90::fence_regs(o[j]);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBlockK / 16; ++kk) {
+        const uint32_t pa[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                                p[4 * kk + 3]};
+#pragma unroll
+        for (int j = 0; j < kWideAtoms; ++j) {
+          if (j >= n_out) break;
+          sm90::WgmmaRS<64, 1>::mma(
+              o[j], pa,
+              sm90::make_desc(v_s + j * L::kKAtomBytes + kk * 16 * L::kRowBytes,
+                              L::kKAtomBytes, kSbo, sm90::kSwizzle128B),
+              1);
+        }
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+#pragma unroll
+      for (int j = 0; j < kWideAtoms; ++j) sm90::fence_regs(o[j]);
+      release(empty_v + vs);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      const float inv = 1.f / fmaxf(l[r], 1e-30f);
+      const int row = row0 + 8 * r;
+      if (row >= sq) continue;
+      uint16_t* orow = out + ((size_t)bh * sq + row) * d + 2 * t;
+#pragma unroll
+      for (int j = 0; j < kWideAtoms; ++j) {
+        if (j >= n_out) break;
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int col = (a0 + j) * host::kAtomCols + 8 * jj;
+          if (col >= d) break;  // d % 8 == 0: a chunk is wholly in or out
+          *reinterpret_cast<uint32_t*>(orow + col) =
+              pack_bf16(o[j][4 * jj + 2 * r] * inv,
+                        o[j][4 * jj + 2 * r + 1] * inv);
+        }
+      }
+      if (t == 0 && chunk == 0) {
+        lse[(size_t)bh * sq + row] =
+            m[r] == kNegInf ? kNegInf : (m[r] + log2f(l[r])) * kLn2;
+      }
+    }
   }
 }
 
@@ -540,16 +794,11 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   float* lse, int dtype, int batch, int hq, int hkv, int sq,
-                   int sk, int d, int causal, float sm_scale, int q_base,
-                   int k_base, int kv_len, const int* base,
-                   cudaStream_t stream) {
-  if (dtype == 0) {
-    return launch_bf16<D>(q, k, v, out, lse, batch, hq, hkv, sq, sk, d,
-                          causal, sm_scale, q_base, k_base, kv_len, base,
-                          stream);
-  }
+cudaError_t launch_f32(const void* q, const void* k, const void* v,
+                       void* out, float* lse, int batch, int hq, int hkv,
+                       int sq, int sk, int d, int causal, float sm_scale,
+                       int q_base, int k_base, int kv_len, const int* base,
+                       cudaStream_t stream) {
   const dim3 grid = host::fold_rows(
       (sq + kRowsPerBlock - 1) / kRowsPerBlock, batch * hq);
   flash_fwd_f32_kernel<D><<<grid, kRowsPerBlock * 32, 0, stream>>>(
@@ -560,17 +809,49 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   return cudaSuccess;
 }
 
+cudaError_t launch_wide(const void* q, const void* k, const void* v,
+                        void* out, float* lse, int batch, int hq, int hkv,
+                        int sq, int sk, int d, int causal, float sm_scale,
+                        int q_base, int k_base, int kv_len, const int* base,
+                        cudaStream_t stream) {
+  using L = WideLayout;
+  static std::atomic<uint64_t> configured{0};
+  const cudaError_t err = host::allow_dynamic_smem(
+      flash_fwd_wide_kernel, L::kBytes, &configured);
+  if (err != cudaSuccess) return err;
+  if (sk == 0) k = v = q;
+  // Every box is one 64-column atom (width 64: 128-byte rows).
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!host::encode_bf16_rows(&tm_q, q, d, sq, batch * hq, kBlockQ,
+                              host::kAtomCols) ||
+      !host::encode_bf16_rows(&tm_k, k, d, sk > 0 ? sk : 1, batch * hkv,
+                              L::kBlockK, host::kAtomCols) ||
+      !host::encode_bf16_rows(&tm_v, v, d, sk > 0 ? sk : 1, batch * hkv,
+                              L::kBlockK, host::kAtomCols)) {
+    return cudaErrorInvalidValue;
+  }
+  const host::Chunks chunks = host::column_chunks(d, kWideAtoms);
+  const dim3 grid = host::fold_rows(
+      (sq + kBlockQ - 1) / kBlockQ * chunks.n, batch * hq);
+  flash_fwd_wide_kernel<<<grid, kThreads, L::kBytes, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<uint16_t*>(out), lse, batch * hq, hq,
+      hkv, sq, sk, d, causal, sm_scale * kLog2e, q_base, k_base, kv_len,
+      base, chunks.n, chunks.per);
+  return cudaSuccess;
+}
+
 }  // namespace
 
-// dtype: 0 = bf16 (the Hopper kernel), 1 = f32 (check kernel). Tensors are
+// dtype: 0 = bf16 (the Hopper kernels), 1 = f32 (check kernel). Tensors are
 // contiguous and 16-byte aligned (the Python wrapper checks). The head dim
-// d is a multiple of 8 up to 256 and runs the kernel built for the next of
-// 32, 64, 128 and 256 (the wrapper pads any other d to a multiple of 8:
-// ops/_ext.py kernel_head_dim). `base`, when
-// not null, is a device int32 (batch, 3) array of [q_base, k_base, kv_len]
-// per batch row, read by the kernel in place of the three ints. Launches on
-// `stream`, allocates nothing, and returns the first error of the set-up
-// or cudaGetLastError() after the launch (0 on success).
+// d is a multiple of 8 up to kMaxHeadDim (the wrapper pads any other d to
+// a multiple of 8: ops/_ext.py kernel_head_dim): up to 256 it runs the
+// kernel built for the next of 32, 64, 128 and 256, past it (bf16) the
+// column-chunk kernel. `base`, when not null, is a device int32 (batch, 3)
+// array of [q_base, k_base, kv_len] per batch row, read by the kernel in
+// place of the three ints. Launches on `stream`, allocates nothing, and
+// returns the first error of the set-up or cudaGetLastError() after the
+// launch (0 on success).
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* out, float* lse, int dtype, int batch,
                                 int hq, int hkv, int sq, int sk, int d,
@@ -578,15 +859,27 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 int k_base, int kv_len, const int* base,
                                 void* stream) {
   if ((dtype != 0 && dtype != 1) || hkv <= 0 || hq % hkv || d <= 0 ||
-      d > 256 || d % 8) {
+      d > host::kMaxHeadDim || d % 8) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = host::with_width(d, [&](auto width) {
-    return launch<decltype(width)::value>(
-        q, k, v, out, lse, dtype, batch, hq, hkv, sq, sk, d, causal,
-        sm_scale, q_base, k_base, kv_len, base, st);
-  });
+  cudaError_t err;
+  if (dtype == 1) {
+    err = host::with_f32_width(d, [&](auto width) {
+      return launch_f32<decltype(width)::value>(
+          q, k, v, out, lse, batch, hq, hkv, sq, sk, d, causal, sm_scale,
+          q_base, k_base, kv_len, base, st);
+    });
+  } else if (d > 256) {
+    err = launch_wide(q, k, v, out, lse, batch, hq, hkv, sq, sk, d, causal,
+                      sm_scale, q_base, k_base, kv_len, base, st);
+  } else {
+    err = host::with_width(d, [&](auto width) {
+      return launch_bf16<decltype(width)::value>(
+          q, k, v, out, lse, batch, hq, hkv, sq, sk, d, causal, sm_scale,
+          q_base, k_base, kv_len, base, st);
+    });
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

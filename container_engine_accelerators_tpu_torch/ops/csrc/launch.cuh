@@ -95,6 +95,14 @@ struct Width {
   static constexpr int value = D;
 };
 
+// The widest head dim the kernels take: the f32 check kernels hold a lane's
+// columns of a row (d / 32 floats an array) in registers, up to 1024. The
+// bf16 kernels past 256 stream their operands in 64-column atoms and have
+// no width of their own (ops/_ext.py MAX_HEAD_DIM, the same number).
+constexpr int kMaxHeadDim = 1024;
+// Columns of one 128-byte swizzle atom of bf16.
+constexpr int kAtomCols = 64;
+
 // f(Width<D>{}) for the kernels' width D that takes head dim d: the next of
 // 32, 64, 128 and 256 (d <= 256; ops/_ext.py kernel_head_dim, the same
 // rule, is what the CPU tests hold).
@@ -104,6 +112,63 @@ auto with_width(int d, F f) {
          : d <= 64  ? f(Width<64>{})
          : d <= 128 ? f(Width<128>{})
                     : f(Width<256>{});
+}
+
+// The f32 check kernels' width for head dim d: with_width's up to 256, then
+// 512 and 1024.
+template <typename F>
+auto with_f32_width(int d, F f) {
+  return d <= 256   ? with_width(d, f)
+         : d <= 512 ? f(Width<512>{})
+                    : f(Width<1024>{});
+}
+
+// Column chunks of a width past 256 (ops/_ext.py column_chunks, the same
+// rule): its ceil(width / 64) atoms cut into n chunks of at most max_atoms
+// each, spread evenly: chunk c holds atoms [c * per, min((c + 1) * per,
+// atoms)), none of them empty.
+struct Chunks {
+  int n, per;
+};
+
+inline Chunks column_chunks(int width, int max_atoms) {
+  const int atoms = (width + kAtomCols - 1) / kAtomCols;
+  const int n = (atoms + max_atoms - 1) / max_atoms;
+  return {n, (atoms + n - 1) / n};
+}
+
+// Atoms of dK and of dV one dk/dv block holds (64 + 64 f32 registers a
+// thread, as at D 128).
+constexpr int kDkvChunkAtoms = 2;
+
+// The dk/dv grid (ops/_ext.py dkv_plan, the same rule) for a padded width
+// `width`: column chunks (up to 256 one, column_chunks(width, 4): the
+// kernels hold dK and dV whole or, at D 256, walk twice; past 256
+// column_chunks(width, kDkvChunkAtoms)), and `split`, the blocks a KV
+// head's GQA group is spread over: where B * Hkv * key tiles * chunks is
+// under the card's `n_sm`, the smallest divisor of the group that brings
+// the blocks to n_sm (the whole group where none does); else 1.
+struct DkvPlan {
+  int split;
+  Chunks chunks;
+};
+
+inline DkvPlan dkv_plan(int batch, int hq, int hkv, int sk, int width,
+                        int n_sm) {
+  const Chunks chunks =
+      column_chunks(width, width > 256 ? kDkvChunkAtoms : 4);
+  const long long blocks =
+      (long long)batch * hkv * ((sk + 127) / 128) * chunks.n;
+  const int group = hq / hkv;
+  int split = 1;
+  if (blocks < n_sm) {
+    for (int g = 1; g <= group; ++g) {
+      if (group % g) continue;
+      split = g;
+      if (blocks * g >= n_sm) break;
+    }
+  }
+  return {split, chunks};
 }
 
 // A grid's batch * heads rows folded over grid.y and grid.z, each at most

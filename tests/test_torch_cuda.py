@@ -26,6 +26,7 @@ from container_engine_accelerators_tpu_torch.models import (  # noqa: E402
 from container_engine_accelerators_tpu_torch.models import (  # noqa: E402
     quantization,
 )
+from container_engine_accelerators_tpu_torch.ops import _ext  # noqa: E402
 from container_engine_accelerators_tpu_torch.ops import (  # noqa: E402
     attention,
     int8_matmul,
@@ -86,6 +87,17 @@ CASES = {
     # over grid.y and grid.z.
     "bhq_65792": ((2056, 32, 8, 128, 128, 64), True, {}),
     "bhkv_65792": ((4112, 16, 16, 32, 32, 32), True, {}),
+    # Head dims past 256, by column chunks (the forward and dq: chunks of up
+    # to 4 atoms of 64 columns; dk/dv: of 2): 264 (an atom of 8 columns),
+    # 288 (Gemma-2-2B's and Gemma-3-1B's heads on the repo's block), 300
+    # (padded to 304), 384, 512 and 1024 (the widest the kernels take).
+    "d264_mqa": ((1, 4, 1, 300, 300, 264), True, {}),
+    "d288_gqa": ((1, 8, 4, 257, 257, 288), True, {}),
+    "d300_padded_kv_len": ((1, 4, 2, 130, 333, 300), False,
+                           {"kv_len": 250}),
+    "d384_q_base": ((1, 4, 2, 100, 512, 384), True, {"q_base": 300}),
+    "d512_mha": ((1, 8, 8, 256, 256, 512), True, {}),
+    "d1024_mqa": ((1, 2, 1, 200, 200, 1024), True, {}),
 }
 # The paged engine's prefill segments: a segment bucket below the 128-row
 # q tile at a block-aligned (not tile-aligned) q_base, against a window
@@ -94,6 +106,8 @@ FWD_CASES = {
     **CASES,
     "paged_sq16": ((1, 8, 2, 16, 2048, 128), True, {"q_base": 1040}),
     "paged_sq64": ((1, 8, 2, 64, 4096, 64), True, {"q_base": 2000}),
+    # A verify's rows at D 288, over a window past the diagonal.
+    "d288_sq16": ((2, 8, 4, 16, 1024, 288), True, {"q_base": 700}),
 }
 
 
@@ -130,8 +144,8 @@ def test_kernel_without_keys_gives_zero_rows(gen, dtype):
 
 
 def test_kernel_rejects_what_it_does_not_take(gen):
-    q = torch.randn(1, 2, 16, 264, device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim 264.*256"):
+    q = torch.randn(1, 2, 16, 1032, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 1032.*1024"):
         attention.flash_fwd(q, q, q, causal=True, sm_scale=0.1)
     q = torch.randn(1, 2, 16, 64, device="cuda", dtype=torch.float16)
     with pytest.raises(ValueError, match="dtype"):
@@ -396,7 +410,8 @@ def test_graphs_stay_valid_across_a_pool_reset(gen):
 
 BASE_CASES = ("q_base_window", "kv_len_rows_past_keys", "noncausal_kv_len",
               "future_keys", "diagonal_mid_tile", "kv_len_in_first_tile",
-              "d32_ragged", "paged_sq16", "paged_sq64")
+              "d32_ragged", "paged_sq16", "paged_sq64", "d288_sq16",
+              "d300_padded_kv_len")
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -581,6 +596,56 @@ def test_bwd_kernels_match_plain_version(gen, name, dtype):
     kv_len = kw.get("kv_len", sk)
     assert not grads[1][:, :, kv_len:].any()
     assert not grads[2][:, :, kv_len:].any()
+
+
+# The dk/dv launch's GQA split (_ext.dkv_plan) on a 132-SM card: one and
+# two KV heads whose blocks would leave it idle. (B, Hq, Hkv, S, D).
+SPLIT_CASES = {
+    "mqa_d128_s1024": (1, 8, 1, 1024, 128),
+    "gqa2_d128_s2048": (1, 8, 2, 2048, 128),
+    "mqa_d256_s512": (1, 8, 1, 512, 256),
+    "mqa_d288_s1024": (1, 4, 1, 1024, 288),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SPLIT_CASES))
+def test_split_dkv_is_the_same_bits_every_run(gen, name):
+    """The split blocks' f32 partials, summed in a fixed order by the
+    second kernel, give the same bits on every run, and agree with the
+    plain version of the split (``flash_bwd_dkv_split_reference``)."""
+    b, hq, hkv, s, d = SPLIT_CASES[name]
+    split, _, _ = _ext.dkv_plan(b, hq, hkv, s, d, _ext.sm_count(0))
+    assert split > 1, name
+    q, g = (torch.randn(b, hq, s, d, generator=gen, device="cuda").bfloat16()
+            for _ in range(2))
+    k, v = (torch.randn(b, hkv, s, d, generator=gen, device="cuda").bfloat16()
+            for _ in range(2))
+    kw = dict(causal=True, sm_scale=d ** -0.5)
+    out, lse = attention.flash_fwd(q, k, v, **kw)
+    runs = [attention.flash_bwd(q, k, v, out, lse, g, **kw)[1:]
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    for other in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], other)), name
+    ref = attention.flash_bwd_dkv_split_reference(q, k, v, out, lse, g,
+                                                  split=split, **kw)
+    tol = BWD_TOL[torch.bfloat16]
+    for got, want in zip(runs[0], ref):
+        _, rel_l2, worst_row = chip_smoke.grad_errors(got, want)
+        assert rel_l2 <= tol["rel_l2"] and worst_row <= tol["row"], name
+
+
+def test_dkv_plan_is_the_kernels_plan(gen):
+    """``_ext.dkv_plan``'s scratch for a split group is what csrc's
+    launch asks for, on this card's SM count."""
+    lib = _ext._flash_bwd_lib()
+    n_sm = _ext.sm_count(0)
+    for shape in [(1, 8, 1, 4096, 256), (1, 8, 2, 4096, 128),
+                  (1, 32, 8, 2048, 128), (1, 32, 8, 8192, 128),
+                  (1, 4, 1, 4096, 288), (1, 8, 4, 4096, 288),
+                  (2, 16, 4, 1000, 1024), (3, 6, 2, 100, 64)]:
+        assert lib.flash_bwd_dkv_partial_floats(*shape, n_sm) == \
+            _ext.dkv_partial_floats(*shape, n_sm), shape
 
 
 # f32 card (the f32 kernels, cuBLAS without TF32) vs CPU: summation order

@@ -215,8 +215,8 @@ def test_kernel_head_dim_on_every_width_it_takes():
     """Every head dim from 1 to 256: the padded width is the next
     multiple of 8 (TMA's 16-byte row stride), the kernel width the next
     instantiation that holds it, and a width already a multiple of 8 is
-    not copied."""
-    for d in range(1, _ext.MAX_HEAD_DIM + 1):
+    not copied. (Past 256: tests/test_torch_wide_heads.py.)"""
+    for d in range(1, _ext.FLASH_WIDTHS[-1] + 1):
         width, kernel = _ext.kernel_head_dim(d)
         assert width % 8 == 0 and d <= width < d + 8, d
         assert kernel in _ext.FLASH_WIDTHS and width <= kernel, d
@@ -229,10 +229,19 @@ def test_kernel_head_dim_on_every_width_it_takes():
     assert _ext.kernel_head_dim(256) == (256, 256)
 
 
-@pytest.mark.parametrize("d", [0, 257, 264, 512])
+@pytest.mark.parametrize("d", [-8, -1, 0, 257, 264, 512])
 def test_kernel_head_dim_refuses_past_256(d):
-    with pytest.raises(ValueError, match="256"):
-        _ext.kernel_head_dim(d)
+    """Widths below 1 are refused. Past 256, which the kernels refused
+    until they took wider heads by column chunks, a width is planned: its
+    padded width, run by the wide kernels at that width."""
+    if d < 1:
+        with pytest.raises(ValueError, match=f"head dim {d} "):
+            _ext.kernel_head_dim(d)
+        return
+    width = -(-d // 8) * 8
+    assert _ext.kernel_head_dim(d) == (width, width)
+    assert _ext.column_chunks(width, _ext.FWD_CHUNK_ATOMS)[0] == \
+        -(-width // 256)
 
 
 def test_padded_copy_is_zero_past_the_width():
