@@ -205,6 +205,9 @@ HBM_BYTES_PER_S = PEAK_CARD.hbm_gbps * 1e9
 # magnitude. f32: only the summation order differs.
 TOL = {
     "bfloat16": {"out_atol": 1e-2, "out_rtol": 1e-2, "lse_atol": 1e-4},
+    # f16 keeps 11 significant bits (a step of 2^-11 relative), 8 times
+    # finer than bf16: the same one-step argument.
+    "float16": {"out_atol": 2e-3, "out_rtol": 2e-3, "lse_atol": 1e-4},
     "float32": {"out_atol": 2e-5, "out_rtol": 0.0, "lse_atol": 2e-5},
 }
 # Prefill logits of the 32-layer model through the kernel vs the plain
@@ -223,6 +226,7 @@ SERVE_LOGITS_ATOL = 0.25
 # summation order only. Each bwd_kernel line prints both readings.
 BWD_TOL = {
     "bfloat16": {"rel_l2": 5e-3, "row": 1e-2},
+    "float16": {"rel_l2": 1e-3, "row": 2e-3},  # the same, at f16's step
     "float32": {"rel_l2": 1e-5, "row": 1e-4},
 }
 # train_grads: the same bf16 model through the kernels and through plain
@@ -251,6 +255,7 @@ TRAIN_CLI_SUPERVISED_KEYS = TRAIN_CLI_KEYS | {"restarts", "goodput"}
 # summation-order noise (far under 1e-3 at K 14336 for outputs of about
 # unit size). f32: summation order only.
 INT8_TOL = {"bfloat16": {"rtol": 2.0 ** -7, "atol": 1e-3},
+            "float16": {"rtol": 2.0 ** -10, "atol": 1e-3},
             "float32": {"rtol": 1e-5, "atol": 1e-5}}
 # The Triton triad and copy against their plain versions (bf16, f32): both
 # compute x + y·s + z·ε (x·c + t) in f32 in one order (the kernels without
@@ -313,18 +318,22 @@ def nvidia_smi_line():
 
 def ptxas_summary(report):
     """The lines of nvcc's ``-Xptxas -v`` report that say what a kernel
-    costs, each after its kernel's name and integer template arguments
-    (``flash_bwd_dq_sm90_kernel<128>``, ``int8_mm_sm90_kernel<8,1,8,2>``):
-    registers, spills, and any note that ptxas serialised the kernel's
-    wgmma instructions, which costs most of their rate."""
+    costs, each after its kernel's name, its 16-bit element type and its
+    integer template arguments (``flash_bwd_dq_sm90_kernel<f16,128>``,
+    ``int8_mm_sm90_kernel<8,1,8,2>``): registers, spills, and any note
+    that ptxas serialised the kernel's wgmma instructions, which costs
+    most of their rate."""
     kernel, lines = "?", []
     for line in report.splitlines():
         found = re.search(r"Compiling entry function '.*?((?:flash_(?:fwd|"
-                          r"bwd)_(?:dq_|dkv_)?(?:sm90|f32)|int8_mm_(?:sm90|"
-                          r"bf16|f32))_kernel)(\w*)'", line)
+                          r"bwd)_(?:dq_|dkv_)?(?:sm90|f32|wide|wide_stream)"
+                          r"|int8_mm_(?:sm90|mma|f32)|dkv_reduce)_kernel)"
+                          r"(\w*)'", line)
         if found:
-            args = ",".join(re.findall(r"L[ib](\d+)E", found.group(2)))
-            kernel = f"{found.group(1)}<{args}>"
+            args = [{"13__nv_bfloat16": "bf16", "6__half": "f16"}[e] for e in
+                    re.findall(r"13__nv_bfloat16|6__half", found.group(2))]
+            args += re.findall(r"L[ib](\d+)E", found.group(2))
+            kernel = f"{found.group(1)}<{','.join(args)}>"
         elif any(w in line for w in ("Used", "spill", "wgmma", "serialized")):
             lines.append(f"{kernel}: {line.strip()}")
     return lines
@@ -374,7 +383,7 @@ def flash_bound(batch, num_q_heads, num_kv_heads, seq_q, seq_k, d, dtype,
     rows' work and bytes are summed. A row whose queries see no key moves
     only its outputs (WRITES)."""
     flops_per_d, q_like, k_like, rows = WORK[kind]
-    elt = 2 if dtype == "bfloat16" else 4
+    elt = 4 if dtype == "float32" else 2
     q_bases = q_base if isinstance(q_base, (list, tuple)) else \
         [q_base] * batch
     flops = nbytes = 0
@@ -393,7 +402,8 @@ def flash_bound(batch, num_q_heads, num_kv_heads, seq_q, seq_k, d, dtype,
         nbytes += elt * d * (q_like * num_q_heads * seq_q + num_kv_heads
                              * (2 * keys_read + (k_like - 2) * seq_k))
         nbytes += 4 * rows * num_q_heads * seq_q
-    peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_F32_FLOPS
+    # bf16 and f16 run at one dense tensor-core rate on this card.
+    peak = PEAK_F32_FLOPS if dtype == "float32" else PEAK_BF16_FLOPS
     t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
     if t_ops >= t_bytes:
         return t_ops * 1e3, "operations"
@@ -674,7 +684,8 @@ def run_kernel_case(case, torch, attention, gen, serving_graphs):
     )
     row["library_ms"], backend = library_ms(
         q, k, v, torch, attention, causal=causal, sm_scale=d ** -0.5,
-        q_base=mask_base, k_base=k_base, kv_len=kv_len, backend=d > 256)
+        q_base=mask_base, k_base=k_base, kv_len=kv_len,
+        backend=d > 256 or dtype == "float16")
     if backend:
         row["library_backend"] = backend
     row["ms_over_library"] = (row["ms"] / row["library_ms"]
@@ -927,7 +938,8 @@ def run_bwd_case(case, torch, attention, _ext, gen, serving_graphs):
             kv_len, kind=kind,
         )
     row["library_ms"], backend = library_bwd_ms(
-        q, k, v, g, torch, attention, backend=d > 256, **kw)
+        q, k, v, g, torch, attention,
+        backend=d > 256 or dtype == "float16", **kw)
     if backend:
         row["library_backend"] = backend
     emit(row)
@@ -975,7 +987,8 @@ INT8_MAIN_CASE = "m8_w1"
 # the eager launch when replayed.
 INT8_GRAPH_CASES = ("m1_w1", "m8_wq", "m8_wk", "m8_w1", "m8_w2",
                     "m16_w1", "m128_w1", "m128_w2", "bench_m8_wq",
-                    "bench_m8_wk", "bench_m8_w1", "bench_m8_w2")
+                    "bench_m8_wk", "bench_m8_w1", "bench_m8_w2",
+                    "fp16_m8_w1", "fp16_m8_wq", "fp16_m8_wk")
 # Weight bytes one timed pass cycles through, so that a launch finds its
 # weight in HBM (the 50 MB L2 cannot hold them), as the decode does: it
 # streams 218 MB of layer matrices a layer.
@@ -1005,17 +1018,19 @@ def _cycling(fn, count):
 
 
 def run_int8_case(case, torch, int8_matmul, q8, gen, serving_graphs,
-                  attention):
-    """One int8_mm row: the kernel against the plain version (bf16, within
-    INT8_TOL), then its time on weights cycled through more than the L2
-    holds, beside the plain version, the unfused PyTorch composition
-    (``library_ms``), cuBLAS on a bf16 weight of the same shape
-    (``bf16_ms``) and ``torch._weight_int8pack_mm`` where this torch runs
-    it on CUDA. A fifth field "float32" asks for the f32 epilogue (a row
-    shard's partial sums), held to the plain version's f32 output."""
+                  attention, act="bfloat16"):
+    """One int8_mm row: the kernel against the plain version (activations
+    in ``act``, bf16 or f16, within INT8_TOL), then its time on weights
+    cycled through more than the L2 holds, beside the plain version, the
+    unfused PyTorch composition (``library_ms``), cuBLAS on a weight of the
+    activations' dtype and the same shape (``bf16_ms``, or ``f16_ms``) and
+    ``torch._weight_int8pack_mm`` where this torch runs it on CUDA. A
+    fifth field "float32" asks for the f32 epilogue (a row shard's partial
+    sums), held to the plain version's f32 output."""
     name, m, k, n, *out_dtype = case
     out_dt = getattr(torch, out_dtype[0]) if out_dtype else None
-    dt = torch.bfloat16
+    dt = getattr(torch, act)
+    dense = "bf16" if act == "bfloat16" else "f16"
     x = torch.randn(m, k, generator=gen, device="cuda").to(dt)
     copies = max(1, min(GRAPH_LAUNCHES, math.ceil(COLD_BYTES / (k * n))))
     qts, scales = [], []
@@ -1029,12 +1044,12 @@ def run_int8_case(case, torch, int8_matmul, q8, gen, serving_graphs,
     torch.cuda.synchronize()
     ref = int8_matmul.int8_mm_reference(x, qts[0], scales[0],
                                         out_dtype=out_dt)
-    tol = INT8_TOL["bfloat16"]
+    tol = INT8_TOL[act]
     err = (got.float() - ref.float()).abs()
     excess = (err - tol["atol"] - tol["rtol"] * ref.float().abs()).max()
     row = {"phase": "kernel", "case": f"int8_mm_{name}", "kernel": "int8_mm",
-           "shape": {"M": m, "K": k, "N": n}, "dtype": "bfloat16",
-           "out_dtype": "float32" if out_dt is not None else "bfloat16",
+           "shape": {"M": m, "K": k, "N": n}, "dtype": act,
+           "out_dtype": "float32" if out_dt is not None else act,
            "weight_copies": copies, "max_abs_err": err.max().item(),
            "tol": tol}
     if not torch.isfinite(got.float()).all() or excess.item() > 0:
@@ -1080,9 +1095,9 @@ def run_int8_case(case, torch, int8_matmul, q8, gen, serving_graphs,
                              math.ceil(COLD_BYTES / (2 * k * n))))
     ws = [(torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5)
           .to(dt) for _ in range(bf16_copies)]
-    row["bf16_ms"] = time_ms(_cycling(lambda i: x @ ws[i], bf16_copies),
-                             torch)
-    row["ms_over_bf16"] = row["ms"] / row["bf16_ms"]
+    row[f"{dense}_ms"] = time_ms(_cycling(lambda i: x @ ws[i], bf16_copies),
+                                 torch)
+    row[f"ms_over_{dense}"] = row["ms"] / row[f"{dense}_ms"]
     del ws
     emit(row)
     return row
@@ -7102,10 +7117,13 @@ def _width_traffic(np, vocab):
     return prompts, max_new
 
 
-def _width_engine(torch, serve_cli, attention, model, prompts, max_new):
+def _width_engine(torch, serve_cli, attention, model, prompts, max_new,
+                  solo=()):
     """The paged engine under ``--speculate ngram`` (serve_paged's slots,
-    chunks and blocks) on ``model`` behind the HTTP server, every prompt
-    posted at once → (streams, readings)."""
+    chunks and blocks) on ``model`` behind the HTTP server: each of
+    ``solo`` ((name, prompt, max_new)) posted alone, its wall time read as
+    ``solo_latency_s``, then every prompt posted at once → (streams,
+    readings)."""
     engine = serve_cli.ContinuousEngine(
         model, max_slots=8, chunk=32, prefill_chunk=512, kv_cache="paged",
         kv_block_size=16, speculate="ngram")
@@ -7115,6 +7133,11 @@ def _width_engine(torch, serve_cli, attention, model, prompts, max_new):
         serve_cli.wait_ready(state, timeout=600)
         ready_s = time.perf_counter() - t0
         port = server.server_address[1]
+        solo_s = {}
+        for name, prompt, new in solo:
+            resp = serve_cli.post_generate(port, [prompt], new)
+            _check_response(name, resp, prompt, new, model.cfg.vocab_size)
+            solo_s[name] = resp["latency_s"]
         with concurrent.futures.ThreadPoolExecutor(len(prompts)) as pool:
             futures = {name: pool.submit(serve_cli.post_generate, port,
                                          [prompt], max_new[name])
@@ -7125,7 +7148,8 @@ def _width_engine(torch, serve_cli, attention, model, prompts, max_new):
         server.shutdown()
         server.server_close()
     stats = engine.stats()
-    readings = {"ready_s": ready_s, "n_prefills": stats["n_prefills"],
+    readings = {"ready_s": ready_s, "solo_latency_s": solo_s,
+                "n_prefills": stats["n_prefills"],
                 "steps_done": stats["steps_done"],
                 "ttft_s": [{"prompt_len": n, "ttft_s": t}
                            for n, t in engine.ttft_s],
@@ -7345,6 +7369,359 @@ def head_widths_phase(torch, np, tf, serve_cli, attention, _ext, card):
     return tuple(launches)
 
 
+# float16: the dtype JAX takes beside bf16 and f32. The f16
+# kernels' rows: the forward at D 64, 128, 256 and 288, causal and not,
+# with GQA groups of 8 and Llama-2-7B's heads (32 over 32, D 128), a
+# device-base verify; the wide forward at D 288 (both Gemma widths), 512
+# and 1024; dq and dk/dv at D 64-288; int8_mm with f16 activations.
+FP16_CASES = [
+    ("fp16_d64_gqa8_s4096", 1, 4096, 4096, True, 0, 0, None, 32, 4, 64,
+     "float16"),
+    ("fp16_d64_noncausal_kv_len", 2, 300, 1000, False, 0, 0, 777, 16, 2, 64,
+     "float16"),
+    ("fp16_llama2_7b_s2048", 1, 2048, 2048, True, 0, 0, None, 32, 32, 128,
+     "float16"),
+    ("fp16_d128_noncausal_kv_len", 1, 300, 1000, False, 0, 0, 777, 32, 8,
+     128, "float16"),
+    ("fp16_llama2_7b_verify_b8_sq16", 8, 16, 2048, True,
+     [1040 + 137 * i for i in range(8)], 0, None, 32, 32, 128, "float16"),
+    ("fp16_d256_gqa8_s4096", 1, 4096, 4096, True, 0, 0, None, 8, 1, 256,
+     "float16"),
+    ("fp16_d256_noncausal_kv_len", 1, 300, 1000, False, 0, 0, 777, 8, 1,
+     256, "float16"),
+    ("fp16_gemma2_2b_d288_s4096", 1, 4096, 4096, True, 0, 0, None, 8, 4, 288,
+     "float16"),
+    ("fp16_gemma3_1b_d288_s4096", 1, 4096, 4096, True, 0, 0, None, 4, 1, 288,
+     "float16"),
+    ("fp16_d288_noncausal_gqa8", 1, 300, 1000, False, 0, 0, 777, 8, 1, 288,
+     "float16"),
+]
+# The wide forward's widths in both 16-bit dtypes (forward rows only; the
+# bf16 D 288 and 512 rows are WIDE_CASES'): D 288 at both Gemma widths, D
+# 512 (two chunks, Q resident), D 1024 (the streaming kernel).
+WIDE_FWD_CASES = [
+    ("d1024_s2048", 1, 2048, 2048, True, 0, 0, None, 4, 4, 1024, "bfloat16"),
+    ("fp16_d512_s2048", 1, 2048, 2048, True, 0, 0, None, 8, 8, 512,
+     "float16"),
+    ("fp16_d1024_s2048", 1, 2048, 2048, True, 0, 0, None, 4, 4, 1024,
+     "float16"),
+]
+FP16_BWD_CASES = [c for c in FP16_CASES if not isinstance(c[5], list)]
+# int8_mm with f16 activations: Llama-3-8B's w1, wq and wk at the engines'
+# decode batch of 8, and w1 at a 512-token prefill.
+FP16_INT8_CASES = [("fp16_m8_w1", 8, 4096, 14336), ("fp16_m8_wq", 8, 4096,
+                                                     4096),
+                   ("fp16_m8_wk", 8, 4096, 1024),
+                   ("fp16_m512_w1", 512, 4096, 14336)]
+
+
+def fp16_kernels_phase(torch, attention, _ext, int8_matmul, q8, gen,
+                       serving_graphs, card):
+    """Every f16 kernel against its plain version (FP16_CASES,
+    WIDE_FWD_CASES, FP16_BWD_CASES, FP16_INT8_CASES): each row its device
+    ms, bound, host µs and, for the flash rows, SDPA's f16 time and
+    backend. Returns the rows (fwd, bwd, int8) by case."""
+    t0 = time.perf_counter()
+    fwd = {c[0]: run_kernel_case(c, torch, attention, gen, serving_graphs)
+           for c in FP16_CASES + WIDE_FWD_CASES}
+    _free(torch)
+    bwd = {c[0]: run_bwd_case(c, torch, attention, _ext, gen, serving_graphs)
+           for c in FP16_BWD_CASES}
+    _free(torch)
+    int8 = {c[0]: run_int8_case(c, torch, int8_matmul, q8, gen,
+                                serving_graphs, attention, act="float16")
+            for c in FP16_INT8_CASES}
+    _free(torch)
+
+    def brief(row, pre=""):
+        return {k: row.get(f"{pre}{k}") for k in (
+            "ms", "bound_ms", "bound_by", "plain_ms", "host_us")}
+    emit({"phase": "fp16_kernels", **card,
+          "seconds": time.perf_counter() - t0,
+          "fwd": {n: {**brief(r), "dtype": r["dtype"],
+                      "library_ms": r["library_ms"],
+                      "library_backend": r.get("library_backend"),
+                      "max_abs_err_out": r["max_abs_err_out"]}
+                  for n, r in fwd.items()},
+          "dq": {n: brief(r, "dq_") for n, r in bwd.items()},
+          "dkv": {n: brief(r, "dkv_") for n, r in bwd.items()},
+          "bwd_library": {n: {"ms": r["library_ms"],
+                              "backend": r.get("library_backend")}
+                          for n, r in bwd.items()},
+          "int8_mm": {n: {k: r[k] for k in (
+              "ms", "bound_ms", "bound_by", "plain_ms", "host_us",
+              "library_ms", "f16_ms", "max_abs_err")}
+              for n, r in int8.items()}})
+    return fwd, bwd, int8
+
+
+# Llama-2-7B (meta-llama/Llama-2-7b-hf config.json: d 4096, 32 heads over
+# 32 KV heads of 128, d_ff 11008, vocab 32000, rope θ 10000, 4096
+# positions, "torch_dtype": "float16"), random weights; served at
+# SERVE_FP16_LAYERS of its 32 layers to stay in the time limit, trained at
+# TRAIN_FP16_LAYERS.
+LLAMA2_7B = dict(vocab_size=32000, d_model=4096, n_layers=32, n_heads=32,
+                 n_kv_heads=32, d_ff=11008, max_seq_len=4096,
+                 rope_theta=10000.0, dtype="float16")
+SERVE_FP16_LAYERS = 8
+TRAIN_FP16_LAYERS = 2
+TRAIN_FP16_SEQ = 4096
+FP16_MAX = 65504.0
+
+
+def _max_activations(torch, tf, model, prompt):
+    """The largest |value| of each layer's output (the residual stream)
+    and of the logits over one forward of ``prompt``: where f16 would
+    overflow (past 65504) it shows here."""
+    seen = []
+    hooks = [layer.register_forward_hook(
+        lambda _m, _i, out: seen.append(out[0].abs().max().item()))
+        for layer in model.model.layers]
+    try:
+        with torch.inference_mode():
+            logits = tf.forward(model.model, torch.as_tensor(
+                [prompt], device=model.device), logits_at="last")
+    finally:
+        for h in hooks:
+            h.remove()
+    return {"layers": seen, "logits": logits.abs().max().item()}
+
+
+def serve_fp16_phase(torch, np, tf, serve_cli, attention, int8_matmul,
+                     card):
+    """Llama-2-7B's widths in f16 at SERVE_FP16_LAYERS layers on the paged
+    engine under ``--speculate ngram`` (``_width_engine``, after three
+    solo requests at fresh 1500-token prompts: 33 new tokens, capturing
+    the decode window's graph; one token for TTFT; 33 new tokens for ms a
+    token), its streams held to the same engine on
+    the plain attention by the margin rule and a 1500-token prefill's
+    logits to the plain attention's; then one ``--quantize int8`` request
+    on the same weights. Counts at zero before, read after; returns the
+    flash launches (eager calls and n_layers a verify replay) and the int8
+    launches."""
+    cfg = tf.TransformerConfig(**dict(LLAMA2_7B,
+                                      n_layers=SERVE_FP16_LAYERS))
+    t0 = time.perf_counter()
+    model = serve_cli.Model(cfg, seed=0, device="cuda")
+    prompts, max_new = _width_traffic(np, cfg.vocab_size)
+    # Fresh 1500-token prompts: the first captures its decode window's
+    # graph, the second reads TTFT, the third decodes on replays.
+    rng = np.random.default_rng(12)
+    solo = [(name, rng.integers(0, cfg.vocab_size, 1500).tolist(), new)
+            for name, new in (("capture_p1500", 33), ("ttft_p1500", 1),
+                              ("decode_p1500", 33))]
+    _zero_flash_counts(attention)
+    got, r = _width_engine(torch, serve_cli, attention, model, prompts,
+                           max_new, solo=solo)
+    logits = _prefill_logits(torch, tf, model, prompts["p1500"])
+    launches = attention.flash_fwd_launches + \
+        cfg.n_layers * r["verify_graph_replays"]
+    act = _max_activations(torch, tf, model, prompts["p1500"])
+    before = attention.flash_fwd_launches
+    with plain_attention(tf, attention):
+        want, _ = _width_engine(torch, serve_cli, attention, model, prompts,
+                                max_new)
+        row = _logit_row(torch, logits, _prefill_logits(
+            torch, tf, model, prompts["p1500"]))
+    if attention.flash_fwd_launches != before:
+        fail("serve_fp16: the plain-attention reference launched the kernel")
+    for req, prompt in prompts.items():
+        _check_response(f"serve_fp16 {req}", {"tokens": [got[req]]}, prompt,
+                        max_new[req], cfg.vocab_size)
+    if not r["spec_verifies"] or \
+            r["verify_graph_replays"] != r["spec_verifies"] or \
+            r["eager_chunks_on_cuda"] or r["eager_verifies_on_cuda"]:
+        fail(f"serve_fp16: {r['spec_verifies']} verifies, "
+             f"{r['verify_graph_replays']} verify replays, "
+             f"{r['eager_chunks_on_cuda']} eager chunks")
+    _hold_logit_row(row, "serve_fp16", "prefill_p1500")
+    partings = _margin_partings(torch, tf, model, prompts, got, want,
+                                "serve_fp16")
+    peak = max(act["layers"] + [act["logits"]])
+    if not math.isfinite(peak) or peak >= FP16_MAX or launches <= 0:
+        fail(f"serve_fp16: largest |activation| {peak}, {launches} flash "
+             f"launches")
+    ttft = r["solo_latency_s"]["ttft_p1500"]
+    decode_ms = (r["solo_latency_s"]["decode_p1500"] - ttft) / 32 * 1e3
+
+    # One --quantize int8 request on the same weights (quantized in place).
+    q_model = serve_cli.Model(cfg, weights=model.model, quantize="int8")
+    counts = int8_matmul.int8_mm_launches, int8_matmul.int8_mm_captured
+    flash0 = attention.flash_fwd_launches
+    engine = serve_cli.ContinuousEngine(
+        q_model, max_slots=2, chunk=32, prefill_chunk=512, kv_cache="paged",
+        kv_block_size=16)
+    try:
+        t1 = time.perf_counter()
+        (int8_tokens,) = engine.generate([prompts["p300"]], 16)
+        int8_s = time.perf_counter() - t1
+    finally:
+        engine.shutdown()
+    int8_launches = int8_matmul.int8_mm_launches - counts[0]
+    int8_captured = int8_matmul.int8_mm_captured - counts[1]
+    launches += attention.flash_fwd_launches - flash0
+    _check_response("serve_fp16 int8", {"tokens": [int8_tokens]},
+                    prompts["p300"], 16, cfg.vocab_size)
+    if int8_launches + int8_captured <= 0:
+        fail("serve_fp16: the int8 request launched no int8_mm kernel")
+    emit({"phase": "serve_fp16", **card, "model": "llama2-7b",
+          "dtype": "float16", "n_layers": cfg.n_layers,
+          "n_layers_full": LLAMA2_7B["n_layers"],
+          "weights_gb": weight_bytes(model.model) / 1e9,
+          "ttft_s_p1500": ttft, "decode_ms_per_token_p1500": decode_ms,
+          "solo_latency_s": r["solo_latency_s"],
+          "prefill_p1500": row, "partings": partings,
+          "max_abs_activation": act, "fp16_max": FP16_MAX,
+          "flash_fwd_launches": launches,
+          "int8": {"tokens": len(int8_tokens) - len(prompts["p300"]),
+                   "wall_s": int8_s, "int8_mm_launches": int8_launches,
+                   "int8_mm_captured": int8_captured},
+          **{k: r[k] for k in ("ready_s", "n_prefills", "steps_done",
+                               "ttft_s", "decode_tokens_per_s",
+                               "spec_verifies", "spec_proposed",
+                               "spec_accepted", "graph_captures",
+                               "graph_replays", "verify_graph_replays")},
+          "seconds": time.perf_counter() - t0})
+    del model, q_model
+    _free(torch)
+    return launches, int8_launches
+
+
+@contextlib.contextmanager
+def plain_flash_training(torch, tf, attention):
+    """Inside the block, the training step's attention
+    (``transformer.flash_attention``) runs the flash kernels' plain
+    versions on the card under autograd: ``flash_fwd_reference`` forward
+    and ``flash_bwd_reference`` backward, with the kernels' (and JAX's
+    Pallas kernels') rounding points: p to the input dtype before P V, dS
+    before its products. The port itself never does this."""
+
+    class PlainFlash(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, causal, sm_scale):
+            out, lse = attention.flash_fwd_reference(
+                q, k, v, causal=causal, sm_scale=sm_scale)
+            ctx.save_for_backward(q, k, v, out, lse)
+            ctx.causal, ctx.sm_scale = causal, sm_scale
+            return out
+
+        @staticmethod
+        def backward(ctx, g):
+            q, k, v, out, lse = ctx.saved_tensors
+            dq, dk, dv = attention.flash_bwd_reference(
+                q, k, v, out, lse, g, causal=ctx.causal,
+                sm_scale=ctx.sm_scale)
+            return dq, dk, dv, None, None
+
+    attn = tf.flash_attention
+
+    def plain(q, k, v, causal=True, sm_scale=None):
+        return PlainFlash.apply(q, k, v, causal,
+                                float(sm_scale or q.shape[-1] ** -0.5))
+
+    tf.flash_attention = plain
+    try:
+        yield
+    finally:
+        tf.flash_attention = attn
+
+
+# train_fp16's parameters whose gradients are not formed from a layer's
+# own dS (wv from P^T dO, wo, the FFN, the second norm, ln_f): held by
+# TRAIN_GRAD_TOL to the kernels' plain versions; the dS path reaches them
+# only through the residual stream, mixed with the rest. wq and wk are
+# formed from dS, and the first norm and the embedding sum them; at these
+# widths dS is mostly below f16's smallest normal value (6.1e-5), so two
+# f32 sums in another order round to other subnormals: the kernels and
+# their plain versions, both 0.567 from the f32 step (relative L2 of wq's
+# gradient), part by up to 0.087 (PERF.md §6).
+# Every parameter is held to the f32 step by world_smoke's F32_ANCHOR: the
+# kernels round no more than their plain versions.
+TRAIN_FP16_PAST_DS = ("attn.wv", "attn.wo", "ln2", "ffn.", "ln_f")
+
+
+def train_fp16_phase(torch, np, tf, attention, card):
+    """Llama-2-7B's widths in f16 at TRAIN_FP16_LAYERS layers, B 1 ×
+    TRAIN_FP16_SEQ: one step's loss and every gradient through the kernels
+    (``FlashAttention.backward``) against the same step through the
+    kernels' plain versions (``plain_flash_training``: JAX's rounding
+    points) and the f32 step on the same weights widened: the loss within
+    TRAIN_GRAD_TOL, the gradients not formed from dS
+    (TRAIN_FP16_PAST_DS) within TRAIN_GRAD_TOL, and every gradient's
+    relative L2 error from the f32 step within world_smoke's F32_ANCHOR of
+    the plain versions' (see TRAIN_FP16_PAST_DS for why). The step on
+    ``mha_reference`` under autograd, which rounds dP where the kernels
+    round dS, is read beside. Counts at zero before, read after; returns
+    the launches (fwd, dq, dkv)."""
+    from container_engine_accelerators_tpu_torch.parallel import world_smoke
+
+    t0 = time.perf_counter()
+    cfg = tf.TransformerConfig(**dict(LLAMA2_7B,
+                                      n_layers=TRAIN_FP16_LAYERS))
+    model = tf.init_params(cfg, device="cuda", seed=0)
+    tokens = np.random.default_rng(4).integers(0, cfg.vocab_size,
+                                               (1, TRAIN_FP16_SEQ + 1))
+    batch = {"tokens": torch.as_tensor(tokens, device="cuda")}
+
+    def loss_and_grads(m, attn_impl):
+        m.zero_grad(set_to_none=True)
+        loss = tf.loss_fn(m, batch, attn_impl=attn_impl)
+        loss.backward()
+        return loss.item(), {n: p.grad.clone()
+                             for n, p in m.named_parameters()}
+
+    _zero_flash_counts(attention)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loss_k, grads_k = loss_and_grads(model, "flash")
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t1
+    launches = list(_flash_counts(attention))
+    counted = _flash_counts(attention)
+    with plain_flash_training(torch, tf, attention):
+        loss_p, grads_p = loss_and_grads(model, "flash")
+    if _flash_counts(attention) != counted:
+        fail("train_fp16: the plain versions launched a kernel")
+    past_ds = [n for n in grads_p if any(s in n for s in TRAIN_FP16_PAST_DS)]
+    bad, errs = _grad_errors(torch, {n: grads_k[n] for n in past_ds},
+                             {n: grads_p[n] for n in past_ds})
+    _, all_params = _grad_errors(torch, grads_k, grads_p)
+    loss_r, grads_r = loss_and_grads(model, "reference")
+    _, vs_reference = _grad_errors(torch, grads_k, grads_r)
+    wide = world_smoke.widened(torch, tf, model)
+    loss_32, grads_32 = loss_and_grads(wide, "reference")
+    del wide
+    anchor = {name: _grad_errors(torch, g, grads_32)[1]["worst_rel_l2"]
+              for name, g in (("kernels", grads_k),
+                              ("plain_versions", grads_p),
+                              ("mha_reference", grads_r))}
+    del grads_k, grads_p, grads_r, grads_32
+    row = {"phase": "train_fp16", **card, "model": "llama2-7b",
+           "dtype": "float16", "n_layers": cfg.n_layers, "batch": 1,
+           "seq_len": TRAIN_FP16_SEQ, "loss_kernels": loss_k,
+           "loss_plain_versions": loss_p, "past_ds": errs,
+           "all_params": all_params, "loss_mha_reference": loss_r,
+           "vs_mha_reference": vs_reference, "loss_f32": loss_32,
+           "worst_rel_l2_vs_f32": anchor, "tol": TRAIN_GRAD_TOL,
+           "f32_anchor": world_smoke.F32_ANCHOR,
+           "forward_backward_s": step_s, "launches_fwd_dq_dkv": launches,
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    if bad or abs(loss_k - loss_p) > TRAIN_GRAD_TOL["loss_abs"] or \
+            not math.isfinite(loss_k) or len(past_ds) != 6 * cfg.n_layers \
+            + 1 or anchor["kernels"] > world_smoke.F32_ANCHOR * \
+            anchor["plain_versions"]:
+        fail(f"train_fp16: the step through the kernels disagrees with "
+             f"their plain versions for {bad or 'the loss'}, or is further "
+             f"from the f32 step ({anchor})")
+    if launches != [cfg.n_layers] * 3:
+        fail(f"train_fp16: fwd/dq/dkv launched {launches} times, want "
+             f"{cfg.n_layers} each")
+    del model
+    _free(torch)
+    return tuple(launches)
+
+
 def main():
     import torch
 
@@ -7487,6 +7864,11 @@ def main():
     head_widths_launches = head_widths_phase(torch, np, tf, serve_cli,
                                              attention, _ext, card)
     _free(torch)
+    fp16_fwd, fp16_bwd, fp16_int8 = fp16_kernels_phase(
+        torch, attention, _ext, int8_matmul, q8, gen, serving_graphs, card)
+    serve_fp16_launches, serve_fp16_int8 = serve_fp16_phase(
+        torch, np, tf, serve_cli, attention, int8_matmul, card)
+    train_fp16_launches = train_fp16_phase(torch, np, tf, attention, card)
     training = {"train": (fwd_train, dq_train, dkv_train),
                 "train_bert": bert_launches, "train_cli": cli_launches,
                 "train_recovery": recovery_launches,
@@ -7498,8 +7880,10 @@ def main():
                 "train_bert_sp": bert_sp_launches,
                 "device_bench": tuple(bench_launches[k] for k in (
                     "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
-                "head_widths": head_widths_launches}
+                "head_widths": head_widths_launches,
+                "train_fp16": train_fp16_launches}
     int8_launches["device_bench"] = bench_launches["int8_mm"]
+    int8_launches["serve_fp16"] = serve_fp16_int8
     int8_launches["int8_ring"] = int8_ring_launches
     int8_launches["serve_tp_int8"] = serve_tp_int8_launches
     int8_launches["serve_moe"] = moe_int8_launches
@@ -7563,6 +7947,23 @@ def main():
             if row["shape"]["D"] not in (32, 64, 128) or
             case.startswith("bhq")}
     tp_fwd, tp_bwd = rows[TP_LOCAL_CASE[0]], bwd_rows[TP_LOCAL_CASE[0]]
+
+    def fp16(kind):
+        """The fp16_kernels phase's rows of ``kind`` (and the wide
+        forward's bf16 D 1024 row), each with its error, times, bound,
+        host µs and, for the forward, SDPA's time and backend."""
+        table = fp16_fwd if kind == "fwd" else fp16_bwd
+        errs = {"fwd": ("out",), "dq": ("dq",), "dkv": ("dk", "dv")}[kind]
+        pre = "" if kind == "fwd" else f"{kind}_"
+        return {case: {
+            "max_abs_err": max(row[f"max_abs_err_{e}"] for e in errs),
+            "shape": row["shape"], "dtype": row["dtype"],
+            **{k: row[f"{pre}{k}"] for k in ("ms", "plain_ms", "bound_ms",
+                                               "bound_by", "host_us")},
+            "library_ms": row["library_ms"] if kind == "fwd" else None,
+            **({"library_backend": row.get("library_backend")}
+               if kind == "fwd" else {})}
+            for case, row in table.items()}
     stream_src = "container_engine_accelerators_tpu_torch/ops/stream.py"
     bench_src = "container_engine_accelerators_tpu/collectives/device_bench.py:"
 
@@ -7588,7 +7989,7 @@ def main():
             "launches": serve_launches + paged_launches + spec_launches
             + dense_launches + robust_launches + obs_launches
             + obs_int8_launches + handoff_launches + serve_tp_launches
-            + moe_launches + sum(by_path(0).values()),
+            + moe_launches + serve_fp16_launches + sum(by_path(0).values()),
             "launches_by_path": {"serve": serve_launches,
                                  "serve_paged": paged_launches,
                                  "serve_spec": spec_launches,
@@ -7599,6 +8000,7 @@ def main():
                                  "serve_handoff": handoff_launches,
                                  "serve_tp": serve_tp_launches,
                                  "serve_moe": moe_launches,
+                                 "serve_fp16": serve_fp16_launches,
                                  **by_path(0)},
             "max_abs_err": main_row["max_abs_err_out"],
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
@@ -7620,6 +8022,7 @@ def main():
                 "host_us": rows[TP_VERIFY_CASE[0]]["host_us"],
                 "graph_ms": rows[TP_VERIFY_CASE[0]]["graph_ms"]},
             "head_widths": widths("fwd"),
+            "float16": fp16("fwd"),
         },
         {
             "name": "flash_bwd_dq", "route": "cuda",
@@ -7639,6 +8042,7 @@ def main():
             "pipeline": pp_shape("dq", pp_bwd["max_abs_err_dq"]),
             "tp_local": tp_shape("dq", tp_bwd["max_abs_err_dq"]),
             "head_widths": widths("dq"),
+            "float16": fp16("dq"),
         },
         {
             "name": "flash_bwd_dkv", "route": "cuda",
@@ -7663,6 +8067,7 @@ def main():
             "tp_local": tp_shape("dkv", max(tp_bwd["max_abs_err_dk"],
                                             tp_bwd["max_abs_err_dv"])),
             "head_widths": widths("dkv"),
+            "float16": fp16("dkv"),
         },
         {
             "name": "int8_mm", "route": "cuda",
@@ -7685,6 +8090,10 @@ def main():
                 "shape", "out_dtype", "max_abs_err", "ms", "plain_ms",
                 "bound_ms", "bound_by", "library_ms", "bf16_ms")}
                 for c in TP_INT8_CASES},
+            "float16": {name: {k: row[k] for k in (
+                "shape", "out_dtype", "max_abs_err", "ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms", "f16_ms", "host_us")}
+                for name, row in fp16_int8.items()},
         },
         stream_entry("stream_triad", stream_rows["stream_triad"], "234"),
         stream_entry("stream_read", stream_rows["stream_read"], "291"),

@@ -324,7 +324,8 @@ class LoopTimeout(TimeoutError):
 
 def _wire_dtype(dtype):
     """A cache dtype's name on the handoff wire: numpy's, as JAX writes
-    it (``"bfloat16"``, ``"float32"``), never ``"torch.bfloat16"``."""
+    it (``"bfloat16"``, ``"float16"``, ``"float32"``), never
+    ``"torch.bfloat16"``."""
     return str(dtype).removeprefix("torch.")
 
 
@@ -4548,7 +4549,7 @@ def build_parser():
     p.add_argument("--n-heads", type=int, default=8)
     p.add_argument("--vocab-size", type=int, default=1024)
     p.add_argument("--dtype", default="bfloat16",
-                   choices=["bfloat16", "float32"])
+                   choices=["bfloat16", "float16", "float32"])
     p.add_argument("--preset", choices=["llama3-8b"], default=None,
                    help="named model config (overrides the shape flags)")
     p.add_argument("--device", default="cuda",

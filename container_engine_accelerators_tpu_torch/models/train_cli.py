@@ -682,7 +682,7 @@ def build_parser():
     p.add_argument("--n-heads", type=int, default=8)
     p.add_argument("--vocab-size", type=int, default=1024)
     p.add_argument("--dtype", default="bfloat16",
-                   choices=["bfloat16", "float32"])
+                   choices=["bfloat16", "float16", "float32"])
     p.add_argument("--checkpoint-dir", default="",
                    help="save/resume train state here (step_<N>/ "
                         "directories of torch.save'd state_dicts); on "

@@ -74,7 +74,10 @@ from container_engine_accelerators_tpu_torch.parallel import (
     tensor_parallel,
 )
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# The dtype names a config takes (JAX's `jnp.dtype` reads any name; the
+# port takes the three its kernels run, and refuses others by name).
+_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+           "float32": torch.float32}
 
 
 @dataclasses.dataclass(frozen=True)

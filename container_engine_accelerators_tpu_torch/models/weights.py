@@ -61,7 +61,8 @@ _MOE_FFN_PARAMS = {
     "moe_w1": ("ffn", "w1"),
     "moe_w2": ("ffn", "w2"),
 }
-_DTYPE_NAMES = {torch.bfloat16: "bfloat16", torch.float32: "float32"}
+_DTYPE_NAMES = {torch.bfloat16: "bfloat16", torch.float16: "float16",
+                torch.float32: "float32"}
 
 
 def _layer_params(cfg):
@@ -71,7 +72,7 @@ def _layer_params(cfg):
 
 def _tensor(a, device, dtype):
     # Through f32: numpy has no native bfloat16 (JAX hands out ml_dtypes
-    # arrays), and bf16 → f32 → bf16 is exact.
+    # arrays), and bf16 → f32 → bf16 (and f16 → f32 → f16) is exact.
     return torch.from_numpy(np.asarray(a).astype(np.float32)).to(
         device=device, dtype=dtype
     )

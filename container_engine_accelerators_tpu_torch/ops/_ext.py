@@ -142,7 +142,7 @@ def _flash_lib(defines=()):
         # Set last: other threads take a non-None argtypes as "typed".
         lib.flash_fwd_launch.argtypes = [
             ptr, ptr, ptr, ptr, ptr,            # q, k, v, out, lse
-            i32,                                # dtype: 0 bf16, 1 f32
+            i32,                                # dtype: _DTYPE_CODE
             i32, i32, i32, i32, i32, i32,       # B, Hq, Hkv, Sq, Sk, D
             i32, ctypes.c_float,                # causal, sm_scale
             i32, i32, i32,                      # q_base, k_base, kv_len
@@ -152,9 +152,12 @@ def _flash_lib(defines=()):
     return lib
 
 
-_DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
-# int8_mm_launch's code for bf16 x with an f32 y.
-_INT8_BF16_TO_F32 = 2
+# The launches' dtype codes (csrc/launch.cuh kDtype*): bf16 and f16 run the
+# tensor-core kernels (one set, templated on the 16-bit element type), f32
+# the check kernels.
+_DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
+# int8_mm_launch's codes for a 16-bit x with an f32 y.
+_INT8_TO_F32 = {torch.bfloat16: 3, torch.float16: 4}
 # The head dims the flash kernels are built for (csrc/flash_fwd.cu,
 # flash_bwd.cu); past the widest (wgmma's N stops at 256, and a wider
 # accumulator would pass the register file) the wide kernels cut the
@@ -164,10 +167,19 @@ FLASH_WIDTHS = (32, 64, 128, 256)
 # f32 check kernels hold a lane's columns of a row in registers.
 MAX_HEAD_DIM = 1024
 ATOM_COLS = 64
-# Atoms of the outputs one wide block forms: O or dQ (fwd, dq), and each
-# of dK and dV (dk/dv: 64 + 64 f32 registers a thread, as at D 128).
-FWD_CHUNK_ATOMS = 4
+# Atoms of the outputs one wide block forms: O (fwd: 160 f32 registers a
+# thread, so up to D 320 one block holds the whole O of its rows and forms
+# the scores once), dQ (dq: 128, as at D 256), and each of dK and dV
+# (dk/dv: 64 + 64 f32 registers a thread, as at D 128).
+FWD_CHUNK_ATOMS = 5
+DQ_CHUNK_ATOMS = 4
 DKV_CHUNK_ATOMS = 2
+# The wide forward keeps its 128-row q tile resident up to this many atoms
+# (D 640: 160 KB beside a V stage and the K ring; csrc/flash_fwd.cu
+# kWideTallAtoms); past it the streaming kernel forms O in chunks of
+# FWD_STREAM_ATOMS.
+FWD_TALL_ATOMS = 10
+FWD_STREAM_ATOMS = 4
 # A grid dimension past x holds at most this many blocks.
 GRID_YZ_LIMIT = 65535
 
@@ -202,8 +214,20 @@ def column_chunks(width, max_atoms):
     return n, -(-atoms // n)
 
 
+def wide_fwd_plan(width):
+    """(q resident, n_chunks, per) of the wide forward at padded width
+    ``width`` past 256 (csrc/flash_fwd.cu launch_wide, the same rule): up
+    to FWD_TALL_ATOMS atoms a block keeps its 128-row q tile resident and
+    forms O's columns of one chunk of at most FWD_CHUNK_ATOMS atoms (one
+    chunk, and so one score product a key tile, up to D 320); past them
+    the streaming kernel, chunks of FWD_STREAM_ATOMS."""
+    resident = -(-width // ATOM_COLS) <= FWD_TALL_ATOMS
+    return (resident, *column_chunks(
+        width, FWD_CHUNK_ATOMS if resident else FWD_STREAM_ATOMS))
+
+
 def dkv_plan(batch, num_q_heads, num_kv_heads, seq_k, width, n_sm):
-    """(split, n_chunks, per) of the bf16 dk/dv launch at padded width
+    """(split, n_chunks, per) of the 16-bit dk/dv launch at padded width
     ``width`` (csrc/launch.cuh dkv_plan, the same rule): column chunks (up
     to 256 one, column_chunks(width, 4): the kernels hold dK and dV whole
     or, at D 256, walk the q tiles twice; past 256 column_chunks(width,
@@ -228,7 +252,7 @@ def dkv_plan(batch, num_q_heads, num_kv_heads, seq_k, width, n_sm):
 
 def dkv_partial_floats(batch, num_q_heads, num_kv_heads, seq_k, width,
                        n_sm):
-    """f32 scratch the bf16 dk/dv launch needs: the split blocks' partial
+    """f32 scratch the 16-bit dk/dv launch needs: the split blocks' partial
     dK and dV ([2][split][B * Hkv][Sk][width]), or 0 without a split
     (csrc's flash_bwd_dkv_partial_floats)."""
     split = dkv_plan(batch, num_q_heads, num_kv_heads, seq_k, width,
@@ -258,7 +282,7 @@ def _flash_bwd_lib(defines=()):
     if lib.flash_bwd_dkv_launch.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         common = [
-            i32,                                # dtype: 0 bf16, 1 f32
+            i32,                                # dtype: _DTYPE_CODE
             i32, i32, i32, i32, i32, i32,       # B, Hq, Hkv, Sq, Sk, D
             i32, ctypes.c_float,                # causal, sm_scale
             i32, i32, i32,                      # q_base, k_base, kv_len
@@ -384,11 +408,11 @@ def _bwd_launch(fn_name, q, k, v, dout, lse, delta, outs, *, causal,
                 for name, t in outs.items()}
     tail = ()
     if fn_name == "flash_bwd_dkv_launch":
-        # The plan's f32 scratch for a split GQA group (bf16 only), from
+        # The plan's f32 scratch for a split GQA group (bf16 and f16), from
         # PyTorch's allocator: the kernels allocate nothing.
         n_sm = sm_count(q.device.index)
         floats = 0
-        if q.dtype == torch.bfloat16:
+        if q.dtype != torch.float32:
             floats = dkv_partial_floats(
                 batch, num_q_heads, num_kv_heads, seq_k, width, n_sm)
         partial = q.new_empty(floats, dtype=torch.float32) if floats else None
@@ -462,20 +486,21 @@ def int8_mm_workspace_floats(dtype, m, n, k):
 def int8_mm(x, qt, scale, y, workspace=None):
     """Launch csrc/int8_mm.cu on PyTorch's current stream: y (M, N) =
     ((x (M, K) @ qt (N, K)^T) in f32 * scale (N,)) in y's dtype, which is
-    x's or, for bf16 x, float32 (the scaled accumulator unrounded). Checks
-    device, dtype, shape and contiguity, and raises on anything the kernel
-    does not take or on a refused launch. ``workspace``: a float32 tensor
-    of at least ``int8_mm_workspace_floats`` elements on x's device, or
-    None where that is 0."""
+    x's or, for bf16 or f16 x, float32 (the scaled accumulator unrounded).
+    Checks device, dtype, shape and contiguity, and raises on anything the
+    kernel does not take or on a refused launch. ``workspace``: a float32
+    tensor of at least ``int8_mm_workspace_floats`` elements on x's
+    device, or None where that is 0."""
     m, k = x.shape
     n = qt.shape[0]
     _check({"x": x}, {"scale": scale}, x.device)
     _check({"y": y}, {}, x.device)
-    if y.dtype != x.dtype and (x.dtype, y.dtype) != (torch.bfloat16,
-                                                     torch.float32):
-        raise ValueError(f"y must be {x.dtype} (or float32 for bfloat16 x), "
-                         f"got {y.dtype}")
-    code = _DTYPE_CODE[x.dtype] if y.dtype == x.dtype else _INT8_BF16_TO_F32
+    if y.dtype != x.dtype and not (x.dtype in _INT8_TO_F32
+                                   and y.dtype == torch.float32):
+        raise ValueError(f"y must be {x.dtype} (or float32 for bfloat16 or "
+                         f"float16 x), got {y.dtype}")
+    code = _DTYPE_CODE[x.dtype] if y.dtype == x.dtype else \
+        _INT8_TO_F32[x.dtype]
     for name, t in {"qt": qt, "workspace": workspace}.items():
         if t is None:
             continue

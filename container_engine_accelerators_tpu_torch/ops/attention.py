@@ -16,9 +16,10 @@ grouped-query attention with ``Hq % Hkv == 0``.
                       custom_vjp: flash_fwd forward, flash_bwd backward
   flash_attention     counterpart of ``flash_attention`` (differentiable)
   flash_fwd_reference plain version of the forward kernel (same masks,
-                      constants and bf16 rounding of p)
+                      constants and rounding of p to the input dtype:
+                      bf16, f16 or f32)
   flash_bwd_reference plain version of the backward kernels (same masks,
-                      constants and bf16 rounding of p and ds)
+                      constants and rounding of p and ds)
   flash_bwd_dkv_split_reference
                       plain version of the dk/dv kernel with its GQA group
                       split over blocks (f32 partials, summed in order)

@@ -37,8 +37,8 @@
 // dk: 8 * D FLOPs); bytes are q, k, v, dO, lse, delta read once and the
 // gradients written once. At the Llama-3-8B training shapes (Hq 32, Hkv 8,
 // D 128, causal S = 2048..16384) that is hundreds to thousands of FLOPs per
-// byte, far above the card's ridge of about 295 (989 TFLOP/s bf16 dense over
-// 3.35 TB/s): both kernels are bound by the tensor cores' bf16 rate.
+// byte, far above the card's ridge of about 295 (989 TFLOP/s bf16 or f16
+// dense over 3.35 TB/s): both kernels are bound by the tensor cores' rate.
 //
 // Head dims: the kernels are built for D = 32, 64, 128 and 256, and a head
 // dim d in between (a multiple of 8) runs the next D up with d passed at
@@ -59,7 +59,7 @@
 // and dv are still rounded once after the group sum in f32, and the same
 // inputs give the same bits on every run (no atomics).
 //
-// What the design does about it (bf16). Both
+// What the design does about it (bf16 and f16). Both
 // kernels have the forward's shape: 384 threads, a producer warpgroup whose
 // one thread issues TMA loads into an mbarrier ring (full: expect-tx bytes;
 // empty: the 8 consumer warps' arrivals) and hands its registers to two
@@ -101,7 +101,6 @@
 // f32 (for checking) runs plain SIMT kernels: one warp per query row (dq) or
 // per key row (dk/dv) that walks the visible partners one at a time.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -122,7 +121,7 @@ constexpr int kConsumerRegs = 240;
 constexpr int kStages = 2;     // depth of the streamed operand's ring
 constexpr int kResident = 128; // rows of the resident operand per block
 
-// Shared-memory geometry of bf16 tiles of head dim D in TMA's swizzled
+// Shared-memory geometry of 16-bit tiles of head dim D in TMA's swizzled
 // layout: D / kAtomCols atoms side by side, each `rows` rows of kRowBytes
 // (128-byte swizzle; 64-byte at D 32, whose rows are 64 bytes).
 template <int D>
@@ -204,11 +203,6 @@ struct DqLayout {
   static constexpr int kBytes = kBars + 8 * kNumBars + 1024;
 };
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
@@ -219,22 +213,23 @@ __device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
   return raw + ((1024 - (sm90::smem_addr(raw) & 1023)) & 1023);
 }
 
-// Packs a 64 x N f32 accumulator (N / 2 registers) into the A registers
-// of N / 16 k16 steps: chunks 2k and 2k + 1 form step k.
-template <int R>
+// Packs a 64 x N f32 accumulator (N / 2 registers), rounded to E, into the
+// A registers of N / 16 k16 steps: chunks 2k and 2k + 1 form step k.
+template <typename E, int R>
 __device__ __forceinline__ void pack_a(uint32_t (&a)[R / 2],
                                        const float (&x)[R]) {
 #pragma unroll
   for (int j = 0; j < R / 4; ++j) {
-    a[4 * (j / 2) + 2 * (j % 2)] = pack_bf16(x[4 * j], x[4 * j + 1]);
-    a[4 * (j / 2) + 2 * (j % 2) + 1] = pack_bf16(x[4 * j + 2], x[4 * j + 3]);
+    a[4 * (j / 2) + 2 * (j % 2)] = sm90::pack2<E>(x[4 * j], x[4 * j + 1]);
+    a[4 * (j / 2) + 2 * (j % 2) + 1] =
+        sm90::pack2<E>(x[4 * j + 2], x[4 * j + 3]);
   }
 }
 
 // acc (64 x D) += A (64 x K, the registers pack_a makes) * B (K x D, read
 // MN-major through descriptor `b`, see Tiles::mnmajor): K / 16 RS wgmma
 // steps, issued but not committed.
-template <int D, int K>
+template <typename E, int D, int K>
 __device__ __forceinline__ void mma_rs(float (&acc)[D / 2],
                                        const uint32_t (&a)[K / 4],
                                        uint64_t b) {
@@ -242,7 +237,7 @@ __device__ __forceinline__ void mma_rs(float (&acc)[D / 2],
   for (int kk = 0; kk < K / 16; ++kk) {
     const uint32_t ak[4] = {a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
                             a[4 * kk + 3]};
-    sm90::WgmmaRS<D, 1>::mma(
+    sm90::WgmmaRS<D, 1, E>::mma(
         acc, ak, sm90::desc_advance(b, kk * 16 * Tiles<D>::kRowBytes), 1);
   }
 }
@@ -298,7 +293,7 @@ struct Grads {
 // (which, causal, sees every query) launches first. The block walks the q
 // heads [gs, gs + 1) * group / split of its KV head's group (host::dkv_plan
 // splits a group where the blocks would not fill the card). With split 1
-// it writes dk and dv in bf16; with a split it writes its f32 partial sums
+// it writes dk and dv in E; with a split it writes its f32 partial sums
 // to `partial` ([2][split][B * Hkv][Sk][d], dk's then dv's), which
 // dkv_reduce_kernel sums in split order. Warpgroup 0 loads; consumer c =
 // 0, 1 owns keys [64c, 64c + 64). In a consumer, warp w and lane (g = lane
@@ -306,8 +301,9 @@ struct Grads {
 // S^T, dK, dV), and columns 8j + 2t, 8j + 2t + 1 of every 8-column chunk j
 // (query rows of the q tile for S^T; head-dim columns for dK, dV). D is
 // the kernel's width and `d` (<= D, a multiple of 8) the tensors', as in
-// the forward: columns past d read as zeros and are not stored.
-template <int D>
+// the forward: columns past d read as zeros and are not stored. E is the
+// element type of q, k, v, dO, dk and dv.
+template <typename E, int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
@@ -455,7 +451,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         sm90::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
-          sm90::WgmmaSS<kStream, 0>::mma(
+          sm90::WgmmaSS<kStream, 0, E>::mma(
               s, sm90::desc_advance(k_desc, T::kstep(kk, T::kResAtomBytes)),
               sm90::desc_advance(q_desc,
                                  st_off + T::kstep(kk, L::kStrAtomBytes)),
@@ -465,7 +461,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         if constexpr (kDk) {
 #pragma unroll
           for (int kk = 0; kk < D / 16; ++kk) {
-            sm90::WgmmaSS<kStream, 0>::mma(
+            sm90::WgmmaSS<kStream, 0, E>::mma(
                 dp,
                 sm90::desc_advance(v_desc, T::kstep(kk, T::kResAtomBytes)),
                 sm90::desc_advance(do_desc,
@@ -514,13 +510,13 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
         if constexpr (kDv) {
           uint32_t pa[kStream / 4];
-          pack_a(pa, s);
+          pack_a<E>(pa, s);
           phases.mark(kPds);
 
           // dV += P^T dO, issued here to run while dS^T is formed.
           sm90::fence_regs(acc_dv);
           sm90::wgmma_fence();
-          mma_rs<D, kStream>(acc_dv, pa, sm90::desc_advance(do_mn, st_off));
+          mma_rs<E, D, kStream>(acc_dv, pa, sm90::desc_advance(do_mn, st_off));
           sm90::wgmma_commit();
           phases.mark(kGrads);
         }
@@ -529,7 +525,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
           sm90::fence_regs(dp);
           phases.mark(kScores);
 
-          // dS^T = P^T (dP^T - delta) * scale, rounded to bf16.
+          // dS^T = P^T (dP^T - delta) * scale, rounded to E.
 #pragma unroll
           for (int j = 0; j < kStream / 8; ++j) {
             const float2 d2 = *reinterpret_cast<const float2*>(delta_s +
@@ -542,13 +538,13 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
             }
           }
           uint32_t dsa[kStream / 4];
-          pack_a(dsa, s);
+          pack_a<E>(dsa, s);
           phases.mark(kPds);
 
           // dK += dS^T Q.
           sm90::fence_regs(acc_dk);
           sm90::wgmma_fence();
-          mma_rs<D, kStream>(acc_dk, dsa, sm90::desc_advance(q_mn, st_off));
+          mma_rs<E, D, kStream>(acc_dk, dsa, sm90::desc_advance(q_mn, st_off));
           sm90::wgmma_commit();
         }
         // Then the stage goes back to the producer.
@@ -581,7 +577,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                 make_float2(lo, hi);
           } else {
             *reinterpret_cast<uint32_t*>(grad + at + 8 * j) =
-                pack_bf16(lo, hi);
+                sm90::pack2<E>(lo, hi);
           }
         }
       }
@@ -618,7 +614,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 // S and dP; head-dim columns for dQ). `d` as in the dk/dv kernel; it is
 // the last parameter because before `causal` it made the D 128 kernel 11 %
 // slower on the card, the same source otherwise (PERF.md).
-template <int D>
+template <typename E, int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const __grid_constant__ CUtensorMap tm_k,
@@ -730,7 +726,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        sm90::WgmmaSS<kKeys, 0>::mma(
+        sm90::WgmmaSS<kKeys, 0, E>::mma(
             s, sm90::desc_advance(q_desc, T::kstep(kk, T::kResAtomBytes)),
             sm90::desc_advance(k_desc,
                                st_off + T::kstep(kk, L::kKeyAtomBytes)),
@@ -739,7 +735,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       sm90::wgmma_commit();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        sm90::WgmmaSS<kKeys, 0>::mma(
+        sm90::WgmmaSS<kKeys, 0, E>::mma(
             dp, sm90::desc_advance(do_desc, T::kstep(kk, T::kResAtomBytes)),
             sm90::desc_advance(v_desc,
                                st_off + T::kstep(kk, L::kKeyAtomBytes)),
@@ -779,13 +775,13 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         s[i] = s[i] * (dp[i] - row_delta[(i >> 1) & 1]) * sm_scale;
       }
       uint32_t dsa[kKeys / 4];
-      pack_a(dsa, s);
+      pack_a<E>(dsa, s);
       phases.mark(kPds);
 
       // dQ += dS K, K read MN-major; then the stage goes back.
       sm90::fence_regs(acc);
       sm90::wgmma_fence();
-      mma_rs<D, kKeys>(acc, dsa, sm90::desc_advance(k_mn, st_off));
+      mma_rs<E, D, kKeys>(acc, dsa, sm90::desc_advance(k_mn, st_off));
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_regs(acc);
@@ -803,7 +799,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int j = 0; j < D / 8; ++j) {
         if (8 * j >= d) break;  // d % 8 == 0: a chunk is wholly in or out
         *reinterpret_cast<uint32_t*>(orow + 8 * j) =
-            pack_bf16(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+            sm90::pack2<E>(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
       }
     }
     phases.mark(kEpilogue);
@@ -822,7 +818,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 // operand its gradient products read (dq: K; dk/dv: q and dO). Every chunk
 // block of a tile recomputes S and dP over the whole d.
 
-constexpr int kAtomRowBytes = 128;  // a row of one 64-column bf16 atom
+constexpr int kAtomRowBytes = 128;  // a row of one 64-column 16-bit atom
 
 // dq past 256: a block is one (batch * q head, 128-row q tile, column
 // chunk of at most kDqChunkAtoms atoms: 128 f32 registers, as at D 256).
@@ -891,7 +887,7 @@ __device__ __forceinline__ void release(uint64_t* bar, int lane) {
 // the registers pack_a makes) * B (the chunk's atom j at b + j *
 // atom_bytes, its rows the product's k dimension, read MN-major): issued,
 // not committed.
-template <int kSteps, int kAtoms>
+template <typename E, int kSteps, int kAtoms>
 __device__ __forceinline__ void mma_chunk(float (&acc)[kAtoms][32],
                                           const uint32_t (&a)[kSteps * 4],
                                           const uint8_t* b, int atom_bytes,
@@ -903,7 +899,7 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[kAtoms][32],
 #pragma unroll
     for (int j = 0; j < kAtoms; ++j) {
       if (j >= n_out) break;
-      sm90::WgmmaRS<64, 1>::mma(
+      sm90::WgmmaRS<64, 1, E>::mma(
           acc[j], ak,
           atom_mnmajor(b + j * atom_bytes + kk * 16 * kAtomRowBytes,
                        atom_bytes),
@@ -918,6 +914,7 @@ __device__ __forceinline__ void fence_chunk(float (&acc)[kAtoms][32]) {
   for (int j = 0; j < kAtoms; ++j) sm90::fence_regs(acc[j]);
 }
 
+template <typename E>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const __grid_constant__ CUtensorMap tm_k,
@@ -1034,10 +1031,10 @@ flash_bwd_dq_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
           if (a * host::kAtomCols + 16 * kk >= d) break;
-          sm90::WgmmaSS<kKeys, 0>::mma(
+          sm90::WgmmaSS<kKeys, 0, E>::mma(
               s, atom_kmajor(stage + rows + 32 * kk),
               atom_kmajor(stage + L::kK + 32 * kk), a > 0 || kk > 0);
-          sm90::WgmmaSS<kKeys, 0>::mma(
+          sm90::WgmmaSS<kKeys, 0, E>::mma(
               dp, atom_kmajor(stage + L::kDO + rows + 32 * kk),
               atom_kmajor(stage + L::kV + 32 * kk), a > 0 || kk > 0);
         }
@@ -1075,14 +1072,14 @@ flash_bwd_dq_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
         s[i] = p * (dp[i] - row_delta[(i >> 1) & 1]) * sm_scale;
       }
       uint32_t dsa[kKeys / 4];
-      pack_a(dsa, s);
+      pack_a<E>(dsa, s);
 
       // dQ[:, chunk] += dS K[:, chunk], K read MN-major.
       const int ks = kt % 2;
       sm90::mbar_wait(full_k + ks, (kt / 2) & 1);
       fence_chunk(acc);
       sm90::wgmma_fence();
-      mma_chunk<kKeys / 16>(acc, dsa, smem + L::kKc + ks * L::kKcBytes,
+      mma_chunk<E, kKeys / 16>(acc, dsa, smem + L::kKc + ks * L::kKcBytes,
                             L::kKeyAtomBytes, n_out);
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
@@ -1103,13 +1100,15 @@ flash_bwd_dq_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
           const int col = (a0 + j) * host::kAtomCols + 8 * jj;
           if (col >= d) break;  // d % 8 == 0: a chunk is wholly in or out
           *reinterpret_cast<uint32_t*>(orow + col) =
-              pack_bf16(acc[j][4 * jj + 2 * r], acc[j][4 * jj + 2 * r + 1]);
+              sm90::pack2<E>(acc[j][4 * jj + 2 * r],
+                             acc[j][4 * jj + 2 * r + 1]);
         }
       }
     }
   }
 }
 
+template <typename E>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
@@ -1250,10 +1249,10 @@ flash_bwd_dkv_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
           if (a * host::kAtomCols + 16 * kk >= d) break;
-          sm90::WgmmaSS<kStream, 0>::mma(
+          sm90::WgmmaSS<kStream, 0, E>::mma(
               s, atom_kmajor(stage + rows + 32 * kk),
               atom_kmajor(stage + L::kQ + 32 * kk), a > 0 || kk > 0);
-          sm90::WgmmaSS<kStream, 0>::mma(
+          sm90::WgmmaSS<kStream, 0, E>::mma(
               dp, atom_kmajor(stage + L::kV + rows + 32 * kk),
               atom_kmajor(stage + L::kDO + 32 * kk), a > 0 || kk > 0);
         }
@@ -1306,11 +1305,11 @@ flash_bwd_dkv_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
       }
       uint32_t pa[kStream / 4];
-      pack_a(pa, s);
+      pack_a<E>(pa, s);
       // dV[:, chunk] += P^T dO[:, chunk], issued to run while dS^T forms.
       fence_chunk(acc_dv);
       sm90::wgmma_fence();
-      mma_chunk<kStream / 16>(acc_dv, pa, cstage + L::kCDO, L::kStrAtomBytes,
+      mma_chunk<E, kStream / 16>(acc_dv, pa, cstage + L::kCDO, L::kStrAtomBytes,
                               n_out);
       sm90::wgmma_commit();
 #pragma unroll
@@ -1325,11 +1324,11 @@ flash_bwd_dkv_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
       }
       uint32_t dsa[kStream / 4];
-      pack_a(dsa, s);
+      pack_a<E>(dsa, s);
       // dK[:, chunk] += dS^T Q[:, chunk].
       fence_chunk(acc_dk);
       sm90::wgmma_fence();
-      mma_chunk<kStream / 16>(acc_dk, dsa, cstage, L::kStrAtomBytes, n_out);
+      mma_chunk<E, kStream / 16>(acc_dk, dsa, cstage, L::kStrAtomBytes, n_out);
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       fence_chunk(acc_dk);
@@ -1361,7 +1360,7 @@ flash_bwd_dkv_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
                   make_float2(lo, hi);
             } else {
               *reinterpret_cast<uint32_t*>(grad + at + col) =
-                  pack_bf16(lo, hi);
+                  sm90::pack2<E>(lo, hi);
             }
           }
         }
@@ -1372,11 +1371,12 @@ flash_bwd_dkv_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// dk and dv in bf16 from the split dk/dv kernels' f32 partials ([2][split]
+// dk and dv in E from the split dk/dv kernels' f32 partials ([2][split]
 // [n] floats, n = B * Hkv * Sk * d, a multiple of 8): each value the sum
 // of its `split` partials in split order, in f32, rounded once, so the
 // result does not depend on which block finished first. blockIdx.y: 0 dk,
 // 1 dv.
+template <typename E>
 __global__ void __launch_bounds__(256)
 dkv_reduce_kernel(const float* __restrict__ partial,
                   uint16_t* __restrict__ dk, uint16_t* __restrict__ dv,
@@ -1395,7 +1395,8 @@ dkv_reduce_kernel(const float* __restrict__ partial,
       acc.w += x.w;
     }
     *reinterpret_cast<uint2*>(out + i) =
-        make_uint2(pack_bf16(acc.x, acc.y), pack_bf16(acc.z, acc.w));
+        make_uint2(sm90::pack2<E>(acc.x, acc.y),
+                   sm90::pack2<E>(acc.z, acc.w));
   }
 }
 
@@ -1534,8 +1535,8 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
   }
 }
 
-template <int D>
-cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v,
+template <typename E, int D>
+cudaError_t launch_dq_tc(const void* q, const void* k, const void* v,
                            const void* dout, const float* lse,
                            const float* delta, void* dq, int batch, int hq,
                            int hkv, int sq, int sk, int d, int causal,
@@ -1544,33 +1545,33 @@ cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v,
   using L = DqLayout<D>;
   static std::atomic<uint64_t> configured{0};
   const cudaError_t err = host::allow_dynamic_smem(
-      flash_bwd_dq_sm90_kernel<D>, L::kBytes, &configured);
+      flash_bwd_dq_sm90_kernel<E, D>, L::kBytes, &configured);
   if (err != cudaSuccess) return err;
   if (sq == 0) return cudaSuccess;
   // With no keys (Sk 0) no K/V tile is ever loaded; q stands in for the
   // K/V maps so that they still describe real memory.
   if (sk == 0) k = v = q;
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
-  if (!host::encode_bf16_rows(&tm_q, q, d, sq, batch * hq, kResident, D) ||
-      !host::encode_bf16_rows(&tm_do, dout, d, sq, batch * hq, kResident,
+  if (!host::encode_rows<E>(&tm_q, q, d, sq, batch * hq, kResident, D) ||
+      !host::encode_rows<E>(&tm_do, dout, d, sq, batch * hq, kResident,
                               D) ||
-      !host::encode_bf16_rows(&tm_k, k, d, sk > 0 ? sk : 1, batch * hkv,
+      !host::encode_rows<E>(&tm_k, k, d, sk > 0 ? sk : 1, batch * hkv,
                               L::kKeys, D) ||
-      !host::encode_bf16_rows(&tm_v, v, d, sk > 0 ? sk : 1, batch * hkv,
+      !host::encode_rows<E>(&tm_v, v, d, sk > 0 ? sk : 1, batch * hkv,
                               L::kKeys, D)) {
     return cudaErrorInvalidValue;
   }
   // batch * hq along x (up to 2^31 - 1 blocks): no fold is needed.
   const dim3 grid(batch * hq, (sq + kResident - 1) / kResident);
-  flash_bwd_dq_sm90_kernel<D><<<grid, kThreads, L::kBytes, stream>>>(
+  flash_bwd_dq_sm90_kernel<E, D><<<grid, kThreads, L::kBytes, stream>>>(
       tm_q, tm_k, tm_v, tm_do, lse, delta, static_cast<uint16_t*>(dq), hq,
       hkv, sq, causal, sm_scale, sm_scale * kLog2e, q_base, k_base, kv_len,
       d);
   return cudaSuccess;
 }
 
-template <int D>
-cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v,
+template <typename E, int D>
+cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v,
                             const void* dout, const float* lse,
                             const float* delta, void* dk, void* dv,
                             int batch, int hq, int hkv, int sq, int sk, int d,
@@ -1580,23 +1581,23 @@ cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v,
   using L = DkvLayout<D>;
   static std::atomic<uint64_t> configured{0};
   const cudaError_t err = host::allow_dynamic_smem(
-      flash_bwd_dkv_sm90_kernel<D>, L::kBytes, &configured);
+      flash_bwd_dkv_sm90_kernel<E, D>, L::kBytes, &configured);
   if (err != cudaSuccess) return err;
   if (sk == 0) return cudaSuccess;
   // With no queries (Sq 0) every block has no q tile to walk, so the q-side
   // maps are never read; k only gives them a valid address.
   if (sq == 0) q = dout = k;
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
-  if (!host::encode_bf16_rows(&tm_q, q, d, sq > 0 ? sq : 1, batch * hq,
+  if (!host::encode_rows<E>(&tm_q, q, d, sq > 0 ? sq : 1, batch * hq,
                               L::kStream, D) ||
-      !host::encode_bf16_rows(&tm_do, dout, d, sq > 0 ? sq : 1, batch * hq,
+      !host::encode_rows<E>(&tm_do, dout, d, sq > 0 ? sq : 1, batch * hq,
                               L::kStream, D) ||
-      !host::encode_bf16_rows(&tm_k, k, d, sk, batch * hkv, kResident, D) ||
-      !host::encode_bf16_rows(&tm_v, v, d, sk, batch * hkv, kResident, D)) {
+      !host::encode_rows<E>(&tm_k, k, d, sk, batch * hkv, kResident, D) ||
+      !host::encode_rows<E>(&tm_v, v, d, sk, batch * hkv, kResident, D)) {
     return cudaErrorInvalidValue;
   }
   const dim3 grid(batch * hkv * plan.split, (sk + kResident - 1) / kResident);
-  flash_bwd_dkv_sm90_kernel<D><<<grid, kThreads, L::kBytes, stream>>>(
+  flash_bwd_dkv_sm90_kernel<E, D><<<grid, kThreads, L::kBytes, stream>>>(
       tm_q, tm_k, tm_v, tm_do, lse, delta, static_cast<uint16_t*>(dk),
       static_cast<uint16_t*>(dv), hq, hkv, sq, sk, d, causal, sm_scale,
       sm_scale * kLog2e, q_base, k_base, kv_len, plan.split, partial);
@@ -1605,12 +1606,14 @@ cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v,
 
 // The wide kernels' maps: every box one 64-column atom (width 64: 128-byte
 // rows) of `rows` rows.
+template <typename E>
 bool encode_atoms(CUtensorMap* map, const void* t, int d, int n, int heads,
                   int rows) {
-  return host::encode_bf16_rows(map, t, d, n > 0 ? n : 1, heads, rows,
+  return host::encode_rows<E>(map, t, d, n > 0 ? n : 1, heads, rows,
                                 host::kAtomCols);
 }
 
+template <typename E>
 cudaError_t launch_dq_wide(const void* q, const void* k, const void* v,
                            const void* dout, const float* lse,
                            const float* delta, void* dq, int batch, int hq,
@@ -1620,26 +1623,27 @@ cudaError_t launch_dq_wide(const void* q, const void* k, const void* v,
   using L = DqWideLayout;
   static std::atomic<uint64_t> configured{0};
   const cudaError_t err = host::allow_dynamic_smem(
-      flash_bwd_dq_wide_kernel, L::kBytes, &configured);
+      flash_bwd_dq_wide_kernel<E>, L::kBytes, &configured);
   if (err != cudaSuccess) return err;
   if (sq == 0) return cudaSuccess;
   if (sk == 0) k = v = q;
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
-  if (!encode_atoms(&tm_q, q, d, sq, batch * hq, kResident) ||
-      !encode_atoms(&tm_do, dout, d, sq, batch * hq, kResident) ||
-      !encode_atoms(&tm_k, k, d, sk, batch * hkv, L::kKeys) ||
-      !encode_atoms(&tm_v, v, d, sk, batch * hkv, L::kKeys)) {
+  if (!encode_atoms<E>(&tm_q, q, d, sq, batch * hq, kResident) ||
+      !encode_atoms<E>(&tm_do, dout, d, sq, batch * hq, kResident) ||
+      !encode_atoms<E>(&tm_k, k, d, sk, batch * hkv, L::kKeys) ||
+      !encode_atoms<E>(&tm_v, v, d, sk, batch * hkv, L::kKeys)) {
     return cudaErrorInvalidValue;
   }
   const host::Chunks chunks = host::column_chunks(d, kDqChunkAtoms);
   const dim3 grid(batch * hq, (sq + kResident - 1) / kResident * chunks.n);
-  flash_bwd_dq_wide_kernel<<<grid, kThreads, L::kBytes, stream>>>(
+  flash_bwd_dq_wide_kernel<E><<<grid, kThreads, L::kBytes, stream>>>(
       tm_q, tm_k, tm_v, tm_do, lse, delta, static_cast<uint16_t*>(dq), hq,
       hkv, sq, causal, sm_scale, sm_scale * kLog2e, q_base, k_base, kv_len,
       d, chunks.n, chunks.per);
   return cudaSuccess;
 }
 
+template <typename E>
 cudaError_t launch_dkv_wide(const void* q, const void* k, const void* v,
                             const void* dout, const float* lse,
                             const float* delta, void* dk, void* dv,
@@ -1650,20 +1654,20 @@ cudaError_t launch_dkv_wide(const void* q, const void* k, const void* v,
   using L = DkvWideLayout;
   static std::atomic<uint64_t> configured{0};
   const cudaError_t err = host::allow_dynamic_smem(
-      flash_bwd_dkv_wide_kernel, L::kBytes, &configured);
+      flash_bwd_dkv_wide_kernel<E>, L::kBytes, &configured);
   if (err != cudaSuccess) return err;
   if (sk == 0) return cudaSuccess;
   if (sq == 0) q = dout = k;
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
-  if (!encode_atoms(&tm_q, q, d, sq, batch * hq, L::kStream) ||
-      !encode_atoms(&tm_do, dout, d, sq, batch * hq, L::kStream) ||
-      !encode_atoms(&tm_k, k, d, sk, batch * hkv, kResident) ||
-      !encode_atoms(&tm_v, v, d, sk, batch * hkv, kResident)) {
+  if (!encode_atoms<E>(&tm_q, q, d, sq, batch * hq, L::kStream) ||
+      !encode_atoms<E>(&tm_do, dout, d, sq, batch * hq, L::kStream) ||
+      !encode_atoms<E>(&tm_k, k, d, sk, batch * hkv, kResident) ||
+      !encode_atoms<E>(&tm_v, v, d, sk, batch * hkv, kResident)) {
     return cudaErrorInvalidValue;
   }
   const dim3 grid(batch * hkv * plan.split * plan.chunks.n,
                   (sk + kResident - 1) / kResident);
-  flash_bwd_dkv_wide_kernel<<<grid, kThreads, L::kBytes, stream>>>(
+  flash_bwd_dkv_wide_kernel<E><<<grid, kThreads, L::kBytes, stream>>>(
       tm_q, tm_k, tm_v, tm_do, lse, delta, static_cast<uint16_t*>(dk),
       static_cast<uint16_t*>(dv), hq, hkv, sq, sk, d, causal, sm_scale,
       sm_scale * kLog2e, q_base, k_base, kv_len, plan.chunks.n,
@@ -1705,17 +1709,19 @@ void launch_dkv_f32(const void* q, const void* k, const void* v,
 // not a multiple of the KV heads, a head dim that is not a multiple of 8 in
 // [8, kMaxHeadDim].
 bool bad_args(int dtype, int hq, int hkv, int d) {
-  return (dtype != 0 && dtype != 1) || hkv <= 0 || hq % hkv || d <= 0 ||
-         d > host::kMaxHeadDim || d % 8;
+  return (dtype != host::kDtypeBf16 && dtype != host::kDtypeF32 &&
+          dtype != host::kDtypeF16) ||
+         hkv <= 0 || hq % hkv || d <= 0 || d > host::kMaxHeadDim || d % 8;
 }
 
 }  // namespace
 
-// dtype: 0 = bf16 (the Hopper kernels), 1 = f32 (check kernels). Tensors
-// are contiguous and 16-byte aligned (the Python wrapper checks); lse and
-// delta are f32. The head dim d (a multiple of 8 up to kMaxHeadDim) runs
-// the kernels built for the next of 32, 64, 128 and 256, as in
-// flash_fwd.cu, and past 256 (bf16) the column-chunk kernels. Each call
+// dtype: 0 = bf16 and 2 = f16 (the Hopper kernels), 1 = f32 (check
+// kernels): host::kDtype*. Tensors are contiguous and 16-byte aligned (the
+// Python wrapper checks); lse and delta are f32. The head dim d (a multiple
+// of 8 up to kMaxHeadDim) runs the kernels built for the next of 32, 64, 128
+// and 256, as in flash_fwd.cu, and past 256 (bf16, f16) the column-chunk
+// kernels. Each call
 // launches on `stream`, allocates nothing, and returns the first error of
 // the set-up or cudaGetLastError() after the launches (0 on success).
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
@@ -1730,21 +1736,26 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaSuccess;
-  if (dtype == 1) {
+  if (dtype == host::kDtypeF32) {
     host::with_f32_width(d, [&](auto width) {
       launch_dq_f32<decltype(width)::value>(
           q, k, v, dout, lse, delta, dq, batch, hq, hkv, sq, sk, d, causal,
           sm_scale, q_base, k_base, kv_len, st);
       return 0;
     });
-  } else if (d > 256) {
-    err = launch_dq_wide(q, k, v, dout, lse, delta, dq, batch, hq, hkv, sq,
-                         sk, d, causal, sm_scale, q_base, k_base, kv_len, st);
   } else {
-    err = host::with_width(d, [&](auto width) {
-      return launch_dq_bf16<decltype(width)::value>(
-          q, k, v, dout, lse, delta, dq, batch, hq, hkv, sq, sk, d, causal,
-          sm_scale, q_base, k_base, kv_len, st);
+    err = host::with_elem(dtype, [&](auto elem) {
+      using E = typename decltype(elem)::type;
+      if (d > 256) {
+        return launch_dq_wide<E>(q, k, v, dout, lse, delta, dq, batch, hq,
+                                 hkv, sq, sk, d, causal, sm_scale, q_base,
+                                 k_base, kv_len, st);
+      }
+      return host::with_width(d, [&](auto width) {
+        return launch_dq_tc<E, decltype(width)::value>(
+            q, k, v, dout, lse, delta, dq, batch, hq, hkv, sq, sk, d, causal,
+            sm_scale, q_base, k_base, kv_len, st);
+      });
     });
   }
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1752,7 +1763,7 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
 }
 
 // The dk/dv launch also takes the card's SM count `n_sm` for its plan
-// (host::dkv_plan): where the plan splits the GQA group (bf16 only), the
+// (host::dkv_plan): where the plan splits the GQA group (bf16, f16), the
 // blocks write f32 partials to `partial`, which must hold
 // flash_bwd_dkv_partial_floats(...) floats (`partial_floats` says how
 // many it does), and a second kernel sums them into dk and dv.
@@ -1775,7 +1786,7 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
+  if (dtype == host::kDtypeF32) {
     host::with_f32_width(d, [&](auto width) {
       launch_dkv_f32<decltype(width)::value>(
           q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv, sq, sk, d,
@@ -1791,28 +1802,31 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   float* part = need > 0 ? partial : nullptr;
-  cudaError_t err;
-  if (d > 256) {
-    err = launch_dkv_wide(q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv,
-                          sq, sk, d, causal, sm_scale, q_base, k_base, kv_len,
-                          plan, part, st);
-  } else {
-    err = host::with_width(d, [&](auto width) {
-      return launch_dkv_bf16<decltype(width)::value>(
-          q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv, sq, sk, d,
-          causal, sm_scale, q_base, k_base, kv_len, plan, part, st);
-    });
-  }
-  if (err == cudaSuccess) err = cudaGetLastError();
-  if (err != cudaSuccess || part == nullptr || sk == 0) {
-    return static_cast<int>(err);
-  }
-  const long long n = (long long)batch * hkv * sk * d;
-  const long long blocks = (n / 4 + 255) / 256;
-  dkv_reduce_kernel<<<dim3(blocks < 1056 ? blocks : 1056, 2), 256, 0, st>>>(
-      part, static_cast<uint16_t*>(dk), static_cast<uint16_t*>(dv), n,
-      plan.split);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err = host::with_elem(dtype, [&](auto elem) {
+    using E = typename decltype(elem)::type;
+    cudaError_t e;
+    if (d > 256) {
+      e = launch_dkv_wide<E>(q, k, v, dout, lse, delta, dk, dv, batch, hq,
+                             hkv, sq, sk, d, causal, sm_scale, q_base, k_base,
+                             kv_len, plan, part, st);
+    } else {
+      e = host::with_width(d, [&](auto width) {
+        return launch_dkv_tc<E, decltype(width)::value>(
+            q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv, sq, sk, d,
+            causal, sm_scale, q_base, k_base, kv_len, plan, part, st);
+      });
+    }
+    if (e == cudaSuccess) e = cudaGetLastError();
+    if (e != cudaSuccess || part == nullptr || sk == 0) return e;
+    const long long n = (long long)batch * hkv * sk * d;
+    const long long blocks = (n / 4 + 255) / 256;
+    dkv_reduce_kernel<E>
+        <<<dim3(blocks < 1056 ? blocks : 1056, 2), 256, 0, st>>>(
+            part, static_cast<uint16_t*>(dk), static_cast<uint16_t*>(dv), n,
+            plan.split);
+    return cudaGetLastError();
+  });
+  return static_cast<int>(err);
 }
 
 extern "C" const char* flash_bwd_error_string(int err) {

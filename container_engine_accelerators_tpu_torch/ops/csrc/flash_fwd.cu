@@ -11,7 +11,10 @@
 // key columns >= kv_len masked; finite NEG_INF = -1e30; p cast to the input
 // dtype before the PV product; out = acc / max(l, 1e-30), lse = m +
 // log(max(l, 1e-30)) in f32. A masked key contributes p = 0, so a row that
-// sees no key gives out = 0 and lse = -1e30 whatever the tiling.
+// sees no key gives out = 0 and lse = -1e30 whatever the tiling. The input
+// dtype is bf16 or f16 (one set of kernels templated on the element type E:
+// wgmma's .bf16 and .f16 kinds run at one rate with f32 accumulators, and
+// TMA moves either as 16-bit elements), or f32 for checking.
 //
 // The base. The Pallas kernel reads [q_base, k_base, kv_len] at run time
 // from `base_ref`, scalar prefetch in device memory, so the speculative
@@ -29,9 +32,9 @@
 // causal at Sq = Sk with q_base = 0. Bytes = q + k + v + out + lse, each once.
 // At the Llama-3-8B prefill shapes (Hq 32, Hkv 8, D 128, causal Sq = Sk = S)
 // that is about 0.4 * S FLOPs per byte; the card's ridge is 989 TFLOP/s bf16
-// dense over 3.35 TB/s of HBM, about 295 FLOPs per byte. So a prefill bucket
-// of 512 is bound by HBM, and from about S = 740 on (the 1024..8192 buckets)
-// the kernel is bound by the tensor cores' bf16 rate.
+// or f16 dense over 3.35 TB/s of HBM, about 295 FLOPs per byte. So a prefill
+// bucket of 512 is bound by HBM, and from about S = 740 on (the 1024..8192
+// buckets) the kernel is bound by the tensor cores' bf16 (f16) rate.
 //
 // Head dims. The kernel is built for D = 32, 64, 128 and 256; a head dim d
 // in between (a multiple of 8: 80 and 96 run the D 128 kernel, 136..248 the
@@ -39,13 +42,13 @@
 // describe the tensors at their true d, read columns past d as zeros, and
 // the epilogue stores d columns: the padding costs D / d in operations
 // (1.33x at 96, 1.6x at 80) and nothing in bytes. At D 256 the K/V tiles
-// are 64 keys (Layout). Past 256 (up to host::kMaxHeadDim) a second kernel,
-// flash_fwd_wide_kernel, cuts O's columns into chunks, one block each, every
-// block recomputing S over the whole d: 2 * d * chunks + 2 * d FLOPs a pair
-// where the work is 4 * d (1.56x at d 288, 2 chunks), and every atom of Q
-// and K streamed from L2 per K tile; see there.
+// are 64 keys (Layout). From 257 to 640 flash_fwd_wide_kernel keeps the
+// block's Q tile resident and holds up to 320 columns of O in registers, so
+// up to D 320 it forms S once per (q tile, key tile); past 320 it cuts O's
+// columns into chunks, one block each; past 640 (to host::kMaxHeadDim)
+// flash_fwd_wide_stream_kernel streams Q with K; see there.
 //
-// What the design does about it (bf16):
+// What the design does about it (bf16 and f16):
 // - Only wgmma reaches Hopper's tensor-core rate, so both products are
 //   wgmma: S = Q K^T as m64n128k16 (m64n64k16 at D 256) with Q and K read
 //   from shared memory through descriptors, O += P V as m64nDk16 with P in
@@ -82,7 +85,6 @@
 // f32 (for checking) runs a plain SIMT kernel with one warp per query row
 // that walks the visible keys one at a time.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -107,7 +109,7 @@ constexpr int kConsumerRegs = 240;
 
 // Shared-memory layout of one block for head dim D. Every tile (the q
 // tile of kBlockQ rows, and each stage's K and V tile of kBlockK keys) is
-// D bf16 values a row in TMA's swizzled layout: D / kAtomCols atoms side by
+// D 16-bit values a row in TMA's swizzled layout: D / kAtomCols atoms side by
 // side, each of kRowBytes a row (128-byte swizzle; 64-byte at D 32, whose
 // rows are 64 bytes). K/V tiles are 128 keys, and 64 at D 256: there Q (64
 // KB) and a 2-stage ring of 128-key tiles (256 KB) would pass the 227 KB a
@@ -133,11 +135,6 @@ struct Layout {
   // Barriers, and slack to align the dynamic base to 1024 bytes.
   static constexpr int kBytes = kBars + 8 * kNumBars + 1024;
 };
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // Phases of a consumer warp, for the instrumented build: with
 // -DFLASH_FWD_PHASE_CLOCKS (ops/flash_phases.py) each consumer warp adds
@@ -182,11 +179,11 @@ __device__ __forceinline__ float exp2_approx(float x) {
 // scale - m) as one FFMA and ex2, the sum in 4 partial sums a row. On a
 // tile that needs the `mask`, a masked score becomes -inf: it never raises
 // the max and gives p = 0, and a row that has seen no key keeps m = NEG_INF
-// (exp2(-inf + 1e30) = 0). Packs p into the A registers of the P V product
-// (chunks 2k and 2k + 1 form the k-th k16 step), updates the running max m
-// and partial row sums l, and gives alpha, the factor by which each row's
-// accumulator is to be rescaled.
-template <int kBlockK>
+// (exp2(-inf + 1e30) = 0). Packs p, rounded to E, into the A registers of
+// the P V product (chunks 2k and 2k + 1 form the k-th k16 step), updates the
+// running max m and partial row sums l, and gives alpha, the factor by which
+// each row's accumulator is to be rescaled.
+template <typename E, int kBlockK>
 __device__ __forceinline__ void softmax_step(
     float (&s)[kBlockK / 2], uint32_t (&p)[kBlockK / 4], float (&m)[2],
     float (&l)[2], float (&alpha)[2], float scale_log2, bool mask,
@@ -240,8 +237,8 @@ __device__ __forceinline__ void softmax_step(
       pj[i] = exp2_approx(fmaf(s[4 * j + i], scale_log2, neg_m[i >> 1]));
       part[i >> 1][j % 4] += pj[i];
     }
-    p[4 * (j / 2) + 2 * (j % 2)] = pack_bf16(pj[0], pj[1]);
-    p[4 * (j / 2) + 2 * (j % 2) + 1] = pack_bf16(pj[2], pj[3]);
+    p[4 * (j / 2) + 2 * (j % 2)] = sm90::pack2<E>(pj[0], pj[1]);
+    p[4 * (j / 2) + 2 * (j % 2) + 1] = sm90::pack2<E>(pj[2], pj[3]);
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -258,8 +255,8 @@ __device__ __forceinline__ void softmax_step(
 // D is the kernel's width and `d` (<= D, a multiple of 8) the tensors': the
 // TMA maps read columns past d as zeros, which leave Q K^T as it is and
 // give zero columns of P V, and only the first d columns of out are
-// stored.
-template <int D>
+// stored. E is the element type of q, k, v and out.
+template <typename E, int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
@@ -381,7 +378,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const int atom = kk * 32 / L::kRowBytes, col = (kk * 32) % L::kRowBytes;
-        sm90::WgmmaSS<kBlockK, 0>::mma(
+        sm90::WgmmaSS<kBlockK, 0, E>::mma(
             s,
             sm90::make_desc(q_s + atom * L::kQAtomBytes + col, 16, kSbo,
                             L::kSwizzle),
@@ -398,8 +395,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                         k0 + kBlockK > kv_len;
       uint32_t p[kBlockK / 4];
       float alpha[2];
-      softmax_step<kBlockK>(s, p, m, l, alpha, scale_log2, mask, causal, k0,
-                            qpos0, k_base, kv_len, t);
+      softmax_step<E, kBlockK>(s, p, m, l, alpha, scale_log2, mask, causal,
+                               k0, qpos0, k_base, kv_len, t);
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
         o[4 * j] *= alpha[0];
@@ -419,7 +416,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int kk = 0; kk < kBlockK / 16; ++kk) {
         const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
                                p[4 * kk + 3]};
-        sm90::WgmmaRS<D, 1>::mma(
+        sm90::WgmmaRS<D, 1, E>::mma(
             o, a,
             sm90::make_desc(v_s + kk * 16 * L::kRowBytes, L::kKVAtomBytes,
                             kSbo, L::kSwizzle),
@@ -445,7 +442,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int j = 0; j < D / 8; ++j) {
         if (8 * j >= d) break;  // d % 8 == 0: a chunk is wholly in or out
         *reinterpret_cast<uint32_t*>(orow + 8 * j) =
-            pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+            sm90::pack2<E>(o[4 * j + 2 * r] * inv,
+                           o[4 * j + 2 * r + 1] * inv);
       }
       // A row that saw a key has l >= 1 (its max contributes exp2(0)).
       if (t == 0) {
@@ -458,34 +456,114 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// Head widths past 256: column chunks of O. A block is one (128-row q
-// tile, column chunk, batch * q head): it owns O's columns of its chunk's
-// atoms (at most kWideAtoms of 64 columns: 128 f32 registers a thread, as at
-// D 256), and forms S = Q K^T over the whole width d, so every chunk block
-// of a q tile holds the same m and l and writes its columns of out without
-// a combine (chunk 0 writes lse). Nothing of width d stays resident: per
-// 64-key K tile the producer streams the (Q atom, K atom) pairs of the d
-// columns through a ring of kScoreStages, then the tile's V atoms of the
-// chunk through a ring of two. The consumers issue each atom's four k16
-// steps of S and hand the previous atom's stage back as soon as its
-// products are done, so one group stays in flight.
-constexpr int kWideAtoms = 4;
+// Head widths past 256 (to host::kMaxHeadDim). What bounds it: at D 288
+// (Gemma-2-2B's and Gemma-3-1B's heads) the work is 4 * d FLOPs a visible
+// pair over 4 * d * 2 bytes of q, k, v and out a row: bound by the tensor
+// cores from about S 740 on, as at D 128. The first design (one block a
+// 128-row q tile and column chunk of at most 4 atoms, every atom of Q and
+// K streamed from L2 per key tile; now flash_fwd_wide_stream_kernel) ran at
+// 12-19 % of that bound: at D 288 it moved 140 KB from L2 per block and
+// 64-key tile (2.37 GB a call at Gemma-2-2B's widths, S 4096, about 5.7
+// TB/s), formed S twice (two chunks) and issued its P V as one N = 64
+// product an atom.
+//
+// This design, to kWideTallAtoms atoms (D 640):
+// - Q stays resident. A block loads its 128-row q tile once by TMA, n_atoms
+//   atoms of 64 columns (the width padded to atoms: 5 at D 288, 80 KB; 10 at
+//   D 640, 160 KB), and keeps it in shared memory for the whole key walk;
+//   each K/V byte brought from L2 serves its 128 rows (two consumer
+//   warpgroups of 64). Past D 640 a 128-row tile does not fit beside the
+//   K/V buffers; a 64-row one (one consumer warpgroup) ran 1.65x slower
+//   than the streaming kernel at D 1024, which takes those widths.
+// - K and V stream once per key tile: the tile's K atoms (every atom of d)
+//   one 8 KB atom at a time through a ring of as many slots as the shared
+//   memory left holds (up to kWideSlots: 8 at D 288, 7 at D 512, 3 at D
+//   640), each slot handed back once the consumers' S products on it are
+//   done; its V atoms (the block's chunk) side by side in a V stage, two
+//   stages where they fit beside Q (to D 320), so that P V reads them as
+//   one operand.
+// - O in registers, up to kWideAtoms atoms (320 columns, 160 f32 registers a
+//   consumer thread: the accumulator of one N = 256 product over four
+//   atoms and one N = 64 product; S, the packed P and the softmax state
+//   take most of the rest of the 240). So to D 320 one block holds the
+//   whole O of its rows and forms S = Q K^T once per (q tile, key tile),
+//   and every atom of O is updated from that one P, held in registers as
+//   the A operand of the P V products: the second S product of the first
+//   design (a third of its MMA work at D 288) and half of its Q/K traffic
+//   are gone. From 321 to 640 O's columns are cut into chunks of at most
+//   kWideAtoms atoms (host::column_chunks), one block each, and each chunk
+//   block forms S over the whole d (2 chunks at D 512). Holding O of 128
+//   rows at D 512 needs 256 KB of f32, the whole register file, so one P a
+//   tile there would need P staged in shared memory for consumer
+//   warpgroups that each own a column chunk (not built).
+// - P V as one N = 256 product a k16 step (and one N = 64 for a fifth
+//   atom), as the D 256 kernel does: five N = 64 products a step, one a V
+//   atom in its own ring slot, ran 1.11x slower at D 288 (PERF.md).
+// Per 64-key tile at D 288 a block moves 80 KB from L2 (140 KB before) and
+// does 2 * 128 * 64 * 320 FLOPs of each product (S twice before).
+constexpr int kWideAtoms = 5;
+constexpr int kWideSlots = 8;
+constexpr int kWideTallAtoms = 10;
+// The dynamic shared memory a wide launch may take (226 KB; the rest of
+// the 227 is the block's static base_s).
+constexpr int kWideSmem = 231424;
 
 struct WideLayout {
+  static constexpr int kRows = 128;  // q rows a block: two consumers x 64
   static constexpr int kBlockK = 64;
-  static constexpr int kScoreStages = 4;
-  static constexpr int kRowBytes = 128;  // one 64-column atom of bf16
-  static constexpr int kQAtomBytes = kBlockQ * kRowBytes;
-  static constexpr int kKAtomBytes = kBlockK * kRowBytes;
-  static constexpr int kScoreBytes = kQAtomBytes + kKAtomBytes;
-  static constexpr int kVBytes = kWideAtoms * kKAtomBytes;
-  static constexpr int kScore = 0;                       // + stage * score
-  static constexpr int kV = kScoreStages * kScoreBytes;  // + stage * V
-  static constexpr int kBars = kV + 2 * kVBytes;
-  static constexpr int kNumBars = 2 * kScoreStages + 4;  // full, empty x2
-  static constexpr int kBytes = kBars + 8 * kNumBars + 1024;
+  static constexpr int kRowBytes = 128;  // one 64-column atom of 16 bits
+  static constexpr int kSlotBytes = kBlockK * kRowBytes;  // a K or V atom
+  static constexpr int kVBytes = kWideAtoms * kSlotBytes;  // a V stage
+  static constexpr int kQAtomBytes = kRows * kRowBytes;
+  // Shared memory at `atoms` atoms: the q tile, the V stages, the K ring,
+  // then the barriers (q; a full and an empty one a V stage and a K slot)
+  // and slack to align the base to 1024 bytes. Two V stages where they
+  // leave the ring 4 slots.
+  __host__ __device__ static constexpr int fixed(int atoms) {
+    return atoms * kQAtomBytes + 8 + 1024;
+  }
+  __host__ __device__ static constexpr int v_stages(int atoms) {
+    return fixed(atoms) + 2 * (kVBytes + 16) + 4 * (kSlotBytes + 16) <=
+                   kWideSmem
+               ? 2
+               : 1;
+  }
+  __host__ __device__ static constexpr int slots(int atoms) {
+    const int fit = (kWideSmem - fixed(atoms) -
+                     v_stages(atoms) * (kVBytes + 16)) /
+                    (kSlotBytes + 16);
+    return fit < kWideSlots ? fit : kWideSlots;
+  }
+  __host__ __device__ static constexpr int bytes(int atoms) {
+    return fixed(atoms) + v_stages(atoms) * (kVBytes + 16) +
+           slots(atoms) * (kSlotBytes + 16);
+  }
+};
+static_assert(WideLayout::slots(kWideTallAtoms) >= 2 &&
+                  WideLayout::bytes(kWideTallAtoms) <= kWideSmem &&
+                  WideLayout::v_stages(kWideAtoms) == 2,
+              "shared memory");
+
+// A position in a ring of n slots: the slot and the parity of its round.
+struct RingPos {
+  int slot = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void next(int n) {
+    if (++slot == n) {
+      slot = 0;
+      phase ^= 1;
+    }
+  }
 };
 
+// One block = one (128-row q tile, column chunk, batch * q head):
+// blockIdx.x is chunk + n_chunks * (q tiles from the last), the row folded
+// as in flash_fwd_sm90_kernel. Warpgroup 0 loads (one thread); consumer c
+// owns q rows [64c, 64c + 64) of the tile and O's columns of the chunk's
+// atoms [a0, a0 + n_out): atoms a0..a0 + 3 in o (the accumulator layout of
+// an N = 256 product: register 4j + i holds column 8j + 2t + (i & 1) of
+// its 256), atom a0 + 4 in o4 (N = 64). Chunk 0 writes lse.
+template <typename E>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
@@ -496,6 +574,267 @@ flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
                       int k_base_arg, int kv_len_arg,
                       const int* __restrict__ base, int n_chunks, int per) {
   using L = WideLayout;
+  constexpr int kBlockK = L::kBlockK;
+  constexpr uint32_t kSbo = 8 * L::kRowBytes;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) &
+                              1023);
+  const int n_atoms = (d + host::kAtomCols - 1) / host::kAtomCols;
+  const int n_vst = L::v_stages(n_atoms);
+  const int n_slots = L::slots(n_atoms);
+  uint8_t* q_tile = smem;
+  uint8_t* v_tile = q_tile + n_atoms * L::kQAtomBytes;  // + stage * kVBytes
+  uint8_t* ring = v_tile + n_vst * L::kVBytes;  // + slot * kSlotBytes
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(ring + n_slots * L::kSlotBytes);
+  uint64_t* full_v = bar_q + 1;
+  uint64_t* empty_v = full_v + n_vst;
+  uint64_t* full = empty_v + n_vst;
+  uint64_t* empty = full + n_slots;
+
+  const int chunk = blockIdx.x % n_chunks;
+  const int q0 = (gridDim.x / n_chunks - 1 - blockIdx.x / n_chunks) * L::kRows;
+  const int bh = host::folded_row();
+  if (bh >= n_bh) return;
+  const int kv_head = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
+  const int a0 = chunk * per;
+  const int n_out = min(per, n_atoms - a0);
+
+  __shared__ int base_s[3];
+  if (threadIdx.x == 0) {
+    if (base != nullptr) {
+      const int* row = base + 3 * (bh / hq);
+      base_s[0] = row[0];
+      base_s[1] = row[1];
+      base_s[2] = min(max(row[2], 0), sk);
+    } else {
+      base_s[0] = q_base_arg;
+      base_s[1] = k_base_arg;
+      base_s[2] = kv_len_arg;
+    }
+    sm90::mbar_init(bar_q, 1);
+    for (int s = 0; s < n_vst; ++s) {
+      sm90::mbar_init(full_v + s, 1);
+      sm90::mbar_init(empty_v + s, kConsumerWarps);
+    }
+    for (int s = 0; s < n_slots; ++s) {
+      sm90::mbar_init(full + s, 1);
+      sm90::mbar_init(empty + s, kConsumerWarps);
+    }
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+  const int q_base = base_s[0], k_base = base_s[1], kv_len = base_s[2];
+
+  const int q_last = q_base + min(q0 + L::kRows, sq) - 1;
+  int n_cols = kv_len;
+  if (causal) n_cols = max(0, min(kv_len, q_last - k_base + 1));
+  const int n_tiles = (n_cols + kBlockK - 1) / kBlockK;
+
+  if (threadIdx.x < 128) {
+    sm90::regs_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0 && n_tiles > 0) {
+      sm90::mbar_arrive_expect_tx(bar_q, n_atoms * L::kQAtomBytes);
+      for (int a = 0; a < n_atoms; ++a) {
+        sm90::tma_load_3d(q_tile + a * L::kQAtomBytes, &tm_q, bar_q,
+                          a * host::kAtomCols, q0, bh);
+      }
+      // Round r of a K slot or V stage waits for the consumers to release
+      // round r - 1 (the first round's wait passes at once).
+      RingPos pos;
+      for (int kt = 0; kt < n_tiles; ++kt) {
+        for (int a = 0; a < n_atoms; ++a) {
+          sm90::mbar_wait(empty + pos.slot, pos.phase ^ 1);
+          sm90::mbar_arrive_expect_tx(full + pos.slot, L::kSlotBytes);
+          sm90::tma_load_3d(ring + pos.slot * L::kSlotBytes, &tm_k,
+                            full + pos.slot, a * host::kAtomCols,
+                            kt * kBlockK, kv_head);
+          pos.next(n_slots);
+        }
+        const int vs = kt % n_vst;
+        sm90::mbar_wait(empty_v + vs, ((kt / n_vst) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(full_v + vs, n_out * L::kSlotBytes);
+        for (int j = 0; j < n_out; ++j) {
+          sm90::tma_load_3d(v_tile + vs * L::kVBytes + j * L::kSlotBytes,
+                            &tm_v, full_v + vs, (a0 + j) * host::kAtomCols,
+                            kt * kBlockK, kv_head);
+        }
+      }
+    }
+  } else {
+    sm90::regs_alloc<kConsumerRegs>();
+    const int c = threadIdx.x / 128 - 1;  // rows [64c, 64c + 64) of the tile
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int row0 = q0 + 64 * c + 16 * warp + g;  // and row0 + 8
+    const int qpos0 = q_base + row0;
+    const int first_qpos = q_base + q0 + 64 * c;
+    const uint8_t* q_s = q_tile + 64 * c * L::kRowBytes;
+
+    float s[kBlockK / 2];
+    float o[128], o4[32];
+#pragma unroll
+    for (int i = 0; i < kBlockK / 2; ++i) s[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 128; ++i) o[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o4[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf};
+    float l[2] = {0.f, 0.f};
+
+    auto release = [&](uint64_t* bar) {
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(bar);
+    };
+    RingPos pos;
+    int prev = 0;  // the slot of the group before the one in flight
+    if (n_tiles > 0) sm90::mbar_wait(bar_q, 0);
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      const int k0 = kt * kBlockK;
+      // S = Q K^T over the atoms of d, Q from the resident tile; k16 steps
+      // wholly past d are skipped. One atom's group stays in flight.
+      for (int a = 0; a < n_atoms; ++a) {
+        const uint64_t q_desc =
+            sm90::make_desc(q_s + a * L::kQAtomBytes, 16, kSbo,
+                            sm90::kSwizzle128B);
+        const uint64_t k_desc =
+            sm90::make_desc(ring + pos.slot * L::kSlotBytes, 16, kSbo,
+                            sm90::kSwizzle128B);
+        sm90::mbar_wait(full + pos.slot, pos.phase);
+        sm90::fence_regs(s);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          if (a * host::kAtomCols + 16 * kk >= d) break;
+          sm90::WgmmaSS<kBlockK, 0, E>::mma(
+              s, sm90::desc_advance(q_desc, 32 * kk),
+              sm90::desc_advance(k_desc, 32 * kk), a > 0 || kk > 0);
+        }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<1>();
+        sm90::fence_regs(s);
+        if (a > 0) release(empty + prev);
+        prev = pos.slot;
+        pos.next(n_slots);
+      }
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(s);
+      release(empty + prev);
+
+      const bool mask = (causal && k_base + k0 + kBlockK - 1 > first_qpos) ||
+                        k0 + kBlockK > kv_len;
+      uint32_t p[kBlockK / 4];
+      float alpha[2];
+      softmax_step<E, kBlockK>(s, p, m, l, alpha, scale_log2, mask, causal,
+                               k0, qpos0, k_base, kv_len, t);
+#pragma unroll
+      for (int i = 0; i < 128; ++i) o[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o4[i] *= alpha[(i >> 1) & 1];
+
+      // O[:, chunk] += P V[:, chunk], V read MN-major from its stage: one
+      // N = 256 product over atoms a0..a0 + 3 (those past n_out read what
+      // the stage holds there and land in columns never stored) and, with
+      // a fifth atom, one N = 64 product.
+      const int vs = kt % n_vst;
+      const uint8_t* v_s = v_tile + vs * L::kVBytes;
+      sm90::mbar_wait(full_v + vs, (kt / n_vst) & 1);
+      sm90::fence_regs(o);
+      sm90::fence_regs(o4);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBlockK / 16; ++kk) {
+        const uint32_t pa[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                                p[4 * kk + 3]};
+        sm90::WgmmaRS<256, 1, E>::mma(
+            o, pa,
+            sm90::make_desc(v_s + kk * 16 * L::kRowBytes, L::kSlotBytes,
+                            kSbo, sm90::kSwizzle128B),
+            1);
+        if (n_out > 4) {
+          sm90::WgmmaRS<64, 1, E>::mma(
+              o4, pa,
+              sm90::make_desc(v_s + 4 * L::kSlotBytes +
+                                  kk * 16 * L::kRowBytes,
+                              L::kSlotBytes, kSbo, sm90::kSwizzle128B),
+              1);
+        }
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(o);
+      sm90::fence_regs(o4);
+      release(empty_v + vs);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      const float inv = 1.f / fmaxf(l[r], 1e-30f);
+      const int row = row0 + 8 * r;
+      if (row >= sq) continue;
+      uint16_t* orow = out + ((size_t)bh * sq + row) * d + 2 * t;
+      const int c0 = a0 * host::kAtomCols;
+#pragma unroll
+      for (int j = 0; j < 40; ++j) {
+        const int col = c0 + 8 * j;
+        // d % 8 == 0: an 8-column group is wholly in or out.
+        if (j / 8 >= n_out || col >= d) break;
+        const float lo = j < 32 ? o[4 * j + 2 * r] : o4[4 * (j - 32) + 2 * r];
+        const float hi =
+            j < 32 ? o[4 * j + 2 * r + 1] : o4[4 * (j - 32) + 2 * r + 1];
+        *reinterpret_cast<uint32_t*>(orow + col) =
+            sm90::pack2<E>(lo * inv, hi * inv);
+      }
+      if (t == 0 && chunk == 0) {
+        lse[(size_t)bh * sq + row] =
+            m[r] == kNegInf ? kNegInf : (m[r] + log2f(l[r])) * kLn2;
+      }
+    }
+  }
+}
+
+// Head widths past kWideTallAtoms atoms (D 640): column chunks of O with
+// nothing resident. A block is one (128-row q tile, column chunk, batch * q
+// head): it owns O's columns of its chunk's atoms (at most kStreamAtoms of
+// 64 columns: 128 f32 registers a thread, as at D 256), and forms S = Q K^T
+// over the whole width d, so every chunk block of a q tile holds the same m
+// and l and writes its columns of out without a combine (chunk 0 writes
+// lse). Per 64-key K tile the producer streams the (Q atom, K atom) pairs
+// of the d columns through a ring of kScoreStages, then the tile's V atoms
+// of the chunk through a ring of two. The consumers issue each atom's four
+// k16 steps of S and hand the previous atom's stage back as soon as its
+// products are done, so one group stays in flight. (A 64-row q tile kept
+// resident, one consumer warpgroup, ran this width 1.65x slower on the
+// card at D 1024: PERF.md.)
+constexpr int kStreamAtoms = 4;
+
+struct StreamLayout {
+  static constexpr int kBlockK = 64;
+  static constexpr int kScoreStages = 4;
+  static constexpr int kRowBytes = 128;  // one 64-column atom of bf16
+  static constexpr int kQAtomBytes = kBlockQ * kRowBytes;
+  static constexpr int kKAtomBytes = kBlockK * kRowBytes;
+  static constexpr int kScoreBytes = kQAtomBytes + kKAtomBytes;
+  static constexpr int kVBytes = kStreamAtoms * kKAtomBytes;
+  static constexpr int kScore = 0;                       // + stage * score
+  static constexpr int kV = kScoreStages * kScoreBytes;  // + stage * V
+  static constexpr int kBars = kV + 2 * kVBytes;
+  static constexpr int kNumBars = 2 * kScoreStages + 4;  // full, empty x2
+  static constexpr int kBytes = kBars + 8 * kNumBars + 1024;
+};
+
+template <typename E>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wide_stream_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      uint16_t* __restrict__ out, float* __restrict__ lse,
+                      int n_bh, int hq, int hkv, int sq, int sk, int d,
+                      int causal, float scale_log2, int q_base_arg,
+                      int k_base_arg, int kv_len_arg,
+                      const int* __restrict__ base, int n_chunks, int per) {
+  using L = StreamLayout;
   constexpr int kBlockK = L::kBlockK;
   constexpr int kS = L::kScoreStages;
   constexpr uint32_t kSbo = 8 * L::kRowBytes;
@@ -582,11 +921,11 @@ flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int first_qpos = q_base + q0 + 64 * c;
 
     float s[kBlockK / 2];
-    float o[kWideAtoms][32];
+    float o[kStreamAtoms][32];
 #pragma unroll
     for (int i = 0; i < kBlockK / 2; ++i) s[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < kWideAtoms; ++j) {
+    for (int j = 0; j < kStreamAtoms; ++j) {
 #pragma unroll
       for (int i = 0; i < 32; ++i) o[j][i] = 0.f;
     }
@@ -614,7 +953,7 @@ flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
           if (a * host::kAtomCols + 16 * kk >= d) break;
-          sm90::WgmmaSS<kBlockK, 0>::mma(
+          sm90::WgmmaSS<kBlockK, 0, E>::mma(
               s, sm90::desc_advance(q_desc, 32 * kk),
               sm90::desc_advance(k_desc, 32 * kk), a > 0 || kk > 0);
         }
@@ -631,10 +970,10 @@ flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
                         k0 + kBlockK > kv_len;
       uint32_t p[kBlockK / 4];
       float alpha[2];
-      softmax_step<kBlockK>(s, p, m, l, alpha, scale_log2, mask, causal, k0,
-                            qpos0, k_base, kv_len, t);
+      softmax_step<E, kBlockK>(s, p, m, l, alpha, scale_log2, mask, causal,
+                               k0, qpos0, k_base, kv_len, t);
 #pragma unroll
-      for (int j = 0; j < kWideAtoms; ++j) {
+      for (int j = 0; j < kStreamAtoms; ++j) {
 #pragma unroll
         for (int i = 0; i < 32; ++i) o[j][i] *= alpha[(i >> 1) & 1];
       }
@@ -644,16 +983,16 @@ flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
       const uint8_t* v_s = smem + L::kV + vs * L::kVBytes;
       sm90::mbar_wait(full_v + vs, (kt / 2) & 1);
 #pragma unroll
-      for (int j = 0; j < kWideAtoms; ++j) sm90::fence_regs(o[j]);
+      for (int j = 0; j < kStreamAtoms; ++j) sm90::fence_regs(o[j]);
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBlockK / 16; ++kk) {
         const uint32_t pa[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
                                 p[4 * kk + 3]};
 #pragma unroll
-        for (int j = 0; j < kWideAtoms; ++j) {
+        for (int j = 0; j < kStreamAtoms; ++j) {
           if (j >= n_out) break;
-          sm90::WgmmaRS<64, 1>::mma(
+          sm90::WgmmaRS<64, 1, E>::mma(
               o[j], pa,
               sm90::make_desc(v_s + j * L::kKAtomBytes + kk * 16 * L::kRowBytes,
                               L::kKAtomBytes, kSbo, sm90::kSwizzle128B),
@@ -663,7 +1002,7 @@ flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
 #pragma unroll
-      for (int j = 0; j < kWideAtoms; ++j) sm90::fence_regs(o[j]);
+      for (int j = 0; j < kStreamAtoms; ++j) sm90::fence_regs(o[j]);
       release(empty_v + vs);
     }
 
@@ -676,15 +1015,15 @@ flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (row >= sq) continue;
       uint16_t* orow = out + ((size_t)bh * sq + row) * d + 2 * t;
 #pragma unroll
-      for (int j = 0; j < kWideAtoms; ++j) {
+      for (int j = 0; j < kStreamAtoms; ++j) {
         if (j >= n_out) break;
 #pragma unroll
         for (int jj = 0; jj < 8; ++jj) {
           const int col = (a0 + j) * host::kAtomCols + 8 * jj;
           if (col >= d) break;  // d % 8 == 0: a chunk is wholly in or out
           *reinterpret_cast<uint32_t*>(orow + col) =
-              pack_bf16(o[j][4 * jj + 2 * r] * inv,
-                        o[j][4 * jj + 2 * r + 1] * inv);
+              sm90::pack2<E>(o[j][4 * jj + 2 * r] * inv,
+                             o[j][4 * jj + 2 * r + 1] * inv);
         }
       }
       if (t == 0 && chunk == 0) {
@@ -763,30 +1102,30 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (lane == 0) lse[(size_t)bh * sq + row] = m + logf(l_safe);
 }
 
-template <int D>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v,
-                        void* out, float* lse, int batch, int hq, int hkv,
-                        int sq, int sk, int d, int causal, float sm_scale,
-                        int q_base, int k_base, int kv_len, const int* base,
-                        cudaStream_t stream) {
+template <typename E, int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
+                      float* lse, int batch, int hq, int hkv, int sq, int sk,
+                      int d, int causal, float sm_scale, int q_base,
+                      int k_base, int kv_len, const int* base,
+                      cudaStream_t stream) {
   using L = Layout<D>;
   static std::atomic<uint64_t> configured{0};
   const cudaError_t err = host::allow_dynamic_smem(
-      flash_fwd_sm90_kernel<D>, L::kBytes, &configured);
+      flash_fwd_sm90_kernel<E, D>, L::kBytes, &configured);
   if (err != cudaSuccess) return err;
   // With no keys (Sk 0) no K/V tile is ever loaded; q stands in for the
   // K/V maps so that they still describe real memory.
   if (sk == 0) k = v = q;
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!host::encode_bf16_rows(&tm_q, q, d, sq, batch * hq, kBlockQ, D) ||
-      !host::encode_bf16_rows(&tm_k, k, d, sk > 0 ? sk : 1, batch * hkv,
-                              L::kBlockK, D) ||
-      !host::encode_bf16_rows(&tm_v, v, d, sk > 0 ? sk : 1, batch * hkv,
-                              L::kBlockK, D)) {
+  if (!host::encode_rows<E>(&tm_q, q, d, sq, batch * hq, kBlockQ, D) ||
+      !host::encode_rows<E>(&tm_k, k, d, sk > 0 ? sk : 1, batch * hkv,
+                            L::kBlockK, D) ||
+      !host::encode_rows<E>(&tm_v, v, d, sk > 0 ? sk : 1, batch * hkv,
+                            L::kBlockK, D)) {
     return cudaErrorInvalidValue;
   }
   const dim3 grid = host::fold_rows((sq + kBlockQ - 1) / kBlockQ, batch * hq);
-  flash_fwd_sm90_kernel<D><<<grid, kThreads, L::kBytes, stream>>>(
+  flash_fwd_sm90_kernel<E, D><<<grid, kThreads, L::kBytes, stream>>>(
       tm_q, tm_k, tm_v, static_cast<uint16_t*>(out), lse, batch * hq, hq,
       hkv, sq, sk, d, causal, sm_scale * kLog2e, q_base, k_base, kv_len,
       base);
@@ -809,75 +1148,98 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
   return cudaSuccess;
 }
 
+template <typename E>
 cudaError_t launch_wide(const void* q, const void* k, const void* v,
                         void* out, float* lse, int batch, int hq, int hkv,
                         int sq, int sk, int d, int causal, float sm_scale,
                         int q_base, int k_base, int kv_len, const int* base,
                         cudaStream_t stream) {
-  using L = WideLayout;
-  static std::atomic<uint64_t> configured{0};
-  const cudaError_t err = host::allow_dynamic_smem(
-      flash_fwd_wide_kernel, L::kBytes, &configured);
+  const int atoms = (d + host::kAtomCols - 1) / host::kAtomCols;
+  const bool resident = atoms <= kWideTallAtoms;
+  static std::atomic<uint64_t> configured{0}, configured_stream{0};
+  const cudaError_t err =
+      resident ? host::allow_dynamic_smem(flash_fwd_wide_kernel<E>,
+                                          kWideSmem, &configured)
+               : host::allow_dynamic_smem(flash_fwd_wide_stream_kernel<E>,
+                                          StreamLayout::kBytes,
+                                          &configured_stream);
   if (err != cudaSuccess) return err;
   if (sk == 0) k = v = q;
   // Every box is one 64-column atom (width 64: 128-byte rows).
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!host::encode_bf16_rows(&tm_q, q, d, sq, batch * hq, kBlockQ,
-                              host::kAtomCols) ||
-      !host::encode_bf16_rows(&tm_k, k, d, sk > 0 ? sk : 1, batch * hkv,
-                              L::kBlockK, host::kAtomCols) ||
-      !host::encode_bf16_rows(&tm_v, v, d, sk > 0 ? sk : 1, batch * hkv,
-                              L::kBlockK, host::kAtomCols)) {
+  if (!host::encode_rows<E>(&tm_q, q, d, sq, batch * hq, kBlockQ,
+                            host::kAtomCols) ||
+      !host::encode_rows<E>(&tm_k, k, d, sk > 0 ? sk : 1, batch * hkv, 64,
+                            host::kAtomCols) ||
+      !host::encode_rows<E>(&tm_v, v, d, sk > 0 ? sk : 1, batch * hkv, 64,
+                            host::kAtomCols)) {
     return cudaErrorInvalidValue;
   }
-  const host::Chunks chunks = host::column_chunks(d, kWideAtoms);
+  const host::Chunks chunks =
+      host::column_chunks(d, resident ? kWideAtoms : kStreamAtoms);
   const dim3 grid = host::fold_rows(
       (sq + kBlockQ - 1) / kBlockQ * chunks.n, batch * hq);
-  flash_fwd_wide_kernel<<<grid, kThreads, L::kBytes, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<uint16_t*>(out), lse, batch * hq, hq,
-      hkv, sq, sk, d, causal, sm_scale * kLog2e, q_base, k_base, kv_len,
-      base, chunks.n, chunks.per);
+  if (resident) {
+    flash_fwd_wide_kernel<E><<<grid, kThreads, WideLayout::bytes(atoms),
+                               stream>>>(
+        tm_q, tm_k, tm_v, static_cast<uint16_t*>(out), lse, batch * hq, hq,
+        hkv, sq, sk, d, causal, sm_scale * kLog2e, q_base, k_base, kv_len,
+        base, chunks.n, chunks.per);
+  } else {
+    flash_fwd_wide_stream_kernel<E><<<grid, kThreads, StreamLayout::kBytes,
+                                      stream>>>(
+        tm_q, tm_k, tm_v, static_cast<uint16_t*>(out), lse, batch * hq, hq,
+        hkv, sq, sk, d, causal, sm_scale * kLog2e, q_base, k_base, kv_len,
+        base, chunks.n, chunks.per);
+  }
   return cudaSuccess;
 }
 
 }  // namespace
 
-// dtype: 0 = bf16 (the Hopper kernels), 1 = f32 (check kernel). Tensors are
-// contiguous and 16-byte aligned (the Python wrapper checks). The head dim
-// d is a multiple of 8 up to kMaxHeadDim (the wrapper pads any other d to
-// a multiple of 8: ops/_ext.py kernel_head_dim): up to 256 it runs the
-// kernel built for the next of 32, 64, 128 and 256, past it (bf16) the
-// column-chunk kernel. `base`, when not null, is a device int32 (batch, 3)
-// array of [q_base, k_base, kv_len] per batch row, read by the kernel in
-// place of the three ints. Launches on `stream`, allocates nothing, and
-// returns the first error of the set-up or cudaGetLastError() after the
-// launch (0 on success).
+// dtype: 0 = bf16 and 2 = f16 (the Hopper kernels), 1 = f32 (check kernel):
+// host::kDtype*. Tensors are contiguous and 16-byte aligned (the Python
+// wrapper checks). The head dim d is a multiple of 8 up to kMaxHeadDim (the
+// wrapper pads any other d to a multiple of 8: ops/_ext.py
+// kernel_head_dim): up to 256 it runs the kernel built for the next of 32,
+// 64, 128 and 256, past it (bf16, f16) the wide kernel up to
+// kWideTallAtoms atoms (D 640) and the streaming one past them. `base`, when
+// not null, is a device int32 (batch, 3) array of [q_base, k_base, kv_len]
+// per batch row, read by the kernel in place of the three ints. Launches on
+// `stream`, allocates nothing, and returns the first error of the set-up or
+// cudaGetLastError() after the launch (0 on success).
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* out, float* lse, int dtype, int batch,
                                 int hq, int hkv, int sq, int sk, int d,
                                 int causal, float sm_scale, int q_base,
                                 int k_base, int kv_len, const int* base,
                                 void* stream) {
-  if ((dtype != 0 && dtype != 1) || hkv <= 0 || hq % hkv || d <= 0 ||
-      d > host::kMaxHeadDim || d % 8) {
+  if ((dtype != host::kDtypeBf16 && dtype != host::kDtypeF32 &&
+       dtype != host::kDtypeF16) ||
+      hkv <= 0 || hq % hkv || d <= 0 || d > host::kMaxHeadDim || d % 8) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 1) {
+  if (dtype == host::kDtypeF32) {
     err = host::with_f32_width(d, [&](auto width) {
       return launch_f32<decltype(width)::value>(
           q, k, v, out, lse, batch, hq, hkv, sq, sk, d, causal, sm_scale,
           q_base, k_base, kv_len, base, st);
     });
-  } else if (d > 256) {
-    err = launch_wide(q, k, v, out, lse, batch, hq, hkv, sq, sk, d, causal,
-                      sm_scale, q_base, k_base, kv_len, base, st);
   } else {
-    err = host::with_width(d, [&](auto width) {
-      return launch_bf16<decltype(width)::value>(
-          q, k, v, out, lse, batch, hq, hkv, sq, sk, d, causal, sm_scale,
-          q_base, k_base, kv_len, base, st);
+    err = host::with_elem(dtype, [&](auto elem) {
+      using E = typename decltype(elem)::type;
+      if (d > 256) {
+        return launch_wide<E>(q, k, v, out, lse, batch, hq, hkv, sq, sk, d,
+                              causal, sm_scale, q_base, k_base, kv_len, base,
+                              st);
+      }
+      return host::with_width(d, [&](auto width) {
+        return launch_tc<E, decltype(width)::value>(
+            q, k, v, out, lse, batch, hq, hkv, sq, sk, d, causal, sm_scale,
+            q_base, k_base, kv_len, base, st);
+      });
     });
   }
   if (err != cudaSuccess) return static_cast<int>(err);

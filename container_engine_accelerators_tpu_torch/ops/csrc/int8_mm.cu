@@ -14,10 +14,12 @@
 //
 // the per-output-channel f32 scale applied to the f32 accumulator, never to
 // a rounded product. Here q comes transposed, qt (N, K) with K contiguous
-// (quantization.Int8Weight's layout). Each int8 value converts to bf16
-// exactly (|q| <= 127 needs 7 significant bits of bf16's 8), and int8 x
-// bf16 products are exact in f32, so the kernels and the plain version
-// differ only in the order of their f32 sums.
+// (quantization.Int8Weight's layout). x is bf16 or f16 (the kernels are
+// templated on its element type X; f32 x runs a check kernel). Each int8
+// value converts to either exactly (|q| <= 127 needs 7 significant bits of
+// bf16's 8 and f16's 11), and int8 x bf16 or f16 products are exact in f32
+// (at most 7 + 11 bits), so the kernels and the plain version differ only
+// in the order of their f32 sums.
 //
 // What bounds it on H100. Bytes = K*N (int8) + 4N (scale) + 2MK (x) + 2MN
 // (y); work = 2MKN. Decode (M 1-8) and the verify (M 128) read each weight
@@ -25,7 +27,7 @@
 // weight halves the bytes the bf16 product streams. Prefill (M 512-8192) is
 // bound by the tensor cores' bf16 rate, which only wgmma reaches.
 //
-// What the design does about it (bf16 activations, the Hopper kernel
+// What the design does about it (bf16 or f16 activations, the Hopper kernel
 // int8_mm_sm90_kernel):
 // - The operands are swapped: a block computes a tile of y^T, 64 output
 //   channels per consumer warpgroup against BN tokens, so the weight is
@@ -38,7 +40,7 @@
 //   float converts run at a quarter rate) straight into wgmma's register
 //   operand (m64nNk16, A from registers, x from shared memory as a K-major
 //   B with 128-byte swizzle), one k16 step at a time, so a step's converts
-//   run while the previous step's wgmma does. No bf16 copy of the weight
+//   run while the previous step's wgmma does. No 16-bit copy of the weight
 //   is written.
 // - Loads overlap the math: one producer thread keeps a ring of stages (a
 //   64- or 128-deep K slice of the int8 tile and of the x tile) in flight
@@ -55,8 +57,8 @@
 //   is the same bit for bit on every run, as the replayed serving graphs
 //   need.
 // - The epilogue stages the output tile in shared memory and writes y's
-//   rows with 16-byte stores. y is bf16, or f32 where the caller keeps the
-//   scaled accumulator unrounded (the tensor-parallel reduce-scatter's f32
+//   rows with 16-byte stores. y is x's type, or f32 where the caller keeps
+//   the scaled accumulator unrounded (the tensor-parallel reduce-scatter's f32
 //   partial sums, parallel/overlap.py): the same kernels, only the
 //   epilogue's element type differs.
 // Tried on the card and slower, so left out: converting stage i + 1's
@@ -71,11 +73,13 @@
 // The general path takes what a TMA map cannot describe (K % 16 != 0, K
 // under one 128-deep stage, bases not 16-byte aligned): the earlier
 // design's cp.async ring with ldmatrix and mma.sync m16n8k16, the same
-// int8 -> bf16 convert, tiles by M, 16-byte cp.async where K % 16 == 0 and
-// the bases are aligned and element-wise loads otherwise. f32 activations
-// (for checking) run a plain SIMT kernel with f32 FMAs, the same contract.
+// int8 -> bf16 or f16 convert, tiles by M, 16-byte cp.async where K % 16 ==
+// 0 and the bases are aligned and element-wise loads otherwise. f32
+// activations (for checking) run a plain SIMT kernel with f32 FMAs, the same
+// contract.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -102,7 +106,7 @@ struct Tile {
   static constexpr int MT = BM / WM_ / 16;  // m16 tiles per warp
   static constexpr int NT = BN / WN_ / 8;   // n8 tiles per warp
   // Rows padded by 16 bytes: the fragment reads hit distinct banks.
-  static constexpr int XS = BK + 8;   // bf16 elements per x row
+  static constexpr int XS = BK + 8;   // 16-bit elements per x row
   static constexpr int QS = BK + 16;  // bytes per qt row
   static constexpr int kXBytes = BM * XS * 2;
   static constexpr int kQBytes = BN * QS;
@@ -155,8 +159,30 @@ __device__ __forceinline__ uint32_t int8x2_to_bf16x2(uint16_t v) {
   return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
 }
 
-// The scaled f32 accumulator as an element of y: one rounding to bf16, or
-// none for an f32 y.
+// Two int8 values (low byte first) as an f16x2 register, exactly: each byte,
+// biased by 128, becomes the low byte of the f16 1024 + (q + 128) (0x64XX:
+// from 1024 to 2048 f16 steps by 1), and one f16x2 subtraction of 1152
+// leaves q.
+__device__ __forceinline__ uint32_t int8x2_to_f16x2(uint16_t v) {
+  const uint32_t biased = static_cast<uint32_t>(v) ^ 0x8080u;
+  const uint32_t h = __byte_perm(biased, 0x64646464u, 0x4140);
+  uint32_t q;
+  asm("sub.f16x2 %0, %1, %2;" : "=r"(q) : "r"(h), "r"(0x64806480u));
+  return q;
+}
+
+// The A or B register of two int8 values in the activations' type X.
+template <typename X>
+__device__ __forceinline__ uint32_t int8x2_to(uint16_t v) {
+  if constexpr (sm90::kIsF16<X>) {
+    return int8x2_to_f16x2(v);
+  } else {
+    return int8x2_to_bf16x2(v);
+  }
+}
+
+// The scaled f32 accumulator as an element of y: one rounding to bf16 or
+// f16, or none for an f32 y.
 template <typename Y>
 __device__ __forceinline__ Y to_out(float v);
 template <>
@@ -164,12 +190,16 @@ __device__ __forceinline__ __nv_bfloat16 to_out<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 template <>
+__device__ __forceinline__ __half to_out<__half>(float v) {
+  return __float2half_rn(v);
+}
+template <>
 __device__ __forceinline__ float to_out<float>(float v) {
   return v;
 }
 
 // The A fragment of an m16n8k16 product (rows r0..r0+15, k k0..k0+15 of a
-// row-major bf16 tile with `stride` elements a row) in one ldmatrix.x4:
+// row-major 16-bit tile with `stride` elements a row) in one ldmatrix.x4:
 // lanes 0-15 address rows r0..r0+15 at k0, lanes 16-31 the same rows at
 // k0 + 8.
 __device__ __forceinline__ void load_a_frag(uint32_t* a, const uint16_t* tile,
@@ -183,14 +213,24 @@ __device__ __forceinline__ void load_a_frag(uint32_t* a, const uint16_t* tile,
       : "r"(smem_addr(p)));
 }
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+template <typename X>
+__device__ __forceinline__ void mma16(float* c, const uint32_t* a,
+                                      uint32_t b0, uint32_t b1) {
+  if constexpr (sm90::kIsF16<X>) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
 }
 
 // Stages K tile `kt` of x rows [bm, bm + BM) and qt rows [bn, bn + BN) into
@@ -233,10 +273,10 @@ __device__ __forceinline__ void load_tile(
 
 // One block: the BM x BN output tile (blockIdx.y, blockIdx.x) over split
 // blockIdx.z of the K tiles. With one split, y = acc * scale as a Y;
-// otherwise the f32 partial goes to ws (splits, M, N).
-template <typename T, bool ALIGNED, typename Y>
+// otherwise the f32 partial goes to ws (splits, M, N). X: x's element type.
+template <typename T, bool ALIGNED, typename Y, typename X = __nv_bfloat16>
 __global__ void __launch_bounds__(T::kThreads)
-    int8_mm_bf16_kernel(const uint16_t* __restrict__ x,
+    int8_mm_mma_kernel(const uint16_t* __restrict__ x,
                         const int8_t* __restrict__ qt,
                         const float* __restrict__ scale,
                         Y* __restrict__ y, float* __restrict__ ws,
@@ -300,11 +340,13 @@ __global__ void __launch_bounds__(T::kThreads)
       for (int ni = 0; ni < T::NT; ++ni) {
         const int8_t* col = qs + (wn + ni * 8 + g) * T::QS + kk + 2 * t;
         const uint32_t b0 =
-            int8x2_to_bf16x2(*reinterpret_cast<const uint16_t*>(col));
+            int8x2_to<X>(*reinterpret_cast<const uint16_t*>(col));
         const uint32_t b1 =
-            int8x2_to_bf16x2(*reinterpret_cast<const uint16_t*>(col + 8));
+            int8x2_to<X>(*reinterpret_cast<const uint16_t*>(col + 8));
 #pragma unroll
-        for (int mi = 0; mi < T::MT; ++mi) mma_bf16(acc[mi][ni], a[mi], b0, b1);
+        for (int mi = 0; mi < T::MT; ++mi) {
+          mma16<X>(acc[mi][ni], a[mi], b0, b1);
+        }
       }
     }
   }
@@ -357,16 +399,17 @@ __global__ void int8_mm_f32_kernel(const float* __restrict__ x,
   if (r < m && c < n) y[(size_t)r * n + c] = acc * scale[c];
 }
 
-template <typename T, bool ALIGNED, typename Y>
+template <typename T, bool ALIGNED, typename Y, typename X = __nv_bfloat16>
 cudaError_t launch_tile(const void* x, const int8_t* qt, const float* scale,
                         void* y, float* ws, int m, int n, int k, int splits,
                         cudaStream_t stream) {
   static std::atomic<uint64_t> configured{0};
   const cudaError_t err = host::allow_dynamic_smem(
-      int8_mm_bf16_kernel<T, ALIGNED, Y>, T::kBytes, &configured);
+      int8_mm_mma_kernel<T, ALIGNED, Y, X>, T::kBytes, &configured);
   if (err != cudaSuccess) return err;
   const dim3 grid((n + T::BN - 1) / T::BN, (m + T::BM - 1) / T::BM, splits);
-  int8_mm_bf16_kernel<T, ALIGNED, Y><<<grid, T::kThreads, T::kBytes, stream>>>(
+  int8_mm_mma_kernel<T, ALIGNED, Y, X>
+      <<<grid, T::kThreads, T::kBytes, stream>>>(
       static_cast<const uint16_t*>(x), qt, scale, static_cast<Y*>(y), ws, m,
       n, k);
   return cudaSuccess;
@@ -449,7 +492,7 @@ __device__ __forceinline__ void consumer_sync(int threads) {
 // of 64 columns, K-major with 128-byte swizzle), for the thread at `q` (row
 // row, byte 2t of the int8 tile; row + 8 is 8 * BK further). k16 step kk
 // reads rows row and row + 8 at k pairs 16 kk + 2t and 16 kk + 2t + 8,
-// each pair one 16-bit read converted to a bf16x2 register of the A
+// each pair one 16-bit read converted to an X pair register of the A
 // fragment. TMA's swizzle moves 16-byte chunk kk of a row to chunk kk ^
 // `swz`, the same for both rows (bits 7 and up of row * BK: row % 8 for
 // 128-byte rows, row / 2 % 4 for 64-byte ones). The reads come first, then
@@ -457,7 +500,7 @@ __device__ __forceinline__ void consumer_sync(int threads) {
 // while step kk's wgmma does; one commit group. With -DINT8_MM_NO_CONVERT
 // (the tile bench's diagnostic build) the raw pairs go to wgmma instead:
 // wrong products, timed to show what the converts cost.
-template <typename T>
+template <typename T, typename X>
 __device__ __forceinline__ void stage_wgmma(float (&acc)[T::kAcc],
                                             const uint8_t* q, int swz,
                                             const uint8_t* xs) {
@@ -479,11 +522,11 @@ __device__ __forceinline__ void stage_wgmma(float (&acc)[T::kAcc],
 #ifdef INT8_MM_NO_CONVERT
       a[r] = v[kk][r];
 #else
-      a[r] = int8x2_to_bf16x2(v[kk][r]);
+      a[r] = int8x2_to<X>(v[kk][r]);
 #endif
     }
     sm90::wgmma_fence();
-    sm90::WgmmaRS<T::BN, 0>::mma(
+    sm90::WgmmaRS<T::BN, 0, X>::mma(
         acc, a,
         sm90::make_desc(xs + (kk / 4) * T::kXAtom + (kk % 4) * 32, 16,
                         8 * 128, sm90::kSwizzle128B),
@@ -497,8 +540,9 @@ __device__ __forceinline__ void stage_wgmma(float (&acc)[T::kAcc],
 // rank; the cluster spans z). Warpgroup 0 loads; warpgroup 1 + w owns
 // channels [64w, 64w + 64) of the tile. In a consumer warp (w4 of its
 // warpgroup) lane (g = lane / 4, t = lane % 4) holds channels 16 w4 + g and
-// 16 w4 + g + 8, and tokens 8j + 2t, 8j + 2t + 1 of every 8 tokens j.
-template <typename T, typename Y>
+// 16 w4 + g + 8, and tokens 8j + 2t, 8j + 2t + 1 of every 8 tokens j. X:
+// x's element type.
+template <typename T, typename Y, typename X = __nv_bfloat16>
 __global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
     int8_mm_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                         const __grid_constant__ CUtensorMap tm_x,
@@ -564,7 +608,7 @@ __global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
     for (int i = 0; i < kt1 - kt0; ++i) {
       const int st = i % T::kStages;
       sm90::mbar_wait(full + st, (i / T::kStages) & 1);
-      stage_wgmma<T>(acc, q + st * T::kStageBytes, swz,
+      stage_wgmma<T, X>(acc, q + st * T::kStageBytes, swz,
                      smem + st * T::kStageBytes + T::kQBytes);
       sm90::wgmma_wait<0>();
       sm90::fence_regs(acc);
@@ -665,17 +709,17 @@ bool weight_map(CUtensorMap* map, const int8_t* qt, int n, int k,
   return true;
 }
 
-template <typename T, typename Y>
+template <typename T, typename Y, typename X = __nv_bfloat16>
 cudaError_t launch_sm90(const void* x, const int8_t* qt, const float* scale,
                         void* y, int m, int n, int k, int splits,
                         cudaStream_t stream) {
   static std::atomic<uint64_t> configured{0};
-  cudaError_t err = host::allow_dynamic_smem(int8_mm_sm90_kernel<T, Y>,
+  cudaError_t err = host::allow_dynamic_smem(int8_mm_sm90_kernel<T, Y, X>,
                                              T::kBytes, &configured);
   if (err != cudaSuccess) return err;
   CUtensorMap tm_q, tm_x;
   if (!weight_map(&tm_q, qt, n, k, T::BK, T::BC) ||
-      !host::encode_bf16_rows(&tm_x, x, k, m, 1, T::BN)) {
+      !host::encode_rows<X>(&tm_x, x, k, m, 1, T::BN)) {
     return cudaErrorInvalidValue;
   }
   cudaLaunchConfig_t cfg = {};
@@ -695,15 +739,15 @@ cudaError_t launch_sm90(const void* x, const int8_t* qt, const float* scale,
   void* args[] = {&tm_q, &tm_x, &scale, &out, &m, &n, &k};
   return cudaLaunchKernelExC(&cfg,
                              reinterpret_cast<const void*>(
-                                 int8_mm_sm90_kernel<T, Y>),
+                                 int8_mm_sm90_kernel<T, Y, X>),
                              args);
 }
 
-template <typename T, typename Y>
+template <typename T, typename Y, typename X = __nv_bfloat16>
 cudaError_t launch_sm90(const void* x, const int8_t* qt, const float* scale,
                         void* y, int m, int n, int k, cudaStream_t stream) {
-  return launch_sm90<T, Y>(x, qt, scale, y, m, n, k, sm90_splits<T>(m, n, k),
-                           stream);
+  return launch_sm90<T, Y, X>(x, qt, scale, y, m, n, k,
+                              sm90_splits<T>(m, n, k), stream);
 }
 
 // What a TMA map describes: K a multiple of 16 (the row stride rule) and
@@ -715,36 +759,37 @@ bool tma_ok(const void* x, const int8_t* qt, int k) {
 }
 
 // The general path: one split, 16-byte cp.async where aligned.
-template <typename T, typename Y>
+template <typename T, typename Y, typename X>
 cudaError_t launch_general(const void* x, const int8_t* qt,
                            const float* scale, void* y, int m, int n, int k,
                            cudaStream_t stream) {
   const bool aligned = k % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(qt) % 16 == 0;
-  return aligned ? launch_tile<T, true, Y>(x, qt, scale, y, nullptr, m, n, k,
-                                           1, stream)
-                 : launch_tile<T, false, Y>(x, qt, scale, y, nullptr, m, n,
-                                            k, 1, stream);
+  return aligned ? launch_tile<T, true, Y, X>(x, qt, scale, y, nullptr, m, n,
+                                              k, 1, stream)
+                 : launch_tile<T, false, Y, X>(x, qt, scale, y, nullptr, m,
+                                               n, k, 1, stream);
 }
 
-// bf16 x, y a Y: the Hopper kernel where TMA describes the operands, else
-// the general path, each at the tile its M picks.
-template <typename Y>
-cudaError_t launch_bf16(const void* x, const int8_t* qt, const float* scale,
-                        void* y, int m, int n, int k, cudaStream_t st) {
+// x of the 16-bit type X, y a Y: the Hopper kernel where TMA describes the
+// operands, else the general path, each at the tile its M picks.
+template <typename X, typename Y>
+cudaError_t launch_16(const void* x, const int8_t* qt, const float* scale,
+                      void* y, int m, int n, int k, cudaStream_t st) {
   if (tma_ok(x, qt, k)) {
     switch (sm90_config(m)) {
-      case 0: return launch_sm90<D8, Y>(x, qt, scale, y, m, n, k, st);
-      case 1: return launch_sm90<D16, Y>(x, qt, scale, y, m, n, k, st);
-      case 2: return launch_sm90<V128, Y>(x, qt, scale, y, m, n, k, st);
-      default: return launch_sm90<P256, Y>(x, qt, scale, y, m, n, k, st);
+      case 0: return launch_sm90<D8, Y, X>(x, qt, scale, y, m, n, k, st);
+      case 1: return launch_sm90<D16, Y, X>(x, qt, scale, y, m, n, k, st);
+      case 2: return launch_sm90<V128, Y, X>(x, qt, scale, y, m, n, k, st);
+      default: return launch_sm90<P256, Y, X>(x, qt, scale, y, m, n, k, st);
     }
   }
   switch (config_for(m)) {
-    case 0: return launch_general<Decode, Y>(x, qt, scale, y, m, n, k, st);
-    case 1: return launch_general<Verify, Y>(x, qt, scale, y, m, n, k, st);
-    default: return launch_general<Prefill, Y>(x, qt, scale, y, m, n, k, st);
+    case 0: return launch_general<Decode, Y, X>(x, qt, scale, y, m, n, k, st);
+    case 1: return launch_general<Verify, Y, X>(x, qt, scale, y, m, n, k, st);
+    default:
+      return launch_general<Prefill, Y, X>(x, qt, scale, y, m, n, k, st);
   }
 }
 
@@ -759,31 +804,43 @@ extern "C" long long int8_mm_workspace_floats(int dtype, int m, int n,
   return 0;
 }
 
-// dtype: 0 = bf16 x and y (the tensor-core kernels), 1 = f32 x and y (the
-// check kernel), 2 = bf16 x and f32 y (the tensor-core kernels with the
+// dtype: 0 = bf16 x and y, 2 = f16 x and y (the tensor-core kernels; the
+// flash launches' codes, host::kDtype*), 1 = f32 x and y (the check kernel),
+// 3 = bf16 x and 4 = f16 x with an f32 y (the tensor-core kernels with the
 // scaled accumulator written unrounded). x (m, k), qt (n, k) int8 and y
-// (m, n) are contiguous; scale is
-// (n,) f32; ws may be null (int8_mm_workspace_floats is 0). Launches on
-// `stream`, allocates nothing, and returns the first error of the set-up
-// or the launch (0 on success).
+// (m, n) are contiguous; scale is (n,) f32; ws may be null
+// (int8_mm_workspace_floats is 0). Launches on `stream`, allocates nothing,
+// and returns the first error of the set-up or the launch (0 on success).
 extern "C" int int8_mm_launch(const void* x, const int8_t* qt,
                               const float* scale, void* y, float* ws,
                               int dtype, int m, int n, int k, void* stream) {
   (void)ws;
-  if (dtype < 0 || dtype > 2 || m <= 0 || n <= 0 || k <= 0) {
+  if (dtype < 0 || dtype > 4 || m <= 0 || n <= 0 || k <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
+  if (dtype == host::kDtypeF32) {
     const dim3 grid((n + 15) / 16, (m + 15) / 16);
     int8_mm_f32_kernel<<<grid, dim3(16, 16), 0, st>>>(
         static_cast<const float*>(x), qt, scale, static_cast<float*>(y), m, n,
         k);
     return static_cast<int>(cudaGetLastError());
   }
-  const cudaError_t err =
-      dtype == 0 ? launch_bf16<__nv_bfloat16>(x, qt, scale, y, m, n, k, st)
-                 : launch_bf16<float>(x, qt, scale, y, m, n, k, st);
+  cudaError_t err;
+  switch (dtype) {
+    case host::kDtypeBf16:
+      err = launch_16<__nv_bfloat16, __nv_bfloat16>(x, qt, scale, y, m, n, k,
+                                                    st);
+      break;
+    case host::kDtypeF16:
+      err = launch_16<__half, __half>(x, qt, scale, y, m, n, k, st);
+      break;
+    case 3:
+      err = launch_16<__nv_bfloat16, float>(x, qt, scale, y, m, n, k, st);
+      break;
+    default:
+      err = launch_16<__half, float>(x, qt, scale, y, m, n, k, st);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

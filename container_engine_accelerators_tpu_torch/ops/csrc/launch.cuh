@@ -9,10 +9,13 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums: types only, no -lcuda
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 namespace host {
 
@@ -36,16 +39,18 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A rank-3 map (d, rows, heads) of a contiguous (heads, rows, d) bf16
-// tensor whose box is one swizzle atom of a tile `width` columns wide (0:
-// d): min(width, 64) columns of `box_rows` rows of one head, with 128-byte
-// swizzle (64-byte where a row of the tile is 64 bytes, width 32). Rows
-// past `rows` and columns past `d` read as zeros, so a kernel built for
-// `width` reads a tensor of d < width columns (d % 8 == 0: TMA takes row
-// strides that are multiples of 16 bytes) as if it were zero-padded.
-inline bool encode_bf16_rows(CUtensorMap* map, const void* base, int d,
-                             int rows, int heads, int box_rows,
-                             int width = 0) {
+// A rank-3 map (d, rows, heads) of a contiguous (heads, rows, d) tensor of
+// the 16-bit element type E (__nv_bfloat16 or __half) whose box is one
+// swizzle atom of a tile `width` columns wide (0: d): min(width, 64)
+// columns of `box_rows` rows of one head, with 128-byte swizzle (64-byte
+// where a row of the tile is 64 bytes, width 32). Rows past `rows` and
+// columns past `d` read as zeros, so a kernel built for `width` reads a
+// tensor of d < width columns (d % 8 == 0: TMA takes row strides that are
+// multiples of 16 bytes) as if it were zero-padded.
+template <typename E>
+inline bool encode_rows(CUtensorMap* map, const void* base, int d, int rows,
+                        int heads, int box_rows, int width = 0) {
+  static_assert(sizeof(E) == 2, "a 16-bit element type");
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   if (width == 0) width = d;
@@ -57,8 +62,11 @@ inline bool encode_bf16_rows(CUtensorMap* map, const void* base, int d,
   const cuuint32_t box[3] = {(cuuint32_t)row_bytes / 2,
                              (cuuint32_t)box_rows, 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(base), dims, strides, box, elem_strides,
+  return encode(map,
+                std::is_same<E, __half>::value
+                    ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                3, const_cast<void*>(base), dims, strides, box, elem_strides,
                 CU_TENSOR_MAP_INTERLEAVE_NONE,
                 row_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                                  : CU_TENSOR_MAP_SWIZZLE_64B,
@@ -89,6 +97,25 @@ inline bool encode_int8_rows(CUtensorMap* map, const void* base, int cols,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The launches' dtype codes (ops/_ext.py _DTYPE_CODE, the same numbers):
+// bf16 and f16 run the tensor-core kernels, f32 the check kernels.
+constexpr int kDtypeBf16 = 0;
+constexpr int kDtypeF32 = 1;
+constexpr int kDtypeF16 = 2;
+
+// A 16-bit element type as a value (Elem<E>::type), for with_elem.
+template <typename E>
+struct Elem {
+  using type = E;
+};
+
+// f(Elem<E>{}) for the element type of a 16-bit dtype code: __half for
+// kDtypeF16, __nv_bfloat16 otherwise.
+template <typename F>
+auto with_elem(int dtype, F f) {
+  return dtype == kDtypeF16 ? f(Elem<__half>{}) : f(Elem<__nv_bfloat16>{});
+}
+
 // A kernel width as a type (Width<D>::value), for with_width.
 template <int D>
 struct Width {
@@ -97,10 +124,10 @@ struct Width {
 
 // The widest head dim the kernels take: the f32 check kernels hold a lane's
 // columns of a row (d / 32 floats an array) in registers, up to 1024. The
-// bf16 kernels past 256 stream their operands in 64-column atoms and have
+// 16-bit kernels past 256 stream their operands in 64-column atoms and have
 // no width of their own (ops/_ext.py MAX_HEAD_DIM, the same number).
 constexpr int kMaxHeadDim = 1024;
-// Columns of one 128-byte swizzle atom of bf16.
+// Columns of one 128-byte swizzle atom of a 16-bit element type.
 constexpr int kAtomCols = 64;
 
 // f(Width<D>{}) for the kernels' width D that takes head dim d: the next of

@@ -2,9 +2,10 @@
 // SPDX-License-Identifier: Apache-2.0
 //
 // Hopper (sm_90a) building blocks as inline PTX: mbarriers, TMA tile loads,
-// wgmma shared-memory descriptors and the wgmma instructions, and register
-// rebalancing between warpgroups. Header-only, no CUDA driver library: a
-// kernel source includes it and stays a plain-C-interface build.
+// wgmma shared-memory descriptors and the wgmma instructions for the two
+// 16-bit element types (bf16 and f16), and register rebalancing between
+// warpgroups. Header-only, no CUDA driver library: a kernel source includes
+// it and stays a plain-C-interface build.
 //
 // Shared-memory tiles are in the layout a TMA load with 128-byte (or, for
 // 64-byte rows, 64-byte) swizzle writes: row r of a box at r * row_bytes,
@@ -13,9 +14,31 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace sm90 {
+
+// The tensor-core kernels' element types: __nv_bfloat16 and __half, each
+// stored as 16 bits and multiplied with f32 accumulation.
+template <typename E>
+constexpr bool kIsF16 = std::is_same<E, __half>::value;
+
+// Two f32 values rounded to a pair of E (round to nearest even), lo in the
+// low half: the packing of P, dS and every 16-bit output.
+template <typename E>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (kIsF16<E>) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -134,256 +157,139 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
-// D (64 x N, f32, in registers) += A (64 x 16) * B (16 x N), bf16 inputs.
+// D (64 x N, f32, in registers) += A (64 x 16) * B (16 x N), inputs of the
+// 16-bit element type E (bf16 or f16: the .bf16 and .f16 kinds run at one
+// rate, with f32 accumulators).
 // WgmmaSS: A and B from shared-memory descriptors, both K-major.
 // WgmmaRS: A from registers (4 x 32 bits a thread, the layout of a
-// 64 x 16 slice of an f32 accumulator packed to bf16 pairs), B from a
-// descriptor. TransB = 1 reads B as MN-major. scale_d = 0 overwrites D.
+// 64 x 16 slice of an f32 accumulator packed to pairs of E, see pack2),
+// B from a descriptor. TransB = 1 reads B as MN-major. scale_d = 0
+// overwrites D.
 //
 // Accumulator layout: warp w of the warpgroup holds rows 16w + lane / 4
 // and 16w + lane / 4 + 8; register 4j + i holds column 8j + 2 (lane % 4)
 // + (i & 1) of the row 16w + lane / 4 + 8 (i >> 1).
-template <int N, int TransB>
+template <int N, int TransB, typename E = __nv_bfloat16>
 struct WgmmaSS;
-template <int N, int TransB>
+template <int N, int TransB, typename E = __nv_bfloat16>
 struct WgmmaRS;
 
-template <int TransB>
-struct WgmmaSS<128, TransB> {
-  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t da,
-                                             uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-        "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-        "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-        "%57, %58, %59, %60, %61, %62, %63},"
-        "%64, %65, p, 1, 1, 0, %67;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(scale_d), "n"(TransB));
-  }
-};
+// The asm operands: an accumulator of R f32 registers from d[i] on.
+#define SM90_ACC4(d, i) \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define SM90_ACC8(d, i) SM90_ACC4(d, i), SM90_ACC4(d, i + 4)
+#define SM90_ACC16(d, i) SM90_ACC8(d, i), SM90_ACC8(d, i + 8)
+#define SM90_ACC32(d, i) SM90_ACC16(d, i), SM90_ACC16(d, i + 16)
+#define SM90_ACC64(d, i) SM90_ACC32(d, i), SM90_ACC32(d, i + 32)
+#define SM90_ACC128(d, i) SM90_ACC64(d, i), SM90_ACC64(d, i + 64)
 
-template <int TransB>
-struct WgmmaSS<64, TransB> {
-  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t da,
-                                             uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-        "%29, %30, %31},"
-        "%32, %33, p, 1, 1, 0, %35;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(scale_d), "n"(TransB));
-  }
-};
+#define SM90_REGS4 \
+  "%0, %1, %2, %3"
+#define SM90_REGS8 \
+  "%0, %1, %2, %3, %4, %5, %6, %7"
+#define SM90_REGS16 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+  "%15"
+#define SM90_REGS32 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
+  "%28, %29, %30, %31"
+#define SM90_REGS64 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, " \
+  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, " \
+  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define SM90_REGS128 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, " \
+  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, " \
+  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, " \
+  "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, " \
+  "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, " \
+  "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, " \
+  "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, " \
+  "%127"
 
-template <int TransB>
-struct WgmmaSS<32, TransB> {
-  static __device__ __forceinline__ void mma(float (&d)[16], uint64_t da,
-                                             uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-        "%15},"
-        "%16, %17, p, 1, 1, 0, %19;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15])
-        : "l"(da), "l"(db), "r"(scale_d), "n"(TransB));
-  }
-};
+// The instruction text of an SS product (d = %0.., then da, db, scale_d,
+// TransB at operands A, B, S, T) and of an RS product (a at A0..A3).
+#define SM90_SS_ASM(N, TY, REGS, A, B, S, T)                          \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %" S ", 0;\n"                    \
+  "wgmma.mma_async.sync.aligned.m64n" N "k16.f32." TY "." TY " "      \
+  "{" REGS "}, %" A ", %" B ", p, 1, 1, 0, %" T ";\n}\n"
+#define SM90_RS_ASM(N, TY, REGS, A0, A1, A2, A3, B, S, T)             \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %" S ", 0;\n"                    \
+  "wgmma.mma_async.sync.aligned.m64n" N "k16.f32." TY "." TY " "      \
+  "{" REGS "}, {%" A0 ", %" A1 ", %" A2 ", %" A3 "}, %" B             \
+  ", p, 1, 1, %" T ";\n}\n"
 
-template <int TransB>
-struct WgmmaRS<32, TransB> {
-  static __device__ __forceinline__ void mma(float (&d)[16],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-        "%15},"
-        "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(scale_d), "n"(TransB));
-  }
-};
+#define SM90_WGMMA_SS(N, R, REGS, ACC, A, B, S, T)                        \
+  template <int TransB, typename E>                                       \
+  struct WgmmaSS<N, TransB, E> {                                          \
+    static __device__ __forceinline__ void mma(float (&d)[R], uint64_t da, \
+                                               uint64_t db, int scale_d) { \
+      if constexpr (kIsF16<E>) {                                          \
+        asm volatile(SM90_SS_ASM(#N, "f16", REGS, A, B, S, T)             \
+                     : ACC(d, 0)                                          \
+                     : "l"(da), "l"(db), "r"(scale_d), "n"(TransB));      \
+      } else {                                                            \
+        asm volatile(SM90_SS_ASM(#N, "bf16", REGS, A, B, S, T)            \
+                     : ACC(d, 0)                                          \
+                     : "l"(da), "l"(db), "r"(scale_d), "n"(TransB));      \
+      }                                                                   \
+    }                                                                     \
+  };
 
-template <int TransB>
-struct WgmmaRS<64, TransB> {
-  static __device__ __forceinline__ void mma(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-        "%29, %30, %31},"
-        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(scale_d), "n"(TransB));
-  }
-};
+#define SM90_WGMMA_RS(N, R, REGS, ACC, A0, A1, A2, A3, B, S, T)           \
+  template <int TransB, typename E>                                       \
+  struct WgmmaRS<N, TransB, E> {                                          \
+    static __device__ __forceinline__ void mma(float (&d)[R],             \
+                                               const uint32_t (&a)[4],    \
+                                               uint64_t db, int scale_d) { \
+      if constexpr (kIsF16<E>) {                                          \
+        asm volatile(                                                     \
+            SM90_RS_ASM(#N, "f16", REGS, A0, A1, A2, A3, B, S, T)         \
+            : ACC(d, 0)                                                   \
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),        \
+              "r"(scale_d), "n"(TransB));                                 \
+      } else {                                                            \
+        asm volatile(                                                     \
+            SM90_RS_ASM(#N, "bf16", REGS, A0, A1, A2, A3, B, S, T)        \
+            : ACC(d, 0)                                                   \
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),        \
+              "r"(scale_d), "n"(TransB));                                 \
+      }                                                                   \
+    }                                                                     \
+  };
 
-template <int TransB>
-struct WgmmaRS<128, TransB> {
-  static __device__ __forceinline__ void mma(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-        "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-        "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-        "%57, %58, %59, %60, %61, %62, %63},"
-        "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(scale_d), "n"(TransB));
-  }
-};
+SM90_WGMMA_SS(32, 16, SM90_REGS16, SM90_ACC16, "16", "17", "18", "19")
+SM90_WGMMA_SS(64, 32, SM90_REGS32, SM90_ACC32, "32", "33", "34", "35")
+SM90_WGMMA_SS(128, 64, SM90_REGS64, SM90_ACC64, "64", "65", "66", "67")
+SM90_WGMMA_RS(8, 4, SM90_REGS4, SM90_ACC4, "4", "5", "6", "7", "8", "9", "10")
+SM90_WGMMA_RS(16, 8, SM90_REGS8, SM90_ACC8, "8", "9", "10", "11", "12", "13", "14")
+SM90_WGMMA_RS(32, 16, SM90_REGS16, SM90_ACC16, "16", "17", "18", "19", "20", "21", "22")
+SM90_WGMMA_RS(64, 32, SM90_REGS32, SM90_ACC32, "32", "33", "34", "35", "36", "37", "38")
+SM90_WGMMA_RS(128, 64, SM90_REGS64, SM90_ACC64, "64", "65", "66", "67", "68", "69", "70")
+SM90_WGMMA_RS(256, 128, SM90_REGS128, SM90_ACC128, "128", "129", "130", "131", "132", "133", "134")
 
-template <int TransB>
-struct WgmmaRS<8, TransB> {
-  static __device__ __forceinline__ void mma(float (&d)[4],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3"
-        "},"
-        "{%4, %5, %6, %7}, %8, p, 1, 1, %10;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(scale_d), "n"(TransB));
-  }
-};
-
-template <int TransB>
-struct WgmmaRS<16, TransB> {
-  static __device__ __forceinline__ void mma(float (&d)[8],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7"
-        "},"
-        "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(scale_d), "n"(TransB));
-  }
-};
-
-template <int TransB>
-struct WgmmaRS<256, TransB> {
-  static __device__ __forceinline__ void mma(float (&d)[128],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
-        "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
-        "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
-        "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
-        "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
-        "%127"
-        "},"
-        "{%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-          "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-          "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-          "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-          "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
-          "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-          "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
-          "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
-          "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(scale_d), "n"(TransB));
-  }
-};
+#undef SM90_WGMMA_RS
+#undef SM90_WGMMA_SS
+#undef SM90_RS_ASM
+#undef SM90_SS_ASM
+#undef SM90_REGS4
+#undef SM90_REGS8
+#undef SM90_REGS16
+#undef SM90_REGS32
+#undef SM90_REGS64
+#undef SM90_REGS128
+#undef SM90_ACC128
+#undef SM90_ACC64
+#undef SM90_ACC32
+#undef SM90_ACC16
+#undef SM90_ACC8
+#undef SM90_ACC4
 
 // ---- thread-block clusters --------------------------------------------
 

@@ -14,14 +14,16 @@ this file on each tree, parent, change, change, parent:
 
 Run by path, not ``-m``: the package is imported from the tree given,
 which builds its own kernels into its own ``.torch_ext/``. Each run prints
-one JSON line a shape, bf16, causal: the device ms (CUDA events, a warm
-loop) of the forward, dq and dk/dv launches and the whole backward
+one JSON line a shape, causal, in ``--dtype`` (bfloat16 by default;
+float16 needs a tree whose kernels take it): the device ms (CUDA events,
+a warm loop) of the forward, dq and dk/dv launches and the whole backward
 (``flash_bwd``), then one line with the build seconds and the card's name
 and power limit. The shapes: Llama-3-8B's heads at S 8192 and 2048, its
 tp-4 rank (8 q heads over 2 KV heads, S 4096) and Gemma-2B's D 256 over one
 KV head (S 4096); ``--wide`` adds the head widths past 256 (Gemma-2-2B's
-and Gemma-3-1B's D 288 at S 4096, D 512 at S 2048) with SDPA's forward and
-backward times beside them. Needs a GPU.
+and Gemma-3-1B's D 288 at S 4096, D 512 at S 2048, D 1024 at S 2048, the
+widest the kernels take) with SDPA's forward and backward times beside
+them. Needs a GPU.
 """
 
 import argparse
@@ -44,6 +46,7 @@ WIDE_SHAPES = [
     ("gemma3_1b_d288_s4096", (1, 4, 1, 4096, 288),
      ("fwd", "dq", "dkv", "bwd", "sdpa")),
     ("d512_s2048", (1, 8, 8, 2048, 512), ("fwd", "dq", "dkv", "bwd", "sdpa")),
+    ("d1024_s2048", (1, 4, 4, 2048, 1024), ("fwd", "sdpa")),
 ]
 
 
@@ -67,13 +70,14 @@ def time_ms(torch, fn, min_iters=5, budget_ms=400.0):
     return start.elapsed_time(end) / iters
 
 
-def run(torch, _ext, attention, shapes, label):
+def run(torch, _ext, attention, shapes, label, dtype):
     gen = torch.Generator(device="cuda").manual_seed(0)
+    dt = getattr(torch, dtype)
     for name, (batch, hq, hkv, seq, d), kinds in shapes:
         q, g = (torch.randn(batch, hq, seq, d, generator=gen,
-                            device="cuda").bfloat16() for _ in range(2))
+                            device="cuda").to(dt) for _ in range(2))
         k, v = (torch.randn(batch, hkv, seq, d, generator=gen,
-                            device="cuda").bfloat16() for _ in range(2))
+                            device="cuda").to(dt) for _ in range(2))
         kw = dict(causal=True, sm_scale=d ** -0.5)
         out, lse = attention.flash_fwd(q, k, v, **kw)
         delta = (out.float() * g.float()).sum(-1)
@@ -87,7 +91,7 @@ def run(torch, _ext, attention, shapes, label):
                                               dv, **ext),
             "bwd": lambda: attention.flash_bwd(q, k, v, out, lse, g, **kw),
         }
-        row = {"label": label, "case": name,
+        row = {"label": label, "case": name, "dtype": dtype,
                **{f"{kind}_ms": time_ms(torch, calls[kind])
                   for kind in kinds if kind in calls}}
         if "sdpa" in kinds:
@@ -109,6 +113,8 @@ def main():
     parser.add_argument("label", help="a name for its lines (parent, ...)")
     parser.add_argument("--wide", action="store_true",
                         help="also the head widths past 256, with SDPA")
+    parser.add_argument("--dtype", default="bfloat16",
+                        choices=["bfloat16", "float16"])
     args = parser.parse_args()
     # The checkout's package, not this file's directory, comes first.
     sys.path[0] = str(Path(args.tree).resolve())
@@ -125,7 +131,7 @@ def main():
     _ext.build()
     build_s = time.perf_counter() - t0
     run(torch, _ext, attention, SHAPES + (WIDE_SHAPES if args.wide else []),
-        args.label)
+        args.label, args.dtype)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True).stdout

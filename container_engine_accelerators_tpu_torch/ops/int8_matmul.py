@@ -9,10 +9,10 @@ Counterpart of the int8 branch of
 
     y = ((x @ q) with f32 accumulation * scale).astype(out_dtype)
 
-x (..., K) bf16 or f32, q int8 (K, N), scale f32 (1, N): the channel
-scale multiplies the f32 accumulator before the one cast, to x's dtype
-by default; ``out_dtype=torch.float32`` with bf16 x keeps the scaled
-accumulator unrounded (JAX's ``_chunk_mm(..., jnp.float32)``, the
+x (..., K) bf16, f16 or f32, q int8 (K, N), scale f32 (1, N): the
+channel scale multiplies the f32 accumulator before the one cast, to x's
+dtype by default; ``out_dtype=torch.float32`` with bf16 or f16 x keeps the
+scaled accumulator unrounded (JAX's ``_chunk_mm(..., jnp.float32)``, the
 tensor-parallel reduce-scatter's partial sums), on the same tensor-core
 kernels. XLA fuses the
 int8 convert into the matmul's operand read; in PyTorch
@@ -72,8 +72,9 @@ def _check(x, qt, scale):
     if scale.numel() != n or scale.dtype != torch.float32:
         raise ValueError(f"scale must hold {n} float32 values, got "
                          f"{scale.dtype} {tuple(scale.shape)}")
-    if x.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"x must be bfloat16 or float32, got {x.dtype}")
+    if x.dtype not in (torch.bfloat16, torch.float16, torch.float32):
+        raise ValueError(f"x must be bfloat16, float16 or float32, got "
+                         f"{x.dtype}")
 
 
 def _out_dtype(x, out_dtype):

@@ -36,8 +36,13 @@ pytestmark = pytest.mark.cuda
 
 # Kernel vs flash_fwd_reference on the same inputs. bf16: both round p
 # and out to bf16 but p at different running maxima, so an output may
-# differ by about one bf16 step (2^-8 relative); f32: summation order.
-TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (2e-5, 0.0)}
+# differ by about one bf16 step (2^-8 relative); f16 the same at its step
+# (2^-11, 8 times finer); f32: summation order.
+TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float16: (2e-3, 2e-3),
+       torch.float32: (2e-5, 0.0)}
+# The flash kernels' dtypes: the 16-bit tensor-core kernels and the f32
+# check kernels.
+DTYPES = [torch.bfloat16, torch.float16, torch.float32]
 
 
 @pytest.fixture
@@ -98,6 +103,12 @@ CASES = {
     "d384_q_base": ((1, 4, 2, 100, 512, 384), True, {"q_base": 300}),
     "d512_mha": ((1, 8, 8, 256, 256, 512), True, {}),
     "d1024_mqa": ((1, 2, 1, 200, 200, 1024), True, {}),
+    # The wide forward's edges: D 640, the widest whose 128-row q tile
+    # stays resident (10 atoms), Sq not a multiple of the tile; D 648, the
+    # first streamed; D 288 rows with no visible key (k_base 64).
+    "d640_resident_edge": ((1, 4, 2, 200, 333, 640), True, {"q_base": 100}),
+    "d648_streamed": ((1, 4, 2, 200, 200, 648), True, {}),
+    "d288_future_keys": ((1, 4, 2, 128, 128, 288), True, {"k_base": 64}),
 }
 # The paged engine's prefill segments: a segment bucket below the 128-row
 # q tile at a block-aligned (not tile-aligned) q_base, against a window
@@ -111,7 +122,7 @@ FWD_CASES = {
 }
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("name", sorted(FWD_CASES))
 def test_kernel_matches_plain_version(gen, name, dtype):
     (b, hq, hkv, sq, sk, d), causal, kw = FWD_CASES[name]
@@ -131,7 +142,7 @@ def test_kernel_matches_plain_version(gen, name, dtype):
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_kernel_without_keys_gives_zero_rows(gen, dtype):
     """Sk = 0: every row sees no key, so out = 0 and lse = -1e30, as for
     any row without a visible key (the bf16 kernel loads no K/V tile)."""
@@ -147,7 +158,7 @@ def test_kernel_rejects_what_it_does_not_take(gen):
     q = torch.randn(1, 2, 16, 1032, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim 1032.*1024"):
         attention.flash_fwd(q, q, q, causal=True, sm_scale=0.1)
-    q = torch.randn(1, 2, 16, 64, device="cuda", dtype=torch.float16)
+    q = torch.randn(1, 2, 16, 64, device="cuda", dtype=torch.float64)
     with pytest.raises(ValueError, match="dtype"):
         attention.flash_fwd(q, q, q, causal=True, sm_scale=0.1)
     q = torch.randn(1, 16, 2, 64, device="cuda",
@@ -411,10 +422,11 @@ def test_graphs_stay_valid_across_a_pool_reset(gen):
 BASE_CASES = ("q_base_window", "kv_len_rows_past_keys", "noncausal_kv_len",
               "future_keys", "diagonal_mid_tile", "kv_len_in_first_tile",
               "d32_ragged", "paged_sq16", "paged_sq64", "d288_sq16",
-              "d300_padded_kv_len")
+              "d300_padded_kv_len", "d640_resident_edge", "d288_future_keys",
+              "d648_streamed")
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("name", BASE_CASES)
 def test_device_base_is_bit_equal_to_the_int_arguments(gen, name, dtype):
     """The kernel reading [q_base, k_base, kv_len] from a device (B, 3)
@@ -436,7 +448,7 @@ def test_device_base_is_bit_equal_to_the_int_arguments(gen, name, dtype):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_per_row_bases_in_one_launch_equal_per_row_launches(gen, dtype):
     """One launch over B rows at their own bases (a verify's decode
     positions, a k_base, a kv_len inside the window, one past Sk and one
@@ -557,6 +569,7 @@ def test_verify_replay_equals_the_eager_batch(gen):
 # up to f32 summation-order noise, and each writes one bf16 output (about
 # 2^-9 of a row's norm); f32: summation order only.
 BWD_TOL = {torch.bfloat16: {"rel_l2": 5e-3, "row": 1e-2},
+           torch.float16: {"rel_l2": 1e-3, "row": 2e-3},
            torch.float32: {"rel_l2": 1e-5, "row": 1e-4}}
 BWD_CASES = {
     **CASES,
@@ -572,7 +585,7 @@ BWD_CASES = {
 }
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("name", sorted(BWD_CASES))
 def test_bwd_kernels_match_plain_version(gen, name, dtype):
     (b, hq, hkv, sq, sk, d), causal, kw = BWD_CASES[name]
@@ -608,17 +621,18 @@ SPLIT_CASES = {
 }
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("name", sorted(SPLIT_CASES))
-def test_split_dkv_is_the_same_bits_every_run(gen, name):
+def test_split_dkv_is_the_same_bits_every_run(gen, name, dtype):
     """The split blocks' f32 partials, summed in a fixed order by the
     second kernel, give the same bits on every run, and agree with the
     plain version of the split (``flash_bwd_dkv_split_reference``)."""
     b, hq, hkv, s, d = SPLIT_CASES[name]
     split, _, _ = _ext.dkv_plan(b, hq, hkv, s, d, _ext.sm_count(0))
     assert split > 1, name
-    q, g = (torch.randn(b, hq, s, d, generator=gen, device="cuda").bfloat16()
+    q, g = (torch.randn(b, hq, s, d, generator=gen, device="cuda").to(dtype)
             for _ in range(2))
-    k, v = (torch.randn(b, hkv, s, d, generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn(b, hkv, s, d, generator=gen, device="cuda").to(dtype)
             for _ in range(2))
     kw = dict(causal=True, sm_scale=d ** -0.5)
     out, lse = attention.flash_fwd(q, k, v, **kw)
@@ -629,7 +643,7 @@ def test_split_dkv_is_the_same_bits_every_run(gen, name):
         assert all(torch.equal(a, b) for a, b in zip(runs[0], other)), name
     ref = attention.flash_bwd_dkv_split_reference(q, k, v, out, lse, g,
                                                   split=split, **kw)
-    tol = BWD_TOL[torch.bfloat16]
+    tol = BWD_TOL[dtype]
     for got, want in zip(runs[0], ref):
         _, rel_l2, worst_row = chip_smoke.grad_errors(got, want)
         assert rel_l2 <= tol["rel_l2"] and worst_row <= tol["row"], name
@@ -877,13 +891,14 @@ def _int8_operands(gen, m, k, n, dtype):
     return x, qw["q"].T.contiguous(), qw["scale"]
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", INT8_SHAPES, ids=str)
 def test_int8_mm_matches_plain_version(gen, shape, dtype):
     """The kernel against ``int8_mm_reference`` on the same operands. bf16:
     both sum exact int8 x bf16 products in f32 and round once, so they
     agree to one bf16 step (2^-7 of |ref|) plus the f32 summation-order
-    noise; f32: summation order only. One launch counted per call."""
+    noise; f16 the same at its step (2^-10); f32: summation order only.
+    One launch counted per call."""
     m, k, n = shape
     x, qt, scale = _int8_operands(gen, m, k, n, dtype)
     before = int8_matmul.int8_mm_launches
@@ -892,23 +907,25 @@ def test_int8_mm_matches_plain_version(gen, shape, dtype):
     assert int8_matmul.int8_mm_launches == before + 1
     want = int8_matmul.int8_mm_reference(x, qt, scale)
     assert got.dtype == dtype and got.shape == (m, n)
-    rtol, atol = (2.0 ** -7, 1e-3) if dtype == torch.bfloat16 else \
-        (1e-5, 1e-5)
+    rtol, atol = {torch.bfloat16: (2.0 ** -7, 1e-3),
+                  torch.float16: (2.0 ** -10, 1e-3),
+                  torch.float32: (1e-5, 1e-5)}[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                atol=atol)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("shape", INT8_SHAPES, ids=str)
-def test_int8_mm_f32_output_matches_plain_version(gen, shape):
-    """bf16 activations with an f32 output (the tensor-parallel
+def test_int8_mm_f32_output_matches_plain_version(gen, shape, dtype):
+    """16-bit activations with an f32 output (the tensor-parallel
     reduce-scatter's partial sums): the tensor-core kernels with the scaled
     accumulator written unrounded, against ``int8_mm_reference`` with the
-    same output dtype. Both sum exact int8 x bf16 products in f32, so only
-    the order of the f32 sums differs; the bf16-output launch on the same
-    operands (the same tiles and K splits) is that result rounded once,
-    bit for bit."""
+    same output dtype. Both sum exact int8 x bf16 (f16) products in f32, so
+    only the order of the f32 sums differs; the 16-bit-output launch on the
+    same operands (the same tiles and K splits) is that result rounded
+    once, bit for bit."""
     m, k, n = shape
-    x, qt, scale = _int8_operands(gen, m, k, n, torch.bfloat16)
+    x, qt, scale = _int8_operands(gen, m, k, n, dtype)
     before = int8_matmul.int8_mm_launches
     got = int8_matmul.int8_mm(x, qt, scale, out_dtype=torch.float32)
     torch.cuda.synchronize()
@@ -916,9 +933,13 @@ def test_int8_mm_f32_output_matches_plain_version(gen, shape):
     assert got.dtype == torch.float32 and got.shape == (m, n)
     want = int8_matmul.int8_mm_reference(x, qt, scale,
                                          out_dtype=torch.float32)
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-    assert torch.equal(int8_matmul.int8_mm(x, qt, scale),
-                       got.to(torch.bfloat16))
+    # f16 products carry up to 18 significant bits where bf16's carry 15,
+    # so the f32 partial sums round from the first few terms on: order
+    # noise of about sqrt(K) 2^-24 |y|, 2e-5 at K 14336 and |y| ~ 3
+    # (observed 1.4e-5); bf16's sums stay exact longer.
+    atol = 1e-5 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
+    assert torch.equal(int8_matmul.int8_mm(x, qt, scale), got.to(dtype))
 
 
 @pytest.mark.parametrize("shape", [(8, 4096, 1024), (128, 512, 200),
@@ -989,8 +1010,8 @@ def test_int8_mm_unaligned_weight_takes_the_elementwise_path(gen, m):
 
 def test_int8_mm_rejects_what_it_does_not_take(gen):
     x, qt, scale = _int8_operands(gen, 4, 64, 32, torch.bfloat16)
-    with pytest.raises(ValueError, match="bfloat16 or float32"):
-        int8_matmul.int8_mm(x.half(), qt, scale)
+    with pytest.raises(ValueError, match="bfloat16, float16 or float32"):
+        int8_matmul.int8_mm(x.double(), qt, scale)
     with pytest.raises(ValueError, match="int8"):
         int8_matmul.int8_mm(x, qt.float(), scale)
     with pytest.raises(ValueError, match="last dim"):

@@ -241,7 +241,7 @@ def test_kernel_head_dim_refuses_past_256(d):
     width = -(-d // 8) * 8
     assert _ext.kernel_head_dim(d) == (width, width)
     assert _ext.column_chunks(width, _ext.FWD_CHUNK_ATOMS)[0] == \
-        -(-width // 256)
+        -(-width // (_ext.ATOM_COLS * _ext.FWD_CHUNK_ATOMS))
 
 
 def test_padded_copy_is_zero_past_the_width():

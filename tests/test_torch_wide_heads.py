@@ -256,7 +256,8 @@ def test_kernel_head_dim_from_1_to_1100():
 
 
 @pytest.mark.parametrize("max_atoms", [_ext.DKV_CHUNK_ATOMS,
-                                       _ext.FWD_CHUNK_ATOMS])
+                                       _ext.FWD_CHUNK_ATOMS,
+                                       _ext.DQ_CHUNK_ATOMS])
 def test_column_chunks_cover_every_atom_once(max_atoms):
     """Every padded width up to 1024: the fewest chunks of at most
     ``max_atoms`` 64-column atoms, none empty, all but the last ``per``
@@ -268,9 +269,31 @@ def test_column_chunks_cover_every_atom_once(max_atoms):
         sizes = [min(per, atoms - c * per) for c in range(n)]
         assert min(sizes) >= 1 and max(sizes) <= max_atoms, width
         assert sizes[:-1] == [per] * (n - 1) and sum(sizes) == atoms, width
-    # D 288: 5 atoms; the forward's 3 + 2, dk/dv's 2 + 2 + 1.
-    assert _ext.column_chunks(288, _ext.FWD_CHUNK_ATOMS) == (2, 3)
+    # D 288: 5 atoms; the forward's one chunk (the scores formed once a
+    # key tile), dq's 3 + 2, dk/dv's 2 + 2 + 1.
+    assert _ext.column_chunks(288, _ext.FWD_CHUNK_ATOMS) == (1, 5)
+    assert _ext.column_chunks(288, _ext.DQ_CHUNK_ATOMS) == (2, 3)
     assert _ext.column_chunks(288, _ext.DKV_CHUNK_ATOMS) == (3, 2)
+
+
+# Padded width -> (q resident, chunks, atoms a chunk) of the wide forward.
+WIDE_FWD_PLANS = {264: (True, 1, 5), 288: (True, 1, 5), 320: (True, 1, 5),
+                  384: (True, 2, 3), 512: (True, 2, 4), 640: (True, 2, 5),
+                  648: (False, 3, 4), 1024: (False, 4, 4)}
+
+
+@pytest.mark.parametrize("width", sorted(WIDE_FWD_PLANS))
+def test_wide_forward_plan_keeps_q_resident(width):
+    """The wide forward keeps its 128-row q tile in shared memory up to D
+    640 (10 atoms, 160 KB beside a 40 KB V stage of 5 atoms and at least
+    two 8 KB K slots); up to D 320 one chunk holds the whole O. Past 640
+    the streaming kernel cuts O into chunks of 4 atoms."""
+    resident, n, per = _ext.wide_fwd_plan(width)
+    assert (resident, n, per) == WIDE_FWD_PLANS[width]
+    atoms = -(-width // _ext.ATOM_COLS)
+    q_tile = 128 * atoms * 128
+    v_stage, two_slots = 5 * 8192 + 16, 2 * (8192 + 16)
+    assert resident == (q_tile + 8 + 1024 + v_stage + two_slots <= 231424)
 
 
 # (B, Hq, Hkv, Sk, width) -> the plan on a 132-SM card.
